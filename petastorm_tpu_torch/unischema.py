@@ -1,0 +1,285 @@
+"""Dataset schema: one declaration rendered to numpy rows and Arrow storage.
+
+A :class:`Unischema` declares the logical record type of a dataset — field
+names, numpy dtypes, tensor shapes (``None`` marks a variable dimension),
+per-field storage codecs and nullability. The JSON form written by
+:meth:`Unischema.to_dict` is the one the JAX package writes, so a store
+written by either package is read by the other.
+"""
+from __future__ import annotations
+
+import re
+from collections import OrderedDict, namedtuple
+from dataclasses import dataclass
+from decimal import Decimal
+from typing import Any, Optional, Sequence, Tuple
+
+import numpy as np
+
+from petastorm_tpu_torch.errors import SchemaError
+
+
+def _shape_tuple(shape) -> Tuple[Optional[int], ...]:
+    if shape is None:
+        return ()
+    if isinstance(shape, (list, tuple)):
+        return tuple(shape)
+    raise ValueError(f"shape must be a tuple/list/None, got {shape!r}")
+
+
+@dataclass(frozen=True)
+class UnischemaField:
+    """A single field declaration.
+
+    :param name: field name (a valid identifier: rows render as namedtuples)
+    :param numpy_dtype: the decoded, in-memory dtype (numpy dtype, numpy
+        scalar type, ``Decimal`` or ``str``/``bytes``)
+    :param shape: tensor shape of one record's value; ``()`` for scalars;
+        ``None`` dimensions are variable
+    :param codec: storage codec (see :mod:`petastorm_tpu_torch.codecs`);
+        ``None`` selects scalar passthrough for scalars, ndarray bytes
+        otherwise
+    :param nullable: whether nulls are permitted
+    """
+    name: str
+    numpy_dtype: Any
+    shape: Tuple[Optional[int], ...] = ()
+    codec: Any = None
+    nullable: bool = False
+
+    def __init__(self, name, numpy_dtype, shape=(), codec=None, nullable=False):
+        object.__setattr__(self, "name", name)
+        object.__setattr__(self, "numpy_dtype", numpy_dtype)
+        object.__setattr__(self, "shape", _shape_tuple(shape))
+        object.__setattr__(self, "codec", codec)
+        object.__setattr__(self, "nullable", bool(nullable))
+
+    @property
+    def is_scalar(self) -> bool:
+        return len(self.shape) == 0
+
+    def __repr__(self):
+        return (f"UnischemaField({self.name!r}, {_dtype_name(self.numpy_dtype)}, "
+                f"{self.shape}, codec={self.codec!r}, nullable={self.nullable})")
+
+    # Equality/hash must tolerate unhashable codec instances and dtype aliases.
+    def __eq__(self, other):
+        if not isinstance(other, UnischemaField):
+            return NotImplemented
+        return (self.name == other.name
+                and _dtype_name(self.numpy_dtype) == _dtype_name(other.numpy_dtype)
+                and self.shape == other.shape
+                and type(self.codec) is type(other.codec)
+                and self.nullable == other.nullable)
+
+    def __hash__(self):
+        return hash((self.name, _dtype_name(self.numpy_dtype), self.shape,
+                     type(self.codec), self.nullable))
+
+
+def _dtype_name(numpy_dtype) -> str:
+    if numpy_dtype is Decimal:
+        return "decimal"
+    if numpy_dtype is str:
+        return "str"
+    if numpy_dtype is bytes:
+        return "bytes"
+    return np.dtype(numpy_dtype).name
+
+
+def _dtype_from_name(name: str):
+    if name == "decimal":
+        return Decimal
+    if name == "str":
+        return str
+    if name == "bytes":
+        return bytes
+    return np.dtype(name)
+
+
+class _NamedtupleCache:
+    """Process-wide cache of row namedtuple types keyed by (schema name,
+    fields): recreating the type per row would defeat ``isinstance`` checks
+    and cost an allocation in the hot loop."""
+    _cache: dict = {}
+
+    @classmethod
+    def get(cls, parent_name: str, field_names: Sequence[str]):
+        key = (parent_name, tuple(field_names))
+        if key not in cls._cache:
+            cls._cache[key] = namedtuple(parent_name + "_view", field_names)
+        return cls._cache[key]
+
+
+class Unischema:
+    """An ordered (by name) collection of :class:`UnischemaField`.
+
+    Fields are accessible as attributes (``schema.my_field``) and through the
+    ``fields`` ordered mapping.
+    """
+
+    def __init__(self, name: str, fields: Sequence[UnischemaField]):
+        self._name = name
+        self._fields = OrderedDict((f.name, f) for f in sorted(fields, key=lambda f: f.name))
+        if len(self._fields) != len(fields):
+            names = [f.name for f in fields]
+            dupes = sorted({n for n in names if names.count(n) > 1})
+            raise ValueError(f"Duplicate field names in schema {name!r}: {dupes}")
+
+    def __getattr__(self, item):
+        fields = self.__dict__.get("_fields")
+        if fields is not None and item in fields:
+            return fields[item]
+        raise AttributeError(f"{type(self).__name__!s} has no attribute/field {item!r}")
+
+    @property
+    def name(self) -> str:
+        return self._name
+
+    @property
+    def fields(self) -> "OrderedDict[str, UnischemaField]":
+        return self._fields
+
+    def __iter__(self):
+        return iter(self._fields.values())
+
+    def __len__(self):
+        return len(self._fields)
+
+    def __repr__(self):
+        lines = ",\n  ".join(repr(f) for f in self._fields.values())
+        return f"Unischema({self._name!r}, [\n  {lines}\n])"
+
+    def __eq__(self, other):
+        if not isinstance(other, Unischema):
+            return NotImplemented
+        return list(self._fields.values()) == list(other._fields.values())
+
+    def __hash__(self):
+        return hash(tuple(self._fields.values()))
+
+    def create_schema_view(self, fields) -> "Unischema":
+        """Sub-schema of the requested fields: UnischemaField instances,
+        exact names, or regex patterns (``re.fullmatch`` on the name)."""
+        selected: "OrderedDict[str, UnischemaField]" = OrderedDict()
+        for spec in fields:
+            if isinstance(spec, UnischemaField):
+                if spec.name not in self._fields:
+                    raise ValueError(f"Field {spec.name!r} does not belong to schema {self._name!r}")
+                selected[spec.name] = self._fields[spec.name]
+            elif isinstance(spec, str):
+                matched = match_unischema_fields(self, [spec])
+                if not matched:
+                    raise ValueError(f"Field pattern {spec!r} matched no fields in schema {self._name!r}")
+                for f in matched:
+                    selected[f.name] = f
+            else:
+                raise TypeError(f"Expected UnischemaField or str, got {type(spec)}")
+        return Unischema(self._name + "_view", list(selected.values()))
+
+    @property
+    def namedtuple(self):
+        return _NamedtupleCache.get(self._name, list(self._fields.keys()))
+
+    def make_namedtuple_from_dict(self, row: dict):
+        tt = self.namedtuple
+        return tt(**{k: row.get(k) for k in tt._fields})
+
+    @property
+    def decode_plan(self):
+        """Cached ``[(name, field, resolved_codec)]`` for the decode loop."""
+        plan = self.__dict__.get("_decode_plan")
+        if plan is None:
+            plan = [(name, f, f.codec or _default_codec(f))
+                    for name, f in self._fields.items()]
+            self.__dict__["_decode_plan"] = plan
+        return plan
+
+    # ------------------------------------------------------------- renderers
+    def as_arrow_schema(self):
+        """The storage schema (post-codec-encode) as a ``pyarrow.Schema``."""
+        import pyarrow as pa
+        pa_fields = []
+        for f in self._fields.values():
+            codec = f.codec or _default_codec(f)
+            pa_fields.append(pa.field(f.name, codec.arrow_type(f), nullable=f.nullable))
+        return pa.schema(pa_fields)
+
+    # ---------------------------------------------------------- (de)serialize
+    def to_dict(self) -> dict:
+        """JSON-able schema document (no pickle), as stored in metadata."""
+        from petastorm_tpu_torch.codecs import codec_to_dict
+        return {
+            "name": self._name,
+            "fields": [
+                {
+                    "name": f.name,
+                    "numpy_dtype": _dtype_name(f.numpy_dtype),
+                    "shape": list(f.shape),
+                    "codec": codec_to_dict(f.codec),
+                    "nullable": f.nullable,
+                } for f in self._fields.values()
+            ],
+        }
+
+    @classmethod
+    def from_dict(cls, doc: dict) -> "Unischema":
+        from petastorm_tpu_torch.codecs import codec_from_dict
+        fields = [UnischemaField(fd["name"], _dtype_from_name(fd["numpy_dtype"]),
+                                 tuple(fd["shape"]), codec_from_dict(fd["codec"]),
+                                 fd["nullable"])
+                  for fd in doc["fields"]]
+        return cls(doc["name"], fields)
+
+
+def _default_codec(field: UnischemaField):
+    from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+    if field.is_scalar:
+        return ScalarCodec(field.numpy_dtype)
+    return NdarrayCodec()
+
+
+# ---------------------------------------------------------------------- rows
+def dict_to_encoded_row(schema: Unischema, row: dict) -> dict:
+    """Validate and codec-encode one row dict for storage: rejects
+    unexpected fields, inserts explicit nulls for absent nullable fields,
+    and runs each field's codec ``encode`` (which checks shape and dtype)."""
+    if not isinstance(row, dict):
+        raise TypeError(f"row must be a dict, got {type(row)}")
+    unexpected = set(row.keys()) - set(schema.fields.keys())
+    if unexpected:
+        raise ValueError(f"Fields not in schema {schema.name!r}: {sorted(unexpected)}")
+
+    full_row = dict(row)
+    insert_explicit_nulls(schema, full_row)
+
+    encoded = {}
+    for name, field in schema.fields.items():
+        value = full_row[name]
+        if value is None:
+            if not field.nullable:
+                raise SchemaError(f"Field {name!r} is not nullable but got None")
+            encoded[name] = None
+            continue
+        codec = field.codec or _default_codec(field)
+        encoded[name] = codec.encode(field, value)
+    return encoded
+
+
+def insert_explicit_nulls(schema: Unischema, row: dict) -> None:
+    """Add ``None`` entries for absent nullable fields; raise on absent
+    non-nullable fields."""
+    for name, field in schema.fields.items():
+        if name not in row:
+            if field.nullable:
+                row[name] = None
+            else:
+                raise SchemaError(f"Field {name!r} is required (nullable=False) but missing from row")
+
+
+def match_unischema_fields(schema: Unischema, field_regexes: Sequence[str]):
+    """Fields whose names fully match any of the given regexes."""
+    if not field_regexes:
+        return []
+    compiled = [re.compile(p) for p in field_regexes]
+    return [f for f in schema.fields.values() if any(c.fullmatch(f.name) for c in compiled)]
