@@ -5,6 +5,8 @@ seeded row buffer, collated into ``{field: array}`` batches of
 ``batch_size`` rows, and staged onto ``device`` by a background thread that
 keeps ``prefetch`` batches ready. The collated host batches are the ones
 the JAX package's ``DataLoader`` builds from the same reader settings.
+NGram windows collate to a dense ``(batch, length, *shape)`` array per
+field (see :meth:`DataLoader._collate_ngram`).
 
 Staging to a CUDA device:
 
@@ -114,6 +116,7 @@ class DataLoader:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self._device = resolve_device(device)
         self._reader = reader
+        self._ngram = getattr(reader, "ngram", None)
         self._batch_size = batch_size
         self._shuffling_capacity = shuffling_queue_capacity
         self._min_after = min_after_retrieve
@@ -152,6 +155,8 @@ class DataLoader:
                 return
 
     def _collate(self, rows) -> Dict[str, np.ndarray]:
+        if self._ngram is not None:
+            return self._collate_ngram(rows)
         out = {}
         fields = self._reader.schema.fields
         for name in rows[0]._fields:
@@ -167,6 +172,48 @@ class DataLoader:
                 raise ValueError(f"Field {name!r} contains nulls; exclude the field "
                                  f"or fill the nulls before batching")
             out[name] = np.stack([np.asarray(v) for v in values])
+        return out
+
+    def _collate_ngram(self, windows) -> Dict[str, np.ndarray]:
+        """NGram windows -> one array per field with the window offsets as
+        a dense sequence axis, ``(batch, length, *shape)``. Dense windows
+        (``{name: (length, *shape)}``) stack once per field. Row windows
+        (``{offset: namedtuple}``) stack per offset when every offset has
+        the same fields, and otherwise flatten to ``"{name}/{offset}"`` keys
+        of ``(batch, *shape)``."""
+        if self._ngram.dense:
+            out = {}
+            for name in windows[0]:
+                arr = np.stack([w[name] for w in windows])
+                if arr.dtype == object:
+                    raise ValueError(f"Field {name!r} contains nulls or ragged values; "
+                                     f"exclude the field or fill them before batching")
+                out[name] = arr
+            return out
+        offsets = sorted(windows[0].keys())
+        fieldsets = [tuple(windows[0][o]._fields) for o in offsets]
+        fields = self._reader.schema.fields
+
+        def column(name, values):
+            field = fields.get(name)
+            if any(v is None for v in values):
+                raise ValueError(f"Field {name!r} contains nulls; exclude the field "
+                                 f"or fill the nulls before batching")
+            if field is not None and any(d is None for d in field.shape):
+                raise ValueError(f"Field {name!r} is variable-length; NGram windows "
+                                 f"stack into dense arrays: exclude the field or pad "
+                                 f"it at write time")
+            return np.stack([np.asarray(v) for v in values])
+
+        out = {}
+        if all(fs == fieldsets[0] for fs in fieldsets):
+            for name in fieldsets[0]:
+                out[name] = np.stack([column(name, [getattr(w[o], name) for w in windows])
+                                      for o in offsets], axis=1)
+        else:
+            for o in offsets:
+                for name in windows[0][o]._fields:
+                    out[f"{name}/{o}"] = column(name, [getattr(w[o], name) for w in windows])
         return out
 
     def _finalize_tail(self, cols: Dict[str, np.ndarray], count: int):

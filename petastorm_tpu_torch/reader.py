@@ -5,7 +5,8 @@ The reader plans the store's row groups (optionally sharded
 in a per-epoch order seeded exactly as the JAX package seeds it — and
 yields the rows the workers decode. Given the same store, seed and
 settings, it yields the same rows in the same order as the JAX package's
-``make_reader``.
+``make_reader``. With ``schema_fields=NGram(...)`` it yields the NGram's
+windows instead of rows.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Optional
 from petastorm_tpu_torch.errors import NoDataAvailableError
 from petastorm_tpu_torch.etl.dataset_metadata import (DatasetContext, get_schema,
                                                       load_row_groups)
+from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.reader_impl.row_reader_worker import RowReaderWorker
 from petastorm_tpu_torch.workers_pool import EmptyResultError, ITEM_CONTEXT_KWARG
 from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
@@ -40,7 +42,10 @@ def make_reader(dataset_url: str,
     """Reader over a store written by ``materialize_dataset_local`` (either
     package's).
 
-    :param schema_fields: UnischemaFields or name regexes narrowing the output
+    :param schema_fields: UnischemaFields or name regexes narrowing the output,
+        or an :class:`~petastorm_tpu_torch.ngram.NGram`: the reader then
+        yields its windows (``{offset: namedtuple}``, or ``{name: array}``
+        when ``dense``), assembled inside each row group
     :param reader_pool_type: ``'thread'`` or ``'dummy'`` (inline, one thread)
     :param workers_count: decode threads of the thread pool
     :param results_queue_size: bound of each worker's result queue
@@ -73,7 +78,8 @@ def make_reader(dataset_url: str,
 
 
 class Reader:
-    """Iterator of row namedtuples (fields of ``reader.schema``).
+    """Iterator of row namedtuples (fields of ``reader.schema``), or of
+    NGram windows when ``reader.ngram`` is set.
 
     Use as a context manager, or call ``stop()`` then ``join()``. After a
     pass is fully consumed, ``reset()`` starts another one.
@@ -89,8 +95,16 @@ class Reader:
                              f"got {cur_shard!r}")
         ctx = DatasetContext(dataset_url)
         stored_schema = get_schema(ctx)
-        self.schema = (stored_schema.create_schema_view(schema_fields)
-                       if schema_fields is not None else stored_schema)
+        #: The NGram windows are formed by, or None for a row reader.
+        self.ngram: Optional[NGram] = None
+        if isinstance(schema_fields, NGram):
+            self.ngram = schema_fields
+            self.ngram.resolve_regex_field_names(stored_schema)
+            self.schema = stored_schema
+        elif schema_fields is not None:
+            self.schema = stored_schema.create_schema_view(schema_fields)
+        else:
+            self.schema = stored_schema
 
         all_row_groups = load_row_groups(ctx)
         row_groups = all_row_groups
@@ -114,7 +128,7 @@ class Reader:
         self.last_row_consumed = False
         pool.start(RowReaderWorker,
                    {"dataset_url": dataset_url, "schema": stored_schema, "view_schema": self.schema,
-                    "shuffle_rows": shuffle_rows, "seed": seed},
+                    "ngram": self.ngram, "shuffle_rows": shuffle_rows, "seed": seed},
                    ventilator=self._ventilator)
 
     def __iter__(self):
@@ -127,7 +141,10 @@ class Reader:
             except EmptyResultError:
                 self.last_row_consumed = True
                 raise StopIteration from None
-        return self.schema.make_namedtuple_from_dict(self._buffer.popleft())
+        item = self._buffer.popleft()
+        if self.ngram is not None:
+            return item   # already a window
+        return self.schema.make_namedtuple_from_dict(item)
 
     def reset(self):
         """Start another pass; only legal once the current one is consumed."""

@@ -1,9 +1,12 @@
-"""Row reader worker: one row group -> a list of decoded row dicts.
+"""Row reader worker: one row group -> a list of decoded row dicts, or of
+NGram windows.
 
-Reads only the columns the output schema needs, shuffles the row order
-inside the group when asked (with the same per-item generator as the JAX
-package, ``np.random.default_rng((seed, epoch, position))``), codec-decodes
-column by column and publishes the rows.
+Reads only the columns the output schema (or the NGram) needs, shuffles
+the row order inside the group when asked (with the same per-item
+generator as the JAX package, ``np.random.default_rng((seed, epoch,
+position))``), codec-decodes column by column and publishes the rows. An
+NGram reader sorts the rows by timestamp and publishes windows instead:
+column-major for a dense NGram over numeric columns, else row by row.
 """
 from __future__ import annotations
 
@@ -90,10 +93,16 @@ def item_shuffle_rng(seed, shuffle_context, fallback_rng):
     return fallback_rng
 
 
+def _scalar_fast_col(field, codec, col) -> bool:
+    """A scalar numeric column whose decode is a dtype cast."""
+    return (isinstance(col, np.ndarray) and col.dtype.kind in "biuf"
+            and field.shape == () and type(codec) is ScalarCodec)
+
+
 class RowReaderWorker(WorkerBase):
     """``args`` dict keys: ``dataset_url``, ``schema``
     (the stored Unischema), ``view_schema`` (the narrowed output),
-    ``shuffle_rows`` and ``seed``."""
+    ``ngram`` (an NGram or None), ``shuffle_rows`` and ``seed``."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
@@ -101,26 +110,29 @@ class RowReaderWorker(WorkerBase):
         self._rng = np.random.default_rng(
             None if args["seed"] is None else args["seed"] + worker_id)
         schema = args["schema"]
+        ngram = args.get("ngram")
+        # An NGram needs every timestep's fields and the timestamp.
+        self._needed = set(ngram.get_field_names_at_all_timesteps() if ngram is not None
+                           else args["view_schema"].fields)
         self._decode_schema = schema.create_schema_view(
-            [n for n in sorted(args["view_schema"].fields) if n in schema.fields])
+            [n for n in sorted(self._needed) if n in schema.fields])
 
     def process(self, rowgroup, shuffle_context=None):
         if self._files is None:
             from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext
             ctx = DatasetContext(self.args["dataset_url"])
             self._files = _ParquetFileLRU(ctx.filesystem)
-        wanted = set(self.args["view_schema"].fields)
         pf = self._files.get(rowgroup.path)
         names = set(pf.schema_arrow.names)
         # Workers are the parallelism unit: arrow's own threads would only
         # oversubscribe the cores.
         table = pf.read_row_group(rowgroup.row_group,
-                                  columns=[c for c in sorted(wanted) if c in names],
+                                  columns=[c for c in sorted(self._needed) if c in names],
                                   use_threads=False)
         data = {name: _column_values(table.column(name)) for name in table.column_names}
         # Hive partition keys are path components, not file columns.
         for key, value in rowgroup.partition_values:
-            if key in wanted and key not in data:
+            if key in self._needed and key not in data:
                 data[key] = [value] * table.num_rows
 
         indices = np.arange(table.num_rows)
@@ -128,13 +140,64 @@ class RowReaderWorker(WorkerBase):
             rng = item_shuffle_rng(self.args["seed"], shuffle_context, self._rng)
             indices = rng.permutation(indices)
 
+        ngram = self.args.get("ngram")
+        if ngram is not None and ngram.dense and self._dense_vectorizable(data, indices):
+            result = self._dense_windows(ngram, data, indices)
+        else:
+            cols = {}
+            for name, field, codec in self._decode_schema.decode_plan:
+                if name in data:
+                    cols[name] = _decode_column(field, codec, data[name], indices)
+            result = [{n: c[j] for n, c in cols.items()} for j in range(len(indices))]
+            if ngram is not None:
+                ts = ngram.timestamp_field_name
+                result.sort(key=lambda r: r[ts])   # stable, as the JAX package sorts
+                result = ngram.form_ngram(result, self.args["view_schema"])
+                if ngram.dense:
+                    result = ngram.densify_windows(result)
+        if result:
+            self.publish_func(result)
+
+    def _dense_vectorizable(self, data: dict, indices) -> bool:
+        """True when every needed field can be assembled column-major:
+        scalar numeric columns, or fixed-shape codec fields with no null
+        cells. Anything else (strings, nulls, a non-numeric timestamp,
+        hive partition values) takes the row path."""
+        ts_name = self.args["ngram"].timestamp_field_name
+        for name, field, codec in self._decode_schema.decode_plan:
+            col = data.get(name)
+            if col is None:
+                return False
+            if _scalar_fast_col(field, codec, col):
+                continue
+            if name == ts_name:
+                return False
+            if not field.shape or any(d is None for d in field.shape):
+                return False
+            if isinstance(col, np.ndarray) or any(col[i] is None for i in indices):
+                return False
+        return True
+
+    def _dense_windows(self, ngram, data: dict, indices):
+        """Column-major dense windows: one ``(n, *shape)`` array per field
+        in ``indices`` order (a dtype cast for scalar numeric columns, a
+        codec decode and one stack for the rest), then
+        :meth:`NGram.form_ngram_dense` over a stable argsort of the
+        timestamp column."""
+        idx = np.asarray(indices, dtype=np.intp)
         cols = {}
         for name, field, codec in self._decode_schema.decode_plan:
-            if name in data:
-                cols[name] = _decode_column(field, codec, data[name], indices)
-        rows = [{n: c[j] for n, c in cols.items()} for j in range(len(indices))]
-        if rows:
-            self.publish_func(rows)
+            message = (f"Field {name!r}: codec produced non-uniform values; "
+                       f"dense NGram requires fixed-shape decodes")
+            try:
+                arr = np.asarray(_decode_column(field, codec, data[name], idx))
+            except ValueError as e:   # ragged decodes
+                raise TypeError(message) from e
+            if arr.dtype == object:
+                raise TypeError(message)
+            cols[name] = arr
+        order = np.argsort(cols[ngram.timestamp_field_name], kind="stable")
+        return ngram.form_ngram_dense(cols, order)
 
     def shutdown(self):
         if self._files is not None:
