@@ -35,12 +35,33 @@ result line):
    are reset just before and read just after. Then the breakdown by layer,
    and one batch's logits held against the same forward on the plain
    attention, with the wrong attentions (and one of zeros) as controls
-   that the bar must reject.
+   that the bar must reject;
+7. the flash backward (K3: dq, K4: dk and dv) against the plain backward on
+   the card: the token path's shape bf16 causal, held to bars scaled to
+   each query row (dq) and key row (dk, dv), with deliberately wrong
+   backwards made from the plain version (``BWD_CONTROLS``) that the bars
+   must reject, and two launches giving equal bits; then ragged,
+   cross-length, non-causal, MHA, rep 4, f32 and f16 cases, also held to
+   absolute bars; K3, K4, the plain backward and the backward of
+   PyTorch's ``scaled_dot_product_attention`` (yardstick only) timed with
+   CUDA events;
+8. the training path at full width: ``run_llm_bench`` on a seeded
+   ``write_token_store`` store (window 8192) with ``LlamaConfig()`` at full
+   width cut to 4 layers, batch 2, flash attention, one warm-up step, four
+   timed steps and two resident ones; launch counts are reset just before
+   and read just after (K2, K3 and K4 once per layer per step, the plain
+   versions never). Then one step with ``remat_layers`` and ``xent_chunk``
+   against the plain step, a ``torch.profiler`` split of one resident
+   step, and the whole-slice gradient check: every parameter's gradient
+   through the kernels against the plain forward and backward, with the
+   wrong backwards as controls.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -53,7 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from petastorm_tpu_torch import kernels
-from petastorm_tpu_torch.benchmark.llm_bench import write_token_store
+from petastorm_tpu_torch.benchmark.llm_bench import run_llm_bench, write_token_store
 from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec
 from petastorm_tpu_torch.etl.writer import materialize_dataset_local
 from petastorm_tpu_torch.kernels.build import build
@@ -61,8 +82,10 @@ from petastorm_tpu_torch.loader import DataLoader
 from petastorm_tpu_torch.models import llama
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.ops import flash_attn
-from petastorm_tpu_torch.ops.flash_attn import (flash_attention, flash_attention_lse,
-                                                flash_attention_plain, make_flash_attention)
+from petastorm_tpu_torch.ops.flash_attn import (FlashAttentionFunction, flash_attention,
+                                                flash_attention_bwd, flash_attention_bwd_plain,
+                                                flash_attention_lse, flash_attention_plain,
+                                                make_flash_attention)
 from petastorm_tpu_torch.ops.image_ops import (KERNEL_NAME, normalize_images,
                                                normalize_images_plain)
 from petastorm_tpu_torch.reader import make_reader
@@ -118,6 +141,44 @@ MUST_FAIL = CONTROLS[:3]
 #: of zeros read 17-133 %.
 LOGITS_MEAN_REL_BAR = 0.016
 SLICE_MUST_FAIL = ("zero attention",) + MUST_FAIL
+
+# Flash backward (K3, K4) against the plain backward. Absolute bars at the
+# short cases: the JAX package's gradient bar in float32 (2e-4) and its flash
+# bars in 16 bits (bf16 3e-2, f16 4e-3), each plus one rounding step of the
+# value (gradients reach about 10, where one bf16 step is 0.0625). Every case
+# is also held to the row-scaled bars of ROW_BARS, a row being one query of
+# one head for dq and one key of one kv head for dk and dv. A row's scale is
+# at least GRAD_ROW_FLOOR of the whole gradient's rms: a row whose gradient
+# cancels to about zero (query 0 of a causal head, whose only key gives
+# dp = D) holds rounding noise alone, judged against the tensor's scale.
+GRAD_ROW_FLOOR = 2 ** -7
+BWD_ABS_BARS = {torch.float32: 2e-4, torch.bfloat16: 3e-2, torch.float16: 4e-3}
+#: Deliberately wrong backwards, made by giving the plain backward altered
+#: inputs; the bars must reject each at the token path's shape. On an H100
+#: the kernels read, at that shape, row-scaled worst 8.7e-6 and rms 9.1e-5
+#: (dk; dq was equal to the plain version's); the nearest control, "p 1 %
+#: low", read worst 0.042 and rms 0.0105, outside the bf16 bars (0.031,
+#: 0.0078); the others read rms 0.047-27.
+BWD_CONTROLS = ("D left out", "GQA sum over the first head of each group only",
+                "last q tile skipped in dK/dV", "lse + ln 1.01 (p 1 % low)")
+BWD_MUST_FAIL = BWD_CONTROLS
+# Training path: LlamaConfig() at full width, 4 layers, as phase 6.
+TRAIN_STEPS, TRAIN_RESIDENT, XENT_CHUNK = 4, 2, 2048
+#: Whole-slice gradient check: per parameter leaf, |g - g_plain| / |g_plain|
+#: (Euclidean norms) against the gradients through the plain forward and
+#: backward, the largest over the leaves. The controls run the plain forward
+#: with a wrong backward, so they are held, like for like, against the
+#: kernel backward on the plain forward: on an H100 that read 0.83 % and the
+#: nearest control, "p 1 % low", 1.94 %; GRAD_BWD_REL_BAR lies between and
+#: every control must exceed it. The whole path on the kernels (K2's bf16
+#: roundings differ from the plain forward's, and the bf16 model carries
+#: them into every gradient) read 2.05 % and the nearest control it must
+#: reject, "last q tile skipped", 8.07 %; GRAD_REL_BAR lies between. "p 1 %
+#: low" moves the gradients by less than K2's roundings do and is shown,
+#: not judged, at that bar.
+GRAD_REL_BAR = 0.04
+GRAD_BWD_REL_BAR = 0.013
+GRAD_MUST_FAIL = BWD_CONTROLS[:3]
 
 def log(msg):
     print(msg, flush=True)
@@ -188,7 +249,7 @@ def phase_probe() -> str:
 
 def phase_build():
     t0 = time.perf_counter()
-    paths = build(["normalize", "flash_attn"])
+    paths = build(["normalize", "flash_attn", "flash_attn_bwd"])
     log(f"[build] {sorted(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -332,11 +393,14 @@ def flash_flops_bytes(b, sq, sk, h, kv_h, d, causal, itemsize, with_lse):
     return flops, nbytes
 
 
-def row_scaled_errors(got: torch.Tensor, want: torch.Tensor):
+def row_scaled_errors(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0):
     """(worst, rms) of ``got - want`` against each output row's scale:
-    max (|err| - eps |want|) / rms(row) and sqrt(mean((err / rms(row))^2))."""
+    max (|err| - eps |want|) / rms(row) and sqrt(mean((err / rms(row))^2)).
+    With ``floor`` a row's scale is at least that fraction of the whole
+    tensor's rms."""
     w = want.float()
-    row = w.square().mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    row = w.square().mean(-1, keepdim=True).sqrt().clamp_min(
+        max(1e-30, floor * w.square().mean().sqrt().item()))
     err = (got.float() - w).abs()
     worst = ((err - ROW_BARS[want.dtype][0] * w.abs()) / row).max().item()
     return worst, (err / row).square().mean().sqrt().item()
@@ -462,10 +526,21 @@ def phase_flash() -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def profile_forward(step) -> None:
+#: Kernel groups of a profiled step: (label, substrings of the kernel name).
+FORWARD_GROUPS = (("flash_fwd_kernel (K2)", ("flash_fwd_kernel",)),
+                  ("matmuls (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")))
+TRAIN_GROUPS = (("flash_fwd_kernel (K2)", ("flash_fwd_kernel",)),
+                ("flash_bwd_dq_kernel (K3)", ("flash_bwd_dq_kernel",)),
+                ("flash_bwd_dkv_kernel (K4)", ("flash_bwd_dkv_kernel",)),
+                ("matmuls (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+                ("AdamW (multi-tensor kernels)", ("multi_tensor_apply", "adam")))
+
+
+def profile_step(step, what: str, groups=FORWARD_GROUPS) -> dict:
     """One ``step`` under ``torch.profiler``: device time by kernel (the
     kernels' own events, so nothing is counted twice) against the host
-    wall time; the rest of the wall time is the device's idle share."""
+    wall time; the rest of the wall time is the device's idle share.
+    Returns ``{group: ms}`` with the wall and busy times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -473,25 +548,27 @@ def profile_forward(step) -> None:
         t0 = time.perf_counter()
         step()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # Kernels only: a user annotation (the optimizer's step range) also
+    # carries device time, which would count its kernels twice.
     by_kernel = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                 and not getattr(e, "is_user_annotation", False)}
     busy_ms = sum(by_kernel.values())
     if busy_ms <= 0:
-        raise AssertionError("the profiled forward shows no device time")
-    groups = {"flash_fwd_kernel (K2)": 0.0, "matmuls (cuBLAS)": 0.0, "everything else": 0.0}
+        raise AssertionError(f"the profiled {what} shows no device time")
+    split = {label: 0.0 for label, _ in groups}
+    split["everything else"] = 0.0
     for name, ms in by_kernel.items():
-        if "flash_fwd_kernel" in name:
-            groups["flash_fwd_kernel (K2)"] += ms
-        elif any(tag in name for tag in ("gemm", "nvjet", "xmma", "cutlass")):
-            groups["matmuls (cuBLAS)"] += ms
-        else:
-            groups["everything else"] += ms
+        label = next((label for label, tags in groups
+                      if any(tag in name.lower() for tag in tags)), "everything else")
+        split[label] += ms
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[tokens] profiled forward: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+    log(f"[profile] {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"(idle {100 * (1 - busy_ms / wall_ms):.1f} %), {len(by_kernel)} kernels; by group: "
-        + "; ".join(f"{g} {ms:.1f} ms ({100 * ms / busy_ms:.1f} %)" for g, ms in groups.items()))
-    log("[tokens] top kernels: " + "; ".join(
+        + "; ".join(f"{g} {ms:.1f} ms ({100 * ms / busy_ms:.1f} %)" for g, ms in split.items()))
+    log(f"[profile] {what}, top kernels: " + "; ".join(
         f"{name[:60]} {ms:.1f} ms ({100 * ms / busy_ms:.1f} %)" for name, ms in top))
+    return dict(split, wall_ms=wall_ms, busy_ms=busy_ms)
 
 
 def phase_tokens(tmp: str) -> int:
@@ -578,7 +655,7 @@ def phase_tokens(tmp: str) -> int:
         fwd = statistics.median(times)
         log(f"[tokens] forward alone on a resident batch (median of 3): {fwd * 1e3:.1f} ms, "
             f"{tokens_per_step / fwd:.1f} tokens/s")
-        profile_forward(lambda: loss_of(tokens).item())
+        profile_step(lambda: loss_of(tokens).item(), "resident forward")
 
         # The slice against itself on plain attention: one batch's logits,
         # and the same forward on wrong attentions to show the bar rejects them.
@@ -606,6 +683,307 @@ def phase_tokens(tmp: str) -> int:
     return launches
 
 
+def grad_verdict(got: torch.Tensor, want: torch.Tensor, absolute: bool):
+    """-> (max abs err, worst, rms, within every bar) of one gradient; the
+    absolute bar (plus one rounding step of the value) only where
+    ``absolute``."""
+    err = (got.float() - want.float()).abs()
+    worst, rms = row_scaled_errors(got, want, GRAD_ROW_FLOOR)
+    eps, worst_bar, rms_bar = ROW_BARS[want.dtype]
+    ok = worst <= worst_bar and rms <= rms_bar
+    if absolute:
+        ok = ok and bool((err <= BWD_ABS_BARS[want.dtype] + eps * want.float().abs()).all())
+    return err.max().item(), worst, rms, ok
+
+
+def judge_grads(got, want, absolute: bool, what: str):
+    """Log each of (dq, dk, dv) against the plain backward's; -> (max abs
+    err of each, within every bar)."""
+    readings = [grad_verdict(g, w, absolute) for g, w in zip(got, want)]
+    log(f"[bwd] {what}: " + "; ".join(
+        f"d{n} max abs {e:.3g} worst {wo:.3g} rms {r:.3g}{'' if ok else ' OUTSIDE'}"
+        for n, (e, wo, r, ok) in zip("qkv", readings)))
+    return [r[0] for r in readings], all(r[3] for r in readings)
+
+
+def control_backward(q, k, v, o, lse, do, causal, flaw):
+    """The plain backward with one ``flaw`` of BWD_CONTROLS, made by giving
+    it altered inputs: o = 0 makes D = rowsum(dO . o) = 0; dO zero on all but
+    the first query head of each group leaves dk and dv that head's alone;
+    q and dO zero on the last 64 rows take that q tile out of dk and dv;
+    lse + ln 1.01 divides every p by 1.01."""
+    if flaw == BWD_CONTROLS[0]:
+        return flash_attention_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, causal)
+    if flaw == BWD_CONTROLS[3]:
+        return flash_attention_bwd_plain(q, k, v, o, lse + float(np.log(1.01)), do, causal)
+    dq = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)[0]
+    if flaw == BWD_CONTROLS[1]:
+        rep = q.shape[2] // k.shape[2]
+        keep = (torch.arange(q.shape[2], device=q.device) % rep == 0).view(1, 1, -1, 1)
+        _, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do * keep, causal)
+    else:
+        sq = q.shape[1]
+        keep = (torch.arange(sq, device=q.device) < (sq - 1) // 64 * 64).view(1, -1, 1, 1)
+        _, dk, dv = flash_attention_bwd_plain(q * keep, k, v, o, lse, do * keep, causal)
+    return dq, dk, dv
+
+
+def bwd_flops_bytes(b, sq, sk, h, kv_h, d, causal, itemsize, products, kv_outputs):
+    """Operations (2*b*h*d per visible (query, key) pair for each of
+    ``products`` products) and bytes (q, dO, k, v, lse and D read once, dq
+    or dk and dv written once) of one backward kernel."""
+    flops = flash_flops_bytes(b, sq, sk, h, kv_h, d, causal, itemsize, False)[0] // 2 * products
+    q_side = b * sq * h * d * itemsize
+    kv_side = b * sk * kv_h * d * itemsize
+    nbytes = 2 * q_side + 2 * kv_side + 8 * b * h * sq + (2 * kv_side if kv_outputs else q_side)
+    return flops, nbytes
+
+
+def phase_flash_bwd():
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, h, kv_h, d = TOKEN_BATCH, LLAMA.n_heads, LLAMA.n_kv_heads, LLAMA.head_dim
+
+    def inputs(b, sq, sk, h, kv_h, d, causal, dtype):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        q, k, v, do = randn(b, sq, h, d), randn(b, sk, kv_h, d), randn(b, sk, kv_h, d), randn(b, sq, h, d)
+        o, lse = flash_attention_lse(q, k, v, causal=causal)
+        return q, k, v, o, lse, do
+
+    failures = []
+    # The token path's shape: row-scaled bars, equal bits, the controls.
+    q, k, v, o, lse, do = inputs(b, WINDOW, WINDOW, h, kv_h, d, True, torch.bfloat16)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        failures.append("two launches of K3/K4 gave different bits")
+    if not all(torch.isfinite(g.float()).all() for g in got):
+        failures.append("non-finite gradients at the token path's shape")
+    token_errs, ok = judge_grads(got, want, False,
+                                 f"kernel, token path ({b}, {WINDOW}, {h}/{kv_h}, {d}) bf16 causal")
+    log(f"[bwd] two launches give equal bits: {all(torch.equal(x, y) for x, y in zip(got, again))}")
+    if not ok:
+        failures.append("the kernels at the token path's shape")
+    del got, again
+    for flaw in BWD_CONTROLS:
+        _, c_ok = judge_grads(control_backward(q, k, v, o, lse, do, True, flaw), want, False,
+                              f"control {flaw!r}")
+        log(f"[bwd] control {flaw!r}: {'within the bars' if c_ok else 'rejected'}")
+        if c_ok and flaw in BWD_MUST_FAIL:
+            failures.append(f"control {flaw!r} within the bars")
+    del want
+    # Short cases: absolute bars as well.
+    for case in [(1, 100, 100, 4, 2, 64, True, torch.bfloat16, "ragged 100x100 d64 causal"),
+                 (1, 70, 70, 4, 1, 200, True, torch.float32, "ragged d200 causal, rep 4"),
+                 (2, 96, 64, 4, 2, 64, True, torch.bfloat16, "causal sq 96 > sk 64"),
+                 (2, 40, 130, 4, 1, 64, True, torch.float32, "causal sq 40 < sk 130, rep 4"),
+                 (2, 77, 130, 4, 1, 64, False, torch.bfloat16, "non-causal sq 77, sk 130"),
+                 (2, 200, 200, 4, 4, 128, True, torch.bfloat16, "MHA (h == kv_h)"),
+                 (2, 300, 300, 8, 2, 64, True, torch.float32, "f32 d64 causal, rep 4"),
+                 (2, 150, 150, 8, 4, 128, False, torch.float16, "f16 non-causal"),
+                 (1, 70, 90, 2, 1, 256, True, torch.bfloat16, "d256 causal")]:
+        *shape, causal, dtype, what = case
+        c_q, c_k, c_v, c_o, c_lse, c_do = inputs(*shape, causal, dtype)
+        _, c_ok = judge_grads(flash_attention_bwd(c_q, c_k, c_v, c_o, c_lse, c_do, causal),
+                              flash_attention_bwd_plain(c_q, c_k, c_v, c_o, c_lse, c_do, causal),
+                              True, what)
+        if not c_ok:
+            failures.append(what)
+
+    # Times at the token path's shape: K3 and K4 alone (D and the layouts
+    # made once), the plain backward, and SDPA's backward without its forward.
+    do_k, lse_k, dd = flash_attn._bwd_inputs(q, o, lse, do)
+    qq, kk, vv = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True)
+    g = do.transpose(1, 2)
+    dq_ms, dkv_ms, bwd_ms, plain_ms, library_ms = median_ms(
+        lambda: flash_attn._flash_bwd_dq(q, k, v, do_k, lse_k, dd, True),
+        lambda: flash_attn._flash_bwd_dkv(q, k, v, do_k, lse_k, dd, True),
+        lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+        lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
+        lambda: torch.autograd.grad(out, (qq, kk, vv), g, retain_graph=True),
+        reps=FLASH_REPS, warmup=1)
+    rows = {}
+    for name, ms, products, kv_outputs, err in (
+            ("K3", dq_ms, 3, False, token_errs[0]), ("K4", dkv_ms, 4, True, max(token_errs[1:]))):
+        flops, nbytes = bwd_flops_bytes(b, WINDOW, WINDOW, h, kv_h, d, True, 2, products, kv_outputs)
+        bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        bound_by = "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+        log(f"[bwd] {name} at the token path's shape: {ms:.4f} ms, bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({flops:.4g} operations, {nbytes / 1e9:.4g} GB), {flops / ms / 1e9:.4g} "
+            f"TFLOP/s")
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms}
+    log(f"[bwd] flash_attention_bwd (D + K3 + K4) {bwd_ms:.4f} ms; plain backward (dq, dk, dv "
+        f"together) {plain_ms:.4f} ms; scaled_dot_product_attention backward {library_ms:.4f} ms")
+    if failures:
+        raise AssertionError("flash backward: " + "; ".join(failures))
+    return rows
+
+
+class CountingPlainVersions:
+    """While active, counts the calls of the plain flash forward and
+    backward (the module functions the wrappers call on CPU tensors)."""
+
+    def __enter__(self):
+        self.calls = {"flash_attention_plain": 0, "flash_attention_bwd_plain": 0}
+        self.saved = {name: getattr(flash_attn, name) for name in self.calls}
+        for name, fn in self.saved.items():
+            def counted(*a, _name=name, _fn=fn, **kw):
+                self.calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(flash_attn, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(flash_attn, name, fn)
+        return False
+
+
+def attention(fn):
+    """``fn(q, k, v)`` as a GQA-native ``attn_fn``."""
+    fn.supports_gqa = True
+    return fn
+
+
+def free_cuda():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(tmp: str) -> dict:
+    url = f"file://{tmp}/tokens"
+    write_token_store(url, windows=TOKEN_WINDOWS, window=WINDOW, vocab=LLAMA.vocab, seed=0)
+    model_kwargs = {f.name: getattr(LLAMA, f.name) for f in dataclasses.fields(LLAMA)}
+    names = (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME)
+    failures = []
+
+    # The main path, counted: one warm-up, the timed steps, the resident ones.
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with CountingPlainVersions() as plain:
+        result = run_llm_bench(url, steps=TRAIN_STEPS, batch_size=TOKEN_BATCH, window=WINDOW,
+                               workers_count=TOKEN_WORKERS, resident_steps=TRAIN_RESIDENT,
+                               flash=True, model_kwargs=model_kwargs, device="cuda")
+    launches = {n: kernels.launch_counts.get(n, 0) for n in names}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for key, value in result.items():
+        log(f"[train] {key}: {value}")
+    steps = 1 + TRAIN_STEPS + TRAIN_RESIDENT
+    log(f"[train] launches {launches} for {steps} steps of {LLAMA.n_layers} layers; plain "
+        f"versions called {plain.calls}; peak memory {peak_gb:.2f} GB")
+    if any(launches[n] != LLAMA.n_layers * steps for n in names) or any(plain.calls.values()):
+        failures.append(f"launches {launches}, plain calls {plain.calls}")
+    if not (np.isfinite(result["loss_first"]) and np.isfinite(result["loss_last"])):
+        failures.append(f"non-finite loss {result['loss_first']}, {result['loss_last']}")
+
+    ngram = NGram({o: ["ts", "token"] for o in range(WINDOW)}, delta_threshold=1,
+                  timestamp_field="ts", timestamp_overlap=False, dense=True)
+    with make_reader(url, schema_fields=ngram, shuffle_row_groups=True, seed=0,
+                     workers_count=TOKEN_WORKERS, num_epochs=None) as r:
+        it = iter(DataLoader(r, batch_size=TOKEN_BATCH, device="cuda"))
+        batch = {"tokens": next(it)["token"].clone()}
+        it.close()
+
+    def fresh_params():
+        return llama.init_params(torch.Generator(device="cuda").manual_seed(0), LLAMA, device="cuda")
+
+    # One step as the bench takes it, then one with remat_layers and xent_chunk.
+    losses = {}
+    remat = f"remat_layers, xent_chunk={XENT_CHUNK}"
+    for label, kw in (("plain step", {}), (remat, {"remat_layers": True,
+                                                  "xent_chunk": XENT_CHUNK})):
+        free_cuda()
+        params = fresh_params()
+        init_opt, step = llama.make_train_step(LLAMA, attn_fn=make_flash_attention(causal=True),
+                                               shift="roll", **kw)
+        opt = init_opt(params)
+
+        def watched():   # a few leaves, to see that the step moves them
+            return {"embed": params["embed"], "layers.0.wq": params["layers"][0]["wq"],
+                    "last layer's w2": params["layers"][-1]["w2"], "lm_head": params["lm_head"]}
+        before = {n: t.detach().clone() for n, t in watched().items()}
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        _, opt, loss = step(params, opt, batch)
+        losses[label] = loss.item()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = {n: kernels.launch_counts.get(n, 0) for n in names}
+        moved = {n: not torch.equal(before[n], t.detach()) for n, t in watched().items()}
+        log(f"[train] {label}: loss {losses[label]:.6f}, launches {counts}, peak memory "
+            f"{peak:.2f} GB, parameters moved {moved}")
+        want_k2 = LLAMA.n_layers * (2 if kw else 1)
+        if counts != {names[0]: want_k2, names[1]: LLAMA.n_layers, names[2]: LLAMA.n_layers}:
+            failures.append(f"{label}: launches {counts}")
+        if not all(moved.values()):
+            failures.append(f"{label}: parameters did not move {moved}")
+        if not kw:
+            profile_step(lambda: step(params, opt, batch)[2].item(), "resident train step",
+                         TRAIN_GROUPS)
+        del params, opt, init_opt, step, before
+    if abs(losses["plain step"] - losses[remat]) > 5e-3:
+        failures.append(f"remat/xent_chunk loss {losses}")
+
+    # Whole-slice gradient check against the plain forward and backward.
+    free_cuda()
+    params = fresh_params()
+    leaves = llama.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    leaf_names = []   # in llama.param_leaves' order
+    for key in sorted(params):
+        if key == "layers":
+            leaf_names += [f"layers.{i}.{k}" for i, layer in enumerate(params["layers"])
+                           for k in sorted(layer)]
+        else:
+            leaf_names.append(key)
+
+    def grads(fwd, bwd):
+        attn_fn = attention(lambda q, k, v: FlashAttentionFunction.apply(q, k, v, True, fwd, bwd))
+        loss = llama.loss_fn(params, batch, LLAMA, attn_fn=attn_fn, shift="roll")
+        return torch.autograd.grad(loss, leaves)
+
+    ref = grads(flash_attention_plain, flash_attention_bwd_plain)
+    readings = {}
+    runs = [("kernels (K2, K3, K4)", flash_attention_lse, flash_attention_bwd),
+            ("plain forward, kernel backward (K3, K4)", flash_attention_plain, flash_attention_bwd)]
+    runs += [(f"control {flaw!r}", flash_attention_plain,
+              lambda *a, flaw=flaw: control_backward(*a, flaw=flaw)) for flaw in BWD_CONTROLS]
+    n = LLAMA.n_layers
+    want_launches = [{names[0]: n, names[1]: n, names[2]: n}, {names[1]: n, names[2]: n}]
+    for (label, fwd, bwd), want in zip(runs, want_launches + [{}] * len(BWD_CONTROLS)):
+        kernels.reset_launch_counts()
+        got = grads(fwd, bwd)
+        if kernels.launch_counts != want:
+            failures.append(f"{label}: launches {dict(kernels.launch_counts)}, expected {want}")
+        rel = [((g - r).norm() / r.norm()).item() for g, r in zip(got, ref)]
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        readings[label] = rel[worst]
+        attn_leaves = {n: round(x, 5) for n, x in zip(leaf_names, rel) if n.startswith("layers.0.w")}
+        log(f"[grad] {label}: largest |g - g_plain| / |g_plain| {rel[worst]:.5f} at "
+            f"{leaf_names[worst]}; layer 0: {attn_leaves}; launches {dict(kernels.launch_counts)}")
+        del got
+    for (label, value), bar in zip(readings.items(), (GRAD_REL_BAR, GRAD_BWD_REL_BAR)):
+        if value > bar:
+            failures.append(f"{label}: gradient {value:.5f} > {bar}")
+    for flaw in BWD_CONTROLS:
+        value = readings[f"control {flaw!r}"]
+        within = [bar for bar in (GRAD_BWD_REL_BAR, GRAD_REL_BAR) if value <= bar]
+        log(f"[grad] control {flaw!r}: {value:.5f}, " + (
+            f"within {within}" if within else "rejected by both bars"))
+        if GRAD_BWD_REL_BAR in within or (flaw in GRAD_MUST_FAIL and within):
+            failures.append(f"control {flaw!r}: gradient {value:.5f} within {within}")
+    del ref, params, leaves
+    free_cuda()
+    if failures:
+        raise AssertionError("training path: " + "; ".join(failures))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -618,6 +996,10 @@ def main() -> int:
     k2 = phase_flash()
     with tempfile.TemporaryDirectory() as tmp:
         k2_launches = phase_tokens(tmp)
+    bwd = phase_flash_bwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = phase_train(tmp)
+    source = "petastorm_tpu_torch/csrc/flash_attn_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/normalize.cu",
@@ -628,7 +1010,14 @@ def main() -> int:
         "name": flash_attn.KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/flash_attn.cu",
         "replaces": "petastorm_tpu/ops/flash_attn.py:89",
-        "launches": k2_launches, **k2}]}))
+        # The token forward's launches ("out") and the training path's ("lse").
+        "launches": k2_launches + counts[flash_attn.KERNEL_NAME], **k2}, {
+        "name": flash_attn.BWD_DQ_KERNEL_NAME, "route": "cuda", "source": source,
+        "replaces": "petastorm_tpu/ops/flash_attn.py:272",
+        "launches": counts[flash_attn.BWD_DQ_KERNEL_NAME], **bwd["K3"]}, {
+        "name": flash_attn.BWD_DKV_KERNEL_NAME, "route": "cuda", "source": source,
+        "replaces": "petastorm_tpu/ops/flash_attn.py:305",
+        "launches": counts[flash_attn.BWD_DKV_KERNEL_NAME], **bwd["K4"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ Parquet stores written by either package, read with :func:`make_reader`
 (rows, or :class:`NGram` windows of a token store), batched and staged onto
 an NVIDIA GPU by :class:`DataLoader`, and consumed on the card: images are
 normalised by :func:`normalize_images`, and token windows feed the Llama
-forward (``models.llama``) on :func:`flash_attention`. Both are
-hand-written CUDA kernels. The package imports ``torch`` and never ``jax``.
+forward and its AdamW training step (``models.llama``) on
+:func:`flash_attention`, whose gradient runs the flash backward kernels.
+All of these are hand-written CUDA kernels. The package imports ``torch``
+and never ``jax``.
 """
 from petastorm_tpu_torch.loader import DataLoader
 from petastorm_tpu_torch.ngram import NGram

@@ -1,1 +1,2 @@
-"""Benchmarks of the PyTorch/CUDA package (token store so far)."""
+"""Benchmarks of the PyTorch/CUDA package: the Llama train-step bench and
+the training benchmarks' shared measurement harness."""

@@ -19,6 +19,11 @@ Staging to a CUDA device:
 * a pinned buffer is refilled only after its copy's event has completed.
 
 ``device="cpu"`` hands out tensors that share the collated numpy memory.
+
+``echo=k`` (data echoing, Choi et al., arXiv:1907.05550) yields each staged
+batch ``k`` times: the repeats are ``.clone()``s of its tensors (one copy on
+the card, no decode, no host-to-device copy), never aliases, so a consumer
+that writes into or frees a batch cannot touch its repeats.
 """
 from __future__ import annotations
 
@@ -104,6 +109,8 @@ class DataLoader:
         add a boolean ``__valid__`` column
     :param prefetch: staged batches kept ready ahead of the consumer
     :param device: ``"cuda"`` (default), ``"cuda:N"`` or ``"cpu"``
+    :param echo: yield each staged batch this many times (repeats are
+        clones of its tensors; host columns pass through)
     """
 
     def __init__(self, reader, batch_size: int,
@@ -111,9 +118,11 @@ class DataLoader:
                  min_after_retrieve: Optional[int] = None,
                  seed: Optional[int] = None,
                  drop_last: bool = True, pad_last: bool = False,
-                 prefetch: int = 2, device="cuda"):
+                 prefetch: int = 2, device="cuda", echo: int = 1):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if echo < 1:
+            raise ValueError(f"echo must be >= 1, got {echo}")
         self._device = resolve_device(device)
         self._reader = reader
         self._ngram = getattr(reader, "ngram", None)
@@ -124,6 +133,7 @@ class DataLoader:
         self._pad_last = pad_last
         self._drop_last = drop_last and not pad_last
         self._prefetch = max(1, prefetch)
+        self._echo = echo
         self._in_iter = False
         self._stage_stop: Optional[threading.Event] = None
 
@@ -308,6 +318,9 @@ class DataLoader:
                         if isinstance(v, torch.Tensor):
                             v.record_stream(consumer)
                 yield item
+                for _ in range(self._echo - 1):
+                    yield {k: v.clone() if isinstance(v, torch.Tensor) else v
+                           for k, v in item.items()}
         finally:
             stop.set()
             self._stage_stop = None

@@ -1,5 +1,5 @@
-"""Llama-style decoder-only transformer, forward pass: the consumer of NGram
-token windows.
+"""Llama-style decoder-only transformer: the consumer of NGram token
+windows, forward and training step.
 
 RMSNorm (float32 statistics), RoPE, grouped-query attention, SwiGLU MLP
 (or a soft mixture of experts on every ``moe_every``-th layer), float32
@@ -7,8 +7,9 @@ master parameters and ``compute_dtype`` (bfloat16 by default) activations.
 Parameters are a plain dict with the JAX package's key names and its
 ``(in, out)`` matrix layout, so :func:`params_from_jax` carries its weights
 across unchanged. The functions mirror ``petastorm_tpu.models.llama``
-one for one; training (the backward kernels) is not part of this module
-yet.
+one for one. Gradients come from autograd; through
+:func:`~petastorm_tpu_torch.ops.flash_attn.make_flash_attention` the
+attention's backward runs the flash backward kernels.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from petastorm_tpu_torch.loader.loader import resolve_device
 from petastorm_tpu_torch.parallel.attention import dense_attention
@@ -181,9 +183,20 @@ def apply_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, attn_fn=None):
     return x, 0.0
 
 
+def _checkpointed(fn, *args):
+    """``fn(*args)``; while grad is enabled, under
+    ``torch.utils.checkpoint`` (non-reentrant): only ``args`` are kept for
+    the backward, which runs ``fn`` again (the JAX package's
+    ``jax.checkpoint``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def apply(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
           compute_dtype=torch.bfloat16, with_aux: bool = False,
-          embed_lookup: str = "gather", return_hidden: bool = False):
+          embed_lookup: str = "gather", return_hidden: bool = False,
+          remat_layers: bool = False):
     """tokens: (batch, seq) int -> logits (batch, seq, vocab) float32 (or the
     pre-lm_head hidden states when ``return_hidden``).
 
@@ -194,6 +207,9 @@ def apply(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
         contraction of :func:`_embed_lookup`; the same values)
     :param with_aux: also return the summed MoE auxiliary loss (a float32
         zero: the soft mixture has none)
+    :param remat_layers: run each block under checkpointing, so that only
+        the layer-boundary activations are kept for the backward, which
+        recomputes each block (the long-context memory lever)
     """
     if embed_lookup not in ("gather", "onehot"):
         raise ValueError(f"unknown embed_lookup {embed_lookup!r}")
@@ -202,7 +218,10 @@ def apply(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
     else:
         x = params["embed"].to(compute_dtype)[tokens.long()]
     for layer in params["layers"]:
-        x, _ = apply_block(layer, x, cfg, attn_fn=attn_fn)
+        if remat_layers:
+            x, _ = _checkpointed(apply_block, layer, x, cfg, attn_fn)
+        else:
+            x, _ = apply_block(layer, x, cfg, attn_fn=attn_fn)
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
     out = x if return_hidden else (x @ params["lm_head"].to(x.dtype)).float()
     return (out, torch.zeros((), dtype=torch.float32, device=x.device)) if with_aux else out
@@ -214,10 +233,16 @@ def _nll_per_token(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return lse - torch.gather(logits, -1, targets.long()[..., None])[..., 0]
 
 
+def _chunk_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token loss of one chunk of hidden states: its lm_head logits
+    (float32) exist only inside this call."""
+    return _nll_per_token((x @ head.to(x.dtype)).float(), targets)
+
+
 def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
             aux_weight: float = 1e-2, embed_lookup: str = "gather",
             compute_dtype=torch.bfloat16, shift: str = "split",
-            xent_chunk: Optional[int] = None) -> torch.Tensor:
+            xent_chunk: Optional[int] = None, remat_layers: bool = False) -> torch.Tensor:
     """Next-token cross entropy. batch: ``{'tokens': (b, s) int}``.
     ``aux_weight`` weighs the switch MoE's auxiliary loss, which is not
     ported; the soft mixture has none, so it adds nothing yet.
@@ -226,8 +251,9 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
     ``shift="roll"``: inputs are the full window, targets
     ``roll(tokens, -1)`` with the wrapped last position left out of the
     mean. ``xent_chunk`` computes the lm_head and the log-sum-exp over that
-    many tokens at a time, so the ``(b, s, vocab)`` logits never exist at
-    once.
+    many tokens at a time, each chunk under checkpointing, so the
+    ``(b, s, vocab)`` logits never exist at once, in the forward or the
+    backward. ``remat_layers`` is :func:`apply`'s.
     """
     tokens = batch["tokens"]
     if shift not in ("split", "roll"):
@@ -244,7 +270,7 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
         denom = targets.numel()
     if xent_chunk:
         x = apply(params, inputs, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
-                  compute_dtype=compute_dtype, return_hidden=True)
+                  compute_dtype=compute_dtype, return_hidden=True, remat_layers=remat_layers)
         n_tok = x.shape[0] * x.shape[1]
         if n_tok % xent_chunk:
             raise ValueError(f"xent_chunk ({xent_chunk}) must divide batch*seq ({n_tok})")
@@ -252,11 +278,57 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
         tf = targets.reshape(n_tok)
         head = params["lm_head"]
         nll_tok = torch.cat([
-            _nll_per_token((xf[i:i + xent_chunk] @ head.to(x.dtype)).float(),
-                           tf[i:i + xent_chunk])
+            _checkpointed(_chunk_nll, xf[i:i + xent_chunk], head, tf[i:i + xent_chunk])
             for i in range(0, n_tok, xent_chunk)]).reshape(x.shape[0], x.shape[1])
     else:
         logits = apply(params, inputs, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype, remat_layers=remat_layers)
         nll_tok = _nll_per_token(logits, targets)
     return (nll_tok * mask).sum() / denom
+
+
+def param_leaves(params: dict) -> list:
+    """Every tensor of ``params``, in a fixed order (top-level keys sorted,
+    then each layer's keys sorted)."""
+    leaves = []
+    for key in sorted(params):
+        node = params[key]
+        if isinstance(node, (list, tuple)):
+            leaves.extend(layer[k] for layer in node for k in sorted(layer))
+        else:
+            leaves.append(node)
+    return leaves
+
+
+def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
+                    embed_lookup: str = "gather", compute_dtype=torch.bfloat16,
+                    shift: str = "split", xent_chunk: Optional[int] = None,
+                    remat_layers: bool = False):
+    """AdamW train step -> ``(init_opt, train_step)``, as the JAX package's.
+
+    ``init_opt(params)`` marks every leaf of ``params`` as requiring grad
+    and returns the optimizer: ``torch.optim.AdamW(learning_rate, betas=(0.9,
+    0.999), eps=1e-8, weight_decay=0.1)`` over every leaf, the update
+    ``optax.adamw(learning_rate, weight_decay=0.1)`` makes (decay on every
+    leaf, bias correction on both moments). ``train_step(params, opt,
+    batch) -> (params, opt, loss)`` takes the gradient of :func:`loss_fn`
+    and updates the parameters **in place** (the returned ``params`` is the
+    same dict): the step keeps one copy of the weights, not two. ``loss`` is
+    the loss before the update, detached."""
+    def init_opt(params: dict) -> torch.optim.AdamW:
+        leaves = param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        return torch.optim.AdamW(leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=0.1)
+
+    def train_step(params: dict, opt: torch.optim.AdamW, batch: dict):
+        loss = loss_fn(params, batch, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
+                       compute_dtype=compute_dtype, shift=shift, xent_chunk=xent_chunk,
+                       remat_layers=remat_layers)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return params, opt, loss.detach()
+
+    return init_opt, train_step

@@ -1,4 +1,5 @@
-"""Flash attention: softmax attention without the O(seq^2) score matrix.
+"""Flash attention: softmax attention without the O(seq^2) score matrix,
+forward and backward.
 
 q ``(b, sq, heads, d)``, k/v ``(b, sk, kv_heads, d)`` -> o ``(b, sq, heads,
 d)`` in q's dtype, grouped-query native (``heads % kv_heads == 0``; K/V are
@@ -7,13 +8,20 @@ top-left mask of :func:`~petastorm_tpu_torch.parallel.attention.dense_attention`
 so sq != sk is allowed). :func:`flash_attention_lse` also returns the
 logsumexp of each query row, ``(b, heads, sq, 1)`` float32.
 
-A CUDA tensor goes through the hand-written kernel ``csrc/flash_attn.cu``
-(it raises if the kernel cannot build or launch, and never falls back); a
-CPU tensor goes through the plain PyTorch version
-:func:`flash_attention_plain`, which computes the same function: float32
-scores ``(q . k) * scale`` with ``scale = 1/sqrt(d)`` rounded once to
-float32, float32 softmax, p rounded to v's dtype before ``p . v``, float32
-accumulation.
+A CUDA tensor goes through the hand-written kernels (it raises if a kernel
+cannot build or launch, and never falls back): the forward
+``csrc/flash_attn.cu`` (K2) and the backward ``csrc/flash_attn_bwd.cu``
+(K3: dq, K4: dk and dv). A CPU tensor goes through the plain PyTorch
+versions :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`,
+which compute the same functions: float32 scores ``(q . k) * scale`` with
+``scale = 1/sqrt(d)`` rounded once to float32, float32 softmax, p rounded
+to v's dtype before ``p . v``, float32 accumulation; the backward's
+numerics are described at :func:`flash_attention_bwd_plain`.
+
+:func:`flash_attention` is differentiable: when grad is enabled and an
+input requires it, it runs :class:`FlashAttentionFunction`, whose forward
+is the "lse" launch and whose backward launches K3 and K4, as the JAX
+package's ``custom_vjp`` does.
 """
 from __future__ import annotations
 
@@ -25,6 +33,9 @@ import torch
 from petastorm_tpu_torch import kernels
 
 KERNEL_NAME = "flash_attn_fwd"
+#: Launch-count names of the backward kernels K3 (dq) and K4 (dk, dv).
+BWD_DQ_KERNEL_NAME = "flash_attn_bwd_dq"
+BWD_DKV_KERNEL_NAME = "flash_attn_bwd_dkv"
 #: Largest head dim the kernel takes.
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -103,6 +114,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def _check_grid(b: int, h: int) -> None:
+    if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
+        raise ValueError(f"the kernel takes at most {_MAX_GRID_YZ} batches and heads, "
+                         f"got {b} and {h}")
+
+
 def _flash(q, k, v, causal: bool, with_lse: bool):
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -110,9 +127,7 @@ def _flash(q, k, v, causal: bool, with_lse: bool):
         return o, (lse if with_lse else None)
     b, sq, h, d = q.shape
     sk, kv_h = k.shape[1], k.shape[2]
-    if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
-        raise ValueError(f"the kernel takes at most {_MAX_GRID_YZ} batches and heads, "
-                         f"got {b} and {h}")
+    _check_grid(b, h)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device) if with_lse else None
     if sq == 0:
@@ -134,7 +149,12 @@ def _flash(q, k, v, causal: bool, with_lse: bool):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """Drop-in for :func:`~petastorm_tpu_torch.parallel.attention.dense_attention`:
-    q ``(b, sq, heads, d)``, k/v ``(b, sk, kv_heads, d)`` -> ``(b, sq, heads, d)``."""
+    q ``(b, sq, heads, d)``, k/v ``(b, sk, kv_heads, d)`` -> ``(b, sq, heads, d)``.
+    Differentiable: with grad enabled and an input that requires it, the
+    forward is the "lse" launch and the backward runs K3 and K4."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, causal, flash_attention_lse,
+                                            flash_attention_bwd)
     return _flash(q, k, v, causal, with_lse=False)[0]
 
 
@@ -154,11 +174,183 @@ def make_flash_attention(causal: bool = True):
     return attn
 
 
+def _check_bwd(q, o, lse, do) -> None:
+    """Raise ``ValueError`` unless o and do are q-shaped in q's dtype and
+    lse is ``(b, heads, sq, 1)`` float32, all on q's device."""
+    b, sq, h, _ = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q ({tuple(q.shape)} {q.dtype} on {q.device}); "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if lse.shape != (b, h, sq, 1) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be ({b}, {h}, {sq}, 1) float32 on {q.device}; got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+
+
+def _rowsum_do_o(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """``D = rowsum(dO . o)`` in float32 from the rounded o, ``(b, sq, heads)``."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool = False):
+    """Plain PyTorch version of the backward kernels, on any device:
+    ``(dq, dk, dv)`` in the inputs' dtypes and the model layout.
+
+    Given the forward's output ``o`` and logsumexp ``lse`` (as
+    :func:`flash_attention_lse` returns them) and the output gradient
+    ``do``, with ``D = rowsum(dO . o)`` in float32, for each pair (query i,
+    key j) that i sees: ``p = exp(s - lse_i)`` from the float32 scores (not
+    rounded), ``dp = dO_i . v_j`` from input-dtype operands into float32,
+    ``ds = p (dp - D_i) scale`` in float32; then ``dq = round(ds) k``,
+    ``dk = round(ds)^T q`` summed over each kv head's group of query heads,
+    ``dv = round(p)^T dO``, where round() is to the inputs' dtype and every
+    sum is float32. Like :func:`flash_attention_plain` it loops over blocks
+    of q rows, holding about 1 GiB of float32 scores per block, and with
+    ``causal`` each block reads only the keys its last row can see."""
+    _check(q, k, v)
+    _check_bwd(q, o, lse, do)
+    b, sq, h, d = q.shape
+    sk, kv_h = k.shape[1], k.shape[2]
+    rep = h // kv_h
+    scale = softmax_scale(d)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # (b, kv_h, 1, sk, d)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    dd = _rowsum_do_o(do, o)                                 # (b, sq, h)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.zeros((b, kv_h, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    rows = max(1, _PLAIN_SCORE_BYTES // (4 * b * h * sk))
+    for q0 in range(0, sq, rows):
+        q1 = min(sq, q0 + rows)
+        n = q1 - q0
+        keys = min(sk, q1) if causal else sk
+
+        def grouped(t):   # (b, n, h, d) rows of this block -> (b, kv_h, rep, n, d) float32
+            return t[:, q0:q1].float().reshape(b, n, kv_h, rep, d).permute(0, 2, 3, 1, 4)
+        qc, doc = grouped(q), grouped(do)
+        p = torch.matmul(qc, kf[..., :keys, :].transpose(-1, -2)).mul_(scale)
+        if causal:
+            seen = (torch.arange(q0, q1, device=q.device)[:, None]
+                    >= torch.arange(keys, device=q.device)[None, :])
+            p.masked_fill_(~seen, float("-inf"))
+        p.sub_(lse[:, :, q0:q1].reshape(b, kv_h, rep, n, 1)).exp_()
+        ds = torch.matmul(doc, vf[..., :keys, :].transpose(-1, -2))
+        ds.sub_(dd[:, q0:q1].permute(0, 2, 1).reshape(b, kv_h, rep, n, 1)).mul_(p).mul_(scale)
+        dq[:, q0:q1] = torch.matmul(ds.to(k.dtype).float(), kf[..., :keys, :]).to(
+            q.dtype).permute(0, 3, 1, 2, 4).reshape(b, n, h, d)
+        dk[:, :, :keys] += torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qc).sum(2)
+        del ds
+        dv[:, :, :keys] += torch.matmul(p.to(do.dtype).float().transpose(-1, -2), doc).sum(2)
+        del p
+    return dq, dk.to(k.dtype).permute(0, 2, 1, 3), dv.to(v.dtype).permute(0, 2, 1, 3)
+
+
+def _bwd_inputs(q, o, lse, do):
+    """``(do, lse, D)`` as the kernels read them: dO with a unit-stride head
+    dim, lse and ``D = rowsum(dO . o)`` contiguous ``(b, heads, sq)`` float32."""
+    if q.shape[3] > 1 and do.stride(3) != 1:
+        do = do.contiguous()
+    return do, lse.contiguous(), _rowsum_do_o(do, o).transpose(1, 2).contiguous()
+
+
+def _bwd_call(name, q, k, v, do, lse, dd, outs, causal):
+    """Launch K3 (``outs = (dq,)``) or K4 (``outs = (dk, dv)``) and count it."""
+    b, sq, h, d = q.shape
+    sk, kv_h = k.shape[1], k.shape[2]
+    _check_grid(b, h)
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]]
+    for t in outs:
+        strides += t.stride()[:3]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_launcher(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), *(t.data_ptr() for t in outs), b, sq, sk, h, kv_h, d,
+            (ctypes.c_int64 * len(strides))(*strides), _DTYPES[q.dtype], int(causal),
+            softmax_scale(d), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
+    kernels.count_launch(name)
+
+
+def _flash_bwd_dq(q, k, v, do, lse, dd, causal: bool) -> torch.Tensor:
+    """K3 on CUDA tensors (inputs as :func:`_bwd_inputs` gives them): dq."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.shape[1]:
+        _bwd_call(BWD_DQ_KERNEL_NAME, q, k, v, do, lse, dd, (dq,), causal)
+    return dq
+
+
+def _flash_bwd_dkv(q, k, v, do, lse, dd, causal: bool):
+    """K4 on CUDA tensors (inputs as :func:`_bwd_inputs` gives them): (dk, dv)."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if not q.shape[1]:   # no query sees a key
+        return dk.zero_(), dv.zero_()
+    _bwd_call(BWD_DKV_KERNEL_NAME, q, k, v, do, lse, dd, (dk, dv), causal)
+    return dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, causal: bool = False):
+    """``(dq, dk, dv)`` of flash attention from the forward's ``o`` and
+    ``lse`` and the output gradient ``do``: K3 and K4 on CUDA tensors, the
+    plain version :func:`flash_attention_bwd_plain` on CPU tensors."""
+    _check(q, k, v)
+    _check_bwd(q, o, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    do, lse, dd = _bwd_inputs(q, o, lse, do)
+    return (_flash_bwd_dq(q, k, v, do, lse, dd, causal),
+            *_flash_bwd_dkv(q, k, v, do, lse, dd, causal))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The autograd seam of flash attention, as the JAX package's
+    ``_flash_vjp``: ``apply(q, k, v, causal, forward, backward) -> o``.
+
+    ``forward(q, k, v, causal) -> (o, lse)`` runs once and ``(q, k, v, o,
+    lse)`` are saved; ``backward(q, k, v, o, lse, do, causal) -> (dq, dk,
+    dv)`` gives the gradients. :func:`flash_attention` passes
+    :func:`flash_attention_lse` and :func:`flash_attention_bwd` (the
+    kernels on the card, the plain versions on the CPU); passing
+    :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`
+    gives the plain function on any device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, forward, backward):
+        o, lse = forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.backward_fn = causal, backward
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = ctx.backward_fn(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
 def _launcher():
     from petastorm_tpu_torch.kernels.build import load
     fn = load("flash_attn").flash_attn_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 + [
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_launcher(name: str):
+    """``flash_attn_bwd_dq`` (7 pointers) or ``flash_attn_bwd_dkv`` (8)."""
+    from petastorm_tpu_torch.kernels.build import load
+    fn = getattr(load("flash_attn_bwd"), name)
+    if fn.argtypes is None:
+        pointers = 7 if name == "flash_attn_bwd_dq" else 8
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int64] * 6 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
             ctypes.c_void_p]
         fn.restype = ctypes.c_int

@@ -200,3 +200,96 @@ def test_token_slice_on_card(cuda_device, tmp_path):
     for (tok_c, (bf16_c, f32_c)), (tok_h, (bf16_h, f32_h)) in zip(on_card, on_host):
         assert torch.equal(tok_c, tok_h)
         assert abs(bf16_c - bf16_h) <= 5e-3 and abs(f32_c - f32_h) <= 1e-4
+
+
+#: Backward kernels vs the plain backward: the JAX package's gradient bar in
+#: float32 (2e-4), its flash bar in bfloat16 (3e-2), and f16 3e-2 / 8 rounded up.
+_BWD_BARS = {torch.float32: 2e-4, torch.bfloat16: 3e-2, torch.float16: 4e-3}
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv_h,d,causal,dtype", [
+    (2, 256, 256, 8, 2, 128, True, torch.bfloat16),
+    (1, 100, 100, 4, 2, 64, True, torch.bfloat16),
+    (2, 96, 64, 4, 2, 64, True, torch.float32),
+    (2, 40, 130, 4, 1, 64, True, torch.float32),
+    (2, 77, 130, 4, 1, 64, False, torch.float32),
+    (1, 130, 130, 4, 4, 32, True, torch.float16),
+    (1, 70, 90, 2, 1, 256, False, torch.bfloat16),
+    (1, 70, 70, 4, 1, 200, True, torch.float32),
+])
+def test_flash_bwd_kernels_match_plain_on_card(cuda_device, b, sq, sk, h, kv_h, d, causal, dtype):
+    """K3 and K4 against the plain backward on the same (o, lse, dO); each
+    launched once, and a second launch gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq * sk + d + 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    q, k, v, do = randn(b, sq, h, d), randn(b, sk, kv_h, d), randn(b, sk, kv_h, d), randn(b, sq, h, d)
+    o, lse = flash_attn.flash_attention_lse(q, k, v, causal=causal)
+    kernels.reset_launch_counts()
+    got = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert kernels.launch_counts == {flash_attn.BWD_DQ_KERNEL_NAME: 1,
+                                     flash_attn.BWD_DKV_KERNEL_NAME: 1}
+    again = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = flash_attn.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.equal(g, a), name
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=_BWD_BARS[dtype])
+
+
+def test_flash_attention_has_a_gradient_on_card(cuda_device):
+    """The forward on a CUDA tensor that requires grad is recorded by
+    autograd (the "lse" launch), and its backward launches K3 and K4 and
+    gives the plain version's gradient."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, g = (torch.randn(2, 128, s, 64, generator=gen, device=cuda_device)
+                  for s in (4, 2, 2, 4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = flash_attn.flash_attention(*leaves, causal=True)
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert kernels.launch_counts == {flash_attn.KERNEL_NAME: 1, flash_attn.BWD_DQ_KERNEL_NAME: 1,
+                                     flash_attn.BWD_DKV_KERNEL_NAME: 1}
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attn.FlashAttentionFunction.apply(*plain, True, flash_attn.flash_attention_plain,
+                                            flash_attn.flash_attention_bwd_plain).backward(g)
+    for a, b in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype,loss_bar", [(torch.float32, 1e-4), (torch.bfloat16, 5e-3)])
+def test_tiny_train_step_on_card_matches_cpu(cuda_device, dtype, loss_bar):
+    """Two AdamW steps of TINY with flash attention on the card (kernels)
+    and on the CPU (plain versions) from the same weights and batches."""
+    cfg = llama.TINY
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32))
+               for _ in range(2)]
+    host = llama.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+
+    def run(device):
+        # Copies: the step updates its parameters in place.
+        params = {k: ([{n: t.to(device, copy=True) for n, t in layer.items()} for layer in v]
+                      if k == "layers" else v.to(device, copy=True)) for k, v in host.items()}
+        init_opt, step = llama.make_train_step(cfg, attn_fn=flash_attn.make_flash_attention(),
+                                               compute_dtype=dtype, shift="roll")
+        opt = init_opt(params)
+        losses = [float(step(params, opt, {"tokens": t.to(device)})[2]) for t in batches]
+        return losses, params
+
+    kernels.reset_launch_counts()
+    card_losses, card = run(cuda_device)
+    assert kernels.launch_counts == {name: 2 * cfg.n_layers for name in (
+        flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME)}
+    host_losses, on_host = run("cpu")
+    assert card_losses == pytest.approx(host_losses, abs=loss_bar)
+    lr = 3e-4
+    for a, b in zip(llama.param_leaves(card), llama.param_leaves(on_host)):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        if dtype == torch.float32:
+            assert diff.max() <= 2 * lr
+        else:   # see tests/test_torch_train.py for the bfloat16 AdamW bars
+            assert diff.max() <= 4 * lr and (diff <= 0.1 * lr).float().mean() >= 0.9

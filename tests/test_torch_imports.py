@@ -63,7 +63,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert {"petastorm_tpu_torch.ops.image_ops", "petastorm_tpu_torch.ops.flash_attn",
             "petastorm_tpu_torch.ngram", "petastorm_tpu_torch.models.llama",
             "petastorm_tpu_torch.parallel.attention",
-            "petastorm_tpu_torch.benchmark.llm_bench", "chip_smoke"} <= set(modules)
+            "petastorm_tpu_torch.benchmark.llm_bench",
+            "petastorm_tpu_torch.benchmark.imagenet_bench", "chip_smoke"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
