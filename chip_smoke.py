@@ -37,20 +37,24 @@ result line):
    attention, with the wrong attentions (and one of zeros) as controls
    that the bar must reject;
 7. the flash backward (K3: dq, K4: dk and dv) against the plain backward on
-   the card: the token path's shape bf16 causal, held to bars scaled to
-   each query row (dq) and key row (dk, dv), with deliberately wrong
-   backwards made from the plain version (``BWD_CONTROLS``) that the bars
-   must reject, and two launches giving equal bits; then ragged,
-   cross-length, non-causal, MHA, rep 4, f32 and f16 cases, also held to
-   absolute bars; K3, K4, the plain backward and the backward of
-   PyTorch's ``scaled_dot_product_attention`` (yardstick only) timed with
-   CUDA events;
+   the card: the token path's shape bf16 causal on the tensor-core route,
+   held to bars scaled to each query row (dq) and key row (dk, dv), with
+   deliberately wrong backwards made from the plain version
+   (``BWD_CONTROLS``) that the bars must reject, and two launches giving
+   equal bits; the FMA route forced at the same inputs, held to the same
+   bars; then short cases on whichever route they take (logged, and checked
+   against the launch counts): ragged, cross-length both ways, non-causal,
+   MHA, rep 4, f32, f16, d 32/64/72/128 on tensor cores, d 60 and 256 and
+   f32 on FMAs, q/k/v as strided views of one fused tensor, also held to
+   absolute bars; K3 and K4 of both routes, the plain backward and the
+   backward of PyTorch's ``scaled_dot_product_attention`` (yardstick only)
+   timed with CUDA events, in turns;
 8. the training path at full width: ``run_llm_bench`` on a seeded
    ``write_token_store`` store (window 8192) with ``LlamaConfig()`` at full
    width cut to 4 layers, batch 2, flash attention, one warm-up step, four
    timed steps and two resident ones; launch counts are reset just before
-   and read just after (K2, K3 and K4 once per layer per step, the plain
-   versions never). Then one step with ``remat_layers`` and ``xent_chunk``
+   and read just after (K2 and the tensor-core K3 and K4 once per layer per
+   step; the FMA route and the plain versions never). Then one step with ``remat_layers`` and ``xent_chunk``
    against the plain step, a ``torch.profiler`` split of one resident
    step, and the whole-slice gradient check: every parameter's gradient
    through the kernels against the plain forward and backward, with the
@@ -155,10 +159,11 @@ GRAD_ROW_FLOOR = 2 ** -7
 BWD_ABS_BARS = {torch.float32: 2e-4, torch.bfloat16: 3e-2, torch.float16: 4e-3}
 #: Deliberately wrong backwards, made by giving the plain backward altered
 #: inputs; the bars must reject each at the token path's shape. On an H100
-#: the kernels read, at that shape, row-scaled worst 8.7e-6 and rms 9.1e-5
-#: (dk; dq was equal to the plain version's); the nearest control, "p 1 %
-#: low", read worst 0.042 and rms 0.0105, outside the bf16 bars (0.031,
-#: 0.0078); the others read rms 0.047-27.
+#: the tensor-core kernels read, at that shape, row-scaled worst 0.0073 and
+#: rms 0.00038 (dv; the FMA route, whose sums run in the plain version's
+#: order, 8.7e-6 and 9.1e-5); the nearest control, "p 1 % low", read worst
+#: 0.042 and rms 0.0105, outside the bf16 bars (0.031, 0.0078); the others
+#: read rms 0.047-27.
 BWD_CONTROLS = ("D left out", "GQA sum over the first head of each group only",
                 "last q tile skipped in dK/dV", "lse + ln 1.01 (p 1 % low)")
 BWD_MUST_FAIL = BWD_CONTROLS
@@ -168,14 +173,14 @@ TRAIN_STEPS, TRAIN_RESIDENT, XENT_CHUNK = 4, 2, 2048
 #: (Euclidean norms) against the gradients through the plain forward and
 #: backward, the largest over the leaves. The controls run the plain forward
 #: with a wrong backward, so they are held, like for like, against the
-#: kernel backward on the plain forward: on an H100 that read 0.83 % and the
-#: nearest control, "p 1 % low", 1.94 %; GRAD_BWD_REL_BAR lies between and
-#: every control must exceed it. The whole path on the kernels (K2's bf16
-#: roundings differ from the plain forward's, and the bf16 model carries
-#: them into every gradient) read 2.05 % and the nearest control it must
-#: reject, "last q tile skipped", 8.07 %; GRAD_REL_BAR lies between. "p 1 %
-#: low" moves the gradients by less than K2's roundings do and is shown,
-#: not judged, at that bar.
+#: kernel backward on the plain forward: on an H100 that read 0.89 % (0.83 %
+#: on the FMA route) and the nearest control, "p 1 % low", 1.94 %;
+#: GRAD_BWD_REL_BAR lies between and every control must exceed it. The
+#: whole path on the kernels (K2's bf16 roundings differ from the plain
+#: forward's, and the bf16 model carries them into every gradient) read
+#: 2.05 % and the nearest control it must reject, "last q tile skipped",
+#: 8.07 %; GRAD_REL_BAR lies between. "p 1 % low" moves the gradients by
+#: less than K2's roundings do and is shown, not judged, at that bar.
 GRAD_REL_BAR = 0.04
 GRAD_BWD_REL_BAR = 0.013
 GRAD_MUST_FAIL = BWD_CONTROLS[:3]
@@ -530,8 +535,8 @@ def phase_flash() -> dict:
 FORWARD_GROUPS = (("flash_fwd_kernel (K2)", ("flash_fwd_kernel",)),
                   ("matmuls (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")))
 TRAIN_GROUPS = (("flash_fwd_kernel (K2)", ("flash_fwd_kernel",)),
-                ("flash_bwd_dq_kernel (K3)", ("flash_bwd_dq_kernel",)),
-                ("flash_bwd_dkv_kernel (K4)", ("flash_bwd_dkv_kernel",)),
+                ("flash_bwd_dq_*kernel (K3)", ("flash_bwd_dq_",)),
+                ("flash_bwd_dkv_*kernel (K4)", ("flash_bwd_dkv_",)),
                 ("matmuls (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
                 ("AdamW (multi-tensor kernels)", ("multi_tensor_apply", "adam")))
 
@@ -739,34 +744,91 @@ def bwd_flops_bytes(b, sq, sk, h, kv_h, d, causal, itemsize, products, kv_output
     return flops, nbytes
 
 
+#: Launch-count names of each backward route: (K3, K4).
+BWD_ROUTES = {flash_attn.TENSOR_CORES: (flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME),
+              flash_attn.FMA: (flash_attn.BWD_DQ_FMA_KERNEL_NAME, flash_attn.BWD_DKV_FMA_KERNEL_NAME)}
+#: Short backward cases: (b, sq, sk, h, kv_h, d, causal, dtype, what, q/k/v
+#: as strided views of one fused (b, s, h + 2 kv_h, d) tensor). The route
+#: each takes follows from its dtype and d (flash_attn.bwd_route).
+BWD_CASES = [(1, 100, 100, 4, 2, 64, True, torch.bfloat16, "ragged 100x100 d64 causal", False),
+             (1, 70, 70, 4, 1, 200, True, torch.float32, "ragged d200 causal, rep 4", False),
+             (2, 96, 64, 4, 2, 64, True, torch.bfloat16, "causal sq 96 > sk 64", False),
+             (2, 40, 130, 4, 1, 64, True, torch.float32, "causal sq 40 < sk 130, rep 4", False),
+             (2, 77, 130, 4, 1, 64, False, torch.bfloat16, "non-causal sq 77, sk 130", False),
+             (2, 200, 200, 4, 4, 128, True, torch.bfloat16, "MHA (h == kv_h)", False),
+             (2, 300, 300, 8, 2, 64, True, torch.float32, "f32 d64 causal, rep 4", False),
+             (2, 150, 150, 8, 4, 128, False, torch.float16, "f16 non-causal", False),
+             (1, 70, 90, 2, 1, 256, True, torch.bfloat16, "d256 causal", False),
+             (1, WINDOW - 37, WINDOW - 37, 8, 2, 128, True, torch.bfloat16,
+              f"ragged {WINDOW - 37} causal (not a multiple of 64)", False),
+             (2, 300, 200, 8, 2, 128, True, torch.bfloat16, "causal sq 300 > sk 200, d128", False),
+             (2, 200, 300, 8, 2, 128, True, torch.bfloat16, "causal sq 200 < sk 300, d128", False),
+             (2, 500, 500, 8, 8, 128, True, torch.bfloat16, "MHA d128 causal", False),
+             (2, 1000, 1000, 8, 2, 128, True, torch.float16, "f16 d128 causal", False),
+             (2, 1000, 1000, 8, 2, 64, True, torch.bfloat16, "bf16 d64 causal", False),
+             (1, 300, 300, 4, 2, 72, True, torch.bfloat16, "bf16 d72 causal", False),
+             (1, 300, 300, 4, 2, 32, False, torch.float16, "f16 d32 non-causal", False),
+             (1, 130, 130, 4, 2, 60, True, torch.bfloat16, "bf16 d60 causal", False),
+             (2, 256, 256, 8, 2, 128, True, torch.bfloat16, "q, k, v strided views of fused qkv", True)]
+
+
+def bwd_launches():
+    """Backward launches since the last reset, by route: {route: (K3, K4)}."""
+    return {route: tuple(kernels.launch_counts.get(n, 0) for n in names)
+            for route, names in BWD_ROUTES.items()}
+
+
 def phase_flash_bwd():
     gen = torch.Generator(device="cuda").manual_seed(1)
     b, h, kv_h, d = TOKEN_BATCH, LLAMA.n_heads, LLAMA.n_kv_heads, LLAMA.head_dim
 
-    def inputs(b, sq, sk, h, kv_h, d, causal, dtype):
+    def inputs(b, sq, sk, h, kv_h, d, causal, dtype, strided=False):
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        q, k, v, do = randn(b, sq, h, d), randn(b, sk, kv_h, d), randn(b, sk, kv_h, d), randn(b, sq, h, d)
+        if strided:
+            qkv = randn(b, sq, h + 2 * kv_h, d)
+            q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv_h], qkv[:, :, h + kv_h:]
+        else:
+            q, k, v = randn(b, sq, h, d), randn(b, sk, kv_h, d), randn(b, sk, kv_h, d)
+        do = randn(b, sq, h, d)
         o, lse = flash_attention_lse(q, k, v, causal=causal)
         return q, k, v, o, lse, do
+
+    def routed(route):
+        """The launch counts one flash_attention_bwd call on ``route`` gives."""
+        return {r: (1, 1) if r == route else (0, 0) for r in BWD_ROUTES}
 
     failures = []
     # The token path's shape: row-scaled bars, equal bits, the controls.
     q, k, v, o, lse, do = inputs(b, WINDOW, WINDOW, h, kv_h, d, True, torch.bfloat16)
+    route = flash_attn.bwd_route(q.dtype, d)
+    kernels.reset_launch_counts()
     got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    counts = bwd_launches()
     again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
     torch.cuda.synchronize()
+    if route != flash_attn.TENSOR_CORES or counts != routed(route):
+        failures.append(f"token path's shape took route {route!r}, launches {counts}")
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         failures.append("two launches of K3/K4 gave different bits")
     if not all(torch.isfinite(g.float()).all() for g in got):
         failures.append("non-finite gradients at the token path's shape")
     token_errs, ok = judge_grads(got, want, False,
-                                 f"kernel, token path ({b}, {WINDOW}, {h}/{kv_h}, {d}) bf16 causal")
+                                 f"kernel ({route}), token path ({b}, {WINDOW}, {h}/{kv_h}, {d}) "
+                                 f"bf16 causal; launches {counts}")
     log(f"[bwd] two launches give equal bits: {all(torch.equal(x, y) for x, y in zip(got, again))}")
     if not ok:
         failures.append("the kernels at the token path's shape")
     del got, again
+    # The FMA route forced at the same inputs: the same bars.
+    fma_in = flash_attn._bwd_inputs(flash_attn.FMA, q, k, v, o, lse, do)
+    fma_got = (flash_attn._flash_bwd_dq(flash_attn.FMA, *fma_in, True),
+               *flash_attn._flash_bwd_dkv(flash_attn.FMA, *fma_in, True))
+    fma_errs, fma_ok = judge_grads(fma_got, want, False, "FMA route forced, token path's shape")
+    if not fma_ok:
+        failures.append("the FMA route at the token path's shape")
+    del fma_got
     for flaw in BWD_CONTROLS:
         _, c_ok = judge_grads(control_backward(q, k, v, o, lse, do, True, flaw), want, False,
                               f"control {flaw!r}")
@@ -774,40 +836,39 @@ def phase_flash_bwd():
         if c_ok and flaw in BWD_MUST_FAIL:
             failures.append(f"control {flaw!r} within the bars")
     del want
-    # Short cases: absolute bars as well.
-    for case in [(1, 100, 100, 4, 2, 64, True, torch.bfloat16, "ragged 100x100 d64 causal"),
-                 (1, 70, 70, 4, 1, 200, True, torch.float32, "ragged d200 causal, rep 4"),
-                 (2, 96, 64, 4, 2, 64, True, torch.bfloat16, "causal sq 96 > sk 64"),
-                 (2, 40, 130, 4, 1, 64, True, torch.float32, "causal sq 40 < sk 130, rep 4"),
-                 (2, 77, 130, 4, 1, 64, False, torch.bfloat16, "non-causal sq 77, sk 130"),
-                 (2, 200, 200, 4, 4, 128, True, torch.bfloat16, "MHA (h == kv_h)"),
-                 (2, 300, 300, 8, 2, 64, True, torch.float32, "f32 d64 causal, rep 4"),
-                 (2, 150, 150, 8, 4, 128, False, torch.float16, "f16 non-causal"),
-                 (1, 70, 90, 2, 1, 256, True, torch.bfloat16, "d256 causal")]:
-        *shape, causal, dtype, what = case
-        c_q, c_k, c_v, c_o, c_lse, c_do = inputs(*shape, causal, dtype)
-        _, c_ok = judge_grads(flash_attention_bwd(c_q, c_k, c_v, c_o, c_lse, c_do, causal),
-                              flash_attention_bwd_plain(c_q, c_k, c_v, c_o, c_lse, c_do, causal),
-                              True, what)
-        if not c_ok:
+    # Short cases, on whichever route they take: absolute bars as well.
+    for *shape, causal, dtype, what, strided in BWD_CASES:
+        c_q, c_k, c_v, c_o, c_lse, c_do = inputs(*shape, causal, dtype, strided)
+        c_route = flash_attn.bwd_route(dtype, shape[5])
+        kernels.reset_launch_counts()
+        c_got = flash_attention_bwd(c_q, c_k, c_v, c_o, c_lse, c_do, causal)
+        c_counts = bwd_launches()
+        _, c_ok = judge_grads(c_got, flash_attention_bwd_plain(c_q, c_k, c_v, c_o, c_lse, c_do, causal),
+                              True, f"{what} [{c_route}; launches {c_counts}]")
+        if not c_ok or c_counts != routed(c_route):
             failures.append(what)
 
-    # Times at the token path's shape: K3 and K4 alone (D and the layouts
-    # made once), the plain backward, and SDPA's backward without its forward.
-    do_k, lse_k, dd = flash_attn._bwd_inputs(q, o, lse, do)
+    # Times at the token path's shape, in turns: K3 and K4 of both routes
+    # alone (D and the layouts made once), the whole tensor-core backward,
+    # the plain backward, and SDPA's backward without its forward.
+    tc_in = flash_attn._bwd_inputs(flash_attn.TENSOR_CORES, q, k, v, o, lse, do)
     qq, kk, vv = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True)
     g = do.transpose(1, 2)
-    dq_ms, dkv_ms, bwd_ms, plain_ms, library_ms = median_ms(
-        lambda: flash_attn._flash_bwd_dq(q, k, v, do_k, lse_k, dd, True),
-        lambda: flash_attn._flash_bwd_dkv(q, k, v, do_k, lse_k, dd, True),
+    dq_ms, dkv_ms, dq_fma_ms, dkv_fma_ms, bwd_ms, plain_ms, library_ms = median_ms(
+        lambda: flash_attn._flash_bwd_dq(flash_attn.TENSOR_CORES, *tc_in, True),
+        lambda: flash_attn._flash_bwd_dkv(flash_attn.TENSOR_CORES, *tc_in, True),
+        lambda: flash_attn._flash_bwd_dq(flash_attn.FMA, *fma_in, True),
+        lambda: flash_attn._flash_bwd_dkv(flash_attn.FMA, *fma_in, True),
         lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
         lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
         lambda: torch.autograd.grad(out, (qq, kk, vv), g, retain_graph=True),
         reps=FLASH_REPS, warmup=1)
     rows = {}
     for name, ms, products, kv_outputs, err in (
-            ("K3", dq_ms, 3, False, token_errs[0]), ("K4", dkv_ms, 4, True, max(token_errs[1:]))):
+            ("K3", dq_ms, 3, False, token_errs[0]), ("K4", dkv_ms, 4, True, max(token_errs[1:])),
+            ("K3 fma", dq_fma_ms, 3, False, fma_errs[0]),
+            ("K4 fma", dkv_fma_ms, 4, True, max(fma_errs[1:]))):
         flops, nbytes = bwd_flops_bytes(b, WINDOW, WINDOW, h, kv_h, d, True, 2, products, kv_outputs)
         bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
         bound_by = "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
@@ -816,8 +877,10 @@ def phase_flash_bwd():
             f"TFLOP/s")
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": library_ms}
-    log(f"[bwd] flash_attention_bwd (D + K3 + K4) {bwd_ms:.4f} ms; plain backward (dq, dk, dv "
-        f"together) {plain_ms:.4f} ms; scaled_dot_product_attention backward {library_ms:.4f} ms")
+    log(f"[bwd] flash_attention_bwd (D + K3 + K4, tensor cores) {bwd_ms:.4f} ms; plain backward "
+        f"(dq, dk, dv together) {plain_ms:.4f} ms; scaled_dot_product_attention backward "
+        f"{library_ms:.4f} ms; FMA route K3 + K4 {dq_fma_ms + dkv_fma_ms:.4f} ms against tensor "
+        f"cores {dq_ms + dkv_ms:.4f} ms")
     if failures:
         raise AssertionError("flash backward: " + "; ".join(failures))
     return rows
@@ -859,6 +922,7 @@ def phase_train(tmp: str) -> dict:
     write_token_store(url, windows=TOKEN_WINDOWS, window=WINDOW, vocab=LLAMA.vocab, seed=0)
     model_kwargs = {f.name: getattr(LLAMA, f.name) for f in dataclasses.fields(LLAMA)}
     names = (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME)
+    fma_names = BWD_ROUTES[flash_attn.FMA]   # never launched on this path
     failures = []
 
     # The main path, counted: one warm-up, the timed steps, the resident ones.
@@ -869,14 +933,15 @@ def phase_train(tmp: str) -> dict:
         result = run_llm_bench(url, steps=TRAIN_STEPS, batch_size=TOKEN_BATCH, window=WINDOW,
                                workers_count=TOKEN_WORKERS, resident_steps=TRAIN_RESIDENT,
                                flash=True, model_kwargs=model_kwargs, device="cuda")
-    launches = {n: kernels.launch_counts.get(n, 0) for n in names}
+    launches = {n: kernels.launch_counts.get(n, 0) for n in names + fma_names}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for key, value in result.items():
         log(f"[train] {key}: {value}")
     steps = 1 + TRAIN_STEPS + TRAIN_RESIDENT
     log(f"[train] launches {launches} for {steps} steps of {LLAMA.n_layers} layers; plain "
         f"versions called {plain.calls}; peak memory {peak_gb:.2f} GB")
-    if any(launches[n] != LLAMA.n_layers * steps for n in names) or any(plain.calls.values()):
+    if any(launches[n] != LLAMA.n_layers * steps for n in names) or any(plain.calls.values()) \
+            or any(launches[n] for n in fma_names):
         failures.append(f"launches {launches}, plain calls {plain.calls}")
     if not (np.isfinite(result["loss_first"]) and np.isfinite(result["loss_last"])):
         failures.append(f"non-finite loss {result['loss_first']}, {result['loss_last']}")
@@ -912,12 +977,13 @@ def phase_train(tmp: str) -> dict:
         _, opt, loss = step(params, opt, batch)
         losses[label] = loss.item()
         peak = torch.cuda.max_memory_allocated() / 1e9
-        counts = {n: kernels.launch_counts.get(n, 0) for n in names}
+        counts = {n: kernels.launch_counts.get(n, 0) for n in names + fma_names}
         moved = {n: not torch.equal(before[n], t.detach()) for n, t in watched().items()}
         log(f"[train] {label}: loss {losses[label]:.6f}, launches {counts}, peak memory "
             f"{peak:.2f} GB, parameters moved {moved}")
         want_k2 = LLAMA.n_layers * (2 if kw else 1)
-        if counts != {names[0]: want_k2, names[1]: LLAMA.n_layers, names[2]: LLAMA.n_layers}:
+        if counts != {names[0]: want_k2, names[1]: LLAMA.n_layers, names[2]: LLAMA.n_layers,
+                      fma_names[0]: 0, fma_names[1]: 0}:
             failures.append(f"{label}: launches {counts}")
         if not all(moved.values()):
             failures.append(f"{label}: parameters did not move {moved}")
@@ -1017,7 +1083,15 @@ def main() -> int:
         "launches": counts[flash_attn.BWD_DQ_KERNEL_NAME], **bwd["K3"]}, {
         "name": flash_attn.BWD_DKV_KERNEL_NAME, "route": "cuda", "source": source,
         "replaces": "petastorm_tpu/ops/flash_attn.py:305",
-        "launches": counts[flash_attn.BWD_DKV_KERNEL_NAME], **bwd["K4"]}]}))
+        "launches": counts[flash_attn.BWD_DKV_KERNEL_NAME], **bwd["K4"]}, {
+        # The FMA route (f32, 16-bit d > 128 or d % 8 != 0): timed forced at
+        # the token path's bf16 shape; the main path never launches it.
+        "name": flash_attn.BWD_DQ_FMA_KERNEL_NAME, "route": "cuda", "source": source,
+        "replaces": "petastorm_tpu/ops/flash_attn.py:272",
+        "launches": counts[flash_attn.BWD_DQ_FMA_KERNEL_NAME], **bwd["K3 fma"]}, {
+        "name": flash_attn.BWD_DKV_FMA_KERNEL_NAME, "route": "cuda", "source": source,
+        "replaces": "petastorm_tpu/ops/flash_attn.py:305",
+        "launches": counts[flash_attn.BWD_DKV_FMA_KERNEL_NAME], **bwd["K4 fma"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/<name>-<hash>.so`` beside the package, at first use.
-The hash covers the source and the flags, so a stale library is never
-loaded. The libraries expose plain ``extern "C"`` launchers, bound with
+The hash covers the source, every header under ``csrc/`` and the flags
+(compile and link alike), so an edited source, header or flag never loads
+a stale library. The libraries expose plain ``extern "C"`` launchers, bound with
 ``ctypes``; nothing here includes PyTorch's headers, so a build takes
 seconds.
 """
@@ -42,9 +43,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` is built: named by a hash of
+    the source, of every ``csrc/*.cuh`` (any of them may be included) and of
+    ``NVCC_FLAGS``."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:

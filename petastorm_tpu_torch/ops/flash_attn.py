@@ -11,7 +11,10 @@ logsumexp of each query row, ``(b, heads, sq, 1)`` float32.
 A CUDA tensor goes through the hand-written kernels (it raises if a kernel
 cannot build or launch, and never falls back): the forward
 ``csrc/flash_attn.cu`` (K2) and the backward ``csrc/flash_attn_bwd.cu``
-(K3: dq, K4: dk and dv). A CPU tensor goes through the plain PyTorch
+(K3: dq, K4: dk and dv), whose route :func:`bwd_route` picks from the
+dtype and head dim before the launch: tensor cores (wgmma, TMA) for 16-bit
+inputs with ``d % 8 == 0`` and ``d <= 128``, f32 FMAs otherwise. A CPU
+tensor goes through the plain PyTorch
 versions :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`,
 which compute the same functions: float32 scores ``(q . k) * scale`` with
 ``scale = 1/sqrt(d)`` rounded once to float32, float32 softmax, p rounded
@@ -33,9 +36,20 @@ import torch
 from petastorm_tpu_torch import kernels
 
 KERNEL_NAME = "flash_attn_fwd"
-#: Launch-count names of the backward kernels K3 (dq) and K4 (dk, dv).
+#: Launch-count names of the backward kernels K3 (dq) and K4 (dk, dv): the
+#: tensor-core route, then the FMA route. Each is also the name of its C
+#: launcher in ``csrc/flash_attn_bwd.cu``.
 BWD_DQ_KERNEL_NAME = "flash_attn_bwd_dq"
 BWD_DKV_KERNEL_NAME = "flash_attn_bwd_dkv"
+BWD_DQ_FMA_KERNEL_NAME = "flash_attn_bwd_dq_fma"
+BWD_DKV_FMA_KERNEL_NAME = "flash_attn_bwd_dkv_fma"
+#: The backward's two routes (see :func:`bwd_route`).
+TENSOR_CORES, FMA = "tensor cores", "fma"
+_BWD_KERNELS = {(TENSOR_CORES, "dq"): BWD_DQ_KERNEL_NAME,
+                (TENSOR_CORES, "dkv"): BWD_DKV_KERNEL_NAME,
+                (FMA, "dq"): BWD_DQ_FMA_KERNEL_NAME, (FMA, "dkv"): BWD_DKV_FMA_KERNEL_NAME}
+#: Largest head dim the tensor-core backward takes.
+TC_MAX_HEAD_DIM = 128
 #: Largest head dim the kernel takes.
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -247,64 +261,128 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk.to(k.dtype).permute(0, 2, 1, 3), dv.to(v.dtype).permute(0, 2, 1, 3)
 
 
-def _bwd_inputs(q, o, lse, do):
-    """``(do, lse, D)`` as the kernels read them: dO with a unit-stride head
-    dim, lse and ``D = rowsum(dO . o)`` contiguous ``(b, heads, sq)`` float32."""
-    if q.shape[3] > 1 and do.stride(3) != 1:
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernels' route for inputs of ``dtype`` and ``head_dim``:
+    :data:`TENSOR_CORES` (wgmma products, TMA tiles) for bfloat16 and
+    float16 with ``head_dim % 8 == 0`` and ``head_dim <= 128``; :data:`FMA`
+    (IEEE float32 FMAs) otherwise: float32, whose bars tensor cores (TF32)
+    would break, and 16-bit inputs with a head dim the tensor-core kernels do
+    not take. Decided before any launch, never after a failed one."""
+    if dtype in (torch.bfloat16, torch.float16) and head_dim % 8 == 0 \
+            and head_dim <= TC_MAX_HEAD_DIM:
+        return TENSOR_CORES
+    return FMA
+
+
+def _tma_strides(t: torch.Tensor):
+    """The (batch, seq, head) strides of a ``(b, s, h, d)`` tensor as a TMA
+    map takes them: a dim of size 1 is never stepped, so it takes the stride
+    a contiguous tensor would have (PyTorch may give it any)."""
+    _, s, h, d = t.shape
+    return [st if n > 1 else nat for st, n, nat in zip(t.stride()[:3], t.shape[:3],
+                                                        (s * h * d, h * d, d))]
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can read ``t`` in place: a 16-byte-aligned base, a
+    unit-stride head dim and (batch, seq, head) strides that are positive
+    multiples of 16 bytes."""
+    size = t.element_size()
+    return (t.data_ptr() % 16 == 0 and (t.shape[3] == 1 or t.stride(3) == 1)
+            and all(st > 0 and st * size % 16 == 0 for st in _tma_strides(t)))
+
+
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where TMA can read it, else a contiguous copy in a fresh
+    (aligned) allocation."""
+    return t if _tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+def _bwd_inputs(route: str, q, k, v, o, lse, do):
+    """``(q, k, v, do, stats)`` as the kernels of ``route`` read them.
+
+    ``stats`` holds lse and ``D = rowsum(dO . o)`` as one ``(2, b, heads,
+    n)`` float32 tensor: n = sq on the FMA route, sq rounded up to a multiple
+    of 4 on the tensor-core route (TMA takes row strides in multiples of 16
+    bytes; the padding is never read). On the tensor-core route an input
+    whose strides or base TMA cannot take is first made contiguous
+    (:func:`_tma_operand`); on the FMA route dO gets a unit-stride head dim."""
+    if route == TENSOR_CORES:
+        q, k, v, do = (_tma_operand(t) for t in (q, k, v, do))
+    elif q.shape[3] > 1 and do.stride(3) != 1:
         do = do.contiguous()
-    return do, lse.contiguous(), _rowsum_do_o(do, o).transpose(1, 2).contiguous()
+    b, sq, h, _ = q.shape
+    n = -(-sq // 4) * 4 if route == TENSOR_CORES else sq
+    stats = torch.empty((2, b, h, n), dtype=torch.float32, device=q.device)
+    stats[0, :, :, :sq] = lse[..., 0]
+    stats[1, :, :, :sq] = _rowsum_do_o(do, o).transpose(1, 2)
+    return q, k, v, do, stats
 
 
-def _bwd_call(name, q, k, v, do, lse, dd, outs, causal):
-    """Launch K3 (``outs = (dq,)``) or K4 (``outs = (dk, dv)``) and count it."""
+def _bwd_call(route, which, q, k, v, do, stats, outs, causal):
+    """Launch K3 (``which="dq"``, ``outs = (dq,)``) or K4 (``"dkv"``,
+    ``outs = (dk, dv)``) of ``route`` and count it under its name."""
+    name = _BWD_KERNELS[route, which]
     b, sq, h, d = q.shape
     sk, kv_h = k.shape[1], k.shape[2]
     _check_grid(b, h)
-    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]]
+    if route == TENSOR_CORES:
+        strides = [s for t in (q, k, v, do) for s in _tma_strides(t)]
+        stats_args = (stats.data_ptr(),)
+        extra = (stats.shape[3],)
+    else:
+        strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
+        stats_args = (stats[0].data_ptr(), stats[1].data_ptr())
+        extra = ()
     for t in outs:
         strides += t.stride()[:3]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_launcher(name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dd.data_ptr(), *(t.data_ptr() for t in outs), b, sq, sk, h, kv_h, d,
-            (ctypes.c_int64 * len(strides))(*strides), _DTYPES[q.dtype], int(causal),
-            softmax_scale(d), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *stats_args,
+            *(t.data_ptr() for t in outs), b, sq, sk, h, kv_h, d,
+            (ctypes.c_int64 * len(strides))(*strides), *extra, _DTYPES[q.dtype],
+            int(causal), softmax_scale(d), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
     kernels.count_launch(name)
 
 
-def _flash_bwd_dq(q, k, v, do, lse, dd, causal: bool) -> torch.Tensor:
-    """K3 on CUDA tensors (inputs as :func:`_bwd_inputs` gives them): dq."""
+def _flash_bwd_dq(route, q, k, v, do, stats, causal: bool) -> torch.Tensor:
+    """K3 of ``route`` on CUDA tensors (inputs as :func:`_bwd_inputs` gives
+    them): dq."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.shape[1]:
-        _bwd_call(BWD_DQ_KERNEL_NAME, q, k, v, do, lse, dd, (dq,), causal)
+        _bwd_call(route, "dq", q, k, v, do, stats, (dq,), causal)
     return dq
 
 
-def _flash_bwd_dkv(q, k, v, do, lse, dd, causal: bool):
-    """K4 on CUDA tensors (inputs as :func:`_bwd_inputs` gives them): (dk, dv)."""
+def _flash_bwd_dkv(route, q, k, v, do, stats, causal: bool):
+    """K4 of ``route`` on CUDA tensors (inputs as :func:`_bwd_inputs` gives
+    them): (dk, dv)."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if not q.shape[1]:   # no query sees a key
         return dk.zero_(), dv.zero_()
-    _bwd_call(BWD_DKV_KERNEL_NAME, q, k, v, do, lse, dd, (dk, dv), causal)
+    _bwd_call(route, "dkv", q, k, v, do, stats, (dk, dv), causal)
     return dk, dv
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, causal: bool = False):
     """``(dq, dk, dv)`` of flash attention from the forward's ``o`` and
-    ``lse`` and the output gradient ``do``: K3 and K4 on CUDA tensors, the
+    ``lse`` and the output gradient ``do``: K3 and K4 on CUDA tensors, by
+    the route :func:`bwd_route` gives (on the tensor-core route an input
+    whose strides or base TMA cannot take is made contiguous first), the
     plain version :func:`flash_attention_bwd_plain` on CPU tensors."""
     _check(q, k, v)
     _check_bwd(q, o, lse, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-    do, lse, dd = _bwd_inputs(q, o, lse, do)
-    return (_flash_bwd_dq(q, k, v, do, lse, dd, causal),
-            *_flash_bwd_dkv(q, k, v, do, lse, dd, causal))
+    route = bwd_route(q.dtype, q.shape[3])
+    q, k, v, do, stats = _bwd_inputs(route, q, k, v, o, lse, do)
+    return (_flash_bwd_dq(route, q, k, v, do, stats, causal),
+            *_flash_bwd_dkv(route, q, k, v, do, stats, causal))
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -345,13 +423,18 @@ def _launcher():
 
 
 def _bwd_launcher(name: str):
-    """``flash_attn_bwd_dq`` (7 pointers) or ``flash_attn_bwd_dkv`` (8)."""
+    """One of the four C launchers of :data:`_BWD_KERNELS`: q, k, v, dO, the
+    stats (one pointer on the tensor-core route, lse and D on the FMA
+    route) and the outputs, then the sizes, the strides, on the tensor-core
+    route the stats' row stride, dtype, causal, scale and the stream."""
     from petastorm_tpu_torch.kernels.build import load
     fn = getattr(load("flash_attn_bwd"), name)
     if fn.argtypes is None:
-        pointers = 7 if name == "flash_attn_bwd_dq" else 8
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int64] * 6 + [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
-            ctypes.c_void_p]
+        tc = name in (BWD_DQ_KERNEL_NAME, BWD_DKV_KERNEL_NAME)
+        stats = 1 if tc else 2
+        outs = 1 if name in (BWD_DQ_KERNEL_NAME, BWD_DQ_FMA_KERNEL_NAME) else 2
+        fn.argtypes = ([ctypes.c_void_p] * (4 + stats + outs) + [ctypes.c_int64] * 6
+                       + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * (3 if tc else 2)
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn

@@ -207,6 +207,31 @@ def test_token_slice_on_card(cuda_device, tmp_path):
 _BWD_BARS = {torch.float32: 2e-4, torch.bfloat16: 3e-2, torch.float16: 4e-3}
 
 
+def _bwd_names(dtype, d):
+    """Launch-count names of K3 and K4 on the route inputs of ``dtype`` and
+    head dim ``d`` take."""
+    if flash_attn.bwd_route(dtype, d) == flash_attn.TENSOR_CORES:
+        return flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME
+    return flash_attn.BWD_DQ_FMA_KERNEL_NAME, flash_attn.BWD_DKV_FMA_KERNEL_NAME
+
+
+def _bwd_case(device, b, sq, sk, h, kv_h, d, causal, dtype, seed, fused=False):
+    """Seeded q, k, v, dO (with ``fused``, q, k, v are views of one
+    (b, s, h + 2 kv_h, d) tensor) and the forward's o, lse."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    if fused:
+        qkv = randn(b, sq, h + 2 * kv_h, d)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv_h], qkv[:, :, h + kv_h:]
+    else:
+        q, k, v = randn(b, sq, h, d), randn(b, sk, kv_h, d), randn(b, sk, kv_h, d)
+    do = randn(b, sq, h, d)
+    o, lse = flash_attn.flash_attention_lse(q, k, v, causal=causal)
+    return q, k, v, o, lse, do
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kv_h,d,causal,dtype", [
     (2, 256, 256, 8, 2, 128, True, torch.bfloat16),
     (1, 100, 100, 4, 2, 64, True, torch.bfloat16),
@@ -216,20 +241,26 @@ _BWD_BARS = {torch.float32: 2e-4, torch.bfloat16: 3e-2, torch.float16: 4e-3}
     (1, 130, 130, 4, 4, 32, True, torch.float16),
     (1, 70, 90, 2, 1, 256, False, torch.bfloat16),
     (1, 70, 70, 4, 1, 200, True, torch.float32),
+    # The tensor-core route at the edges TMA changes (and d 60, on FMAs).
+    (1, 963, 963, 8, 2, 128, True, torch.bfloat16),
+    (2, 300, 200, 8, 2, 128, True, torch.bfloat16),
+    (2, 200, 300, 8, 2, 128, True, torch.bfloat16),
+    (2, 500, 500, 8, 8, 128, True, torch.bfloat16),
+    (2, 500, 500, 8, 2, 128, True, torch.float16),
+    (2, 500, 500, 8, 2, 64, True, torch.bfloat16),
+    (1, 300, 300, 4, 2, 72, True, torch.bfloat16),
+    (1, 300, 300, 4, 2, 32, False, torch.float16),
+    (1, 130, 130, 4, 2, 60, True, torch.bfloat16),
 ])
 def test_flash_bwd_kernels_match_plain_on_card(cuda_device, b, sq, sk, h, kv_h, d, causal, dtype):
     """K3 and K4 against the plain backward on the same (o, lse, dO); each
-    launched once, and a second launch gives the same bits."""
-    gen = torch.Generator(device=cuda_device).manual_seed(sq * sk + d + 1)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
-    q, k, v, do = randn(b, sq, h, d), randn(b, sk, kv_h, d), randn(b, sk, kv_h, d), randn(b, sq, h, d)
-    o, lse = flash_attn.flash_attention_lse(q, k, v, causal=causal)
+    launched once on the route its dtype and head dim take, and a second
+    launch gives the same bits."""
+    q, k, v, o, lse, do = _bwd_case(cuda_device, b, sq, sk, h, kv_h, d, causal, dtype,
+                                    seed=sq * sk + d + 1)
     kernels.reset_launch_counts()
     got = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-    assert kernels.launch_counts == {flash_attn.BWD_DQ_KERNEL_NAME: 1,
-                                     flash_attn.BWD_DKV_KERNEL_NAME: 1}
+    assert kernels.launch_counts == {name: 1 for name in _bwd_names(dtype, d)}
     again = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     want = flash_attn.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
@@ -237,6 +268,34 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, b, sq, sk, h, kv_h, 
         assert g.dtype == dtype and g.shape == w.shape, name
         assert torch.equal(g, a), name
         torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=_BWD_BARS[dtype])
+
+
+def test_flash_bwd_kernels_read_fused_qkv_views_on_card(cuda_device):
+    """q, k and v sliced out of one fused projection (strided heads): TMA
+    reads them in place, and the gradients match the plain backward's."""
+    q, k, v, o, lse, do = _bwd_case(cuda_device, 2, 256, 256, 8, 2, 128, True, torch.bfloat16,
+                                    seed=11, fused=True)
+    assert all(flash_attn._tma_ready(t) for t in (q, k, v))
+    kernels.reset_launch_counts()
+    got = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert kernels.launch_counts == {flash_attn.BWD_DQ_KERNEL_NAME: 1,
+                                     flash_attn.BWD_DKV_KERNEL_NAME: 1}
+    want = flash_attn.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=_BWD_BARS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.float16, 64),
+                                     (torch.float32, 64)])
+def test_flash_bwd_kernels_give_equal_bits_over_launches(cuda_device, dtype, d):
+    """No atomics on either route: every launch gives the same bits, also
+    with other work queued between them."""
+    q, k, v, o, lse, do = _bwd_case(cuda_device, 2, 1000, 1000, 8, 2, d, True, dtype, seed=21)
+    first = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    for _ in range(3):
+        torch.randn(4096, 4096, device=cuda_device).square_()
+        again = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_flash_attention_has_a_gradient_on_card(cuda_device):
@@ -251,8 +310,8 @@ def test_flash_attention_has_a_gradient_on_card(cuda_device):
     out = flash_attn.flash_attention(*leaves, causal=True)
     assert out.grad_fn is not None
     out.backward(g)
-    assert kernels.launch_counts == {flash_attn.KERNEL_NAME: 1, flash_attn.BWD_DQ_KERNEL_NAME: 1,
-                                     flash_attn.BWD_DKV_KERNEL_NAME: 1}
+    assert kernels.launch_counts == {flash_attn.KERNEL_NAME: 1,
+                                     **{name: 1 for name in _bwd_names(torch.float32, 64)}}
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
     flash_attn.FlashAttentionFunction.apply(*plain, True, flash_attn.flash_attention_plain,
                                             flash_attn.flash_attention_bwd_plain).backward(g)
@@ -283,7 +342,7 @@ def test_tiny_train_step_on_card_matches_cpu(cuda_device, dtype, loss_bar):
     kernels.reset_launch_counts()
     card_losses, card = run(cuda_device)
     assert kernels.launch_counts == {name: 2 * cfg.n_layers for name in (
-        flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME)}
+        flash_attn.KERNEL_NAME, *_bwd_names(dtype, cfg.head_dim))}
     host_losses, on_host = run("cpu")
     assert card_losses == pytest.approx(host_losses, abs=loss_bar)
     lr = 3e-4

@@ -147,3 +147,94 @@ def test_backward_raises_on_mismatched_residuals():
         flash_attn.flash_attention_bwd(q, k, v, o.bfloat16(), lse, do)
     with pytest.raises(ValueError, match="lse"):
         flash_attn.flash_attention_bwd(q, k, v, o, lse[..., 0], do)
+
+
+# The backward's route, decided from the dtype and head dim before a launch.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [8, 32, 64, 72, 128])
+def test_16_bit_inputs_up_to_d128_take_the_tensor_cores(dtype, d):
+    assert flash_attn.bwd_route(dtype, d) == flash_attn.TENSOR_CORES
+
+
+@pytest.mark.parametrize("d", [8, 64, 72, 128, 200, 256])
+def test_float32_takes_the_fma_route_at_any_head_dim(d):
+    assert flash_attn.bwd_route(torch.float32, d) == flash_attn.FMA
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,route", [(200, "fma"), (256, "fma"), (136, "fma"), (60, "fma"),
+                                     (100, "fma"), (72, "tensor cores"), (128, "tensor cores")])
+def test_16_bit_head_dims_past_128_or_off_multiples_of_8_take_the_fma_route(dtype, d, route):
+    assert flash_attn.bwd_route(dtype, d) == route
+
+
+def _bf16(*shape):
+    return torch.from_numpy(np.random.default_rng(0).normal(size=shape).astype(np.float32)).bfloat16()
+
+
+def test_tma_reads_contiguous_tensors_and_fused_qkv_views_in_place():
+    q = _bf16(2, 16, 4, 64)
+    assert flash_attn._tma_operand(q) is q
+    qkv = _bf16(2, 16, 4 + 2 + 2, 64)
+    for view in (qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]):
+        assert flash_attn._tma_ready(view) and flash_attn._tma_operand(view) is view
+    # A dim of size 1 is never stepped: its stride, whatever it is, is not held against it.
+    one = _bf16(1, 16, 1, 64)
+    odd = one.as_strided(one.shape, (7, 64, 3, 1))
+    assert flash_attn._tma_strides(odd) == [1024, 64, 64]
+    assert flash_attn._tma_operand(odd) is odd
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _bf16(2, 16, 4, 68)[..., :64],                       # seq/head strides of 136 bytes
+    lambda: _bf16(2 * 16 * 4 * 64 + 1)[1:].view(2, 16, 4, 64),   # base 2 bytes past 16-byte alignment
+    lambda: _bf16(2, 16, 1, 64).expand(2, 16, 4, 64),            # a zero head stride
+    lambda: _bf16(2, 16, 64, 4).transpose(2, 3),                # a head dim that is not unit-stride
+])
+def test_views_tma_cannot_take_are_made_contiguous(make):
+    t = make()
+    assert not flash_attn._tma_ready(t)
+    c = flash_attn._tma_operand(t)
+    assert c.is_contiguous() and c.data_ptr() % 16 == 0 and flash_attn._tma_ready(c)
+    assert torch.equal(c, t)
+
+
+@pytest.mark.parametrize("route,sq,width", [("tensor cores", 37, 40), ("tensor cores", 64, 64),
+                                            ("fma", 37, 37)])
+def test_bwd_inputs_hold_lse_and_d_in_one_stats_tensor(route, sq, width):
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _inputs(sq, 50, 4, 2, d=64, seed=4))
+    o, lse = flash_attn.flash_attention_plain(q, k, v, causal=True)
+    q2, k2, v2, do2, stats = flash_attn._bwd_inputs(route, q, k, v, o, lse, do)
+    assert all(a is b for a, b in zip((q2, k2, v2, do2), (q, k, v, do)))   # nothing to copy
+    assert stats.shape == (2, 2, 4, width) and stats.dtype == torch.float32
+    assert torch.equal(stats[0, ..., :sq], lse[..., 0])
+    assert torch.equal(stats[1, ..., :sq], flash_attn._rowsum_do_o(do, o).transpose(1, 2))
+
+
+def test_tensor_core_inputs_copy_only_what_tma_cannot_read():
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _inputs(16, 16, 4, 2, d=64, seed=6))
+    o, lse = flash_attn.flash_attention_plain(q, k, v)
+    wide = torch.zeros(2, 16, 4, 68, dtype=torch.bfloat16)
+    wide[..., :64] = do
+    got = flash_attn._bwd_inputs(flash_attn.TENSOR_CORES, q, k, v, o, lse, wide[..., :64])
+    assert got[0] is q and got[1] is k and got[2] is v
+    assert got[3].is_contiguous() and torch.equal(got[3], do)
+
+
+def test_cpu_backward_never_reaches_the_route(monkeypatch):
+    """A CPU tensor takes the plain backward before any route is chosen:
+    nothing is launched or counted, whatever the dtype."""
+    def unreachable(*_a, **_k):
+        raise AssertionError("reached on CPU tensors")
+    monkeypatch.setattr(flash_attn, "bwd_route", unreachable)
+    monkeypatch.setattr(flash_attn, "_bwd_inputs", unreachable)
+    monkeypatch.setattr(flash_attn, "_bwd_call", unreachable)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _inputs(40, 40, 4, 2, d=64, seed=8))
+        o, lse = flash_attn.flash_attention_plain(q, k, v, causal=True)
+        kernels.reset_launch_counts()
+        got = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        want = flash_attn.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+        assert not kernels.launch_counts
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
