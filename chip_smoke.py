@@ -9,8 +9,11 @@ result line):
 1. probe: torch, the device, ``nvidia-smi`` name and power limit, and the
    host libraries the reader needs (pyarrow, cv2 or PIL, fsspec);
 2. build every CUDA kernel of the main path from ``petastorm_tpu_torch/csrc``;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged ones, and time both with CUDA events;
+3. hold K1 against its plain PyTorch version on the card, bit for bit, at
+   the main path's shapes, at ragged ones and on contiguous views that are
+   not 16-byte aligned, and time both with CUDA events (every timing starts
+   behind a device sleep, so the host's preparation of a call is not
+   counted);
 4. the main path at full size: a seeded 2048-row store of 224x224x3 JPEG
    images written with the package's writer, read by ``make_reader``
    (8 decode threads), batched by ``DataLoader(batch_size=256,
@@ -19,12 +22,16 @@ result line):
    the staged bytes of a CUDA loader are held against a CPU loader's;
 5. flash attention (K2) against its plain version on the card: the token
    path's shape (2, 8192, 32 heads over 8 kv heads, 128) bf16 causal in
-   its "out" and "lse" modes, then ragged, cross-length, non-causal,
-   MHA, f32 and f16 cases, each held to an absolute bar and to bars scaled
-   to each output row; deliberately wrong attentions made from the plain
-   version must fail those bars on the long rows; kernel, plain version
-   and PyTorch's ``scaled_dot_product_attention`` (yardstick only) timed
-   with CUDA events;
+   its "out" and "lse" modes on the tensor-core route, then ragged,
+   cross-length, non-causal, MHA, f32, f16 and head-dim cases on whichever
+   route ``ops.flash_attn.fwd_route`` gives them (logged, launch counts
+   checked), q/k/v as views of one fused tensor (read in place), each held
+   to an absolute bar and to bars scaled to each output row; deliberately
+   wrong attentions made from the plain version must fail those bars on
+   the long rows; the FMA route forced at the token path's shape, held to
+   the same bars; equal bits over two launches; both routes in both modes,
+   the plain version and PyTorch's ``scaled_dot_product_attention``
+   (yardstick only) timed with CUDA events, in turns;
 6. the token path at full width: a seeded store of 12 windows of 8192
    tokens written by ``write_token_store``, read as dense NGram windows by
    ``make_reader`` (8 threads, ``num_epochs=None``), batched by
@@ -53,8 +60,8 @@ result line):
    ``write_token_store`` store (window 8192) with ``LlamaConfig()`` at full
    width cut to 4 layers, batch 2, flash attention, one warm-up step, four
    timed steps and two resident ones; launch counts are reset just before
-   and read just after (K2 and the tensor-core K3 and K4 once per layer per
-   step; the FMA route and the plain versions never). Then one step with ``remat_layers`` and ``xent_chunk``
+   and read just after (the tensor-core K2, K3 and K4 once per layer per
+   step; the FMA routes and the plain versions never). Then one step with ``remat_layers`` and ``xent_chunk``
    against the plain step, a ``torch.profiler`` split of one resident
    step, and the whole-slice gradient check: every parameter's gradient
    through the kernels against the plain forward and backward, with the
@@ -104,6 +111,9 @@ BF16_FLOPS = 989e12
 ROWS, ROWS_PER_GROUP, BATCH, EPOCHS, WORKERS = 2048, 64, 256, 2, 8
 IMAGE_SHAPE = (224, 224, 3)
 TIMING_REPS = 50
+#: Device clock cycles of the sleep each timing starts behind (about 2 ms
+#: at the H100's 1.98 GHz boost clock).
+SLEEP_CYCLES = 4_000_000
 
 # Token path: the JAX package's llm_bench settings at LlamaConfig() width,
 # depth cut from 32 layers to 4 to fit the run's time.
@@ -197,29 +207,28 @@ def ordered_bits16(t: torch.Tensor) -> torch.Tensor:
 
 
 def check_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
-    """f32: max abs <= 1e-6. bf16/f16: within 1 ulp and >= 99.9% of
-    elements bit-equal. The kernel rounds x*scale and then the add as the
-    plain version does, so it is expected to be bit-equal; the bar leaves
-    room for a compiler that contracts the two into one FMA. Returns the
-    max abs error."""
+    """Bit-equal in every dtype: the kernel rounds x*scale and then the add
+    one at a time, as the plain version does (no contracted FMA). Returns
+    the max abs error (0)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
     err = (got.float() - want.float()).abs().max().item()
-    if got.dtype == torch.float32:
-        if not err <= 1e-6:
-            raise AssertionError(f"{what}: max abs error {err} > 1e-6")
-    else:
-        ulps = (ordered_bits16(got) - ordered_bits16(want)).abs()
-        equal = (ulps == 0).float().mean().item()
-        if ulps.max().item() > 1 or equal < 0.999:
-            raise AssertionError(f"{what}: max {ulps.max().item()} ulp, "
-                                 f"{equal:.6f} bit-equal")
+    bits = torch.int32 if got.dtype == torch.float32 else torch.int16
+    if not torch.equal(got.view(bits), want.view(bits)):
+        ulps = (ordered_bits16(got) - ordered_bits16(want)).abs().max().item() \
+            if bits == torch.int16 else None
+        raise AssertionError(f"{what}: not bit-equal (max abs error {err}, max {ulps} ulp)")
     return err
 
 
 def median_ms(*fns, reps=TIMING_REPS, warmup=3) -> list:
     """Median CUDA-event time of each of ``fns``, timed in turns (the order
-    alternates every repetition) after ``warmup`` calls of each."""
+    alternates every repetition) after ``warmup`` calls of each. Each
+    timing starts behind a device sleep of about 2 ms (``SLEEP_CYCLES``),
+    during which the host prepares the call, so the time is the device's
+    from the call's first kernel on: without it, a call whose host side
+    takes longer than its kernels (K1: about 0.2 ms of Python around a
+    kernel of tens of microseconds) would be timed by its host side."""
     for fn in fns:
         for _ in range(warmup):
             fn()
@@ -228,6 +237,7 @@ def median_ms(*fns, reps=TIMING_REPS, warmup=3) -> list:
         order = range(len(fns)) if rep % 2 == 0 else reversed(range(len(fns)))
         for i in order:
             start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
             start.record()
             fns[i]()
             stop.record()
@@ -265,21 +275,34 @@ def phase_kernels() -> dict:
     # x/255 hits these means exactly (0.4 = 102/255, 0.6 = 153/255), so
     # x*scale + bias cancels to about 0: where an FMA would round otherwise.
     cancelling = ((0.4, 0.5, 0.6, 0.7), (0.2, 0.25, 0.3, 0.35))
-    cases = [((BATCH,) + IMAGE_SHAPE, torch.bfloat16, imagenet),
-             ((BATCH,) + IMAGE_SHAPE, torch.float32, imagenet),
-             ((3, 17, 19, 3), torch.bfloat16, imagenet), ((3, 17, 19, 3), torch.float32, imagenet),
-             ((16, 224, 224, 1), torch.bfloat16, imagenet),
-             ((16, 64, 64, 4), torch.float16, imagenet),
-             ((8,) + IMAGE_SHAPE, torch.bfloat16, cancelling)]
+    # (shape, dtype, factors, offset): a non-zero offset makes the input a
+    # contiguous view that many bytes into its allocation, so not 16-byte
+    # aligned (the kernel's scalar loop); odd lengths leave a tail that is
+    # not a whole 16-byte vector.
+    cases = [((BATCH,) + IMAGE_SHAPE, torch.bfloat16, imagenet, 0),
+             ((BATCH,) + IMAGE_SHAPE, torch.float32, imagenet, 0),
+             ((3, 17, 19, 3), torch.bfloat16, imagenet, 0), ((3, 17, 19, 3), torch.float32, imagenet, 0),
+             ((16, 224, 224, 1), torch.bfloat16, imagenet, 0),
+             ((16, 64, 64, 4), torch.float16, imagenet, 0),
+             ((8,) + IMAGE_SHAPE, torch.bfloat16, cancelling, 0),
+             ((5, 33, 31, 3), torch.bfloat16, imagenet, 1),
+             ((5, 33, 31, 3), torch.float32, cancelling, 7),
+             ((7, 13, 11, 2), torch.float16, imagenet, 0),
+             ((8,) + IMAGE_SHAPE, torch.bfloat16, imagenet, 5)]
     result = None
-    for shape, dtype, (mean, std) in cases:
-        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
+    for shape, dtype, (mean, std), offset in cases:
+        flat = rng.integers(0, 256, int(np.prod(shape)) + offset, dtype=np.uint8)
+        x = torch.from_numpy(flat).cuda()[offset:].view(shape)
+        kernels.reset_launch_counts()
         got = normalize_images(x, mean, std, out_dtype=dtype)
+        if kernels.launch_counts != {KERNEL_NAME: 1}:
+            raise AssertionError(f"{shape} {dtype}: launches {kernels.launch_counts}")
         want = normalize_images_plain(x, mean, std, out_dtype=dtype)
         torch.cuda.synchronize()
-        err = check_close(got, want, f"{shape} {dtype}")
-        line = f"[kernel] {KERNEL_NAME} {shape} {dtype}: max abs err {err:.3g}"
-        if shape == (BATCH,) + IMAGE_SHAPE:
+        err = check_close(got, want, f"{shape} {dtype} offset {offset}")
+        line = (f"[kernel] {KERNEL_NAME} {shape} {dtype} (data_ptr % 16 = {x.data_ptr() % 16}): "
+                f"bit-equal, max abs err {err:.3g}")
+        if shape == (BATCH,) + IMAGE_SHAPE and offset == 0:
             n = x.numel()
             out_bytes = torch.empty((), dtype=dtype).element_size()
             bound_ms = max(n * (1 + out_bytes) / HBM_BYTES_PER_S,
@@ -288,7 +311,8 @@ def phase_kernels() -> dict:
                 lambda: normalize_images(x, mean, std, out_dtype=dtype),
                 lambda: normalize_images_plain(x, mean, std, out_dtype=dtype))
             line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                     f"({n * (1 + out_bytes) / 1e6:.1f} MB); no single PyTorch call "
+                     f"({n * (1 + out_bytes) / 1e6:.1f} MB), kernel at {bound_ms / ms:.1%} of "
+                     f"the bound; no single PyTorch call "
                      f"computes this function (library_ms null)")
             if dtype == torch.bfloat16:  # the main path's output type
                 result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -421,14 +445,20 @@ def flash_verdict(got: torch.Tensor, want: torch.Tensor):
 
 def check_flash(gen, b, sq, sk, h, kv_h, d, causal, dtype, what):
     """Kernel ("out" and "lse") against the plain version on the same
-    inputs; raises past the stated bars. -> (inputs, plain output, max abs err)."""
+    inputs; raises past the stated bars. -> (inputs, plain output, plain
+    lse, max abs err)."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
     q, k, v = randn(b, sq, h, d), randn(b, sk, kv_h, d), randn(b, sk, kv_h, d)
+    route = flash_attn.fwd_route(dtype, d)
+    kernels.reset_launch_counts()
     o_out = flash_attention(q, k, v, causal=causal)
     o, lse = flash_attention_lse(q, k, v, causal=causal)
+    counts = dict(kernels.launch_counts)
     want_o, want_lse = flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    if counts != {flash_attn._FWD_KERNELS[route]: 2}:
+        raise AssertionError(f"{what}: route {route!r}, launches {counts}")
     if o.shape != (b, sq, h, d) or o.dtype != dtype or lse.shape != (b, h, sq, 1) \
             or lse.dtype != torch.float32:
         raise AssertionError(f"{what}: o {o.shape} {o.dtype}, lse {lse.shape} {lse.dtype}")
@@ -439,12 +469,13 @@ def check_flash(gen, b, sq, sk, h, kv_h, d, causal, dtype, what):
     err, worst, rms, ok = flash_verdict(o, want_o)
     lse_err = (lse - want_lse).abs().max().item()
     _, worst_bar, rms_bar = ROW_BARS[dtype]
-    log(f"[flash] {what}: max abs err o {err:.3g} (bar {FLASH_BARS[dtype]}), row-scaled "
-        f"worst {worst:.3g} (bar {worst_bar:.3g}) rms {rms:.3g} (bar {rms_bar:.3g}); "
+    log(f"[flash] {what} [{route}; launches {counts}]: max abs err o {err:.3g} "
+        f"(bar {FLASH_BARS[dtype]}), row-scaled worst {worst:.3g} (bar {worst_bar:.3g}) "
+        f"rms {rms:.3g} (bar {rms_bar:.3g}); "
         f"lse {lse_err:.3g} (bar {LSE_BAR})")
     if not (ok and lse_err <= LSE_BAR):
         raise AssertionError(f"{what}: the kernel's output is outside a bar")
-    return (q, k, v), want_o, err
+    return (q, k, v), want_o, want_lse, err
 
 
 def control_attention(q, k, v, flaw):
@@ -489,9 +520,9 @@ def phase_flash() -> dict:
         raise AssertionError("TF32 matmuls are on: the plain version would not be float32")
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, h, kv_h, d = TOKEN_BATCH, LLAMA.n_heads, LLAMA.n_kv_heads, LLAMA.head_dim
-    (q, k, v), want, err = check_flash(gen, b, WINDOW, WINDOW, h, kv_h, d, True,
-                                       torch.bfloat16,
-                                       f"token path ({b}, {WINDOW}, {h}/{kv_h}, {d}) bf16 causal")
+    (q, k, v), want, want_lse, err = check_flash(
+        gen, b, WINDOW, WINDOW, h, kv_h, d, True, torch.bfloat16,
+        f"token path ({b}, {WINDOW}, {h}/{kv_h}, {d}) bf16 causal")
     # The bars against wrong outputs, on the long rows alone.
     long = WINDOW // 2
     if not torch.equal(control_attention(q, k, v, None), want):
@@ -513,28 +544,73 @@ def phase_flash() -> dict:
                  (2, 200, 200, 4, 4, 128, True, torch.bfloat16, "h == kv_h"),
                  (2, 300, 300, 8, 2, 64, True, torch.float32, "f32 d64 causal"),
                  (2, 150, 150, 8, 4, 128, False, torch.float16, "f16 non-causal"),
-                 (1, 70, 70, 2, 1, 256, True, torch.bfloat16, "d256 causal")]:
+                 (1, 70, 70, 2, 1, 256, True, torch.bfloat16, "d256 causal"),
+                 (2, 40, 130, 4, 1, 128, True, torch.bfloat16, "causal sq 40 < sk 130, rep 4"),
+                 (1, WINDOW - 37, WINDOW - 37, 8, 2, 128, True, torch.bfloat16,
+                  f"ragged {WINDOW - 37} causal (not a multiple of 64)"),
+                 (1, 300, 300, 4, 2, 72, True, torch.bfloat16, "bf16 d72 causal"),
+                 (1, 300, 300, 4, 2, 32, False, torch.float16, "f16 d32 non-causal"),
+                 (1, 130, 130, 4, 2, 60, True, torch.bfloat16, "bf16 d60 causal")]:
         check_flash(gen, *case)
+    # Fused qkv views: TMA reads them in place, without a copy.
+    qkv = torch.randn(2, 256, 8 + 2 * 2, 128, generator=gen, device="cuda").bfloat16()
+    views = (qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:])
+    if not all(a is b for a, b in zip(flash_attn._fwd_inputs(flash_attn.TENSOR_CORES, *views), views)):
+        raise AssertionError("a fused qkv view was copied on the tensor-core route")
+    kernels.reset_launch_counts()
+    f_o, f_lse = flash_attention_lse(*views, causal=True)
+    f_want, f_want_lse = flash_attention_plain(*views, causal=True)
+    f_err, f_worst, f_rms, f_ok = flash_verdict(f_o, f_want)
+    f_lse_err = (f_lse - f_want_lse).abs().max().item()
+    log(f"[flash] q, k, v strided views of fused qkv [launches {dict(kernels.launch_counts)}]: max "
+        f"abs err o {f_err:.3g}, row-scaled worst {f_worst:.3g} rms {f_rms:.3g}; lse {f_lse_err:.3g}")
+    if not (f_ok and f_lse_err <= LSE_BAR) or kernels.launch_counts != {flash_attn.KERNEL_NAME: 1}:
+        raise AssertionError("fused qkv views: outside a bar or not on the tensor-core route")
+    # The FMA route forced at the token path's shape: the same bars.
+    fma_o, fma_lse = flash_attn._flash_fwd(flash_attn.FMA, q, k, v, True, True)
+    fma_err, fma_worst, fma_rms, fma_ok = flash_verdict(fma_o, want)
+    fma_lse_err = (fma_lse - want_lse).abs().max().item()
+    log(f"[flash] FMA route forced, token path's shape: max abs err o {fma_err:.3g}, row-scaled "
+        f"worst {fma_worst:.3g} rms {fma_rms:.3g}; lse {fma_lse_err:.3g}")
+    if not (fma_ok and fma_lse_err <= LSE_BAR):
+        raise AssertionError("the FMA route forced at the token path's shape: outside a bar")
+    again = flash_attention_lse(q, k, v, causal=True)
+    first = flash_attention_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    equal = torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+    log(f"[flash] two launches give equal bits: {equal}")
+    if not equal:
+        raise AssertionError("two launches of K2 gave different bits")
+    del again, first, fma_o, fma_lse
+
+    # Times at the token path's shape, in turns: both routes in both modes,
+    # the plain version and SDPA.
     flops, nbytes = flash_flops_bytes(b, WINDOW, WINDOW, h, kv_h, d, True, 2, with_lse=False)
     bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
     bound_by = "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
-    ms, lse_ms, plain_ms, library_ms = median_ms(
+    ms, lse_ms, fma_ms, fma_lse_ms, plain_ms, library_ms = median_ms(
         lambda: flash_attention(q, k, v, causal=True),
         lambda: flash_attention_lse(q, k, v, causal=True),
+        lambda: flash_attn._flash_fwd(flash_attn.FMA, q, k, v, True, False),
+        lambda: flash_attn._flash_fwd(flash_attn.FMA, q, k, v, True, True),
         lambda: flash_attention_plain(q, k, v, causal=True),
         lambda: sdpa(q, k, v), reps=FLASH_REPS, warmup=1)
-    log(f"[flash] token path shape: kernel {ms:.4f} ms ('lse' mode {lse_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms; "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} operations, {nbytes / 1e9:.4g} GB); "
-        f"kernel at {flops / ms / 1e9:.4g} TFLOP/s")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    log(f"[flash] token path shape: tensor cores {ms:.4f} ms ('lse' mode {lse_ms:.4f} ms), "
+        f"{flops / ms / 1e9:.4g} TFLOP/s; FMA route {fma_ms:.4f} ms ('lse' mode {fma_lse_ms:.4f} "
+        f"ms), {flops / fma_ms / 1e9:.4g} TFLOP/s; plain {plain_ms:.4f} ms; "
+        f"scaled_dot_product_attention {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({flops:.4g} operations, {nbytes / 1e9:.4g} GB)")
+    row = {"plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    return {"K2": {"max_abs_err": err, "ms": ms, **row},
+            "K2 fma": {"max_abs_err": fma_err, "ms": fma_ms, **row}}
 
 
 #: Kernel groups of a profiled step: (label, substrings of the kernel name).
-FORWARD_GROUPS = (("flash_fwd_kernel (K2)", ("flash_fwd_kernel",)),
+#: K2's group matches both routes' kernels (flash_fwd_tc_kernel, flash_fwd_kernel).
+FORWARD_GROUPS = (("flash_fwd_*kernel (K2)", ("flash_fwd_",)),
                   ("matmuls (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")))
-TRAIN_GROUPS = (("flash_fwd_kernel (K2)", ("flash_fwd_kernel",)),
+TRAIN_GROUPS = (("flash_fwd_*kernel (K2)", ("flash_fwd_",)),
                 ("flash_bwd_dq_*kernel (K3)", ("flash_bwd_dq_",)),
                 ("flash_bwd_dkv_*kernel (K4)", ("flash_bwd_dkv_",)),
                 ("matmuls (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
@@ -617,9 +693,9 @@ def phase_tokens(tmp: str) -> int:
         wall = time.perf_counter() - t0
         it.close()
     launches = kernels.launch_counts.get(flash_attn.KERNEL_NAME, 0)
-    if launches != LLAMA.n_layers * (1 + TOKEN_STEPS):
-        raise AssertionError(f"{flash_attn.KERNEL_NAME} launched {launches} times for "
-                             f"{1 + TOKEN_STEPS} forwards of {LLAMA.n_layers} layers")
+    if kernels.launch_counts != {flash_attn.KERNEL_NAME: LLAMA.n_layers * (1 + TOKEN_STEPS)}:
+        raise AssertionError(f"launches {kernels.launch_counts} for {1 + TOKEN_STEPS} forwards "
+                             f"of {LLAMA.n_layers} layers: expected the tensor-core K2 alone")
     if not all(np.isfinite([warm] + losses)):
         raise AssertionError(f"non-finite loss: {warm}, {losses}")
     tokens_per_step = TOKEN_BATCH * WINDOW
@@ -922,7 +998,7 @@ def phase_train(tmp: str) -> dict:
     write_token_store(url, windows=TOKEN_WINDOWS, window=WINDOW, vocab=LLAMA.vocab, seed=0)
     model_kwargs = {f.name: getattr(LLAMA, f.name) for f in dataclasses.fields(LLAMA)}
     names = (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME)
-    fma_names = BWD_ROUTES[flash_attn.FMA]   # never launched on this path
+    fma_names = (flash_attn.FMA_KERNEL_NAME,) + BWD_ROUTES[flash_attn.FMA]   # never launched here
     failures = []
 
     # The main path, counted: one warm-up, the timed steps, the resident ones.
@@ -983,7 +1059,7 @@ def phase_train(tmp: str) -> dict:
             f"{peak:.2f} GB, parameters moved {moved}")
         want_k2 = LLAMA.n_layers * (2 if kw else 1)
         if counts != {names[0]: want_k2, names[1]: LLAMA.n_layers, names[2]: LLAMA.n_layers,
-                      fma_names[0]: 0, fma_names[1]: 0}:
+                      **{n: 0 for n in fma_names}}:
             failures.append(f"{label}: launches {counts}")
         if not all(moved.values()):
             failures.append(f"{label}: parameters did not move {moved}")
@@ -1059,7 +1135,7 @@ def main() -> int:
     k1 = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(tmp)
-    k2 = phase_flash()
+    k2_rows = phase_flash()
     with tempfile.TemporaryDirectory() as tmp:
         k2_launches = phase_tokens(tmp)
     bwd = phase_flash_bwd()
@@ -1077,7 +1153,13 @@ def main() -> int:
         "source": "petastorm_tpu_torch/csrc/flash_attn.cu",
         "replaces": "petastorm_tpu/ops/flash_attn.py:89",
         # The token forward's launches ("out") and the training path's ("lse").
-        "launches": k2_launches + counts[flash_attn.KERNEL_NAME], **k2}, {
+        "launches": k2_launches + counts[flash_attn.KERNEL_NAME], **k2_rows["K2"]}, {
+        # The FMA route (f32, 16-bit d > 128 or d % 8 != 0): timed forced at
+        # the token path's bf16 shape; the main paths never launch it.
+        "name": flash_attn.FMA_KERNEL_NAME, "route": "cuda",
+        "source": "petastorm_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "petastorm_tpu/ops/flash_attn.py:89",
+        "launches": counts[flash_attn.FMA_KERNEL_NAME], **k2_rows["K2 fma"]}, {
         "name": flash_attn.BWD_DQ_KERNEL_NAME, "route": "cuda", "source": source,
         "replaces": "petastorm_tpu/ops/flash_attn.py:272",
         "launches": counts[flash_attn.BWD_DQ_KERNEL_NAME], **bwd["K3"]}, {

@@ -1,7 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a): o = softmax(q k^T * scale) v,
 // with the logsumexp of each query row on request.
 //
-// Replaces petastorm_tpu/ops/flash_attn.py::_flash_kernel (the Pallas
+// Replaces petastorm_tpu/ops/flash_attn.py::_flash_kernel (:89, the Pallas
 // kernel launched by _flash_launch in its "out" and "lse" modes).
 //
 // Layout. q is (b, sq, h, d) and k, v are (b, sk, kv_h, d), read through
@@ -9,42 +9,64 @@
 // written in the same (b, sq, h, d) layout and lse as a contiguous
 // (b, h, sq, 1) float32 array. The TPU kernel needed (b, h, s, d) operands
 // and its caller transposed around the call; here those would be four extra
-// copies per call, so the kernel reads the model's layout directly.
-//
-// Work split. One block of 256 threads per (64-row q tile, head, batch).
-// The block walks the K/V tiles itself and keeps the online softmax state
-// (running max m, normaliser l, f32 accumulator) in registers: on the TPU the
-// kv grid axis ran in order and carried that state in VMEM scratch, but
-// blocks on this card run in parallel and in no order. Causal tiles above
-// the diagonal are never visited: the loop ends at the last key the tile's
-// last row can see (the mask is the top-left one, q_pos >= k_pos, so it also
-// holds for sq != sk and no row is ever fully masked). Grouped-query heads
-// read their kv head h / (H / KV_H); K/V are never repeated. Ragged sq, sk
-// and d are masked (padded rows and columns are zero-filled in shared
-// memory, padded keys get a score of -inf). q tiles are issued last-first,
-// so the longest causal rows start first.
+// copies per call, so the kernels read the model's layout directly.
 //
 // Numerics, as _flash_kernel: s = (q . k accumulated in f32) * scale, with
 // scale = 1/sqrt(d) rounded once to f32 by the caller; max, exp and the
 // normaliser in f32; p is rounded to v's dtype before p . v, which is
 // accumulated in f32; o = acc / l rounded to q's dtype; lse = m + log(l).
-// Every product is an IEEE f32 fused multiply-add on the CUDA cores, so f32
-// inputs keep full f32 precision (no TF32).
+// The mask is the top-left one (q_pos >= k_pos), so sq != sk works and no
+// row is ever fully masked (every row sees key 0). Grouped-query heads read
+// kv head h / (H / KV_H); K/V are never repeated. Causal tiles above the
+// diagonal are never visited, and q tiles are issued last-first, so the
+// longest causal rows start first.
+//
+// Two routes, chosen by the wrapper (ops/flash_attn.py::fwd_route) from the
+// dtype and head dim before the launch:
+//
+// Tensor cores (flash_fwd_tc_kernel, launcher flash_attn_fwd; bf16 and f16
+// with d % 8 == 0 and d <= 128). One block per (128-row q tile, head,
+// batch): two consumer warpgroups of 64 rows each and one producer warp.
+// The producer loads Q once by TMA and streams 64-key K/V tiles by TMA
+// (128-byte swizzle, zeros past every edge) into a four-stage mbarrier
+// ring, refilling a stage once all eight consumer warps have released it.
+// Each warpgroup computes S = Q K^T by wgmma (both operands K-major), takes
+// the online softmax in registers in base 2 (log2(e) folded into the scale,
+// ex2.approx; each row lives on the 4 threads of a quad), rounds P to the
+// inputs' dtype straight into wgmma A fragments and adds P V by wgmma with
+// V read MN-major through the transpose bit. Tile n's S product is issued
+// with tile n-1's P V product, and the softmax of tile n runs while P V is
+// still on the tensor cores (wait_group 1, then 0 before the rescale).
+// TMA fills padded keys with zeros, whose score would be 0, so keys >= sk
+// and causal keys k_pos > q_pos get -inf before the row max; only a tile
+// on the diagonal or on the sk edge masks, and a warpgroup whose rows all
+// lie past sq or above a tile skips it.
+//
+// CUDA cores (flash_fwd_kernel, launcher flash_attn_fwd_fma; f32, and 16-bit
+// inputs with d > 128 or d % 8 != 0). One block of 256 threads per (64-row
+// q tile, head, batch) walks the K/V tiles itself and keeps the online
+// softmax state in registers; every product is an IEEE f32 fused
+// multiply-add from shared memory, so f32 inputs keep full f32 precision
+// (no TF32); ragged sq, sk and d are zero-filled in shared memory and
+// padded keys get a score of -inf.
 //
 // Bound. At the main path's shape (b 2, s 8192, 32 heads over 8 kv heads,
 // d 128, causal, bf16) the call does 4*b*h*d*sum(visible keys) = 1.1e12
 // operations on 0.34 GB of inputs and outputs: operation-bound, about
-// 1.11 ms at the tensor cores' 989 TFLOP/s. This first version computes
-// both products with f32 FMAs from shared memory (4x4 register tiles,
-// 16-byte shared loads), whose peak is 67 TFLOP/s, so it cannot come within
-// 15x of that bound. Tensor-core products (mma/wgmma on bf16 tiles), TMA
-// loads and a pipelined K/V ring are the later redesign.
+// 1.11 ms at the tensor cores' 989 TFLOP/s. The tensor-core route does
+// every one of those operations on the tensor cores, reads each K/V tile
+// once per 128 query rows (the rest of the traffic hits L2 across the
+// heads of a group), and hides the softmax's exp (a 64 x 64 tile per
+// warpgroup per step) behind the P V product. The FMA route's peak is the
+// 67 TFLOP/s of f32 FMAs, so it cannot come within 15x of that bound.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -254,11 +276,12 @@ cudaError_t launch(const Params& p, int64_t batch, cudaStream_t stream) {
 
 }  // namespace
 
-// q, k, v, o: device pointers in the layouts above; lse: device pointer to
-// (b, h, sq) float32, or null. strides: 12 int64 in elements, (batch, seq,
-// head) for q, k, v, o in turn. dtype: 0 = bf16, 1 = f16, 2 = f32 (q, k, v
-// and o alike). Returns the launch's cudaError_t (0 on success).
-extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+// The FMA route's launcher. q, k, v, o: device pointers in the layouts
+// above; lse: device pointer to (b, h, sq) float32, or null. strides: 12
+// int64 in elements, (batch, seq, head) for q, k, v, o in turn. dtype: 0 =
+// bf16, 1 = f16, 2 = f32 (q, k, v and o alike). Returns the launch's
+// cudaError_t (0 on success).
+extern "C" int flash_attn_fwd_fma(const void* q, const void* k, const void* v, void* o, void* lse,
                               int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv_h,
                               int64_t d, const int64_t* strides, int64_t dtype, int64_t causal,
                               float scale, void* stream) {
@@ -289,4 +312,296 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
     case 2: return (int)launch<float>(p, b, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// ===================================================== tensor-core route ==
+
+namespace {
+namespace tc {
+
+using namespace hopper;
+
+constexpr int BQ = 128;                       // q rows a block: two warpgroups of 64
+constexpr int BK = 64;                        // keys a K/V tile
+static_assert(BK == 64, "scores and accumulate (hopper.cuh) take 64-key tiles");
+constexpr int STAGES = 4;                     // K/V ring depth
+constexpr int CONSUMERS = 256;                // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;       // and one producer warp
+constexpr int CONSUMER_WARPS = CONSUMERS / 32;
+
+struct TcParams {
+  CUtensorMap tq, tk, tv;  // encode_bshd maps: Q boxes of 128 rows, K/V of 64
+  void* o;
+  float* lse;              // (b, h, sq) float32, or null: "out" mode
+  Strides os;              // output strides, in elements
+  int b, sq, sk, h, kv_h, d;
+  float scale;
+  int causal;
+};
+
+template <int DP> constexpr int fwd_tc_smem() {
+  return ATOM + BQ * DP * 2 + STAGES * 2 * BK * DP * 2 + 8 * (1 + 2 * STAGES);
+}
+
+// The online softmax of one BK-key tile's scores s, for the two rows
+// (lane_row and lane_row + 8 of the warpgroup's 64, first row q_first) this
+// thread holds a quarter of, in place: with `mask`, keys >= sk and, if
+// causal, keys past the row count as -inf; s becomes p = exp(s - m) in f32.
+// Updates the running max m2 (in units of log2) and this thread's share l
+// of each normaliser, and leaves each row's rescale factor in alpha.
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2], float (&m2)[2], float (&l)[2],
+                                               float (&alpha)[2], bool mask, int k0, int q_first,
+                                               int sk, bool causal, float scale_log2,
+                                               int lane_row, int lane_col) {
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int q_pos = q_first + lane_row + 8 * ((i / 2) % 2);
+      const int k_pos = k0 + 8 * (i / 4) + lane_col + i % 2;
+      if (k_pos >= sk || (causal && k_pos > q_pos)) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+  float m_use[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // A row lives on the 4 threads of a quad.
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m2[r], mx[r] * scale_log2);
+    m_use[r] = m_new == -INFINITY ? 0.f : m_new;  // a row that has seen no key yet
+    alpha[r] = ex2(m2[r] - m_use[r]);
+    m2[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    s[i] = ex2(fmaf(s[i], scale_log2, -m_use[(i / 2) % 2]));
+    l[(i / 2) % 2] += s[i];
+  }
+}
+
+// p rounded to T and packed as the A fragments of the P V product.
+template <typename T>
+__device__ __forceinline__ void to_fragments(const float (&p)[BK / 2],
+                                             uint32_t (&a)[BK / 16][4]) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; i += 2) a[i / 8][i % 8 / 2] = pack2<T>(p[i], p[i + 1]);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ TcParams p) {
+  constexpr uint32_t QP = BQ * 128, KP = BK * 128;  // bytes of one 64-column panel
+  constexpr uint32_t QBYTES = DP / 64 * QP, KBYTES = DP / 64 * KP;
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  const uint32_t base = (smem_addr(tc_smem) + ATOM - 1) & ~(ATOM - 1);
+  const uint32_t s_q = base, s_kv = base + QBYTES;  // stage s: K at s_kv + 2*s*KBYTES, then V
+  const uint32_t bar_q = s_kv + STAGES * 2 * KBYTES;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * STAGES;  // + 8 * stage
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int hb = p.h * p.b;
+  const int tile = (p.sq + BQ - 1) / BQ - 1 - (int)(blockIdx.x / hb);  // heaviest first
+  const int head = blockIdx.x % hb % p.h, batch = blockIdx.x % hb / p.h;
+  const int kv_head = head / (p.h / p.kv_h);
+  const int q0 = tile * BQ;
+  const int k_end = p.causal ? min(p.sk, min(q0 + BQ, p.sq)) : p.sk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, QBYTES);
+#pragma unroll
+      for (int c = 0; c < DP / 64; ++c)
+        tma_load_4d(s_q + c * QP, &p.tq, bar_q, c * 64, q0, head, batch);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int stage = n % STAGES;
+        // The stage's previous tile, n - STAGES, released by every consumer warp.
+        if (n >= STAGES) mbar_wait(bar_empty + 8 * stage, (n / STAGES - 1) & 1);
+        const uint32_t bar = bar_full + 8 * stage, dst = s_kv + stage * 2 * KBYTES;
+        mbar_expect_tx(bar, 2 * KBYTES);
+#pragma unroll
+        for (int c = 0; c < DP / 64; ++c) {
+          tma_load_4d(dst + c * KP, &p.tk, bar, c * 64, n * BK, kv_head, batch);
+          tma_load_4d(dst + KBYTES + c * KP, &p.tv, bar, c * 64, n * BK, kv_head, batch);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, wg_warp = tid % 128 / 32;
+  // This thread's rows of its warpgroup's 64: lane_row and lane_row + 8.
+  const int lane_row = 16 * wg_warp + lane / 4, lane_col = 2 * (lane % 4);
+  const int wg_first = q0 + 64 * wg;
+  // Warpgroup-uniform: the tiles these rows see are a prefix of the block's.
+  const int n_live = wg_first >= p.sq ? 0
+                     : p.causal      ? min(n_tiles, min(wg_first + 63, p.sq - 1) / BK + 1)
+                                     : n_tiles;
+  const float scale_log2 = p.scale * LOG2E;
+  auto full = [&](int n) { mbar_wait(bar_full + 8 * (n % STAGES), (n / STAGES) & 1); };
+  auto release = [&](int n) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * (n % STAGES));
+  };
+  auto k_tile = [&](int n) { return s_kv + (n % STAGES) * 2 * KBYTES; };
+
+  float acc[DP / 2];
+  float m2[2] = {-INFINITY, -INFINITY};  // running row max, in units of log2
+  float l[2] = {0.f, 0.f};               // this thread's share of each row's normaliser
+  zero(acc);
+  // Only a tile on the diagonal or on the sk edge masks.
+  auto masks = [&](int n) {
+    return (p.causal && n * BK + BK - 1 > wg_first) || n * BK + BK > p.sk;
+  };
+
+  mbar_wait(bar_q, 0);
+  if (n_live > 0) {
+    const uint32_t s_wq = s_q + wg * 64 * 128;
+    uint32_t a[BK / 16][4];  // P of the tile whose P V product is next
+    float s[BK / 2], alpha[2];
+    full(0);
+    zero(s);
+    wgmma_fence();
+    scores<T, DP>(s, s_wq, QP, k_tile(0), KP);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    online_softmax(s, m2, l, alpha, masks(0), 0, wg_first, p.sk, p.causal, scale_log2, lane_row,
+                   lane_col);
+    to_fragments<T>(s, a);
+    for (int n = 1; n < n_live; ++n) {
+      full(n);
+      zero(s);
+      fence_regs(s);
+      fence_regs(acc);
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) fence_regs(a[j]);
+      wgmma_fence();
+      scores<T, DP>(s, s_wq, QP, k_tile(n), KP);
+      wgmma_commit();
+      accumulate<T, DP>(acc, a, k_tile(n - 1) + KBYTES, KP);
+      wgmma_commit();
+      // The softmax of tile n runs while P V of tile n-1 is on the tensor
+      // cores. The A fragments of the next P V are made only after that
+      // product is done: registers that a wgmma in flight reads are
+      // written by nothing else, or ptxas serialises the products.
+      wgmma_wait<1>();
+      fence_regs(s);
+      online_softmax(s, m2, l, alpha, masks(n), n * BK, wg_first, p.sk, p.causal, scale_log2,
+                     lane_row, lane_col);
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) fence_regs(a[j]);
+      release(n - 1);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+      to_fragments<T>(s, a);
+    }
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) fence_regs(a[j]);
+    wgmma_fence();
+    accumulate<T, DP>(acc, a, k_tile(n_live - 1) + KBYTES, KP);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) fence_regs(a[j]);
+    release(n_live - 1);
+  }
+  // Tiles none of these rows sees: released as they land.
+  for (int n = n_live; n < n_tiles; ++n) {
+    full(n);
+    release(n);
+  }
+  if (n_live == 0) return;
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = acc[i] / l[(i / 2) % 2];
+  store_rows<T, DP>(acc, p.o, (int64_t)batch * p.os.b + (int64_t)head * p.os.h, p.os.s, wg_first,
+                    p.sq, p.d, lane_row, lane_col);
+  if (p.lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wg_first + lane_row + 8 * r;
+      if (row < p.sq)  // (m2 + log2 l) ln 2
+        p.lse[((int64_t)batch * p.h + head) * p.sq + row] =
+            (m2[r] + log2f(l[r])) * 0.6931471805599453f;
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_tc(bool f16, int64_t blocks, const TcParams& p, cudaStream_t stream) {
+  auto kernel = f16 ? flash_fwd_tc_kernel<__half, DP> : flash_fwd_tc_kernel<__nv_bfloat16, DP>;
+  // Above 48 KB a launch is refused unless the kernel opts in first.
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         fwd_tc_smem<DP>());
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, THREADS, fwd_tc_smem<DP>(), stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+}  // namespace
+
+// The tensor-core route's launcher: 16-bit inputs only (dtype 0 = bf16,
+// 1 = f16), d % 8 == 0 and d <= 128. q, k, v device pointers in the
+// layouts above, each 16-byte aligned, with (batch, seq, head) strides in
+// elements that are multiples of 8 (TMA takes strides in multiples of 16
+// bytes; the wrapper makes an input contiguous otherwise). Arguments as for
+// flash_attn_fwd_fma. Returns the launch's cudaError_t (0 on success);
+// cudaErrorInvalidValue on a shape, stride or dtype it does not take or a
+// tensor map the driver refuses.
+extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv_h,
+                              int64_t d, const int64_t* strides, int64_t dtype, int64_t causal,
+                              float scale, void* stream) {
+  using tc::launch_tc;
+  const int64_t limit = 0x7fffffff;
+  if ((dtype != 0 && dtype != 1) || b < 1 || h < 1 || kv_h < 1 || h % kv_h != 0 || d < 8 ||
+      d > 128 || d % 8 != 0 || sq < 1 || sk < 1 || sq > limit - tc::BQ || sk > limit - tc::BK ||
+      (sq + tc::BQ - 1) / tc::BQ * h * b > limit)
+    return (int)cudaErrorInvalidValue;
+  tc::TcParams p = {};
+  const bool f16 = dtype == 1;
+  const int64_t* s = strides;
+  if (!hopper::encode_bshd(&p.tq, q, f16, b, sq, h, d, s[0], s[1], s[2], tc::BQ) ||
+      !hopper::encode_bshd(&p.tk, k, f16, b, sk, kv_h, d, s[3], s[4], s[5], tc::BK) ||
+      !hopper::encode_bshd(&p.tv, v, f16, b, sk, kv_h, d, s[6], s[7], s[8], tc::BK))
+    return (int)cudaErrorInvalidValue;
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.os = {s[9], s[10], s[11]};
+  p.b = (int)b;
+  p.sq = (int)sq;
+  p.sk = (int)sk;
+  p.h = (int)h;
+  p.kv_h = (int)kv_h;
+  p.d = (int)d;
+  p.scale = scale;
+  p.causal = causal != 0;
+  const int64_t blocks = (sq + tc::BQ - 1) / tc::BQ * h * b;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(d <= 64 ? launch_tc<64>(f16, blocks, p, st) : launch_tc<128>(f16, blocks, p, st));
 }

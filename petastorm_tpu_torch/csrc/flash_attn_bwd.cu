@@ -571,8 +571,6 @@ using namespace hopper;
 constexpr int THREADS = 256;                  // two warpgroups, 64 rows of M each
 constexpr int DQ_BQ = 128, DQ_BK = 64;        // K3: q rows a block, keys a tile
 constexpr int DKV_BK = 128, DKV_BQ = 64;      // K4: keys a block, q rows a tile
-constexpr uint32_t ATOM = 1024;               // bytes of one 8-row swizzle atom
-constexpr float LOG2E = 1.4426950408889634f;
 
 struct TcParams {
   CUtensorMap tq, tk, tv, tdo;  // encode_bshd maps; K3 boxes Q/dO 128 rows, K/V 64; K4 the reverse
@@ -586,58 +584,6 @@ struct TcParams {
   float scale;
   int causal;
 };
-
-// A 64 x 64 f32 product of a warpgroup over the head dim: d = A . B^T, A's
-// 64 rows at `a` and B's 64 rows at `b` (both K-major tiles of DP / 64
-// panels of a_panel and b_panel bytes).
-template <typename T, int DP>
-__device__ __forceinline__ void scores(float (&d)[32], uint32_t a, uint32_t a_panel, uint32_t b,
-                                       uint32_t b_panel) {
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j) {
-    const uint32_t off = (j % 4) * 32;
-    wgmma_ss_m64n64k16<T>(d, desc_sw128(a + (j / 4) * a_panel + off, 16, ATOM),
-                          desc_sw128(b + (j / 4) * b_panel + off, 16, ATOM), j > 0);
-  }
-}
-
-// acc (64 x DP) += A . B, A the register fragments of 64 rows by 64 of the
-// reduction, B the 64-row MN-major tile at `b` (DP / 64 panels of b_panel
-// bytes).
-template <typename T, int DP>
-__device__ __forceinline__ void accumulate(float (&acc)[DP / 2], const uint32_t (&a)[4][4],
-                                           uint32_t b, uint32_t b_panel) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint64_t desc = desc_sw128(b + j * 2 * ATOM, b_panel, ATOM);
-    if constexpr (DP == 128)
-      wgmma_rs_m64n128k16_tb<T>(acc, a[j], desc, 1);
-    else
-      wgmma_rs_m64n64k16_tb<T>(acc, a[j], desc, 1);
-  }
-}
-
-template <int N> __device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
-}
-
-// Writes a warpgroup's 64 x DP accumulator `acc`, rounded to T, into out:
-// row r of the tile is global row row0 + r; rows at or past `rows` and
-// columns at or past d are skipped.
-template <typename T, int DP>
-__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], void* out, int64_t offset,
-                                           int64_t row_stride, int row0, int rows, int d,
-                                           int lane_row, int lane_col) {
-#pragma unroll
-  for (int i = 0; i < DP / 2; i += 2) {
-    const int row = row0 + lane_row + 8 * ((i / 2) % 2);
-    const int col = 8 * (i / 4) + lane_col;
-    if (row < rows && col < d)
-      *reinterpret_cast<uint32_t*>(static_cast<T*>(out) + offset + (int64_t)row * row_stride +
-                                   col) = pack2<T>(acc[i], acc[i + 1]);
-  }
-}
 
 template <int DP> constexpr int dq_tc_smem() {
   return ATOM + 2 * DQ_BQ * DP * 2 + 2 * 2 * DQ_BK * DP * 2 + 64;

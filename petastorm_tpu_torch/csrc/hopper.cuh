@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA tile loads, wgmma descriptors and the wgmma products the kernels use,
-// and the host-side encoding of TMA tensor maps.
+// the tile helpers the flash-attention kernels share (forward K2 in
+// flash_attn.cu, backward K3/K4 in flash_attn_bwd.cu), and the host-side
+// encoding of TMA tensor maps.
 //
 // Shared-memory tiles. A tile of R rows (keys or queries) by DP head-dim
 // columns of a 16-bit type is held as DP / 64 column panels, each R rows of
@@ -28,6 +30,9 @@ namespace hopper {
 
 template <typename T> struct is_half : std::is_same<T, __half> {};
 
+constexpr uint32_t ATOM = 1024;  // bytes of one 8-row swizzle atom
+constexpr float LOG2E = 1.4426950408889634f;
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -45,6 +50,11 @@ __device__ __forceinline__ void mbar_init_fence() {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+
+// Arrive once (no transaction bytes).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
@@ -254,6 +264,59 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64], const uin
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+}
+
+// ------------------------------------------- flash-attention tile helpers --
+// A 64 x 64 f32 product of a warpgroup over the head dim: d = A . B^T, A's
+// 64 rows at `a` and B's 64 rows at `b` (both K-major tiles of DP / 64
+// panels of a_panel and b_panel bytes).
+template <typename T, int DP>
+__device__ __forceinline__ void scores(float (&d)[32], uint32_t a, uint32_t a_panel, uint32_t b,
+                                       uint32_t b_panel) {
+#pragma unroll
+  for (int j = 0; j < DP / 16; ++j) {
+    const uint32_t off = (j % 4) * 32;
+    wgmma_ss_m64n64k16<T>(d, desc_sw128(a + (j / 4) * a_panel + off, 16, ATOM),
+                          desc_sw128(b + (j / 4) * b_panel + off, 16, ATOM), j > 0);
+  }
+}
+
+// acc (64 x DP) += A . B, A the register fragments of 64 rows by 64 of the
+// reduction, B the 64-row MN-major tile at `b` (DP / 64 panels of b_panel
+// bytes).
+template <typename T, int DP>
+__device__ __forceinline__ void accumulate(float (&acc)[DP / 2], const uint32_t (&a)[4][4],
+                                           uint32_t b, uint32_t b_panel) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint64_t desc = desc_sw128(b + j * 2 * ATOM, b_panel, ATOM);
+    if constexpr (DP == 128)
+      wgmma_rs_m64n128k16_tb<T>(acc, a[j], desc, 1);
+    else
+      wgmma_rs_m64n64k16_tb<T>(acc, a[j], desc, 1);
+  }
+}
+
+template <int N> __device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// Writes a warpgroup's 64 x DP accumulator `acc`, rounded to T, into out:
+// row r of the tile is global row row0 + r; rows at or past `rows` and
+// columns at or past d are skipped.
+template <typename T, int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], void* out, int64_t offset,
+                                           int64_t row_stride, int row0, int rows, int d,
+                                           int lane_row, int lane_col) {
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int row = row0 + lane_row + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + lane_col;
+    if (row < rows && col < d)
+      *reinterpret_cast<uint32_t*>(static_cast<T*>(out) + offset + (int64_t)row * row_stride +
+                                   col) = pack2<T>(acc[i], acc[i + 1]);
   }
 }
 

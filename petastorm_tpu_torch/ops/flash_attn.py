@@ -11,15 +11,16 @@ logsumexp of each query row, ``(b, heads, sq, 1)`` float32.
 A CUDA tensor goes through the hand-written kernels (it raises if a kernel
 cannot build or launch, and never falls back): the forward
 ``csrc/flash_attn.cu`` (K2) and the backward ``csrc/flash_attn_bwd.cu``
-(K3: dq, K4: dk and dv), whose route :func:`bwd_route` picks from the
-dtype and head dim before the launch: tensor cores (wgmma, TMA) for 16-bit
-inputs with ``d % 8 == 0`` and ``d <= 128``, f32 FMAs otherwise. A CPU
-tensor goes through the plain PyTorch
-versions :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`,
-which compute the same functions: float32 scores ``(q . k) * scale`` with
-``scale = 1/sqrt(d)`` rounded once to float32, float32 softmax, p rounded
-to v's dtype before ``p . v``, float32 accumulation; the backward's
-numerics are described at :func:`flash_attention_bwd_plain`.
+(K3: dq, K4: dk and dv). Each has two routes, which :func:`fwd_route` and
+:func:`bwd_route` pick from the dtype and head dim before the launch:
+tensor cores (wgmma, TMA) for 16-bit inputs with ``d % 8 == 0`` and
+``d <= 128``, f32 FMAs otherwise. A CPU tensor goes through the plain
+PyTorch versions :func:`flash_attention_plain` and
+:func:`flash_attention_bwd_plain`, which compute the same functions:
+float32 scores ``(q . k) * scale`` with ``scale = 1/sqrt(d)`` rounded once
+to float32, float32 softmax, p rounded to v's dtype before ``p . v``,
+float32 accumulation; the backward's numerics are described at
+:func:`flash_attention_bwd_plain`.
 
 :func:`flash_attention` is differentiable: when grad is enabled and an
 input requires it, it runs :class:`FlashAttentionFunction`, whose forward
@@ -35,7 +36,11 @@ import torch
 
 from petastorm_tpu_torch import kernels
 
+#: Launch-count names of the forward kernel K2: the tensor-core route, then
+#: the FMA route. Each is also the name of its C launcher in
+#: ``csrc/flash_attn.cu``.
 KERNEL_NAME = "flash_attn_fwd"
+FMA_KERNEL_NAME = "flash_attn_fwd_fma"
 #: Launch-count names of the backward kernels K3 (dq) and K4 (dk, dv): the
 #: tensor-core route, then the FMA route. Each is also the name of its C
 #: launcher in ``csrc/flash_attn_bwd.cu``.
@@ -43,12 +48,13 @@ BWD_DQ_KERNEL_NAME = "flash_attn_bwd_dq"
 BWD_DKV_KERNEL_NAME = "flash_attn_bwd_dkv"
 BWD_DQ_FMA_KERNEL_NAME = "flash_attn_bwd_dq_fma"
 BWD_DKV_FMA_KERNEL_NAME = "flash_attn_bwd_dkv_fma"
-#: The backward's two routes (see :func:`bwd_route`).
+#: The kernels' two routes (see :func:`fwd_route`).
 TENSOR_CORES, FMA = "tensor cores", "fma"
+_FWD_KERNELS = {TENSOR_CORES: KERNEL_NAME, FMA: FMA_KERNEL_NAME}
 _BWD_KERNELS = {(TENSOR_CORES, "dq"): BWD_DQ_KERNEL_NAME,
                 (TENSOR_CORES, "dkv"): BWD_DKV_KERNEL_NAME,
                 (FMA, "dq"): BWD_DQ_FMA_KERNEL_NAME, (FMA, "dkv"): BWD_DKV_FMA_KERNEL_NAME}
-#: Largest head dim the tensor-core backward takes.
+#: Largest head dim the tensor-core kernels take.
 TC_MAX_HEAD_DIM = 128
 #: Largest head dim the kernel takes.
 MAX_HEAD_DIM = 256
@@ -139,6 +145,24 @@ def _flash(q, k, v, causal: bool, with_lse: bool):
     if q.device.type == "cpu":
         o, lse = flash_attention_plain(q, k, v, causal)
         return o, (lse if with_lse else None)
+    route = fwd_route(q.dtype, q.shape[3])
+    return _flash_fwd(route, *_fwd_inputs(route, q, k, v), causal, with_lse)
+
+
+def _fwd_inputs(route: str, q, k, v):
+    """``(q, k, v)`` as the forward kernel of ``route`` reads them: on the
+    tensor-core route each input whose strides or base TMA cannot take is
+    made contiguous (:func:`_tma_operand`); the FMA route reads them as
+    they are."""
+    if route == TENSOR_CORES:
+        return tuple(_tma_operand(t) for t in (q, k, v))
+    return q, k, v
+
+
+def _flash_fwd(route: str, q, k, v, causal: bool, with_lse: bool):
+    """K2 of ``route`` on CUDA tensors (inputs as :func:`_fwd_inputs` gives
+    them): ``(o, lse or None)``, counted under the route's name."""
+    name = _FWD_KERNELS[route]
     b, sq, h, d = q.shape
     sk, kv_h = k.shape[1], k.shape[2]
     _check_grid(b, h)
@@ -146,17 +170,21 @@ def _flash(q, k, v, causal: bool, with_lse: bool):
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device) if with_lse else None
     if sq == 0:
         return o, lse
-    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                                    *o.stride()[:3])
-    fn = _launcher()
+    if route == TENSOR_CORES:
+        strides = [st for t in (q, k, v) for st in _tma_strides(t)]
+    else:
+        strides = [st for t in (q, k, v) for st in t.stride()[:3]]
+    strides += o.stride()[:3]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None if lse is None else lse.data_ptr(), b, sq, sk, h, kv_h, d, strides,
-                 _DTYPES[q.dtype], int(causal), softmax_scale(d), stream)
+        err = _fwd_launcher(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, sq, sk, h, kv_h, d,
+            (ctypes.c_int64 * 12)(*strides), _DTYPES[q.dtype], int(causal), softmax_scale(d),
+            stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL_NAME} launch failed with cudaError_t {err}")
-    kernels.count_launch(KERNEL_NAME)
+        raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
+    kernels.count_launch(name)
     return o, lse
 
 
@@ -261,8 +289,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk.to(k.dtype).permute(0, 2, 1, 3), dv.to(v.dtype).permute(0, 2, 1, 3)
 
 
-def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernels' route for inputs of ``dtype`` and ``head_dim``:
+def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The flash kernels' route for inputs of ``dtype`` and ``head_dim``,
+    the same for the forward (K2) and the backward (K3, K4):
     :data:`TENSOR_CORES` (wgmma products, TMA tiles) for bfloat16 and
     float16 with ``head_dim % 8 == 0`` and ``head_dim <= 128``; :data:`FMA`
     (IEEE float32 FMAs) otherwise: float32, whose bars tensor cores (TF32)
@@ -272,6 +301,10 @@ def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
             and head_dim <= TC_MAX_HEAD_DIM:
         return TENSOR_CORES
     return FMA
+
+
+#: The backward's route: the forward's rule (:func:`fwd_route`).
+bwd_route = fwd_route
 
 
 def _tma_strides(t: torch.Tensor):
@@ -411,9 +444,12 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def _launcher():
+def _fwd_launcher(name: str):
+    """One of the two C launchers of :data:`_FWD_KERNELS`: q, k, v, o and
+    lse (null in "out" mode), then the sizes, the strides, dtype, causal,
+    scale and the stream."""
     from petastorm_tpu_torch.kernels.build import load
-    fn = load("flash_attn").flash_attn_fwd
+    fn = getattr(load("flash_attn"), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64, ctypes.c_float,

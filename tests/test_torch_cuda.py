@@ -100,6 +100,12 @@ def test_cuda_staging_bytes_equal_cpu_staging(cuda_device, tmp_path):
 _FLASH_BARS = {torch.float32: 2e-5, torch.bfloat16: 3e-2, torch.float16: 4e-3}
 
 
+def _fwd_name(dtype, d):
+    """Launch-count name of K2 on the route inputs of ``dtype`` and head
+    dim ``d`` take."""
+    return flash_attn._FWD_KERNELS[flash_attn.fwd_route(dtype, d)]
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kv_h,d,causal,dtype", [
     (2, 256, 256, 8, 2, 128, True, torch.bfloat16),
     (1, 100, 100, 4, 2, 64, True, torch.bfloat16),
@@ -116,9 +122,9 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, b, sq, sk, h, kv_h, d, 
     q, k, v = randn(b, sq, h, d), randn(b, sk, kv_h, d), randn(b, sk, kv_h, d)
     kernels.reset_launch_counts()
     o, lse = flash_attn.flash_attention_lse(q, k, v, causal=causal)
-    assert kernels.launch_counts[flash_attn.KERNEL_NAME] == 1
+    assert kernels.launch_counts == {_fwd_name(dtype, d): 1}
     o_out = flash_attn.flash_attention(q, k, v, causal=causal)
-    assert kernels.launch_counts[flash_attn.KERNEL_NAME] == 2
+    assert kernels.launch_counts == {_fwd_name(dtype, d): 2}
     want_o, want_lse = flash_attn.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert o.dtype == dtype and o.shape == (b, sq, h, d) and lse.shape == (b, h, sq, 1)
@@ -194,7 +200,9 @@ def test_token_slice_on_card(cuda_device, tmp_path):
 
     kernels.reset_launch_counts()
     on_card = run(cuda_device)
-    assert kernels.launch_counts[flash_attn.KERNEL_NAME] == 4 * 2 * llama.TINY.n_layers
+    d = llama.TINY.dim // llama.TINY.n_heads
+    assert kernels.launch_counts == {_fwd_name(torch.bfloat16, d): 4 * llama.TINY.n_layers,
+                                     _fwd_name(torch.float32, d): 4 * llama.TINY.n_layers}
     on_host = run("cpu")
     assert len(on_card) == len(on_host) == 4
     for (tok_c, (bf16_c, f32_c)), (tok_h, (bf16_h, f32_h)) in zip(on_card, on_host):
@@ -310,7 +318,7 @@ def test_flash_attention_has_a_gradient_on_card(cuda_device):
     out = flash_attn.flash_attention(*leaves, causal=True)
     assert out.grad_fn is not None
     out.backward(g)
-    assert kernels.launch_counts == {flash_attn.KERNEL_NAME: 1,
+    assert kernels.launch_counts == {_fwd_name(torch.float32, 64): 1,
                                      **{name: 1 for name in _bwd_names(torch.float32, 64)}}
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
     flash_attn.FlashAttentionFunction.apply(*plain, True, flash_attn.flash_attention_plain,
@@ -342,7 +350,7 @@ def test_tiny_train_step_on_card_matches_cpu(cuda_device, dtype, loss_bar):
     kernels.reset_launch_counts()
     card_losses, card = run(cuda_device)
     assert kernels.launch_counts == {name: 2 * cfg.n_layers for name in (
-        flash_attn.KERNEL_NAME, *_bwd_names(dtype, cfg.head_dim))}
+        _fwd_name(dtype, cfg.head_dim), *_bwd_names(dtype, cfg.head_dim))}
     host_losses, on_host = run("cpu")
     assert card_losses == pytest.approx(host_losses, abs=loss_bar)
     lr = 3e-4
@@ -352,3 +360,105 @@ def test_tiny_train_step_on_card_matches_cpu(cuda_device, dtype, loss_bar):
             assert diff.max() <= 2 * lr
         else:   # see tests/test_torch_train.py for the bfloat16 AdamW bars
             assert diff.max() <= 4 * lr and (diff <= 0.1 * lr).float().mean() >= 0.9
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv_h,d,causal,dtype,fused", [
+    (1, 100, 100, 4, 2, 64, True, torch.bfloat16, False),     # ragged, GQA
+    (2, 96, 64, 4, 2, 64, True, torch.bfloat16, False),       # causal sq > sk
+    (2, 40, 130, 4, 1, 128, True, torch.bfloat16, False),     # causal sq < sk
+    (2, 77, 130, 4, 1, 64, False, torch.float16, False),      # non-causal, ragged both
+    (2, 200, 200, 4, 4, 128, True, torch.bfloat16, False),    # MHA
+    (2, 150, 150, 8, 4, 128, False, torch.float16, False),
+    (1, 300, 300, 4, 2, 128, True, torch.float16, False),
+    (1, 963, 963, 8, 2, 128, True, torch.bfloat16, False),    # not a multiple of 64
+    (1, 300, 300, 4, 2, 72, True, torch.bfloat16, False),     # d padded to 128
+    (2, 256, 256, 8, 2, 128, True, torch.bfloat16, True),     # fused qkv views
+    (2, 130, 130, 4, 2, 64, False, torch.float16, True),
+])
+def test_flash_tc_forward_matches_plain_on_card(cuda_device, b, sq, sk, h, kv_h, d, causal,
+                                                dtype, fused):
+    """The tensor-core K2 in "out" and "lse" mode against the plain version,
+    each call one launch of the tensor-core route; fused qkv views are read
+    in place."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq * sk + d + 3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    if fused:
+        qkv = randn(b, sq, h + 2 * kv_h, d)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv_h], qkv[:, :, h + kv_h:]
+        assert all(flash_attn._tma_ready(t) for t in (q, k, v))
+    else:
+        q, k, v = randn(b, sq, h, d), randn(b, sk, kv_h, d), randn(b, sk, kv_h, d)
+    assert flash_attn.fwd_route(dtype, d) == flash_attn.TENSOR_CORES
+    kernels.reset_launch_counts()
+    o, lse = flash_attn.flash_attention_lse(q, k, v, causal=causal)
+    o_out = flash_attn.flash_attention(q, k, v, causal=causal)
+    assert kernels.launch_counts == {flash_attn.KERNEL_NAME: 2}
+    want_o, want_lse = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape and lse.shape == (b, h, sq, 1)
+    assert torch.equal(o, o_out)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=0, atol=_FLASH_BARS[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,d,forced", [
+    (torch.float32, 64, False), (torch.bfloat16, 256, False), (torch.float16, 60, False),
+    (torch.bfloat16, 128, True)])
+def test_flash_fma_forward_route_on_card(cuda_device, dtype, d, forced):
+    """f32, d > 128 and d % 8 != 0 take the FMA K2; forced at bf16 d 128 it
+    gives the plain version's output too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 5)
+    q, k, v = (torch.randn(2, 150, s, d, generator=gen, device=cuda_device).to(dtype)
+               for s in (4, 2, 2))
+    kernels.reset_launch_counts()
+    if forced:
+        o, lse = flash_attn._flash_fwd(flash_attn.FMA, q, k, v, True, True)
+    else:
+        assert flash_attn.fwd_route(dtype, d) == flash_attn.FMA
+        o, lse = flash_attn.flash_attention_lse(q, k, v, causal=True)
+    assert kernels.launch_counts == {flash_attn.FMA_KERNEL_NAME: 1}
+    want_o, want_lse = flash_attn.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=0, atol=_FLASH_BARS[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.float16, 64),
+                                     (torch.float32, 64)])
+def test_flash_forward_gives_equal_bits_over_launches(cuda_device, dtype, d):
+    """Each block owns its rows and sums in a fixed order: every launch of
+    either route gives the same bits, also with other work queued between."""
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    q, k, v = (torch.randn(2, 1000, s, d, generator=gen, device=cuda_device).to(dtype)
+               for s in (8, 2, 2))
+    first = flash_attn.flash_attention_lse(q, k, v, causal=True)
+    for _ in range(3):
+        torch.randn(4096, 4096, device=cuda_device).square_()
+        again = flash_attn.flash_attention_lse(q, k, v, causal=True)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.parametrize("shape,dtype,offset", [((5, 33, 31, 3), torch.bfloat16, 1),
+                                                ((5, 33, 31, 3), torch.float32, 7),
+                                                ((3, 17, 19, 3), torch.float16, 0),
+                                                ((1, 1, 5, 3), torch.bfloat16, 3),
+                                                ((7, 13, 11, 2), torch.bfloat16, 0),
+                                                ((8, 224, 224, 3), torch.bfloat16, 5)])
+def test_normalize_kernel_bit_equal_at_odd_lengths_and_misaligned_views(cuda_device, shape, dtype,
+                                                                       offset):
+    """K1 on a contiguous view at an odd offset (not 16-byte aligned) and at
+    lengths that are not whole 16-byte vectors: bit-equal to the plain
+    version, one launch."""
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(np.random.default_rng(offset).integers(0, 256, n + offset,
+                                                                    dtype=np.uint8))
+    x = flat.to(cuda_device)[offset:].view(shape)
+    assert (x.data_ptr() % 16 != 0) == (offset % 16 != 0)
+    mean, std = (0.4, 0.5, 0.6, 0.7), (0.2, 0.25, 0.3, 0.35)
+    kernels.reset_launch_counts()
+    got = normalize_images(x, mean, std, out_dtype=dtype)
+    assert kernels.launch_counts == {KERNEL_NAME: 1}
+    want = normalize_images_plain(x, mean, std, out_dtype=dtype)
+    bits = torch.int16 if dtype != torch.float32 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))

@@ -134,3 +134,84 @@ def test_flash_attention_raises_on_what_the_kernel_does_not_take():
 def test_softmax_scale_is_rounded_once_to_float32():
     assert flash_attn.softmax_scale(128) == float(np.float32(1 / np.sqrt(128)))
     assert flash_attn.softmax_scale(80) == float(np.float32(1 / np.sqrt(80)))
+
+
+# The forward's route, decided from the dtype and head dim before a launch
+# (the backward's rule: tests/test_torch_flash_attn_bwd.py).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [8, 32, 64, 72, 128])
+def test_forward_16_bit_inputs_up_to_d128_take_the_tensor_cores(dtype, d):
+    assert flash_attn.fwd_route(dtype, d) == flash_attn.TENSOR_CORES
+
+
+@pytest.mark.parametrize("d", [8, 64, 72, 128, 200, 256])
+def test_forward_float32_takes_the_fma_route_at_any_head_dim(d):
+    assert flash_attn.fwd_route(torch.float32, d) == flash_attn.FMA
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,route", [(200, "fma"), (256, "fma"), (136, "fma"), (60, "fma"),
+                                     (100, "fma"), (72, "tensor cores"), (128, "tensor cores")])
+def test_forward_16_bit_head_dims_past_128_or_off_multiples_of_8_take_the_fma_route(dtype, d,
+                                                                                      route):
+    assert flash_attn.fwd_route(dtype, d) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_forward_and_backward_share_one_route(dtype):
+    for d in range(1, flash_attn.MAX_HEAD_DIM + 1):
+        assert flash_attn.fwd_route(dtype, d) == flash_attn.bwd_route(dtype, d)
+
+
+def test_forward_routes_have_their_own_launch_count_names():
+    assert flash_attn._FWD_KERNELS == {flash_attn.TENSOR_CORES: "flash_attn_fwd",
+                                       flash_attn.FMA: "flash_attn_fwd_fma"}
+    assert flash_attn.KERNEL_NAME == "flash_attn_fwd"
+    assert flash_attn.FMA_KERNEL_NAME == "flash_attn_fwd_fma"
+
+
+def _bf16(*shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+
+
+def test_forward_reads_fused_qkv_views_on_the_tma_path_without_a_copy():
+    qkv = _bf16(2, 64, 4 + 2 + 2, 64)
+    views = (qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:])
+    got = flash_attn._fwd_inputs(flash_attn.TENSOR_CORES, *views)
+    assert all(a is b for a, b in zip(got, views))
+    assert all(flash_attn._tma_ready(t) for t in views)
+    # The FMA route reads any view with a unit-stride head dim as it is.
+    got = flash_attn._fwd_inputs(flash_attn.FMA, *views)
+    assert all(a is b for a, b in zip(got, views))
+
+
+def test_forward_copies_only_what_tma_cannot_read():
+    q, k = _bf16(2, 16, 4, 64, seed=1), _bf16(2, 16, 2, 64, seed=2)
+    wide = torch.zeros(2, 16, 2, 68, dtype=torch.bfloat16)
+    wide[..., :64] = k
+    v = wide[..., :64]                      # a head stride of 136 bytes
+    q2, k2, v2 = flash_attn._fwd_inputs(flash_attn.TENSOR_CORES, q, k, v)
+    assert q2 is q and k2 is k
+    assert v2 is not v and v2.is_contiguous() and torch.equal(v2, v)
+    assert flash_attn._fwd_inputs(flash_attn.FMA, q, k, v)[2] is v
+
+
+def test_cpu_forward_never_reaches_a_route_or_a_launcher(monkeypatch):
+    """A CPU tensor takes the plain version before any route is chosen, in
+    every entry point: nothing is launched or counted, whatever the dtype."""
+    def unreachable(*_a, **_k):
+        raise AssertionError("reached on CPU tensors")
+    for name in ("fwd_route", "_fwd_inputs", "_flash_fwd", "_fwd_launcher"):
+        monkeypatch.setattr(flash_attn, name, unreachable)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        q, k, v = (torch.from_numpy(a).to(dtype) for a in _inputs(40, 40, 4, 2, d=64, seed=8))
+        want_o, want_lse = flash_attn.flash_attention_plain(q, k, v, causal=True)
+        kernels.reset_launch_counts()
+        o, lse = flash_attn.flash_attention_lse(q, k, v, causal=True)
+        assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+        assert torch.equal(flash_attn.flash_attention(q, k, v, causal=True), want_o)
+        assert torch.equal(flash_attn.make_flash_attention(causal=True)(q, k, v), want_o)
+        leaf = q.clone().requires_grad_()
+        assert torch.equal(flash_attn.flash_attention(leaf, k, v, causal=True).detach(), want_o)
+        assert not kernels.launch_counts
