@@ -13,7 +13,10 @@ result line):
    the main path's shapes, at ragged ones and on contiguous views that are
    not 16-byte aligned, and time both with CUDA events (every timing starts
    behind a device sleep, so the host's preparation of a call is not
-   counted);
+   counted); then K1's general route (``normalize_u8_strided``) on crops,
+   transposes, an NCHW tensor seen as NHWC, 1 and 5 channels and a
+   zero-size crop, bit for bit with the launch name checked, and timed on
+   the main path's batch cropped to 208x208;
 4. the main path at full size: a seeded 2048-row store of 224x224x3 JPEG
    images written with the package's writer, read by ``make_reader``
    (8 decode threads), batched by ``DataLoader(batch_size=256,
@@ -65,7 +68,17 @@ result line):
    against the plain step, a ``torch.profiler`` split of one resident
    step, and the whole-slice gradient check: every parameter's gradient
    through the kernels against the plain forward and backward, with the
-   wrong backwards as controls.
+   wrong backwards as controls;
+9. the image path's end to end: ``run_imagenet_bench`` (ResNet-50 at
+   224x224, SGD, batch 256, 8 decode threads, 20 pipelined steps and 5
+   resident ones) on a 2048-row ``write_synthetic_imagenet`` store, fed by
+   ``make_reader`` -> ``DataLoader(device="cuda")``; its result keys must be
+   the JAX bench's, its losses finite, and none of the port's kernels run
+   (the bench preprocesses with ``/ 255`` as the reference does). Then a
+   ``torch.profiler`` split of one resident step, the peak memory of one
+   step with and without ``remat``, and the flagship forward of
+   ``petastorm_tpu_torch.entry`` (bf16) against the same forward in float32
+   with TF32 off, timed.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -85,20 +98,23 @@ import torch
 import torch.nn.functional as F
 
 from petastorm_tpu_torch import kernels
+from petastorm_tpu_torch.benchmark.imagenet_bench import (run_imagenet_bench,
+                                                          write_synthetic_imagenet)
 from petastorm_tpu_torch.benchmark.llm_bench import run_llm_bench, write_token_store
 from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec
 from petastorm_tpu_torch.etl.writer import materialize_dataset_local
 from petastorm_tpu_torch.kernels.build import build
+from petastorm_tpu_torch.entry import entry
 from petastorm_tpu_torch.loader import DataLoader
-from petastorm_tpu_torch.models import llama
+from petastorm_tpu_torch.models import llama, resnet
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.ops import flash_attn
 from petastorm_tpu_torch.ops.flash_attn import (FlashAttentionFunction, flash_attention,
                                                 flash_attention_bwd, flash_attention_bwd_plain,
                                                 flash_attention_lse, flash_attention_plain,
                                                 make_flash_attention)
-from petastorm_tpu_torch.ops.image_ops import (KERNEL_NAME, normalize_images,
-                                               normalize_images_plain)
+from petastorm_tpu_torch.ops.image_ops import (KERNEL_NAME, STRIDED_KERNEL_NAME,
+                                               normalize_images, normalize_images_plain)
 from petastorm_tpu_torch.reader import make_reader
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
@@ -194,6 +210,24 @@ TRAIN_STEPS, TRAIN_RESIDENT, XENT_CHUNK = 4, 2, 2048
 GRAD_REL_BAR = 0.04
 GRAD_BWD_REL_BAR = 0.013
 GRAD_MUST_FAIL = BWD_CONTROLS[:3]
+
+# Image path: the JAX package's ImageNet bench at ResNet-50's full width
+# (224x224, 1000 -> 100 classes as the bench's default), batch 256; the
+# store is cut to 2048 rows so it is written inside the run.
+IMAGENET_ROWS, IMAGENET_CLASSES, IMAGENET_BATCH = 2048, 100, 256
+IMAGENET_STEPS, IMAGENET_RESIDENT, IMAGENET_WORKERS = 20, 5, 8
+#: The JAX bench's result keys on a device with a known peak.
+IMAGENET_KEYS = {"samples_per_sec", "samples_per_sec_per_chip", "input_stall_pct", "devices",
+                 "global_batch", "echo", "loss_first", "loss_last", "step_time_ms",
+                 "device_kind", "step_time_ms_resident", "samples_per_sec_resident",
+                 "samples_per_sec_per_chip_resident", "model_flops_per_step_per_chip",
+                 "achieved_tflops_per_chip", "mfu_pct", "peak_flops_source",
+                 "achieved_tflops_per_chip_resident", "mfu_pct_resident"}
+#: The flagship forward in bf16 against itself in float32 (TF32 off): mean
+#: |difference| over mean |logit|. On the CPU the port read 0.36 % on the
+#: reference's weights and 0.49 % on its own (the JAX package's own bf16
+#: forward 0.37 %); tests/test_torch_imagenet_bench.py.
+ENTRY_F32_BAR = 0.01
 
 def log(msg):
     print(msg, flush=True)
@@ -318,7 +352,74 @@ def phase_kernels() -> dict:
                 result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms}
         log(line)
-    return result
+    return result, phase_strided()
+
+
+#: K1's general route: (what, view of a contiguous uint8 batch on the card,
+#: channels, out dtype). The batch is (8, 256, 256, 3) unless a view says
+#: otherwise.
+STRIDED_CASES = [
+    ("crop [:, 16:240, 16:240]", lambda x: x[:, 16:240, 16:240], 3, torch.bfloat16),
+    ("crop [:, 16:240, 16:240]", lambda x: x[:, 16:240, 16:240], 3, torch.float32),
+    ("crop [:, 16:240, 16:240]", lambda x: x[:, 16:240, 16:240], 3, torch.float16),
+    ("transpose(1, 2)", lambda x: x.transpose(1, 2), 3, torch.bfloat16),
+    ("NCHW and back through a view",
+     lambda x: x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), 3, torch.float32),
+    ("every other image, odd crop", lambda x: x[::2, 3:250, 5:254], 3, torch.bfloat16),
+    ("C = 1, cropped", lambda x: x[..., :1].contiguous()[:, 8:216, 8:216], 1, torch.bfloat16),
+    ("C = 5, contiguous", lambda x: x.reshape(-1)[:8 * 100 * 100 * 5].view(8, 100, 100, 5), 5,
+     torch.float16),
+    ("C = 5, cropped", lambda x: x.reshape(-1)[:8 * 100 * 100 * 5].view(8, 100, 100, 5)[:, 1:99],
+     5, torch.bfloat16),
+    ("zero-size crop", lambda x: x[:, 5:5], 3, torch.bfloat16),
+]
+STRIDED_FACTORS = ((0.4, 0.5, 0.6, 0.7, 0.45), (0.2, 0.25, 0.3, 0.35, 0.3))
+#: The timed case: the main path's batch cropped to 208x208.
+CROP = 208
+
+
+def phase_strided() -> dict:
+    rng = np.random.default_rng(1)
+    base = torch.from_numpy(rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)).cuda()
+    for what, view, channels, dtype in STRIDED_CASES:
+        x = view(base)
+        mean, std = (f[:channels] for f in STRIDED_FACTORS)
+        kernels.reset_launch_counts()
+        got = normalize_images(x, mean, std, out_dtype=dtype)
+        counts = dict(kernels.launch_counts)
+        want = normalize_images_plain(x, mean, std, out_dtype=dtype).contiguous()
+        torch.cuda.synchronize()
+        if counts != ({STRIDED_KERNEL_NAME: 1} if x.numel() else {}):
+            raise AssertionError(f"{what} {dtype}: launches {counts}")
+        if not got.is_contiguous() or got.shape != x.shape:
+            raise AssertionError(f"{what} {dtype}: output {tuple(got.shape)} "
+                                 f"{got.stride()}, not contiguous of the input's shape")
+        err = check_close(got, want, f"{what} {dtype}") if x.numel() else 0.0
+        log(f"[kernel] {STRIDED_KERNEL_NAME} {what} {tuple(x.shape)} strides {x.stride()} "
+            f"{dtype}: bit-equal, max abs err {err:.3g}, launches {counts}")
+    del base
+    # The main path's batch, cropped: the general route against the plain
+    # version, and the vector route on the uncropped batch beside it.
+    full = torch.from_numpy(rng.integers(0, 256, (BATCH,) + IMAGE_SHAPE, dtype=np.uint8)).cuda()
+    off = (IMAGE_SHAPE[0] - CROP) // 2
+    x = full[:, off:off + CROP, off:off + CROP]
+    kernels.reset_launch_counts()
+    got = normalize_images(x)
+    if kernels.launch_counts != {STRIDED_KERNEL_NAME: 1}:
+        raise AssertionError(f"cropped batch: launches {kernels.launch_counts}")
+    err = check_close(got, normalize_images_plain(x).contiguous(), "cropped batch")
+    ms, plain_ms, contiguous_ms = median_ms(lambda: normalize_images(x),
+                                            lambda: normalize_images_plain(x),
+                                            lambda: normalize_images(full))
+    n = x.numel()
+    bound_ms = max(n * 3 / HBM_BYTES_PER_S, 2 * n / F32_FLOPS) * 1e3
+    full_bound_ms = full.numel() * 3 / HBM_BYTES_PER_S * 1e3
+    log(f"[kernel] {STRIDED_KERNEL_NAME} main path's batch cropped to {tuple(x.shape)} bf16: "
+        f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({n * 3 / 1e6:.1f} MB), kernel at {bound_ms / ms:.1%} of the bound; the vector "
+        f"route on the uncropped batch {contiguous_ms:.4f} ms against its bound "
+        f"{full_bound_ms:.4f} ms ({bound_ms / ms:.1%} against {full_bound_ms / contiguous_ms:.1%})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
 def smooth_image(rng) -> np.ndarray:
@@ -365,6 +466,8 @@ def phase_slice(tmp: str) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts.get(KERNEL_NAME, 0)
+    if set(kernels.launch_counts) != {KERNEL_NAME}:
+        raise AssertionError(f"the image path launched {kernels.launch_counts}")
     if batches != ROWS * EPOCHS // BATCH:
         raise AssertionError(f"{batches} batches, expected {ROWS * EPOCHS // BATCH}")
     if launches != batches:
@@ -617,7 +720,7 @@ TRAIN_GROUPS = (("flash_fwd_*kernel (K2)", ("flash_fwd_",)),
                 ("AdamW (multi-tensor kernels)", ("multi_tensor_apply", "adam")))
 
 
-def profile_step(step, what: str, groups=FORWARD_GROUPS) -> dict:
+def profile_step(step, what: str, groups=FORWARD_GROUPS, top: int = 6) -> dict:
     """One ``step`` under ``torch.profiler``: device time by kernel (the
     kernels' own events, so nothing is counted twice) against the host
     wall time; the rest of the wall time is the device's idle share.
@@ -643,12 +746,12 @@ def profile_step(step, what: str, groups=FORWARD_GROUPS) -> dict:
         label = next((label for label, tags in groups
                       if any(tag in name.lower() for tag in tags)), "everything else")
         split[label] += ms
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
     log(f"[profile] {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"(idle {100 * (1 - busy_ms / wall_ms):.1f} %), {len(by_kernel)} kernels; by group: "
         + "; ".join(f"{g} {ms:.1f} ms ({100 * ms / busy_ms:.1f} %)" for g, ms in split.items()))
     log(f"[profile] {what}, top kernels: " + "; ".join(
-        f"{name[:60]} {ms:.1f} ms ({100 * ms / busy_ms:.1f} %)" for name, ms in top))
+        f"{name[:90]} {ms:.1f} ms ({100 * ms / busy_ms:.1f} %)" for name, ms in top_kernels))
     return dict(split, wall_ms=wall_ms, busy_ms=busy_ms)
 
 
@@ -1126,13 +1229,115 @@ def phase_train(tmp: str) -> dict:
     return launches
 
 
+#: Kernel groups of a profiled ResNet-50 step, matched in this order. The
+#: convolutions' kernels carry GEMM names too (cuDNN runs them as implicit
+#: GEMMs); the head's matmul, 0.3 GFLOP of the step's 6.3 TFLOP, falls in
+#: the same group.
+IMAGE_GROUPS = (("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+                ("SGD (multi-tensor kernels)", ("multi_tensor_apply", "sgd")),
+                ("convolutions (cuDNN) and the head's matmul, forward and backward",
+                 ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn", "winograd", "nhwc",
+                  "nchw", "gemm", "nvjet", "xmma", "cutlass")))
+
+
+def phase_imagenet(tmp: str) -> dict:
+    url = f"file://{tmp}/imagenet"
+    t0 = time.perf_counter()
+    write_synthetic_imagenet(url, rows=IMAGENET_ROWS, classes=IMAGENET_CLASSES,
+                             rows_per_row_group=ROWS_PER_GROUP)
+    log(f"[imagenet] wrote {IMAGENET_ROWS} rows of 224x224x3 JPEG q85 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    failures = []
+
+    # The main path, counted: one warm-up, the pipelined steps, the resident ones.
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    result = run_imagenet_bench(url, steps=IMAGENET_STEPS, per_device_batch=IMAGENET_BATCH,
+                                workers_count=IMAGENET_WORKERS, classes=IMAGENET_CLASSES,
+                                resident_steps=IMAGENET_RESIDENT, device="cuda")
+    launches = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for key, value in sorted(result.items()):
+        log(f"[imagenet] {key}: {value}")
+    log(f"[imagenet] launches {launches} (the bench preprocesses with / 255: none expected); "
+        f"peak memory {peak_gb:.2f} GB")
+    if set(result) != IMAGENET_KEYS:
+        failures.append(f"result keys {sorted(set(result) ^ IMAGENET_KEYS)} differ from the "
+                        f"JAX bench's")
+    if launches:
+        failures.append(f"launches {launches}")
+    if not (np.isfinite(result["loss_first"]) and np.isfinite(result["loss_last"])):
+        failures.append(f"non-finite loss {result['loss_first']}, {result['loss_last']}")
+
+    with make_reader(url, reader_pool_type="thread", workers_count=IMAGENET_WORKERS, seed=0,
+                     num_epochs=None) as r:
+        it = iter(DataLoader(r, batch_size=IMAGENET_BATCH, device="cuda"))
+        staged = next(it)
+        batch = {"image": staged["image"].float() / 255.0, "label": staged["label"].clone()}
+        it.close()
+        del staged
+
+    # One step from fresh parameters, with and without remat; the first is
+    # profiled once warm.
+    losses = {}
+    for remat in (False, True):
+        free_cuda()
+        params = resnet.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                    IMAGENET_CLASSES, device="cuda")
+        init_opt, step = resnet.make_train_step(learning_rate=0.05, remat=remat)
+        opt = init_opt(params)
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, loss, _ = step(params, opt, batch)
+        losses[remat] = loss.item()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[imagenet] one step{' with remat' if remat else ''}: loss {losses[remat]:.6f}, "
+            f"peak memory {peak:.2f} GB")
+        if not remat:
+            def resident():
+                nonlocal params, opt
+                params, opt, loss, _ = step(params, opt, batch)
+                loss.item()
+            profile_step(resident, "resident ResNet-50 train step", IMAGE_GROUPS, top=12)
+        del params, opt, init_opt, step
+    if abs(losses[True] - losses[False]) > 1e-3 * abs(losses[False]):
+        failures.append(f"remat changed the loss {losses}")
+
+    # The flagship forward: bf16 against float32 with TF32 off.
+    free_cuda()
+    forward, (params, images) = entry(device="cuda")
+    with torch.inference_mode():
+        got = forward(params, images)
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            want = resnet.apply(params, images, compute_dtype=torch.float32)[0]
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        rel = ((got - want).abs().mean() / want.abs().mean()).item()
+        (fwd_ms,) = median_ms(lambda: forward(params, images), reps=10)
+        profile_step(lambda: forward(params, images).sum().item(), "entry() forward, batch 8",
+                     IMAGE_GROUPS)
+    ok = bool(torch.isfinite(got).all()) and got.shape == (8, 1000) and rel <= ENTRY_F32_BAR
+    log(f"[imagenet] entry() forward, 8 x 224x224, bf16 against float32 (TF32 off): mean abs "
+        f"difference {rel:.4%} of the mean |logit| {want.abs().mean().item():.4g} (bar "
+        f"{ENTRY_F32_BAR:.0%}): {'within the bar' if ok else 'OUTSIDE'}; forward {fwd_ms:.3f} ms")
+    if not ok:
+        failures.append(f"entry() forward {rel:.4%} from float32")
+    del params, images, got, want
+    free_cuda()
+    if failures:
+        raise AssertionError("image path: " + "; ".join(failures))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     smi = phase_probe()
     phase_build()
-    k1 = phase_kernels()
+    k1, k1_strided = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(tmp)
     k2_rows = phase_flash()
@@ -1141,6 +1346,8 @@ def main() -> int:
     bwd = phase_flash_bwd()
     with tempfile.TemporaryDirectory() as tmp:
         counts = phase_train(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_imagenet(tmp)
     source = "petastorm_tpu_torch/csrc/flash_attn_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
@@ -1148,6 +1355,12 @@ def main() -> int:
         "replaces": "petastorm_tpu/ops/image_ops.py:27",
         "launches": launches, "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}, {
+        # K1's general route (any strides, any channel count): timed on the
+        # main path's batch cropped to 208x208; no main path launches it.
+        "name": STRIDED_KERNEL_NAME, "route": "cuda",
+        "source": "petastorm_tpu_torch/csrc/normalize.cu",
+        "replaces": "petastorm_tpu/ops/image_ops.py:27", "launches": 0, **k1_strided,
         "bound_by": "bytes", "library_ms": None}, {
         "name": flash_attn.KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/flash_attn.cu",

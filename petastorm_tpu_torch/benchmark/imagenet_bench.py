@@ -1,16 +1,28 @@
-"""Shared measurement harness of the training benchmarks: the pipelined
-timing window, the readback sync, the analytic FLOP count and the
-utilization block, with the JAX package's result keys.
+"""ImageNet-style benchmark: a JPEG-decode-bound reader feeding a real
+ResNet-50 SGD train step on the card, and the measurement harness the
+training benchmarks share (the pipelined timing window, the readback sync,
+the analytic FLOP counts and the utilization block), with the JAX
+package's result keys.
 
-:func:`..llm_bench.run_llm_bench` uses it now; the image bench itself
-(``run_imagenet_bench``, ResNet-50) comes with its slice.
+The store is synthetic but class-separable (the loss goes down), with real
+JPEG encode and decode through :class:`~petastorm_tpu_torch.codecs.CompressedImageCodec`,
+so the host does the work of a real ImageNet ingest: Parquet row-group read
+-> JPEG decode -> batch assembly -> pinned staging onto the card.
+:func:`write_synthetic_imagenet` writes the rows the JAX package's writer
+writes from the same seed. :func:`..llm_bench.run_llm_bench` shares the
+harness.
 """
 from __future__ import annotations
 
 import os
 import time
 
+import numpy as np
 import torch
+
+from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec
+from petastorm_tpu_torch.etl.writer import materialize_dataset_local
+from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
 #: Environment override of the device's peak FLOP/s (any device but the CPU).
 PEAK_FLOPS_ENV = "PETASTORM_TPU_TORCH_PEAK_FLOPS"
@@ -22,6 +34,38 @@ _KNOWN_PEAK_BF16_FLOPS = (
     ("h100", 989e12),
     ("h200", 989e12),
 )
+
+
+def make_imagenet_schema(image_size: int = 224) -> Unischema:
+    return Unischema("ImagenetSchema", [
+        UnischemaField("image", np.uint8, (image_size, image_size, 3),
+                       CompressedImageCodec("jpeg", 85), False),
+        UnischemaField("label", np.int32, (), ScalarCodec(np.int32), False),
+    ])
+
+
+ImagenetSchema = make_imagenet_schema()
+
+
+def write_synthetic_imagenet(url: str, rows: int, classes: int = 100, seed: int = 0,
+                             rows_per_row_group: int = 64, image_size: int = 224):
+    """Class-separable synthetic images: a per-class 8x8 proto upsampled to
+    ``image_size`` plus uniform noise, which compresses like a photo and
+    trains like a toy. ``image_size`` must be a multiple of 8; smaller sizes
+    make the ResNet step feasible on a CPU (ResNet is fully convolutional)."""
+    if image_size % 8:
+        raise ValueError("image_size must be a multiple of 8")
+    rng = np.random.default_rng(seed)
+    protos = rng.integers(60, 195, (classes, 8, 8, 3)).astype(np.uint8)
+    up = image_size // 8
+    with materialize_dataset_local(url, make_imagenet_schema(image_size),
+                                   rows_per_row_group=rows_per_row_group) as w:
+        for _ in range(rows):
+            label = int(rng.integers(0, classes))
+            base = np.kron(protos[label], np.ones((up, up, 1), np.uint8))
+            noise = rng.integers(0, 60, (image_size, image_size, 3)).astype(np.uint8)
+            w.write_row({"image": np.clip(base + noise, 0, 255).astype(np.uint8),
+                         "label": np.int32(label)})
 
 
 def hard_sync(x: torch.Tensor) -> float:
@@ -176,3 +220,86 @@ def utilization_metrics(result: dict, flops_per_step, step_time_s: float, reside
                         "achieved exceeded chip peak: loader-bound window, "
                         "wait/compute overlap; resident metrics were also "
                         "dropped — no valid MFU for this run")
+
+
+def run_imagenet_bench(url: str, steps: int = 30, per_device_batch: int = 32,
+                       workers_count: int = 4, pool_type: str = "thread",
+                       classes: int = 100, prefetch: int = 2, remat: bool = False,
+                       resident_steps: int = 0, echo: int = 1, device="cuda") -> dict:
+    """One training run of ResNet-50 on ``device`` fed by the reader stack;
+    returns ``{samples_per_sec, samples_per_sec_per_chip, input_stall_pct,
+    step_time_ms, model_flops_per_step_per_chip, achieved_tflops_per_chip
+    [, mfu_pct], ...}``, the JAX bench's keys.
+
+    ``make_reader(num_epochs=None, shuffle_row_groups=True, seed=0)`` ->
+    ``DataLoader(prefetch, dtype_policy=DTypePolicy(), echo)`` -> the step
+    of :func:`~petastorm_tpu_torch.models.resnet.make_train_step` at lr
+    0.05, with parameters drawn from a ``torch.Generator`` seeded 0. The
+    step preprocesses as the reference does, ``image.float() / 255`` (the
+    labels become int64 for the loss). One warm-up step runs before the
+    timed window; timing is :func:`pipelined_window`'s. FLOPs are
+    :func:`~petastorm_tpu_torch.models.resnet.resnet50_flops_per_step`'s
+    analytic count (the reference asks XLA's cost model, which PyTorch does
+    not have); ``mfu_pct`` is against the device's bf16 peak."""
+    from petastorm_tpu_torch.loader import DataLoader, DTypePolicy
+    from petastorm_tpu_torch.loader.loader import resolve_device
+    from petastorm_tpu_torch.models import resnet
+    from petastorm_tpu_torch.reader import make_reader
+
+    if pool_type == "process":
+        raise NotImplementedError("the process pool is not ported yet: use pool_type='thread'")
+    dev = resolve_device(device)
+    batch_size = per_device_batch
+    params = resnet.init_params(torch.Generator(device=dev).manual_seed(0), classes, device=dev)
+    init_opt, raw_step = resnet.make_train_step(learning_rate=0.05, remat=remat)
+    opt = init_opt(params)
+
+    def step(batch):
+        nonlocal params, opt
+        images = batch["image"].float() / 255.0
+        params, opt, loss, _ = raw_step(params, opt, {"image": images, "label": batch["label"]})
+        return loss
+
+    reader = make_reader(url, num_epochs=None, shuffle_row_groups=True, seed=0,
+                         reader_pool_type=pool_type, workers_count=workers_count)
+    try:
+        loader = DataLoader(reader, batch_size=batch_size, prefetch=prefetch,
+                            dtype_policy=DTypePolicy(), echo=echo, device=dev)
+    except BaseException:
+        # The loader owns reader shutdown only once constructed.
+        reader.stop()
+        reader.join()
+        raise
+    with loader:  # stops and joins the reader on exit
+        it = iter(loader)
+        try:
+            batch = next(it)
+            flops_per_step = resnet.resnet50_flops_per_step(batch_size, batch["image"].shape[1],
+                                                            classes)
+            loss = step(batch)
+            loss_first, loss_last, wait_s, total_wall, resident_s = pipelined_window(
+                step, lambda: next(it), steps, resident_steps, warm_loss=loss)
+        finally:
+            it.close()
+
+    sps = steps * batch_size / total_wall
+    step_time_s = (total_wall - wait_s) / steps
+    device_kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    result = {
+        "samples_per_sec": sps,
+        "samples_per_sec_per_chip": sps,
+        "input_stall_pct": 100.0 * wait_s / total_wall,
+        "devices": 1,
+        "global_batch": batch_size,
+        "echo": echo,
+        "loss_first": loss_first,
+        "loss_last": loss_last,
+        "step_time_ms": 1000.0 * step_time_s,
+        "device_kind": device_kind,
+    }
+    if resident_s is not None:
+        result["step_time_ms_resident"] = 1000.0 * resident_s
+        result["samples_per_sec_resident"] = batch_size / resident_s
+        result["samples_per_sec_per_chip_resident"] = batch_size / resident_s
+    utilization_metrics(result, flops_per_step, step_time_s, resident_s, device_kind)
+    return result

@@ -29,6 +29,26 @@
 // same kernel. The TPU kernel's (rows, 128) lane tiling and its periodic
 // scale/bias tiles exist only for the TPU's vector layout and are not
 // carried over.
+//
+// A second route, normalize_u8_strided, takes every other input: any
+// strides (a crop, a transpose, an NCHW tensor seen as NHWC) and any channel
+// count. The wrapper collapses the input's mergeable dimensions first, so
+// the kernel gets at most 8 (sizes, strides) pairs, templated on their
+// number. Each element of the contiguous output reads the input byte its
+// index gives through those sizes and strides, and its channel's scale and
+// bias (channel = index % C, as the output is contiguous with C
+// last) from a small float32 device buffer rather than a by-value array, so
+// C is not bounded. The same two roundings as above keep it bit-equal to the
+// plain version. Dividing an index through the sizes costs a few integer
+// divisions, so it is done once a lane and a row, not once an element: a
+// warp takes 512 consecutive output elements, lane l those at l, l + 32,
+// ..., l + 480, so that each of the warp's 16 loads and stores covers 32
+// consecutive elements (consecutive bytes where the innermost stride is 1,
+// as in a crop). A lane divides for its first element, then walks the
+// innermost dimension 32 elements at a time by adding 32 strides (dividing
+// again only where it wraps into the next row), steps the channel by
+// 32 mod C, and issues its 16 loads before it converts and stores any. At
+// (256, 208, 208, 3) it takes 43 % of the memory bound on an H100.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -163,7 +183,145 @@ cudaError_t launch(const uint8_t* x, OutT* out, int64_t n, int channels, const A
   }
 }
 
+// ---------------------------------------------------------------- strided
+
+constexpr int kMaxDims = 8;
+
+// The input's collapsed layout: sizes and strides (in elements, which are
+// bytes for uint8), outermost first.
+struct Layout {
+  int64_t size[kMaxDims];
+  int64_t stride[kMaxDims];
+};
+
+// Elements a lane takes at once: a warp takes 32 * kRun consecutive output
+// elements, lane l those at l, l + 32, ..., so that each of the warp's kRun
+// loads and stores covers 32 consecutive elements.
+constexpr int kRun = 16;
+
+// The input offset of output element i.
+template <int NDIM, typename I>
+__device__ __forceinline__ I input_offset(I i, const Layout& layout) {
+  I off = 0;
+#pragma unroll
+  for (int d = NDIM - 1; d > 0; --d) {
+    const I s = (I)layout.size[d];
+    off += (i % s) * (I)layout.stride[d];
+    i /= s;
+  }
+  return off + i * (I)layout.stride[0];
+}
+
+// I: the index type, uint32_t when every output index and input offset fits.
+template <int NDIM, typename OutT, typename I>
+__global__ void normalize_u8_strided_kernel(const uint8_t* __restrict__ x,
+                                            OutT* __restrict__ out, int64_t n,
+                                            int64_t channels, Layout layout,
+                                            const float* __restrict__ affine) {
+  const I count = (I)n, c_count = (I)channels;
+  const I inner_size = (I)layout.size[NDIM - 1];
+  const I inner_step = 32 * (I)layout.stride[NDIM - 1];
+  const I c_step = 32 % c_count;
+  const I chunks = (count + 32 * kRun - 1) / (32 * kRun);
+  const I warps = (I)gridDim.x * (blockDim.x / 32);
+  const I lane = threadIdx.x % 32;
+  for (I chunk = ((I)blockIdx.x * blockDim.x + threadIdx.x) / 32; chunk < chunks;
+       chunk += warps) {
+    const I first = chunk * 32 * kRun + lane;
+    // Walk the innermost dimension 32 elements at a time; divide again
+    // only where it wraps into the next row.
+    I off = input_offset<NDIM>(first, layout), inner = first % inner_size;
+    uint32_t v[kRun];
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) {
+      const I i = first + 32 * k;
+      v[k] = i < count ? x[off] : 0u;
+      inner += 32;
+      off += inner_step;
+      if (inner >= inner_size) {
+        inner = (i + 32) % inner_size;
+        off = input_offset<NDIM>(i + 32, layout);
+      }
+    }
+    I c = first % c_count;
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) {
+      const I i = first + 32 * k;
+      if (i < count)
+        store(out + i, normalize(v[k], __ldg(affine + c), __ldg(affine + c_count + c)));
+      c += c_step;
+      c = c >= c_count ? c - c_count : c;
+    }
+  }
+}
+
+template <int NDIM, typename OutT>
+cudaError_t launch_strided_d(const uint8_t* x, OutT* out, int64_t n, int64_t channels,
+                             const Layout& layout, const float* affine, cudaStream_t stream) {
+  const int threads = 256;
+  const int64_t chunks = (n + 32 * kRun - 1) / (32 * kRun);
+  int64_t blocks = (chunks + threads / 32 - 1) / (threads / 32);
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  // The largest input offset any element reaches. (A walk may compute
+  // offsets past the end, which it never reads.)
+  int64_t max_off = 0;
+  for (int d = 0; d < NDIM; ++d) max_off += (layout.size[d] - 1) * layout.stride[d];
+  if (n + (int64_t)blocks * threads * kRun + 64 * kRun < ((int64_t)1 << 32) &&
+      max_off < ((int64_t)1 << 32))
+    normalize_u8_strided_kernel<NDIM, OutT, uint32_t><<<(unsigned)blocks, threads, 0, stream>>>(
+        x, out, n, channels, layout, affine);
+  else
+    normalize_u8_strided_kernel<NDIM, OutT, uint64_t><<<(unsigned)blocks, threads, 0, stream>>>(
+        x, out, n, channels, layout, affine);
+  return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_strided(const uint8_t* x, OutT* out, int64_t n, int64_t channels, int ndim,
+                           const Layout& layout, const float* affine, cudaStream_t stream) {
+  switch (ndim) {
+    case 1: return launch_strided_d<1>(x, out, n, channels, layout, affine, stream);
+    case 2: return launch_strided_d<2>(x, out, n, channels, layout, affine, stream);
+    case 3: return launch_strided_d<3>(x, out, n, channels, layout, affine, stream);
+    case 4: return launch_strided_d<4>(x, out, n, channels, layout, affine, stream);
+    case 5: return launch_strided_d<5>(x, out, n, channels, layout, affine, stream);
+    case 6: return launch_strided_d<6>(x, out, n, channels, layout, affine, stream);
+    case 7: return launch_strided_d<7>(x, out, n, channels, layout, affine, stream);
+    case 8: return launch_strided_d<8>(x, out, n, channels, layout, affine, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// The general route: out (contiguous, n elements, the input's shape) from x
+// read through `ndim` <= 8 collapsed (sizes, strides), outermost first, with
+// non-negative strides in elements. affine points to 2 * channels device
+// floats: the scales, then the biases. Returns the launch's cudaError_t.
+extern "C" int normalize_u8_strided(const void* x, void* out, int64_t n, int64_t channels,
+                                    int64_t out_dtype, int64_t ndim, const int64_t* sizes,
+                                    const int64_t* strides, const float* affine,
+                                    void* stream) {
+  if (channels < 1 || ndim < 1 || ndim > kMaxDims || n < 1) return (int)cudaErrorInvalidValue;
+  Layout layout = {};
+  for (int d = 0; d < ndim; ++d) {
+    if (sizes[d] < 1 || strides[d] < 0) return (int)cudaErrorInvalidValue;
+    layout.size[d] = sizes[d];
+    layout.stride[d] = strides[d];
+  }
+  const uint8_t* xs = static_cast<const uint8_t*>(x);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nd = (int)ndim;
+  switch (out_dtype) {
+    case 0: return (int)launch_strided(xs, static_cast<__nv_bfloat16*>(out), n, channels, nd,
+                                       layout, affine, s);
+    case 1: return (int)launch_strided(xs, static_cast<__half*>(out), n, channels, nd, layout,
+                                       affine, s);
+    case 2: return (int)launch_strided(xs, static_cast<float*>(out), n, channels, nd, layout,
+                                       affine, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // out_dtype: 0 = bf16, 1 = f16, 2 = f32. scale and bias point to `channels`
 // host floats. Returns the launch's cudaError_t (0 on success).

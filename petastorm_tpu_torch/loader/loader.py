@@ -34,7 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from petastorm_tpu_torch.loader.dtypes import sanitize_batch
+from petastorm_tpu_torch.loader.dtypes import DEFAULT_POLICY, DTypePolicy, sanitize_batch
 from petastorm_tpu_torch.reader_impl.shuffling_buffer import RandomShufflingBuffer
 
 #: Consumer poll period on the staged-batch queue: bounds how late a dead
@@ -57,8 +57,11 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _torch_dtype(np_dtype) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, np_dtype)).dtype
+def _torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy or torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
 class _PinnedStager:
@@ -72,21 +75,26 @@ class _PinnedStager:
         self._rings: Dict[tuple, list] = {}   # signature -> [[buffers, event]]
         self._next: Dict[tuple, int] = {}
 
-    def stage(self, cols: Dict[str, np.ndarray]):
-        """-> (``{name: cuda tensor}``, event recorded after the copies)."""
-        sig = tuple((k, v.shape, v.dtype.str) for k, v in cols.items())
+    def stage(self, cols: Dict[str, object]):
+        """numpy arrays or CPU tensors -> (``{name: cuda tensor}``, event
+        recorded after the copies)."""
+        sig = tuple((k, tuple(v.shape), str(v.dtype)) for k, v in cols.items())
         ring = self._rings.setdefault(sig, [])
         pos = self._next.get(sig, 0)
         self._next[sig] = (pos + 1) % self._ring_size
         if pos == len(ring):
-            ring.append([{k: torch.empty(v.shape, dtype=_torch_dtype(v.dtype), pin_memory=True)
+            ring.append([{k: torch.empty(tuple(v.shape), dtype=_torch_dtype(v.dtype),
+                                         pin_memory=True)
                           for k, v in cols.items()}, None])
         slot = ring[pos]
         buffers, event = slot
         if event is not None:
             event.synchronize()   # the previous copy out of this slot is done
         for k, v in cols.items():
-            np.copyto(buffers[k].numpy(), v, casting="no")
+            if isinstance(v, torch.Tensor):
+                buffers[k].copy_(v)
+            else:
+                np.copyto(buffers[k].numpy(), v, casting="no")
         with torch.cuda.stream(self._stream):
             staged = {k: b.to(self._device, non_blocking=True) for k, b in buffers.items()}
             event = torch.cuda.Event()
@@ -111,6 +119,8 @@ class DataLoader:
     :param device: ``"cuda"`` (default), ``"cuda:N"`` or ``"cpu"``
     :param echo: yield each staged batch this many times (repeats are
         clones of its tensors; host columns pass through)
+    :param dtype_policy: how columns become tensors (:class:`DTypePolicy`;
+        the default keeps every type torch has)
     """
 
     def __init__(self, reader, batch_size: int,
@@ -118,7 +128,8 @@ class DataLoader:
                  min_after_retrieve: Optional[int] = None,
                  seed: Optional[int] = None,
                  drop_last: bool = True, pad_last: bool = False,
-                 prefetch: int = 2, device="cuda", echo: int = 1):
+                 prefetch: int = 2, device="cuda", echo: int = 1,
+                 dtype_policy: DTypePolicy = DEFAULT_POLICY):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if echo < 1:
@@ -134,6 +145,7 @@ class DataLoader:
         self._drop_last = drop_last and not pad_last
         self._prefetch = max(1, prefetch)
         self._echo = echo
+        self._dtype_policy = dtype_policy
         self._in_iter = False
         self._stage_stop: Optional[threading.Event] = None
 
@@ -280,11 +292,12 @@ class DataLoader:
                 for hb in host_batches:
                     if stop.is_set():
                         return
-                    cols, host_cols = sanitize_batch(hb)
+                    cols, host_cols = sanitize_batch(hb, self._dtype_policy)
                     if cuda:
                         staged, event = stager.stage(cols)
                     else:
-                        staged = {k: torch.from_numpy(np.ascontiguousarray(v))
+                        staged = {k: v.contiguous() if isinstance(v, torch.Tensor)
+                                  else torch.from_numpy(np.ascontiguousarray(v))
                                   for k, v in cols.items()}
                         event = None
                     staged.update(host_cols)

@@ -6,6 +6,8 @@ PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -15,11 +17,11 @@ from petastorm_tpu_torch.benchmark.llm_bench import write_token_store
 from petastorm_tpu_torch.codecs import CompressedImageCodec, NdarrayCodec, ScalarCodec
 from petastorm_tpu_torch.etl.writer import materialize_dataset_local
 from petastorm_tpu_torch.loader import DataLoader
-from petastorm_tpu_torch.models import llama
+from petastorm_tpu_torch.models import llama, resnet
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.ops import flash_attn
-from petastorm_tpu_torch.ops.image_ops import (KERNEL_NAME, normalize_images,
-                                               normalize_images_plain)
+from petastorm_tpu_torch.ops.image_ops import (KERNEL_NAME, STRIDED_KERNEL_NAME,
+                                               normalize_images, normalize_images_plain)
 from petastorm_tpu_torch.reader import make_reader
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
@@ -60,13 +62,40 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
         assert (_ordered_bits16(got) - _ordered_bits16(want)).abs().max().item() <= 1
 
 
-def test_kernel_rejects_non_contiguous_and_wide_channels(cuda_device):
-    x = torch.zeros(2, 6, 6, 3, dtype=torch.uint8, device=cuda_device)
-    with pytest.raises(ValueError, match="contiguous"):
-        normalize_images(x.transpose(1, 2))
-    with pytest.raises(ValueError, match="channels"):
-        normalize_images(torch.zeros(2, 6, 6, 5, dtype=torch.uint8, device=cuda_device),
-                         mean=(0.5,) * 5, std=(0.5,) * 5)
+def _strided_cases():
+    """(name, function of a contiguous (4, 256, 256, 3) uint8 batch on the
+    card, channels) for the general route."""
+    return [
+        ("crop [:, 16:240, 16:240]", lambda x: x[:, 16:240, 16:240], 3),
+        ("transpose(1, 2)", lambda x: x.transpose(1, 2), 3),
+        ("NCHW and back through a view",
+         lambda x: x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), 3),
+        ("C = 1, cropped", lambda x: x[..., :1].contiguous()[:, 3:250, 5:200], 1),
+        ("C = 5", lambda x: x.reshape(-1)[:4 * 64 * 64 * 5].view(4, 64, 64, 5), 5),
+        ("zero-size crop", lambda x: x[:, 5:5], 3),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_strided_cases())),
+                         ids=[c[0] for c in _strided_cases()])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_kernel_reads_non_contiguous_and_wide_channels(cuda_device, case, dtype):
+    """Every layout and channel count that is not a contiguous batch of at
+    most 4 channels goes through the general route, bit-equal to the plain
+    version, into a contiguous output of the input's shape; a zero-size
+    input launches nothing."""
+    name, view, channels = _strided_cases()[case]
+    x = view(torch.from_numpy(np.random.default_rng(case).integers(
+        0, 256, (4, 256, 256, 3), dtype=np.uint8)).to(cuda_device))
+    mean, std = (0.4, 0.5, 0.6, 0.7, 0.45)[:channels], (0.2, 0.25, 0.3, 0.35, 0.3)[:channels]
+    kernels.reset_launch_counts()
+    got = normalize_images(x, mean, std, out_dtype=dtype)
+    assert kernels.launch_counts == ({STRIDED_KERNEL_NAME: 1} if x.numel() else {}), name
+    want = normalize_images_plain(x, mean, std, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.shape == x.shape and got.dtype == dtype
+    bits = torch.int16 if dtype != torch.float32 else torch.int32
+    assert torch.equal(got.view(bits), want.contiguous().view(bits)), name
 
 
 def test_cuda_staging_bytes_equal_cpu_staging(cuda_device, tmp_path):
@@ -462,3 +491,56 @@ def test_normalize_kernel_bit_equal_at_odd_lengths_and_misaligned_views(cuda_dev
     want = normalize_images_plain(x, mean, std, out_dtype=dtype)
     bits = torch.int16 if dtype != torch.float32 else torch.int32
     assert torch.equal(got.view(bits), want.view(bits))
+
+
+def test_small_resnet_on_card_matches_cpu(cuda_device, monkeypatch):
+    """A small ResNet (every kind of block) in float32 with TF32 off: the
+    forward in both modes and two SGD steps on the card against the CPU
+    from the same weights and batches, within 1e-4 of each tensor's
+    largest value (the CPU parity tests' bar against the reference)."""
+    monkeypatch.setattr(resnet, "_RESNET50_STAGES", ((1, 8), (2, 8), (1, 16), (1, 16)))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    f32_apply = functools.partial(resnet.apply, compute_dtype=torch.float32)
+    monkeypatch.setattr(resnet, "apply", f32_apply)
+    host = resnet.init_params(torch.Generator().manual_seed(0), 10, device="cpu")
+    rng = np.random.default_rng(0)
+    batches = [{"image": torch.from_numpy(rng.random((4, 40, 40, 3)).astype(np.float32)),
+                "label": torch.from_numpy(rng.integers(0, 10, 4).astype(np.int32))}
+               for _ in range(2)]
+
+    def rel(a, b):
+        return ((a.detach().cpu() - b.detach()).abs().max() / b.detach().abs().max()).item()
+
+    def copy(device):
+        return _tree_map(lambda t: t.to(device, copy=True), host)
+
+    for train in (False, True):
+        card, _ = f32_apply(copy(cuda_device), batches[0]["image"].to(cuda_device), train=train)
+        want, _ = f32_apply(copy("cpu"), batches[0]["image"], train=train)
+        assert rel(card, want) <= 1e-4
+
+    def run(device):
+        params = copy(device)
+        init_opt, step = resnet.make_train_step()
+        opt = init_opt(params)
+        losses = []
+        for b in batches:
+            params, opt, loss, _ = step(params, opt, {k: v.to(device) for k, v in b.items()})
+            losses.append(loss.item())
+        return losses, params
+
+    card_losses, card = run(cuda_device)
+    host_losses, on_host = run("cpu")
+    assert card_losses == pytest.approx(host_losses, rel=1e-4)
+    for a, b in zip(resnet.param_leaves(card), resnet.param_leaves(on_host)):
+        assert rel(a, b) <= 1e-4
+
+
+def _tree_map(fn, node):
+    """``fn`` over every tensor of a tree of dicts and lists."""
+    if isinstance(node, dict):
+        return {k: _tree_map(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_map(fn, v) for v in node]
+    return fn(node)

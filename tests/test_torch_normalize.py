@@ -12,8 +12,8 @@ import torch
 
 from petastorm_tpu.ops.image_ops import normalize_images as jax_normalize
 from petastorm_tpu_torch import kernels
-from petastorm_tpu_torch.ops.image_ops import (KERNEL_NAME, normalize_factors,
-                                               normalize_images,
+from petastorm_tpu_torch.ops.image_ops import (KERNEL_NAME, collapse_layout,
+                                               normalize_factors, normalize_images,
                                                normalize_images_plain)
 
 CUSTOM = ((0.5, 0.25, 0.125), (0.2, 0.3, 0.4))
@@ -75,6 +75,75 @@ def test_cpu_tensor_takes_plain_version_without_counting_a_launch():
     x = torch.from_numpy(_images((2, 4, 4, 3), 3))
     torch.testing.assert_close(normalize_images(x), normalize_images_plain(x), rtol=0, atol=0)
     assert kernels.launch_counts.get(KERNEL_NAME, 0) == 0
+
+
+def _layouts():
+    """The general route's inputs: (name, uint8 tensor, collapsed dims)."""
+    x = torch.from_numpy(_images((4, 40, 40, 3), 7))
+    return [
+        ("crop", x[:, 4:36, 4:36], 3),
+        ("transpose(1, 2)", x.transpose(1, 2), 4),
+        ("NCHW memory seen as NHWC", x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), 3),
+        ("C = 1 crop", torch.from_numpy(_images((3, 9, 11, 1), 8))[:, 1:8, 2:9], 3),
+        ("C = 5", torch.from_numpy(_images((2, 6, 7, 5), 9)), 1),
+        ("every other image", x[::2], 2),
+        ("broadcast channel", torch.from_numpy(_images((2, 5, 5, 1), 4)).expand(2, 5, 5, 3), 2),
+        ("one pixel", x[1:2, 3:4, 5:6], 1),
+        ("rows shorter than a run", torch.from_numpy(_images((3, 7, 5, 1), 5))[:, 1:6, 1:4], 3),
+    ]
+
+
+def _kernel_offsets(sizes, strides, n, run=16):
+    """The input offset of each output element as the strided kernel walks
+    it: a warp takes ``32 * run`` consecutive elements, lane l those at
+    l, l + 32, ...; a lane divides its first index through the sizes, then
+    adds 32 innermost strides a step, dividing again where the innermost
+    dimension wraps."""
+    def divided(i):
+        off = 0
+        for d in range(len(sizes) - 1, 0, -1):
+            off += (i % sizes[d]) * strides[d]
+            i //= sizes[d]
+        return off + i * strides[0]
+
+    offsets = np.full(n, -1, np.int64)
+    for chunk in range(-(-n // (32 * run))):
+        for lane in range(32):
+            first = chunk * 32 * run + lane
+            off, inner = divided(first), first % sizes[-1]
+            for k in range(run):
+                i = first + 32 * k
+                if i < n:
+                    offsets[i] = off
+                inner += 32
+                off += 32 * strides[-1]
+                if inner >= sizes[-1]:
+                    inner, off = (i + 32) % sizes[-1], divided(i + 32)
+    return offsets
+
+
+@pytest.mark.parametrize("name,x,ndim", _layouts(), ids=[c[0] for c in _layouts()])
+def test_collapsed_layout_reads_every_element_in_order(name, x, ndim):
+    """The strided kernel's index arithmetic, done here on the collapsed
+    layout, reads the input's elements in the order of its contiguous
+    output."""
+    sizes, strides = collapse_layout(x.shape, x.stride())
+    assert len(sizes) == ndim and int(np.prod(sizes)) == x.numel()
+    off = _kernel_offsets(sizes, strides, x.numel())
+    storage = torch.empty(0, dtype=torch.uint8).set_(x.untyped_storage()).numpy()
+    np.testing.assert_array_equal(storage[x.storage_offset() + off],
+                                  x.contiguous().numpy().reshape(-1))
+    got = normalize_images(x, mean=(0.4,) * 5, std=(0.3,) * 5)
+    assert got.is_contiguous() and got.shape == x.shape
+    torch.testing.assert_close(got, normalize_images_plain(x.contiguous(), (0.4,) * 5, (0.3,) * 5),
+                               rtol=0, atol=0)
+
+
+def test_collapse_drops_unit_dims_and_merges_contiguous_runs():
+    assert collapse_layout((256, 224, 224, 3), (150528, 672, 3, 1)) == ([38535168], [1])
+    assert collapse_layout((256, 208, 208, 3), (150528, 672, 3, 1)) == ([256, 208, 624],
+                                                                       [150528, 672, 1])
+    assert collapse_layout((1, 1), (5, 9)) == ([1], [1])
 
 
 @pytest.mark.parametrize("bad", [
