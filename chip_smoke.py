@@ -78,7 +78,29 @@ result line):
    ``torch.profiler`` split of one resident step, the peak memory of one
    step with and without ``remat``, and the flagship forward of
    ``petastorm_tpu_torch.entry`` (bf16) against the same forward in float32
-   with TF32 off, timed.
+   with TF32 off, timed;
+10. sequence-parallel Llama training. First K2's "stats" mode (the ring's
+   local step: the unnormalised float32 output, the row max m and the
+   normaliser l) against its plain version on the card at the ring's block
+   (1, 4096, 32 heads over 8 kv heads, 128) bf16, causal (the diagonal
+   block) and not (a past block), on the tensor-core route and with the FMA
+   route forced, then a ragged and a GQA case on whichever route they take;
+   o held to the row-scaled bars, m and l to float32 bars, and wrong stats
+   (``STATS_CONTROLS``) must fail them; K3 and K4 as the ring's backward
+   launches them (a diagonal and a past block against the global lse of
+   the two merged) held to the plain backward with phase 7's bars, which
+   ``BWD_CONTROLS`` must fail; both routes, the plain version and
+   ``scaled_dot_product_attention`` timed. Then the path:
+   ``run_seq_parallel_train`` spawns 2 ranks on ``cuda:0`` (gloo), each
+   reading the same windows of 8192 tokens from a ``write_token_store``
+   store through the NGram reader and a ``DataLoader`` and training
+   ``LlamaConfig()`` at full width (2 of its 32 layers, bf16, AdamW) on its
+   4096-token block, 3 steps with ring attention (``local_attn="flash"``:
+   K2 "stats", K3, K4), then 3 with Ulysses (K2 "lse", K3, K4); launch
+   counts are reset just before and read just after, on every rank. The
+   first step's loss and summed gradients are held against one process
+   training on the whole window with ``make_flash_attention``, and the two
+   strategies against each other.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -228,6 +250,25 @@ IMAGENET_KEYS = {"samples_per_sec", "samples_per_sec_per_chip", "input_stall_pct
 #: reference's weights and 0.49 % on its own (the JAX package's own bf16
 #: forward 0.37 %); tests/test_torch_imagenet_bench.py.
 ENTRY_F32_BAR = 0.01
+
+# Sequence parallelism (phase 10): LlamaConfig() at full width, 2 of its 32
+# layers, the token path's window over 2 ranks on one card.
+SEQ_RANKS, SEQ_STEPS = 2, 3
+SEQ_LLAMA = llama.LlamaConfig(n_layers=2)
+SEQ_BLOCK = WINDOW // SEQ_RANKS
+SEQ_WATCH = ("layers.0.wq", "layers.0.wk", "layers.0.wo", "embed")
+#: K2 "stats" against its plain version: o by ROW_BARS of its inputs' type
+#: (o is float32, but p is rounded to bf16 before p v), m absolute and l
+#: relative. On an H100 the kernels read m 2.4e-6 and l 2.4e-6 at the ring's
+#: block (the FMA route 0 and 5.5e-7); every control reads 1e-2 or more.
+STATS_M_BAR, STATS_L_REL_BAR = 2e-5, 2e-5
+STATS_CONTROLS = ("m left in units of log2", "normaliser l 1 % off", "last K/V tile skipped",
+                  "1 key in 32 dropped", "o divided by l")
+#: The sequence-parallel step's first loss against one process on the whole
+#: window: |difference| / loss, both in bf16 compute (the ring merges its
+#: blocks' partials in float32, one process takes the whole row at once).
+SEQ_LOSS_REL_BAR = 2e-3
+
 
 def log(msg):
     print(msg, flush=True)
@@ -525,16 +566,16 @@ def flash_flops_bytes(b, sq, sk, h, kv_h, d, causal, itemsize, with_lse):
     return flops, nbytes
 
 
-def row_scaled_errors(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0):
+def row_scaled_errors(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0, dtype=None):
     """(worst, rms) of ``got - want`` against each output row's scale:
     max (|err| - eps |want|) / rms(row) and sqrt(mean((err / rms(row))^2)).
     With ``floor`` a row's scale is at least that fraction of the whole
-    tensor's rms."""
+    tensor's rms. eps is that of ``dtype`` (default want's)."""
     w = want.float()
     row = w.square().mean(-1, keepdim=True).sqrt().clamp_min(
         max(1e-30, floor * w.square().mean().sqrt().item()))
     err = (got.float() - w).abs()
-    worst = ((err - ROW_BARS[want.dtype][0] * w.abs()) / row).max().item()
+    worst = ((err - ROW_BARS[dtype or want.dtype][0] * w.abs()) / row).max().item()
     return worst, (err / row).square().mean().sqrt().item()
 
 
@@ -1331,6 +1372,260 @@ def phase_imagenet(tmp: str) -> dict:
     return result
 
 
+def control_stats(q, k, v, causal, flaw):
+    """K2 "stats" (kernel layout: m, l (b, h, sq)) computed as its plain
+    version computes them, with one ``flaw`` of STATS_CONTROLS."""
+    o, m, l = flash_attn._stats_plain(q, k, v, causal)
+    if flaw == STATS_CONTROLS[0]:
+        return o, m / float(np.log(2.0)), l
+    if flaw == STATS_CONTROLS[1]:
+        return o, m, l * 1.01
+    if flaw == STATS_CONTROLS[4]:
+        return o / l.transpose(1, 2)[..., None], m, l
+    # Keys dropped: the plain block math over the keys the flaw keeps.
+    from petastorm_tpu_torch.parallel.ring_attention import _block_attention_chunked
+    sq, sk = q.shape[1], k.shape[1]
+    q_pos, k_pos = torch.arange(sq, device="cuda"), torch.arange(sk, device="cuda")
+    if flaw == STATS_CONTROLS[2]:   # the key loop ends one 64-key tile early
+        keep = k_pos < (sk - 1) // 64 * 64
+    else:
+        keep = k_pos % 32 != 31
+    return _block_attention_chunked(q, k[:, keep], v[:, keep], k_pos[keep], q_pos, causal, 1024)
+
+
+def stats_verdict(got, want, dtype):
+    """-> (o worst, o rms, m max abs err, l max rel err, within every bar)."""
+    worst, rms = row_scaled_errors(got[0], want[0], dtype=dtype)
+    m_err = (got[1] - want[1]).abs().max().item()
+    l_err = ((got[2] - want[2]).abs() / want[2]).max().item()
+    _, worst_bar, rms_bar = ROW_BARS[dtype]
+    ok = worst <= worst_bar and rms <= rms_bar and m_err <= STATS_M_BAR and l_err <= STATS_L_REL_BAR
+    return worst, rms, m_err, l_err, ok
+
+
+def phase_stats() -> dict:
+    """K2 "stats" against its plain version at the ring's block."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h, kv_h, d = SEQ_LLAMA.n_heads, SEQ_LLAMA.n_kv_heads, SEQ_LLAMA.head_dim
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q, k, v = randn(1, SEQ_BLOCK, h, d), randn(1, SEQ_BLOCK, kv_h, d), randn(1, SEQ_BLOCK, kv_h, d)
+    failures, errs = [], {}
+    bars = (f"bars: o row-scaled worst {ROW_BARS[torch.bfloat16][1]:.3g} rms "
+            f"{ROW_BARS[torch.bfloat16][2]:.3g}, m {STATS_M_BAR}, l relative {STATS_L_REL_BAR}")
+    for causal in (True, False):
+        want = flash_attn._stats_plain(q, k, v, causal)
+        for route in (flash_attn.TENSOR_CORES, flash_attn.FMA):
+            kernels.reset_launch_counts()
+            if route == flash_attn.TENSOR_CORES:   # the public entry point takes this route
+                o, m, l = flash_attn.flash_attention_stats(q, k, v, causal=causal)
+                got = (o, m.transpose(1, 2), l.transpose(1, 2))
+            else:
+                got = flash_attn._flash_stats_fwd(route, q, k, v, causal)
+            counts = dict(kernels.launch_counts)
+            torch.cuda.synchronize()
+            worst, rms, m_err, l_err, ok = stats_verdict(got, want, torch.bfloat16)
+            err = max((got[0] - want[0]).abs().max().item(), m_err)
+            errs[route, causal] = err
+            log(f"[stats] (1, {SEQ_BLOCK}, {h}/{kv_h}, {d}) bf16 "
+                f"{'causal' if causal else 'non-causal'} [{route}; launches {counts}]: o row-scaled worst {worst:.3g} rms {rms:.3g}, "
+                f"max abs {(got[0] - want[0]).abs().max().item():.3g}; m {m_err:.3g}; l relative "
+                f"{l_err:.3g} ({bars})")
+            if not ok or counts != {flash_attn._STATS_KERNELS[route]: 1} \
+                    or got[0].dtype != torch.float32 or got[0].shape != q.shape:
+                failures.append(f"{route} causal={causal}")
+            del got
+        if causal:
+            for flaw in STATS_CONTROLS:
+                worst, rms, m_err, l_err, ok = stats_verdict(control_stats(q, k, v, True, flaw),
+                                                             want, torch.bfloat16)
+                log(f"[stats] control {flaw!r}: o worst {worst:.3g} rms {rms:.3g}; m {m_err:.3g}; "
+                    f"l relative {l_err:.3g}: {'within the bars' if ok else 'rejected'}")
+                if ok:
+                    failures.append(f"control {flaw!r} within the bars")
+        del want
+    # Ragged, GQA rep 8 and other types, on whichever route they take.
+    for b, sq, sk, hh, kk, dd, causal, dtype, what in (
+            (1, SEQ_BLOCK - 37, SEQ_BLOCK - 37, h, kv_h, d, True, torch.bfloat16, "ragged causal"),
+            (2, 777, 1500, 32, 4, 128, False, torch.bfloat16, "GQA rep 8, sq 777 < sk 1500"),
+            (1, 300, 300, 8, 2, 64, True, torch.float16, "f16 d64 causal"),
+            (2, 150, 150, 8, 2, 64, True, torch.float32, "f32 causal")):
+        cq, ck, cv = randn(b, sq, hh, dd, dtype=dtype), randn(b, sk, kk, dd, dtype=dtype), \
+            randn(b, sk, kk, dd, dtype=dtype)
+        route = flash_attn.fwd_route(dtype, dd)
+        kernels.reset_launch_counts()
+        o, m, l = flash_attn.flash_attention_stats(cq, ck, cv, causal=causal)
+        counts = dict(kernels.launch_counts)
+        worst, rms, m_err, l_err, ok = stats_verdict(
+            (o, m.transpose(1, 2), l.transpose(1, 2)), flash_attn._stats_plain(cq, ck, cv, causal),
+            dtype)
+        log(f"[stats] {what} [{route}; launches {counts}]: o worst {worst:.3g} rms {rms:.3g}; "
+            f"m {m_err:.3g}; l relative {l_err:.3g}")
+        if not ok or counts != {flash_attn._STATS_KERNELS[route]: 1}:
+            failures.append(what)
+
+    failures += ring_backward_check(q, k, v, randn)
+
+    # Times at the ring's block, in turns: both routes, the plain version and
+    # SDPA (whose (O, lse, 1) is an equivalent triple for the ring's merge).
+    def sdpa_block(causal):
+        return lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                      v.transpose(1, 2), is_causal=causal,
+                                                      enable_gqa=True)
+    rows = {}
+    for causal in (False, True):
+        ms, fma_ms, plain_ms, library_ms = median_ms(
+            lambda: flash_attn._flash_stats_fwd(flash_attn.TENSOR_CORES, q, k, v, causal),
+            lambda: flash_attn._flash_stats_fwd(flash_attn.FMA, q, k, v, causal),
+            lambda: flash_attn._stats_plain(q, k, v, causal), sdpa_block(causal),
+            reps=FLASH_REPS, warmup=1)
+        flops, nbytes = flash_flops_bytes(1, SEQ_BLOCK, SEQ_BLOCK, h, kv_h, d, causal, 2, False)
+        nbytes += 2 * SEQ_BLOCK * h * d + 2 * 4 * SEQ_BLOCK * h   # o in float32; m and l
+        bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        bound_by = "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+        log(f"[stats] ring block {'causal (diagonal)' if causal else 'non-causal (past block)'}: "
+            f"tensor cores {ms:.4f} ms ({flops / ms / 1e9:.4g} TFLOP/s), FMA route {fma_ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms; "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} operations, "
+            f"{nbytes / 1e6:.4g} MB)")
+        row = {"plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms}
+        if not causal:   # the kernels line: a strictly-past block, the ring's common step
+            rows = {"stats": {"max_abs_err": errs[flash_attn.TENSOR_CORES, False], "ms": ms, **row},
+                    "stats fma": {"max_abs_err": errs[flash_attn.FMA, False], "ms": fma_ms, **row}}
+    if failures:
+        raise AssertionError("K2 stats: " + "; ".join(failures))
+    return rows
+
+
+def ring_backward_check(q, k, v, randn) -> list:
+    """K3 and K4 as the ring's backward launches them on rank 1 of 2: q
+    against the diagonal block (k, v; causal) and a strictly-past block
+    (non-causal), each given the output and the global lse of the two
+    blocks merged, so a block's p rows do not sum to 1 and D comes from the
+    merged output. Each block's (dq, dk, dv) is held against the plain
+    backward on the same inputs with the row-scaled bars, and BWD_CONTROLS
+    must fail them. -> failures."""
+    from petastorm_tpu_torch.parallel.ring_attention import _merge
+    k_past, v_past, do = randn(*k.shape), randn(*v.shape), randn(*q.shape)
+    o, m, l = _merge(flash_attn._stats_plain(q, k_past, v_past, False),
+                     flash_attn._stats_plain(q, k, v, True))
+    out = (o / l.transpose(1, 2)[..., None]).to(q.dtype)
+    lse = (m + torch.log(l))[..., None]
+    del o, m, l
+    failures = []
+    for kb, vb, causal, what in ((k, v, True, "diagonal block, causal"),
+                                 (k_past, v_past, False, "past block, non-causal")):
+        kernels.reset_launch_counts()
+        got = flash_attention_bwd(q, kb, vb, out, lse, do, causal)
+        counts = bwd_launches()
+        want = flash_attention_bwd_plain(q, kb, vb, out, lse, do, causal)
+        _, ok = judge_grads(got, want, False,
+                            f"ring backward on rank 1 of 2, {what}, global lse "
+                            f"({tuple(q.shape)}, kv {kb.shape[2]}) bf16; launches {counts}")
+        if not ok or counts != {flash_attn.TENSOR_CORES: (1, 1), flash_attn.FMA: (0, 0)}:
+            failures.append(f"ring backward, {what}")
+        del got
+        for flaw in BWD_CONTROLS:
+            _, c_ok = judge_grads(control_backward(q, kb, vb, out, lse, do, causal, flaw), want,
+                                  False, f"ring backward, {what}: control {flaw!r}")
+            log(f"[bwd] ring backward, {what}: control {flaw!r}: "
+                f"{'within the bars' if c_ok else 'rejected'}")
+            if c_ok:
+                failures.append(f"ring backward, {what}: control {flaw!r} within the bars")
+        del want
+    return failures
+
+
+def phase_seq_parallel(tmp: str) -> dict:
+    """The sequence-parallel training path (see the module docstring, phase
+    10). Returns the kernels' launch counts summed over the ranks and both
+    strategies."""
+    from petastorm_tpu_torch.benchmark.seq_parallel_bench import (leaf, run_seq_parallel_train,
+                                                                  token_windows)
+    url = f"file://{tmp}/seq_tokens"
+    write_token_store(url, windows=4, window=WINDOW, vocab=SEQ_LLAMA.vocab, seed=0)
+    model_kwargs = {f.name: getattr(SEQ_LLAMA, f.name) for f in dataclasses.fields(SEQ_LLAMA)}
+    failures = []
+
+    # One process on the whole window: the first step's loss and gradients.
+    free_cuda()
+    with DataLoader(token_windows(url, WINDOW), batch_size=1, device="cuda") as loader:
+        it = iter(loader)
+        batch = {"tokens": next(it)["token"]}
+        it.close()
+    params = llama.init_params(torch.Generator(device="cuda").manual_seed(0), SEQ_LLAMA,
+                               device="cuda")
+    for t in llama.param_leaves(params):
+        t.requires_grad_(True)
+    loss = llama.loss_fn(params, batch, SEQ_LLAMA, attn_fn=make_flash_attention(causal=True),
+                         shift="roll")
+    loss.backward()
+    ref_loss = loss.item()
+    ref_grads = {n: leaf(params, n).grad.cpu() for n in SEQ_WATCH}
+    del params, loss, batch
+    free_cuda()
+    log(f"[seq] one process, window {WINDOW}: first loss {ref_loss:.6f}")
+
+    t0 = time.perf_counter()
+    results = run_seq_parallel_train(url, world_size=SEQ_RANKS, steps=SEQ_STEPS, window=WINDOW,
+                                     model_kwargs=model_kwargs, watch=SEQ_WATCH, device="cuda")
+    log(f"[seq] {SEQ_RANKS} ranks, both strategies: {time.perf_counter() - t0:.1f} s with the "
+        f"spawn")
+    names = (flash_attn.STATS_KERNEL_NAME, flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
+             flash_attn.BWD_DKV_KERNEL_NAME, flash_attn.STATS_FMA_KERNEL_NAME,
+             flash_attn.FMA_KERNEL_NAME) + BWD_ROUTES[flash_attn.FMA]
+    n, steps = SEQ_LLAMA.n_layers, SEQ_STEPS
+    # Per rank r of P, per layer and step: the ring runs r + 1 blocks (K2
+    # "stats", then K3 and K4 each); Ulysses one K2 "lse", K3 and K4.
+    blocks = sum(r + 1 for r in range(SEQ_RANKS))
+    want = {"ring": {names[0]: blocks * n * steps, names[2]: blocks * n * steps,
+                     names[3]: blocks * n * steps},
+            "ulysses": {names[1]: SEQ_RANKS * n * steps, names[2]: SEQ_RANKS * n * steps,
+                        names[3]: SEQ_RANKS * n * steps}}
+    totals = {name: 0 for name in names}
+    first = {}
+    for strategy, ranks in results.items():
+        counts = {name: sum(r["launches"].get(name, 0) for r in ranks) for name in names}
+        for name in names:
+            totals[name] += counts[name]
+        r0 = ranks[0]
+        ms = statistics.median(r0["step_ms"])
+        transfers = {op: f"{v['calls']} calls, {v['bytes'] / 1e9:.3f} GB, {v['seconds']:.3f} s"
+                     for op, v in r0["transfers"].items()}
+        log(f"[seq] {strategy}: losses {r0['losses']}; step ms "
+            f"{[round(x, 1) for x in r0['step_ms']]} (median {ms:.1f}, {r0['tokens_per_sec']:.1f} tokens/s); peak memory by rank "
+            f"{[round(r['peak_memory_gb'], 2) for r in ranks]} GB; rank 0's transfers over "
+            f"{steps} steps: {transfers}; launches over the ranks {counts}")
+        if any(r["losses"] != r0["losses"] for r in ranks):
+            failures.append(f"{strategy}: the ranks' losses differ")
+        if {k: v for k, v in counts.items() if v} != want[strategy]:
+            failures.append(f"{strategy}: launches {counts}, expected {want[strategy]}")
+        if not np.isfinite(r0["losses"]).all():
+            failures.append(f"{strategy}: non-finite loss {r0['losses']}")
+        loss_rel = abs(r0["losses"][0] - ref_loss) / abs(ref_loss)
+        rel = {name: ((g - ref_grads[name]).norm() / ref_grads[name].norm()).item()
+               for name, g in r0["grads"].items()}
+        log(f"[seq] {strategy} against one process: first loss {loss_rel:.3g} relative (bar "
+            f"{SEQ_LOSS_REL_BAR}); gradients |g - g_one| / |g_one| "
+            f"{ {k: round(x, 5) for k, x in rel.items()} } (bar {GRAD_REL_BAR})")
+        if loss_rel > SEQ_LOSS_REL_BAR or set(rel) != set(SEQ_WATCH) \
+                or max(rel.values()) > GRAD_REL_BAR:
+            failures.append(f"{strategy}: loss {loss_rel:.3g}, gradients {rel}")
+        first[strategy] = r0
+    ring, uly = first["ring"], first["ulysses"]
+    loss_rel = abs(ring["losses"][0] - uly["losses"][0]) / abs(uly["losses"][0])
+    rel = max(((ring["grads"][n_] - uly["grads"][n_]).norm() / uly["grads"][n_].norm()).item()
+              for n_ in SEQ_WATCH)
+    log(f"[seq] ring against Ulysses: first loss {loss_rel:.3g} relative, gradients {rel:.5f}")
+    if loss_rel > SEQ_LOSS_REL_BAR or rel > GRAD_REL_BAR:
+        failures.append(f"ring against Ulysses: loss {loss_rel:.3g}, gradients {rel:.5f}")
+    if failures:
+        raise AssertionError("sequence-parallel path: " + "; ".join(failures))
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1348,6 +1643,9 @@ def main() -> int:
         counts = phase_train(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         phase_imagenet(tmp)
+    stats = phase_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = phase_seq_parallel(tmp)
     source = "petastorm_tpu_torch/csrc/flash_attn_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
@@ -1365,28 +1663,46 @@ def main() -> int:
         "name": flash_attn.KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/flash_attn.cu",
         "replaces": "petastorm_tpu/ops/flash_attn.py:89",
-        # The token forward's launches ("out") and the training path's ("lse").
-        "launches": k2_launches + counts[flash_attn.KERNEL_NAME], **k2_rows["K2"]}, {
+        # The token forward's launches ("out"), the training path's and
+        # Ulysses' ("lse").
+        "launches": k2_launches + counts[flash_attn.KERNEL_NAME] + seq[flash_attn.KERNEL_NAME],
+        **k2_rows["K2"]}, {
         # The FMA route (f32, 16-bit d > 128 or d % 8 != 0): timed forced at
         # the token path's bf16 shape; the main paths never launch it.
         "name": flash_attn.FMA_KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/flash_attn.cu",
         "replaces": "petastorm_tpu/ops/flash_attn.py:89",
-        "launches": counts[flash_attn.FMA_KERNEL_NAME], **k2_rows["K2 fma"]}, {
+        "launches": counts[flash_attn.FMA_KERNEL_NAME] + seq[flash_attn.FMA_KERNEL_NAME],
+        **k2_rows["K2 fma"]}, {
+        # K2 "stats": the ring's local step; timed at a strictly-past block.
+        "name": flash_attn.STATS_KERNEL_NAME, "route": "cuda",
+        "source": "petastorm_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "petastorm_tpu/ops/flash_attn.py:89",
+        "launches": seq[flash_attn.STATS_KERNEL_NAME], **stats["stats"]}, {
+        "name": flash_attn.STATS_FMA_KERNEL_NAME, "route": "cuda",
+        "source": "petastorm_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "petastorm_tpu/ops/flash_attn.py:89",
+        "launches": seq[flash_attn.STATS_FMA_KERNEL_NAME], **stats["stats fma"]}, {
         "name": flash_attn.BWD_DQ_KERNEL_NAME, "route": "cuda", "source": source,
         "replaces": "petastorm_tpu/ops/flash_attn.py:272",
-        "launches": counts[flash_attn.BWD_DQ_KERNEL_NAME], **bwd["K3"]}, {
+        "launches": counts[flash_attn.BWD_DQ_KERNEL_NAME] + seq[flash_attn.BWD_DQ_KERNEL_NAME],
+        **bwd["K3"]}, {
         "name": flash_attn.BWD_DKV_KERNEL_NAME, "route": "cuda", "source": source,
         "replaces": "petastorm_tpu/ops/flash_attn.py:305",
-        "launches": counts[flash_attn.BWD_DKV_KERNEL_NAME], **bwd["K4"]}, {
+        "launches": counts[flash_attn.BWD_DKV_KERNEL_NAME] + seq[flash_attn.BWD_DKV_KERNEL_NAME],
+        **bwd["K4"]}, {
         # The FMA route (f32, 16-bit d > 128 or d % 8 != 0): timed forced at
         # the token path's bf16 shape; the main path never launches it.
         "name": flash_attn.BWD_DQ_FMA_KERNEL_NAME, "route": "cuda", "source": source,
         "replaces": "petastorm_tpu/ops/flash_attn.py:272",
-        "launches": counts[flash_attn.BWD_DQ_FMA_KERNEL_NAME], **bwd["K3 fma"]}, {
+        "launches": (counts[flash_attn.BWD_DQ_FMA_KERNEL_NAME]
+                     + seq[flash_attn.BWD_DQ_FMA_KERNEL_NAME]),
+        **bwd["K3 fma"]}, {
         "name": flash_attn.BWD_DKV_FMA_KERNEL_NAME, "route": "cuda", "source": source,
         "replaces": "petastorm_tpu/ops/flash_attn.py:305",
-        "launches": counts[flash_attn.BWD_DKV_FMA_KERNEL_NAME], **bwd["K4 fma"]}]}))
+        "launches": (counts[flash_attn.BWD_DKV_FMA_KERNEL_NAME]
+                     + seq[flash_attn.BWD_DKV_FMA_KERNEL_NAME]),
+        **bwd["K4 fma"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

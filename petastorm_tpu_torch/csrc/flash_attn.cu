@@ -1,8 +1,16 @@
 // Flash-attention forward for Hopper (sm_90a): o = softmax(q k^T * scale) v,
-// with the logsumexp of each query row on request.
+// with the logsumexp of each query row on request ("lse" mode), or the
+// online softmax's partials in place of o ("stats" mode).
 //
 // Replaces petastorm_tpu/ops/flash_attn.py::_flash_kernel (:89, the Pallas
-// kernel launched by _flash_launch in its "out" and "lse" modes).
+// kernel launched by _flash_launch in its "out", "lse" and "stats" modes).
+//
+// "stats" is ring attention's merge contract: the unnormalised float32
+// accumulator o = sum_j exp(s_j - m) v_j, the row max m of the scaled
+// scores (natural-log units) and the normaliser l = sum_j exp(s_j - m),
+// written instead of o / l; m and l are (b, h, sq) float32 arrays. Launchers
+// flash_attn_fwd_stats (tensor cores) and flash_attn_fwd_stats_fma. The
+// tensor-core route keeps its max in units of log2 and writes m2 ln 2.
 //
 // Layout. q is (b, sq, h, d) and k, v are (b, sk, kv_h, d), read through
 // their batch, sequence and head strides (the head dim is unit-stride); o is
@@ -99,8 +107,10 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  void* o;
-  float* lse;  // null: "out" mode
+  void* o;     // T, or float32 in "stats" mode
+  float* lse;  // (b, h, sq) float32: "lse" mode, else null
+  float* m;    // (b, h, sq) float32 each: "stats" mode, else null
+  float* l;
   int64_t sq, sk;
   int h, kv_h, d;
   Strides qs, ks, vs, os;
@@ -242,6 +252,22 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   for (int i = 0; i < 4; ++i) {
     const int64_t q_pos = q0 + ty * 4 + i;
     if (q_pos >= p.sq) continue;
+    if (p.m != nullptr) {  // "stats": the unnormalised accumulator, m and l
+      float* orow = static_cast<float*>(p.o) + batch * p.os.b + q_pos * p.os.s + head * p.os.h;
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = g * 64 + tx * 4 + c;
+          if (col < p.d) orow[col] = acc[i][g * 4 + c];
+        }
+      if (tx == 0) {
+        const int64_t at = ((int64_t)batch * p.h + head) * p.sq + q_pos;
+        p.m[at] = m[i];
+        p.l[at] = l[i];
+      }
+      continue;
+    }
     T* orow = static_cast<T*>(p.o) + batch * p.os.b + q_pos * p.os.s + head * p.os.h;
 #pragma unroll
     for (int g = 0; g < G; ++g)
@@ -274,17 +300,9 @@ cudaError_t launch(const Params& p, int64_t batch, cudaStream_t stream) {
   return launch_dp<T, 256>(p, grid, stream);
 }
 
-}  // namespace
-
-// The FMA route's launcher. q, k, v, o: device pointers in the layouts
-// above; lse: device pointer to (b, h, sq) float32, or null. strides: 12
-// int64 in elements, (batch, seq, head) for q, k, v, o in turn. dtype: 0 =
-// bf16, 1 = f16, 2 = f32 (q, k, v and o alike). Returns the launch's
-// cudaError_t (0 on success).
-extern "C" int flash_attn_fwd_fma(const void* q, const void* k, const void* v, void* o, void* lse,
-                              int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv_h,
-                              int64_t d, const int64_t* strides, int64_t dtype, int64_t causal,
-                              float scale, void* stream) {
+int fwd_fma(const void* q, const void* k, const void* v, void* o, float* lse, float* m,
+            float* l, int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv_h, int64_t d,
+            const int64_t* strides, int64_t dtype, int64_t causal, float scale, void* stream) {
   if (b < 1 || b > 65535 || h < 1 || h > 65535 || kv_h < 1 || h % kv_h != 0 || d < 1 ||
       d > 256 || sq < 1 || sk < 1 || (sq + BQ - 1) / BQ > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
@@ -293,7 +311,9 @@ extern "C" int flash_attn_fwd_fma(const void* q, const void* k, const void* v, v
   p.k = k;
   p.v = v;
   p.o = o;
-  p.lse = static_cast<float*>(lse);
+  p.lse = lse;
+  p.m = m;
+  p.l = l;
   p.sq = sq;
   p.sk = sk;
   p.h = (int)h;
@@ -314,6 +334,36 @@ extern "C" int flash_attn_fwd_fma(const void* q, const void* k, const void* v, v
   }
 }
 
+}  // namespace
+
+// The FMA route's launcher. q, k, v, o: device pointers in the layouts
+// above; lse: device pointer to (b, h, sq) float32, or null. strides: 12
+// int64 in elements, (batch, seq, head) for q, k, v, o in turn. dtype: 0 =
+// bf16, 1 = f16, 2 = f32 (q, k, v and o alike). Returns the launch's
+// cudaError_t (0 on success).
+extern "C" int flash_attn_fwd_fma(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv_h,
+                              int64_t d, const int64_t* strides, int64_t dtype, int64_t causal,
+                              float scale, void* stream) {
+  return fwd_fma(q, k, v, o, static_cast<float*>(lse), nullptr, nullptr, b, sq, sk, h, kv_h, d,
+                 strides, dtype, causal, scale, stream);
+}
+
+// The FMA route in "stats" mode (the ring-attention merge's contract): o is
+// the unnormalised float32 accumulator in the (b, sq, h, d) layout, and m
+// (the row max of the scaled scores, in natural-log units) and l (the
+// normaliser, sum of exp(s - m)) are (b, h, sq) float32 arrays. Arguments
+// otherwise as for flash_attn_fwd_fma; o's strides are in float32 elements.
+extern "C" int flash_attn_fwd_stats_fma(const void* q, const void* k, const void* v, void* o,
+                                        void* m, void* l, int64_t b, int64_t sq, int64_t sk,
+                                        int64_t h, int64_t kv_h, int64_t d,
+                                        const int64_t* strides, int64_t dtype, int64_t causal,
+                                        float scale, void* stream) {
+  if (m == nullptr || l == nullptr) return (int)cudaErrorInvalidValue;
+  return fwd_fma(q, k, v, o, nullptr, static_cast<float*>(m), static_cast<float*>(l), b, sq, sk,
+                 h, kv_h, d, strides, dtype, causal, scale, stream);
+}
+
 // ===================================================== tensor-core route ==
 
 namespace {
@@ -331,8 +381,10 @@ constexpr int CONSUMER_WARPS = CONSUMERS / 32;
 
 struct TcParams {
   CUtensorMap tq, tk, tv;  // encode_bshd maps: Q boxes of 128 rows, K/V of 64
-  void* o;
+  void* o;                 // T, or float32 in "stats" mode
   float* lse;              // (b, h, sq) float32, or null: "out" mode
+  float* m;                // (b, h, sq) float32 each: "stats" mode
+  float* l;
   Strides os;              // output strides, in elements
   int b, sq, sk, h, kv_h, d;
   float scale;
@@ -391,7 +443,9 @@ __device__ __forceinline__ void to_fragments(const float (&p)[BK / 2],
   for (int i = 0; i < BK / 2; i += 2) a[i / 8][i % 8 / 2] = pack2<T>(p[i], p[i + 1]);
 }
 
-template <typename T, int DP>
+// STATS: the "stats" epilogue (o unnormalised in float32, m and l) in
+// place of o / l and the lse.
+template <typename T, int DP, bool STATS>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_tc_kernel(const __grid_constant__ TcParams p) {
   constexpr uint32_t QP = BQ * 128, KP = BK * 128;  // bytes of one 64-column panel
@@ -536,6 +590,25 @@ __global__ void __launch_bounds__(THREADS, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if constexpr (STATS) {
+    // exp2(s scale log2(e) - m2) = exp(s scale - m2 ln 2): l needs no change,
+    // and m in natural-log units is m2 ln 2.
+    store_rows_f32<DP>(acc, static_cast<float*>(p.o),
+                       (int64_t)batch * p.os.b + (int64_t)head * p.os.h, p.os.s, wg_first, p.sq,
+                       p.d, lane_row, lane_col);
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wg_first + lane_row + 8 * r;
+        if (row < p.sq) {
+          const int64_t at = ((int64_t)batch * p.h + head) * p.sq + row;
+          p.m[at] = m2[r] * 0.6931471805599453f;
+          p.l[at] = l[r];
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = acc[i] / l[(i / 2) % 2];
   store_rows<T, DP>(acc, p.o, (int64_t)batch * p.os.b + (int64_t)head * p.os.h, p.os.s, wg_first,
@@ -551,15 +624,53 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int DP>
+template <int DP, bool STATS>
 cudaError_t launch_tc(bool f16, int64_t blocks, const TcParams& p, cudaStream_t stream) {
-  auto kernel = f16 ? flash_fwd_tc_kernel<__half, DP> : flash_fwd_tc_kernel<__nv_bfloat16, DP>;
+  auto kernel = f16 ? flash_fwd_tc_kernel<__half, DP, STATS>
+                    : flash_fwd_tc_kernel<__nv_bfloat16, DP, STATS>;
   // Above 48 KB a launch is refused unless the kernel opts in first.
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          fwd_tc_smem<DP>());
   if (err != cudaSuccess) return err;
   kernel<<<(unsigned)blocks, THREADS, fwd_tc_smem<DP>(), stream>>>(p);
   return cudaGetLastError();
+}
+
+int fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse, float* m, float* l,
+           int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv_h, int64_t d,
+           const int64_t* strides, int64_t dtype, int64_t causal, float scale, void* stream) {
+  const int64_t limit = 0x7fffffff;
+  if ((dtype != 0 && dtype != 1) || b < 1 || h < 1 || kv_h < 1 || h % kv_h != 0 || d < 8 ||
+      d > 128 || d % 8 != 0 || sq < 1 || sk < 1 || sq > limit - tc::BQ || sk > limit - tc::BK ||
+      (sq + tc::BQ - 1) / tc::BQ * h * b > limit)
+    return (int)cudaErrorInvalidValue;
+  tc::TcParams p = {};
+  const bool f16 = dtype == 1;
+  const int64_t* s = strides;
+  if (!hopper::encode_bshd(&p.tq, q, f16, b, sq, h, d, s[0], s[1], s[2], tc::BQ) ||
+      !hopper::encode_bshd(&p.tk, k, f16, b, sk, kv_h, d, s[3], s[4], s[5], tc::BK) ||
+      !hopper::encode_bshd(&p.tv, v, f16, b, sk, kv_h, d, s[6], s[7], s[8], tc::BK))
+    return (int)cudaErrorInvalidValue;
+  p.o = o;
+  p.lse = lse;
+  p.m = m;
+  p.l = l;
+  p.os = {s[9], s[10], s[11]};
+  p.b = (int)b;
+  p.sq = (int)sq;
+  p.sk = (int)sk;
+  p.h = (int)h;
+  p.kv_h = (int)kv_h;
+  p.d = (int)d;
+  p.scale = scale;
+  p.causal = causal != 0;
+  const int64_t blocks = (sq + tc::BQ - 1) / tc::BQ * h * b;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m != nullptr)
+    return (int)(d <= 64 ? launch_tc<64, true>(f16, blocks, p, st)
+                         : launch_tc<128, true>(f16, blocks, p, st));
+  return (int)(d <= 64 ? launch_tc<64, false>(f16, blocks, p, st)
+                       : launch_tc<128, false>(f16, blocks, p, st));
 }
 
 }  // namespace tc
@@ -577,31 +688,20 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
                               int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv_h,
                               int64_t d, const int64_t* strides, int64_t dtype, int64_t causal,
                               float scale, void* stream) {
-  using tc::launch_tc;
-  const int64_t limit = 0x7fffffff;
-  if ((dtype != 0 && dtype != 1) || b < 1 || h < 1 || kv_h < 1 || h % kv_h != 0 || d < 8 ||
-      d > 128 || d % 8 != 0 || sq < 1 || sk < 1 || sq > limit - tc::BQ || sk > limit - tc::BK ||
-      (sq + tc::BQ - 1) / tc::BQ * h * b > limit)
+  return tc::fwd_tc(q, k, v, o, static_cast<float*>(lse), nullptr, nullptr, b, sq, sk, h, kv_h,
+                    d, strides, dtype, causal, scale, stream);
+}
+
+// The tensor-core route in "stats" mode: o, m and l as for
+// flash_attn_fwd_stats_fma (o float32, its strides in float32 elements and
+// even, for 8-byte stores), inputs as for flash_attn_fwd.
+extern "C" int flash_attn_fwd_stats(const void* q, const void* k, const void* v, void* o,
+                                    void* m, void* l, int64_t b, int64_t sq, int64_t sk,
+                                    int64_t h, int64_t kv_h, int64_t d, const int64_t* strides,
+                                    int64_t dtype, int64_t causal, float scale, void* stream) {
+  if (m == nullptr || l == nullptr || reinterpret_cast<uintptr_t>(o) % 8 != 0 ||
+      (strides[9] | strides[10] | strides[11]) % 2 != 0)
     return (int)cudaErrorInvalidValue;
-  tc::TcParams p = {};
-  const bool f16 = dtype == 1;
-  const int64_t* s = strides;
-  if (!hopper::encode_bshd(&p.tq, q, f16, b, sq, h, d, s[0], s[1], s[2], tc::BQ) ||
-      !hopper::encode_bshd(&p.tk, k, f16, b, sk, kv_h, d, s[3], s[4], s[5], tc::BK) ||
-      !hopper::encode_bshd(&p.tv, v, f16, b, sk, kv_h, d, s[6], s[7], s[8], tc::BK))
-    return (int)cudaErrorInvalidValue;
-  p.o = o;
-  p.lse = static_cast<float*>(lse);
-  p.os = {s[9], s[10], s[11]};
-  p.b = (int)b;
-  p.sq = (int)sq;
-  p.sk = (int)sk;
-  p.h = (int)h;
-  p.kv_h = (int)kv_h;
-  p.d = (int)d;
-  p.scale = scale;
-  p.causal = causal != 0;
-  const int64_t blocks = (sq + tc::BQ - 1) / tc::BQ * h * b;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(d <= 64 ? launch_tc<64>(f16, blocks, p, st) : launch_tc<128>(f16, blocks, p, st));
+  return tc::fwd_tc(q, k, v, o, nullptr, static_cast<float*>(m), static_cast<float*>(l), b, sq,
+                    sk, h, kv_h, d, strides, dtype, causal, scale, stream);
 }

@@ -320,6 +320,22 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], void* out
   }
 }
 
+// store_rows without the rounding: `acc` stays float32. out + offset and
+// row_stride must be even (8-byte pairs).
+template <int DP>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[DP / 2], float* out,
+                                               int64_t offset, int64_t row_stride, int row0,
+                                               int rows, int d, int lane_row, int lane_col) {
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int row = row0 + lane_row + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + lane_col;
+    if (row < rows && col < d)
+      *reinterpret_cast<float2*>(out + offset + (int64_t)row * row_stride + col) =
+          make_float2(acc[i], acc[i + 1]);
+  }
+}
+
 // ------------------------------------------------- tensor maps (host) --
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

@@ -10,6 +10,14 @@ across unchanged. The functions mirror ``petastorm_tpu.models.llama``
 one for one. Gradients come from autograd; through
 :func:`~petastorm_tpu_torch.ops.flash_attn.make_flash_attention` the
 attention's backward runs the flash backward kernels.
+
+Sequence parallelism: under GSPMD the JAX model sees global arrays; here
+each rank of a sequence process group runs its own block of the window.
+:func:`loss_fn` with ``seq_group`` takes the global window, builds the
+targets on it, and runs the rank's block at its global positions;
+:func:`make_train_step` sums the gradients over the group before AdamW.
+The attention is a ring or Ulysses ``attn_fn`` over the same group
+(:mod:`petastorm_tpu_torch.parallel`).
 """
 from __future__ import annotations
 
@@ -19,10 +27,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from petastorm_tpu_torch.loader.loader import resolve_device
+from petastorm_tpu_torch.parallel import comm
 from petastorm_tpu_torch.parallel.attention import dense_attention
 
 
@@ -118,13 +128,15 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * inv * scale).to(x.dtype)
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (b, s, h, d) -> rotated. Positions are global sequence indices."""
+def _rope(x: torch.Tensor, theta: float, offset: int = 0) -> torch.Tensor:
+    """x: (b, s, h, d) -> rotated. Positions are global sequence indices:
+    ``offset`` is the global position of x's first row (a sequence-parallel
+    rank's block)."""
     _, s, _, d = x.shape
     half = d // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
     freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
-    pos = torch.arange(s, dtype=torch.float32, device=x.device)
+    pos = torch.arange(offset, offset + s, dtype=torch.float32, device=x.device)
     angles = pos[:, None] * freqs[None, :]               # (s, half)
     cos = torch.cos(angles)[None, :, None, :].to(x.dtype)
     sin = torch.sin(angles)[None, :, None, :].to(x.dtype)
@@ -149,10 +161,12 @@ def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, compute_dtype) -> t
     return onehot @ embed.to(compute_dtype)
 
 
-def apply_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, attn_fn=None):
+def apply_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
+                pos_offset: int = 0):
     """One transformer block (attention + MLP/MoE residuals) -> (x, aux).
     ``aux`` is 0.0: the soft mixture has no auxiliary loss (the switch
-    dispatch, which has one, is not ported)."""
+    dispatch, which has one, is not ported). ``pos_offset``: the global
+    position of x's first token."""
     hd = cfg.head_dim
     rep = cfg.n_heads // cfg.n_kv_heads
     gqa_native = attn_fn is None or getattr(attn_fn, "supports_gqa", False)
@@ -161,7 +175,7 @@ def apply_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, attn_fn=None):
     q = (h @ layer["wq"].to(h.dtype)).reshape(b, s, cfg.n_heads, hd)
     k = (h @ layer["wk"].to(h.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
     v = (h @ layer["wv"].to(h.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
-    q, k = _rope(q, cfg.rope_theta), _rope(k, cfg.rope_theta)
+    q, k = _rope(q, cfg.rope_theta, pos_offset), _rope(k, cfg.rope_theta, pos_offset)
     if not gqa_native and rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
@@ -196,7 +210,7 @@ def _checkpointed(fn, *args):
 def apply(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
           compute_dtype=torch.bfloat16, with_aux: bool = False,
           embed_lookup: str = "gather", return_hidden: bool = False,
-          remat_layers: bool = False):
+          remat_layers: bool = False, pos_offset: int = 0):
     """tokens: (batch, seq) int -> logits (batch, seq, vocab) float32 (or the
     pre-lm_head hidden states when ``return_hidden``).
 
@@ -210,6 +224,8 @@ def apply(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
     :param remat_layers: run each block under checkpointing, so that only
         the layer-boundary activations are kept for the backward, which
         recomputes each block (the long-context memory lever)
+    :param pos_offset: the global position of ``tokens[:, 0]`` (RoPE), for a
+        sequence-parallel rank's block of the window
     """
     if embed_lookup not in ("gather", "onehot"):
         raise ValueError(f"unknown embed_lookup {embed_lookup!r}")
@@ -219,9 +235,9 @@ def apply(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
         x = params["embed"].to(compute_dtype)[tokens.long()]
     for layer in params["layers"]:
         if remat_layers:
-            x, _ = _checkpointed(apply_block, layer, x, cfg, attn_fn)
+            x, _ = _checkpointed(apply_block, layer, x, cfg, attn_fn, pos_offset)
         else:
-            x, _ = apply_block(layer, x, cfg, attn_fn=attn_fn)
+            x, _ = apply_block(layer, x, cfg, attn_fn=attn_fn, pos_offset=pos_offset)
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
     out = x if return_hidden else (x @ params["lm_head"].to(x.dtype)).float()
     return (out, torch.zeros((), dtype=torch.float32, device=x.device)) if with_aux else out
@@ -242,7 +258,8 @@ def _chunk_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor) -> to
 def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
             aux_weight: float = 1e-2, embed_lookup: str = "gather",
             compute_dtype=torch.bfloat16, shift: str = "split",
-            xent_chunk: Optional[int] = None, remat_layers: bool = False) -> torch.Tensor:
+            xent_chunk: Optional[int] = None, remat_layers: bool = False,
+            seq_group=None) -> torch.Tensor:
     """Next-token cross entropy. batch: ``{'tokens': (b, s) int}``.
     ``aux_weight`` weighs the switch MoE's auxiliary loss, which is not
     ported; the soft mixture has none, so it adds nothing yet.
@@ -254,10 +271,22 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
     many tokens at a time, each chunk under checkpointing, so the
     ``(b, s, vocab)`` logits never exist at once, in the forward or the
     backward. ``remat_layers`` is :func:`apply`'s.
+
+    ``seq_group``: a process group over which the window is split into equal
+    contiguous blocks (sequence parallelism; ``shift="roll"`` only).
+    ``tokens`` is then the whole window on every rank. The targets and the
+    mask are built on it before the rank takes its block (the last target of
+    rank r is the first token of rank r + 1), the block runs at its global
+    positions, and its summed loss is divided by the number of targets over
+    the group (all-reduced), so the ranks' losses sum to the loss of the
+    window. ``attn_fn`` must attend over the same group.
     """
     tokens = batch["tokens"]
     if shift not in ("split", "roll"):
         raise ValueError(f"unknown shift {shift!r}")
+    if seq_group is not None and shift != "roll":
+        raise ValueError("a sequence-parallel loss takes shift='roll' (the window must split "
+                         "into equal blocks)")
     inputs = tokens if shift == "roll" else tokens[:, :-1]
     b, s_tok = tokens.shape
     if shift == "roll":
@@ -268,9 +297,23 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
         targets = tokens[:, 1:]
         mask = torch.ones(s_tok - 1, device=tokens.device)
         denom = targets.numel()
+    offset = 0
+    if seq_group is not None:
+        size, rank = dist.get_world_size(seq_group), dist.get_rank(seq_group)
+        if s_tok % size:
+            raise ValueError(f"the window ({s_tok}) must split into {size} equal blocks")
+        block = s_tok // size
+        offset = rank * block
+        inputs, targets = (t[:, offset:offset + block] for t in (inputs, targets))
+        mask = mask[offset:offset + block]
+        count = torch.tensor([float(b * (min(offset + block, s_tok - 1) - offset))],
+                             dtype=torch.float64)
+        comm.all_reduce_([count], seq_group)
+        denom = count.item()
     if xent_chunk:
         x = apply(params, inputs, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
-                  compute_dtype=compute_dtype, return_hidden=True, remat_layers=remat_layers)
+                  compute_dtype=compute_dtype, return_hidden=True, remat_layers=remat_layers,
+                  pos_offset=offset)
         n_tok = x.shape[0] * x.shape[1]
         if n_tok % xent_chunk:
             raise ValueError(f"xent_chunk ({xent_chunk}) must divide batch*seq ({n_tok})")
@@ -282,7 +325,8 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
             for i in range(0, n_tok, xent_chunk)]).reshape(x.shape[0], x.shape[1])
     else:
         logits = apply(params, inputs, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
-                       compute_dtype=compute_dtype, remat_layers=remat_layers)
+                       compute_dtype=compute_dtype, remat_layers=remat_layers,
+                       pos_offset=offset)
         nll_tok = _nll_per_token(logits, targets)
     return (nll_tok * mask).sum() / denom
 
@@ -303,7 +347,7 @@ def param_leaves(params: dict) -> list:
 def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
                     embed_lookup: str = "gather", compute_dtype=torch.bfloat16,
                     shift: str = "split", xent_chunk: Optional[int] = None,
-                    remat_layers: bool = False):
+                    remat_layers: bool = False, seq_group=None):
     """AdamW train step -> ``(init_opt, train_step)``, as the JAX package's.
 
     ``init_opt(params)`` marks every leaf of ``params`` as requiring grad
@@ -314,7 +358,12 @@ def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
     batch) -> (params, opt, loss)`` takes the gradient of :func:`loss_fn`
     and updates the parameters **in place** (the returned ``params`` is the
     same dict): the step keeps one copy of the weights, not two. ``loss`` is
-    the loss before the update, detached."""
+    the loss before the update, detached.
+
+    Sequence parallelism: ``seq_group`` goes to :func:`loss_fn`, and every
+    gradient is summed over it before AdamW, so every rank takes the same
+    update from the window's gradient; ``loss`` is then summed over it too:
+    the window's loss."""
     def init_opt(params: dict) -> torch.optim.AdamW:
         leaves = param_leaves(params)
         for t in leaves:
@@ -325,10 +374,15 @@ def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
     def train_step(params: dict, opt: torch.optim.AdamW, batch: dict):
         loss = loss_fn(params, batch, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
                        compute_dtype=compute_dtype, shift=shift, xent_chunk=xent_chunk,
-                       remat_layers=remat_layers)
+                       remat_layers=remat_layers, seq_group=seq_group)
         loss.backward()
+        if seq_group is not None:
+            comm.all_reduce_([t.grad for t in param_leaves(params)], seq_group)
         opt.step()
         opt.zero_grad(set_to_none=True)
-        return params, opt, loss.detach()
+        loss = loss.detach()
+        if seq_group is not None:
+            comm.all_reduce_([loss], seq_group)
+        return params, opt, loss
 
     return init_opt, train_step

@@ -7,11 +7,15 @@ never repeated). With ``causal`` a query at position i sees keys 0..i (the
 top-left mask of :func:`~petastorm_tpu_torch.parallel.attention.dense_attention`,
 so sq != sk is allowed). :func:`flash_attention_lse` also returns the
 logsumexp of each query row, ``(b, heads, sq, 1)`` float32.
+:func:`flash_attention_stats` returns the online softmax's partials in
+place of the output: the unnormalised float32 accumulator ``o``, the row max
+``m`` of the scaled scores and the normaliser ``l`` (ring attention's merge
+contract, ``_flash_kernel``'s "stats" mode).
 
 A CUDA tensor goes through the hand-written kernels (it raises if a kernel
 cannot build or launch, and never falls back): the forward
-``csrc/flash_attn.cu`` (K2) and the backward ``csrc/flash_attn_bwd.cu``
-(K3: dq, K4: dk and dv). Each has two routes, which :func:`fwd_route` and
+``csrc/flash_attn.cu`` (K2, in its "out", "lse" and "stats" modes) and the
+backward ``csrc/flash_attn_bwd.cu`` (K3: dq, K4: dk and dv). Each has two routes, which :func:`fwd_route` and
 :func:`bwd_route` pick from the dtype and head dim before the launch:
 tensor cores (wgmma, TMA) for 16-bit inputs with ``d % 8 == 0`` and
 ``d <= 128``, f32 FMAs otherwise. A CPU tensor goes through the plain
@@ -41,6 +45,10 @@ from petastorm_tpu_torch import kernels
 #: ``csrc/flash_attn.cu``.
 KERNEL_NAME = "flash_attn_fwd"
 FMA_KERNEL_NAME = "flash_attn_fwd_fma"
+#: Launch-count names of K2 in its "stats" mode, by route; each is also the
+#: name of its C launcher in ``csrc/flash_attn.cu``.
+STATS_KERNEL_NAME = "flash_attn_fwd_stats"
+STATS_FMA_KERNEL_NAME = "flash_attn_fwd_stats_fma"
 #: Launch-count names of the backward kernels K3 (dq) and K4 (dk, dv): the
 #: tensor-core route, then the FMA route. Each is also the name of its C
 #: launcher in ``csrc/flash_attn_bwd.cu``.
@@ -51,6 +59,7 @@ BWD_DKV_FMA_KERNEL_NAME = "flash_attn_bwd_dkv_fma"
 #: The kernels' two routes (see :func:`fwd_route`).
 TENSOR_CORES, FMA = "tensor cores", "fma"
 _FWD_KERNELS = {TENSOR_CORES: KERNEL_NAME, FMA: FMA_KERNEL_NAME}
+_STATS_KERNELS = {TENSOR_CORES: STATS_KERNEL_NAME, FMA: STATS_FMA_KERNEL_NAME}
 _BWD_KERNELS = {(TENSOR_CORES, "dq"): BWD_DQ_KERNEL_NAME,
                 (TENSOR_CORES, "dkv"): BWD_DKV_KERNEL_NAME,
                 (FMA, "dq"): BWD_DQ_FMA_KERNEL_NAME, (FMA, "dkv"): BWD_DKV_FMA_KERNEL_NAME}
@@ -216,6 +225,116 @@ def make_flash_attention(causal: bool = True):
     return attn
 
 
+def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                causal: bool = False):
+    """Plain PyTorch version of K2's "stats" mode, on any device: ``(o, m,
+    l)``, o ``(b, sq, heads, d)`` and m, l ``(b, sq, heads)``, all float32.
+
+    The JAX package's ``_dense_stats``: ring attention's block math
+    (:func:`~petastorm_tpu_torch.parallel.ring_attention._block_attention_chunked`)
+    over positions 0..sq-1 and 0..sk-1, in blocks of q rows holding about
+    1 GiB of float32 scores each (under checkpointing while grad is
+    enabled); with the kernel's numerics: float32 scores times
+    :func:`softmax_scale`, ``m`` their row max, ``p = exp(s - m)``, ``l`` the
+    sum of p, and ``o = round(p) v`` summed in float32, round() being to v's
+    dtype. Differentiable by autograd."""
+    _check(q, k, v)
+    o, m, l = _stats_plain(q, k, v, causal)
+    return o, m.transpose(1, 2), l.transpose(1, 2)
+
+
+def _stats_plain(q, k, v, causal: bool):
+    """:func:`flash_attention_stats_plain` with m and l in the kernel's
+    (and the ring's) layout ``(b, heads, sq)``."""
+    from petastorm_tpu_torch.parallel.ring_attention import _block_attention_chunked
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    rows = max(1, _PLAIN_SCORE_BYTES // (4 * b * h * sk))
+    return _block_attention_chunked(q, k, v, torch.arange(sk, device=q.device),
+                                    torch.arange(sq, device=q.device), causal, rows)
+
+
+def _flash_stats(q, k, v, causal: bool):
+    """K2 "stats" on CUDA tensors, by the route :func:`fwd_route` gives, or
+    the plain version on CPU tensors: ``(o, m, l)`` with m and l in the
+    layout ``(b, heads, sq)``. Not differentiable."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            return _stats_plain(q, k, v, causal)
+    route = fwd_route(q.dtype, q.shape[3])
+    return _flash_stats_fwd(route, *_fwd_inputs(route, q, k, v), causal)
+
+
+def _flash_stats_fwd(route: str, q, k, v, causal: bool):
+    """K2 "stats" of ``route`` on CUDA tensors (inputs as :func:`_fwd_inputs`
+    gives them), counted under the route's name."""
+    name = _STATS_KERNELS[route]
+    b, sq, h, d = q.shape
+    sk, kv_h = k.shape[1], k.shape[2]
+    _check_grid(b, h)
+    o = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    if sq == 0:
+        return o, m, l
+    if route == TENSOR_CORES:
+        strides = [st for t in (q, k, v) for st in _tma_strides(t)]
+    else:
+        strides = [st for t in (q, k, v) for st in t.stride()[:3]]
+    strides += o.stride()[:3]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _fwd_launcher(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
+            b, sq, sk, h, kv_h, d, (ctypes.c_int64 * 12)(*strides), _DTYPES[q.dtype],
+            int(causal), softmax_scale(d), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
+    kernels.count_launch(name)
+    return o, m, l
+
+
+class FlashStatsFunction(torch.autograd.Function):
+    """The autograd seam of :func:`flash_attention_stats`, as the JAX
+    package's ``_flash_stats_vjp``: ``apply(q, k, v, causal) -> (o, m, l)``,
+    m and l ``(b, heads, sq)``. The forward is K2 "stats" (the plain version
+    on the CPU); the backward is not a kernel: it recomputes the plain
+    version under autograd and pulls the ``(do, dm, dl)`` cotangents back
+    through it; those of m and l are live (ring attention's merge reads
+    them)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return _flash_stats(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, do, dm, dl):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = _stats_plain(*inputs, ctx.causal)
+            grads = torch.autograd.grad(outs, inputs, (do, dm, dl), allow_unused=True)
+        return (*(torch.zeros_like(t) if g is None else g for g, t in zip(grads, inputs)), None)
+
+
+def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False):
+    """K2's "stats" mode: ``(o, m, l)``, the unnormalised float32 output
+    ``(b, sq, heads, d)`` and the row max and normaliser ``(b, sq, heads)``
+    float32 of the online softmax, so that ``o / l`` is the attention and
+    ``m + log l`` its logsumexp (the contract ring attention's merge takes).
+    Any sq and sk; ``causal`` is the top-left mask. Differentiable
+    (:class:`FlashStatsFunction`) when grad is enabled and an input requires
+    it. m and l are transposed views of ``(b, heads, sq)`` arrays."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        o, m, l = FlashStatsFunction.apply(q, k, v, causal)
+    else:
+        o, m, l = _flash_stats(q, k, v, causal)
+    return o, m.transpose(1, 2), l.transpose(1, 2)
+
+
 def _check_bwd(q, o, lse, do) -> None:
     """Raise ``ValueError`` unless o and do are q-shaped in q's dtype and
     lse is ``(b, heads, sq, 1)`` float32, all on q's device."""
@@ -236,7 +355,7 @@ def _rowsum_do_o(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                              causal: bool = False):
+                              causal: bool = False, block_q: int | None = None):
     """Plain PyTorch version of the backward kernels, on any device:
     ``(dq, dk, dv)`` in the inputs' dtypes and the model layout.
 
@@ -249,8 +368,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dk = round(ds)^T q`` summed over each kv head's group of query heads,
     ``dv = round(p)^T dO``, where round() is to the inputs' dtype and every
     sum is float32. Like :func:`flash_attention_plain` it loops over blocks
-    of q rows, holding about 1 GiB of float32 scores per block, and with
-    ``causal`` each block reads only the keys its last row can see."""
+    of q rows, ``block_q`` rows each or by default as many as hold about
+    1 GiB of float32 scores, and with ``causal`` each block reads only the
+    keys its last row can see."""
     _check(q, k, v)
     _check_bwd(q, o, lse, do)
     b, sq, h, d = q.shape
@@ -263,7 +383,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.zeros((b, kv_h, sk, d), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
-    rows = max(1, _PLAIN_SCORE_BYTES // (4 * b * h * sk))
+    rows = block_q or max(1, _PLAIN_SCORE_BYTES // (4 * b * h * sk))
     for q0 in range(0, sq, rows):
         q1 = min(sq, q0 + rows)
         n = q1 - q0
@@ -445,13 +565,15 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def _fwd_launcher(name: str):
-    """One of the two C launchers of :data:`_FWD_KERNELS`: q, k, v, o and
-    lse (null in "out" mode), then the sizes, the strides, dtype, causal,
-    scale and the stream."""
+    """One of the C launchers of :data:`_FWD_KERNELS` and
+    :data:`_STATS_KERNELS`: q, k, v, o and lse (null in "out" mode), or q,
+    k, v, o, m and l in "stats" mode, then the sizes, the strides, dtype,
+    causal, scale and the stream."""
     from petastorm_tpu_torch.kernels.build import load
     fn = getattr(load("flash_attn"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 + [
+        pointers = 6 if name in _STATS_KERNELS.values() else 5
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int64] * 6 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
             ctypes.c_void_p]
         fn.restype = ctypes.c_int

@@ -544,3 +544,90 @@ def _tree_map(fn, node):
     if isinstance(node, list):
         return [_tree_map(fn, v) for v in node]
     return fn(node)
+
+
+def _stats_case(cuda_device, b, sq, sk, h, kv_h, d, dtype, seed):
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    return tuple(torch.randn(b, s, n, d, generator=gen, device=cuda_device).to(dtype)
+                 for s, n in ((sq, h), (sk, kv_h), (sk, kv_h)))
+
+
+def _stats_within_bars(got, want, dtype):
+    """o (float32, but p is rounded to the inputs' dtype) by the row-scaled
+    bars of that dtype; m and l (float32) within 2e-5 and 2e-5 relative."""
+    eps, worst_bar, rms_bar = {torch.bfloat16: (2 ** -7, 2 ** -5, 2 ** -7),
+                               torch.float16: (2 ** -10, 2 ** -8, 2 ** -10),
+                               torch.float32: (2 ** -23, 2 ** -16, 2 ** -18)}[dtype]
+    o, w = got[0], want[0]
+    row = w.square().mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    err = (o - w).abs()
+    return (((err - eps * w.abs()) / row).max().item() <= worst_bar
+            and (err / row).square().mean().sqrt().item() <= rms_bar
+            and (got[1] - want[1]).abs().max().item() <= 2e-5
+            and ((got[2] - want[2]).abs() / want[2]).max().item() <= 2e-5)
+
+
+@pytest.mark.parametrize("route", [flash_attn.TENSOR_CORES, flash_attn.FMA])
+@pytest.mark.parametrize("b,sq,sk,h,kv_h,d,causal,dtype", [
+    (1, 1024, 1024, 8, 2, 128, True, torch.bfloat16),
+    (2, 300, 500, 8, 1, 64, False, torch.bfloat16),
+    (1, 200, 200, 4, 2, 64, True, torch.float16),
+])
+def test_flash_stats_kernel_matches_plain_on_card(cuda_device, route, b, sq, sk, h, kv_h, d,
+                                                  causal, dtype):
+    q, k, v = _stats_case(cuda_device, b, sq, sk, h, kv_h, d, dtype, seed=sq + d)
+    want = flash_attn._stats_plain(q, k, v, causal)
+    kernels.reset_launch_counts()
+    if route == flash_attn.fwd_route(dtype, d):   # the public entry point takes it
+        o, m, l = flash_attn.flash_attention_stats(q, k, v, causal=causal)
+        got = (o, m.transpose(1, 2), l.transpose(1, 2))
+    else:
+        got = flash_attn._flash_stats_fwd(route, q, k, v, causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == {flash_attn._STATS_KERNELS[route]: 1}
+    assert got[0].dtype == torch.float32 and got[0].shape == q.shape
+    assert _stats_within_bars(got, want, dtype)
+    # A wrong normaliser (1 % off) and a wrong max (left in units of log2)
+    # fail the same bars.
+    assert not _stats_within_bars((want[0], want[1], want[2] * 1.01), want, dtype)
+    assert not _stats_within_bars((want[0], want[1] / float(np.log(2.0)), want[2]), want, dtype)
+
+
+def test_flash_stats_f32_takes_the_fma_route_on_card(cuda_device):
+    q, k, v = _stats_case(cuda_device, 2, 150, 150, 8, 2, 64, torch.float32, seed=3)
+    kernels.reset_launch_counts()
+    o, m, l = flash_attn.flash_attention_stats(q, k, v, causal=True)
+    assert kernels.launch_counts == {flash_attn.STATS_FMA_KERNEL_NAME: 1}
+    assert _stats_within_bars((o, m.transpose(1, 2), l.transpose(1, 2)),
+                              flash_attn._stats_plain(q, k, v, True), torch.float32)
+
+
+@pytest.mark.parametrize("strategy", ["ring", "ulysses"])
+def test_sequence_parallel_attention_runs_its_kernels_on_card(cuda_device, strategy):
+    """Two ranks on the card: the output stays on the card, the ring
+    launches K2 "stats" (rank r: r + 1 blocks) and Ulysses K2 "lse", both
+    K3 and K4 in the backward; output and gradients against one process's
+    flash attention on the whole sequence (bf16: the flash bar 3e-2 on the
+    output, 4 % on each gradient's norm)."""
+    import torch_seq_ranks
+    from petastorm_tpu_torch.parallel.launch import run_ranks
+    seq = 1024
+    ranks = run_ranks(torch_seq_ranks.card_attention, 2, args=(seq, strategy), device="cuda",
+                      timeout_s=300)
+    q, k, v, do = (t.clone() for t in torch_seq_ranks.card_inputs(seq))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    want = flash_attn.flash_attention(q, k, v, causal=True)
+    want.backward(do)
+    if strategy == "ring":
+        want_counts = [{flash_attn.STATS_KERNEL_NAME: r + 1, flash_attn.BWD_DQ_KERNEL_NAME: r + 1,
+                        flash_attn.BWD_DKV_KERNEL_NAME: r + 1} for r in range(2)]
+    else:
+        want_counts = [{flash_attn.KERNEL_NAME: 1, flash_attn.BWD_DQ_KERNEL_NAME: 1,
+                        flash_attn.BWD_DKV_KERNEL_NAME: 1}] * 2
+    assert [r[4] for r in ranks] == want_counts
+    assert all(r[5] == "cuda" for r in ranks)
+    got = [torch.cat([r[i] for r in ranks], dim=1) for i in range(4)]
+    torch.testing.assert_close(got[0].float(), want.detach().cpu().float(), rtol=0, atol=3e-2)
+    for g, w in zip(got[1:], (q.grad, k.grad, v.grad)):
+        w = w.cpu().float()
+        assert ((g.float() - w).norm() / w.norm()).item() < 0.04

@@ -66,7 +66,11 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.benchmark.llm_bench",
             "petastorm_tpu_torch.benchmark.imagenet_bench", "petastorm_tpu_torch.models.resnet",
             "petastorm_tpu_torch.benchmark.throughput", "petastorm_tpu_torch.entry",
-            "petastorm_tpu_torch.loader.dtypes", "chip_smoke"} <= set(modules)
+            "petastorm_tpu_torch.loader.dtypes", "petastorm_tpu_torch.parallel.comm",
+            "petastorm_tpu_torch.parallel.mesh", "petastorm_tpu_torch.parallel.launch",
+            "petastorm_tpu_torch.parallel.ring_attention",
+            "petastorm_tpu_torch.parallel.ulysses_attention",
+            "petastorm_tpu_torch.benchmark.seq_parallel_bench", "chip_smoke"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})

@@ -7,7 +7,8 @@ misaligned inputs, then the token path's shapes timed in turns. Given the
 parent commit's ``csrc/`` unpacked under ``build/parent/`` (``git archive
 <parent> petastorm_tpu_torch/csrc | tar -x -C build/parent``), it also
 builds that K1 and K3/K4, times K1 against it and checks that K3/K4 give
-the parent's bits:
+the parent's bits. K2's "stats" mode is timed against "out" and "lse" at
+ring attention's block:
 
     python3 tools/torch_fwd_probe.py [LOG]
 
@@ -196,6 +197,20 @@ def sleep_ms(fns, reps=20, batch=1):
             times[name].append(a.elapsed_time(z) / batch)
     return {name: round(statistics.median(t), 5) for name, t in times.items()}
 
+
+# K2's three modes at the ring's block (1, 4096, 32/8, 128) bf16 on the
+# tensor cores: what the "stats" epilogue (o stored in float32, m and l)
+# costs against "out" and "lse", causal (the diagonal) and not (a past block).
+try:
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(1, 4096, n, 128, generator=g, device="cuda").bfloat16() for n in (32, 8, 8))
+    for causal in (True, False):
+        log(f"[stats time] ring block, causal={causal}, behind a device sleep:", sleep_ms({
+            "out": lambda: fa._flash_fwd(fa.TENSOR_CORES, q, k, v, causal, False),
+            "lse": lambda: fa._flash_fwd(fa.TENSOR_CORES, q, k, v, causal, True),
+            "stats": lambda: fa._flash_stats_fwd(fa.TENSOR_CORES, q, k, v, causal)}, 20))
+except Exception:
+    log("stats FAILED", traceback.format_exc()[-2500:])
 
 parent = ROOT / "build" / "parent" / "petastorm_tpu_torch" / "csrc"
 if parent.is_dir():
