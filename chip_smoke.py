@@ -6,8 +6,13 @@
 Phases (each raises on failure; the script exits non-zero and prints no
 result line):
 
-1. probe: torch, the device, ``nvidia-smi`` name and power limit, and the
-   host libraries the reader needs (pyarrow, cv2 or PIL, fsspec);
+1. probe: torch, the device, ``nvidia-smi`` name and power limit, the
+   host libraries the reader needs (pyarrow, cv2 or PIL, fsspec), and what
+   decides the host's decode path: the g++ on ``PATH``, whether the native
+   ring (``native/ringbuf.cpp``) and the native image decoder
+   (``native/imgcodec.cpp``, with or without libdeflate) built and why not,
+   the JPEG parity check's verdict, the free bytes of ``/dev/shm`` and the
+   cores;
 2. build every CUDA kernel of the main path from ``petastorm_tpu_torch/csrc``;
 3. hold K1 against its plain PyTorch version on the card, bit for bit, at
    the main path's shapes, at ragged ones and on contiguous views that are
@@ -100,7 +105,26 @@ result line):
    counts are reset just before and read just after, on every rank. The
    first step's loss and summed gradients are held against one process
    training on the whole window with ``make_flash_attention``, and the two
-   strategies against each other.
+   strategies against each other;
+11. the process path: on phase 4's store, the reader alone with
+   ``reader_pool_type="thread"`` and ``"process"`` at 8 and 4 workers
+   (rows/s, the ring, the workers' start-up, and how many images each
+   decoder took, which must be what the probe predicts); the process
+   pool's rows equal to the thread pool's as a multiset of (id, sha1 of
+   the image), and 64 of them bit-equal to a cv2 decode of their blobs;
+   the main path on processes (``make_reader(reader_pool_type="process")``
+   -> ``DataLoader(batch_size=256, device="cuda")`` -> ``normalize_images``,
+   two epochs, counts reset just before and read just after: K1 launched
+   once a batch and nothing else); no worker on the card (``nvidia-smi``
+   lists no worker, no worker maps libcuda or libtorch, and a spawned
+   worker reports ``CUDA_VISIBLE_DEVICES=""`` and no torch); then
+   ``run_imagenet_bench(pool_type="process")`` with phase 9's settings
+   beside phase 9's thread run, and ``run_llm_bench(flash=True,
+   pool_type="process")`` at ``LlamaConfig()`` width, 2 layers, 2
+   pipelined steps (K2 "lse", K3, K4 counted); last, the teardown (no
+   worker alive and no ring left in ``/dev/shm`` after ``join()``) and a
+   worker killed with SIGKILL mid-epoch, which must make the reader raise
+   within 10 s.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -108,7 +132,10 @@ launches, error, times and bound; the last line is
 """
 import dataclasses
 import gc
+import hashlib
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -123,7 +150,8 @@ from petastorm_tpu_torch import kernels
 from petastorm_tpu_torch.benchmark.imagenet_bench import (run_imagenet_bench,
                                                           write_synthetic_imagenet)
 from petastorm_tpu_torch.benchmark.llm_bench import run_llm_bench, write_token_store
-from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec
+from petastorm_tpu_torch import native
+from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec, native_decode_status
 from petastorm_tpu_torch.etl.writer import materialize_dataset_local
 from petastorm_tpu_torch.kernels.build import build
 from petastorm_tpu_torch.entry import entry
@@ -137,8 +165,11 @@ from petastorm_tpu_torch.ops.flash_attn import (FlashAttentionFunction, flash_at
                                                 make_flash_attention)
 from petastorm_tpu_torch.ops.image_ops import (KERNEL_NAME, STRIDED_KERNEL_NAME,
                                                normalize_images, normalize_images_plain)
-from petastorm_tpu_torch.reader import make_reader
+from petastorm_tpu_torch.reader import make_reader, shm_free_bytes
+from petastorm_tpu_torch.test_util.stub_workers import EnvironmentWorker
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+from petastorm_tpu_torch.workers_pool import EmptyResultError
+from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
 
 #: H100 SXM device-memory rate, float32 (non-tensor-core) and bf16
 #: tensor-core dense peaks.
@@ -269,6 +300,15 @@ STATS_CONTROLS = ("m left in units of log2", "normaliser l 1 % off", "last K/V t
 #: blocks' partials in float32, one process takes the whole row at once).
 SEQ_LOSS_REL_BAR = 2e-3
 
+# The process path (phase 11): phase 4's store and batch, phase 9's bench
+# settings, the token bench at LlamaConfig() width cut to 2 layers and 2
+# pipelined steps.
+PROCESS_WORKERS = (8, 4)
+PROCESS_LLAMA = llama.LlamaConfig(n_layers=2)
+PROCESS_TRAIN_STEPS = 2
+PARITY_ROWS = 64
+KILL_BAR_S = 10.0
+
 
 def log(msg):
     print(msg, flush=True)
@@ -334,6 +374,14 @@ def phase_probe() -> str:
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"[probe] torch {torch.__version__} cuda {torch.version.cuda} device {name!r}; "
         f"pyarrow {pyarrow.__version__}")
+    decode = native_decode_status()
+    log(f"[probe] g++ {native.find_cxx()}; native ring "
+        f"{'built' if native.ring_available() else 'NOT built: ' + str(native.ring_error())}; "
+        f"native image decoder "
+        + (f"built ({'with' if decode['libdeflate'] else 'without'} libdeflate)"
+           if decode["native_built"] else f"NOT built: {decode['native_error']}")
+        + f"; cv2 {decode['cv2']}; JPEG parity {decode['jpeg_parity']}; /dev/shm free "
+        f"{shm_free_bytes()} bytes; {os.cpu_count()} cores")
     return smi
 
 
@@ -1626,6 +1674,239 @@ def phase_seq_parallel(tmp: str) -> dict:
     return totals
 
 
+def _maps_libraries(pid: int) -> set:
+    """Which of libcuda and libtorch the process ``pid`` has mapped."""
+    with open(f"/proc/{pid}/maps") as f:
+        maps = f.read()
+    return {lib for lib in ("libcuda", "libtorch") if lib in maps}
+
+
+def _gpu_pids() -> list:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return [int(word) for word in out.split() if word.isdigit()]
+
+
+def busiest_processes(seconds: float = 0.5, top: int = 4) -> list:
+    """The host's busiest processes over ``seconds``: (pid, name, share of
+    one core), from ``/proc/<pid>/stat``."""
+    def sample():
+        ticks = {}
+        for pid in filter(str.isdigit, os.listdir("/proc")):
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)
+                name = fields[0].split("(", 1)[1]
+                rest = fields[1].split()
+                ticks[int(pid)] = (name, int(rest[11]) + int(rest[12]))
+            except (OSError, IndexError, ValueError):
+                continue
+        return ticks
+    before = sample()
+    time.sleep(seconds)
+    after = sample()
+    hz = os.sysconf("SC_CLK_TCK")
+    busy = sorted(((after[p][1] - before[p][1]) / hz / seconds, p, after[p][0])
+                  for p in after if p in before)
+    return [(pid, name, round(share, 2)) for share, pid, name in busy[::-1][:top]]
+
+
+def _assert_torn_down(pool, what: str):
+    alive = [p.pid for p in pool._processes if p.poll() is None]
+    left = [n for n in pool.ring_names if os.path.exists(f"/dev/shm/{n}")]
+    if alive or left or not pool.ring_names:
+        raise AssertionError(f"{what}: workers {alive} alive, rings {left} left after join()")
+
+
+def phase_process(slice_url: str, token_url: str, imagenet_url: str, thread_bench: dict) -> dict:
+    """The process path (see the module docstring, phase 11). Returns the
+    main paths' launches: K1's and the token bench's K2/K3/K4."""
+    t_phase = time.perf_counter()
+    failures = []
+    decode = native_decode_status()
+    if not native.ring_available():
+        # nvcc needs g++, so a host that built the kernels builds the ring.
+        failures.append(f"the native ring did not build: {native.ring_error()}")
+    native_jpeg = decode["native_usable"] and decode["jpeg_parity"]
+    predicted = "native" if native_jpeg else "codec (cv2)"
+    log(f"[process] host before the phase: load average {os.getloadavg()}, "
+        f"{len(os.sched_getaffinity(0))} usable cores, busiest processes (pid, name, cores) "
+        f"{busiest_processes()}")
+
+    # 1. The reader alone, threads against processes; 2. the same rows.
+    digests = {}
+    for workers in PROCESS_WORKERS:
+        for pool_type in ("thread", "process"):
+            kept = []
+            t0 = time.perf_counter()
+            with make_reader(slice_url, reader_pool_type=pool_type, workers_count=workers,
+                             seed=0, num_epochs=EPOCHS) as reader:
+                for row in reader:
+                    if not kept:
+                        t_first = time.perf_counter()
+                    kept.append(row)
+                wall = time.perf_counter() - t0
+                read = time.perf_counter() - t_first
+                counters, pool = reader.counters, reader.pool
+            n_native = counters.get("images_native", 0)
+            n_codec = counters.get("images_codec", 0)
+            ring = getattr(pool, "ring_impl", None)
+            start = getattr(pool, "start_seconds", None)
+            log(f"[process] reader alone, {pool_type} x{workers}: {len(kept)} rows in "
+                f"{wall:.3f} s: {len(kept) / wall:.1f} rows/s ({(len(kept) - 1) / read:.1f} "
+                f"rows/s from the first row on, {t_first - t0:.3f} s to it); images decoded native "
+                f"{n_native}, codec {n_codec} (predicted {predicted})"
+                + (f"; ring {ring}, workers ready in {start:.3f} s" if ring else ""))
+            rows = ROWS * EPOCHS
+            if len(kept) != rows or (n_native, n_codec) != ((rows, 0) if native_jpeg
+                                                            else (0, rows)):
+                failures.append(f"{pool_type} x{workers}: {len(kept)} rows, native {n_native}, "
+                                f"codec {n_codec}, predicted {predicted}")
+            if pool_type == "process":
+                if ring != "native":
+                    failures.append(f"process x{workers} ran on the {ring!r} ring")
+                _assert_torn_down(pool, f"process x{workers}")
+            if workers == PROCESS_WORKERS[0]:
+                digests[pool_type] = sorted((int(r.id), hashlib.sha1(r.image.tobytes()).hexdigest())
+                                            for r in kept)
+                if pool_type == "process":
+                    by_id = {int(r.id): r.image for r in kept}
+            del kept
+    if digests["process"] != digests["thread"]:
+        failures.append("the process pool's rows differ from the thread pool's")
+    log(f"[process] the process pool's {len(digests['process'])} rows equal the thread "
+        f"pool's as a multiset of (id, sha1(image)): {digests['process'] == digests['thread']}")
+
+    import cv2
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext, load_row_groups
+    ctx = DatasetContext(slice_url)
+    rg = load_row_groups(ctx)[0]
+    with ctx.filesystem.open(rg.path, "rb") as f:
+        table = pq.ParquetFile(f).read_row_group(rg.row_group, columns=["id", "image"])
+    ids, blobs = table.column("id").to_pylist(), table.column("image").to_pylist()
+    equal = sum(np.array_equal(by_id[i], cv2.cvtColor(cv2.imdecode(
+        np.frombuffer(b, np.uint8), cv2.IMREAD_UNCHANGED), cv2.COLOR_BGR2RGB))
+        for i, b in zip(ids[:PARITY_ROWS], blobs[:PARITY_ROWS]))
+    log(f"[process] {equal}/{PARITY_ROWS} images of the process pool bit-equal to a per-cell "
+        f"cv2 decode of their blobs")
+    if equal != PARITY_ROWS:
+        failures.append(f"{PARITY_ROWS - equal} images differ from cv2's")
+    del by_id, table, blobs
+
+    # 3. The main path on processes, counted; 4. no worker on the card.
+    kernels.reset_launch_counts()
+    batches = samples = 0
+    last = None
+    t0 = time.perf_counter()
+    with make_reader(slice_url, reader_pool_type="process", workers_count=WORKERS, seed=0,
+                     num_epochs=EPOCHS) as reader:
+        for batch in DataLoader(reader, batch_size=BATCH, device="cuda"):
+            last = normalize_images(batch["image"])
+            batches += 1
+            samples += batch["image"].shape[0]
+            if batches == 1:
+                worker_pids = reader.pool.worker_pids
+                on_card = _gpu_pids()
+                mapped = {pid: _maps_libraries(pid) for pid in worker_pids}
+        pool = reader.pool
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    log(f"[process] main path on processes: {batches} batches, {samples} samples in "
+        f"{wall:.3f} s: {samples / wall:.1f} samples/s; launches {launches}")
+    if launches != {KERNEL_NAME: ROWS * EPOCHS // BATCH} or batches != ROWS * EPOCHS // BATCH \
+            or last.dtype != torch.bfloat16 or not torch.isfinite(last.float()).all():
+        failures.append(f"main path on processes: {batches} batches, launches {launches}")
+    _assert_torn_down(pool, "main path")
+    log(f"[process] nvidia-smi compute pids {on_card} (this process {os.getpid()}, workers "
+        f"{worker_pids}); libraries the workers map: {mapped}")
+    if set(on_card) & set(worker_pids) or len(on_card) > 1 or any(mapped.values()):
+        failures.append(f"a worker holds the card: nvidia-smi {on_card}, maps {mapped}")
+    env_pool = ProcessPool(2, ring_capacity=16 << 20)
+    env_pool.start(EnvironmentWorker)
+    for i in range(2):
+        env_pool.ventilate(value=i)
+    seen = []
+    while True:
+        try:
+            seen.append(env_pool.get_results())
+        except EmptyResultError:
+            break
+    env_pool.stop()
+    env_pool.join()
+    log(f"[process] spawned workers report {seen}")
+    if len(seen) != 2 or any(s["cuda_visible_devices"] != "" or s["torch_imported"] for s in seen):
+        failures.append(f"workers' environment {seen}")
+
+    # 5. The image training path on processes, beside phase 9's threads.
+    free_cuda()
+    kernels.reset_launch_counts()
+    result = run_imagenet_bench(imagenet_url, steps=IMAGENET_STEPS,
+                                per_device_batch=IMAGENET_BATCH, workers_count=IMAGENET_WORKERS,
+                                classes=IMAGENET_CLASSES, resident_steps=IMAGENET_RESIDENT,
+                                pool_type="process", device="cuda")
+    bench_launches = dict(kernels.launch_counts)
+    for key in ("step_time_ms", "samples_per_sec", "input_stall_pct", "step_time_ms_resident",
+                "loss_first", "loss_last"):
+        log(f"[process] imagenet bench {key}: processes {result[key]}, threads (phase 9) "
+            f"{thread_bench[key]}")
+    if set(result) != IMAGENET_KEYS or bench_launches \
+            or not np.isfinite([result["loss_first"], result["loss_last"]]).all():
+        failures.append(f"imagenet bench on processes: keys {sorted(set(result) ^ IMAGENET_KEYS)}"
+                        f", launches {bench_launches}")
+
+    # 6. The token training path on processes, counted.
+    free_cuda()
+    names = (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME)
+    model_kwargs = {f.name: getattr(PROCESS_LLAMA, f.name)
+                    for f in dataclasses.fields(PROCESS_LLAMA)}
+    kernels.reset_launch_counts()
+    with CountingPlainVersions() as plain:
+        tokens = run_llm_bench(token_url, steps=PROCESS_TRAIN_STEPS, batch_size=TOKEN_BATCH,
+                               window=WINDOW, workers_count=TOKEN_WORKERS, flash=True,
+                               model_kwargs=model_kwargs, pool_type="process", device="cuda")
+    token_launches = dict(kernels.launch_counts)
+    want = PROCESS_LLAMA.n_layers * (1 + PROCESS_TRAIN_STEPS)
+    log(f"[process] llm bench on processes: {tokens['tokens_per_sec']:.1f} tokens/s, step "
+        f"{tokens['step_time_ms']:.1f} ms, input stall {tokens['input_stall_pct']:.2f} %, loss "
+        f"{tokens['loss_first']:.4f} -> {tokens['loss_last']:.4f}; launches {token_launches} "
+        f"(expected {want} of each); plain versions called {plain.calls}")
+    if token_launches != {n: want for n in names} or any(plain.calls.values()) \
+            or not np.isfinite([tokens["loss_first"], tokens["loss_last"]]).all():
+        failures.append(f"llm bench on processes: launches {token_launches}, plain "
+                        f"{plain.calls}")
+    free_cuda()
+
+    # 7. A worker killed mid-epoch makes the reader raise, promptly.
+    reader = make_reader(slice_url, reader_pool_type="process", workers_count=WORKERS,
+                         num_epochs=None)
+    try:
+        next(reader)
+        os.kill(reader.pool.worker_pids[0], signal.SIGKILL)
+        t0 = time.perf_counter()
+        try:
+            for _ in range(10 * ROWS):
+                next(reader)
+            raised = None
+        except RuntimeError as e:
+            raised = e
+        waited = time.perf_counter() - t0
+    finally:
+        reader.stop()
+        reader.join()
+    _assert_torn_down(reader.pool, "killed worker")
+    log(f"[process] SIGKILL of worker {reader.pool.worker_pids[0]}: the reader raised after "
+        f"{waited:.3f} s: {raised!r}")
+    if raised is None or waited > KILL_BAR_S:
+        failures.append(f"a killed worker: raised {raised!r} after {waited:.3f} s")
+    log(f"[process] phase took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("process path: " + "; ".join(failures))
+    return {"normalize": launches.get(KERNEL_NAME, 0), **{n: token_launches.get(n, 0)
+                                                           for n in names}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1633,25 +1914,31 @@ def main() -> int:
     smi = phase_probe()
     phase_build()
     k1, k1_strided = phase_kernels()
-    with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_slice(tmp)
-    k2_rows = phase_flash()
-    with tempfile.TemporaryDirectory() as tmp:
-        k2_launches = phase_tokens(tmp)
-    bwd = phase_flash_bwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        counts = phase_train(tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_imagenet(tmp)
-    stats = phase_stats()
-    with tempfile.TemporaryDirectory() as tmp:
-        seq = phase_seq_parallel(tmp)
+    # Phase 11 reads the stores of phases 4, 8 and 9 again.
+    with tempfile.TemporaryDirectory() as slice_tmp, \
+            tempfile.TemporaryDirectory() as train_tmp, \
+            tempfile.TemporaryDirectory() as image_tmp:
+        launches = phase_slice(slice_tmp)
+        k2_rows = phase_flash()
+        with tempfile.TemporaryDirectory() as tmp:
+            k2_launches = phase_tokens(tmp)
+        bwd = phase_flash_bwd()
+        counts = phase_train(train_tmp)
+        thread_bench = phase_imagenet(image_tmp)
+        stats = phase_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            seq = phase_seq_parallel(tmp)
+        proc = phase_process(f"file://{slice_tmp}/imagenet_like", f"file://{train_tmp}/tokens",
+                             f"file://{image_tmp}/imagenet", thread_bench)
+    for name in (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
+                 flash_attn.BWD_DKV_KERNEL_NAME):
+        counts[name] += proc[name]
     source = "petastorm_tpu_torch/csrc/flash_attn_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/normalize.cu",
         "replaces": "petastorm_tpu/ops/image_ops.py:27",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
+        "launches": launches + proc["normalize"], "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
         # K1's general route (any strides, any channel count): timed on the

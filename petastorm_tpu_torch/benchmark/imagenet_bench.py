@@ -231,7 +231,9 @@ def run_imagenet_bench(url: str, steps: int = 30, per_device_batch: int = 32,
     step_time_ms, model_flops_per_step_per_chip, achieved_tflops_per_chip
     [, mfu_pct], ...}``, the JAX bench's keys.
 
-    ``make_reader(num_epochs=None, shuffle_row_groups=True, seed=0)`` ->
+    ``make_reader(num_epochs=None, shuffle_row_groups=True, seed=0,
+    reader_pool_type=pool_type)`` (``"thread"``, ``"process"`` or
+    ``"dummy"``) ->
     ``DataLoader(prefetch, dtype_policy=DTypePolicy(), echo)`` -> the step
     of :func:`~petastorm_tpu_torch.models.resnet.make_train_step` at lr
     0.05, with parameters drawn from a ``torch.Generator`` seeded 0. The
@@ -246,8 +248,6 @@ def run_imagenet_bench(url: str, steps: int = 30, per_device_batch: int = 32,
     from petastorm_tpu_torch.models import resnet
     from petastorm_tpu_torch.reader import make_reader
 
-    if pool_type == "process":
-        raise NotImplementedError("the process pool is not ported yet: use pool_type='thread'")
     dev = resolve_device(device)
     batch_size = per_device_batch
     params = resnet.init_params(torch.Generator(device=dev).manual_seed(0), classes, device=dev)

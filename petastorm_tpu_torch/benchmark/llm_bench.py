@@ -56,7 +56,10 @@ def run_llm_bench(url: str, steps: int = 20, batch_size: int = 8, window: int = 
     input_stall_pct, step_time_ms, loss_first, loss_last[, *_resident],
     ...}`` with the JAX bench's keys.
 
-    The model is the JAX bench's default (vocab 32000, dim 1024, 8 layers,
+    The windows come from ``make_reader(reader_pool_type=pool_type)``
+    (``"thread"``, ``"process"``: decode processes whose windows cross
+    shared-memory rings pickled, or ``"dummy"``). The model is the JAX
+    bench's default (vocab 32000, dim 1024, 8 layers,
     8 heads over 4 kv heads, hidden 2816), updated by ``model_kwargs``,
     with parameters drawn from a ``torch.Generator`` seeded 0; the step is
     :func:`~petastorm_tpu_torch.models.llama.make_train_step` with

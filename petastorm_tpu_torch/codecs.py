@@ -6,8 +6,9 @@ always numpy; the loader turns batches into tensors. Codecs serialize to
 JSON (``codec_to_dict``/``codec_from_dict``) under the same names the JAX
 package uses, so dataset metadata is shared between the two packages.
 
-Images decode through OpenCV (Pillow when cv2 is missing), the decoder the
-JAX package falls back to, so both packages produce the same pixels.
+Images decode through the native decoder (``native/imgcodec.cpp``) where a
+one-time check allows it, else through OpenCV (Pillow when cv2 is missing),
+as the JAX package decodes them, so both packages produce the same pixels.
 """
 from __future__ import annotations
 
@@ -189,6 +190,105 @@ class CompressedNdarrayCodec(NdarrayCodec):
             return z["arr"]
 
 
+_NATIVE_DECODE_USABLE = None
+_NATIVE_JPEG_OK = None
+
+
+def _native_decode_usable() -> bool:
+    """The native decoder is used only where cv2 imports (its output is
+    held to cv2's; a host with Pillow alone keeps Pillow's) and the library
+    built (reference petastorm_tpu/codecs.py:363)."""
+    global _NATIVE_DECODE_USABLE
+    if _NATIVE_DECODE_USABLE is None:
+        try:
+            import cv2  # noqa: F401
+        except ImportError:
+            _NATIVE_DECODE_USABLE = False
+        else:
+            from petastorm_tpu_torch.native import imgcodec
+            _NATIVE_DECODE_USABLE = imgcodec.imgcodec_available()
+    return _NATIVE_DECODE_USABLE
+
+
+def _native_jpeg_parity_ok() -> bool:
+    """One check per process: may JPEG go through the native decoder?
+
+    PNG decodes exactly by construction, but a JPEG's inverse DCT is the
+    implementation's: a system libjpeg other than cv2's could move pixels
+    by one step, so the two decode paths would disagree. Three probe
+    images (cv2 baseline, cv2 progressive and, where Pillow imports, a
+    Pillow 4:2:2 stream) must decode natively to cv2's pixels bit for bit,
+    or native JPEG decode stays off in this process; PNG stays on
+    (reference petastorm_tpu/codecs.py:378-430)."""
+    global _NATIVE_JPEG_OK
+    if _NATIVE_JPEG_OK is None:
+        try:
+            import cv2
+            from petastorm_tpu_torch.native import imgcodec
+            rng = np.random.default_rng(20260730)
+            grad = np.linspace(0, 255, 64, dtype=np.uint8)
+            img = np.stack([np.tile(grad, (64, 1)), np.tile(grad[:, None], (1, 64)),
+                            rng.integers(0, 256, (64, 64), dtype=np.uint8)], axis=-1)
+            blobs = []
+            for extra in ([], [int(cv2.IMWRITE_JPEG_PROGRESSIVE), 1]):
+                ok, enc = cv2.imencode(".jpg", img[..., ::-1],
+                                       [int(cv2.IMWRITE_JPEG_QUALITY), 85, *extra])
+                if ok:
+                    blobs.append(enc.tobytes())
+            try:
+                from PIL import Image
+                buf = io.BytesIO()
+                Image.fromarray(img).save(buf, format="JPEG", quality=92, subsampling=1)
+                blobs.append(buf.getvalue())
+            except ImportError:
+                pass
+            ok = len(blobs) >= 2   # baseline and progressive
+            for blob in blobs:
+                ref = cv2.cvtColor(cv2.imdecode(np.frombuffer(blob, np.uint8),
+                                                cv2.IMREAD_UNCHANGED), cv2.COLOR_BGR2RGB)
+                native = imgcodec.decode_image(blob, (64, 64, 3), strict=True)
+                ok = ok and np.array_equal(native, ref)
+            _NATIVE_JPEG_OK = bool(ok)
+        except Exception:  # noqa: BLE001 - any failure of the check turns it off
+            _NATIVE_JPEG_OK = False
+    return _NATIVE_JPEG_OK
+
+
+def decode_verdict():
+    """``(native usable, JPEG parity)`` of this process, probed once."""
+    usable = _native_decode_usable()
+    return usable, usable and _native_jpeg_parity_ok()
+
+
+def pin_decode_verdict(verdict) -> None:
+    """Adopt another process's :func:`decode_verdict` on the same host (the
+    reader's, in its spawned workers) instead of probing again: a worker
+    neither retries a build that failed nor re-runs the parity check."""
+    global _NATIVE_DECODE_USABLE, _NATIVE_JPEG_OK
+    _NATIVE_DECODE_USABLE, _NATIVE_JPEG_OK = bool(verdict[0]), bool(verdict[1])
+
+
+def _is_jpeg_blob(encoded) -> bool:
+    return bytes(memoryview(encoded)[:2]) == b"\xff\xd8"
+
+
+def native_decode_status() -> dict:
+    """What decides the image decode path in this process: whether cv2
+    imports, whether the native library built (and why not), with or
+    without libdeflate, and the JPEG parity check's verdict."""
+    from petastorm_tpu_torch.native import imgcodec
+    try:
+        import cv2  # noqa: F401
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
+    built = imgcodec.imgcodec_available()
+    return {"cv2": has_cv2, "native_built": built, "native_error": imgcodec.imgcodec_error(),
+            "libdeflate": imgcodec.WITH_DEFLATE if built else None,
+            "native_usable": _native_decode_usable(),
+            "jpeg_parity": _native_jpeg_parity_ok() if _native_decode_usable() else False}
+
+
 class CompressedImageCodec(DataframeColumnCodec):
     """png/jpeg compression for uint8 RGB ``(H, W, 3)`` or grayscale
     ``(H, W)`` images. OpenCV is BGR-native, so channels are swapped on the
@@ -223,6 +323,18 @@ class CompressedImageCodec(DataframeColumnCodec):
         return enc.tobytes()
 
     def decode(self, unischema_field, encoded):
+        # The native decoder in strict mode (cv2.IMREAD_UNCHANGED parity): a
+        # source it cannot reproduce as cv2 would (alpha, 16 bits, CMYK)
+        # fails and cv2 decides what the blob is.
+        if _native_decode_usable() and (not _is_jpeg_blob(encoded) or _native_jpeg_parity_ok()):
+            from petastorm_tpu_torch.native import imgcodec
+            dims = imgcodec.probe(encoded)
+            if dims is not None and dims[2] in (1, 3, 4):
+                try:
+                    return imgcodec.decode_image(
+                        encoded, dims[:2] if dims[2] == 1 else dims, strict=True)
+                except ValueError:
+                    pass
         try:
             import cv2
         except ImportError:

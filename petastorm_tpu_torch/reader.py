@@ -4,9 +4,10 @@ The reader plans the store's row groups (optionally sharded
 ``index % shard_count == cur_shard``), ventilates them to a worker pool —
 in a per-epoch order seeded exactly as the JAX package seeds it — and
 yields the rows the workers decode. Given the same store, seed and
-settings, it yields the same rows in the same order as the JAX package's
-``make_reader``. With ``schema_fields=NGram(...)`` it yields the NGram's
-windows instead of rows.
+settings, it yields the same rows as the JAX package's ``make_reader``, in
+the same order on the thread and dummy pools (the process pool delivers in
+the order its workers finish). With ``schema_fields=NGram(...)`` it yields
+the NGram's windows instead of rows.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import os
 from collections import deque
 from typing import Optional
 
+from petastorm_tpu_torch.codecs import CompressedImageCodec, decode_verdict
 from petastorm_tpu_torch.errors import NoDataAvailableError
 from petastorm_tpu_torch.etl.dataset_metadata import (DatasetContext, get_schema,
                                                       load_row_groups)
@@ -21,11 +23,47 @@ from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.reader_impl.row_reader_worker import RowReaderWorker
 from petastorm_tpu_torch.workers_pool import EmptyResultError, ITEM_CONTEXT_KWARG
 from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
+from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
 from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
 
 #: In-flight row groups per worker beyond the one it is decoding.
 _VENTILATE_EXTRA_ROWGROUPS = 3
+
+#: Per-worker shm ring bytes of the process pool, and the least it shrinks
+#: to where ``/dev/shm`` is small (reference petastorm_tpu/reader.py:251-265).
+DEFAULT_RING_CAPACITY = 128 << 20
+MIN_RING_CAPACITY = 16 << 20
+SHM_DIR = "/dev/shm"
+
+
+def shm_free_bytes(path: str = SHM_DIR) -> int:
+    """Bytes free in the shared-memory filesystem."""
+    st = os.statvfs(path)
+    return st.f_bavail * st.f_frsize
+
+
+def ring_capacity_for(workers_count: int, free_bytes: Optional[int] = None) -> int:
+    """Each process worker's ring: :data:`DEFAULT_RING_CAPACITY`, or the
+    even share of the free ``/dev/shm`` when that is smaller, but no less
+    than :data:`MIN_RING_CAPACITY`. Raises ``RuntimeError`` when the rings
+    do not fit even so: the reader never turns to threads by itself."""
+    free = shm_free_bytes() if free_bytes is None else free_bytes
+    capacity = max(MIN_RING_CAPACITY, min(DEFAULT_RING_CAPACITY, free // max(1, workers_count)))
+    if capacity * workers_count > free:
+        raise RuntimeError(
+            f"reader_pool_type='process' needs {workers_count} shared-memory rings of at "
+            f"least {MIN_RING_CAPACITY >> 20} MiB, but {SHM_DIR} has {free} bytes free: "
+            f"enlarge {SHM_DIR}, use fewer workers or reader_pool_type='thread'")
+    return capacity
+
+
+def decode_threads_for(workers_count: int) -> int:
+    """Threads of each native image decode call: the cores left to each
+    worker, at most ``imgcodec.default_threads()`` and at least 1, so the
+    workers' decodes do not oversubscribe the host."""
+    from petastorm_tpu_torch.native.imgcodec import default_threads
+    return max(1, min(default_threads(), (os.cpu_count() or 1) // max(1, workers_count)))
 
 
 def make_reader(dataset_url: str,
@@ -46,8 +84,11 @@ def make_reader(dataset_url: str,
         or an :class:`~petastorm_tpu_torch.ngram.NGram`: the reader then
         yields its windows (``{offset: namedtuple}``, or ``{name: array}``
         when ``dense``), assembled inside each row group
-    :param reader_pool_type: ``'thread'`` or ``'dummy'`` (inline, one thread)
-    :param workers_count: decode threads of the thread pool
+    :param reader_pool_type: ``'thread'``, ``'process'`` (spawned decode
+        processes that return rows through shared-memory rings, each
+        :func:`ring_capacity_for` bytes; rows arrive in the order the
+        workers finish) or ``'dummy'`` (inline, one thread)
+    :param workers_count: decode threads or processes
     :param results_queue_size: bound of each worker's result queue
     :param shuffle_row_groups: shuffle row-group order each epoch
         (``random.Random(seed + epoch)``)
@@ -66,11 +107,13 @@ def make_reader(dataset_url: str,
     if reader_pool_type == "thread":
         pool = ThreadPool(workers_count, results_queue_size,
                           shuffle_rows=shuffle_rows, seed=seed)
+    elif reader_pool_type == "process":
+        pool = ProcessPool(workers_count, ring_capacity=ring_capacity_for(workers_count))
     elif reader_pool_type == "dummy":
         pool = DummyPool()
     else:
         raise ValueError(f"Unknown reader_pool_type {reader_pool_type!r} "
-                         f"(expected 'thread' or 'dummy')")
+                         f"(expected 'thread', 'process' or 'dummy')")
     return Reader(dataset_url, pool, schema_fields=schema_fields,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
@@ -126,10 +169,28 @@ class Reader:
             item_context_key=ITEM_CONTEXT_KWARG)
         self._buffer = deque()
         self.last_row_consumed = False
+        # The image decode path is settled here, once (the native build and
+        # the JPEG parity check), and the workers adopt the verdict.
+        verdict = (decode_verdict() if any(isinstance(f.codec, CompressedImageCodec)
+                                           for f in stored_schema.fields.values()) else None)
         pool.start(RowReaderWorker,
                    {"dataset_url": dataset_url, "schema": stored_schema, "view_schema": self.schema,
-                    "ngram": self.ngram, "shuffle_rows": shuffle_rows, "seed": seed},
+                    "ngram": self.ngram, "shuffle_rows": shuffle_rows, "seed": seed,
+                    "decode_threads": decode_threads_for(pool.workers_count),
+                    "decode_verdict": verdict},
                    ventilator=self._ventilator)
+
+    @property
+    def pool(self):
+        """The worker pool (``ThreadPool``, ``ProcessPool`` or ``DummyPool``)."""
+        return self._pool
+
+    @property
+    def counters(self) -> dict:
+        """The workers' counters summed over the items consumed so far:
+        ``images_native`` and ``images_codec``, the image cells decoded by
+        the native batch call and by the codec one at a time."""
+        return dict(self._pool.counters)
 
     def __iter__(self):
         return self

@@ -8,6 +8,7 @@ written by either package is read by the other.
 """
 from __future__ import annotations
 
+import copyreg
 import re
 from collections import OrderedDict, namedtuple
 from dataclasses import dataclass
@@ -97,6 +98,14 @@ def _dtype_from_name(name: str):
     return np.dtype(name)
 
 
+def _rebuild_view_row(parent_name, field_names, values):
+    """Unpickle a schema-view row through the cache of the receiving
+    process: the namedtuple types are made at run time and are no module
+    attributes, so pickle cannot find them by name (NGram windows cross a
+    process pool as ``{offset: namedtuple}``)."""
+    return _NamedtupleCache.get(parent_name, field_names)(*values)
+
+
 class _NamedtupleCache:
     """Process-wide cache of row namedtuple types keyed by (schema name,
     fields): recreating the type per row would defeat ``isinstance`` checks
@@ -107,7 +116,10 @@ class _NamedtupleCache:
     def get(cls, parent_name: str, field_names: Sequence[str]):
         key = (parent_name, tuple(field_names))
         if key not in cls._cache:
-            cls._cache[key] = namedtuple(parent_name + "_view", field_names)
+            nt = namedtuple(parent_name + "_view", field_names)
+            copyreg.pickle(nt, lambda row, _p=parent_name, _f=key[1]:
+                           (_rebuild_view_row, (_p, _f, tuple(row))))
+            cls._cache[key] = nt
         return cls._cache[key]
 
 

@@ -14,7 +14,19 @@ ITEM_CONTEXT_KWARG = "shuffle_context"
 
 class VentilatedItemProcessedMessage:
     """Worker -> pool signal: one ventilated item fully processed (the
-    ventilator's backpressure credit)."""
+    ventilator's backpressure credit), by worker ``worker_id``, with the
+    worker's ``counters`` since its last item
+    (:meth:`~.worker_base.WorkerBase.take_counters`)."""
+
+    def __init__(self, worker_id=None, counters=None):
+        self.worker_id = worker_id
+        self.counters = counters or {}
+
+
+def add_counters(total: dict, counters: dict) -> None:
+    """Sum a processed message's ``counters`` into a pool's ``total``."""
+    for name, n in counters.items():
+        total[name] = total.get(name, 0) + n
 
 
 class WorkerFailure:

@@ -10,7 +10,7 @@ import time
 from collections import deque
 
 from petastorm_tpu_torch.workers_pool import (EmptyResultError,
-                                              VentilatedItemProcessedMessage)
+                                              VentilatedItemProcessedMessage, add_counters)
 
 
 class DummyPool:
@@ -21,6 +21,8 @@ class DummyPool:
         self._worker = None
         self._ventilator = None
         self._stopped = False
+        #: The worker's counters, summed as its items are consumed.
+        self.counters = {}
 
     def start(self, worker_class, worker_args=None, ventilator=None):
         if self._worker is not None:
@@ -40,6 +42,7 @@ class DummyPool:
             while self._results:
                 result = self._results.popleft()
                 if isinstance(result, VentilatedItemProcessedMessage):
+                    add_counters(self.counters, result.counters)
                     if self._ventilator:
                         self._ventilator.processed_item()
                     continue
@@ -47,7 +50,8 @@ class DummyPool:
             if self._pending:
                 args, kwargs = self._pending.popleft()
                 self._worker.process(*args, **kwargs)
-                self._results.append(VentilatedItemProcessedMessage())
+                self._results.append(VentilatedItemProcessedMessage(
+                    0, self._worker.take_counters()))
                 continue
             if self._ventilator is None or self._ventilator.completed():
                 # Re-check after seeing completion: the last item may have

@@ -1,0 +1,387 @@
+"""Process pool: spawned worker processes, fed over sockets, publishing
+through shared-memory rings.
+
+```
+   main process                                  worker process (xN, spawned)
+   ────────────                                  ─────────────────
+   socket pair ── work items, FINISH (pickle) ──▶ Connection
+   shm ring    ◀── D/S/P data, C control ──────── ring producer
+```
+
+Each worker gets one end of an ``AF_UNIX`` socket pair
+(:mod:`multiprocessing.connection`), inherited as a file descriptor, for its
+work items and the FINISH message, and one SPSC ring (``native`` when
+``ringbuf.cpp`` builds, else the pure-Python ``py`` ring; one implementation
+is pinned for the consumer and every worker) that carries everything it
+sends back, in order, as tagged records:
+
+* ``C``: a pickled control message (ready, item processed, failure);
+* ``D``: a serialized result;
+* ``S`` then ``P``... then ``D``: a result bigger than half the ring, sent
+  as chunks after an ``S`` frame that gives its total length, so one large
+  row group never deadlocks against its own backpressure.
+
+Data and control share the ring, so an item's "processed" marker can never
+overtake its data.
+
+Workers are spawned (a fresh interpreter, never a fork: see
+:mod:`.exec_in_new_process`) with ``CUDA_VISIBLE_DEVICES=""``. Starting
+blocks on a ready message from every worker (``_WORKER_START_TIMEOUT_S``).
+A worker exits when its parent dies (it polls ``os.getppid()``), when FINISH
+arrives, or when the consumer closes its ring; ``stop()`` closes the rings,
+so a worker blocked on a full ring leaves at once. A worker that dies
+unexpectedly makes :meth:`ProcessPool.get_results` raise ``RuntimeError``
+within ``_POLL_MS``, however busy the other workers keep it.
+Unlike the thread pool, results arrive in the order workers finish.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+import threading
+import time
+import uuid
+from multiprocessing.connection import Connection, Pipe
+from traceback import format_exc
+
+from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
+from petastorm_tpu_torch.workers_pool import (EmptyResultError,
+                                              VentilatedItemProcessedMessage,
+                                              WorkerFailure, add_counters)
+from petastorm_tpu_torch.workers_pool.exec_in_new_process import exec_in_new_process
+
+_CONTROL_FINISH = "FINISH"
+_WORKER_START_TIMEOUT_S = 60
+_JOIN_TIMEOUT_S = 30
+_POLL_MS = 100
+_ORPHAN_POLL_S = 1.0
+_PAGE = 4096
+#: Name prefix of the pool's shared-memory segments (``/dev/shm/<name>``).
+RING_PREFIX = "pt_torch_ring_"
+
+
+def prefault(ring, write: bool) -> None:
+    """Touch every page of the ring's data region in this process's
+    mapping: writing zeros on the producer's side (before its first record,
+    so no reader can see them), reading on the consumer's. A page's first
+    touch costs microseconds (5.6-5.7 us on the H100's 8-core host,
+    ``tools/torch_ring_probe.py``), so a ring that has not wrapped yet would
+    pay it on every record, some 2400 times per 9.6 MB row group."""
+    import numpy as np
+    pages = np.frombuffer(ring.data_view(), dtype=np.uint8)[::_PAGE]
+    if write:
+        pages[:] = 0
+    else:
+        int(pages.sum())
+    del pages
+
+
+class _WorkerReady:
+    def __init__(self, worker_id):
+        self.worker_id = worker_id
+
+
+class ProcessPool:
+    """:param workers_count: number of spawned worker processes
+    :param ring_capacity: data bytes of each worker's ring
+
+    Results cross the rings pickled
+    (:class:`~petastorm_tpu_torch.reader_impl.pickle_serializer.PickleSerializer`).
+    """
+
+    def __init__(self, workers_count: int, ring_capacity: int = 128 << 20):
+        self.workers_count = workers_count
+        self._ring_capacity = ring_capacity
+        self._serializer = PickleSerializer()
+        #: ``"native"`` or ``"py"``, pinned at :meth:`start`.
+        self.ring_impl = None
+        #: The rings' shared-memory names (``/dev/shm`` entries without "/").
+        self.ring_names = []
+        self._rings = []
+        self._readers = []
+        self._conns = []
+        self._processes = []
+        self._partial = {}       # worker id -> [reassembly buffer, fill offset]
+        self._poll_idx = 0
+        self._inflight = [0] * workers_count
+        self._next_worker = 0
+        self._lock = threading.Lock()
+        self._ventilator = None
+        self._ventilated = 0
+        self._processed = 0
+        self._stopped = False
+        self._last_alive_check = 0.0
+        #: The workers' counters, summed as their items are consumed.
+        self.counters = {}
+        #: Seconds from :meth:`start` until every worker was ready.
+        self.start_seconds = None
+
+    @property
+    def worker_pids(self):
+        return [p.pid for p in self._processes]
+
+    # ------------------------------------------------------------------ api
+    def start(self, worker_class, worker_args=None, ventilator=None):
+        from petastorm_tpu_torch.native import make_ring, resolve_ring_impl
+        from petastorm_tpu_torch.reader_impl.shm_ring import RingReader
+        if self._processes:
+            raise RuntimeError("ProcessPool already started")
+        t0 = time.monotonic()
+        self.ring_impl = resolve_ring_impl()
+        token = uuid.uuid4().hex[:10]
+        for worker_id in range(self.workers_count):
+            name = f"/{RING_PREFIX}{token}_{worker_id}"
+            ring = make_ring(name, capacity=self._ring_capacity, create=True,
+                             impl=self.ring_impl)
+            self._rings.append(ring)
+            self._readers.append(RingReader(ring))
+            self.ring_names.append(name.lstrip("/"))
+            ours, theirs = Pipe(duplex=True)
+            self._conns.append(ours)
+            self._processes.append(exec_in_new_process(
+                _worker_bootstrap, worker_id, worker_class, worker_args,
+                theirs.fileno(), os.getpid(), name, self.ring_impl,
+                pass_fds=(theirs.fileno(),)))
+            theirs.close()
+        # While the workers start: map the rings' pages on this side too.
+        for ring in self._rings:
+            prefault(ring, write=False)
+
+        ready = set()
+        deadline = t0 + _WORKER_START_TIMEOUT_S
+        while len(ready) < self.workers_count:
+            if time.monotonic() > deadline:
+                self.stop()
+                self.join()
+                raise RuntimeError(f"Only {len(ready)}/{self.workers_count} workers started "
+                                   f"within {_WORKER_START_TIMEOUT_S} s")
+            msg = self._poll_result(_POLL_MS)
+            if msg is None:
+                self._check_processes_alive()
+            elif isinstance(msg, _WorkerReady):
+                ready.add(msg.worker_id)
+            elif isinstance(msg, WorkerFailure):
+                self.stop()
+                self.join()
+                raise msg.exception
+        self.start_seconds = time.monotonic() - t0
+        if ventilator is not None:
+            self._ventilator = ventilator
+            self._ventilator.start()
+
+    def ventilate(self, *args, **kwargs):
+        """Send one work item to the worker with the fewest items in flight
+        (round robin among equals)."""
+        with self._lock:
+            n = self.workers_count
+            wid = min(((self._next_worker + i) % n for i in range(n)),
+                      key=lambda w: self._inflight[w])
+            self._next_worker = (wid + 1) % n
+            self._inflight[wid] += 1
+            self._ventilated += 1
+            try:
+                self._conns[wid].send((args, kwargs))
+            except OSError:
+                # The worker is gone: the consumer's liveness check raises.
+                pass
+
+    def get_results(self):
+        """The next published result. Raises :class:`EmptyResultError` once
+        every ventilated item is processed and drained, or after ``stop()``;
+        re-raises a worker's exception; raises ``RuntimeError`` when a worker
+        died."""
+        while True:
+            if self._stopped:
+                raise EmptyResultError()
+            # The liveness check runs on a clock, not only when the rings are
+            # quiet: the other workers may keep them busy while a dead
+            # worker's items are lost.
+            now = time.monotonic()
+            if now - self._last_alive_check >= _POLL_MS / 1000.0:
+                self._last_alive_check = now
+                self._check_processes_alive()
+            # Completion is read BEFORE the count: an item ventilated between
+            # the two reads then shows up as unprocessed.
+            ventilation_done = self._ventilator is None or self._ventilator.completed()
+            with self._lock:
+                all_done = self._processed == self._ventilated
+            if all_done and ventilation_done:
+                raise EmptyResultError()
+            msg = self._poll_result(_POLL_MS)
+            if msg is None:
+                continue
+            if isinstance(msg, VentilatedItemProcessedMessage):
+                with self._lock:
+                    self._processed += 1
+                    self._inflight[msg.worker_id] -= 1
+                add_counters(self.counters, msg.counters)
+                if self._ventilator:
+                    self._ventilator.processed_item()
+                continue
+            if isinstance(msg, WorkerFailure):
+                self.stop()
+                self.join()
+                raise msg.exception
+            if isinstance(msg, _WorkerReady):
+                continue
+            return msg
+
+    def stop(self):
+        """Stop ventilating, tell every worker to finish, and close the
+        rings: a worker blocked on a full ring fails out of its write."""
+        if self._ventilator:
+            self._ventilator.stop()
+        if not self._stopped:
+            for conn in self._conns:
+                try:
+                    conn.send(_CONTROL_FINISH)
+                except OSError:
+                    pass
+        for ring in self._rings:
+            ring.close_producer()
+        self._stopped = True
+
+    def join(self):
+        """Wait for the workers (killing any left after
+        ``_JOIN_TIMEOUT_S``), then close the sockets and unlink the rings."""
+        deadline = time.monotonic() + _JOIN_TIMEOUT_S
+        for p in self._processes:
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for conn in self._conns:
+            conn.close()
+        self._conns = []
+        for reader in self._readers:
+            reader.close()
+        for ring in self._rings:
+            ring.close()
+        self._readers = []
+        self._rings = []
+
+    # ------------------------------------------------------------ internals
+    def _poll_result(self, timeout_ms: int):
+        """The next complete message of any ring, round robin, or None after
+        ``timeout_ms`` without one. ``C`` frames unpickle; ``S``/``P``
+        chunks fill one buffer preallocated from the ``S`` frame's length,
+        which the final ``D`` completes; a ``D`` frame unpickles straight
+        from the mapped record (unpickling copies out of it), and every
+        record is released as soon as it is read."""
+        deadline = time.monotonic() + timeout_ms / 1000.0
+        while True:
+            progressed = False
+            for _ in range(len(self._readers)):
+                idx = self._poll_idx
+                self._poll_idx = (idx + 1) % len(self._readers)
+                reader = self._readers[idx]
+                rec = reader.try_read()
+                if rec is None:
+                    continue
+                progressed = True
+                kind, view = rec
+                try:
+                    if kind == ord("C"):
+                        return pickle.loads(view)
+                    if kind == ord("S"):
+                        self._partial[idx] = [bytearray(int.from_bytes(view[:8], "little")), 0]
+                        continue
+                    if idx in self._partial:
+                        entry = self._partial[idx]
+                        buf, off = entry
+                        buf[off:off + len(view)] = view
+                        entry[1] = off + len(view)
+                        if kind == ord("P"):
+                            continue
+                        del self._partial[idx]
+                        return self._serializer.deserialize(memoryview(buf))
+                    return self._serializer.deserialize(view)
+                finally:
+                    view.release()
+                    reader.complete()
+                    reader.reap()
+            if not progressed:
+                if time.monotonic() >= deadline:
+                    return None
+                time.sleep(0.0001)
+
+    def _check_processes_alive(self):
+        for i, p in enumerate(self._processes):
+            rc = p.poll()
+            if rc is None or rc == 0 or self._stopped:
+                continue
+            self.stop()
+            self.join()
+            raise RuntimeError(f"Worker process {i} died unexpectedly with exit code {rc}")
+
+
+# ------------------------------------------------------------- worker side
+def _watch_parent(parent_pid: int) -> None:
+    """Exit hard once the parent is gone (the worker is re-parented)."""
+    while os.getppid() == parent_pid:
+        time.sleep(_ORPHAN_POLL_S)
+    os._exit(0)
+
+
+def _worker_bootstrap(worker_id, worker_class, worker_args, conn_fd, parent_pid, ring_name,
+                      ring_impl):
+    """Entry function of a spawned worker process (reference
+    petastorm/workers_pool/process_pool.py:330)."""
+    from petastorm_tpu_torch.native import RingClosed, make_ring
+
+    threading.Thread(target=_watch_parent, args=(parent_pid,), daemon=True).start()
+    conn = Connection(conn_fd)
+    ring = make_ring(ring_name, create=False, impl=ring_impl)
+    prefault(ring, write=True)
+    serializer = PickleSerializer()
+    max_frame = max(4096, int(ring.capacity) // 2 - 4096)
+
+    def send_ctrl(obj):
+        ring.write_tagged(ord("C"), pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
+
+    def publish(data):
+        payload = memoryview(serializer.serialize(data))
+        if len(payload) > max_frame:
+            ring.write_tagged(ord("S"), len(payload).to_bytes(8, "little"))
+            while len(payload) > max_frame:
+                ring.write_tagged(ord("P"), payload[:max_frame])
+                payload = payload[max_frame:]
+        ring.write_tagged(ord("D"), payload)
+
+    def next_item():
+        """The next work item, or None on FINISH or a closed socket."""
+        try:
+            msg = conn.recv()
+        except (EOFError, OSError):
+            return None
+        return None if msg == _CONTROL_FINISH else msg
+
+    worker = None
+    try:
+        worker = worker_class(worker_id, publish, worker_args)
+        send_ctrl(_WorkerReady(worker_id))
+        while not ring.producer_closed and (item := next_item()) is not None:
+            args, kwargs = item
+            worker.process(*args, **kwargs)
+            send_ctrl(VentilatedItemProcessedMessage(worker_id, worker.take_counters()))
+    except RingClosed:
+        pass   # the consumer stopped and closed the ring: a clean exit
+    except Exception as e:  # noqa: BLE001 - shipped to the consumer
+        sys.stderr.write(f"Worker {worker_id} exception:\n{format_exc()}\n")
+        try:
+            pickle.dumps(e)
+        except Exception:  # noqa: BLE001 - an exception that does not pickle
+            e = RuntimeError(f"Worker {worker_id} failed: {e!r}")
+        try:
+            send_ctrl(WorkerFailure(e))
+        except RingClosed:
+            pass
+    finally:
+        if worker is not None:
+            worker.shutdown()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)

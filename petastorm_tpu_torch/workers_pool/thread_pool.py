@@ -21,7 +21,7 @@ from typing import Optional
 
 from petastorm_tpu_torch.workers_pool import (EmptyResultError,
                                               VentilatedItemProcessedMessage,
-                                              WorkerFailure)
+                                              WorkerFailure, add_counters)
 
 _IO_TIMEOUT_S = 0.001
 _END_OF_VENTILATION_POLL_S = 0.1
@@ -50,7 +50,8 @@ class _WorkerThread(threading.Thread):
                 except queue.Empty:
                     continue
                 self._worker_impl.process(*args, **kwargs)
-                self._put(VentilatedItemProcessedMessage())
+                self._put(VentilatedItemProcessedMessage(
+                    self._worker_impl.worker_id, self._worker_impl.take_counters()))
         except WorkerTerminationRequested:
             pass
         except Exception as e:  # noqa: BLE001 - re-raised on the consumer
@@ -84,6 +85,8 @@ class ThreadPool:
         self._next_assign = 0
         self._next_read = 0
         self._ventilator = None
+        #: The workers' counters, summed as their items are consumed.
+        self.counters = {}
 
     def start(self, worker_class, worker_args=None, ventilator=None):
         if self._stop_event.is_set():
@@ -162,6 +165,7 @@ class ThreadPool:
             empty_sweeps = 0
             if isinstance(result, VentilatedItemProcessedMessage):
                 self._processed[wid] += 1
+                add_counters(self.counters, result.counters)
                 if self._ventilator:
                     self._ventilator.processed_item()
                 self._next_read = (wid + 1) % self.workers_count

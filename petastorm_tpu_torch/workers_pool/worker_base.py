@@ -16,5 +16,10 @@ class WorkerBase:
     def process(self, *args, **kwargs):
         """Process one ventilated item; publish zero or more results."""
 
+    def take_counters(self) -> dict:
+        """Counts of what the worker did since the last call (name ->
+        int); the pool sums them into its ``counters``."""
+        return {}
+
     def shutdown(self):
         """Called once when the pool stops; release worker resources."""

@@ -631,3 +631,64 @@ def test_sequence_parallel_attention_runs_its_kernels_on_card(cuda_device, strat
     for g, w in zip(got[1:], (q.grad, k.grad, v.grad)):
         w = w.cpu().float()
         assert ((g.float() - w).norm() / w.norm()).item() < 0.04
+
+
+def _image_store(tmp_path, rows=96):
+    schema = Unischema("Img", [UnischemaField("id", np.int64, (), ScalarCodec(np.int64), False),
+                               UnischemaField("image", np.uint8, (32, 40, 3),
+                                              CompressedImageCodec("jpeg", 90), False)])
+    url = f"file://{tmp_path}/img"
+    rng = np.random.default_rng(12)
+    with materialize_dataset_local(url, schema, rows_per_row_group=16) as w:
+        for i in range(rows):
+            w.write_row({"id": i, "image": rng.integers(0, 255, (32, 40, 3), dtype=np.uint8)})
+    return url
+
+
+def test_process_path_batch_normalised_on_card_equals_the_thread_path(cuda_device, tmp_path):
+    """The process pool's rows, staged and normalised by K1 on the card,
+    are bit-equal to the thread pool's: one batch holds the whole store, in
+    id order, so the two pools' delivery orders do not matter."""
+    url = _image_store(tmp_path)
+
+    def normalised(pool_type):
+        with make_reader(url, reader_pool_type=pool_type, workers_count=2,
+                         shuffle_row_groups=False) as reader:
+            batch = next(iter(DataLoader(reader, batch_size=96, device=cuda_device)))
+        order = torch.argsort(batch["id"])
+        kernels.reset_launch_counts()
+        out = normalize_images(batch["image"][order].contiguous())
+        torch.cuda.synchronize()
+        assert kernels.launch_counts == {KERNEL_NAME: 1}
+        return batch["id"][order], out
+
+    ids_p, got = normalised("process")
+    ids_t, want = normalised("thread")
+    assert torch.equal(ids_p, ids_t) and ids_p.tolist() == list(range(96))
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_no_process_worker_holds_the_card(cuda_device, tmp_path):
+    """While a process reader runs beside this process's CUDA context, no
+    worker is on the card (``nvidia-smi`` and
+    ``torch.cuda.list_gpu_processes()``, where pynvml is installed) and
+    none maps libcuda."""
+    import subprocess
+    torch.zeros(1, device=cuda_device)      # this process holds a context
+    url = _image_store(tmp_path)
+    with make_reader(url, reader_pool_type="process", workers_count=2, num_epochs=None) as reader:
+        next(reader)
+        pids = reader.pool.worker_pids
+        smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60).stdout
+        listed = [int(w) for w in smi.split() if w.isdigit()]
+        assert not set(listed) & set(pids) and len(listed) <= 1
+        try:
+            procs = torch.cuda.list_gpu_processes(cuda_device)
+        except ModuleNotFoundError:   # pynvml is not installed
+            procs = ""
+        assert not any(f"process {pid:>10d}" in procs for pid in pids)
+        for pid in pids:
+            with open(f"/proc/{pid}/maps") as f:
+                maps = f.read()
+            assert "libcuda" not in maps and "libtorch" not in maps

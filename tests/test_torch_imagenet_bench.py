@@ -85,9 +85,15 @@ def test_bench_result_keys_are_the_jax_benchs(store32, small_net):
     assert got["model_flops_per_step_per_chip"] == resnet.resnet50_flops_per_step(8, 32, 4)
 
 
-def test_bench_refuses_the_process_pool(store32):
-    with pytest.raises(NotImplementedError, match="process pool"):
-        imagenet_bench.run_imagenet_bench(store32, pool_type="process", device="cpu")
+def test_bench_refuses_the_process_pool(store32, small_net):
+    """The bench used to refuse ``pool_type="process"``; the process pool is
+    ported now, so the same call runs and returns the thread run's keys."""
+    run = dict(steps=2, per_device_batch=8, workers_count=2, classes=4, resident_steps=1,
+               device="cpu")
+    got = imagenet_bench.run_imagenet_bench(store32, pool_type="process", **run)
+    want = imagenet_bench.run_imagenet_bench(store32, pool_type="thread", **run)
+    assert set(got) == set(want)
+    assert got["global_batch"] == 8 and np.isfinite(got["loss_last"])
 
 
 def test_flops_on_a_hand_counted_net(monkeypatch):

@@ -1,7 +1,8 @@
 """Import boundary of petastorm_tpu_torch: it and chip_smoke.py import
 neither ``jax`` nor the JAX package ``petastorm_tpu`` (not even its modules
-that do not import JAX), and every module imports on a host without
-``nvcc`` or a GPU."""
+that do not import JAX), nor ``zmq``, ``dill`` or ``psutil``; every module
+imports on a host without ``nvcc`` or a GPU; and the modules a spawned
+reader worker runs import without ``torch``."""
 import ast
 import pathlib
 import subprocess
@@ -70,7 +71,15 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.parallel.mesh", "petastorm_tpu_torch.parallel.launch",
             "petastorm_tpu_torch.parallel.ring_attention",
             "petastorm_tpu_torch.parallel.ulysses_attention",
-            "petastorm_tpu_torch.benchmark.seq_parallel_bench", "chip_smoke"} <= set(modules)
+            "petastorm_tpu_torch.benchmark.seq_parallel_bench", "chip_smoke",
+            "petastorm_tpu_torch.native", "petastorm_tpu_torch.native.imgcodec",
+            "petastorm_tpu_torch.reader_impl.shm_ring",
+            "petastorm_tpu_torch.reader_impl.pickle_serializer",
+            "petastorm_tpu_torch.workers_pool.process_pool",
+            "petastorm_tpu_torch.workers_pool.exec_in_new_process",
+            "petastorm_tpu_torch.workers_pool.exec_in_new_process_entrypoint",
+            "petastorm_tpu_torch.utils.decode",
+            "petastorm_tpu_torch.test_util.stub_workers"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -85,3 +94,41 @@ def test_source_names_no_jax_import(path):
         assert top not in ("jax", "jaxlib"), f"{path.name} imports {name}"
         assert name != "petastorm_tpu" and not name.startswith("petastorm_tpu."), \
             f"{path.name} imports {name}"
+        # The process pool's control plane is the standard library's.
+        assert top not in ("zmq", "dill", "psutil"), f"{path.name} imports {name}"
+
+
+#: What a spawned reader worker imports: the pool, the worker, the pickled
+#: arguments' modules (schema, NGram) and the decoders.
+WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
+                  "petastorm_tpu_torch.workers_pool.exec_in_new_process_entrypoint",
+                  "petastorm_tpu_torch.reader_impl.row_reader_worker",
+                  "petastorm_tpu_torch.reader_impl.shm_ring",
+                  "petastorm_tpu_torch.native.imgcodec", "petastorm_tpu_torch.utils.decode",
+                  "petastorm_tpu_torch.ngram", "petastorm_tpu_torch.etl.dataset_metadata",
+                  "petastorm_tpu_torch.test_util.stub_workers")
+
+
+def test_worker_modules_import_without_torch():
+    """The package's ``__init__`` exports lazily: importing a worker's
+    modules must not import torch (each spawned worker would pay for it)."""
+    code = ("import importlib, sys\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if 'torch' in m)\n"
+            "import petastorm_tpu_torch\n"
+            "assert 'torch' not in sys.modules\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code, *WORKER_MODULES], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr[-3000:]
+
+
+def test_package_exports_load_on_first_use():
+    import petastorm_tpu_torch
+    for name in petastorm_tpu_torch.__all__:
+        assert getattr(petastorm_tpu_torch, name) is not None
+    assert set(petastorm_tpu_torch.__all__) <= set(dir(petastorm_tpu_torch))
+    with pytest.raises(AttributeError):
+        petastorm_tpu_torch.not_an_export
