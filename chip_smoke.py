@@ -124,7 +124,29 @@ result line):
    pipelined steps (K2 "lse", K3, K4 counted); last, the teardown (no
    worker alive and no ring left in ``/dev/shm`` after ``join()``) and a
    worker killed with SIGKILL mid-epoch, which must make the reader raise
-   within 10 s.
+   within 10 s;
+12. the columnar path, which launches none of the kernels (the counts are
+   reset before the phase and must read nothing after it). On the JAX
+   bench's scalar store (``generate_scalar_dataset``: 100,000 rows, 16
+   float32 and 4 int64 columns, groups of 2048) ``batched_loader_throughput``
+   at the JAX bench's settings (batch 1024, 10 warm-up and 300 timed
+   batches, 3 threads or 2 processes) onto the CPU and onto the card; the
+   reader alone (``next_batch``) on both pools; and one seeded
+   ``InMemBatchedDataLoader`` load served for 3 epochs onto the card, byte
+   for byte the batches of the same loader on the CPU. Then the tensor
+   bench's schema (``id``, 8 float32 and 2 float32 ``FixedSizeList(64)``
+   columns, 552 bytes a row) written as the Spark converter writes it: 4
+   files of 262,144 rows, groups of 65,536 rows (36.2 MB), 579 MB in all;
+   ``make_batch_reader`` on 8 threads and on 8 processes, alone and under
+   ``BatchedDataLoader(batch_size=1024, device="cuda")``, plain and with
+   ``shuffling_queue_capacity=8192, seed=0``, one epoch each, and an
+   ``InMemBatchedDataLoader`` load on 4 processes (whose rings hold less
+   than the store) served one seeded epoch onto the card. Every staged
+   batch is held on the card against a ``pyarrow.parquet`` read of the
+   store gathered by ``id``, bit for bit, and each epoch's ids, sorted,
+   must be ``arange(1,048,576)``. On processes every row group must cross
+   the ring zero-copy (the claim counters), and no ring record may stay
+   pinned once the loader's batches are gone (none is kept past ``join()``).
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -165,7 +187,11 @@ from petastorm_tpu_torch.ops.flash_attn import (FlashAttentionFunction, flash_at
                                                 make_flash_attention)
 from petastorm_tpu_torch.ops.image_ops import (KERNEL_NAME, STRIDED_KERNEL_NAME,
                                                normalize_images, normalize_images_plain)
-from petastorm_tpu_torch.reader import make_reader, shm_free_bytes
+from petastorm_tpu_torch.benchmark.scalar_bench import (batched_loader_throughput,
+                                                        generate_scalar_dataset,
+                                                        generate_tensor_dataset)
+from petastorm_tpu_torch.loader import BatchedDataLoader, InMemBatchedDataLoader
+from petastorm_tpu_torch.reader import make_batch_reader, make_reader, shm_free_bytes
 from petastorm_tpu_torch.test_util.stub_workers import EnvironmentWorker
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 from petastorm_tpu_torch.workers_pool import EmptyResultError
@@ -308,6 +334,22 @@ PROCESS_LLAMA = llama.LlamaConfig(n_layers=2)
 PROCESS_TRAIN_STEPS = 2
 PARITY_ROWS = 64
 KILL_BAR_S = 10.0
+
+# The columnar path (phase 12): the JAX bench's scalar store and
+# batched_loader_throughput settings (bench.py:291-361), and its tensor_50k
+# schema (bench.py:343-352) at the Spark converter's layout: files above its
+# 50 MB median, groups near its 32 MB default, one epoch shard of 2^20 rows.
+SCALAR_BENCH = dict(batch_size=1024, warmup_batches=10, measure_batches=300)
+SCALAR_WORKERS = {"thread": 3, "process": 2}
+SCALAR_ROW_BYTES = 16 * 4 + 4 * 8
+INMEM_EPOCHS, INMEM_SEED = 3, 0
+TENSOR_ROWS, TENSOR_FILES, TENSOR_GROUP, TENSOR_LIST = 1 << 20, 4, 1 << 16, 64
+COLUMNAR_WORKERS, COLUMNAR_BATCH = 8, 1024
+COLUMNAR_SHUFFLE = dict(shuffling_queue_capacity=8192, seed=0)
+# The in-memory load of the tensor store runs on 4 processes: the store
+# (579 MB) is larger than their rings (4 x 128 MiB), so a load that kept its
+# groups pinned in the rings would stall.
+INMEM_WORKERS = 4
 
 
 def log(msg):
@@ -1907,6 +1949,209 @@ def phase_process(slice_url: str, token_url: str, imagenet_url: str, thread_benc
                                                            for n in names}}
 
 
+def _reader_alone(url: str, pool_type: str, workers: int) -> dict:
+    """One epoch of ``make_batch_reader(url).next_batch()``, copying nothing:
+    rows, bytes, seconds (from the call, and from the first batch on), the
+    workers' start-up and the pool's counters."""
+    rows = nbytes = 0
+    t0 = time.perf_counter()
+    with make_batch_reader(url, reader_pool_type=pool_type, workers_count=workers,
+                           seed=0) as reader:
+        while True:
+            try:
+                batch = reader.next_batch()
+            except StopIteration:
+                break
+            if not rows:
+                t_first = time.perf_counter()
+            rows += len(batch["id"] if "id" in batch else next(iter(batch.values())))
+            nbytes += sum(v.nbytes for v in batch.values())
+            del batch
+        t_end = time.perf_counter()
+        pinned = reader.pool.pinned if pool_type == "process" else 0
+        out = {"rows": rows, "bytes": nbytes, "s": t_end - t0, "from_first_s": t_end - t_first,
+               "start_s": getattr(reader.pool, "start_seconds", None), "counters": reader.counters,
+               "pinned": pinned}
+    out["leaked"] = list(getattr(reader.pool, "leaked_rings", []))
+    return out
+
+
+def _columnar_line(what: str, r: dict) -> str:
+    start = "none (threads)" if r["start_s"] is None else f"{r['start_s']:.3f} s"
+    return (f"[columnar] {what}: {r['rows']} rows, {r['bytes'] / 1e6:.1f} MB in {r['s']:.3f} s: "
+            f"{r['rows'] / r['s']:.1f} rows/s, {r['bytes'] / 1e6 / r['s']:.1f} MB/s "
+            f"({r['rows'] / r['from_first_s']:.1f} rows/s from the first batch on); workers' "
+            f"start-up {start}; zero-copy batches {r['counters'].get('zero_copy_batches', 0)}, "
+            f"bytes {r['counters'].get('zero_copy_bytes', 0)}")
+
+
+def _tensor_reference(url: str) -> dict:
+    """The tensor store read by ``pyarrow.parquet`` alone, each column on the
+    card in ``id`` order (float32 columns seen as int32, so that equality is
+    bit equality)."""
+    import pyarrow.parquet as pq
+    table = pq.read_table(url[len("file://"):])
+    ids = table.column("id").to_numpy()
+    order = np.argsort(ids, kind="stable")
+    if not np.array_equal(ids[order], np.arange(TENSOR_ROWS)):
+        raise AssertionError("the tensor store's ids are not arange(rows)")
+    ref = {}
+    for name in table.column_names:
+        col = table.column(name).combine_chunks()
+        arr = (col.values.to_numpy().reshape(len(col), col.type.list_size)
+               if hasattr(col.type, "list_size") else col.to_numpy())
+        t = torch.from_numpy(np.ascontiguousarray(arr[order])).to("cuda")
+        ref[name] = t.view(torch.int32) if t.dtype == torch.float32 else t
+    return ref
+
+
+def _tensor_loader_epoch(url: str, pool_type: str, make_loader, ref: dict,
+                         workers: int = COLUMNAR_WORKERS) -> dict:
+    """One timed epoch of ``make_loader(make_batch_reader(url))`` onto the
+    card (an in-memory loader's load inside the timed window), its batches
+    kept there; then, out of the timed window, every column of every batch
+    held against ``ref`` by id and the epoch's ids gathered."""
+    rows = nbytes = 0
+    batches = []
+    t0 = time.perf_counter()
+    with make_batch_reader(url, reader_pool_type=pool_type, workers_count=workers,
+                           seed=0) as reader:
+        for batch in make_loader(reader):
+            if not rows:
+                t_first = time.perf_counter()
+            batches.append(batch)
+            rows += len(batch["id"])
+            nbytes += sum(v.numel() * v.element_size() for v in batch.values())
+        del batch
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        gc.collect()
+        pinned = reader.pool.pinned if pool_type == "process" else 0
+        out = {"rows": rows, "bytes": nbytes, "s": t_end - t0, "from_first_s": t_end - t_first,
+               "start_s": getattr(reader.pool, "start_seconds", None), "counters": reader.counters,
+               "pinned": pinned}
+    out["leaked"] = list(getattr(reader.pool, "leaked_rings", []))
+    ids = torch.cat([b["id"] for b in batches])
+    out["every_row_once"] = bool(torch.equal(torch.sort(ids).values,
+                                             torch.arange(TENSOR_ROWS, device="cuda")))
+    mismatches = 0
+    for name, want in ref.items():
+        got = torch.cat([b[name] for b in batches])
+        got = got.view(torch.int32) if got.dtype == torch.float32 else got
+        mismatches += int((got != want[ids]).sum())
+        del got
+    out["mismatches"] = mismatches
+    return out
+
+
+def phase_columnar(tmp: str) -> None:
+    """The columnar path (see the module docstring, phase 12)."""
+    t_phase = time.perf_counter()
+    failures = []
+    kernels.reset_launch_counts()
+
+    def zero_copy_ok(what, r, groups):
+        if r["counters"].get("zero_copy_batches", 0) != groups or r["pinned"] or r["leaked"]:
+            failures.append(f"{what}: zero-copy batches {r['counters'].get('zero_copy_batches')} "
+                            f"of {groups} groups, {r['pinned']} records pinned, rings kept "
+                            f"{r['leaked']}")
+
+    # The scalar store: the JAX bench's settings, onto the CPU and the card.
+    scalar_url = generate_scalar_dataset(f"file://{tmp}/scalar_100k")
+    scalar_groups = -(-100_000 // 2048)
+    for pool_type, workers in SCALAR_WORKERS.items():
+        for device in ("cpu", "cuda"):
+            rate = batched_loader_throughput(scalar_url, workers_count=workers,
+                                             pool_type=pool_type, device=device, **SCALAR_BENCH)
+            log(f"[columnar] scalar bench, {pool_type} x{workers} -> {device}: {rate:.1f} rows/s, "
+                f"{rate * SCALAR_ROW_BYTES / 1e6:.1f} MB/s")
+            if not rate > 0:
+                failures.append(f"scalar bench {pool_type} {device}: {rate}")
+        r = _reader_alone(scalar_url, pool_type, workers)
+        log(_columnar_line(f"scalar reader alone, {pool_type} x{workers}", r))
+        if r["rows"] != 100_000:
+            failures.append(f"scalar reader alone {pool_type}: {r['rows']} rows")
+        if pool_type == "process":
+            zero_copy_ok(f"scalar reader alone {pool_type}", r, scalar_groups)
+
+    # Staging is exact: one seeded in-memory load, 3 epochs on the card
+    # against the same loader on the CPU.
+    with make_batch_reader(scalar_url, reader_pool_type="thread", workers_count=3,
+                           shuffle_row_groups=False) as reader:
+        on_card = InMemBatchedDataLoader(reader, batch_size=SCALAR_BENCH["batch_size"],
+                                         num_epochs=INMEM_EPOCHS, seed=INMEM_SEED, device="cuda")
+    with make_batch_reader(scalar_url, reader_pool_type="thread", workers_count=3,
+                           shuffle_row_groups=False) as reader:
+        on_cpu = InMemBatchedDataLoader(reader, batch_size=SCALAR_BENCH["batch_size"],
+                                        num_epochs=INMEM_EPOCHS, seed=INMEM_SEED, device="cpu")
+    t0 = time.perf_counter()
+    staged = [batch for batch in on_card]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = sum(len(b["f0"]) for b in staged)
+    equal = sum(all(torch.equal(got[k].cpu(), want[k]) for k in want)
+                for got, want in zip(staged, on_cpu))
+    log(f"[columnar] scalar in memory, {INMEM_EPOCHS} epochs -> cuda: {rows} rows in {wall:.3f} s: "
+        f"{rows / wall:.1f} rows/s, {rows * SCALAR_ROW_BYTES / 1e6 / wall:.1f} MB/s; "
+        f"{equal}/{len(staged)} batches byte-equal to the CPU loader's")
+    want_rows = INMEM_EPOCHS * (100_000 // SCALAR_BENCH["batch_size"]) * SCALAR_BENCH["batch_size"]
+    if equal != len(staged) or rows != want_rows:
+        failures.append(f"in memory: {equal}/{len(staged)} batches equal, {rows} rows")
+    del staged, on_card, on_cpu
+
+    # The tensor store at the converter's layout.
+    t0 = time.perf_counter()
+    tensor_url = generate_tensor_dataset(f"file://{tmp}/tensor", rows=TENSOR_ROWS,
+                                         files=TENSOR_FILES, row_group_size=TENSOR_GROUP,
+                                         list_size=TENSOR_LIST)
+    tensor_groups = TENSOR_ROWS // TENSOR_GROUP
+    on_disk = sum(os.path.getsize(f"{tmp}/tensor/part{k}.parquet") for k in range(TENSOR_FILES))
+    ref = _tensor_reference(tensor_url)
+    log(f"[columnar] tensor store: {TENSOR_ROWS} rows in {TENSOR_FILES} files of "
+        f"{tensor_groups // TENSOR_FILES} groups, {on_disk / 1e6:.1f} MB on disk, "
+        f"{sum(t.numel() * t.element_size() for t in ref.values()) / 1e6:.1f} MB of columns; "
+        f"written and read for reference in {time.perf_counter() - t0:.3f} s")
+    for pool_type in ("thread", "process"):
+        r = _reader_alone(tensor_url, pool_type, COLUMNAR_WORKERS)
+        log(_columnar_line(f"tensor reader alone, {pool_type} x{COLUMNAR_WORKERS}", r))
+        if r["rows"] != TENSOR_ROWS:
+            failures.append(f"tensor reader alone {pool_type}: {r['rows']} rows")
+        if pool_type == "process":
+            zero_copy_ok(f"tensor reader alone {pool_type}", r, tensor_groups)
+        loaders = [(f"BatchedDataLoader {kind}, {pool_type} x{COLUMNAR_WORKERS}",
+                    COLUMNAR_WORKERS,
+                    lambda reader, shuffle=shuffle: BatchedDataLoader(
+                        reader, batch_size=COLUMNAR_BATCH, device="cuda", **shuffle))
+                   for kind, shuffle in (("plain", {}), ("shuffled", COLUMNAR_SHUFFLE))]
+        if pool_type == "process":
+            loaders.append((f"InMemBatchedDataLoader load + 1 epoch, {pool_type} x{INMEM_WORKERS}",
+                            INMEM_WORKERS,
+                            lambda reader: InMemBatchedDataLoader(
+                                reader, batch_size=COLUMNAR_BATCH, seed=INMEM_SEED,
+                                device="cuda")))
+        for name, workers, make_loader in loaders:
+            r = _tensor_loader_epoch(tensor_url, pool_type, make_loader, ref, workers)
+            what = f"tensor {name} -> cuda"
+            log(_columnar_line(what, r) + f"; every row once {r['every_row_once']}, "
+                f"{r['mismatches']} values differ from pyarrow's; {r['pinned']} records pinned, "
+                f"rings kept past join {r['leaked']}")
+            if r["rows"] != TENSOR_ROWS or not r["every_row_once"] or r["mismatches"]:
+                failures.append(f"{what}: {r['rows']} rows, every row once "
+                                f"{r['every_row_once']}, {r['mismatches']} values differ")
+            if pool_type == "process":
+                zero_copy_ok(what, r, tensor_groups)
+    del ref
+    free_cuda()
+
+    launches = dict(kernels.launch_counts)
+    log(f"[columnar] kernel launches during the phase: {launches}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if launches:
+        failures.append(f"the columnar path launched kernels: {launches}")
+    if failures:
+        raise AssertionError("columnar path: " + "; ".join(failures))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1930,6 +2175,9 @@ def main() -> int:
             seq = phase_seq_parallel(tmp)
         proc = phase_process(f"file://{slice_tmp}/imagenet_like", f"file://{train_tmp}/tokens",
                              f"file://{image_tmp}/imagenet", thread_bench)
+    free_cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_columnar(tmp)
     for name in (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
                  flash_attn.BWD_DKV_KERNEL_NAME):
         counts[name] += proc[name]

@@ -3,7 +3,9 @@
 Parquet stores written by either package, read with :func:`make_reader`
 (rows, or :class:`NGram` windows of a token store) on decode threads or
 spawned decode processes, batched and staged onto an NVIDIA GPU by
-:class:`DataLoader`, and consumed on the card: images are normalised by
+:class:`DataLoader`; any Parquet store read column by column with
+:func:`make_batch_reader` and batched by :class:`BatchedDataLoader` or
+:class:`InMemBatchedDataLoader`; and consumed on the card: images are normalised by
 :func:`normalize_images`, and token windows feed the Llama forward and its
 AdamW training step (``models.llama``) on :func:`flash_attention`, whose
 gradient runs the flash backward kernels. All of these are hand-written
@@ -16,7 +18,10 @@ without it.
 import importlib
 
 _EXPORTS = {
+    "BatchedDataLoader": "petastorm_tpu_torch.loader",
     "DataLoader": "petastorm_tpu_torch.loader",
+    "InMemBatchedDataLoader": "petastorm_tpu_torch.loader",
+    "make_batch_reader": "petastorm_tpu_torch.reader",
     "NGram": "petastorm_tpu_torch.ngram",
     "flash_attention": "petastorm_tpu_torch.ops.flash_attn",
     "make_flash_attention": "petastorm_tpu_torch.ops.flash_attn",

@@ -62,6 +62,7 @@ class DatasetContext:
         self.filesystem, self.root_path = get_filesystem_and_path(dataset_url)
         self._file_paths: Optional[List[str]] = None
         self._kv_metadata: Optional[Dict[bytes, bytes]] = None
+        self._arrow_schema = None
 
     def file_paths(self) -> List[str]:
         """Every data file under the root, sorted for deterministic plans."""
@@ -69,6 +70,21 @@ class DatasetContext:
             self._file_paths = sorted(
                 f for f in self.filesystem.find(self.root_path) if is_data_file(f))
         return self._file_paths
+
+    def arrow_schema(self):
+        """The store's Arrow schema: the ``_common_metadata`` or
+        ``_metadata`` sidecar's, else the first data file's."""
+        if self._arrow_schema is None:
+            schema = (self._read_sidecar_schema("_common_metadata")
+                      or self._read_sidecar_schema("_metadata"))
+            if schema is None:
+                files = self.file_paths()
+                if not files:
+                    raise MetadataError(f"No parquet files found under {self.root_path}")
+                with self.filesystem.open(files[0], "rb") as f:
+                    schema = pq.ParquetFile(f).schema_arrow
+            self._arrow_schema = schema
+        return self._arrow_schema
 
     def _read_sidecar_schema(self, name):
         p = posixpath.join(self.root_path, name)
@@ -145,6 +161,16 @@ def get_schema(ctx: DatasetContext) -> Unischema:
     raise MetadataError(
         f"Could not find a Unischema in dataset metadata at {ctx.root_path}. "
         "Was the dataset written with materialize_dataset_local()?")
+
+
+def infer_or_load_unischema(ctx: DatasetContext) -> Unischema:
+    """The stored Unischema, or one inferred from the store's Arrow schema
+    (:meth:`Unischema.from_arrow_schema`, unsupported columns left out) for
+    a plain Parquet store."""
+    try:
+        return get_schema(ctx)
+    except MetadataError:
+        return Unischema.from_arrow_schema(ctx.arrow_schema(), omit_unsupported_fields=True)
 
 
 def write_dataset_metadata(ctx: DatasetContext, schema: Unischema) -> None:

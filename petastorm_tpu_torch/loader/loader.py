@@ -1,12 +1,21 @@
-"""``DataLoader``: reader rows -> fixed-size batches of tensors on the card.
+"""Loaders: reader output -> fixed-size batches of tensors on the card.
 
-Rows from a ``make_reader`` reader are (optionally) shuffled through a
-seeded row buffer, collated into ``{field: array}`` batches of
-``batch_size`` rows, and staged onto ``device`` by a background thread that
-keeps ``prefetch`` batches ready. The collated host batches are the ones
-the JAX package's ``DataLoader`` builds from the same reader settings.
-NGram windows collate to a dense ``(batch, length, *shape)`` array per
-field (see :meth:`DataLoader._collate_ngram`).
+* :class:`DataLoader`: rows from a ``make_reader`` reader are (optionally)
+  shuffled through a seeded row buffer and collated into
+  ``{field: array}`` batches of ``batch_size`` rows. NGram windows collate
+  to a dense ``(batch, length, *shape)`` array per field (see
+  :meth:`DataLoader._collate_ngram`).
+* :class:`BatchedDataLoader`: the row groups of a ``make_batch_reader``
+  reader are re-chunked into batches by vectorized column buffers
+  (:mod:`.batched_buffer`), optionally shuffled.
+* :class:`InMemBatchedDataLoader`: a batched reader is read once, then
+  epochs are served from memory, reshuffled each epoch.
+
+Each stages its batches onto ``device`` from a background thread that
+keeps ``prefetch`` batches ready (:class:`LoaderBase`). The host batches
+are the ones the JAX package's loaders build from the same reader
+settings. :func:`aligned_steps_per_epoch` gives the batch count every
+shard can deliver, for ``steps_per_epoch``.
 
 Staging to a CUDA device:
 
@@ -18,7 +27,11 @@ Staging to a CUDA device:
   and ``record_stream`` marks the tensors as used by the consumer's stream;
 * a pinned buffer is refilled only after its copy's event has completed.
 
-``device="cpu"`` hands out tensors that share the collated numpy memory.
+``device="cpu"`` hands out tensors that share the collated numpy memory:
+on a batched process reader, a batch inside one row group shares the
+shared-memory ring's record, which stays pinned until the tensor is
+dropped. Such memory is read-only (torch warns when it wraps it): clone a
+batch before writing into it.
 
 ``echo=k`` (data echoing, Choi et al., arXiv:1907.05550) yields each staged
 batch ``k`` times: the repeats are ``.clone()``s of its tensors (one copy on
@@ -29,12 +42,16 @@ from __future__ import annotations
 
 import queue
 import threading
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from petastorm_tpu_torch.loader.dtypes import DEFAULT_POLICY, DTypePolicy, sanitize_batch
+from petastorm_tpu_torch.loader.batched_buffer import (BatchedNoopShufflingBuffer,
+                                                       BatchedRandomShufflingBuffer)
+from petastorm_tpu_torch.loader.dtypes import (DEFAULT_POLICY, DTypePolicy, sanitize_array,
+                                               sanitize_batch)
 from petastorm_tpu_torch.reader_impl.shuffling_buffer import RandomShufflingBuffer
 
 #: Consumer poll period on the staged-batch queue: bounds how late a dead
@@ -103,15 +120,14 @@ class _PinnedStager:
         return staged, event
 
 
-class DataLoader:
-    """Batches of a row reader, staged onto ``device``.
+class LoaderBase:
+    """Staging shared by the loaders: a background thread sanitizes each
+    host batch (:class:`DTypePolicy`) and stages it onto ``device``,
+    ``prefetch`` batches ahead; the short last batch is dropped, padded or
+    kept (:meth:`_finalize_tail`); ``echo`` repeats each batch;
+    ``steps_per_epoch`` cuts each pass at a fixed count of batches.
 
-    :param reader: a ``make_reader`` reader
     :param batch_size: rows per batch
-    :param shuffling_queue_capacity: > 1 enables a seeded row shuffling buffer
-    :param min_after_retrieve: shuffle-quality floor of the buffer (default
-        half its capacity)
-    :param seed: buffer RNG seed
     :param drop_last: drop the last batch when it is short (default)
     :param pad_last: zero-pad the last batch to ``batch_size`` instead and
         add a boolean ``__valid__`` column
@@ -121,6 +137,310 @@ class DataLoader:
         clones of its tensors; host columns pass through)
     :param dtype_policy: how columns become tensors (:class:`DTypePolicy`;
         the default keeps every type torch has)
+    :param steps_per_epoch: each ``iter()`` yields exactly this many
+        batches from one pipeline that lives across passes (no staged batch
+        is lost between them), and raises ``RuntimeError`` when the stream
+        ends sooner; see :func:`aligned_steps_per_epoch`
+    """
+
+    def __init__(self, batch_size: int, drop_last: bool = True, pad_last: bool = False,
+                 prefetch: int = 2, device="cuda", echo: int = 1,
+                 dtype_policy: DTypePolicy = DEFAULT_POLICY,
+                 steps_per_epoch: Optional[int] = None):
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if echo < 1:
+            raise ValueError(f"echo must be >= 1, got {echo}")
+        if steps_per_epoch is not None and steps_per_epoch < 1:
+            raise ValueError(f"steps_per_epoch must be >= 1, got {steps_per_epoch}")
+        self._device = resolve_device(device)
+        self._batch_size = batch_size
+        self._pad_last = pad_last
+        self._drop_last = drop_last and not pad_last
+        self._prefetch = max(1, prefetch)
+        self._echo = echo
+        self._dtype_policy = dtype_policy
+        self._steps_per_epoch = steps_per_epoch
+        self._persistent_it = None
+        self._in_iter = False
+        self._stage_stop: Optional[threading.Event] = None
+        self._skipped_warned: set = set()
+        # Per-column sticky conversion of object columns: "drop" or
+        # (kind, row_shape, dtype).
+        self._object_column_mode: Dict[str, object] = {}
+
+    # ----------------------------------------------------- object columns
+    def _batchable_columns(self, group) -> Dict[str, np.ndarray]:
+        """The batchable columns of one row group of a batched reader (its
+        ``{column: ndarray}``, or the namedtuple ``next(reader)`` gives).
+
+        An object column of uniform numeric rows densifies into a
+        ``(rows, *row_shape)`` array; a Decimal column converts by the
+        dtype policy; a ragged or string column is dropped with one
+        warning. The first group that carries the column decides, with the
+        exact row shape and dtype, for the whole stream, so a column never
+        changes form between groups: later null rows of a float column
+        become NaN, and any other difference raises ``ValueError`` naming
+        the column. An entirely null first group locks a column to "drop";
+        declare the field's shape to avoid that."""
+        cols, skipped = {}, []
+        items = (group.items() if isinstance(group, dict)
+                 else ((name, getattr(group, name)) for name in group._fields))
+        for name, arr in items:
+            if arr.dtype != object:
+                cols[name] = arr
+                continue
+            mode = self._object_column_mode.get(name)
+            if mode is None:
+                mode, converted = self._decide_object_mode(arr)
+                self._object_column_mode[name] = mode
+                if mode != "drop":
+                    cols[name] = converted
+                    continue
+            elif mode != "drop":
+                kind, row_shape, dtype = mode
+                converted = (self._try_sanitize(arr) if kind == "sanitize"
+                             else self._try_densify(arr))
+                if converted is None and np.dtype(dtype).kind == "f":
+                    converted = self._densify_with_nan_fill(arr, row_shape, np.dtype(dtype))
+                if (converted is None or converted.shape[1:] != row_shape
+                        or converted.dtype != dtype):
+                    got = ("null/ragged/non-numeric rows" if converted is None
+                           else f"rows of shape {converted.shape[1:]} {converted.dtype}")
+                    raise ValueError(
+                        f"Column {name!r} batched as shape {row_shape} {dtype} earlier in "
+                        f"the stream but this row group has {got}; declare the field's "
+                        f"shape (or exclude the column) for consistent batches")
+                cols[name] = converted
+                continue
+            skipped.append(name)
+        self._warn_skipped_fields(skipped)
+        return cols
+
+    def _decide_object_mode(self, arr):
+        """First sight of an object column: the dtype policy's conversion
+        (Decimal), then uniform-row densify, else drop."""
+        converted = self._try_sanitize(arr)
+        if converted is not None:
+            return ("sanitize", converted.shape[1:], converted.dtype), converted
+        dense = self._try_densify(arr)
+        if dense is not None:
+            return ("dense", dense.shape[1:], dense.dtype), dense
+        return "drop", None
+
+    def _try_sanitize(self, obj_column) -> Optional[np.ndarray]:
+        try:
+            out = sanitize_array(obj_column, self._dtype_policy)
+        except (TypeError, ValueError, ArithmeticError):
+            return None
+        return out if out is not None and out.dtype != object else None
+
+    @staticmethod
+    def _densify_with_nan_fill(obj_column, row_shape, dtype) -> Optional[np.ndarray]:
+        """A float-locked column with null rows, stacked with NaN rows; None
+        when a non-null row differs from the locked layout."""
+        fill = np.full(row_shape, np.nan, dtype)
+        rows = []
+        for v in obj_column:
+            if v is None:
+                rows.append(fill)
+                continue
+            try:
+                a = np.asarray(v, dtype=dtype)
+            except (TypeError, ValueError):
+                return None
+            if a.shape != tuple(row_shape):
+                return None
+            rows.append(a)
+        return np.stack(rows) if rows else None
+
+    @staticmethod
+    def _try_densify(obj_column) -> Optional[np.ndarray]:
+        """An object column of equal-shape numeric rows, stacked; None when
+        a row is missing, ragged or not numeric."""
+        try:
+            if any(v is None for v in obj_column):
+                return None
+            dense = np.stack([np.asarray(v) for v in obj_column])
+        except ValueError:
+            return None
+        return dense if dense.dtype.kind in "biufc" else None
+
+    def _warn_skipped_fields(self, names):
+        """One warning per newly dropped column."""
+        new = [n for n in names if n not in self._skipped_warned]
+        if new:
+            self._skipped_warned.update(new)
+            warnings.warn(
+                f"Dropping non-batchable column(s) {sorted(new)}: ragged/null/string values "
+                f"cannot form fixed-shape batches. Read them with the row reader to keep them.")
+
+    def _finalize_tail(self, cols: Dict[str, np.ndarray], count: int):
+        """The short last batch: dropped, zero-padded with a ``__valid__``
+        mask, or emitted as is."""
+        if count == 0:
+            return None
+        if count == self._batch_size:
+            return cols
+        if self._drop_last:
+            return None
+        if self._pad_last:
+            pad = self._batch_size - count
+            out = {k: np.pad(v, [(0, pad)] + [(0, 0)] * (v.ndim - 1)) for k, v in cols.items()}
+            out["__valid__"] = np.concatenate([np.ones(count, np.bool_),
+                                               np.zeros(pad, np.bool_)])
+            return out
+        return cols
+
+    # -------------------------------------------------------------- staging
+    def _prefetched(self, host_batches):
+        """Collate and stage on a background thread, ``prefetch`` batches
+        ahead; deliver on the consumer's thread and stream."""
+        q: queue.Queue = queue.Queue(maxsize=self._prefetch)
+        stop = threading.Event()
+        self._stage_stop = stop
+        end, err = object(), object()
+        cuda = self._device.type == "cuda"
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                if cuda:
+                    torch.cuda.set_device(self._device)
+                    stager = _PinnedStager(self._device, self._prefetch + 1)
+                for hb in host_batches:
+                    if stop.is_set():
+                        return
+                    cols, host_cols = sanitize_batch(hb, self._dtype_policy)
+                    if cuda:
+                        staged, event = stager.stage(cols)
+                    else:
+                        staged = {k: v.contiguous() if isinstance(v, torch.Tensor)
+                                  else torch.from_numpy(np.ascontiguousarray(v))
+                                  for k, v in cols.items()}
+                        event = None
+                    staged.update(host_cols)
+                    if not put((None, staged, event)):
+                        return
+            except BaseException as e:  # noqa: BLE001 - re-raised on the consumer
+                put((err, e, None))
+            finally:
+                put((end, None, None))
+                host_batches.close()
+
+        thread = threading.Thread(target=produce, daemon=True, name="petastorm-torch-stage")
+        thread.start()
+        try:
+            while True:
+                try:
+                    kind, item, event = q.get(timeout=_STAGE_POLL_S)
+                except queue.Empty:
+                    if thread.is_alive() or not q.empty():
+                        continue
+                    raise RuntimeError("Loader staging thread died without delivering "
+                                       "a batch, an error or end-of-stream") from None
+                if kind is end:
+                    return
+                if kind is err:
+                    raise item
+                if event is not None:
+                    consumer = torch.cuda.current_stream(self._device)
+                    consumer.wait_event(event)
+                    for v in item.values():
+                        if isinstance(v, torch.Tensor):
+                            v.record_stream(consumer)
+                yield item
+                for _ in range(self._echo - 1):
+                    yield {k: v.clone() if isinstance(v, torch.Tensor) else v
+                           for k, v in item.items()}
+        finally:
+            stop.set()
+            self._stage_stop = None
+            thread.join(5.0)
+
+    def _host_batches(self):
+        """The host batches of one pass, as ``{name: ndarray}``."""
+        raise NotImplementedError
+
+    def __iter__(self):
+        if self._in_iter:
+            raise RuntimeError("Loader is already being iterated")
+        self._in_iter = True
+        try:
+            if self._steps_per_epoch is None:
+                it = self._prefetched(self._host_batches())
+                try:
+                    yield from it
+                finally:
+                    it.close()
+                return
+            # One pipeline for every pass: tearing it down between passes
+            # would drop its staged batches from the stream, so with
+            # num_epochs=None the next pass continues where this one stopped.
+            if self._persistent_it is None:
+                self._persistent_it = self._prefetched(self._host_batches())
+            for step in range(self._steps_per_epoch):
+                try:
+                    batch = next(self._persistent_it)
+                except StopIteration:
+                    self._persistent_it = None
+                    # A short pass would leave this rank out of collectives
+                    # its peers enter: fail loudly instead.
+                    raise RuntimeError(
+                        f"stream ended after {step} of {self._steps_per_epoch} "
+                        f"steps_per_epoch: a finite reader ran dry mid-pass. Open the reader "
+                        f"with num_epochs=None (continuous aligned passes) or bound "
+                        f"steps_per_epoch to what every epoch can deliver") from None
+                except BaseException:
+                    # A real failure ends the pipeline: a retrying caller
+                    # builds a new one.
+                    self._persistent_it = None
+                    raise
+                yield batch
+        finally:
+            self._in_iter = False
+
+    def close(self):
+        """Stop the staging thread (if an iterator was abandoned or a
+        ``steps_per_epoch`` pipeline lives) and stop and join the reader,
+        when the loader holds one. ``with loader: ...`` does this on exit."""
+        if self._persistent_it is not None:
+            self._persistent_it.close()
+            self._persistent_it = None
+        if self._stage_stop is not None:
+            self._stage_stop.set()
+        reader = getattr(self, "_reader", None)
+        if reader is not None:
+            reader.stop()
+            reader.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+class DataLoader(LoaderBase):
+    """Batches of a row reader, staged onto ``device``.
+
+    :param reader: a ``make_reader`` reader
+    :param batch_size: rows per batch
+    :param shuffling_queue_capacity: > 1 enables a seeded row shuffling buffer
+    :param min_after_retrieve: shuffle-quality floor of the buffer (default
+        half its capacity)
+    :param seed: buffer RNG seed
+
+    The other arguments are :class:`LoaderBase`'s.
     """
 
     def __init__(self, reader, batch_size: int,
@@ -129,27 +449,17 @@ class DataLoader:
                  seed: Optional[int] = None,
                  drop_last: bool = True, pad_last: bool = False,
                  prefetch: int = 2, device="cuda", echo: int = 1,
-                 dtype_policy: DTypePolicy = DEFAULT_POLICY):
-        if batch_size < 1:
-            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        if echo < 1:
-            raise ValueError(f"echo must be >= 1, got {echo}")
-        self._device = resolve_device(device)
+                 dtype_policy: DTypePolicy = DEFAULT_POLICY,
+                 steps_per_epoch: Optional[int] = None):
+        super().__init__(batch_size, drop_last=drop_last, pad_last=pad_last, prefetch=prefetch,
+                         device=device, echo=echo, dtype_policy=dtype_policy,
+                         steps_per_epoch=steps_per_epoch)
         self._reader = reader
         self._ngram = getattr(reader, "ngram", None)
-        self._batch_size = batch_size
         self._shuffling_capacity = shuffling_queue_capacity
         self._min_after = min_after_retrieve
         self._seed = seed
-        self._pad_last = pad_last
-        self._drop_last = drop_last and not pad_last
-        self._prefetch = max(1, prefetch)
-        self._echo = echo
-        self._dtype_policy = dtype_policy
-        self._in_iter = False
-        self._stage_stop: Optional[threading.Event] = None
 
-    # ----------------------------------------------------------- host side
     def _row_iterator(self):
         if self._reader.last_row_consumed:
             self._reader.reset()
@@ -238,21 +548,6 @@ class DataLoader:
                     out[f"{name}/{o}"] = column(name, [getattr(w[o], name) for w in windows])
         return out
 
-    def _finalize_tail(self, cols: Dict[str, np.ndarray], count: int):
-        """The short last batch: dropped, zero-padded with a ``__valid__``
-        mask, or emitted as is."""
-        if count == self._batch_size:
-            return cols
-        if self._drop_last:
-            return None
-        if self._pad_last:
-            pad = self._batch_size - count
-            out = {k: np.pad(v, [(0, pad)] + [(0, 0)] * (v.ndim - 1)) for k, v in cols.items()}
-            out["__valid__"] = np.concatenate([np.ones(count, np.bool_),
-                                               np.zeros(pad, np.bool_)])
-            return out
-        return cols
-
     def _host_batches(self):
         rows = []
         for row in self._row_iterator():
@@ -265,104 +560,190 @@ class DataLoader:
             if tail is not None:
                 yield tail
 
-    # -------------------------------------------------------------- staging
-    def _prefetched(self, host_batches):
-        """Collate and stage on a background thread, ``prefetch`` batches
-        ahead; deliver on the consumer's thread and stream."""
-        q: queue.Queue = queue.Queue(maxsize=self._prefetch)
-        stop = threading.Event()
-        self._stage_stop = stop
-        end, err = object(), object()
-        cuda = self._device.type == "cuda"
 
-        def put(item) -> bool:
-            while not stop.is_set():
+
+class BatchedDataLoader(LoaderBase):
+    """Batches of a batched reader (``make_batch_reader``), staged onto
+    ``device``: each row group's columns go through a vectorized buffer
+    that re-chunks them into ``batch_size`` rows, in order, or drawn at
+    random when ``shuffling_queue_capacity > 1``.
+
+    :param reader: a ``make_batch_reader`` reader
+    :param batch_size: rows per batch
+    :param shuffling_queue_capacity: > 1 enables a seeded shuffling buffer of
+        that many rows (a row group is added whole)
+    :param min_after_retrieve: shuffle-quality floor of the buffer (default
+        half its capacity)
+    :param seed: buffer RNG seed
+
+    The other arguments are :class:`LoaderBase`'s. Without shuffling, a
+    batch inside one row group is a slice of the reader's arrays: on a
+    process reader those view the ring until the batch is staged (or, on
+    ``device="cpu"``, until its tensors are dropped). Such ``device="cpu"``
+    tensors wrap read-only memory (the ring's, or Arrow's on threads):
+    ``.clone()`` one before writing into it.
+    """
+
+    def __init__(self, reader, batch_size: int, shuffling_queue_capacity: int = 0,
+                 min_after_retrieve: Optional[int] = None, seed: Optional[int] = None,
+                 **kwargs):
+        super().__init__(batch_size, **kwargs)
+        if not getattr(reader, "batched_output", False):
+            raise TypeError("BatchedDataLoader consumes make_batch_reader readers")
+        self._reader = reader
+        self._shuffling_capacity = shuffling_queue_capacity
+        self._min_after = min_after_retrieve
+        self._seed = seed
+
+    def _host_batches(self):
+        if self._reader.last_row_consumed:
+            self._reader.reset()
+        if self._shuffling_capacity and self._shuffling_capacity > 1:
+            buf = BatchedRandomShufflingBuffer(
+                self._shuffling_capacity,
+                min_after_retrieve=(self._min_after if self._min_after is not None
+                                    else self._shuffling_capacity // 2),
+                batch_size=self._batch_size, seed=self._seed)
+        else:
+            buf = BatchedNoopShufflingBuffer(self._batch_size)
+        exhausted = False
+        tail = None
+        while True:
+            while not exhausted and buf.can_add:
                 try:
-                    q.put(item, timeout=0.05)
-                    return True
-                except queue.Full:
+                    cols = self._batchable_columns(self._reader.next_batch())
+                except StopIteration:
+                    exhausted = True
+                    buf.finish()
                     continue
-            return False
+                if cols:
+                    buf.add_many(cols)
+                # A group left in this frame would pin its ring record while
+                # the generator waits at a yield.
+                del cols
+            if buf.can_retrieve:
+                batch = buf.retrieve()
+                if len(next(iter(batch.values()))) == self._batch_size:
+                    yield batch
+                else:
+                    tail = batch
+            elif exhausted:
+                break
+        if tail is not None:
+            tail = self._finalize_tail(tail, len(next(iter(tail.values()))))
+            if tail is not None:
+                yield tail
 
-        def produce():
-            try:
-                if cuda:
-                    torch.cuda.set_device(self._device)
-                    stager = _PinnedStager(self._device, self._prefetch + 1)
-                for hb in host_batches:
-                    if stop.is_set():
-                        return
-                    cols, host_cols = sanitize_batch(hb, self._dtype_policy)
-                    if cuda:
-                        staged, event = stager.stage(cols)
-                    else:
-                        staged = {k: v.contiguous() if isinstance(v, torch.Tensor)
-                                  else torch.from_numpy(np.ascontiguousarray(v))
-                                  for k, v in cols.items()}
-                        event = None
-                    staged.update(host_cols)
-                    if not put((None, staged, event)):
-                        return
-            except BaseException as e:  # noqa: BLE001 - re-raised on the consumer
-                put((err, e, None))
-            finally:
-                put((end, None, None))
-                host_batches.close()
 
-        thread = threading.Thread(target=produce, daemon=True, name="petastorm-torch-stage")
-        thread.start()
-        try:
-            while True:
+class InMemBatchedDataLoader(LoaderBase):
+    """Reads ``reader`` once into memory, then serves ``num_epochs`` epochs
+    of batches from it, in a new ``default_rng(seed)`` permutation each
+    epoch when ``shuffle``. A batched reader's batchable columns
+    (:meth:`LoaderBase._batchable_columns`) or a row reader's fixed-shape,
+    non-null fields are kept, copied off the reader's buffers as each group
+    arrives (so no ring record stays pinned); the reader is not closed.
+
+    The other arguments are :class:`LoaderBase`'s.
+    """
+
+    def __init__(self, reader, batch_size: int, num_epochs: int = 1, shuffle: bool = True,
+                 seed: Optional[int] = None, **kwargs):
+        super().__init__(batch_size, **kwargs)
+        self._num_epochs = num_epochs
+        self._shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+        self._data = {}
+        if getattr(reader, "batched_output", False):
+            columns: Dict[str, list] = {}
+            for group in reader:
+                # Copies, not views: on a process reader a column views its
+                # ring record, and records pinned until the whole read ends
+                # would fill the rings before a large store is read.
+                owned = {name: arr.copy() if arr.base is not None else arr
+                         for name, arr in self._batchable_columns(group).items()}
+                del group
+                for name, arr in owned.items():
+                    columns.setdefault(name, []).append(arr)
+            self._data = {k: np.concatenate(v) for k, v in columns.items()}
+        else:
+            rows = list(reader)
+            if not rows:
+                raise ValueError("Reader yielded no rows")
+            for name in rows[0]._fields:
+                values = [getattr(r, name) for r in rows]
+                if any(v is None for v in values) or isinstance(values[0], (str, bytes)):
+                    self._warn_skipped_fields([name])
+                    continue
                 try:
-                    kind, item, event = q.get(timeout=_STAGE_POLL_S)
-                except queue.Empty:
-                    if thread.is_alive() or not q.empty():
-                        continue
-                    raise RuntimeError("Loader staging thread died without delivering "
-                                       "a batch, an error or end-of-stream") from None
-                if kind is end:
-                    return
-                if kind is err:
-                    raise item
-                if event is not None:
-                    consumer = torch.cuda.current_stream(self._device)
-                    consumer.wait_event(event)
-                    for v in item.values():
-                        if isinstance(v, torch.Tensor):
-                            v.record_stream(consumer)
-                yield item
-                for _ in range(self._echo - 1):
-                    yield {k: v.clone() if isinstance(v, torch.Tensor) else v
-                           for k, v in item.items()}
-        finally:
-            stop.set()
-            self._stage_stop = None
-            thread.join(5.0)
+                    self._data[name] = np.stack([np.asarray(v) for v in values])
+                except ValueError:
+                    self._warn_skipped_fields([name])   # ragged
+        if not self._data:
+            raise ValueError("No batchable (fixed-shape, non-null, numeric) fields found")
+        self._num_rows = len(next(iter(self._data.values())))
 
-    def __iter__(self):
-        if self._in_iter:
-            raise RuntimeError("Loader is already being iterated")
-        self._in_iter = True
-        try:
-            it = self._prefetched(self._host_batches())
-            try:
-                yield from it
-            finally:
-                it.close()
-        finally:
-            self._in_iter = False
+    def _host_batches(self):
+        for _ in range(self._num_epochs):
+            order = (self._rng.permutation(self._num_rows) if self._shuffle
+                     else np.arange(self._num_rows))
+            for start in range(0, self._num_rows, self._batch_size):
+                idx = order[start:start + self._batch_size]
+                batch = self._finalize_tail({k: v[idx] for k, v in self._data.items()},
+                                            len(idx))
+                if batch is not None:
+                    yield batch
 
-    def close(self):
-        """Stop the staging thread (if an iterator was abandoned) and stop
-        and join the reader. ``with loader: ...`` does this on exit."""
-        if self._stage_stop is not None:
-            self._stage_stop.set()
-        self._reader.stop()
-        self._reader.join()
 
-    def __enter__(self):
-        return self
+def aligned_steps_per_epoch(dataset_url: str, batch_size: int,
+                            shard_count: Optional[int] = None,
+                            drop_last: bool = True) -> int:
+    """Batches every shard of the store can deliver in one epoch: the
+    least, over shards ``index % shard_count == shard`` of the store's row
+    groups (the readers' sharding), of the shard's rows over
+    ``batch_size`` (floored, or ceiled when not ``drop_last``). Every rank
+    computes the same number from the metadata, without communicating;
+    pass it as ``steps_per_epoch`` so no rank steps into a collective its
+    peers skip. ``shard_count`` defaults to the ``torch.distributed``
+    world size when a process group is initialised, else 1.
 
-    def __exit__(self, *exc):
-        self.close()
-        return False
+    The bound holds for readers that deliver every row of their shard (a
+    row reader, or a batched reader; not an NGram's windows)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.errors import NoDataAvailableError
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext, load_row_groups
+
+    if shard_count is None:
+        dist = torch.distributed
+        shard_count = (dist.get_world_size() if dist.is_available() and dist.is_initialized()
+                       else 1)
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    ctx = DatasetContext(dataset_url)
+    groups = load_row_groups(ctx)
+
+    def footer_rows(path):
+        with ctx.filesystem.open(path, "rb") as f:
+            md = pq.ParquetFile(f).metadata
+            return path, [md.row_group(i).num_rows for i in range(md.num_row_groups)]
+
+    with ThreadPoolExecutor(max_workers=10) as pool:
+        rows_by_path = dict(pool.map(footer_rows, sorted({rg.path for rg in groups})))
+    steps = []
+    for shard in range(shard_count):
+        refs = [rg for i, rg in enumerate(groups) if i % shard_count == shard]
+        if not refs:
+            raise NoDataAvailableError(
+                f"Shard {shard}/{shard_count} received zero row groups ({len(groups)} total). "
+                f"Use fewer shards or larger datasets.")
+        rows = sum(rows_by_path[rg.path][rg.row_group] for rg in refs)
+        n = rows // batch_size if drop_last else -(-rows // batch_size)
+        if n == 0:
+            raise ValueError(
+                f"shard {shard}/{shard_count} holds only {rows} rows, fewer than one batch "
+                f"of {batch_size}{' (drop_last)' if drop_last else ''}. Use a smaller batch, "
+                f"fewer shards or larger row groups")
+        steps.append(n)
+    return min(steps)

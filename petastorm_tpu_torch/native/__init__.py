@@ -89,6 +89,7 @@ def _bind(lib) -> None:
         "pt_ring_tail": (u64, [vp]),
         "pt_ring_set_tail": (None, [vp, u64]),
         "pt_ring_closed": (cint, [vp]),
+        "pt_ring_waiting": (u64, [vp]),
     }
     for fn, (restype, argtypes) in sigs.items():
         getattr(lib, fn).restype = restype
@@ -268,10 +269,24 @@ class ShmRing:
     def producer_closed(self) -> bool:
         return bool(self._lib.pt_ring_closed(self._handle))
 
+    def waiting(self) -> int:
+        """Bytes of the record the producer is blocked on for want of
+        space (its aligned size with the length word), else 0."""
+        return int(self._lib.pt_ring_waiting(self._handle))
+
     # ------------------------------------------------------------- lifetime
-    def close(self) -> None:
-        """Unmap the ring; the creator also unlinks its name."""
+    def close(self, leak_mapping: bool = False) -> None:
+        """Unmap the ring; the creator also unlinks its name. With
+        ``leak_mapping`` (views of the ring are still alive: unmapping would
+        make them read freed memory) only the name goes, and the mapping
+        stays for the process's life."""
         if not self._handle:
+            return
+        if leak_mapping:
+            # The mapping is never unmapped: its views keep ``_data`` alive.
+            if self._owner:
+                self._lib.pt_ring_unlink(self.name.encode())
+            self._handle = self._data = None
             return
         self._data = None
         self._lib.pt_ring_free(self._handle, 1 if self._owner else 0)

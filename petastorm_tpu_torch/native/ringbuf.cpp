@@ -12,6 +12,11 @@
 //
 // Memory layout:
 //   [RingHeader (64B)] [data region of `capacity` bytes]
+// RingHeader: head u64 | tail u64 | capacity u64 | closed u32 | pad u32 |
+// waiting u64 | pad. `waiting` is the record size (aligned, with its length
+// word) the producer is blocked on for want of space, else 0: the consumer
+// reads it to tell a producer held back by records it still views from one
+// that is busy.
 // Records in the data region:
 //   [uint32 len][payload bytes], 8-byte aligned
 //   len == WRAP_MARKER means "skip to region start".
@@ -45,7 +50,9 @@ struct RingHeader {
     std::atomic<uint64_t> tail;   // next read offset
     uint64_t capacity;
     std::atomic<uint32_t> closed; // producer signaled end-of-stream
-    uint32_t _pad[9];
+    uint32_t _pad0;
+    std::atomic<uint64_t> waiting; // bytes of the record the producer waits to write
+    uint32_t _pad[6];
 };
 static_assert(sizeof(RingHeader) == 64, "header must stay one cache line");
 
@@ -112,6 +119,7 @@ void* pt_ring_open(const char* name, uint64_t capacity, int owner) {
         ring->hdr->head.store(0, std::memory_order_relaxed);
         ring->hdr->tail.store(0, std::memory_order_relaxed);
         ring->hdr->closed.store(0, std::memory_order_relaxed);
+        ring->hdr->waiting.store(0, std::memory_order_relaxed);
         ring->hdr->capacity = capacity;
     }
     return ring;
@@ -140,7 +148,10 @@ int pt_ring_write(void* handle, const void* payload, uint32_t len, int timeout_m
 
     long deadline = timeout_ms >= 0 ? now_ms() + timeout_ms : -1;
     for (;;) {
-        if (h->closed.load(std::memory_order_acquire)) return -3;
+        if (h->closed.load(std::memory_order_acquire)) {
+            h->waiting.store(0, std::memory_order_relaxed);
+            return -3;
+        }
         uint64_t head = h->head.load(std::memory_order_relaxed);
         uint64_t tail = h->tail.load(std::memory_order_acquire);
         uint64_t used = head - tail;
@@ -161,10 +172,15 @@ int pt_ring_write(void* handle, const void* payload, uint32_t len, int timeout_m
             }
             memcpy(r->data + pos, &len, 4);
             memcpy(r->data + pos + 4, payload, len);
+            h->waiting.store(0, std::memory_order_relaxed);
             h->head.store(head + need, std::memory_order_release);
             return 0;
         }
-        if (deadline >= 0 && now_ms() > deadline) return -1;
+        h->waiting.store(need, std::memory_order_release);
+        if (deadline >= 0 && now_ms() > deadline) {
+            h->waiting.store(0, std::memory_order_relaxed);
+            return -1;
+        }
         sleep_us(50);
     }
 }
@@ -183,7 +199,10 @@ int pt_ring_write2(void* handle, uint8_t kind, const void* payload, uint32_t len
 
     long deadline = timeout_ms >= 0 ? now_ms() + timeout_ms : -1;
     for (;;) {
-        if (h->closed.load(std::memory_order_acquire)) return -3;
+        if (h->closed.load(std::memory_order_acquire)) {
+            h->waiting.store(0, std::memory_order_relaxed);
+            return -3;
+        }
         uint64_t head = h->head.load(std::memory_order_relaxed);
         uint64_t tail = h->tail.load(std::memory_order_acquire);
         uint64_t used = head - tail;
@@ -203,10 +222,15 @@ int pt_ring_write2(void* handle, uint8_t kind, const void* payload, uint32_t len
             memcpy(r->data + pos, &len32, 4);
             r->data[pos + 4] = kind;
             memcpy(r->data + pos + 5, payload, len);
+            h->waiting.store(0, std::memory_order_relaxed);
             h->head.store(head + need, std::memory_order_release);
             return 0;
         }
-        if (deadline >= 0 && now_ms() > deadline) return -1;
+        h->waiting.store(need, std::memory_order_release);
+        if (deadline >= 0 && now_ms() > deadline) {
+            h->waiting.store(0, std::memory_order_relaxed);
+            return -1;
+        }
         sleep_us(50);
     }
 }
@@ -311,6 +335,10 @@ void pt_ring_set_tail(void* handle, uint64_t tail) {
 
 int pt_ring_closed(void* handle) {
     return (int)reinterpret_cast<Ring*>(handle)->hdr->closed.load(std::memory_order_acquire);
+}
+
+uint64_t pt_ring_waiting(void* handle) {
+    return reinterpret_cast<Ring*>(handle)->hdr->waiting.load(std::memory_order_acquire);
 }
 
 }  // extern "C"

@@ -1,25 +1,32 @@
-"""``make_reader``: decoded rows of a petastorm store, one namedtuple at a time.
+"""``make_reader``: decoded rows of a petastorm store, one namedtuple at a
+time; ``make_batch_reader``: the columns of any Parquet store, one row
+group at a time.
 
 The reader plans the store's row groups (optionally sharded
 ``index % shard_count == cur_shard``), ventilates them to a worker pool —
 in a per-epoch order seeded exactly as the JAX package seeds it — and
-yields the rows the workers decode. Given the same store, seed and
-settings, it yields the same rows as the JAX package's ``make_reader``, in
-the same order on the thread and dummy pools (the process pool delivers in
-the order its workers finish). With ``schema_fields=NGram(...)`` it yields
-the NGram's windows instead of rows.
+yields what the workers publish. Given the same store, seed and settings,
+it yields the same rows as the JAX package's reader, in the same order on
+the thread and dummy pools (the process pool delivers in the order its
+workers finish). With ``schema_fields=NGram(...)`` a row reader yields the
+NGram's windows instead of rows.
 """
 from __future__ import annotations
 
 import os
 from collections import deque
+from functools import partial
 from typing import Optional
 
 from petastorm_tpu_torch.codecs import CompressedImageCodec, decode_verdict
 from petastorm_tpu_torch.errors import NoDataAvailableError
 from petastorm_tpu_torch.etl.dataset_metadata import (DatasetContext, get_schema,
-                                                      load_row_groups)
+                                                      infer_or_load_unischema, load_row_groups)
 from petastorm_tpu_torch.ngram import NGram
+from petastorm_tpu_torch.reader_impl.arrow_table_serializer import ArrowTableSerializer
+from petastorm_tpu_torch.reader_impl.batch_reader_worker import (BatchReaderWorker,
+                                                                 arrow_table_to_numpy_dict)
+from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
 from petastorm_tpu_torch.reader_impl.row_reader_worker import RowReaderWorker
 from petastorm_tpu_torch.workers_pool import EmptyResultError, ITEM_CONTEXT_KWARG
 from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
@@ -100,36 +107,96 @@ def make_reader(dataset_url: str,
     :param cur_shard/shard_count: read only row groups with
         ``index % shard_count == cur_shard``
     """
-    if seed is None and (shuffle_row_groups or shuffle_rows):
-        # A drawn seed still keys the row shuffle by plan position, as in
-        # the JAX package.
-        seed = int.from_bytes(os.urandom(4), "little")
-    if reader_pool_type == "thread":
-        pool = ThreadPool(workers_count, results_queue_size,
-                          shuffle_rows=shuffle_rows, seed=seed)
-    elif reader_pool_type == "process":
-        pool = ProcessPool(workers_count, ring_capacity=ring_capacity_for(workers_count))
-    elif reader_pool_type == "dummy":
-        pool = DummyPool()
-    else:
-        raise ValueError(f"Unknown reader_pool_type {reader_pool_type!r} "
-                         f"(expected 'thread', 'process' or 'dummy')")
+    seed = _resolve_seed(seed, shuffle_row_groups, shuffle_rows)
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
+                      PickleSerializer())
     return Reader(dataset_url, pool, schema_fields=schema_fields,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count)
 
 
+def make_batch_reader(dataset_url: str,
+                      schema_fields=None,
+                      reader_pool_type: str = "thread",
+                      workers_count: int = 4,
+                      results_queue_size: int = 50,
+                      shuffle_row_groups: bool = True,
+                      shuffle_rows: bool = False,
+                      seed: Optional[int] = None,
+                      num_epochs: Optional[int] = 1,
+                      cur_shard: Optional[int] = None,
+                      shard_count: Optional[int] = None,
+                      convert_early_to_numpy: bool = False) -> "Reader":
+    """Columnar reader of any Parquet store (several files, with or without
+    petastorm metadata; a store without it gets a schema inferred from its
+    Arrow schema): one batch of ``{column: ndarray}`` per row group,
+    through :meth:`Reader.next_batch`, or a namedtuple of those columns
+    per ``next()``.
+
+    Fixed-size list columns come as ``(rows, size)`` blocks, lists with a
+    declared shape as ``(rows, *shape)`` blocks (null rows NaN or 0), other
+    lists as object arrays of per-row arrays.
+
+    :param schema_fields: column names or name regexes (``re.fullmatch``)
+    :param reader_pool_type: ``'thread'``, ``'process'`` or ``'dummy'``, as
+        :func:`make_reader`. On processes the workers publish Arrow tables
+        through the shared-memory rings, and the columns the consumer gets
+        view the ring (no copy): a batch pins its ring record until its
+        last array (or a tensor made from one) is dropped, and the worker
+        waits while its ring is full of pinned records (when every busy
+        worker waits, ``next_batch`` raises after 60 s). The columns are
+        read-only on every pool: a tensor made from one must not be
+        written into (``.clone()`` it first).
+    :param convert_early_to_numpy: convert to numpy in the workers instead
+        (on processes the dicts cross the rings pickled)
+
+    The other arguments are :func:`make_reader`'s.
+    """
+    seed = _resolve_seed(seed, shuffle_row_groups, shuffle_rows)
+    serializer = PickleSerializer() if convert_early_to_numpy else ArrowTableSerializer()
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
+                      serializer)
+    return Reader(dataset_url, pool, schema_fields=schema_fields,
+                  shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
+                  seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
+                  shard_count=shard_count, is_batched_reader=True,
+                  convert_early_to_numpy=convert_early_to_numpy)
+
+
+def _resolve_seed(seed, shuffle_row_groups: bool, shuffle_rows: bool):
+    if seed is None and (shuffle_row_groups or shuffle_rows):
+        # A drawn seed still keys the row shuffle by plan position, as in
+        # the JAX package.
+        seed = int.from_bytes(os.urandom(4), "little")
+    return seed
+
+
+def _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
+               serializer):
+    if reader_pool_type == "thread":
+        return ThreadPool(workers_count, results_queue_size, shuffle_rows=shuffle_rows, seed=seed)
+    if reader_pool_type == "process":
+        return ProcessPool(workers_count, ring_capacity=ring_capacity_for(workers_count),
+                           serializer=serializer)
+    if reader_pool_type == "dummy":
+        return DummyPool()
+    raise ValueError(f"Unknown reader_pool_type {reader_pool_type!r} "
+                     f"(expected 'thread', 'process' or 'dummy')")
+
+
 class Reader:
-    """Iterator of row namedtuples (fields of ``reader.schema``), or of
-    NGram windows when ``reader.ngram`` is set.
+    """Iterator of row namedtuples (fields of ``reader.schema``), of NGram
+    windows when ``reader.ngram`` is set, or, for a batched reader
+    (``make_batch_reader``), of one namedtuple of columns per row group.
 
     Use as a context manager, or call ``stop()`` then ``join()``. After a
     pass is fully consumed, ``reset()`` starts another one.
     """
 
     def __init__(self, dataset_url, pool, schema_fields, shuffle_row_groups,
-                 shuffle_rows, seed, num_epochs, cur_shard, shard_count):
+                 shuffle_rows, seed, num_epochs, cur_shard, shard_count,
+                 is_batched_reader=False, convert_early_to_numpy=False):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError("cur_shard and shard_count must be used together")
         if cur_shard is not None and not (isinstance(cur_shard, int)
@@ -137,10 +204,13 @@ class Reader:
             raise ValueError(f"cur_shard must be an int in [0, {shard_count}), "
                              f"got {cur_shard!r}")
         ctx = DatasetContext(dataset_url)
-        stored_schema = get_schema(ctx)
+        self._batched = is_batched_reader
+        stored_schema = infer_or_load_unischema(ctx) if is_batched_reader else get_schema(ctx)
         #: The NGram windows are formed by, or None for a row reader.
         self.ngram: Optional[NGram] = None
         if isinstance(schema_fields, NGram):
+            if is_batched_reader:
+                raise ValueError("NGram is not supported by make_batch_reader; use make_reader")
             self.ngram = schema_fields
             self.ngram.resolve_regex_field_names(stored_schema)
             self.schema = stored_schema
@@ -169,6 +239,16 @@ class Reader:
             item_context_key=ITEM_CONTEXT_KWARG)
         self._buffer = deque()
         self.last_row_consumed = False
+        if is_batched_reader:
+            if isinstance(pool, ProcessPool) and not convert_early_to_numpy:
+                # Columns as views over the Arrow buffers in the ring.
+                pool.result_transform = partial(arrow_table_to_numpy_dict, schema=self.schema)
+            pool.start(BatchReaderWorker,
+                       {"dataset_url": dataset_url, "view_schema": self.schema,
+                        "shuffle_rows": shuffle_rows, "seed": seed,
+                        "convert_early_to_numpy": convert_early_to_numpy},
+                       ventilator=self._ventilator)
+            return
         # The image decode path is settled here, once (the native build and
         # the JPEG parity check), and the workers adopt the verdict.
         verdict = (decode_verdict() if any(isinstance(f.codec, CompressedImageCodec)
@@ -187,15 +267,41 @@ class Reader:
 
     @property
     def counters(self) -> dict:
-        """The workers' counters summed over the items consumed so far:
+        """The pool's counters summed over the items consumed so far:
         ``images_native`` and ``images_codec``, the image cells decoded by
-        the native batch call and by the codec one at a time."""
+        the native batch call and by the codec one at a time, and on a
+        batched process reader ``zero_copy_batches`` and
+        ``zero_copy_bytes``, the batches whose columns view the ring and
+        those columns' bytes."""
         return dict(self._pool.counters)
+
+    @property
+    def batched_output(self) -> bool:
+        """True for a ``make_batch_reader`` reader."""
+        return self._batched
+
+    def next_batch(self) -> dict:
+        """The next row group's ``{column: ndarray}`` (a batched reader
+        only): the arrays ``next()`` wraps in a namedtuple."""
+        if not self._batched:
+            raise TypeError("next_batch() needs a make_batch_reader reader; this reader's "
+                            "workers publish rows")
+        try:
+            result = self._pool.get_results()
+        except EmptyResultError:
+            self.last_row_consumed = True
+            raise StopIteration from None
+        if not isinstance(result, dict):
+            # An Arrow table from a thread or dummy pool worker.
+            result = arrow_table_to_numpy_dict(result, self.schema)
+        return result
 
     def __iter__(self):
         return self
 
     def __next__(self):
+        if self._batched:
+            return self.schema.make_namedtuple_from_dict(self.next_batch())
         while not self._buffer:
             try:
                 self._buffer.extend(self._pool.get_results())

@@ -8,6 +8,8 @@ class PickleSerializer:
     never aliases the ring record it was read from: the pool deserializes
     straight from the mapped record and releases it at once."""
 
+    aliases_input = False
+
     def serialize(self, rows) -> bytes:
         return pickle.dumps(rows, protocol=pickle.HIGHEST_PROTOCOL)
 

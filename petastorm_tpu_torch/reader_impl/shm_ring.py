@@ -7,8 +7,13 @@ reader over either ring.
 byte for byte (and the JAX package's, so either package's producer feeds the
 other's consumer)::
 
-    [header 64 B: head u64 | tail u64 | capacity u64 | closed u32 | pad]
+    [header 64 B: head u64 | tail u64 | capacity u64 | closed u32 | pad u32 |
+                  waiting u64 | pad]
     [data region of `capacity` bytes]
+
+``waiting`` is the size of the record the producer is blocked on for want
+of space (aligned, with its length word), else 0 (the JAX package's
+producers leave it 0, so its consumer never sees them stalled).
 
 Records are ``[u32 len][payload]``, 8-byte aligned; ``len == 0xFFFFFFFF``
 marks a wrap to the region's start. The producer writes the payload, then
@@ -35,6 +40,7 @@ _HEAD_OFF = 0
 _TAIL_OFF = 8
 _CAP_OFF = 16
 _CLOSED_OFF = 24
+_WAITING_OFF = 32
 _POLL_S = 50e-6
 
 
@@ -106,6 +112,7 @@ class PyShmRing:
         deadline = None if timeout_ms < 0 else time.monotonic() + timeout_ms / 1000.0
         while True:
             if self.producer_closed:
+                self._store(_WAITING_OFF, 0)
                 raise RingClosed(f"ring {self.name} is closed")
             head = self._load(_HEAD_OFF)
             used = head - self._load(_TAIL_OFF)
@@ -123,14 +130,21 @@ class PyShmRing:
                 self._buf[base + 4] = kind
                 self._buf[base + 5:base + 5 + len(view)] = view
                 struct.pack_into("<I", self._buf, base, msg_len)
+                self._store(_WAITING_OFF, 0)
                 self._store(_HEAD_OFF, head + need)
                 return
+            self._store(_WAITING_OFF, need)
             if deadline is not None and time.monotonic() > deadline:
+                self._store(_WAITING_OFF, 0)
                 raise TimeoutError_(f"ring {self.name} write timed out")
             time.sleep(_POLL_S)
 
     def close_producer(self) -> None:
         struct.pack_into("<I", self._buf, _CLOSED_OFF, 1)
+
+    def waiting(self) -> int:
+        """Bytes of the record the producer is blocked on, else 0."""
+        return self._load(_WAITING_OFF)
 
     # ------------------------------------------------------------- consumer
     def _peek(self, timeout_ms: int):
@@ -197,16 +211,20 @@ class PyShmRing:
         return self._buf[_HDR:]
 
     # ------------------------------------------------------------- lifetime
-    def close(self) -> None:
-        """Unmap the segment; the creator also unlinks its name."""
+    def close(self, leak_mapping: bool = False) -> None:
+        """Unmap the segment; the creator also unlinks its name. With
+        ``leak_mapping`` (views of the ring are still alive), or when
+        unmapping finds a view alive, only the name goes: the mapping stays
+        for the process's life."""
         if self._shm is None:
             return
         shm, self._shm, self._buf = self._shm, None, None
-        try:
-            shm.close()
-        except BufferError:
-            # A view of the mapping is still alive: unmapping would turn it
-            # into a crash, so keep the mapping for the process's life.
+        if not leak_mapping:
+            try:
+                shm.close()
+            except BufferError:   # a view is alive: unmapping would crash it
+                leak_mapping = True
+        if leak_mapping:
             _LEAKED.append(shm)
         if self._owner:
             try:
@@ -222,18 +240,22 @@ class PyShmRing:
 
 
 class SegmentClaim:
-    """Pins one ring record while arrays that view it are alive.
+    """Pins one ring record while objects that view it are alive.
 
-    :meth:`track` registers a ``weakref.finalize`` on each such array;
+    :meth:`track` registers a ``weakref.finalize`` on each such object;
     :attr:`released` turns true when the last one is collected, and only then
     may :meth:`RingReader.reap` hand the record's bytes back to the producer.
+    Track the object every view of the record holds on to: the process pool
+    tracks the record's memoryview that Arrow deserialized from, which every
+    Arrow buffer and every numpy array or slice made from them keeps alive
+    (a numpy slice does not keep the array it was sliced from alive when
+    that array is itself a view, so tracking the arrays would not do).
     Finalizers fire on whichever thread drops the last reference; the
     ring's tail moves only on the consumer's thread."""
 
-    __slots__ = ("view", "_outstanding", "_lock", "__weakref__")
+    __slots__ = ("_outstanding", "_lock", "__weakref__")
 
-    def __init__(self, view):
-        self.view = view
+    def __init__(self):
         self._outstanding = 0
         self._lock = threading.Lock()
 
@@ -245,12 +267,6 @@ class SegmentClaim:
     def _drop(self) -> None:
         with self._lock:
             self._outstanding -= 1
-            last = self._outstanding <= 0
-        if last:
-            try:
-                self.view.release()
-            except BufferError:
-                pass
 
     @property
     def released(self) -> bool:
@@ -327,6 +343,23 @@ class RingReader:
         """Outstanding records held by an unreleased claim."""
         return sum(1 for _, c, done in self._outstanding
                    if not done and c is not None and not c.released)
+
+    @property
+    def stalled(self) -> bool:
+        """True when the producer waits for space that only records the
+        consumer still views can give: it is blocked on a write, every
+        record it published has been read, and after :meth:`reap` the free
+        bytes are fewer than its record needs."""
+        need = self.ring.waiting()
+        if not need:
+            return False
+        self.reap()
+        head = self.ring.head()
+        if self._cursor < head:
+            return False
+        contiguous = self._cap - head % self._cap
+        total = need if contiguous >= need else contiguous + need
+        return self._cap - (head - self.ring.tail()) < total
 
     def reap(self) -> int:
         """Move the ring's tail past the longest released prefix of the

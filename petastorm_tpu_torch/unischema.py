@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import copyreg
 import re
+import warnings
 from collections import OrderedDict, namedtuple
 from dataclasses import dataclass
 from decimal import Decimal
@@ -217,6 +218,34 @@ class Unischema:
             pa_fields.append(pa.field(f.name, codec.arrow_type(f), nullable=f.nullable))
         return pa.schema(pa_fields)
 
+    # ------------------------------------------------------------- inference
+    @classmethod
+    def from_arrow_schema(cls, arrow_schema, omit_unsupported_fields: bool = False) -> "Unischema":
+        """A Unischema inferred from a ``pyarrow.Schema`` (or an object with a
+        ``schema``, such as a ``ParquetDataset``): a plain column becomes a
+        scalar field, a ``FixedSizeList`` a ``(list_size,)`` field and a
+        variable list a ``(None,)`` field, none with a codec. A column of a
+        type numpy has no counterpart for raises ``ValueError``, or is left
+        out with a warning when ``omit_unsupported_fields``."""
+        import pyarrow as pa
+        if hasattr(arrow_schema, "schema"):
+            arrow_schema = arrow_schema.schema
+        if hasattr(arrow_schema, "to_arrow_schema"):
+            arrow_schema = arrow_schema.to_arrow_schema()
+        fields = []
+        for name in arrow_schema.names:
+            pa_field = arrow_schema.field(name)
+            if isinstance(pa_field.type, pa.lib.FixedSizeListType):
+                value_type, shape = pa_field.type.value_type, (pa_field.type.list_size,)
+            elif isinstance(pa_field.type, pa.lib.ListType):
+                value_type, shape = pa_field.type.value_type, (None,)
+            else:
+                value_type, shape = pa_field.type, ()
+            np_dtype = _numpy_from_arrow_type(value_type, name, omit_unsupported_fields)
+            if np_dtype is not None:
+                fields.append(UnischemaField(name, np_dtype, shape, None, pa_field.nullable))
+        return cls("inferred", fields)
+
     # ---------------------------------------------------------- (de)serialize
     def to_dict(self) -> dict:
         """JSON-able schema document (no pickle), as stored in metadata."""
@@ -242,6 +271,37 @@ class Unischema:
                                  fd["nullable"])
                   for fd in doc["fields"]]
         return cls(doc["name"], fields)
+
+
+_ARROW_TO_NUMPY = None
+
+
+def _numpy_from_arrow_type(arrow_type, field_name, omit_unsupported):
+    """The numpy dtype of an Arrow type, or None to leave the field out."""
+    import pyarrow as pa
+    global _ARROW_TO_NUMPY
+    if _ARROW_TO_NUMPY is None:
+        _ARROW_TO_NUMPY = {
+            pa.bool_(): np.bool_,
+            pa.int8(): np.int8, pa.int16(): np.int16, pa.int32(): np.int32, pa.int64(): np.int64,
+            pa.uint8(): np.uint8, pa.uint16(): np.uint16, pa.uint32(): np.uint32,
+            pa.uint64(): np.uint64,
+            pa.float16(): np.float16, pa.float32(): np.float32, pa.float64(): np.float64,
+            pa.string(): str, pa.large_string(): str,
+            pa.binary(): bytes, pa.large_binary(): bytes,
+            pa.date32(): np.datetime64, pa.date64(): np.datetime64,
+        }
+    if arrow_type in _ARROW_TO_NUMPY:
+        return _ARROW_TO_NUMPY[arrow_type]
+    if isinstance(arrow_type, pa.lib.TimestampType):
+        return np.datetime64
+    if isinstance(arrow_type, pa.lib.Decimal128Type):
+        return Decimal
+    if omit_unsupported:
+        warnings.warn(f"Field {field_name!r} has unsupported Arrow type {arrow_type}; omitting.")
+        return None
+    raise ValueError(f"Cannot map Arrow type {arrow_type} of field {field_name!r} to numpy "
+                     f"(pass omit_unsupported_fields=True to skip).")
 
 
 def _default_codec(field: UnischemaField):

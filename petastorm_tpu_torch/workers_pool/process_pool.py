@@ -24,6 +24,17 @@ sends back, in order, as tagged records:
 Data and control share the ring, so an item's "processed" marker can never
 overtake its data.
 
+With a serializer whose results view their input (``aliases_input``, the
+Arrow serializer of ``make_batch_reader``), a single-record ``D`` frame is
+deserialized where it lies in the ring and its record is pinned by a
+:class:`~petastorm_tpu_torch.reader_impl.shm_ring.SegmentClaim` until the
+consumer drops the last view of it; the consumer reads on past pinned
+records, and the ring's space comes back in order. A consumer that keeps
+so many results that every worker with work in flight waits for space its
+views hold gets a ``RuntimeError`` after ``_PINNED_STALL_S``, not a hang.
+``join()`` with views still alive unlinks the ring's name but keeps its
+mapping.
+
 Workers are spawned (a fresh interpreter, never a fork: see
 :mod:`.exec_in_new_process`) with ``CUDA_VISIBLE_DEVICES=""``. Starting
 blocks on a ready message from every worker (``_WORKER_START_TIMEOUT_S``).
@@ -58,6 +69,9 @@ _JOIN_TIMEOUT_S = 30
 _POLL_MS = 100
 _ORPHAN_POLL_S = 1.0
 _PAGE = 4096
+#: Seconds every worker with work in flight may wait for ring space held by
+#: the consumer's views before :meth:`ProcessPool.get_results` raises.
+_PINNED_STALL_S = 60.0
 #: Name prefix of the pool's shared-memory segments (``/dev/shm/<name>``).
 RING_PREFIX = "pt_torch_ring_"
 
@@ -86,15 +100,22 @@ class _WorkerReady:
 class ProcessPool:
     """:param workers_count: number of spawned worker processes
     :param ring_capacity: data bytes of each worker's ring
-
-    Results cross the rings pickled
-    (:class:`~petastorm_tpu_torch.reader_impl.pickle_serializer.PickleSerializer`).
+    :param serializer: how results cross the rings: pickled
+        (:class:`~petastorm_tpu_torch.reader_impl.pickle_serializer.PickleSerializer`,
+        the default) or as Arrow streams viewed in place
+        (:class:`~petastorm_tpu_torch.reader_impl.arrow_table_serializer.ArrowTableSerializer`)
     """
 
-    def __init__(self, workers_count: int, ring_capacity: int = 128 << 20):
+    def __init__(self, workers_count: int, ring_capacity: int = 128 << 20, serializer=None):
         self.workers_count = workers_count
         self._ring_capacity = ring_capacity
-        self._serializer = PickleSerializer()
+        self._serializer = serializer if serializer is not None else PickleSerializer()
+        #: Applied on the consumer to every deserialized result (the batch
+        #: reader converts Arrow tables to numpy views here).
+        self.result_transform = None
+        #: Rings whose mapping ``join()`` kept because views were alive.
+        self.leaked_rings = []
+        self._ring_mem = {}      # worker id -> uint8 array over its ring's data
         #: ``"native"`` or ``"py"``, pinned at :meth:`start`.
         self.ring_impl = None
         #: The rings' shared-memory names (``/dev/shm`` entries without "/").
@@ -113,7 +134,10 @@ class ProcessPool:
         self._processed = 0
         self._stopped = False
         self._last_alive_check = 0.0
-        #: The workers' counters, summed as their items are consumed.
+        self._stall_since = None
+        #: The workers' counters, summed as their items are consumed, and
+        #: the consumer's ``zero_copy_batches`` and ``zero_copy_bytes``:
+        #: results whose arrays view the ring, and those arrays' bytes.
         self.counters = {}
         #: Seconds from :meth:`start` until every worker was ready.
         self.start_seconds = None
@@ -142,7 +166,7 @@ class ProcessPool:
             self._conns.append(ours)
             self._processes.append(exec_in_new_process(
                 _worker_bootstrap, worker_id, worker_class, worker_args,
-                theirs.fileno(), os.getpid(), name, self.ring_impl,
+                theirs.fileno(), os.getpid(), name, self.ring_impl, self._serializer,
                 pass_fds=(theirs.fileno(),)))
             theirs.close()
         # While the workers start: map the rings' pages on this side too.
@@ -191,7 +215,9 @@ class ProcessPool:
         """The next published result. Raises :class:`EmptyResultError` once
         every ventilated item is processed and drained, or after ``stop()``;
         re-raises a worker's exception; raises ``RuntimeError`` when a worker
-        died."""
+        died, or when the consumer's views have held every busy worker's
+        ring full for ``_PINNED_STALL_S`` (dropping them lets a later call
+        go on)."""
         while True:
             if self._stopped:
                 raise EmptyResultError()
@@ -211,7 +237,9 @@ class ProcessPool:
                 raise EmptyResultError()
             msg = self._poll_result(_POLL_MS)
             if msg is None:
+                self._check_pinned_stall()
                 continue
+            self._stall_since = None
             if isinstance(msg, VentilatedItemProcessedMessage):
                 with self._lock:
                     self._processed += 1
@@ -243,9 +271,20 @@ class ProcessPool:
             ring.close_producer()
         self._stopped = True
 
+    @property
+    def pinned(self) -> int:
+        """Ring records held by a claim whose views are still alive (call
+        it from the thread that reads the pool)."""
+        for reader in self._readers:
+            reader.reap()
+        return sum(reader.pinned for reader in self._readers)
+
     def join(self):
         """Wait for the workers (killing any left after
-        ``_JOIN_TIMEOUT_S``), then close the sockets and unlink the rings."""
+        ``_JOIN_TIMEOUT_S``), then close the sockets and unlink the rings.
+        A ring that still has views alive keeps its mapping (listed in
+        :attr:`leaked_rings`): unmapping it would make them read freed
+        memory."""
         deadline = time.monotonic() + _JOIN_TIMEOUT_S
         for p in self._processes:
             try:
@@ -256,10 +295,16 @@ class ProcessPool:
         for conn in self._conns:
             conn.close()
         self._conns = []
-        for reader in self._readers:
+        self._ring_mem.clear()
+        for reader, ring in zip(self._readers, self._rings):
+            reader.reap()
+            pinned = reader.pinned
             reader.close()
-        for ring in self._rings:
-            ring.close()
+            if pinned:
+                ring.close(leak_mapping=True)
+                self.leaked_rings.append(ring.name.lstrip("/"))
+            else:
+                ring.close()
         self._readers = []
         self._rings = []
 
@@ -268,9 +313,11 @@ class ProcessPool:
         """The next complete message of any ring, round robin, or None after
         ``timeout_ms`` without one. ``C`` frames unpickle; ``S``/``P``
         chunks fill one buffer preallocated from the ``S`` frame's length,
-        which the final ``D`` completes; a ``D`` frame unpickles straight
-        from the mapped record (unpickling copies out of it), and every
-        record is released as soon as it is read."""
+        which the final ``D`` completes; a ``D`` frame deserializes straight
+        from the mapped record. That record is released as soon as it is
+        read when deserializing copies out of it (pickle), and claimed
+        (:meth:`_deserialize_claimed`) when the result views it; every
+        other record is released at once."""
         deadline = time.monotonic() + timeout_ms / 1000.0
         while True:
             progressed = False
@@ -278,11 +325,16 @@ class ProcessPool:
                 idx = self._poll_idx
                 self._poll_idx = (idx + 1) % len(self._readers)
                 reader = self._readers[idx]
+                reader.reap()
                 rec = reader.try_read()
                 if rec is None:
                     continue
                 progressed = True
                 kind, view = rec
+                del rec
+                if kind == ord("D") and idx not in self._partial \
+                        and self._serializer.aliases_input:
+                    return self._deserialize_claimed(reader, idx, view)
                 try:
                     if kind == ord("C"):
                         return pickle.loads(view)
@@ -297,8 +349,10 @@ class ProcessPool:
                         if kind == ord("P"):
                             continue
                         del self._partial[idx]
-                        return self._serializer.deserialize(memoryview(buf))
-                    return self._serializer.deserialize(view)
+                        # The reassembled buffer is the consumer's own:
+                        # results may view it freely.
+                        return self._deserialize(memoryview(buf))
+                    return self._deserialize(view)
                 finally:
                     view.release()
                     reader.complete()
@@ -307,6 +361,59 @@ class ProcessPool:
                 if time.monotonic() >= deadline:
                     return None
                 time.sleep(0.0001)
+
+    def _deserialize(self, buf):
+        result = self._serializer.deserialize(buf)
+        return result if self.result_transform is None else self.result_transform(result)
+
+    def _deserialize_claimed(self, reader, idx: int, view):
+        """Deserialize a ``D`` record in place and pin it until ``view`` is
+        collected: every Arrow buffer deserialized from it, and every numpy
+        array or slice made from those, holds ``view``, so the record's
+        bytes go back to the producer only once none is left. The record is
+        claimed before deserializing, so it is consumed even when
+        deserializing raises. Counts the result's arrays that view the
+        ring."""
+        from petastorm_tpu_torch.reader_impl.shm_ring import SegmentClaim
+        claim = SegmentClaim()
+        claim.track(view)
+        reader.claim(claim)
+        try:
+            result = self._deserialize(view)
+        finally:
+            del view   # only the result's buffers may keep the record pinned
+        if isinstance(result, dict):
+            import numpy as np
+            mem = self._ring_mem.get(idx)
+            if mem is None:
+                mem = self._ring_mem[idx] = np.frombuffer(self._rings[idx].data_view(),
+                                                          dtype=np.uint8)
+            viewing = [v for v in result.values() if isinstance(v, np.ndarray) and v.size
+                       and np.may_share_memory(v, mem)]
+            if viewing:
+                add_counters(self.counters, {"zero_copy_batches": 1,
+                                             "zero_copy_bytes": sum(v.nbytes for v in viewing)})
+        return result
+
+    def _check_pinned_stall(self):
+        """Raise once every worker with items in flight has waited
+        ``_PINNED_STALL_S`` for ring space that only records the consumer
+        still views can give: nothing else would ever wake them."""
+        with self._lock:
+            busy = [i for i, n in enumerate(self._inflight) if n > 0]
+        if not busy or not all(self._readers[i].stalled for i in busy):
+            self._stall_since = None
+            return
+        now = time.monotonic()
+        if self._stall_since is None:
+            self._stall_since = now
+        if now - self._stall_since < _PINNED_STALL_S:
+            return
+        raise RuntimeError(
+            f"Reader stalled: for {_PINNED_STALL_S:g} s every worker has waited for ring space "
+            f"held by {self.pinned} result(s) the consumer still views. On the process pool a "
+            f"result's columns view the shared-memory ring until dropped: copy what you keep "
+            f"(np.array(col), tensor.clone()), or read with reader_pool_type='thread'")
 
     def _check_processes_alive(self):
         for i, p in enumerate(self._processes):
@@ -327,7 +434,7 @@ def _watch_parent(parent_pid: int) -> None:
 
 
 def _worker_bootstrap(worker_id, worker_class, worker_args, conn_fd, parent_pid, ring_name,
-                      ring_impl):
+                      ring_impl, serializer):
     """Entry function of a spawned worker process (reference
     petastorm/workers_pool/process_pool.py:330)."""
     from petastorm_tpu_torch.native import RingClosed, make_ring
@@ -336,7 +443,6 @@ def _worker_bootstrap(worker_id, worker_class, worker_args, conn_fd, parent_pid,
     conn = Connection(conn_fd)
     ring = make_ring(ring_name, create=False, impl=ring_impl)
     prefault(ring, write=True)
-    serializer = PickleSerializer()
     max_frame = max(4096, int(ring.capacity) // 2 - 4096)
 
     def send_ctrl(obj):

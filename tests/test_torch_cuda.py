@@ -692,3 +692,60 @@ def test_no_process_worker_holds_the_card(cuda_device, tmp_path):
             with open(f"/proc/{pid}/maps") as f:
                 maps = f.read()
             assert "libcuda" not in maps and "libtorch" not in maps
+
+
+def _staged(loader_factory, reader_kwargs, url, device):
+    """Every batch of a loader over ``make_batch_reader(url)``, on the host
+    (CUDA tensors copied back)."""
+    from petastorm_tpu_torch.reader import make_batch_reader
+    with make_batch_reader(url, workers_count=2, **reader_kwargs) as reader:
+        return [{k: v.cpu().numpy() for k, v in batch.items()}
+                for batch in loader_factory(reader, device)]
+
+
+def _assert_same_bytes(got, want, ordered):
+    """Batch for batch, or (``ordered`` False: a process pool delivers in
+    the order its workers finish) as rows sorted by ``id``."""
+    if not ordered:
+        got = [{k: np.concatenate([b[k] for b in got]) for k in got[0]}]
+        want = [{k: np.concatenate([b[k] for b in want]) for k in want[0]}]
+        for cols in (*got, *want):
+            order = np.argsort(cols["id"], kind="stable")
+            for k in cols:
+                cols[k] = cols[k][order]
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert g[k].dtype == w[k].dtype and g[k].tobytes() == w[k].tobytes(), k
+
+
+@pytest.mark.parametrize("pool_type", ["thread", "process"])
+@pytest.mark.parametrize("loader", ["plain", "shuffled", "in memory"])
+def test_batched_loaders_on_card_give_the_cpu_bytes(cuda_device, tmp_path, pool_type, loader):
+    """BatchedDataLoader (plain and shuffled) and InMemBatchedDataLoader
+    stage on the card exactly the bytes they give on the CPU."""
+    from petastorm_tpu_torch.benchmark.scalar_bench import generate_tensor_dataset
+    from petastorm_tpu_torch.loader import BatchedDataLoader, InMemBatchedDataLoader
+    url = generate_tensor_dataset(f"file://{tmp_path}/tensor", rows=3000, files=2,
+                                  row_group_size=256)
+
+    def factory(reader, device):
+        if loader == "in memory":
+            return InMemBatchedDataLoader(reader, batch_size=200, num_epochs=2, seed=3,
+                                          device=device)
+        shuffle = dict(shuffling_queue_capacity=1024, seed=0) if loader == "shuffled" else {}
+        return BatchedDataLoader(reader, batch_size=200, device=device, **shuffle)
+
+    kwargs = dict(reader_pool_type=pool_type, seed=1, shuffle_rows=True)
+    want = _staged(factory, kwargs, url, "cpu")
+    got = _staged(factory, kwargs, url, cuda_device)
+    _assert_same_bytes(got, want, ordered=pool_type == "thread")
+
+
+def test_scalar_bench_runs_on_card(cuda_device, tmp_path):
+    from petastorm_tpu_torch.benchmark.scalar_bench import (batched_loader_throughput,
+                                                            generate_scalar_dataset)
+    url = generate_scalar_dataset(f"file://{tmp_path}/scalar", rows=20_000)
+    assert batched_loader_throughput(url, warmup_batches=2, measure_batches=20,
+                                     device=cuda_device) > 0

@@ -79,7 +79,11 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.workers_pool.exec_in_new_process",
             "petastorm_tpu_torch.workers_pool.exec_in_new_process_entrypoint",
             "petastorm_tpu_torch.utils.decode",
-            "petastorm_tpu_torch.test_util.stub_workers"} <= set(modules)
+            "petastorm_tpu_torch.test_util.stub_workers",
+            "petastorm_tpu_torch.reader_impl.batch_reader_worker",
+            "petastorm_tpu_torch.reader_impl.arrow_table_serializer",
+            "petastorm_tpu_torch.loader.batched_buffer", "petastorm_tpu_torch.loader.loader",
+            "petastorm_tpu_torch.benchmark.scalar_bench"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -98,15 +102,19 @@ def test_source_names_no_jax_import(path):
         assert top not in ("zmq", "dill", "psutil"), f"{path.name} imports {name}"
 
 
-#: What a spawned reader worker imports: the pool, the worker, the pickled
-#: arguments' modules (schema, NGram) and the decoders.
+#: What a spawned reader worker imports: the pool, the workers, the pickled
+#: arguments' modules (schema, NGram, serializers) and the decoders.
 WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
                   "petastorm_tpu_torch.workers_pool.exec_in_new_process_entrypoint",
                   "petastorm_tpu_torch.reader_impl.row_reader_worker",
                   "petastorm_tpu_torch.reader_impl.shm_ring",
                   "petastorm_tpu_torch.native.imgcodec", "petastorm_tpu_torch.utils.decode",
                   "petastorm_tpu_torch.ngram", "petastorm_tpu_torch.etl.dataset_metadata",
-                  "petastorm_tpu_torch.test_util.stub_workers")
+                  "petastorm_tpu_torch.test_util.stub_workers",
+                  "petastorm_tpu_torch.reader_impl.batch_reader_worker",
+                  "petastorm_tpu_torch.reader_impl.arrow_table_serializer",
+                  "petastorm_tpu_torch.reader_impl.pickle_serializer",
+                  "petastorm_tpu_torch.unischema")
 
 
 def test_worker_modules_import_without_torch():

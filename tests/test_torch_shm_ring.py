@@ -203,7 +203,7 @@ def test_segment_claim_holds_a_record_until_its_arrays_are_collected(ring_pair):
     _, view = reader.try_read()
     a = np.frombuffer(view, dtype=np.uint8)
     b = a[4:8]                 # b's base is a: it keeps a alive
-    claim = SegmentClaim(view)
+    claim = SegmentClaim()
     claim.track(a)
     reader.claim(claim)
     tail = cons.tail()
