@@ -146,7 +146,29 @@ result line):
    store gathered by ``id``, bit for bit, and each epoch's ids, sorted,
    must be ``arange(1,048,576)``. On processes every row group must cross
    the ring zero-copy (the claim counters), and no ring record may stay
-   pinned once the loader's batches are gone (none is kept past ``join()``).
+   pinned once the loader's batches are gone (none is kept past ``join()``);
+13. resume, the device cache and the augmentations, on phase 9's store and
+   model. Rows are named by their index in the store, found from a
+   fingerprint of their pixels. (a) ``make_reader(seed=0, workers_count=1)``
+   -> ``DataLoader(device="cuda")`` -> flip, crop (padding 4) and cutout
+   (16) on the card, drawn from a generator seeded ``(0, step)`` -> K1 ->
+   ResNet-50's SGD step (cuDNN deterministic): 8 steps uninterrupted; then 3,
+   ``CheckpointManager.save(3, loader=...)``, everything dropped, a model
+   from another seed restored (its parameters and momenta bit-equal to the
+   saved ones) and ``make_reader(resume_state=...)`` for 5 more, whose rows
+   must be the uninterrupted steps 4-8 and whose losses must agree within
+   ``RESUME_LOSS_REL_BAR``; then on 8 threads and 8 processes a cut after 3
+   batches and a resume, which must bring back every row not delivered
+   (the rows read again are counted). (b) ``DeviceCachedDataset`` of the
+   store (308 MB of uint8 on the card): every row once per epoch, the two
+   epochs in different orders, a gathered batch byte-equal to the cached
+   rows, then 2 epochs of the same augmentations -> K1 -> the train step,
+   timed as phase 9's bench times its steps. K1's launches are counted over
+   (a) and (b). (c) each augmentation on the card against the same apply on
+   the CPU with the same draws (uint8 bit-equal, mixup within
+   ``MIXUP_BAR``), and the chain timed. (d) a ``torch.profiler`` window over
+   two loader batches shows the ``petastorm_tpu.host_batch`` and
+   ``petastorm_tpu.stage`` spans, and ``loader.metrics`` counts the pass.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -169,7 +191,7 @@ import torch
 import torch.nn.functional as F
 
 from petastorm_tpu_torch import kernels
-from petastorm_tpu_torch.benchmark.imagenet_bench import (run_imagenet_bench,
+from petastorm_tpu_torch.benchmark.imagenet_bench import (pipelined_window, run_imagenet_bench,
                                                           write_synthetic_imagenet)
 from petastorm_tpu_torch.benchmark.llm_bench import run_llm_bench, write_token_store
 from petastorm_tpu_torch import native
@@ -190,7 +212,9 @@ from petastorm_tpu_torch.ops.image_ops import (KERNEL_NAME, STRIDED_KERNEL_NAME,
 from petastorm_tpu_torch.benchmark.scalar_bench import (batched_loader_throughput,
                                                         generate_scalar_dataset,
                                                         generate_tensor_dataset)
-from petastorm_tpu_torch.loader import BatchedDataLoader, InMemBatchedDataLoader
+from petastorm_tpu_torch.loader import (BatchedDataLoader, CheckpointManager, DeviceCachedDataset,
+                                        InMemBatchedDataLoader)
+from petastorm_tpu_torch.ops import augment
 from petastorm_tpu_torch.reader import make_batch_reader, make_reader, shm_free_bytes
 from petastorm_tpu_torch.test_util.stub_workers import EnvironmentWorker
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -350,6 +374,21 @@ COLUMNAR_SHUFFLE = dict(shuffling_queue_capacity=8192, seed=0)
 # (579 MB) is larger than their rings (4 x 128 MiB), so a load that kept its
 # groups pinned in the rings would stall.
 INMEM_WORKERS = 4
+
+# Resume, device cache, augmentation (phase 13): phase 9's store, model and
+# batch (ResNet-50, bf16, SGD at lr 0.05, 256 rows: one epoch is 8 steps and
+# every batch ends on a 64-row group), the CIFAR/ImageNet recipe on the card.
+RESUME_STEPS, RESUME_CUT, RESUME_WORKERS = 8, 3, 8
+AUG_PADDING, CUTOUT_SIZE, MIXUP_ALPHA = 4, 16, 0.2
+CACHE_EPOCHS, CACHE_RESIDENT = 2, 5
+#: The resumed run's losses against the uninterrupted run's, |difference| /
+#: loss, on bit-equal parameters and the same rows (cuDNN deterministic). On
+#: an H100 the 8 losses came out bit-equal; the bar leaves room for one
+#: stray rounding, far below the 2-4 % a step moves the loss.
+RESUME_LOSS_REL_BAR = 1e-5
+#: mixup on the card against the CPU, given the same draws: float32, the
+#: same three operations with one rounding each.
+MIXUP_BAR = 1e-6
 
 
 def log(msg):
@@ -2152,6 +2191,339 @@ def phase_columnar(tmp: str) -> None:
         raise AssertionError("columnar path: " + "; ".join(failures))
 
 
+def _tree_map(fn, node):
+    if isinstance(node, dict):
+        return {k: _tree_map(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_map(fn, v) for v in node]
+    return fn(node)
+
+
+def _tree_leaves(node) -> list:
+    if isinstance(node, dict):
+        return [t for v in node.values() for t in _tree_leaves(v)]
+    if isinstance(node, list):
+        return [t for v in node for t in _tree_leaves(v)]
+    return [node]
+
+
+def fingerprint(images: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """One int64 per row: the row's pixels dotted with fixed random weights
+    below 2^31 (no overflow: 150,528 x 255 x 2^31 < 2^63)."""
+    return (images.reshape(images.shape[0], -1).to(torch.int64) * weights).sum(1)
+
+
+class RowIds:
+    """Row index in the store's file order, from a fingerprint of the
+    decoded pixels (the store has no id column)."""
+
+    def __init__(self, url: str):
+        gen = torch.Generator().manual_seed(13)
+        self.weights = torch.randint(1, 2 ** 31, (int(np.prod(IMAGE_SHAPE)),), generator=gen,
+                                     dtype=torch.int64).to("cuda")
+        with make_reader(url, shuffle_row_groups=False, workers_count=RESUME_WORKERS) as r:
+            fps = torch.cat([fingerprint(b["image"], self.weights) for b in
+                             DataLoader(r, batch_size=IMAGENET_BATCH, drop_last=False,
+                                        device="cuda")]).tolist()
+        self.table = {fp: i for i, fp in enumerate(fps)}
+        if len(fps) != IMAGENET_ROWS or len(self.table) != len(fps):
+            raise AssertionError(f"row fingerprints: {len(self.table)} distinct of {len(fps)}")
+
+    def __call__(self, images: torch.Tensor) -> list:
+        return [self.table[fp] for fp in fingerprint(images, self.weights).tolist()]
+
+
+def augmented(images: torch.Tensor, step: int) -> torch.Tensor:
+    """Phase 13's input tail: flip, crop and cutout drawn from a generator
+    seeded ``(0, step)``, then K1 to bf16."""
+    gen = augment.seeded_generator((0, step), images.device)
+    x = augment.random_flip_horizontal(gen, images)
+    x = augment.random_crop(gen, x, padding=AUG_PADDING)
+    x = augment.cutout(gen, x, size=CUTOUT_SIZE)
+    return normalize_images(x)
+
+
+def _fresh_model(seed: int):
+    init_opt, step = resnet.make_train_step(learning_rate=0.05)
+    params = resnet.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                                IMAGENET_CLASSES, device="cuda")
+    return params, init_opt(params), step
+
+
+def _train_part(url, ids, model, first: int, count: int, resume_state=None, on_cut=None):
+    """``count`` steps (global indices ``first``...) of the resume
+    pipeline; returns the model, each step's row ids and loss, and whether
+    the stream ended right after them. ``on_cut(loader, params, opt)`` runs
+    before the reader stops."""
+    params, opt, step = model
+    rows, losses = [], []
+    reader = make_reader(url, shuffle_row_groups=True, seed=0, workers_count=1,
+                         resume_state=resume_state)
+    with DataLoader(reader, batch_size=IMAGENET_BATCH, device="cuda") as loader:
+        it = iter(loader)
+        for s in range(first, first + count):
+            batch = next(it)
+            rows.append(ids(batch["image"]))
+            params, opt, loss, _ = step(params, opt, {"image": augmented(batch["image"], s),
+                                                      "label": batch["label"]})
+            losses.append(loss.item())
+        if on_cut is not None:
+            on_cut(loader, params, opt)
+        ended = next(it, None) is None
+        it.close()
+    return (params, opt, step), rows, losses, ended
+
+
+def _cut_and_resume(url, pool: str, ids) -> dict:
+    """A cut after ``RESUME_CUT`` batches and a resume, on ``pool``: every
+    row not delivered before the cut must come back."""
+    kw = dict(reader_pool_type=pool, workers_count=RESUME_WORKERS, shuffle_row_groups=True,
+              seed=0)
+    with make_reader(url, **kw) as r:
+        loader = DataLoader(r, batch_size=IMAGENET_BATCH, drop_last=False, device="cuda")
+        it = iter(loader)
+        first = [i for _ in range(RESUME_CUT) for i in ids(next(it)["image"])]
+        state = loader.state_dict()
+        it.close()
+    with make_reader(url, resume_state=state, **kw) as r:
+        rest = [i for b in DataLoader(r, batch_size=IMAGENET_BATCH, drop_last=False,
+                                      device="cuda") for i in ids(b["image"])]
+    undelivered = set(range(IMAGENET_ROWS)) - set(first)
+    lost = undelivered - set(rest)
+    reread = len(set(first) & set(rest))
+    log(f"[resume] {pool} x{RESUME_WORKERS}: cut after {len(first)} rows at {state}; the resume "
+        f"read {len(rest)} rows: {len(lost)} lost, {reread} read again "
+        f"({len(rest) - len(set(rest))} twice within the resume)")
+    return {"lost": len(lost), "reread": reread, "dup": len(rest) - len(set(rest))}
+
+
+def phase_resume(url: str, thread_bench: dict) -> dict:
+    """Resume, the device cache and the augmentations (see the module
+    docstring, phase 13). Returns K1's launches by name on (a) and (b)."""
+    t_phase = time.perf_counter()
+    failures = []
+    free_cuda()
+    ids = RowIds(url)
+    log(f"[resume] {len(ids.table)} rows named by fingerprint in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    saved_cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    kernels.reset_launch_counts()
+    expected_k1 = 0
+
+    # (a) Resume: the uninterrupted run, then a cut at step 3 and a restore.
+    try:
+        model, full_rows, full_losses, ended = _train_part(url, ids, _fresh_model(0), 0,
+                                                           RESUME_STEPS)
+        expected_k1 += RESUME_STEPS
+        if not ended:
+            failures.append("the uninterrupted epoch has more than 8 batches")
+        del model
+        free_cuda()
+        saved = {}
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            mgr = CheckpointManager(ckpt_dir, max_to_keep=2)
+
+            def on_cut(loader, params, opt):
+                mgr.save(RESUME_CUT, {"model": _tree_map(torch.Tensor.detach, params),
+                                      "opt": opt.state_dict()}, loader=loader)
+                saved["params"] = [t.detach().clone() for t in _tree_leaves(params)]
+                saved["momenta"] = [opt.state[p]["momentum_buffer"].clone()
+                                    for p in resnet.param_leaves(params)]
+                saved["cursor"] = loader.state_dict()
+
+            model, cut_rows, cut_losses, _ = _train_part(url, ids, _fresh_model(0), 0,
+                                                         RESUME_CUT, on_cut=on_cut)
+            expected_k1 += RESUME_CUT
+            del model
+            free_cuda()
+            # A model from another seed: only the restore can make it equal.
+            params, opt, step = _fresh_model(1)
+            state, cursor = mgr.restore(map_location="cuda")
+            with torch.no_grad():
+                for dst, src in zip(_tree_leaves(params), _tree_leaves(state["model"])):
+                    dst.copy_(src)
+            opt.load_state_dict(state["opt"])
+            del state
+            params_equal = all(torch.equal(a, b) for a, b in
+                               zip(_tree_leaves(params), saved["params"]))
+            momenta_equal = all(torch.equal(opt.state[p]["momentum_buffer"], m) for p, m in
+                                zip(resnet.param_leaves(params), saved["momenta"]))
+            log(f"[resume] checkpoint at step {RESUME_CUT}: {len(saved['params'])} parameter "
+                f"tensors {'bit-equal' if params_equal else 'DIFFERENT'} after the restore, "
+                f"{len(saved['momenta'])} momenta {'bit-equal' if momenta_equal else 'DIFFERENT'}; "
+                f"cursor {cursor} (the loader's at the cut: {saved['cursor']}); steps kept "
+                f"{mgr.all_steps()}")
+            if not (params_equal and momenta_equal and cursor == saved["cursor"]):
+                failures.append("the restored state differs from the saved one")
+            del saved
+            model, rest_rows, rest_losses, ended = _train_part(
+                url, ids, (params, opt, step), RESUME_CUT, RESUME_STEPS - RESUME_CUT,
+                resume_state=cursor)
+            expected_k1 += RESUME_STEPS - RESUME_CUT
+            del model, params, opt
+            free_cuda()
+        if not ended:
+            failures.append("the resumed stream did not end after steps 4-8")
+        if cut_rows != full_rows[:RESUME_CUT] or rest_rows != full_rows[RESUME_CUT:]:
+            failures.append("the resumed rows are not the uninterrupted steps 4-8")
+        rel = [abs(a - b) / abs(b) for a, b in zip(cut_losses + rest_losses, full_losses)]
+        log(f"[resume] rows: steps 1-3 and resumed steps 4-8 "
+            f"{'equal' if cut_rows + rest_rows == full_rows else 'DIFFERENT from'} the "
+            f"uninterrupted run's (every step {IMAGENET_BATCH} distinct rows: "
+            f"{all(len(set(r)) == IMAGENET_BATCH for r in full_rows)}; the epoch "
+            f"{'every row once' if sorted(sum(full_rows, [])) == list(range(IMAGENET_ROWS)) else 'NOT every row once'})")
+        log(f"[resume] losses uninterrupted {[f'{x:.6f}' for x in full_losses]}; cut and resumed "
+            f"{[f'{x:.6f}' for x in cut_losses + rest_losses]}; |difference| / loss max "
+            f"{max(rel):.3e} (bar {RESUME_LOSS_REL_BAR:g}; bit-equal at "
+            f"{sum(a == b for a, b in zip(cut_losses + rest_losses, full_losses))} of "
+            f"{RESUME_STEPS} steps)")
+        if max(rel) > RESUME_LOSS_REL_BAR or not all(np.isfinite(full_losses + rest_losses)):
+            failures.append(f"resumed losses {max(rel):.3e} from the uninterrupted run's")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_cudnn
+    resume_pools = {pool: _cut_and_resume(url, pool, ids) for pool in ("thread", "process")}
+    for pool, r in resume_pools.items():
+        if r["lost"]:
+            failures.append(f"{pool}: {r['lost']} rows lost across the resume")
+
+    # (b) The device cache: load, check an epoch's rows, then train from it.
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with make_reader(url, shuffle_row_groups=False, workers_count=RESUME_WORKERS) as r:
+        cache = DeviceCachedDataset(r, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want_bytes = IMAGENET_ROWS * (int(np.prod(IMAGE_SHAPE)) + 4)
+    epochs = [[] for _ in range(CACHE_EPOCHS)]
+    steps_per_epoch = IMAGENET_ROWS // IMAGENET_BATCH
+    order0 = torch.randperm(IMAGENET_ROWS, generator=augment.seeded_generator((0, 0), "cuda"),
+                            device="cuda")
+    gather_equal = None
+    for i, b in enumerate(cache.batches(IMAGENET_BATCH, num_epochs=CACHE_EPOCHS, seed=0)):
+        if i == 0:
+            gather_equal = (torch.equal(b["image"], cache._data["image"][order0[:IMAGENET_BATCH]])
+                            and torch.equal(b["label"],
+                                            cache._data["label"][order0[:IMAGENET_BATCH]]))
+        epochs[i // steps_per_epoch].extend(ids(b["image"]))
+    once = all(sorted(e) == list(range(IMAGENET_ROWS)) for e in epochs)
+    log(f"[cache] DeviceCachedDataset: {cache.num_rows} rows, columns {cache.columns}, "
+        f"nbytes {cache.nbytes()} (want {want_bytes}), loaded in {load_s:.3f} s; every row once "
+        f"per epoch: {once}; epochs in different orders: {epochs[0] != epochs[1]}; first "
+        f"batch byte-equal to the cached rows at its indices: {gather_equal}")
+    if cache.nbytes() != want_bytes or not once or epochs[0] == epochs[1] or not gather_equal:
+        failures.append("the device cache's epochs are wrong")
+
+    params, opt, step = _fresh_model(0)
+    batches = cache.batches(IMAGENET_BATCH, num_epochs=CACHE_EPOCHS, seed=0)
+    counter = iter(range(1 << 30))
+
+    def run_step(batch):
+        nonlocal params, opt
+        params, opt, loss, _ = step(params, opt, {"image": augmented(batch["image"],
+                                                                     next(counter)),
+                                                  "label": batch["label"]})
+        return loss
+
+    timed = CACHE_EPOCHS * steps_per_epoch - 1
+    first = next(batches)
+    warm = run_step(first)
+    loss_first, loss_last, wait_s, wall_s, resident_s = pipelined_window(
+        run_step, lambda: next(batches), timed, CACHE_RESIDENT, warm_loss=warm)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile_step(lambda: run_step(first).item(), "ResNet-50 step from the device cache "
+                 "(augmentations, K1)", IMAGE_GROUPS, top=8)
+    expected_k1 += 1 + timed + CACHE_RESIDENT + 1
+    cache_result = {"load_s": load_s, "nbytes": cache.nbytes(), "peak_gb": peak_gb,
+                    "step_ms": 1e3 * (wall_s - wait_s) / timed, "wall_ms": 1e3 * wall_s / timed,
+                    "samples_per_sec": timed * IMAGENET_BATCH / wall_s,
+                    "resident_ms": 1e3 * resident_s, "wait_pct": 100 * wait_s / wall_s}
+    log(f"[cache] ResNet-50 from the cache, {timed} timed steps of {IMAGENET_BATCH} with the "
+        f"augmentations and K1 on the card: {cache_result['wall_ms']:.2f} ms a step on the wall, "
+        f"{cache_result['step_ms']:.2f} ms less the batch waits ({cache_result['wait_pct']:.2f} % "
+        f"waiting), {cache_result['samples_per_sec']:.1f} samples/s, resident "
+        f"{cache_result['resident_ms']:.2f} ms; losses {loss_first:.4f} -> {loss_last:.4f}; "
+        f"peak memory {peak_gb:.2f} GB. Phase 9 in this run (reader on {IMAGENET_WORKERS} "
+        f"threads, / 255 and no augmentation): step {thread_bench['step_time_ms']:.2f} ms, "
+        f"resident {thread_bench['step_time_ms_resident']:.2f} ms, "
+        f"{thread_bench['samples_per_sec']:.1f} samples/s")
+    if not (np.isfinite(loss_first) and np.isfinite(loss_last)):
+        failures.append("non-finite loss from the cache")
+    del params, opt, step, batches, first
+    launches = dict(kernels.launch_counts)
+    log(f"[resume] K1 launches over (a) and (b): {launches} (expected {expected_k1} on "
+        f"{KERNEL_NAME}; the augmentations hand K1 contiguous batches, so none takes the "
+        f"general route)")
+    if launches != {KERNEL_NAME: expected_k1}:
+        failures.append(f"K1 launches {launches}, expected {expected_k1}")
+
+    # (c) Each augmentation on the card against the same apply on the CPU.
+    images = next(cache.batches(IMAGENET_BATCH, shuffle=False))["image"]
+    del cache
+    free_cuda()
+    gen = augment.seeded_generator((0, 1 << 20), "cuda")
+    b = images.shape[0]
+    draws = {"flip": augment.draw_flips(gen, b, device="cuda"),
+             "crop": augment.draw_crop_offsets(gen, b, AUG_PADDING, "cuda"),
+             "cutout": augment.draw_cutout_centres(gen, b, *IMAGE_SHAPE[:2], "cuda"),
+             "mixup": augment.draw_mixup_lam(gen, b, MIXUP_ALPHA, "cuda")}
+    ops = {"flip": lambda x, d: augment.apply_flip(x, d),
+           "crop": lambda x, d: augment.apply_crop(x, d, AUG_PADDING),
+           "cutout": lambda x, d: augment.apply_cutout(x, d, CUTOUT_SIZE)}
+    host = images.cpu()
+    card_x, host_x = images, host
+    for name, op in ops.items():
+        card_x, host_x = op(card_x, draws[name]), op(host_x, draws[name].cpu())
+        same = card_x.device.type == "cuda" and torch.equal(card_x.cpu(), host_x)
+        log(f"[augment] {name} on the card {'bit-equal to' if same else 'DIFFERENT from'} the CPU "
+            f"with the same draws")
+        if not same:
+            failures.append(f"{name} on the card differs from the CPU")
+    labels = torch.arange(b) % IMAGENET_CLASSES
+    mixed = augment.apply_mixup(normalize_images(card_x, out_dtype=torch.float32),
+                                labels.cuda(), draws["mixup"], IMAGENET_CLASSES)
+    want = augment.apply_mixup(normalize_images_plain(host_x, out_dtype=torch.float32), labels,
+                               draws["mixup"].cpu(), IMAGENET_CLASSES)
+    mix_err = max((g.cpu() - w).abs().max().item() for g, w in zip(mixed, want))
+    log(f"[augment] mixup on the card against the CPU: max abs error {mix_err:.3e} (bar "
+        f"{MIXUP_BAR:g})")
+    if not mix_err <= MIXUP_BAR:
+        failures.append(f"mixup {mix_err:.3e} from the CPU")
+    del mixed, want, host, host_x
+    (chain_ms,) = median_ms(lambda: augmented(images, 0), reps=10)
+    log(f"[augment] flip + crop + cutout + K1 at {tuple(images.shape)}: {chain_ms:.3f} ms")
+    del images, card_x
+
+    # (d) The loader's spans in a profiler window, and its metrics.
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with make_reader(url, workers_count=RESUME_WORKERS, seed=0) as r:
+        loader = DataLoader(r, batch_size=IMAGENET_BATCH, device="cuda")
+        it = iter(loader)
+        next(it)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA],
+                                    experimental_config=config) as prof:
+            next(it)
+            next(it)
+            torch.cuda.synchronize()
+        delivered = 3 + sum(1 for _ in it)
+    names = [e.name for e in prof.events()]
+    spans = {n: names.count(n) for n in ("petastorm_tpu.host_batch", "petastorm_tpu.stage")}
+    metrics = loader.metrics.as_dict()
+    want_metrics = {"batches": steps_per_epoch, "samples": IMAGENET_ROWS,
+                    "bytes_staged": want_bytes}
+    log(f"[metrics] spans in a two-batch profiler window: {spans}; loader.metrics after the pass "
+        f"({delivered} batches delivered): {metrics}")
+    if min(spans.values()) < 1 or delivered != steps_per_epoch \
+            or {k: metrics[k] for k in want_metrics} != want_metrics:
+        failures.append(f"spans {spans}, metrics {metrics}")
+    log(f"[resume] phase took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("resume phase: " + "; ".join(failures))
+    return {**launches, "cache": cache_result, "resume": resume_pools, "augment_ms": chain_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2159,7 +2531,7 @@ def main() -> int:
     smi = phase_probe()
     phase_build()
     k1, k1_strided = phase_kernels()
-    # Phase 11 reads the stores of phases 4, 8 and 9 again.
+    # Phase 11 reads the stores of phases 4, 8 and 9 again, phase 13 phase 9's.
     with tempfile.TemporaryDirectory() as slice_tmp, \
             tempfile.TemporaryDirectory() as train_tmp, \
             tempfile.TemporaryDirectory() as image_tmp:
@@ -2175,9 +2547,11 @@ def main() -> int:
             seq = phase_seq_parallel(tmp)
         proc = phase_process(f"file://{slice_tmp}/imagenet_like", f"file://{train_tmp}/tokens",
                              f"file://{image_tmp}/imagenet", thread_bench)
-    free_cuda()
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_columnar(tmp)
+        free_cuda()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_columnar(tmp)
+        # Phase 13 reads phase 9's store again.
+        resume = phase_resume(f"file://{image_tmp}/imagenet", thread_bench)
     for name in (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
                  flash_attn.BWD_DKV_KERNEL_NAME):
         counts[name] += proc[name]
@@ -2186,14 +2560,17 @@ def main() -> int:
         "name": KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/normalize.cu",
         "replaces": "petastorm_tpu/ops/image_ops.py:27",
-        "launches": launches + proc["normalize"], "max_abs_err": k1["max_abs_err"],
+        "launches": launches + proc["normalize"] + resume.get(KERNEL_NAME, 0),
+        "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
         # K1's general route (any strides, any channel count): timed on the
-        # main path's batch cropped to 208x208; no main path launches it.
+        # main path's batch cropped to 208x208; no main path launches it
+        # (phase 13's augmentations hand K1 contiguous batches).
         "name": STRIDED_KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/normalize.cu",
-        "replaces": "petastorm_tpu/ops/image_ops.py:27", "launches": 0, **k1_strided,
+        "replaces": "petastorm_tpu/ops/image_ops.py:27",
+        "launches": resume.get(STRIDED_KERNEL_NAME, 0), **k1_strided,
         "bound_by": "bytes", "library_ms": None}, {
         "name": flash_attn.KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/flash_attn.cu",

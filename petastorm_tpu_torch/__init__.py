@@ -5,11 +5,15 @@ Parquet stores written by either package, read with :func:`make_reader`
 spawned decode processes, batched and staged onto an NVIDIA GPU by
 :class:`DataLoader`; any Parquet store read column by column with
 :func:`make_batch_reader` and batched by :class:`BatchedDataLoader` or
-:class:`InMemBatchedDataLoader`; and consumed on the card: images are normalised by
+:class:`InMemBatchedDataLoader`, or held on the card by
+:class:`DeviceCachedDataset`; training checkpointed with its input position by
+:class:`CheckpointManager`; and consumed on the card: images are
+augmented (``ops.augment``) and normalised by
 :func:`normalize_images`, and token windows feed the Llama forward and its
 AdamW training step (``models.llama``) on :func:`flash_attention`, whose
-gradient runs the flash backward kernels. All of these are hand-written
-CUDA kernels. The package imports ``torch`` and never ``jax``.
+gradient runs the flash backward kernels. The normalization and the
+attention forward and backward are hand-written CUDA kernels. The package
+imports ``torch`` and never ``jax``.
 
 The names below load on first use (module ``__getattr__``): importing a
 submodule does not import ``torch``, so the reader's spawned workers run
@@ -19,6 +23,8 @@ import importlib
 
 _EXPORTS = {
     "BatchedDataLoader": "petastorm_tpu_torch.loader",
+    "CheckpointManager": "petastorm_tpu_torch.loader",
+    "DeviceCachedDataset": "petastorm_tpu_torch.loader",
     "DataLoader": "petastorm_tpu_torch.loader",
     "InMemBatchedDataLoader": "petastorm_tpu_torch.loader",
     "make_batch_reader": "petastorm_tpu_torch.reader",

@@ -37,11 +37,22 @@ batch before writing into it.
 batch ``k`` times: the repeats are ``.clone()``s of its tensors (one copy on
 the card, no decode, no host-to-device copy), never aliases, so a consumer
 that writes into or frees a batch cannot touch its repeats.
+
+Checkpointing: :meth:`LoaderBase.state_dict` is the reader's cursor as of
+the last batch the consumer received, not the reader's own, which the
+staging thread drives ``prefetch`` batches ahead. The cursor is read on the
+staging thread between reader pulls, right after a batch is assembled, and
+travels with that batch through the queue. Loaders with a host-side
+shuffling buffer refuse: no reader cursor describes the rows such a buffer
+holds. ``loader.metrics`` (:class:`~petastorm_tpu_torch.metrics.PipelineMetrics`)
+counts the staged batches, and the spans ``petastorm_tpu.host_batch`` and
+``petastorm_tpu.stage`` name the two halves of staging in a profiler trace.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 import warnings
 from typing import Dict, Optional
 
@@ -52,11 +63,15 @@ from petastorm_tpu_torch.loader.batched_buffer import (BatchedNoopShufflingBuffe
                                                        BatchedRandomShufflingBuffer)
 from petastorm_tpu_torch.loader.dtypes import (DEFAULT_POLICY, DTypePolicy, sanitize_array,
                                                sanitize_batch)
+from petastorm_tpu_torch.metrics import PipelineMetrics, traced_span
 from petastorm_tpu_torch.reader_impl.shuffling_buffer import RandomShufflingBuffer
 
 #: Consumer poll period on the staged-batch queue: bounds how late a dead
 #: staging thread is noticed, not delivery latency.
 _STAGE_POLL_S = 0.5
+
+_SHUFFLE_HAZARD = ("shuffling_queue_capacity buffers a random sample of rows host-side; "
+                   "checkpoint with the reader's seeded shuffling instead")
 
 
 def resolve_device(device) -> torch.device:
@@ -168,6 +183,14 @@ class LoaderBase:
         # Per-column sticky conversion of object columns: "drop" or
         # (kind, row_shape, dtype).
         self._object_column_mode: Dict[str, object] = {}
+        #: Counts and seconds of the staged batches.
+        self.metrics = PipelineMetrics()
+        # Why state_dict() would lose rows with this configuration, or None.
+        self._ckpt_hazard: Optional[str] = None
+        # A cursor taken where the loader buffered no rows, for loaders that
+        # hold rows across batches; None = read the reader's live cursor.
+        self._pending_safe_state: Optional[dict] = None
+        self._last_input_state: Optional[dict] = None
 
     # ----------------------------------------------------- object columns
     def _batchable_columns(self, group) -> Dict[str, np.ndarray]:
@@ -316,24 +339,39 @@ class LoaderBase:
                 if cuda:
                     torch.cuda.set_device(self._device)
                     stager = _PinnedStager(self._device, self._prefetch + 1)
-                for hb in host_batches:
-                    if stop.is_set():
+                while not stop.is_set():
+                    t0 = time.perf_counter()
+                    with traced_span("petastorm_tpu.host_batch"):
+                        hb = next(host_batches, None)
+                    if hb is None:
                         return
-                    cols, host_cols = sanitize_batch(hb, self._dtype_policy)
-                    if cuda:
-                        staged, event = stager.stage(cols)
-                    else:
-                        staged = {k: v.contiguous() if isinstance(v, torch.Tensor)
-                                  else torch.from_numpy(np.ascontiguousarray(v))
-                                  for k, v in cols.items()}
-                        event = None
+                    # The cursor between reader pulls covers exactly the rows
+                    # assembled so far, so it travels with this batch.
+                    snap = self._snapshot_input_state()
+                    t1 = time.perf_counter()
+                    with traced_span("petastorm_tpu.stage"):
+                        cols, host_cols = sanitize_batch(hb, self._dtype_policy)
+                        if cuda:
+                            staged, event = stager.stage(cols)
+                        else:
+                            staged = {k: v.contiguous() if isinstance(v, torch.Tensor)
+                                      else torch.from_numpy(np.ascontiguousarray(v))
+                                      for k, v in cols.items()}
+                            event = None
+                    t2 = time.perf_counter()
+                    rows = len(next(iter(hb.values()))) if hb else 0
+                    self.metrics.record_batch(rows, sum(v.nbytes for v in cols.values()),
+                                              t1 - t0, t2 - t1)
                     staged.update(host_cols)
-                    if not put((None, staged, event)):
+                    # Not kept while the queue is full: on a process reader
+                    # the host batch's columns may pin ring records.
+                    del hb, cols, host_cols
+                    if not put((None, staged, event, snap)):
                         return
             except BaseException as e:  # noqa: BLE001 - re-raised on the consumer
-                put((err, e, None))
+                put((err, e, None, None))
             finally:
-                put((end, None, None))
+                put((end, None, None, None))
                 host_batches.close()
 
         thread = threading.Thread(target=produce, daemon=True, name="petastorm-torch-stage")
@@ -341,7 +379,7 @@ class LoaderBase:
         try:
             while True:
                 try:
-                    kind, item, event = q.get(timeout=_STAGE_POLL_S)
+                    kind, item, event, snap = q.get(timeout=_STAGE_POLL_S)
                 except queue.Empty:
                     if thread.is_alive() or not q.empty():
                         continue
@@ -357,6 +395,7 @@ class LoaderBase:
                     for v in item.values():
                         if isinstance(v, torch.Tensor):
                             v.record_stream(consumer)
+                self._last_input_state = snap
                 yield item
                 for _ in range(self._echo - 1):
                     yield {k: v.clone() if isinstance(v, torch.Tensor) else v
@@ -370,10 +409,40 @@ class LoaderBase:
         """The host batches of one pass, as ``{name: ndarray}``."""
         raise NotImplementedError
 
+    # -------------------------------------------------------- checkpointing
+    def _snapshot_live_state(self) -> Optional[dict]:
+        reader = getattr(self, "_reader", None)
+        return None if reader is None else reader.state_dict()
+
+    def _snapshot_input_state(self) -> Optional[dict]:
+        if self._pending_safe_state is not None:
+            return dict(self._pending_safe_state)
+        return self._snapshot_live_state()
+
+    def state_dict(self) -> Optional[dict]:
+        """The resume point of the delivered stream: the reader's cursor as
+        of the last batch this loader yielded (before the first, the
+        reader's cursor when iteration began; None for a loader without a
+        reader). Pass it as the reader's ``resume_state=``: staged batches
+        the consumer never received are read again, not skipped. Raises
+        ``ValueError`` for a loader with a shuffling buffer: use the
+        reader's seeded shuffling to checkpoint."""
+        if self._ckpt_hazard is not None:
+            raise ValueError(f"state_dict() would lose data with this loader configuration: "
+                             f"{self._ckpt_hazard}")
+        return self._last_input_state
+
     def __iter__(self):
         if self._in_iter:
             raise RuntimeError("Loader is already being iterated")
         self._in_iter = True
+        if self._persistent_it is None:
+            # A fresh pipeline: a safe cursor left by a torn-down one is stale
+            # (a live persistent pipeline keeps its own, which still guards
+            # the rows it buffers).
+            self._pending_safe_state = None
+        if self._last_input_state is None:
+            self._last_input_state = self._snapshot_input_state()
         try:
             if self._steps_per_epoch is None:
                 it = self._prefetched(self._host_batches())
@@ -459,6 +528,8 @@ class DataLoader(LoaderBase):
         self._shuffling_capacity = shuffling_queue_capacity
         self._min_after = min_after_retrieve
         self._seed = seed
+        if shuffling_queue_capacity and shuffling_queue_capacity > 1:
+            self._ckpt_hazard = _SHUFFLE_HAZARD
 
     def _row_iterator(self):
         if self._reader.last_row_consumed:
@@ -594,6 +665,8 @@ class BatchedDataLoader(LoaderBase):
         self._shuffling_capacity = shuffling_queue_capacity
         self._min_after = min_after_retrieve
         self._seed = seed
+        if shuffling_queue_capacity and shuffling_queue_capacity > 1:
+            self._ckpt_hazard = _SHUFFLE_HAZARD
 
     def _host_batches(self):
         if self._reader.last_row_consumed:
@@ -608,8 +681,17 @@ class BatchedDataLoader(LoaderBase):
             buf = BatchedNoopShufflingBuffer(self._batch_size)
         exhausted = False
         tail = None
+        buffered_rows = 0
         while True:
             while not exhausted and buf.can_add:
+                if buffered_rows == 0:
+                    # Nothing buffered: every later batch is made of rows
+                    # pulled after this cursor, so it resumes without loss.
+                    # Batches cut from a buffered group keep the older cursor
+                    # (resume reads the group again); the plain buffer holds
+                    # up to two batches, so it empties only where the stream
+                    # does, as in the JAX package.
+                    self._pending_safe_state = self._snapshot_live_state()
                 try:
                     cols = self._batchable_columns(self._reader.next_batch())
                 except StopIteration:
@@ -617,13 +699,16 @@ class BatchedDataLoader(LoaderBase):
                     buf.finish()
                     continue
                 if cols:
+                    buffered_rows += len(next(iter(cols.values())))
                     buf.add_many(cols)
                 # A group left in this frame would pin its ring record while
                 # the generator waits at a yield.
                 del cols
             if buf.can_retrieve:
                 batch = buf.retrieve()
-                if len(next(iter(batch.values()))) == self._batch_size:
+                n = len(next(iter(batch.values())))
+                buffered_rows = max(0, buffered_rows - n)
+                if n == self._batch_size:
                     yield batch
                 else:
                     tail = batch

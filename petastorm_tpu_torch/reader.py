@@ -10,6 +10,15 @@ it yields the same rows as the JAX package's reader, in the same order on
 the thread and dummy pools (the process pool delivers in the order its
 workers finish). With ``schema_fields=NGram(...)`` a row reader yields the
 NGram's windows instead of rows.
+
+:meth:`Reader.state_dict` is the read position (``epoch``, ``offset``,
+``items``, ``seed``, the JAX package's free-mode cursor): passed back as
+``resume_state=`` to a reader of the same store and settings, it continues
+the stream with no row lost. A row group counts as read once its last row
+(or its batch) has been handed out; one read in part is read again whole.
+The JAX package's reader waits for the worker's confirmation, which it
+reads on the next pull, so where a pull ends exactly on a row group its
+cursor still points at that group and the port's is one past it.
 """
 from __future__ import annotations
 
@@ -36,6 +45,10 @@ from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
 
 #: In-flight row groups per worker beyond the one it is decoding.
 _VENTILATE_EXTRA_ROWGROUPS = 3
+
+#: Handed-out items remembered before those the ventilator has confirmed
+#: are dropped from the reader's record.
+_DELIVERED_PRUNE_AT = 256
 
 #: Per-worker shm ring bytes of the process pool, and the least it shrinks
 #: to where ``/dev/shm`` is small (reference petastorm_tpu/reader.py:251-265).
@@ -83,7 +96,8 @@ def make_reader(dataset_url: str,
                 seed: Optional[int] = None,
                 num_epochs: Optional[int] = 1,
                 cur_shard: Optional[int] = None,
-                shard_count: Optional[int] = None) -> "Reader":
+                shard_count: Optional[int] = None,
+                resume_state: Optional[dict] = None) -> "Reader":
     """Reader over a store written by ``materialize_dataset_local`` (either
     package's).
 
@@ -106,14 +120,18 @@ def make_reader(dataset_url: str,
     :param num_epochs: passes over the dataset; ``None`` = forever
     :param cur_shard/shard_count: read only row groups with
         ``index % shard_count == cur_shard``
+    :param resume_state: a :meth:`Reader.state_dict` (of this package's
+        reader or the JAX package's, free mode) to continue from; its
+        recorded seed is used when ``seed`` is None. The store, sharding
+        and shuffle settings must be the saved reader's
     """
-    seed = _resolve_seed(seed, shuffle_row_groups, shuffle_rows)
+    seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
                       PickleSerializer())
     return Reader(dataset_url, pool, schema_fields=schema_fields,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
-                  shard_count=shard_count)
+                  shard_count=shard_count, resume_state=resume_state)
 
 
 def make_batch_reader(dataset_url: str,
@@ -127,7 +145,8 @@ def make_batch_reader(dataset_url: str,
                       num_epochs: Optional[int] = 1,
                       cur_shard: Optional[int] = None,
                       shard_count: Optional[int] = None,
-                      convert_early_to_numpy: bool = False) -> "Reader":
+                      convert_early_to_numpy: bool = False,
+                      resume_state: Optional[dict] = None) -> "Reader":
     """Columnar reader of any Parquet store (several files, with or without
     petastorm metadata; a store without it gets a schema inferred from its
     Arrow schema): one batch of ``{column: ndarray}`` per row group,
@@ -153,7 +172,7 @@ def make_batch_reader(dataset_url: str,
 
     The other arguments are :func:`make_reader`'s.
     """
-    seed = _resolve_seed(seed, shuffle_row_groups, shuffle_rows)
+    seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows)
     serializer = PickleSerializer() if convert_early_to_numpy else ArrowTableSerializer()
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
                       serializer)
@@ -161,15 +180,57 @@ def make_batch_reader(dataset_url: str,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, is_batched_reader=True,
-                  convert_early_to_numpy=convert_early_to_numpy)
+                  convert_early_to_numpy=convert_early_to_numpy, resume_state=resume_state)
 
 
-def _resolve_seed(seed, shuffle_row_groups: bool, shuffle_rows: bool):
-    if seed is None and (shuffle_row_groups or shuffle_rows):
-        # A drawn seed still keys the row shuffle by plan position, as in
-        # the JAX package.
-        seed = int.from_bytes(os.urandom(4), "little")
-    return seed
+def mint_seed() -> int:
+    """A fresh 32-bit seed (the JAX package's ``epoch_plan.mint_seed``)."""
+    return int.from_bytes(os.urandom(4), "little")
+
+
+def _resolve_seed(seed, resume_state, shuffle_row_groups: bool, shuffle_rows: bool):
+    """The explicit seed; else a resume state's recorded one (its offsets
+    index that seed's order; a state without one stays None, so the resume
+    check can refuse it); else, when anything is shuffled, a minted one, so
+    the reader's ``state_dict`` can be resumed."""
+    if seed is not None:
+        return seed
+    if resume_state is not None:
+        saved = resume_state.get("seed")
+        return None if saved is None else int(saved)
+    if shuffle_row_groups or shuffle_rows:
+        return mint_seed()
+    return None
+
+
+def _resume_position(resume_state: dict, seed, shuffle_row_groups: bool, shuffle_rows: bool,
+                     num_items: int):
+    """``(start_epoch, start_offset)`` of a free-mode resume state, after
+    the JAX package's checks (``reader.py:1536-1591``)."""
+    if resume_state.get("sample_order", "free") != "free" or "manifest" in resume_state:
+        raise ValueError("resume_state is a deterministic-mode or live-data cursor; this "
+                         "package resumes free-mode cursors only")
+    if shuffle_row_groups and seed is None:
+        raise ValueError("Exact resume requires a seed when shuffle_row_groups is on (the "
+                         "epoch permutation must be reproducible); this resume_state records "
+                         "none. States saved by state_dict() carry their minted seed.")
+    saved_seed = resume_state.get("seed")
+    if saved_seed is not None and seed is not None and int(saved_seed) != int(seed) \
+            and (shuffle_row_groups or shuffle_rows):
+        raise ValueError(f"resume_state was saved under seed {saved_seed} but this reader "
+                         f"shuffles with seed {seed}: the offset would point into a different "
+                         f"permutation")
+    saved_items = resume_state.get("items")
+    if saved_items is not None and int(saved_items) != num_items:
+        raise ValueError(f"resume_state was saved over {saved_items} work items but this reader "
+                         f"plans {num_items}: the offset would point at different data. Resume "
+                         f"with the same dataset and sharding as the saved run.")
+    epoch = int(resume_state.get("epoch", 0))
+    offset = int(resume_state.get("offset", 0))
+    if not 0 <= offset < num_items:
+        raise ValueError(f"resume offset {offset} >= {num_items} work items (did the dataset "
+                         f"or its sharding change?)")
+    return epoch, offset
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
@@ -196,7 +257,7 @@ class Reader:
 
     def __init__(self, dataset_url, pool, schema_fields, shuffle_row_groups,
                  shuffle_rows, seed, num_epochs, cur_shard, shard_count,
-                 is_batched_reader=False, convert_early_to_numpy=False):
+                 is_batched_reader=False, convert_early_to_numpy=False, resume_state=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError("cur_shard and shard_count must be used together")
         if cur_shard is not None and not (isinstance(cur_shard, int)
@@ -229,6 +290,10 @@ class Reader:
                 f"No row groups to read (dataset has {len(all_row_groups)}; "
                 f"cur_shard={cur_shard}, shard_count={shard_count})")
 
+        start_epoch, start_offset = (0, 0) if resume_state is None else _resume_position(
+            resume_state, seed, shuffle_row_groups, shuffle_rows, len(row_groups))
+        self._num_items = len(row_groups)
+        self._seed = seed
         self._pool = pool
         self._ventilator = ConcurrentVentilator(
             pool.ventilate, [{"rowgroup": rg} for rg in row_groups],
@@ -236,8 +301,13 @@ class Reader:
             randomize_item_order=shuffle_row_groups,
             random_seed=seed,
             max_ventilation_queue_size=pool.workers_count * (1 + _VENTILATE_EXTRA_ROWGROUPS),
-            item_context_key=ITEM_CONTEXT_KWARG)
+            item_context_key=ITEM_CONTEXT_KWARG,
+            start_epoch=start_epoch, start_offset=start_offset)
         self._buffer = deque()
+        # The context of the item the buffered rows come from, and those of
+        # items handed out in full whose confirmation may still be to come.
+        self._buffer_context = None
+        self._delivered = set()
         self.last_row_consumed = False
         if is_batched_reader:
             if isinstance(pool, ProcessPool) and not convert_early_to_numpy:
@@ -291,6 +361,7 @@ class Reader:
         except EmptyResultError:
             self.last_row_consumed = True
             raise StopIteration from None
+        self._mark_delivered(self._pool.result_context)
         if not isinstance(result, dict):
             # An Arrow table from a thread or dummy pool worker.
             result = arrow_table_to_numpy_dict(result, self.schema)
@@ -303,15 +374,42 @@ class Reader:
         if self._batched:
             return self.schema.make_namedtuple_from_dict(self.next_batch())
         while not self._buffer:
+            self._mark_delivered(self._buffer_context)
+            self._buffer_context = None
             try:
                 self._buffer.extend(self._pool.get_results())
             except EmptyResultError:
                 self.last_row_consumed = True
                 raise StopIteration from None
+            self._buffer_context = self._pool.result_context
         item = self._buffer.popleft()
         if self.ngram is not None:
             return item   # already a window
         return self.schema.make_namedtuple_from_dict(item)
+
+    def _mark_delivered(self, context):
+        """Record that every row of the item at ``context`` was handed out."""
+        if context is None:
+            return
+        self._delivered.add(context)
+        if len(self._delivered) > _DELIVERED_PRUNE_AT:
+            confirmed = self._ventilator.watermark()
+            self._delivered = {c for c in self._delivered if c >= confirmed}
+
+    def state_dict(self) -> dict:
+        """The read position, ``{"epoch", "offset", "items", "seed"}``: the
+        first row group, in the epoch's seeded order, not yet handed out in
+        full. Pass it as ``resume_state=`` to continue the stream; groups
+        after it that were handed out already (a pool finishes groups out of
+        order) are read again: bounded duplication, never loss. ``seed`` is
+        the shuffle seed, minted when none was given. Call it from the
+        thread that reads; under a loader, which reads ahead, use the
+        loader's ``state_dict()``."""
+        delivered = set(self._delivered)
+        if not self._buffer and self._buffer_context is not None:
+            delivered.add(self._buffer_context)
+        epoch, offset = self._ventilator.watermark(delivered)
+        return {"epoch": epoch, "offset": offset, "items": self._num_items, "seed": self._seed}
 
     def reset(self):
         """Start another pass; only legal once the current one is consumed."""
@@ -319,6 +417,8 @@ class Reader:
             raise RuntimeError(
                 "reset() is only supported after the previous pass was fully consumed")
         self._ventilator.reset()
+        self._buffer_context = None
+        self._delivered = set()
         self.last_row_consumed = False
 
     def stop(self):

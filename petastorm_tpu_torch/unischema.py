@@ -218,6 +218,40 @@ class Unischema:
             pa_fields.append(pa.field(f.name, codec.arrow_type(f), nullable=f.nullable))
         return pa.schema(pa_fields)
 
+    def as_tensor_specs(self, batch_size: Optional[int] = None,
+                        variable_dim: Optional[int] = None) -> dict:
+        """``{name: torch.empty(shape, dtype=..., device="meta")}``: the
+        shape and dtype of each field as the loaders deliver it under
+        ``DEFAULT_POLICY`` (the JAX package's ``as_shape_dtype_structs``).
+        ``batch_size`` prepends a batch dimension; ``variable_dim``
+        substitutes ``None`` dimensions, which otherwise raise. Fields that
+        stay on the host (strings, bytes, ``Decimal``, uint64) are left
+        out."""
+        import torch
+
+        from petastorm_tpu_torch.loader.dtypes import DEFAULT_POLICY, sanitize_array
+
+        out = {}
+        for f in self._fields.values():
+            if f.numpy_dtype in (str, bytes, Decimal, np.str_, np.bytes_, np.object_):
+                continue
+            delivered = sanitize_array(np.empty(0, np.dtype(f.numpy_dtype)), DEFAULT_POLICY)
+            if delivered is None:
+                continue
+            shape = list(f.shape)
+            for i, d in enumerate(shape):
+                if d is None:
+                    if variable_dim is None:
+                        raise ValueError(f"Field {f.name!r} has a variable dimension; pass "
+                                         f"variable_dim= to fix it")
+                    shape[i] = variable_dim
+            if batch_size is not None:
+                shape = [batch_size] + shape
+            dtype = (delivered.dtype if isinstance(delivered, torch.Tensor)
+                     else torch.from_numpy(delivered).dtype)
+            out[f.name] = torch.empty(tuple(shape), dtype=dtype, device="meta")
+        return out
+
     # ------------------------------------------------------------- inference
     @classmethod
     def from_arrow_schema(cls, arrow_schema, omit_unsupported_fields: bool = False) -> "Unischema":

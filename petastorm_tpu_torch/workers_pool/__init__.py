@@ -16,11 +16,15 @@ class VentilatedItemProcessedMessage:
     """Worker -> pool signal: one ventilated item fully processed (the
     ventilator's backpressure credit), by worker ``worker_id``, with the
     worker's ``counters`` since its last item
-    (:meth:`~.worker_base.WorkerBase.take_counters`)."""
+    (:meth:`~.worker_base.WorkerBase.take_counters`). ``item_context``
+    echoes the item's ``(epoch, position)`` when its work kwargs carried one
+    (:data:`ITEM_CONTEXT_KWARG`), so the ventilator's resume watermark stays
+    exact when workers finish out of order."""
 
-    def __init__(self, worker_id=None, counters=None):
+    def __init__(self, worker_id=None, counters=None, item_context=None):
         self.worker_id = worker_id
         self.counters = counters or {}
+        self.item_context = item_context
 
 
 def add_counters(total: dict, counters: dict) -> None:

@@ -9,7 +9,7 @@ from __future__ import annotations
 import time
 from collections import deque
 
-from petastorm_tpu_torch.workers_pool import (EmptyResultError,
+from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
                                               VentilatedItemProcessedMessage, add_counters)
 
 
@@ -44,14 +44,17 @@ class DummyPool:
                 if isinstance(result, VentilatedItemProcessedMessage):
                     add_counters(self.counters, result.counters)
                     if self._ventilator:
-                        self._ventilator.processed_item()
+                        self._ventilator.processed_item(result.item_context)
                     continue
+                # Everything queued comes from the one item processed last.
+                self.result_context = self._processing_context
                 return result
             if self._pending:
                 args, kwargs = self._pending.popleft()
+                self._processing_context = kwargs.get(ITEM_CONTEXT_KWARG)
                 self._worker.process(*args, **kwargs)
                 self._results.append(VentilatedItemProcessedMessage(
-                    0, self._worker.take_counters()))
+                    0, self._worker.take_counters(), self._processing_context))
                 continue
             if self._ventilator is None or self._ventilator.completed():
                 # Re-check after seeing completion: the last item may have

@@ -54,11 +54,12 @@ import sys
 import threading
 import time
 import uuid
+from collections import deque
 from multiprocessing.connection import Connection, Pipe
 from traceback import format_exc
 
 from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
-from petastorm_tpu_torch.workers_pool import (EmptyResultError,
+from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
                                               VentilatedItemProcessedMessage,
                                               WorkerFailure, add_counters)
 from petastorm_tpu_torch.workers_pool.exec_in_new_process import exec_in_new_process
@@ -126,7 +127,14 @@ class ProcessPool:
         self._processes = []
         self._partial = {}       # worker id -> [reassembly buffer, fill offset]
         self._poll_idx = 0
+        self._polled_from = 0    # the ring of the last record read
         self._inflight = [0] * workers_count
+        # Per worker, the contexts of the items sent to it and not yet
+        # processed, in the order it takes them: a result belongs to the first.
+        self._contexts = [deque() for _ in range(workers_count)]
+        #: The ventilator context of the item whose result ``get_results``
+        #: returned last.
+        self.result_context = None
         self._next_worker = 0
         self._lock = threading.Lock()
         self._ventilator = None
@@ -205,6 +213,7 @@ class ProcessPool:
             self._next_worker = (wid + 1) % n
             self._inflight[wid] += 1
             self._ventilated += 1
+            self._contexts[wid].append(kwargs.get(ITEM_CONTEXT_KWARG))
             try:
                 self._conns[wid].send((args, kwargs))
             except OSError:
@@ -244,9 +253,12 @@ class ProcessPool:
                 with self._lock:
                     self._processed += 1
                     self._inflight[msg.worker_id] -= 1
+                    self._contexts[msg.worker_id].popleft()
                 add_counters(self.counters, msg.counters)
                 if self._ventilator:
-                    self._ventilator.processed_item()
+                    # Confirmed when pulled: its result came before this
+                    # message on the same ring, whatever views of it live on.
+                    self._ventilator.processed_item(msg.item_context)
                 continue
             if isinstance(msg, WorkerFailure):
                 self.stop()
@@ -254,6 +266,8 @@ class ProcessPool:
                 raise msg.exception
             if isinstance(msg, _WorkerReady):
                 continue
+            with self._lock:
+                self.result_context = self._contexts[self._polled_from][0]
             return msg
 
     def stop(self):
@@ -330,6 +344,7 @@ class ProcessPool:
                 if rec is None:
                     continue
                 progressed = True
+                self._polled_from = idx
                 kind, view = rec
                 del rec
                 if kind == ord("D") and idx not in self._partial \
@@ -472,7 +487,8 @@ def _worker_bootstrap(worker_id, worker_class, worker_args, conn_fd, parent_pid,
         while not ring.producer_closed and (item := next_item()) is not None:
             args, kwargs = item
             worker.process(*args, **kwargs)
-            send_ctrl(VentilatedItemProcessedMessage(worker_id, worker.take_counters()))
+            send_ctrl(VentilatedItemProcessedMessage(worker_id, worker.take_counters(),
+                                                     kwargs.get(ITEM_CONTEXT_KWARG)))
     except RingClosed:
         pass   # the consumer stopped and closed the ring: a clean exit
     except Exception as e:  # noqa: BLE001 - shipped to the consumer

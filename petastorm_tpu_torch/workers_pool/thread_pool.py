@@ -14,12 +14,13 @@ from __future__ import annotations
 
 import queue
 import sys
+from collections import deque
 import threading
 import time
 from traceback import format_exc
 from typing import Optional
 
-from petastorm_tpu_torch.workers_pool import (EmptyResultError,
+from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
                                               VentilatedItemProcessedMessage,
                                               WorkerFailure, add_counters)
 
@@ -51,7 +52,8 @@ class _WorkerThread(threading.Thread):
                     continue
                 self._worker_impl.process(*args, **kwargs)
                 self._put(VentilatedItemProcessedMessage(
-                    self._worker_impl.worker_id, self._worker_impl.take_counters()))
+                    self._worker_impl.worker_id, self._worker_impl.take_counters(),
+                    kwargs.get(ITEM_CONTEXT_KWARG)))
         except WorkerTerminationRequested:
             pass
         except Exception as e:  # noqa: BLE001 - re-raised on the consumer
@@ -85,8 +87,14 @@ class ThreadPool:
         self._next_assign = 0
         self._next_read = 0
         self._ventilator = None
+        # Per worker, the contexts of its items not yet processed, in the
+        # order it takes them: a result belongs to the first.
+        self._contexts = [deque() for _ in range(workers_count)]
         #: The workers' counters, summed as their items are consumed.
         self.counters = {}
+        #: The ventilator context of the item whose result ``get_results``
+        #: returned last.
+        self.result_context = None
 
     def start(self, worker_class, worker_args=None, ventilator=None):
         if self._stop_event.is_set():
@@ -123,6 +131,7 @@ class ThreadPool:
         wid = self._next_assign
         self._next_assign = (self._next_assign + 1) % self.workers_count
         self._assigned[wid] += 1
+        self._contexts[wid].append(kwargs.get(ITEM_CONTEXT_KWARG))
         self._input_queues[wid].put((args, kwargs))
 
     def _worker_drained(self, wid) -> bool:
@@ -165,15 +174,17 @@ class ThreadPool:
             empty_sweeps = 0
             if isinstance(result, VentilatedItemProcessedMessage):
                 self._processed[wid] += 1
+                self._contexts[wid].popleft()
                 add_counters(self.counters, result.counters)
                 if self._ventilator:
-                    self._ventilator.processed_item()
+                    self._ventilator.processed_item(result.item_context)
                 self._next_read = (wid + 1) % self.workers_count
                 continue
             if isinstance(result, WorkerFailure):
                 self.stop()
                 self.join()
                 raise result.exception
+            self.result_context = self._contexts[wid][0]
             return result
 
     def stop(self):

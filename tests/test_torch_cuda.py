@@ -749,3 +749,80 @@ def test_scalar_bench_runs_on_card(cuda_device, tmp_path):
     url = generate_scalar_dataset(f"file://{tmp_path}/scalar", rows=20_000)
     assert batched_loader_throughput(url, warmup_batches=2, measure_batches=20,
                                      device=cuda_device) > 0
+
+
+# ------------------------------------- augmentations, device cache, checkpoints
+@pytest.mark.parametrize("mode", ["constant", "edge", "reflect", "symmetric", "wrap"])
+def test_augmentations_on_card_equal_the_cpu_given_the_same_draws(cuda_device, mode):
+    """Drawn on the card, applied on the card and (with the same draws) on
+    the CPU: uint8 flip, crop and cutout bit-equal, then normalised by K1
+    and mixed up, within 1e-6 of the CPU (the same three float32
+    operations, one rounding each)."""
+    from petastorm_tpu_torch.ops import augment
+    x = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (16, 40, 36, 3),
+                                                             dtype=np.uint8))
+    xc = x.to(cuda_device)
+    gen = augment.seeded_generator((0, 1), cuda_device)
+    flips = augment.draw_flips(gen, 16, device=cuda_device)
+    offsets = augment.draw_crop_offsets(gen, 16, 4, cuda_device)
+    centres = augment.draw_cutout_centres(gen, 16, 40, 36, cuda_device)
+    lam = augment.draw_mixup_lam(gen, 16, 0.2, cuda_device)
+    labels = torch.arange(16) % 5
+
+    def chain(images, lab):
+        out = augment.apply_flip(images, flips.to(images.device))
+        out = augment.apply_crop(out, offsets.to(images.device), 4, mode)
+        out = augment.apply_cutout(out, centres.to(images.device), 8)
+        return out, augment.apply_mixup(normalize_images_plain(out, out_dtype=torch.float32),
+                                        lab, lam.to(images.device), num_classes=5)
+
+    got_u8, (got_x, got_y) = chain(xc, labels.to(cuda_device))
+    want_u8, (want_x, want_y) = chain(x, labels)
+    assert got_u8.device.type == "cuda" and got_u8.dtype == torch.uint8
+    assert torch.equal(got_u8.cpu(), want_u8)
+    torch.testing.assert_close(got_x.cpu(), want_x, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got_y.cpu(), want_y, rtol=0, atol=1e-6)
+    kernels.reset_launch_counts()
+    normalize_images(got_u8)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == {KERNEL_NAME: 1}
+
+
+def test_device_cache_epoch_on_card(cuda_device, tmp_path):
+    from petastorm_tpu_torch.loader import DeviceCachedDataset
+    url = _image_store(tmp_path)
+    with make_reader(url, reader_pool_type="thread", workers_count=2,
+                     shuffle_row_groups=False) as reader:
+        cache = DeviceCachedDataset(reader, device=cuda_device)
+    assert cache.num_rows == 96 and cache.nbytes() == 96 * (8 + 32 * 40 * 3)
+    epochs = [[], []]
+    for i, batch in enumerate(cache.batches(32, num_epochs=2, seed=0)):
+        assert batch["image"].device.type == "cuda" and batch["image"].shape == (32, 32, 40, 3)
+        assert torch.equal(batch["image"], cache._data["image"][batch["id"]])
+        epochs[i // 3].append(batch["id"])
+    first, second = torch.cat(epochs[0]), torch.cat(epochs[1])
+    assert sorted(first.tolist()) == sorted(second.tolist()) == list(range(96))
+    assert not torch.equal(first, second)
+
+
+def test_checkpoint_round_trip_onto_the_card(cuda_device, tmp_path):
+    from petastorm_tpu_torch.loader import CheckpointManager
+    torch.manual_seed(0)
+    model = torch.nn.Linear(16, 4).to(cuda_device)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    model(torch.randn(8, 16, device=cuda_device)).square().mean().backward()
+    opt.step()
+    with CheckpointManager(tmp_path / "ckpt") as mgr:
+        mgr.save(1, {"model": model.state_dict(), "opt": opt.state_dict()},
+                 reader={"epoch": 0, "offset": 2})
+        state, cursor = mgr.restore(map_location="cuda")
+    assert cursor == {"epoch": 0, "offset": 2}
+    for name, t in model.state_dict().items():
+        assert state["model"][name].device.type == "cuda"
+        assert torch.equal(state["model"][name], t)
+    model2 = torch.nn.Linear(16, 4).to(cuda_device)
+    opt2 = torch.optim.SGD(model2.parameters(), lr=0.1, momentum=0.9)
+    model2.load_state_dict(state["model"])
+    opt2.load_state_dict(state["opt"])
+    for p, q in zip(model.parameters(), model2.parameters()):
+        assert torch.equal(opt.state[p]["momentum_buffer"], opt2.state[q]["momentum_buffer"])
