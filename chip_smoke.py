@@ -131,7 +131,9 @@ result line):
    float32 and 4 int64 columns, groups of 2048) ``batched_loader_throughput``
    at the JAX bench's settings (batch 1024, 10 warm-up and 300 timed
    batches, 3 threads or 2 processes) onto the CPU and onto the card; the
-   reader alone (``next_batch``) on both pools; and one seeded
+   loaders' stager alone on one batch of the scalar, tensor and image paths
+   (host time, median of 200); the reader alone (``next_batch``) on both
+   pools; and one seeded
    ``InMemBatchedDataLoader`` load served for 3 epochs onto the card, byte
    for byte the batches of the same loader on the CPU. Then the tensor
    bench's schema (``id``, 8 float32 and 2 float32 ``FixedSizeList(64)``
@@ -170,11 +172,41 @@ result line):
    two loader batches shows the ``petastorm_tpu.host_batch`` and
    ``petastorm_tpu.stage`` spans, and ``loader.metrics`` counts the pass.
 
+14. selection and worker transforms. (a) On phase 9's store:
+   ``make_reader(predicate=in_pseudorandom_split([0.75, 0.25], 0, "label"),
+   transform_spec=TransformSpec(<center crop to 192x192>, edit_fields=...))``
+   on 8 threads, then on 8 processes -> ``DataLoader(batch_size=256,
+   device="cuda")`` -> K1 (bf16) -> 4 SGD steps of ResNet-50; launch counts
+   reset just before and read just after (K1 once a batch and nothing
+   else); K1's output of every batch (the short last one too) bit-equal to
+   ``normalize_images_plain`` of the same batch; the rows, as a multiset of
+   (label, sha1 of the crop), equal a filter and crop of the store by
+   ``pyarrow.parquet``, cv2 and numpy alone; then the rows per second of
+   the crop with and without the split, from the call and after the first
+   batch. (b) ``build_rowgroup_index`` with a ``SingleFieldIndexer``
+   on ``label``, then ``rowgroup_selector=SingleIndexSelector("label_ix",
+   [3, 7, 11])``: the rows read are those of the groups whose label column,
+   read from the Parquet file, holds one of the labels. (c) On phase 8's
+   token store: the dense NGram reader under ``cur_shard`` 0 and 1 of 2
+   with ``shard_seed=7``, and under ``rowgroup_subset`` halves: disjoint,
+   and together the unsharded reader's windows; shard 0's windows through
+   the Llama forward at ``LlamaConfig()`` width (4 layers) on
+   ``make_flash_attention(causal=True)``, K2 counted once a layer per
+   forward. (d) Phase 12's scalar schema with an int32 ``part`` column
+   written with ``partition_by=["part"]``, read by
+   ``make_batch_reader(filters=[("part", "in", {1, 3})],
+   predicate=in_range("i0", 0, 500), transform_spec=<a pandas column
+   total = i0 + f0>)`` -> ``BatchedDataLoader(device="cuda")`` on 3
+   threads and 2 processes: byte-equal to the same loader on the CPU (as
+   rows, on processes), the rows a numpy filter keeps; the rows per second
+   with and without the predicate, from the call and after the first batch.
+
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -196,10 +228,13 @@ from petastorm_tpu_torch.benchmark.imagenet_bench import (pipelined_window, run_
 from petastorm_tpu_torch.benchmark.llm_bench import run_llm_bench, write_token_store
 from petastorm_tpu_torch import native
 from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec, native_decode_status
+from petastorm_tpu_torch.etl.rowgroup_indexers import SingleFieldIndexer
+from petastorm_tpu_torch.etl.rowgroup_indexing import build_rowgroup_index
 from petastorm_tpu_torch.etl.writer import materialize_dataset_local
 from petastorm_tpu_torch.kernels.build import build
 from petastorm_tpu_torch.entry import entry
 from petastorm_tpu_torch.loader import DataLoader
+from petastorm_tpu_torch.loader import loader as loader_module
 from petastorm_tpu_torch.models import llama, resnet
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.ops import flash_attn
@@ -215,8 +250,12 @@ from petastorm_tpu_torch.benchmark.scalar_bench import (batched_loader_throughpu
 from petastorm_tpu_torch.loader import (BatchedDataLoader, CheckpointManager, DeviceCachedDataset,
                                         InMemBatchedDataLoader)
 from petastorm_tpu_torch.ops import augment
+from petastorm_tpu_torch.predicates import in_pseudorandom_split, in_range
 from petastorm_tpu_torch.reader import make_batch_reader, make_reader, shm_free_bytes
+from petastorm_tpu_torch.selectors import SingleIndexSelector
 from petastorm_tpu_torch.test_util.stub_workers import EnvironmentWorker
+from petastorm_tpu_torch.test_util.transforms import add_sum_column, center_crop
+from petastorm_tpu_torch.transform import TransformSpec
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 from petastorm_tpu_torch.workers_pool import EmptyResultError
 from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
@@ -389,6 +428,14 @@ RESUME_LOSS_REL_BAR = 1e-5
 #: mixup on the card against the CPU, given the same draws: float32, the
 #: same three operations with one rounding each.
 MIXUP_BAR = 1e-6
+
+# Selection and worker transforms (phase 14): phase 9's store, model and
+# batch cut to a 192x192 center crop and a 75 % split by label; phase 8's
+# token store in two shards; phase 12's scalar schema in 4 hive partitions.
+SELECT_FRACTIONS, SELECT_CROP, SELECT_STEPS, SELECT_WORKERS = [0.75, 0.25], 192, 4, 8
+SELECT_LABELS, SELECT_SHARD_SEED = [3, 7, 11], 7
+SELECT_PARTS, SELECT_KEEP_PARTS, SELECT_I0 = 4, {1, 3}, (0, 500)
+SELECT_SCALAR_ROWS = 100_000
 
 
 def log(msg):
@@ -2083,6 +2130,49 @@ def _tensor_loader_epoch(url: str, pool_type: str, make_loader, ref: dict,
     return out
 
 
+def staging_batches(scalar_url: str) -> dict:
+    """One batch of each path's columns, as the loaders stage them: the
+    scalar store's first 1024 rows, a seeded batch of the tensor store's
+    schema, and the selection phase's image batch (256 192x192x3 crops and
+    their labels)."""
+    import pyarrow.parquet as pq
+    table = pq.read_table(scalar_url[len("file://"):]).slice(0, SCALAR_BENCH["batch_size"])
+    rng = np.random.default_rng(0)
+    tensor = {"id": np.arange(COLUMNAR_BATCH, dtype=np.int64)}
+    tensor.update({f"f{i}": rng.standard_normal(COLUMNAR_BATCH).astype(np.float32)
+                   for i in range(8)})
+    tensor.update({f"emb{j}": rng.standard_normal((COLUMNAR_BATCH, TENSOR_LIST))
+                   .astype(np.float32) for j in range(2)})
+    image = {"image": rng.integers(0, 256, (IMAGENET_BATCH, SELECT_CROP, SELECT_CROP, 3),
+                                   dtype=np.uint8),
+             "label": rng.integers(0, IMAGENET_CLASSES, IMAGENET_BATCH)}
+    return {"scalar": {name: table.column(name).to_numpy() for name in table.column_names},
+            "tensor": tensor, "image": image}
+
+
+def staging_ms(cols: dict, reps: int = 200) -> float:
+    """Host milliseconds that the loaders' stager takes to stage ``cols``
+    onto the card (the staging thread's share of a loader's batch: the
+    pinned copy, the device copies issued, the consumer's stream made to
+    wait), the median over ``reps`` batches after a warm-up."""
+    stager = loader_module._PinnedStager(torch.device("cuda", torch.cuda.current_device()), 3)
+    consumer = torch.cuda.current_stream()
+    for _ in range(10):
+        stager.stage(cols)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        staged, event = stager.stage(cols)
+        consumer.wait_event(event)
+        for v in staged.values():
+            v.record_stream(consumer)
+        times.append(time.perf_counter() - t0)
+        del staged
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(times)
+
+
 def phase_columnar(tmp: str) -> None:
     """The columnar path (see the module docstring, phase 12)."""
     t_phase = time.perf_counter()
@@ -2112,6 +2202,12 @@ def phase_columnar(tmp: str) -> None:
             failures.append(f"scalar reader alone {pool_type}: {r['rows']} rows")
         if pool_type == "process":
             zero_copy_ok(f"scalar reader alone {pool_type}", r, scalar_groups)
+
+    # The staging alone, on one batch of each store's columns.
+    for what, cols in staging_batches(scalar_url).items():
+        log(f"[columnar] staging alone, a {what} batch ({len(cols)} columns, "
+            f"{sum(v.nbytes for v in cols.values())} bytes): {staging_ms(cols):.4f} ms "
+            f"(host, median of 200)")
 
     # Staging is exact: one seeded in-memory load, 3 epochs on the card
     # against the same loader on the CPU.
@@ -2524,6 +2620,292 @@ def phase_resume(url: str, thread_bench: dict) -> dict:
     return {**launches, "cache": cache_result, "resume": resume_pools, "augment_ms": chain_ms}
 
 
+def bucket_kept(value) -> bool:
+    """``in_pseudorandom_split(SELECT_FRACTIONS, 0, ...)`` written out: md5
+    of the value's string form modulo ``sys.maxsize`` below the first
+    fraction's bound."""
+    bucket = int(hashlib.md5(str(value).encode("utf-8")).hexdigest(), 16) % sys.maxsize
+    return bucket < SELECT_FRACTIONS[0] * (sys.maxsize - 1)
+
+
+def _parquet_files(url: str) -> list:
+    root = url[len("file://"):]
+    return sorted(os.path.join(d, f) for d, _, names in os.walk(root) for f in names
+                  if f.endswith(".parquet"))
+
+
+def _plain_selected_images(url: str) -> list:
+    """(label, sha1 of the center crop) of every row of the store whose
+    label the split keeps, from ``pyarrow.parquet``, cv2 and numpy alone,
+    sorted."""
+    import cv2
+    import pyarrow.parquet as pq
+    from concurrent.futures import ThreadPoolExecutor
+    top = (IMAGE_SHAPE[0] - SELECT_CROP) // 2
+
+    def one(cell):
+        label, blob = cell
+        image = cv2.cvtColor(cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_UNCHANGED),
+                             cv2.COLOR_BGR2RGB)
+        crop = np.ascontiguousarray(image[top:top + SELECT_CROP, top:top + SELECT_CROP])
+        return label, hashlib.sha1(crop.tobytes()).hexdigest()
+
+    cells = []
+    for path in _parquet_files(url):
+        table = pq.read_table(path, columns=["label", "image"])
+        cells += [c for c in zip(table.column("label").to_pylist(),
+                                 table.column("image").to_pylist()) if bucket_kept(c[0])]
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        return sorted(pool.map(one, cells))
+
+
+def _select_image_reader(url: str, pool: str, predicate: bool = True):
+    spec = TransformSpec(functools.partial(center_crop, field="image", size=SELECT_CROP),
+                         edit_fields=[("image", np.uint8, (SELECT_CROP, SELECT_CROP, 3), False)])
+    return make_reader(url, reader_pool_type=pool, workers_count=SELECT_WORKERS, seed=0,
+                       transform_spec=spec,
+                       predicate=in_pseudorandom_split(SELECT_FRACTIONS, 0, "label")
+                       if predicate else None)
+
+
+def _rows_per_s(make, rows_of) -> tuple:
+    """(rows, rows/s, rows/s after the first batch) of one epoch of
+    ``make()`` (a loader in a ``with``) onto the card: every row over the
+    time from the call to the last batch's arrival, then the rows after the
+    first batch over the time from its arrival to the last's (the workers'
+    start-up left out)."""
+    rows = first = 0
+    t0 = time.perf_counter()
+    with make() as loader:
+        for batch in loader:
+            if not rows:
+                t_first = time.perf_counter()
+                first = rows_of(batch)
+            rows += rows_of(batch)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    return rows, rows / (t_end - t0), (rows - first) / (t_end - t_first)
+
+
+def _write_partitioned_scalar(url: str) -> dict:
+    """Phase 12's scalar schema (16 float32, 4 int64 columns from
+    ``default_rng(0)``, groups of 2048) with an int32 ``part`` column, row
+    ``i`` in ``part = i % 4``, written by the package's writer with
+    ``partition_by=["part"]``; returns the columns."""
+    rng = np.random.default_rng(0)
+    n = SELECT_SCALAR_ROWS
+    cols = {f"f{i}": rng.standard_normal(n).astype(np.float32) for i in range(16)}
+    cols.update({f"i{i}": rng.integers(0, 1000, n).astype(np.int64) for i in range(4)})
+    cols["part"] = (np.arange(n) % SELECT_PARTS).astype(np.int32)
+    schema = Unischema("ScalarParts",
+                       [UnischemaField(k, v.dtype.type, ()) for k, v in cols.items()])
+    names = list(cols)
+    with materialize_dataset_local(url, schema, rows_per_row_group=2048,
+                                   partition_by=["part"]) as w:
+        for i in range(n):
+            w.write_row({k: cols[k][i] for k in names})
+    return cols
+
+
+def _sorted_rows(batches: list) -> np.ndarray:
+    """Every row of host batches as bytes, sorted: the batches' multiset."""
+    names = sorted(batches[0])
+    rows = np.concatenate([np.concatenate([b[k].reshape(len(b[k]), -1).view(np.uint8)
+                                           for k in names], axis=1) for b in batches])
+    return np.sort(rows.view(np.dtype((np.void, rows.shape[1]))).ravel())
+
+
+def phase_selection(image_url: str, token_url: str, tmp: str) -> dict:
+    """Row-group selection and worker transforms (see the module
+    docstring, phase 14). Returns the launches by kernel name."""
+    t_phase = time.perf_counter()
+    failures = []
+    free_cuda()
+
+    # (a) The image path: split by label, center crop, K1, ResNet-50 SGD.
+    t0 = time.perf_counter()
+    want = _plain_selected_images(image_url)
+    log(f"[select] plain filter and crop of the store: {len(want)} of {IMAGENET_ROWS} rows kept "
+        f"in {time.perf_counter() - t0:.2f} s")
+    k1 = 0
+    for pool in ("thread", "process"):
+        params, opt, step = _fresh_model(0)
+        got, losses, batches, shapes, k1_err = [], [], 0, set(), 0.0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _select_image_reader(image_url, pool) as reader:
+            for batch in DataLoader(reader, batch_size=IMAGENET_BATCH, drop_last=False,
+                                    device="cuda"):
+                images = normalize_images(batch["image"])
+                batches += 1
+                shapes.add(tuple(batch["image"].shape))
+                # K1 at this path's shapes (the last batch is short), against
+                # its plain version on the same batch: bit-equal.
+                try:
+                    k1_err = max(k1_err, check_close(
+                        images, normalize_images_plain(batch["image"]),
+                        f"image path {pool}, batch {batches}"))
+                except AssertionError as e:
+                    failures.append(str(e))
+                if len(losses) < SELECT_STEPS:
+                    params, opt, loss, _ = step(params, opt, {"image": images,
+                                                              "label": batch["label"]})
+                    losses.append(loss)
+                got += [(label, hashlib.sha1(image.tobytes()).hexdigest()) for label, image in
+                        zip(batch["label"].tolist(), batch["image"].cpu().numpy())]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        losses = [x.item() for x in losses]
+        k1 += launches.get(KERNEL_NAME, 0)
+        log(f"[select] image path on {pool} x{SELECT_WORKERS}: {len(got)} rows in {batches} "
+            f"batches of {IMAGENET_BATCH} ({SELECT_CROP}x{SELECT_CROP}) in {wall:.2f} s, "
+            f"ResNet-50 losses {[round(x, 4) for x in losses]}; launches {launches}; K1 on "
+            f"{sorted(shapes)} against the plain version: max abs err {k1_err} (bit-equal is "
+            f"the bar); rows {'equal to' if sorted(got) == want else 'DIFFERENT from'} the "
+            f"plain filter and crop")
+        if launches != {KERNEL_NAME: batches}:
+            failures.append(f"image path {pool}: launches {launches} for {batches} batches")
+        if sorted(got) != want:
+            failures.append(f"image path {pool}: rows differ from the plain filter and crop")
+        if len(losses) != SELECT_STEPS or not np.all(np.isfinite(losses)):
+            failures.append(f"image path {pool}: losses {losses}")
+        del params, opt, step
+        free_cuda()
+    rates = {}
+    for pool in ("thread", "process"):
+        for predicate in (True, False):
+            rows, rate, after_first = _rows_per_s(
+                lambda: DataLoader(_select_image_reader(image_url, pool, predicate),
+                                   batch_size=IMAGENET_BATCH, drop_last=False, device="cuda"),
+                lambda b: b["image"].shape[0])
+            rates[f"image {pool} {'predicate' if predicate else 'no predicate'}"] = rate
+            log(f"[select] crop{' + split' if predicate else ''} -> DataLoader(cuda), {pool} "
+                f"x{SELECT_WORKERS}: {rows} rows, {rate:.1f} rows/s from the call, "
+                f"{after_first:.1f} rows/s after the first batch")
+
+    # (b) rowgroup_selector through a stored index, against the Parquet file.
+    import pyarrow.parquet as pq
+    build_rowgroup_index(image_url, [SingleFieldIndexer("label_ix", "label")])
+    want_labels, want_groups = [], 0
+    for path in _parquet_files(image_url):
+        f = pq.ParquetFile(path)
+        for g in range(f.num_row_groups):
+            labels = f.read_row_group(g, columns=["label"]).column(0).to_pylist()
+            if set(labels) & set(SELECT_LABELS):
+                want_labels += labels
+                want_groups += 1
+    with make_reader(image_url, schema_fields=["label"], shuffle_row_groups=False,
+                     workers_count=SELECT_WORKERS,
+                     rowgroup_selector=SingleIndexSelector("label_ix", SELECT_LABELS)) as reader:
+        got_labels = [int(r.label) for r in reader]
+    log(f"[select] rowgroup_selector label in {SELECT_LABELS}: {len(got_labels)} rows, "
+        f"{want_groups} groups hold one of the labels in the file; the rows "
+        f"{'equal' if got_labels == want_labels else 'DIFFER from'} those groups' rows")
+    if got_labels != want_labels or not want_groups:
+        failures.append("rowgroup_selector read other groups than the file's")
+
+    # (c) The token path: two shards, two subsets, then K2 on one shard.
+    def window_starts(**kw) -> list:
+        ngram = NGram({o: ["ts", "token"] for o in range(WINDOW)}, delta_threshold=1,
+                      timestamp_field="ts", timestamp_overlap=False, dense=True)
+        with make_reader(token_url, schema_fields=ngram, workers_count=TOKEN_WORKERS,
+                         **kw) as reader:
+            return [int(w["ts"][0]) for w in reader]
+
+    every = window_starts(shuffle_row_groups=False)
+    shards = [window_starts(cur_shard=k, shard_count=2, shard_seed=SELECT_SHARD_SEED, seed=0)
+              for k in range(2)]
+    half = TOKEN_WINDOWS // 2
+    halves = [window_starts(rowgroup_subset=list(range(k * half, (k + 1) * half)),
+                            shuffle_row_groups=False) for k in range(2)]
+    log(f"[select] token windows by first timestamp: all {every}; shards (shard_seed "
+        f"{SELECT_SHARD_SEED}) {shards}; rowgroup_subset halves {halves}")
+    for what, parts in (("shards", shards), ("subset halves", halves)):
+        if set(parts[0]) & set(parts[1]) or sorted(parts[0] + parts[1]) != sorted(every):
+            failures.append(f"token {what} {parts} do not split {every}")
+    if halves != [every[:half], every[half:]] \
+            or every != [i * WINDOW for i in range(TOKEN_WINDOWS)]:
+        failures.append(f"rowgroup_subset halves {halves} out of the subsets' order")
+    params = llama.init_params(torch.Generator(device="cuda").manual_seed(0), LLAMA, device="cuda")
+    attn_fn = make_flash_attention(causal=True)
+    ngram = NGram({o: ["ts", "token"] for o in range(WINDOW)}, delta_threshold=1,
+                  timestamp_field="ts", timestamp_overlap=False, dense=True)
+    kernels.reset_launch_counts()
+    losses, forwards = [], 0
+    with torch.inference_mode(), make_reader(token_url, schema_fields=ngram, cur_shard=0,
+                                             shard_count=2, shard_seed=SELECT_SHARD_SEED,
+                                             seed=0, workers_count=TOKEN_WORKERS) as reader:
+        for batch in DataLoader(reader, batch_size=TOKEN_BATCH, device="cuda"):
+            losses.append(llama.loss_fn(params, {"tokens": batch["token"]}, LLAMA,
+                                        attn_fn=attn_fn, compute_dtype=torch.bfloat16,
+                                        shift="roll").item())
+            forwards += 1
+    k2 = dict(kernels.launch_counts)
+    log(f"[select] shard 0's windows through LlamaConfig(n_layers={LLAMA.n_layers}) on K2: "
+        f"{forwards} forwards, losses {[round(x, 4) for x in losses]}; launches {k2}")
+    if k2 != {flash_attn.KERNEL_NAME: LLAMA.n_layers * forwards} or \
+            forwards != len(shards[0]) // TOKEN_BATCH or not np.all(np.isfinite(losses)):
+        failures.append(f"token shard: {forwards} forwards, launches {k2}, losses {losses}")
+    del params
+    free_cuda()
+
+    # (d) The columnar path: partition filters, a predicate, a pandas transform.
+    t0 = time.perf_counter()
+    scalar_url = f"file://{tmp}/scalar_parts"
+    cols = _write_partitioned_scalar(scalar_url)
+    keep = np.isin(cols["part"], list(SELECT_KEEP_PARTS)) & (cols["i0"] >= SELECT_I0[0]) \
+        & (cols["i0"] < SELECT_I0[1])
+    log(f"[select] wrote {SELECT_SCALAR_ROWS} rows of the scalar schema in {SELECT_PARTS} hive "
+        f"partitions in {time.perf_counter() - t0:.2f} s; numpy keeps {int(keep.sum())}")
+    spec = TransformSpec(functools.partial(add_sum_column, name="total", left="i0", right="f0"),
+                         edit_fields=[("total", np.float64, (), False)])
+
+    def columnar(pool, device, predicate=True):
+        reader = make_batch_reader(
+            scalar_url, reader_pool_type=pool, workers_count=SCALAR_WORKERS[pool], seed=0,
+            filters=[("part", "in", SELECT_KEEP_PARTS)], transform_spec=spec,
+            predicate=in_range("i0", *SELECT_I0) if predicate else None)
+        return BatchedDataLoader(reader, batch_size=SCALAR_BENCH["batch_size"], drop_last=False,
+                                 device=device)
+
+    for pool in SCALAR_WORKERS:
+        with columnar(pool, "cuda") as loader:
+            on_card = [{k: v.cpu().numpy() for k, v in b.items()} for b in loader]
+        with columnar(pool, "cpu") as loader:
+            on_cpu = [{k: v.numpy().copy() for k, v in b.items()} for b in loader]
+        if pool == "thread":
+            same = len(on_card) == len(on_cpu) and all(
+                g.keys() == w.keys() and all(g[k].dtype == w[k].dtype
+                                             and g[k].tobytes() == w[k].tobytes() for k in w)
+                for g, w in zip(on_card, on_cpu))
+        else:   # processes deliver in the order their workers finish
+            same = np.array_equal(_sorted_rows(on_card), _sorted_rows(on_cpu))
+        rows = sum(len(b["total"]) for b in on_card)
+        total_ok = all(np.array_equal(b["total"], b["i0"] + b["f0"].astype(np.float64))
+                       for b in on_card)
+        log(f"[select] columnar, {pool} x{SCALAR_WORKERS[pool]}: {rows} rows in {len(on_card)} "
+            f"batches on the card, {'byte-equal to' if same else 'DIFFERENT from'} the CPU "
+            f"loader's; columns {sorted(on_card[0])}; total = i0 + f0 {total_ok}")
+        if not same or rows != int(keep.sum()) or not total_ok:
+            failures.append(f"columnar {pool}: equal {same}, {rows} rows of {int(keep.sum())}, "
+                            f"total {total_ok}")
+        for predicate in (True, False):
+            n, rate, after_first = _rows_per_s(lambda: columnar(pool, "cuda", predicate),
+                                               lambda b: len(b["total"]))
+            rates[f"columnar {pool} {'predicate' if predicate else 'no predicate'}"] = rate
+            log(f"[select] filters{' + predicate' if predicate else ''} + pandas transform -> "
+                f"BatchedDataLoader(cuda), {pool} x{SCALAR_WORKERS[pool]}: {n} rows, "
+                f"{rate:.1f} rows/s from the call, {after_first:.1f} rows/s after the first "
+                f"batch")
+
+    log(f"[select] phase took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("selection phase: " + "; ".join(failures))
+    return {KERNEL_NAME: k1, flash_attn.KERNEL_NAME: k2.get(flash_attn.KERNEL_NAME, 0),
+            "rates": rates}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2550,8 +2932,12 @@ def main() -> int:
         free_cuda()
         with tempfile.TemporaryDirectory() as tmp:
             phase_columnar(tmp)
-        # Phase 13 reads phase 9's store again.
+        # Phase 13 reads phase 9's store again, phase 14 phase 9's and 8's.
         resume = phase_resume(f"file://{image_tmp}/imagenet", thread_bench)
+        free_cuda()
+        with tempfile.TemporaryDirectory() as tmp:
+            select = phase_selection(f"file://{image_tmp}/imagenet", f"file://{train_tmp}/tokens",
+                                     tmp)
     for name in (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
                  flash_attn.BWD_DKV_KERNEL_NAME):
         counts[name] += proc[name]
@@ -2560,7 +2946,8 @@ def main() -> int:
         "name": KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/normalize.cu",
         "replaces": "petastorm_tpu/ops/image_ops.py:27",
-        "launches": launches + proc["normalize"] + resume.get(KERNEL_NAME, 0),
+        "launches": (launches + proc["normalize"] + resume.get(KERNEL_NAME, 0)
+                     + select[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
@@ -2577,7 +2964,8 @@ def main() -> int:
         "replaces": "petastorm_tpu/ops/flash_attn.py:89",
         # The token forward's launches ("out"), the training path's and
         # Ulysses' ("lse").
-        "launches": k2_launches + counts[flash_attn.KERNEL_NAME] + seq[flash_attn.KERNEL_NAME],
+        "launches": (k2_launches + counts[flash_attn.KERNEL_NAME] + seq[flash_attn.KERNEL_NAME]
+                     + select[flash_attn.KERNEL_NAME]),
         **k2_rows["K2"]}, {
         # The FMA route (f32, 16-bit d > 128 or d % 8 != 0): timed forced at
         # the token path's bf16 shape; the main paths never launch it.

@@ -2,7 +2,9 @@
 
 Parquet stores written by either package, read with :func:`make_reader`
 (rows, or :class:`NGram` windows of a token store) on decode threads or
-spawned decode processes, batched and staged onto an NVIDIA GPU by
+spawned decode processes, their row groups chosen by partition filters,
+predicates, stored indexes, shards and subsets and their rows reshaped
+by a :class:`TransformSpec` in the workers, batched and staged onto an NVIDIA GPU by
 :class:`DataLoader`; any Parquet store read column by column with
 :func:`make_batch_reader` and batched by :class:`BatchedDataLoader` or
 :class:`InMemBatchedDataLoader`, or held on the card by
@@ -33,6 +35,7 @@ _EXPORTS = {
     "make_flash_attention": "petastorm_tpu_torch.ops.flash_attn",
     "make_reader": "petastorm_tpu_torch.reader",
     "normalize_images": "petastorm_tpu_torch.ops.image_ops",
+    "TransformSpec": "petastorm_tpu_torch.transform",
     "Unischema": "petastorm_tpu_torch.unischema",
     "UnischemaField": "petastorm_tpu_torch.unischema",
 }

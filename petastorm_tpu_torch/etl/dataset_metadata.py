@@ -43,6 +43,10 @@ class RowGroupRef:
     row_group: int                 # row-group ordinal within the file
     partition_values: tuple = ()   # hive-style ((key, value), ...) from the path
 
+    @property
+    def partition_dict(self) -> dict:
+        return dict(self.partition_values)
+
 
 def is_data_file(path: str) -> bool:
     """Hidden files and sidecars (``_metadata``, ``_common_metadata``,
@@ -173,9 +177,11 @@ def infer_or_load_unischema(ctx: DatasetContext) -> Unischema:
         return Unischema.from_arrow_schema(ctx.arrow_schema(), omit_unsupported_fields=True)
 
 
-def write_dataset_metadata(ctx: DatasetContext, schema: Unischema) -> None:
-    """(Re)write ``_common_metadata`` with the schema and the row-group
-    index, built from a footer scan of every data file."""
+def write_dataset_metadata(ctx: DatasetContext, schema: Optional[Unischema],
+                           extra_kv: Optional[Dict[bytes, bytes]] = None) -> None:
+    """(Re)write ``_common_metadata`` with the row-groups-per-file map,
+    built from a footer scan of every data file, the schema (kept as
+    stored when None) and ``extra_kv``."""
     files = ctx.file_paths()
     if not files:
         raise MetadataGenerationError(f"No parquet data files under {ctx.root_path}")
@@ -189,7 +195,10 @@ def write_dataset_metadata(ctx: DatasetContext, schema: Unischema) -> None:
 
     kv: Dict[bytes, bytes] = dict(ctx.key_value_metadata())
     kv[ROW_GROUPS_PER_FILE_KEY] = json.dumps(per_file, sort_keys=True).encode("utf-8")
-    kv[UNISCHEMA_KEY] = json.dumps(schema.to_dict()).encode("utf-8")
+    if schema is not None:
+        kv[UNISCHEMA_KEY] = json.dumps(schema.to_dict()).encode("utf-8")
+    if extra_kv:
+        kv.update(extra_kv)
     with ctx.filesystem.open(files[0], "rb") as f:
         arrow_schema = pq.ParquetFile(f).schema_arrow
     with ctx.filesystem.open(posixpath.join(ctx.root_path, "_common_metadata"), "wb") as f:

@@ -1,0 +1,136 @@
+"""Build and load the row-group indexes that ``rowgroup_selector=`` reads.
+
+:func:`build_rowgroup_index` feeds every row group of a store to the
+given indexers (:mod:`.rowgroup_indexers`) and stores them, pickled, in
+the ``_common_metadata`` sidecar under the JAX package's key.
+:func:`get_row_group_indexes` loads them back, from that key or from
+petastorm's own.
+
+The stored pickle names the indexer classes as the JAX package does
+(``petastorm_tpu.etl.rowgroup_indexers``), so either package reads an
+index the other built. Loading goes through :class:`IndexUnpickler`, which
+maps the indexer names of the JAX package, of petastorm and of this
+package onto this package's classes, allows a few plain types, and
+refuses everything else: it never imports the module a pickle names.
+"""
+from __future__ import annotations
+
+import io
+import pickle
+import pickletools
+from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
+from decimal import Decimal
+from typing import Dict, Sequence
+
+import numpy as np
+import pyarrow.parquet as pq
+
+from petastorm_tpu_torch.errors import MetadataError
+from petastorm_tpu_torch.etl import rowgroup_indexers
+from petastorm_tpu_torch.etl.dataset_metadata import (DatasetContext, load_row_groups,
+                                                      write_dataset_metadata)
+from petastorm_tpu_torch.etl.rowgroup_indexers import RowGroupIndexerBase
+
+TPU_ROWGROUPS_INDEX_KEY = b"petastorm-tpu.rowgroups_index.v1"
+LEGACY_ROWGROUPS_INDEX_KEY = b"dataset-toolkit.rowgroups_index.v1"
+
+#: The module name the stored pickle gives the indexer classes.
+STORED_INDEXER_MODULE = "petastorm_tpu.etl.rowgroup_indexers"
+_INDEXER_MODULES = (STORED_INDEXER_MODULE, "petastorm.etl.rowgroup_indexers",
+                    "dataset_toolkit.etl.rowgroup_indexers", rowgroup_indexers.__name__)
+_INDEXER_CLASSES = ("SingleFieldIndexer", "FieldNotNullIndexer")
+
+_ALLOWED = {
+    ("collections", "defaultdict"): defaultdict,
+    ("decimal", "Decimal"): Decimal,
+    **{("builtins", t.__name__): t
+       for t in (str, bytes, int, float, bool, set, frozenset, list, tuple, dict)},
+    **{(module, name): getattr(rowgroup_indexers, name)
+       for module in _INDEXER_MODULES for name in _INDEXER_CLASSES},
+}
+_ALLOWED_NUMPY = {"dtype", "ndarray", "int8", "int16", "int32", "int64", "uint8", "uint16",
+                  "uint32", "uint64", "float16", "float32", "float64", "bool_", "str_",
+                  "bytes_", "_reconstruct", "scalar"}
+
+
+class IndexUnpickler(pickle.Unpickler):
+    """Resolves only the indexer classes, plain builtins and numpy scalars;
+    any other global raises ``pickle.UnpicklingError``."""
+
+    def find_class(self, module, name):
+        if module == "__builtin__":   # Python 2 era pickles
+            module = "builtins"
+        if (module, name) in _ALLOWED:
+            return _ALLOWED[(module, name)]
+        if module in ("numpy", "numpy.core.multiarray", "numpy._core.multiarray") \
+                and name in _ALLOWED_NUMPY:
+            if name in ("_reconstruct", "scalar"):
+                try:
+                    from numpy._core import multiarray
+                except ImportError:   # numpy < 2
+                    from numpy.core import multiarray
+                return getattr(multiarray, name)
+            return getattr(np, name)
+        raise pickle.UnpicklingError(
+            f"row-group index pickle references disallowed class {module}.{name}")
+
+
+def loads_index(data: bytes) -> Dict[str, RowGroupIndexerBase]:
+    return IndexUnpickler(io.BytesIO(data)).load()
+
+
+def dumps_index(index_dict: Dict[str, RowGroupIndexerBase]) -> bytes:
+    """Pickle ``index_dict`` with this package's indexer classes named as
+    :data:`STORED_INDEXER_MODULE`. Protocol 2 names a class by a ``GLOBAL``
+    opcode, ``c<module>\\n<name>\\n``, which carries no length: those
+    opcodes are rewritten in place."""
+    data = pickle.dumps(index_dict, protocol=2, fix_imports=False)
+    own = rowgroup_indexers.__name__ + " "
+    out, last = [], 0
+    for opcode, arg, pos in pickletools.genops(data):
+        if opcode.name == "GLOBAL" and arg.startswith(own):
+            out += [data[last:pos], b"c", STORED_INDEXER_MODULE.encode(), b"\n",
+                    arg[len(own):].encode(), b"\n"]
+            last = pos + len(arg) + 2
+    out.append(data[last:])
+    return b"".join(out)
+
+
+def build_rowgroup_index(dataset_url_or_ctx, indexers: Sequence[RowGroupIndexerBase],
+                         num_workers: int = 10) -> Dict[str, RowGroupIndexerBase]:
+    """Feed every row group of the store, by its ordinal in the store's
+    deterministic order, to ``indexers``, store them in the dataset
+    metadata and return ``{index_name: indexer}``."""
+    ctx = (dataset_url_or_ctx if isinstance(dataset_url_or_ctx, DatasetContext)
+           else DatasetContext(dataset_url_or_ctx))
+    row_groups = load_row_groups(ctx)
+    columns = sorted({c for ix in indexers for c in ix.column_names})
+
+    def _read(job):
+        ordinal, rg = job
+        with ctx.filesystem.open(rg.path, "rb") as f:
+            table = pq.ParquetFile(f).read_row_group(rg.row_group, columns=columns)
+        return ordinal, table.to_pylist()
+
+    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+        for ordinal, rows in pool.map(_read, enumerate(row_groups)):
+            for ix in indexers:
+                ix.process_row_group(ordinal, rows)
+
+    index_dict = {ix.index_name: ix for ix in indexers}
+    write_dataset_metadata(ctx, None, extra_kv={TPU_ROWGROUPS_INDEX_KEY: dumps_index(index_dict)})
+    return index_dict
+
+
+def get_row_group_indexes(dataset_url_or_ctx) -> Dict[str, RowGroupIndexerBase]:
+    """The stored ``{index_name: indexer}``; raises ``MetadataError`` when
+    the store has none."""
+    ctx = (dataset_url_or_ctx if isinstance(dataset_url_or_ctx, DatasetContext)
+           else DatasetContext(dataset_url_or_ctx))
+    kv = ctx.key_value_metadata()
+    for key in (TPU_ROWGROUPS_INDEX_KEY, LEGACY_ROWGROUPS_INDEX_KEY):
+        if key in kv:
+            return loads_index(kv[key])
+    raise MetadataError(f"Dataset at {ctx.root_path} has no row-group index. "
+                        f"Build one with build_rowgroup_index().")

@@ -2,7 +2,7 @@
 
 Buffers codec-encoded rows, sizes row groups (explicitly, or to a target
 of ``row_group_size_mb`` estimated from the first rows), writes numbered
-Parquet files, and finishes with the
+Parquet files (optionally hive-partitioned), and finishes with the
 ``_common_metadata`` sidecar carrying the JSON Unischema and the
 row-groups-per-file index. The stores it writes are the ones the JAX
 package's writer produces.
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import posixpath
 from contextlib import contextmanager
-from typing import Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -29,6 +29,9 @@ class DatasetWriter:
         per group are estimated from the first rows written
     :param rows_per_row_group: explicit rows per row group
     :param rows_per_file: rows per Parquet file (default: 16 row groups)
+    :param partition_by: hive partition columns (scalar fields): each
+        distinct combination of their values gets its own
+        ``col=value/...`` directory; the columns stay in the files too
     :param compression: parquet codec ('snappy', 'zstd', 'gzip', 'none')
     """
 
@@ -36,6 +39,7 @@ class DatasetWriter:
                  row_group_size_mb: int = 32,
                  rows_per_row_group: Optional[int] = None,
                  rows_per_file: Optional[int] = None,
+                 partition_by: Optional[Sequence[str]] = None,
                  compression: str = "snappy"):
         self._schema = schema
         self._arrow_schema = schema.as_arrow_schema()
@@ -44,20 +48,27 @@ class DatasetWriter:
         self._row_group_bytes = row_group_size_mb * (1 << 20)
         self._rows_per_rg = rows_per_row_group
         self._rows_per_file = rows_per_file
+        self._partition_by = list(partition_by or [])
+        for col in self._partition_by:
+            if col not in schema.fields or not schema.fields[col].is_scalar:
+                raise ValueError(f"partition_by column {col!r} must be a scalar schema field")
         self._compression = compression
-        self._buffer: List[dict] = []
+        # Rows waiting to be written, by partition key ((col, value), ...).
+        self._buffers: Dict[tuple, List[dict]] = {}
         self._file_counter = 0
         self._closed = False
         self._fs.makedirs(self._root, exist_ok=True)
 
     def write_row(self, row: dict) -> None:
-        buf = self._buffer
-        buf.append(dict_to_encoded_row(self._schema, row))
+        encoded = dict_to_encoded_row(self._schema, row)
+        pkey = tuple((c, encoded[c]) for c in self._partition_by)
+        buf = self._buffers.setdefault(pkey, [])
+        buf.append(encoded)
         if self._rows_per_rg is None and len(buf) >= _SIZE_ESTIMATE_ROWS:
             self._estimate_row_group_rows(buf)
         if self._rows_per_rg is not None:
             if len(buf) >= (self._rows_per_file or self._rows_per_rg * 16):
-                self._flush()
+                self._flush(pkey)
 
     def write_rows(self, rows: Iterable[dict]) -> None:
         for row in rows:
@@ -71,8 +82,8 @@ class DatasetWriter:
         avg = max(1, total // len(sample))
         self._rows_per_rg = max(1, self._row_group_bytes // avg)
 
-    def _flush(self) -> None:
-        rows, self._buffer = self._buffer, []
+    def _flush(self, pkey: tuple) -> None:
+        rows = self._buffers.pop(pkey, [])
         if not rows:
             return
         if self._rows_per_rg is None:
@@ -80,7 +91,11 @@ class DatasetWriter:
         columns = [pa.array([r[f.name] for r in rows], type=f.type)
                    for f in self._arrow_schema]
         table = pa.Table.from_arrays(columns, schema=self._arrow_schema)
-        path = posixpath.join(self._root, f"part-{self._file_counter:05d}.parquet")
+        part_dir = self._root
+        for col, value in pkey:
+            part_dir = posixpath.join(part_dir, f"{col}={value}")
+        self._fs.makedirs(part_dir, exist_ok=True)
+        path = posixpath.join(part_dir, f"part-{self._file_counter:05d}.parquet")
         self._file_counter += 1
         with self._fs.open(path, "wb") as sink:
             pq.write_table(table, sink, row_group_size=self._rows_per_rg,
@@ -89,7 +104,8 @@ class DatasetWriter:
     def close(self) -> None:
         if self._closed:
             return
-        self._flush()
+        for pkey in list(self._buffers):
+            self._flush(pkey)
         write_dataset_metadata(self._ctx, self._schema)
         self._closed = True
 

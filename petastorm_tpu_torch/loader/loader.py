@@ -19,10 +19,17 @@ shard can deliver, for ``steps_per_epoch``.
 
 Staging to a CUDA device:
 
-* each column is copied into a **pinned** host buffer, reused per
-  (names, shapes, dtypes) signature from a ring of ``prefetch + 1``;
-* the host-to-device copy is issued ``non_blocking`` on a side
-  ``torch.cuda.Stream`` and an event is recorded after it;
+* every column of a batch is copied into one **pinned** host buffer, each
+  at a 64-byte aligned offset; the buffers are reused per (names, shapes,
+  dtypes) signature from a ring of ``prefetch + 1``;
+* the columns under 1 MiB (``_OWN_COPY_BYTES``) lie together in the
+  buffer and go to the card in one host-to-device copy, and each larger
+  column in one of its own (:class:`BatchLayout`); the copies are issued
+  ``non_blocking`` on a side ``torch.cuda.Stream`` and an event is
+  recorded after them;
+* the batch's small columns are views of one device allocation, so a
+  small column kept alive (labels kept for an epoch's metrics) keeps the
+  batch's other small columns on the card, and never a large one;
 * the consumer's stream waits on that event when the batch is delivered,
   and ``record_stream`` marks the tensors as used by the consumer's stream;
 * a pinned buffer is refilled only after its copy's event has completed.
@@ -96,42 +103,101 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
+#: Byte alignment of each column in a staged batch's buffer.
+_STAGE_ALIGN = 64
+#: A column of at least this many bytes is copied to the card on its own,
+#: into a device allocation of its own.
+_OWN_COPY_BYTES = 1 << 20
+
+
+class BatchLayout:
+    """Where each column of a batch lies in one byte buffer, and how the
+    buffer goes to the card: each column at an offset that is a multiple of
+    :data:`_STAGE_ALIGN`; the columns under :data:`_OWN_COPY_BYTES` together
+    in the buffer's first span, in order, and each larger column in a span
+    of its own after them. Each span is one copy and one allocation."""
+
+    def __init__(self, cols: Dict[str, object]):
+        self.columns = []   # (name, shape, torch dtype, span, offset in span, bytes)
+        small, large = [], []
+        for k, v in cols.items():
+            dtype = _torch_dtype(v.dtype)
+            nbytes = int(np.prod(v.shape, dtype=np.int64)) * dtype.itemsize
+            (small if nbytes < _OWN_COPY_BYTES else large).append((k, tuple(v.shape), dtype,
+                                                                   nbytes))
+        self.spans = []     # (start, stop) in the buffer
+        pos = 0
+        for group in ([small] if small else []) + [[c] for c in large]:
+            start = pos
+            for k, shape, dtype, nbytes in group:
+                self.columns.append((k, shape, dtype, len(self.spans), pos - start, nbytes))
+                pos += -(-nbytes // _STAGE_ALIGN) * _STAGE_ALIGN
+            self.spans.append((start, pos))
+        order = {k: i for i, k in enumerate(cols)}
+        self.columns.sort(key=lambda c: order[c[0]])
+        self.total = pos
+
+    def views(self, buffer: torch.Tensor, copy=None) -> Dict[str, torch.Tensor]:
+        """The columns as views of ``buffer`` (1-D uint8 of ``total``
+        bytes), or of ``copy(span)`` for each span of it."""
+        spans = [buffer[start:stop] for start, stop in self.spans]
+        if copy is not None:
+            spans = [copy(span) for span in spans]
+        return {k: spans[i][offset:offset + nbytes].view(dtype).view(shape)
+                for k, shape, dtype, i, offset, nbytes in self.columns}
+
+
+def _numpy_view(t: torch.Tensor) -> Optional[np.ndarray]:
+    try:
+        return t.numpy()
+    except TypeError:   # a dtype numpy lacks (bfloat16)
+        return None
+
+
 class _PinnedStager:
-    """Host -> CUDA copies through a ring of pinned buffers per batch
-    signature, issued on a side stream. Runs on the staging thread."""
+    """Host -> CUDA copies of whole batches: the columns packed into one
+    pinned buffer per batch signature (a ring of them), one copy a span of
+    its :class:`BatchLayout` on a side stream, the columns viewed in the
+    device spans. Runs on the staging thread."""
 
     def __init__(self, device: torch.device, ring_size: int):
         self._device = device
         self._ring_size = ring_size
         self._stream = torch.cuda.Stream(device)
-        self._rings: Dict[tuple, list] = {}   # signature -> [[buffers, event]]
+        self._layouts: Dict[tuple, BatchLayout] = {}
+        # signature -> [[buffer, {name: (tensor view, numpy view)}, event]]
+        self._rings: Dict[tuple, list] = {}
         self._next: Dict[tuple, int] = {}
 
     def stage(self, cols: Dict[str, object]):
         """numpy arrays or CPU tensors -> (``{name: cuda tensor}``, event
         recorded after the copies)."""
         sig = tuple((k, tuple(v.shape), str(v.dtype)) for k, v in cols.items())
+        layout = self._layouts.get(sig)
+        if layout is None:
+            layout = self._layouts[sig] = BatchLayout(cols)
         ring = self._rings.setdefault(sig, [])
         pos = self._next.get(sig, 0)
         self._next[sig] = (pos + 1) % self._ring_size
         if pos == len(ring):
-            ring.append([{k: torch.empty(tuple(v.shape), dtype=_torch_dtype(v.dtype),
-                                         pin_memory=True)
-                          for k, v in cols.items()}, None])
+            buffer = torch.empty(layout.total, dtype=torch.uint8, pin_memory=True)
+            ring.append([buffer, {k: (t, _numpy_view(t)) for k, t in layout.views(buffer).items()},
+                         None])
         slot = ring[pos]
-        buffers, event = slot
+        buffer, host, event = slot
         if event is not None:
             event.synchronize()   # the previous copy out of this slot is done
         for k, v in cols.items():
             if isinstance(v, torch.Tensor):
-                buffers[k].copy_(v)
+                host[k][0].copy_(v)
             else:
-                np.copyto(buffers[k].numpy(), v, casting="no")
+                np.copyto(host[k][1], v, casting="no")
         with torch.cuda.stream(self._stream):
-            staged = {k: b.to(self._device, non_blocking=True) for k, b in buffers.items()}
+            staged = layout.views(buffer, copy=lambda span: span.to(self._device,
+                                                                    non_blocking=True))
             event = torch.cuda.Event()
             event.record(self._stream)
-        slot[1] = event
+        slot[2] = event
         return staged, event
 
 
@@ -147,7 +213,9 @@ class LoaderBase:
     :param pad_last: zero-pad the last batch to ``batch_size`` instead and
         add a boolean ``__valid__`` column
     :param prefetch: staged batches kept ready ahead of the consumer
-    :param device: ``"cuda"`` (default), ``"cuda:N"`` or ``"cpu"``
+    :param device: ``"cuda"`` (default), ``"cuda:N"`` or ``"cpu"``. On the
+        card a batch's columns under 1 MiB share one allocation: keeping one
+        of them (say the labels) keeps the others, never a larger column
     :param echo: yield each staged batch this many times (repeats are
         clones of its tensors; host columns pass through)
     :param dtype_policy: how columns become tensors (:class:`DTypePolicy`;
@@ -509,7 +577,9 @@ class DataLoader(LoaderBase):
         half its capacity)
     :param seed: buffer RNG seed
 
-    The other arguments are :class:`LoaderBase`'s.
+    The other arguments are :class:`LoaderBase`'s. On the card a batch's
+    fields under 1 MiB are views of one allocation: a field kept past its
+    batch (the labels, for metrics) keeps those, and no larger field.
     """
 
     def __init__(self, reader, batch_size: int,
@@ -647,7 +717,9 @@ class BatchedDataLoader(LoaderBase):
         half its capacity)
     :param seed: buffer RNG seed
 
-    The other arguments are :class:`LoaderBase`'s. Without shuffling, a
+    The other arguments are :class:`LoaderBase`'s. On the card a batch's
+    columns under 1 MiB are views of one allocation: a column kept past its
+    batch keeps those, and no larger column. Without shuffling, a
     batch inside one row group is a slice of the reader's arrays: on a
     process reader those view the ring until the batch is staged (or, on
     ``device="cpu"``, until its tensors are dropped). Such ``device="cpu"``

@@ -2,13 +2,19 @@
 time; ``make_batch_reader``: the columns of any Parquet store, one row
 group at a time.
 
-The reader plans the store's row groups (optionally sharded
-``index % shard_count == cur_shard``), ventilates them to a worker pool —
-in a per-epoch order seeded exactly as the JAX package seeds it — and
-yields what the workers publish. Given the same store, seed and settings,
-it yields the same rows as the JAX package's reader, in the same order on
-the thread and dummy pools (the process pool delivers in the order its
-workers finish). With ``schema_fields=NGram(...)`` a row reader yields the
+The reader plans the store's row groups, in the JAX package's order of
+steps: hive partition ``filters``, a ``predicate`` over partition keys
+alone, a ``rowgroup_selector`` over the stored indexes, the shard
+``index % shard_count == cur_shard`` (after a ``random.Random(shard_seed)``
+shuffle when given) and an explicit ``rowgroup_subset``. It ventilates each
+planned group ``shuffle_row_drop_partitions`` times to a worker pool (each
+copy reads its own slice of the rows), in a per-epoch order seeded exactly
+as the JAX package seeds it, and yields what the workers publish, after
+their ``predicate`` and ``transform_spec``. Given the same store, seed and
+settings, it yields the same rows as the JAX package's reader, in the same
+order on the thread and dummy pools (the process pool delivers in the
+order its workers finish; the JAX reader's statistics pruning, which the
+port leaves out, reorders a shuffled epoch under some predicates). With ``schema_fields=NGram(...)`` a row reader yields the
 NGram's windows instead of rows.
 
 :meth:`Reader.state_dict` is the read position (``epoch``, ``offset``,
@@ -22,10 +28,14 @@ cursor still points at that group and the port's is one past it.
 """
 from __future__ import annotations
 
+import io
 import os
+import pickle
+import random
+import types
 from collections import deque
 from functools import partial
-from typing import Optional
+from typing import Optional, Sequence
 
 from petastorm_tpu_torch.codecs import CompressedImageCodec, decode_verdict
 from petastorm_tpu_torch.errors import NoDataAvailableError
@@ -37,6 +47,7 @@ from petastorm_tpu_torch.reader_impl.batch_reader_worker import (BatchReaderWork
                                                                  arrow_table_to_numpy_dict)
 from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
 from petastorm_tpu_torch.reader_impl.row_reader_worker import RowReaderWorker
+from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.workers_pool import EmptyResultError, ITEM_CONTEXT_KWARG
 from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
@@ -86,6 +97,194 @@ def decode_threads_for(workers_count: int) -> int:
     return max(1, min(default_threads(), (os.cpu_count() or 1) // max(1, workers_count)))
 
 
+_FILTER_OPS = ("=", "==", "!=", "<", "<=", ">", ">=", "in", "not in")
+
+
+def _filter_value_eq(val, ref) -> bool:
+    """Hive partition values are path strings: equal by their string
+    forms, or as numbers, so ``("year", "=", 2024.0)`` matches ``year=2024``."""
+    if str(val) == str(ref):
+        return True
+    try:
+        return float(val) == float(ref)
+    except (TypeError, ValueError):
+        return False
+
+
+def _filter_compare(val, op: str, ref) -> bool:
+    if op in ("=", "=="):
+        return _filter_value_eq(val, ref)
+    if op == "!=":
+        return not _filter_value_eq(val, ref)
+    if op == "in":
+        return any(_filter_value_eq(val, r) for r in ref)
+    if op == "not in":
+        return not any(_filter_value_eq(val, r) for r in ref)
+    # Orderings compare as numbers where both sides convert, else as strings.
+    try:
+        a, b = float(val), float(ref)
+    except (TypeError, ValueError):
+        a, b = str(val), str(ref)
+    return {"<": a < b, "<=": a <= b, ">": a > b, ">=": a >= b}[op]
+
+
+def _normalize_filters(filters):
+    """The filters as a list of AND-groups, ORed: ``[(col, op, val), ...]``
+    is one group, ``[[(col, op, val), ...], ...]`` several. Every clause
+    is checked here, before any matching."""
+    if not filters:
+        return []
+    if all(isinstance(f, tuple) for f in filters):
+        groups = [list(filters)]
+    elif all(isinstance(f, (list, tuple)) for f in filters):
+        groups = [list(g) for g in filters]
+    else:
+        raise ValueError("filters must be a list of (col, op, val) tuples "
+                         "or a list of such lists")
+    for g in groups:
+        if not g:
+            raise ValueError("empty filter conjunction [] matches nothing "
+                             "meaningfully; remove it or add clauses")
+        for clause in g:
+            if not (isinstance(clause, tuple) and len(clause) == 3):
+                raise ValueError(f"bad filter clause {clause!r}; expected "
+                                 f"(column, op, value)")
+            col, op, ref = clause
+            if op not in _FILTER_OPS:
+                raise ValueError(f"unsupported filter op {op!r} "
+                                 f"(supported: {' '.join(_FILTER_OPS)})")
+            if op in ("in", "not in") and isinstance(ref, (str, bytes)):
+                raise ValueError(
+                    f"filter ({col!r}, {op!r}, {ref!r}): the reference "
+                    f"must be a list/tuple/set of values, not a string")
+    return groups
+
+
+def _row_group_matches_filters(partition_dict: dict, groups) -> bool:
+    # A group without a referenced key does not match the clause.
+    def clause_ok(col, op, ref):
+        return col in partition_dict and _filter_compare(partition_dict[col], op, ref)
+
+    return any(all(clause_ok(*clause) for clause in g) for g in groups)
+
+
+def _partition_keys(row_groups) -> set:
+    return {k for rg in row_groups for k, _ in rg.partition_values}
+
+
+def _apply_filters(row_groups, filters):
+    """The groups whose hive partition values pass ``filters``. A column
+    that is not a partition key raises: nothing later could evaluate it."""
+    groups = _normalize_filters(filters)
+    if not groups:
+        return row_groups
+    partition_keys = _partition_keys(row_groups)
+    unknown = {col for g in groups for col, _, _ in g} - partition_keys
+    if unknown:
+        raise ValueError(
+            f"filters reference non-partition column(s) {sorted(unknown)}; this dataset's "
+            f"partition keys are {sorted(partition_keys) or '(none - unpartitioned store)'}. "
+            f"Use predicate=... for row-level filtering")
+    return [rg for rg in row_groups if _row_group_matches_filters(rg.partition_dict, groups)]
+
+
+def _apply_partition_predicate(row_groups, predicate):
+    """Where every predicate field is a hive partition key, the groups the
+    predicate rejects on their partition values; groups without one of
+    the keys stay for the workers to decide."""
+    fields = predicate.get_fields()
+    if not row_groups or not fields or not fields.issubset(_partition_keys(row_groups)):
+        return row_groups
+    return [rg for rg in row_groups
+            if not fields.issubset(set(rg.partition_dict))
+            or predicate.do_include(rg.partition_dict)]
+
+
+def _apply_selector(ctx, all_row_groups, row_groups, selector):
+    """The groups ``selector`` selects through the store's indexes; its
+    ordinals index the unfiltered order."""
+    from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
+    indexes = get_row_group_indexes(ctx)
+    for name in selector.get_index_names():
+        if name not in indexes:
+            raise ValueError(f"Index {name!r} not found in dataset metadata "
+                             f"(available: {sorted(indexes)})")
+    selected = {id(all_row_groups[i]) for i in selector.select_row_groups(indexes)
+                if i < len(all_row_groups)}
+    return [rg for rg in row_groups if id(rg) in selected]
+
+
+def _shard_row_groups(row_groups, cur_shard, shard_count, shard_seed):
+    """``index % shard_count == cur_shard``, after a ``random.Random(shard_seed)``
+    shuffle when a seed is given."""
+    if shard_seed is not None:
+        row_groups = list(row_groups)
+        random.Random(shard_seed).shuffle(row_groups)
+    shard = [rg for i, rg in enumerate(row_groups) if i % shard_count == cur_shard]
+    if not shard:
+        raise NoDataAvailableError(
+            f"Shard {cur_shard}/{shard_count} received zero row groups "
+            f"({len(row_groups)} total). Use fewer shards or larger datasets.")
+    return shard
+
+
+def _apply_rowgroup_subset(all_row_groups, row_groups, rowgroup_subset):
+    """The subset's ordinals (into the unfiltered order) that the earlier
+    steps kept, in the subset's order. An out-of-range or repeated
+    ordinal raises."""
+    seen = set()
+    for ordinal in rowgroup_subset:
+        if not 0 <= ordinal < len(all_row_groups):
+            raise ValueError(f"rowgroup_subset ordinal {ordinal} out of range "
+                             f"[0, {len(all_row_groups)}) for this dataset")
+        if ordinal in seen:
+            raise ValueError(f"rowgroup_subset contains duplicate ordinal {ordinal}")
+        seen.add(ordinal)
+    kept = {id(rg) for rg in row_groups}
+    return [all_row_groups[i] for i in rowgroup_subset if id(all_row_groups[i]) in kept]
+
+
+def _plan_row_groups(ctx, all_row_groups, filters, predicate, rowgroup_selector,
+                     cur_shard, shard_count, shard_seed, rowgroup_subset):
+    """The JAX reader's planning steps, in its order."""
+    planned = list(all_row_groups)
+    if filters:
+        planned = _apply_filters(planned, filters)
+    if predicate is not None:
+        planned = _apply_partition_predicate(planned, predicate)
+    if rowgroup_selector is not None:
+        planned = _apply_selector(ctx, all_row_groups, planned, rowgroup_selector)
+    if cur_shard is not None:
+        planned = _shard_row_groups(planned, cur_shard, shard_count, shard_seed)
+    if rowgroup_subset is not None:
+        planned = _apply_rowgroup_subset(all_row_groups, planned, rowgroup_subset)
+    return planned
+
+
+class _SpawnPickler(pickle.Pickler):
+    """Refuses functions and classes of ``__main__``: a spawned worker runs
+    another main module and could not load them."""
+
+    def persistent_id(self, obj):
+        if isinstance(obj, (type, types.FunctionType)) and obj.__module__ == "__main__":
+            raise pickle.PicklingError(f"{obj.__qualname__} is defined in __main__")
+        return None
+
+
+def _check_spawnable(what: str, obj) -> None:
+    """Raise ``ValueError`` unless ``obj`` can be sent to a spawned worker."""
+    if obj is None:
+        return
+    try:
+        _SpawnPickler(io.BytesIO()).dump(obj)
+    except Exception as e:  # noqa: BLE001 - any pickling failure is reported alike
+        raise ValueError(
+            f"reader_pool_type='process' sends {what} {obj!r} to spawned workers, but it does "
+            f"not pickle ({type(e).__name__}: {e}). Use a function defined at module level in "
+            f"an importable module (not a lambda, a closure or a function of __main__), or "
+            f"reader_pool_type='thread'") from e
+
+
 def make_reader(dataset_url: str,
                 schema_fields=None,
                 reader_pool_type: str = "thread",
@@ -97,7 +296,14 @@ def make_reader(dataset_url: str,
                 num_epochs: Optional[int] = 1,
                 cur_shard: Optional[int] = None,
                 shard_count: Optional[int] = None,
-                resume_state: Optional[dict] = None) -> "Reader":
+                resume_state: Optional[dict] = None,
+                shuffle_row_drop_partitions: int = 1,
+                predicate=None,
+                rowgroup_selector=None,
+                filters=None,
+                shard_seed: Optional[int] = None,
+                transform_spec=None,
+                rowgroup_subset: Optional[Sequence[int]] = None) -> "Reader":
     """Reader over a store written by ``materialize_dataset_local`` (either
     package's).
 
@@ -119,11 +325,35 @@ def make_reader(dataset_url: str,
         one is drawn at random
     :param num_epochs: passes over the dataset; ``None`` = forever
     :param cur_shard/shard_count: read only row groups with
-        ``index % shard_count == cur_shard``
+        ``index % shard_count == cur_shard`` (of the groups the filters,
+        the predicate and the selector kept)
     :param resume_state: a :meth:`Reader.state_dict` (of this package's
         reader or the JAX package's, free mode) to continue from; its
-        recorded seed is used when ``seed`` is None. The store, sharding
-        and shuffle settings must be the saved reader's
+        recorded seed is used when ``seed`` is None. The store, selection,
+        sharding and shuffle settings must be the saved reader's
+    :param shuffle_row_drop_partitions: ventilate each row group N times,
+        each copy reading its own contiguous 1/N of the rows (fewer rows
+        of one group in flight together; not with a non-overlapping NGram)
+    :param predicate: a :class:`~petastorm_tpu_torch.predicates.PredicateBase`;
+        the workers read its fields first and deliver only the rows it
+        includes. Over partition keys alone it skips whole row groups at
+        planning time
+    :param rowgroup_selector: a selector (:mod:`petastorm_tpu_torch.selectors`)
+        over the indexes stored by ``build_rowgroup_index``
+    :param filters: pyarrow-style partition filters, ``[(col, op, val),
+        ...]`` (ANDed) or a list of such lists (ORed), ops ``= == != < <= >
+        >= in "not in"``, over hive partition keys only
+    :param shard_seed: shuffle the planned row groups with
+        ``random.Random(shard_seed)`` before sharding
+    :param transform_spec: a :class:`~petastorm_tpu_torch.transform.TransformSpec`
+        applied to each row (or, ``batched``, to each group's columns) in
+        the workers; ``reader.schema`` is the transformed schema
+    :param rowgroup_subset: ordinals into the store's unfiltered row-group
+        order; the reader plans those (that the other steps kept) in the
+        subset's order. Not with ``cur_shard`` or ``shuffle_row_groups``
+
+    On ``reader_pool_type="process"`` the predicate and the transform must
+    pickle into a spawned worker: a ``ValueError`` says so at construction.
     """
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
@@ -131,7 +361,10 @@ def make_reader(dataset_url: str,
     return Reader(dataset_url, pool, schema_fields=schema_fields,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
-                  shard_count=shard_count, resume_state=resume_state)
+                  shard_count=shard_count, resume_state=resume_state,
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
+                  rowgroup_selector=rowgroup_selector, filters=filters, shard_seed=shard_seed,
+                  transform_spec=transform_spec, rowgroup_subset=rowgroup_subset)
 
 
 def make_batch_reader(dataset_url: str,
@@ -146,7 +379,14 @@ def make_batch_reader(dataset_url: str,
                       cur_shard: Optional[int] = None,
                       shard_count: Optional[int] = None,
                       convert_early_to_numpy: bool = False,
-                      resume_state: Optional[dict] = None) -> "Reader":
+                      resume_state: Optional[dict] = None,
+                      shuffle_row_drop_partitions: int = 1,
+                      predicate=None,
+                      rowgroup_selector=None,
+                      filters=None,
+                      shard_seed: Optional[int] = None,
+                      transform_spec=None,
+                      rowgroup_subset: Optional[Sequence[int]] = None) -> "Reader":
     """Columnar reader of any Parquet store (several files, with or without
     petastorm metadata; a store without it gets a schema inferred from its
     Arrow schema): one batch of ``{column: ndarray}`` per row group,
@@ -169,6 +409,14 @@ def make_batch_reader(dataset_url: str,
         written into (``.clone()`` it first).
     :param convert_early_to_numpy: convert to numpy in the workers instead
         (on processes the dicts cross the rings pickled)
+    :param predicate: evaluated over each group's Arrow columns (one mask
+        per group where the predicate has ``do_include_batch``, else row by
+        row over pandas rows, as in the JAX package)
+    :param transform_spec: ``func`` takes each group's pandas DataFrame
+        (tensor cells come back raveled and are reshaped by the
+        transformed schema), or with ``batched`` its ``{column: ndarray}``.
+        A transformed group is new Arrow memory; it crosses the process
+        rings like any other
 
     The other arguments are :func:`make_reader`'s.
     """
@@ -180,7 +428,10 @@ def make_batch_reader(dataset_url: str,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, is_batched_reader=True,
-                  convert_early_to_numpy=convert_early_to_numpy, resume_state=resume_state)
+                  convert_early_to_numpy=convert_early_to_numpy, resume_state=resume_state,
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
+                  rowgroup_selector=rowgroup_selector, filters=filters, shard_seed=shard_seed,
+                  transform_spec=transform_spec, rowgroup_subset=rowgroup_subset)
 
 
 def mint_seed() -> int:
@@ -224,12 +475,13 @@ def _resume_position(resume_state: dict, seed, shuffle_row_groups: bool, shuffle
     if saved_items is not None and int(saved_items) != num_items:
         raise ValueError(f"resume_state was saved over {saved_items} work items but this reader "
                          f"plans {num_items}: the offset would point at different data. Resume "
-                         f"with the same dataset and sharding as the saved run.")
+                         f"with the same dataset, filters, sharding and "
+                         f"shuffle_row_drop_partitions as the saved run.")
     epoch = int(resume_state.get("epoch", 0))
     offset = int(resume_state.get("offset", 0))
     if not 0 <= offset < num_items:
         raise ValueError(f"resume offset {offset} >= {num_items} work items (did the dataset "
-                         f"or its sharding change?)")
+                         f"or its filtering change?)")
     return epoch, offset
 
 
@@ -257,13 +509,24 @@ class Reader:
 
     def __init__(self, dataset_url, pool, schema_fields, shuffle_row_groups,
                  shuffle_rows, seed, num_epochs, cur_shard, shard_count,
-                 is_batched_reader=False, convert_early_to_numpy=False, resume_state=None):
+                 is_batched_reader=False, convert_early_to_numpy=False, resume_state=None,
+                 shuffle_row_drop_partitions=1, predicate=None, rowgroup_selector=None,
+                 filters=None, shard_seed=None, transform_spec=None, rowgroup_subset=None):
+        if rowgroup_subset is not None and cur_shard is not None:
+            raise ValueError("rowgroup_subset and cur_shard/shard_count are mutually exclusive: "
+                             "an explicit ordinal subset is a shard assignment")
+        if rowgroup_subset is not None and shuffle_row_groups:
+            raise ValueError("rowgroup_subset delivers row groups in exactly the given order; "
+                             "pass shuffle_row_groups=False and shuffle the ordinal list itself")
         if (cur_shard is None) != (shard_count is None):
             raise ValueError("cur_shard and shard_count must be used together")
         if cur_shard is not None and not (isinstance(cur_shard, int)
                                           and 0 <= cur_shard < shard_count):
             raise ValueError(f"cur_shard must be an int in [0, {shard_count}), "
                              f"got {cur_shard!r}")
+        if shuffle_row_drop_partitions < 1:
+            raise ValueError(f"shuffle_row_drop_partitions must be >= 1, "
+                             f"got {shuffle_row_drop_partitions}")
         ctx = DatasetContext(dataset_url)
         self._batched = is_batched_reader
         stored_schema = infer_or_load_unischema(ctx) if is_batched_reader else get_schema(ctx)
@@ -274,29 +537,42 @@ class Reader:
                 raise ValueError("NGram is not supported by make_batch_reader; use make_reader")
             self.ngram = schema_fields
             self.ngram.resolve_regex_field_names(stored_schema)
-            self.schema = stored_schema
+            view_schema = stored_schema
         elif schema_fields is not None:
-            self.schema = stored_schema.create_schema_view(schema_fields)
+            view_schema = stored_schema.create_schema_view(schema_fields)
         else:
-            self.schema = stored_schema
+            view_schema = stored_schema
+        if self.ngram is not None and not self.ngram.timestamp_overlap \
+                and shuffle_row_drop_partitions > 1:
+            raise NotImplementedError("shuffle_row_drop_partitions with "
+                                      "non-overlapping ngrams is not supported")
+        #: The rows' schema: the view, transformed by ``transform_spec``.
+        self.schema = (view_schema if transform_spec is None
+                       else transform_schema(view_schema, transform_spec))
+        if isinstance(pool, ProcessPool):
+            _check_spawnable("predicate", predicate)
+            _check_spawnable("transform_spec", transform_spec)
 
         all_row_groups = load_row_groups(ctx)
-        row_groups = all_row_groups
-        if cur_shard is not None:
-            row_groups = [rg for i, rg in enumerate(all_row_groups)
-                          if i % shard_count == cur_shard]
+        row_groups = _plan_row_groups(ctx, all_row_groups, filters, predicate,
+                                      rowgroup_selector, cur_shard, shard_count, shard_seed,
+                                      rowgroup_subset)
         if not row_groups:
             raise NoDataAvailableError(
-                f"No row groups to read (dataset has {len(all_row_groups)}; "
-                f"cur_shard={cur_shard}, shard_count={shard_count})")
+                f"No row groups left after predicate/selector/shard filtering "
+                f"(dataset has {len(all_row_groups)}; cur_shard={cur_shard}, "
+                f"shard_count={shard_count})")
+        items = [{"rowgroup": rg,
+                  "shuffle_row_drop_partition": (part, shuffle_row_drop_partitions)}
+                 for rg in row_groups for part in range(shuffle_row_drop_partitions)]
 
         start_epoch, start_offset = (0, 0) if resume_state is None else _resume_position(
-            resume_state, seed, shuffle_row_groups, shuffle_rows, len(row_groups))
-        self._num_items = len(row_groups)
+            resume_state, seed, shuffle_row_groups, shuffle_rows, len(items))
+        self._num_items = len(items)
         self._seed = seed
         self._pool = pool
         self._ventilator = ConcurrentVentilator(
-            pool.ventilate, [{"rowgroup": rg} for rg in row_groups],
+            pool.ventilate, items,
             iterations=num_epochs,
             randomize_item_order=shuffle_row_groups,
             random_seed=seed,
@@ -309,14 +585,16 @@ class Reader:
         self._buffer_context = None
         self._delivered = set()
         self.last_row_consumed = False
+        worker_args = {"dataset_url": dataset_url, "view_schema": view_schema,
+                       "output_schema": self.schema, "predicate": predicate,
+                       "transform_spec": transform_spec, "shuffle_rows": shuffle_rows,
+                       "seed": seed}
         if is_batched_reader:
             if isinstance(pool, ProcessPool) and not convert_early_to_numpy:
                 # Columns as views over the Arrow buffers in the ring.
                 pool.result_transform = partial(arrow_table_to_numpy_dict, schema=self.schema)
             pool.start(BatchReaderWorker,
-                       {"dataset_url": dataset_url, "view_schema": self.schema,
-                        "shuffle_rows": shuffle_rows, "seed": seed,
-                        "convert_early_to_numpy": convert_early_to_numpy},
+                       {**worker_args, "convert_early_to_numpy": convert_early_to_numpy},
                        ventilator=self._ventilator)
             return
         # The image decode path is settled here, once (the native build and
@@ -324,8 +602,7 @@ class Reader:
         verdict = (decode_verdict() if any(isinstance(f.codec, CompressedImageCodec)
                                            for f in stored_schema.fields.values()) else None)
         pool.start(RowReaderWorker,
-                   {"dataset_url": dataset_url, "schema": stored_schema, "view_schema": self.schema,
-                    "ngram": self.ngram, "shuffle_rows": shuffle_rows, "seed": seed,
+                   {**worker_args, "schema": stored_schema, "ngram": self.ngram,
                     "decode_threads": decode_threads_for(pool.workers_count),
                     "decode_verdict": verdict},
                    ventilator=self._ventilator)

@@ -1,10 +1,15 @@
 """Columnar reader worker: one row group -> one pyarrow Table.
 
 The worker of ``make_batch_reader``, for any Parquet store. It reads the
-row group's columns as an Arrow table, shuffles its rows when asked (with
-the same per-item generator as the row worker and the JAX package,
+row group's columns (and a predicate's) as an Arrow table and masks it by
+the predicate (one ``do_include_batch`` call over the columns as numpy,
+else ``do_include`` over pandas rows, as the JAX package does).
+Then it takes the item's drop partition and shuffles its rows when asked
+(with the same per-item generator as the row worker and the JAX package,
 ``np.random.default_rng((seed, epoch, position))``, applied by
-``table.take``) and publishes the table. The consumer turns it into
+``table.take``), runs the ``TransformSpec`` (over a pandas DataFrame, or
+over ``{column: ndarray}`` when ``batched``), keeps the output schema's
+columns and publishes the table. The consumer turns it into
 ``{column: ndarray}`` with :func:`arrow_table_to_numpy_dict`; on the
 process pool that happens over the Arrow buffers in the shared-memory
 ring, without a copy. With ``convert_early_to_numpy`` the worker converts
@@ -13,18 +18,23 @@ instead and publishes the dict.
 from __future__ import annotations
 
 from decimal import Decimal
+from typing import Optional
 
 import numpy as np
 import pyarrow as pa
 
-from petastorm_tpu_torch.reader_impl.row_reader_worker import _ParquetFileLRU, item_shuffle_rng
+from petastorm_tpu_torch.reader_impl.row_reader_worker import (_ParquetFileLRU,
+                                                               apply_batched_transform,
+                                                               item_shuffle_rng,
+                                                               select_drop_partition)
 from petastorm_tpu_torch.workers_pool.worker_base import WorkerBase
 
 
 class BatchReaderWorker(WorkerBase):
     """``args`` dict keys: ``dataset_url``, ``view_schema`` (the columns
-    to read, as a Unischema), ``shuffle_rows``, ``seed`` and
-    ``convert_early_to_numpy``."""
+    to read, as a Unischema), ``output_schema`` (after the transform),
+    ``predicate`` and ``transform_spec`` (or None), ``shuffle_rows``,
+    ``seed`` and ``convert_early_to_numpy``."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
@@ -32,20 +42,29 @@ class BatchReaderWorker(WorkerBase):
         self._rng = np.random.default_rng(
             None if args["seed"] is None else args["seed"] + worker_id)
 
-    def process(self, rowgroup, shuffle_context=None):
-        result = self._build_result(rowgroup, shuffle_context)
+    def process(self, rowgroup, shuffle_row_drop_partition=(0, 1), shuffle_context=None):
+        result = self._build_result(rowgroup, shuffle_row_drop_partition, shuffle_context)
         if result is not None:
             self.publish_func(result)
 
-    def _build_result(self, rowgroup, shuffle_context):
+    def _build_result(self, rowgroup, drop_part, shuffle_context):
         view_schema = self.args["view_schema"]
-        table = self._load_table(rowgroup, set(view_schema.fields),
+        spec = self.args.get("transform_spec")
+        table = self._load_table(rowgroup, set(view_schema.fields), self.args.get("predicate"),
+                                 drop_part,
                                  item_shuffle_rng(self.args["seed"], shuffle_context, self._rng))
-        if table.num_rows == 0:
+        if table is None or table.num_rows == 0:
             return None
-        table = table.select([n for n in table.column_names if n in view_schema.fields])
+        if spec is not None and spec.func is not None:
+            if spec.batched:
+                cols = apply_batched_transform(spec, arrow_table_to_numpy_dict(table, view_schema))
+                table = _table_from_columns(cols)
+            else:
+                table = _pandas_transform(spec.func, table)
+        out_schema = self.args.get("output_schema", view_schema)
+        table = table.select([n for n in table.column_names if n in out_schema.fields])
         if self.args.get("convert_early_to_numpy"):
-            return arrow_table_to_numpy_dict(table, view_schema)
+            return arrow_table_to_numpy_dict(table, out_schema)
         return table
 
     def _read_table(self, rowgroup, columns) -> pa.Table:
@@ -65,18 +84,88 @@ class BatchReaderWorker(WorkerBase):
                 table = table.append_column(key, pa.array([value] * table.num_rows))
         return table
 
-    def _load_table(self, rowgroup, needed, rng) -> pa.Table:
-        table = self._read_table(rowgroup, needed)
-        if self.args["shuffle_rows"]:
-            indices = np.arange(table.num_rows)
-            if len(indices) > 1:
-                indices = rng.permutation(indices)
+    def _load_table(self, rowgroup, needed, predicate, drop_part, rng) -> Optional[pa.Table]:
+        """The group's ``needed`` columns, masked by ``predicate`` (None
+        when no row passes), then its drop partition, shuffled when asked."""
+        if predicate is None:
+            table = self._read_table(rowgroup, needed)
+        else:
+            # One read of every column, as the JAX package's default plan
+            # reads (its columns in the same order).
+            pred_fields = set(predicate.get_fields())
+            table = self._read_table(rowgroup, needed | pred_fields)
+            mask = _predicate_mask(
+                table.select([n for n in table.column_names if n in pred_fields]), predicate)
+            if not mask.any():
+                return None
+            table = table.select([n for n in table.column_names if n in needed]).filter(
+                pa.array(mask))
+        part_index, num_parts = drop_part
+        if num_parts > 1 or self.args["shuffle_rows"]:
+            indices = select_drop_partition(table.num_rows, part_index, num_parts,
+                                            self.args["shuffle_rows"], rng)
             table = table.take(pa.array(indices))
         return table
 
     def shutdown(self):
         if self._files is not None:
             self._files.close_all()
+
+
+def _predicate_mask(pred_table: pa.Table, predicate) -> np.ndarray:
+    """The predicate's row mask over a group's predicate columns: one
+    ``do_include_batch`` call over the columns as numpy where it answers,
+    else ``do_include`` over the rows of a pandas DataFrame, whose cells
+    are the values the JAX package's workers hand it."""
+    if pred_table.num_rows == 0:
+        return np.array([], dtype=bool)
+    columns = {}
+    for name in pred_table.column_names:
+        try:
+            columns[name] = pred_table.column(name).to_numpy(zero_copy_only=False)
+        except (pa.ArrowInvalid, pa.ArrowNotImplementedError):
+            columns = None
+            break
+    if columns is not None:
+        mask = predicate.do_include_batch(columns)
+        if mask is not None:
+            return np.asarray(mask, dtype=bool)
+    df = pred_table.to_pandas()
+    return df.apply(lambda r: predicate.do_include(r.to_dict()), axis=1).values.astype(bool)
+
+
+def _pandas_transform(func, table: pa.Table) -> pa.Table:
+    """``func`` over the group as a pandas DataFrame, back to Arrow. Arrow
+    has no multi-dimensional cell type: such cells are raveled, and the
+    output schema's shape brings the shape back."""
+    df = func(table.to_pandas())
+    for col in df.columns:
+        vals = df[col].values
+        probe = next((v for v in vals if isinstance(v, np.ndarray)), None)
+        if probe is not None and probe.ndim > 1:
+            df[col] = [v.ravel() if isinstance(v, np.ndarray) else v for v in vals]
+    return pa.Table.from_pandas(df, preserve_index=False)
+
+
+def _table_from_columns(cols: dict) -> pa.Table:
+    """An Arrow table of a batched transform's columns: an ``(n, ...)``
+    array of more than one dimension, or a column of multi-dimensional
+    cells, becomes a list column of raveled rows."""
+    arrays = {}
+    for name, v in cols.items():
+        if isinstance(v, np.ndarray) and v.dtype != object:
+            if v.ndim > 1:
+                # An explicit row width: reshape cannot infer -1 for 0 rows.
+                width = int(np.prod(v.shape[1:], dtype=np.int64))
+                arrays[name] = pa.array(list(v.reshape(len(v), width)))
+            else:
+                arrays[name] = pa.array(v)
+            continue
+        cells = list(v)
+        if any(isinstance(c, np.ndarray) and c.ndim > 1 for c in cells):
+            cells = [c.ravel() if isinstance(c, np.ndarray) else c for c in cells]
+        arrays[name] = pa.array(cells)
+    return pa.table(arrays)
 
 
 def _numeric_dtype(field):

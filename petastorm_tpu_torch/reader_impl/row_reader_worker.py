@@ -1,10 +1,17 @@
 """Row reader worker: one row group -> a list of decoded row dicts, or of
 NGram windows.
 
-Reads only the columns the output schema (or the NGram) needs, shuffles
-the row order inside the group when asked (with the same per-item
-generator as the JAX package, ``np.random.default_rng((seed, epoch,
-position))``), codec-decodes column by column and publishes the rows. An
+Reads only the columns the output schema (or the NGram) needs, takes the
+item's drop partition (``shuffle_row_drop_partitions``: one contiguous
+slice of the rows), shuffles the row order inside it when asked (with the
+same per-item generator as the JAX package, ``np.random.default_rng((seed,
+epoch, position))``), codec-decodes column by column and publishes the
+rows. With a predicate it reads and decodes the predicate's columns
+first, masks the group (one ``do_include_batch`` call, or ``do_include``
+row by row) and reads the other columns only when a row passes; the mask
+is taken over the drop partition's indices after the shuffle, so the rows
+come in the JAX package's order. A ``TransformSpec`` runs on each decoded
+row, or once on the group's columns when ``batched``. An
 image column goes through the native batch decoder in one call where the
 field and the host allow it (``utils.decode.batch_decode_images``), else
 cell by cell through its codec. An NGram reader sorts the rows by
@@ -123,10 +130,40 @@ def _scalar_fast_col(field, codec, col) -> bool:
             and field.shape == () and type(codec) is ScalarCodec)
 
 
+def select_drop_partition(num_rows: int, partition_index: int, num_partitions: int,
+                          shuffle: bool, rng) -> np.ndarray:
+    """Row indices of the ``partition_index``-th of ``num_partitions``
+    contiguous slices of a row group (``np.array_split``), permuted by
+    ``rng`` when ``shuffle``."""
+    indices = np.arange(num_rows)
+    if num_partitions > 1:
+        indices = np.array_split(indices, num_partitions)[partition_index]
+    if shuffle and rng is not None and len(indices) > 1:
+        indices = rng.permutation(indices)
+    return indices
+
+
+def apply_batched_transform(transform_spec, cols: dict) -> dict:
+    """A ``TransformSpec(batched=True)`` func applied to one row group's
+    columns: a dict of equal-length columns in and out (the row count may
+    change: a batched transform may filter)."""
+    out = transform_spec.func(dict(cols))
+    if not isinstance(out, dict):
+        raise TypeError(f"TransformSpec(batched=True) func must return a "
+                        f"{{column: values}} dict, got {type(out).__name__}")
+    lengths = {len(v) for v in out.values()}
+    if len(lengths) > 1:
+        raise ValueError(f"TransformSpec(batched=True) func returned ragged columns "
+                         f"(lengths {sorted(lengths)}); every column must keep one "
+                         f"entry per row")
+    return out
+
+
 class RowReaderWorker(WorkerBase):
     """``args`` dict keys: ``dataset_url``, ``schema``
     (the stored Unischema), ``view_schema`` (the narrowed output),
-    ``ngram`` (an NGram or None), ``shuffle_rows``, ``seed`` and
+    ``ngram`` (an NGram or None), ``predicate`` and ``transform_spec``
+    (or None), ``shuffle_rows``, ``seed`` and
     ``decode_threads`` (threads of each native image decode call) and
     ``decode_verdict`` (the reader's :func:`~petastorm_tpu_torch.codecs.decode_verdict`,
     or None for a store without images).
@@ -163,7 +200,45 @@ class RowReaderWorker(WorkerBase):
             except ImportError:   # the codec decodes with Pillow
                 pass
 
-    def process(self, rowgroup, shuffle_context=None):
+    def process(self, rowgroup, shuffle_row_drop_partition=(0, 1), shuffle_context=None):
+        result = self._build_result(rowgroup, shuffle_row_drop_partition, shuffle_context)
+        if result:
+            self.publish_func(result)
+
+    def _build_result(self, rowgroup, drop_part, shuffle_context):
+        ngram = self.args.get("ngram")
+        predicate = self.args.get("predicate")
+        spec = self.args.get("transform_spec")
+        func = spec.func if spec is not None else None
+        rng = item_shuffle_rng(self.args["seed"], shuffle_context, self._rng)
+        if predicate is not None:
+            data, indices = self._load_columns_with_predicate(rowgroup, predicate, drop_part, rng)
+        else:
+            data, num_rows = self._read_columns(rowgroup, self._needed)
+            indices = select_drop_partition(num_rows, *drop_part, self.args["shuffle_rows"], rng)
+
+        if ngram is None and func is not None and spec.batched:
+            cols = apply_batched_transform(spec, self._decode_columns(data, indices))
+            n = len(next(iter(cols.values()))) if cols else 0
+            return [{k: c[j] for k, c in cols.items()} for j in range(n)]
+        if ngram is not None and ngram.dense and func is None \
+                and self._dense_vectorizable(data, indices):
+            return self._dense_windows(ngram, data, indices)
+        cols = self._decode_columns(data, indices)
+        rows = [{n: c[j] for n, c in cols.items()} for j in range(len(indices))]
+        if func is not None:
+            rows = [func(r) for r in rows]
+        if ngram is not None:
+            ts = ngram.timestamp_field_name
+            rows.sort(key=lambda r: r[ts])   # stable, as the JAX package sorts
+            rows = ngram.form_ngram(rows, self.args["view_schema"])
+            if ngram.dense:
+                rows = ngram.densify_windows(rows)
+        return rows
+
+    def _read_columns(self, rowgroup, columns):
+        """``({column: per-row values}, rows)`` of the row group's
+        ``columns``, hive partition keys included."""
         if self._files is None:
             from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext
             ctx = DatasetContext(self.args["dataset_url"])
@@ -173,36 +248,50 @@ class RowReaderWorker(WorkerBase):
         # Workers are the parallelism unit: arrow's own threads would only
         # oversubscribe the cores.
         table = pf.read_row_group(rowgroup.row_group,
-                                  columns=[c for c in sorted(self._needed) if c in names],
+                                  columns=[c for c in sorted(columns) if c in names],
                                   use_threads=False)
         data = {name: _column_values(table.column(name)) for name in table.column_names}
         # Hive partition keys are path components, not file columns.
         for key, value in rowgroup.partition_values:
-            if key in self._needed and key not in data:
+            if key in columns and key not in data:
                 data[key] = [value] * table.num_rows
+        return data, table.num_rows
 
-        indices = np.arange(table.num_rows)
-        if self.args["shuffle_rows"] and len(indices) > 1:
-            rng = item_shuffle_rng(self.args["seed"], shuffle_context, self._rng)
-            indices = rng.permutation(indices)
+    def _load_columns_with_predicate(self, rowgroup, predicate, drop_part, rng):
+        """``(columns, surviving indices)``: the predicate's columns read and
+        decoded whole, one mask, the drop partition's indices (shuffled)
+        kept where the mask is set; the other columns are read only when
+        a row passes."""
+        from petastorm_tpu_torch.predicates import evaluate_predicate_mask
+        schema = self.args["schema"]
+        predicate_fields = set(predicate.get_fields())
+        unknown = predicate_fields - set(schema.fields) - {k for k, _ in rowgroup.partition_values}
+        if unknown:
+            raise ValueError(f"Predicate references unknown fields: {sorted(unknown)}")
+        pred_data, num_rows = self._read_columns(rowgroup, predicate_fields)
+        # The predicate sees decoded values; partition keys pass through raw.
+        pred_schema = schema.create_schema_view(
+            [n for n in sorted(predicate_fields) if n in schema.fields])
+        decoded = self._decode_columns(pred_data, np.arange(num_rows), pred_schema)
+        passthrough = {k: pred_data[k] for k in predicate_fields
+                       if k in pred_data and k not in pred_schema.fields}
+        mask = evaluate_predicate_mask(predicate, {**passthrough, **decoded}, num_rows)
+        if not mask.any():
+            return pred_data, np.empty(0, np.intp)
+        indices = select_drop_partition(num_rows, *drop_part, self.args["shuffle_rows"], rng)
+        indices = indices[mask[indices]]
+        other = self._needed - predicate_fields
+        if other:
+            other_data, _ = self._read_columns(rowgroup, other)
+            return {**pred_data, **other_data}, indices
+        return pred_data, indices
 
-        ngram = self.args.get("ngram")
-        if ngram is not None and ngram.dense and self._dense_vectorizable(data, indices):
-            result = self._dense_windows(ngram, data, indices)
-        else:
-            cols = {}
-            for name, field, codec in self._decode_schema.decode_plan:
-                if name in data:
-                    cols[name] = self._decode(field, codec, data[name], indices)
-            result = [{n: c[j] for n, c in cols.items()} for j in range(len(indices))]
-            if ngram is not None:
-                ts = ngram.timestamp_field_name
-                result.sort(key=lambda r: r[ts])   # stable, as the JAX package sorts
-                result = ngram.form_ngram(result, self.args["view_schema"])
-                if ngram.dense:
-                    result = ngram.densify_windows(result)
-        if result:
-            self.publish_func(result)
+    def _decode_columns(self, data: dict, indices, schema=None) -> dict:
+        """``{name: decoded values}`` of the selected rows of every column
+        of ``schema`` (the needed fields by default) that ``data`` holds."""
+        plan = (self._decode_schema if schema is None else schema).decode_plan
+        return {name: self._decode(field, codec, data[name], indices)
+                for name, field, codec in plan if name in data}
 
     def _decode(self, field, codec, src, indices):
         """Decode the selected rows of one column: an image column in one

@@ -743,6 +743,23 @@ def test_batched_loaders_on_card_give_the_cpu_bytes(cuda_device, tmp_path, pool_
     _assert_same_bytes(got, want, ordered=pool_type == "thread")
 
 
+def test_a_kept_label_keeps_no_image_on_the_card(cuda_device):
+    """The stager copies a column of 1 MiB or more into an allocation of
+    its own: the labels of a batch, kept, hold the 192 bytes of the labels
+    and ids, not the images."""
+    from petastorm_tpu_torch.loader.loader import _PinnedStager
+    rng = np.random.default_rng(5)
+    cols = {"image": rng.integers(0, 256, (16, 192, 192, 3), dtype=np.uint8),
+            "label": np.arange(16, dtype=np.int64), "id": np.arange(16, dtype=np.int32)}
+    staged, event = _PinnedStager(cuda_device, 2).stage(cols)
+    event.synchronize()
+    for k, v in cols.items():
+        assert staged[k].is_cuda and np.array_equal(staged[k].cpu().numpy(), v), k
+    label, image = staged["label"].untyped_storage(), staged["image"].untyped_storage()
+    assert label.data_ptr() == staged["id"].untyped_storage().data_ptr()
+    assert label.nbytes() == 192 and image.nbytes() == cols["image"].nbytes
+
+
 def test_scalar_bench_runs_on_card(cuda_device, tmp_path):
     from petastorm_tpu_torch.benchmark.scalar_bench import (batched_loader_throughput,
                                                             generate_scalar_dataset)
@@ -826,3 +843,98 @@ def test_checkpoint_round_trip_onto_the_card(cuda_device, tmp_path):
     opt2.load_state_dict(state["opt"])
     for p, q in zip(model.parameters(), model2.parameters()):
         assert torch.equal(opt.state[p]["momentum_buffer"], opt2.state[q]["momentum_buffer"])
+
+
+# -------------------------------------------- row-group selection, transforms
+def _bucket_kept(value, fractions, subset) -> bool:
+    """``in_pseudorandom_split``'s rule written out: md5 of the value's
+    string form, modulo ``sys.maxsize``, inside the subset's bounds."""
+    import hashlib
+    import sys
+    high = [sum(fractions[:i + 1]) for i in range(len(fractions))]
+    low = high[subset - 1] if subset else 0.0
+    bucket = int(hashlib.md5(str(value).encode("utf-8")).hexdigest(), 16) % sys.maxsize
+    return low * (sys.maxsize - 1) <= bucket < high[subset] * (sys.maxsize - 1)
+
+
+@pytest.mark.parametrize("pool_type", ["thread", "process"])
+def test_selected_and_cropped_images_normalised_on_card(cuda_device, tmp_path, pool_type):
+    """A pseudorandom split on ``label`` and a center crop in the workers,
+    DataLoader onto the card, K1 once a batch: the rows are a numpy filter
+    and crop of the store, and each normalised batch equals K1's plain
+    version of the same batch."""
+    import functools
+    import hashlib
+    from petastorm_tpu_torch.benchmark.imagenet_bench import write_synthetic_imagenet
+    from petastorm_tpu_torch.predicates import in_pseudorandom_split
+    from petastorm_tpu_torch.test_util.transforms import center_crop
+    from petastorm_tpu_torch.transform import TransformSpec
+    url = f"file://{tmp_path}/img"
+    write_synthetic_imagenet(url, rows=160, classes=20, rows_per_row_group=16, image_size=32)
+    with make_reader(url, reader_pool_type="dummy", shuffle_row_groups=False) as reader:
+        want = sorted((int(r.label), hashlib.sha1(np.ascontiguousarray(
+            r.image[4:28, 4:28]).tobytes()).hexdigest())
+            for r in reader if _bucket_kept(r.label, [0.75, 0.25], 0))
+    spec = TransformSpec(functools.partial(center_crop, field="image", size=24),
+                         edit_fields=[("image", np.uint8, (24, 24, 3), False)])
+    got = []
+    kernels.reset_launch_counts()
+    with make_reader(url, reader_pool_type=pool_type, workers_count=2, seed=0,
+                     predicate=in_pseudorandom_split([0.75, 0.25], 0, "label"),
+                     transform_spec=spec) as reader:
+        batches = 0
+        for batch in DataLoader(reader, batch_size=32, drop_last=False, device=cuda_device):
+            out = normalize_images(batch["image"])
+            assert torch.equal(out.view(torch.int16),
+                               normalize_images_plain(batch["image"]).view(torch.int16))
+            batches += 1
+            got += [(int(label), hashlib.sha1(image.tobytes()).hexdigest())
+                    for label, image in zip(batch["label"].tolist(), batch["image"].cpu().numpy())]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == {KERNEL_NAME: batches}
+    assert sorted(got) == want and 0 < len(want) < 160
+
+
+@pytest.mark.parametrize("pool_type", ["thread", "process"])
+def test_filtered_predicated_transformed_columns_on_card_give_the_cpu_bytes(
+        cuda_device, tmp_path, pool_type):
+    """A hive-partitioned store written with ``partition_by``, read with
+    ``filters``, a predicate and a pandas transform, batched onto the card:
+    the bytes of the same loader on the CPU, and the rows a numpy filter of
+    the store keeps."""
+    import functools
+    from petastorm_tpu_torch.loader import BatchedDataLoader
+    from petastorm_tpu_torch.predicates import in_range
+    from petastorm_tpu_torch.reader import make_batch_reader
+    from petastorm_tpu_torch.test_util.transforms import add_sum_column
+    from petastorm_tpu_torch.transform import TransformSpec
+    rng = np.random.default_rng(4)
+    n = 2000
+    cols = {"id": np.arange(n, dtype=np.int64), "f0": rng.standard_normal(n).astype(np.float32),
+            "i0": rng.integers(0, 1000, n), "part": (np.arange(n) % 4).astype(np.int32)}
+    schema = Unischema("P", [UnischemaField("id", np.int64, ()),
+                             UnischemaField("f0", np.float32, ()),
+                             UnischemaField("i0", np.int64, ()),
+                             UnischemaField("part", np.int32, ())])
+    url = f"file://{tmp_path}/parts"
+    with materialize_dataset_local(url, schema, rows_per_row_group=128,
+                                   partition_by=["part"]) as w:
+        for i in range(n):
+            w.write_row({k: v[i] for k, v in cols.items()})
+    spec = TransformSpec(functools.partial(add_sum_column, name="total", left="i0", right="f0"),
+                         edit_fields=[("total", np.float64, (), False)])
+
+    def staged(device):
+        with make_batch_reader(url, reader_pool_type=pool_type, workers_count=2, seed=1,
+                               filters=[("part", "in", {1, 3})], predicate=in_range("i0", 0, 500),
+                               transform_spec=spec) as reader:
+            return [{k: v.cpu().numpy() for k, v in b.items()} for b in
+                    BatchedDataLoader(reader, batch_size=100, drop_last=False, device=device)]
+
+    got, want = staged(cuda_device), staged("cpu")
+    _assert_same_bytes(got, want, ordered=pool_type == "thread")
+    keep = np.isin(cols["part"], [1, 3]) & (cols["i0"] < 500)
+    ids = np.sort(np.concatenate([b["id"] for b in got]))
+    assert np.array_equal(ids, cols["id"][keep])
+    total = np.concatenate([b["total"] for b in got])
+    assert total.dtype == np.float64 and len(total) == keep.sum()

@@ -85,7 +85,11 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.loader.batched_buffer", "petastorm_tpu_torch.loader.loader",
             "petastorm_tpu_torch.benchmark.scalar_bench", "petastorm_tpu_torch.metrics",
             "petastorm_tpu_torch.ops.augment", "petastorm_tpu_torch.loader.checkpoint",
-            "petastorm_tpu_torch.loader.device_cache"} <= set(modules)
+            "petastorm_tpu_torch.loader.device_cache", "petastorm_tpu_torch.transform",
+            "petastorm_tpu_torch.predicates", "petastorm_tpu_torch.selectors",
+            "petastorm_tpu_torch.etl.rowgroup_indexers",
+            "petastorm_tpu_torch.etl.rowgroup_indexing",
+            "petastorm_tpu_torch.test_util.transforms"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -105,7 +109,8 @@ def test_source_names_no_jax_import(path):
 
 
 #: What a spawned reader worker imports: the pool, the workers, the pickled
-#: arguments' modules (schema, NGram, serializers) and the decoders.
+#: arguments' modules (schema, NGram, predicates, transforms, serializers)
+#: and the decoders.
 WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
                   "petastorm_tpu_torch.workers_pool.exec_in_new_process_entrypoint",
                   "petastorm_tpu_torch.reader_impl.row_reader_worker",
@@ -116,7 +121,10 @@ WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
                   "petastorm_tpu_torch.reader_impl.batch_reader_worker",
                   "petastorm_tpu_torch.reader_impl.arrow_table_serializer",
                   "petastorm_tpu_torch.reader_impl.pickle_serializer",
-                  "petastorm_tpu_torch.unischema")
+                  "petastorm_tpu_torch.unischema", "petastorm_tpu_torch.transform",
+                  "petastorm_tpu_torch.predicates", "petastorm_tpu_torch.selectors",
+                  "petastorm_tpu_torch.etl.rowgroup_indexers",
+                  "petastorm_tpu_torch.test_util.transforms")
 
 
 def test_worker_modules_import_without_torch():
