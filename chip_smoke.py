@@ -200,6 +200,37 @@ result line):
    threads and 2 processes: byte-equal to the same loader on the CPU (as
    rows, on processes), the rows a numpy filter keeps; the rows per second
    with and without the predicate, from the call and after the first batch.
+15. the deterministic epoch plane and the throughput harness. (a) Phase
+   9's store read with ``sample_order="deterministic"``,
+   ``shuffle_row_groups=True``, ``shuffle_window=4`` and seed 5 ->
+   ``DataLoader(batch_size=256, device="cuda")`` -> K1 (bf16) -> ResNet-50's
+   SGD step (cuDNN deterministic), 6 steps on 8 processes and 6 on 8
+   threads: the rows (named by fingerprint) and labels equal, the losses
+   bit-equal; then a run on processes cut at step 3 through
+   ``CheckpointManager`` and resumed on threads from the restored cursor
+   and state: the uninterrupted run's rows and losses, bit for bit. K1's
+   output of every batch is bit-equal to ``normalize_images_plain`` of the
+   batch, and K1 is launched once a batch and nothing else. (b) Phase 12's
+   tensor store by ``make_batch_reader(sample_order="deterministic")``
+   under ``BatchedDataLoader(1024)`` onto the card on 8 processes and 8
+   threads: the rows/s from the first batch in turns free,
+   deterministic, deterministic, free on each pool, then one kept
+   deterministic epoch a pool, byte-equal across the pools; every group
+   zero-copy on processes (beside phase 12's counters). (c) Phase 8's token store and a second one (seed 1), each a
+   deterministic dense-NGram reader, mixed 70/30 by
+   ``WeightedSamplingReader`` (seed 21) -> ``DataLoader(batch_size=2)`` ->
+   ``LlamaConfig()`` at full width, 4 layers, AdamW on K2 "lse", K3 and K4:
+   4 steps, then a run cut at step 2 whose input is rebuilt from the
+   loader's ``state_dict()`` through ``resume_states()``: the same picks,
+   tokens and bit-equal losses; K2, K3 and K4 launched once a layer a step.
+   (d) ``python -m petastorm_tpu_torch.benchmark.cli --json`` on the
+   reference's 10-row hello-world store at the reference's defaults (printed
+   beside BASELINE.md's 709.84 samples/s, unspecified hardware), then on a
+   steady-state store of 10,000 rows at 100 a group (2,000 where a 200-row
+   probe projects the write past 60 s) with ``-d python`` on threads and on
+   processes and with ``-d torch --device-step-ms 50``;
+   ``loader_throughput_sweep`` onto the card; the transport sweep from 1 KB
+   to 1 MB. Every number is printed beside the card's name and power limit.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -247,6 +278,9 @@ from petastorm_tpu_torch.ops.image_ops import (KERNEL_NAME, STRIDED_KERNEL_NAME,
 from petastorm_tpu_torch.benchmark.scalar_bench import (batched_loader_throughput,
                                                         generate_scalar_dataset,
                                                         generate_tensor_dataset)
+from petastorm_tpu_torch.benchmark.dummy_reader import loader_throughput_sweep
+from petastorm_tpu_torch.benchmark.hello_world import generate_hello_world_dataset
+from petastorm_tpu_torch.benchmark.transport_bench import run_sweep, to_markdown
 from petastorm_tpu_torch.loader import (BatchedDataLoader, CheckpointManager, DeviceCachedDataset,
                                         InMemBatchedDataLoader)
 from petastorm_tpu_torch.ops import augment
@@ -257,6 +291,7 @@ from petastorm_tpu_torch.test_util.stub_workers import EnvironmentWorker
 from petastorm_tpu_torch.test_util.transforms import add_sum_column, center_crop
 from petastorm_tpu_torch.transform import TransformSpec
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+from petastorm_tpu_torch.weighted_sampling_reader import WeightedSamplingReader
 from petastorm_tpu_torch.workers_pool import EmptyResultError
 from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
 
@@ -436,6 +471,23 @@ SELECT_FRACTIONS, SELECT_CROP, SELECT_STEPS, SELECT_WORKERS = [0.75, 0.25], 192,
 SELECT_LABELS, SELECT_SHARD_SEED = [3, 7, 11], 7
 SELECT_PARTS, SELECT_KEEP_PARTS, SELECT_I0 = 4, {1, 3}, (0, 500)
 SELECT_SCALAR_ROWS = 100_000
+
+# The deterministic epoch plane and the throughput harness (phase 15): phase
+# 9's store and ResNet-50 read in plan order with a window of 4 groups;
+# phase 12's tensor store; phase 8's token store and a second one mixed 70/30
+# under Llama training at the token path's width; the reference's
+# hello-world store at the CLI's defaults and at the JAX docstring's
+# steady-state size.
+DET_SEED, DET_WINDOW, DET_STEPS, DET_CUT = 5, 4, 6, 3
+MIX_PROBS, MIX_SEED, MIX_STEPS, MIX_CUT = (0.7, 0.3), 21, 4, 2
+HELLO_ROWS, HELLO_GROUP, HELLO_CUT_ROWS, HELLO_PROBE_ROWS = 10_000, 100, 2_000, 200
+#: Seconds the steady-state hello-world store may take to write, estimated
+#: from a 200-row probe; past it the store is cut to 2,000 rows.
+HELLO_WRITE_BAR_S = 60.0
+#: BASELINE.md's hello-world rate of the reference (unspecified hardware),
+#: printed beside the port's and not compared with it.
+BASELINE_HELLO_RATE = 709.84
+DEVICE_STEP_MS = 50
 
 
 def log(msg):
@@ -2173,8 +2225,9 @@ def staging_ms(cols: dict, reps: int = 200) -> float:
     return 1e3 * statistics.median(times)
 
 
-def phase_columnar(tmp: str) -> None:
-    """The columnar path (see the module docstring, phase 12)."""
+def phase_columnar(tmp: str) -> dict:
+    """The columnar path (see the module docstring, phase 12). Returns the
+    zero-copy batches of each tensor-store run on processes."""
     t_phase = time.perf_counter()
     failures = []
     kernels.reset_launch_counts()
@@ -2246,6 +2299,7 @@ def phase_columnar(tmp: str) -> None:
         f"{tensor_groups // TENSOR_FILES} groups, {on_disk / 1e6:.1f} MB on disk, "
         f"{sum(t.numel() * t.element_size() for t in ref.values()) / 1e6:.1f} MB of columns; "
         f"written and read for reference in {time.perf_counter() - t0:.3f} s")
+    zero_copy = {}
     for pool_type in ("thread", "process"):
         r = _reader_alone(tensor_url, pool_type, COLUMNAR_WORKERS)
         log(_columnar_line(f"tensor reader alone, {pool_type} x{COLUMNAR_WORKERS}", r))
@@ -2253,6 +2307,7 @@ def phase_columnar(tmp: str) -> None:
             failures.append(f"tensor reader alone {pool_type}: {r['rows']} rows")
         if pool_type == "process":
             zero_copy_ok(f"tensor reader alone {pool_type}", r, tensor_groups)
+            zero_copy["reader alone"] = r["counters"].get("zero_copy_batches", 0)
         loaders = [(f"BatchedDataLoader {kind}, {pool_type} x{COLUMNAR_WORKERS}",
                     COLUMNAR_WORKERS,
                     lambda reader, shuffle=shuffle: BatchedDataLoader(
@@ -2275,6 +2330,7 @@ def phase_columnar(tmp: str) -> None:
                                 f"{r['every_row_once']}, {r['mismatches']} values differ")
             if pool_type == "process":
                 zero_copy_ok(what, r, tensor_groups)
+                zero_copy[name] = r["counters"].get("zero_copy_batches", 0)
     del ref
     free_cuda()
 
@@ -2285,6 +2341,7 @@ def phase_columnar(tmp: str) -> None:
         failures.append(f"the columnar path launched kernels: {launches}")
     if failures:
         raise AssertionError("columnar path: " + "; ".join(failures))
+    return zero_copy
 
 
 def _tree_map(fn, node):
@@ -2906,6 +2963,354 @@ def phase_selection(image_url: str, token_url: str, tmp: str) -> dict:
             "rates": rates}
 
 
+def _det_image_run(url, ids, pool, model, first, count, k1_errs, resume_state=None,
+                   on_cut=None):
+    """``count`` ResNet-50 steps (global indices ``first``...) on phase 9's
+    store read in plan order (``DET_WINDOW``, ``DET_SEED``) on ``pool``: K1
+    on every batch, held against ``normalize_images_plain`` of the same
+    batch. Returns the model and each step's row ids, labels and loss."""
+    params, opt, step = model
+    rows, labels, losses = [], [], []
+    reader = make_reader(url, reader_pool_type=pool, workers_count=IMAGENET_WORKERS,
+                         shuffle_row_groups=True, seed=DET_SEED, sample_order="deterministic",
+                         shuffle_window=DET_WINDOW, resume_state=resume_state)
+    with DataLoader(reader, batch_size=IMAGENET_BATCH, device="cuda") as loader:
+        it = iter(loader)
+        for s in range(first, first + count):
+            batch = next(it)
+            images = normalize_images(batch["image"])
+            k1_errs.append(check_close(images, normalize_images_plain(batch["image"]),
+                                       f"K1 on {pool}, step {s + 1}"))
+            rows.append(ids(batch["image"]))
+            labels.append(batch["label"].tolist())
+            params, opt, loss, _ = step(params, opt, {"image": images, "label": batch["label"]})
+            losses.append(loss.item())
+        if on_cut is not None:
+            on_cut(loader, params, opt)
+        it.close()
+    return (params, opt, step), rows, labels, losses
+
+
+def _tensor_epoch(url: str, pool: str, order: str, keep: bool) -> dict:
+    """One epoch of phase 12's tensor store through ``make_batch_reader``
+    (``sample_order=order``, seed 0) and ``BatchedDataLoader(1024)`` onto the
+    card: rows, seconds from the call and from the first batch, the reader's
+    counters, and the batches when ``keep``."""
+    rows, batches = 0, []
+    t0 = time.perf_counter()
+    with make_batch_reader(url, reader_pool_type=pool, workers_count=COLUMNAR_WORKERS, seed=0,
+                           sample_order=order) as reader:
+        for batch in BatchedDataLoader(reader, batch_size=COLUMNAR_BATCH, device="cuda"):
+            if not rows:
+                t_first = time.perf_counter()
+            rows += len(batch["id"])
+            if keep:
+                batches.append(batch)
+        del batch
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        gc.collect()
+        out = {"rows": rows, "s": t_end - t0, "from_first_s": t_end - t_first,
+               "counters": reader.counters,
+               "pinned": reader.pool.pinned if pool == "process" else 0, "batches": batches}
+    out["leaked"] = list(getattr(reader.pool, "leaked_rings", []))
+    return out
+
+
+def _token_ngram() -> NGram:
+    return NGram({o: ["ts", "token"] for o in range(WINDOW)}, delta_threshold=1,
+                 timestamp_field="ts", timestamp_overlap=False, dense=True)
+
+
+def _token_mixture(urls, states=None, step=0) -> WeightedSamplingReader:
+    """The two token stores as deterministic dense-NGram readers (seeds 0
+    and 1), mixed ``MIX_PROBS`` with ``MIX_SEED``; resumed from ``states``
+    and ``step`` when given."""
+    members = [make_reader(url, schema_fields=_token_ngram(), workers_count=TOKEN_WORKERS,
+                           num_epochs=None, sample_order="deterministic", seed=k,
+                           resume_state=None if states is None else states[k])
+               for k, url in enumerate(urls)]
+    return WeightedSamplingReader(members, MIX_PROBS, seed=MIX_SEED, start_step=step)
+
+
+def _cli(args: list, timeout: float = 600) -> dict:
+    """``python -m petastorm_tpu_torch.benchmark.cli ... --json`` in a new
+    interpreter; its JSON line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    out = subprocess.run([sys.executable, "-m", "petastorm_tpu_torch.benchmark.cli", *args,
+                          "--json"], cwd=root, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"cli {args}: rc {out.returncode}: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_epoch_plane(smi: str, image_url: str, token_url: str, tensor_url: str,
+                      columnar: dict, tmp: str) -> dict:
+    """The deterministic epoch plane and the throughput harness (see the
+    module docstring, phase 15). Returns the launches by kernel name."""
+    t_phase = time.perf_counter()
+    failures = []
+    free_cuda()
+    card = f"({smi})"
+    launches = {}
+
+    # (a) ResNet-50 in plan order on processes and threads, and a cut.
+    t0 = time.perf_counter()
+    ids = RowIds(image_url)
+    saved_cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    kernels.reset_launch_counts()
+    k1_errs = []
+    try:
+        full = {}
+        for pool in ("process", "thread"):
+            model, rows, labels, losses = _det_image_run(image_url, ids, pool, _fresh_model(0), 0,
+                                                         DET_STEPS, k1_errs)
+            full[pool] = (rows, labels, losses)
+            del model
+            free_cuda()
+        saved = {}
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            mgr = CheckpointManager(ckpt_dir)
+
+            def on_cut(loader, params, opt):
+                mgr.save(DET_CUT, {"model": _tree_map(torch.Tensor.detach, params),
+                                   "opt": opt.state_dict()}, loader=loader)
+                saved["cursor"] = loader.state_dict()
+
+            model, cut_rows, cut_labels, cut_losses = _det_image_run(
+                image_url, ids, "process", _fresh_model(0), 0, DET_CUT, k1_errs, on_cut=on_cut)
+            del model
+            free_cuda()
+            params, opt, step = _fresh_model(1)
+            state, cursor = mgr.restore(map_location="cuda")
+            with torch.no_grad():
+                for dst, src in zip(_tree_leaves(params), _tree_leaves(state["model"])):
+                    dst.copy_(src)
+            opt.load_state_dict(state["opt"])
+            del state
+            model, rest_rows, rest_labels, rest_losses = _det_image_run(
+                image_url, ids, "thread", (params, opt, step), DET_CUT, DET_STEPS - DET_CUT,
+                k1_errs, resume_state=cursor)
+            del model, params, opt
+            free_cuda()
+    except AssertionError as e:   # K1 not bit-equal to its plain version
+        failures.append(str(e))
+        full, cursor = None, None
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_cudnn
+    launches[KERNEL_NAME] = kernels.launch_counts.get(KERNEL_NAME, 0)
+    if full is not None:
+        (p_rows, p_labels, p_losses), (t_rows, t_labels, t_losses) = full["process"], full["thread"]
+        delivered = [i for r in p_rows for i in r]
+        log(f"[epoch] (a) {card} ResNet-50, {DET_STEPS} steps of {IMAGENET_BATCH} in plan order "
+            f"(seed {DET_SEED}, shuffle_window {DET_WINDOW} groups of 64): rows on 8 processes "
+            f"{'equal to' if p_rows == t_rows else 'DIFFERENT from'} 8 threads', labels "
+            f"{'equal' if p_labels == t_labels else 'DIFFERENT'}, {len(set(delivered))} distinct "
+            f"rows of {len(delivered)}; losses processes {p_losses}, threads {t_losses}: "
+            f"{'bit-equal' if p_losses == t_losses else 'NOT bit-equal'}")
+        log(f"[epoch] (a) {card} cut at step {DET_CUT} on processes, cursor {cursor} (the loader's "
+            f"{saved.get('cursor')}), resumed on threads: rows "
+            f"{'equal to' if cut_rows + rest_rows == p_rows else 'DIFFERENT from'} the "
+            f"uninterrupted run's, labels "
+            f"{'equal' if cut_labels + rest_labels == p_labels else 'DIFFERENT'}, losses "
+            f"{cut_losses + rest_losses}: "
+            f"{'bit-equal' if cut_losses + rest_losses == p_losses else 'NOT bit-equal'}; K1 "
+            f"against normalize_images_plain on all {len(k1_errs)} batches: max abs error "
+            f"{max(k1_errs)}; launches {dict(kernels.launch_counts)}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if p_rows != t_rows or p_labels != t_labels or p_losses != t_losses:
+            failures.append("(a) processes and threads delivered or trained differently")
+        if len(set(delivered)) != len(delivered):
+            failures.append("(a) a row was delivered twice in one epoch")
+        if cut_rows + rest_rows != p_rows or cut_losses + rest_losses != p_losses:
+            failures.append("(a) the cut and resumed run differs from the uninterrupted one")
+        if not (cursor == saved.get("cursor") and cursor.get("sample_order") == "deterministic"
+                and cursor.get("window") == DET_WINDOW
+                and cursor.get("offset") == DET_CUT * IMAGENET_BATCH // 64):
+            failures.append(f"(a) cursor {cursor}")
+        if not np.all(np.isfinite(p_losses)):
+            failures.append(f"(a) losses {p_losses}")
+    want_k1 = 3 * DET_STEPS
+    if dict(kernels.launch_counts) != {KERNEL_NAME: want_k1}:
+        failures.append(f"(a) launches {dict(kernels.launch_counts)}, expected {want_k1} K1")
+
+    # (b) The columnar path in plan order: zero-copy, equal bytes, the cost.
+    t0 = time.perf_counter()
+    groups = TENSOR_ROWS // TENSOR_GROUP
+    kept, rates = {}, {}
+    for pool in ("thread", "process"):
+        # Timed in turns with nothing kept; then one kept epoch for the bytes.
+        for order in ("free", "deterministic", "deterministic", "free", "kept"):
+            keep = order == "kept"
+            r = _tensor_epoch(tensor_url, pool, "deterministic" if keep else order, keep=keep)
+            rate = r["rows"] / r["from_first_s"]
+            if not keep:
+                rates.setdefault(f"{pool} {order}", []).append(rate)
+            zc = tuple(r["counters"].get(k, 0) for k in ("zero_copy_batches", "zero_copy_bytes"))
+            log(f"[epoch] (b) {card} tensor store, BatchedDataLoader({COLUMNAR_BATCH}) -> cuda, "
+                f"{pool} x{COLUMNAR_WORKERS}, {order}: {r['rows']} rows, {r['rows'] / r['s']:.1f} "
+                f"rows/s from the call, {rate:.1f} rows/s from the first batch; zero-copy "
+                f"batches {zc[0]}, bytes {zc[1]}; gate {r['counters'].get('units_reordered', '-')} "
+                f"units reordered; {r['pinned']} records pinned, rings kept {r['leaked']}")
+            if r["rows"] != TENSOR_ROWS:
+                failures.append(f"(b) {pool} {order}: {r['rows']} rows")
+            if pool == "process" and (zc[0] != groups or r["pinned"] or r["leaked"]):
+                failures.append(f"(b) {pool} {order}: zero-copy {zc[0]} of {groups} groups, "
+                                f"{r['pinned']} pinned, kept {r['leaked']}")
+            if keep:
+                kept[pool] = r["batches"]
+    same = len(kept["thread"]) == len(kept["process"]) and all(
+        g.keys() == w.keys() and all(torch.equal(_bits(g[k]), _bits(w[k])) for k in w)
+        for g, w in zip(kept["process"], kept["thread"]))
+    cost = {pool: statistics.mean(rates[f"{pool} deterministic"])
+            / statistics.mean(rates[f"{pool} free"]) for pool in ("thread", "process")}
+    log(f"[epoch] (b) {card} deterministic batches on processes "
+        f"{'byte-equal to' if same else 'DIFFERENT from'} those on threads "
+        f"({len(kept['process'])} batches, kept on the card); zero-copy in phase 12 on "
+        f"processes: {columnar}; rows/s from the first batch, deterministic over free (turns "
+        f"free, det, det, free, nothing kept): "
+        f"threads {cost['thread']:.3f}x, processes {cost['process']:.3f}x; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        failures.append("(b) deterministic batches differ between the pools")
+    del kept
+    free_cuda()
+
+    # (c) A 70/30 token mixture under Llama training, cut at step 2.
+    t0 = time.perf_counter()
+    url_b = f"file://{tmp}/tokens_b"
+    write_token_store(url_b, windows=TOKEN_WINDOWS, window=WINDOW, vocab=LLAMA.vocab, seed=1)
+    urls = (token_url, url_b)
+    gen = torch.Generator().manual_seed(17)
+    weights = torch.randint(1, 2 ** 20, (WINDOW,), generator=gen, dtype=torch.int64).to("cuda")
+
+    def fingerprints(tokens: torch.Tensor) -> list:
+        return (tokens.to(torch.int64) * weights).sum(-1).tolist()
+    names = {}
+    for tag, url in zip("ab", urls):
+        with make_reader(url, schema_fields=_token_ngram(), shuffle_row_groups=False,
+                         workers_count=TOKEN_WORKERS) as r:
+            for w in r:
+                (fp,) = fingerprints(torch.from_numpy(w["token"][None]).to("cuda"))
+                names[fp] = f"{tag}{int(w['ts'][0]) // WINDOW}"
+    if len(names) != 2 * TOKEN_WINDOWS:
+        failures.append(f"(c) {len(names)} distinct windows of {2 * TOKEN_WINDOWS}")
+    init_opt, step = llama.make_train_step(LLAMA, attn_fn=make_flash_attention(causal=True),
+                                           shift="roll")
+
+    def fresh():
+        params = llama.init_params(torch.Generator(device="cuda").manual_seed(0), LLAMA,
+                                   device="cuda")
+        return params, init_opt(params)
+
+    def train(mix, params, opt, count):
+        picks, tokens, losses = [], [], []
+        with DataLoader(mix, batch_size=TOKEN_BATCH, device="cuda") as loader:
+            it = iter(loader)
+            for _ in range(count):
+                batch = next(it)
+                picks += [names.get(fp, "?") for fp in fingerprints(batch["token"])]
+                tokens.append(batch["token"].clone())
+                _, opt, loss = step(params, opt, {"tokens": batch["token"]})
+                losses.append(loss.item())
+            state = loader.state_dict()
+            it.close()
+        return picks, tokens, losses, state
+
+    kernels.reset_launch_counts()
+    params, opt = fresh()
+    picks, tokens, losses, _ = train(_token_mixture(urls), params, opt, MIX_STEPS)
+    del params, opt
+    free_cuda()
+    params, opt = fresh()
+    cut_picks, cut_tokens, cut_losses, state = train(_token_mixture(urls), params, opt, MIX_CUT)
+    # The input pipeline is torn down and rebuilt from its JSON-safe cursor;
+    # the model goes on in memory.
+    state = json.loads(json.dumps(state))
+    rest_picks, rest_tokens, rest_losses, _ = train(
+        _token_mixture(urls, WeightedSamplingReader.resume_states(state), state["step"]),
+        params, opt, MIX_STEPS - MIX_CUT)
+    del params, opt
+    free_cuda()
+    mix_launches = dict(kernels.launch_counts)
+    want = {n: LLAMA.n_layers * 2 * MIX_STEPS for n in (
+        flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME)}
+    tokens_equal = all(torch.equal(a, b) for a, b in zip(cut_tokens + rest_tokens, tokens))
+    log(f"[epoch] (c) {card} LlamaConfig(n_layers={LLAMA.n_layers}) AdamW on a {MIX_PROBS} mixture "
+        f"of two token stores (seed {MIX_SEED}), {MIX_STEPS} steps of {TOKEN_BATCH} windows of "
+        f"{WINDOW}: picks {picks}; cut at step {MIX_CUT} (mixer step {state['step']}, member "
+        f"cursors {[(s['epoch'], s['offset']) for s in state['readers']]}) and resumed: picks "
+        f"{cut_picks + rest_picks} "
+        f"({'equal' if cut_picks + rest_picks == picks else 'DIFFERENT'}), "
+        f"tokens {'bit-equal' if tokens_equal else 'DIFFERENT'}; losses {losses}, cut and "
+        f"resumed {cut_losses + rest_losses}: "
+        f"{'bit-equal' if cut_losses + rest_losses == losses else 'NOT bit-equal'}; launches "
+        f"{mix_launches} (want {want}); {time.perf_counter() - t0:.1f} s")
+    if cut_picks + rest_picks != picks or not tokens_equal or "?" in picks:
+        failures.append("(c) the resumed mixture differs from the uninterrupted one")
+    if cut_losses + rest_losses != losses or not np.all(np.isfinite(losses)):
+        failures.append(f"(c) losses {losses} against {cut_losses + rest_losses}")
+    if mix_launches != want:
+        failures.append(f"(c) launches {mix_launches}, expected {want}")
+    launches.update(mix_launches)
+
+    # (d) The throughput CLI and the small benches on the card's host.
+    t0 = time.perf_counter()
+    hello = generate_hello_world_dataset(f"file://{tmp}/hello_world")
+    ref = _cli([hello])
+    log(f"[cli] {card} reference hello-world store (10 rows, 1 a group), thread x3, 200 warm-up "
+        f"and 1000 measured rows: {json.dumps(ref)}; BASELINE.md's 709.84 samples/s is the "
+        f"reference's on unspecified hardware (not a comparison)")
+    t1 = time.perf_counter()
+    generate_hello_world_dataset(f"file://{tmp}/hello_probe", rows_count=HELLO_PROBE_ROWS,
+                                 rows_per_row_group=HELLO_GROUP)
+    projected = (time.perf_counter() - t1) * HELLO_ROWS / HELLO_PROBE_ROWS
+    rows = HELLO_ROWS if projected <= HELLO_WRITE_BAR_S else HELLO_CUT_ROWS
+    t1 = time.perf_counter()
+    steady = generate_hello_world_dataset(f"file://{tmp}/hello_steady", rows_count=rows,
+                                          rows_per_row_group=HELLO_GROUP)
+    on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(f"{tmp}/hello_steady")
+                  for f in fs)
+    log(f"[cli] {card} steady-state store: {HELLO_ROWS} rows projected at {projected:.1f} s from a "
+        f"{HELLO_PROBE_ROWS}-row write (bar {HELLO_WRITE_BAR_S:g} s): wrote {rows} rows, "
+        f"{HELLO_GROUP} a group, {on_disk / 1e9:.3f} GB in {time.perf_counter() - t1:.1f} s")
+    cli_rates = {"reference": ref}
+    for label, args in (("python thread", ["-p", "thread"]), ("python process", ["-p", "process"]),
+                        (f"torch thread, {DEVICE_STEP_MS} ms step",
+                         ["-d", "torch", "--device-step-ms", str(DEVICE_STEP_MS)])):
+        got = _cli([steady, *args])
+        cli_rates[label] = got
+        log(f"[cli] {card} steady-state store, -d {label}: {json.dumps(got)}")
+    for label, got in cli_rates.items():
+        if not got["samples_per_second"] > 0:
+            failures.append(f"(d) cli {label}: {got}")
+    step_ms = cli_rates[f"torch thread, {DEVICE_STEP_MS} ms step"]["device_step_ms_actual"]
+    if step_ms is None or not 0.75 * DEVICE_STEP_MS <= step_ms <= 1.25 * DEVICE_STEP_MS:
+        failures.append(f"(d) the {DEVICE_STEP_MS} ms step measured {step_ms} ms")
+    sweep = loader_throughput_sweep(device="cuda")
+    log(f"[bench] {card} loader_throughput_sweep -> cuda (50,000 rows of 128 float32): "
+        f"{ {bs: round(r, 1) for bs, r in sweep.items()} } samples/s")
+    transport = run_sweep()
+    for row in transport:
+        log(f"[bench] {card} transport {json.dumps(row)}")
+    log("[bench] transport sweep\n" + to_markdown(transport))
+    log(f"[cli] (d) took {time.perf_counter() - t0:.1f} s")
+
+    log(f"[epoch] {card} phase took {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    if failures:
+        raise AssertionError("epoch plane phase: " + "; ".join(failures))
+    return {**launches, "cost": cost, "cli": cli_rates, "sweep": sweep, "transport": transport}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` seen as integers of its width, so that equality is bit equality."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2913,10 +3318,12 @@ def main() -> int:
     smi = phase_probe()
     phase_build()
     k1, k1_strided = phase_kernels()
-    # Phase 11 reads the stores of phases 4, 8 and 9 again, phase 13 phase 9's.
+    # Phase 11 reads the stores of phases 4, 8 and 9 again, phase 13 phase 9's,
+    # phase 15 those of phases 8, 9 and 12.
     with tempfile.TemporaryDirectory() as slice_tmp, \
             tempfile.TemporaryDirectory() as train_tmp, \
-            tempfile.TemporaryDirectory() as image_tmp:
+            tempfile.TemporaryDirectory() as image_tmp, \
+            tempfile.TemporaryDirectory() as columnar_tmp:
         launches = phase_slice(slice_tmp)
         k2_rows = phase_flash()
         with tempfile.TemporaryDirectory() as tmp:
@@ -2930,24 +3337,28 @@ def main() -> int:
         proc = phase_process(f"file://{slice_tmp}/imagenet_like", f"file://{train_tmp}/tokens",
                              f"file://{image_tmp}/imagenet", thread_bench)
         free_cuda()
-        with tempfile.TemporaryDirectory() as tmp:
-            phase_columnar(tmp)
+        columnar = phase_columnar(columnar_tmp)
         # Phase 13 reads phase 9's store again, phase 14 phase 9's and 8's.
         resume = phase_resume(f"file://{image_tmp}/imagenet", thread_bench)
         free_cuda()
         with tempfile.TemporaryDirectory() as tmp:
             select = phase_selection(f"file://{image_tmp}/imagenet", f"file://{train_tmp}/tokens",
                                      tmp)
+        free_cuda()
+        with tempfile.TemporaryDirectory() as tmp:
+            epoch = phase_epoch_plane(smi, f"file://{image_tmp}/imagenet",
+                                      f"file://{train_tmp}/tokens",
+                                      f"file://{columnar_tmp}/tensor", columnar, tmp)
     for name in (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
                  flash_attn.BWD_DKV_KERNEL_NAME):
-        counts[name] += proc[name]
+        counts[name] += proc[name] + epoch[name]
     source = "petastorm_tpu_torch/csrc/flash_attn_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/normalize.cu",
         "replaces": "petastorm_tpu/ops/image_ops.py:27",
         "launches": (launches + proc["normalize"] + resume.get(KERNEL_NAME, 0)
-                     + select[KERNEL_NAME]),
+                     + select[KERNEL_NAME] + epoch[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

@@ -4,8 +4,9 @@ Parquet stores written by either package, read with :func:`make_reader`
 (rows, or :class:`NGram` windows of a token store) on decode threads or
 spawned decode processes, their row groups chosen by partition filters,
 predicates, stored indexes, shards and subsets and their rows reshaped
-by a :class:`TransformSpec` in the workers, batched and staged onto an NVIDIA GPU by
-:class:`DataLoader`; any Parquet store read column by column with
+by a :class:`TransformSpec` in the workers, in a free or a deterministic
+order (``sample_order=``), mixed by :class:`WeightedSamplingReader`, batched
+and staged onto an NVIDIA GPU by :class:`DataLoader`; any Parquet store read column by column with
 :func:`make_batch_reader` and batched by :class:`BatchedDataLoader` or
 :class:`InMemBatchedDataLoader`, or held on the card by
 :class:`DeviceCachedDataset`; training checkpointed with its input position by
@@ -38,6 +39,7 @@ _EXPORTS = {
     "TransformSpec": "petastorm_tpu_torch.transform",
     "Unischema": "petastorm_tpu_torch.unischema",
     "UnischemaField": "petastorm_tpu_torch.unischema",
+    "WeightedSamplingReader": "petastorm_tpu_torch.weighted_sampling_reader",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -79,8 +79,10 @@ class CheckpointManager:
         """Save ``train_state`` (a dict of ``state_dict()``s, or anything
         ``torch.save`` takes) and the input cursor of ``step``.
 
-        ``reader`` is a reader (its ``state_dict()`` is taken) or a cursor
-        dict; when given it wins. For loader-fed training pass ``loader``:
+        ``reader`` is a reader (its ``state_dict()`` is taken: a free or a
+        deterministic cursor, or a ``WeightedSamplingReader``'s members'
+        cursors with its ``seed`` and ``step``) or a cursor dict; when given
+        it wins. For loader-fed training pass ``loader``:
         its ``state_dict()`` is the position of the last delivered batch,
         where the reader's own has run ahead by the prefetched batches.
         Returns True."""

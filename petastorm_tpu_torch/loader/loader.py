@@ -49,9 +49,12 @@ Checkpointing: :meth:`LoaderBase.state_dict` is the reader's cursor as of
 the last batch the consumer received, not the reader's own, which the
 staging thread drives ``prefetch`` batches ahead. The cursor is read on the
 staging thread between reader pulls, right after a batch is assembled, and
-travels with that batch through the queue. Loaders with a host-side
-shuffling buffer refuse: no reader cursor describes the rows such a buffer
-holds. ``loader.metrics`` (:class:`~petastorm_tpu_torch.metrics.PipelineMetrics`)
+travels with that batch through the queue. It is whatever the reader's
+``state_dict()`` gives: a deterministic reader's cursor (with its
+``shuffle_window``), or a ``WeightedSamplingReader``'s members' cursors with
+its ``seed`` and ``step``. Loaders with a host-side shuffling buffer
+refuse: no reader cursor describes the rows such a buffer holds (a
+deterministic reader's ``shuffle_window`` mixes with an exact resume). ``loader.metrics`` (:class:`~petastorm_tpu_torch.metrics.PipelineMetrics`)
 counts the staged batches, and the spans ``petastorm_tpu.host_batch`` and
 ``petastorm_tpu.stage`` name the two halves of staging in a profiler trace.
 """
@@ -78,7 +81,9 @@ from petastorm_tpu_torch.reader_impl.shuffling_buffer import RandomShufflingBuff
 _STAGE_POLL_S = 0.5
 
 _SHUFFLE_HAZARD = ("shuffling_queue_capacity buffers a random sample of rows host-side; "
-                   "checkpoint with the reader's seeded shuffling instead")
+                   "checkpoint with the reader's seeded shuffling instead "
+                   "(shuffle_row_groups + seed), or, for more mixing with an exact resume, "
+                   "the reader's sample_order='deterministic' + shuffle_window=")
 
 
 def resolve_device(device) -> torch.device:
@@ -494,7 +499,8 @@ class LoaderBase:
         reader). Pass it as the reader's ``resume_state=``: staged batches
         the consumer never received are read again, not skipped. Raises
         ``ValueError`` for a loader with a shuffling buffer: use the
-        reader's seeded shuffling to checkpoint."""
+        reader's seeded shuffling, or ``sample_order='deterministic'`` with
+        ``shuffle_window=``, to checkpoint."""
         if self._ckpt_hazard is not None:
             raise ValueError(f"state_dict() would lose data with this loader configuration: "
                              f"{self._ckpt_hazard}")

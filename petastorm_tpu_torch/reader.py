@@ -14,8 +14,11 @@ their ``predicate`` and ``transform_spec``. Given the same store, seed and
 settings, it yields the same rows as the JAX package's reader, in the same
 order on the thread and dummy pools (the process pool delivers in the
 order its workers finish; the JAX reader's statistics pruning, which the
-port leaves out, reorders a shuffled epoch under some predicates). With ``schema_fields=NGram(...)`` a row reader yields the
-NGram's windows instead of rows.
+port leaves out, reorders a shuffled epoch under some predicates). With
+``sample_order="deterministic"`` the order is the plan's on every pool
+(:mod:`.reader_impl.epoch_plan`), optionally shuffled inside windows of
+``shuffle_window`` row groups. With ``schema_fields=NGram(...)`` a row
+reader yields the NGram's windows instead of rows.
 
 :meth:`Reader.state_dict` is the read position (``epoch``, ``offset``,
 ``items``, ``seed``, the JAX package's free-mode cursor): passed back as
@@ -24,7 +27,9 @@ the stream with no row lost. A row group counts as read once its last row
 (or its batch) has been handed out; one read in part is read again whole.
 The JAX package's reader waits for the worker's confirmation, which it
 reads on the next pull, so where a pull ends exactly on a row group its
-cursor still points at that group and the port's is one past it.
+cursor still points at that group and the port's is one past it. In
+deterministic mode the cursor is the JAX package's deterministic one, the
+same in both packages, and cursors cross between them either way.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.reader_impl.arrow_table_serializer import ArrowTableSerializer
 from petastorm_tpu_torch.reader_impl.batch_reader_worker import (BatchReaderWorker,
                                                                  arrow_table_to_numpy_dict)
+from petastorm_tpu_torch.reader_impl.epoch_plan import EpochPlan, OrderedDeliveryGate, mint_seed
 from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
 from petastorm_tpu_torch.reader_impl.row_reader_worker import RowReaderWorker
 from petastorm_tpu_torch.transform import transform_schema
@@ -303,7 +309,9 @@ def make_reader(dataset_url: str,
                 filters=None,
                 shard_seed: Optional[int] = None,
                 transform_spec=None,
-                rowgroup_subset: Optional[Sequence[int]] = None) -> "Reader":
+                rowgroup_subset: Optional[Sequence[int]] = None,
+                sample_order: str = "free",
+                shuffle_window: int = 0) -> "Reader":
     """Reader over a store written by ``materialize_dataset_local`` (either
     package's).
 
@@ -351,11 +359,24 @@ def make_reader(dataset_url: str,
     :param rowgroup_subset: ordinals into the store's unfiltered row-group
         order; the reader plans those (that the other steps kept) in the
         subset's order. Not with ``cur_shard`` or ``shuffle_row_groups``
+    :param sample_order: ``'free'`` (the default: the order depends on the
+        pool and its timing) or ``'deterministic'``: the delivered stream is
+        a function of ``(seed, epoch, planned row groups)`` alone, the same
+        on the thread, process and dummy pools at any worker count and
+        across a cut and a resume. A reorder stage in the reader
+        (:class:`~petastorm_tpu_torch.reader_impl.epoch_plan.OrderedDeliveryGate`)
+        puts the workers' results back in plan order. With no ``seed`` one
+        is minted and recorded in :meth:`Reader.state_dict`
+    :param shuffle_window: with ``sample_order='deterministic'``, shuffle
+        the ordered stream inside consecutive windows of this many work
+        items by a seeded permutation indexed by plan position (not by
+        arrival), so it resumes exactly and a row group is delivered within
+        ``shuffle_window`` plan positions of its slot. ``0``: plan order
 
     On ``reader_pool_type="process"`` the predicate and the transform must
     pickle into a spawned worker: a ``ValueError`` says so at construction.
     """
-    seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows)
+    seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
                       PickleSerializer())
     return Reader(dataset_url, pool, schema_fields=schema_fields,
@@ -364,7 +385,8 @@ def make_reader(dataset_url: str,
                   shard_count=shard_count, resume_state=resume_state,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
                   rowgroup_selector=rowgroup_selector, filters=filters, shard_seed=shard_seed,
-                  transform_spec=transform_spec, rowgroup_subset=rowgroup_subset)
+                  transform_spec=transform_spec, rowgroup_subset=rowgroup_subset,
+                  sample_order=sample_order, shuffle_window=shuffle_window)
 
 
 def make_batch_reader(dataset_url: str,
@@ -386,7 +408,9 @@ def make_batch_reader(dataset_url: str,
                       filters=None,
                       shard_seed: Optional[int] = None,
                       transform_spec=None,
-                      rowgroup_subset: Optional[Sequence[int]] = None) -> "Reader":
+                      rowgroup_subset: Optional[Sequence[int]] = None,
+                      sample_order: str = "free",
+                      shuffle_window: int = 0) -> "Reader":
     """Columnar reader of any Parquet store (several files, with or without
     petastorm metadata; a store without it gets a schema inferred from its
     Arrow schema): one batch of ``{column: ndarray}`` per row group,
@@ -417,10 +441,14 @@ def make_batch_reader(dataset_url: str,
         transformed schema), or with ``batched`` its ``{column: ndarray}``.
         A transformed group is new Arrow memory; it crosses the process
         rings like any other
+    :param sample_order/shuffle_window: as :func:`make_reader`: with
+        ``'deterministic'`` the batch stream is a function of ``(seed,
+        epoch, planned row groups)``, and on processes the columns still
+        view the rings (the unit's ordinal rides as Arrow schema metadata)
 
     The other arguments are :func:`make_reader`'s.
     """
-    seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows)
+    seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
     serializer = PickleSerializer() if convert_early_to_numpy else ArrowTableSerializer()
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
                       serializer)
@@ -431,45 +459,70 @@ def make_batch_reader(dataset_url: str,
                   convert_early_to_numpy=convert_early_to_numpy, resume_state=resume_state,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
                   rowgroup_selector=rowgroup_selector, filters=filters, shard_seed=shard_seed,
-                  transform_spec=transform_spec, rowgroup_subset=rowgroup_subset)
+                  transform_spec=transform_spec, rowgroup_subset=rowgroup_subset,
+                  sample_order=sample_order, shuffle_window=shuffle_window)
 
 
-def mint_seed() -> int:
-    """A fresh 32-bit seed (the JAX package's ``epoch_plan.mint_seed``)."""
-    return int.from_bytes(os.urandom(4), "little")
+def _check_sample_order(sample_order: str, shuffle_window: int) -> None:
+    """The JAX package's plan-time checks of the two arguments."""
+    if sample_order not in ("free", "deterministic"):
+        raise ValueError(f"sample_order must be 'free' or 'deterministic', got {sample_order!r}")
+    if shuffle_window is not None and int(shuffle_window) < 0:
+        raise ValueError(f"shuffle_window must be >= 0, got {shuffle_window}")
+    if shuffle_window and sample_order != "deterministic":
+        raise ValueError("shuffle_window is the deterministic plane's window-shuffle mode; "
+                         "pass sample_order='deterministic' with it")
 
 
-def _resolve_seed(seed, resume_state, shuffle_row_groups: bool, shuffle_rows: bool):
+def _resolve_seed(seed, resume_state, shuffle_row_groups: bool, shuffle_rows: bool,
+                  sample_order: str = "free"):
     """The explicit seed; else a resume state's recorded one (its offsets
     index that seed's order; a state without one stays None, so the resume
-    check can refuse it); else, when anything is shuffled, a minted one, so
-    the reader's ``state_dict`` can be resumed."""
+    check can refuse it); else, when anything is shuffled or the order is
+    deterministic, a minted one, so the reader's ``state_dict`` can be
+    resumed."""
     if seed is not None:
         return seed
     if resume_state is not None:
         saved = resume_state.get("seed")
         return None if saved is None else int(saved)
-    if shuffle_row_groups or shuffle_rows:
+    if shuffle_row_groups or shuffle_rows or sample_order != "free":
         return mint_seed()
     return None
 
 
 def _resume_position(resume_state: dict, seed, shuffle_row_groups: bool, shuffle_rows: bool,
-                     num_items: int):
-    """``(start_epoch, start_offset)`` of a free-mode resume state, after
-    the JAX package's checks (``reader.py:1536-1591``)."""
-    if resume_state.get("sample_order", "free") != "free" or "manifest" in resume_state:
-        raise ValueError("resume_state is a deterministic-mode or live-data cursor; this "
-                         "package resumes free-mode cursors only")
+                     num_items: int, sample_order: str = "free", shuffle_window: int = 0):
+    """``(start_epoch, start_offset, window_delivered, skipped_ordinals)``
+    of a resume state, after the JAX package's checks
+    (``reader.py:1536-1604``). A live-data cursor is refused."""
+    plan = resume_state.get("plan") or {}
+    if "manifest" in resume_state or "growth" in plan:
+        raise ValueError("resume_state is a live-data cursor (it records a file manifest or a "
+                         "grown plan); this package does not read live data")
     if shuffle_row_groups and seed is None:
         raise ValueError("Exact resume requires a seed when shuffle_row_groups is on (the "
                          "epoch permutation must be reproducible); this resume_state records "
                          "none. States saved by state_dict() carry their minted seed.")
     saved_seed = resume_state.get("seed")
     if saved_seed is not None and seed is not None and int(saved_seed) != int(seed) \
-            and (shuffle_row_groups or shuffle_rows):
+            and (shuffle_row_groups or shuffle_rows or sample_order == "deterministic"):
         raise ValueError(f"resume_state was saved under seed {saved_seed} but this reader "
                          f"shuffles with seed {seed}: the offset would point into a different "
+                         f"permutation")
+    saved_order = resume_state.get("sample_order")
+    if saved_order is not None and saved_order != sample_order:
+        raise ValueError(f"resume_state was saved with sample_order={saved_order!r} but this "
+                         f"reader runs {sample_order!r}; the cursors do not transfer")
+    saved_window = resume_state.get("window")
+    if saved_window is not None and int(saved_window) != shuffle_window:
+        raise ValueError(f"resume_state was saved with shuffle_window={saved_window} but this "
+                         f"reader uses {shuffle_window}; the in-window position would index a "
+                         f"different block permutation")
+    if plan and bool(plan.get("shuffled")) != bool(shuffle_row_groups):
+        raise ValueError(f"resume_state was saved with shuffle_row_groups="
+                         f"{bool(plan.get('shuffled'))} but this reader uses "
+                         f"{bool(shuffle_row_groups)}: the offset would index a different "
                          f"permutation")
     saved_items = resume_state.get("items")
     if saved_items is not None and int(saved_items) != num_items:
@@ -482,7 +535,14 @@ def _resume_position(resume_state: dict, seed, shuffle_row_groups: bool, shuffle
     if not 0 <= offset < num_items:
         raise ValueError(f"resume offset {offset} >= {num_items} work items (did the dataset "
                          f"or its filtering change?)")
-    return epoch, offset
+    if shuffle_window > 1 and offset % shuffle_window:
+        # A windowed cursor records block starts; the gate would wait for
+        # plan positions before the ventilation restart, forever.
+        raise ValueError(f"resume offset {offset} is not aligned to shuffle_window="
+                         f"{shuffle_window}: windowed cursors record window-block starts; this "
+                         f"state was not saved by a shuffle_window={shuffle_window} reader")
+    return (epoch, offset, int(resume_state.get("window_delivered", 0)),
+            tuple(resume_state.get("skipped_ordinals", ())))
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
@@ -505,13 +565,18 @@ class Reader:
 
     Use as a context manager, or call ``stop()`` then ``join()``. After a
     pass is fully consumed, ``reset()`` starts another one.
+
+    ``sample_order`` is ``'free'`` or ``'deterministic'`` (the reader then
+    delivers through its :class:`OrderedDeliveryGate`, and its cursor is the
+    gate's).
     """
 
     def __init__(self, dataset_url, pool, schema_fields, shuffle_row_groups,
                  shuffle_rows, seed, num_epochs, cur_shard, shard_count,
                  is_batched_reader=False, convert_early_to_numpy=False, resume_state=None,
                  shuffle_row_drop_partitions=1, predicate=None, rowgroup_selector=None,
-                 filters=None, shard_seed=None, transform_spec=None, rowgroup_subset=None):
+                 filters=None, shard_seed=None, transform_spec=None, rowgroup_subset=None,
+                 sample_order="free", shuffle_window=0):
         if rowgroup_subset is not None and cur_shard is not None:
             raise ValueError("rowgroup_subset and cur_shard/shard_count are mutually exclusive: "
                              "an explicit ordinal subset is a shard assignment")
@@ -527,6 +592,11 @@ class Reader:
         if shuffle_row_drop_partitions < 1:
             raise ValueError(f"shuffle_row_drop_partitions must be >= 1, "
                              f"got {shuffle_row_drop_partitions}")
+        _check_sample_order(sample_order, shuffle_window)
+        shuffle_window = int(shuffle_window or 0)
+        #: ``'free'`` or ``'deterministic'``: the reader's order contract.
+        self.sample_order = sample_order
+        self._shuffle_window = shuffle_window
         ctx = DatasetContext(dataset_url)
         self._batched = is_batched_reader
         stored_schema = infer_or_load_unischema(ctx) if is_batched_reader else get_schema(ctx)
@@ -566,11 +636,23 @@ class Reader:
                   "shuffle_row_drop_partition": (part, shuffle_row_drop_partitions)}
                  for rg in row_groups for part in range(shuffle_row_drop_partitions)]
 
-        start_epoch, start_offset = (0, 0) if resume_state is None else _resume_position(
-            resume_state, seed, shuffle_row_groups, shuffle_rows, len(items))
+        start_epoch, start_offset, window_delivered, skipped = (
+            (0, 0, 0, ()) if resume_state is None else _resume_position(
+                resume_state, seed, shuffle_row_groups, shuffle_rows, len(items), sample_order,
+                shuffle_window))
         self._num_items = len(items)
         self._seed = seed
         self._pool = pool
+        #: The canonical plan and the reorder gate (deterministic mode only):
+        #: the gate sits between ``pool.get_results()`` and the consumer, and
+        #: its cursor, not the ventilator's watermark, is the checkpoint.
+        self._epoch_plan = self._gate = None
+        if sample_order == "deterministic":
+            self._epoch_plan = EpochPlan(seed=seed, num_items=len(items),
+                                         shuffled=shuffle_row_groups, window=shuffle_window)
+            self._gate = OrderedDeliveryGate(self._epoch_plan, start_epoch=start_epoch,
+                                             start_offset=start_offset,
+                                             window_delivered=window_delivered, skipped=skipped)
         self._ventilator = ConcurrentVentilator(
             pool.ventilate, items,
             iterations=num_epochs,
@@ -588,7 +670,7 @@ class Reader:
         worker_args = {"dataset_url": dataset_url, "view_schema": view_schema,
                        "output_schema": self.schema, "predicate": predicate,
                        "transform_spec": transform_spec, "shuffle_rows": shuffle_rows,
-                       "seed": seed}
+                       "seed": seed, "sample_order": sample_order}
         if is_batched_reader:
             if isinstance(pool, ProcessPool) and not convert_early_to_numpy:
                 # Columns as views over the Arrow buffers in the ring.
@@ -619,8 +701,13 @@ class Reader:
         the native batch call and by the codec one at a time, and on a
         batched process reader ``zero_copy_batches`` and
         ``zero_copy_bytes``, the batches whose columns view the ring and
-        those columns' bytes."""
-        return dict(self._pool.counters)
+        those columns' bytes; in deterministic mode also the gate's
+        ``units_reordered``, ``skips_recorded``, ``duplicates_dropped`` and
+        ``buffer_depth``."""
+        counters = dict(self._pool.counters)
+        if self._gate is not None:
+            counters.update(self._gate.counters())
+        return counters
 
     @property
     def batched_output(self) -> bool:
@@ -634,11 +721,12 @@ class Reader:
             raise TypeError("next_batch() needs a make_batch_reader reader; this reader's "
                             "workers publish rows")
         try:
-            result = self._pool.get_results()
+            result = self._get_results()
         except EmptyResultError:
             self.last_row_consumed = True
             raise StopIteration from None
-        self._mark_delivered(self._pool.result_context)
+        if self._gate is None:
+            self._mark_delivered(self._pool.result_context)
         if not isinstance(result, dict):
             # An Arrow table from a thread or dummy pool worker.
             result = arrow_table_to_numpy_dict(result, self.schema)
@@ -654,15 +742,23 @@ class Reader:
             self._mark_delivered(self._buffer_context)
             self._buffer_context = None
             try:
-                self._buffer.extend(self._pool.get_results())
+                self._buffer.extend(self._get_results())
             except EmptyResultError:
                 self.last_row_consumed = True
                 raise StopIteration from None
-            self._buffer_context = self._pool.result_context
+            if self._gate is None:
+                self._buffer_context = self._pool.result_context
         item = self._buffer.popleft()
         if self.ngram is not None:
             return item   # already a window
         return self.schema.make_namedtuple_from_dict(item)
+
+    def _get_results(self):
+        """The next work item's result: through the gate, in plan order, in
+        deterministic mode; else as the pool delivers."""
+        if self._gate is not None:
+            return self._gate.pull(self._pool.get_results)
+        return self._pool.get_results()
 
     def _mark_delivered(self, context):
         """Record that every row of the item at ``context`` was handed out."""
@@ -681,7 +777,19 @@ class Reader:
         order) are read again: bounded duplication, never loss. ``seed`` is
         the shuffle seed, minted when none was given. Call it from the
         thread that reads; under a loader, which reads ahead, use the
-        loader's ``state_dict()``."""
+        loader's ``state_dict()``.
+
+        Deterministic mode: the JAX package's cursor, the delivery position
+        ``{"epoch", "offset", "window_delivered", "skipped_ordinals",
+        "items", "seed", "sample_order", "window", "plan"}``; the resumed
+        stream is the rest of the uninterrupted one. A row group handed out
+        in part backs the cursor up one unit: it is read again whole."""
+        if self._gate is not None:
+            cur = self._gate.cursor(back_up=bool(self._buffer))
+            cur.update({"items": self._num_items, "seed": self._seed,
+                        "sample_order": "deterministic", "window": self._shuffle_window,
+                        "plan": self._epoch_plan.describe()})
+            return cur
         delivered = set(self._delivered)
         if not self._buffer and self._buffer_context is not None:
             delivered.add(self._buffer_context)
@@ -694,6 +802,8 @@ class Reader:
             raise RuntimeError(
                 "reset() is only supported after the previous pass was fully consumed")
         self._ventilator.reset()
+        if self._gate is not None:
+            self._gate.reset()   # another pass replays the same order
         self._buffer_context = None
         self._delivered = set()
         self.last_row_consumed = False

@@ -27,6 +27,7 @@ from petastorm_tpu_torch.reader_impl.row_reader_worker import (_ParquetFileLRU,
                                                                apply_batched_transform,
                                                                item_shuffle_rng,
                                                                select_drop_partition)
+from petastorm_tpu_torch.reader_impl.epoch_plan import OrderedUnit
 from petastorm_tpu_torch.workers_pool.worker_base import WorkerBase
 
 
@@ -34,17 +35,24 @@ class BatchReaderWorker(WorkerBase):
     """``args`` dict keys: ``dataset_url``, ``view_schema`` (the columns
     to read, as a Unischema), ``output_schema`` (after the transform),
     ``predicate`` and ``transform_spec`` (or None), ``shuffle_rows``,
-    ``seed`` and ``convert_early_to_numpy``."""
+    ``seed``, ``convert_early_to_numpy`` and ``sample_order`` (one
+    :class:`~petastorm_tpu_torch.reader_impl.epoch_plan.OrderedUnit` an item
+    with ``"deterministic"``, as the row worker publishes)."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
         self._files = None
         self._rng = np.random.default_rng(
             None if args["seed"] is None else args["seed"] + worker_id)
+        self._ordered = args.get("sample_order", "free") == "deterministic"
 
     def process(self, rowgroup, shuffle_row_drop_partition=(0, 1), shuffle_context=None):
         result = self._build_result(rowgroup, shuffle_row_drop_partition, shuffle_context)
-        if result is not None:
+        if self._ordered and shuffle_context is not None:
+            self.publish_func(OrderedUnit(shuffle_context,
+                                          kind="data" if result is not None else "empty",
+                                          payload=result))
+        elif result is not None:
             self.publish_func(result)
 
     def _build_result(self, rowgroup, drop_part, shuffle_context):

@@ -28,6 +28,7 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec, pin_decode_verdict
+from petastorm_tpu_torch.reader_impl.epoch_plan import OrderedUnit
 from petastorm_tpu_torch.workers_pool.worker_base import WorkerBase
 
 
@@ -164,9 +165,12 @@ class RowReaderWorker(WorkerBase):
     (the stored Unischema), ``view_schema`` (the narrowed output),
     ``ngram`` (an NGram or None), ``predicate`` and ``transform_spec``
     (or None), ``shuffle_rows``, ``seed`` and
-    ``decode_threads`` (threads of each native image decode call) and
+    ``decode_threads`` (threads of each native image decode call),
     ``decode_verdict`` (the reader's :func:`~petastorm_tpu_torch.codecs.decode_verdict`,
-    or None for a store without images).
+    or None for a store without images) and ``sample_order``: with
+    ``"deterministic"`` every item publishes one
+    :class:`~petastorm_tpu_torch.reader_impl.epoch_plan.OrderedUnit`,
+    ``empty`` when no row was kept.
 
     Its counters (:meth:`take_counters`): ``images_native``, the image
     cells the native batch call decoded, and ``images_codec``, those that
@@ -180,6 +184,7 @@ class RowReaderWorker(WorkerBase):
         self._counters = {}
         self._rng = np.random.default_rng(
             None if args["seed"] is None else args["seed"] + worker_id)
+        self._ordered = args.get("sample_order", "free") == "deterministic"
         schema = args["schema"]
         ngram = args.get("ngram")
         # An NGram needs every timestep's fields and the timestamp.
@@ -202,7 +207,10 @@ class RowReaderWorker(WorkerBase):
 
     def process(self, rowgroup, shuffle_row_drop_partition=(0, 1), shuffle_context=None):
         result = self._build_result(rowgroup, shuffle_row_drop_partition, shuffle_context)
-        if result:
+        if self._ordered and shuffle_context is not None:
+            self.publish_func(OrderedUnit(shuffle_context, kind="data" if result else "empty",
+                                          payload=result if result else None))
+        elif result:
             self.publish_func(result)
 
     def _build_result(self, rowgroup, drop_part, shuffle_context):

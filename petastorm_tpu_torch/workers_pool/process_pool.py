@@ -58,6 +58,7 @@ from collections import deque
 from multiprocessing.connection import Connection, Pipe
 from traceback import format_exc
 
+from petastorm_tpu_torch.reader_impl.epoch_plan import OrderedUnit
 from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
 from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
                                               VentilatedItemProcessedMessage,
@@ -378,8 +379,17 @@ class ProcessPool:
                 time.sleep(0.0001)
 
     def _deserialize(self, buf):
+        """Deserialize ``buf`` and apply ``result_transform``, inside an
+        ``OrderedUnit`` envelope to its payload, so the envelope reaches the
+        reader's gate whole."""
         result = self._serializer.deserialize(buf)
-        return result if self.result_transform is None else self.result_transform(result)
+        if self.result_transform is None:
+            return result
+        if isinstance(result, OrderedUnit):
+            if result.payload is not None:
+                result.payload = self.result_transform(result.payload)
+            return result
+        return self.result_transform(result)
 
     def _deserialize_claimed(self, reader, idx: int, view):
         """Deserialize a ``D`` record in place and pin it until ``view`` is
@@ -397,13 +407,15 @@ class ProcessPool:
             result = self._deserialize(view)
         finally:
             del view   # only the result's buffers may keep the record pinned
-        if isinstance(result, dict):
+        # In deterministic mode the arrays viewing the ring are the payload's.
+        payload = result.payload if isinstance(result, OrderedUnit) else result
+        if isinstance(payload, dict):
             import numpy as np
             mem = self._ring_mem.get(idx)
             if mem is None:
                 mem = self._ring_mem[idx] = np.frombuffer(self._rings[idx].data_view(),
                                                           dtype=np.uint8)
-            viewing = [v for v in result.values() if isinstance(v, np.ndarray) and v.size
+            viewing = [v for v in payload.values() if isinstance(v, np.ndarray) and v.size
                        and np.may_share_memory(v, mem)]
             if viewing:
                 add_counters(self.counters, {"zero_copy_batches": 1,

@@ -938,3 +938,42 @@ def test_filtered_predicated_transformed_columns_on_card_give_the_cpu_bytes(
     assert np.array_equal(ids, cols["id"][keep])
     total = np.concatenate([b["total"] for b in got])
     assert total.dtype == np.float64 and len(total) == keep.sum()
+
+
+@pytest.mark.parametrize("pool_type", ["thread", "process"])
+def test_deterministic_stream_on_card_gives_the_cpu_bytes(cuda_device, tmp_path, pool_type):
+    """A ``sample_order="deterministic"`` reader with a window, batched by
+    ``DataLoader(device="cuda")``, stages batch for batch the bytes of the
+    same reader batched onto the CPU, in the same order on both pools."""
+    url = _image_store(tmp_path)
+    kwargs = dict(reader_pool_type=pool_type, workers_count=3, seed=4, shuffle_row_groups=True,
+                  shuffle_rows=True, sample_order="deterministic", shuffle_window=3)
+
+    def staged(device):
+        with make_reader(url, **kwargs) as reader:
+            return [{k: v.cpu() for k, v in b.items()}
+                    for b in DataLoader(reader, batch_size=24, device=device)]
+    got, want = staged(cuda_device), staged("cpu")
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+
+
+def test_synthetic_device_step_measures_its_length_on_card(cuda_device):
+    """``make_synthetic_device_step(20)`` on the card: the mean of 10 steps,
+    each waited for, within 25 % of 20 ms."""
+    import time
+
+    from petastorm_tpu_torch.benchmark.throughput import make_synthetic_device_step
+    step = make_synthetic_device_step(20, device=cuda_device)
+    out = step()
+    torch.cuda.synchronize()
+    assert out.is_cuda
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 100
+    assert 15 <= ms <= 25, ms

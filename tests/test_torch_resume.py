@@ -231,7 +231,7 @@ def test_minted_seed_is_recorded_and_resumes(synthetic_dataset):
                                                   shard_count=2), "work items"),
     ({"epoch": 0, "offset": 999}, dict(shuffle_row_groups=False), "offset"),
     ({"epoch": 0, "offset": 1, "sample_order": "deterministic"},
-     dict(shuffle_row_groups=False), "free-mode"),
+     dict(shuffle_row_groups=False), "sample_order"),
 ], ids=["no seed", "other seed", "changed item count", "offset out of range",
         "deterministic cursor"])
 def test_resume_checks_refuse_like_the_jax_reader(synthetic_dataset, resume_state, kwargs,
@@ -239,10 +239,9 @@ def test_resume_checks_refuse_like_the_jax_reader(synthetic_dataset, resume_stat
     with pytest.raises(ValueError, match=match):
         make_reader(synthetic_dataset.url, reader_pool_type="dummy", resume_state=resume_state,
                     **kwargs)
-    if "sample_order" not in resume_state:
-        with pytest.raises(ValueError, match=match):
-            jax_make_reader(synthetic_dataset.url, reader_pool_type="dummy",
-                            resume_state=resume_state, **kwargs)
+    with pytest.raises(ValueError, match=match):
+        jax_make_reader(synthetic_dataset.url, reader_pool_type="dummy",
+                        resume_state=resume_state, **kwargs)
 
 
 # -------------------------------------------------------------------- loaders
