@@ -226,16 +226,42 @@ result line):
    (d) ``python -m petastorm_tpu_torch.benchmark.cli --json`` on the
    reference's 10-row hello-world store at the reference's defaults (printed
    beside BASELINE.md's 709.84 samples/s, unspecified hardware), then on a
-   steady-state store of 10,000 rows at 100 a group (2,000 where a 200-row
+   steady-state store of 4,000 rows at 100 a group (2,000 where a 200-row
    probe projects the write past 60 s) with ``-d python`` on threads and on
    processes and with ``-d torch --device-step-ms 50``;
    ``loader_throughput_sweep`` onto the card; the transport sweep from 1 KB
    to 1 MB. Every number is printed beside the card's name and power limit.
+16. data-parallel ingestion. (a) ``run_llm_bench(mesh_ingest=True,
+   mesh_hosts=4, flash=True)`` on phase 8's token store with phase 8's
+   model, batch and steps: every step takes its windows from 4 simulated
+   hosts (``MeshDataLoader``), K2, K3 and K4 launched once a layer a step,
+   the tokens/s and input stall printed beside phase 8's single reader.
+   (b) Phase 12's scalar store through ``MeshDataLoader(batch_size=1000,
+   num_hosts=8, pad_last)`` onto the card, host 5 killed after the first
+   batch: every row once (rows named by their f0 and f1 bits), each batch
+   bit-equal to pyarrow's read, one reshard; again, cut at the first cursor
+   that carries ``recovered``, and resumed: no row lost. Phase 8's token
+   store through 4 hosts into phase 8's training loop (1 epoch) with host 2
+   killed after the first step (its reader waits after its first window
+   until then, so the kill lands mid-plan): every window, any read twice in
+   host 2's plan, finite losses, K2-K4 once a layer a step. (c) 2 ranks on
+   ``cuda:0`` (gloo), each ``run_llm_bench(mesh_ingest=True)`` at phase
+   10's width (2 layers), one window of 8192 a rank, 3 steps (launches
+   counted); then a data-parallel loop of 3 steps: each rank's windows its
+   plan's groups in order, the ranks' losses and parameters bit-equal, the
+   first step held against one process on both windows (loss within
+   ``DP_LOSS_REL_BAR``, each parameter's update within
+   ``DP_UPDATE_REL_BAR``), and a control that leaves out the gradient sum,
+   which the update bar must reject; the gloo gradient sum's calls, bytes,
+   seconds and share of each step. (d) Phase 4's image store through
+   ``MeshDataLoader(batch_size=256, num_hosts=4)`` and K1: 2048 distinct
+   rows, 8 launches, bit-equal to ``normalize_images_plain``.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import collections
 import dataclasses
 import functools
 import gc
@@ -247,10 +273,12 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from petastorm_tpu_torch import kernels
@@ -282,7 +310,10 @@ from petastorm_tpu_torch.benchmark.dummy_reader import loader_throughput_sweep
 from petastorm_tpu_torch.benchmark.hello_world import generate_hello_world_dataset
 from petastorm_tpu_torch.benchmark.transport_bench import run_sweep, to_markdown
 from petastorm_tpu_torch.loader import (BatchedDataLoader, CheckpointManager, DeviceCachedDataset,
-                                        InMemBatchedDataLoader)
+                                        InMemBatchedDataLoader, MeshDataLoader, MeshReaderFactory)
+from petastorm_tpu_torch.parallel import comm
+from petastorm_tpu_torch.parallel.launch import run_ranks
+from petastorm_tpu_torch.parallel.mesh import make_mesh
 from petastorm_tpu_torch.ops import augment
 from petastorm_tpu_torch.predicates import in_pseudorandom_split, in_range
 from petastorm_tpu_torch.reader import make_batch_reader, make_reader, shm_free_bytes
@@ -476,11 +507,12 @@ SELECT_SCALAR_ROWS = 100_000
 # 9's store and ResNet-50 read in plan order with a window of 4 groups;
 # phase 12's tensor store; phase 8's token store and a second one mixed 70/30
 # under Llama training at the token path's width; the reference's
-# hello-world store at the CLI's defaults and at the JAX docstring's
-# steady-state size.
+# hello-world store at the CLI's defaults and at a steady-state size (the
+# JAX docstring's 10,000 rows cut to 4,000 to keep the whole run inside its
+# time: the CLI measures 1,000 rows after 200 of warm-up either way).
 DET_SEED, DET_WINDOW, DET_STEPS, DET_CUT = 5, 4, 6, 3
 MIX_PROBS, MIX_SEED, MIX_STEPS, MIX_CUT = (0.7, 0.3), 21, 4, 2
-HELLO_ROWS, HELLO_GROUP, HELLO_CUT_ROWS, HELLO_PROBE_ROWS = 10_000, 100, 2_000, 200
+HELLO_ROWS, HELLO_GROUP, HELLO_CUT_ROWS, HELLO_PROBE_ROWS = 4_000, 100, 2_000, 200
 #: Seconds the steady-state hello-world store may take to write, estimated
 #: from a 200-row probe; past it the store is cut to 2,000 rows.
 HELLO_WRITE_BAR_S = 60.0
@@ -488,6 +520,30 @@ HELLO_WRITE_BAR_S = 60.0
 #: printed beside the port's and not compared with it.
 BASELINE_HELLO_RATE = 709.84
 DEVICE_STEP_MS = 50
+
+# Data-parallel ingestion (phase 16): phase 8's token store, model and steps
+# through 4 simulated hosts; phase 12's scalar store through 8 hosts; 2
+# data-parallel ranks on cuda:0 at phase 10's width; phase 4's image store.
+MESH_HOSTS, MESH_TOKEN_KILL = 4, 2
+MESH_SCALAR_BATCH, MESH_SCALAR_HOSTS, MESH_SCALAR_KILL = 1000, 8, 5
+DP_RANKS, DP_STEPS, DP_BENCH_STEPS = 2, 3, 2
+DP_LLAMA = llama.LlamaConfig(n_layers=2)
+#: The data-parallel step (each rank its own window, gradients summed over
+#: gloo) against one process stepping on both windows, bf16 compute: the loss
+#: within DP_LOSS_REL_BAR relative (SEQ_LOSS_REL_BAR's bar), and every
+#: parameter leaf's update within DP_UPDATE_REL_BAR, |p_dp - p_one| /
+#: |p_one - p_0|. AdamW's first update is about lr * sign(g), so the second
+#: reads 2 sqrt(f) for a share f of elements whose gradient changes sign:
+#: the ranks' bf16 gradients summed in float32 against one bf16 gradient
+#: flip those whose two halves cancel; a step on one rank's window alone
+#: (the control: no gradient sum) flips about a quarter, near 1.
+DP_LOSS_REL_BAR, DP_UPDATE_REL_BAR = 2e-3, 0.3
+#: The bench's result keys without a resident phase or a device peak, and
+#: the mesh keys it adds.
+LLM_KEYS = {"tokens_per_sec", "input_stall_pct", "step_time_ms", "tokens_per_step", "echo",
+            "dense", "flash", "xent_chunk", "remat_layers", "window", "devices", "loss_first",
+            "loss_last", "device_kind"}
+MESH_KEYS = {"mesh_ingest", "mesh_hosts", "mesh_report"}
 
 
 def log(msg):
@@ -1365,10 +1421,21 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
-def phase_train(tmp: str) -> dict:
+def _llama_kwargs(cfg) -> dict:
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def _flash_counts() -> dict:
+    """K2, K3, K4 and their FMA routes' launch counts since the last reset."""
+    names = (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME,
+             flash_attn.FMA_KERNEL_NAME) + BWD_ROUTES[flash_attn.FMA]
+    return {n: kernels.launch_counts.get(n, 0) for n in names}
+
+
+def phase_train(tmp: str) -> tuple:
     url = f"file://{tmp}/tokens"
     write_token_store(url, windows=TOKEN_WINDOWS, window=WINDOW, vocab=LLAMA.vocab, seed=0)
-    model_kwargs = {f.name: getattr(LLAMA, f.name) for f in dataclasses.fields(LLAMA)}
+    model_kwargs = _llama_kwargs(LLAMA)
     names = (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME)
     fma_names = (flash_attn.FMA_KERNEL_NAME,) + BWD_ROUTES[flash_attn.FMA]   # never launched here
     failures = []
@@ -1381,7 +1448,7 @@ def phase_train(tmp: str) -> dict:
         result = run_llm_bench(url, steps=TRAIN_STEPS, batch_size=TOKEN_BATCH, window=WINDOW,
                                workers_count=TOKEN_WORKERS, resident_steps=TRAIN_RESIDENT,
                                flash=True, model_kwargs=model_kwargs, device="cuda")
-    launches = {n: kernels.launch_counts.get(n, 0) for n in names + fma_names}
+    launches = _flash_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for key, value in result.items():
         log(f"[train] {key}: {value}")
@@ -1425,7 +1492,7 @@ def phase_train(tmp: str) -> dict:
         _, opt, loss = step(params, opt, batch)
         losses[label] = loss.item()
         peak = torch.cuda.max_memory_allocated() / 1e9
-        counts = {n: kernels.launch_counts.get(n, 0) for n in names + fma_names}
+        counts = _flash_counts()
         moved = {n: not torch.equal(before[n], t.detach()) for n, t in watched().items()}
         log(f"[train] {label}: loss {losses[label]:.6f}, launches {counts}, peak memory "
             f"{peak:.2f} GB, parameters moved {moved}")
@@ -1495,7 +1562,7 @@ def phase_train(tmp: str) -> dict:
     free_cuda()
     if failures:
         raise AssertionError("training path: " + "; ".join(failures))
-    return launches
+    return launches, result
 
 
 #: Kernel groups of a profiled ResNet-50 step, matched in this order. The
@@ -1774,7 +1841,7 @@ def phase_seq_parallel(tmp: str) -> dict:
                                                                   token_windows)
     url = f"file://{tmp}/seq_tokens"
     write_token_store(url, windows=4, window=WINDOW, vocab=SEQ_LLAMA.vocab, seed=0)
-    model_kwargs = {f.name: getattr(SEQ_LLAMA, f.name) for f in dataclasses.fields(SEQ_LLAMA)}
+    model_kwargs = _llama_kwargs(SEQ_LLAMA)
     failures = []
 
     # One process on the whole window: the first step's loss and gradients.
@@ -2039,8 +2106,7 @@ def phase_process(slice_url: str, token_url: str, imagenet_url: str, thread_benc
     # 6. The token training path on processes, counted.
     free_cuda()
     names = (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME)
-    model_kwargs = {f.name: getattr(PROCESS_LLAMA, f.name)
-                    for f in dataclasses.fields(PROCESS_LLAMA)}
+    model_kwargs = _llama_kwargs(PROCESS_LLAMA)
     kernels.reset_launch_counts()
     with CountingPlainVersions() as plain:
         tokens = run_llm_bench(token_url, steps=PROCESS_TRAIN_STEPS, batch_size=TOKEN_BATCH,
@@ -3306,59 +3372,479 @@ def phase_epoch_plane(smi: str, image_url: str, token_url: str, tensor_url: str,
     return {**launches, "cost": cost, "cli": cli_rates, "sweep": sweep, "transport": transport}
 
 
+def _flash_exact(counts: dict, per_kernel: int) -> bool:
+    """K2 "lse", K3 and K4 launched ``per_kernel`` times each, no FMA route."""
+    return all(counts[n] == per_kernel for n in (flash_attn.KERNEL_NAME,
+                                                 flash_attn.BWD_DQ_KERNEL_NAME,
+                                                 flash_attn.BWD_DKV_KERNEL_NAME)) \
+        and not any(v for n, v in counts.items() if n.endswith("_fma"))
+
+
+def _row_keys(f0: np.ndarray, f1: np.ndarray) -> np.ndarray:
+    """A scalar-store row's name: the bits of its f0 and f1 (the store has no
+    id column; the pair is unique in the 100,000 rows, checked)."""
+    return (f0.view(np.uint32).astype(np.uint64) << np.uint64(32)) | f1.view(np.uint32)
+
+
+def _valid_rows(batch) -> torch.Tensor:
+    n = next(iter(batch.values())).shape[0]
+    return batch["__valid__"].cpu() if "__valid__" in batch else torch.ones(n, dtype=torch.bool)
+
+
+def _scalar_rows(loader, ref: dict, index, kill_after=None, stop_on_recovered=False):
+    """The store rows a scalar-store mesh loader delivers, in order, each
+    batch's every column held bit for bit against ``ref`` (pyarrow's read)
+    at those rows. Kills host ``MESH_SCALAR_KILL`` after ``kill_after``
+    batches; with
+    ``stop_on_recovered`` stops at the first cursor that carries
+    ``recovered`` and returns it."""
+    rows, state = [], None
+    with loader:
+        it = iter(loader)
+        for b, batch in enumerate(it):
+            valid = _valid_rows(batch)
+            host = {k: v.cpu()[valid].numpy() for k, v in batch.items() if k != "__valid__"}
+            at = index(_row_keys(host["f0"], host["f1"]))
+            for name, col in host.items():
+                if not np.array_equal(col.view(np.uint8), ref[name][at].view(np.uint8)):
+                    raise AssertionError(f"mesh batch {b}: column {name!r} differs from the store")
+            rows.extend(at.tolist())
+            if kill_after is not None and b + 1 == kill_after:
+                loader.kill_host(MESH_SCALAR_KILL)
+            if stop_on_recovered:
+                state = loader.state_dict()
+                if "recovered" in state:
+                    it.close()
+                    break
+        report = loader.mesh_report()
+    return rows, state, report
+
+
+class _GatedReader:
+    """A host's reader that hands out its first window, then waits for
+    ``gate`` before the next: the host is certain to be mid-plan when it is
+    killed, however fast the others read ahead."""
+
+    def __init__(self, reader, gate):
+        self._reader, self._gate = reader, gate
+        self.batched_output = reader.batched_output
+
+    def __iter__(self):
+        for i, item in enumerate(self._reader):
+            if i == 1 and not self._gate.wait(60.0):
+                raise RuntimeError("the gated host was never released")
+            yield item
+
+    def state_dict(self):
+        return self._reader.state_dict()
+
+    def stop(self):
+        self._gate.set()
+        self._reader.stop()
+
+    def join(self):
+        self._reader.join()
+
+
+class _GatedFactory(MeshReaderFactory):
+    """Gates the reader of one host's primary plan (:class:`_GatedReader`)."""
+
+    def __init__(self, url, ordinals, gate, **kwargs):
+        super().__init__(url, **kwargs)
+        self._ordinals, self._gate = list(ordinals), gate
+
+    def __call__(self, rowgroup_subset):
+        reader = super().__call__(rowgroup_subset)
+        return (_GatedReader(reader, self._gate) if list(rowgroup_subset) == self._ordinals
+                else reader)
+
+
+def _train_windows(loader, cfg, kill_after=None, gate=None):
+    """Train AdamW steps of ``cfg`` (flash attention) on every batch of
+    ``loader`` (its valid windows), killing host ``MESH_TOKEN_KILL`` after
+    ``kill_after`` steps and then opening ``gate`` -> (each window's first
+    ts, the losses, the loader's ``mesh_report``)."""
+    params = llama.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    init_opt, step = llama.make_train_step(cfg, shift="roll",
+                                           attn_fn=make_flash_attention(causal=True))
+    opt = init_opt(params)
+    starts, losses = [], []
+    with loader:
+        for b, batch in enumerate(loader):
+            valid = _valid_rows(batch).cuda()
+            tokens = batch["token"][valid]
+            starts.extend(batch["ts"][valid][:, 0].tolist())
+            _, opt, loss = step(params, opt, {"tokens": tokens})
+            losses.append(loss.item())
+            if kill_after is not None and b + 1 == kill_after:
+                loader.kill_host(MESH_TOKEN_KILL)
+                gate.set()
+        report = loader.mesh_report()
+    del params, opt
+    return starts, losses, report
+
+
+def _digest(leaves) -> list:
+    """sha1 of each tensor's bytes: equal digests are equal bits."""
+    return [hashlib.sha1(t.detach().cpu().contiguous().view(torch.uint8).numpy()).hexdigest()
+            for t in leaves]
+
+
+def _rank_data_parallel(rank: int, world: int, url: str, model_kwargs: dict) -> dict:
+    """Phase 16 (c) on one of ``world`` ranks sharing ``cuda:0``: the bench
+    with ``mesh_ingest`` (launches and transfers counted), then a
+    data-parallel loop of ``DP_STEPS`` steps whose rows, losses and final
+    parameters are returned, and on rank 0 the first step held against one
+    process on the ranks' first windows together and against the control."""
+    out = {}
+    cfg = llama.LlamaConfig(**model_kwargs)
+    kernels.reset_launch_counts()
+    comm.reset_transfer_stats()
+    out["bench"] = run_llm_bench(url, steps=DP_BENCH_STEPS, batch_size=world, window=WINDOW,
+                                 flash=True, model_kwargs=model_kwargs, mesh_ingest=True,
+                                 device="cuda")
+    out["bench_launches"] = _flash_counts()
+    out["bench_transfers"] = {op: dict(v) for op, v in comm.transfer_stats.items()}
+    free_cuda()
+
+    group = make_mesh([-1], ["data"]).group("data")
+    ngram = NGram({o: ["ts", "token"] for o in range(WINDOW)}, delta_threshold=1,
+                  timestamp_field="ts", timestamp_overlap=False, dense=True)
+    loader = MeshDataLoader(MeshReaderFactory(url, schema_fields=ngram), batch_size=world, seed=0,
+                            num_epochs=1, device="cuda")
+    out["plan"] = loader.epoch_plan(0)[rank]
+    p0 = llama.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    params = _tree_map(torch.Tensor.clone, p0)
+    attn = make_flash_attention(causal=True)
+    init_opt, step = llama.make_train_step(cfg, shift="roll", attn_fn=attn, data_group=group)
+    opt = init_opt(params)
+    starts, losses, step_ms, sums = [], [], [], []
+    with loader:
+        it = iter(loader)
+        for i in range(DP_STEPS):
+            batch = next(it)
+            tokens = batch["token"]
+            starts.append(int(batch["ts"][0, 0]))
+            comm.reset_transfer_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, opt, loss = step(params, opt, {"tokens": tokens})
+            losses.append(loss.item())   # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            sums.append(dict(comm.transfer_stats["all_reduce"]))
+            if i == 0:
+                first_tokens = tokens.cpu()
+                after1 = [t.detach().clone() for t in llama.param_leaves(params)]
+        it.close()
+    out.update(starts=starts, losses=losses, step_ms=step_ms, sums=sums,
+               digest=_digest(llama.param_leaves(params)))
+    gathered = [torch.empty_like(first_tokens) for _ in range(world)]
+    dist.all_gather(gathered, first_tokens)
+    out["first_tokens"] = gathered
+    del params, opt, init_opt, step
+    free_cuda()
+    if rank == 0:
+        p0_leaves = llama.param_leaves(p0)
+        for label, tokens in (("one process on both windows", torch.cat(gathered)),
+                              ("control: rank 0's window, no gradient sum", gathered[0])):
+            params = _tree_map(torch.Tensor.clone, p0)
+            init_opt, step = llama.make_train_step(cfg, shift="roll", attn_fn=attn)
+            opt = init_opt(params)
+            _, opt, loss = step(params, opt, {"tokens": tokens.cuda()})
+            rel = [((a - r).norm() / (r - p).norm()).item()
+                   for a, r, p in zip(after1, llama.param_leaves(params), p0_leaves)]
+            out[label] = {"loss": loss.item(), "update_rel": rel}
+            del params, opt, init_opt, step
+            free_cuda()
+    del p0, after1
+    free_cuda()
+    return out
+
+
+def phase_mesh(smi: str, token_url: str, scalar_url: str, image_url: str,
+               single_reader: dict) -> dict:
+    """Data-parallel ingestion (see the module docstring, phase 16), beside
+    phase 8's ``single_reader`` bench result. Returns the launches by kernel
+    name."""
+    import pyarrow.parquet as pq
+    t_phase = time.perf_counter()
+    card = f"({smi})"
+    failures = []
+    launches = {n: 0 for n in (KERNEL_NAME, flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
+                               flash_attn.BWD_DKV_KERNEL_NAME)}
+
+    def add(counts):
+        for n in launches:
+            launches[n] += counts.get(n, 0)
+
+    # (a) Single-process mesh ingestion into the training path.
+    t0 = time.perf_counter()
+    free_cuda()
+    kernels.reset_launch_counts()
+    with CountingPlainVersions() as plain:
+        result = run_llm_bench(token_url, steps=TRAIN_STEPS, batch_size=TOKEN_BATCH, window=WINDOW,
+                               resident_steps=TRAIN_RESIDENT, flash=True,
+                               model_kwargs=_llama_kwargs(LLAMA), mesh_ingest=True,
+                               mesh_hosts=MESH_HOSTS, device="cuda")
+    counts = _flash_counts()
+    add(counts)
+    steps = 1 + TRAIN_STEPS + TRAIN_RESIDENT
+    report = result["mesh_report"]
+    for key, value in result.items():
+        log(f"[mesh] (a) {key}: {value}")
+    log(f"[mesh] (a) {card} {MESH_HOSTS} hosts: {result['tokens_per_sec']} tokens/s, input stall "
+        f"{result['input_stall_pct']} %, step {result['step_time_ms']} ms; phase 8's single "
+        f"reader in this run: {single_reader.get('tokens_per_sec')} tokens/s, stall "
+        f"{single_reader.get('input_stall_pct')} %, step {single_reader.get('step_time_ms')} ms; "
+        f"launches "
+        f"{counts} for {steps} steps of {LLAMA.n_layers} layers; plain calls {plain.calls}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not LLM_KEYS | MESH_KEYS <= set(result):
+        failures.append(f"(a) result keys lack {sorted(LLM_KEYS | MESH_KEYS - set(result))}")
+    if not _flash_exact(counts, LLAMA.n_layers * steps) or any(plain.calls.values()):
+        failures.append(f"(a) launches {counts}, plain calls {plain.calls}")
+    groups = sum(h["rowgroups"] for h in report["per_host"].values())
+    windows = sum(h["rows"] for h in report["per_host"].values())
+    if report["hosts"] != MESH_HOSTS or report["reshard_events"] or report["hosts_lost"] \
+            or groups != windows or windows < TOKEN_BATCH * steps:
+        failures.append(f"(a) mesh_report {report}")
+    if not (np.isfinite(result["loss_first"]) and np.isfinite(result["loss_last"])):
+        failures.append(f"(a) losses {result['loss_first']}, {result['loss_last']}")
+    free_cuda()
+
+    # (b) Host loss and the cursor: the columnar store, then the token store.
+    t0 = time.perf_counter()
+    table = pq.read_table(scalar_url.replace("file://", ""))
+    ref = {name: table.column(name).to_numpy() for name in table.column_names}
+    keys = _row_keys(ref["f0"], ref["f1"])
+    order = np.argsort(keys)
+    if len(np.unique(keys)) != len(keys):
+        raise AssertionError("the scalar store's (f0, f1) pairs are not unique")
+
+    def index(k):
+        at = np.searchsorted(keys[order], k)
+        if not np.array_equal(keys[order][np.minimum(at, len(keys) - 1)], k):
+            raise AssertionError("a delivered row is not in the store")
+        return order[at]
+
+    def scalar_loader(**kw):
+        return MeshDataLoader(MeshReaderFactory(scalar_url, batched=True),
+                              batch_size=MESH_SCALAR_BATCH, num_hosts=MESH_SCALAR_HOSTS, seed=0,
+                              device="cuda", drop_last=False, pad_last=True, **kw)
+    rows, _, report = _scalar_rows(scalar_loader(), ref, index, kill_after=1)
+    seen = collections.Counter(rows)
+    log(f"[mesh] (b) {card} scalar store, {MESH_SCALAR_HOSTS} hosts, batch {MESH_SCALAR_BATCH}, "
+        f"host {MESH_SCALAR_KILL} killed after the first batch: {len(rows)} rows delivered, "
+        f"{len(seen)} distinct, most {max(seen.values())} times; reshards "
+        f"{report['reshard_events']}, lost {[h['host'] for h in report['hosts_lost']]}")
+    if sorted(seen) != list(range(len(keys))) or max(seen.values()) != 1 \
+            or report["reshard_events"] != 1 \
+            or [h["host"] for h in report["hosts_lost"]] != [MESH_SCALAR_KILL]:
+        failures.append(f"(b) kill: {len(seen)} distinct of {len(keys)}, most "
+                        f"{max(seen.values())}, report {report}")
+    first, state, _ = _scalar_rows(scalar_loader(), ref, index, kill_after=1,
+                                   stop_on_recovered=True)
+    rest, _, resumed = _scalar_rows(scalar_loader(resume_state=state), ref, index)
+    again = collections.Counter(rest)
+    overlap = len(set(first) & set(rest))
+    log(f"[mesh] (b) {card} cursor after the reshard: {len(first)} rows before it, recovered "
+        f"groups {state and state.get('recovered')}, hosts {state and state['hosts']}; the "
+        f"resumed loader delivers {len(rest)} rows ({len(again)} distinct), {overlap} of them "
+        f"also before the cut (groups in flight); together {len(set(first) | set(rest))} of "
+        f"{len(keys)}")
+    if not state or not state.get("recovered") or not state.get("resharded") \
+            or set(first) | set(rest) != set(range(len(keys))) or max(again.values()) != 1 \
+            or overlap > MESH_SCALAR_HOSTS * 2 * 2048 or resumed["reshard_events"]:
+        failures.append(f"(b) resume: state {state}, {len(set(first) | set(rest))} of "
+                        f"{len(keys)}, overlap {overlap}")
+
+    ngram = NGram({o: ["ts", "token"] for o in range(WINDOW)}, delta_threshold=1,
+                  timestamp_field="ts", timestamp_overlap=False, dense=True)
+    plan = MeshDataLoader(MeshReaderFactory(token_url, schema_fields=ngram), batch_size=TOKEN_BATCH,
+                          num_hosts=MESH_HOSTS, seed=0, device="cpu").epoch_plan(0)
+    gate = threading.Event()
+    token_loader = MeshDataLoader(_GatedFactory(token_url, plan[MESH_TOKEN_KILL], gate,
+                                                schema_fields=ngram),
+                                  batch_size=TOKEN_BATCH, num_hosts=MESH_HOSTS, seed=0,
+                                  num_epochs=1, device="cuda", drop_last=False, pad_last=True)
+    free_cuda()
+    kernels.reset_launch_counts()
+    starts, losses, report = _train_windows(token_loader, LLAMA, kill_after=1, gate=gate)
+    counts = _flash_counts()
+    add(counts)
+    got = collections.Counter(starts)
+    dups = sorted(s // WINDOW for s, n in got.items() if n > 1)
+    log(f"[mesh] (b) {card} token store, {MESH_HOSTS} hosts, host {MESH_TOKEN_KILL} killed after "
+        f"the first step: windows (first ts / {WINDOW}) {[s // WINDOW for s in starts]}, read "
+        f"twice {dups} (host {MESH_TOKEN_KILL}'s plan {plan[MESH_TOKEN_KILL]}); {len(losses)} "
+        f"steps, losses "
+        f"{losses}; reshards {report['reshard_events']}; launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s for (b)")
+    if sorted(got) != [g * WINDOW for g in range(TOKEN_WINDOWS)] \
+            or not set(dups) <= set(plan[MESH_TOKEN_KILL]) or report["reshard_events"] != 1 \
+            or not np.isfinite(losses).all() \
+            or not _flash_exact(counts, LLAMA.n_layers * len(losses)):
+        failures.append(f"(b) token drill: windows {starts}, dups {dups}, report {report}, "
+                        f"launches {counts}")
+    free_cuda()
+
+    # (c) Data parallelism over 2 ranks sharing cuda:0.
+    t0 = time.perf_counter()
+    dp_kwargs = _llama_kwargs(DP_LLAMA)
+    ranks = run_ranks(_rank_data_parallel, DP_RANKS, args=(token_url, dp_kwargs), device="cuda")
+    wall = time.perf_counter() - t0
+    n = DP_LLAMA.n_layers
+    plan = MeshDataLoader(MeshReaderFactory(token_url, schema_fields=ngram), batch_size=DP_RANKS,
+                          num_hosts=DP_RANKS, seed=0, device="cpu").epoch_plan(0)
+    for r, got in enumerate(ranks):
+        bench = got["bench"]
+        add(got["bench_launches"])
+        sums = got["sums"]
+        share = [s["seconds"] / (ms / 1e3) for s, ms in zip(sums, got["step_ms"])]
+        log(f"[mesh] (c) {card} rank {r}: bench {bench['tokens_per_sec']} tokens/s (global batch "
+            f"{bench['tokens_per_step']} tokens), stall {bench['input_stall_pct']} %, step "
+            f"{bench['step_time_ms']} ms, devices {bench['devices']}, losses "
+            f"{bench['loss_first']} -> {bench['loss_last']}; launches {got['bench_launches']}; "
+            f"bench transfers {got['bench_transfers']}")
+        log(f"[mesh] (c) {card} rank {r}: data-parallel loop, plan {got['plan']}, windows "
+            f"(first ts / {WINDOW}) {[s // WINDOW for s in got['starts']]}, losses "
+            f"{got['losses']}, step ms {got['step_ms']}; gloo gradient sum a step "
+            f"{[(s['calls'], s['bytes'] / 1e9, s['seconds']) for s in sums]} (calls, GB, s), "
+            f"{[round(100 * x, 2) for x in share]} % of the step")
+        if got["plan"] != plan[r] or got["starts"] != [g * WINDOW for g in plan[r][:DP_STEPS]] \
+                or not LLM_KEYS | MESH_KEYS <= set(bench) or bench["devices"] != DP_RANKS \
+                or bench["tokens_per_step"] != DP_RANKS * WINDOW \
+                or not _flash_exact(got["bench_launches"], n * (1 + DP_BENCH_STEPS)):
+            failures.append(f"(c) rank {r}: plan {got['plan']}, windows {got['starts']}, "
+                            f"launches {got['bench_launches']}, keys {sorted(bench)}")
+    r0, r1 = ranks
+    if not all(torch.equal(a, b) for a, b in zip(r0["first_tokens"], r1["first_tokens"])):
+        failures.append("(c) the ranks gathered different first windows")
+    if (r0["bench"]["loss_first"], r0["bench"]["loss_last"]) != \
+            (r1["bench"]["loss_first"], r1["bench"]["loss_last"]) or r0["losses"] != r1["losses"]:
+        failures.append(f"(c) the ranks' losses differ: {r0['losses']} {r1['losses']}")
+    same = sum(a == b for a, b in zip(r0["digest"], r1["digest"]))
+    if same != len(r0["digest"]):
+        failures.append(f"(c) parameters bit-equal in {same} of {len(r0['digest'])} leaves")
+    ref, ctrl = (r0[k] for k in ("one process on both windows",
+                                 "control: rank 0's window, no gradient sum"))
+    loss_rel = abs(r0["losses"][0] - ref["loss"]) / abs(ref["loss"])
+    worst, worst_ctrl = max(ref["update_rel"]), min(ctrl["update_rel"])
+    log(f"[mesh] (c) {card} {DP_RANKS} ranks, {wall:.1f} s with the spawn: parameters bit-equal "
+        f"on the ranks in {same} of {len(r0['digest'])} leaves after {DP_STEPS} steps; first "
+        f"step against one process on both windows: loss {r0['losses'][0]} vs {ref['loss']} "
+        f"({loss_rel:.3g} relative, bar {DP_LOSS_REL_BAR}), |p_dp - p_one| / |p_one - p_0| "
+        f"largest {worst:.4g} over the leaves (bar {DP_UPDATE_REL_BAR}); control (rank 0's "
+        f"window, no sum): loss {ctrl['loss']}, smallest {worst_ctrl:.4g}, largest "
+        f"{max(ctrl['update_rel']):.4g}")
+    if loss_rel > DP_LOSS_REL_BAR or worst > DP_UPDATE_REL_BAR:
+        failures.append(f"(c) data-parallel step: loss {loss_rel:.3g}, update {worst:.4g}")
+    if worst_ctrl <= DP_UPDATE_REL_BAR:
+        failures.append(f"(c) the control (no gradient sum) passed the bar: {worst_ctrl:.4g}")
+    free_cuda()
+
+    # (d) The image path through the mesh loader.
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    ids, batches = [], 0
+    with MeshDataLoader(MeshReaderFactory(image_url), batch_size=BATCH, num_hosts=MESH_HOSTS,
+                        device="cuda") as loader:
+        for batch in loader:
+            images = normalize_images(batch["image"])
+            check_close(images, normalize_images_plain(batch["image"]), f"(d) batch {batches}")
+            ids.extend(batch["id"].tolist())
+            batches += 1
+        report = loader.mesh_report()
+    torch.cuda.synchronize()
+    k1 = kernels.launch_counts.get(KERNEL_NAME, 0)
+    launches[KERNEL_NAME] += k1
+    log(f"[mesh] (d) {card} image store through {MESH_HOSTS} hosts: {batches} batches, "
+        f"{len(set(ids))} distinct rows, {KERNEL_NAME} {k1} launches, bit-equal to the plain "
+        f"version on every batch; {len(ids) / (time.perf_counter() - t0):.1f} rows/s; per host "
+        f"{ {h: v['rows'] for h, v in report['per_host'].items()} }")
+    if sorted(ids) != list(range(ROWS)) or k1 != ROWS // BATCH \
+            or set(kernels.launch_counts) != {KERNEL_NAME}:
+        failures.append(f"(d) {len(set(ids))} rows, launches {dict(kernels.launch_counts)}")
+    log(f"[mesh] {card} phase took {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    if failures:
+        raise AssertionError("mesh phase: " + "; ".join(failures))
+    return launches
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """``t`` seen as integers of its width, so that equality is bit equality."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+#: Seconds each phase took in this run, by name, in order.
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds kept under ``name`` in
+    ``PHASE_SECONDS``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    return out
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    smi = phase_probe()
-    phase_build()
-    k1, k1_strided = phase_kernels()
+    t_run = time.perf_counter()
+    smi = timed("1 probe", phase_probe)
+    timed("2 build", phase_build)
+    k1, k1_strided = timed("3 kernels", phase_kernels)
     # Phase 11 reads the stores of phases 4, 8 and 9 again, phase 13 phase 9's,
-    # phase 15 those of phases 8, 9 and 12.
+    # phase 15 those of phases 8, 9 and 12, phase 16 those of phases 4, 8 and 12.
     with tempfile.TemporaryDirectory() as slice_tmp, \
             tempfile.TemporaryDirectory() as train_tmp, \
             tempfile.TemporaryDirectory() as image_tmp, \
             tempfile.TemporaryDirectory() as columnar_tmp:
-        launches = phase_slice(slice_tmp)
-        k2_rows = phase_flash()
+        launches = timed("4 slice", phase_slice, slice_tmp)
+        k2_rows = timed("5 flash", phase_flash)
         with tempfile.TemporaryDirectory() as tmp:
-            k2_launches = phase_tokens(tmp)
-        bwd = phase_flash_bwd()
-        counts = phase_train(train_tmp)
-        thread_bench = phase_imagenet(image_tmp)
-        stats = phase_stats()
+            k2_launches = timed("6 tokens", phase_tokens, tmp)
+        bwd = timed("7 flash bwd", phase_flash_bwd)
+        counts, single_reader = timed("8 train", phase_train, train_tmp)
+        thread_bench = timed("9 imagenet", phase_imagenet, image_tmp)
+        stats = timed("K2 stats", phase_stats)
         with tempfile.TemporaryDirectory() as tmp:
-            seq = phase_seq_parallel(tmp)
-        proc = phase_process(f"file://{slice_tmp}/imagenet_like", f"file://{train_tmp}/tokens",
-                             f"file://{image_tmp}/imagenet", thread_bench)
+            seq = timed("10 seq parallel", phase_seq_parallel, tmp)
+        proc = timed("11 process", phase_process, f"file://{slice_tmp}/imagenet_like",
+                     f"file://{train_tmp}/tokens", f"file://{image_tmp}/imagenet", thread_bench)
         free_cuda()
-        columnar = phase_columnar(columnar_tmp)
+        columnar = timed("12 columnar", phase_columnar, columnar_tmp)
         # Phase 13 reads phase 9's store again, phase 14 phase 9's and 8's.
-        resume = phase_resume(f"file://{image_tmp}/imagenet", thread_bench)
+        resume = timed("13 resume", phase_resume, f"file://{image_tmp}/imagenet", thread_bench)
         free_cuda()
         with tempfile.TemporaryDirectory() as tmp:
-            select = phase_selection(f"file://{image_tmp}/imagenet", f"file://{train_tmp}/tokens",
-                                     tmp)
+            select = timed("14 selection", phase_selection, f"file://{image_tmp}/imagenet",
+                           f"file://{train_tmp}/tokens", tmp)
         free_cuda()
         with tempfile.TemporaryDirectory() as tmp:
-            epoch = phase_epoch_plane(smi, f"file://{image_tmp}/imagenet",
-                                      f"file://{train_tmp}/tokens",
-                                      f"file://{columnar_tmp}/tensor", columnar, tmp)
+            epoch = timed("15 epoch plane", phase_epoch_plane, smi,
+                          f"file://{image_tmp}/imagenet", f"file://{train_tmp}/tokens",
+                          f"file://{columnar_tmp}/tensor", columnar, tmp)
+        free_cuda()
+        mesh = timed("16 mesh", phase_mesh, smi, f"file://{train_tmp}/tokens",
+                     f"file://{columnar_tmp}/scalar_100k", f"file://{slice_tmp}/imagenet_like",
+                     single_reader)
+    log(f"[smoke] ({smi}) seconds by phase "
+        f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
+        f"{time.perf_counter() - t_run:.1f} s")
     for name in (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
                  flash_attn.BWD_DKV_KERNEL_NAME):
-        counts[name] += proc[name] + epoch[name]
+        counts[name] += proc[name] + epoch[name] + mesh[name]
     source = "petastorm_tpu_torch/csrc/flash_attn_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/normalize.cu",
         "replaces": "petastorm_tpu/ops/image_ops.py:27",
         "launches": (launches + proc["normalize"] + resume.get(KERNEL_NAME, 0)
-                     + select[KERNEL_NAME] + epoch[KERNEL_NAME]),
+                     + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

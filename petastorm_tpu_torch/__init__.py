@@ -6,8 +6,10 @@ spawned decode processes, their row groups chosen by partition filters,
 predicates, stored indexes, shards and subsets and their rows reshaped
 by a :class:`TransformSpec` in the workers, in a free or a deterministic
 order (``sample_order=``), mixed by :class:`WeightedSamplingReader`, batched
-and staged onto an NVIDIA GPU by :class:`DataLoader`; any Parquet store read column by column with
-:func:`make_batch_reader` and batched by :class:`BatchedDataLoader` or
+and staged onto an NVIDIA GPU by :class:`DataLoader`, or sharded over
+simulated hosts or data-parallel ranks by :class:`MeshDataLoader`; any
+Parquet store read column by column with :func:`make_batch_reader` and
+batched by :class:`BatchedDataLoader` or
 :class:`InMemBatchedDataLoader`, or held on the card by
 :class:`DeviceCachedDataset`; training checkpointed with its input position by
 :class:`CheckpointManager`; and consumed on the card: images are
@@ -35,6 +37,9 @@ _EXPORTS = {
     "flash_attention": "petastorm_tpu_torch.ops.flash_attn",
     "make_flash_attention": "petastorm_tpu_torch.ops.flash_attn",
     "make_reader": "petastorm_tpu_torch.reader",
+    "MeshDataLoader": "petastorm_tpu_torch.loader",
+    "MeshHostLostError": "petastorm_tpu_torch.loader",
+    "MeshReaderFactory": "petastorm_tpu_torch.loader",
     "normalize_images": "petastorm_tpu_torch.ops.image_ops",
     "TransformSpec": "petastorm_tpu_torch.transform",
     "Unischema": "petastorm_tpu_torch.unischema",

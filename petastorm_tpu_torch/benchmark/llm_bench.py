@@ -14,9 +14,12 @@ that isolates the device's step time).
 
 ``echo=k`` re-yields each staged batch ``k`` times as copies on the card
 (the loader's data echoing): the stall of echo=1 against echo>1 is that
-feature's measurement.
+feature's measurement. ``mesh_ingest=True`` reads through
+:class:`~petastorm_tpu_torch.loader.mesh_loader.MeshDataLoader` instead: per-host
+shards in one process, or, on the ranks of an initialised default group,
+data-parallel training with each rank reading its own shard.
 
-    python -m petastorm_tpu_torch.benchmark.llm_bench --ctx 8192 --flash
+    python -m petastorm_tpu_torch.benchmark.llm_bench --ctx 8192 --flash [--mesh --hosts 4]
 """
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ def run_llm_bench(url: str, steps: int = 20, batch_size: int = 8, window: int = 
                   workers_count: int = 8, pool_type: str = "thread", echo: int = 1,
                   resident_steps: int = 0, dense: bool = True, flash: bool = False,
                   xent_chunk: int | None = None, remat_layers: bool = False,
-                  model_kwargs: dict | None = None, device="cuda") -> dict:
+                  model_kwargs: dict | None = None, mesh_ingest: bool = False,
+                  mesh_hosts: int | None = None, device="cuda") -> dict:
     """Token windows through the full reader stack into a real Llama
     AdamW train step on ``device``; returns ``{tokens_per_sec,
     input_stall_pct, step_time_ms, loss_first, loss_last[, *_resident],
@@ -67,17 +71,43 @@ def run_llm_bench(url: str, steps: int = 20, batch_size: int = 8, window: int = 
     :func:`~petastorm_tpu_torch.ops.flash_attn.make_flash_attention`
     (the flash kernels on the card) instead of dense attention. One warm-up
     step runs before the timed window. Timing is
-    :func:`.imagenet_bench.pipelined_window`'s."""
+    :func:`.imagenet_bench.pipelined_window`'s.
+
+    ``mesh_ingest=True`` swaps the single reader for a
+    :class:`~petastorm_tpu_torch.loader.mesh_loader.MeshDataLoader` (row
+    readers, one worker a host, shards planned with seed 0); the result
+    then carries its ``mesh_report``. It requires ``dense=True``. In one
+    process ``mesh_hosts`` hosts (default 1) each read a disjoint shard and
+    every step takes ``batch_size`` windows from them. On the ranks of an
+    initialised default group of P > 1 ranks (every rank calls this), the
+    mesh is ``make_mesh([-1], ["data"])``: each rank reads its own shard,
+    stages ``(batch_size // P, window)`` tokens and trains with the
+    gradients summed over the data group
+    (``make_train_step(data_group=)``), as the JAX bench's step on a batch
+    sharded over ``"data"``; ``tokens_per_sec`` and ``tokens_per_step``
+    count the global batch and ``devices`` is P. Without ``mesh_ingest``
+    such a group raises: every rank would read the same rows."""
     from petastorm_tpu_torch.benchmark.imagenet_bench import (llama_flops_per_step,
                                                             pipelined_window,
                                                             utilization_metrics)
-    from petastorm_tpu_torch.loader import DataLoader
+    from petastorm_tpu_torch.loader import DataLoader, MeshDataLoader, MeshReaderFactory
     from petastorm_tpu_torch.loader.loader import resolve_device
     from petastorm_tpu_torch.models import llama
     from petastorm_tpu_torch.ngram import NGram
     from petastorm_tpu_torch.reader import make_reader
 
+    dist = torch.distributed
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world > 1 and not mesh_ingest:
+        raise ValueError(f"run_llm_bench on {world} ranks needs mesh_ingest=True: the "
+                         f"single-reader path would read the same rows on every rank")
+    if mesh_ingest and not dense:
+        raise ValueError("mesh_ingest requires dense=True NGram readout")
     dev = resolve_device(device)
+    mesh = None
+    if world > 1:
+        from petastorm_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh([-1], ["data"])
     kw = dict(vocab=32000, dim=1024, n_layers=8, n_heads=8, n_kv_heads=4, hidden=2816)
     kw.update(model_kwargs or {})
     cfg = llama.LlamaConfig(**kw)
@@ -87,30 +117,39 @@ def run_llm_bench(url: str, steps: int = 20, batch_size: int = 8, window: int = 
         from petastorm_tpu_torch.ops.flash_attn import make_flash_attention
         attn_fn = make_flash_attention(causal=True)
     init_opt, step = llama.make_train_step(cfg, shift="roll", attn_fn=attn_fn,
-                                           xent_chunk=xent_chunk, remat_layers=remat_layers)
+                                           xent_chunk=xent_chunk, remat_layers=remat_layers,
+                                           data_group=mesh.group("data") if mesh else None)
     opt = init_opt(params)
 
     # dense=True is the column-major window assembly in the worker (no
     # per-row namedtuples); dense=False measures the row path.
     ngram = NGram({o: ["ts", "token"] for o in range(window)}, delta_threshold=1,
                   timestamp_field="ts", timestamp_overlap=False, dense=dense)
-    reader = make_reader(url, schema_fields=ngram, num_epochs=None, shuffle_row_groups=True,
-                         seed=0, reader_pool_type=pool_type, workers_count=workers_count)
-    try:
-        loader = DataLoader(reader, batch_size=batch_size, echo=echo, device=dev)
-    except BaseException:
-        # The loader owns reader shutdown only once constructed.
-        reader.stop()
-        reader.join()
-        raise
-    with loader:  # stops and joins the reader on exit
+    if mesh_ingest:
+        factory = MeshReaderFactory(url, batched=False, schema_fields=ngram,
+                                    reader_pool_type=pool_type)
+        loader = MeshDataLoader(factory, batch_size=batch_size, mesh=mesh, num_hosts=mesh_hosts,
+                                num_epochs=None, seed=0, echo=echo, device=dev)
+    else:
+        reader = make_reader(url, schema_fields=ngram, num_epochs=None, shuffle_row_groups=True,
+                             seed=0, reader_pool_type=pool_type, workers_count=workers_count)
+        try:
+            loader = DataLoader(reader, batch_size=batch_size, echo=echo, device=dev)
+        except BaseException:
+            # The loader owns reader shutdown only once constructed.
+            reader.stop()
+            reader.join()
+            raise
+    local_batch = batch_size // world
+    mesh_report = None
+    with loader:  # stops and joins the reader (the hosts' readers) on exit
         it = iter(loader)
         try:
             tokens = next(it)["token"]
-            if tuple(tokens.shape) != (batch_size, window):
+            if tuple(tokens.shape) != (local_batch, window):
                 raise RuntimeError(f"staged token batch {tuple(tokens.shape)}, expected "
-                                   f"{(batch_size, window)}")
-            flops_per_step = llama_flops_per_step(cfg, batch_size, window)
+                                   f"{(local_batch, window)}")
+            flops_per_step = llama_flops_per_step(cfg, local_batch, window)
             params, opt, loss = step(params, opt, {"tokens": tokens})
 
             def run_step(toks):
@@ -122,6 +161,8 @@ def run_llm_bench(url: str, steps: int = 20, batch_size: int = 8, window: int = 
                 run_step, lambda: next(it)["token"], steps, resident_steps, warm_loss=loss)
         finally:
             it.close()
+        if mesh_ingest:
+            mesh_report = loader.mesh_report()
 
     tokens_per_step = batch_size * window
     step_time_s = (total_wall - wait_s) / steps
@@ -137,7 +178,7 @@ def run_llm_bench(url: str, steps: int = 20, batch_size: int = 8, window: int = 
         "xent_chunk": xent_chunk,
         "remat_layers": remat_layers,
         "window": window,
-        "devices": 1,
+        "devices": world,
         "loss_first": loss_first,
         "loss_last": loss_last,
         "device_kind": device_kind,
@@ -145,7 +186,11 @@ def run_llm_bench(url: str, steps: int = 20, batch_size: int = 8, window: int = 
     if resident_s is not None:
         result["step_time_ms_resident"] = 1000.0 * resident_s
         result["tokens_per_sec_resident"] = tokens_per_step / resident_s
-        result["tokens_per_sec_per_chip_resident"] = tokens_per_step / resident_s
+        result["tokens_per_sec_per_chip_resident"] = tokens_per_step / resident_s / world
+    if mesh_report is not None:
+        result["mesh_ingest"] = True
+        result["mesh_hosts"] = mesh_report["hosts"]
+        result["mesh_report"] = mesh_report
     utilization_metrics(result, flops_per_step, step_time_s, resident_s, device_kind)
     return result
 
@@ -174,6 +219,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Llama train-step pipeline benchmark")
     parser.add_argument("--ctx", type=int, default=32768,
                         help="context window (tokens per row group)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="ingest through MeshDataLoader (per-host shards) instead of the "
+                             "single-reader DataLoader")
+    parser.add_argument("--hosts", type=int, default=None,
+                        help="feeding hosts for --mesh (default 1 in one process; on ranks, "
+                             "the data ranks)")
     parser.add_argument("--steps", type=int, default=8)
     parser.add_argument("--batch-size", type=int, default=1)
     parser.add_argument("--windows", type=int, default=None,
@@ -205,9 +256,18 @@ def main(argv=None) -> int:
     result = run_llm_bench(url, steps=args.steps, batch_size=batch, window=args.ctx,
                            flash=args.flash, xent_chunk=args.xent_chunk,
                            remat_layers=args.remat_layers, model_kwargs=model_kwargs,
-                           device=args.device)
-    parsed = {f"ctx{label}_{k}": v for k, v in result.items()}
-    tail = (f"llm ctx{label} on {result['device_kind']}: "
+                           mesh_ingest=args.mesh, mesh_hosts=args.hosts, device=args.device)
+    parsed = {f"ctx{label}_{k}": v for k, v in result.items() if not isinstance(v, dict)}
+    parsed[f"ctx{label}_mesh"] = bool(args.mesh)
+    if "mesh_report" in result:
+        rep = result["mesh_report"]
+        parsed[f"ctx{label}_mesh_hosts"] = rep["hosts"]
+        parsed[f"ctx{label}_mesh_host_skew_s"] = rep["host_skew_s"]
+        parsed[f"ctx{label}_mesh_reshard_events"] = rep["reshard_events"]
+        parsed[f"ctx{label}_mesh_max_host_stall_pct"] = max(
+            (h["input_stall_pct"] for h in rep["per_host"].values()), default=0.0)
+    tail = (f"llm ctx{label} {'mesh' if args.mesh else 'single-reader'} ingestion on "
+            f"{result['device_kind']}: "
             f"{result['tokens_per_sec']:.1f} tok/s, input stall "
             f"{result['input_stall_pct']:.2f}%, step {result['step_time_ms']:.1f} ms, loss "
             f"{result['loss_first']:.4f} -> {result['loss_last']:.4f}")

@@ -371,17 +371,20 @@ class LoaderBase:
                 f"Dropping non-batchable column(s) {sorted(new)}: ragged/null/string values "
                 f"cannot form fixed-shape batches. Read them with the row reader to keep them.")
 
-    def _finalize_tail(self, cols: Dict[str, np.ndarray], count: int):
+    def _finalize_tail(self, cols: Dict[str, np.ndarray], count: int,
+                       target_rows: Optional[int] = None):
         """The short last batch: dropped, zero-padded with a ``__valid__``
-        mask, or emitted as is."""
+        mask, or emitted as is. ``target_rows`` replaces ``batch_size`` as the
+        pad target (a data rank pads to its own rows a step)."""
+        target = self._batch_size if target_rows is None else target_rows
         if count == 0:
             return None
-        if count == self._batch_size:
+        if count == target:
             return cols
         if self._drop_last:
             return None
         if self._pad_last:
-            pad = self._batch_size - count
+            pad = target - count
             out = {k: np.pad(v, [(0, pad)] + [(0, 0)] * (v.ndim - 1)) for k, v in cols.items()}
             out["__valid__"] = np.concatenate([np.ones(count, np.bool_),
                                                np.zeros(pad, np.bool_)])

@@ -187,7 +187,7 @@ def apply_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
         if cfg.moe_dispatch == "switch":
             raise NotImplementedError(
                 "moe_dispatch='switch' needs the sparse top-k dispatch of "
-                "petastorm_tpu/parallel/moe.py, not ported yet (ROADMAP Queue A item 8, "
+                "petastorm_tpu/parallel/moe.py, not ported yet (ROADMAP Queue A item 7, "
                 "model parallelism: MoE)")
         x = x + _moe_block(h, layer)
     else:
@@ -259,7 +259,7 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
             aux_weight: float = 1e-2, embed_lookup: str = "gather",
             compute_dtype=torch.bfloat16, shift: str = "split",
             xent_chunk: Optional[int] = None, remat_layers: bool = False,
-            seq_group=None) -> torch.Tensor:
+            seq_group=None, data_group=None) -> torch.Tensor:
     """Next-token cross entropy. batch: ``{'tokens': (b, s) int}``.
     ``aux_weight`` weighs the switch MoE's auxiliary loss, which is not
     ported; the soft mixture has none, so it adds nothing yet.
@@ -280,6 +280,13 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
     positions, and its summed loss is divided by the number of targets over
     the group (all-reduced), so the ranks' losses sum to the loss of the
     window. ``attn_fn`` must attend over the same group.
+
+    ``data_group``: a process group whose ranks each hold their own rows of
+    the global batch (data parallelism). The summed loss is divided by the
+    number of targets over the group (all-reduced), so the ranks' losses sum
+    to the loss of the global batch: the mean GSPMD computes when a batch
+    sharded over ``"data"`` meets the JAX step. With both groups the count
+    is reduced over each.
     """
     tokens = batch["tokens"]
     if shift not in ("split", "roll"):
@@ -306,9 +313,12 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
         offset = rank * block
         inputs, targets = (t[:, offset:offset + block] for t in (inputs, targets))
         mask = mask[offset:offset + block]
-        count = torch.tensor([float(b * (min(offset + block, s_tok - 1) - offset))],
-                             dtype=torch.float64)
-        comm.all_reduce_([count], seq_group)
+        denom = b * (min(offset + block, s_tok - 1) - offset)
+    groups = [g for g in (seq_group, data_group) if g is not None]
+    if groups:
+        count = torch.tensor([float(denom)], dtype=torch.float64)
+        for group in groups:
+            comm.all_reduce_([count], group)
         denom = count.item()
     if xent_chunk:
         x = apply(params, inputs, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
@@ -347,7 +357,7 @@ def param_leaves(params: dict) -> list:
 def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
                     embed_lookup: str = "gather", compute_dtype=torch.bfloat16,
                     shift: str = "split", xent_chunk: Optional[int] = None,
-                    remat_layers: bool = False, seq_group=None):
+                    remat_layers: bool = False, seq_group=None, data_group=None):
     """AdamW train step -> ``(init_opt, train_step)``, as the JAX package's.
 
     ``init_opt(params)`` marks every leaf of ``params`` as requiring grad
@@ -363,7 +373,12 @@ def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
     Sequence parallelism: ``seq_group`` goes to :func:`loss_fn`, and every
     gradient is summed over it before AdamW, so every rank takes the same
     update from the window's gradient; ``loss`` is then summed over it too:
-    the window's loss."""
+    the window's loss.
+
+    Data parallelism: ``data_group`` goes to :func:`loss_fn`, and every
+    gradient (and the loss) is summed over it as well, so the ranks take the
+    global batch's update and report its loss; with both groups, over each
+    in turn."""
     def init_opt(params: dict) -> torch.optim.AdamW:
         leaves = param_leaves(params)
         for t in leaves:
@@ -374,15 +389,17 @@ def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
     def train_step(params: dict, opt: torch.optim.AdamW, batch: dict):
         loss = loss_fn(params, batch, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
                        compute_dtype=compute_dtype, shift=shift, xent_chunk=xent_chunk,
-                       remat_layers=remat_layers, seq_group=seq_group)
+                       remat_layers=remat_layers, seq_group=seq_group,
+                       data_group=data_group)
         loss.backward()
-        if seq_group is not None:
-            comm.all_reduce_([t.grad for t in param_leaves(params)], seq_group)
+        groups = [g for g in (seq_group, data_group) if g is not None]
+        for group in groups:
+            comm.all_reduce_([t.grad for t in param_leaves(params)], group)
         opt.step()
         opt.zero_grad(set_to_none=True)
         loss = loss.detach()
-        if seq_group is not None:
-            comm.all_reduce_([loss], seq_group)
+        for group in groups:
+            comm.all_reduce_([loss], group)
         return params, opt, loss
 
     return init_opt, train_step

@@ -1,5 +1,6 @@
 """Moving tensors between the ranks of a ``torch.distributed`` process group:
-the transport of ring and Ulysses attention and of the gradient sum.
+the transport of ring and Ulysses attention and of the gradient sums of
+sequence and data parallelism.
 
 The JAX package's collectives (``lax.ppermute``, ``lax.all_to_all``,
 ``psum``) ride the TPU's interconnect inside one program. Here each rank is
@@ -8,7 +9,7 @@ CUDA tensor is copied to a pinned host buffer, sent, and copied back to the
 card on arrival. Nothing is computed on the host: these functions move
 bytes and, for :func:`all_reduce_`, add them. Another backend (NCCL, which
 refuses two ranks on one card) raises ``NotImplementedError``: the
-multi-GPU transport is ROADMAP Queue A item 6.
+multi-GPU transport is ROADMAP Queue A item 10.
 
 Every call adds its count, the bytes it sends and its host-clock seconds
 (the staging copies included) to :data:`transfer_stats`.
@@ -41,8 +42,8 @@ def check_backend(group) -> None:
     backend = dist.get_backend(group)
     if backend != "gloo":
         raise NotImplementedError(
-            f"the sequence-parallel transport takes gloo groups (one card, ranks as processes); "
-            f"got {backend!r}: NCCL and several cards are ROADMAP Queue A item 6 (multi-GPU)")
+            f"the rank transport takes gloo groups (one card, ranks as processes); "
+            f"got {backend!r}: NCCL and several cards are ROADMAP Queue A item 10 (multi-GPU)")
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:

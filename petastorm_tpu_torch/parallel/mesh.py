@@ -1,6 +1,6 @@
 """A named grid of ``torch.distributed`` ranks: the port's counterpart of
-``petastorm_tpu/parallel/mesh.py::make_mesh`` for the process groups that
-sequence parallelism needs.
+``petastorm_tpu/parallel/mesh.py``, for the process groups that sequence
+parallelism needs and the rank arithmetic of data-parallel ingestion.
 
 A JAX mesh arranges devices and GSPMD derives every collective from it.
 Here every rank is a process, and a mesh arranges the ranks of the
@@ -9,7 +9,8 @@ rank one process group, the ranks that differ from it only along that axis.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.distributed as dist
@@ -56,3 +57,102 @@ def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str]) -> Mesh:
             if rank in line:
                 groups[name] = group
     return Mesh(dict(zip(axis_names, sizes)), groups)
+
+
+# ----------------------------------------------------------------- the data axis
+# The rank arithmetic of ``petastorm_tpu/parallel/mesh.py:40-113``. A JAX
+# mesh places the batch on devices through a ``NamedSharding``; here a rank's
+# batch already is its slice, so a sharding is only a description of which
+# mesh axes split the batch dimension.
+
+
+@dataclass(frozen=True)
+class BatchSharding:
+    """``mesh`` and ``spec``, the batch dimension's layout: ``spec`` is a
+    tuple as a ``PartitionSpec`` would be (``("data",)``, ``(("data",
+    "seq"),)``, or ``()`` for a batch every rank holds whole)."""
+    mesh: Mesh
+    spec: Tuple = ()
+
+
+def data_sharding(mesh: Mesh, data_axis: str = "data") -> BatchSharding:
+    """The batch dimension split over ``data_axis``, the rest replicated."""
+    return BatchSharding(mesh, (data_axis,))
+
+
+def replicated(mesh: Mesh) -> BatchSharding:
+    """Every rank holds the whole batch."""
+    return BatchSharding(mesh, ())
+
+
+def batch_shard_count(mesh: Mesh, spec) -> int:
+    """How many ways ``spec`` splits dimension 0 (the batch) over ``mesh``:
+    the divisor a global batch must have."""
+    spec = tuple(spec)
+    if len(spec) == 0 or spec[0] is None:
+        return 1
+    first = spec[0]
+    names = (first,) if isinstance(first, str) else tuple(first)
+    return int(np.prod([mesh.shape[name] for name in names]))
+
+
+def _initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _world() -> int:
+    """The default group's world size, 1 without an initialised group."""
+    return dist.get_world_size() if _initialized() else 1
+
+
+def reader_shard_for_mesh(mesh: Optional[Mesh] = None,
+                          data_axis: str = "data") -> Tuple[int, int]:
+    """``(cur_shard, shard_count)`` of this rank's reader: its index along
+    ``data_axis`` and the axis' size (without a mesh, its rank in the
+    default group and the world size); ``(0, 1)`` without an initialised
+    group. Ranks that differ only along other axes read the same shard."""
+    if not _initialized():
+        return 0, 1
+    if mesh is None:
+        return dist.get_rank(), dist.get_world_size()
+    return dist.get_rank(mesh.group(data_axis)), int(mesh.shape[data_axis])
+
+
+def mesh_feed_topology(mesh: Optional[Mesh],
+                       num_hosts: Optional[int] = None) -> Tuple[int, Optional[int], bool]:
+    """``(num_hosts, local_host_index, multiprocess)`` for feeding ``mesh``.
+
+    With an initialised default group of more than one rank, one host is one
+    rank of the mesh's ``"data"`` axis: ``num_hosts`` is pinned to the axis'
+    size, and a
+    ``num_hosts`` that differs raises. Otherwise every host is simulated in
+    this process: ``num_hosts`` hosts (default **one**: a process here drives
+    one device, where the JAX package defaults to one host per device of
+    its mesh) and no local index."""
+    if _world() > 1:
+        if mesh is None:
+            raise ValueError("a multi-rank topology needs the mesh its batch is split over")
+        hosts = int(mesh.shape["data"])
+        if num_hosts is not None and num_hosts != hosts:
+            raise ValueError(
+                f"num_hosts={num_hosts} conflicts with the {hosts} ranks of the mesh's "
+                f"'data' axis: across ranks one host is one data rank")
+        return hosts, dist.get_rank(mesh.group("data")), True
+    n = int(num_hosts) if num_hosts is not None else 1
+    if n < 1:
+        raise ValueError(f"num_hosts must be >= 1, got {n}")
+    return n, None, False
+
+
+def global_batch_size(per_device_batch: int, mesh: Mesh, data_axis: str = "data") -> int:
+    return per_device_batch * int(mesh.shape[data_axis])
+
+
+def process_local_batch_size(global_batch: int, mesh: Optional[Mesh] = None,
+                             data_axis: str = "data") -> int:
+    """Rows this rank contributes a step for a global batch: the global batch
+    over the data ranks (1 without an initialised group)."""
+    ranks = reader_shard_for_mesh(mesh, data_axis)[1]
+    if global_batch % ranks:
+        raise ValueError(f"global_batch {global_batch} not divisible by the {ranks} data ranks")
+    return global_batch // ranks

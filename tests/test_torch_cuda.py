@@ -977,3 +977,70 @@ def test_synthetic_device_step_measures_its_length_on_card(cuda_device):
         torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 100
     assert 15 <= ms <= 25, ms
+
+
+def test_two_host_mesh_loader_on_card_gives_the_cpu_bytes(cuda_device, tmp_path):
+    """``MeshDataLoader`` with 2 simulated hosts onto the card and onto the
+    CPU over the same plan (seed 3): every batch on the card, every row
+    byte-equal to the CPU loader's row of the same id, each id once. The
+    hosts' parts meet in the order they arrive, so rows are matched by id."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.loader import MeshDataLoader, MeshReaderFactory
+    rng = np.random.default_rng(5)
+    pq.write_table(pa.table({"id": np.arange(600, dtype=np.int64),
+                             "x": rng.standard_normal(600).astype(np.float32),
+                             "v": pa.FixedSizeListArray.from_arrays(
+                                 pa.array(rng.standard_normal(600 * 8).astype(np.float32)), 8)}),
+                   str(tmp_path / "part0.parquet"), row_group_size=50)
+
+    def rows(device):
+        out = {}
+        with MeshDataLoader(MeshReaderFactory(f"file://{tmp_path}", batched=True), batch_size=64,
+                            num_hosts=2, seed=3, device=device, drop_last=False,
+                            pad_last=True) as loader:
+            for batch in loader:
+                assert all(t.device.type == torch.device(device).type for t in batch.values())
+                valid = batch["__valid__"].cpu() if "__valid__" in batch else None
+                for k in range(batch["id"].shape[0]):
+                    if valid is not None and not valid[k]:
+                        continue
+                    i = int(batch["id"][k])
+                    assert i not in out
+                    out[i] = (batch["x"][k].cpu(), batch["v"][k].cpu())
+        return out
+    got, want = rows("cuda"), rows("cpu")
+    assert sorted(got) == sorted(want) == list(range(600))
+    for i, (x, v) in want.items():
+        assert torch.equal(got[i][0], x) and torch.equal(got[i][1], v), i
+
+
+def test_two_rank_data_parallel_step_on_card_matches_one_process(cuda_device, tmp_path):
+    """Two ranks on ``cuda:0`` each take one bf16 AdamW step on their own
+    window (``data_group=``): bit-equal parameters on both ranks, and the
+    loss and parameters of one process stepping on both windows (the loss
+    within 2e-3 relative; each parameter within 4 lr and 90 % of it within
+    0.1 lr, the bf16 bar of the single-process parity test)."""
+    import torch_mesh_ranks
+    from petastorm_tpu_torch.ops.flash_attn import make_flash_attention
+    from petastorm_tpu_torch.parallel.launch import run_ranks
+    url = f"file://{tmp_path}/tokens"
+    window, lr = 256, 3e-4
+    cfg_kwargs = dict(vocab=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2, hidden=512)
+    write_token_store(url, windows=8, window=window, vocab=cfg_kwargs["vocab"])
+    ranks = run_ranks(torch_mesh_ranks.card_data_parallel_step, 2,
+                      args=(url, window, cfg_kwargs), device="cuda", timeout_s=300)
+    (tok0, loss0, params0), (tok1, loss1, params1) = ranks
+    assert loss0 == loss1 and not torch.equal(tok0, tok1)
+    for a, b in zip(params0, params1):
+        assert torch.equal(a, b)
+    cfg = llama.LlamaConfig(**cfg_kwargs)
+    params = llama.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    init_opt, step = llama.make_train_step(cfg, learning_rate=lr, shift="roll",
+                                           attn_fn=make_flash_attention(causal=True))
+    _, _, loss = step(params, init_opt(params), {"tokens": torch.cat([tok0, tok1]).cuda()})
+    assert abs(loss.item() - loss0) <= 2e-3 * abs(loss.item())
+    for got, want in zip(params0, llama.param_leaves(params)):
+        diff = (got - want.detach().cpu()).abs()
+        assert diff.max() <= 4 * lr and (diff <= 0.1 * lr).float().mean() >= 0.9

@@ -13,6 +13,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "petastorm_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+#: The rank functions spawned ranks import by name (no JAX either).
+RANK_MODULES = sorted((REPO / "tests").glob("torch_*_ranks.py"))
 
 _BLOCKER = r'''
 import importlib.abc, sys
@@ -89,7 +91,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.predicates", "petastorm_tpu_torch.selectors",
             "petastorm_tpu_torch.etl.rowgroup_indexers",
             "petastorm_tpu_torch.etl.rowgroup_indexing",
-            "petastorm_tpu_torch.test_util.transforms"} <= set(modules)
+            "petastorm_tpu_torch.test_util.transforms",
+            "petastorm_tpu_torch.loader.mesh_loader"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -97,7 +100,18 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert f"imported {len(modules)}" in proc.stdout
 
 
-@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_rank_modules_import_without_jax_or_the_jax_package():
+    names = [p.stem for p in RANK_MODULES]
+    assert {"torch_seq_ranks", "torch_mesh_ranks"} <= set(names)
+    proc = subprocess.run([sys.executable, "-c", _BLOCKER, *names], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={"PATH": "", "HOME": str(REPO),
+                               "PYTHONPATH": f"{REPO}:{REPO / 'tests'}"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"imported {len(names)}" in proc.stdout
+
+
+@pytest.mark.parametrize("path", SOURCES + RANK_MODULES, ids=lambda p: str(p.relative_to(REPO)))
 def test_source_names_no_jax_import(path):
     for name in _imported_names(path):
         top = name.split(".")[0]
