@@ -213,8 +213,8 @@ result line):
    batch, and K1 is launched once a batch and nothing else. (b) Phase 12's
    tensor store by ``make_batch_reader(sample_order="deterministic")``
    under ``BatchedDataLoader(1024)`` onto the card on 8 processes and 8
-   threads: the rows/s from the first batch in turns free,
-   deterministic, deterministic, free on each pool, then one kept
+   threads: the rows/s from the first batch free, then deterministic,
+   on each pool, then one kept
    deterministic epoch a pool, byte-equal across the pools; every group
    zero-copy on processes (beside phase 12's counters). (c) Phase 8's token store and a second one (seed 1), each a
    deterministic dense-NGram reader, mixed 70/30 by
@@ -226,7 +226,7 @@ result line):
    (d) ``python -m petastorm_tpu_torch.benchmark.cli --json`` on the
    reference's 10-row hello-world store at the reference's defaults (printed
    beside BASELINE.md's 709.84 samples/s, unspecified hardware), then on a
-   steady-state store of 4,000 rows at 100 a group (2,000 where a 200-row
+   steady-state store of 2,000 rows at 100 a group (1,200 where a 200-row
    probe projects the write past 60 s) with ``-d python`` on threads and on
    processes and with ``-d torch --device-step-ms 50``;
    ``loader_throughput_sweep`` onto the card; the transport sweep from 1 KB
@@ -256,6 +256,27 @@ result line):
    seconds and share of each step. (d) Phase 4's image store through
    ``MeshDataLoader(batch_size=256, num_hosts=4)`` and K1: 2048 distinct
    rows, 8 launches, bit-equal to ``normalize_images_plain``.
+17. the lazy row plane and data-parallel ResNet-50. (a) Phase 4's store
+   through ``make_reader(row_materialization="lazy")`` and the eager reader,
+   on 8 threads and 8 processes, in turns (3 each): 2 epochs through
+   ``DataLoader(batch_size=256, shuffling_queue_capacity=1024, seed=0)``
+   -> K1 (bf16, bit-equal to ``normalize_images_plain`` on every batch, one
+   launch a batch) -> phase 9's ResNet-50 SGD step (labels ``id % 100``):
+   one warm-up step, 10 pipelined; rows/s from the first batch, samples/s
+   and input stall of the pipelined window; both epochs' ids must be every
+   row twice; then the host ms a batch of the shuffle and the collate alone,
+   eager and lazy, on one epoch replayed from memory. (b) On 2 ranks
+   sharing ``cuda:0`` (gloo): ``run_imagenet_bench`` on phase 9's store at
+   128 rows a rank (global 256), 10 pipelined and 3 resident steps, with
+   the cross-rank batch norm; a 3-step data-parallel loop whose losses,
+   parameters and moving statistics must be bit-equal on the ranks, with
+   step ms and the gloo seconds of the batch norms and of the gradient sum;
+   the loop's first batch stepped in float32 (TF32 off, remat) against one
+   process on the ranks' 256 rows within ``DPR_*_REL_BAR``, and a per-rank
+   batch norm that must miss them. (c) ``DeviceCachedDataset(sharding=
+   data_sharding(mesh))`` of phase 4's store on the same ranks: half the
+   bytes each, 2 epochs at batch 256 whose rank slices are the unsharded
+   cache's batches bit for bit, K1 bit-equal on every slice.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -508,13 +529,13 @@ SELECT_SCALAR_ROWS = 100_000
 # phase 12's tensor store; phase 8's token store and a second one mixed 70/30
 # under Llama training at the token path's width; the reference's
 # hello-world store at the CLI's defaults and at a steady-state size (the
-# JAX docstring's 10,000 rows cut to 4,000 to keep the whole run inside its
+# JAX docstring's 10,000 rows cut to 2,000 to keep the whole run inside its
 # time: the CLI measures 1,000 rows after 200 of warm-up either way).
 DET_SEED, DET_WINDOW, DET_STEPS, DET_CUT = 5, 4, 6, 3
 MIX_PROBS, MIX_SEED, MIX_STEPS, MIX_CUT = (0.7, 0.3), 21, 4, 2
-HELLO_ROWS, HELLO_GROUP, HELLO_CUT_ROWS, HELLO_PROBE_ROWS = 4_000, 100, 2_000, 200
+HELLO_ROWS, HELLO_GROUP, HELLO_CUT_ROWS, HELLO_PROBE_ROWS = 2_000, 100, 1_200, 200
 #: Seconds the steady-state hello-world store may take to write, estimated
-#: from a 200-row probe; past it the store is cut to 2,000 rows.
+#: from a 200-row probe; past it the store is cut to 1,200 rows.
 HELLO_WRITE_BAR_S = 60.0
 #: BASELINE.md's hello-world rate of the reference (unspecified hardware),
 #: printed beside the port's and not compared with it.
@@ -538,6 +559,28 @@ DP_LLAMA = llama.LlamaConfig(n_layers=2)
 #: flip those whose two halves cancel; a step on one rank's window alone
 #: (the control: no gradient sum) flips about a quarter, near 1.
 DP_LOSS_REL_BAR, DP_UPDATE_REL_BAR = 2e-3, 0.3
+# The lazy row plane and data-parallel ResNet-50 (phase 17): phase 4's store
+# and batch through lazy and eager readers on both pools, in turns; phase 9's
+# model and store on 2 ranks sharing cuda:0, 128 rows a rank (global batch
+# 256); the sharded device cache of phase 4's store on the same ranks.
+LAZY_SHUFFLE, LAZY_TURNS, LAZY_STEPS = 1024, 3, 10
+LAZY_POOLS = ("thread", "process")
+DPR_RANKS, DPR_STEPS, DPR_RESIDENT, DPR_LOOP = 2, 10, 3, 3
+CACHE_DP_EPOCHS = 2
+#: The data-parallel step's first update against one process on the same
+#: 256 rows and weights, in float32 with TF32 off (bf16 roundings would be
+#: of the size of the control's difference): the loss within
+#: DPR_LOSS_REL_BAR relative, and every parameter leaf's update within
+#: DPR_UPDATE_REL_BAR, |p_dp - p_one| / |p_one - p_0| (Euclidean norms).
+#: A per-rank batch norm (the control: statistics of 128 rows, not 256)
+#: must miss them. The update bar was 2e-3 before the first card run, which
+#: expected 1e-5 from summation order alone; an H100 read 0.028 on the
+#: largest leaf (loss 1.0e-7) and the control 1.64 (smallest leaf 0.0018),
+#: so float32 noise in leaves whose gradient nearly cancels is far above
+#: the expectation. The bar now lies between the two, and the log shows one
+#: process's update on the same rows in another order (summation order
+#: alone) beside them.
+DPR_LOSS_REL_BAR, DPR_UPDATE_REL_BAR = 1e-4, 0.2
 #: The bench's result keys without a resident phase or a device peak, and
 #: the mesh keys it adds.
 LLM_KEYS = {"tokens_per_sec", "input_stall_pct", "step_time_ms", "tokens_per_step", "echo",
@@ -3209,8 +3252,8 @@ def phase_epoch_plane(smi: str, image_url: str, token_url: str, tensor_url: str,
     groups = TENSOR_ROWS // TENSOR_GROUP
     kept, rates = {}, {}
     for pool in ("thread", "process"):
-        # Timed in turns with nothing kept; then one kept epoch for the bytes.
-        for order in ("free", "deterministic", "deterministic", "free", "kept"):
+        # Timed with nothing kept; then one kept epoch for the bytes.
+        for order in ("free", "deterministic", "kept"):
             keep = order == "kept"
             r = _tensor_epoch(tensor_url, pool, "deterministic" if keep else order, keep=keep)
             rate = r["rows"] / r["from_first_s"]
@@ -3771,6 +3814,441 @@ def phase_mesh(smi: str, token_url: str, scalar_url: str, image_url: str,
     return launches
 
 
+class _ReplayReader:
+    """A reader stand-in that serves rows or ColumnarBatches read before, so
+    that a loader's host batches can be timed without the decode: the
+    shuffle and the collate alone."""
+
+    def __init__(self, schema, items, lazy: bool):
+        self.schema, self.ngram = schema, None
+        self.row_materialization = "lazy" if lazy else "eager"
+        self.batched_output = False
+        self.last_row_consumed = False
+        self._items = items
+        self._it = iter(items)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._it)
+
+    def next_batch(self):
+        return next(self._it)
+
+    def state_dict(self):
+        return {}
+
+
+def _shuffle_collate_ms(url: str) -> dict:
+    """Host ms a batch of ``DataLoader(batch_size=BATCH,
+    shuffling_queue_capacity=LAZY_SHUFFLE, seed=0)``'s shuffle and collate
+    alone, eager and lazy, over one epoch of phase 4's store read into
+    memory first (rows, or one ColumnarBatch a row group), in turns."""
+    items = {}
+    for mode in ("eager", "lazy"):
+        with make_reader(url, reader_pool_type="thread", workers_count=WORKERS, seed=0,
+                         row_materialization=mode) as reader:
+            items[mode] = list(reader) if mode == "eager" else list(_batches_of(reader))
+            schema = reader.schema
+    ms = {"eager": [], "lazy": []}
+    for turn in range(LAZY_TURNS):
+        for mode in (("eager", "lazy") if turn % 2 == 0 else ("lazy", "eager")):
+            loader = DataLoader(_ReplayReader(schema, items[mode], mode == "lazy"),
+                                batch_size=BATCH, shuffling_queue_capacity=LAZY_SHUFFLE, seed=0,
+                                device="cpu")
+            t0 = time.perf_counter()
+            n = sum(1 for _ in loader._host_batches())
+            ms[mode].append((time.perf_counter() - t0) * 1e3 / n)
+    del items
+    return ms
+
+
+def _batches_of(reader):
+    while True:
+        try:
+            yield reader.next_batch()
+        except StopIteration:
+            return
+
+
+def _lazy_turn(url: str, pool: str, mode: str, failures: list) -> dict:
+    """Phase 17 (a), one turn: 2 epochs of phase 4's store through
+    ``make_reader(row_materialization=mode)`` on ``pool`` ->
+    ``DataLoader(BATCH, shuffling_queue_capacity=LAZY_SHUFFLE, seed=0)`` ->
+    K1 (bf16, held bit for bit to the plain version on every batch) ->
+    phase 9's ResNet-50 SGD step: one warm-up step, LAZY_STEPS pipelined,
+    the rest of the 2 epochs through K1 alone. Labels are ``id % 100``."""
+    kernels.reset_launch_counts()
+    params = resnet.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                IMAGENET_CLASSES, device="cuda")
+    init_opt, raw_step = resnet.make_train_step(learning_rate=0.05)
+    opt = init_opt(params)
+    ids, batches = [], 0
+
+    def staged():
+        nonlocal batches
+        batch = next(it)
+        images = normalize_images(batch["image"])
+        check_close(images, normalize_images_plain(batch["image"]),
+                    f"(a) {pool} {mode} batch {batches}")
+        ids.append(batch["id"])
+        batches += 1
+        return {"image": images, "label": batch["id"] % IMAGENET_CLASSES}
+
+    def step(batch):
+        nonlocal params, opt
+        params, opt, loss, _ = raw_step(params, opt, batch)
+        return loss
+
+    t_call = time.perf_counter()
+    with make_reader(url, reader_pool_type=pool, workers_count=WORKERS, seed=0, num_epochs=2,
+                     row_materialization=mode) as reader:
+        if reader.row_materialization != mode:
+            failures.append(f"(a) {pool}: asked {mode}, reader is {reader.row_materialization}")
+        loader = DataLoader(reader, batch_size=BATCH, shuffling_queue_capacity=LAZY_SHUFFLE,
+                            seed=0, device="cuda")
+        it = iter(loader)
+        first = staged()
+        t_first = time.perf_counter()
+        loss = step(first)
+        loss_first, loss_last, wait_s, wall, _ = pipelined_window(step, staged, LAZY_STEPS, 0,
+                                                                  warm_loss=loss)
+        for batch in it:
+            images = normalize_images(batch["image"])
+            check_close(images, normalize_images_plain(batch["image"]),
+                        f"(a) {pool} {mode} batch {batches}")
+            ids.append(batch["id"])
+            batches += 1
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    rows = torch.cat(ids).cpu()
+    launches = kernels.launch_counts.get(KERNEL_NAME, 0)
+    if launches != batches or set(kernels.launch_counts) != {KERNEL_NAME}:
+        failures.append(f"(a) {pool} {mode}: launches {dict(kernels.launch_counts)} for "
+                        f"{batches} batches")
+    del params, opt, init_opt, raw_step, first
+    return {"rows": rows, "launches": launches, "batches": batches,
+            "rows_per_s": (len(rows) - BATCH) / (t_end - t_first),
+            "first_batch_s": t_first - t_call,
+            "samples_per_s": LAZY_STEPS * BATCH / wall, "stall_pct": 100.0 * wait_s / wall,
+            "loss_first": loss_first, "loss_last": loss_last}
+
+
+def _rank_resnet_dp(rank: int, world: int, image_url: str, slice_url: str) -> dict:
+    """Phase 17 (b) and (c) on one of ``world`` ranks sharing ``cuda:0``.
+
+    (b) ``run_imagenet_bench`` on the ranks (transfers counted); a
+    data-parallel loop of DPR_LOOP bf16 steps (step ms, the gloo seconds
+    by kind, digests of the parameters and moving statistics after it);
+    the first loop batch's step in float32 (TF32 off, remat) with the
+    cross-rank batch norm and with the per-rank control, and on rank 0 one
+    process's step on the ranks' rows together.
+    (c) ``DeviceCachedDataset(sharding=data_sharding(mesh))`` of phase 4's
+    store: this rank's bytes, digests of its slices of CACHE_DP_EPOCHS
+    epochs at BATCH (K1 on each, held to the plain version), and on rank 0
+    digests of the unsharded cache's batches, split as the ranks split them."""
+    from petastorm_tpu_torch.parallel.mesh import data_sharding, reader_shard_for_mesh
+    out = {}
+    comm.reset_transfer_stats()
+    out["bench"] = run_imagenet_bench(image_url, steps=DPR_STEPS, per_device_batch=BATCH // world,
+                                      workers_count=WORKERS // world, classes=IMAGENET_CLASSES,
+                                      resident_steps=DPR_RESIDENT, device="cuda")
+    out["bench_transfers"] = {op: dict(v) for op, v in comm.transfer_stats.items()}
+    free_cuda()
+
+    mesh = make_mesh([-1], ["data"])
+    group = mesh.group("data")
+    cur_shard, shard_count = reader_shard_for_mesh(mesh)
+    p0 = resnet.init_params(torch.Generator(device="cuda").manual_seed(0), IMAGENET_CLASSES,
+                            device="cuda")
+    params = _tree_map(torch.Tensor.clone, p0)
+    init_opt, step = resnet.make_train_step(learning_rate=0.05, data_group=group)
+    opt = init_opt(params)
+    losses, step_ms, gloo = [], [], []
+    with make_reader(image_url, reader_pool_type="thread", workers_count=WORKERS // world, seed=0,
+                     num_epochs=None, cur_shard=cur_shard, shard_count=shard_count) as reader:
+        loader = DataLoader(reader, batch_size=BATCH // world, device="cuda",
+                            sharding=data_sharding(mesh))
+        it = iter(loader)
+        for i in range(DPR_LOOP):
+            staged = next(it)
+            batch = {"image": staged["image"].float() / 255.0, "label": staged["label"]}
+            if i == 0:
+                first = {k: v.cpu() for k, v in staged.items()}
+            comm.reset_transfer_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss, _ = step(params, opt, batch)
+            losses.append(loss.item())   # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            gloo.append({op: dict(v) for op, v in comm.transfer_stats.items()})
+        it.close()
+    out.update(losses=losses, step_ms=step_ms, gloo=gloo,
+               digest=_digest(resnet.param_leaves(params)),
+               stats_digest=_digest(_stat_leaves(params)))
+    del params, opt, init_opt, step
+    free_cuda()
+
+    # The first loop batch in float32, TF32 off, remat: the cross-rank step,
+    # the per-rank control, and one process on both ranks' rows.
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    apply_bf16 = resnet.apply
+    resnet.apply = functools.partial(apply_bf16, compute_dtype=torch.float32)
+    try:
+        mine = {"image": first["image"].cuda().float() / 255.0, "label": first["label"].cuda()}
+        after = {}
+        for label in ("cross-rank batch norm", "control: per-rank batch norm"):
+            params = _tree_map(torch.Tensor.clone, p0)
+            cross = label.startswith("cross")
+            init_opt, step = resnet.make_train_step(learning_rate=0.05, remat=True,
+                                                    data_group=group if cross else None)
+            opt = init_opt(params)
+            if cross:
+                _, _, loss, _ = step(params, opt, mine)
+            else:
+                loss, _ = resnet.loss_fn(params, mine, remat=True)
+                loss.backward()
+                grads = [t.grad for t in resnet.param_leaves(params)]
+                comm.all_reduce_(grads, group)
+                for g in grads:
+                    g.div_(world)
+                summed = loss.detach().clone()
+                comm.all_reduce_([summed], group)
+                loss = summed / world
+                opt.step()
+            after[label] = ([t.detach().clone() for t in resnet.param_leaves(params)],
+                            loss.item())
+            del params, opt, init_opt, step
+            free_cuda()
+        images = [torch.empty_like(first["image"]) for _ in range(world)]
+        labels = [torch.empty_like(first["label"]) for _ in range(world)]
+        dist.all_gather(images, first["image"])
+        dist.all_gather(labels, first["label"])
+        if rank == 0:
+            whole = {"image": torch.cat(images).cuda().float() / 255.0,
+                     "label": torch.cat(labels).cuda()}
+            # One process on the 256 rows, then on the same rows in another
+            # order: the second differs from the first only in summation
+            # order, the noise floor of a float32 update.
+            order = torch.randperm(len(whole["label"]), generator=torch.Generator().manual_seed(1))
+            for label, rows in (("one process", whole),
+                                ("one process, rows permuted",
+                                 {k: v[order.cuda()] for k, v in whole.items()})):
+                params = _tree_map(torch.Tensor.clone, p0)
+                init_opt, step = resnet.make_train_step(learning_rate=0.05, remat=True)
+                _, _, loss, _ = step(params, init_opt(params), rows)
+                after[label] = ([t.detach().clone() for t in resnet.param_leaves(params)],
+                                loss.item())
+                del params, init_opt, step
+            ref, ref_loss = after.pop("one process")
+            p0_leaves = resnet.param_leaves(p0)
+            for label, (leaves, got_loss) in after.items():
+                rel = [((a - r).norm() / (r - p).norm()).item()
+                       for a, r, p in zip(leaves, ref, p0_leaves)]
+                out[label] = {"loss": got_loss, "ref_loss": ref_loss, "update_rel": rel}
+            out["leaf_names"] = _leaf_names(p0)
+            del whole, ref
+    finally:
+        resnet.apply = apply_bf16
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    del p0, after, first, mine
+    free_cuda()
+
+    # (c) The sharded device cache.
+    kernels.reset_launch_counts()
+    comm.reset_transfer_stats()
+    t0 = time.perf_counter()
+    with make_reader(slice_url, reader_pool_type="thread", workers_count=WORKERS // world,
+                     shuffle_row_groups=False) as reader:
+        cache = DeviceCachedDataset(reader, device="cuda", sharding=data_sharding(mesh))
+    load_s = time.perf_counter() - t0
+    slices = []
+    t0 = time.perf_counter()
+    for b, batch in enumerate(cache.batches(BATCH, num_epochs=CACHE_DP_EPOCHS, seed=0)):
+        check_close(normalize_images(batch["image"]), normalize_images_plain(batch["image"]),
+                    f"(c) rank {rank} batch {b}")
+        slices.append(_digest([batch["id"], batch["image"]]))
+    torch.cuda.synchronize()
+    out["cache"] = {"nbytes": cache.nbytes(), "shard_rows": cache.shard_rows,
+                    "num_rows": cache.num_rows, "slices": slices, "load_s": load_s,
+                    "serve_s": time.perf_counter() - t0,
+                    "launches": dict(kernels.launch_counts),
+                    "transfers": {op: dict(v) for op, v in comm.transfer_stats.items()}}
+    del cache
+    free_cuda()
+    if rank == 0:
+        with make_reader(slice_url, reader_pool_type="thread", workers_count=WORKERS // world,
+                         shuffle_row_groups=False) as reader:
+            whole = DeviceCachedDataset(reader, device="cuda")
+        out["cache"]["whole_nbytes"] = whole.nbytes()
+        out["cache"]["whole"] = [
+            [_digest([batch["id"][s], batch["image"][s]])
+             for s in (slice(0, BATCH // world), slice(BATCH // world, None))]
+            for batch in whole.batches(BATCH, num_epochs=CACHE_DP_EPOCHS, seed=0)]
+        del whole
+        free_cuda()
+    return out
+
+
+def _leaf_names(params) -> list:
+    """Names of ``resnet.param_leaves(params)``, in its order."""
+    names = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}.{k}" if path else k)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        elif path.rsplit(".", 1)[-1] not in ("mean", "var"):
+            names.append(path)
+
+    walk(params, "")
+    return names
+
+
+def _stat_leaves(params) -> list:
+    """Every batch norm's moving mean and variance, in a fixed order."""
+    out = []
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], k)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+        elif key in ("mean", "var"):
+            out.append(node)
+
+    walk(params)
+    return out
+
+
+def phase_lazy_dp(smi: str, slice_url: str, image_url: str) -> dict:
+    """The lazy row plane and data-parallel ResNet-50 (see the module
+    docstring, phase 17). Returns K1's launches."""
+    t_phase = time.perf_counter()
+    card = f"({smi})"
+    failures = []
+    k1 = 0
+
+    # (a) Lazy against eager at full width, in turns.
+    t0 = time.perf_counter()
+    runs = {(pool, mode): [] for pool in LAZY_POOLS for mode in ("eager", "lazy")}
+    want = torch.arange(ROWS).repeat(2).sort().values
+    for turn in range(LAZY_TURNS):
+        modes = ("eager", "lazy") if turn % 2 == 0 else ("lazy", "eager")
+        for pool in LAZY_POOLS:
+            for mode in modes:
+                free_cuda()
+                r = _lazy_turn(slice_url, pool, mode, failures)
+                k1 += r["launches"]
+                if not torch.equal(r.pop("rows").sort().values, want):
+                    failures.append(f"(a) {pool} {mode} turn {turn}: the 2 epochs' ids are not "
+                                    f"every row twice")
+                runs[(pool, mode)].append(r)
+    for (pool, mode), rs in runs.items():
+        log(f"[lazy] (a) {card} {pool} x{WORKERS} {mode}: rows/s from the first batch "
+            f"{[round(r['rows_per_s'], 1) for r in rs]}, first batch after "
+            f"{[round(r['first_batch_s'], 2) for r in rs]} s; pipelined ResNet-50 "
+            f"{[round(r['samples_per_s'], 1) for r in rs]} samples/s, input stall "
+            f"{[round(r['stall_pct'], 1) for r in rs]} %; losses "
+            f"{[(round(r['loss_first'], 4), round(r['loss_last'], 4)) for r in rs]}; "
+            f"{rs[0]['batches']} batches and K1 launches a turn")
+    ms = _shuffle_collate_ms(slice_url)
+    log(f"[lazy] (a) {card} host ms a batch of shuffle + collate alone (one epoch replayed from "
+        f"memory, batch {BATCH}, capacity {LAZY_SHUFFLE}): eager "
+        f"{[round(x, 2) for x in ms['eager']]}, lazy {[round(x, 2) for x in ms['lazy']]}; "
+        f"(a) took {time.perf_counter() - t0:.1f} s")
+    free_cuda()
+
+    # (b) and (c) on 2 ranks sharing cuda:0.
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank_resnet_dp, DPR_RANKS, args=(image_url, slice_url), device="cuda")
+    wall = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        bench = got["bench"]
+        share = []
+        for g, ms_step in zip(got["gloo"], got["step_ms"]):
+            s_bn = sum(g.get(k, {}).get("seconds", 0.0) for k in ("bn_stats", "bn_grad"))
+            s_sum = g.get("all_reduce", {}).get("seconds", 0.0)
+            share.append((round(s_bn, 4), round(s_sum, 4),
+                          round(100 * (s_bn + s_sum) / (ms_step / 1e3), 1)))
+        log(f"[lazy] (b) {card} rank {r}: bench {bench['samples_per_sec']} samples/s (global "
+            f"batch {bench['global_batch']}, devices {bench['devices']}), per chip "
+            f"{bench['samples_per_sec_per_chip']}, stall {bench['input_stall_pct']} %, step "
+            f"{bench['step_time_ms']} ms, resident {bench.get('step_time_ms_resident')} ms, "
+            f"gloo {bench['gloo_s']} s over {DPR_STEPS + DPR_RESIDENT} steps, losses "
+            f"{bench['loss_first']} -> {bench['loss_last']}; transfers {got['bench_transfers']}")
+        log(f"[lazy] (b) {card} rank {r}: data-parallel loop step ms "
+            f"{[round(x, 1) for x in got['step_ms']]}, losses {got['losses']}; gloo a step "
+            f"(batch norms s, gradient sum s, % of the step) {share}; calls "
+            f"{ {k: v['calls'] for k, v in got['gloo'][-1].items()} }")
+        if set(bench) != IMAGENET_KEYS | {"gloo_s"} or bench["devices"] != DPR_RANKS \
+                or bench["global_batch"] != BATCH:
+            failures.append(f"(b) rank {r}: bench keys {sorted(bench)}")
+    r0, r1 = ranks
+    if (r0["bench"]["loss_first"], r0["bench"]["loss_last"], r0["losses"]) != \
+            (r1["bench"]["loss_first"], r1["bench"]["loss_last"], r1["losses"]):
+        failures.append(f"(b) the ranks' losses differ: {r0['losses']} {r1['losses']}")
+    same = sum(a == b for a, b in zip(r0["digest"], r1["digest"]))
+    same_stats = sum(a == b for a, b in zip(r0["stats_digest"], r1["stats_digest"]))
+    if same != len(r0["digest"]) or same_stats != len(r0["stats_digest"]):
+        failures.append(f"(b) bit-equal on the ranks: parameters {same} of {len(r0['digest'])}, "
+                        f"moving statistics {same_stats} of {len(r0['stats_digest'])}")
+    cross, ctrl = r0["cross-rank batch norm"], r0["control: per-rank batch norm"]
+    floor = r0["one process, rows permuted"]
+    loss_rel = abs(cross["loss"] - cross["ref_loss"]) / abs(cross["ref_loss"])
+    ctrl_loss_rel = abs(ctrl["loss"] - ctrl["ref_loss"]) / abs(ctrl["ref_loss"])
+    worst, worst_ctrl = max(cross["update_rel"]), max(ctrl["update_rel"])
+    names = r0["leaf_names"]
+    for label, r in (("cross-rank", cross), ("rows permuted", floor), ("control", ctrl)):
+        top = sorted(range(len(names)), key=lambda i: -r["update_rel"][i])[:4]
+        log(f"[lazy] (b) {card} {label}: largest update distances "
+            f"{[(names[i], round(r['update_rel'][i], 5)) for i in top]}; median "
+            f"{statistics.median(r['update_rel']):.3g}")
+    log(f"[lazy] (b) {card} {DPR_RANKS} ranks, {wall:.1f} s with the spawn: parameters bit-equal "
+        f"on the ranks in {same} of {len(r0['digest'])} leaves, moving statistics in "
+        f"{same_stats} of {len(r0['stats_digest'])}, after {DPR_LOOP} steps; first step in "
+        f"float32 against one process on the {BATCH} rows: loss {cross['loss']} vs "
+        f"{cross['ref_loss']} ({loss_rel:.3g} relative, bar {DPR_LOSS_REL_BAR}), "
+        f"|p_dp - p_one| / |p_one - p_0| largest {worst:.4g} (bar {DPR_UPDATE_REL_BAR}); "
+        f"control (per-rank batch norm): loss {ctrl['loss']} ({ctrl_loss_rel:.3g}), largest "
+        f"{worst_ctrl:.4g}, smallest {min(ctrl['update_rel']):.4g}")
+    if loss_rel > DPR_LOSS_REL_BAR or worst > DPR_UPDATE_REL_BAR:
+        failures.append(f"(b) cross-rank step: loss {loss_rel:.3g}, update {worst:.4g}")
+    if worst_ctrl <= DPR_UPDATE_REL_BAR and ctrl_loss_rel <= DPR_LOSS_REL_BAR:
+        failures.append(f"(b) the control (per-rank batch norm) passed the bar: "
+                        f"{worst_ctrl:.4g}, {ctrl_loss_rel:.3g}")
+
+    c0, c1 = r0["cache"], r1["cache"]
+    row_bytes = int(np.prod(IMAGE_SHAPE)) + 8   # the image and the int64 id
+    half = -(-ROWS // DPR_RANKS) * row_bytes
+    joined = [[a, b] for a, b in zip(c0["slices"], c1["slices"])]
+    cache_k1 = sum(c["launches"].get(KERNEL_NAME, 0) for c in (c0, c1))
+    k1 += cache_k1
+    log(f"[lazy] (c) {card} sharded cache: {c0['nbytes']} + {c1['nbytes']} bytes on the ranks "
+        f"(unsharded {c0['whole_nbytes']}), shard rows {c0['shard_rows']}; load "
+        f"{c0['load_s']:.2f} / {c1['load_s']:.2f} s, {len(c0['slices'])} steps served in "
+        f"{c0['serve_s']:.2f} / {c1['serve_s']:.2f} s; slices equal to the unsharded batches: "
+        f"{joined == c0['whole']}; K1 {cache_k1} launches, bit-equal on every slice; "
+        f"transfers rank 0 {c0['transfers']}")
+    if c0["nbytes"] != half or c1["nbytes"] != half or c0["whole_nbytes"] != ROWS * row_bytes \
+            or joined != c0["whole"] \
+            or len(joined) != CACHE_DP_EPOCHS * ROWS // BATCH \
+            or cache_k1 != DPR_RANKS * len(joined):
+        failures.append(f"(c) sharded cache: bytes {c0['nbytes']}, {c1['nbytes']} (want {half}), "
+                        f"equal {joined == c0['whole']}, launches {cache_k1}")
+    log(f"[lazy] {card} phase took {time.perf_counter() - t_phase:.1f} s; K1 launches {k1}")
+    if failures:
+        raise AssertionError("lazy/data-parallel phase: " + "; ".join(failures))
+    return {KERNEL_NAME: k1}
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """``t`` seen as integers of its width, so that equality is bit equality."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -3832,6 +4310,9 @@ def main() -> int:
         mesh = timed("16 mesh", phase_mesh, smi, f"file://{train_tmp}/tokens",
                      f"file://{columnar_tmp}/scalar_100k", f"file://{slice_tmp}/imagenet_like",
                      single_reader)
+        free_cuda()
+        lazy = timed("17 lazy + dp resnet", phase_lazy_dp, smi,
+                     f"file://{slice_tmp}/imagenet_like", f"file://{image_tmp}/imagenet")
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
@@ -3844,7 +4325,8 @@ def main() -> int:
         "source": "petastorm_tpu_torch/csrc/normalize.cu",
         "replaces": "petastorm_tpu/ops/image_ops.py:27",
         "launches": (launches + proc["normalize"] + resume.get(KERNEL_NAME, 0)
-                     + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]),
+                     + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]
+                     + lazy[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

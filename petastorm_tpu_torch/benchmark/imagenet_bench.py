@@ -242,16 +242,40 @@ def run_imagenet_bench(url: str, steps: int = 30, per_device_batch: int = 32,
     timed window; timing is :func:`pipelined_window`'s. FLOPs are
     :func:`~petastorm_tpu_torch.models.resnet.resnet50_flops_per_step`'s
     analytic count (the reference asks XLA's cost model, which PyTorch does
-    not have); ``mfu_pct`` is against the device's bf16 peak."""
+    not have); ``mfu_pct`` is against the device's bf16 peak.
+
+    Data parallel: on the ranks of an initialised default group of P > 1
+    (the JAX bench's data mesh over its devices), every rank must call it.
+    Each rank reads its shard of the store
+    (:func:`~petastorm_tpu_torch.parallel.mesh.reader_shard_for_mesh`),
+    takes ``per_device_batch`` rows a step and trains with
+    ``make_train_step(data_group=)``: a cross-rank batch norm and the
+    gradients summed over gloo. ``devices`` is P, ``global_batch`` is
+    ``per_device_batch * P``, ``samples_per_sec`` counts the global batch
+    and ``samples_per_sec_per_chip`` divides it by P, as the JAX bench;
+    ``gloo_s`` (the port's own key) is the seconds this rank spent in
+    :mod:`~petastorm_tpu_torch.parallel.comm` over the pipelined and
+    resident steps."""
     from petastorm_tpu_torch.loader import DataLoader, DTypePolicy
     from petastorm_tpu_torch.loader.loader import resolve_device
     from petastorm_tpu_torch.models import resnet
+    from petastorm_tpu_torch.parallel import comm
+    from petastorm_tpu_torch.parallel import mesh as pmesh
     from petastorm_tpu_torch.reader import make_reader
 
     dev = resolve_device(device)
-    batch_size = per_device_batch
+    dist = torch.distributed
+    ranks = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    shard, sharding, group = {}, None, None
+    if ranks > 1:
+        mesh = pmesh.make_mesh([-1], ["data"])
+        cur_shard, shard_count = pmesh.reader_shard_for_mesh(mesh)
+        shard = {"cur_shard": cur_shard, "shard_count": shard_count}
+        sharding, group = pmesh.data_sharding(mesh), mesh.group("data")
+    batch_size = per_device_batch * ranks
     params = resnet.init_params(torch.Generator(device=dev).manual_seed(0), classes, device=dev)
-    init_opt, raw_step = resnet.make_train_step(learning_rate=0.05, remat=remat)
+    init_opt, raw_step = resnet.make_train_step(learning_rate=0.05, remat=remat,
+                                                data_group=group)
     opt = init_opt(params)
 
     def step(batch):
@@ -261,10 +285,11 @@ def run_imagenet_bench(url: str, steps: int = 30, per_device_batch: int = 32,
         return loss
 
     reader = make_reader(url, num_epochs=None, shuffle_row_groups=True, seed=0,
-                         reader_pool_type=pool_type, workers_count=workers_count)
+                         reader_pool_type=pool_type, workers_count=workers_count, **shard)
     try:
-        loader = DataLoader(reader, batch_size=batch_size, prefetch=prefetch,
-                            dtype_policy=DTypePolicy(), echo=echo, device=dev)
+        loader = DataLoader(reader, batch_size=per_device_batch, prefetch=prefetch,
+                            dtype_policy=DTypePolicy(), echo=echo, device=dev,
+                            sharding=sharding)
     except BaseException:
         # The loader owns reader shutdown only once constructed.
         reader.stop()
@@ -274,11 +299,13 @@ def run_imagenet_bench(url: str, steps: int = 30, per_device_batch: int = 32,
         it = iter(loader)
         try:
             batch = next(it)
-            flops_per_step = resnet.resnet50_flops_per_step(batch_size, batch["image"].shape[1],
-                                                            classes)
+            flops_per_step = resnet.resnet50_flops_per_step(per_device_batch,
+                                                            batch["image"].shape[1], classes)
             loss = step(batch)
+            gloo_before = sum(v["seconds"] for v in comm.transfer_stats.values())
             loss_first, loss_last, wait_s, total_wall, resident_s = pipelined_window(
                 step, lambda: next(it), steps, resident_steps, warm_loss=loss)
+            gloo_s = sum(v["seconds"] for v in comm.transfer_stats.values()) - gloo_before
         finally:
             it.close()
 
@@ -287,9 +314,9 @@ def run_imagenet_bench(url: str, steps: int = 30, per_device_batch: int = 32,
     device_kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     result = {
         "samples_per_sec": sps,
-        "samples_per_sec_per_chip": sps,
+        "samples_per_sec_per_chip": sps / ranks,
         "input_stall_pct": 100.0 * wait_s / total_wall,
-        "devices": 1,
+        "devices": ranks,
         "global_batch": batch_size,
         "echo": echo,
         "loss_first": loss_first,
@@ -300,6 +327,8 @@ def run_imagenet_bench(url: str, steps: int = 30, per_device_batch: int = 32,
     if resident_s is not None:
         result["step_time_ms_resident"] = 1000.0 * resident_s
         result["samples_per_sec_resident"] = batch_size / resident_s
-        result["samples_per_sec_per_chip_resident"] = batch_size / resident_s
+        result["samples_per_sec_per_chip_resident"] = batch_size / resident_s / ranks
+    if ranks > 1:
+        result["gloo_s"] = gloo_s
     utilization_metrics(result, flops_per_step, step_time_s, resident_s, device_kind)
     return result

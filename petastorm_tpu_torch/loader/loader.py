@@ -4,7 +4,9 @@
   shuffled through a seeded row buffer and collated into
   ``{field: array}`` batches of ``batch_size`` rows. NGram windows collate
   to a dense ``(batch, length, *shape)`` array per field (see
-  :meth:`DataLoader._collate_ngram`).
+  :meth:`DataLoader._collate_ngram`). A lazy reader
+  (``row_materialization="lazy"``) is read a row group at a time and
+  shuffled and collated a column at a time (:meth:`DataLoader._lazy_host_batches`).
 * :class:`BatchedDataLoader`: the row groups of a ``make_batch_reader``
   reader are re-chunked into batches by vectorized column buffers
   (:mod:`.batched_buffer`), optionally shuffled.
@@ -74,7 +76,9 @@ from petastorm_tpu_torch.loader.batched_buffer import (BatchedNoopShufflingBuffe
 from petastorm_tpu_torch.loader.dtypes import (DEFAULT_POLICY, DTypePolicy, sanitize_array,
                                                sanitize_batch)
 from petastorm_tpu_torch.metrics import PipelineMetrics, traced_span
-from petastorm_tpu_torch.reader_impl.shuffling_buffer import RandomShufflingBuffer
+from petastorm_tpu_torch.reader_impl.batch_plane import concat_column_slices
+from petastorm_tpu_torch.reader_impl.shuffling_buffer import (BatchShufflingBuffer,
+                                                              RandomShufflingBuffer)
 
 #: Consumer poll period on the staged-batch queue: bounds how late a dead
 #: staging thread is noticed, not delivery latency.
@@ -159,6 +163,35 @@ def _numpy_view(t: torch.Tensor) -> Optional[np.ndarray]:
         return None
 
 
+def _check_sharding(sharding) -> None:
+    """Raise where the layout cannot describe a rank's batch (see
+    :class:`LoaderBase`'s ``sharding``)."""
+    if sharding is None:
+        return
+    from petastorm_tpu_torch.parallel.mesh import BatchSharding
+    if not isinstance(sharding, BatchSharding):
+        raise TypeError(f"sharding must be a parallel.mesh.BatchSharding, got "
+                        f"{type(sharding).__name__}")
+    spec = tuple(sharding.spec)
+    for entry in spec:
+        for name in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
+            if name not in sharding.mesh.shape:
+                raise ValueError(f"sharding spec {spec} names the axis {name!r}, which the "
+                                 f"mesh {sharding.mesh.shape} lacks")
+    if any(entry is not None for entry in spec[1:]):
+        raise ValueError(f"sharding spec {spec} splits a dimension other than the batch's; a "
+                         f"rank stages whole rows of its slice of the batch")
+
+
+def _check_sharded_columns(sharding, cols) -> None:
+    if sharding is None:
+        return
+    for name, v in cols.items():
+        if v.ndim < len(sharding.spec):
+            raise ValueError(f"column {name!r} has {v.ndim} dimension(s), fewer than the "
+                             f"sharding spec {tuple(sharding.spec)} names")
+
+
 class _PinnedStager:
     """Host -> CUDA copies of whole batches: the columns packed into one
     pinned buffer per batch signature (a ring of them), one copy a span of
@@ -229,12 +262,19 @@ class LoaderBase:
         batches from one pipeline that lives across passes (no staged batch
         is lost between them), and raises ``RuntimeError`` when the stream
         ends sooner; see :func:`aligned_steps_per_epoch`
+    :param sharding: a :class:`~petastorm_tpu_torch.parallel.mesh.BatchSharding`
+        describing how the global batch lies over the ranks. A rank's batch
+        already is its slice, so it is staged as it is: the argument only
+        checks the layout, and raises where the JAX loader's
+        ``make_array_from_process_local_data`` would (another type, an
+        axis the mesh lacks, a split of a dimension other than the batch's,
+        a column with fewer dimensions than the spec names)
     """
 
     def __init__(self, batch_size: int, drop_last: bool = True, pad_last: bool = False,
                  prefetch: int = 2, device="cuda", echo: int = 1,
                  dtype_policy: DTypePolicy = DEFAULT_POLICY,
-                 steps_per_epoch: Optional[int] = None):
+                 steps_per_epoch: Optional[int] = None, sharding=None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if echo < 1:
@@ -242,6 +282,8 @@ class LoaderBase:
         if steps_per_epoch is not None and steps_per_epoch < 1:
             raise ValueError(f"steps_per_epoch must be >= 1, got {steps_per_epoch}")
         self._device = resolve_device(device)
+        self._sharding = sharding
+        _check_sharding(sharding)
         self._batch_size = batch_size
         self._pad_last = pad_last
         self._drop_last = drop_last and not pad_last
@@ -427,6 +469,7 @@ class LoaderBase:
                     t1 = time.perf_counter()
                     with traced_span("petastorm_tpu.stage"):
                         cols, host_cols = sanitize_batch(hb, self._dtype_policy)
+                        _check_sharded_columns(self._sharding, cols)
                         if cuda:
                             staged, event = stager.stage(cols)
                         else:
@@ -598,10 +641,10 @@ class DataLoader(LoaderBase):
                  drop_last: bool = True, pad_last: bool = False,
                  prefetch: int = 2, device="cuda", echo: int = 1,
                  dtype_policy: DTypePolicy = DEFAULT_POLICY,
-                 steps_per_epoch: Optional[int] = None):
+                 steps_per_epoch: Optional[int] = None, sharding=None):
         super().__init__(batch_size, drop_last=drop_last, pad_last=pad_last, prefetch=prefetch,
                          device=device, echo=echo, dtype_policy=dtype_policy,
-                         steps_per_epoch=steps_per_epoch)
+                         steps_per_epoch=steps_per_epoch, sharding=sharding)
         self._reader = reader
         self._ngram = getattr(reader, "ngram", None)
         self._shuffling_capacity = shuffling_queue_capacity
@@ -639,22 +682,26 @@ class DataLoader(LoaderBase):
     def _collate(self, rows) -> Dict[str, np.ndarray]:
         if self._ngram is not None:
             return self._collate_ngram(rows)
-        out = {}
-        fields = self._reader.schema.fields
-        for name in rows[0]._fields:
-            values = [getattr(r, name) for r in rows]
-            field = fields.get(name)
-            if field is not None and any(d is None for d in field.shape):
-                arr = np.empty(len(values), object)   # ragged: stays on the host
-                for i, v in enumerate(values):
-                    arr[i] = v
-                out[name] = arr
-                continue
-            if any(v is None for v in values):
-                raise ValueError(f"Field {name!r} contains nulls; exclude the field "
-                                 f"or fill the nulls before batching")
-            out[name] = np.stack([np.asarray(v) for v in values])
-        return out
+        return {name: self._column(name, [getattr(r, name) for r in rows])
+                for name in rows[0]._fields}
+
+    def _varlen(self, name: str) -> bool:
+        field = self._reader.schema.fields.get(name)
+        return field is not None and any(d is None for d in field.shape)
+
+    def _column(self, name: str, values: list) -> np.ndarray:
+        """One field's values as a batch column: an object array for a
+        variable-length field (it stays on the host), else one stack; nulls
+        raise."""
+        if self._varlen(name):
+            arr = np.empty(len(values), object)
+            for i, v in enumerate(values):
+                arr[i] = v
+            return arr
+        if any(v is None for v in values):
+            raise ValueError(f"Field {name!r} contains nulls; exclude the field "
+                             f"or fill the nulls before batching")
+        return np.stack([np.asarray(v) for v in values])
 
     def _collate_ngram(self, windows) -> Dict[str, np.ndarray]:
         """NGram windows -> one array per field with the window offsets as
@@ -698,7 +745,77 @@ class DataLoader(LoaderBase):
                     out[f"{name}/{o}"] = column(name, [getattr(w[o], name) for w in windows])
         return out
 
+    def _lazy_columns(self, batch) -> Dict[str, np.ndarray]:
+        """One ColumnarBatch's columns as arrays, by :meth:`_collate`'s rule
+        (:meth:`_column`), applied once a column instead of once a row; an
+        array column of a fixed-shape field passes through."""
+        return {name: col if (isinstance(col, np.ndarray) and col.dtype != object
+                              and not self._varlen(name)) else self._column(name, list(col))
+                for name, col in batch.columns.items()}
+
+    def _lazy_host_batches(self):
+        """The lazy row plane (the JAX package's ``_batch_native_host_batches``):
+        whole ColumnarBatches off ``reader.next_batch()``, shuffled as
+        permuted slices by a :class:`BatchShufflingBuffer` when
+        ``shuffling_queue_capacity > 1``, else re-chunked in order, and
+        collated by one ``np.concatenate`` a column: no loop over rows
+        between the worker and the pinned stager. A batch of one slice is a
+        view of the buffer's pool; the stager copies it before the next
+        batch is assembled."""
+        reader = self._reader
+        if reader.last_row_consumed:
+            reader.reset()
+        shuffled = self._shuffling_capacity and self._shuffling_capacity > 1
+        if shuffled:
+            buf = BatchShufflingBuffer(
+                self._shuffling_capacity,
+                min_after_retrieve=(self._min_after if self._min_after is not None
+                                    else self._shuffling_capacity // 2),
+                seed=self._seed)
+        else:
+            buf = BatchedNoopShufflingBuffer(self._batch_size)
+        exhausted = False
+        buffered_rows = 0
+        parts, part_rows = [], 0
+        while True:
+            while not exhausted and buf.can_add:
+                if buffered_rows == 0 and part_rows == 0:
+                    # Nothing buffered: every later batch is made of rows
+                    # pulled after this cursor, so it resumes without loss.
+                    self._pending_safe_state = self._snapshot_live_state()
+                try:
+                    cols = self._lazy_columns(reader.next_batch())
+                except StopIteration:
+                    exhausted = True
+                    buf.finish()
+                    break
+                if cols:
+                    buffered_rows += len(next(iter(cols.values())))
+                    buf.add_many(cols)
+            if buf.can_retrieve:
+                piece = (buf.retrieve_batch(self._batch_size - part_rows) if shuffled
+                         else buf.retrieve())
+                n = len(next(iter(piece.values())))
+                buffered_rows = max(0, buffered_rows - n)
+                parts.append(piece)
+                part_rows += n
+                # A slice is capped at what the batch still needs, and the
+                # FIFO serves whole batches up to its short tail: a batch is
+                # exact, never overshot.
+                if part_rows == self._batch_size:
+                    yield concat_column_slices(parts)
+                    parts, part_rows = [], 0
+            elif exhausted:
+                break
+        if part_rows:
+            tail = self._finalize_tail(concat_column_slices(parts), part_rows)
+            if tail is not None:
+                yield tail
+
     def _host_batches(self):
+        if getattr(self._reader, "row_materialization", "eager") == "lazy" and self._ngram is None:
+            yield from self._lazy_host_batches()
+            return
         rows = []
         for row in self._row_iterator():
             rows.append(row)

@@ -15,6 +15,11 @@ ordinals, and assembles their rows into batches:
   its own device. A rank's batch is its slice of the global batch; nothing
   is gathered (the JAX loader binds the slices into one global array).
 
+A host's reader is pulled one item at a time: a batched reader's row group,
+a lazy row reader's ``ColumnarBatch`` (``row_materialization="lazy"`` among
+the factory's arguments; through ``next_batch()``, its list columns stacked
+once), a row reader's row or a dense NGram window.
+
 Shard plan
 ----------
 :meth:`MeshDataLoader.epoch_plan` applies the reader's own shard arithmetic
@@ -61,6 +66,7 @@ import torch.distributed as dist
 
 from petastorm_tpu_torch.errors import NoDataAvailableError
 from petastorm_tpu_torch.loader.loader import LoaderBase
+from petastorm_tpu_torch.reader_impl.batch_plane import ColumnarBatch
 
 logger = logging.getLogger(__name__)
 
@@ -427,7 +433,9 @@ class MeshDataLoader(LoaderBase):
                 self._cond.notify_all()
 
     def _items(self, reader):
-        if reader.batched_output:
+        # A batched or lazy reader hands over a row group a pull (a lazy
+        # one as a ColumnarBatch), with the row readers' delivery watermark.
+        if reader.batched_output or getattr(reader, "row_materialization", "eager") == "lazy":
             while True:
                 try:
                     yield reader.next_batch()
@@ -542,7 +550,9 @@ class MeshDataLoader(LoaderBase):
     def _part_from_item(self, feed: _HostFeed, src: _Source, item) -> Optional[_Part]:
         try:
             with self._collate_lock:
-                if src.reader.batched_output:
+                if isinstance(item, ColumnarBatch):
+                    cols = self._lazy_batch_columns(item)
+                elif src.reader.batched_output:
                     cols = self._batchable_columns(item)
                 elif hasattr(item, "_fields"):
                     cols = self._row_columns(item)
@@ -550,7 +560,8 @@ class MeshDataLoader(LoaderBase):
                     cols = self._ngram_columns(item)
                 else:
                     raise TypeError(f"mesh host reader yielded {type(item).__name__}; expected "
-                                    f"a namedtuple, a batch of columns or an NGram dense window")
+                                    f"a namedtuple, a batch of columns, a ColumnarBatch or an "
+                                    f"NGram dense window")
                 if not cols:
                     return None
                 rows = len(next(iter(cols.values())))
@@ -566,6 +577,34 @@ class MeshDataLoader(LoaderBase):
         except (TypeError, ValueError) as e:
             raise _ConfigError(e) from e
         return _Part(feed.idx, cols, rows, src)
+
+    def _lazy_batch_columns(self, batch: ColumnarBatch) -> Dict[str, np.ndarray]:
+        """A lazy reader's ColumnarBatch -> batchable columns: array columns
+        pass through, list columns stack once; strings, objects, nulls and
+        ragged cells are dropped with the loaders' one warning, as on the
+        row path."""
+        cols, skipped = {}, []
+        for name, col in batch.columns.items():
+            if isinstance(col, np.ndarray):
+                if col.dtype == object or col.dtype.kind in "US":
+                    skipped.append(name)
+                else:
+                    cols[name] = col
+                continue
+            try:
+                if any(v is None for v in col):
+                    skipped.append(name)
+                    continue
+                arr = np.stack([np.asarray(v) for v in col])
+            except (TypeError, ValueError):
+                skipped.append(name)
+                continue
+            if arr.dtype == object or arr.dtype.kind in "US":
+                skipped.append(name)
+            else:
+                cols[name] = arr
+        self._warn_skipped_fields(skipped)
+        return cols
 
     def _row_columns(self, row) -> Dict[str, np.ndarray]:
         """A row's namedtuple -> 1-row columns; strings, objects and nulls

@@ -22,10 +22,15 @@ follows the reference:
   running update would use the unbiased variance. The statistics are
   returned, not written into buffers, so the train step stays pure and a
   rematerialised block does not update them twice.
+* With a ``data_group`` (data parallelism: each rank holds its own rows of
+  the global batch) batch norm normalises by the global batch's statistics,
+  which is what the reference's ``jnp.mean``/``jnp.var`` compute under GSPMD
+  over a batch sharded on ``"data"`` (:class:`CrossRankBatchNorm`).
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, List
 
 import numpy as np
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from petastorm_tpu_torch.loader.loader import resolve_device
+from petastorm_tpu_torch.parallel import comm
 
 Params = Dict[str, Any]
 
@@ -129,6 +135,90 @@ def _max_pool(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 3, 2, padding=padding)
 
 
+def _combine_moments(moments: List[torch.Tensor]):
+    """``(count, mean, M2)`` a channel over every rank's ``(3, C)`` float32
+    ``[count, mean, M2]``, folded in rank order (Chan et al.'s pairwise
+    update): every rank folds the same gathered values in the same order, so
+    every rank holds the same bits."""
+    n, mean, m2 = moments[0]
+    for other in moments[1:]:
+        nb, mean_b, m2_b = other
+        total = n + nb
+        delta = mean_b - mean
+        mean = mean + delta * (nb / total)
+        m2 = m2 + m2_b + delta * delta * (n * nb / total)
+        n = total
+    return n, mean, m2
+
+
+def _channel(v: torch.Tensor) -> torch.Tensor:
+    """A per-channel vector broadcast over (N, C, H, W)."""
+    return v[None, :, None, None]
+
+
+class CrossRankBatchNorm(torch.autograd.Function):
+    """Training batch norm over the global batch of a data-parallel group:
+    ``apply(x, scale, bias, group, eps) -> (y, mean, var)``, ``x`` (N, C, H,
+    W) this rank's rows, ``mean`` and ``var`` the global batch's float32
+    mean and population variance a channel (not differentiable).
+
+    Forward: each rank's count, mean and M2 (the sum of squared deviations,
+    from ``torch.var_mean``: no float32 sum of squares, which would lose the
+    variance of millions of values a channel) are gathered and folded in
+    rank order (:func:`_combine_moments`); then ``y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in float32, rounded to ``x``'s
+    dtype, as the reference computes it.
+
+    Backward: with ``x^ = (x - mean) * rsqrt(var + eps)`` and the global
+    count M, ``dx = (dy - sum(dy) / M - x^ * sum(dy x^) / M) * rsqrt(var +
+    eps) * scale``, where both sums run over the global batch: one
+    all-reduce of the two a channel. ``dscale`` and ``dbias`` are this
+    rank's sums (the train step sums every gradient over the group).
+    :data:`~petastorm_tpu_torch.parallel.comm.transfer_stats` counts the
+    forward's gathers as ``bn_stats`` and the backward's sums as
+    ``bn_grad``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, group, eps):
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        local = xf.numel() // xf.shape[1]
+        moments = torch.stack([torch.full_like(mean, float(local)), mean, var * local])
+        count, mean, m2 = _combine_moments(comm.all_gather(moments, group,
+                                                           record_as="bn_stats"))
+        var = m2 / count
+        invstd = torch.rsqrt(var + eps)
+        y = ((xf - _channel(mean)) * _channel(invstd * scale) + _channel(bias)).to(x.dtype)
+        ctx.save_for_backward(x, scale, mean, invstd, count)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, scale, mean, invstd, count = ctx.saved_tensors
+        xhat = (x.float() - _channel(mean)) * _channel(invstd)
+        dyf = dy.float()
+        sums = torch.stack([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
+        dbias, dscale = sums[0].clone(), sums[1].clone()
+        comm.all_reduce_([sums], ctx.group, record_as="bn_grad")
+        dx = (dyf - _channel(sums[0] / count) - xhat * _channel(sums[1] / count)) \
+            * _channel(invstd * scale)
+        return dx.to(x.dtype), dscale, dbias, None, None
+
+
+def _global_batch_norm(x: torch.Tensor, bn: dict, train: bool, data_group,
+                       momentum=_BN_MOMENTUM, eps=_BN_EPS):
+    """:func:`_batch_norm` over the global batch of ``data_group``
+    (:class:`CrossRankBatchNorm`) in training: the moving statistics blend
+    the global statistics, so they are equal on every rank."""
+    if not train:
+        return _batch_norm(x, bn, train)
+    out, mean, var = CrossRankBatchNorm.apply(x, bn["scale"], bn["bias"], data_group, eps)
+    return out, {"mean": momentum * bn["mean"] + (1 - momentum) * mean,
+                 "var": momentum * bn["var"] + (1 - momentum) * var}
+
+
 def _batch_norm(x: torch.Tensor, bn: dict, train: bool, momentum=_BN_MOMENTUM, eps=_BN_EPS):
     """-> (batch norm of ``x`` in ``x``'s dtype, new moving statistics).
     Statistics and the affine map are float32. In training the batch's
@@ -147,35 +237,49 @@ def _batch_norm(x: torch.Tensor, bn: dict, train: bool, momentum=_BN_MOMENTUM, e
     return out, {"mean": bn["mean"], "var": bn["var"]}
 
 
-def _bottleneck(x: torch.Tensor, block: dict, stride: int, train: bool):
+def _norm(train: bool, data_group):
+    """A layer's batch norm ``(x, bn) -> (y, stats)``: one process's, or
+    the global batch's of ``data_group``."""
+    if data_group is None:
+        return partial(_batch_norm, train=train)
+    return partial(_global_batch_norm, train=train, data_group=data_group)
+
+
+def _bottleneck(x: torch.Tensor, block: dict, stride: int, train: bool, data_group=None):
     stats = {}
-    h, stats["bn1"] = _batch_norm(_conv(x, block["conv1"]), block["bn1"], train)
+    bn = _norm(train, data_group)
+    h, stats["bn1"] = bn(_conv(x, block["conv1"]), block["bn1"])
     h = F.relu(h)
-    h, stats["bn2"] = _batch_norm(_conv(h, block["conv2"], stride), block["bn2"], train)
+    h, stats["bn2"] = bn(_conv(h, block["conv2"], stride), block["bn2"])
     h = F.relu(h)
-    h, stats["bn3"] = _batch_norm(_conv(h, block["conv3"]), block["bn3"], train)
+    h, stats["bn3"] = bn(_conv(h, block["conv3"]), block["bn3"])
     if "proj" in block:
-        shortcut, stats["proj_bn"] = _batch_norm(_conv(x, block["proj"], stride),
-                                                 block["proj_bn"], train)
+        shortcut, stats["proj_bn"] = bn(_conv(x, block["proj"], stride), block["proj_bn"])
     else:
         shortcut = x
     return F.relu(h + shortcut), stats
 
 
 def apply(params: Params, images: torch.Tensor, train: bool = False,
-          compute_dtype=torch.bfloat16, remat: bool = False):
+          compute_dtype=torch.bfloat16, remat: bool = False, data_group=None):
     """images: (N, H, W, 3) float32 in [0, 1] -> (logits (N, classes)
     float32, new batch-norm statistics).
 
     ``remat=True`` runs each bottleneck under ``torch.utils.checkpoint``
     (non-reentrant) while grad is enabled: the backward recomputes the
     block's activations instead of keeping them (the reference's
-    ``jax.checkpoint``). The statistics of the recomputation are dropped."""
+    ``jax.checkpoint``). The statistics of the recomputation are dropped.
+
+    ``data_group``: a process group whose ranks each hold their own rows of
+    the global batch; training batch norms then use the global batch's
+    statistics (:class:`CrossRankBatchNorm`). Every rank must run the same
+    layers in the same order: each batch norm is a collective, again in a
+    rematerialised block's recomputation."""
     x = images.to(compute_dtype).permute(0, 3, 1, 2).contiguous(
         memory_format=torch.channels_last)
     new_stats: Params = {"stem": {}}
-    x, new_stats["stem"]["bn"] = _batch_norm(_conv(x, params["stem"]["conv"], 2),
-                                             params["stem"]["bn"], train)
+    x, new_stats["stem"]["bn"] = _norm(train, data_group)(_conv(x, params["stem"]["conv"], 2),
+                                                          params["stem"]["bn"])
     x = _max_pool(F.relu(x))
     for stage_idx, (blocks, _) in enumerate(_RESNET50_STAGES):
         stage_stats = []
@@ -183,9 +287,10 @@ def apply(params: Params, images: torch.Tensor, train: bool = False,
             stride = 2 if (block_idx == 0 and stage_idx > 0) else 1
             block = params[f"stage{stage_idx}"][block_idx]
             if remat and torch.is_grad_enabled():
-                x, s = checkpoint(_bottleneck, x, block, stride, train, use_reentrant=False)
+                x, s = checkpoint(_bottleneck, x, block, stride, train, data_group,
+                                  use_reentrant=False)
             else:
-                x, s = _bottleneck(x, block, stride, train)
+                x, s = _bottleneck(x, block, stride, train, data_group)
             stage_stats.append(s)
         new_stats[f"stage{stage_idx}"] = stage_stats
     x = x.float().mean((2, 3))
@@ -209,15 +314,28 @@ def merge_bn_stats(params: Params, new_stats: Params) -> Params:
     return merge(params, new_stats)
 
 
-def loss_fn(params: Params, batch: dict, train: bool = True, remat: bool = False):
+def loss_fn(params: Params, batch: dict, train: bool = True, remat: bool = False,
+            data_group=None):
     """-> (mean negative log-likelihood, (accuracy, new statistics)).
-    ``batch["label"]`` holds class indices of any integer type."""
-    logits, new_stats = apply(params, batch["image"], train=train, remat=remat)
+    ``batch["label"]`` holds class indices of any integer type.
+
+    ``data_group``: this rank's rows are its share of the group's global
+    batch. Batch norm uses the global statistics (:func:`apply`), and the
+    summed loss (and accuracy) is divided by the global row count
+    (all-reduced), so the ranks' losses sum to the global batch's mean: the
+    mean GSPMD computes when a batch sharded over ``"data"`` meets the
+    reference's step."""
+    logits, new_stats = apply(params, batch["image"], train=train, remat=remat,
+                              data_group=data_group)
     labels = batch["label"].long()
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(1, labels[:, None]).mean()
-    acc = (logits.argmax(-1) == labels).float().mean()
-    return nll, (acc, new_stats)
+    nll = -logp.gather(1, labels[:, None])
+    hits = (logits.argmax(-1) == labels).float()
+    if data_group is None:
+        return nll.mean(), (hits.mean(), new_stats)
+    count = torch.tensor([float(labels.shape[0])], dtype=torch.float64)
+    comm.all_reduce_([count], data_group)
+    return nll.sum() / count.item(), (hits.sum() / count.item(), new_stats)
 
 
 def param_leaves(params: Params) -> List[torch.Tensor]:
@@ -240,7 +358,7 @@ def param_leaves(params: Params) -> List[torch.Tensor]:
 
 
 def make_train_step(learning_rate: float = 0.1, weight_decay: float = 1e-4,
-                    momentum: float = 0.9, remat: bool = False):
+                    momentum: float = 0.9, remat: bool = False, data_group=None):
     """SGD with momentum and weight decay (the standard ImageNet recipe)
     -> ``(init_opt, train_step)``.
 
@@ -253,7 +371,14 @@ def make_train_step(learning_rate: float = 0.1, weight_decay: float = 1e-4,
     (``merge_bn_stats``); here they are only overwritten, with the same
     result. ``train_step(params, opt, batch) -> (params, opt, loss, acc)``
     updates the trainable leaves in place and returns the tree with the new
-    statistics merged in; ``loss`` and ``acc`` are detached."""
+    statistics merged in; ``loss`` and ``acc`` are detached.
+
+    Data parallelism: ``data_group`` goes to :func:`loss_fn`, and the
+    gradients (flattened into one buffer: one all-reduce a step) and the
+    loss and accuracy are summed over the group, so every rank takes the
+    global batch's update and reports its loss, as ``llama``'s step does.
+    The ranks then hold equal parameters and moving statistics, bit for
+    bit."""
     def init_opt(params: Params) -> torch.optim.SGD:
         leaves = param_leaves(params)
         for t in leaves:
@@ -262,11 +387,22 @@ def make_train_step(learning_rate: float = 0.1, weight_decay: float = 1e-4,
                                weight_decay=weight_decay)
 
     def train_step(params: Params, opt: torch.optim.SGD, batch: dict):
-        loss, (acc, new_stats) = loss_fn(params, batch, train=True, remat=remat)
+        loss, (acc, new_stats) = loss_fn(params, batch, train=True, remat=remat,
+                                         data_group=data_group)
         loss.backward()
+        loss, acc = loss.detach(), acc.detach()
+        if data_group is not None:
+            grads = [t.grad for t in param_leaves(params)]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            comm.all_reduce_([flat], data_group)
+            for g, summed in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(summed.view_as(g))
+            totals = torch.stack([loss, acc])
+            comm.all_reduce_([totals], data_group)
+            loss, acc = totals[0], totals[1]
         opt.step()
         opt.zero_grad(set_to_none=True)
-        return merge_bn_stats(params, new_stats), opt, loss.detach(), acc
+        return merge_bn_stats(params, new_stats), opt, loss, acc
 
     return init_opt, train_step
 

@@ -1,15 +1,16 @@
 """Moving tensors between the ranks of a ``torch.distributed`` process group:
-the transport of ring and Ulysses attention and of the gradient sums of
-sequence and data parallelism.
+the transport of ring and Ulysses attention, of the gradient sums of
+sequence and data parallelism, of the cross-rank batch norm's statistics
+and of the sharded device cache's rows.
 
 The JAX package's collectives (``lax.ppermute``, ``lax.all_to_all``,
-``psum``) ride the TPU's interconnect inside one program. Here each rank is
-a process. The group must be a gloo group: gloo moves host memory, so a
-CUDA tensor is copied to a pinned host buffer, sent, and copied back to the
-card on arrival. Nothing is computed on the host: these functions move
-bytes and, for :func:`all_reduce_`, add them. Another backend (NCCL, which
-refuses two ranks on one card) raises ``NotImplementedError``: the
-multi-GPU transport is ROADMAP Queue A item 10.
+``lax.all_gather``, ``psum``) ride the TPU's interconnect inside one
+program. Here each rank is a process. The group must be a gloo group: gloo
+moves host memory, so a CUDA tensor is copied to a pinned host buffer,
+sent, and copied back to the card on arrival. Nothing is computed on the
+host: these functions move bytes and, for :func:`all_reduce_`, add them.
+Another backend (NCCL, which refuses two ranks on one card) raises
+``NotImplementedError``: the multi-GPU transport is ROADMAP Queue A item 10.
 
 Every call adds its count, the bytes it sends and its host-clock seconds
 (the staging copies included) to :data:`transfer_stats`.
@@ -17,7 +18,7 @@ Every call adds its count, the bytes it sends and its host-clock seconds
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -56,8 +57,9 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
-def _host_buffer(like: torch.Tensor) -> torch.Tensor:
-    return torch.empty(like.shape, dtype=like.dtype, pin_memory=like.device.type == "cuda")
+def _host_buffer(like: torch.Tensor, shape=None) -> torch.Tensor:
+    return torch.empty(like.shape if shape is None else tuple(shape), dtype=like.dtype,
+                       pin_memory=like.device.type == "cuda")
 
 
 def _to_device(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -89,13 +91,16 @@ def rotate(tensors: Sequence[torch.Tensor], group, shift: int = 1) -> List[torch
     return out
 
 
-def all_to_all(chunks: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+def all_to_all(chunks: Sequence[torch.Tensor], group,
+               recv_shapes: Optional[Sequence[Sequence[int]]] = None) -> List[torch.Tensor]:
     """``chunks[i]`` goes to rank i of ``group``; returns the P chunks the
     ranks sent here, in rank order, each of the shape and dtype of the chunk
     of the same index sent from here (``lax.all_to_all``'s exchange, with
-    the split and the concatenation left to the caller). The exchange is
-    P - 1 point-to-point pairs a rank (not every gloo build has an
-    all-to-all); this rank's own chunk stays where it is."""
+    the split and the concatenation left to the caller), or of
+    ``recv_shapes[i]`` when the ranks exchange chunks of other sizes (the
+    sharded device cache's row gathers). The exchange is P - 1
+    point-to-point pairs a rank (not every gloo build has an all-to-all);
+    this rank's own chunk stays where it is."""
     size = dist.get_world_size(group)
     if len(chunks) != size:
         raise ValueError(f"all_to_all needs one chunk per rank ({size}), got {len(chunks)}")
@@ -105,7 +110,8 @@ def all_to_all(chunks: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     t0 = time.perf_counter()
     rank = dist.get_rank(group)
     peers = [i for i in range(size) if i != rank]
-    recvs = {i: _host_buffer(chunks[i]) for i in peers}
+    recvs = {i: _host_buffer(chunks[i], None if recv_shapes is None else recv_shapes[i])
+             for i in peers}
     ops = [dist.P2POp(dist.isend, _to_host(chunks[i]), dist.get_global_rank(group, i),
                       group=group) for i in peers]
     ops += [dist.P2POp(dist.irecv, recvs[i], dist.get_global_rank(group, i), group=group)
@@ -117,8 +123,28 @@ def all_to_all(chunks: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     return out
 
 
-def all_reduce_(tensors: Sequence[torch.Tensor], group) -> None:
-    """Sum each of ``tensors`` over ``group``, in place (``psum``)."""
+def all_gather(t: torch.Tensor, group, record_as: str = "all_gather") -> List[torch.Tensor]:
+    """Every rank's ``t``, in rank order (``lax.all_gather`` without the
+    stacking): each rank calls it with a tensor of the same shape and dtype.
+    The received tensors are on ``t``'s device; this rank's own is ``t``.
+    ``record_as`` names the call in :data:`transfer_stats`."""
+    size = dist.get_world_size(group)
+    if size == 1:
+        return [t]
+    check_backend(group)
+    t0 = time.perf_counter()
+    rank = dist.get_rank(group)
+    host = _to_host(t)
+    recvs = [_host_buffer(t) for _ in range(size)]
+    dist.all_gather(recvs, host, group=group)
+    out = [t if i == rank else _to_device(recvs[i], t) for i in range(size)]
+    _record(record_as, t.numel() * t.element_size(), t0)
+    return out
+
+
+def all_reduce_(tensors: Sequence[torch.Tensor], group, record_as: str = "all_reduce") -> None:
+    """Sum each of ``tensors`` over ``group``, in place (``psum``).
+    ``record_as`` names the call in :data:`transfer_stats`."""
     if dist.get_world_size(group) == 1:
         return
     check_backend(group)
@@ -128,4 +154,4 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group) -> None:
         dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
         if host is not t:
             t.copy_(host, non_blocking=t.device.type == "cuda")
-    _record("all_reduce", sum(t.numel() * t.element_size() for t in tensors), t0)
+    _record(record_as, sum(t.numel() * t.element_size() for t in tensors), t0)

@@ -18,7 +18,11 @@ port leaves out, reorders a shuffled epoch under some predicates). With
 ``sample_order="deterministic"`` the order is the plan's on every pool
 (:mod:`.reader_impl.epoch_plan`), optionally shuffled inside windows of
 ``shuffle_window`` row groups. With ``schema_fields=NGram(...)`` a row
-reader yields the NGram's windows instead of rows.
+reader yields the NGram's windows instead of rows. With
+``row_materialization="lazy"`` the workers publish one
+:class:`~petastorm_tpu_torch.reader_impl.batch_plane.ColumnarBatch` a row
+group: rows are views of its columns, and ``next_batch()`` hands out whole
+batches (the same rows, the same multiset an epoch, as the eager reader).
 
 :meth:`Reader.state_dict` is the read position (``epoch``, ``offset``,
 ``items``, ``seed``, the JAX package's free-mode cursor): passed back as
@@ -38,6 +42,7 @@ import os
 import pickle
 import random
 import types
+import warnings
 from collections import deque
 from functools import partial
 from typing import Optional, Sequence
@@ -48,6 +53,7 @@ from petastorm_tpu_torch.etl.dataset_metadata import (DatasetContext, get_schema
                                                       infer_or_load_unischema, load_row_groups)
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.reader_impl.arrow_table_serializer import ArrowTableSerializer
+from petastorm_tpu_torch.reader_impl.batch_plane import ColumnarBatch
 from petastorm_tpu_torch.reader_impl.batch_reader_worker import (BatchReaderWorker,
                                                                  arrow_table_to_numpy_dict)
 from petastorm_tpu_torch.reader_impl.epoch_plan import EpochPlan, OrderedDeliveryGate, mint_seed
@@ -311,7 +317,8 @@ def make_reader(dataset_url: str,
                 transform_spec=None,
                 rowgroup_subset: Optional[Sequence[int]] = None,
                 sample_order: str = "free",
-                shuffle_window: int = 0) -> "Reader":
+                shuffle_window: int = 0,
+                row_materialization: str = "eager") -> "Reader":
     """Reader over a store written by ``materialize_dataset_local`` (either
     package's).
 
@@ -372,6 +379,16 @@ def make_reader(dataset_url: str,
         items by a seeded permutation indexed by plan position (not by
         arrival), so it resumes exactly and a row group is delivered within
         ``shuffle_window`` plan positions of its slot. ``0``: plan order
+    :param row_materialization: ``'eager'`` (the default: the workers build
+        one dict a row) or ``'lazy'``: the workers publish one
+        :class:`~petastorm_tpu_torch.reader_impl.batch_plane.ColumnarBatch`
+        a row group, ``next()`` yields namedtuples whose cells are views of
+        the batch's columns (a kept row pins its batch; writing a cell
+        writes the batch) and :meth:`Reader.next_batch` hands out whole
+        batches, which the loaders collate by slicing columns. The same
+        rows, the same multiset an epoch. An NGram or a per-row
+        ``TransformSpec`` func falls back to eager with a warning
+        (``TransformSpec(batched=True)`` stays lazy)
 
     On ``reader_pool_type="process"`` the predicate and the transform must
     pickle into a spawned worker: a ``ValueError`` says so at construction.
@@ -386,7 +403,8 @@ def make_reader(dataset_url: str,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
                   rowgroup_selector=rowgroup_selector, filters=filters, shard_seed=shard_seed,
                   transform_spec=transform_spec, rowgroup_subset=rowgroup_subset,
-                  sample_order=sample_order, shuffle_window=shuffle_window)
+                  sample_order=sample_order, shuffle_window=shuffle_window,
+                  row_materialization=row_materialization)
 
 
 def make_batch_reader(dataset_url: str,
@@ -472,6 +490,28 @@ def _check_sample_order(sample_order: str, shuffle_window: int) -> None:
     if shuffle_window and sample_order != "deterministic":
         raise ValueError("shuffle_window is the deterministic plane's window-shuffle mode; "
                          "pass sample_order='deterministic' with it")
+
+
+def _resolve_materialization(row_materialization: str, ngram, transform_spec) -> str:
+    """The JAX package's checks of ``row_materialization``: any value but
+    ``'eager'`` or ``'lazy'`` raises; an NGram or a per-row transform func
+    falls back to eager with a warning."""
+    if row_materialization not in ("eager", "lazy"):
+        raise ValueError(f"row_materialization must be 'eager' or 'lazy', "
+                         f"got {row_materialization!r}")
+    if row_materialization == "eager":
+        return "eager"
+    if ngram is not None:
+        warnings.warn("row_materialization='lazy' does not apply to NGram readers (windows "
+                      "are assembled per sample); falling back to eager")
+        return "eager"
+    if transform_spec is not None and transform_spec.func is not None \
+            and not transform_spec.batched:
+        warnings.warn("row_materialization='lazy' needs a batch-native TransformSpec "
+                      "(batched=True, columns in and out); a per-row func forces per-row "
+                      "materialization; falling back to eager")
+        return "eager"
+    return "lazy"
 
 
 def _resolve_seed(seed, resume_state, shuffle_row_groups: bool, shuffle_rows: bool,
@@ -568,7 +608,8 @@ class Reader:
 
     ``sample_order`` is ``'free'`` or ``'deterministic'`` (the reader then
     delivers through its :class:`OrderedDeliveryGate`, and its cursor is the
-    gate's).
+    gate's). ``row_materialization`` is ``'lazy'`` when the workers publish
+    :class:`ColumnarBatch` es (always ``'eager'`` for a batched reader).
     """
 
     def __init__(self, dataset_url, pool, schema_fields, shuffle_row_groups,
@@ -576,7 +617,7 @@ class Reader:
                  is_batched_reader=False, convert_early_to_numpy=False, resume_state=None,
                  shuffle_row_drop_partitions=1, predicate=None, rowgroup_selector=None,
                  filters=None, shard_seed=None, transform_spec=None, rowgroup_subset=None,
-                 sample_order="free", shuffle_window=0):
+                 sample_order="free", shuffle_window=0, row_materialization="eager"):
         if rowgroup_subset is not None and cur_shard is not None:
             raise ValueError("rowgroup_subset and cur_shard/shard_count are mutually exclusive: "
                              "an explicit ordinal subset is a shard assignment")
@@ -616,6 +657,11 @@ class Reader:
                 and shuffle_row_drop_partitions > 1:
             raise NotImplementedError("shuffle_row_drop_partitions with "
                                       "non-overlapping ngrams is not supported")
+        #: ``'lazy'`` when the workers publish ColumnarBatches and rows are
+        #: views of them; always ``'eager'`` for a batched reader, whose
+        #: payload is already a row group's columns.
+        self.row_materialization = ("eager" if is_batched_reader else _resolve_materialization(
+            row_materialization, self.ngram, transform_spec))
         #: The rows' schema: the view, transformed by ``transform_spec``.
         self.schema = (view_schema if transform_spec is None
                        else transform_schema(view_schema, transform_spec))
@@ -662,6 +708,12 @@ class Reader:
             item_context_key=ITEM_CONTEXT_KWARG,
             start_epoch=start_epoch, start_offset=start_offset)
         self._buffer = deque()
+        # The lazy cursor: the batch being served, its columns in the
+        # namedtuple's field order (None where the batch lacks a field) and
+        # the next row.
+        self._batch: Optional[ColumnarBatch] = None
+        self._batch_cols = None
+        self._batch_pos = 0
         # The context of the item the buffered rows come from, and those of
         # items handed out in full whose confirmation may still be to come.
         self._buffer_context = None
@@ -686,7 +738,8 @@ class Reader:
         pool.start(RowReaderWorker,
                    {**worker_args, "schema": stored_schema, "ngram": self.ngram,
                     "decode_threads": decode_threads_for(pool.workers_count),
-                    "decode_verdict": verdict},
+                    "decode_verdict": verdict,
+                    "row_materialization": self.row_materialization},
                    ventilator=self._ventilator)
 
     @property
@@ -714,12 +767,22 @@ class Reader:
         """True for a ``make_batch_reader`` reader."""
         return self._batched
 
-    def next_batch(self) -> dict:
-        """The next row group's ``{column: ndarray}`` (a batched reader
-        only): the arrays ``next()`` wraps in a namedtuple."""
+    def next_batch(self):
+        """The next whole unit as columns. A batched reader: the next row
+        group's ``{column: ndarray}``, the arrays ``next()`` wraps in a
+        namedtuple. A lazy row reader: the workers'
+        :class:`~petastorm_tpu_torch.reader_impl.batch_plane.ColumnarBatch`,
+        or the rest of one that ``next()`` served in part, so that mixing
+        the two never repeats a row. An eager row reader raises
+        ``TypeError``: it has no batch to hand out."""
         if not self._batched:
-            raise TypeError("next_batch() needs a make_batch_reader reader; this reader's "
-                            "workers publish rows")
+            if getattr(self, "row_materialization", "eager") != "lazy":
+                raise TypeError("next_batch() needs make_reader(row_materialization='lazy') or "
+                                "a make_batch_reader reader; this reader's workers publish rows")
+            while self._batch is None:
+                if not self._pull():
+                    raise StopIteration
+            return self._batch_remainder()
         try:
             result = self._get_results()
         except EmptyResultError:
@@ -738,20 +801,57 @@ class Reader:
     def __next__(self):
         if self._batched:
             return self.schema.make_namedtuple_from_dict(self.next_batch())
-        while not self._buffer:
-            self._mark_delivered(self._buffer_context)
-            self._buffer_context = None
-            try:
-                self._buffer.extend(self._get_results())
-            except EmptyResultError:
-                self.last_row_consumed = True
-                raise StopIteration from None
-            if self._gate is None:
-                self._buffer_context = self._pool.result_context
+        while self._batch is None and not self._buffer:
+            if not self._pull():
+                raise StopIteration
+        if self._batch is not None:
+            i = self._batch_pos
+            row = self.schema.namedtuple(*[None if c is None else c[i]
+                                           for c in self._batch_cols])
+            self._batch_pos = i + 1
+            if self._batch_pos >= self._batch.num_rows:
+                self._batch = self._batch_cols = None
+            return row
         item = self._buffer.popleft()
         if self.ngram is not None:
             return item   # already a window
         return self.schema.make_namedtuple_from_dict(item)
+
+    def _pull(self) -> bool:
+        """Take the next work item's result into the row buffer or the lazy
+        cursor, once the last one was handed out in full; False at the end
+        of the stream."""
+        self._mark_delivered(self._buffer_context)
+        self._buffer_context = None
+        try:
+            result = self._get_results()
+        except EmptyResultError:
+            self.last_row_consumed = True
+            return False
+        if self._gate is None:
+            self._buffer_context = self._pool.result_context
+        if isinstance(result, ColumnarBatch):
+            if result.num_rows:
+                self._batch = result
+                self._batch_cols = [result.columns.get(n) for n in self.schema.namedtuple._fields]
+                self._batch_pos = 0
+        else:
+            self._buffer.extend(result)
+        return True
+
+    def _batch_remainder(self) -> ColumnarBatch:
+        """The lazy cursor's unserved rows as a batch (views of its columns
+        when ``next()`` served some), and the cursor cleared."""
+        batch, pos = self._batch, self._batch_pos
+        self._batch = self._batch_cols = None
+        if pos == 0:
+            return batch
+        return ColumnarBatch({name: col[pos:] for name, col in batch.columns.items()},
+                             batch.num_rows - pos)
+
+    def _has_partial_unit(self) -> bool:
+        """Rows of the last unit pulled are still to be handed out."""
+        return bool(self._buffer) or self._batch is not None
 
     def _get_results(self):
         """The next work item's result: through the gate, in plan order, in
@@ -785,13 +885,13 @@ class Reader:
         stream is the rest of the uninterrupted one. A row group handed out
         in part backs the cursor up one unit: it is read again whole."""
         if self._gate is not None:
-            cur = self._gate.cursor(back_up=bool(self._buffer))
+            cur = self._gate.cursor(back_up=self._has_partial_unit())
             cur.update({"items": self._num_items, "seed": self._seed,
                         "sample_order": "deterministic", "window": self._shuffle_window,
                         "plan": self._epoch_plan.describe()})
             return cur
         delivered = set(self._delivered)
-        if not self._buffer and self._buffer_context is not None:
+        if not self._has_partial_unit() and self._buffer_context is not None:
             delivered.add(self._buffer_context)
         epoch, offset = self._ventilator.watermark(delivered)
         return {"epoch": epoch, "offset": offset, "items": self._num_items, "seed": self._seed}

@@ -1,5 +1,6 @@
-"""Row reader worker: one row group -> a list of decoded row dicts, or of
-NGram windows.
+"""Row reader worker: one row group -> a list of decoded row dicts, of
+NGram windows, or (``row_materialization="lazy"``) one
+:class:`~petastorm_tpu_torch.reader_impl.batch_plane.ColumnarBatch`.
 
 Reads only the columns the output schema (or the NGram) needs, takes the
 item's drop partition (``shuffle_row_drop_partitions``: one contiguous
@@ -28,6 +29,7 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec, pin_decode_verdict
+from petastorm_tpu_torch.reader_impl.batch_plane import ColumnarBatch
 from petastorm_tpu_torch.reader_impl.epoch_plan import OrderedUnit
 from petastorm_tpu_torch.workers_pool.worker_base import WorkerBase
 
@@ -167,7 +169,8 @@ class RowReaderWorker(WorkerBase):
     (or None), ``shuffle_rows``, ``seed`` and
     ``decode_threads`` (threads of each native image decode call),
     ``decode_verdict`` (the reader's :func:`~petastorm_tpu_torch.codecs.decode_verdict`,
-    or None for a store without images) and ``sample_order``: with
+    or None for a store without images), ``row_materialization`` (``"lazy"``:
+    one ``ColumnarBatch`` an item, no row dicts) and ``sample_order``: with
     ``"deterministic"`` every item publishes one
     :class:`~petastorm_tpu_torch.reader_impl.epoch_plan.OrderedUnit`,
     ``empty`` when no row was kept.
@@ -185,6 +188,9 @@ class RowReaderWorker(WorkerBase):
         self._rng = np.random.default_rng(
             None if args["seed"] is None else args["seed"] + worker_id)
         self._ordered = args.get("sample_order", "free") == "deterministic"
+        # The reader checked that a lazy worker has no NGram and no per-row
+        # transform.
+        self._lazy = args.get("row_materialization", "eager") == "lazy"
         schema = args["schema"]
         ngram = args.get("ngram")
         # An NGram needs every timestep's fields and the timestamp.
@@ -225,9 +231,16 @@ class RowReaderWorker(WorkerBase):
             data, num_rows = self._read_columns(rowgroup, self._needed)
             indices = select_drop_partition(num_rows, *drop_part, self.args["shuffle_rows"], rng)
 
-        if ngram is None and func is not None and spec.batched:
-            cols = apply_batched_transform(spec, self._decode_columns(data, indices))
+        batched = func is not None and spec.batched
+        if ngram is None and (self._lazy or batched):
+            # Columns stay columns through the decode and the batched
+            # transform: a lazy reader gets them whole, an eager one as rows.
+            cols = self._decode_columns(data, indices)
+            if batched:
+                cols = apply_batched_transform(spec, cols)
             n = len(next(iter(cols.values()))) if cols else 0
+            if self._lazy:
+                return ColumnarBatch(cols, n)
             return [{k: c[j] for k, c in cols.items()} for j in range(n)]
         if ngram is not None and ngram.dense and func is None \
                 and self._dense_vectorizable(data, indices):

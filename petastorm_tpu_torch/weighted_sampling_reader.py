@@ -85,6 +85,11 @@ class WeightedSamplingReader:
         #: ``'deterministic'`` when every member is: the mixture is then a
         #: function of the members' seeds and the mixer's (seed, step).
         self.sample_order = "deterministic" if orders == {"deterministic"} else "free"
+        #: ``'lazy'`` only when every member is: a mix of lazy and eager
+        #: members would hand out batches of two kinds.
+        self.row_materialization = (
+            "lazy" if all(getattr(r, "row_materialization", "eager") == "lazy" for r in readers)
+            else "eager")
         self.last_row_consumed = False
 
         n = len(self._readers)
@@ -152,8 +157,10 @@ class WeightedSamplingReader:
 
     def next_batch(self):
         """Mix at batch granularity: one pick serves that member's next
-        whole batch, untouched. The weights then apply per batch, not per
-        row (the same mixture in expectation for equal row groups)."""
+        whole batch, untouched (a batched member's ``{column: array}``, a
+        lazy member's ``ColumnarBatch``). The weights then apply per batch,
+        not per row (the same mixture in expectation for equal row
+        groups)."""
         return self._serve(lambda r: r.next_batch())
 
     def reset(self):

@@ -1044,3 +1044,76 @@ def test_two_rank_data_parallel_step_on_card_matches_one_process(cuda_device, tm
     for got, want in zip(params0, llama.param_leaves(params)):
         diff = (got - want.detach().cpu()).abs()
         assert diff.max() <= 4 * lr and (diff <= 0.1 * lr).float().mean() >= 0.9
+
+
+def _lazy_epoch(url, device, mode, pool_type="thread"):
+    """One shuffled epoch of ``url`` through a ``mode`` reader and
+    ``DataLoader(batch_size=32, shuffling_queue_capacity=64, seed=0)``
+    onto ``device`` -> the batches."""
+    with make_reader(url, reader_pool_type=pool_type, workers_count=2, seed=3,
+                     row_materialization=mode) as reader:
+        assert reader.row_materialization == mode
+        return list(DataLoader(reader, batch_size=32, shuffling_queue_capacity=64, seed=0,
+                               device=device, drop_last=False))
+
+
+@pytest.mark.parametrize("pool_type", ["thread", "process"])
+def test_lazy_loader_on_card_is_the_eager_multiset_and_k1_is_plain(cuda_device, tmp_path,
+                                                                   pool_type):
+    """A lazy reader's epoch staged onto the card holds the eager epoch's
+    rows (multiset of (id, image bytes)), each batch's images pass K1
+    bit-equal to the plain version, one launch a batch, and the lazy
+    batches on the card are the lazy batches on the CPU, byte for byte."""
+    url = _image_store(tmp_path)
+    lazy = _lazy_epoch(url, cuda_device, "lazy", pool_type)
+    eager = _lazy_epoch(url, cuda_device, "eager", pool_type)
+    assert all(b["image"].is_cuda for b in lazy)
+
+    def rows(batches):
+        return sorted((int(i), bytes(im.cpu().numpy().tobytes()))
+                      for b in batches for i, im in zip(b["id"], b["image"]))
+    assert rows(lazy) == rows(eager) and len(rows(lazy)) == 96
+    kernels.reset_launch_counts()
+    for b in lazy:
+        got = normalize_images(b["image"])
+        want = normalize_images_plain(b["image"])
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == {KERNEL_NAME: len(lazy)}
+    if pool_type == "thread":
+        on_cpu = _lazy_epoch(url, "cpu", "lazy")
+        assert len(on_cpu) == len(lazy)
+        for g, w in zip(lazy, on_cpu):
+            for k in w:
+                assert torch.equal(g[k].cpu(), w[k])
+
+
+def test_sharded_cache_slice_logic_at_world_size_one_on_card(cuda_device, tmp_path):
+    """``DeviceCachedDataset(sharding=)`` in a gloo group of one rank: the
+    slice gather (masks, ``index_select`` and the placement on the card)
+    serves the unsharded cache's batches bit for bit, tail included."""
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.loader import DeviceCachedDataset
+    from petastorm_tpu_torch.parallel import mesh as pmesh
+    url = _image_store(tmp_path, rows=90)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        mesh = pmesh.make_mesh([-1], ["data"])
+
+        def cache(sharding):
+            with make_reader(url, reader_pool_type="dummy", shuffle_row_groups=False) as reader:
+                return DeviceCachedDataset(reader, device=cuda_device, sharding=sharding)
+        sharded, whole = cache(pmesh.data_sharding(mesh)), cache(None)
+        assert sharded.nbytes() == whole.nbytes() and sharded.shard_rows == 90
+        for kw in (dict(num_epochs=2, seed=4), dict(shuffle=False, drop_last=False)):
+            got = list(sharded.batches(32, **kw))
+            want = list(whole.batches(32, **kw))
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert g["image"].is_cuda
+                for k in w:
+                    assert torch.equal(g[k], w[k])
+    finally:
+        dist.destroy_process_group()

@@ -139,7 +139,8 @@ WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
                   "petastorm_tpu_torch.predicates", "petastorm_tpu_torch.selectors",
                   "petastorm_tpu_torch.etl.rowgroup_indexers",
                   "petastorm_tpu_torch.test_util.transforms",
-                  "petastorm_tpu_torch.reader_impl.epoch_plan")
+                  "petastorm_tpu_torch.reader_impl.epoch_plan",
+                  "petastorm_tpu_torch.reader_impl.batch_plane")
 
 
 def test_worker_modules_import_without_torch():
