@@ -100,8 +100,8 @@ result line):
    reading the same windows of 8192 tokens from a ``write_token_store``
    store through the NGram reader and a ``DataLoader`` and training
    ``LlamaConfig()`` at full width (2 of its 32 layers, bf16, AdamW) on its
-   4096-token block, 3 steps with ring attention (``local_attn="flash"``:
-   K2 "stats", K3, K4), then 3 with Ulysses (K2 "lse", K3, K4); launch
+   4096-token block, 2 steps with ring attention (``local_attn="flash"``:
+   K2 "stats", K3, K4), then 2 with Ulysses (K2 "lse", K3, K4); launch
    counts are reset just before and read just after, on every rank. The
    first step's loss and summed gradients are held against one process
    training on the whole window with ``make_flash_attention``, and the two
@@ -204,9 +204,9 @@ result line):
    9's store read with ``sample_order="deterministic"``,
    ``shuffle_row_groups=True``, ``shuffle_window=4`` and seed 5 ->
    ``DataLoader(batch_size=256, device="cuda")`` -> K1 (bf16) -> ResNet-50's
-   SGD step (cuDNN deterministic), 6 steps on 8 processes and 6 on 8
+   SGD step (cuDNN deterministic), 4 steps on 8 processes and 4 on 8
    threads: the rows (named by fingerprint) and labels equal, the losses
-   bit-equal; then a run on processes cut at step 3 through
+   bit-equal; then a run on processes cut at step 2 through
    ``CheckpointManager`` and resumed on threads from the restored cursor
    and state: the uninterrupted run's rows and losses, bit for bit. K1's
    output of every batch is bit-equal to ``normalize_images_plain`` of the
@@ -226,8 +226,8 @@ result line):
    (d) ``python -m petastorm_tpu_torch.benchmark.cli --json`` on the
    reference's 10-row hello-world store at the reference's defaults (printed
    beside BASELINE.md's 709.84 samples/s, unspecified hardware), then on a
-   steady-state store of 2,000 rows at 100 a group (1,200 where a 200-row
-   probe projects the write past 60 s) with ``-d python`` on threads and on
+   steady-state store of 1,200 rows at 100 a group (its write projected from
+   a 200-row probe and logged) with ``-d python`` on threads and on
    processes and with ``-d torch --device-step-ms 50``;
    ``loader_throughput_sweep`` onto the card; the transport sweep from 1 KB
    to 1 MB. Every number is printed beside the card's name and power limit.
@@ -247,7 +247,7 @@ result line):
    host 2's plan, finite losses, K2-K4 once a layer a step. (c) 2 ranks on
    ``cuda:0`` (gloo), each ``run_llm_bench(mesh_ingest=True)`` at phase
    10's width (2 layers), one window of 8192 a rank, 3 steps (launches
-   counted); then a data-parallel loop of 3 steps: each rank's windows its
+   counted); then a data-parallel loop of 2 steps: each rank's windows its
    plan's groups in order, the ranks' losses and parameters bit-equal, the
    first step held against one process on both windows (loss within
    ``DP_LOSS_REL_BAR``, each parameter's update within
@@ -258,7 +258,7 @@ result line):
    rows, 8 launches, bit-equal to ``normalize_images_plain``.
 17. the lazy row plane and data-parallel ResNet-50. (a) Phase 4's store
    through ``make_reader(row_materialization="lazy")`` and the eager reader,
-   on 8 threads and 8 processes, in turns (3 each): 2 epochs through
+   on 8 threads and 8 processes, once each: 2 epochs through
    ``DataLoader(batch_size=256, shuffling_queue_capacity=1024, seed=0)``
    -> K1 (bf16, bit-equal to ``normalize_images_plain`` on every batch, one
    launch a batch) -> phase 9's ResNet-50 SGD step (labels ``id % 100``):
@@ -267,7 +267,7 @@ result line):
    row twice; then the host ms a batch of the shuffle and the collate alone,
    eager and lazy, on one epoch replayed from memory. (b) On 2 ranks
    sharing ``cuda:0`` (gloo): ``run_imagenet_bench`` on phase 9's store at
-   128 rows a rank (global 256), 10 pipelined and 3 resident steps, with
+   128 rows a rank (global 256), 5 pipelined and 3 resident steps, with
    the cross-rank batch norm; a 3-step data-parallel loop whose losses,
    parameters and moving statistics must be bit-equal on the ranks, with
    step ms and the gloo seconds of the batch norms and of the gradient sum;
@@ -277,6 +277,36 @@ result line):
    data_sharding(mesh))`` of phase 4's store on the same ranks: half the
    bytes each, 2 epochs at batch 256 whose rank slices are the unsharded
    cache's batches bit for bit, K1 bit-equal on every slice.
+18. tensor and expert parallelism at Mixtral-8x7B's widths
+   (``LlamaConfig()`` with 8 experts, top-2, capacity factor 1.25: layer 0
+   dense, layer 1 a switch MoE; 2 of 32 layers), bf16, AdamW, windows of
+   8192 tokens of phase 8's store read as phase 10 reads them. First the
+   kernels against their plain versions with the row bars at the shapes
+   the ranks give them: K2 ("lse"), K3 and K4 at a model rank's (1, 8192,
+   16 heads over 4, 128) and a Ulysses rank's (1, 8192, 8 over 2, 128), K2
+   "stats" and the ring's K3 and K4 at a ring block (1, 4096, 16 over 4,
+   128); then one process on the whole model: 3 bf16 steps on (a)'s
+   windows (losses and routing by step), and a float32 AdamW step on the
+   first whose update the ranks are held to. (a) 2 ranks on
+   ``cuda:0`` (gloo), mesh (1, 1, 2) on ("data", "seq", "model"), each
+   with its slice of every split leaf (``llama.shard_params``): 3 steps
+   with ``make_flash_attention`` over the rank's heads (launches counted,
+   each step's ms and tokens/s, the gloo calls, bytes, seconds and share
+   of the step by op, peak memory, tokens per expert, the dropped share
+   and the aux loss); the ranks' first loss within ``TP_LOSS_REL_BAR`` of
+   one process's, the dropped share and aux of every step within
+   ``TP_TREND_*_BAR`` of one process's; then the float32 first step on the ranks, each leaf's
+   update within ``TP_UPDATE_REL_BAR`` of one process's and its routing
+   within ``TP_ROUTE_BAR``, and a control with the router's gradient left
+   partial over the model group, which the update bar must reject. (b) 4
+   ranks, mesh (1, 2, 2), the MoE layer alone: one step with ring
+   attention (``local_attn="flash"``: K2 "stats", K3, K4) and one with
+   Ulysses (K2 "lse", K3, K4), ``head_axis="model"``, each loss within
+   ``TP_LOSS_REL_BAR`` of one process's, launches counted; then each
+   strategy's float32 gradient (summed over the sequence ranks, no update)
+   against one process's, every leaf within ``TP_GRAD_REL_BAR``, and a
+   control whose query heads meet the wrong KV heads of their rank, which
+   the bar must reject.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -332,9 +362,12 @@ from petastorm_tpu_torch.benchmark.hello_world import generate_hello_world_datas
 from petastorm_tpu_torch.benchmark.transport_bench import run_sweep, to_markdown
 from petastorm_tpu_torch.loader import (BatchedDataLoader, CheckpointManager, DeviceCachedDataset,
                                         InMemBatchedDataLoader, MeshDataLoader, MeshReaderFactory)
-from petastorm_tpu_torch.parallel import comm
+from petastorm_tpu_torch.benchmark.seq_parallel_bench import token_windows
+from petastorm_tpu_torch.parallel import comm, moe
 from petastorm_tpu_torch.parallel.launch import run_ranks
 from petastorm_tpu_torch.parallel.mesh import make_mesh
+from petastorm_tpu_torch.parallel.ring_attention import make_ring_attention
+from petastorm_tpu_torch.parallel.ulysses_attention import make_ulysses_attention
 from petastorm_tpu_torch.ops import augment
 from petastorm_tpu_torch.predicates import in_pseudorandom_split, in_range
 from petastorm_tpu_torch.reader import make_batch_reader, make_reader, shm_free_bytes
@@ -459,8 +492,9 @@ IMAGENET_KEYS = {"samples_per_sec", "samples_per_sec_per_chip", "input_stall_pct
 ENTRY_F32_BAR = 0.01
 
 # Sequence parallelism (phase 10): LlamaConfig() at full width, 2 of its 32
-# layers, the token path's window over 2 ranks on one card.
-SEQ_RANKS, SEQ_STEPS = 2, 3
+# layers, the token path's window over 2 ranks on one card; 2 steps a
+# strategy (cut from 3 for the whole run's time).
+SEQ_RANKS, SEQ_STEPS = 2, 2
 SEQ_LLAMA = llama.LlamaConfig(n_layers=2)
 SEQ_BLOCK = WINDOW // SEQ_RANKS
 SEQ_WATCH = ("layers.0.wq", "layers.0.wk", "layers.0.wo", "embed")
@@ -522,21 +556,18 @@ MIXUP_BAR = 1e-6
 SELECT_FRACTIONS, SELECT_CROP, SELECT_STEPS, SELECT_WORKERS = [0.75, 0.25], 192, 4, 8
 SELECT_LABELS, SELECT_SHARD_SEED = [3, 7, 11], 7
 SELECT_PARTS, SELECT_KEEP_PARTS, SELECT_I0 = 4, {1, 3}, (0, 500)
-SELECT_SCALAR_ROWS = 100_000
+SELECT_SCALAR_ROWS = 50_000
 
 # The deterministic epoch plane and the throughput harness (phase 15): phase
 # 9's store and ResNet-50 read in plan order with a window of 4 groups;
 # phase 12's tensor store; phase 8's token store and a second one mixed 70/30
 # under Llama training at the token path's width; the reference's
 # hello-world store at the CLI's defaults and at a steady-state size (the
-# JAX docstring's 10,000 rows cut to 2,000 to keep the whole run inside its
+# JAX docstring's 10,000 rows cut to 1,200 to keep the whole run inside its
 # time: the CLI measures 1,000 rows after 200 of warm-up either way).
-DET_SEED, DET_WINDOW, DET_STEPS, DET_CUT = 5, 4, 6, 3
+DET_SEED, DET_WINDOW, DET_STEPS, DET_CUT = 5, 4, 4, 2
 MIX_PROBS, MIX_SEED, MIX_STEPS, MIX_CUT = (0.7, 0.3), 21, 4, 2
-HELLO_ROWS, HELLO_GROUP, HELLO_CUT_ROWS, HELLO_PROBE_ROWS = 2_000, 100, 1_200, 200
-#: Seconds the steady-state hello-world store may take to write, estimated
-#: from a 200-row probe; past it the store is cut to 1,200 rows.
-HELLO_WRITE_BAR_S = 60.0
+HELLO_ROWS, HELLO_GROUP = 1_200, 100
 #: BASELINE.md's hello-world rate of the reference (unspecified hardware),
 #: printed beside the port's and not compared with it.
 BASELINE_HELLO_RATE = 709.84
@@ -547,7 +578,7 @@ DEVICE_STEP_MS = 50
 # data-parallel ranks on cuda:0 at phase 10's width; phase 4's image store.
 MESH_HOSTS, MESH_TOKEN_KILL = 4, 2
 MESH_SCALAR_BATCH, MESH_SCALAR_HOSTS, MESH_SCALAR_KILL = 1000, 8, 5
-DP_RANKS, DP_STEPS, DP_BENCH_STEPS = 2, 3, 2
+DP_RANKS, DP_STEPS, DP_BENCH_STEPS = 2, 2, 2
 DP_LLAMA = llama.LlamaConfig(n_layers=2)
 #: The data-parallel step (each rank its own window, gradients summed over
 #: gloo) against one process stepping on both windows, bf16 compute: the loss
@@ -563,9 +594,9 @@ DP_LOSS_REL_BAR, DP_UPDATE_REL_BAR = 2e-3, 0.3
 # and batch through lazy and eager readers on both pools, in turns; phase 9's
 # model and store on 2 ranks sharing cuda:0, 128 rows a rank (global batch
 # 256); the sharded device cache of phase 4's store on the same ranks.
-LAZY_SHUFFLE, LAZY_TURNS, LAZY_STEPS = 1024, 3, 10
+LAZY_SHUFFLE, LAZY_TURNS, LAZY_STEPS = 1024, 1, 10
 LAZY_POOLS = ("thread", "process")
-DPR_RANKS, DPR_STEPS, DPR_RESIDENT, DPR_LOOP = 2, 10, 3, 3
+DPR_RANKS, DPR_STEPS, DPR_RESIDENT, DPR_LOOP = 2, 5, 3, 3
 CACHE_DP_EPOCHS = 2
 #: The data-parallel step's first update against one process on the same
 #: 256 rows and weights, in float32 with TF32 off (bf16 roundings would be
@@ -581,6 +612,51 @@ CACHE_DP_EPOCHS = 2
 #: process's update on the same rows in another order (summation order
 #: alone) beside them.
 DPR_LOSS_REL_BAR, DPR_UPDATE_REL_BAR = 1e-4, 0.2
+# Tensor and expert parallelism (phase 18): LlamaConfig()'s widths, those of
+# Mixtral-8x7B (hidden 4096, SwiGLU 14336, 32 heads over 8 kv heads, vocab
+# 32000, 8 experts, top-2), 2 of its 32 layers (layer 0 dense, layer 1 a
+# switch MoE), bf16, AdamW, the token path's window, on 2 model ranks
+# sharing cuda:0; the composition with sequence parallelism on 4 ranks cut
+# to the MoE layer alone (4 ranks' slices and AdamW states of 2 layers do
+# not fit one card).
+TP_RANKS, TP_STEPS = 2, 3
+TP_LLAMA = llama.LlamaConfig(n_layers=2, n_experts=8, moe_every=2, moe_dispatch="switch",
+                             moe_top_k=2, moe_capacity_factor=1.25)
+TP_COMPOSE = dataclasses.replace(TP_LLAMA, n_layers=1, moe_every=1)
+TP_COMPOSE_MESH = (1, 2, 2)
+#: The ranks' first bf16 loss against one process on the same window and
+#: weights (SEQ_LOSS_REL_BAR's bar: the partial sums are added in another
+#: order, and a token whose two best experts are that close may route
+#: otherwise). The float32 first step: each leaf's update within
+#: TP_UPDATE_REL_BAR, |p_tp - p_one| / |p_one - p_0| (phase 17's bar: an
+#: AdamW first update is about lr * sign(g), so leaves whose gradient nearly
+#: cancels flip), which the control, the router's gradient left partial over
+#: the model group, must miss; its routing within TP_ROUTE_BAR of the
+#: assignments (top_k per token) of one process's.
+TP_LOSS_REL_BAR, TP_UPDATE_REL_BAR, TP_ROUTE_BAR = 2e-3, 0.2, 0.005
+#: The ranks' routing over TP_STEPS float32 steps against one process's
+#: steps on the same windows: the dropped share within TP_TREND_DROP_BAR
+#: (absolute) and the aux loss within TP_TREND_AUX_BAR (relative) at every
+#: step. The bars were first set on the bf16 steps; an H100 read 0.9 and
+#: 1.6 points, 1.5 % and 14 % at steps 1 and 2 there, each side collapsing
+#: alike (dropped 10 -> 22 -> 27-29 %) and their difference growing from
+#: bf16 roundings of equal size on the first step (loss 1.3e-5 apart), so
+#: the bf16 trajectories are logged beside the float32 ones, which the bars
+#: hold.
+TP_TREND_DROP_BAR, TP_TREND_AUX_BAR = 0.02, 0.05
+#: (b)'s float32 gradient on 4 ranks (summed over the sequence ranks, the
+#: model ranks' slices joined) against one process's on the same window and
+#: weights: every leaf within TP_GRAD_REL_BAR, |g_ranks - g_one| / |g_one|
+#: (Euclidean norms; summation order alone should read 1e-6 to 1e-4). A
+#: gradient, not an update: AdamW's float32 state of four ranks' slices does
+#: not fit the card beside their float32 activations. The control, each
+#: query head meeting its rank's next KV head, must miss it.
+TP_GRAD_REL_BAR = 1e-2
+#: The kernels phase 18 counts.
+TP_KERNELS = (flash_attn.KERNEL_NAME, flash_attn.STATS_KERNEL_NAME,
+              flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME,
+              flash_attn.FMA_KERNEL_NAME, flash_attn.STATS_FMA_KERNEL_NAME,
+              flash_attn.BWD_DQ_FMA_KERNEL_NAME, flash_attn.BWD_DKV_FMA_KERNEL_NAME)
 #: The bench's result keys without a resident phase or a device peak, and
 #: the mesh keys it adds.
 LLM_KEYS = {"tokens_per_sec", "input_stall_pct", "step_time_ms", "tokens_per_step", "echo",
@@ -3375,18 +3451,12 @@ def phase_epoch_plane(smi: str, image_url: str, token_url: str, tensor_url: str,
         f"and 1000 measured rows: {json.dumps(ref)}; BASELINE.md's 709.84 samples/s is the "
         f"reference's on unspecified hardware (not a comparison)")
     t1 = time.perf_counter()
-    generate_hello_world_dataset(f"file://{tmp}/hello_probe", rows_count=HELLO_PROBE_ROWS,
-                                 rows_per_row_group=HELLO_GROUP)
-    projected = (time.perf_counter() - t1) * HELLO_ROWS / HELLO_PROBE_ROWS
-    rows = HELLO_ROWS if projected <= HELLO_WRITE_BAR_S else HELLO_CUT_ROWS
-    t1 = time.perf_counter()
-    steady = generate_hello_world_dataset(f"file://{tmp}/hello_steady", rows_count=rows,
+    steady = generate_hello_world_dataset(f"file://{tmp}/hello_steady", rows_count=HELLO_ROWS,
                                           rows_per_row_group=HELLO_GROUP)
     on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(f"{tmp}/hello_steady")
                   for f in fs)
-    log(f"[cli] {card} steady-state store: {HELLO_ROWS} rows projected at {projected:.1f} s from a "
-        f"{HELLO_PROBE_ROWS}-row write (bar {HELLO_WRITE_BAR_S:g} s): wrote {rows} rows, "
-        f"{HELLO_GROUP} a group, {on_disk / 1e9:.3f} GB in {time.perf_counter() - t1:.1f} s")
+    log(f"[cli] {card} steady-state store: wrote {HELLO_ROWS} rows, {HELLO_GROUP} a group, "
+        f"{on_disk / 1e9:.3f} GB in {time.perf_counter() - t1:.1f} s")
     cli_rates = {"reference": ref}
     for label, args in (("python thread", ["-p", "thread"]), ("python process", ["-p", "process"]),
                         (f"torch thread, {DEVICE_STEP_MS} ms step",
@@ -4249,6 +4319,446 @@ def phase_lazy_dp(smi: str, slice_url: str, image_url: str) -> dict:
     return {KERNEL_NAME: k1}
 
 
+# ------------------------------------------------------------------ phase 18
+def _tp_windows(url: str, count: int) -> list:
+    """The first ``count`` windows of ``url`` in the order every rank reads
+    them (phase 10's reader), on the card."""
+    with DataLoader(token_windows(url, WINDOW), batch_size=1, device="cuda") as loader:
+        it = iter(loader)
+        windows = [next(it)["token"] for _ in range(count)]
+        it.close()
+    return windows
+
+
+def _tp_params(cfg, mesh) -> dict:
+    """This rank's slice of the weights drawn on the card from seed 0."""
+    full = llama.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    params = llama.shard_params(full, llama.param_shardings(mesh, cfg), mesh)
+    del full
+    free_cuda()
+    return params
+
+
+def _routes(record: list) -> list:
+    """A ``moe.record_routing`` record on the host: (kept per expert, dropped
+    share, this rank's aux share) per call."""
+    return [(s["kept"].tolist(), 1.0 - s["kept"].sum().item() / (s["top_k"] * s["tokens"]),
+             s["aux"].item()) for s in record]
+
+
+def _transfers() -> dict:
+    return {op: dict(v) for op, v in comm.transfer_stats.items()}
+
+
+def _router_unsummed(probs, group):
+    """The control's ``moe.combine_weights``: the router's gradient left
+    partial over the model group."""
+    return probs
+
+
+def _kv_heads_rolled(attn):
+    """The control's attention: each query head meets the next KV head of
+    its rank, as a head layout mismatched over the model axis would."""
+    def rolled(q, k, v):
+        return attn(q, k.roll(1, dims=2), v.roll(1, dims=2))
+    rolled.supports_gqa = attn.supports_gqa
+    return rolled
+
+
+class _GradKeeper:
+    """An optimizer for ``make_train_step``'s step that keeps the gradients
+    the step summed (``grads``) and updates nothing."""
+
+    def __init__(self, params):
+        self.leaves, self.grads = llama.param_leaves(params), None
+
+    def step(self):
+        self.grads = [t.grad for t in self.leaves]
+
+    def zero_grad(self, set_to_none=True):
+        for t in self.leaves:
+            t.grad = None
+
+
+def _distances(got: list, want: list, split: list, group, world: int) -> torch.Tensor:
+    """Squared distances of the model group's joined leaves of ``got`` from
+    the whole leaves ``want`` sliced as ``got`` (host tensors): a split
+    leaf's is the sum over the ranks' slices; each rank holds a replicated
+    leaf whole (``world``, the group's size, is a power of 2: exact)."""
+    d2 = torch.tensor([(g.detach() - w.cuda()).norm().item() ** 2 for g, w in zip(got, want)],
+                      dtype=torch.float64)
+    d2 = torch.where(torch.tensor(split), d2, d2 / world)
+    dist.all_reduce(d2, group=group)
+    return d2
+
+
+def _rank_tensor_parallel(rank: int, world: int, url: str, part: str, ref: dict) -> dict:
+    """Phase 18 on one of ``world`` ranks sharing ``cuda:0``. ``part`` "a":
+    mesh (1, 1, world), TP_STEPS bf16 AdamW steps of TP_LLAMA (the main
+    path), then the float32 first step and its control against the one
+    process's update in ``ref``. ``part`` "b": mesh TP_COMPOSE_MESH, one
+    bf16 step of TP_COMPOSE with ring attention, then one with Ulysses, then
+    the float32 gradient of each and of the control against the one
+    process's in ``ref``."""
+    out = {}
+    sizes = (1, 1, world) if part == "a" else TP_COMPOSE_MESH
+    mesh = make_mesh(sizes, ("data", "seq", "model"))
+    groups = dict(model_group=mesh.group("model"), seq_group=mesh.group("seq"),
+                  data_group=mesh.group("data"))
+    model_world = sizes[2]
+    windows = _tp_windows(url, TP_STEPS if part == "a" else 1)
+    if part == "a":
+        runs = [("tensor parallel", TP_LLAMA, make_flash_attention(causal=True), windows)]
+    else:
+        runs = [(name, TP_COMPOSE, maker(mesh, head_axis="model", local_attn="flash"),
+                 windows[:1])
+                for name, maker in (("ring", make_ring_attention),
+                                    ("ulysses", make_ulysses_attention))]
+    for name, cfg, attn, batches in runs:
+        t_run = time.perf_counter()
+        params = _tp_params(cfg, mesh)
+        init_opt, step = llama.make_train_step(cfg, attn_fn=attn, shift="roll", **groups)
+        opt = init_opt(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, step_ms, transfers, routes = [], [], [], []
+        for tokens in batches:
+            comm.reset_transfer_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with moe.record_routing() as record:
+                opt, loss = step(params, opt, {"tokens": tokens})[1:]
+                losses.append(loss.item())   # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            transfers.append(_transfers())
+            routes += _routes(record)
+        launches = {n: kernels.launch_counts.get(n, 0) for n in TP_KERNELS}
+        out[name] = {"losses": losses, "step_ms": step_ms, "transfers": transfers,
+                     "launches": launches, "routes": routes,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del params, opt, init_opt, step
+        free_cuda()
+        out[name]["s"] = time.perf_counter() - t_run
+
+    if part == "a":
+        # The float32 first step (flash attention on its float32 route)
+        # against the one process's update, and the control.
+        cfg, reference = TP_LLAMA, ref["after"]
+        checks = [(label, make_flash_attention(causal=True), combine)
+                  for label, combine in (("float32", moe.combine_weights),
+                                         ("control: router gradient unsummed", _router_unsummed))]
+    else:
+        # Each strategy's float32 gradient against the one process's, and
+        # the control.
+        cfg, reference = TP_COMPOSE, ref["compose_grads"]
+        checks = [(label, attn(maker(mesh, head_axis="model", local_attn="flash")),
+                   moe.combine_weights)
+                  for label, maker, attn in (
+                      ("ring float32", make_ring_attention, lambda a: a),
+                      ("ulysses float32", make_ulysses_attention, lambda a: a),
+                      ("control: ring, kv heads rolled", make_ring_attention, _kv_heads_rolled))]
+    whole = llama.param_leaves(reference)
+    want = llama.param_leaves(llama.shard_params(reference, llama.param_shardings(mesh, cfg), mesh))
+    split = [w.shape != a.shape for w, a in zip(want, whole)]
+    norms = torch.tensor(ref["update_norms" if part == "a" else "compose_grad_norms"])
+    for label, attn, combine in checks:
+        t_run = time.perf_counter()
+        params = _tp_params(cfg, mesh)
+        init_opt, step = llama.make_train_step(cfg, attn_fn=attn, shift="roll",
+                                               compute_dtype=torch.float32, **groups)
+        opt = init_opt(params)
+        if part == "b":
+            opt = _GradKeeper(params)
+        # (a)'s float32 run takes every window: its routing by step is held
+        # to one process's; the first step's result to the reference.
+        losses, routes, rel = [], [], None
+        saved, moe.combine_weights = moe.combine_weights, combine
+        try:
+            for tokens in windows if label == "float32" else windows[:1]:
+                with moe.record_routing() as record:
+                    losses.append(step(params, opt, {"tokens": tokens})[2].item())
+                routes += _routes(record)
+                if rel is None:
+                    got = llama.param_leaves(params) if part == "a" else opt.grads
+                    d2 = _distances(got, want, split, mesh.group("model"), model_world)
+                    rel = (d2.sqrt() / norms).tolist()
+                    del got
+        finally:
+            moe.combine_weights = saved
+        del params, opt, init_opt, step
+        free_cuda()
+        out[label] = {"losses": losses, "routes": routes, "rel": rel,
+                      "s": time.perf_counter() - t_run}
+    return out
+
+
+def _gloo_line(transfers: dict, step_ms: float) -> str:
+    total = sum(v["seconds"] for v in transfers.values())
+    return (f"{ {op: (v['calls'], round(v['bytes'] / 1e9, 4), round(v['seconds'], 4)) for op, v in sorted(transfers.items())} } "
+            f"(calls, GB, s); {total:.3f} s, {100 * total / (step_ms / 1e3):.1f} % of the step")
+
+
+def _rank_shape_kernels(gen, failures: list) -> None:
+    """K2 ("lse"), K3 and K4 at a model rank's shape in (a) and a Ulysses
+    rank's in (b), and K2 "stats" with the ring's K3 and K4 at a ring block
+    of (b), against their plain versions with the row bars."""
+    hd, seq = TP_LLAMA.head_dim, TP_COMPOSE_MESH[1]
+    heads, kv_heads = TP_LLAMA.n_heads // TP_RANKS, TP_LLAMA.n_kv_heads // TP_RANKS
+    for h, kv_h, what in ((heads, kv_heads, "a model rank's heads"),
+                          (heads // seq, kv_heads // seq, "a Ulysses rank's heads")):
+        shape = f"(1, {WINDOW}, {h}/{kv_h}, {hd})"
+        (q, k, v), _, _, _ = check_flash(gen, 1, WINDOW, WINDOW, h, kv_h, hd, True,
+                                         torch.bfloat16, f"{what} {shape} bf16 causal")
+        o, lse = flash_attention_lse(q, k, v, causal=True)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        kernels.reset_launch_counts()
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        counts = bwd_launches()
+        _, ok = judge_grads(got, flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
+                            False, f"{what} {shape}; launches {counts}")
+        if not ok or counts != {flash_attn.TENSOR_CORES: (1, 1), flash_attn.FMA: (0, 0)}:
+            failures.append(f"K3/K4 at {what} {shape}: launches {counts}")
+        del q, k, v, o, lse, do, got
+        free_cuda()
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    block = WINDOW // seq
+    q = randn(1, block, heads, hd)
+    k, v = randn(1, block, kv_heads, hd), randn(1, block, kv_heads, hd)
+    for causal in (True, False):
+        kernels.reset_launch_counts()
+        o, m, l = flash_attn.flash_attention_stats(q, k, v, causal=causal)
+        counts = dict(kernels.launch_counts)
+        worst, rms, m_err, l_err, ok = stats_verdict(
+            (o, m.transpose(1, 2), l.transpose(1, 2)), flash_attn._stats_plain(q, k, v, causal),
+            torch.bfloat16)
+        log(f"[stats] a ring block of (b) (1, {block}, {heads}/{kv_heads}, {hd}) bf16 "
+            f"{'causal' if causal else 'non-causal'} [launches {counts}]: o row-scaled worst "
+            f"{worst:.3g} rms {rms:.3g}; m {m_err:.3g}; l relative {l_err:.3g}")
+        if not ok or counts != {flash_attn.STATS_KERNEL_NAME: 1}:
+            failures.append(f"K2 stats at a ring block, causal={causal}: launches {counts}")
+    failures += ring_backward_check(q, k, v, randn)
+    del q, k, v
+    free_cuda()
+
+
+def _one_process(token_url: str) -> dict:
+    """The whole model in one process: TP_STEPS bf16 AdamW steps of
+    TP_LLAMA on (a)'s windows and TP_STEPS float32 ones (losses and routing
+    by step; the first float32 update is the one (a) is held to), and
+    TP_COMPOSE's float32 loss and gradient on the first window (those (b)
+    is held to)."""
+    windows = _tp_windows(token_url, TP_STEPS)
+    attn = make_flash_attention(causal=True)
+    ref = {"losses": [], "routes": []}
+    params = llama.init_params(torch.Generator(device="cuda").manual_seed(0), TP_LLAMA,
+                               device="cuda")
+    init_opt, step = llama.make_train_step(TP_LLAMA, attn_fn=attn, shift="roll")
+    opt = init_opt(params)
+    for tokens in windows:
+        with moe.record_routing() as record:
+            ref["losses"].append(step(params, opt, {"tokens": tokens})[2].item())
+        ref["routes"] += _routes(record)
+    del params, opt, init_opt, step
+    free_cuda()
+
+    params = llama.init_params(torch.Generator(device="cuda").manual_seed(0), TP_LLAMA,
+                               device="cuda")
+    p0 = [t.clone() for t in llama.param_leaves(params)]
+    init_opt, step = llama.make_train_step(TP_LLAMA, attn_fn=attn, shift="roll",
+                                           compute_dtype=torch.float32)
+    opt = init_opt(params)
+    ref["losses32"], ref["routes32"] = [], []
+    for tokens in windows:
+        with moe.record_routing() as record:
+            ref["losses32"].append(step(params, opt, {"tokens": tokens})[2].item())
+        ref["routes32"] += _routes(record)
+        if p0:
+            ref["update_norms"] = [(a.detach() - b).norm().item()
+                                   for a, b in zip(llama.param_leaves(params), p0)]
+            # A copy: the next steps update ``params`` in place.
+            ref["after"] = _tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+            p0 = None
+            free_cuda()
+    del params, opt, init_opt, step
+    free_cuda()
+
+    batch = {"tokens": windows[0]}
+
+    params = llama.init_params(torch.Generator(device="cuda").manual_seed(0), TP_COMPOSE,
+                               device="cuda")
+    with torch.no_grad():
+        ref["compose_loss"] = llama.loss_fn(params, batch, TP_COMPOSE, attn_fn=attn,
+                                            shift="roll").item()
+    for t in llama.param_leaves(params):
+        t.requires_grad_(True)
+    loss = llama.loss_fn(params, batch, TP_COMPOSE, attn_fn=attn, shift="roll",
+                         compute_dtype=torch.float32)
+    loss.backward()
+    ref["compose_loss32"] = loss.item()
+    grads = _tree_map(lambda t: t.grad, params)
+    ref["compose_grad_norms"] = [g.norm().item() for g in llama.param_leaves(grads)]
+    ref["compose_grads"] = _tree_map(lambda t: t.cpu(), grads)
+    del params, loss, grads, batch, windows
+    free_cuda()
+    return ref
+
+
+def phase_tensor_parallel(smi: str, token_url: str) -> dict:
+    """Tensor and expert parallelism (see the module docstring, phase 18).
+    Returns the launches by kernel name."""
+    t_phase = time.perf_counter()
+    card = f"({smi})"
+    failures = []
+    _rank_shape_kernels(torch.Generator(device="cuda").manual_seed(18), failures)
+
+    t0 = time.perf_counter()
+    ref = _one_process(token_url)
+    kept, dropped, aux = ref["routes"][0]
+    kept32 = ref["routes32"][0][0]
+    log(f"[tp] {card} one process, LlamaConfig() width, {TP_LLAMA.n_layers} layers (layer 1 a "
+        f"switch MoE, {TP_LLAMA.n_experts} experts, top-{TP_LLAMA.moe_top_k}, capacity factor "
+        f"{TP_LLAMA.moe_capacity_factor}), window {WINDOW}: bf16 losses by step {ref['losses']}, "
+        f"tokens per expert, dropped share and aux by step "
+        f"{[(k_, round(100 * d_, 3), round(a_, 6)) for k_, d_, a_ in ref['routes']]}; float32 "
+        f"losses {ref['losses32']}, tokens per expert, dropped share and aux by step "
+        f"{[(k_, round(100 * d_, 3), round(a_, 6)) for k_, d_, a_ in ref['routes32']]}; "
+        f"{TP_COMPOSE.n_layers}-layer loss bf16 {ref['compose_loss']:.6f}, "
+        f"float32 {ref['compose_loss32']:.6f}; {time.perf_counter() - t0:.1f} s")
+
+    # (a) Tensor x expert parallel on TP_RANKS ranks.
+    t0 = time.perf_counter()
+    compose_grads = ref.pop("compose_grads")
+    ranks = run_ranks(_rank_tensor_parallel, TP_RANKS, args=(token_url, "a", ref), device="cuda")
+    wall = time.perf_counter() - t0
+    names = _leaf_names(ref.pop("after"))
+    launches = {n: 0 for n in TP_KERNELS}
+    for r, got in enumerate(ranks):
+        run = got["tensor parallel"]
+        for n in TP_KERNELS:
+            launches[n] += run["launches"][n]
+        for i, (ms, transfers) in enumerate(zip(run["step_ms"], run["transfers"])):
+            log(f"[tp] (a) {card} rank {r} step {i}: {ms:.1f} ms, "
+                f"{WINDOW / (ms / 1e3):.1f} tokens/s; gloo {_gloo_line(transfers, ms)}")
+        log(f"[tp] (a) {card} rank {r}: {run['s']:.1f} s; losses {run['losses']}; peak memory "
+            f"{run['peak_gb']:.2f} GB; tokens per expert, dropped share and aux by step "
+            f"{[(k_, round(100 * d_, 3), round(a_, 6)) for k_, d_, a_ in run['routes']]}; "
+            f"launches {run['launches']}")
+    r0 = ranks[0]
+    run0 = r0["tensor parallel"]
+    if any(g["tensor parallel"]["losses"] != run0["losses"] for g in ranks):
+        failures.append("(a) the ranks' losses differ")
+    if not np.isfinite(run0["losses"]).all():
+        failures.append(f"(a) non-finite losses {run0['losses']}")
+    want = {n: 0 for n in TP_KERNELS}
+    for n in (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
+              flash_attn.BWD_DKV_KERNEL_NAME):
+        want[n] = TP_RANKS * TP_LLAMA.n_layers * TP_STEPS
+    if launches != want:
+        failures.append(f"(a) launches {launches}, expected {want}")
+    loss_rel = abs(run0["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    kept_tp = run0["routes"][0][0]
+    moved = sum(abs(a - b) for a, b in zip(kept_tp, kept))
+    f32, ctrl = r0["float32"], r0["control: router gradient unsummed"]
+    worst, worst_ctrl = max(f32["rel"]), max(ctrl["rel"])
+    kept32_tp = f32["routes"][0][0]
+    moved32 = sum(abs(a - b) for a, b in zip(kept32_tp, kept32))
+    assigned = TP_LLAMA.moe_top_k * WINDOW
+    for label, r in (("float32", f32), ("control", ctrl)):
+        top = sorted(range(len(names)), key=lambda i: -r["rel"][i])[:4]
+        log(f"[tp] (a) {card} {label} ({r['s']:.1f} s on rank 0): largest update distances "
+            f"{[(names[i], round(r['rel'][i], 5)) for i in top]}; median "
+            f"{statistics.median(r['rel']):.3g}")
+    log(f"[tp] (a) {card} {TP_RANKS} ranks, mesh (1, 1, {TP_RANKS}), {wall:.1f} s with the spawn: "
+        f"first bf16 loss {run0['losses'][0]} vs one process {ref['losses'][0]} ({loss_rel:.3g} "
+        f"relative, bar {TP_LOSS_REL_BAR}); tokens per expert {kept_tp} vs {kept} ({moved} "
+        f"assignments moved of {assigned}); float32 first step: loss {f32['losses'][0]} vs "
+        f"{ref['losses32'][0]}, tokens per expert {kept32_tp} vs {kept32} ({moved32} moved, bar "
+        f"{TP_ROUTE_BAR * assigned:.0f}), |p_tp - p_one| / |p_one - p_0| largest {worst:.4g} "
+        f"(bar {TP_UPDATE_REL_BAR}); control (router gradient unsummed): largest "
+        f"{worst_ctrl:.4g}")
+    if loss_rel > TP_LOSS_REL_BAR:
+        failures.append(f"(a) first loss {loss_rel:.3g} from one process")
+    if worst > TP_UPDATE_REL_BAR or moved32 > TP_ROUTE_BAR * assigned:
+        failures.append(f"(a) float32 step: update {worst:.4g}, routing moved {moved32}")
+    if worst_ctrl <= TP_UPDATE_REL_BAR:
+        failures.append(f"(a) the control (router gradient unsummed) passed the bar: "
+                        f"{worst_ctrl:.4g}")
+    # The routing by step, on the ranks and in one process: float32 (held to
+    # the bars) and bf16 (logged).
+    for label, tp, one, held in (("float32", f32, {"routes": ref["routes32"],
+                                                    "losses": ref["losses32"]}, True),
+                                 ("bf16", run0, ref, False)):
+        for i, ((_, d_tp, a_tp), (_, d_one, a_one), l_tp, l_one) in enumerate(
+                zip(tp["routes"], one["routes"], tp["losses"], one["losses"])):
+            log(f"[tp] (a) {card} {label} step {i}: dropped {100 * d_tp:.3f} % vs one process "
+                f"{100 * d_one:.3f} %, aux {a_tp:.6f} vs {a_one:.6f} "
+                f"({abs(a_tp - a_one) / a_one:.3g} relative), loss {l_tp:.6f} vs {l_one:.6f} "
+                f"({abs(l_tp - l_one) / abs(l_one):.3g} relative)"
+                + (f"; bars {100 * TP_TREND_DROP_BAR:g} points, {TP_TREND_AUX_BAR} relative"
+                   if held else ""))
+            if held and (abs(d_tp - d_one) > TP_TREND_DROP_BAR
+                         or abs(a_tp - a_one) > TP_TREND_AUX_BAR * a_one):
+                failures.append(f"(a) {label} step {i}: dropped {d_tp:.4f} vs {d_one:.4f}, aux "
+                                f"{a_tp:.5f} vs {a_one:.5f}")
+        if held and len(tp["routes"]) != TP_STEPS:
+            failures.append(f"(a) {label}: {len(tp['routes'])} steps routed")
+    free_cuda()
+
+    # (b) The composition: ring, then Ulysses, over the sequence axis.
+    t0 = time.perf_counter()
+    world = int(np.prod(TP_COMPOSE_MESH))
+    ref["compose_grads"] = compose_grads
+    ranks = run_ranks(_rank_tensor_parallel, world, args=(token_url, "b", ref), device="cuda")
+    wall = time.perf_counter() - t0
+    names = _leaf_names(ref.pop("compose_grads"))
+    del compose_grads
+    seq, model = TP_COMPOSE_MESH[1:]
+    blocks = sum(r + 1 for r in range(seq)) * model
+    expect = {"ring": {flash_attn.STATS_KERNEL_NAME: blocks, flash_attn.BWD_DQ_KERNEL_NAME: blocks,
+                       flash_attn.BWD_DKV_KERNEL_NAME: blocks},
+              "ulysses": {flash_attn.KERNEL_NAME: world, flash_attn.BWD_DQ_KERNEL_NAME: world,
+                          flash_attn.BWD_DKV_KERNEL_NAME: world}}
+    for strategy in ("ring", "ulysses"):
+        runs = [g[strategy] for g in ranks]
+        counts = {n: sum(x["launches"][n] for x in runs) for n in TP_KERNELS}
+        for n in TP_KERNELS:
+            launches[n] += counts[n]
+        loss = runs[0]["losses"][0]
+        rel = abs(loss - ref["compose_loss"]) / abs(ref["compose_loss"])
+        aux = sum(x["routes"][0][2] for x in runs[::model])
+        log(f"[tp] (b) {card} {strategy}, mesh {TP_COMPOSE_MESH}, {runs[0]['s']:.1f} s on rank 0: "
+            f"loss {loss} vs one process "
+            f"{ref['compose_loss']} ({rel:.3g} relative, bar {TP_LOSS_REL_BAR}); step ms by rank "
+            f"{[round(x['step_ms'][0], 1) for x in runs]} ({WINDOW / (runs[0]['step_ms'][0] / 1e3):.1f} "
+            f"tokens/s); peak memory by rank {[round(x['peak_gb'], 2) for x in runs]} GB; tokens "
+            f"per expert {runs[0]['routes'][0][0]}, dropped "
+            f"{100 * runs[0]['routes'][0][1]:.3f} %, aux {aux:.6f}; rank 0's gloo "
+            f"{_gloo_line(runs[0]['transfers'][0], runs[0]['step_ms'][0])}; launches {counts}")
+        if any(x["losses"] != runs[0]["losses"] for x in runs) or rel > TP_LOSS_REL_BAR:
+            failures.append(f"(b) {strategy}: losses {[x['losses'] for x in runs]}, {rel:.3g} "
+                            f"from one process")
+        if {n: c for n, c in counts.items() if c} != expect[strategy]:
+            failures.append(f"(b) {strategy}: launches {counts}, expected {expect[strategy]}")
+    for label in ("ring float32", "ulysses float32", "control: ring, kv heads rolled"):
+        r = ranks[0][label]
+        top = sorted(range(len(names)), key=lambda i: -r["rel"][i])[:4]
+        worst = max(r["rel"])
+        log(f"[tp] (b) {card} {label}, {r['s']:.1f} s on rank 0: loss {r['losses'][0]} vs one "
+            f"process {ref['compose_loss32']}; |g_ranks - g_one| / |g_one| largest {worst:.4g} (bar "
+            f"{TP_GRAD_REL_BAR}), by leaf {[(names[i], round(r['rel'][i], 6)) for i in top]}; "
+            f"median {statistics.median(r['rel']):.3g}")
+        if (worst <= TP_GRAD_REL_BAR) == label.startswith("control"):
+            failures.append(f"(b) {label}: gradient {worst:.4g} against the bar {TP_GRAD_REL_BAR}")
+    log(f"[tp] (b) {card} {world} ranks, {wall:.1f} s with the spawn")
+    log(f"[tp] {card} phase took {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    if failures:
+        raise AssertionError("tensor-parallel phase: " + "; ".join(failures))
+    return launches
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """``t`` seen as integers of its width, so that equality is bit equality."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -4313,12 +4823,16 @@ def main() -> int:
         free_cuda()
         lazy = timed("17 lazy + dp resnet", phase_lazy_dp, smi,
                      f"file://{slice_tmp}/imagenet_like", f"file://{image_tmp}/imagenet")
+        free_cuda()
+        tp = timed("18 tensor parallel", phase_tensor_parallel, smi, f"file://{train_tmp}/tokens")
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     for name in (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
                  flash_attn.BWD_DKV_KERNEL_NAME):
         counts[name] += proc[name] + epoch[name] + mesh[name]
+    for name in TP_KERNELS:
+        counts[name] = counts.get(name, 0) + tp[name]
     source = "petastorm_tpu_torch/csrc/flash_attn_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
@@ -4357,11 +4871,13 @@ def main() -> int:
         "name": flash_attn.STATS_KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/flash_attn.cu",
         "replaces": "petastorm_tpu/ops/flash_attn.py:89",
-        "launches": seq[flash_attn.STATS_KERNEL_NAME], **stats["stats"]}, {
+        "launches": seq[flash_attn.STATS_KERNEL_NAME] + counts[flash_attn.STATS_KERNEL_NAME],
+        **stats["stats"]}, {
         "name": flash_attn.STATS_FMA_KERNEL_NAME, "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/flash_attn.cu",
         "replaces": "petastorm_tpu/ops/flash_attn.py:89",
-        "launches": seq[flash_attn.STATS_FMA_KERNEL_NAME], **stats["stats fma"]}, {
+        "launches": seq[flash_attn.STATS_FMA_KERNEL_NAME] + counts[flash_attn.STATS_FMA_KERNEL_NAME],
+        **stats["stats fma"]}, {
         "name": flash_attn.BWD_DQ_KERNEL_NAME, "route": "cuda", "source": source,
         "replaces": "petastorm_tpu/ops/flash_attn.py:272",
         "launches": counts[flash_attn.BWD_DQ_KERNEL_NAME] + seq[flash_attn.BWD_DQ_KERNEL_NAME],

@@ -18,6 +18,17 @@ targets on it, and runs the rank's block at its global positions;
 :func:`make_train_step` sums the gradients over the group before AdamW.
 The attention is a ring or Ulysses ``attn_fn`` over the same group
 (:mod:`petastorm_tpu_torch.parallel`).
+
+Tensor and expert parallelism (the JAX package's ``model`` mesh axis): with
+``model_group`` each rank holds its slice of every leaf that
+:func:`param_shardings` splits (:func:`shard_params`): Megatron's layout,
+query and kv heads, hidden units, vocabulary rows of the embedding and
+columns of the head, and experts. Activations stay replicated over the
+group; :func:`~petastorm_tpu_torch.parallel.comm.copy_to_group` and
+:func:`~petastorm_tpu_torch.parallel.comm.reduce_from_group` bracket each
+column- and row-parallel pair, the embedding is a masked lookup summed over
+the group, and the cross entropy is vocabulary-parallel, so the full logits
+never exist on one rank.
 """
 from __future__ import annotations
 
@@ -32,7 +43,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from petastorm_tpu_torch.loader.loader import resolve_device
-from petastorm_tpu_torch.parallel import comm
+from petastorm_tpu_torch.parallel import comm, moe
 from petastorm_tpu_torch.parallel.attention import dense_attention
 
 
@@ -47,13 +58,15 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     # Mixture of experts: every ``moe_every``-th layer uses ``n_experts``
-    # soft-mixture experts (0 = dense MLP everywhere).
+    # experts (0 = dense MLP everywhere), split over the model group.
     n_experts: int = 0
     moe_every: int = 2
     # "soft": every expert on every token, outputs combined by router
-    # probability. "switch" (sparse top-k dispatch, with its top_k and
-    # capacity settings) is not ported yet and raises.
+    # probability. "switch": top-k routing with a capacity per expert
+    # (petastorm_tpu_torch.parallel.moe).
     moe_dispatch: str = "soft"
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
 
     @property
     def head_dim(self) -> int:
@@ -107,6 +120,74 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig, device="cuda") -> 
     return params
 
 
+def _param_pspec_tuples(cfg: LlamaConfig, model_axis) -> dict:
+    """Partition tuples per parameter, as a ``PartitionSpec``'s entries:
+    Megatron's tensor-parallel layout when ``model_axis`` is an axis name,
+    all replicated when None. ``()`` is replicated (norm scales, router)."""
+    m = model_axis
+    attention = {"attn_norm": (), "wq": (None, m), "wk": (None, m), "wv": (None, m),
+                 "wo": (m, None), "mlp_norm": ()}
+    dense_layer = dict(attention, w1=(None, m), w3=(None, m), w2=(m, None))
+    # Expert parallelism: the leading expert axis on the model axis.
+    moe_layer = dict(attention, router=(), ew1=(m, None, None), ew3=(m, None, None),
+                     ew2=(m, None, None))
+    return {"embed": (m, None),     # vocabulary rows
+            "layers": [dict(moe_layer) if _is_moe_layer(cfg, li) else dict(dense_layer)
+                       for li in range(cfg.n_layers)],
+            "norm_out": (),
+            "lm_head": (None, m)}   # vocabulary columns
+
+
+def param_shardings(mesh, cfg: LlamaConfig, model_axis: str = "model") -> dict:
+    """The tensor-parallel layout over ``mesh``'s ``model_axis``: a tree like
+    :func:`init_params`' of partition tuples (``(None, "model")`` splits a
+    leaf's columns over the axis). The JAX package returns ``NamedSharding``s
+    for GSPMD; here a tuple says which slice of the leaf a rank holds
+    (:func:`shard_params`). Raises ``ValueError`` unless the axis' size
+    divides the heads, the kv heads (so query head h of a rank still meets
+    kv head h // rep there), the hidden width, the vocabulary and the
+    experts."""
+    size = int(mesh.shape[model_axis])
+    widths = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "hidden": cfg.hidden,
+              "vocab": cfg.vocab, "n_experts": cfg.n_experts}
+    bad = {k: v for k, v in widths.items() if v % size}
+    if bad:
+        raise ValueError(f"the {model_axis!r} axis ({size} ranks) must divide {bad}")
+    return _param_pspec_tuples(cfg, model_axis)
+
+
+def _map_leaves(fn, specs: dict, *trees: dict) -> dict:
+    """``fn(spec, *leaves)`` over the tree of ``specs`` and each of ``trees``
+    (the same structure), as a tree."""
+    return {key: ([{k: fn(spec[k], *(t[key][li][k] for t in trees)) for k in spec}
+                   for li, spec in enumerate(node)]
+                  if isinstance(node, list) else fn(node, *(t[key] for t in trees)))
+            for key, node in specs.items()}
+
+
+def shard_params(params: dict, shardings: dict, mesh) -> dict:
+    """This rank's slice of each leaf of the full ``params`` (from
+    :func:`init_params` or :func:`params_from_jax`): a leaf split along a
+    dimension over a mesh axis keeps the rank's equal block there (its index
+    along the axis), as a new tensor, so the full tree can be freed."""
+    def take(spec, t):
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                t = t.chunk(int(mesh.shape[axis]), dim=dim)[dist.get_rank(mesh.group(axis))]
+        return t.clone()
+    return _map_leaves(take, shardings, params)
+
+
+def unshard_params(slices: list, shardings: dict) -> dict:
+    """The inverse of :func:`shard_params` over one axis: ``slices[i]`` is the
+    tree of the axis' rank i; each split leaf is their concatenation, each
+    replicated leaf rank 0's."""
+    def join(spec, *parts):
+        dims = [d for d, axis in enumerate(spec) if axis is not None]
+        return torch.cat(parts, dim=dims[0]) if dims else parts[0]
+    return _map_leaves(join, shardings, *slices)
+
+
 def params_from_jax(tree, device="cuda") -> dict:
     """The JAX package's parameter tree (arrays as numpy) as this module's
     parameters: the same keys and layouts, float32 tensors on ``device``."""
@@ -144,14 +225,23 @@ def _rope(x: torch.Tensor, theta: float, offset: int = 0) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _moe_block(h: torch.Tensor, layer: dict) -> torch.Tensor:
+def _rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _moe_block(h: torch.Tensor, layer: dict, model_group=None) -> torch.Tensor:
     """Soft-mixture MoE with dense dispatch: every expert runs on every
-    token and the outputs combine by router probability."""
-    probs = torch.softmax(h.float() @ layer["router"], dim=-1).to(h.dtype)
-    gate = F.silu(torch.einsum("bsd,edh->besh", h, layer["ew1"].to(h.dtype)))
-    up = torch.einsum("bsd,edh->besh", h, layer["ew3"].to(h.dtype))
+    token and the outputs combine by router probability. Over a model group
+    each rank runs its own experts and the partial sums are reduced."""
+    local = layer["ew1"].shape[0]
+    first = _rank(model_group) * local
+    probs = torch.softmax(h.float() @ layer["router"], dim=-1)
+    probs = moe.combine_weights(probs, model_group)[..., first:first + local].to(h.dtype)
+    hc = comm.copy_to_group(h, model_group)
+    gate = F.silu(torch.einsum("bsd,edh->besh", hc, layer["ew1"].to(h.dtype)))
+    up = torch.einsum("bsd,edh->besh", hc, layer["ew3"].to(h.dtype))
     expert_out = torch.einsum("besh,ehd->besd", gate * up, layer["ew2"].to(h.dtype))
-    return torch.einsum("besd,bse->bsd", expert_out, probs)
+    return comm.reduce_from_group(torch.einsum("besd,bse->bsd", expert_out, probs), model_group)
 
 
 def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -161,40 +251,68 @@ def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, compute_dtype) -> t
     return onehot @ embed.to(compute_dtype)
 
 
+def _embed(embed: torch.Tensor, tokens: torch.Tensor, compute_dtype, embed_lookup: str,
+           model_group=None) -> torch.Tensor:
+    """The embedding of ``tokens``. Over a model group ``embed`` holds this
+    rank's rows of the vocabulary: tokens outside them look up row 0 and are
+    zeroed, and the rows' sum over the group is the lookup (each token found
+    on one rank)."""
+    if model_group is not None:
+        rows = embed.shape[0]
+        local = tokens.long() - _rank(model_group) * rows
+        inside = (local >= 0) & (local < rows)
+        tokens = torch.where(inside, local, 0)
+    if embed_lookup == "onehot":
+        x = _embed_lookup(embed, tokens, compute_dtype)
+    else:
+        x = embed.to(compute_dtype)[tokens.long()]
+    if model_group is None:
+        return x
+    return comm.reduce_from_group(torch.where(inside[..., None], x, 0), model_group)
+
+
 def apply_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
-                pos_offset: int = 0):
+                pos_offset: int = 0, model_group=None, data_group=None, seq_group=None):
     """One transformer block (attention + MLP/MoE residuals) -> (x, aux).
-    ``aux`` is 0.0: the soft mixture has no auxiliary loss (the switch
-    dispatch, which has one, is not ported). ``pos_offset``: the global
-    position of x's first token."""
+    ``aux`` is the switch MoE's auxiliary loss (this rank's share of it
+    over the data and sequence groups), 0.0 for other blocks.
+    ``pos_offset``: the global position of x's first token. ``model_group``:
+    the layer holds this rank's heads, hidden units or experts (see the
+    module's docstring); the data and sequence groups route the switch
+    MoE's tokens globally."""
     hd = cfg.head_dim
-    rep = cfg.n_heads // cfg.n_kv_heads
+    heads, kv_heads = layer["wq"].shape[1] // hd, layer["wk"].shape[1] // hd
+    rep = heads // kv_heads
     gqa_native = attn_fn is None or getattr(attn_fn, "supports_gqa", False)
     h = _rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
     b, s, _ = h.shape
-    q = (h @ layer["wq"].to(h.dtype)).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ layer["wk"].to(h.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ layer["wv"].to(h.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    hc = comm.copy_to_group(h, model_group)
+    q = (hc @ layer["wq"].to(h.dtype)).reshape(b, s, heads, hd)
+    k = (hc @ layer["wk"].to(h.dtype)).reshape(b, s, kv_heads, hd)
+    v = (hc @ layer["wv"].to(h.dtype)).reshape(b, s, kv_heads, hd)
     q, k = _rope(q, cfg.rope_theta, pos_offset), _rope(k, cfg.rope_theta, pos_offset)
     if not gqa_native and rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
     attn = (attn_fn or partial(dense_attention, causal=True))(q, k, v)
-    attn = attn.reshape(b, s, cfg.n_heads * hd)
-    x = x + attn @ layer["wo"].to(attn.dtype)
+    attn = attn.reshape(b, s, heads * hd)
+    x = x + comm.reduce_from_group(attn @ layer["wo"].to(attn.dtype), model_group)
     h = _rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
-    if "router" in layer:
-        if cfg.moe_dispatch == "switch":
-            raise NotImplementedError(
-                "moe_dispatch='switch' needs the sparse top-k dispatch of "
-                "petastorm_tpu/parallel/moe.py, not ported yet (ROADMAP Queue A item 7, "
-                "model parallelism: MoE)")
-        x = x + _moe_block(h, layer)
+    aux = 0.0
+    if "router" in layer and cfg.moe_dispatch == "switch":
+        out, aux = moe.switch_moe_block(
+            h, layer["router"], layer["ew1"], layer["ew3"], layer["ew2"], top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, data_group=data_group,
+            seq_group=seq_group, expert_group=model_group)
+        x = x + out
+    elif "router" in layer:
+        x = x + _moe_block(h, layer, model_group)
     else:
-        gate = F.silu(h @ layer["w1"].to(h.dtype))
-        up = h @ layer["w3"].to(h.dtype)
-        x = x + (gate * up) @ layer["w2"].to(h.dtype)
-    return x, 0.0
+        hc = comm.copy_to_group(h, model_group)
+        gate = F.silu(hc @ layer["w1"].to(h.dtype))
+        up = hc @ layer["w3"].to(h.dtype)
+        x = x + comm.reduce_from_group((gate * up) @ layer["w2"].to(h.dtype), model_group)
+    return x, aux
 
 
 def _checkpointed(fn, *args):
@@ -210,7 +328,8 @@ def _checkpointed(fn, *args):
 def apply(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
           compute_dtype=torch.bfloat16, with_aux: bool = False,
           embed_lookup: str = "gather", return_hidden: bool = False,
-          remat_layers: bool = False, pos_offset: int = 0):
+          remat_layers: bool = False, pos_offset: int = 0, model_group=None,
+          data_group=None, seq_group=None):
     """tokens: (batch, seq) int -> logits (batch, seq, vocab) float32 (or the
     pre-lm_head hidden states when ``return_hidden``).
 
@@ -220,49 +339,73 @@ def apply(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
     :param embed_lookup: ``"gather"`` (default) or ``"onehot"`` (the
         contraction of :func:`_embed_lookup`; the same values)
     :param with_aux: also return the summed MoE auxiliary loss (a float32
-        zero: the soft mixture has none)
+        zero without a switch MoE layer)
     :param remat_layers: run each block under checkpointing, so that only
         the layer-boundary activations are kept for the backward, which
         recomputes each block (the long-context memory lever)
     :param pos_offset: the global position of ``tokens[:, 0]`` (RoPE), for a
         sequence-parallel rank's block of the window
+    :param model_group: ``params`` is this rank's slice (:func:`shard_params`);
+        the logits are then this rank's columns of the vocabulary
+    :param data_group: the ranks holding other rows of the batch, and
+    :param seq_group: the ranks holding other blocks of the window: the
+        switch MoE routes over all their tokens, and its ``aux`` is this
+        rank's share (the shares sum to the batch's)
     """
     if embed_lookup not in ("gather", "onehot"):
         raise ValueError(f"unknown embed_lookup {embed_lookup!r}")
-    if embed_lookup == "onehot":
-        x = _embed_lookup(params["embed"], tokens, compute_dtype)
-    else:
-        x = params["embed"].to(compute_dtype)[tokens.long()]
+    x = _embed(params["embed"], tokens, compute_dtype, embed_lookup, model_group)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    groups = {"model_group": model_group, "data_group": data_group, "seq_group": seq_group}
     for layer in params["layers"]:
         if remat_layers:
-            x, _ = _checkpointed(apply_block, layer, x, cfg, attn_fn, pos_offset)
+            x, layer_aux = _checkpointed(partial(apply_block, **groups), layer, x, cfg, attn_fn,
+                                         pos_offset)
         else:
-            x, _ = apply_block(layer, x, cfg, attn_fn=attn_fn, pos_offset=pos_offset)
+            x, layer_aux = apply_block(layer, x, cfg, attn_fn=attn_fn, pos_offset=pos_offset,
+                                       **groups)
+        aux = aux + layer_aux
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
-    out = x if return_hidden else (x @ params["lm_head"].to(x.dtype)).float()
-    return (out, torch.zeros((), dtype=torch.float32, device=x.device)) if with_aux else out
+    if not return_hidden:
+        x = (comm.copy_to_group(x, model_group) @ params["lm_head"].to(x.dtype)).float()
+    return (x, aux) if with_aux else x
 
 
-def _nll_per_token(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """``logsumexp(logits) - logits[target]`` along the last axis."""
-    lse = torch.logsumexp(logits, dim=-1)
-    return lse - torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+def _nll_per_token(logits: torch.Tensor, targets: torch.Tensor,
+                   model_group=None) -> torch.Tensor:
+    """``logsumexp(logits) - logits[target]`` along the last axis. Over a
+    model group ``logits`` are this rank's columns of the vocabulary: the
+    row max, the sum of exponentials and the target's logit are reduced over
+    the group (a vocabulary-parallel cross entropy)."""
+    if model_group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    cols = logits.shape[-1]
+    peak = logits.detach().amax(dim=-1)
+    comm.all_reduce_([peak], model_group, record_as="tp_max", op=dist.ReduceOp.MAX)
+    sum_exp = comm.reduce_from_group(torch.exp(logits - peak[..., None]).sum(dim=-1), model_group)
+    local = targets.long() - _rank(model_group) * cols
+    inside = (local >= 0) & (local < cols)
+    target = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    target = comm.reduce_from_group(torch.where(inside, target, 0.0), model_group)
+    return peak + torch.log(sum_exp) - target
 
 
-def _chunk_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _chunk_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+               model_group=None) -> torch.Tensor:
     """Per-token loss of one chunk of hidden states: its lm_head logits
     (float32) exist only inside this call."""
-    return _nll_per_token((x @ head.to(x.dtype)).float(), targets)
+    return _nll_per_token((x @ head.to(x.dtype)).float(), targets, model_group)
 
 
 def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
             aux_weight: float = 1e-2, embed_lookup: str = "gather",
             compute_dtype=torch.bfloat16, shift: str = "split",
             xent_chunk: Optional[int] = None, remat_layers: bool = False,
-            seq_group=None, data_group=None) -> torch.Tensor:
-    """Next-token cross entropy. batch: ``{'tokens': (b, s) int}``.
-    ``aux_weight`` weighs the switch MoE's auxiliary loss, which is not
-    ported; the soft mixture has none, so it adds nothing yet.
+            seq_group=None, data_group=None, model_group=None) -> torch.Tensor:
+    """Next-token cross entropy plus ``aux_weight`` times the switch MoE's
+    auxiliary loss (the soft mixture has none). batch: ``{'tokens': (b, s)
+    int}``.
 
     ``shift="split"``: inputs ``tokens[:, :-1]``, targets ``tokens[:, 1:]``.
     ``shift="roll"``: inputs are the full window, targets
@@ -286,7 +429,14 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
     number of targets over the group (all-reduced), so the ranks' losses sum
     to the loss of the global batch: the mean GSPMD computes when a batch
     sharded over ``"data"`` meets the JAX step. With both groups the count
-    is reduced over each.
+    is reduced over each. The switch MoE routes over the tokens of both
+    groups, and each rank adds its share of the auxiliary loss.
+
+    ``model_group``: ``params`` is this rank's slice (:func:`shard_params`),
+    the tokens and the loss are the group's (every rank of it computes the
+    same loss), and the cross entropy is vocabulary-parallel: with or
+    without ``xent_chunk``, no rank holds more than its columns of the
+    logits.
     """
     tokens = batch["tokens"]
     if shift not in ("split", "roll"):
@@ -320,25 +470,26 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
         for group in groups:
             comm.all_reduce_([count], group)
         denom = count.item()
+    run = partial(apply, params, inputs, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
+                  compute_dtype=compute_dtype, with_aux=True, remat_layers=remat_layers,
+                  pos_offset=offset, model_group=model_group, data_group=data_group,
+                  seq_group=seq_group)
     if xent_chunk:
-        x = apply(params, inputs, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
-                  compute_dtype=compute_dtype, return_hidden=True, remat_layers=remat_layers,
-                  pos_offset=offset)
+        x, aux = run(return_hidden=True)
         n_tok = x.shape[0] * x.shape[1]
         if n_tok % xent_chunk:
             raise ValueError(f"xent_chunk ({xent_chunk}) must divide batch*seq ({n_tok})")
-        xf = x.reshape(n_tok, x.shape[-1])
+        xf = comm.copy_to_group(x.reshape(n_tok, x.shape[-1]), model_group)
         tf = targets.reshape(n_tok)
         head = params["lm_head"]
         nll_tok = torch.cat([
-            _checkpointed(_chunk_nll, xf[i:i + xent_chunk], head, tf[i:i + xent_chunk])
+            _checkpointed(_chunk_nll, xf[i:i + xent_chunk], head, tf[i:i + xent_chunk],
+                          model_group)
             for i in range(0, n_tok, xent_chunk)]).reshape(x.shape[0], x.shape[1])
     else:
-        logits = apply(params, inputs, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
-                       compute_dtype=compute_dtype, remat_layers=remat_layers,
-                       pos_offset=offset)
-        nll_tok = _nll_per_token(logits, targets)
-    return (nll_tok * mask).sum() / denom
+        logits, aux = run()
+        nll_tok = _nll_per_token(logits, targets, model_group)
+    return (nll_tok * mask).sum() / denom + aux_weight * aux
 
 
 def param_leaves(params: dict) -> list:
@@ -357,7 +508,8 @@ def param_leaves(params: dict) -> list:
 def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
                     embed_lookup: str = "gather", compute_dtype=torch.bfloat16,
                     shift: str = "split", xent_chunk: Optional[int] = None,
-                    remat_layers: bool = False, seq_group=None, data_group=None):
+                    remat_layers: bool = False, seq_group=None, data_group=None,
+                    model_group=None):
     """AdamW train step -> ``(init_opt, train_step)``, as the JAX package's.
 
     ``init_opt(params)`` marks every leaf of ``params`` as requiring grad
@@ -378,7 +530,17 @@ def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
     Data parallelism: ``data_group`` goes to :func:`loss_fn`, and every
     gradient (and the loss) is summed over it as well, so the ranks take the
     global batch's update and report its loss; with both groups, over each
-    in turn."""
+    in turn.
+
+    Tensor and expert parallelism: ``model_group`` goes to :func:`loss_fn`,
+    and ``params`` and the optimizer hold this rank's slices. Nothing is
+    summed over the model group here: inside autograd the backward of each
+    copy into the group sums the partial gradients of the replicated
+    activations, and :func:`~petastorm_tpu_torch.parallel.moe.combine_weights`
+    those of the router probabilities, so every leaf's gradient is whole
+    (a replicated leaf's) or this rank's slice of the whole (a split leaf's)
+    on every rank. AdamW is elementwise, so each rank's update is its slice
+    of the full update."""
     def init_opt(params: dict) -> torch.optim.AdamW:
         leaves = param_leaves(params)
         for t in leaves:
@@ -390,7 +552,7 @@ def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
         loss = loss_fn(params, batch, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
                        compute_dtype=compute_dtype, shift=shift, xent_chunk=xent_chunk,
                        remat_layers=remat_layers, seq_group=seq_group,
-                       data_group=data_group)
+                       data_group=data_group, model_group=model_group)
         loss.backward()
         groups = [g for g in (seq_group, data_group) if g is not None]
         for group in groups:

@@ -1,14 +1,15 @@
 """Moving tensors between the ranks of a ``torch.distributed`` process group:
 the transport of ring and Ulysses attention, of the gradient sums of
-sequence and data parallelism, of the cross-rank batch norm's statistics
-and of the sharded device cache's rows.
+sequence and data parallelism, of the cross-rank batch norm's statistics,
+of the sharded device cache's rows and of tensor parallelism's partial sums.
 
 The JAX package's collectives (``lax.ppermute``, ``lax.all_to_all``,
 ``lax.all_gather``, ``psum``) ride the TPU's interconnect inside one
 program. Here each rank is a process. The group must be a gloo group: gloo
 moves host memory, so a CUDA tensor is copied to a pinned host buffer,
 sent, and copied back to the card on arrival. Nothing is computed on the
-host: these functions move bytes and, for :func:`all_reduce_`, add them.
+host: these functions move bytes and, for :func:`all_reduce_`, add them
+(or take their maximum).
 Another backend (NCCL, which refuses two ranks on one card) raises
 ``NotImplementedError``: the multi-GPU transport is ROADMAP Queue A item 10.
 
@@ -142,16 +143,75 @@ def all_gather(t: torch.Tensor, group, record_as: str = "all_gather") -> List[to
     return out
 
 
-def all_reduce_(tensors: Sequence[torch.Tensor], group, record_as: str = "all_reduce") -> None:
-    """Sum each of ``tensors`` over ``group``, in place (``psum``).
-    ``record_as`` names the call in :data:`transfer_stats`."""
+def all_reduce_(tensors: Sequence[torch.Tensor], group, record_as: str = "all_reduce",
+                op=dist.ReduceOp.SUM) -> None:
+    """Sum each of ``tensors`` over ``group``, in place (``psum``; ``op=
+    ReduceOp.MAX``: ``pmax``). ``record_as`` names the call in
+    :data:`transfer_stats`."""
     if dist.get_world_size(group) == 1:
         return
     check_backend(group)
     t0 = time.perf_counter()
     for t in tensors:
         host = _to_host(t)
-        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(host, op=op, group=group)
         if host is not t:
             t.copy_(host, non_blocking=t.device.type == "cuda")
     _record(record_as, sum(t.numel() * t.element_size() for t in tensors), t0)
+
+
+# --------------------------------------------------- tensor parallelism's pair
+# Megatron's two conjugate operations (Shoeybi et al., arXiv:1909.08053): the
+# activations of a model group are replicated, each rank holds a slice of a
+# column-parallel and a row-parallel weight, and its product is one partial
+# sum of the block's output. GSPMD inserts the same collectives from the
+# shardings; here autograd sees them as functions.
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the group (each
+    rank's slice contributes a part of the replicated input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        all_reduce_([g], ctx.group, record_as="tp_grad")
+        return g, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Sum over the group forward; identity backward (the replicated output's
+    gradient is whole on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        all_reduce_([out], group, record_as="tp_reduce")
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` entering a model group's sliced weights: the same values, and a
+    backward that sums the gradient over ``group`` (recorded as
+    ``"tp_grad"``). ``group=None`` or a group of one rank: ``x`` itself."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of each rank's partial ``x`` (recorded as
+    ``"tp_reduce"``), with an identity backward. ``group=None`` or a group of
+    one rank: ``x`` itself."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _ReduceFromGroup.apply(x, group)

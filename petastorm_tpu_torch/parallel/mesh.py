@@ -28,6 +28,14 @@ class Mesh:
     def group(self, axis: str):
         return self._groups[axis]
 
+    def check_axes(self, *axes: Optional[str]) -> None:
+        """Raise ``ValueError`` unless each of ``axes`` that is not None
+        names an axis of the mesh (a ``PartitionSpec`` over a missing axis
+        fails in the JAX package too)."""
+        missing = [a for a in axes if a is not None and a not in self.shape]
+        if missing:
+            raise ValueError(f"axes {missing} are not in the mesh's {list(self.shape)}")
+
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str]) -> Mesh:
     """Arrange the ranks of the initialised default group into a grid of

@@ -221,13 +221,17 @@ def ring_attention(q, k, v, group, causal: bool = False,
     return RingAttentionFunction.apply(q, k, v, group, causal, local_block_q, local_attn)
 
 
-def make_ring_attention(mesh, seq_axis: str = "seq", causal: bool = True,
+def make_ring_attention(mesh, seq_axis: str = "seq", data_axis: Optional[str] = "data",
+                        head_axis: Optional[str] = None, causal: bool = True,
                         local_block_q: Optional[int] = None, local_attn: str = "dense"):
     """An ``attn_fn`` for :func:`petastorm_tpu_torch.models.llama.apply` that
     runs :func:`ring_attention` over ``mesh``'s ``seq_axis`` group
     (``supports_gqa``: K/V rotate at kv-head width). Each rank passes its own
-    sequence block; the JAX package's ``data_axis`` and ``head_axis`` have no
-    counterpart yet (one data rank, no tensor parallelism)."""
+    rows of the batch (split over ``data_axis``), its sequence block and its
+    heads (split over ``head_axis``, tensor parallelism: each model rank
+    rings its own heads), the layout the JAX package's ``shard_map`` spec
+    ``P(data_axis, seq_axis, head_axis, None)`` describes."""
+    mesh.check_axes(seq_axis, data_axis, head_axis)
     group = mesh.group(seq_axis)
 
     def attn(q, k, v):

@@ -20,6 +20,8 @@ backward), and ``heads`` and ``kv_heads`` must divide by P.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.distributed as dist
 
@@ -88,12 +90,17 @@ def ulysses_attention(q, k, v, group, causal: bool = False, local_attn: str = "d
     return HeadToSeq.apply(out, group).to(q.dtype)
 
 
-def make_ulysses_attention(mesh, seq_axis: str = "seq", causal: bool = True,
+def make_ulysses_attention(mesh, seq_axis: str = "seq", data_axis: Optional[str] = "data",
+                           head_axis: Optional[str] = None, causal: bool = True,
                            local_attn: str = "dense"):
     """An ``attn_fn`` running :func:`ulysses_attention` over ``mesh``'s
     ``seq_axis`` group; interchangeable with
     :func:`~petastorm_tpu_torch.parallel.ring_attention.make_ring_attention`
-    (``supports_gqa``: K/V are exchanged at kv-head width)."""
+    (``supports_gqa``: K/V are exchanged at kv-head width), with the same
+    layout: each rank passes its rows (``data_axis``), its sequence block
+    and its heads (``head_axis``: each model rank exchanges only its own, so
+    its local head counts must divide by the sequence group's size)."""
+    mesh.check_axes(seq_axis, data_axis, head_axis)
     group = mesh.group(seq_axis)
 
     def attn(q, k, v):

@@ -1117,3 +1117,66 @@ def test_sharded_cache_slice_logic_at_world_size_one_on_card(cuda_device, tmp_pa
                     assert torch.equal(g[k], w[k])
     finally:
         dist.destroy_process_group()
+
+
+def test_switch_moe_block_on_card_matches_cpu(cuda_device):
+    """``moe.switch_moe_block`` (top-2, tokens dropped) in float32 on the
+    card and on the CPU from the same inputs: the routing's kept slots
+    equal, the output and every input's gradient within 1e-4 of the
+    largest value."""
+    from petastorm_tpu_torch.parallel import moe
+    rng = np.random.default_rng(4)
+    arrays = (rng.normal(size=(2, 64, 32)), rng.normal(size=(32, 8)),
+              rng.normal(size=(8, 32, 64)) / 6, rng.normal(size=(8, 32, 64)) / 6,
+              rng.normal(size=(8, 64, 32)) / 8)
+
+    def run(device):
+        inputs = [torch.tensor(a, dtype=torch.float32, device=device, requires_grad=True)
+                  for a in arrays]
+        with moe.record_routing() as record:
+            out, aux = moe.switch_moe_block(*inputs, top_k=2, capacity_factor=0.8)
+        (out.square().sum() + aux).backward()
+        return [out, aux] + [t.grad for t in inputs], record[-1]["kept"].cpu()
+
+    card, card_kept = run(cuda_device)
+    host, host_kept = run("cpu")
+    assert torch.equal(card_kept, host_kept) and host_kept.sum() < 2 * 128
+    for got, want in zip(card, host):
+        assert got.is_cuda
+        assert (got.detach().cpu() - want.detach()).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_tensor_parallel_step_on_card_matches_one_cpu_process(cuda_device):
+    """Two model ranks on ``cuda:0`` (gloo) take one float32 AdamW step of
+    a switch-MoE Llama with flash attention over their heads (the kernels):
+    the loss within 1e-4 relative of one CPU process on the whole model (the
+    plain versions), every leaf's joined gradient within 1e-4 of its
+    largest value, and the joined parameters within 1e-4 (a step moves each
+    by about lr = 3e-4, so a gradient of the wrong sign misses it)."""
+    import types
+
+    import torch_tp_ranks
+    from petastorm_tpu_torch.parallel.launch import run_ranks
+    cfg_kwargs = dict(vocab=256, dim=128, n_layers=2, n_heads=4, n_kv_heads=2, hidden=256,
+                      n_experts=4, moe_dispatch="switch", moe_top_k=2, moe_capacity_factor=1.0)
+    tokens = np.random.default_rng(6).integers(0, 256, (2, 64)).astype(np.int32)
+    ranks = run_ranks(torch_tp_ranks.card_tp_step, 2, args=(cfg_kwargs, tokens), device="cuda",
+                      timeout_s=300)
+    cfg = llama.LlamaConfig(**cfg_kwargs)
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    init_opt, step = llama.make_train_step(cfg, attn_fn=flash_attn.make_flash_attention(),
+                                           shift="roll", compute_dtype=torch.float32)
+    opt = init_opt(params)
+    grads = []
+    opt.register_step_pre_hook(lambda *_: grads.append(
+        [t.grad.clone() for t in llama.param_leaves(params)]))
+    _, _, loss = step(params, opt, {"tokens": torch.from_numpy(tokens)})
+    assert all(abs(r[0] - loss.item()) <= 1e-4 * abs(loss.item()) for r in ranks)
+    assert all(r[3] for r in ranks)   # the flash kernels ran on every rank
+    shardings = llama.param_shardings(types.SimpleNamespace(shape={"model": 2}), cfg)
+    joined = llama.unshard_params([r[1] for r in ranks], shardings)
+    for got, want in zip(llama.param_leaves(joined), grads[0]):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    joined = llama.unshard_params([r[2] for r in ranks], shardings)
+    for got, want in zip(llama.param_leaves(joined), llama.param_leaves(params)):
+        assert (got - want.detach()).abs().max() <= 1e-4

@@ -71,6 +71,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.benchmark.throughput", "petastorm_tpu_torch.entry",
             "petastorm_tpu_torch.loader.dtypes", "petastorm_tpu_torch.parallel.comm",
             "petastorm_tpu_torch.parallel.mesh", "petastorm_tpu_torch.parallel.launch",
+            "petastorm_tpu_torch.parallel.moe",
             "petastorm_tpu_torch.parallel.ring_attention",
             "petastorm_tpu_torch.parallel.ulysses_attention",
             "petastorm_tpu_torch.benchmark.seq_parallel_bench", "chip_smoke",

@@ -155,6 +155,19 @@ def test_switch_dispatch_and_bad_arguments_raise(model):
     with pytest.raises(ValueError, match="xent_chunk"):
         llama.loss_fn(params, {"tokens": toks}, cfg, shift="roll", xent_chunk=3)
     if cfg.n_experts:
-        switch = dataclasses.replace(cfg, moe_dispatch="switch")
-        with pytest.raises(NotImplementedError, match="switch"):
-            llama.apply(params, toks, switch)
+        # The switch dispatch runs (it raised before it was ported) and
+        # matches the JAX package: loss and summed aux, float32, top-2 at a
+        # capacity that drops tokens.
+        kw = dict(moe_dispatch="switch", moe_top_k=2, moe_capacity_factor=0.5)
+        switch, jax_switch = (dataclasses.replace(c, **kw) for c in (cfg, model[2]))
+        toks = _tokens((2, 33))
+        got = llama.loss_fn(params, {"tokens": torch.from_numpy(toks)}, switch,
+                            compute_dtype=torch.float32)
+        want = jax_llama.loss_fn(model[3], {"tokens": jnp.asarray(toks)}, jax_switch,
+                                 compute_dtype=jnp.float32)
+        assert float(got) == pytest.approx(float(want), abs=1e-4)
+        _, aux = llama.apply(params, torch.from_numpy(toks), switch, with_aux=True,
+                             compute_dtype=torch.float32)
+        _, jax_aux = jax_llama.apply(model[3], jnp.asarray(toks), jax_switch, with_aux=True,
+                                     compute_dtype=jnp.float32)
+        assert float(aux) == pytest.approx(float(jax_aux), abs=1e-6) and float(aux) > 0
