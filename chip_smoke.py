@@ -267,8 +267,8 @@ result line):
    row twice; then the host ms a batch of the shuffle and the collate alone,
    eager and lazy, on one epoch replayed from memory. (b) On 2 ranks
    sharing ``cuda:0`` (gloo): ``run_imagenet_bench`` on phase 9's store at
-   128 rows a rank (global 256), 5 pipelined and 3 resident steps, with
-   the cross-rank batch norm; a 3-step data-parallel loop whose losses,
+   128 rows a rank (global 256), 4 pipelined and 2 resident steps, with
+   the cross-rank batch norm; a 2-step data-parallel loop whose losses,
    parameters and moving statistics must be bit-equal on the ranks, with
    step ms and the gloo seconds of the batch norms and of the gradient sum;
    the loop's first batch stepped in float32 (TF32 off, remat) against one
@@ -285,11 +285,11 @@ result line):
    the ranks give them: K2 ("lse"), K3 and K4 at a model rank's (1, 8192,
    16 heads over 4, 128) and a Ulysses rank's (1, 8192, 8 over 2, 128), K2
    "stats" and the ring's K3 and K4 at a ring block (1, 4096, 16 over 4,
-   128); then one process on the whole model: 3 bf16 steps on (a)'s
+   128); then one process on the whole model: 2 bf16 steps on (a)'s
    windows (losses and routing by step), and a float32 AdamW step on the
    first whose update the ranks are held to. (a) 2 ranks on
    ``cuda:0`` (gloo), mesh (1, 1, 2) on ("data", "seq", "model"), each
-   with its slice of every split leaf (``llama.shard_params``): 3 steps
+   with its slice of every split leaf (``llama.shard_params``): 2 steps
    with ``make_flash_attention`` over the rank's heads (launches counted,
    each step's ms and tokens/s, the gloo calls, bytes, seconds and share
    of the step by op, peak memory, tokens per expert, the dropped share
@@ -307,6 +307,32 @@ result line):
    against one process's, every leaf within ``TP_GRAD_REL_BAR``, and a
    control whose query heads meet the wrong KV heads of their rank, which
    the bar must reject.
+
+19. FSDP, the pipeline and the dry run, at ``LlamaConfig()``'s widths (dense,
+   2 of its 32 layers), bf16, AdamW, phase 8's windows of 8192 tokens, on 4
+   ranks sharing ``cuda:0`` (gloo). First K2 "stats", K3 and K4 against
+   their plain versions at the dry run's per-rank block (2, 32, 4 over 2
+   heads, d = 8: the tensor-core route, its tiles' columns 8-63 TMA's zero
+   fill), with ``BWD_CONTROLS``; then one process: the bf16 losses over the
+   first 8 windows, one bf16 AdamW step's peak memory on one window, and
+   the float32 gradient accumulated over the first 4 windows, followed by
+   one AdamW step. Then one spawn of 4 ranks: (a) FSDP
+   (``param_shardings_fsdp``, ``fsdp_group=``) on mesh (4, 1, 1), one window
+   a rank, and with the model axis on (2, 1, 2), two windows a data rank:
+   ``FSDP_STEPS`` steps each (launches counted, step ms, tokens/s, the gloo
+   calls, bytes and seconds by op and their share of the step, peak memory
+   a rank beside the unsharded layout's bytes and the rank's own), the first
+   loss within ``TP_LOSS_REL_BAR`` of one process's; then on (4, 1, 1) the
+   float32 step, each leaf's update within ``FSDP_UPDATE_REL_BAR``, and a
+   gather whose backward does not sum that must miss it. (b) the GPipe
+   pipeline (``make_pipeline``, ``stack_stage_params``, ``layers_fn``) on
+   (2, 2) of ("pipe", "data"), one layer a stage, 4 microbatches of one
+   window a data rank, ``xent_chunk``: the same figures, then the float32
+   step on the first 4 windows (2 microbatches a data rank): its gradient
+   (every leaf within ``PIPE_GRAD_REL_BAR``) and update, and an output op
+   that sums its cotangent over the stages, which must miss the gradient
+   bar. Last, ``entry.dryrun_multichip(4)`` on 4 ranks on
+   ``cuda:0``, its lines printed and its launches counted.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -342,6 +368,7 @@ from petastorm_tpu_torch.etl.rowgroup_indexers import SingleFieldIndexer
 from petastorm_tpu_torch.etl.rowgroup_indexing import build_rowgroup_index
 from petastorm_tpu_torch.etl.writer import materialize_dataset_local
 from petastorm_tpu_torch.kernels.build import build
+from petastorm_tpu_torch import entry as entry_module
 from petastorm_tpu_torch.entry import entry
 from petastorm_tpu_torch.loader import DataLoader
 from petastorm_tpu_torch.loader import loader as loader_module
@@ -366,6 +393,7 @@ from petastorm_tpu_torch.benchmark.seq_parallel_bench import token_windows
 from petastorm_tpu_torch.parallel import comm, moe
 from petastorm_tpu_torch.parallel.launch import run_ranks
 from petastorm_tpu_torch.parallel.mesh import make_mesh
+from petastorm_tpu_torch.parallel.pipeline import make_pipeline, stack_stage_params
 from petastorm_tpu_torch.parallel.ring_attention import make_ring_attention
 from petastorm_tpu_torch.parallel.ulysses_attention import make_ulysses_attention
 from petastorm_tpu_torch.ops import augment
@@ -556,7 +584,7 @@ MIXUP_BAR = 1e-6
 SELECT_FRACTIONS, SELECT_CROP, SELECT_STEPS, SELECT_WORKERS = [0.75, 0.25], 192, 4, 8
 SELECT_LABELS, SELECT_SHARD_SEED = [3, 7, 11], 7
 SELECT_PARTS, SELECT_KEEP_PARTS, SELECT_I0 = 4, {1, 3}, (0, 500)
-SELECT_SCALAR_ROWS = 50_000
+SELECT_SCALAR_ROWS = 25_000
 
 # The deterministic epoch plane and the throughput harness (phase 15): phase
 # 9's store and ResNet-50 read in plan order with a window of 4 groups;
@@ -596,7 +624,7 @@ DP_LOSS_REL_BAR, DP_UPDATE_REL_BAR = 2e-3, 0.3
 # 256); the sharded device cache of phase 4's store on the same ranks.
 LAZY_SHUFFLE, LAZY_TURNS, LAZY_STEPS = 1024, 1, 10
 LAZY_POOLS = ("thread", "process")
-DPR_RANKS, DPR_STEPS, DPR_RESIDENT, DPR_LOOP = 2, 5, 3, 3
+DPR_RANKS, DPR_STEPS, DPR_RESIDENT, DPR_LOOP = 2, 4, 2, 2
 CACHE_DP_EPOCHS = 2
 #: The data-parallel step's first update against one process on the same
 #: 256 rows and weights, in float32 with TF32 off (bf16 roundings would be
@@ -619,7 +647,7 @@ DPR_LOSS_REL_BAR, DPR_UPDATE_REL_BAR = 1e-4, 0.2
 # sharing cuda:0; the composition with sequence parallelism on 4 ranks cut
 # to the MoE layer alone (4 ranks' slices and AdamW states of 2 layers do
 # not fit one card).
-TP_RANKS, TP_STEPS = 2, 3
+TP_RANKS, TP_STEPS = 2, 2
 TP_LLAMA = llama.LlamaConfig(n_layers=2, n_experts=8, moe_every=2, moe_dispatch="switch",
                              moe_top_k=2, moe_capacity_factor=1.25)
 TP_COMPOSE = dataclasses.replace(TP_LLAMA, n_layers=1, moe_every=1)
@@ -657,6 +685,35 @@ TP_KERNELS = (flash_attn.KERNEL_NAME, flash_attn.STATS_KERNEL_NAME,
               flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME,
               flash_attn.FMA_KERNEL_NAME, flash_attn.STATS_FMA_KERNEL_NAME,
               flash_attn.BWD_DQ_FMA_KERNEL_NAME, flash_attn.BWD_DKV_FMA_KERNEL_NAME)
+# FSDP and the pipeline (phase 19): LlamaConfig()'s widths (dense, 2 of its
+# 32 layers), bf16, AdamW, phase 8's windows of 8192 tokens, 4 ranks sharing
+# cuda:0. FSDP on (4, 1, 1) and with Megatron's axis on (2, 1, 2) of
+# ("data", "seq", "model"), both on the store's first 4 windows (one a data
+# rank, or two); the pipeline on (2, 2) of ("pipe", "data"), one layer a
+# stage, 4 microbatches of one window a data rank (the first 8 windows).
+# The float32 checks run on the first 4 windows: the pipeline's with 2
+# microbatches a data rank (a float32 step at this width takes 4-6 s a rank
+# on the card's float32 units, shared by the 4 ranks).
+FSDP_LLAMA = llama.LlamaConfig(n_layers=2)
+FSDP_MESHES = ((4, 1, 1), (2, 1, 2))
+FSDP_WINDOWS, PIPE_WINDOWS, PIPE_MESH, PIPE_MICROBATCHES = 4, 8, (2, 2), 4
+FSDP_STEPS, PHASE19_XENT_CHUNK = 2, 4096
+#: The float32 first step against one process on the same windows and
+#: weights (its gradient accumulated window by window, then one AdamW
+#: step): each leaf's update within FSDP_UPDATE_REL_BAR, |p_ranks - p_one| /
+#: |p_one - p_0| (phase 18's bar: an AdamW first update is about
+#: lr * sign(g), so leaves whose gradient nearly cancels flip), and for the
+#: pipeline each leaf's gradient within PIPE_GRAD_REL_BAR, |g_ranks - g_one|
+#: / |g_one| (phase 18 (b)'s bar: summation order alone reads 1e-6 to 1e-4).
+#: AdamW's first update does not see a gradient's scale, so the pipeline's
+#: control (its output op summing the cotangent over the 2 stages: twice the
+#: gradient) must miss the gradient bar; FSDP's (a gather whose backward
+#: keeps the rank's block of its own gradient) must miss the update bar. The
+#: first bf16 loss of each run within TP_LOSS_REL_BAR of one process's.
+FSDP_UPDATE_REL_BAR, PIPE_GRAD_REL_BAR = 0.2, 1e-2
+#: The dry run's per-rank shape: ring-flash blocks of (2, 32, 8/2 heads
+#: over 4/2 kv heads, 8) at 4 ranks, d = 8 on the tensor-core route.
+DRYRUN_BLOCK = (2, 32, 4, 2, 8)
 #: The bench's result keys without a resident phase or a device peak, and
 #: the mesh keys it adds.
 LLM_KEYS = {"tokens_per_sec", "input_stall_pct", "step_time_ms", "tokens_per_step", "echo",
@@ -4759,6 +4816,379 @@ def phase_tensor_parallel(smi: str, token_url: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 19
+def _dryrun_shape_kernels(gen, failures: list) -> None:
+    """K2 "stats" (causal and not), then K3 and K4 as the ring's backward
+    launches them, at the dry run's ring-flash block (DRYRUN_BLOCK: d = 8 on
+    the tensor-core route) against their plain versions."""
+    b, block, heads, kv_heads, hd = DRYRUN_BLOCK
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    q = randn(b, block, heads, hd)
+    k, v = randn(b, block, kv_heads, hd), randn(b, block, kv_heads, hd)
+    for causal in (True, False):
+        kernels.reset_launch_counts()
+        o, m, l = flash_attn.flash_attention_stats(q, k, v, causal=causal)
+        counts = dict(kernels.launch_counts)
+        worst, rms, m_err, l_err, ok = stats_verdict(
+            (o, m.transpose(1, 2), l.transpose(1, 2)), flash_attn._stats_plain(q, k, v, causal),
+            torch.bfloat16)
+        log(f"[stats] the dry run's ring block {DRYRUN_BLOCK} bf16 "
+            f"{'causal' if causal else 'non-causal'} [launches {counts}]: o row-scaled worst "
+            f"{worst:.3g} rms {rms:.3g}; m {m_err:.3g}; l relative {l_err:.3g}")
+        if not ok or counts != {flash_attn.STATS_KERNEL_NAME: 1}:
+            failures.append(f"K2 stats at the dry run's block, causal={causal}: launches {counts}")
+    failures += ring_backward_check(q, k, v, randn)
+
+
+def _fresh_llama(cfg) -> dict:
+    return llama.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+
+
+def _phase19_reference(windows: list) -> dict:
+    """The whole model in one process on the runs' windows: the peak memory
+    of one bf16 AdamW step on one window; the bf16 losses over the first
+    FSDP_WINDOWS and over all PIPE_WINDOWS windows; the float32 gradient
+    accumulated over the first FSDP_WINDOWS (each window's loss weighted so
+    that the sum is the mean over their targets, as the ranks' global loss
+    is), and one AdamW step on it -> the gradient and the update the ranks
+    are held to."""
+    cfg, attn = FSDP_LLAMA, make_flash_attention(causal=True)
+    kw = dict(attn_fn=attn, shift="roll", xent_chunk=PHASE19_XENT_CHUNK)
+    ref = {}
+    params = _fresh_llama(cfg)
+    init_opt, step = llama.make_train_step(cfg, **kw)
+    opt = init_opt(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(params, opt, {"tokens": windows[0]})
+    torch.cuda.synchronize()
+    ref["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, init_opt, step
+    free_cuda()
+
+    params = _fresh_llama(cfg)
+    with torch.no_grad():
+        losses = [llama.loss_fn(params, {"tokens": w}, cfg, **kw).item() for w in windows]
+    ref["fsdp_loss"] = statistics.mean(losses[:FSDP_WINDOWS])
+    ref["pipe_loss"] = statistics.mean(losses[:PIPE_WINDOWS])
+    leaves = llama.param_leaves(params)
+    opt = llama.make_train_step(cfg)[0](params)
+    p0 = [t.detach().clone() for t in leaves]
+    losses32 = []
+    for w in windows[:FSDP_WINDOWS]:
+        loss = llama.loss_fn(params, {"tokens": w}, cfg, compute_dtype=torch.float32, **kw)
+        (loss / FSDP_WINDOWS).backward()
+        losses32.append(loss.item())
+        del loss
+    ref["loss32"] = statistics.mean(losses32)
+    ref["grads"] = _tree_map(lambda t: t.grad.to("cpu", copy=True), params)
+    opt.step()
+    ref["update_norms"] = [(t.detach() - a).norm().item() for t, a in zip(leaves, p0)]
+    ref["after"] = _tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+    del params, leaves, p0, opt
+    free_cuda()
+    return ref
+
+
+def _state_gb(params: dict) -> float:
+    """float32 weights, gradients and both AdamW moments of ``params``."""
+    return 16 * sum(t.numel() for t in llama.param_leaves(params)) / 1e9
+
+
+def _steps(params, step, batch, count: int, hook=None) -> dict:
+    """``count`` steps of ``step`` (``make_train_step``'s pair), launches
+    counted from the first, ``hook`` run before each AdamW update: losses,
+    step ms, gloo transfers by step, launches, peak memory and the rank's
+    state."""
+    opt = step[0](params)
+    if hook is not None:
+        opt.register_step_pre_hook(hook)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, step_ms, transfers = [], [], []
+    for _ in range(count):
+        comm.reset_transfer_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step[1](params, opt, batch)[2].item())   # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        transfers.append(_transfers())
+    return {"losses": losses, "step_ms": step_ms, "transfers": transfers,
+            "launches": {n: kernels.launch_counts.get(n, 0) for n in TP_KERNELS},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "state_gb": _state_gb(params)}
+
+
+def _unsummed_scatter(t, group, dim=0, record_as="reduce_scatter"):
+    """The FSDP control's reduce-scatter: this rank's block of its own
+    gradient, not summed over the data group."""
+    return t.chunk(dist.get_world_size(group), dim)[dist.get_rank(group)].contiguous()
+
+
+class _SummedCotangent(torch.autograd.Function):
+    """The pipeline control's output op: the last stage's output on every
+    stage, and a backward that sums the cotangent over the stages that each
+    computed the same loss (the gradient S times too large)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        host = t.detach().cpu() if dist.get_rank(group) == dist.get_world_size(group) - 1 \
+            else torch.empty(t.shape, dtype=t.dtype)
+        dist.broadcast(host, dist.get_global_rank(group, dist.get_world_size(group) - 1),
+                       group=group)
+        return host.to(t.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        host = g.cpu()
+        dist.all_reduce(host, group=ctx.group)
+        return host.to(g.device), None
+
+
+def _rank_fsdp_pipeline(rank: int, world: int, url: str, ref: dict) -> dict:
+    """Phase 19's spawn, on one of 4 ranks sharing ``cuda:0``: (a) FSDP on
+    each of FSDP_MESHES, then the float32 step and its control on the
+    first; (b) the pipeline on PIPE_MESH, then the float32 step and its
+    control."""
+    cfg, attn = FSDP_LLAMA, make_flash_attention(causal=True)
+    windows = _tp_windows(url, PIPE_WINDOWS)
+    out = {}
+
+    # (a) FSDP.
+    for sizes in FSDP_MESHES:
+        mesh = make_mesh(sizes, ("data", "seq", "model"))
+        tp = sizes[2] > 1
+        shardings = llama.param_shardings_fsdp(mesh, cfg, model_axis="model" if tp else None)
+        per, d = FSDP_WINDOWS // sizes[0], dist.get_rank(mesh.group("data"))
+        batch = {"tokens": torch.cat(windows[d * per:(d + 1) * per])}
+        groups = dict(fsdp_group=mesh.group("data"),
+                      model_group=mesh.group("model") if tp else None)
+        checks = [("bf16", torch.bfloat16, comm.reduce_scatter)]
+        if not tp:
+            checks += [("float32", torch.float32, comm.reduce_scatter),
+                       ("control: gather unsummed", torch.float32, _unsummed_scatter)]
+        for label, dtype, scatter in checks:
+            t_run = time.perf_counter()
+            params = llama.shard_params(_fresh_llama(cfg), shardings, mesh)
+            free_cuda()
+            step = llama.make_train_step(cfg, attn_fn=attn, shift="roll", compute_dtype=dtype,
+                                         xent_chunk=PHASE19_XENT_CHUNK, **groups)
+            saved, comm.reduce_scatter = comm.reduce_scatter, scatter
+            try:
+                run = _steps(params, step, batch, FSDP_STEPS if dtype == torch.bfloat16 else 1)
+            finally:
+                comm.reduce_scatter = saved
+            if dtype == torch.float32:
+                whole = llama.param_leaves(ref["after"])
+                want = llama.param_leaves(llama.shard_params(ref["after"], shardings, mesh))
+                split = [w.shape != a.shape for w, a in zip(want, whole)]
+                d2 = _distances(llama.param_leaves(params), want, split, mesh.group("data"),
+                                sizes[0])
+                run["rel"] = (d2.sqrt() / torch.tensor(ref["update_norms"])).tolist()
+            run["s"] = time.perf_counter() - t_run
+            out[f"fsdp {sizes} {label}"] = run
+            del params, step
+            free_cuda()
+
+    # (b) The pipeline: one layer a stage.
+    pmesh = make_mesh(PIPE_MESH, ("pipe", "data"))
+    stage, d = dist.get_rank(pmesh.group("pipe")), dist.get_rank(pmesh.group("data"))
+
+    def stage_fn(layer, x):
+        return llama.apply_block(layer, x, cfg, attn_fn=attn)[0]
+
+    ref_grads = ref["grads"]
+    names = ["embed"] + [f"layers.{stage}.{k}" for k in sorted(ref_grads["layers"][stage])] + \
+        ["lm_head", "norm_out"]
+
+    def mine(tree):
+        """This stage's leaves of a whole tree, as ``param_leaves`` orders
+        the stage's parameters."""
+        return [tree["embed"]] + [tree["layers"][stage][k] for k in sorted(tree["layers"][stage])] \
+            + [tree["lm_head"], tree["norm_out"]]
+
+    for label, dtype, replicate in (("bf16", torch.bfloat16, comm.replicate_from_last),
+                                    ("float32", torch.float32, comm.replicate_from_last),
+                                    ("control: cotangent summed", torch.float32,
+                                     _SummedCotangent.apply)):
+        t_run = time.perf_counter()
+        per = (PIPE_WINDOWS if dtype == torch.bfloat16 else FSDP_WINDOWS) // PIPE_MESH[1]
+        batch = {"tokens": torch.cat(windows[d * per:(d + 1) * per])}
+        pipe = make_pipeline(pmesh, stage_fn, per, data_axis="data")
+
+        def layers_fn(stage_params, x):
+            return pipe(stage_params, x), torch.zeros((), device=x.device)
+
+        full = _fresh_llama(cfg)
+        params = {"embed": full["embed"], "norm_out": full["norm_out"],
+                  "lm_head": full["lm_head"],
+                  "layers": stack_stage_params(full["layers"], pmesh)}
+        del full
+        free_cuda()
+        step = llama.make_train_step(cfg, shift="roll", compute_dtype=dtype,
+                                     xent_chunk=PHASE19_XENT_CHUNK, layers_fn=layers_fn,
+                                     data_group=pmesh.group("data"))
+        rel_grad = []
+
+        def grad_distances(*_):   # the step's gradient, summed over the data ranks
+            rel_grad.extend(((t.grad - w.cuda()).norm() / w.norm().cuda()).item()
+                            for t, w in zip(llama.param_leaves(params), mine(ref_grads)))
+        saved, comm.replicate_from_last = comm.replicate_from_last, replicate
+        try:
+            run = (_steps(params, step, batch, FSDP_STEPS) if dtype == torch.bfloat16
+                   else _steps(params, step, batch, 1, hook=grad_distances))
+        finally:
+            comm.replicate_from_last = saved
+        if dtype == torch.float32:
+            run["rel_grad"] = rel_grad
+            run["rel"] = [((t.detach() - w.cuda()).norm() / n).item() for t, w, n in zip(
+                llama.param_leaves(params), mine(ref["after"]),
+                mine(_tree_from_leaves(ref_grads, ref["update_norms"])))]
+        run["names"], run["s"] = names, time.perf_counter() - t_run
+        out[f"pipe {label}"] = run
+        del params, step
+        free_cuda()
+    return out
+
+
+def _tree_from_leaves(like: dict, leaves: list) -> dict:
+    """``leaves`` (in ``param_leaves`` order) as a tree shaped like ``like``."""
+    it = iter(leaves)
+    tree = {}
+    for key in sorted(like):
+        node = like[key]
+        tree[key] = [{k: next(it) for k in sorted(layer)} for layer in node] \
+            if isinstance(node, list) else next(it)
+    return tree
+
+
+def phase_fsdp_pipeline(smi: str, token_url: str) -> dict:
+    """FSDP, the pipeline and the dry run (see the module docstring, phase
+    19). Returns the launches by kernel name."""
+    t_phase = time.perf_counter()
+    card = f"({smi})"
+    failures = []
+    _dryrun_shape_kernels(torch.Generator(device="cuda").manual_seed(19), failures)
+
+    t0 = time.perf_counter()
+    windows = _tp_windows(token_url, PIPE_WINDOWS)
+    ref = _phase19_reference(windows)
+    del windows
+    free_cuda()
+    n_params = sum(int(np.prod(shape)) for node in llama._param_shapes(FSDP_LLAMA).values()
+                   for shape in ([s for layer in node for s in layer.values()]
+                                 if isinstance(node, list) else [node]))
+    layout_gb = 16 * n_params / 1e9
+    log(f"[fsdp] {card} one process, LlamaConfig() width, {FSDP_LLAMA.n_layers} layers (dense, "
+        f"{n_params / 1e6:.1f} M parameters: {layout_gb:.2f} GB of float32 weights, gradients "
+        f"and AdamW moments), window {WINDOW}: peak memory of a bf16 AdamW step on one window "
+        f"{ref['peak_gb']:.2f} GB; bf16 loss over {FSDP_WINDOWS} windows {ref['fsdp_loss']:.6f}, "
+        f"over {PIPE_WINDOWS} {ref['pipe_loss']:.6f}; float32 over {FSDP_WINDOWS} "
+        f"{ref['loss32']:.6f}; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank_fsdp_pipeline, 4, args=(token_url, ref), device="cuda")
+    wall = time.perf_counter() - t0
+    names = _leaf_names(ref["after"])
+    launches = {n: 0 for n in TP_KERNELS}
+    layers = FSDP_LLAMA.n_layers
+    runs = [(f"fsdp {sizes} bf16", f"(a) FSDP mesh {sizes}", FSDP_WINDOWS * WINDOW // sizes[0],
+             {flash_attn.KERNEL_NAME: 4 * 2 * layers * FSDP_STEPS,
+              flash_attn.BWD_DQ_KERNEL_NAME: 4 * layers * FSDP_STEPS,
+              flash_attn.BWD_DKV_KERNEL_NAME: 4 * layers * FSDP_STEPS}, ref["fsdp_loss"])
+            for sizes in FSDP_MESHES]
+    per_stage = PIPE_MICROBATCHES * FSDP_STEPS * 4
+    runs.append(("pipe bf16", f"(b) pipeline {PIPE_MESH} of (pipe, data)",
+                 PIPE_WINDOWS * WINDOW // PIPE_MESH[1],
+                 {flash_attn.KERNEL_NAME: 2 * per_stage, flash_attn.BWD_DQ_KERNEL_NAME: per_stage,
+                  flash_attn.BWD_DKV_KERNEL_NAME: per_stage}, ref["pipe_loss"]))
+    for key, what, tokens, expect, want_loss in runs:
+        counts = {n: sum(r[key]["launches"][n] for r in ranks) for n in TP_KERNELS}
+        for n in TP_KERNELS:
+            launches[n] += counts[n]
+        for r, got in enumerate(ranks):
+            run = got[key]
+            for i, (ms, transfers) in enumerate(zip(run["step_ms"], run["transfers"])):
+                log(f"[fsdp] {what} {card} rank {r} step {i}: {ms:.1f} ms, "
+                    f"{tokens / (ms / 1e3):.1f} tokens/s a rank; gloo "
+                    f"{_gloo_line(transfers, ms)}")
+            log(f"[fsdp] {what} {card} rank {r}: {run['s']:.1f} s; losses {run['losses']}; peak "
+                f"memory {run['peak_gb']:.2f} GB (its float32 weights, gradients and moments "
+                f"{run['state_gb']:.2f} GB; the unsharded layout {layout_gb:.2f} GB; one process "
+                f"on one window {ref['peak_gb']:.2f} GB); launches {run['launches']}")
+        losses = ranks[0][key]["losses"]
+        rel = abs(losses[0] - want_loss) / abs(want_loss)
+        log(f"[fsdp] {what} {card}: first bf16 loss {losses[0]} vs one process {want_loss} "
+            f"({rel:.3g} relative, bar {TP_LOSS_REL_BAR}); launches {counts}")
+        if any(g[key]["losses"] != losses for g in ranks) or not np.isfinite(losses).all():
+            failures.append(f"{what}: losses {[g[key]['losses'] for g in ranks]}")
+        if rel > TP_LOSS_REL_BAR:
+            failures.append(f"{what}: first loss {rel:.3g} from one process")
+        if {n: c for n, c in counts.items() if c} != expect:
+            failures.append(f"{what}: launches {counts}, expected {expect}")
+    peak = max(g[f"fsdp {FSDP_MESHES[0]} bf16"]["peak_gb"] for g in ranks)
+    if peak >= ref["peak_gb"]:
+        failures.append(f"(a) an FSDP rank's peak {peak:.2f} GB is not below one process's "
+                        f"{ref['peak_gb']:.2f} GB")
+    for label in ("float32", "control: gather unsummed"):
+        r = ranks[0][f"fsdp {FSDP_MESHES[0]} {label}"]
+        worst = max(r["rel"])
+        top = sorted(range(len(names)), key=lambda i: -r["rel"][i])[:4]
+        log(f"[fsdp] (a) FSDP mesh {FSDP_MESHES[0]} {card} {label} ({r['s']:.1f} s on rank 0): "
+            f"loss {r['losses'][0]} vs one process {ref['loss32']}; |p_ranks - p_one| / "
+            f"|p_one - p_0| largest {worst:.4g} (bar {FSDP_UPDATE_REL_BAR}), by leaf "
+            f"{[(names[i], round(r['rel'][i], 6)) for i in top]}; median "
+            f"{statistics.median(r['rel']):.3g}")
+        if (worst <= FSDP_UPDATE_REL_BAR) == label.startswith("control"):
+            failures.append(f"(a) {label}: update {worst:.4g} against the bar "
+                            f"{FSDP_UPDATE_REL_BAR}")
+    for label in ("float32", "control: cotangent summed"):
+        grad, upd = {}, {}
+        for g in ranks:
+            r = g[f"pipe {label}"]
+            for name, a, b in zip(r["names"], r["rel_grad"], r["rel"]):
+                grad[name], upd[name] = max(grad.get(name, 0.0), a), max(upd.get(name, 0.0), b)
+        worst = max(grad.values())
+        log(f"[fsdp] (b) pipeline {card} {label} ({ranks[0]['pipe ' + label]['s']:.1f} s on rank "
+            f"0), {FSDP_WINDOWS // PIPE_MESH[1]} microbatches a data rank: loss "
+            f"{ranks[0]['pipe ' + label]['losses'][0]} vs one process {ref['loss32']}; "
+            f"|g_ranks - g_one| / |g_one| largest {worst:.4g} (bar "
+            f"{PIPE_GRAD_REL_BAR}), by leaf {sorted(grad.items(), key=lambda kv: -kv[1])[:4]}; "
+            f"update distance largest {max(upd.values()):.4g} (bar {FSDP_UPDATE_REL_BAR}), by "
+            f"leaf {sorted(upd.items(), key=lambda kv: -kv[1])[:3]}")
+        if label == "float32" and (worst > PIPE_GRAD_REL_BAR
+                                   or max(upd.values()) > FSDP_UPDATE_REL_BAR):
+            failures.append(f"(b) float32: gradient {worst:.4g}, update {max(upd.values()):.4g}")
+        if label.startswith("control") and worst <= PIPE_GRAD_REL_BAR:
+            failures.append(f"(b) the control (cotangent summed) passed the bar: {worst:.4g}")
+    log(f"[fsdp] {card} 4 ranks, {wall:.1f} s with the spawn")
+    del ref
+    free_cuda()
+
+    # The dry run on 4 ranks on the card.
+    t0 = time.perf_counter()
+    dry = entry_module.dryrun_multichip(4, device="cuda")
+    plan = entry_module.dryrun_plan(4)
+    dp, sp, tp = plan["mesh"]
+    blocks = dp * tp * sum(r + 1 for r in range(sp)) * 2   # causal blocks, 2 layers
+    expect = {flash_attn.STATS_KERNEL_NAME: blocks, flash_attn.BWD_DQ_KERNEL_NAME: blocks,
+              flash_attn.BWD_DKV_KERNEL_NAME: blocks}
+    counts = {n: dry["launches"].get(n, 0) for n in TP_KERNELS}
+    for n in TP_KERNELS:
+        launches[n] += counts[n]
+    log(f"[dryrun] {card} dryrun_multichip(4) on cuda:0 ranks, {time.perf_counter() - t0:.1f} s "
+        f"with the spawn; launches {counts}")
+    if {n: c for n, c in counts.items() if c} != expect:
+        failures.append(f"dryrun_multichip(4): launches {counts}, expected {expect}")
+    log(f"[fsdp] {card} phase took {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    if failures:
+        raise AssertionError("FSDP and pipeline phase: " + "; ".join(failures))
+    return launches
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """``t`` seen as integers of its width, so that equality is bit equality."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -4774,6 +5204,7 @@ def timed(name: str, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
     PHASE_SECONDS[name] = time.perf_counter() - t0
+    log(f"[smoke] phase {name}: {PHASE_SECONDS[name]:.1f} s")
     return out
 
 
@@ -4825,6 +5256,9 @@ def main() -> int:
                      f"file://{slice_tmp}/imagenet_like", f"file://{image_tmp}/imagenet")
         free_cuda()
         tp = timed("18 tensor parallel", phase_tensor_parallel, smi, f"file://{train_tmp}/tokens")
+        free_cuda()
+        fsdp = timed("19 fsdp + pipeline + dryrun", phase_fsdp_pipeline, smi,
+                     f"file://{train_tmp}/tokens")
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
@@ -4832,7 +5266,7 @@ def main() -> int:
                  flash_attn.BWD_DKV_KERNEL_NAME):
         counts[name] += proc[name] + epoch[name] + mesh[name]
     for name in TP_KERNELS:
-        counts[name] = counts.get(name, 0) + tp[name]
+        counts[name] = counts.get(name, 0) + tp[name] + fsdp[name]
     source = "petastorm_tpu_torch/csrc/flash_attn_bwd.cu"
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",

@@ -29,6 +29,17 @@ group; :func:`~petastorm_tpu_torch.parallel.comm.copy_to_group` and
 column- and row-parallel pair, the embedding is a masked lookup summed over
 the group, and the cross entropy is vocabulary-parallel, so the full logits
 never exist on one rank.
+
+FSDP (ZeRO-3, the JAX package's :func:`param_shardings_fsdp`): with
+``fsdp_group`` each rank of the data group also holds only its block of
+every matrix (:func:`shard_params` over both axes) and of its AdamW state.
+Each block is gathered whole over the group where it is used
+(:func:`~petastorm_tpu_torch.parallel.comm.gather_for_use`, at
+``compute_dtype``), one layer at a time, and its gradient is
+reduce-scattered back into blocks inside autograd.
+
+Pipeline parallelism: ``layers_fn`` replaces the layer loop, as in the JAX
+package (:mod:`petastorm_tpu_torch.parallel.pipeline`).
 """
 from __future__ import annotations
 
@@ -156,6 +167,70 @@ def param_shardings(mesh, cfg: LlamaConfig, model_axis: str = "model") -> dict:
     return _param_pspec_tuples(cfg, model_axis)
 
 
+def _param_shapes(cfg: LlamaConfig) -> dict:
+    """The shape of every leaf :func:`init_params` draws, as a tree like its."""
+    hd, e = cfg.head_dim, cfg.n_experts
+    attention = {"attn_norm": (cfg.dim,), "wq": (cfg.dim, cfg.n_heads * hd),
+                 "wk": (cfg.dim, cfg.n_kv_heads * hd), "wv": (cfg.dim, cfg.n_kv_heads * hd),
+                 "wo": (cfg.n_heads * hd, cfg.dim), "mlp_norm": (cfg.dim,)}
+    dense_layer = dict(attention, w1=(cfg.dim, cfg.hidden), w3=(cfg.dim, cfg.hidden),
+                       w2=(cfg.hidden, cfg.dim))
+    moe_layer = dict(attention, router=(cfg.dim, e), ew1=(e, cfg.dim, cfg.hidden),
+                     ew3=(e, cfg.dim, cfg.hidden), ew2=(e, cfg.hidden, cfg.dim))
+    return {"embed": (cfg.vocab, cfg.dim),
+            "layers": [moe_layer if _is_moe_layer(cfg, li) else dense_layer
+                       for li in range(cfg.n_layers)],
+            "norm_out": (cfg.dim,), "lm_head": (cfg.dim, cfg.vocab)}
+
+
+def _fsdp_dim(spec: tuple) -> Optional[int]:
+    """The dimension FSDP splits over the data axis: the first one the
+    model axis leaves whole (None for ``()``, a replicated leaf)."""
+    return next((i for i, axis in enumerate(spec) if axis is None), None)
+
+
+def param_shardings_fsdp(mesh, cfg: LlamaConfig, data_axis: str = "data",
+                         model_axis: Optional[str] = "model") -> dict:
+    """The ZeRO-3 layout: :func:`param_shardings`' tuples with ``data_axis``
+    in the first entry that is None, so that every matrix is also split over
+    the data axis (and, with it, its gradient and AdamW state). ``()`` stays
+    replicated: the norm scales and the router, as the JAX package decides
+    by the tuple. ``model_axis=None``: FSDP alone (Megatron's axis left
+    out). Raises ``ValueError`` where the data axis' size does not divide
+    the dimension it splits (or, with ``model_axis``, where
+    :func:`param_shardings` raises)."""
+    if model_axis is not None:
+        param_shardings(mesh, cfg, model_axis)
+    size = int(mesh.shape[data_axis])
+    tuples, shapes = _param_pspec_tuples(cfg, model_axis), _param_shapes(cfg)
+    bad = []
+
+    def add_data(spec, shape, name):
+        dim = _fsdp_dim(spec)
+        if dim is None:
+            return spec
+        if shape[dim] % size:
+            bad.append(f"{name}{list(shape)} dim {dim}")
+        return spec[:dim] + (data_axis,) + spec[dim + 1:]
+
+    out = {key: ([{k: add_data(spec[k], shape[k], f"layers.{li}.{k}") for k in spec}
+                  for li, (spec, shape) in enumerate(zip(node, shapes[key]))]
+                 if isinstance(node, list) else add_data(node, shapes[key], key))
+           for key, node in tuples.items()}
+    if bad:
+        raise ValueError(f"the {data_axis!r} axis ({size} ranks) must divide {bad}")
+    return out
+
+
+def _fsdp_dims(cfg: LlamaConfig, model_group) -> dict:
+    """The tree of the dimension each leaf's block is gathered along under
+    FSDP (None: replicated), for the layout :func:`param_shardings_fsdp`
+    gives with a model axis when ``model_group`` is given, without one
+    otherwise."""
+    return _map_leaves(lambda spec: _fsdp_dim(spec),
+                       _param_pspec_tuples(cfg, None if model_group is None else "model"))
+
+
 def _map_leaves(fn, specs: dict, *trees: dict) -> dict:
     """``fn(spec, *leaves)`` over the tree of ``specs`` and each of ``trees``
     (the same structure), as a tree."""
@@ -178,12 +253,15 @@ def shard_params(params: dict, shardings: dict, mesh) -> dict:
     return _map_leaves(take, shardings, params)
 
 
-def unshard_params(slices: list, shardings: dict) -> dict:
+def unshard_params(slices: list, shardings: dict, axis: Optional[str] = None) -> dict:
     """The inverse of :func:`shard_params` over one axis: ``slices[i]`` is the
-    tree of the axis' rank i; each split leaf is their concatenation, each
-    replicated leaf rank 0's."""
+    tree of the axis' rank i; each leaf split over ``axis`` is their
+    concatenation along the dimension ``axis`` splits, any other leaf rank
+    0's. ``axis=None``: the axis of each leaf's first split dimension (a
+    layout over one axis). Over two axes (FSDP with a model axis), join over
+    one axis, then over the other."""
     def join(spec, *parts):
-        dims = [d for d, axis in enumerate(spec) if axis is not None]
+        dims = [d for d, a in enumerate(spec) if a is not None and (axis is None or a == axis)]
         return torch.cat(parts, dim=dims[0]) if dims else parts[0]
     return _map_leaves(join, shardings, *slices)
 
@@ -315,6 +393,25 @@ def apply_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
     return x, aux
 
 
+def _gathered_block(layer: dict, x: torch.Tensor, cfg: LlamaConfig, attn_fn, pos_offset: int,
+                    dims: dict, fsdp_group, compute_dtype, **groups):
+    """:func:`apply_block` on the layer's blocks gathered whole over the
+    FSDP group (each split leaf along its dimension in ``dims``, at
+    ``compute_dtype``; the norm scales and the router are whole already)."""
+    whole = {k: t if dims[k] is None else comm.gather_for_use(t, fsdp_group, dims[k],
+                                                              compute_dtype)
+             for k, t in layer.items()}
+    return apply_block(whole, x, cfg, attn_fn=attn_fn, pos_offset=pos_offset, **groups)
+
+
+def _whole(params: dict, key: str, dims, fsdp_group, compute_dtype) -> torch.Tensor:
+    """``params[key]`` (the embedding or the head) gathered whole over the
+    FSDP group, or as it is without one."""
+    if dims is None:
+        return params[key]
+    return comm.gather_for_use(params[key], fsdp_group, dims[key], compute_dtype)
+
+
 def _checkpointed(fn, *args):
     """``fn(*args)``; while grad is enabled, under
     ``torch.utils.checkpoint`` (non-reentrant): only ``args`` are kept for
@@ -329,7 +426,7 @@ def apply(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
           compute_dtype=torch.bfloat16, with_aux: bool = False,
           embed_lookup: str = "gather", return_hidden: bool = False,
           remat_layers: bool = False, pos_offset: int = 0, model_group=None,
-          data_group=None, seq_group=None):
+          data_group=None, seq_group=None, fsdp_group=None, layers_fn=None):
     """tokens: (batch, seq) int -> logits (batch, seq, vocab) float32 (or the
     pre-lm_head hidden states when ``return_hidden``).
 
@@ -351,24 +448,72 @@ def apply(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, attn_fn=None,
     :param seq_group: the ranks holding other blocks of the window: the
         switch MoE routes over all their tokens, and its ``aux`` is this
         rank's share (the shares sum to the batch's)
+    :param fsdp_group: the data group, over which ``params`` holds this
+        rank's block of every matrix (:func:`param_shardings_fsdp` with a
+        model axis when ``model_group`` is given, without one otherwise;
+        :func:`shard_params`). Each layer's blocks are gathered whole at
+        ``compute_dtype`` inside a checkpoint of the layer, so only one
+        layer's whole matrices exist at a time, and the backward gathers
+        them again (and runs the layer again) rather than keeping them. The
+        embedding is gathered for its lookup, the head once a call (its copy
+        is kept for the backward). The gradient of each block is summed over
+        the group by the gather's backward. It also serves as
+        ``data_group`` when that is None.
+    :param layers_fn: ``f(params["layers"], x) -> (x, aux)`` in place of the
+        layer loop: the pipeline-parallel hook (a
+        :func:`~petastorm_tpu_torch.parallel.pipeline.make_pipeline` over
+        :func:`apply_block`, with ``params["layers"]`` this rank's stage,
+        :func:`~petastorm_tpu_torch.parallel.pipeline.stack_stage_params`).
+        It owns its rematerialization, so ``remat_layers`` with it raises
+        ``ValueError``; so does ``fsdp_group``, whose gathers are the
+        layer loop's.
     """
     if embed_lookup not in ("gather", "onehot"):
         raise ValueError(f"unknown embed_lookup {embed_lookup!r}")
-    x = _embed(params["embed"], tokens, compute_dtype, embed_lookup, model_group)
+    if layers_fn is not None and remat_layers:
+        raise ValueError("remat_layers applies to the sequential layer loop; a layers_fn "
+                         "(pipeline parallelism) owns its own rematerialization: wrap it there "
+                         "instead")
+    if layers_fn is not None and fsdp_group is not None:
+        raise ValueError("fsdp_group gathers the layers of the sequential layer loop; a "
+                         "layers_fn (pipeline parallelism) takes its stages whole")
+    data_group = _data_group(data_group, fsdp_group)
+    dims = None if fsdp_group is None else _fsdp_dims(cfg, model_group)
+    x = _embed(_whole(params, "embed", dims, fsdp_group, compute_dtype), tokens, compute_dtype,
+               embed_lookup, model_group)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     groups = {"model_group": model_group, "data_group": data_group, "seq_group": seq_group}
-    for layer in params["layers"]:
-        if remat_layers:
-            x, layer_aux = _checkpointed(partial(apply_block, **groups), layer, x, cfg, attn_fn,
-                                         pos_offset)
-        else:
-            x, layer_aux = apply_block(layer, x, cfg, attn_fn=attn_fn, pos_offset=pos_offset,
-                                       **groups)
-        aux = aux + layer_aux
+    if layers_fn is not None:
+        x, layers_aux = layers_fn(params["layers"], x)
+        aux = aux + layers_aux
+    else:
+        for li, layer in enumerate(params["layers"]):
+            if dims is not None:
+                x, layer_aux = _checkpointed(
+                    partial(_gathered_block, dims=dims["layers"][li], fsdp_group=fsdp_group,
+                            compute_dtype=compute_dtype, **groups),
+                    layer, x, cfg, attn_fn, pos_offset)
+            elif remat_layers:
+                x, layer_aux = _checkpointed(partial(apply_block, **groups), layer, x, cfg,
+                                             attn_fn, pos_offset)
+            else:
+                x, layer_aux = apply_block(layer, x, cfg, attn_fn=attn_fn,
+                                           pos_offset=pos_offset, **groups)
+            aux = aux + layer_aux
     x = _rmsnorm(x, params["norm_out"], cfg.norm_eps)
     if not return_hidden:
-        x = (comm.copy_to_group(x, model_group) @ params["lm_head"].to(x.dtype)).float()
+        head = _whole(params, "lm_head", dims, fsdp_group, compute_dtype)
+        x = (comm.copy_to_group(x, model_group) @ head.to(x.dtype)).float()
     return (x, aux) if with_aux else x
+
+
+def _data_group(data_group, fsdp_group):
+    """The data group: ``fsdp_group`` is one (its ranks hold other rows of
+    the batch and other blocks of the weights)."""
+    if fsdp_group is not None and data_group is not None and data_group is not fsdp_group:
+        raise ValueError("fsdp_group shards the weights over the data group: pass the same "
+                         "group as data_group, or leave data_group out")
+    return fsdp_group if data_group is None else data_group
 
 
 def _nll_per_token(logits: torch.Tensor, targets: torch.Tensor,
@@ -402,7 +547,8 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
             aux_weight: float = 1e-2, embed_lookup: str = "gather",
             compute_dtype=torch.bfloat16, shift: str = "split",
             xent_chunk: Optional[int] = None, remat_layers: bool = False,
-            seq_group=None, data_group=None, model_group=None) -> torch.Tensor:
+            seq_group=None, data_group=None, model_group=None, fsdp_group=None,
+            layers_fn=None) -> torch.Tensor:
     """Next-token cross entropy plus ``aux_weight`` times the switch MoE's
     auxiliary loss (the soft mixture has none). batch: ``{'tokens': (b, s)
     int}``.
@@ -437,8 +583,13 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
     same loss), and the cross entropy is vocabulary-parallel: with or
     without ``xent_chunk``, no rank holds more than its columns of the
     logits.
+
+    ``fsdp_group`` and ``layers_fn`` are :func:`apply`'s (``fsdp_group`` is
+    the data group: with ``xent_chunk`` the head is gathered once for all
+    the chunks).
     """
     tokens = batch["tokens"]
+    data_group = _data_group(data_group, fsdp_group)
     if shift not in ("split", "roll"):
         raise ValueError(f"unknown shift {shift!r}")
     if seq_group is not None and shift != "roll":
@@ -473,7 +624,7 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
     run = partial(apply, params, inputs, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
                   compute_dtype=compute_dtype, with_aux=True, remat_layers=remat_layers,
                   pos_offset=offset, model_group=model_group, data_group=data_group,
-                  seq_group=seq_group)
+                  seq_group=seq_group, fsdp_group=fsdp_group, layers_fn=layers_fn)
     if xent_chunk:
         x, aux = run(return_hidden=True)
         n_tok = x.shape[0] * x.shape[1]
@@ -481,7 +632,8 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
             raise ValueError(f"xent_chunk ({xent_chunk}) must divide batch*seq ({n_tok})")
         xf = comm.copy_to_group(x.reshape(n_tok, x.shape[-1]), model_group)
         tf = targets.reshape(n_tok)
-        head = params["lm_head"]
+        head = _whole(params, "lm_head", None if fsdp_group is None else _fsdp_dims(
+            cfg, model_group), fsdp_group, compute_dtype)
         nll_tok = torch.cat([
             _checkpointed(_chunk_nll, xf[i:i + xent_chunk], head, tf[i:i + xent_chunk],
                           model_group)
@@ -494,12 +646,15 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, attn_fn=None,
 
 def param_leaves(params: dict) -> list:
     """Every tensor of ``params``, in a fixed order (top-level keys sorted,
-    then each layer's keys sorted)."""
+    then each layer's keys sorted; a pipeline stage's stacked ``layers``
+    dict by its keys sorted)."""
     leaves = []
     for key in sorted(params):
         node = params[key]
         if isinstance(node, (list, tuple)):
             leaves.extend(layer[k] for layer in node for k in sorted(layer))
+        elif isinstance(node, dict):
+            leaves.extend(node[k] for k in sorted(node))
         else:
             leaves.append(node)
     return leaves
@@ -509,7 +664,7 @@ def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
                     embed_lookup: str = "gather", compute_dtype=torch.bfloat16,
                     shift: str = "split", xent_chunk: Optional[int] = None,
                     remat_layers: bool = False, seq_group=None, data_group=None,
-                    model_group=None):
+                    model_group=None, fsdp_group=None, layers_fn=None):
     """AdamW train step -> ``(init_opt, train_step)``, as the JAX package's.
 
     ``init_opt(params)`` marks every leaf of ``params`` as requiring grad
@@ -540,7 +695,23 @@ def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
     those of the router probabilities, so every leaf's gradient is whole
     (a replicated leaf's) or this rank's slice of the whole (a split leaf's)
     on every rank. AdamW is elementwise, so each rank's update is its slice
-    of the full update."""
+    of the full update.
+
+    FSDP: ``fsdp_group`` (the data group) goes to :func:`loss_fn`, and
+    ``params`` and the optimizer hold this rank's blocks, so the AdamW
+    moments are sharded as the weights are. The gradient of each block is
+    summed over the group inside autograd (the gather's reduce-scatter);
+    only the replicated leaves (norm scales, router) are summed over the
+    data group here.
+
+    Pipeline: ``layers_fn`` goes to :func:`loss_fn`; ``params["layers"]`` is
+    this rank's stage, whose gradient the pipeline's backward computed."""
+    data = _data_group(data_group, fsdp_group)
+    groups = [g for g in (seq_group, data) if g is not None]
+    # FSDP's blocks are summed over the data group by their gathers' backward.
+    replicated = None if fsdp_group is None else \
+        [dim is None for dim in param_leaves(_fsdp_dims(cfg, model_group))]
+
     def init_opt(params: dict) -> torch.optim.AdamW:
         leaves = param_leaves(params)
         for t in leaves:
@@ -552,11 +723,15 @@ def make_train_step(cfg: LlamaConfig, learning_rate: float = 3e-4, attn_fn=None,
         loss = loss_fn(params, batch, cfg, attn_fn=attn_fn, embed_lookup=embed_lookup,
                        compute_dtype=compute_dtype, shift=shift, xent_chunk=xent_chunk,
                        remat_layers=remat_layers, seq_group=seq_group,
-                       data_group=data_group, model_group=model_group)
+                       data_group=data_group, model_group=model_group,
+                       fsdp_group=fsdp_group, layers_fn=layers_fn)
         loss.backward()
-        groups = [g for g in (seq_group, data_group) if g is not None]
-        for group in groups:
-            comm.all_reduce_([t.grad for t in param_leaves(params)], group)
+        grads = [t.grad for t in param_leaves(params)]
+        if seq_group is not None:
+            comm.all_reduce_(grads, seq_group)
+        if data is not None:
+            comm.all_reduce_(grads if replicated is None else
+                             [g for g, whole in zip(grads, replicated) if whole], data)
         opt.step()
         opt.zero_grad(set_to_none=True)
         loss = loss.detach()

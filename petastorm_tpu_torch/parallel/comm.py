@@ -1,7 +1,8 @@
 """Moving tensors between the ranks of a ``torch.distributed`` process group:
 the transport of ring and Ulysses attention, of the gradient sums of
 sequence and data parallelism, of the cross-rank batch norm's statistics,
-of the sharded device cache's rows and of tensor parallelism's partial sums.
+of the sharded device cache's rows, of tensor parallelism's partial sums,
+of FSDP's gathers and gradient scatters, and of the pipeline's hops.
 
 The JAX package's collectives (``lax.ppermute``, ``lax.all_to_all``,
 ``lax.all_gather``, ``psum``) ride the TPU's interconnect inside one
@@ -93,7 +94,8 @@ def rotate(tensors: Sequence[torch.Tensor], group, shift: int = 1) -> List[torch
 
 
 def all_to_all(chunks: Sequence[torch.Tensor], group,
-               recv_shapes: Optional[Sequence[Sequence[int]]] = None) -> List[torch.Tensor]:
+               recv_shapes: Optional[Sequence[Sequence[int]]] = None,
+               record_as: str = "all_to_all") -> List[torch.Tensor]:
     """``chunks[i]`` goes to rank i of ``group``; returns the P chunks the
     ranks sent here, in rank order, each of the shape and dtype of the chunk
     of the same index sent from here (``lax.all_to_all``'s exchange, with
@@ -101,7 +103,8 @@ def all_to_all(chunks: Sequence[torch.Tensor], group,
     ``recv_shapes[i]`` when the ranks exchange chunks of other sizes (the
     sharded device cache's row gathers). The exchange is P - 1
     point-to-point pairs a rank (not every gloo build has an all-to-all);
-    this rank's own chunk stays where it is."""
+    this rank's own chunk stays where it is. ``record_as`` names the call in
+    :data:`transfer_stats`."""
     size = dist.get_world_size(group)
     if len(chunks) != size:
         raise ValueError(f"all_to_all needs one chunk per rank ({size}), got {len(chunks)}")
@@ -120,7 +123,7 @@ def all_to_all(chunks: Sequence[torch.Tensor], group,
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     out = [chunks[i] if i == rank else _to_device(recvs[i], chunks[i]) for i in range(size)]
-    _record("all_to_all", sum(chunks[i].numel() * chunks[i].element_size() for i in peers), t0)
+    _record(record_as, sum(chunks[i].numel() * chunks[i].element_size() for i in peers), t0)
     return out
 
 
@@ -160,6 +163,61 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group, record_as: str = "all_re
     _record(record_as, sum(t.numel() * t.element_size() for t in tensors), t0)
 
 
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0,
+                   record_as: str = "reduce_scatter") -> torch.Tensor:
+    """This rank's block of the sum of every rank's ``t`` over ``group``:
+    ``t`` split along ``dim`` into P equal blocks, block i summed over the
+    ranks and kept by rank i (``lax.psum_scatter``). ``torch.distributed``
+    has no gloo reduce-scatter, so each rank sends block i to rank i
+    (:func:`all_to_all`'s pairs, (P - 1) / P of ``t`` a rank, half of what
+    an all-reduce moves) and adds the P blocks it holds in rank order.
+    ``record_as`` names the exchange in :data:`transfer_stats`."""
+    size = dist.get_world_size(group)
+    if size == 1:
+        return t
+    if t.shape[dim] % size:
+        raise ValueError(f"dimension {dim} ({t.shape[dim]}) does not split into {size} blocks")
+    blocks = all_to_all([c.contiguous() for c in t.chunk(size, dim)], group,
+                        record_as=record_as)
+    out = blocks[0].clone()
+    for block in blocks[1:]:
+        out += block
+    return out
+
+
+def shift(t: torch.Tensor, group, reverse: bool = False, send: bool = True,
+          recv: bool = True, record_as: str = "shift") -> torch.Tensor:
+    """One hop along the open chain of ``group``'s ranks: ``lax.ppermute``
+    with ``[(i, i + 1) for i in range(P - 1)]`` (``reverse``: ``(i + 1,
+    i)``). Sends ``t`` to the next rank and returns what the previous rank
+    sent, on ``t``'s device; the chain's first rank (the last, with
+    ``reverse``) receives zeros. ``send=False`` or ``recv=False`` leaves out
+    this rank's half of the hop at a step where it has nothing to send or
+    needs nothing (``t`` is then only the shape and dtype of what it would
+    receive); its peer must leave out the matching half. The sends and
+    receives are posted together (``batch_isend_irecv``), so no order of
+    blocking calls can deadlock neighbours."""
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    step = -1 if reverse else 1
+    dst, src = rank + step, rank - step
+    send, recv = send and 0 <= dst < size, recv and 0 <= src < size
+    if not (send or recv):
+        return torch.zeros_like(t)
+    check_backend(group)
+    t0 = time.perf_counter()
+    ops, buf = [], None
+    if send:
+        ops.append(dist.P2POp(dist.isend, _to_host(t), dist.get_global_rank(group, dst),
+                              group=group))
+    if recv:
+        buf = _host_buffer(t)
+        ops.append(dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, src), group=group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    _record(record_as, t.numel() * t.element_size() if send else 0, t0)
+    return _to_device(buf, t) if recv else torch.zeros_like(t)
+
+
 # --------------------------------------------------- tensor parallelism's pair
 # Megatron's two conjugate operations (Shoeybi et al., arXiv:1909.08053): the
 # activations of a model group are replicated, each rank holds a slice of a
@@ -173,15 +231,15 @@ class _CopyToGroup(torch.autograd.Function):
     rank's slice contributes a part of the replicated input's gradient)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, record_as):
+        ctx.group, ctx.record_as = group, record_as
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        all_reduce_([g], ctx.group, record_as="tp_grad")
-        return g, None
+        all_reduce_([g], ctx.group, record_as=ctx.record_as)
+        return g, None, None
 
 
 class _ReduceFromGroup(torch.autograd.Function):
@@ -199,13 +257,13 @@ class _ReduceFromGroup(torch.autograd.Function):
         return g, None
 
 
-def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+def copy_to_group(x: torch.Tensor, group, record_as: str = "tp_grad") -> torch.Tensor:
     """``x`` entering a model group's sliced weights: the same values, and a
     backward that sums the gradient over ``group`` (recorded as
-    ``"tp_grad"``). ``group=None`` or a group of one rank: ``x`` itself."""
+    ``record_as``). ``group=None`` or a group of one rank: ``x`` itself."""
     if group is None or dist.get_world_size(group) == 1:
         return x
-    return _CopyToGroup.apply(x, group)
+    return _CopyToGroup.apply(x, group, record_as)
 
 
 def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
@@ -215,3 +273,78 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     if group is None or dist.get_world_size(group) == 1:
         return x
     return _ReduceFromGroup.apply(x, group)
+
+
+# ------------------------------------------------------------- FSDP's gather
+# ZeRO-3 (Rajbhandari et al., arXiv:1910.02054): each rank of the data group
+# holds one block of a weight; the weight is gathered whole where it is used
+# and its gradient is reduce-scattered back into blocks, the collectives
+# GSPMD inserts for ``param_shardings_fsdp``.
+
+
+class _GatherForUse(torch.autograd.Function):
+    """The ranks' blocks cast to ``dtype`` and concatenated along ``dim``;
+    the backward casts the whole gradient to the block's dtype and
+    reduce-scatters it (:func:`reduce_scatter`, recorded as
+    ``"fsdp_grad"``)."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim, dtype):
+        ctx.group, ctx.dim, ctx.dtype = group, dim, t.dtype
+        return torch.cat(all_gather(t.to(dtype).contiguous(), group, record_as="fsdp_gather"),
+                         dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.to(ctx.dtype), ctx.group, ctx.dim, record_as="fsdp_grad"), \
+            None, None, None
+
+
+def gather_for_use(t: torch.Tensor, group, dim: int, dtype=None) -> torch.Tensor:
+    """The whole weight of which each rank of ``group`` holds one block along
+    ``dim`` (in rank order), cast to ``dtype`` before the gather (bf16
+    compute: half the bytes of a float32 gather, the same values as a
+    float32 gather cast afterwards), recorded as ``"fsdp_gather"``. The
+    backward sums the gradient over the group in the block's dtype (float32
+    for float32 master weights) and hands each rank its block. ``group=None``
+    or a group of one rank: ``t`` cast to ``dtype``."""
+    dtype = dtype or t.dtype
+    if group is None or dist.get_world_size(group) == 1:
+        return t.to(dtype)
+    return _GatherForUse.apply(t, group, dim, dtype)
+
+
+# ------------------------------------------------------- the pipeline's output
+
+
+class _ReplicateFromLast(torch.autograd.Function):
+    """The last rank's ``t`` on every rank (a broadcast); the backward hands
+    the last rank its cotangent once and the others zeros."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        ctx.last = rank == size - 1
+        check_backend(group)
+        t0 = time.perf_counter()
+        host = _to_host(t) if ctx.last else _host_buffer(t)
+        dist.broadcast(host, dist.get_global_rank(group, size - 1), group=group)
+        _record("pipe_out", t.numel() * t.element_size() if ctx.last else 0, t0)
+        return t.view_as(t) if ctx.last else _to_device(host, t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.last else torch.zeros_like(g)), None
+
+
+def replicate_from_last(t: torch.Tensor, group) -> torch.Tensor:
+    """The pipeline's result, which only the last stage of ``group``
+    computed, replicated on every stage: the JAX pipeline's ``psum`` of the
+    masked emits (recorded as ``"pipe_out"``). Each stage then computes the
+    same loss from it, so each holds the same cotangent; the backward gives
+    it to the last stage once and not its sum over the stages, which would
+    make every stage's parameter gradient P times too large. A group of one
+    rank: ``t`` itself."""
+    if dist.get_world_size(group) == 1:
+        return t
+    return _ReplicateFromLast.apply(t, group)

@@ -288,6 +288,10 @@ def _bwd_case(device, b, sq, sk, h, kv_h, d, causal, dtype, seed, fused=False):
     (1, 300, 300, 4, 2, 72, True, torch.bfloat16),
     (1, 300, 300, 4, 2, 32, False, torch.float16),
     (1, 130, 130, 4, 2, 60, True, torch.bfloat16),
+    # The dry run's per-rank shape (``entry.dryrun_multichip(4)``): d = 8 on
+    # the tensor-core route, its tiles' columns 8-63 TMA's zero fill.
+    (2, 32, 32, 4, 2, 8, True, torch.bfloat16),
+    (2, 32, 32, 4, 2, 8, False, torch.bfloat16),
 ])
 def test_flash_bwd_kernels_match_plain_on_card(cuda_device, b, sq, sk, h, kv_h, d, causal, dtype):
     """K3 and K4 against the plain backward on the same (o, lse, dO); each
@@ -572,6 +576,9 @@ def _stats_within_bars(got, want, dtype):
     (1, 1024, 1024, 8, 2, 128, True, torch.bfloat16),
     (2, 300, 500, 8, 1, 64, False, torch.bfloat16),
     (1, 200, 200, 4, 2, 64, True, torch.float16),
+    # The dry run's ring-flash block at d = 8 (a diagonal and a past block).
+    (2, 32, 32, 4, 2, 8, True, torch.bfloat16),
+    (2, 32, 32, 4, 2, 8, False, torch.bfloat16),
 ])
 def test_flash_stats_kernel_matches_plain_on_card(cuda_device, route, b, sq, sk, h, kv_h, d,
                                                   causal, dtype):
@@ -1180,3 +1187,20 @@ def test_tensor_parallel_step_on_card_matches_one_cpu_process(cuda_device):
     joined = llama.unshard_params([r[2] for r in ranks], shardings)
     for got, want in zip(llama.param_leaves(joined), llama.param_leaves(params)):
         assert (got - want.detach()).abs().max() <= 1e-4
+
+
+def test_fsdp_gather_and_pipeline_hops_on_card_equal_the_cpu(cuda_device):
+    """FSDP's autograd all-gather (and its reduce-scatter backward), the
+    pipeline's chain hop both ways and its replicate-from-last op, on 2 ranks
+    sharing ``cuda:0`` (gloo through pinned host buffers): the results and
+    gradients equal those of 2 CPU ranks on the same inputs."""
+    import torch_fsdp_ranks
+    from petastorm_tpu_torch.parallel.launch import run_ranks
+    card = run_ranks(torch_fsdp_ranks.comm_round_trip, 2, args=("cuda",), device="cuda",
+                     timeout_s=300)
+    host = run_ranks(torch_fsdp_ranks.comm_round_trip, 2, args=("cpu",), device="cpu",
+                     timeout_s=300)
+    for got, want in zip(card, host):
+        assert got.keys() == want.keys()
+        for name in want:
+            torch.testing.assert_close(got[name], want[name], rtol=1e-6, atol=1e-6, msg=name)

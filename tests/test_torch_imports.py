@@ -93,7 +93,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.etl.rowgroup_indexers",
             "petastorm_tpu_torch.etl.rowgroup_indexing",
             "petastorm_tpu_torch.test_util.transforms",
-            "petastorm_tpu_torch.loader.mesh_loader"} <= set(modules)
+            "petastorm_tpu_torch.loader.mesh_loader",
+            "petastorm_tpu_torch.parallel.pipeline"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -103,7 +104,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 
 def test_rank_modules_import_without_jax_or_the_jax_package():
     names = [p.stem for p in RANK_MODULES]
-    assert {"torch_seq_ranks", "torch_mesh_ranks"} <= set(names)
+    assert {"torch_seq_ranks", "torch_mesh_ranks", "torch_tp_ranks",
+            "torch_fsdp_ranks"} <= set(names)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *names], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO),
