@@ -333,6 +333,36 @@ result line):
    that sums its cotangent over the stages, which must miss the gradient
    bar. Last, ``entry.dryrun_multichip(4)`` on 4 ranks on
    ``cuda:0``, its lines printed and its launches counted.
+20. the Spark dataset converter feeding ViT-B/16 (BASELINE config 4), and
+   the MNIST MLP (config 2). (a) The converter's cache store written
+   directly, as the converter writes one without a JVM, by
+   ``examples/torch_spark_to_vit``'s ``build_store_sparkless``: 1,024 rows
+   of a uint8 ``FixedSizeList`` image column (224x224x3, class prototypes
+   plus noise over 10 labels) and an int32 label, groups of 256 rows
+   (38.5 MB), 154 MB; its ``write_dataset_metadata(url, None)`` gives the
+   row count for ``SparkDatasetConverter``; ``make_device_loader(batch_size=128,
+   num_epochs=None, workers_count=8, shuffle_row_groups=True, seed=0)``
+   -> each batch viewed as (128, 224, 224, 3) and normalised by K1 to bf16,
+   every batch bit-equal to ``normalize_images_plain`` -> ViT-B/16 at its
+   published widths and full depth (``models.vit.VIT_B16``: 12 layers,
+   hidden 768, MLP 3072, 12 heads, 86 M parameters, 1000 classes), bf16
+   compute on float32 weights, plain SGD at lr 0.05: 2 warm-up steps, 10
+   pipelined, 5 resident; launch counts reset just before and read just
+   after (K1 once a batch, nothing else). Printed: step ms (pipelined and
+   resident), samples/s, input stall, MFU against 989 TFLOP/s with its
+   formula, a profiled resident step's idle share and kernel groups, peak
+   memory. Checks: the loss finite at every step and the mean of the last
+   3 pipelined steps below the first step's; 4 images of the first batch
+   through a float32 forward on the card (TF32 off) within
+   ``VIT_F32_BAR`` of the same forward on the CPU, and the exact-erf GELU
+   and the unbiased variance, each of which must miss it. (b) 10,000
+   synthetic MNIST rows (``examples/torch_mnist``'s schema, 1,000 a group)
+   through ``make_reader`` -> ``DataLoader(batch_size=128,
+   shuffling_queue_capacity=5000)`` -> the MLP's momentum SGD on the card,
+   ``MNIST_EPOCHS`` epochs; accuracy above ``MNIST_ACC_BAR``; no kernel.
+   (c) One pass of the torch adapter (``petastorm_tpu_torch.pytorch``) over
+   (b)'s store with a worker transform adding a bool column: tensors on
+   ``cuda:0`` by default, the bool column as uint8.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -372,7 +402,9 @@ from petastorm_tpu_torch import entry as entry_module
 from petastorm_tpu_torch.entry import entry
 from petastorm_tpu_torch.loader import DataLoader
 from petastorm_tpu_torch.loader import loader as loader_module
-from petastorm_tpu_torch.models import llama, resnet
+from petastorm_tpu_torch.models import llama, mlp, resnet, vit
+from petastorm_tpu_torch import pytorch as torch_adapter
+from petastorm_tpu_torch.spark.spark_dataset_converter import SparkDatasetConverter
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.ops import flash_attn
 from petastorm_tpu_torch.ops.flash_attn import (FlashAttentionFunction, flash_attention,
@@ -714,6 +746,30 @@ FSDP_UPDATE_REL_BAR, PIPE_GRAD_REL_BAR = 0.2, 1e-2
 #: The dry run's per-rank shape: ring-flash blocks of (2, 32, 8/2 heads
 #: over 4/2 kv heads, 8) at 4 ranks, d = 8 on the tensor-core route.
 DRYRUN_BLOCK = (2, 32, 4, 2, 8)
+# The converter -> ViT-B/16 (phase 20, BASELINE config 4): the converter's
+# cache store of 1,024 rows in groups of 256 (38.5 MB, near the reference
+# converter's 32 MB default), ViT-B/16 at full width and depth, batch 128,
+# 8 reader threads, plain SGD at the JAX converter example's lr.
+CONV_ROWS, CONV_ROWS_PER_GROUP, CONV_CLASSES = 1024, 256, 10
+VIT_BATCH, VIT_WORKERS, VIT_LR = 128, 8, 0.05
+VIT_WARMUP, VIT_PIPELINED, VIT_RESIDENT = 2, 10, 5
+#: Images of the first batch held in float32, card (TF32 off) against CPU:
+#: max |card - CPU| over max |CPU| of the logits within VIT_F32_BAR. On the
+#: CPU, ViT-B/16's float32 forward is 9.5e-7 from its float64 one
+#: (summation order alone), while the exact-erf GELU moves the logits by
+#: 2.0e-4 and the unbiased variance by 1.1e-3 (4 such images, seed 0): the
+#: bar sits between them.
+VIT_F32_ROWS, VIT_F32_BAR = 4, 2e-5
+#: Kernel groups of a profiled ViT step.
+VIT_GROUPS = (("matmuls (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+              ("softmax", ("softmax",)),
+              ("layer norm", ("layer_norm", "layernorm")),
+              ("GELU", ("gelu",)),
+              ("elementwise (casts, adds, SGD)", ("elementwise", "vectorized", "unrolled",
+                                                  "foreach", "copy")))
+# The MNIST MLP (phase 20 (b), BASELINE config 2): the example's store and
+# loop; examples/mnist asserts accuracy above 0.9 after 3 epochs.
+MNIST_ROWS, MNIST_BATCH, MNIST_EPOCHS, MNIST_ACC_BAR = 10_000, 128, 2, 0.9
 #: The bench's result keys without a resident phase or a device peak, and
 #: the mesh keys it adds.
 LLM_KEYS = {"tokens_per_sec", "input_stall_pct", "step_time_ms", "tokens_per_step", "echo",
@@ -5189,6 +5245,203 @@ def phase_fsdp_pipeline(smi: str, token_url: str) -> dict:
     return launches
 
 
+def _unbiased_layer_norm(x, p, eps=1e-6):
+    """The control of phase 20's float32 bar: layer norm by the unbiased
+    variance."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, unbiased=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def _with_even(row: dict) -> dict:
+    """Phase 20 (c)'s worker transform: a bool column."""
+    return {**row, "even": np.bool_(row["label"] % 2 == 0)}
+
+
+def _vit_float32_check(params, images: torch.Tensor) -> dict:
+    """Float32 logits of ``images`` on the card (TF32 off) against the same
+    forward on the CPU with the same weights, as max |card - CPU| over
+    max |CPU|: the port's, and two controls' (the exact-erf GELU, the
+    unbiased variance), which must miss ``VIT_F32_BAR``."""
+    cpu_params = _tree_map(lambda t: t.detach().cpu(), params)
+    shape = {"patch": vit.VIT_B16["patch"], "heads": vit.VIT_B16["heads"],
+             "compute_dtype": torch.float32}
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    try:
+        with torch.no_grad():
+            want = vit.apply(cpu_params, images.cpu(), **shape)
+            for what, name, replacement in (("port", None, None),
+                                            ("exact-erf GELU", "_gelu", F.gelu),
+                                            ("unbiased variance", "_layer_norm",
+                                             _unbiased_layer_norm)):
+                original = getattr(vit, name) if name else None
+                if name:
+                    setattr(vit, name, replacement)
+                try:
+                    got = vit.apply(params, images, **shape).cpu()
+                finally:
+                    if name:
+                        setattr(vit, name, original)
+                errs[what] = ((got - want).abs().max() / want.abs().max()).item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return errs
+
+
+def phase_converter_vit(smi: str, tmp: str) -> dict:
+    from examples.torch_spark_to_vit.main import build_store_sparkless
+    failures = []
+    side = vit.VIT_B16["image_size"]
+    url = f"file://{tmp}/converter_cache"
+    t0 = time.perf_counter()
+    stats = build_store_sparkless(url, CONV_ROWS, CONV_CLASSES, side, CONV_ROWS_PER_GROUP)
+    converter = SparkDatasetConverter(url, stats["total_rows"])
+    log(f"[converter] wrote the cache store: {CONV_ROWS} rows of {side}x{side}x3 uint8 in groups "
+        f"of {CONV_ROWS_PER_GROUP} ({CONV_ROWS_PER_GROUP * side * side * 3 / 1e6:.1f} MB), files "
+        f"{stats['file_sizes']} bytes, in {time.perf_counter() - t0:.2f} s; dataset_size "
+        f"{len(converter)} from the footers")
+    if len(converter) != CONV_ROWS:
+        failures.append(f"dataset_size {len(converter)}")
+
+    free_cuda()
+    params = vit.init_params(torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                             **vit.VIT_B16)
+    n_params = sum(t.numel() for t in vit.param_leaves(params))
+    step = vit.make_train_step(VIT_LR, patch=vit.VIT_B16["patch"], heads=vit.VIT_B16["heads"])
+    losses, mismatches, last = [], [], []
+
+    def next_batch(it):
+        # K1, and its plain version on the same pixels: the comparison is a
+        # count kept on the card, read after the run (no sync in the loop).
+        batch = next(it)
+        pixels = batch["image"].view(-1, side, side, 3)
+        images = normalize_images(pixels)
+        mismatches.append((images.view(torch.int16)
+                           != normalize_images_plain(pixels).view(torch.int16)).sum())
+        last[:] = [{"image": images, "label": batch["label"]}]
+        return last[0]
+
+    def run_step(batch):
+        nonlocal params
+        params, loss, _ = step(params, batch)
+        losses.append(loss)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with converter.make_device_loader(batch_size=VIT_BATCH, num_epochs=None,
+                                      workers_count=VIT_WORKERS, shuffle_row_groups=True,
+                                      seed=0) as loader:
+        it = iter(loader)
+        first = next_batch(it)
+        # Float32 on the initial weights, before the first step changes them.
+        errs = _vit_float32_check(params, first["image"][:VIT_F32_ROWS].float())
+        warm = run_step(first)
+        for _ in range(VIT_WARMUP - 1):
+            warm = run_step(next_batch(it))
+        _, _, wait_s, wall_s, resident_s = pipelined_window(
+            run_step, lambda: next_batch(it), VIT_PIPELINED, VIT_RESIDENT, warm)
+        it.close()
+    launches = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    values = [v.item() for v in losses]
+    mismatched = [int(m.item()) for m in mismatches]
+    pipelined = values[VIT_WARMUP:VIT_WARMUP + VIT_PIPELINED]
+    flops_step = 3 * VIT_BATCH * vit.vit_flops_per_image(
+        **{k: v for k, v in vit.VIT_B16.items() if k != "heads"})
+    step_ms, resident_ms = 1e3 * wall_s / VIT_PIPELINED, 1e3 * resident_s
+    mfu, mfu_resident = (100 * flops_step / (ms / 1e3) / BF16_FLOPS
+                         for ms in (step_ms, resident_ms))
+    log(f"[converter] ({smi}) ViT-B/16 ({n_params / 1e6:.1f} M parameters), batch {VIT_BATCH}, "
+        f"bf16 on float32 weights, SGD lr {VIT_LR}: pipelined step {step_ms:.2f} ms "
+        f"({VIT_BATCH * VIT_PIPELINED / wall_s:.1f} samples/s, input stall "
+        f"{100 * wait_s / wall_s:.1f} %), resident step {resident_ms:.2f} ms "
+        f"({VIT_BATCH / resident_s:.1f} samples/s); peak memory {peak_gb:.2f} GB")
+    log(f"[converter] MFU = 3 x {VIT_BATCH} x F / step time / 989e12, F = 2 P (p^2 3) D + L "
+        f"(2 T (4 D^2 + 2 D M) + 4 T^2 D) + 2 D K = {flops_step / 3 / VIT_BATCH / 1e9:.2f} "
+        f"GFLOP an image forward (P 196 patches, T 197 tokens, D 768, M 3072, L 12, K 1000), "
+        f"{flops_step / 1e12:.2f} TFLOP a step: {mfu:.1f} % pipelined, {mfu_resident:.1f} % "
+        f"resident")
+    log(f"[converter] losses: warm-up {[round(v, 4) for v in values[:VIT_WARMUP]]}, pipelined "
+        f"{[round(v, 4) for v in pipelined]}, resident "
+        f"{[round(v, 4) for v in values[VIT_WARMUP + VIT_PIPELINED:]]}; launches {launches}; "
+        f"K1 against its plain version: {sum(mismatched)} elements differ over "
+        f"{len(mismatched)} batches")
+    if not all(np.isfinite(values)):
+        failures.append(f"non-finite loss {values}")
+    if not np.mean(pipelined[-3:]) < values[0]:
+        failures.append(f"the loss did not fall: first {values[0]:.4f}, mean of the last 3 "
+                        f"pipelined {np.mean(pipelined[-3:]):.4f}")
+    if any(mismatched):
+        failures.append(f"K1 not bit-equal to its plain version: {mismatched}")
+    if launches != {KERNEL_NAME: VIT_WARMUP + VIT_PIPELINED}:
+        failures.append(f"launches {launches}")
+
+    batch = last[0]
+
+    def resident():
+        nonlocal params
+        params, loss, _ = step(params, batch)
+        loss.item()
+    profile_step(resident, "resident ViT-B/16 train step", VIT_GROUPS, top=8)
+    log(f"[converter] float32 forward of {VIT_F32_ROWS} images of the first batch on the initial "
+        f"weights, card (TF32 off) against CPU, max |diff| / max |logit|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (bar {VIT_F32_BAR:g}; the "
+        f"controls must miss it)")
+    if not errs["port"] <= VIT_F32_BAR:
+        failures.append(f"float32 card against CPU {errs['port']:.3g}")
+    for control in ("exact-erf GELU", "unbiased variance"):
+        if not errs[control] > VIT_F32_BAR:
+            failures.append(f"the {control} control passed the float32 bar ({errs[control]:.3g})")
+
+    del params, batch, last[:]
+    free_cuda()
+
+    # (b) The MNIST MLP, the example's store and loop.
+    from examples.torch_mnist.main import synthetic_mnist, train as mnist_train, write_dataset
+    mnist_url = f"file://{tmp}/mnist"
+    t0 = time.perf_counter()
+    images, labels = synthetic_mnist(MNIST_ROWS)
+    write_dataset(mnist_url, images, labels)
+    log(f"[mnist] wrote {MNIST_ROWS} rows in {time.perf_counter() - t0:.2f} s")
+    kernels.reset_launch_counts()
+    result = mnist_train(mnist_url, epochs=MNIST_EPOCHS, batch_size=MNIST_BATCH, device="cuda",
+                         log=lambda line: log(f"[mnist] {line}"))
+    mnist_launches = dict(kernels.launch_counts)
+    log(f"[mnist] ({smi}) {result['steps']} steps over {MNIST_EPOCHS} epochs: "
+        f"{result['samples_per_sec']:.1f} samples/s, accuracy of the last 10 steps "
+        f"{result['accuracy']:.4f} (bar {MNIST_ACC_BAR}); launches {mnist_launches}")
+    if not result["accuracy"] > MNIST_ACC_BAR:
+        failures.append(f"MNIST accuracy {result['accuracy']:.4f}")
+    if mnist_launches:
+        failures.append(f"MNIST launches {mnist_launches}")
+
+    # (c) The torch adapter over (b)'s store, default device.
+    t0 = time.perf_counter()
+    rows, bad = 0, []
+    spec = TransformSpec(_with_even, edit_fields=[("even", np.bool_, (), False)])
+    with make_reader(mnist_url, num_epochs=1, shuffle_row_groups=False,
+                     transform_spec=spec) as reader:
+        for b in torch_adapter.DataLoader(reader, batch_size=MNIST_BATCH):
+            devices = {str(v.device) for v in b.values()}
+            if devices != {"cuda:0"} or b["even"].dtype != torch.uint8 \
+                    or not torch.equal(b["even"], (b["label"] % 2 == 0).to(torch.uint8)):
+                bad.append((devices, b["even"].dtype))
+            rows += len(b["label"])
+    log(f"[adapter] petastorm_tpu_torch.pytorch.DataLoader over the MNIST store: {rows} rows in "
+        f"{time.perf_counter() - t0:.2f} s, every tensor on cuda:0, the bool column as uint8"
+        + (f"; WRONG in {len(bad)} batches: {bad[:3]}" if bad else ""))
+    if bad or rows != MNIST_ROWS // MNIST_BATCH * MNIST_BATCH:
+        failures.append(f"adapter: {rows} rows, {bad[:3]}")
+    free_cuda()
+    if failures:
+        raise AssertionError("converter -> ViT-B/16 and MNIST: " + "; ".join(failures))
+    return {KERNEL_NAME: launches.get(KERNEL_NAME, 0)}
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """``t`` seen as integers of its width, so that equality is bit equality."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -5259,6 +5512,9 @@ def main() -> int:
         free_cuda()
         fsdp = timed("19 fsdp + pipeline + dryrun", phase_fsdp_pipeline, smi,
                      f"file://{train_tmp}/tokens")
+        free_cuda()
+        with tempfile.TemporaryDirectory() as tmp:
+            conv = timed("20 converter + vit", phase_converter_vit, smi, tmp)
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
@@ -5274,7 +5530,7 @@ def main() -> int:
         "replaces": "petastorm_tpu/ops/image_ops.py:27",
         "launches": (launches + proc["normalize"] + resume.get(KERNEL_NAME, 0)
                      + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]
-                     + lazy[KERNEL_NAME]),
+                     + lazy[KERNEL_NAME] + conv[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

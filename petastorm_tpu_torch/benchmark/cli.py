@@ -26,9 +26,11 @@ def build_parser():
                         choices=["thread", "process", "dummy"])
     parser.add_argument("-m", "--warmup-cycles", type=int, default=200)
     parser.add_argument("-n", "--measure-cycles", type=int, default=1000)
-    parser.add_argument("-d", "--read-method", default="python", choices=["python", "torch"],
-                        help="python: the reader's rows; torch: batches of 16 staged onto "
-                             "--device by the port's DataLoader")
+    parser.add_argument("-d", "--read-method", default="python",
+                        choices=["python", "tf", "torch"],
+                        help="python: the reader's rows; tf: the rows through a tf.data "
+                             "Dataset (make_petastorm_dataset); torch: batches of 16 staged "
+                             "onto --device by the port's DataLoader")
     parser.add_argument("-q", "--shuffling-queue-size", type=int, default=500)
     parser.add_argument("--min-after-dequeue", type=int, default=400)
     parser.add_argument("--device", default="cuda",

@@ -2,7 +2,7 @@
 stall against a device step (the JAX package's ``benchmark/throughput.py``).
 
 :func:`reader_throughput` reads rows straight from ``make_reader``
-(``read_method="python"``) or batches staged by the port's
+(``read_method="python"``), through a ``tf.data`` Dataset (``"tf"``) or batches staged by the port's
 :class:`~petastorm_tpu_torch.loader.DataLoader` onto ``device``
 (``"torch"``); with ``device_step_ms`` it overlaps the batches with a
 calibrated device step (:func:`make_synthetic_device_step`) and reports the
@@ -94,7 +94,9 @@ def reader_throughput(dataset_url: str,
     epoch, ``shuffle_row_groups=True``).
 
     ``read_method="python"`` iterates the reader's rows;
-    ``read_method="torch"`` takes batches of 16 staged onto ``device`` by
+    ``read_method="tf"`` iterates them through
+    :func:`petastorm_tpu_torch.tf_utils.make_petastorm_dataset` (one
+    ``tf.data`` element a row; needs tensorflow); ``read_method="torch"`` takes batches of 16 staged onto ``device`` by
     the port's ``DataLoader`` (with a ``shuffling_queue_size`` row buffer),
     each waited for. The input stall is reported only with
     ``device_step_ms``: each batch then meets a calibrated device step, and
@@ -106,8 +108,9 @@ def reader_throughput(dataset_url: str,
     """
     from petastorm_tpu_torch.reader import make_reader
 
-    if read_method not in ("python", "torch"):
-        raise ValueError(f"Unknown read_method {read_method!r} (expected 'python' or 'torch')")
+    if read_method not in ("python", "tf", "torch"):
+        raise ValueError(f"Unknown read_method {read_method!r} (expected 'python', 'tf' or "
+                         f"'torch')")
     cpu = CpuMeter()
     profiler = None
     if profile_threads:
@@ -119,8 +122,12 @@ def reader_throughput(dataset_url: str,
         with make_reader(dataset_url, schema_fields=field_regex, reader_pool_type=pool_type,
                          workers_count=loaders_count, num_epochs=None, shuffle_row_groups=True,
                          **(reader_extra_kwargs or {})) as reader:
-            if read_method == "python":
-                it = iter(reader)
+            if read_method in ("python", "tf"):
+                if read_method == "tf":
+                    from petastorm_tpu_torch.tf_utils import make_petastorm_dataset
+                    it = iter(make_petastorm_dataset(reader))
+                else:
+                    it = iter(reader)
                 for _ in range(warmup_cycles):
                     next(it)
                 t0 = time.perf_counter()

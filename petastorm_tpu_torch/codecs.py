@@ -39,6 +39,10 @@ class DataframeColumnCodec:
         """The Arrow storage type of the encoded cell."""
         raise NotImplementedError
 
+    def spark_type(self, unischema_field):
+        """The Spark storage type of the encoded cell (imports pyspark)."""
+        raise NotImplementedError
+
     def to_dict(self) -> dict:
         return {"type": type(self).__name__}
 
@@ -140,6 +144,28 @@ class ScalarCodec(DataframeColumnCodec):
             return pa.timestamp("ns")
         return pa.from_numpy_dtype(npdt)
 
+    def spark_type(self, unischema_field):
+        from pyspark.sql import types as T
+        dt = self.storage_dtype or unischema_field.numpy_dtype
+        if dt in (str, np.str_):
+            return T.StringType()
+        if dt in (bytes, np.bytes_):
+            return T.BinaryType()
+        if dt is Decimal:
+            return T.DecimalType(38, 18)
+        npdt = np.dtype(dt)
+        if npdt.kind == "M":
+            return T.TimestampType()
+        # Spark has no unsigned types: each widens to a signed one that holds it.
+        mapping = {np.int8: T.ByteType, np.int16: T.ShortType, np.int32: T.IntegerType,
+                   np.int64: T.LongType, np.uint8: T.ShortType, np.uint16: T.IntegerType,
+                   np.uint32: T.LongType, np.uint64: T.LongType,
+                   np.float32: T.FloatType, np.float64: T.DoubleType, np.bool_: T.BooleanType}
+        for k, v in mapping.items():
+            if npdt == np.dtype(k):
+                return v()
+        raise ValueError(f"No Spark type mapping for {dt}")
+
     def to_dict(self):
         from petastorm_tpu_torch.unischema import _dtype_name
         return {"type": "ScalarCodec",
@@ -172,6 +198,10 @@ class NdarrayCodec(DataframeColumnCodec):
     def arrow_type(self, unischema_field):
         import pyarrow as pa
         return pa.binary()
+
+    def spark_type(self, unischema_field):
+        from pyspark.sql import types as T
+        return T.BinaryType()
 
 
 class CompressedNdarrayCodec(NdarrayCodec):
@@ -351,6 +381,10 @@ class CompressedImageCodec(DataframeColumnCodec):
     def arrow_type(self, unischema_field):
         import pyarrow as pa
         return pa.binary()
+
+    def spark_type(self, unischema_field):
+        from pyspark.sql import types as T
+        return T.BinaryType()
 
     def to_dict(self):
         return {"type": "CompressedImageCodec", "image_codec": self.image_codec,

@@ -18,13 +18,14 @@ import logging
 import os
 import posixpath
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.errors import MetadataError, MetadataGenerationError
-from petastorm_tpu_torch.fs_utils import get_filesystem_and_path
+from petastorm_tpu_torch.fs_utils import get_filesystem_and_path_or_paths
 from petastorm_tpu_torch.unischema import Unischema
 
 logger = logging.getLogger(__name__)
@@ -63,7 +64,7 @@ class DatasetContext:
     lazily read metadata key-values."""
 
     def __init__(self, dataset_url: str):
-        self.filesystem, self.root_path = get_filesystem_and_path(dataset_url)
+        self.filesystem, self.root_path = get_filesystem_and_path_or_paths(dataset_url)
         self._file_paths: Optional[List[str]] = None
         self._kv_metadata: Optional[Dict[bytes, bytes]] = None
         self._arrow_schema = None
@@ -177,21 +178,46 @@ def infer_or_load_unischema(ctx: DatasetContext) -> Unischema:
         return Unischema.from_arrow_schema(ctx.arrow_schema(), omit_unsupported_fields=True)
 
 
-def write_dataset_metadata(ctx: DatasetContext, schema: Optional[Unischema],
-                           extra_kv: Optional[Dict[bytes, bytes]] = None) -> None:
-    """(Re)write ``_common_metadata`` with the row-groups-per-file map,
-    built from a footer scan of every data file, the schema (kept as
-    stored when None) and ``extra_kv``."""
+def get_schema_from_dataset_url(dataset_url: str) -> Unischema:
+    """The Unischema stored in the metadata of the store at ``dataset_url``."""
+    return get_schema(DatasetContext(dataset_url))
+
+
+def _context(ctx_or_url) -> DatasetContext:
+    return ctx_or_url if isinstance(ctx_or_url, DatasetContext) else DatasetContext(ctx_or_url)
+
+
+def write_dataset_metadata(ctx_or_url, schema: Optional[Unischema],
+                           extra_kv: Optional[Dict[bytes, bytes]] = None,
+                           file_stats=None) -> dict:
+    """(Re)write ``_common_metadata`` of a store (a :class:`DatasetContext`
+    or a URL) with the row-groups-per-file map, built from a footer scan of
+    every data file, the schema (kept as stored when None) and
+    ``extra_kv``.
+
+    Returns the statistics of the same footer pass, ``{"total_rows",
+    "file_sizes", "num_files"}``, so a caller that needs them (the Spark
+    converter's dataset size) reads no footer again. ``file_stats``
+    (``[(path, num_row_groups, num_rows, size)]``, as
+    :func:`write_summary_metadata` returns) replaces the footer pass."""
+    ctx = _context(ctx_or_url)
     files = ctx.file_paths()
     if not files:
         raise MetadataGenerationError(f"No parquet data files under {ctx.root_path}")
 
-    def _count(path):
-        with ctx.filesystem.open(path, "rb") as f:
-            return os.path.relpath(path, ctx.root_path), pq.ParquetFile(f).metadata.num_row_groups
+    if file_stats is not None:
+        stats = [(os.path.relpath(path, ctx.root_path), n_groups, n_rows, size)
+                 for path, n_groups, n_rows, size in file_stats]
+    else:
+        def _count(path):
+            size = ctx.filesystem.info(path)["size"]
+            with ctx.filesystem.open(path, "rb") as f:
+                md = pq.ParquetFile(f).metadata
+            return os.path.relpath(path, ctx.root_path), md.num_row_groups, md.num_rows, size
 
-    with ThreadPoolExecutor(max_workers=10) as pool:
-        per_file = dict(pool.map(_count, files))
+        with ThreadPoolExecutor(max_workers=10) as pool:
+            stats = list(pool.map(_count, files))
+    per_file = {rel: n_groups for rel, n_groups, _, _ in stats}
 
     kv: Dict[bytes, bytes] = dict(ctx.key_value_metadata())
     kv[ROW_GROUPS_PER_FILE_KEY] = json.dumps(per_file, sort_keys=True).encode("utf-8")
@@ -204,3 +230,100 @@ def write_dataset_metadata(ctx: DatasetContext, schema: Optional[Unischema],
     with ctx.filesystem.open(posixpath.join(ctx.root_path, "_common_metadata"), "wb") as f:
         pq.write_metadata(arrow_schema.with_metadata(kv), f)
     ctx._kv_metadata = None
+    return {"total_rows": sum(rows for _, _, rows, _ in stats),
+            "file_sizes": [size for _, _, _, size in stats],
+            "num_files": len(files)}
+
+
+def write_summary_metadata(ctx_or_url) -> list:
+    """Write a summary ``_metadata`` sidecar holding every data file's row
+    groups (each tagged with its ``file_path``), so any Parquet planner can
+    split the store without reading a footer. Schema keys that only the old
+    ``_metadata`` held are moved into ``_common_metadata`` first. Returns
+    ``[(path, num_row_groups, num_rows, size)]`` for
+    :func:`write_dataset_metadata`'s ``file_stats``."""
+    ctx = _context(ctx_or_url)
+    files = ctx.file_paths()
+    if not files:
+        raise MetadataGenerationError(f"No parquet data files under {ctx.root_path}")
+    sidecar_path = posixpath.join(ctx.root_path, "_metadata")
+    common_path = posixpath.join(ctx.root_path, "_common_metadata")
+    try:
+        old_kv = {}
+        if ctx.filesystem.exists(sidecar_path):
+            with ctx.filesystem.open(sidecar_path, "rb") as f:
+                old_kv = pq.read_schema(f).metadata or {}
+        kept = {k: v for k, v in old_kv.items()
+                if k in (UNISCHEMA_KEY, ROW_GROUPS_PER_FILE_KEY, LEGACY_UNISCHEMA_KEY)}
+        if kept:
+            if ctx.filesystem.exists(common_path):
+                with ctx.filesystem.open(common_path, "rb") as f:
+                    common_schema = pq.read_schema(f)
+            else:
+                with ctx.filesystem.open(files[0], "rb") as f:
+                    common_schema = pq.ParquetFile(f).schema_arrow
+            common_kv = dict(common_schema.metadata or {})
+            rescued = {k: v for k, v in kept.items() if k not in common_kv}
+            if rescued:
+                with ctx.filesystem.open(common_path, "wb") as f:
+                    pq.write_metadata(common_schema.with_metadata({**common_kv, **rescued}), f)
+    except (OSError, ValueError):
+        logger.warning("Could not read the old _metadata's key-values; summarizing anyway",
+                       exc_info=True)
+
+    def _read_md(path):
+        size = ctx.filesystem.info(path)["size"]
+        with ctx.filesystem.open(path, "rb") as f:
+            md = pq.ParquetFile(f).metadata
+        md.set_file_path(os.path.relpath(path, ctx.root_path))
+        return path, md, size
+
+    with ThreadPoolExecutor(max_workers=10) as pool:
+        collected = list(pool.map(_read_md, files))
+    # Counted before the merge: append_row_groups grows the first file's
+    # metadata in place.
+    stats = [(path, md.num_row_groups, md.num_rows, size) for path, md, size in collected]
+    merged = collected[0][1]
+    for _, md, _ in collected[1:]:
+        merged.append_row_groups(md)
+    with ctx.filesystem.open(sidecar_path, "wb") as f:
+        merged.write_metadata_file(f)
+    ctx._kv_metadata = None
+    return stats
+
+
+@contextmanager
+def materialize_dataset(spark, dataset_url: str, schema: Unischema,
+                        row_group_size_mb: Optional[int] = None,
+                        use_summary_metadata: bool = False):
+    """Context manager around a **Spark** Parquet write of ``dataset_url``
+    (requires pyspark): sets the Parquet block size (and whether the
+    committer writes summary metadata) in the session's Hadoop
+    configuration before the caller's write job, stores the Unischema and
+    the row-group index after it, and restores the configuration. With
+    ``use_summary_metadata`` the summary ``_metadata`` is built from the
+    footers (:func:`write_summary_metadata`), whatever the committer does.
+    For a write without Spark use
+    :func:`petastorm_tpu_torch.etl.writer.materialize_dataset_local`."""
+    try:
+        import pyspark  # noqa: F401
+    except ImportError as e:
+        raise ImportError("materialize_dataset requires pyspark. For a write without Spark "
+                          "use petastorm_tpu_torch.etl.writer.materialize_dataset_local") from e
+    hadoop_conf = spark.sparkContext._jsc.hadoopConfiguration()
+    keys = ("parquet.block.size", "parquet.enable.summary-metadata")
+    saved = {k: hadoop_conf.get(k) for k in keys}
+    if row_group_size_mb is not None:
+        hadoop_conf.setInt("parquet.block.size", row_group_size_mb * (1 << 20))
+    hadoop_conf.setBoolean("parquet.enable.summary-metadata", bool(use_summary_metadata))
+    try:
+        yield
+        ctx = DatasetContext(dataset_url)
+        stats = write_summary_metadata(ctx) if use_summary_metadata else None
+        write_dataset_metadata(ctx, schema, file_stats=stats)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                hadoop_conf.unset(k)
+            else:
+                hadoop_conf.set(k, v)

@@ -1,4 +1,5 @@
-"""Filesystem/URL resolution: one dataset URL in, (filesystem, path) out.
+"""Filesystem/URL resolution: one dataset URL (or a list of them) in,
+(filesystem, path or paths) out.
 
 ``file://`` URLs (and bare paths) resolve to fsspec's local filesystem; any
 other fsspec scheme (``s3://``, ``gs://``, ``memory://`` ...) goes through
@@ -7,7 +8,7 @@ this package does not have yet, and is refused.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple, Union
 from urllib.parse import urlparse
 
 
@@ -22,15 +23,57 @@ def normalize_dir_url(dataset_url: str) -> str:
     return dataset_url
 
 
-def get_filesystem_and_path(dataset_url: str) -> Tuple[object, str]:
-    """Resolve ``dataset_url`` to an fsspec filesystem (default options)
-    and a bare path."""
-    import fsspec
-    url = normalize_dir_url(dataset_url)
-    parsed = urlparse(url)
-    if parsed.scheme == "file":
-        return fsspec.filesystem("file"), parsed.path
-    if parsed.scheme == "hdfs":
-        raise ValueError(f"{url}: hdfs:// stores are not supported by "
-                         f"petastorm_tpu_torch yet")
-    return fsspec.core.url_to_fs(url)
+def normalize_dataset_url_or_urls(url_or_urls):
+    """:func:`normalize_dir_url` of one URL, or of each URL of a non-empty
+    list."""
+    if isinstance(url_or_urls, (list, tuple)):
+        if not url_or_urls:
+            raise ValueError("empty url list")
+        return [normalize_dir_url(u) for u in url_or_urls]
+    return normalize_dir_url(url_or_urls)
+
+
+class FilesystemResolver:
+    """Resolves a dataset URL into an fsspec filesystem (default options)
+    plus a bare path.
+
+    :param dataset_url: e.g. ``file:///tmp/ds``, ``s3://bucket/ds``,
+        ``memory://ds``
+    """
+
+    def __init__(self, dataset_url: str):
+        self._dataset_url = normalize_dir_url(dataset_url)
+        self._parsed = urlparse(self._dataset_url)
+        scheme = self._parsed.scheme
+        import fsspec
+        if scheme == "file":
+            self._filesystem = fsspec.filesystem("file")
+            self._path = self._parsed.path
+        elif scheme == "hdfs":
+            raise ValueError(f"{self._dataset_url}: hdfs:// stores are not supported by "
+                             f"petastorm_tpu_torch yet")
+        else:
+            self._filesystem, self._path = fsspec.core.url_to_fs(self._dataset_url)
+
+    def filesystem(self):
+        return self._filesystem
+
+    def get_dataset_path(self) -> str:
+        return self._path
+
+    @property
+    def parsed_dataset_url(self):
+        return self._parsed
+
+
+def get_filesystem_and_path_or_paths(
+        url_or_urls: Union[str, Sequence[str]]) -> Tuple[object, Union[str, list]]:
+    """One URL, or a list of URLs that share their scheme and netloc (they
+    are read through one filesystem), -> (filesystem, path or paths)."""
+    urls = normalize_dataset_url_or_urls(url_or_urls)
+    url_list = urls if isinstance(urls, list) else [urls]
+    if len({urlparse(u)[:2] for u in url_list}) != 1:
+        raise ValueError(f"All dataset URLs must share scheme and netloc, got {url_list}")
+    fs = FilesystemResolver(url_list[0]).filesystem()
+    paths = [fs._strip_protocol(u) for u in url_list]
+    return fs, (paths if isinstance(urls, list) else paths[0])

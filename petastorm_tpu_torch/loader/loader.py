@@ -468,7 +468,7 @@ class LoaderBase:
                     snap = self._snapshot_input_state()
                     t1 = time.perf_counter()
                     with traced_span("petastorm_tpu.stage"):
-                        cols, host_cols = sanitize_batch(hb, self._dtype_policy)
+                        cols, host_cols = self._split_batch(hb)
                         _check_sharded_columns(self._sharding, cols)
                         if cuda:
                             staged, event = stager.stage(cols)
@@ -523,6 +523,11 @@ class LoaderBase:
             stop.set()
             self._stage_stop = None
             thread.join(5.0)
+
+    def _split_batch(self, host_batch: dict):
+        """(columns to stage onto the device, columns handed out as they
+        are) of one host batch: the dtype policy's split."""
+        return sanitize_batch(host_batch, self._dtype_policy)
 
     def _host_batches(self):
         """The host batches of one pass, as ``{name: ndarray}``."""
@@ -979,15 +984,18 @@ class InMemBatchedDataLoader(LoaderBase):
 
 def aligned_steps_per_epoch(dataset_url: str, batch_size: int,
                             shard_count: Optional[int] = None,
-                            drop_last: bool = True) -> int:
+                            drop_last: bool = True, shard_seed: Optional[int] = None,
+                            filters=None) -> int:
     """Batches every shard of the store can deliver in one epoch: the
     least, over shards ``index % shard_count == shard`` of the store's row
-    groups (the readers' sharding), of the shard's rows over
-    ``batch_size`` (floored, or ceiled when not ``drop_last``). Every rank
-    computes the same number from the metadata, without communicating;
-    pass it as ``steps_per_epoch`` so no rank steps into a collective its
-    peers skip. ``shard_count`` defaults to the ``torch.distributed``
-    world size when a process group is initialised, else 1.
+    groups (the readers' sharding: after the partition ``filters`` and the
+    ``random.Random(shard_seed)`` shuffle, when given, as the readers plan
+    them), of the shard's rows over ``batch_size`` (floored, or ceiled when
+    not ``drop_last``). Every rank computes the same number from the
+    metadata, without communicating; pass it as ``steps_per_epoch`` so no
+    rank steps into a collective its peers skip. ``shard_count`` defaults
+    to the ``torch.distributed`` world size when a process group is
+    initialised, else 1.
 
     The bound holds for readers that deliver every row of their shard (a
     row reader, or a batched reader; not an NGram's windows)."""
@@ -995,8 +1003,8 @@ def aligned_steps_per_epoch(dataset_url: str, batch_size: int,
 
     import pyarrow.parquet as pq
 
-    from petastorm_tpu_torch.errors import NoDataAvailableError
     from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext, load_row_groups
+    from petastorm_tpu_torch.reader import _apply_filters, _shard_row_groups
 
     if shard_count is None:
         dist = torch.distributed
@@ -1006,6 +1014,8 @@ def aligned_steps_per_epoch(dataset_url: str, batch_size: int,
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     ctx = DatasetContext(dataset_url)
     groups = load_row_groups(ctx)
+    if filters:
+        groups = _apply_filters(groups, filters)
 
     def footer_rows(path):
         with ctx.filesystem.open(path, "rb") as f:
@@ -1016,11 +1026,7 @@ def aligned_steps_per_epoch(dataset_url: str, batch_size: int,
         rows_by_path = dict(pool.map(footer_rows, sorted({rg.path for rg in groups})))
     steps = []
     for shard in range(shard_count):
-        refs = [rg for i, rg in enumerate(groups) if i % shard_count == shard]
-        if not refs:
-            raise NoDataAvailableError(
-                f"Shard {shard}/{shard_count} received zero row groups ({len(groups)} total). "
-                f"Use fewer shards or larger datasets.")
+        refs = _shard_row_groups(groups, shard, shard_count, shard_seed)
         rows = sum(rows_by_path[rg.path][rg.row_group] for rg in refs)
         n = rows // batch_size if drop_last else -(-rows // batch_size)
         if n == 0:

@@ -41,6 +41,7 @@ import io
 import os
 import pickle
 import random
+import sys
 import types
 import warnings
 from collections import deque
@@ -297,6 +298,20 @@ def _check_spawnable(what: str, obj) -> None:
             f"reader_pool_type='thread'") from e
 
 
+def _resolve_shard(cur_shard, shard_count):
+    """``cur_shard="auto"``: this rank's ``(rank, shard_count or world
+    size)`` in an initialised ``torch.distributed`` default group, else
+    ``(0, shard_count or 1)``; anything else as given."""
+    if cur_shard != "auto":
+        return cur_shard, shard_count
+    # A group exists only once torch.distributed was imported: a process
+    # that never imported it reads as one rank without importing torch.
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), shard_count or dist.get_world_size()
+    return 0, shard_count or 1
+
+
 def make_reader(dataset_url: str,
                 schema_fields=None,
                 reader_pool_type: str = "thread",
@@ -306,7 +321,7 @@ def make_reader(dataset_url: str,
                 shuffle_rows: bool = False,
                 seed: Optional[int] = None,
                 num_epochs: Optional[int] = 1,
-                cur_shard: Optional[int] = None,
+                cur_shard=None,
                 shard_count: Optional[int] = None,
                 resume_state: Optional[dict] = None,
                 shuffle_row_drop_partitions: int = 1,
@@ -341,7 +356,10 @@ def make_reader(dataset_url: str,
     :param num_epochs: passes over the dataset; ``None`` = forever
     :param cur_shard/shard_count: read only row groups with
         ``index % shard_count == cur_shard`` (of the groups the filters,
-        the predicate and the selector kept)
+        the predicate and the selector kept); ``cur_shard="auto"`` is this
+        rank's index in the initialised ``torch.distributed`` default group,
+        with ``shard_count`` defaulting to its size (``(0, shard_count or
+        1)`` without a group)
     :param resume_state: a :meth:`Reader.state_dict` (of this package's
         reader or the JAX package's, free mode) to continue from; its
         recorded seed is used when ``seed`` is None. The store, selection,
@@ -394,6 +412,7 @@ def make_reader(dataset_url: str,
     pickle into a spawned worker: a ``ValueError`` says so at construction.
     """
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
+    cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
                       PickleSerializer())
     return Reader(dataset_url, pool, schema_fields=schema_fields,
@@ -416,7 +435,7 @@ def make_batch_reader(dataset_url: str,
                       shuffle_rows: bool = False,
                       seed: Optional[int] = None,
                       num_epochs: Optional[int] = 1,
-                      cur_shard: Optional[int] = None,
+                      cur_shard=None,
                       shard_count: Optional[int] = None,
                       convert_early_to_numpy: bool = False,
                       resume_state: Optional[dict] = None,
@@ -467,6 +486,7 @@ def make_batch_reader(dataset_url: str,
     The other arguments are :func:`make_reader`'s.
     """
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
+    cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
     serializer = PickleSerializer() if convert_early_to_numpy else ArrowTableSerializer()
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
                       serializer)

@@ -194,6 +194,17 @@ class Unischema:
     def namedtuple(self):
         return _NamedtupleCache.get(self._name, list(self._fields.keys()))
 
+    def make_namedtuple(self, **kwargs):
+        """One row namedtuple from keyword values (a missing field raises
+        ``KeyError``; extra keywords are ignored)."""
+        tt = self.namedtuple
+        return tt(**{k: kwargs[k] for k in tt._fields})
+
+    def make_namedtuple_tf(self, *args, **kwargs):
+        """The row namedtuple type applied to any positional or keyword
+        values (tf tensors, say)."""
+        return self.namedtuple(*args, **kwargs)
+
     def make_namedtuple_from_dict(self, row: dict):
         tt = self.namedtuple
         return tt(**{k: row.get(k) for k in tt._fields})
@@ -217,6 +228,17 @@ class Unischema:
             codec = f.codec or _default_codec(f)
             pa_fields.append(pa.field(f.name, codec.arrow_type(f), nullable=f.nullable))
         return pa.schema(pa_fields)
+
+    def as_spark_schema(self):
+        """The storage schema as a Spark ``StructType``: each codec's
+        ``spark_type`` and the field's nullability (imports pyspark)."""
+        try:
+            from pyspark.sql.types import StructField, StructType
+        except ImportError as e:
+            raise ImportError("as_spark_schema() requires pyspark") from e
+        return StructType([StructField(f.name, (f.codec or _default_codec(f)).spark_type(f),
+                                       f.nullable)
+                           for f in self._fields.values()])
 
     def as_tensor_specs(self, batch_size: Optional[int] = None,
                         variable_dim: Optional[int] = None) -> dict:

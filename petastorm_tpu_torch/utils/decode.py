@@ -1,7 +1,8 @@
 """Whole-column image decode for the reader's workers (reference
 petastorm_tpu/utils/decode.py:34-150): one native call per image column
 where the field and the host allow it, cell by cell through the codec
-otherwise."""
+otherwise; and one storage row decoded by a schema's codecs
+(:func:`decode_row`, for ``spark.spark_utils.dataset_as_rdd``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -98,3 +99,19 @@ def batch_decode_images(field, codec, blobs, skip_memo=None, n_threads=None):
     for i in failed:
         rows[i] = codec.decode(field, blobs[i])
     return rows, len(rows) - len(failed)
+
+
+def decode_row(row: dict, schema) -> dict:
+    """One storage row dict decoded into numpy values by ``schema``'s
+    codecs. Fields of ``row`` that ``schema`` (a view, say) lacks are left
+    out; ``None`` cells stay ``None``; binary cells that arrive as
+    memoryviews are decoded from their bytes."""
+    decoded = {}
+    for name, field, codec in schema.decode_plan:
+        if name not in row:
+            continue
+        value = row[name]
+        if isinstance(value, memoryview):
+            value = bytes(value)
+        decoded[name] = None if value is None else codec.decode(field, value)
+    return decoded

@@ -1204,3 +1204,120 @@ def test_fsdp_gather_and_pipeline_hops_on_card_equal_the_cpu(cuda_device):
         assert got.keys() == want.keys()
         for name in want:
             torch.testing.assert_close(got[name], want[name], rtol=1e-6, atol=1e-6, msg=name)
+
+
+def _build_store_sparkless(*args, **kwargs) -> dict:
+    """``examples/torch_spark_to_vit``'s store builder: the converter's
+    cache store written directly."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / "torch_spark_to_vit" / "main.py"
+    spec = importlib.util.spec_from_file_location("torch_example_spark_to_vit", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.build_store_sparkless(*args, **kwargs)
+
+
+def test_converter_k1_vit_float32_on_card_matches_cpu(cuda_device, tmp_path):
+    """Converter batches on the card -> K1 (bit-equal to its plain version)
+    -> a small ViT in float32 with TF32 off, within 1e-5 of the same forward
+    on the CPU; the exact-erf GELU misses that bar."""
+    import torch.nn.functional as F
+
+    from petastorm_tpu_torch.models import vit
+    from petastorm_tpu_torch.spark.spark_dataset_converter import SparkDatasetConverter
+    url = f"file://{tmp_path}/conv"
+    stats = _build_store_sparkless(url, rows=64, classes=10, image=32, rows_per_group=16)
+    conv = SparkDatasetConverter(url, stats["total_rows"])
+    with conv.make_device_loader(batch_size=8, num_epochs=1, shuffle_row_groups=False) as loader:
+        batch = next(iter(loader))
+    assert batch["image"].device.type == "cuda" and batch["image"].dtype == torch.uint8
+    pixels = batch["image"].view(-1, 32, 32, 3)
+    kernels.reset_launch_counts()
+    images = normalize_images(pixels, out_dtype=torch.float32)
+    assert kernels.launch_counts == {KERNEL_NAME: 1}
+    assert torch.equal(images, normalize_images_plain(pixels, out_dtype=torch.float32))
+    cfg = dict(image_size=32, patch=8, dim=64, depth=2, heads=4, mlp_dim=128, num_classes=10)
+    params = vit.init_params(torch.Generator(device="cuda").manual_seed(0), device="cuda", **cfg)
+    cpu_params = vit.params_from_jax(
+        {k: _to_numpy_tree(v) for k, v in params.items()}, device="cpu")
+
+    def forward(p, x):
+        return vit.apply(p, x, patch=8, heads=4, compute_dtype=torch.float32)
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = forward(params, images).cpu()
+        want = forward(cpu_params, images.cpu())
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        gelu = vit._gelu
+        vit._gelu = F.gelu
+        try:
+            control = forward(params, images).cpu()
+        finally:
+            vit._gelu = gelu
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert rel <= 1e-5, rel
+    assert ((control - want).abs().max() / want.abs().max()).item() > 1e-5
+    loss, _ = vit.loss_fn(params, {"image": normalize_images(pixels), "label": batch["label"]},
+                          patch=8, heads=4)
+    assert torch.isfinite(loss)
+
+
+def _to_numpy_tree(node):
+    if isinstance(node, dict):
+        return {k: _to_numpy_tree(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to_numpy_tree(v) for v in node]
+    return node.detach().cpu().numpy()
+
+
+def test_mlp_steps_on_card_match_cpu(cuda_device):
+    from petastorm_tpu_torch.models import mlp
+    params = mlp.init_params(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    cpu = {layer: {k: v.cpu() for k, v in leaves.items()} for layer, leaves in params.items()}
+    m = {layer: {k: torch.zeros_like(v) for k, v in leaves.items()}
+         for layer, leaves in params.items()}
+    m_cpu = {layer: {k: v.cpu() for k, v in leaves.items()} for layer, leaves in m.items()}
+    step = mlp.make_train_step(0.05)
+    rng = np.random.default_rng(0)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for _ in range(3):
+            x = torch.from_numpy(rng.normal(size=(64, 784)).astype(np.float32))
+            y = torch.from_numpy(rng.integers(0, 10, 64).astype(np.int32))
+            params, m, loss, _ = step(params, m, {"image": x.cuda(), "label": y.cuda()})
+            cpu, m_cpu, loss_cpu, _ = step(cpu, m_cpu, {"image": x, "label": y})
+            assert abs(loss.item() - loss_cpu.item()) <= 1e-5 * abs(loss_cpu.item())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for layer in cpu:
+        for k in cpu[layer]:
+            want = cpu[layer][k]
+            assert ((params[layer][k].cpu() - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_the_torch_adapter_defaults_to_the_card(cuda_device, tmp_path):
+    """``petastorm_tpu_torch.pytorch``: tensors on the card without
+    ``torch_device``, bool as uint8; ``transform_fn`` output stays on the
+    host."""
+    from petastorm_tpu_torch import pytorch
+    from petastorm_tpu_torch.reader import make_batch_reader
+    schema = Unischema("Flags", [
+        UnischemaField("id", np.int64, (), ScalarCodec(np.int64), False),
+        UnischemaField("flag", np.bool_, (), ScalarCodec(np.bool_), False)])
+    url = f"file://{tmp_path}/flags"
+    with materialize_dataset_local(url, schema, rows_per_row_group=8) as w:
+        w.write_rows([{"id": i, "flag": i % 2 == 0} for i in range(16)])
+    with make_reader(url, shuffle_row_groups=False, num_epochs=1) as r:
+        batch = next(iter(pytorch.DataLoader(r, batch_size=8)))
+    assert batch["id"].device.type == "cuda" and batch["flag"].device.type == "cuda"
+    assert batch["flag"].dtype == torch.uint8
+    assert batch["flag"].tolist() == [1, 0] * 4 and batch["id"].tolist() == list(range(8))
+    with make_batch_reader(url, shuffle_row_groups=False, num_epochs=1) as r:
+        batches = list(pytorch.BatchedDataLoader(r, batch_size=8, transform_fn=np.flip))
+    assert isinstance(batches[0]["id"], np.ndarray) and batches[0]["flag"].dtype == np.bool_
+    assert batches[0]["id"].tolist() == list(range(7, -1, -1))

@@ -1,8 +1,10 @@
-"""Import boundary of petastorm_tpu_torch: it and chip_smoke.py import
-neither ``jax`` nor the JAX package ``petastorm_tpu`` (not even its modules
-that do not import JAX), nor ``zmq``, ``dill`` or ``psutil``; every module
-imports on a host without ``nvcc`` or a GPU; and the modules a spawned
-reader worker runs import without ``torch``."""
+"""Import boundary of petastorm_tpu_torch: it, chip_smoke.py and the
+port's examples (``examples/torch_*``) import neither ``jax`` nor the JAX
+package ``petastorm_tpu`` (not even its modules that do not import JAX), nor
+``zmq``, ``dill`` or ``psutil``; every module imports on a host without
+``nvcc`` or a GPU, and the Spark and TensorFlow adapters without ``pyspark``
+and ``tensorflow``; and the modules a spawned reader worker runs import
+without ``torch``."""
 import ast
 import pathlib
 import subprocess
@@ -15,14 +17,18 @@ PORT = REPO / "petastorm_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 #: The rank functions spawned ranks import by name (no JAX either).
 RANK_MODULES = sorted((REPO / "tests").glob("torch_*_ranks.py"))
+#: The port's examples (run as scripts; importing one does no work).
+EXAMPLES = sorted((REPO / "examples").glob("torch_*/main.py"))
 
 _BLOCKER = r'''
-import importlib.abc, sys
+import importlib.abc, os, sys
+
+ALSO = tuple(filter(None, os.environ.get("BLOCK_ALSO", "").split(",")))
 
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib") or name == "petastorm_tpu" \
+        if top in ("jax", "jaxlib") + ALSO or name == "petastorm_tpu" \
                 or name.startswith("petastorm_tpu."):
             raise ImportError(f"blocked import of {name}")
         return None
@@ -32,7 +38,7 @@ import importlib
 for mod in sys.argv[1:]:
     importlib.import_module(mod)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib") or m == "petastorm_tpu"
+                if m.split(".")[0] in ("jax", "jaxlib") + ALSO or m == "petastorm_tpu"
                 or m.startswith("petastorm_tpu."))
 assert not leaked, leaked
 print("imported", len(sys.argv) - 1)
@@ -62,7 +68,7 @@ def test_blocker_does_not_block_the_port_by_prefix():
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
-    modules = [_module_name(p) for p in SOURCES]
+    modules = [_module_name(p) for p in SOURCES + EXAMPLES]
     assert {"petastorm_tpu_torch.ops.image_ops", "petastorm_tpu_torch.ops.flash_attn",
             "petastorm_tpu_torch.ngram", "petastorm_tpu_torch.models.llama",
             "petastorm_tpu_torch.parallel.attention",
@@ -94,7 +100,16 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.etl.rowgroup_indexing",
             "petastorm_tpu_torch.test_util.transforms",
             "petastorm_tpu_torch.loader.mesh_loader",
-            "petastorm_tpu_torch.parallel.pipeline"} <= set(modules)
+            "petastorm_tpu_torch.parallel.pipeline", "petastorm_tpu_torch.models.vit",
+            "petastorm_tpu_torch.models.mlp", "petastorm_tpu_torch.spark",
+            "petastorm_tpu_torch.spark.spark_dataset_converter",
+            "petastorm_tpu_torch.spark.spark_utils", "petastorm_tpu_torch.pytorch",
+            "petastorm_tpu_torch.tf_utils", "petastorm_tpu_torch.tools",
+            "petastorm_tpu_torch.tools.copy_dataset",
+            "petastorm_tpu_torch.tools.spark_session_cli",
+            "petastorm_tpu_torch.etl.generate_metadata",
+            "petastorm_tpu_torch.etl.metadata_util", "examples.torch_hello_world.main",
+            "examples.torch_mnist.main", "examples.torch_spark_to_vit.main"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -114,7 +129,26 @@ def test_rank_modules_import_without_jax_or_the_jax_package():
     assert f"imported {len(names)}" in proc.stdout
 
 
-@pytest.mark.parametrize("path", SOURCES + RANK_MODULES, ids=lambda p: str(p.relative_to(REPO)))
+def test_spark_and_tf_adapters_import_without_pyspark_or_tensorflow():
+    """pyspark and tensorflow are imported inside the functions that need
+    them, so the package, the converter, the tools and the adapters import
+    where neither is installed."""
+    modules = ["petastorm_tpu_torch", "petastorm_tpu_torch.spark",
+               "petastorm_tpu_torch.spark.spark_dataset_converter",
+               "petastorm_tpu_torch.spark.spark_utils", "petastorm_tpu_torch.tf_utils",
+               "petastorm_tpu_torch.pytorch", "petastorm_tpu_torch.tools.copy_dataset",
+               "petastorm_tpu_torch.tools.spark_session_cli",
+               "petastorm_tpu_torch.etl.dataset_metadata", "petastorm_tpu_torch.unischema",
+               "petastorm_tpu_torch.benchmark.cli", "examples.torch_spark_to_vit.main"]
+    proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO),
+                               "BLOCK_ALSO": "pyspark,tensorflow"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"imported {len(modules)}" in proc.stdout
+
+
+@pytest.mark.parametrize("path", SOURCES + RANK_MODULES + EXAMPLES, ids=lambda p: str(p.relative_to(REPO)))
 def test_source_names_no_jax_import(path):
     for name in _imported_names(path):
         top = name.split(".")[0]

@@ -99,7 +99,7 @@ def test_reader_throughput_fills_every_field(hello_stores, read_method, step_ms)
 
 def test_reader_throughput_refuses_an_unknown_read_method(hello_stores):
     with pytest.raises(ValueError, match="read_method"):
-        reader_throughput(hello_stores[0], read_method="tf", device="cpu")
+        reader_throughput(hello_stores[0], read_method="jax", device="cpu")
 
 
 def test_cli_json_keys_equal_the_jax_clis(hello_stores):
@@ -119,7 +119,8 @@ def test_cli_flags_are_the_jax_ones_less_tf_and_coalescing():
     theirs = {a.dest for a in jax_cli.build_parser()._actions}
     assert ours == (theirs - {"rowgroup_coalescing"}) | {"device"}
     read_method = next(a for a in cli.build_parser()._actions if a.dest == "read_method")
-    assert read_method.choices == ["python", "torch"]
+    # The JAX CLI's "jax" is the port's "torch"; "tf" is the same in both.
+    assert read_method.choices == ["python", "tf", "torch"]
 
 
 def test_cli_runs_as_a_module_in_a_new_interpreter(hello_stores):
