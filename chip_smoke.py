@@ -363,12 +363,37 @@ result line):
    (c) One pass of the torch adapter (``petastorm_tpu_torch.pytorch``) over
    (b)'s store with a worker transform adding a bool column: tensors on
    ``cuda:0`` by default, the bool column as uint8.
+21. the telemetry plane (``petastorm_tpu_torch.telemetry``). (a) Phase 20's
+   converter store -> ``make_device_loader(batch_size=128)`` with spans on
+   -> K1 (bit-equal to its plain version on every batch) -> ViT-B/16's
+   step, ``PH21_STEPS`` steps synced as ``training_input_stall`` syncs them,
+   then one closing delivery: ``stall_report()`` must count one step a
+   delivered batch, its delivery wait plus consumer busy time must be
+   within ``PH21_WALL_REL_BAR`` of the loop's wall clock, and
+   ``stage_breakdown()`` must have the JAX loaders' keys; printed beside
+   ``training_input_stall``'s stall of the same steps, with the stage
+   split a batch and the critical-path counts; then phase 20's
+   ``VIT_PIPELINED`` pipelined steps, the gauge's and the stage split's
+   share of them printed beside ``pipelined_window``'s wait. (b) Phase 4's store on 8
+   processes in trace mode -> ``DataLoader(256)`` -> K1 -> phase 9's
+   ResNet-50 step, one epoch: one ``petastorm_tpu.worker_decode`` span a
+   row group, from the workers' pids, must reach the parent, and
+   ``export_trace`` must write a Chrome trace with the worker, ``host_batch``
+   and ``stage`` spans that reads back as JSON; then phase 20's store on
+   processes through ``BatchedDataLoader``: ``transport.zero_copy_batches``
+   equal to the ring records delivered. (c) The converter loader alone with
+   spans off, on and in trace mode, in turns: samples/s, no bar. (d) A
+   50,000-row store of the ``tensor_50k`` schema with its embeddings as
+   ``NdarrayCodec`` cells read by ``make_reader`` with the batch decode
+   and with one ``np.load`` a cell, in turns: rows/s, and the two decodes
+   bit-equal.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import collections
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -770,6 +795,26 @@ VIT_GROUPS = (("matmuls (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
 # The MNIST MLP (phase 20 (b), BASELINE config 2): the example's store and
 # loop; examples/mnist asserts accuracy above 0.9 after 3 epochs.
 MNIST_ROWS, MNIST_BATCH, MNIST_EPOCHS, MNIST_ACC_BAR = 10_000, 128, 2, 0.9
+# The telemetry plane (phase 21). (a) phase 20's converter -> K1 -> ViT-B/16
+# with spans on, PH21_STEPS steps each synced as training_input_stall syncs
+# them; (b) phase 4's store on 8 processes in trace mode into K1 and phase
+# 9's ResNet-50 step, one epoch, then phase 20's store on PH21_BATCH_WORKERS
+# processes through BatchedDataLoader (zero-copy); (c) the converter loader
+# alone, spans off / on / trace mode, PH21_OVH_TURNS turns of
+# PH21_OVH_BATCHES batches; (d) a store of the tensor_50k schema with its two
+# embeddings as NdarrayCodec cells (50,000 rows, groups of 2,048), read by
+# make_reader on PH21_DECODE_WORKERS threads with the batch decode and with
+# per-cell np.load, PH21_DECODE_TURNS turns each.
+PH21_STEPS = 8
+PH21_BATCH_WORKERS = 4
+PH21_OVH_TURNS, PH21_OVH_BATCHES = 2, 16
+PH21_DECODE_ROWS, PH21_DECODE_GROUP, PH21_DECODE_WORKERS, PH21_DECODE_TURNS = \
+    50_000, 2048, 8, 2
+#: The JAX loaders' stage_breakdown() keys (petastorm_tpu/jax/loader.py:880-887).
+JAX_STAGE_KEYS = {"decode_s", "pool_queue_s", "shuffle_s", "host_wait_s", "stage_s",
+                  "device_put_wait_s"}
+#: delivery_wait_s + consumer_busy_s against the loop's wall clock.
+PH21_WALL_REL_BAR = 0.05
 #: The bench's result keys without a resident phase or a device peak, and
 #: the mesh keys it adds.
 LLM_KEYS = {"tokens_per_sec", "input_stall_pct", "step_time_ms", "tokens_per_step", "echo",
@@ -5442,6 +5487,316 @@ def phase_converter_vit(smi: str, tmp: str) -> dict:
     return {KERNEL_NAME: launches.get(KERNEL_NAME, 0)}
 
 
+class _StampedIterator:
+    """``next(inner)``, the moment each delivery returned kept in ``stamps``."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.stamps = []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = next(self._inner)
+        self.stamps.append(time.perf_counter())
+        return item
+
+
+@contextlib.contextmanager
+def _telemetry_env(mode: str):
+    """The telemetry environment of readers made inside: ``"off"`` (the
+    default), ``"spans"`` or ``"trace"``."""
+    names = {"spans": "PETASTORM_TPU_TELEMETRY_SPANS", "trace": "PETASTORM_TPU_TELEMETRY_TRACE"}
+    saved = {n: os.environ.pop(n, None) for n in names.values()}
+    if mode != "off":
+        os.environ[names[mode]] = "1"
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            os.environ.pop(n, None)
+            if v is not None:
+                os.environ[n] = v
+
+
+def _per_batch_ms(breakdown: dict, batches: int) -> str:
+    return ", ".join(f"{k} {1e3 * v / max(1, batches):.2f}" for k, v in breakdown.items())
+
+
+def _decode_store(url: str) -> None:
+    """Phase 21 (d)'s store: the tensor_50k schema (``id``, ``f0..f7``
+    float32) with its two 64-float embeddings as ``NdarrayCodec`` cells."""
+    from petastorm_tpu_torch.codecs import NdarrayCodec
+    schema = Unischema("Tensor50kCells", [
+        UnischemaField("id", np.int64, (), ScalarCodec(np.int64), False)]
+        + [UnischemaField(f"f{i}", np.float32, (), ScalarCodec(np.float32), False)
+           for i in range(8)]
+        + [UnischemaField(f"emb{j}", np.float32, (64,), NdarrayCodec(), False) for j in range(2)])
+    rng = np.random.default_rng(0)
+    with materialize_dataset_local(url, schema, rows_per_row_group=PH21_DECODE_GROUP) as w:
+        for start in range(0, PH21_DECODE_ROWS, PH21_DECODE_GROUP):
+            n = min(PH21_DECODE_GROUP, PH21_DECODE_ROWS - start)
+            f = rng.standard_normal((n, 8)).astype(np.float32)
+            e = rng.standard_normal((n, 2, 64)).astype(np.float32)
+            w.write_rows([{"id": start + i, **{f"f{k}": f[i, k] for k in range(8)},
+                           "emb0": e[i, 0], "emb1": e[i, 1]} for i in range(n)])
+
+
+def _decode_turn(url: str, per_cell: bool) -> tuple:
+    """One read of (d)'s store: rows/s from the call, and the embeddings
+    stacked in id order. ``per_cell`` swaps the batch decode for one
+    ``np.load`` a cell (the decode before the fast paths)."""
+    import io as io_module
+    from petastorm_tpu_torch import codecs as codecs_module
+    from petastorm_tpu_torch.utils import decode as decode_module
+    saved = decode_module.batch_decode_ndarrays, codecs_module.NdarrayCodec.decode
+    if per_cell:
+        decode_module.batch_decode_ndarrays = lambda *args: None
+        codecs_module.NdarrayCodec.decode = \
+            lambda self, field, encoded: np.load(io_module.BytesIO(encoded), allow_pickle=False)
+    try:
+        t0 = time.perf_counter()
+        with make_reader(url, workers_count=PH21_DECODE_WORKERS, shuffle_row_groups=False,
+                         schema_fields=["id", "emb0", "emb1"]) as reader:
+            rows = [(r.id, r.emb0, r.emb1) for r in reader]
+        wall = time.perf_counter() - t0
+    finally:
+        decode_module.batch_decode_ndarrays, codecs_module.NdarrayCodec.decode = saved
+    rows.sort(key=lambda r: r[0])
+    return len(rows) / wall, np.stack([r[1] for r in rows]), np.stack([r[2] for r in rows])
+
+
+def phase_telemetry(smi: str, slice_url: str, converter_url: str, tmp: str) -> dict:
+    from petastorm_tpu_torch.benchmark.throughput import training_input_stall
+    failures = []
+    side = vit.VIT_B16["image_size"]
+    converter = SparkDatasetConverter(converter_url, CONV_ROWS)
+    kernels.reset_launch_counts()
+
+    # (a) Where the ViT-B/16 input wait goes.
+    free_cuda()
+    params = vit.init_params(torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                             **vit.VIT_B16)
+    step = vit.make_train_step(VIT_LR, patch=vit.VIT_B16["patch"], heads=vit.VIT_B16["heads"])
+    stepped = []
+
+    def vit_step(batch):
+        nonlocal params
+        pixels = batch["image"].view(-1, side, side, 3)
+        images = normalize_images(pixels)
+        check_close(images, normalize_images_plain(pixels), f"(a) batch {len(stepped)}")
+        params, loss, _ = step(params, {"image": images, "label": batch["label"]})
+        stepped.append(loss)
+        return loss
+
+    with _telemetry_env("spans"):
+        loader = converter.make_device_loader(batch_size=VIT_BATCH, num_epochs=None,
+                                              workers_count=VIT_WORKERS, shuffle_row_groups=True,
+                                              seed=0)
+    with loader:
+        spans_on = loader.telemetry.recorder.enabled
+        it = _StampedIterator(iter(loader))
+        tis = training_input_stall(loader, vit_step, steps=PH21_STEPS, it=it)
+        next(it)   # the closing delivery: it records the last step's busy time
+        wall = it.stamps[-1] - it.stamps[0]
+        delivered = len(it.stamps) - 1
+        stall, breakdown = loader.stall_report(), loader.stage_breakdown()
+        critical = loader.critical_path_report()
+        snap = loader.telemetry.snapshot()
+        staged = loader.metrics.batches
+        # Then phase 20's regime: pipelined steps, one sync at the end.
+        _, _, pipe_wait, pipe_wall, _ = pipelined_window(
+            vit_step, lambda: next(it), VIT_PIPELINED, 0, stepped[-1])
+        next(it)
+        pipe = {"stall": loader.stall_report(), "breakdown": loader.stage_breakdown(),
+                "critical": loader.critical_path_report()["counts"],
+                "staged": loader.metrics.batches - staged}
+        it._inner.close()
+    accounted = stall["delivery_wait_s"] + stall["consumer_busy_s"]
+    losses = [v.item() for v in stepped]
+    log(f"[telemetry] (a) ({smi}) converter -> K1 -> ViT-B/16, batch {VIT_BATCH}, spans "
+        f"{'on' if spans_on else 'OFF'}: {delivered} batches after the first in {wall:.3f} s; "
+        f"stall_report: steps {stall['steps']}, input_stall_pct {stall['input_stall_pct']:.2f} "
+        f"(training_input_stall over the same steps: {tis['input_stall_percent']:.2f}; its wait "
+        f"{1e3 * tis['wait_s'] / tis['steps']:.2f} ms a step against the gauge's "
+        f"{1e3 * stall['delivery_wait_s'] / stall['steps']:.2f}), "
+        f"verdict {stall['verdict']} {stall['counts']}, delivery wait {stall['delivery_wait_s']:.4f} "
+        f"+ consumer busy {stall['consumer_busy_s']:.4f} = {accounted:.4f} s against the loop's "
+        f"{wall:.4f} s; host side {stall['host_side']}")
+    log(f"[telemetry] (a) stage_breakdown, ms a staged batch ({staged} staged): "
+        f"{_per_batch_ms(breakdown, staged)}; critical path {critical['counts']} "
+        f"(dominant {critical['dominant']}); reader.pool_wait_s p50/p99 "
+        f"{snap['histograms']['reader.pool_wait_s']['p50']:.4f}/"
+        f"{snap['histograms']['reader.pool_wait_s']['p99']:.4f} s, worker.decode_s p50 "
+        f"{snap['histograms']['worker.decode_s']['p50']:.4f} s over "
+        f"{snap['histograms']['worker.decode_s']['count']} groups; spans "
+        f"{ {k: (v['count'], round(v['total_s'], 4)) for k, v in snap['spans'].items()} }; "
+        f"losses {[round(v, 4) for v in losses]}")
+    delta = {k: pipe["stall"][k] - stall[k]
+             for k in ("steps", "delivery_wait_s", "consumer_busy_s")}
+    log(f"[telemetry] (a) {VIT_PIPELINED} pipelined steps (phase 20's regime): "
+        f"pipelined_window's wait {1e3 * pipe_wait / VIT_PIPELINED:.2f} ms a step, stall "
+        f"{100 * pipe_wait / pipe_wall:.2f} % of {pipe_wall:.3f} s; the gauge over the same "
+        f"{delta['steps']} deliveries: wait {1e3 * delta['delivery_wait_s'] / VIT_PIPELINED:.2f} "
+        f"ms a step, input stall {100 * delta['delivery_wait_s'] / max(1e-9, delta['delivery_wait_s'] + delta['consumer_busy_s']):.2f} %; "
+        f"stage_breakdown over its {pipe['staged']} staged batches, ms a batch: "
+        + _per_batch_ms({k: pipe["breakdown"][k] - breakdown[k] for k in breakdown},
+                        pipe["staged"])
+        + f"; critical path {pipe['critical']}")
+    if not spans_on:
+        failures.append("(a) spans were not on")
+    if stall["steps"] != delivered:
+        failures.append(f"(a) stall steps {stall['steps']} for {delivered} batches delivered")
+    if abs(accounted - wall) > PH21_WALL_REL_BAR * wall:
+        failures.append(f"(a) wait + busy {accounted:.4f} s against the loop's {wall:.4f} s")
+    if set(breakdown) != JAX_STAGE_KEYS:
+        failures.append(f"(a) stage_breakdown keys {sorted(breakdown)}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"(a) non-finite loss {losses}")
+    del params, stepped
+    free_cuda()
+
+    # (b) The image path on processes in trace mode, and the zero-copy leg.
+    params = resnet.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                IMAGENET_CLASSES, device="cuda")
+    init_opt, raw_step = resnet.make_train_step(learning_rate=0.05)
+    opt = init_opt(params)
+    trace_path = os.path.join(tmp, "image_trace.json")
+    losses, batches = [], 0
+    with _telemetry_env("trace"):
+        reader = make_reader(slice_url, reader_pool_type="process", workers_count=WORKERS,
+                             seed=0)
+    with DataLoader(reader, batch_size=BATCH, device="cuda") as loader:
+        for batch in loader:
+            images = normalize_images(batch["image"])
+            check_close(images, normalize_images_plain(batch["image"]), f"(b) batch {batches}")
+            params, opt, loss, _ = raw_step(params, opt, {
+                "image": images, "label": batch["id"] % IMAGENET_CLASSES})
+            losses.append(loss.item())
+            batches += 1
+        spans = [sp.as_dict() for sp in reader.telemetry.recorder.spans()]
+        exported = loader.export_trace(trace_path)
+        groups = reader.diagnostics["items_processed"]
+        worker_pids = set(reader.pool.worker_pids)
+    with open(trace_path) as f:
+        trace = json.load(f)
+    by_name = collections.Counter(e["name"] for e in trace["traceEvents"] if e["ph"] in "Xi")
+    decode = [sp for sp in spans if sp["name"] == "petastorm_tpu.worker_decode"]
+    lineages = {sp["trace"] for sp in decode}
+    log(f"[telemetry] (b) ({smi}) phase 4's store on {WORKERS} processes, trace mode -> "
+        f"DataLoader({BATCH}) -> K1 -> ResNet-50: {batches} batches, losses "
+        f"{[round(v, 4) for v in losses]}; {len(decode)} worker decode spans from "
+        f"{len({sp['pid'] for sp in decode})} worker pids for {groups} row groups, "
+        f"{len(lineages)} lineages; export_trace wrote {exported} spans to a Chrome trace of "
+        f"{len(trace['traceEvents'])} events, by name {dict(by_name)}")
+    if batches != ROWS // BATCH or not all(np.isfinite(losses)):
+        failures.append(f"(b) {batches} batches, losses {losses}")
+    if len(decode) != groups or not {sp["pid"] for sp in decode} <= worker_pids:
+        failures.append(f"(b) {len(decode)} decode spans for {groups} groups, pids "
+                        f"{ {sp['pid'] for sp in decode} } against workers {worker_pids}")
+    if len(lineages) != groups:
+        failures.append(f"(b) {len(lineages)} lineages for {groups} groups")
+    for name in ("petastorm_tpu.worker_decode", "petastorm_tpu.host_batch",
+                 "petastorm_tpu.stage"):
+        if not by_name.get(name):
+            failures.append(f"(b) the Chrome trace has no {name} span")
+    if exported != len(spans):
+        failures.append(f"(b) exported {exported} spans of {len(spans)}")
+    del params, opt, init_opt, raw_step
+    free_cuda()
+
+    with _telemetry_env("trace"):
+        reader = make_batch_reader(converter_url, reader_pool_type="process",
+                                   workers_count=PH21_BATCH_WORKERS, shuffle_row_groups=False)
+    zc_batches = 0
+    with BatchedDataLoader(reader, batch_size=VIT_BATCH, device="cuda") as loader:
+        for batch in loader:
+            pixels = batch["image"].view(-1, side, side, 3)
+            check_close(normalize_images(pixels), normalize_images_plain(pixels),
+                        f"(b) converter batch {zc_batches}")
+            zc_batches += 1
+        counters = reader.telemetry.snapshot()["counters"]
+        items = reader.diagnostics["items_processed"]
+        pool_counters = dict(reader.counters)
+        decode_spans = sum(sp.name == "petastorm_tpu.worker_decode"
+                           for sp in reader.telemetry.recorder.spans())
+    log(f"[telemetry] (b) phase 20's store on {PH21_BATCH_WORKERS} processes -> "
+        f"BatchedDataLoader({VIT_BATCH}) -> K1: {zc_batches} batches, {items} ring records "
+        f"(row groups) delivered, transport.zero_copy_batches "
+        f"{counters.get('transport.zero_copy_batches')}, zero_copy_bytes "
+        f"{counters.get('transport.zero_copy_bytes')} (the pool's {pool_counters}), "
+        f"transport.deserialize_s {counters.get('transport.deserialize_s', 0):.4f}, "
+        f"{decode_spans} worker decode spans")
+    if counters.get("transport.zero_copy_batches") != items or items != CONV_ROWS // \
+            CONV_ROWS_PER_GROUP:
+        failures.append(f"(b) zero-copy batches {counters.get('transport.zero_copy_batches')} "
+                        f"for {items} ring records")
+    if counters.get("transport.zero_copy_bytes") != pool_counters.get("zero_copy_bytes") \
+            or decode_spans != items:
+        failures.append(f"(b) zero-copy bytes {counters.get('transport.zero_copy_bytes')}, "
+                        f"pool {pool_counters}, {decode_spans} decode spans")
+    free_cuda()
+
+    # (c) The converter loader alone, spans off / on / trace mode, in turns.
+    rates = collections.defaultdict(list)
+    for turn in range(PH21_OVH_TURNS + 1):
+        # The first turn (spans off) warms the host and is not counted.
+        for mode in (("off", "spans", "trace") if turn else ("warm-up",)):
+            with _telemetry_env("off" if mode == "warm-up" else mode):
+                loader = converter.make_device_loader(
+                    batch_size=VIT_BATCH, num_epochs=None, workers_count=VIT_WORKERS,
+                    shuffle_row_groups=True, seed=0)
+            with loader:
+                it = iter(loader)
+                next(it)
+                t0 = time.perf_counter()
+                for _ in range(PH21_OVH_BATCHES):
+                    next(it)
+                torch.cuda.synchronize()
+                rates[mode].append(PH21_OVH_BATCHES * VIT_BATCH / (time.perf_counter() - t0))
+                it.close()
+    log(f"[telemetry] (c) ({smi}) the converter loader alone, {PH21_OVH_BATCHES} batches of "
+        f"{VIT_BATCH} after the first, samples/s by turn: "
+        + "; ".join(f"{m} {[round(r, 1) for r in v]}" for m, v in rates.items()
+                    if m != "warm-up")
+        + " (no speed bar)")
+
+    # (d) The NdarrayCodec batch decode against per-cell np.load.
+    decode_url = f"file://{tmp}/tensor50k_cells"
+    t0 = time.perf_counter()
+    _decode_store(decode_url)
+    log(f"[telemetry] (d) wrote {PH21_DECODE_ROWS} rows of the tensor_50k schema with "
+        f"NdarrayCodec embeddings in {time.perf_counter() - t0:.2f} s")
+    decoded = {}
+    rows_per_s = collections.defaultdict(list)
+    for _ in range(PH21_DECODE_TURNS):
+        for mode in ("batch", "np.load"):
+            rate, emb0, emb1 = _decode_turn(decode_url, per_cell=mode == "np.load")
+            rows_per_s[mode].append(rate)
+            if mode in decoded:
+                same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                           for a, b in zip(decoded[mode], (emb0, emb1)))
+                if not same:
+                    failures.append(f"(d) {mode}: two reads differ")
+            decoded[mode] = (emb0, emb1)
+    equal = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                for a, b in zip(decoded["batch"], decoded["np.load"]))
+    log(f"[telemetry] (d) ({smi}) make_reader on {PH21_DECODE_WORKERS} threads, rows/s by turn: "
+        + "; ".join(f"{m} {[round(r, 1) for r in v]}" for m, v in rows_per_s.items())
+        + f"; the two decodes bit-equal: {equal} ({decoded['batch'][0].shape} x 2)")
+    if not equal or decoded["batch"][0].shape != (PH21_DECODE_ROWS, 64):
+        failures.append(f"(d) decodes bit-equal {equal}, shape {decoded['batch'][0].shape}")
+    launches = dict(kernels.launch_counts)
+    expect = PH21_STEPS + 1 + VIT_PIPELINED + ROWS // BATCH + CONV_ROWS // VIT_BATCH
+    if launches != {KERNEL_NAME: expect}:
+        failures.append(f"launches {launches}, expected {KERNEL_NAME}: {expect}")
+    log(f"[telemetry] launches {launches}")
+    if failures:
+        raise AssertionError("telemetry phase: " + "; ".join(failures))
+    return {KERNEL_NAME: launches.get(KERNEL_NAME, 0)}
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """``t`` seen as integers of its width, so that equality is bit equality."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -5515,6 +5870,11 @@ def main() -> int:
         free_cuda()
         with tempfile.TemporaryDirectory() as tmp:
             conv = timed("20 converter + vit", phase_converter_vit, smi, tmp)
+            free_cuda()
+            # Phase 21 reads phase 4's store and phase 20's converter store.
+            tele = timed("21 telemetry", phase_telemetry, smi,
+                         f"file://{slice_tmp}/imagenet_like", f"file://{tmp}/converter_cache",
+                         tmp)
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
@@ -5530,7 +5890,7 @@ def main() -> int:
         "replaces": "petastorm_tpu/ops/image_ops.py:27",
         "launches": (launches + proc["normalize"] + resume.get(KERNEL_NAME, 0)
                      + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]
-                     + lazy[KERNEL_NAME] + conv[KERNEL_NAME]),
+                     + lazy[KERNEL_NAME] + conv[KERNEL_NAME] + tele[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

@@ -22,7 +22,7 @@ from petastorm_tpu_torch.errors import SchemaError
 __all__ = [
     "DataframeColumnCodec", "ScalarCodec", "NdarrayCodec",
     "CompressedNdarrayCodec", "CompressedImageCodec",
-    "codec_to_dict", "codec_from_dict",
+    "codec_to_dict", "codec_from_dict", "register_codec", "npy_header_meta",
 ]
 
 
@@ -181,6 +181,102 @@ class ScalarCodec(DataframeColumnCodec):
         return f"ScalarCodec({self.storage_dtype!r})" if self.storage_dtype is not None else "ScalarCodec()"
 
 
+# Parsed ``.npy`` headers: every cell of a field shares its header bytes, so
+# the literal_eval parse happens once, not once a row.
+_NPY_HEADER_CACHE: dict = {}
+
+
+def npy_header_meta(encoded):
+    """``(dtype, fortran_order, shape, data_offset)`` of one ``.npy`` cell
+    (bytes or a memoryview), or None when it is not a well-formed npy
+    stream. The per-cell and the whole-column decodes
+    (:func:`petastorm_tpu_torch.utils.decode.batch_decode_ndarrays`) parse
+    through it."""
+    import ast
+    if isinstance(encoded, memoryview) and encoded.format != "B":
+        # Arrow buffers' memoryviews are signed: compare as unsigned bytes.
+        encoded = encoded.cast("B")
+    if len(encoded) < 10 or encoded[:6] != b"\x93NUMPY":
+        return None
+    if encoded[6] == 1:
+        hlen, off = int.from_bytes(encoded[8:10], "little"), 10
+    else:
+        hlen, off = int.from_bytes(encoded[8:12], "little"), 12
+    header = bytes(encoded[off:off + hlen])
+    meta = _NPY_HEADER_CACHE.get(header)
+    if meta is None:
+        d = ast.literal_eval(header.decode("latin1"))
+        meta = (np.dtype(d["descr"]), d["fortran_order"], tuple(d["shape"]))
+        if len(_NPY_HEADER_CACHE) < 4096:
+            _NPY_HEADER_CACHE[header] = meta
+    dtype, fortran, shape = meta
+    return dtype, fortran, shape, off + hlen
+
+
+def _fast_npy_decode(encoded):
+    """``.npy`` bytes decoded through the cached header and one copy; None
+    where ``np.load`` must decode (Fortran order, object dtype, a header it
+    does not parse), as in the JAX package."""
+    meta = npy_header_meta(encoded)
+    if meta is None:
+        return None
+    dtype, fortran, shape, data_off = meta
+    if fortran or dtype.hasobject:
+        return None
+    count = 1
+    for dim in shape:
+        count *= dim
+    # A view of the source bytes, copied so the caller may write into it.
+    return np.frombuffer(encoded, dtype=dtype, offset=data_off, count=count).reshape(shape).copy()
+
+
+def _fast_npz_decode(encoded):
+    """The single ``arr.npy`` member of an ``np.savez_compressed`` cell,
+    without the zipfile machinery: the zip local header parsed, the deflate
+    stream inflated, the member's CRC-32 checked, then
+    :func:`_fast_npy_decode`. None for any other layout (another member
+    name, a stored or encrypted entry) or a corrupt or truncated stream,
+    which ``np.load`` decodes or reports itself."""
+    import struct
+    import zlib
+    mv = memoryview(encoded)
+    if mv.format != "B":
+        mv = mv.cast("B")
+    if len(mv) < 30 or mv[:4] != b"PK\x03\x04":
+        return None
+    (_, _, flags, method, _, _, header_crc, _, _, nlen, elen) = \
+        struct.unpack_from("<IHHHHHIIIHH", mv, 0)
+    if flags & 0x1 or method != 8:
+        return None
+    name_end = 30 + nlen
+    if bytes(mv[30:name_end]) != b"arr.npy":
+        return None
+    d = zlib.decompressobj(-15)
+    try:
+        npy = d.decompress(mv[name_end + elen:])
+    except zlib.error:
+        return None
+    if not d.eof:
+        return None
+    # With flag bit 3 the CRC follows the stream (in an optionally signed
+    # data descriptor), else it is in the local header.
+    if flags & 0x8:
+        tail = d.unused_data
+        if tail[:4] == b"PK\x07\x08":
+            tail = tail[4:]
+        if len(tail) < 4:
+            return None
+        expected_crc = int.from_bytes(tail[:4], "little")
+    else:
+        expected_crc = header_crc
+    if zlib.crc32(npy) != expected_crc:
+        return None
+    fast = _fast_npy_decode(npy)
+    if fast is not None:
+        return fast
+    return np.load(io.BytesIO(npy), allow_pickle=False)
+
+
 class NdarrayCodec(DataframeColumnCodec):
     """Stores an ndarray as uncompressed ``.npy`` bytes."""
 
@@ -193,6 +289,9 @@ class NdarrayCodec(DataframeColumnCodec):
         return buf.getvalue()
 
     def decode(self, unischema_field, encoded):
+        fast = _fast_npy_decode(encoded)
+        if fast is not None:
+            return fast
         return np.load(io.BytesIO(encoded), allow_pickle=False)
 
     def arrow_type(self, unischema_field):
@@ -216,6 +315,9 @@ class CompressedNdarrayCodec(NdarrayCodec):
         return buf.getvalue()
 
     def decode(self, unischema_field, encoded):
+        fast = _fast_npz_decode(encoded)
+        if fast is not None:
+            return fast
         with np.load(io.BytesIO(encoded), allow_pickle=False) as z:
             return z["arr"]
 
@@ -407,6 +509,14 @@ _CODEC_REGISTRY = {
 }
 
 
+def register_codec(cls):
+    """Register a user codec class (a :class:`DataframeColumnCodec` with
+    ``to_dict``/``from_dict``) by its class name, so stores that name it in
+    their metadata read back. Returns ``cls`` (usable as a decorator)."""
+    _CODEC_REGISTRY[cls.__name__] = cls
+    return cls
+
+
 def codec_to_dict(codec) -> dict | None:
     if codec is None:
         return None
@@ -418,5 +528,5 @@ def codec_from_dict(doc) -> DataframeColumnCodec | None:
         return None
     name = doc["type"]
     if name not in _CODEC_REGISTRY:
-        raise ValueError(f"Unknown codec type {name!r}")
+        raise ValueError(f"Unknown codec type {name!r}; register it with register_codec().")
     return _CODEC_REGISTRY[name].from_dict(doc)

@@ -61,10 +61,13 @@ def is_data_file(path: str) -> bool:
 
 class DatasetContext:
     """Resolved handle on one dataset root: filesystem, root path, and
-    lazily read metadata key-values."""
+    lazily read metadata key-values. ``storage_options`` and ``filesystem``
+    go to :class:`~petastorm_tpu_torch.fs_utils.FilesystemResolver`."""
 
-    def __init__(self, dataset_url: str):
-        self.filesystem, self.root_path = get_filesystem_and_path_or_paths(dataset_url)
+    def __init__(self, dataset_url: str, storage_options: Optional[dict] = None,
+                 filesystem=None):
+        self.filesystem, self.root_path = get_filesystem_and_path_or_paths(
+            dataset_url, storage_options=storage_options, filesystem=filesystem)
         self._file_paths: Optional[List[str]] = None
         self._kv_metadata: Optional[Dict[bytes, bytes]] = None
         self._arrow_schema = None
@@ -178,9 +181,11 @@ def infer_or_load_unischema(ctx: DatasetContext) -> Unischema:
         return Unischema.from_arrow_schema(ctx.arrow_schema(), omit_unsupported_fields=True)
 
 
-def get_schema_from_dataset_url(dataset_url: str) -> Unischema:
+def get_schema_from_dataset_url(dataset_url: str, storage_options: Optional[dict] = None,
+                                filesystem=None) -> Unischema:
     """The Unischema stored in the metadata of the store at ``dataset_url``."""
-    return get_schema(DatasetContext(dataset_url))
+    return get_schema(DatasetContext(dataset_url, storage_options=storage_options,
+                                     filesystem=filesystem))
 
 
 def _context(ctx_or_url) -> DatasetContext:

@@ -33,6 +33,8 @@ class DatasetWriter:
         distinct combination of their values gets its own
         ``col=value/...`` directory; the columns stay in the files too
     :param compression: parquet codec ('snappy', 'zstd', 'gzip', 'none')
+    :param filesystem: a filesystem to write through as it is
+    :param storage_options: keyword arguments of the URL's fsspec filesystem
     """
 
     def __init__(self, dataset_url: str, schema: Unischema,
@@ -40,10 +42,12 @@ class DatasetWriter:
                  rows_per_row_group: Optional[int] = None,
                  rows_per_file: Optional[int] = None,
                  partition_by: Optional[Sequence[str]] = None,
-                 compression: str = "snappy"):
+                 compression: str = "snappy",
+                 filesystem=None, storage_options: Optional[dict] = None):
         self._schema = schema
         self._arrow_schema = schema.as_arrow_schema()
-        self._ctx = DatasetContext(dataset_url)
+        self._ctx = DatasetContext(dataset_url, storage_options=storage_options,
+                                   filesystem=filesystem)
         self._fs, self._root = self._ctx.filesystem, self._ctx.root_path
         self._row_group_bytes = row_group_size_mb * (1 << 20)
         self._rows_per_rg = rows_per_row_group

@@ -8,7 +8,7 @@ this package does not have yet, and is refused.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 from urllib.parse import urlparse
 
 
@@ -34,17 +34,25 @@ def normalize_dataset_url_or_urls(url_or_urls):
 
 
 class FilesystemResolver:
-    """Resolves a dataset URL into an fsspec filesystem (default options)
-    plus a bare path.
+    """Resolves a dataset URL into an fsspec filesystem plus a bare path.
 
     :param dataset_url: e.g. ``file:///tmp/ds``, ``s3://bucket/ds``,
         ``memory://ds``
+    :param storage_options: keyword arguments of the fsspec filesystem
+        (credentials, endpoints, ...); the local filesystem takes none
+    :param filesystem: a filesystem to use as it is (no resolution)
     """
 
-    def __init__(self, dataset_url: str):
+    def __init__(self, dataset_url: str, storage_options: Optional[dict] = None,
+                 filesystem=None):
         self._dataset_url = normalize_dir_url(dataset_url)
         self._parsed = urlparse(self._dataset_url)
         scheme = self._parsed.scheme
+        if filesystem is not None:
+            self._filesystem = filesystem
+            self._path = (self._parsed.path if scheme in ("file", "")
+                          else self._parsed.netloc + self._parsed.path)
+            return
         import fsspec
         if scheme == "file":
             self._filesystem = fsspec.filesystem("file")
@@ -53,7 +61,8 @@ class FilesystemResolver:
             raise ValueError(f"{self._dataset_url}: hdfs:// stores are not supported by "
                              f"petastorm_tpu_torch yet")
         else:
-            self._filesystem, self._path = fsspec.core.url_to_fs(self._dataset_url)
+            self._filesystem, self._path = fsspec.core.url_to_fs(self._dataset_url,
+                                                                 **(storage_options or {}))
 
     def filesystem(self):
         return self._filesystem
@@ -67,13 +76,16 @@ class FilesystemResolver:
 
 
 def get_filesystem_and_path_or_paths(
-        url_or_urls: Union[str, Sequence[str]]) -> Tuple[object, Union[str, list]]:
+        url_or_urls: Union[str, Sequence[str]], storage_options: Optional[dict] = None,
+        filesystem=None) -> Tuple[object, Union[str, list]]:
     """One URL, or a list of URLs that share their scheme and netloc (they
-    are read through one filesystem), -> (filesystem, path or paths)."""
+    are read through one filesystem), -> (filesystem, path or paths);
+    ``storage_options`` and ``filesystem`` as :class:`FilesystemResolver`."""
     urls = normalize_dataset_url_or_urls(url_or_urls)
     url_list = urls if isinstance(urls, list) else [urls]
     if len({urlparse(u)[:2] for u in url_list}) != 1:
         raise ValueError(f"All dataset URLs must share scheme and netloc, got {url_list}")
-    fs = FilesystemResolver(url_list[0]).filesystem()
+    fs = FilesystemResolver(url_list[0], storage_options=storage_options,
+                            filesystem=filesystem).filesystem()
     paths = [fs._strip_protocol(u) for u in url_list]
     return fs, (paths if isinstance(urls, list) else paths[0])

@@ -70,6 +70,14 @@ class BatchedNoopShufflingBuffer:
             return self._size > 0
         return self._size >= self._batch_size
 
+    @property
+    def size(self) -> int:
+        return self._size
+
+    @property
+    def capacity(self) -> int:
+        return 2 * self._batch_size
+
 
 class BatchedRandomShufflingBuffer:
     """Uniform random batches drawn from a column store.
@@ -140,3 +148,11 @@ class BatchedRandomShufflingBuffer:
         if self._done:
             return self._size > 0
         return self._size >= max(self._min_after + self._batch_size, self._batch_size)
+
+    @property
+    def size(self) -> int:
+        return self._size
+
+    @property
+    def capacity(self) -> int:
+        return self._capacity

@@ -56,9 +56,18 @@ travels with that batch through the queue. It is whatever the reader's
 ``shuffle_window``), or a ``WeightedSamplingReader``'s members' cursors with
 its ``seed`` and ``step``. Loaders with a host-side shuffling buffer
 refuse: no reader cursor describes the rows such a buffer holds (a
-deterministic reader's ``shuffle_window`` mixes with an exact resume). ``loader.metrics`` (:class:`~petastorm_tpu_torch.metrics.PipelineMetrics`)
-counts the staged batches, and the spans ``petastorm_tpu.host_batch`` and
-``petastorm_tpu.stage`` name the two halves of staging in a profiler trace.
+deterministic reader's ``shuffle_window`` mixes with an exact resume).
+
+Telemetry: a loader over a reader adopts the reader's registry
+(``loader.telemetry``, :mod:`petastorm_tpu_torch.telemetry`), so one
+snapshot holds the workers' decode, the pool wait, the shuffle, the staging
+and the consumer's wait. ``loader.metrics``
+(:class:`~petastorm_tpu_torch.metrics.PipelineMetrics`) counts the staged
+batches; the spans ``petastorm_tpu.host_batch`` and ``petastorm_tpu.stage``
+name the two halves of staging in a profiler trace and in the registry.
+:meth:`LoaderBase.stall_report`, :meth:`~LoaderBase.stage_breakdown`,
+:meth:`~LoaderBase.critical_path_report` and :meth:`~LoaderBase.export_trace`
+read them, as the JAX package's loaders do.
 """
 from __future__ import annotations
 
@@ -76,6 +85,8 @@ from petastorm_tpu_torch.loader.batched_buffer import (BatchedNoopShufflingBuffe
 from petastorm_tpu_torch.loader.dtypes import (DEFAULT_POLICY, DTypePolicy, sanitize_array,
                                                sanitize_batch)
 from petastorm_tpu_torch.metrics import PipelineMetrics, traced_span
+from petastorm_tpu_torch.telemetry import (CriticalPathAttributor, StallAttributor,
+                                           make_registry, write_chrome_trace)
 from petastorm_tpu_torch.reader_impl.batch_plane import concat_column_slices
 from petastorm_tpu_torch.reader_impl.shuffling_buffer import (BatchShufflingBuffer,
                                                               RandomShufflingBuffer)
@@ -269,12 +280,16 @@ class LoaderBase:
         ``make_array_from_process_local_data`` would (another type, an
         axis the mesh lacks, a split of a dimension other than the batch's,
         a column with fewer dimensions than the spec names)
+    :param telemetry: the pipeline's
+        :class:`~petastorm_tpu_torch.telemetry.TelemetryRegistry`; the
+        loaders over a reader default to the reader's (``reader.telemetry``),
+        others get a new one (:func:`~petastorm_tpu_torch.telemetry.make_registry`)
     """
 
     def __init__(self, batch_size: int, drop_last: bool = True, pad_last: bool = False,
                  prefetch: int = 2, device="cuda", echo: int = 1,
                  dtype_policy: DTypePolicy = DEFAULT_POLICY,
-                 steps_per_epoch: Optional[int] = None, sharding=None):
+                 steps_per_epoch: Optional[int] = None, sharding=None, telemetry=None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if echo < 1:
@@ -298,8 +313,21 @@ class LoaderBase:
         # Per-column sticky conversion of object columns: "drop" or
         # (kind, row_shape, dtype).
         self._object_column_mode: Dict[str, object] = {}
+        #: The pipeline's registry: a reader's, when the loader reads one, so
+        #: decode, pool wait, shuffle, staging and stall land in one snapshot.
+        self.telemetry = telemetry if telemetry is not None else make_registry()
         #: Counts and seconds of the staged batches.
-        self.metrics = PipelineMetrics()
+        self.metrics = PipelineMetrics(telemetry=self.telemetry)
+        #: Per delivered batch: host-bound, device-bound or balanced
+        #: (:meth:`stall_report`).
+        self.stall = StallAttributor(registry=self.telemetry)
+        #: Per delivered batch: the stage that accrued the most self-time
+        #: (:meth:`critical_path_report`).
+        self.critical_path = CriticalPathAttributor(self.telemetry)
+        self._shuffle_time = self.telemetry.counter("loader.shuffle_s")
+        # The registry is pipeline-cumulative: a second loader over the same
+        # reader must not count the first one's shuffle seconds.
+        self._shuffle_base = self._shuffle_time.value
         # Why state_dict() would lose rows with this configuration, or None.
         self._ckpt_hazard: Optional[str] = None
         # A cursor taken where the loader buffered no rows, for loaders that
@@ -436,12 +464,20 @@ class LoaderBase:
     # -------------------------------------------------------------- staging
     def _prefetched(self, host_batches):
         """Collate and stage on a background thread, ``prefetch`` batches
-        ahead; deliver on the consumer's thread and stream."""
+        ahead; deliver on the consumer's thread and stream. Each delivered
+        batch but the first (the pipeline's spin-up) feeds the stall
+        attributor: the wait in the queue against the time the consumer
+        spent away from it; each feeds the critical-path attributor."""
         q: queue.Queue = queue.Queue(maxsize=self._prefetch)
         stop = threading.Event()
         self._stage_stop = stop
         end, err = object(), object()
         cuda = self._device.type == "cuda"
+        telemetry = self.telemetry
+        # One bound method, so the teardown below clears exactly this one.
+        depth_fn = q.qsize
+        telemetry.gauge("loader.prefetch_queue_depth", depth_fn)
+        telemetry.gauge("loader.prefetch_queue_capacity").set(self._prefetch)
 
         def put(item) -> bool:
             while not stop.is_set():
@@ -457,9 +493,13 @@ class LoaderBase:
                 if cuda:
                     torch.cuda.set_device(self._device)
                     stager = _PinnedStager(self._device, self._prefetch + 1)
+                batch_seq = 0
                 while not stop.is_set():
+                    batch_seq += 1
+                    batch_trace = f"b{batch_seq}"
                     t0 = time.perf_counter()
-                    with traced_span("petastorm_tpu.host_batch"):
+                    with traced_span("petastorm_tpu.host_batch", telemetry, trace=batch_trace,
+                                     track="stager"):
                         hb = next(host_batches, None)
                     if hb is None:
                         return
@@ -467,7 +507,8 @@ class LoaderBase:
                     # assembled so far, so it travels with this batch.
                     snap = self._snapshot_input_state()
                     t1 = time.perf_counter()
-                    with traced_span("petastorm_tpu.stage"):
+                    with traced_span("petastorm_tpu.stage", telemetry, trace=batch_trace,
+                                     stage="stage", track="stager"):
                         cols, host_cols = self._split_batch(hb)
                         _check_sharded_columns(self._sharding, cols)
                         if cuda:
@@ -496,14 +537,19 @@ class LoaderBase:
         thread = threading.Thread(target=produce, daemon=True, name="petastorm-torch-stage")
         thread.start()
         try:
+            last_resume = None
             while True:
-                try:
-                    kind, item, event, snap = q.get(timeout=_STAGE_POLL_S)
-                except queue.Empty:
-                    if thread.is_alive() or not q.empty():
-                        continue
-                    raise RuntimeError("Loader staging thread died without delivering "
-                                       "a batch, an error or end-of-stream") from None
+                t0 = time.perf_counter()
+                while True:   # one wait, however many polls it takes
+                    try:
+                        kind, item, event, snap = q.get(timeout=_STAGE_POLL_S)
+                        break
+                    except queue.Empty:
+                        if thread.is_alive() or not q.empty():
+                            continue
+                        raise RuntimeError("Loader staging thread died without delivering "
+                                           "a batch, an error or end-of-stream") from None
+                t1 = time.perf_counter()
                 if kind is end:
                     return
                 if kind is err:
@@ -514,7 +560,13 @@ class LoaderBase:
                     for v in item.values():
                         if isinstance(v, torch.Tensor):
                             v.record_stream(consumer)
+                if last_resume is not None:
+                    self.stall.observe(wait_s=t1 - t0, busy_s=t0 - last_resume)
+                self.critical_path.observe_batch()
                 self._last_input_state = snap
+                # Taken before the yield: the consumer's step runs while this
+                # generator is suspended, so the next t0 - last_resume is it.
+                last_resume = time.perf_counter()
                 yield item
                 for _ in range(self._echo - 1):
                     yield {k: v.clone() if isinstance(v, torch.Tensor) else v
@@ -522,6 +574,9 @@ class LoaderBase:
         finally:
             stop.set()
             self._stage_stop = None
+            # The registry outlives this pass: a gauge left on the queue's
+            # bound method would keep its staged batches alive.
+            telemetry.gauge("loader.prefetch_queue_depth").clear_function(depth_fn)
             thread.join(5.0)
 
     def _split_batch(self, host_batch: dict):
@@ -602,6 +657,85 @@ class LoaderBase:
         finally:
             self._in_iter = False
 
+    # ------------------------------------------------------------ telemetry
+    def stall_report(self) -> dict:
+        """Stall attribution of this loader's delivered batches: counts and
+        fractions of host-bound, device-bound and balanced steps, the
+        delivery wait against the consumer's busy time, and the host side's
+        ``host_wait_s`` (production) against ``stage_s`` (staging)."""
+        return self.stall.report(self.metrics)
+
+    def critical_path_report(self) -> dict:
+        """Per delivered batch, the stage (``fetch``, ``decode``,
+        ``transport``, ``shuffle``, ``stage``, ``assemble``) that accrued the
+        most self-time: counts per stage, the dominant one, and the recent
+        batches' self-times."""
+        return self.critical_path.report()
+
+    def export_trace(self, path: str) -> int:
+        """Write the registry's retained spans to ``path`` as a Chrome trace
+        (``ui.perfetto.dev``, ``chrome://tracing``); returns the count of
+        spans written. Needs trace mode (``PETASTORM_TPU_TELEMETRY_TRACE=1``
+        when the registry is made, or ``telemetry.recorder.enable_trace()``)
+        and raises otherwise: an empty trace would read as "nothing
+        happened"."""
+        rec = self.telemetry.recorder
+        if not rec.trace_enabled:
+            raise RuntimeError("trace mode is off: set PETASTORM_TPU_TELEMETRY_TRACE=1 (or call "
+                               "telemetry.recorder.enable_trace()) before the epoch you want "
+                               "to export")
+        spans = [sp.as_dict() for sp in rec.spans()]
+        write_chrome_trace(path, spans,
+                           metadata={"critical_path": self.critical_path.report()["counts"]})
+        return len(spans)
+
+    def stage_breakdown(self) -> dict:
+        """Cumulative seconds by pipeline stage, the JAX loaders' keys:
+
+        * ``decode_s``: the workers' read and decode (thread and dummy
+          pools; 0 on processes, whose workers do not share the registry);
+        * ``pool_queue_s``: the reader blocked on the pool's results;
+        * ``shuffle_s``: the shuffling buffer's adds and retrievals;
+        * ``host_wait_s``: the staging thread waiting on a host batch
+          (reader pull and collate; it overlaps the two above);
+        * ``stage_s``: sanitizing and the copy onto the device;
+        * ``device_put_wait_s``: the consumer blocked on the staged queue,
+          the stall a training step sees.
+
+        The loader's entries count this loader's batches; the reader's
+        (decode, pool wait) are the pipeline's, shared with any other loader
+        over the same reader."""
+        hists = self.telemetry.snapshot(include_trace=False)["histograms"]
+        m = self.metrics.as_dict()
+        shuffle_total = self._shuffle_time.value
+        if shuffle_total < self._shuffle_base:
+            self._shuffle_base = 0.0   # a registry-wide reset() under us
+        return {
+            "decode_s": round(hists.get("worker.decode_s", {}).get("sum", 0.0), 6),
+            "pool_queue_s": round(hists.get("reader.pool_wait_s", {}).get("sum", 0.0), 6),
+            "shuffle_s": round(shuffle_total - self._shuffle_base, 6),
+            "host_wait_s": m["host_wait_s"],
+            "stage_s": m["stage_s"],
+            "device_put_wait_s": self.stall.report()["delivery_wait_s"],
+        }
+
+    def _register_shuffle_gauges(self, buf):
+        """The buffer's fill and capacity gauges; returns the closures so the
+        pass's teardown clears exactly these."""
+        fill_fn = lambda: buf.size  # noqa: E731 - identity matters
+        capacity_fn = lambda: buf.capacity  # noqa: E731
+        self.telemetry.gauge("shuffle_buffer.fill", fill_fn)
+        self.telemetry.gauge("shuffle_buffer.capacity", capacity_fn)
+        return fill_fn, capacity_fn
+
+    def _clear_shuffle_gauges(self, fns) -> None:
+        """Drop the gauges' closures at the end of a pass (the registry lives
+        as long as the reader, and a closure would keep the buffer and its
+        rows), only where they are still this pass's."""
+        fill_fn, capacity_fn = fns
+        self.telemetry.gauge("shuffle_buffer.fill").clear_function(fill_fn)
+        self.telemetry.gauge("shuffle_buffer.capacity").clear_function(capacity_fn)
+
     def close(self):
         """Stop the staging thread (if an iterator was abandoned or a
         ``steps_per_epoch`` pipeline lives) and stop and join the reader,
@@ -634,10 +768,15 @@ class DataLoader(LoaderBase):
         half its capacity)
     :param seed: buffer RNG seed
 
-    The other arguments are :class:`LoaderBase`'s. On the card a batch's
-    fields under 1 MiB are views of one allocation: a field kept past its
-    batch (the labels, for metrics) keeps those, and no larger field.
+    The other arguments are :class:`LoaderBase`'s (``telemetry`` defaults to
+    the reader's registry). On the card a batch's fields under 1 MiB are
+    views of one allocation: a field kept past its batch (the labels, for
+    metrics) keeps those, and no larger field.
     """
+
+    #: Rows between flushes of the row shuffle's seconds into the shared
+    #: counter (two locked adds a row would cost more than they measure).
+    _SHUFFLE_FLUSH_ROWS = 256
 
     def __init__(self, reader, batch_size: int,
                  shuffling_queue_capacity: int = 0,
@@ -646,10 +785,12 @@ class DataLoader(LoaderBase):
                  drop_last: bool = True, pad_last: bool = False,
                  prefetch: int = 2, device="cuda", echo: int = 1,
                  dtype_policy: DTypePolicy = DEFAULT_POLICY,
-                 steps_per_epoch: Optional[int] = None, sharding=None):
+                 steps_per_epoch: Optional[int] = None, sharding=None, telemetry=None):
         super().__init__(batch_size, drop_last=drop_last, pad_last=pad_last, prefetch=prefetch,
                          device=device, echo=echo, dtype_policy=dtype_policy,
-                         steps_per_epoch=steps_per_epoch, sharding=sharding)
+                         steps_per_epoch=steps_per_epoch, sharding=sharding,
+                         telemetry=(telemetry if telemetry is not None
+                                    else getattr(reader, "telemetry", None)))
         self._reader = reader
         self._ngram = getattr(reader, "ngram", None)
         self._shuffling_capacity = shuffling_queue_capacity
@@ -670,19 +811,37 @@ class DataLoader(LoaderBase):
                                 else self._shuffling_capacity // 2),
             extra_capacity=max(1000, self._shuffling_capacity),
             seed=self._seed)
+        gauge_fns = self._register_shuffle_gauges(buf)
+        shuffle_time = self._shuffle_time
+        pending_s, rows_out = 0.0, 0
         it = iter(self._reader)
         exhausted = False
-        while True:
-            while not exhausted and buf.can_add:
-                try:
-                    buf.add_many([next(it)])
-                except StopIteration:
-                    exhausted = True
-                    buf.finish()
-            if buf.can_retrieve:
-                yield buf.retrieve()
-            elif exhausted:
-                return
+        try:
+            while True:
+                while not exhausted and buf.can_add:
+                    try:
+                        row = next(it)
+                    except StopIteration:
+                        exhausted = True
+                        buf.finish()
+                        break
+                    t0 = time.perf_counter()
+                    buf.add_many([row])
+                    pending_s += time.perf_counter() - t0
+                if buf.can_retrieve:
+                    t0 = time.perf_counter()
+                    row = buf.retrieve()
+                    pending_s += time.perf_counter() - t0
+                    rows_out += 1
+                    if rows_out % self._SHUFFLE_FLUSH_ROWS == 0:
+                        shuffle_time.add(pending_s)
+                        pending_s = 0.0
+                    yield row
+                elif exhausted:
+                    return
+        finally:
+            shuffle_time.add(pending_s)
+            self._clear_shuffle_gauges(gauge_fns)
 
     def _collate(self, rows) -> Dict[str, np.ndarray]:
         if self._ngram is not None:
@@ -779,43 +938,52 @@ class DataLoader(LoaderBase):
                 seed=self._seed)
         else:
             buf = BatchedNoopShufflingBuffer(self._batch_size)
+        gauge_fns = self._register_shuffle_gauges(buf)
+        shuffle_time = self._shuffle_time
         exhausted = False
         buffered_rows = 0
         parts, part_rows = [], 0
-        while True:
-            while not exhausted and buf.can_add:
-                if buffered_rows == 0 and part_rows == 0:
-                    # Nothing buffered: every later batch is made of rows
-                    # pulled after this cursor, so it resumes without loss.
-                    self._pending_safe_state = self._snapshot_live_state()
-                try:
-                    cols = self._lazy_columns(reader.next_batch())
-                except StopIteration:
-                    exhausted = True
-                    buf.finish()
+        try:
+            while True:
+                while not exhausted and buf.can_add:
+                    if buffered_rows == 0 and part_rows == 0:
+                        # Nothing buffered: every later batch is made of rows
+                        # pulled after this cursor, so it resumes without loss.
+                        self._pending_safe_state = self._snapshot_live_state()
+                    try:
+                        cols = self._lazy_columns(reader.next_batch())
+                    except StopIteration:
+                        exhausted = True
+                        buf.finish()
+                        break
+                    if cols:
+                        buffered_rows += len(next(iter(cols.values())))
+                        t0 = time.perf_counter()
+                        buf.add_many(cols)
+                        shuffle_time.add(time.perf_counter() - t0)
+                if buf.can_retrieve:
+                    t0 = time.perf_counter()
+                    piece = (buf.retrieve_batch(self._batch_size - part_rows) if shuffled
+                             else buf.retrieve())
+                    shuffle_time.add(time.perf_counter() - t0)
+                    n = len(next(iter(piece.values())))
+                    buffered_rows = max(0, buffered_rows - n)
+                    parts.append(piece)
+                    part_rows += n
+                    # A slice is capped at what the batch still needs, and the
+                    # FIFO serves whole batches up to its short tail: a batch
+                    # is exact, never overshot.
+                    if part_rows == self._batch_size:
+                        yield concat_column_slices(parts)
+                        parts, part_rows = [], 0
+                elif exhausted:
                     break
-                if cols:
-                    buffered_rows += len(next(iter(cols.values())))
-                    buf.add_many(cols)
-            if buf.can_retrieve:
-                piece = (buf.retrieve_batch(self._batch_size - part_rows) if shuffled
-                         else buf.retrieve())
-                n = len(next(iter(piece.values())))
-                buffered_rows = max(0, buffered_rows - n)
-                parts.append(piece)
-                part_rows += n
-                # A slice is capped at what the batch still needs, and the
-                # FIFO serves whole batches up to its short tail: a batch is
-                # exact, never overshot.
-                if part_rows == self._batch_size:
-                    yield concat_column_slices(parts)
-                    parts, part_rows = [], 0
-            elif exhausted:
-                break
-        if part_rows:
-            tail = self._finalize_tail(concat_column_slices(parts), part_rows)
-            if tail is not None:
-                yield tail
+            if part_rows:
+                tail = self._finalize_tail(concat_column_slices(parts), part_rows)
+                if tail is not None:
+                    yield tail
+        finally:
+            self._clear_shuffle_gauges(gauge_fns)
 
     def _host_batches(self):
         if getattr(self._reader, "row_materialization", "eager") == "lazy" and self._ngram is None:
@@ -861,6 +1029,8 @@ class BatchedDataLoader(LoaderBase):
     def __init__(self, reader, batch_size: int, shuffling_queue_capacity: int = 0,
                  min_after_retrieve: Optional[int] = None, seed: Optional[int] = None,
                  **kwargs):
+        if kwargs.get("telemetry") is None:
+            kwargs["telemetry"] = getattr(reader, "telemetry", None)
         super().__init__(batch_size, **kwargs)
         if not getattr(reader, "batched_output", False):
             raise TypeError("BatchedDataLoader consumes make_batch_reader readers")
@@ -882,45 +1052,59 @@ class BatchedDataLoader(LoaderBase):
                 batch_size=self._batch_size, seed=self._seed)
         else:
             buf = BatchedNoopShufflingBuffer(self._batch_size)
+        gauge_fns = self._register_shuffle_gauges(buf)
+        shuffle_time = self._shuffle_time
+        telemetry = self.telemetry
         exhausted = False
         tail = None
         buffered_rows = 0
-        while True:
-            while not exhausted and buf.can_add:
-                if buffered_rows == 0:
-                    # Nothing buffered: every later batch is made of rows
-                    # pulled after this cursor, so it resumes without loss.
-                    # Batches cut from a buffered group keep the older cursor
-                    # (resume reads the group again); the plain buffer holds
-                    # up to two batches, so it empties only where the stream
-                    # does, as in the JAX package.
-                    self._pending_safe_state = self._snapshot_live_state()
-                try:
-                    cols = self._batchable_columns(self._reader.next_batch())
-                except StopIteration:
-                    exhausted = True
-                    buf.finish()
-                    continue
-                if cols:
-                    buffered_rows += len(next(iter(cols.values())))
-                    buf.add_many(cols)
-                # A group left in this frame would pin its ring record while
-                # the generator waits at a yield.
-                del cols
-            if buf.can_retrieve:
-                batch = buf.retrieve()
-                n = len(next(iter(batch.values())))
-                buffered_rows = max(0, buffered_rows - n)
-                if n == self._batch_size:
-                    yield batch
-                else:
-                    tail = batch
-            elif exhausted:
-                break
-        if tail is not None:
-            tail = self._finalize_tail(tail, len(next(iter(tail.values()))))
+        try:
+            while True:
+                while not exhausted and buf.can_add:
+                    if buffered_rows == 0:
+                        # Nothing buffered: every later batch is made of rows
+                        # pulled after this cursor, so it resumes without loss.
+                        # Batches cut from a buffered group keep the older
+                        # cursor (resume reads the group again); the plain
+                        # buffer holds up to two batches, so it empties only
+                        # where the stream does, as in the JAX package.
+                        self._pending_safe_state = self._snapshot_live_state()
+                    try:
+                        cols = self._batchable_columns(self._reader.next_batch())
+                    except StopIteration:
+                        exhausted = True
+                        buf.finish()
+                        continue
+                    if cols:
+                        buffered_rows += len(next(iter(cols.values())))
+                        t0 = time.perf_counter()
+                        with telemetry.span("petastorm_tpu.shuffle_add", stage="shuffle",
+                                            track="shuffler"):
+                            buf.add_many(cols)
+                        shuffle_time.add(time.perf_counter() - t0)
+                    # A group left in this frame would pin its ring record
+                    # while the generator waits at a yield.
+                    del cols
+                if buf.can_retrieve:
+                    t0 = time.perf_counter()
+                    with telemetry.span("petastorm_tpu.shuffle_retrieve", stage="shuffle",
+                                        track="shuffler"):
+                        batch = buf.retrieve()
+                    shuffle_time.add(time.perf_counter() - t0)
+                    n = len(next(iter(batch.values())))
+                    buffered_rows = max(0, buffered_rows - n)
+                    if n == self._batch_size:
+                        yield batch
+                    else:
+                        tail = batch
+                elif exhausted:
+                    break
             if tail is not None:
-                yield tail
+                tail = self._finalize_tail(tail, len(next(iter(tail.values()))))
+                if tail is not None:
+                    yield tail
+        finally:
+            self._clear_shuffle_gauges(gauge_fns)
 
 
 class InMemBatchedDataLoader(LoaderBase):
@@ -936,6 +1120,8 @@ class InMemBatchedDataLoader(LoaderBase):
 
     def __init__(self, reader, batch_size: int, num_epochs: int = 1, shuffle: bool = True,
                  seed: Optional[int] = None, **kwargs):
+        if kwargs.get("telemetry") is None:
+            kwargs["telemetry"] = getattr(reader, "telemetry", None)
         super().__init__(batch_size, **kwargs)
         self._num_epochs = num_epochs
         self._shuffle = shuffle
@@ -985,7 +1171,8 @@ class InMemBatchedDataLoader(LoaderBase):
 def aligned_steps_per_epoch(dataset_url: str, batch_size: int,
                             shard_count: Optional[int] = None,
                             drop_last: bool = True, shard_seed: Optional[int] = None,
-                            filters=None) -> int:
+                            filters=None, storage_options: Optional[dict] = None,
+                            filesystem=None) -> int:
     """Batches every shard of the store can deliver in one epoch: the
     least, over shards ``index % shard_count == shard`` of the store's row
     groups (the readers' sharding: after the partition ``filters`` and the
@@ -998,7 +1185,9 @@ def aligned_steps_per_epoch(dataset_url: str, batch_size: int,
     initialised, else 1.
 
     The bound holds for readers that deliver every row of their shard (a
-    row reader, or a batched reader; not an NGram's windows)."""
+    row reader, or a batched reader; not an NGram's windows).
+    ``storage_options`` and ``filesystem`` reach the store as the readers'
+    do."""
     from concurrent.futures import ThreadPoolExecutor
 
     import pyarrow.parquet as pq
@@ -1012,7 +1201,7 @@ def aligned_steps_per_epoch(dataset_url: str, batch_size: int,
                        else 1)
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-    ctx = DatasetContext(dataset_url)
+    ctx = DatasetContext(dataset_url, storage_options=storage_options, filesystem=filesystem)
     groups = load_row_groups(ctx)
     if filters:
         groups = _apply_filters(groups, filters)

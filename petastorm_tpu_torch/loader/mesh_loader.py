@@ -322,8 +322,9 @@ class MeshDataLoader(LoaderBase):
         self._lost_hosts: List[dict] = []
         self._epoch_t0: Optional[float] = None
 
-        # mesh_report's counters (the JAX loader keeps them in its telemetry
-        # registry, which the port leaves out).
+        # mesh_report's counters (the JAX loader keeps them as ``mesh.*``
+        # counters in its registry; this loader's registry, LoaderBase's,
+        # holds the staging, stall and critical-path metrics only).
         self._reshard_events = 0
         self._wall_s = 0.0
         self._host_ids = [self._local_host] if self._multiprocess else list(range(self._H))

@@ -170,6 +170,11 @@ class NGram:
                 i += 1
         return out
 
+    def make_namedtuple(self, schema: Unischema, sample_by_offset: dict) -> dict:
+        """A window as the reader yields it: already ``{offset: namedtuple}``
+        (the JAX package's NGram API)."""
+        return sample_by_offset
+
     # ------------------------------------------------------- dense assembly
     def _window_starts(self, timestamps) -> List[int]:
         """Accepted window starts over timestamp-sorted rows: the acceptance

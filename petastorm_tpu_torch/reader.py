@@ -34,6 +34,14 @@ reads on the next pull, so where a pull ends exactly on a row group its
 cursor still points at that group and the port's is one past it. In
 deterministic mode the cursor is the JAX package's deterministic one, the
 same in both packages, and cursors cross between them either way.
+
+Every reader owns a telemetry registry (``reader.telemetry``,
+:mod:`petastorm_tpu_torch.telemetry`) that its pool, its workers and a
+loader over it share: ``reader.rows``, ``reader.pool_wait_s``, the
+ventilator and results-queue gauges, the workers' decode and, on
+processes, the transport. :attr:`Reader.diagnostics` is the pool's counters
+with a snapshot of it. ``PETASTORM_TPU_TELEMETRY_EXPORT=<path>`` makes every
+reader write snapshots there until it stops (``.prom``: Prometheus text).
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ import os
 import pickle
 import random
 import sys
+import time
 import types
 import warnings
 from collections import deque
@@ -60,6 +69,7 @@ from petastorm_tpu_torch.reader_impl.batch_reader_worker import (BatchReaderWork
 from petastorm_tpu_torch.reader_impl.epoch_plan import EpochPlan, OrderedDeliveryGate, mint_seed
 from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
 from petastorm_tpu_torch.reader_impl.row_reader_worker import RowReaderWorker
+from petastorm_tpu_torch.telemetry import PeriodicExporter, TELEMETRY_EXPORT_ENV, make_registry
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.workers_pool import EmptyResultError, ITEM_CONTEXT_KWARG
 from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
@@ -333,7 +343,10 @@ def make_reader(dataset_url: str,
                 rowgroup_subset: Optional[Sequence[int]] = None,
                 sample_order: str = "free",
                 shuffle_window: int = 0,
-                row_materialization: str = "eager") -> "Reader":
+                row_materialization: str = "eager",
+                storage_options: Optional[dict] = None,
+                filesystem=None,
+                pool_profiling_enabled: bool = False) -> "Reader":
     """Reader over a store written by ``materialize_dataset_local`` (either
     package's).
 
@@ -407,6 +420,14 @@ def make_reader(dataset_url: str,
         rows, the same multiset an epoch. An NGram or a per-row
         ``TransformSpec`` func falls back to eager with a warning
         (``TransformSpec(batched=True)`` stays lazy)
+    :param storage_options: keyword arguments of the URL's fsspec filesystem
+        (credentials, endpoints), for the reader and its workers
+    :param filesystem: a filesystem to read through as it is; spawned
+        process workers cannot share it and resolve the URL themselves
+        (with ``storage_options``)
+    :param pool_profiling_enabled: cProfile the thread pool and print the
+        statistics when it is joined (ignored, with a warning, on the other
+        pools)
 
     On ``reader_pool_type="process"`` the predicate and the transform must
     pickle into a spawned worker: a ``ValueError`` says so at construction.
@@ -414,7 +435,7 @@ def make_reader(dataset_url: str,
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
     cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
-                      PickleSerializer())
+                      PickleSerializer(), pool_profiling_enabled)
     return Reader(dataset_url, pool, schema_fields=schema_fields,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
@@ -423,7 +444,8 @@ def make_reader(dataset_url: str,
                   rowgroup_selector=rowgroup_selector, filters=filters, shard_seed=shard_seed,
                   transform_spec=transform_spec, rowgroup_subset=rowgroup_subset,
                   sample_order=sample_order, shuffle_window=shuffle_window,
-                  row_materialization=row_materialization)
+                  row_materialization=row_materialization, storage_options=storage_options,
+                  filesystem=filesystem)
 
 
 def make_batch_reader(dataset_url: str,
@@ -447,7 +469,10 @@ def make_batch_reader(dataset_url: str,
                       transform_spec=None,
                       rowgroup_subset: Optional[Sequence[int]] = None,
                       sample_order: str = "free",
-                      shuffle_window: int = 0) -> "Reader":
+                      shuffle_window: int = 0,
+                      storage_options: Optional[dict] = None,
+                      filesystem=None,
+                      pool_profiling_enabled: bool = False) -> "Reader":
     """Columnar reader of any Parquet store (several files, with or without
     petastorm metadata; a store without it gets a schema inferred from its
     Arrow schema): one batch of ``{column: ndarray}`` per row group,
@@ -489,7 +514,7 @@ def make_batch_reader(dataset_url: str,
     cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
     serializer = PickleSerializer() if convert_early_to_numpy else ArrowTableSerializer()
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
-                      serializer)
+                      serializer, pool_profiling_enabled)
     return Reader(dataset_url, pool, schema_fields=schema_fields,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
@@ -498,7 +523,8 @@ def make_batch_reader(dataset_url: str,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
                   rowgroup_selector=rowgroup_selector, filters=filters, shard_seed=shard_seed,
                   transform_spec=transform_spec, rowgroup_subset=rowgroup_subset,
-                  sample_order=sample_order, shuffle_window=shuffle_window)
+                  sample_order=sample_order, shuffle_window=shuffle_window,
+                  storage_options=storage_options, filesystem=filesystem)
 
 
 def _check_sample_order(sample_order: str, shuffle_window: int) -> None:
@@ -606,9 +632,15 @@ def _resume_position(resume_state: dict, seed, shuffle_row_groups: bool, shuffle
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
-               serializer):
+               serializer, pool_profiling_enabled=False):
     if reader_pool_type == "thread":
-        return ThreadPool(workers_count, results_queue_size, shuffle_rows=shuffle_rows, seed=seed)
+        return ThreadPool(workers_count, results_queue_size, shuffle_rows=shuffle_rows, seed=seed,
+                          profiling_enabled=pool_profiling_enabled)
+    if pool_profiling_enabled and reader_pool_type in ("process", "dummy"):
+        # cProfile sees this process's threads: process workers run
+        # elsewhere, and the dummy pool has no worker threads.
+        warnings.warn(f"pool_profiling_enabled only applies to reader_pool_type='thread'; "
+                      f"ignored for {reader_pool_type!r}")
     if reader_pool_type == "process":
         return ProcessPool(workers_count, ring_capacity=ring_capacity_for(workers_count),
                            serializer=serializer)
@@ -630,6 +662,7 @@ class Reader:
     delivers through its :class:`OrderedDeliveryGate`, and its cursor is the
     gate's). ``row_materialization`` is ``'lazy'`` when the workers publish
     :class:`ColumnarBatch` es (always ``'eager'`` for a batched reader).
+    ``telemetry`` is the pipeline's registry (see the module docstring).
     """
 
     def __init__(self, dataset_url, pool, schema_fields, shuffle_row_groups,
@@ -637,7 +670,8 @@ class Reader:
                  is_batched_reader=False, convert_early_to_numpy=False, resume_state=None,
                  shuffle_row_drop_partitions=1, predicate=None, rowgroup_selector=None,
                  filters=None, shard_seed=None, transform_spec=None, rowgroup_subset=None,
-                 sample_order="free", shuffle_window=0, row_materialization="eager"):
+                 sample_order="free", shuffle_window=0, row_materialization="eager",
+                 storage_options=None, filesystem=None):
         if rowgroup_subset is not None and cur_shard is not None:
             raise ValueError("rowgroup_subset and cur_shard/shard_count are mutually exclusive: "
                              "an explicit ordinal subset is a shard assignment")
@@ -658,7 +692,14 @@ class Reader:
         #: ``'free'`` or ``'deterministic'``: the reader's order contract.
         self.sample_order = sample_order
         self._shuffle_window = shuffle_window
-        ctx = DatasetContext(dataset_url)
+        #: The pipeline's telemetry registry; a loader over this reader
+        #: adopts it.
+        self.telemetry = make_registry()
+        self._telemetry_exporter = None
+        self._rows_counter = self.telemetry.counter("reader.rows")
+        self._pool_wait_hist = self.telemetry.histogram("reader.pool_wait_s")
+        self._rows_per_op = None   # batch.rows_per_op, made on the first batch
+        ctx = DatasetContext(dataset_url, storage_options=storage_options, filesystem=filesystem)
         self._batched = is_batched_reader
         stored_schema = infer_or_load_unischema(ctx) if is_batched_reader else get_schema(ctx)
         #: The NGram windows are formed by, or None for a row reader.
@@ -719,8 +760,13 @@ class Reader:
             self._gate = OrderedDeliveryGate(self._epoch_plan, start_epoch=start_epoch,
                                              start_offset=start_offset,
                                              window_delivered=window_delivered, skipped=skipped)
+        # Lineage ordinals of trace mode: the group's position in the plan,
+        # or its ordinal in the store for an explicit subset.
+        ordinal_of = ({(rg.path, rg.row_group): i for i, rg in enumerate(all_row_groups)}
+                      if rowgroup_subset is not None else
+                      {(rg.path, rg.row_group): i for i, rg in enumerate(row_groups)})
         self._ventilator = ConcurrentVentilator(
-            pool.ventilate, items,
+            self._make_ventilate_fn(pool, ordinal_of), items,
             iterations=num_epochs,
             randomize_item_order=shuffle_row_groups,
             random_seed=seed,
@@ -739,10 +785,30 @@ class Reader:
         self._buffer_context = None
         self._delivered = set()
         self.last_row_consumed = False
+        self.telemetry.gauge("ventilator.backlog", lambda: self._ventilator.inflight)
+        self.telemetry.gauge("ventilator.max_inflight", lambda: self._ventilator.max_inflight)
+        depth_gauge = self.telemetry.gauge("pool.results_queue_depth")
+        capacity_gauge = self.telemetry.gauge("pool.results_queue_capacity")
+        # 0 for threads and the dummy pool, 1 for processes, as in the JAX package.
+        self.telemetry.gauge("pool.backend").set(1.0 if isinstance(pool, ProcessPool) else 0.0)
+        if isinstance(pool, ProcessPool):
+            # Queued results lie in the rings, which the consumer does not count.
+            depth_gauge.set(0)
+            capacity_gauge.set(0)
+        else:
+            depth_gauge.set_function(pool.results_qsize)
+            # results_qsize() sums every worker's queue: so does the bound.
+            capacity_gauge.set(pool.diagnostics["results_queue_capacity"]
+                               * max(1, pool.workers_count))
+        # Before start(): the workers time their items into it.
+        pool.telemetry = self.telemetry
         worker_args = {"dataset_url": dataset_url, "view_schema": view_schema,
                        "output_schema": self.schema, "predicate": predicate,
                        "transform_spec": transform_spec, "shuffle_rows": shuffle_rows,
-                       "seed": seed, "sample_order": sample_order}
+                       "seed": seed, "sample_order": sample_order,
+                       "storage_options": storage_options,
+                       # A spawned worker resolves the URL itself.
+                       "filesystem": None if isinstance(pool, ProcessPool) else filesystem}
         if is_batched_reader:
             if isinstance(pool, ProcessPool) and not convert_early_to_numpy:
                 # Columns as views over the Arrow buffers in the ring.
@@ -750,17 +816,58 @@ class Reader:
             pool.start(BatchReaderWorker,
                        {**worker_args, "convert_early_to_numpy": convert_early_to_numpy},
                        ventilator=self._ventilator)
-            return
-        # The image decode path is settled here, once (the native build and
-        # the JPEG parity check), and the workers adopt the verdict.
-        verdict = (decode_verdict() if any(isinstance(f.codec, CompressedImageCodec)
-                                           for f in stored_schema.fields.values()) else None)
-        pool.start(RowReaderWorker,
-                   {**worker_args, "schema": stored_schema, "ngram": self.ngram,
-                    "decode_threads": decode_threads_for(pool.workers_count),
-                    "decode_verdict": verdict,
-                    "row_materialization": self.row_materialization},
-                   ventilator=self._ventilator)
+        else:
+            # The image decode path is settled here, once (the native build
+            # and the JPEG parity check), and the workers adopt the verdict.
+            verdict = (decode_verdict() if any(isinstance(f.codec, CompressedImageCodec)
+                                               for f in stored_schema.fields.values()) else None)
+            pool.start(RowReaderWorker,
+                       {**worker_args, "schema": stored_schema, "ngram": self.ngram,
+                        "decode_threads": decode_threads_for(pool.workers_count),
+                        "decode_verdict": verdict,
+                        "row_materialization": self.row_materialization},
+                       ventilator=self._ventilator)
+        export_path = os.environ.get(TELEMETRY_EXPORT_ENV)
+        if export_path:
+            self._telemetry_exporter = PeriodicExporter(
+                self.telemetry, export_path,
+                fmt="prometheus" if export_path.endswith(".prom") else "json").start()
+
+    def _make_ventilate_fn(self, pool, ordinal_of):
+        """``pool.ventilate``, adding in trace mode the item's lineage id
+        (``e{epoch}:g{ordinal}``, the kwarg ``trace_context`` the pools pop)
+        and a ``petastorm_tpu.ventilate`` event."""
+        recorder = self.telemetry.recorder
+        pool_ventilate = pool.ventilate
+
+        def ventilate_fn(**kwargs):
+            if recorder.trace_enabled:
+                ctx = kwargs.get(ITEM_CONTEXT_KWARG)
+                if ctx is not None:
+                    epoch, pos = ctx
+                    rg = kwargs["rowgroup"]
+                    trace = f"e{epoch}:g{ordinal_of.get((rg.path, rg.row_group), pos)}"
+                    kwargs["trace_context"] = trace
+                    recorder.record_event("petastorm_tpu.ventilate", trace=trace,
+                                          stage="ventilate", track="ventilator")
+            pool_ventilate(**kwargs)
+        return ventilate_fn
+
+    @property
+    def diagnostics(self) -> dict:
+        """The pool's counters (the same keys on every pool:
+        ``output_queue_size``, ``items_ventilated``, ``items_processed``,
+        ``items_inprocess``, ``workers_count``, ``results_queue_capacity``),
+        ``pool_type``, ``ventilator_backlog`` and a ``telemetry`` snapshot:
+        the JAX reader's keys. That reader's snapshot may also carry the
+        ``timeline``, ``explain`` and ``quality`` payloads of planes this
+        package does not have."""
+        d = dict(self._pool.diagnostics)
+        d["pool_type"] = ("process" if isinstance(self._pool, ProcessPool)
+                          else "dummy" if isinstance(self._pool, DummyPool) else "thread")
+        d["ventilator_backlog"] = self._ventilator.inflight
+        d["telemetry"] = self.telemetry.snapshot()
+        return d
 
     @property
     def pool(self):
@@ -794,7 +901,8 @@ class Reader:
         :class:`~petastorm_tpu_torch.reader_impl.batch_plane.ColumnarBatch`,
         or the rest of one that ``next()`` served in part, so that mixing
         the two never repeats a row. An eager row reader raises
-        ``TypeError``: it has no batch to hand out."""
+        ``TypeError``: it has no batch to hand out. Each batch's rows go to
+        the ``batch.rows_per_op`` histogram."""
         if not self._batched:
             if getattr(self, "row_materialization", "eager") != "lazy":
                 raise TypeError("next_batch() needs make_reader(row_materialization='lazy') or "
@@ -803,6 +911,18 @@ class Reader:
                 if not self._pull():
                     raise StopIteration
             return self._batch_remainder()
+        result = self._next_columns()
+        if result:
+            self._observe_rows_per_op(len(next(iter(result.values()))))
+        return result
+
+    def _observe_rows_per_op(self, rows: int) -> None:
+        if self._rows_per_op is None:
+            self._rows_per_op = self.telemetry.histogram("batch.rows_per_op")
+        self._rows_per_op.observe(rows)
+
+    def _next_columns(self) -> dict:
+        """A batched reader's next row group as ``{column: ndarray}``."""
         try:
             result = self._get_results()
         except EmptyResultError:
@@ -813,6 +933,8 @@ class Reader:
         if not isinstance(result, dict):
             # An Arrow table from a thread or dummy pool worker.
             result = arrow_table_to_numpy_dict(result, self.schema)
+        if result:
+            self._rows_counter.add(len(next(iter(result.values()))))
         return result
 
     def __iter__(self):
@@ -820,7 +942,7 @@ class Reader:
 
     def __next__(self):
         if self._batched:
-            return self.schema.make_namedtuple_from_dict(self.next_batch())
+            return self.schema.make_namedtuple_from_dict(self._next_columns())
         while self._batch is None and not self._buffer:
             if not self._pull():
                 raise StopIteration
@@ -836,6 +958,10 @@ class Reader:
         if self.ngram is not None:
             return item   # already a window
         return self.schema.make_namedtuple_from_dict(item)
+
+    def next(self):
+        """``next(reader)``."""
+        return self.__next__()
 
     def _pull(self) -> bool:
         """Take the next work item's result into the row buffer or the lazy
@@ -855,8 +981,11 @@ class Reader:
                 self._batch = result
                 self._batch_cols = [result.columns.get(n) for n in self.schema.namedtuple._fields]
                 self._batch_pos = 0
+                self._rows_counter.add(result.num_rows)
+                self._observe_rows_per_op(result.num_rows)
         else:
             self._buffer.extend(result)
+            self._rows_counter.add(len(result))
         return True
 
     def _batch_remainder(self) -> ColumnarBatch:
@@ -877,8 +1006,21 @@ class Reader:
         """The next work item's result: through the gate, in plan order, in
         deterministic mode; else as the pool delivers."""
         if self._gate is not None:
-            return self._gate.pull(self._pool.get_results)
-        return self._pool.get_results()
+            return self._gate.pull(self._timed_get_results)
+        return self._timed_get_results()
+
+    def _timed_get_results(self):
+        """``pool.get_results()``, its wait in ``reader.pool_wait_s`` (and a
+        ``petastorm_tpu.pool_wait`` span): the dummy pool's inline decode is
+        taken out, so the pool wait and ``worker.decode_s`` stay apart."""
+        pool = self._pool
+        inline0 = getattr(pool, "inline_decode_s", 0.0)
+        t0 = time.perf_counter()
+        with self.telemetry.span("petastorm_tpu.pool_wait", stage="deliver", track="consumer"):
+            result = pool.get_results()
+        wait = time.perf_counter() - t0 - (getattr(pool, "inline_decode_s", 0.0) - inline0)
+        self._pool_wait_hist.observe(max(0.0, wait))
+        return result
 
     def _mark_delivered(self, context):
         """Record that every row of the item at ``context`` was handed out."""
@@ -929,6 +1071,9 @@ class Reader:
         self.last_row_consumed = False
 
     def stop(self):
+        if self._telemetry_exporter is not None:
+            self._telemetry_exporter.stop()
+            self._telemetry_exporter = None
         self._pool.stop()
 
     def join(self):

@@ -35,9 +35,11 @@ class BatchReaderWorker(WorkerBase):
     """``args`` dict keys: ``dataset_url``, ``view_schema`` (the columns
     to read, as a Unischema), ``output_schema`` (after the transform),
     ``predicate`` and ``transform_spec`` (or None), ``shuffle_rows``,
-    ``seed``, ``convert_early_to_numpy`` and ``sample_order`` (one
+    ``seed``, ``convert_early_to_numpy``, ``sample_order`` (one
     :class:`~petastorm_tpu_torch.reader_impl.epoch_plan.OrderedUnit` an item
-    with ``"deterministic"``, as the row worker publishes)."""
+    with ``"deterministic"``, as the row worker publishes), and
+    ``storage_options`` and ``filesystem`` (or None), how the store's files
+    are reached."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
@@ -78,7 +80,10 @@ class BatchReaderWorker(WorkerBase):
     def _read_table(self, rowgroup, columns) -> pa.Table:
         if self._files is None:
             from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext
-            self._files = _ParquetFileLRU(DatasetContext(self.args["dataset_url"]).filesystem)
+            ctx = DatasetContext(self.args["dataset_url"],
+                                 storage_options=self.args.get("storage_options"),
+                                 filesystem=self.args.get("filesystem"))
+            self._files = _ParquetFileLRU(ctx.filesystem)
         pf = self._files.get(rowgroup.path)
         names = set(pf.schema_arrow.names)
         # Workers are the parallelism unit: arrow's own threads would only

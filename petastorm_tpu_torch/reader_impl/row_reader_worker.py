@@ -102,19 +102,26 @@ def _column_values(col):
 
 
 def _decode_column(field, codec, src, indices):
-    """Decode the selected rows of one column. A plain numeric scalar column
-    is one vectorized cast (the same numpy scalars, cell for cell, as the
-    per-cell decode); every other column decodes cell by cell."""
-    if (type(codec) is ScalarCodec and field.shape == ()
-            and isinstance(src, np.ndarray) and src.dtype.kind in "biuf"):
-        try:
-            npdt = np.dtype(field.numpy_dtype)
-        except TypeError:  # str/bytes/Decimal declarations
-            npdt = None
-        if npdt is not None and npdt.kind in "biuf":
-            sel = src[indices]
-            return sel if sel.dtype == npdt else sel.astype(npdt)
-    return [None if src[i] is None else codec.decode(field, src[i]) for i in indices]
+    """Decode the selected rows of one column, as the JAX package's worker
+    does: a plain numeric scalar column in one vectorized cast
+    (:func:`~petastorm_tpu_torch.utils.decode.batch_decode_scalars`), a
+    homogeneous ``NdarrayCodec`` column into one array from one parsed
+    header (:func:`~petastorm_tpu_torch.utils.decode.batch_decode_ndarrays`),
+    every other column cell by cell; a user codec gets bytes, never the
+    read path's memoryviews."""
+    from petastorm_tpu_torch.utils.decode import (batch_decode_ndarrays, batch_decode_scalars,
+                                                  is_memoryview_safe)
+    batched = batch_decode_scalars(field, codec, src, indices)
+    if batched is not None:
+        return batched
+    if is_memoryview_safe(codec):
+        batched = batch_decode_ndarrays(field, codec, src, indices)
+        if batched is not None:
+            return batched
+        return [None if src[i] is None else codec.decode(field, src[i]) for i in indices]
+    return [None if (v := src[i]) is None
+            else codec.decode(field, bytes(v) if isinstance(v, memoryview) else v)
+            for i in indices]
 
 
 def item_shuffle_rng(seed, shuffle_context, fallback_rng):
@@ -173,7 +180,8 @@ class RowReaderWorker(WorkerBase):
     one ``ColumnarBatch`` an item, no row dicts) and ``sample_order``: with
     ``"deterministic"`` every item publishes one
     :class:`~petastorm_tpu_torch.reader_impl.epoch_plan.OrderedUnit`,
-    ``empty`` when no row was kept.
+    ``empty`` when no row was kept; ``storage_options`` and ``filesystem``
+    (or None), how the store's files are reached.
 
     Its counters (:meth:`take_counters`): ``images_native``, the image
     cells the native batch call decoded, and ``images_codec``, those that
@@ -262,7 +270,9 @@ class RowReaderWorker(WorkerBase):
         ``columns``, hive partition keys included."""
         if self._files is None:
             from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext
-            ctx = DatasetContext(self.args["dataset_url"])
+            ctx = DatasetContext(self.args["dataset_url"],
+                                 storage_options=self.args.get("storage_options"),
+                                 filesystem=self.args.get("filesystem"))
             self._files = _ParquetFileLRU(ctx.filesystem)
         pf = self._files.get(rowgroup.path)
         names = set(pf.schema_arrow.names)

@@ -85,6 +85,10 @@ class RandomShufflingBuffer:
     def size(self):
         return len(self._items)
 
+    @property
+    def capacity(self):
+        return self._capacity
+
 
 class BatchShufflingBuffer:
     """Whole column batches in, shuffled column slices out.

@@ -95,7 +95,9 @@ class SparkDatasetConverter:
                     steps_per_epoch = aligned_steps_per_epoch(
                         self.cache_dir_url, batch_size, shard_count=count,
                         shard_seed=reader_kwargs.get("shard_seed"),
-                        filters=reader_kwargs.get("filters"))
+                        filters=reader_kwargs.get("filters"),
+                        storage_options=reader_kwargs.get("storage_options"),
+                        filesystem=reader_kwargs.get("filesystem"))
         reader = make_batch_reader(self.cache_dir_url, cur_shard=cur_shard,
                                    num_epochs=num_epochs, **reader_kwargs)
         try:

@@ -10,15 +10,20 @@ from petastorm_tpu_torch.etl.dataset_metadata import get_schema_from_dataset_url
 from petastorm_tpu_torch.utils.decode import decode_row
 
 
-def dataset_as_rdd(dataset_url: str, spark_session, schema_fields=None):
+def dataset_as_rdd(dataset_url: str, spark_session, schema_fields=None,
+                   storage_options=None, filesystem=None):
     """An RDD of decoded namedtuple records of the store at ``dataset_url``.
 
     :param spark_session: a SparkSession
     :param schema_fields: fields to read (UnischemaFields, names or regex
         patterns, as ``Unischema.create_schema_view`` takes); None reads
         every field
+    :param storage_options/filesystem: how the store's schema is read
+        (:class:`~petastorm_tpu_torch.fs_utils.FilesystemResolver`); Spark
+        reads the Parquet files through its own filesystem
     """
-    schema = get_schema_from_dataset_url(dataset_url)
+    schema = get_schema_from_dataset_url(dataset_url, storage_options=storage_options,
+                                         filesystem=filesystem)
     dataset_df = spark_session.read.parquet(dataset_url)
     if schema_fields is not None:
         schema = schema.create_schema_view(schema_fields)

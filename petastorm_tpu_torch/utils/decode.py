@@ -1,13 +1,95 @@
-"""Whole-column image decode for the reader's workers (reference
-petastorm_tpu/utils/decode.py:34-150): one native call per image column
-where the field and the host allow it, cell by cell through the codec
-otherwise; and one storage row decoded by a schema's codecs
-(:func:`decode_row`, for ``spark.spark_utils.dataset_as_rdd``)."""
+"""Whole-column decodes for the reader's workers (reference
+petastorm_tpu/utils/decode.py): an image column in one native call where the
+field and the host allow it, a scalar column in one vectorized cast, an
+``NdarrayCodec`` column from one parsed header into one array, anything else
+cell by cell through the codec; and one storage row decoded by a schema's
+codecs (:func:`decode_row`, for ``spark.spark_utils.dataset_as_rdd``)."""
 from __future__ import annotations
 
 import numpy as np
 
-from petastorm_tpu_torch.codecs import CompressedImageCodec
+from petastorm_tpu_torch.codecs import (CompressedImageCodec, CompressedNdarrayCodec,
+                                        NdarrayCodec, ScalarCodec, npy_header_meta)
+
+# The built-in codecs take the memoryview cells of the zero-copy read path.
+# Exact types only: a subclass that overrides decode() may rely on the
+# documented bytes.
+_MEMORYVIEW_SAFE_CODECS = (ScalarCodec, NdarrayCodec, CompressedNdarrayCodec,
+                           CompressedImageCodec)
+
+
+def is_memoryview_safe(codec) -> bool:
+    """True when ``codec`` is a built-in that accepts memoryview cells."""
+    return type(codec) in _MEMORYVIEW_SAFE_CODECS
+
+
+def codec_safe_value(codec, value):
+    """A memoryview cell as bytes for a codec outside the built-ins (a user
+    codec sees the documented bytes), else the cell as it is."""
+    if isinstance(value, memoryview) and not is_memoryview_safe(codec):
+        return bytes(value)
+    return value
+
+
+def batch_decode_scalars(field, codec, src, indices):
+    """A plain numeric :class:`ScalarCodec` column in one vectorized select
+    and cast (the same numpy values, cell for cell, as the per-cell decode),
+    or None where it does not apply: another codec type (exactly
+    ``ScalarCodec``), a non-scalar field, a column that did not arrive as a
+    numeric array (nulls, strings), or a non-numeric declared type."""
+    if type(codec) is not ScalarCodec or field.shape != ():
+        return None
+    if not isinstance(src, np.ndarray) or src.dtype.kind not in "biuf":
+        return None
+    try:
+        npdt = np.dtype(field.numpy_dtype)
+    except TypeError:
+        return None   # str/bytes/Decimal declarations
+    if npdt.kind not in "biuf":
+        return None
+    sel = src[np.asarray(indices, dtype=np.intp)]
+    return sel if sel.dtype == npdt else sel.astype(npdt)
+
+
+def batch_decode_ndarrays(field, codec, src, indices):
+    """An :class:`NdarrayCodec` column decoded from one parsed ``.npy``
+    header into one ``(n, *shape)`` array, one ``frombuffer`` copy a cell.
+    Applies where every selected cell (at least two) is a non-null buffer of
+    one length with byte-identical headers, C order and a non-object dtype,
+    and the codec is exactly ``NdarrayCodec``; else None (the per-cell decode
+    takes the column). The rows are views of one allocation: a row kept
+    keeps its group's column."""
+    if type(codec) is not NdarrayCodec:
+        return None
+    n = len(indices)
+    if n < 2:
+        return None
+    try:
+        cells = [src[i] for i in indices]
+    except (TypeError, IndexError):
+        return None
+    first = cells[0]
+    if first is None or not isinstance(first, (bytes, memoryview)):
+        return None
+    meta = npy_header_meta(first)
+    if meta is None:
+        return None
+    dtype, fortran, shape, data_off = meta
+    if fortran or dtype.hasobject:
+        return None
+    cell_len = len(first)
+    header = bytes(memoryview(first)[:data_off])
+    for c in cells[1:]:
+        if c is None or len(c) != cell_len or bytes(memoryview(c)[:data_off]) != header:
+            return None
+    count = 1
+    for dim in shape:
+        count *= dim
+    out = np.empty((n,) + shape, dtype=dtype)
+    flat = out.reshape(n, -1) if count else out.reshape(n, 0)
+    for j, c in enumerate(cells):
+        flat[j] = np.frombuffer(c, dtype=dtype, offset=data_off, count=count)
+    return out
 
 
 def native_image_eligible(field, codec) -> bool:

@@ -19,12 +19,21 @@ class VentilatedItemProcessedMessage:
     (:meth:`~.worker_base.WorkerBase.take_counters`). ``item_context``
     echoes the item's ``(epoch, position)`` when its work kwargs carried one
     (:data:`ITEM_CONTEXT_KWARG`), so the ventilator's resume watermark stays
-    exact when workers finish out of order."""
+    exact when workers finish out of order.
 
-    def __init__(self, worker_id=None, counters=None, item_context=None):
+    A spawned worker also sends ``busy_s``, the item's seconds in the
+    worker, and in trace mode ``spans``, compact ``(name, stage,
+    duration_s, trace, track)`` tuples of its decode: it cannot reach the
+    parent's registry, so the pool records them on arrival. In-process
+    pools leave both None."""
+
+    def __init__(self, worker_id=None, counters=None, item_context=None, spans=None,
+                 busy_s=None):
         self.worker_id = worker_id
         self.counters = counters or {}
         self.item_context = item_context
+        self.spans = spans
+        self.busy_s = busy_s
 
 
 def add_counters(total: dict, counters: dict) -> None:

@@ -44,6 +44,14 @@ so a worker blocked on a full ring leaves at once. A worker that dies
 unexpectedly makes :meth:`ProcessPool.get_results` raise ``RuntimeError``
 within ``_POLL_MS``, however busy the other workers keep it.
 Unlike the thread pool, results arrive in the order workers finish.
+
+Telemetry (``pool.telemetry``, set by the reader): the consumer times each
+deserialization into ``transport.deserialize_s`` (and a
+``petastorm_tpu.transport`` span), counts ``transport.zero_copy_batches`` and
+``transport.zero_copy_bytes``, and records the busy seconds and, in trace
+mode, the ``petastorm_tpu.worker_decode`` spans that each worker sends with
+its item-processed message (``pool.w{id}.items``, ``pool.w{id}.busy_s``;
+the spans re-anchored to the consumer's clock on arrival).
 """
 from __future__ import annotations
 
@@ -150,6 +158,11 @@ class ProcessPool:
         self.counters = {}
         #: Seconds from :meth:`start` until every worker was ready.
         self.start_seconds = None
+        #: The pipeline's telemetry registry, set by the reader.
+        self.telemetry = None
+        self._c_deser = None
+        self._c_w_items = {}
+        self._c_w_busy = {}
 
     @property
     def worker_pids(self):
@@ -256,6 +269,8 @@ class ProcessPool:
                     self._inflight[msg.worker_id] -= 1
                     self._contexts[msg.worker_id].popleft()
                 add_counters(self.counters, msg.counters)
+                if self.telemetry is not None:
+                    self._record_worker_telemetry(msg)
                 if self._ventilator:
                     # Confirmed when pulled: its result came before this
                     # message on the same ring, whatever views of it live on.
@@ -270,6 +285,35 @@ class ProcessPool:
             with self._lock:
                 self.result_context = self._contexts[self._polled_from][0]
             return msg
+
+    def _record_worker_telemetry(self, msg):
+        """A worker's item in the registry: its spans (re-anchored to this
+        clock, ending now, under the worker's pid) and its per-worker
+        counters."""
+        wid = msg.worker_id
+        if msg.spans:
+            self.telemetry.recorder.record_remote(msg.spans, pid=self._processes[wid].pid)
+        items = self._c_w_items.get(wid)
+        if items is None:
+            items = self._c_w_items[wid] = self.telemetry.counter(f"pool.w{wid}.items")
+            self._c_w_busy[wid] = self.telemetry.counter(f"pool.w{wid}.busy_s")
+        items.add(1)
+        if msg.busy_s:
+            self._c_w_busy[wid].add(msg.busy_s)
+
+    @property
+    def diagnostics(self) -> dict:
+        """The JAX package's pool schema; ``output_queue_size`` and
+        ``results_queue_capacity`` are 0 (results cross byte-bounded rings,
+        not a queue)."""
+        with self._lock:
+            ventilated, processed = self._ventilated, self._processed
+        return {"output_queue_size": 0,
+                "items_ventilated": ventilated,
+                "items_processed": processed,
+                "items_inprocess": ventilated - processed,
+                "workers_count": self.workers_count,
+                "results_queue_capacity": 0}
 
     def stop(self):
         """Stop ventilating, tell every worker to finish, and close the
@@ -367,8 +411,8 @@ class ProcessPool:
                         del self._partial[idx]
                         # The reassembled buffer is the consumer's own:
                         # results may view it freely.
-                        return self._deserialize(memoryview(buf))
-                    return self._deserialize(view)
+                        return self._deserialize(memoryview(buf), idx)
+                    return self._deserialize(view, idx)
                 finally:
                     view.release()
                     reader.complete()
@@ -378,10 +422,24 @@ class ProcessPool:
                     return None
                 time.sleep(0.0001)
 
-    def _deserialize(self, buf):
-        """Deserialize ``buf`` and apply ``result_transform``, inside an
-        ``OrderedUnit`` envelope to its payload, so the envelope reaches the
-        reader's gate whole."""
+    def _deserialize(self, buf, idx: int):
+        """Deserialize ``buf`` (from worker ``idx``'s ring) and apply
+        ``result_transform``, inside an ``OrderedUnit`` envelope to its
+        payload, so the envelope reaches the reader's gate whole. With a
+        registry the time is the pipeline's transport stage."""
+        telemetry = self.telemetry
+        if telemetry is None:
+            return self._deserialize_untimed(buf)
+        if self._c_deser is None:
+            self._c_deser = telemetry.counter("transport.deserialize_s")
+        t0 = time.perf_counter()
+        with telemetry.span("petastorm_tpu.transport", stage="transport",
+                            track=f"transport:{idx}"):
+            result = self._deserialize_untimed(buf)
+        self._c_deser.add(time.perf_counter() - t0)
+        return result
+
+    def _deserialize_untimed(self, buf):
         result = self._serializer.deserialize(buf)
         if self.result_transform is None:
             return result
@@ -404,7 +462,7 @@ class ProcessPool:
         claim.track(view)
         reader.claim(claim)
         try:
-            result = self._deserialize(view)
+            result = self._deserialize(view, idx)
         finally:
             del view   # only the result's buffers may keep the record pinned
         # In deterministic mode the arrays viewing the ring are the payload's.
@@ -418,8 +476,11 @@ class ProcessPool:
             viewing = [v for v in payload.values() if isinstance(v, np.ndarray) and v.size
                        and np.may_share_memory(v, mem)]
             if viewing:
-                add_counters(self.counters, {"zero_copy_batches": 1,
-                                             "zero_copy_bytes": sum(v.nbytes for v in viewing)})
+                nbytes = sum(v.nbytes for v in viewing)
+                add_counters(self.counters, {"zero_copy_batches": 1, "zero_copy_bytes": nbytes})
+                if self.telemetry is not None:
+                    self.telemetry.counter("transport.zero_copy_batches").add(1)
+                    self.telemetry.counter("transport.zero_copy_bytes").add(nbytes)
         return result
 
     def _check_pinned_stall(self):
@@ -498,9 +559,18 @@ def _worker_bootstrap(worker_id, worker_class, worker_args, conn_fd, parent_pid,
         send_ctrl(_WorkerReady(worker_id))
         while not ring.producer_closed and (item := next_item()) is not None:
             args, kwargs = item
+            # In trace mode the reader adds the item's lineage id: the decode
+            # is sent back as a span under it (this process's clock is not
+            # the consumer's, so only its duration travels).
+            trace = kwargs.pop("trace_context", None)
+            t0 = time.perf_counter()
             worker.process(*args, **kwargs)
+            busy_s = time.perf_counter() - t0
+            spans = ([("petastorm_tpu.worker_decode", "decode", busy_s, trace,
+                       f"worker:{worker_id}")] if trace is not None else None)
             send_ctrl(VentilatedItemProcessedMessage(worker_id, worker.take_counters(),
-                                                     kwargs.get(ITEM_CONTEXT_KWARG)))
+                                                     kwargs.get(ITEM_CONTEXT_KWARG),
+                                                     spans=spans, busy_s=busy_s))
     except RingClosed:
         pass   # the consumer stopped and closed the ring: a clean exit
     except Exception as e:  # noqa: BLE001 - shipped to the consumer

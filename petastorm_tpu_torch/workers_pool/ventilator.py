@@ -133,6 +133,17 @@ class ConcurrentVentilator:
         return {"epoch": epoch, "offset": offset, "seed": self._seed,
                 "randomized": self._randomize}
 
+    @property
+    def inflight(self) -> int:
+        """Ventilated-but-unprocessed items now: what the ``ventilator.backlog``
+        gauge samples."""
+        with self._inflight_cv:
+            return self._inflight
+
+    @property
+    def max_inflight(self) -> int:
+        return self._max_inflight
+
     def completed(self) -> bool:
         """True when every item of every pass was ventilated, or the
         ventilator was stopped (it will never ventilate again)."""

@@ -1321,3 +1321,68 @@ def test_the_torch_adapter_defaults_to_the_card(cuda_device, tmp_path):
         batches = list(pytorch.BatchedDataLoader(r, batch_size=8, transform_fn=np.flip))
     assert isinstance(batches[0]["id"], np.ndarray) and batches[0]["flag"].dtype == np.bool_
     assert batches[0]["id"].tolist() == list(range(7, -1, -1))
+
+
+def _load_example(name: str):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / name / "main.py"
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_imagenet_example_trains_resnet50_through_k1_on_card(cuda_device, tmp_path):
+    """``examples/torch_imagenet`` at the JAX example's sizes (ResNet-50,
+    224x224, 100 classes, batch 8 a device), 30 steps on a 512-row store:
+    K1 once a step (and the warm-up's), the loss finite and falling."""
+    from petastorm_tpu_torch.benchmark.imagenet_bench import write_synthetic_imagenet
+    example = _load_example("torch_imagenet")
+    url = f"file://{tmp_path}/imagenet"
+    write_synthetic_imagenet(url, 512)
+    kernels.reset_launch_counts()
+    result = example.train(url, steps=30, batch_size=8, device="cuda", log=lambda _: None)
+    losses = result["losses"]
+    assert kernels.launch_counts == {KERNEL_NAME: 31}
+    assert len(losses) == 30 and np.isfinite(losses).all()
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+    assert result["stall_report"]["steps"] >= 30
+
+
+def test_llm_tokens_example_trains_through_the_flash_kernels_on_card(cuda_device, tmp_path):
+    """``examples/torch_llm_tokens`` at the JAX example's sizes (4,096 chunks,
+    vocab 256, batch 8, windows of 4 chunks, 40 steps): K2 ("lse"), K3 and
+    K4 once a layer a step, the loss finite and falling."""
+    example = _load_example("torch_llm_tokens")
+    url = f"file://{tmp_path}/tokens"
+    example.write_token_stream(url, 4096, 256)
+    kernels.reset_launch_counts()
+    result = example.train(url, device="cuda", log=lambda _: None)
+    losses = result["losses"]
+    per_kernel = 2 * 41   # 2 layers, the warm-up step and 40 more
+    assert kernels.launch_counts == {flash_attn.KERNEL_NAME: per_kernel,
+                                     flash_attn.BWD_DQ_KERNEL_NAME: per_kernel,
+                                     flash_attn.BWD_DKV_KERNEL_NAME: per_kernel}
+    assert len(losses) == 40 and np.isfinite(losses).all()
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+
+
+def test_long_context_example_on_two_ranks_on_card(cuda_device, tmp_path):
+    """``examples/torch_long_context`` at the JAX example's sizes (8,192
+    chunks, vocab 256, windows of 8 chunks, 2 sequences a shard, 30 steps)
+    on 2 ranks sharing the card, ring attention with the flash local step:
+    every rank launches K2 "stats", K3 and K4, and the window's loss, equal
+    on the ranks, is finite and falls."""
+    import importlib
+    example = importlib.import_module("examples.torch_long_context.main")
+    url = f"file://{tmp_path}/lc"
+    example.write_token_stream(url, 8192, 256)
+    results = example.train(url, ranks=2, device="cuda")
+    losses = results[0]["losses"]
+    assert results[1]["losses"] == losses
+    assert len(losses) == 30 and np.isfinite(losses).all()
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+    for r in results:
+        assert {flash_attn.STATS_KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
+                flash_attn.BWD_DKV_KERNEL_NAME} <= set(r["launches"]), r["launches"]

@@ -85,3 +85,49 @@ def test_spark_to_vit_through_make_spark_converter(tmp_path, spark_session):
         assert np.isfinite(losses).all()
     finally:
         converter.delete()
+
+
+def test_imagenet_example_trains_through_k1_on_the_cpu(tmp_path, monkeypatch):
+    """The ResNet step with flips, crops and K1's plain version on CPU
+    tensors; a small net (the stages patched) on 32-pixel images; the loss
+    is finite and falls, and the loader's stall report covers the steps."""
+    example = _load_example("torch_imagenet")
+    from petastorm_tpu_torch.benchmark.imagenet_bench import write_synthetic_imagenet
+    from petastorm_tpu_torch.models import resnet
+    monkeypatch.setattr(resnet, "_RESNET50_STAGES", ((1, 8), (1, 16)))
+    url = f"file://{tmp_path}/imagenet"
+    write_synthetic_imagenet(url, 256, classes=4, image_size=32, rows_per_row_group=32)
+    result = example.train(url, steps=24, batch_size=16, classes=4, device="cpu", workers=2,
+                           log=lambda _: None)
+    losses = result["losses"]
+    assert len(losses) == 24 and np.isfinite(losses).all()
+    assert np.mean(losses[-6:]) < np.mean(losses[:6])
+    assert result["stall_report"]["steps"] >= 24 and result["samples_per_sec"] > 0
+
+
+def test_llm_tokens_example_trains_on_the_cpu(tmp_path):
+    """NGram windows through ``DataLoader`` into the Llama step with the
+    flash attention wrapper (its plain version on CPU tensors)."""
+    example = _load_example("torch_llm_tokens")
+    url = f"file://{tmp_path}/tokens"
+    example.write_token_stream(url, 512, 64, rows_per_row_group=64)
+    result = example.train(url, steps=10, batch_size=4, window=2, vocab=64, device="cpu",
+                           log=lambda _: None)
+    losses = result["losses"]
+    assert len(losses) == 10 and np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]) and result["tokens_per_sec"] > 0
+
+
+def test_long_context_example_on_two_cpu_gloo_ranks(tmp_path):
+    """The command line on 2 spawned CPU ranks (ring attention, the flash
+    local step's plain version): the script itself asserts that the loss
+    fell."""
+    out = subprocess.run([sys.executable, "examples/torch_long_context/main.py", "--url",
+                          f"file://{tmp_path}/lc", "--chunks", "1024", "--vocab", "64",
+                          "--window", "4", "--steps", "12", "--ranks", "2", "--device", "cpu"],
+                         cwd=REPO, capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("mesh dp1 x sp2")]
+    assert line and "seq_len=256" in line[0]
+    assert np.isfinite(float(line[0].split("final_loss=")[1].split()[0]))

@@ -109,7 +109,12 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.tools.spark_session_cli",
             "petastorm_tpu_torch.etl.generate_metadata",
             "petastorm_tpu_torch.etl.metadata_util", "examples.torch_hello_world.main",
-            "examples.torch_mnist.main", "examples.torch_spark_to_vit.main"} <= set(modules)
+            "examples.torch_mnist.main", "examples.torch_spark_to_vit.main",
+            "petastorm_tpu_torch.telemetry", "petastorm_tpu_torch.telemetry.histogram",
+            "petastorm_tpu_torch.telemetry.registry", "petastorm_tpu_torch.telemetry.recorder",
+            "petastorm_tpu_torch.telemetry.stall", "petastorm_tpu_torch.telemetry.trace",
+            "petastorm_tpu_torch.telemetry.exporters", "examples.torch_imagenet.main",
+            "examples.torch_llm_tokens.main", "examples.torch_long_context.main"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -177,7 +182,17 @@ WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
                   "petastorm_tpu_torch.etl.rowgroup_indexers",
                   "petastorm_tpu_torch.test_util.transforms",
                   "petastorm_tpu_torch.reader_impl.epoch_plan",
-                  "petastorm_tpu_torch.reader_impl.batch_plane")
+                  "petastorm_tpu_torch.reader_impl.batch_plane",
+                  "petastorm_tpu_torch.workers_pool.thread_pool",
+                  "petastorm_tpu_torch.workers_pool.dummy_pool")
+
+#: The telemetry core: workers record spans and ship them to the parent, so
+#: it imports without torch (and without the JAX package's telemetry).
+TELEMETRY_MODULES = ("petastorm_tpu_torch.telemetry", "petastorm_tpu_torch.telemetry.histogram",
+                     "petastorm_tpu_torch.telemetry.registry",
+                     "petastorm_tpu_torch.telemetry.recorder",
+                     "petastorm_tpu_torch.telemetry.stall", "petastorm_tpu_torch.telemetry.trace",
+                     "petastorm_tpu_torch.telemetry.exporters")
 
 
 def test_worker_modules_import_without_torch():
@@ -194,6 +209,15 @@ def test_worker_modules_import_without_torch():
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr[-3000:]
+
+
+def test_telemetry_imports_with_torch_blocked():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKER, *TELEMETRY_MODULES], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO),
+                               "BLOCK_ALSO": "torch"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"imported {len(TELEMETRY_MODULES)}" in proc.stdout
 
 
 def test_package_exports_load_on_first_use():
