@@ -387,6 +387,26 @@ result line):
    ``NdarrayCodec`` cells read by ``make_reader`` with the batch decode
    and with one ``np.load`` a cell, in turns: rows/s, and the two decodes
    bit-equal.
+22. the resilience plane (``petastorm_tpu_torch.resilience``) on phase 4's
+   store. (a) 8 processes -> ``DataLoader(256)`` -> K1 (bit-equal on every
+   batch) -> phase 9's ResNet-50 step, one clean epoch, then one under
+   ``worker_crash_budget=1`` with worker 3 killed (``worker_kill`` at its
+   second item): every row id exactly once, finite losses, one crash, at
+   least one re-sent item, one ring reclaimed; the two epochs' seconds
+   logged. The controls must fail: budget 0 raises ``RuntimeError``, a
+   second kill ``CrashBudgetExceededError``. (b) 8 threads under transient
+   ``ioerror`` faults (rate ``PH22_IO_RATE``) and one corruption, in
+   ``degraded_mode`` -> ``DataLoader(256, drop_last=False)`` -> K1: the
+   rows are the store's less exactly the quarantined group, retries were
+   made, ``quarantine_report()`` names the group; without
+   ``degraded_mode`` the reader raises. (c) 8 threads under seeded
+   ``latency`` faults with jitter on ``rowgroup.read``, a
+   ``StageDeadline`` and a ``HedgePolicy`` -> K1: the same id stream as a
+   clean run, straggler events and hedge wins logged, samples/s beside the
+   clean run's. (d) 8 processes with worker 2 hung on its first item
+   under ``hang_timeout_s``: the watchdog kills that worker (and no
+   other), the epoch completes with every row once, and
+   ``watchdog_report()`` is logged.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -810,6 +830,15 @@ PH21_BATCH_WORKERS = 4
 PH21_OVH_TURNS, PH21_OVH_BATCHES = 2, 16
 PH21_DECODE_ROWS, PH21_DECODE_GROUP, PH21_DECODE_WORKERS, PH21_DECODE_TURNS = \
     50_000, 2048, 8, 2
+# The resilience plane (phase 22), on phase 4's store: (b)'s transient
+# fault rate and retry attempts (PH22_IO_RATE ** PH22_ATTEMPTS makes an
+# extra give-up vanishingly rare), (c)'s latency faults (rate, base and
+# jitter seconds), soft and hard budgets and hedge delay, and (d)'s
+# watchdog timeout.
+PH22_IO_RATE, PH22_ATTEMPTS = 0.2, 6
+PH22_LATENCY_RATE, PH22_LATENCY_S, PH22_JITTER_S = 0.5, 0.4, 0.4
+PH22_SOFT_S, PH22_HARD_S, PH22_HEDGE_S = 0.4, 5.0, 0.05
+PH22_HANG_S = 3.0
 #: The JAX loaders' stage_breakdown() keys (petastorm_tpu/jax/loader.py:880-887).
 JAX_STAGE_KEYS = {"decode_s", "pool_queue_s", "shuffle_s", "host_wait_s", "stage_s",
                   "device_put_wait_s"}
@@ -5797,6 +5826,200 @@ def phase_telemetry(smi: str, slice_url: str, converter_url: str, tmp: str) -> d
     return {KERNEL_NAME: launches.get(KERNEL_NAME, 0)}
 
 
+def _resilient_epoch(reader, what: str, failures: list, step=None, drop_last=True) -> dict:
+    """One epoch of ``reader`` through ``DataLoader(BATCH, device="cuda")``
+    and K1 (bit-equal to its plain version on every batch), then ``step``
+    (a training step) when given: the ids in delivery order, the losses,
+    the seconds and the reader's resilience counters."""
+    ids, losses = [], []
+    t0 = time.perf_counter()
+    with DataLoader(reader, batch_size=BATCH, device="cuda", drop_last=drop_last) as loader:
+        for batch in loader:
+            images = normalize_images(batch["image"])
+            check_close(images, normalize_images_plain(batch["image"]),
+                        f"{what} batch {len(ids) // BATCH}")
+            ids.extend(batch["id"].tolist())
+            if step is not None:
+                losses.append(step(images, batch["id"]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counters = reader.telemetry.snapshot()["counters"]
+    losses = [v.item() for v in losses]
+    if not all(np.isfinite(losses)):
+        failures.append(f"{what}: non-finite loss {losses}")
+    return {"ids": ids, "losses": losses, "seconds": seconds,
+            "counters": {k: v for k, v in counters.items()
+                         if k.startswith("resilience.") or k == "transport.rings_reclaimed"},
+            "rows_per_s": len(ids) / seconds}
+
+
+def _expect_raise(make, error, what: str, failures: list) -> str:
+    """``make()``'s reader read to its end must raise ``error``: the
+    control's verdict."""
+    try:
+        with make() as reader:
+            for _ in reader:
+                pass
+    except error as e:
+        return f"{type(e).__name__}: {str(e)[:120]}"
+    except Exception as e:  # noqa: BLE001 - the wrong error fails the control
+        failures.append(f"{what}: raised {type(e).__name__}, not {error.__name__}: {e}")
+        return f"{type(e).__name__} (wrong error)"
+    failures.append(f"{what}: the reader did not raise {error.__name__}")
+    return "no error"
+
+
+def phase_resilience(smi: str, slice_url: str) -> dict:
+    """Phase 22: the resilience plane on phase 4's store (see the module
+    docstring)."""
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch import resilience as res
+    failures = []
+    all_ids = list(range(ROWS))
+    kernels.reset_launch_counts()
+
+    # (a) A killed decode process under a crash budget, into ResNet-50.
+    params = resnet.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                IMAGENET_CLASSES, device="cuda")
+    init_opt, raw_step = resnet.make_train_step(learning_rate=0.05)
+    opt = init_opt(params)
+
+    def step(images, ids):
+        nonlocal params, opt
+        params, opt, loss, _ = raw_step(params, opt, {"image": images,
+                                                      "label": ids % IMAGENET_CLASSES})
+        return loss
+
+    def process_reader(plan=None, budget=0, **kwargs):
+        return make_reader(slice_url, reader_pool_type="process", workers_count=WORKERS,
+                           seed=0, fault_plan=plan, worker_crash_budget=budget, **kwargs)
+
+    kill = lambda worker: res.FaultSpec("worker.item", "worker_kill", at=2, worker=worker)
+    # One step on a zero batch first, so neither timed epoch pays the
+    # step's first-call costs.
+    step(torch.zeros((BATCH,) + IMAGE_SHAPE, dtype=torch.bfloat16, device="cuda"),
+         torch.zeros(BATCH, dtype=torch.int64, device="cuda")).item()
+    clean = _resilient_epoch(process_reader(), "(a) clean", failures, step)
+    killed = _resilient_epoch(process_reader(res.FaultPlan([kill(3)]), budget=1),
+                              "(a) worker 3 killed", failures, step)
+    c = killed["counters"]
+    log(f"[resilience] (a) ({smi}) phase 4's store on {WORKERS} processes -> DataLoader({BATCH}) "
+        f"-> K1 -> ResNet-50, one epoch each: clean {clean['seconds']:.3f} s "
+        f"({clean['rows_per_s']:.1f} rows/s), worker 3 killed at its second item under "
+        f"worker_crash_budget=1 {killed['seconds']:.3f} s ({killed['rows_per_s']:.1f} rows/s); "
+        f"{len(killed['ids'])} rows, {len(set(killed['ids']))} distinct; counters {c}; losses "
+        f"{[round(v, 4) for v in killed['losses']]}")
+    for run, what in ((clean, "clean"), (killed, "killed")):
+        if sorted(run["ids"]) != all_ids:
+            failures.append(f"(a) {what}: {len(run['ids'])} rows, {len(set(run['ids']))} "
+                            f"distinct, not every id once")
+    if c.get("resilience.worker_crashes") != 1 or c.get("resilience.reventilated_items", 0) < 1 \
+            or c.get("transport.rings_reclaimed") != 1:
+        failures.append(f"(a) counters {c}")
+    del params, opt, init_opt, raw_step
+    free_cuda()
+    budget0 = _expect_raise(lambda: process_reader(res.FaultPlan([kill(3)])), RuntimeError,
+                            "(a) budget 0", failures)
+    twice = _expect_raise(lambda: process_reader(res.FaultPlan([kill(3), kill(1)]), budget=1),
+                          res.CrashBudgetExceededError, "(a) two kills", failures)
+    log(f"[resilience] (a) controls: budget 0 -> {budget0}; two kills under budget 1 -> {twice}")
+
+    # (b) Retries and quarantine on threads.
+    policy = res.RetryPolicy(max_attempts=PH22_ATTEMPTS,
+                             backoff=res.ExponentialBackoff(base=0.01, multiplier=2.0, cap=0.05),
+                             seed=0)
+    # The corruption first and pinned to one worker: which access it hits
+    # does not then depend on the threads' timing.
+    plan_b = lambda: res.FaultPlan([
+        res.FaultSpec("rowgroup.read", "corruption", at=2, worker=1),
+        res.FaultSpec("rowgroup.read", "ioerror", rate=PH22_IO_RATE)], seed=22)
+
+    def thread_reader(plan=None, **kwargs):
+        return make_reader(slice_url, reader_pool_type="thread", workers_count=WORKERS, seed=0,
+                           fault_plan=plan, **kwargs)
+
+    reader = thread_reader(plan_b(), retry_policy=policy, degraded_mode=True)
+    degraded = _resilient_epoch(reader, "(b)", failures, drop_last=False)
+    report = reader.quarantine_report()
+    pieces = report["pieces"]
+    group_ids = []
+    if len(pieces) == 1:
+        with open(pieces[0]["path"], "rb") as f:
+            group_ids = pq.ParquetFile(f).read_row_group(
+                pieces[0]["row_group"], columns=["id"]).column("id").to_pylist()
+    raised = _expect_raise(lambda: thread_reader(plan_b(), retry_policy=policy),
+                           res.InjectedCorruptionError, "(b) without degraded_mode", failures)
+    c = degraded["counters"]
+    log(f"[resilience] (b) ({smi}) {WORKERS} threads, ioerror rate {PH22_IO_RATE} and one "
+        f"corruption, degraded_mode -> DataLoader({BATCH}, drop_last=False) -> K1: "
+        f"{len(degraded['ids'])} rows ({len(set(degraded['ids']))} distinct) in "
+        f"{degraded['seconds']:.3f} s; counters {c}; quarantine_report: {report['quarantined']} "
+        f"group(s) {[(p['path'].rsplit('/', 1)[-1], p['row_group'], p['error_type'], p['attempts'], p['worker_id']) for p in pieces]} "
+        f"holding ids {group_ids[:3]}...; without degraded_mode: {raised}")
+    if len(pieces) != 1 or len(group_ids) != ROWS_PER_GROUP \
+            or pieces[0]["error_type"] != "InjectedCorruptionError":
+        failures.append(f"(b) quarantine report {report}")
+    if sorted(degraded["ids"]) != sorted(set(all_ids) - set(group_ids)):
+        failures.append(f"(b) {len(degraded['ids'])} rows are not the store less the group")
+    if not c.get("resilience.retries_total", 0) > 0 \
+            or c.get("resilience.quarantined_rowgroups") != 1:
+        failures.append(f"(b) counters {c}")
+
+    # (c) Stragglers: latency faults with jitter, budgets, hedged reads.
+    clean = _resilient_epoch(thread_reader(), "(c) clean", failures)
+    reader = thread_reader(
+        res.FaultPlan([res.FaultSpec("rowgroup.read", "latency", rate=PH22_LATENCY_RATE,
+                                     latency_s=PH22_LATENCY_S,
+                                     latency_jitter_s=PH22_JITTER_S)], seed=22),
+        stage_deadline_s=res.StageDeadline(soft_s=PH22_SOFT_S, hard_s=PH22_HARD_S),
+        hedge_policy=res.HedgePolicy(fallback_delay_s=PH22_HEDGE_S, min_delay_s=0.005,
+                                     min_samples=10 ** 9))
+    slow = _resilient_epoch(reader, "(c) stragglers", failures)
+    events = reader.telemetry.events("resilience.straggler")
+    c = slow["counters"]
+    log(f"[resilience] (c) ({smi}) {WORKERS} threads -> DataLoader({BATCH}) -> K1, latency faults "
+        f"(rate {PH22_LATENCY_RATE}, {PH22_LATENCY_S} s + up to {PH22_JITTER_S} s jitter), "
+        f"StageDeadline({PH22_SOFT_S}, {PH22_HARD_S}), hedge after {PH22_HEDGE_S} s: "
+        f"{slow['rows_per_s']:.1f} samples/s against the clean run's {clean['rows_per_s']:.1f} "
+        f"({slow['seconds']:.3f} s against {clean['seconds']:.3f} s); counters {c}; "
+        f"{len(events)} resilience.straggler event(s), e.g. "
+        f"{[e['payload'] for e in events[:2]]}; the id stream equal to the clean run's: "
+        f"{slow['ids'] == clean['ids']}")
+    if slow["ids"] != clean["ids"] or sorted(clean["ids"]) != all_ids:
+        failures.append("(c) the id stream differs from the clean run's")
+    if not c.get("resilience.hedge_wins", 0) > 0 or not events \
+            or not c.get("resilience.stragglers_total", 0) > 0:
+        failures.append(f"(c) counters {c}, {len(events)} straggler events")
+
+    # (d) A hung process worker and the watchdog.
+    reader = process_reader(
+        res.FaultPlan([res.FaultSpec("worker.item", "latency", at=1, worker=2,
+                                     latency_s=600.0)]),
+        budget=1, hang_timeout_s=PH22_HANG_S)
+    hung = _resilient_epoch(reader, "(d)", failures)
+    wd = reader.watchdog_report()
+    c = hung["counters"]
+    log(f"[resilience] (d) ({smi}) {WORKERS} processes, worker 2 hung on its first item, "
+        f"hang_timeout_s={PH22_HANG_S} -> DataLoader({BATCH}) -> K1: epoch of "
+        f"{len(hung['ids'])} rows in {hung['seconds']:.3f} s; counters {c}; watchdog_report "
+        f"{ {k: v for k, v in wd.items() if k != 'last_stack_dump'} }, stack dump of "
+        f"{len(wd.get('last_stack_dump') or {})} thread(s)")
+    if sorted(hung["ids"]) != all_ids or c.get("resilience.watchdog_kills") != 1 \
+            or c.get("resilience.worker_crashes") != 1 or wd.get("aborted"):
+        failures.append(f"(d) {len(hung['ids'])} rows, counters {c}, report aborted "
+                        f"{wd.get('aborted')}")
+
+    launches = dict(kernels.launch_counts)
+    expect = (2 * (ROWS // BATCH) + -(-(ROWS - ROWS_PER_GROUP) // BATCH) + 2 * (ROWS // BATCH)
+              + ROWS // BATCH)
+    if launches != {KERNEL_NAME: expect}:
+        failures.append(f"launches {launches}, expected {KERNEL_NAME}: {expect}")
+    log(f"[resilience] launches {launches}")
+    if failures:
+        raise AssertionError("resilience phase: " + "; ".join(failures))
+    return {KERNEL_NAME: launches.get(KERNEL_NAME, 0)}
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """``t`` seen as integers of its width, so that equality is bit equality."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -5875,6 +6098,10 @@ def main() -> int:
             tele = timed("21 telemetry", phase_telemetry, smi,
                          f"file://{slice_tmp}/imagenet_like", f"file://{tmp}/converter_cache",
                          tmp)
+        free_cuda()
+        # Phase 22 reads phase 4's store again.
+        resil = timed("22 resilience", phase_resilience, smi,
+                      f"file://{slice_tmp}/imagenet_like")
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
@@ -5890,7 +6117,8 @@ def main() -> int:
         "replaces": "petastorm_tpu/ops/image_ops.py:27",
         "launches": (launches + proc["normalize"] + resume.get(KERNEL_NAME, 0)
                      + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]
-                     + lazy[KERNEL_NAME] + conv[KERNEL_NAME] + tele[KERNEL_NAME]),
+                     + lazy[KERNEL_NAME] + conv[KERNEL_NAME] + tele[KERNEL_NAME]
+                     + resil[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

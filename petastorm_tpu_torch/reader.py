@@ -42,6 +42,15 @@ ventilator and results-queue gauges, the workers' decode and, on
 processes, the transport. :attr:`Reader.diagnostics` is the pool's counters
 with a snapshot of it. ``PETASTORM_TPU_TELEMETRY_EXPORT=<path>`` makes every
 reader write snapshots there until it stops (``.prom``: Prometheus text).
+
+The JAX package's resilience arguments (:mod:`petastorm_tpu_torch.resilience`)
+apply on every pool: ``retry_policy`` and ``degraded_mode`` (retry a failed
+row group, then quarantine it: :meth:`Reader.quarantine_report`),
+``fault_plan``, ``stage_deadline_s`` and ``hedge_policy`` (latency
+budgets and hedged reads in the workers), ``hang_timeout_s`` (a
+:class:`~petastorm_tpu_torch.resilience.PipelineWatchdog`:
+:meth:`Reader.watchdog_report`) and, on processes, ``worker_crash_budget``
+(a dead worker's row groups go to the survivors).
 """
 from __future__ import annotations
 
@@ -346,7 +355,14 @@ def make_reader(dataset_url: str,
                 row_materialization: str = "eager",
                 storage_options: Optional[dict] = None,
                 filesystem=None,
-                pool_profiling_enabled: bool = False) -> "Reader":
+                pool_profiling_enabled: bool = False,
+                retry_policy=None,
+                degraded_mode: bool = False,
+                fault_plan=None,
+                worker_crash_budget: int = 0,
+                stage_deadline_s=None,
+                hedge_policy=None,
+                hang_timeout_s: Optional[float] = None) -> "Reader":
     """Reader over a store written by ``materialize_dataset_local`` (either
     package's).
 
@@ -428,9 +444,36 @@ def make_reader(dataset_url: str,
     :param pool_profiling_enabled: cProfile the thread pool and print the
         statistics when it is joined (ignored, with a warning, on the other
         pools)
+    :param retry_policy: a :class:`~petastorm_tpu_torch.resilience.RetryPolicy`
+        for each row group's load and decode in the workers; default
+        :data:`~petastorm_tpu_torch.resilience.DEFAULT_READ_POLICY`
+    :param degraded_mode: a row group that still fails after the retries is
+        quarantined (skipped, with its provenance in
+        :meth:`Reader.quarantine_report`) instead of failing the reader
+    :param fault_plan: a :class:`~petastorm_tpu_torch.resilience.FaultPlan`
+        of seeded injected faults (tests and benchmarks)
+    :param worker_crash_budget: on processes, the worker deaths tolerated:
+        a dead worker's row groups go to the surviving workers (0: a death
+        raises ``RuntimeError``, more than N raise
+        :class:`~petastorm_tpu_torch.resilience.CrashBudgetExceededError`)
+    :param stage_deadline_s: each load-and-decode attempt's latency budget:
+        a number ``h`` is a hard deadline ``h`` with a soft one at ``h/2``,
+        or a :class:`~petastorm_tpu_torch.resilience.StageDeadline`. Soft
+        overruns are counted (``resilience.straggler`` events); hard ones
+        cancel the attempt into the retries and the quarantine
+    :param hedge_policy: a :class:`~petastorm_tpu_torch.resilience.HedgePolicy`:
+        a row-group read that straggles past a tracked delay races a
+        duplicate read; the first wins, the same bytes either way
+    :param hang_timeout_s: start a
+        :class:`~petastorm_tpu_torch.resilience.PipelineWatchdog`: when the
+        consumer waits this long with no progress anywhere in the pipeline,
+        the thread stacks go to the registry's events and the watchdog
+        escalates nudge -> cancel (kill the stuck workers, on processes
+        with a crash budget) -> ``PipelineHungError``
 
-    On ``reader_pool_type="process"`` the predicate and the transform must
-    pickle into a spawned worker: a ``ValueError`` says so at construction.
+    On ``reader_pool_type="process"`` the predicate, the transform and the
+    retry policy must pickle into a spawned worker: a ``ValueError`` says so
+    at construction.
     """
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
     cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
@@ -445,7 +488,10 @@ def make_reader(dataset_url: str,
                   transform_spec=transform_spec, rowgroup_subset=rowgroup_subset,
                   sample_order=sample_order, shuffle_window=shuffle_window,
                   row_materialization=row_materialization, storage_options=storage_options,
-                  filesystem=filesystem)
+                  filesystem=filesystem, retry_policy=retry_policy, degraded_mode=degraded_mode,
+                  fault_plan=fault_plan, worker_crash_budget=worker_crash_budget,
+                  stage_deadline_s=stage_deadline_s, hedge_policy=hedge_policy,
+                  hang_timeout_s=hang_timeout_s)
 
 
 def make_batch_reader(dataset_url: str,
@@ -472,7 +518,14 @@ def make_batch_reader(dataset_url: str,
                       shuffle_window: int = 0,
                       storage_options: Optional[dict] = None,
                       filesystem=None,
-                      pool_profiling_enabled: bool = False) -> "Reader":
+                      pool_profiling_enabled: bool = False,
+                      retry_policy=None,
+                      degraded_mode: bool = False,
+                      fault_plan=None,
+                      worker_crash_budget: int = 0,
+                      stage_deadline_s=None,
+                      hedge_policy=None,
+                      hang_timeout_s: Optional[float] = None) -> "Reader":
     """Columnar reader of any Parquet store (several files, with or without
     petastorm metadata; a store without it gets a schema inferred from its
     Arrow schema): one batch of ``{column: ndarray}`` per row group,
@@ -524,7 +577,10 @@ def make_batch_reader(dataset_url: str,
                   rowgroup_selector=rowgroup_selector, filters=filters, shard_seed=shard_seed,
                   transform_spec=transform_spec, rowgroup_subset=rowgroup_subset,
                   sample_order=sample_order, shuffle_window=shuffle_window,
-                  storage_options=storage_options, filesystem=filesystem)
+                  storage_options=storage_options, filesystem=filesystem,
+                  retry_policy=retry_policy, degraded_mode=degraded_mode, fault_plan=fault_plan,
+                  worker_crash_budget=worker_crash_budget, stage_deadline_s=stage_deadline_s,
+                  hedge_policy=hedge_policy, hang_timeout_s=hang_timeout_s)
 
 
 def _check_sample_order(sample_order: str, shuffle_window: int) -> None:
@@ -663,6 +719,9 @@ class Reader:
     gate's). ``row_materialization`` is ``'lazy'`` when the workers publish
     :class:`ColumnarBatch` es (always ``'eager'`` for a batched reader).
     ``telemetry`` is the pipeline's registry (see the module docstring).
+    ``quarantine`` is the :class:`~petastorm_tpu_torch.resilience.RowGroupQuarantine`
+    of the row groups given up on, ``watchdog`` the
+    :class:`~petastorm_tpu_torch.resilience.PipelineWatchdog` or None.
     """
 
     def __init__(self, dataset_url, pool, schema_fields, shuffle_row_groups,
@@ -671,7 +730,9 @@ class Reader:
                  shuffle_row_drop_partitions=1, predicate=None, rowgroup_selector=None,
                  filters=None, shard_seed=None, transform_spec=None, rowgroup_subset=None,
                  sample_order="free", shuffle_window=0, row_materialization="eager",
-                 storage_options=None, filesystem=None):
+                 storage_options=None, filesystem=None, retry_policy=None, degraded_mode=False,
+                 fault_plan=None, worker_crash_budget=0, stage_deadline_s=None,
+                 hedge_policy=None, hang_timeout_s=None):
         if rowgroup_subset is not None and cur_shard is not None:
             raise ValueError("rowgroup_subset and cur_shard/shard_count are mutually exclusive: "
                              "an explicit ordinal subset is a shard assignment")
@@ -729,6 +790,8 @@ class Reader:
         if isinstance(pool, ProcessPool):
             _check_spawnable("predicate", predicate)
             _check_spawnable("transform_spec", transform_spec)
+            # A policy's classifier crosses too: a module-level function.
+            _check_spawnable("retry_policy", retry_policy)
 
         all_row_groups = load_row_groups(ctx)
         row_groups = _plan_row_groups(ctx, all_row_groups, filters, predicate,
@@ -802,13 +865,20 @@ class Reader:
                                * max(1, pool.workers_count))
         # Before start(): the workers time their items into it.
         pool.telemetry = self.telemetry
+        resilience_args = self._attach_resilience(pool, worker_crash_budget, stage_deadline_s,
+                                                  hedge_policy, hang_timeout_s)
+        spawned = isinstance(pool, ProcessPool)
         worker_args = {"dataset_url": dataset_url, "view_schema": view_schema,
                        "output_schema": self.schema, "predicate": predicate,
                        "transform_spec": transform_spec, "shuffle_rows": shuffle_rows,
                        "seed": seed, "sample_order": sample_order,
                        "storage_options": storage_options,
-                       # A spawned worker resolves the URL itself.
-                       "filesystem": None if isinstance(pool, ProcessPool) else filesystem}
+                       # A spawned worker resolves the URL itself, and retries
+                       # without the registry (it counts locally).
+                       "filesystem": None if spawned else filesystem,
+                       "retry_policy": retry_policy, "degraded_mode": degraded_mode,
+                       "fault_plan": fault_plan, **resilience_args,
+                       "resilience_telemetry": None if spawned else self.telemetry}
         if is_batched_reader:
             if isinstance(pool, ProcessPool) and not convert_early_to_numpy:
                 # Columns as views over the Arrow buffers in the ring.
@@ -827,11 +897,58 @@ class Reader:
                         "decode_verdict": verdict,
                         "row_materialization": self.row_materialization},
                        ventilator=self._ventilator)
+        #: The pipeline watchdog when ``hang_timeout_s`` is set, else None;
+        #: the pool wait reports the consumer's starvation to it.
+        self.watchdog = None
+        if hang_timeout_s is not None:
+            from petastorm_tpu_torch.resilience import PipelineWatchdog
+            self.watchdog = PipelineWatchdog(
+                pool, ventilator=self._ventilator, telemetry=self.telemetry,
+                hang_timeout_s=hang_timeout_s, recovery=getattr(pool, "recovery", None),
+                cancel_token=resilience_args["cancel_token"]).start()
         export_path = os.environ.get(TELEMETRY_EXPORT_ENV)
         if export_path:
             self._telemetry_exporter = PeriodicExporter(
                 self.telemetry, export_path,
                 fmt="prometheus" if export_path.endswith(".prom") else "json").start()
+
+    def _attach_resilience(self, pool, worker_crash_budget, stage_deadline_s, hedge_policy,
+                           hang_timeout_s) -> dict:
+        """The JAX reader's resilience wiring (``reader.py:1339-1386``): the
+        quarantine on every pool, crash recovery on processes, the checks of
+        the latency arguments, and the workers' ``stage_deadline``,
+        ``hedge_policy`` and ``cancel_token``. One cancel token serves the
+        in-process workers (their checkpoints read it, the watchdog requests
+        it); spawned workers get none, there being no flag to share across
+        processes: the watchdog kills them instead."""
+        from petastorm_tpu_torch.resilience import (CancellationToken, HedgePolicy,
+                                                    RowGroupQuarantine, StageDeadline,
+                                                    WorkerCrashRecovery)
+        self.quarantine = RowGroupQuarantine(telemetry=self.telemetry)
+        pool.quarantine = self.quarantine
+        if worker_crash_budget:
+            if isinstance(pool, ProcessPool):
+                pool.recovery = WorkerCrashRecovery(worker_crash_budget,
+                                                    telemetry=self.telemetry)
+            else:
+                # In-process workers cannot die apart from the trainer.
+                warnings.warn("worker_crash_budget only applies to "
+                              "reader_pool_type='process'; ignored")
+        stage_deadline = StageDeadline.from_arg(stage_deadline_s)
+        if hedge_policy is not None and not isinstance(hedge_policy, HedgePolicy):
+            raise TypeError(f"hedge_policy must be a petastorm_tpu_torch.resilience.HedgePolicy "
+                            f"(or None), got {type(hedge_policy).__name__}")
+        if hang_timeout_s is not None and hang_timeout_s <= 0:
+            raise ValueError(f"hang_timeout_s must be positive, got {hang_timeout_s}")
+        cancel_token = (CancellationToken()
+                        if (stage_deadline is not None or hang_timeout_s is not None)
+                        and not isinstance(pool, ProcessPool) else None)
+        if hasattr(pool, "stage_deadline"):
+            # In-process pools also hold whole items (decode and publish) to
+            # the soft budget.
+            pool.stage_deadline = stage_deadline
+        return {"stage_deadline": stage_deadline, "hedge_policy": hedge_policy,
+                "cancel_token": cancel_token}
 
     def _make_ventilate_fn(self, pool, ordinal_of):
         """``pool.ventilate``, adding in trace mode the item's lineage id
@@ -1015,9 +1132,17 @@ class Reader:
         taken out, so the pool wait and ``worker.decode_s`` stay apart."""
         pool = self._pool
         inline0 = getattr(pool, "inline_decode_s", 0.0)
+        watchdog = self.watchdog
         t0 = time.perf_counter()
         with self.telemetry.span("petastorm_tpu.pool_wait", stage="deliver", track="consumer"):
-            result = pool.get_results()
+            if watchdog is None:
+                result = pool.get_results()
+            else:
+                watchdog.enter_wait()
+                try:
+                    result = pool.get_results()
+                finally:
+                    watchdog.exit_wait()
         wait = time.perf_counter() - t0 - (getattr(pool, "inline_decode_s", 0.0) - inline0)
         self._pool_wait_hist.observe(max(0.0, wait))
         return result
@@ -1058,6 +1183,18 @@ class Reader:
         epoch, offset = self._ventilator.watermark(delivered)
         return {"epoch": epoch, "offset": offset, "items": self._num_items, "seed": self._seed}
 
+    def quarantine_report(self) -> dict:
+        """The row groups given up on so far in degraded mode: their count,
+        tallies by error type and state, and each piece's provenance (path,
+        row group, exception, attempts, worker). The JAX package's schema."""
+        return self.quarantine.report()
+
+    def watchdog_report(self) -> dict:
+        """The watchdog's state: hangs detected and recovered, the ladder's
+        stage, whether it aborted, the latest stack dump. Empty without
+        ``hang_timeout_s``."""
+        return {} if self.watchdog is None else self.watchdog.report()
+
     def reset(self):
         """Start another pass; only legal once the current one is consumed."""
         if not self.last_row_consumed:
@@ -1077,6 +1214,8 @@ class Reader:
         self._pool.stop()
 
     def join(self):
+        if self.watchdog is not None:
+            self.watchdog.stop()
         self._pool.join()
 
     def __enter__(self):

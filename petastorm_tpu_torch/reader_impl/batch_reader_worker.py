@@ -13,7 +13,9 @@ columns and publishes the table. The consumer turns it into
 ``{column: ndarray}`` with :func:`arrow_table_to_numpy_dict`; on the
 process pool that happens over the Arrow buffers in the shared-memory
 ring, without a copy. With ``convert_early_to_numpy`` the worker converts
-instead and publishes the dict.
+instead and publishes the dict. Retries, quarantine, fault sites, stage
+deadlines and hedged reads are the row worker's
+(:func:`~petastorm_tpu_torch.reader_impl.row_reader_worker.init_resilience`).
 """
 from __future__ import annotations
 
@@ -23,9 +25,12 @@ from typing import Optional
 import numpy as np
 import pyarrow as pa
 
-from petastorm_tpu_torch.reader_impl.row_reader_worker import (_ParquetFileLRU,
-                                                               apply_batched_transform,
+from petastorm_tpu_torch.reader_impl.row_reader_worker import (apply_batched_transform,
+                                                               deadline_checkpoint,
+                                                               init_resilience,
                                                                item_shuffle_rng,
+                                                               read_row_group_maybe_hedged,
+                                                               run_guarded_item,
                                                                select_drop_partition)
 from petastorm_tpu_torch.reader_impl.epoch_plan import OrderedUnit
 from petastorm_tpu_torch.workers_pool.worker_base import WorkerBase
@@ -39,17 +44,21 @@ class BatchReaderWorker(WorkerBase):
     :class:`~petastorm_tpu_torch.reader_impl.epoch_plan.OrderedUnit` an item
     with ``"deterministic"``, as the row worker publishes), and
     ``storage_options`` and ``filesystem`` (or None), how the store's files
-    are reached."""
+    are reached, and the row worker's resilience keys."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
-        self._files = None
+        self._files = self._fs = None
         self._rng = np.random.default_rng(
             None if args["seed"] is None else args["seed"] + worker_id)
         self._ordered = args.get("sample_order", "free") == "deterministic"
+        init_resilience(self, args)
 
     def process(self, rowgroup, shuffle_row_drop_partition=(0, 1), shuffle_context=None):
-        result = self._build_result(rowgroup, shuffle_row_drop_partition, shuffle_context)
+        # The whole load and transform is the retry unit; the publish stays
+        # outside the guard, so a retried item never publishes twice.
+        result = run_guarded_item(self, rowgroup, shuffle_context, lambda: self._build_result(
+            rowgroup, shuffle_row_drop_partition, shuffle_context))
         if self._ordered and shuffle_context is not None:
             self.publish_func(OrderedUnit(shuffle_context,
                                           kind="data" if result is not None else "empty",
@@ -63,6 +72,9 @@ class BatchReaderWorker(WorkerBase):
         table = self._load_table(rowgroup, set(view_schema.fields), self.args.get("predicate"),
                                  drop_part,
                                  item_shuffle_rng(self.args["seed"], shuffle_context, self._rng))
+        # Stage boundary (read done, transform ahead): a hard-overrun or
+        # watchdog-cancelled attempt stops here.
+        deadline_checkpoint(self)
         if table is None or table.num_rows == 0:
             return None
         if spec is not None and spec.func is not None:
@@ -78,19 +90,7 @@ class BatchReaderWorker(WorkerBase):
         return table
 
     def _read_table(self, rowgroup, columns) -> pa.Table:
-        if self._files is None:
-            from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext
-            ctx = DatasetContext(self.args["dataset_url"],
-                                 storage_options=self.args.get("storage_options"),
-                                 filesystem=self.args.get("filesystem"))
-            self._files = _ParquetFileLRU(ctx.filesystem)
-        pf = self._files.get(rowgroup.path)
-        names = set(pf.schema_arrow.names)
-        # Workers are the parallelism unit: arrow's own threads would only
-        # oversubscribe the cores.
-        table = pf.read_row_group(rowgroup.row_group,
-                                  columns=[c for c in sorted(columns) if c in names],
-                                  use_threads=False)
+        table = read_row_group_maybe_hedged(self, rowgroup, columns)
         # Hive partition keys are path components, not file columns.
         for key, value in rowgroup.partition_values:
             if key in columns and key not in table.column_names:

@@ -21,8 +21,21 @@ over numeric columns, else row by row.
 
 The worker builds every handle it needs (the filesystem, open files) from
 the dataset URL inside its own thread or process.
+
+Each item's load and decode run under the worker's
+:class:`~petastorm_tpu_torch.resilience.RowGroupGuard` (retries per the
+reader's ``retry_policy``; in ``degraded_mode`` a row group that still
+fails is quarantined, and in deterministic mode a ``skip`` unit takes its
+place in the stream), each attempt under the reader's ``stage_deadline``
+and cancel token, and the row-group read through a
+:class:`~petastorm_tpu_torch.resilience.HedgedReadExecutor` when the reader
+has a ``hedge_policy``. A ``fault_plan`` fires at ``worker.item`` (once an
+item) and ``rowgroup.read`` (once a read attempt), as in the JAX package's
+workers.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import pyarrow as pa
@@ -31,6 +44,7 @@ import pyarrow.parquet as pq
 from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec, pin_decode_verdict
 from petastorm_tpu_torch.reader_impl.batch_plane import ColumnarBatch
 from petastorm_tpu_torch.reader_impl.epoch_plan import OrderedUnit
+from petastorm_tpu_torch.resilience.quarantine import RowGroupSkipped
 from petastorm_tpu_torch.workers_pool.worker_base import WorkerBase
 
 
@@ -42,20 +56,195 @@ class _ParquetFileLRU:
         self._capacity = capacity
         self._files = {}
 
+    def evict(self, path: str) -> None:
+        """Close and forget ``path``'s handle (a retry reopens the file)."""
+        f = self._files.pop(path, None)
+        if f is not None:
+            try:
+                f.close()
+            except Exception:  # noqa: BLE001 - a broken handle is being dropped anyway
+                pass
+
     def get(self, path: str) -> pq.ParquetFile:
         if path in self._files:
             self._files[path] = self._files.pop(path)  # refresh recency
             return self._files[path]
         if len(self._files) >= self._capacity:
-            self._files.pop(next(iter(self._files))).close()
+            self.evict(next(iter(self._files)))
         f = pq.ParquetFile(self._fs.open(path, "rb"))
         self._files[path] = f
         return f
 
     def close_all(self) -> None:
-        for f in self._files.values():
-            f.close()
-        self._files.clear()
+        for path in list(self._files):
+            self.evict(path)
+
+
+class _HedgeHandlePool:
+    """Free-list of private single-file handle caches for racing read
+    attempts. A hedged attempt never touches the worker's ``_files`` LRU
+    (neither thread-safe nor safe to evict under a concurrent reader, and
+    a losing attempt is abandoned mid-read): checkout is exclusive, and a
+    cache goes back to the list when its attempt ends, so later hedges
+    reuse warm handles. Idle caches beyond ``max_idle`` close on release."""
+
+    def __init__(self, filesystem, max_idle: int = 4):
+        self._fs = filesystem
+        self._max_idle = max_idle
+        self._idle: list = []
+        self._lock = threading.Lock()
+
+    def acquire(self) -> _ParquetFileLRU:
+        with self._lock:
+            if self._idle:
+                return self._idle.pop()
+        return _ParquetFileLRU(self._fs, capacity=1)
+
+    def release(self, lru: _ParquetFileLRU) -> None:
+        with self._lock:
+            if len(self._idle) < self._max_idle:
+                self._idle.append(lru)
+                return
+        lru.close_all()
+
+
+def publish_ordered_skip(worker, shuffle_context) -> None:
+    """Deterministic-mode skip envelope, shared by both reader workers:
+    published on the data stream before the :class:`RowGroupSkipped`
+    unwind reaches the pool, so the reorder gate learns the skipped
+    position no later than any unit after it from the same worker."""
+    if worker._ordered and shuffle_context is not None:
+        worker.publish_func(OrderedUnit(shuffle_context, kind="skip"))
+
+
+def _read_row_group(files: _ParquetFileLRU, rowgroup, columns, fault_plan=None,
+                    worker_id: int = 0):
+    """One row-group read attempt (the guard owns the retries): the
+    ``rowgroup.read`` fault site, then the group's ``columns`` that the
+    file holds."""
+    if fault_plan is not None:
+        fault_plan.fire("rowgroup.read", key=str(rowgroup.path), worker_id=worker_id)
+    pf = files.get(rowgroup.path)
+    names = set(pf.schema_arrow.names)
+    # Workers are the parallelism unit: arrow's own threads would only
+    # oversubscribe the cores.
+    return pf.read_row_group(rowgroup.row_group,
+                             columns=[c for c in sorted(columns) if c in names],
+                             use_threads=False)
+
+
+def read_row_group_maybe_hedged(worker, rowgroup, columns):
+    """The row-group read both workers share: inline through the worker's
+    handle LRU, or, with a ``hedge_policy``, raced against a duplicate
+    read once it straggles (:class:`~petastorm_tpu_torch.resilience.HedgedReadExecutor`).
+    Both racing attempts use private handle caches from the worker's
+    :class:`_HedgeHandlePool`; they read the same immutable row group, so
+    the winner's bytes are the same either way. The fault plan fires per
+    attempt, as real storage misbehaves per request."""
+    if worker._hedger is None:
+        return _read_row_group(worker._files, rowgroup, columns,
+                               fault_plan=worker._fault_plan, worker_id=worker.worker_id)
+    if worker._hedge_files is None:
+        worker._hedge_files = _HedgeHandlePool(worker._fs)
+
+    def attempt(_cancel):
+        private = worker._hedge_files.acquire()
+        try:
+            return _read_row_group(private, rowgroup, columns, fault_plan=worker._fault_plan,
+                                   worker_id=worker.worker_id)
+        finally:
+            worker._hedge_files.release(private)
+
+    return worker._hedger.read(attempt, attempt, key=str(rowgroup.path))
+
+
+def init_resilience(worker, args) -> None:
+    """Both reader workers' failure boundary and straggler defence: the
+    :class:`~petastorm_tpu_torch.resilience.RowGroupGuard`, the fault plan,
+    the per-attempt stage deadline (soft overruns are straggler telemetry,
+    hard ones cancel the attempt into the guard), the cancel token the
+    watchdog requests, and the hedged-read executor. In-process pools pass
+    the reader's registry as ``resilience_telemetry``; spawned workers get
+    None and count locally."""
+    from petastorm_tpu_torch.resilience import (HedgedReadExecutor, RowGroupGuard,
+                                                StragglerMonitor)
+    telemetry = args.get("resilience_telemetry")
+    worker._guard = RowGroupGuard(policy=args.get("retry_policy"),
+                                  degraded_mode=args.get("degraded_mode", False),
+                                  worker_id=worker.worker_id, telemetry=telemetry)
+    worker._fault_plan = args.get("fault_plan")
+    worker._deadline = args.get("stage_deadline")
+    worker._cancel_token = args.get("cancel_token")
+    worker._active_timer = None
+    worker._straggler = (StragglerMonitor(worker._deadline, telemetry=telemetry,
+                                          site="worker.attempt")
+                         if worker._deadline is not None else None)
+    policy = args.get("hedge_policy")
+    worker._hedger = (HedgedReadExecutor(policy, telemetry=telemetry, worker_id=worker.worker_id)
+                      if policy is not None else None)
+    worker._hedge_files = None   # a _HedgeHandlePool, made on the first hedged read
+
+
+def open_files(worker) -> None:
+    """The worker's filesystem and handle LRU, made on its first item from
+    the dataset URL (inside the worker's own thread or process)."""
+    if worker._files is None:
+        from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext
+        ctx = DatasetContext(worker.args["dataset_url"],
+                             storage_options=worker.args.get("storage_options"),
+                             filesystem=worker.args.get("filesystem"))
+        worker._fs = ctx.filesystem
+        worker._files = _ParquetFileLRU(ctx.filesystem)
+
+
+def run_guarded_item(worker, rowgroup, shuffle_context, build):
+    """One work item through the worker's guard: the ``worker.item`` fault
+    site, then ``build()`` retried per the policy, each attempt under the
+    stage deadline (the timer is armed for the attempt, nested code reaches
+    it through :func:`deadline_checkpoint`, ``finish()`` discards a
+    completed-but-late result and a soft overrun that still delivered is
+    counted as a straggler). A cancel token without a deadline still arms
+    a cancellation-only timer, so the watchdog's cancel rung has
+    checkpoints to reach. A retry closes the file's handle. On a
+    quarantine give-up the deterministic skip unit is published before the
+    :class:`RowGroupSkipped` goes on to the pool."""
+    open_files(worker)
+    if worker._fault_plan is not None:
+        worker._fault_plan.fire("worker.item", key=str(rowgroup.path), worker_id=worker.worker_id)
+
+    def on_retry(_attempt, _exc, _delay):
+        worker._files.evict(rowgroup.path)
+
+    attempt = build
+    if worker._deadline is not None or worker._cancel_token is not None:
+        from petastorm_tpu_torch.resilience import DeadlineTimer
+
+        def attempt():
+            timer = DeadlineTimer(worker._deadline, worker._cancel_token)
+            worker._active_timer = timer
+            try:
+                result = build()
+                elapsed = timer.finish()
+            finally:
+                worker._active_timer = None
+            if worker._straggler is not None:
+                worker._straggler.observe(elapsed, key=str(rowgroup.path),
+                                          worker_id=worker.worker_id)
+            return result
+    try:
+        return worker._guard.run(attempt, rowgroup, on_retry=on_retry)
+    except RowGroupSkipped:
+        publish_ordered_skip(worker, shuffle_context)
+        raise
+
+
+def deadline_checkpoint(worker) -> None:
+    """Cooperative cancellation point between an attempt's stages (after
+    the read): raises ``StageDeadlineExceeded`` on a hard overrun or a
+    pending watchdog cancel request; no-op without an armed timer."""
+    timer = worker._active_timer
+    if timer is not None:
+        timer.check()
 
 
 #: numpy dtypes of Arrow's fixed-width numeric types, by their Arrow names.
@@ -180,8 +369,12 @@ class RowReaderWorker(WorkerBase):
     one ``ColumnarBatch`` an item, no row dicts) and ``sample_order``: with
     ``"deterministic"`` every item publishes one
     :class:`~petastorm_tpu_torch.reader_impl.epoch_plan.OrderedUnit`,
-    ``empty`` when no row was kept; ``storage_options`` and ``filesystem``
-    (or None), how the store's files are reached.
+    ``empty`` when no row was kept (``skip`` when the row group was
+    quarantined); ``storage_options`` and ``filesystem`` (or None), how the
+    store's files are reached; ``retry_policy``, ``degraded_mode``,
+    ``fault_plan``, ``stage_deadline``, ``hedge_policy``, ``cancel_token``
+    and ``resilience_telemetry`` (all optional), read by
+    :func:`init_resilience`.
 
     Its counters (:meth:`take_counters`): ``images_native``, the image
     cells the native batch call decoded, and ``images_codec``, those that
@@ -190,7 +383,8 @@ class RowReaderWorker(WorkerBase):
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
         from petastorm_tpu_torch.utils.decode import NativeImageSkipMemo
-        self._files = None
+        self._files = self._fs = None
+        init_resilience(self, args)
         self._native_img_skip = NativeImageSkipMemo()
         self._counters = {}
         self._rng = np.random.default_rng(
@@ -220,7 +414,11 @@ class RowReaderWorker(WorkerBase):
                 pass
 
     def process(self, rowgroup, shuffle_row_drop_partition=(0, 1), shuffle_context=None):
-        result = self._build_result(rowgroup, shuffle_row_drop_partition, shuffle_context)
+        # The whole load and decode is the retry unit (corrupt bytes fail the
+        # decode as often as the read); the publish stays outside the guard,
+        # so a retried item never publishes twice.
+        result = run_guarded_item(self, rowgroup, shuffle_context, lambda: self._build_result(
+            rowgroup, shuffle_row_drop_partition, shuffle_context))
         if self._ordered and shuffle_context is not None:
             self.publish_func(OrderedUnit(shuffle_context, kind="data" if result else "empty",
                                           payload=result if result else None))
@@ -238,6 +436,9 @@ class RowReaderWorker(WorkerBase):
         else:
             data, num_rows = self._read_columns(rowgroup, self._needed)
             indices = select_drop_partition(num_rows, *drop_part, self.args["shuffle_rows"], rng)
+        # Stage boundary (read done, decode ahead): a hard-overrun or
+        # watchdog-cancelled attempt stops here instead of paying the decode.
+        deadline_checkpoint(self)
 
         batched = func is not None and spec.batched
         if ngram is None and (self._lazy or batched):
@@ -268,19 +469,7 @@ class RowReaderWorker(WorkerBase):
     def _read_columns(self, rowgroup, columns):
         """``({column: per-row values}, rows)`` of the row group's
         ``columns``, hive partition keys included."""
-        if self._files is None:
-            from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext
-            ctx = DatasetContext(self.args["dataset_url"],
-                                 storage_options=self.args.get("storage_options"),
-                                 filesystem=self.args.get("filesystem"))
-            self._files = _ParquetFileLRU(ctx.filesystem)
-        pf = self._files.get(rowgroup.path)
-        names = set(pf.schema_arrow.names)
-        # Workers are the parallelism unit: arrow's own threads would only
-        # oversubscribe the cores.
-        table = pf.read_row_group(rowgroup.row_group,
-                                  columns=[c for c in sorted(columns) if c in names],
-                                  use_threads=False)
+        table = read_row_group_maybe_hedged(self, rowgroup, columns)
         data = {name: _column_values(table.column(name)) for name in table.column_names}
         # Hive partition keys are path components, not file columns.
         for key, value in rowgroup.partition_values:

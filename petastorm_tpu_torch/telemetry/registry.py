@@ -4,9 +4,10 @@ One :class:`TelemetryRegistry` instance covers one pipeline end-to-end — the
 Reader creates it, hands it to its worker pool and ventilator, and a loader
 consuming that reader adopts the same instance, so a single ``snapshot()``
 shows decode, queueing, shuffling, and staging side by side. The snapshot
-schema is the JAX package's (``SNAPSHOT_SCHEMA_VERSION`` 1), without its
-``events``, ``timeline``, ``explain`` and ``quality`` attachments, which
-this package does not produce.
+schema is the JAX package's (``SNAPSHOT_SCHEMA_VERSION`` 1), with its
+``events`` (structured records such as the watchdog's stack dumps and the
+straggler monitor's records) and without its ``timeline``, ``explain`` and
+``quality`` attachments, which this package does not produce.
 
 Metric names are dotted (``reader.pool_wait_s``); exporters sanitize them
 for their format (Prometheus rewrites ``.`` to ``_``).
@@ -17,6 +18,7 @@ import os
 import threading
 import time
 import uuid
+from collections import deque
 from typing import Callable, Dict, Optional, Sequence
 
 from petastorm_tpu_torch.telemetry.histogram import StreamingHistogram
@@ -101,12 +103,19 @@ class TelemetryRegistry:
     """Get-or-create keyed metric store. All accessors are thread-safe and
     idempotent: the first caller fixes a histogram's bucket bounds."""
 
+    #: Events retained per event name (a ring per name, so a chatty event,
+    #: per-straggler records, can never evict a rare one, a watchdog stack
+    #: dump).
+    EVENTS_PER_NAME = 16
+
     def __init__(self, span_capacity: int = 4096,
                  spans_enabled: bool = False):
         self._lock = threading.Lock()
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, StreamingHistogram] = {}
+        self._events: Dict[str, deque] = {}
+        self._event_seq = 0
         self.recorder = SpanRecorder(capacity=span_capacity,
                                      enabled=spans_enabled)
         # Every recorded span carrying a stage also accrues the stage's
@@ -184,8 +193,30 @@ class TelemetryRegistry:
         with self._lock:
             return self._histograms.get(name)
 
+    def record_event(self, name: str, payload: dict) -> None:
+        """Append one JSON-safe structured event under ``name`` (cold-path
+        provenance that fits neither a counter nor a histogram: watchdog
+        stack dumps, straggler records). Bounded: the newest
+        :data:`EVENTS_PER_NAME` per name are kept; each carries a
+        monotonically increasing ``seq`` so readers can tell how many were
+        dropped between snapshots."""
+        with self._lock:
+            q = self._events.get(name)
+            if q is None:
+                q = self._events[name] = deque(maxlen=self.EVENTS_PER_NAME)
+            self._event_seq += 1
+            q.append({"seq": self._event_seq, "payload": payload})
+
+    def events(self, name: Optional[str] = None):
+        """Retained events: ``{name: [event, ...]}``, or one name's list."""
+        with self._lock:
+            if name is not None:
+                return list(self._events.get(name, ()))
+            return {k: list(v) for k, v in sorted(self._events.items())}
+
     def snapshot(self, include_trace: bool = True) -> dict:
-        """JSON-safe point-in-time view of every registered metric.
+        """JSON-safe point-in-time view of every registered metric. The
+        ``events`` key is present only when events were recorded.
         ``include_trace=False`` omits the raw ``trace_events`` payload in
         trace mode — for periodic writers that would otherwise serialize
         the whole span ring every tick (the final flush includes it)."""
@@ -204,6 +235,9 @@ class TelemetryRegistry:
                            for k, h in sorted(histograms.items())},
             "spans": self.recorder.aggregate(),
         }
+        events = self.events()
+        if events:
+            snap["events"] = events
         if include_trace and self.recorder.trace_enabled:
             # Trace mode: raw lineage spans ride the snapshot so exported
             # files carry what `to_chrome_trace` renders.
@@ -213,8 +247,8 @@ class TelemetryRegistry:
         return snap
 
     def reset(self) -> dict:
-        """Zero counters/histograms and drain spans, returning the pre-reset
-        snapshot. Atomic per metric: each counter/histogram is read AND
+        """Zero counters/histograms and drain spans and events, returning the
+        pre-reset snapshot. Atomic per metric: each counter/histogram is read AND
         zeroed under one lock hold (:meth:`Counter.reset`,
         :meth:`StreamingHistogram.drain`), so a concurrent ``add()`` /
         ``observe()`` lands either in the returned snapshot or in the new
@@ -224,6 +258,8 @@ class TelemetryRegistry:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
             histograms = dict(self._histograms)
+            events = {k: list(v) for k, v in sorted(self._events.items())}
+            self._events.clear()
         drained_spans = self.recorder.drain()
         out = {
             "schema_version": SNAPSHOT_SCHEMA_VERSION,
@@ -236,6 +272,8 @@ class TelemetryRegistry:
                            for k, h in sorted(histograms.items())},
             "spans": SpanRecorder.aggregate_spans(drained_spans),
         }
+        if events:
+            out["events"] = events
         if self.recorder.trace_enabled and drained_spans:
             out["trace_events"] = [sp.as_dict() for sp in drained_spans]
         return out

@@ -19,6 +19,14 @@ class IdentityWorker(WorkerBase):
         self.publish_func(value)
 
 
+class ContextIdentityWorker(WorkerBase):
+    """Publishes ``value``; takes the ventilator's item context as the
+    reader's workers do (crash recovery tracks items by it)."""
+
+    def process(self, value, shuffle_context=None):
+        self.publish_func(value)
+
+
 class MultiOutputWorker(WorkerBase):
     """Publishes one result per element of the ventilated list."""
 

@@ -8,12 +8,16 @@ With a telemetry registry (``pool.telemetry``) the inline decode is timed
 into ``worker.decode_s`` and ``pool.w0.*``, and summed in
 :attr:`DummyPool.inline_decode_s`, which the reader subtracts from its pool
 wait so the two stages stay apart.
+
+The thread pool's resilience hooks (``quarantine``, ``stage_deadline``,
+``heartbeats``, ``abort()``) apply here too, inline.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 
+from petastorm_tpu_torch.resilience.quarantine import RowGroupSkipped, RowGroupSkippedMessage
 from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
                                               VentilatedItemProcessedMessage, add_counters)
 
@@ -35,11 +39,23 @@ class DummyPool:
         self._decode_hist = None
         #: Seconds of decode run inside ``get_results`` (with a registry).
         self.inline_decode_s = 0.0
+        #: The reader's ``RowGroupQuarantine``: skip records go there.
+        self.quarantine = None
+        #: A ``StageDeadline`` whose soft budget each whole item is held to.
+        self.stage_deadline = None
+        self._straggler = None
+        #: The monotonic time of the last item boundary (one inline worker).
+        self.heartbeats = [0.0]
+        self._abort_exc = None
 
     def start(self, worker_class, worker_args=None, ventilator=None):
         if self._worker is not None:
             raise RuntimeError("DummyPool already started")
         self._worker = worker_class(0, self._results.append, worker_args)
+        if self.stage_deadline is not None:
+            from petastorm_tpu_torch.resilience.deadline import StragglerMonitor
+            self._straggler = StragglerMonitor(self.stage_deadline, telemetry=self.telemetry,
+                                               scope="item", site="pool.item")
         if ventilator is not None:
             self._ventilator = ventilator
             self._ventilator.start()
@@ -50,10 +66,18 @@ class DummyPool:
 
     def get_results(self):
         while True:
+            # The watchdog's abort outranks the stop: the consumer sees the
+            # hang's diagnosis, not an end of data.
+            if self._abort_exc is not None:
+                raise self._abort_exc
             if self._stopped:
                 raise EmptyResultError()
             while self._results:
                 result = self._results.popleft()
+                if isinstance(result, RowGroupSkippedMessage):
+                    if self.quarantine is not None:
+                        self.quarantine.add(result.record)
+                    continue
                 if isinstance(result, VentilatedItemProcessedMessage):
                     self._processed += 1
                     add_counters(self.counters, result.counters)
@@ -66,9 +90,14 @@ class DummyPool:
             if self._pending:
                 args, kwargs = self._pending.popleft()
                 self._processing_context = kwargs.get(ITEM_CONTEXT_KWARG)
+                self.heartbeats[0] = time.monotonic()
+                t0 = time.perf_counter()
                 self._process(args, kwargs)
                 self._results.append(VentilatedItemProcessedMessage(
                     0, self._worker.take_counters(), self._processing_context))
+                self.heartbeats[0] = time.monotonic()
+                if self._straggler is not None:
+                    self._straggler.observe(time.perf_counter() - t0, worker_id=0)
                 continue
             if self._ventilator is None or self._ventilator.completed():
                 # Re-check after seeing completion: the last item may have
@@ -83,7 +112,7 @@ class DummyPool:
         trace = kwargs.pop("trace_context", None)
         telemetry = self.telemetry
         if telemetry is None:
-            self._worker.process(*args, **kwargs)
+            self._process_item(args, kwargs)
             return
         if self._decode_hist is None:
             self._decode_hist = telemetry.histogram("worker.decode_s")
@@ -92,12 +121,20 @@ class DummyPool:
         t0 = time.perf_counter()
         with telemetry.span("petastorm_tpu.worker_decode", trace=trace, stage="decode",
                             track="worker:0"):
-            self._worker.process(*args, **kwargs)
+            self._process_item(args, kwargs)
         dt = time.perf_counter() - t0
         self._decode_hist.observe(dt)
         self.inline_decode_s += dt
         self._c_busy.add(dt)
         self._c_items.add(1)
+
+    def _process_item(self, args, kwargs):
+        try:
+            self._worker.process(*args, **kwargs)
+        except RowGroupSkipped as skip:
+            # A quarantine give-up: the record stands in for the item's data,
+            # and the processed marker the caller appends completes it.
+            self._results.append(RowGroupSkippedMessage(skip.record))
 
     def results_qsize(self) -> int:
         return len(self._results)
@@ -117,6 +154,12 @@ class DummyPool:
         if self._ventilator:
             self._ventilator.stop()
         self._stopped = True
+
+    def abort(self, exc: BaseException):
+        """The watchdog's last rung. Work runs inline in the consumer's
+        thread, so a wedged decode sees the abort only once it returns."""
+        self._abort_exc = exc
+        self.stop()
 
     def join(self):
         if self._worker is not None:

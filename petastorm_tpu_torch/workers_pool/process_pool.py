@@ -52,9 +52,24 @@ deserialization into ``transport.deserialize_s`` (and a
 mode, the ``petastorm_tpu.worker_decode`` spans that each worker sends with
 its item-processed message (``pool.w{id}.items``, ``pool.w{id}.busy_s``;
 the spans re-anchored to the consumer's clock on arrival).
+
+Crash recovery (``pool.recovery``, a
+:class:`~petastorm_tpu_torch.resilience.WorkerCrashRecovery` the reader
+sets under ``worker_crash_budget``): a dead worker is then not fatal. The
+pool knows each item's owner, since it sends each down one worker's own
+socket: once the dead worker's ring holds no unread record (what it
+published before dying is delivered first), the items it was working on or
+had queued go to the surviving workers, least loaded first, and
+``ventilate`` routes around it from then on. Its ring's reassembly buffer
+is dropped and ``transport.rings_reclaimed`` counted. More deaths than the
+budget raise :class:`~petastorm_tpu_torch.resilience.CrashBudgetExceededError`.
+A worker's :class:`~petastorm_tpu_torch.resilience.RowGroupSkipped` crosses
+the ring as a control record into ``pool.quarantine``. :meth:`ProcessPool.kill_worker`
+and :meth:`ProcessPool.abort` are the watchdog's rungs.
 """
 from __future__ import annotations
 
+import logging
 import os
 import pickle
 import subprocess
@@ -68,10 +83,14 @@ from traceback import format_exc
 
 from petastorm_tpu_torch.reader_impl.epoch_plan import OrderedUnit
 from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
+from petastorm_tpu_torch.resilience.quarantine import RowGroupSkipped, RowGroupSkippedMessage
+from petastorm_tpu_torch.resilience.recovery import CrashBudgetExceededError
 from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
                                               VentilatedItemProcessedMessage,
                                               WorkerFailure, add_counters)
 from petastorm_tpu_torch.workers_pool.exec_in_new_process import exec_in_new_process
+
+logger = logging.getLogger(__name__)
 
 _CONTROL_FINISH = "FINISH"
 _WORKER_START_TIMEOUT_S = 60
@@ -163,6 +182,12 @@ class ProcessPool:
         self._c_deser = None
         self._c_w_items = {}
         self._c_w_busy = {}
+        #: The reader's ``RowGroupQuarantine``: skip records go there.
+        self.quarantine = None
+        #: A ``WorkerCrashRecovery`` (set before :meth:`start`): dead workers'
+        #: items go to the survivors instead of failing the pool.
+        self.recovery = None
+        self._abort_exc = None
 
     @property
     def worker_pids(self):
@@ -197,7 +222,9 @@ class ProcessPool:
 
         ready = set()
         deadline = t0 + _WORKER_START_TIMEOUT_S
-        while len(ready) < self.workers_count:
+        # A worker that dies while starting spends crash budget like a later
+        # death; the handshake then waits for the survivors only.
+        while len(ready) < self.workers_count - len(self._dead_workers()):
             if time.monotonic() > deadline:
                 self.stop()
                 self.join()
@@ -217,22 +244,40 @@ class ProcessPool:
             self._ventilator = ventilator
             self._ventilator.start()
 
+    def _dead_workers(self):
+        return self.recovery.dead_workers if self.recovery is not None else ()
+
     def ventilate(self, *args, **kwargs):
-        """Send one work item to the worker with the fewest items in flight
-        (round robin among equals)."""
+        """Send one work item to the live worker with the fewest items in
+        flight (round robin among equals)."""
         with self._lock:
-            n = self.workers_count
-            wid = min(((self._next_worker + i) % n for i in range(n)),
-                      key=lambda w: self._inflight[w])
-            self._next_worker = (wid + 1) % n
-            self._inflight[wid] += 1
             self._ventilated += 1
-            self._contexts[wid].append(kwargs.get(ITEM_CONTEXT_KWARG))
-            try:
-                self._conns[wid].send((args, kwargs))
-            except OSError:
-                # The worker is gone: the consumer's liveness check raises.
-                pass
+            if self.recovery is not None:
+                self.recovery.on_ventilated(kwargs.get(ITEM_CONTEXT_KWARG), (args, kwargs))
+            self._route(args, kwargs)
+
+    def _route(self, args, kwargs):
+        """Under the lock: the item to a live worker. With recovery the item
+        at the head of a worker's queue is the one it works on, so it is
+        claimed for that worker there (the watchdog kills claimants)."""
+        n = self.workers_count
+        dead = self._dead_workers()
+        live = [w for w in ((self._next_worker + i) % n for i in range(n)) if w not in dead]
+        if not live:
+            raise RuntimeError(f"all {n} worker processes are dead")
+        wid = min(live, key=lambda w: self._inflight[w])
+        self._next_worker = (wid + 1) % n
+        self._inflight[wid] += 1
+        ctx = kwargs.get(ITEM_CONTEXT_KWARG)
+        self._contexts[wid].append(ctx)
+        if self.recovery is not None and len(self._contexts[wid]) == 1:
+            self.recovery.on_started(wid, ctx)
+        try:
+            self._conns[wid].send((args, kwargs))
+        except OSError:
+            # The worker died unseen: the liveness check raises, or with
+            # recovery re-sends its items, this one included.
+            pass
 
     def get_results(self):
         """The next published result. Raises :class:`EmptyResultError` once
@@ -242,6 +287,10 @@ class ProcessPool:
         ring full for ``_PINNED_STALL_S`` (dropping them lets a later call
         go on)."""
         while True:
+            # The watchdog's abort outranks the stop: the consumer sees the
+            # hang's diagnosis, not an end of data.
+            if self._abort_exc is not None:
+                raise self._abort_exc
             if self._stopped:
                 raise EmptyResultError()
             # The liveness check runs on a clock, not only when the rings are
@@ -267,7 +316,12 @@ class ProcessPool:
                 with self._lock:
                     self._processed += 1
                     self._inflight[msg.worker_id] -= 1
-                    self._contexts[msg.worker_id].popleft()
+                    pending = self._contexts[msg.worker_id]
+                    pending.popleft()
+                    if self.recovery is not None:
+                        self.recovery.on_processed(msg.item_context)
+                        if pending:   # the worker takes its next item now
+                            self.recovery.on_started(msg.worker_id, pending[0])
                 add_counters(self.counters, msg.counters)
                 if self.telemetry is not None:
                     self._record_worker_telemetry(msg)
@@ -276,6 +330,13 @@ class ProcessPool:
                     # message on the same ring, whatever views of it live on.
                     self._ventilator.processed_item(msg.item_context)
                 continue
+            if isinstance(msg, RowGroupSkippedMessage):
+                if self.quarantine is not None:
+                    self.quarantine.add(msg.record)
+                else:
+                    logger.warning("Row group quarantined with no aggregator attached: %s",
+                                   msg.record.piece)
+                continue   # the item's processed marker follows on this ring
             if isinstance(msg, WorkerFailure):
                 self.stop()
                 self.join()
@@ -314,6 +375,26 @@ class ProcessPool:
                 "items_inprocess": ventilated - processed,
                 "workers_count": self.workers_count,
                 "results_queue_capacity": 0}
+
+    def abort(self, exc: BaseException):
+        """The watchdog's last rung: a consumer blocked in
+        :meth:`get_results` raises ``exc`` promptly, and the pool stops."""
+        self._abort_exc = exc
+        self.stop()
+
+    def kill_worker(self, worker_id: int) -> bool:
+        """The watchdog's kill rung: SIGKILL one stuck worker. The liveness
+        check then treats it as any other death (recovered with a crash
+        budget, fatal without). Returns whether a live process was
+        signalled."""
+        if not 0 <= worker_id < len(self._processes) or self._stopped:
+            return False
+        p = self._processes[worker_id]
+        if p.poll() is not None:
+            return False
+        logger.warning("Killing stuck worker process %d (watchdog escalation)", worker_id)
+        p.kill()
+        return True
 
     def stop(self):
         """Stop ventilating, tell every worker to finish, and close the
@@ -508,9 +589,47 @@ class ProcessPool:
             rc = p.poll()
             if rc is None or rc == 0 or self._stopped:
                 continue
+            if self.recovery is None:
+                self.stop()
+                self.join()
+                raise RuntimeError(f"Worker process {i} died unexpectedly with exit code {rc}")
+            # Recovered already; or the records it published before dying
+            # (data, skips, processed markers) are still to be read: the
+            # polls drain them first, so no item is both delivered and re-sent.
+            if i not in self.recovery.dead_workers and not self._readers[i].has_pending():
+                self._recover(i, rc)
+
+    def _recover(self, wid: int, rc: int) -> None:
+        """Send the dead worker's items (the one it worked on and those
+        queued behind it) to the survivors, then reclaim its ring."""
+        try:
+            with self._lock:
+                lost = self.recovery.on_worker_death(wid, rc, queued=tuple(self._contexts[wid]))
+                self._contexts[wid].clear()
+                self._inflight[wid] = 0
+                for args, kwargs in lost:
+                    self._route(args, kwargs)
+        except CrashBudgetExceededError:
             self.stop()
             self.join()
-            raise RuntimeError(f"Worker process {i} died unexpectedly with exit code {rc}")
+            raise
+        self._reclaim_ring(wid)
+        logger.warning("Worker process %d died with exit code %s; re-sent %d item(s) to the %d "
+                       "surviving worker(s)", wid, rc, len(lost),
+                       self.workers_count - len(self.recovery.dead_workers))
+
+    def _reclaim_ring(self, idx: int) -> None:
+        """The dead worker's ring after its last record was read: claims
+        of records the consumer still views release as usual (the producer
+        is gone, so no backpressure builds); a reassembly buffer whose final
+        ``D`` frame died with the worker is dropped (its item was re-sent)."""
+        reader = self._readers[idx]
+        reader.reap()
+        stale = self._partial.pop(idx, None) is not None
+        if self.telemetry is not None:
+            self.telemetry.counter("transport.rings_reclaimed").add(1)
+        logger.info("Reclaimed dead worker %d's ring (%d record(s) still viewed%s)", idx,
+                    reader.pinned, "; dropped a partial result" if stale else "")
 
 
 # ------------------------------------------------------------- worker side
@@ -526,7 +645,10 @@ def _worker_bootstrap(worker_id, worker_class, worker_args, conn_fd, parent_pid,
     """Entry function of a spawned worker process (reference
     petastorm/workers_pool/process_pool.py:330)."""
     from petastorm_tpu_torch.native import RingClosed, make_ring
+    from petastorm_tpu_torch.resilience.faults import mark_spawned_worker
 
+    # A worker_kill fault fires only in a process marked so.
+    mark_spawned_worker()
     threading.Thread(target=_watch_parent, args=(parent_pid,), daemon=True).start()
     conn = Connection(conn_fd)
     ring = make_ring(ring_name, create=False, impl=ring_impl)
@@ -564,7 +686,11 @@ def _worker_bootstrap(worker_id, worker_class, worker_args, conn_fd, parent_pid,
             # the consumer's, so only its duration travels).
             trace = kwargs.pop("trace_context", None)
             t0 = time.perf_counter()
-            worker.process(*args, **kwargs)
+            try:
+                worker.process(*args, **kwargs)
+            except RowGroupSkipped as skip:
+                # A quarantine give-up: the record, then the processed marker.
+                send_ctrl(RowGroupSkippedMessage(skip.record))
             busy_s = time.perf_counter() - t0
             spans = ([("petastorm_tpu.worker_decode", "decode", busy_s, trace,
                        f"worker:{worker_id}")] if trace is not None else None)

@@ -15,10 +15,20 @@ With a telemetry registry (``pool.telemetry``, set by the reader before
 ``pool.w{id}.items``/``pool.w{id}.busy_s``, and records a
 ``petastorm_tpu.worker_decode`` span (with the item's lineage id in trace
 mode).
+
+Resilience hooks, set by the reader before ``start()`` as in the JAX
+package's pool: a worker's :class:`~petastorm_tpu_torch.resilience.RowGroupSkipped`
+becomes a skip record on its queue, ahead of the item's processed marker,
+and ``get_results`` adds it to ``pool.quarantine``; with a
+``stage_deadline`` each worker counts whole items past the soft budget
+(``resilience.item_stragglers_total``); ``heartbeats`` holds each worker's
+last item boundary for the watchdog, which may ``nudge()`` or ``abort()``
+the pool.
 """
 from __future__ import annotations
 
 import cProfile
+import logging
 import pstats
 import queue
 import sys
@@ -28,12 +38,18 @@ import time
 from traceback import format_exc
 from typing import Optional
 
+from petastorm_tpu_torch.resilience.quarantine import RowGroupSkipped, RowGroupSkippedMessage
 from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
                                               VentilatedItemProcessedMessage,
                                               WorkerFailure, add_counters)
 
+logger = logging.getLogger(__name__)
+
 _IO_TIMEOUT_S = 0.001
 _END_OF_VENTILATION_POLL_S = 0.1
+#: Seconds ``join()`` waits for a worker thread after an abort: a thread
+#: wedged in a read may never return, and daemon threads die with the process.
+_ABORT_JOIN_S = 5.0
 
 
 class WorkerTerminationRequested(Exception):
@@ -41,13 +57,15 @@ class WorkerTerminationRequested(Exception):
 
 
 class _WorkerThread(threading.Thread):
-    def __init__(self, worker_impl, input_queue, stop_event, put_fn, prof=None,
-                 telemetry=None):
+    def __init__(self, worker_impl, input_queue, stop_event, put_fn, heartbeats, prof=None,
+                 telemetry=None, straggler=None):
         super().__init__(name=f"pt-worker-{worker_impl.worker_id}", daemon=True)
         self._worker_impl = worker_impl
         self._input_queue = input_queue
         self._stop_event = stop_event
         self._put = put_fn
+        self._heartbeats = heartbeats
+        self._straggler = straggler
         self.prof = prof   # this worker's cProfile (before Python 3.12 only)
         self._telemetry = telemetry
         wid = worker_impl.worker_id
@@ -72,19 +90,24 @@ class _WorkerThread(threading.Thread):
                 # The lineage id the reader adds in trace mode; the worker's
                 # signature never sees it.
                 trace = kwargs.pop("trace_context", None)
+                self._heartbeats[wid] = time.monotonic()
                 t0 = time.perf_counter()
                 if self._decode_hist is not None:
                     with self._telemetry.span("petastorm_tpu.worker_decode", trace=trace,
                                               stage="decode", track=f"worker:{wid}"):
-                        self._worker_impl.process(*args, **kwargs)
+                        self._process_item(args, kwargs)
                     busy = time.perf_counter() - t0
                     self._decode_hist.observe(busy)
                     self._c_busy.add(busy)
                     self._c_items.add(1)
                 else:
-                    self._worker_impl.process(*args, **kwargs)
+                    self._process_item(args, kwargs)
                 self._put(VentilatedItemProcessedMessage(
                     wid, self._worker_impl.take_counters(), kwargs.get(ITEM_CONTEXT_KWARG)))
+                self._heartbeats[wid] = time.monotonic()
+                if self._straggler is not None:
+                    # The whole item, publishing against a full queue included.
+                    self._straggler.observe(time.perf_counter() - t0, worker_id=wid)
         except WorkerTerminationRequested:
             pass
         except Exception as e:  # noqa: BLE001 - re-raised on the consumer
@@ -97,6 +120,14 @@ class _WorkerThread(threading.Thread):
             self._worker_impl.shutdown()
             if self.prof:
                 self.prof.disable()
+
+    def _process_item(self, args, kwargs):
+        try:
+            self._worker_impl.process(*args, **kwargs)
+        except RowGroupSkipped as skip:
+            # A quarantine give-up: the record stands in for the item's
+            # data, and the processed marker still follows it.
+            self._put(RowGroupSkippedMessage(skip.record))
 
 
 class ThreadPool:
@@ -140,12 +171,25 @@ class ThreadPool:
         #: The ventilator context of the item whose result ``get_results``
         #: returned last.
         self.result_context = None
+        #: The reader's ``RowGroupQuarantine``: skip records go there.
+        self.quarantine = None
+        #: A ``StageDeadline`` whose soft budget the workers hold each whole
+        #: item to (set by the reader before ``start()``).
+        self.stage_deadline = None
+        #: Per worker, the monotonic time of its last item boundary.
+        self.heartbeats = [0.0] * workers_count
+        self._abort_exc = None
 
     def start(self, worker_class, worker_args=None, ventilator=None):
         if self._stop_event.is_set():
             raise RuntimeError("A ThreadPool cannot be restarted after stop()")
         if self._workers:
             raise RuntimeError("ThreadPool already started")
+        straggler = None
+        if self.stage_deadline is not None:
+            from petastorm_tpu_torch.resilience.deadline import StragglerMonitor
+            straggler = StragglerMonitor(self.stage_deadline, telemetry=self.telemetry,
+                                         scope="item", site="pool.item")
         for i in range(self.workers_count):
             in_q = queue.Queue()
             self._input_queues.append(in_q)
@@ -154,8 +198,8 @@ class ThreadPool:
             prof = (cProfile.Profile() if self._profiling_enabled
                     and sys.version_info < (3, 12) else None)
             self._workers.append(_WorkerThread(worker, in_q, self._stop_event,
-                                               self._make_put(i), prof=prof,
-                                               telemetry=self.telemetry))
+                                               self._make_put(i), self.heartbeats, prof=prof,
+                                               telemetry=self.telemetry, straggler=straggler))
         if self._profiling_enabled and sys.version_info >= (3, 12):
             self._prof = cProfile.Profile()
             try:
@@ -197,9 +241,12 @@ class ThreadPool:
     def get_results(self):
         """Next published result, in round-robin order. Raises
         :class:`EmptyResultError` once all ventilated work is done and
-        drained, or after ``stop()``; re-raises worker exceptions."""
+        drained, or after ``stop()``; re-raises worker exceptions, and the
+        watchdog's error after :meth:`abort`."""
         empty_sweeps = 0
         while True:
+            if self._abort_exc is not None:
+                raise self._abort_exc
             if self._stop_event.is_set():
                 raise EmptyResultError()
             # Completion is read BEFORE the drain check: an item ventilated
@@ -228,6 +275,13 @@ class ThreadPool:
                         empty_sweeps = 0
                 continue
             empty_sweeps = 0
+            if isinstance(result, RowGroupSkippedMessage):
+                if self.quarantine is not None:
+                    self.quarantine.add(result.record)
+                else:
+                    logger.warning("Row group quarantined with no aggregator attached: %s",
+                                   result.record.piece)
+                continue   # the item's processed marker follows on this queue
             if isinstance(result, VentilatedItemProcessedMessage):
                 self._processed[wid] += 1
                 self._contexts[wid].popleft()
@@ -248,9 +302,28 @@ class ThreadPool:
             self._ventilator.stop()
         self._stop_event.set()
 
+    def abort(self, exc: BaseException):
+        """The watchdog's last rung: a consumer blocked in
+        :meth:`get_results` raises ``exc`` promptly, and teardown proceeds
+        as a stop."""
+        self._abort_exc = exc
+        self.stop()
+
+    def nudge(self):
+        """The watchdog's first rung. The workers and the consumer poll
+        their queues on short timeouts and park on no condition, so there
+        is no lost wakeup to repair; the ventilator's is nudged apart."""
+
     def join(self):
         for w in self._workers:
-            w.join()
+            if self._abort_exc is None:
+                w.join()
+                continue
+            # A pipeline declared hung may hold a thread wedged for good.
+            w.join(timeout=_ABORT_JOIN_S)
+            if w.is_alive():
+                logger.warning("Worker thread %s still wedged after abort; abandoning it "
+                               "(daemon)", w.name)
         if self._prof is not None:
             self._prof.disable()
             pstats.Stats(self._prof).sort_stats("cumulative").print_stats()

@@ -144,6 +144,13 @@ class ConcurrentVentilator:
     def max_inflight(self) -> int:
         return self._max_inflight
 
+    def nudge(self) -> None:
+        """The watchdog's hook: wake the ventilation thread in case its stall
+        is a lost backpressure wakeup (harmless otherwise: it re-checks the
+        in-flight cap and waits again)."""
+        with self._inflight_cv:
+            self._inflight_cv.notify_all()
+
     def completed(self) -> bool:
         """True when every item of every pass was ventilated, or the
         ventilator was stopped (it will never ventilate again)."""

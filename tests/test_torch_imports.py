@@ -184,7 +184,14 @@ WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
                   "petastorm_tpu_torch.reader_impl.epoch_plan",
                   "petastorm_tpu_torch.reader_impl.batch_plane",
                   "petastorm_tpu_torch.workers_pool.thread_pool",
-                  "petastorm_tpu_torch.workers_pool.dummy_pool")
+                  "petastorm_tpu_torch.workers_pool.dummy_pool",
+                  "petastorm_tpu_torch.resilience", "petastorm_tpu_torch.resilience.policy",
+                  "petastorm_tpu_torch.resilience.faults",
+                  "petastorm_tpu_torch.resilience.quarantine",
+                  "petastorm_tpu_torch.resilience.recovery",
+                  "petastorm_tpu_torch.resilience.deadline",
+                  "petastorm_tpu_torch.resilience.hedging",
+                  "petastorm_tpu_torch.resilience.watchdog")
 
 #: The telemetry core: workers record spans and ship them to the parent, so
 #: it imports without torch (and without the JAX package's telemetry).
