@@ -420,6 +420,7 @@ import gc
 import hashlib
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -5853,14 +5854,18 @@ def _resilient_epoch(reader, what: str, failures: list, step=None, drop_last=Tru
             "rows_per_s": len(ids) / seconds}
 
 
-def _expect_raise(make, error, what: str, failures: list) -> str:
-    """``make()``'s reader read to its end must raise ``error``: the
-    control's verdict."""
+def _expect_raise(make, error, match: str, what: str, failures: list) -> str:
+    """``make()``'s reader read to its end must raise ``error`` with a
+    message that ``match`` (a regular expression) finds: the control's
+    verdict."""
     try:
         with make() as reader:
             for _ in reader:
                 pass
     except error as e:
+        if not re.search(match, str(e)):
+            failures.append(f"{what}: raised {type(e).__name__} without {match!r}: {e}")
+            return f"{type(e).__name__} (wrong message)"
         return f"{type(e).__name__}: {str(e)[:120]}"
     except Exception as e:  # noqa: BLE001 - the wrong error fails the control
         failures.append(f"{what}: raised {type(e).__name__}, not {error.__name__}: {e}")
@@ -5919,9 +5924,9 @@ def phase_resilience(smi: str, slice_url: str) -> dict:
     del params, opt, init_opt, raw_step
     free_cuda()
     budget0 = _expect_raise(lambda: process_reader(res.FaultPlan([kill(3)])), RuntimeError,
-                            "(a) budget 0", failures)
+                            "died unexpectedly", "(a) budget 0", failures)
     twice = _expect_raise(lambda: process_reader(res.FaultPlan([kill(3), kill(1)]), budget=1),
-                          res.CrashBudgetExceededError, "(a) two kills", failures)
+                          res.CrashBudgetExceededError, "exceed", "(a) two kills", failures)
     log(f"[resilience] (a) controls: budget 0 -> {budget0}; two kills under budget 1 -> {twice}")
 
     # (b) Retries and quarantine on threads.
@@ -5948,7 +5953,8 @@ def phase_resilience(smi: str, slice_url: str) -> dict:
             group_ids = pq.ParquetFile(f).read_row_group(
                 pieces[0]["row_group"], columns=["id"]).column("id").to_pylist()
     raised = _expect_raise(lambda: thread_reader(plan_b(), retry_policy=policy),
-                           res.InjectedCorruptionError, "(b) without degraded_mode", failures)
+                           res.InjectedCorruptionError, "injected corruption at rowgroup.read",
+                           "(b) without degraded_mode", failures)
     c = degraded["counters"]
     log(f"[resilience] (b) ({smi}) {WORKERS} threads, ioerror rate {PH22_IO_RATE} and one "
         f"corruption, degraded_mode -> DataLoader({BATCH}, drop_last=False) -> K1: "

@@ -339,26 +339,6 @@ class RingReader:
         producer's ring is drained."""
         return self._next_record(self._cursor, self.ring.head()) is not None
 
-    def discard_pending(self) -> int:
-        """Drop every published but unread record (a dead producer's, whose
-        items are re-sent elsewhere, so delivering them would duplicate
-        rows); records already read release through their claims as usual.
-        Safe with a dead producer only: nothing overwrites the span held.
-        Returns how many records were dropped."""
-        head = self.ring.head()
-        cursor, dropped = self._cursor, 0
-        while (found := self._next_record(cursor, head)) is not None:
-            rec_cursor, _, msg_len = found
-            cursor = rec_cursor + _align_up(4 + msg_len)
-            dropped += 1
-        if head > self._cursor:
-            # Up to the head, past trailing wrap markers too; a done
-            # pseudo-record over the span lets the tail pass it once every
-            # real record ahead of it is released.
-            self._cursor = head
-            self._outstanding.append([head, None, True])
-        return dropped
-
     @property
     def outstanding(self) -> int:
         """Records read but not yet released to the producer."""

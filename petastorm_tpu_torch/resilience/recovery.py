@@ -9,19 +9,14 @@ the dead worker's lost row groups onto the surviving workers and the epoch
 completes losslessly.
 
 :class:`WorkerCrashRecovery` is the ledger of who owns which in-flight
-item. It keeps the JAX package's claim protocol: an item is *claimed* by
-the worker that started it (:meth:`~WorkerCrashRecovery.on_started`), and
-claimed-but-unprocessed items of a dead worker are lost. The JAX pool
-pushes work through one shared queue, so it cannot tell an item waiting in
-a dead worker's receive buffer from one waiting at a live worker; it learns
-ownership from claim frames the workers send, and sweeps the unclaimed
-rest once the pool is quiet (:meth:`~WorkerCrashRecovery.unaccounted_after_quiesce`).
-This package's pool sends each item down one worker's own pipe, so it
-knows every item's owner when it sends it: it claims for a worker the item
-at the head of that worker's queue (the one it is working on), and on a
-death hands the ledger the contexts still queued behind it
-(``on_worker_death(..., queued=...)``), which are lost with the worker too.
-No claim frame crosses the ring and no sweep waits for the pool to quiet.
+item. The pool sends each item down one worker's own pipe, so it knows
+every item's owner when it sends it: the item at the head of a worker's
+queue is *claimed* by that worker (:meth:`~WorkerCrashRecovery.on_started`),
+the one it is working on. On a death the pool hands the ledger the contexts
+still queued behind it (``on_worker_death(..., queued=...)``); the claimed
+item and those queued are lost with the worker, and come back at once to
+be re-ventilated. No claim frame crosses the ring, and no sweep waits for
+the pool to quiet.
 
 Delivery semantics are the JAX package's: a worker killed before publishing
 its claimed item (the ``worker_kill`` fault site fires before processing,
@@ -37,15 +32,10 @@ arbitrary mid-publish crashes should dedup on a sample key downstream.
 from __future__ import annotations
 
 import threading
-import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 __all__ = ["CrashBudgetExceededError", "ItemStartedMessage",
            "WorkerCrashRecovery"]
-
-#: Idle time after which unclaimed in-flight items are deemed lost
-#: (post-crash only; live workers claim queued items within milliseconds).
-_QUIESCE_GRACE_S = 2.0
 
 
 class CrashBudgetExceededError(RuntimeError):
@@ -56,7 +46,7 @@ class ItemStartedMessage:
     """Worker -> pool control frame of the JAX package's claim protocol:
     ``worker_id`` claimed ``item_context`` and is about to process it. This
     package's pool claims from its own routing and sends none; the class
-    stays for code written against that package's API."""
+    stays in the public API that both packages export."""
 
     def __init__(self, worker_id: int, item_context):
         self.worker_id = worker_id
@@ -72,17 +62,13 @@ class WorkerCrashRecovery:
     thread calls ``ventilate``).
     """
 
-    def __init__(self, budget: int, telemetry=None,
-                 grace_s: float = _QUIESCE_GRACE_S):
+    def __init__(self, budget: int, telemetry=None):
         self.budget = budget
         self.crashes = 0
-        self._grace_s = grace_s
         self._lock = threading.Lock()
         self._inflight: Dict[Tuple, tuple] = {}   # ctx -> (args, kwargs)
         self._claims: Dict[Tuple, int] = {}       # ctx -> worker_id
-        self._swept: set = set()                  # re-sent by sweep, unclaimed
         self._dead: set = set()
-        self._last_activity = time.monotonic()
         self._crash_counter = (telemetry.counter("resilience.worker_crashes")
                                if telemetry is not None else None)
         self._revent_counter = (
@@ -90,10 +76,6 @@ class WorkerCrashRecovery:
             if telemetry is not None else None)
 
     # ------------------------------------------------------------- bookkeeping
-    def note_activity(self) -> None:
-        with self._lock:
-            self._last_activity = time.monotonic()
-
     def on_ventilated(self, ctx, item) -> None:
         """``ctx`` is the ventilator's (epoch, position); items without one
         (bare pool use) cannot be tracked and are skipped."""
@@ -107,8 +89,6 @@ class WorkerCrashRecovery:
             return
         with self._lock:
             self._claims[ctx] = worker_id
-            self._swept.discard(ctx)  # re-sent copy reached a live worker
-            self._last_activity = time.monotonic()
 
     def on_processed(self, ctx) -> None:
         if ctx is None:
@@ -116,8 +96,6 @@ class WorkerCrashRecovery:
         with self._lock:
             self._claims.pop(ctx, None)
             self._inflight.pop(ctx, None)
-            self._swept.discard(ctx)
-            self._last_activity = time.monotonic()
 
     # ------------------------------------------------------------------ crash
     def on_worker_death(self, worker_id: int, exit_code,
@@ -147,42 +125,11 @@ class WorkerCrashRecovery:
                 item = self._inflight.get(ctx)
                 if item is not None:
                     items.append(item)
-            # A new crash invalidates sweep state: an item re-sent by an
-            # earlier sweep and still unclaimed may be sitting in THIS dead
-            # worker's buffer — make it sweep-eligible again.
-            self._swept.clear()
-            self._last_activity = time.monotonic()
         if self._crash_counter is not None:
             self._crash_counter.add(1)
-        self._count_reventilated(len(items))
+            if items:
+                self._revent_counter.add(len(items))
         return items
-
-    def unaccounted_after_quiesce(self) -> List[tuple]:
-        """Post-crash sweep for items that were sitting in the dead worker's
-        receive buffer (ventilated, never claimed, never processed). Only
-        returns them once every claim is settled and no pool activity has
-        been seen for the grace period — at that point no live worker can
-        still own them."""
-        with self._lock:
-            if (self.crashes == 0 or self._claims
-                    or time.monotonic() - self._last_activity < self._grace_s):
-                return []
-            # Items stay in _inflight (a worker that claims a re-sent copy
-            # and then dies must still find them re-ventilatable); _swept
-            # keeps this sweep from returning the same items every poll
-            # while their re-sent copies are in flight to a live worker.
-            pending = {ctx: item for ctx, item in self._inflight.items()
-                       if ctx not in self._swept}
-            if not pending:
-                return []
-            self._swept.update(pending)
-            self._last_activity = time.monotonic()
-        self._count_reventilated(len(pending))
-        return list(pending.values())
-
-    def _count_reventilated(self, n: int) -> None:
-        if n and self._revent_counter is not None:
-            self._revent_counter.add(n)
 
     def claimed_workers(self) -> set:
         """Worker ids currently holding an outstanding (claimed, not yet

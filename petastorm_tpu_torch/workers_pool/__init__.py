@@ -1,5 +1,11 @@
 """Worker-pool execution runtime: a ventilator feeds work items to a pool of
 workers, whose published results the reader drains."""
+import logging
+
+from petastorm_tpu_torch.resilience.deadline import StragglerMonitor
+from petastorm_tpu_torch.resilience.quarantine import RowGroupSkippedMessage
+
+logger = logging.getLogger(__name__)
 
 
 class EmptyResultError(RuntimeError):
@@ -40,6 +46,30 @@ def add_counters(total: dict, counters: dict) -> None:
     """Sum a processed message's ``counters`` into a pool's ``total``."""
     for name, n in counters.items():
         total[name] = total.get(name, 0) + n
+
+
+def route_skip(pool, msg) -> bool:
+    """True when ``msg`` is a worker's skip record (a quarantine give-up),
+    which then goes into ``pool.quarantine``, or to the log when the reader
+    attached none. The item's processed marker follows it from the same
+    worker."""
+    if not isinstance(msg, RowGroupSkippedMessage):
+        return False
+    if pool.quarantine is not None:
+        pool.quarantine.add(msg.record)
+    else:
+        logger.warning("Row group quarantined with no aggregator attached: %s", msg.record.piece)
+    return True
+
+
+def item_straggler_monitor(pool):
+    """What holds each whole item of an in-process pool to the soft budget
+    of ``pool.stage_deadline`` (``resilience.item_stragglers_total``), or
+    None without a deadline."""
+    if pool.stage_deadline is None:
+        return None
+    return StragglerMonitor(pool.stage_deadline, telemetry=pool.telemetry, scope="item",
+                            site="pool.item")
 
 
 class WorkerFailure:

@@ -19,7 +19,8 @@ from collections import deque
 
 from petastorm_tpu_torch.resilience.quarantine import RowGroupSkipped, RowGroupSkippedMessage
 from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
-                                              VentilatedItemProcessedMessage, add_counters)
+                                              VentilatedItemProcessedMessage, add_counters,
+                                              item_straggler_monitor, route_skip)
 
 
 class DummyPool:
@@ -52,10 +53,7 @@ class DummyPool:
         if self._worker is not None:
             raise RuntimeError("DummyPool already started")
         self._worker = worker_class(0, self._results.append, worker_args)
-        if self.stage_deadline is not None:
-            from petastorm_tpu_torch.resilience.deadline import StragglerMonitor
-            self._straggler = StragglerMonitor(self.stage_deadline, telemetry=self.telemetry,
-                                               scope="item", site="pool.item")
+        self._straggler = item_straggler_monitor(self)
         if ventilator is not None:
             self._ventilator = ventilator
             self._ventilator.start()
@@ -74,9 +72,7 @@ class DummyPool:
                 raise EmptyResultError()
             while self._results:
                 result = self._results.popleft()
-                if isinstance(result, RowGroupSkippedMessage):
-                    if self.quarantine is not None:
-                        self.quarantine.add(result.record)
+                if route_skip(self, result):
                     continue
                 if isinstance(result, VentilatedItemProcessedMessage):
                     self._processed += 1

@@ -62,7 +62,9 @@ published before dying is delivered first), the items it was working on or
 had queued go to the surviving workers, least loaded first, and
 ``ventilate`` routes around it from then on. Its ring's reassembly buffer
 is dropped and ``transport.rings_reclaimed`` counted. More deaths than the
-budget raise :class:`~petastorm_tpu_torch.resilience.CrashBudgetExceededError`.
+budget raise :class:`~petastorm_tpu_torch.resilience.CrashBudgetExceededError`;
+the death of the last worker, under a budget as large as the pool, a
+``RuntimeError``. Either stops the pool first.
 A worker's :class:`~petastorm_tpu_torch.resilience.RowGroupSkipped` crosses
 the ring as a control record into ``pool.quarantine``. :meth:`ProcessPool.kill_worker`
 and :meth:`ProcessPool.abort` are the watchdog's rungs.
@@ -84,10 +86,9 @@ from traceback import format_exc
 from petastorm_tpu_torch.reader_impl.epoch_plan import OrderedUnit
 from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
 from petastorm_tpu_torch.resilience.quarantine import RowGroupSkipped, RowGroupSkippedMessage
-from petastorm_tpu_torch.resilience.recovery import CrashBudgetExceededError
 from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
                                               VentilatedItemProcessedMessage,
-                                              WorkerFailure, add_counters)
+                                              WorkerFailure, add_counters, route_skip)
 from petastorm_tpu_torch.workers_pool.exec_in_new_process import exec_in_new_process
 
 logger = logging.getLogger(__name__)
@@ -264,7 +265,9 @@ class ProcessPool:
         dead = self._dead_workers()
         live = [w for w in ((self._next_worker + i) % n for i in range(n)) if w not in dead]
         if not live:
-            raise RuntimeError(f"all {n} worker processes are dead")
+            # Only while the pool stops: _recover has raised to the consumer
+            # that no worker is left.
+            return
         wid = min(live, key=lambda w: self._inflight[w])
         self._next_worker = (wid + 1) % n
         self._inflight[wid] += 1
@@ -330,13 +333,8 @@ class ProcessPool:
                     # message on the same ring, whatever views of it live on.
                     self._ventilator.processed_item(msg.item_context)
                 continue
-            if isinstance(msg, RowGroupSkippedMessage):
-                if self.quarantine is not None:
-                    self.quarantine.add(msg.record)
-                else:
-                    logger.warning("Row group quarantined with no aggregator attached: %s",
-                                   msg.record.piece)
-                continue   # the item's processed marker follows on this ring
+            if route_skip(self, msg):
+                continue
             if isinstance(msg, WorkerFailure):
                 self.stop()
                 self.join()
@@ -607,9 +605,14 @@ class ProcessPool:
                 lost = self.recovery.on_worker_death(wid, rc, queued=tuple(self._contexts[wid]))
                 self._contexts[wid].clear()
                 self._inflight[wid] = 0
+                if len(self.recovery.dead_workers) == self.workers_count:
+                    raise RuntimeError(
+                        f"All {self.workers_count} worker processes died within "
+                        f"worker_crash_budget={self.recovery.budget} (last: worker {wid}, exit "
+                        f"code {rc}): no worker is left to take their items")
                 for args, kwargs in lost:
                     self._route(args, kwargs)
-        except CrashBudgetExceededError:
+        except RuntimeError:   # the budget is spent, or no worker is left
             self.stop()
             self.join()
             raise

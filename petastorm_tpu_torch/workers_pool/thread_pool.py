@@ -22,8 +22,7 @@ becomes a skip record on its queue, ahead of the item's processed marker,
 and ``get_results`` adds it to ``pool.quarantine``; with a
 ``stage_deadline`` each worker counts whole items past the soft budget
 (``resilience.item_stragglers_total``); ``heartbeats`` holds each worker's
-last item boundary for the watchdog, which may ``nudge()`` or ``abort()``
-the pool.
+last item boundary for the watchdog, which may ``abort()`` the pool.
 """
 from __future__ import annotations
 
@@ -41,7 +40,8 @@ from typing import Optional
 from petastorm_tpu_torch.resilience.quarantine import RowGroupSkipped, RowGroupSkippedMessage
 from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
                                               VentilatedItemProcessedMessage,
-                                              WorkerFailure, add_counters)
+                                              WorkerFailure, add_counters,
+                                              item_straggler_monitor, route_skip)
 
 logger = logging.getLogger(__name__)
 
@@ -185,11 +185,7 @@ class ThreadPool:
             raise RuntimeError("A ThreadPool cannot be restarted after stop()")
         if self._workers:
             raise RuntimeError("ThreadPool already started")
-        straggler = None
-        if self.stage_deadline is not None:
-            from petastorm_tpu_torch.resilience.deadline import StragglerMonitor
-            straggler = StragglerMonitor(self.stage_deadline, telemetry=self.telemetry,
-                                         scope="item", site="pool.item")
+        straggler = item_straggler_monitor(self)
         for i in range(self.workers_count):
             in_q = queue.Queue()
             self._input_queues.append(in_q)
@@ -275,13 +271,8 @@ class ThreadPool:
                         empty_sweeps = 0
                 continue
             empty_sweeps = 0
-            if isinstance(result, RowGroupSkippedMessage):
-                if self.quarantine is not None:
-                    self.quarantine.add(result.record)
-                else:
-                    logger.warning("Row group quarantined with no aggregator attached: %s",
-                                   result.record.piece)
-                continue   # the item's processed marker follows on this queue
+            if route_skip(self, result):
+                continue
             if isinstance(result, VentilatedItemProcessedMessage):
                 self._processed[wid] += 1
                 self._contexts[wid].popleft()
@@ -308,11 +299,6 @@ class ThreadPool:
         as a stop."""
         self._abort_exc = exc
         self.stop()
-
-    def nudge(self):
-        """The watchdog's first rung. The workers and the consumer poll
-        their queues on short timeouts and park on no condition, so there
-        is no lost wakeup to repair; the ventilator's is nudged apart."""
 
     def join(self):
         for w in self._workers:

@@ -236,24 +236,14 @@ RECOVERY_SCRIPTS = {
     "budget_exceeded": [("vent", (0, 0), "a"), ("start", 1, (0, 0)), ("death", 0),
                         ("death", 1), ("dead",)],
     "untracked": [("vent", None, "bare"), ("start", 0, None), ("done", None), ("death", 0)],
-    "sweep": [("vent", (0, 0), "buffered"), ("sweep",), ("death", 0), ("sweep",), ("sweep",)],
-    "sweep_waits_for_claims": [("vent", (0, 0), "x"), ("vent", (0, 1), "y"), ("start", 1, (0, 1)),
-                               ("death", 0), ("sweep",), ("done", (0, 1)), ("sweep",)],
-    "swept_survives_second_crash": [("vent", (0, 0), "x"), ("death", 0), ("sweep",),
-                                    ("start", 1, (0, 0)), ("death", 1), ("start", 2, (0, 0)),
-                                    ("done", (0, 0)), ("sweep",), ("claimed",)],
-    "second_crash_resweeps": [("vent", (0, 0), "x"), ("death", 0), ("sweep",), ("sweep",),
-                              ("death", 1), ("sweep",)],
 }
 
 
 @pytest.mark.parametrize("name", sorted(RECOVERY_SCRIPTS))
 def test_crash_recovery_scripts_equal_jax(name):
-    budget = 2 if "second" in name else 1
-
     def run(r, registry_class):
         registry = registry_class()
-        ledger = r.WorkerCrashRecovery(budget=budget, telemetry=registry, grace_s=0.0)
+        ledger = r.WorkerCrashRecovery(budget=1, telemetry=registry)
         out = []
         for step in RECOVERY_SCRIPTS[name]:
             op = step[0]
@@ -266,8 +256,6 @@ def test_crash_recovery_scripts_equal_jax(name):
                     ledger.on_processed(step[1])
                 elif op == "death":
                     out.append(ledger.on_worker_death(step[1], -9))
-                elif op == "sweep":
-                    out.append(ledger.unaccounted_after_quiesce())
                 elif op == "claimed":
                     out.append(sorted(ledger.claimed_workers()))
                 elif op == "dead":
@@ -297,10 +285,11 @@ def test_port_ledger_returns_queued_contexts_of_a_pipe_owner():
 
 
 # --------------------------------------------------------------- shm ring
-def test_ring_reader_has_pending_and_discard_pending():
-    """A dead producer's unread records: seen by ``has_pending``, dropped
-    by ``discard_pending``, and the ring's space comes back once the
-    record read before them, still viewed, is released."""
+def test_ring_reader_has_pending():
+    """A dead producer's unread records are seen by ``has_pending`` until
+    the consumer has read them, and the ring's space comes back once the
+    first record, still viewed, is released: what the pool's crash path
+    waits on before it reclaims the ring."""
     import gc
     from petastorm_tpu_torch.native import make_ring
     from petastorm_tpu_torch.reader_impl.shm_ring import RingReader, SegmentClaim
@@ -315,8 +304,12 @@ def test_ring_reader_has_pending_and_discard_pending():
         claim = SegmentClaim()
         claim.track(view)
         reader.claim(claim)
-        assert reader.has_pending()
-        assert reader.discard_pending() == 4
+        for i in range(1, 5):
+            assert reader.has_pending()
+            kind, rest = reader.try_read()
+            assert bytes(rest[:1]) == bytes([i])
+            rest.release()
+            reader.complete()
         assert not reader.has_pending() and reader.try_read() is None
         reader.reap()
         assert ring.tail() < ring.head()     # the viewed record pins the span
@@ -325,7 +318,6 @@ def test_ring_reader_has_pending_and_discard_pending():
         gc.collect()
         reader.reap()
         assert ring.tail() == ring.head()    # then everything comes back
-        assert reader.discard_pending() == 0
     finally:
         reader.close()
         ring.close()
@@ -500,3 +492,56 @@ def test_ventilate_after_a_kill_routes_around_the_dead_worker():
     finally:
         pool.stop()
         pool.join()
+
+
+def test_last_worker_death_stops_the_pool_under_a_budget_as_large_as_the_pool():
+    """With every worker dead and budget to spare, the consumer is told
+    that none is left, and the pool is stopped; a later ``ventilate`` is
+    dropped, not raised on the ventilator's thread."""
+    from petastorm_tpu_torch.test_util.stub_workers import ContextIdentityWorker
+    from petastorm_tpu_torch.workers_pool import ITEM_CONTEXT_KWARG
+    from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
+    registry = TelemetryRegistry()
+    pool = ProcessPool(2, ring_capacity=1 << 20)
+    pool.telemetry = registry
+    pool.recovery = tres.WorkerCrashRecovery(budget=2, telemetry=registry)
+    pool.start(ContextIdentityWorker)
+    try:
+        for pid, process in zip(pool.worker_pids, pool._processes):
+            os.kill(pid, signal.SIGKILL)
+            process.wait(timeout=10)
+        for pos in range(4):
+            pool.ventilate(value=pos, **{ITEM_CONTEXT_KWARG: (0, pos)})
+        with pytest.raises(RuntimeError, match="All 2 worker processes died"):
+            pool.get_results()
+        assert pool._stopped and pool.recovery.dead_workers == {0, 1}
+        assert registry.snapshot()["counters"]["resilience.worker_crashes"] == 2
+        pool.ventilate(value=4, **{ITEM_CONTEXT_KWARG: (0, 4)})
+    finally:
+        pool.stop()
+        pool.join()
+
+
+@pytest.mark.parametrize("with_quarantine", [True, False], ids=["quarantine", "log"])
+@pytest.mark.parametrize("pool_name", ["dummy", "thread", "process"])
+def test_every_pool_routes_a_skip_record_alike(pool_name, with_quarantine, caplog):
+    """A worker's skip record goes into the reader's quarantine, or to the
+    log when none is attached, on each pool; other results pass."""
+    from petastorm_tpu_torch.workers_pool import route_skip
+    from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
+    from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
+    from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
+    pool = {"dummy": DummyPool, "thread": lambda: ThreadPool(2),
+            "process": lambda: ProcessPool(2)}[pool_name]()
+    if with_quarantine:
+        pool.quarantine = tres.RowGroupQuarantine()
+    record = tres.QuarantineRecord(path="/d/part-0.parquet", row_group=3, error_type="E",
+                                   error_message="m", attempts=2, worker_id=1)
+    with caplog.at_level("WARNING", logger="petastorm_tpu_torch.workers_pool"):
+        assert route_skip(pool, tres.RowGroupSkippedMessage(record))
+        assert not route_skip(pool, {"id": 7})
+    if with_quarantine:
+        assert pool.quarantine.paths() == ["/d/part-0.parquet"] and not caplog.records
+    else:
+        assert [r.getMessage() for r in caplog.records] == [
+            "Row group quarantined with no aggregator attached: /d/part-0.parquet#3"]
