@@ -407,6 +407,25 @@ result line):
    under ``hang_timeout_s``: the watchdog kills that worker (and no
    other), the epoch completes with every row once, and
    ``watchdog_report()`` is logged.
+23. the IO and tuning plane: the reader's ``memory_cache_size_bytes``,
+   ``readahead_depth`` and ``autotune``. (a) Phase 4's store on 8 threads
+   with a 512 MiB decoded cache -> ``DataLoader(256)`` -> K1 (bit-equal on
+   every batch) -> phase 9's ResNet-50 step, two epochs (``num_epochs=1``,
+   reset between them, so the counts are the epochs'): every id once an
+   epoch, 32 misses and 32 inserts in the first, 32 hits and no miss in the
+   second; each epoch's pipelined step and input stall beside phase 9's
+   resident step, and the workers' seconds a group (a hit's copy against a
+   read and decode). Controls, the loader alone: no cache gives no
+   ``cache.mem.*`` counter; a 64 MiB cache evicts and hits fewer than 32
+   groups in its second epoch. (b) Phase 20's converter store -> K1 ->
+   ViT-B/16, three arms in turns (plain, ``readahead_depth=4``, and that
+   with ``autotune``), each 2 warm-up and 10 pipelined steps: the rows'
+   fingerprint multiset of each epoch equal across the arms, readahead hits
+   and a non-zero fetch edge of the critical path with readahead; each
+   arm's step ms, stall, ``readahead_report()``, the controller's verdicts
+   and history logged. (c) Phase 22 (c)'s latency faults and hedges on 8
+   threads -> K1, without and with ``readahead_depth=8``: every id once in
+   both, both samples/s logged.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -840,6 +859,16 @@ PH22_IO_RATE, PH22_ATTEMPTS = 0.2, 6
 PH22_LATENCY_RATE, PH22_LATENCY_S, PH22_JITTER_S = 0.5, 0.4, 0.4
 PH22_SOFT_S, PH22_HARD_S, PH22_HEDGE_S = 0.4, 5.0, 0.05
 PH22_HANG_S = 3.0
+# The IO and tuning plane (phase 23). (a) phase 4's store on 8 threads with a
+# decoded cache of PH23_CACHE_BYTES (the store decodes to 308.3 MB), two
+# epochs into phase 9's ResNet-50 step, then the controls read without
+# training: no cache, and a cache of PH23_SMALL_CACHE_BYTES; (b) phase 20's
+# converter store into ViT-B/16, the arms of PH23_ARMS, each VIT_WARMUP +
+# VIT_PIPELINED steps; (c) phase 22 (c)'s latency faults with and without
+# readahead of PH23_FAULT_DEPTH.
+PH23_CACHE_BYTES, PH23_SMALL_CACHE_BYTES = 512 << 20, 64 << 20
+PH23_READAHEAD, PH23_FAULT_DEPTH, PH23_TUNE_INTERVAL_S = 4, 8, 0.1
+PH23_ARMS = ("plain", "readahead", "readahead + autotune")
 #: The JAX loaders' stage_breakdown() keys (petastorm_tpu/jax/loader.py:880-887).
 JAX_STAGE_KEYS = {"decode_s", "pool_queue_s", "shuffle_s", "host_wait_s", "stage_s",
                   "device_put_wait_s"}
@@ -6026,6 +6055,253 @@ def phase_resilience(smi: str, slice_url: str) -> dict:
     return {KERNEL_NAME: launches.get(KERNEL_NAME, 0)}
 
 
+def _cache_counts(reader) -> dict:
+    """The reader's ``cache.mem.*`` counters, by their last name."""
+    counters = reader.telemetry.snapshot()["counters"]
+    return {k.rsplit(".", 1)[1]: int(v) for k, v in counters.items()
+            if k.startswith("cache.mem.")}
+
+
+def _stall_delta(before: dict, after: dict) -> tuple:
+    """(delivery wait s, consumer busy s, input stall %) between two of a
+    loader's ``stall_report()``s."""
+    wait = after["delivery_wait_s"] - before["delivery_wait_s"]
+    busy = after["consumer_busy_s"] - before["consumer_busy_s"]
+    return wait, busy, 100 * wait / max(1e-9, wait + busy)
+
+
+def _epoch_passes(reader, epochs: int, failures: list, what: str, step=None) -> list:
+    """``epochs`` passes of ``reader`` (``num_epochs=1``, reset between
+    passes) through ``DataLoader(BATCH, device="cuda")``, K1 and ``step``
+    when given, nothing synced inside a pass: per pass the seconds, the
+    batches, the loader's stall, the cache counters and the workers'
+    decode seconds at its end; every id once a pass, K1 bit-equal on
+    every batch (counted on the card)."""
+    out = []
+    loader = DataLoader(reader, batch_size=BATCH, device="cuda")
+    stall = loader.stall_report()
+    for epoch in range(epochs):
+        ids, mismatches = [], []
+        decode0 = reader.telemetry.snapshot()["histograms"].get("worker.decode_s", {})
+        t0 = time.perf_counter()
+        for batch in loader:
+            pixels = batch["image"]
+            if step is not None:
+                images = normalize_images(pixels)
+                mismatches.append((images.view(torch.int16)
+                                   != normalize_images_plain(pixels).view(torch.int16)).sum())
+                step(images, batch["id"])
+            ids.append(batch["id"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = loader.stall_report()
+        decode = reader.telemetry.snapshot()["histograms"].get("worker.decode_s", {})
+        ids = torch.cat(ids).tolist()
+        bad = [int(m.item()) for m in mismatches]
+        if sorted(ids) != list(range(ROWS)):
+            failures.append(f"{what} epoch {epoch + 1}: {len(ids)} rows, {len(set(ids))} "
+                            f"distinct, not every id once")
+        if any(bad):
+            failures.append(f"{what} epoch {epoch + 1}: K1 not bit-equal: {bad}")
+        out.append({"seconds": seconds, "batches": len(ids) // BATCH,
+                    "stall": _stall_delta(stall, after), "cache": _cache_counts(reader),
+                    "decode_s": decode.get("sum", 0.0) - decode0.get("sum", 0.0),
+                    "decoded": decode.get("count", 0) - decode0.get("count", 0),
+                    "k1": len(bad)})
+        stall = after
+    return out
+
+
+def phase_io_tuning(smi: str, slice_url: str, converter_url: str, thread_bench: dict) -> dict:
+    """Phase 23: the IO and tuning plane on the image paths (see the module
+    docstring)."""
+    from petastorm_tpu_torch import resilience as res
+    from petastorm_tpu_torch.autotune import AutotuneConfig
+    failures = []
+    groups = ROWS // ROWS_PER_GROUP
+    kernels.reset_launch_counts()
+
+    # (a) The decoded cache on the image path, into ResNet-50.
+    params = resnet.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                IMAGENET_CLASSES, device="cuda")
+    init_opt, raw_step = resnet.make_train_step(learning_rate=0.05)
+    opt = init_opt(params)
+
+    def step(images, ids):
+        nonlocal params, opt
+        params, opt, _, _ = raw_step(params, opt, {"image": images,
+                                                   "label": ids % IMAGENET_CLASSES})
+    step(torch.zeros((BATCH,) + IMAGE_SHAPE, dtype=torch.bfloat16, device="cuda"),
+         torch.zeros(BATCH, dtype=torch.int64, device="cuda"))
+    torch.cuda.synchronize()
+
+    def image_reader(cache_bytes):
+        return make_reader(slice_url, reader_pool_type="thread", workers_count=WORKERS, seed=0,
+                           num_epochs=1, memory_cache_size_bytes=cache_bytes)
+
+    with image_reader(PH23_CACHE_BYTES) as reader:
+        cached = _epoch_passes(reader, 2, failures, "(a)", step)
+        stats = reader._cache.stats()
+    resident = thread_bench["step_time_ms_resident"]
+    for epoch, run in enumerate(cached, 1):
+        wait, busy, pct = run["stall"]
+        log(f"[io] (a) ({smi}) phase 4's store, {WORKERS} threads, memory_cache_size_bytes="
+            f"{PH23_CACHE_BYTES >> 20} MiB -> DataLoader({BATCH}) -> K1 -> ResNet-50, epoch "
+            f"{epoch}: {run['seconds']:.3f} s, {1e3 * run['seconds'] / run['batches']:.2f} ms a "
+            f"pipelined step (phase 9's resident step {resident:.2f} ms), stall_report input "
+            f"stall {pct:.1f} % (wait {wait:.3f} s, busy {busy:.3f} s); cache {run['cache']}; "
+            f"workers {1e3 * run['decode_s'] / max(1, run['decoded']):.2f} ms a group over "
+            f"{run['decoded']} groups")
+    log(f"[io] (a) cache stats after two epochs {stats}; a hit copies its {ROWS_PER_GROUP} "
+        f"cells ({ROWS_PER_GROUP * int(np.prod(IMAGE_SHAPE)) / 1e6:.1f} MB): "
+        f"{1e3 * cached[1]['decode_s'] / max(1, cached[1]['decoded']):.2f} ms a group on a "
+        f"worker against {1e3 * cached[0]['decode_s'] / max(1, cached[0]['decoded']):.2f} ms to "
+        f"read and decode it")
+    first, second = cached[0]["cache"], cached[1]["cache"]
+    if (first.get("misses"), first.get("inserts"), first.get("hits")) != (groups, groups, 0):
+        failures.append(f"(a) epoch 1 cache {first}")
+    if (second.get("hits"), second.get("misses"), second.get("evictions")) != \
+            (groups, groups, 0):
+        failures.append(f"(a) epoch 2 cache {second} (expected {groups} hits, no new miss)")
+    del params, opt, init_opt, raw_step
+    free_cuda()
+    with image_reader(None) as reader:
+        uncached = _epoch_passes(reader, 2, failures, "(a) no cache")
+    with image_reader(PH23_SMALL_CACHE_BYTES) as reader:
+        small = _epoch_passes(reader, 2, failures, "(a) small cache")
+    log(f"[io] (a) controls, loader alone: no cache epochs {uncached[0]['seconds']:.3f}, "
+        f"{uncached[1]['seconds']:.3f} s ({uncached[1]['seconds'] / uncached[0]['seconds']:.2f}x), "
+        f"counters {uncached[1]['cache']}; the cached reader's second epoch read alone: see (a) "
+        f"above; a {PH23_SMALL_CACHE_BYTES >> 20} MiB cache: epochs {small[0]['seconds']:.3f}, "
+        f"{small[1]['seconds']:.3f} s, counters {small[1]['cache']}")
+    if uncached[1]["cache"]:
+        failures.append(f"(a) no cache, yet cache counters {uncached[1]['cache']}")
+    hits2 = small[1]["cache"].get("hits", 0) - small[0]["cache"].get("hits", 0)
+    if not small[1]["cache"].get("evictions", 0) > 0 or not hits2 < groups:
+        failures.append(f"(a) {PH23_SMALL_CACHE_BYTES >> 20} MiB cache: {small[1]['cache']}, "
+                        f"{hits2} epoch-2 hits")
+
+    # (b) Readahead and autotune on the ViT path.
+    side = vit.VIT_B16["image_size"]
+    converter = SparkDatasetConverter(converter_url, CONV_ROWS)
+    params = vit.init_params(torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                             **vit.VIT_B16)
+    vstep = vit.make_train_step(VIT_LR, patch=vit.VIT_B16["patch"], heads=vit.VIT_B16["heads"])
+    weights = torch.randint(1, 2 ** 31, (side * side * 3,), dtype=torch.int64,
+                            generator=torch.Generator().manual_seed(23)).to("cuda")
+    arm_kwargs = {"plain": {}, "readahead": {"readahead_depth": PH23_READAHEAD},
+                  "readahead + autotune": {
+                      "readahead_depth": PH23_READAHEAD, "autotune": True,
+                      "autotune_config": AutotuneConfig(interval_s=PH23_TUNE_INTERVAL_S)}}
+    per_epoch = CONV_ROWS // VIT_BATCH
+    arms = {}
+    for name in PH23_ARMS:
+        fps, mismatches, losses = [], [], []
+
+        def next_batch(it):
+            batch = next(it)
+            pixels = batch["image"].view(-1, side, side, 3)
+            images = normalize_images(pixels)
+            mismatches.append((images.view(torch.int16)
+                               != normalize_images_plain(pixels).view(torch.int16)).sum())
+            fps.append(fingerprint(batch["image"], weights))
+            return {"image": images, "label": batch["label"]}
+
+        def run_step(batch):
+            nonlocal params
+            params, loss, _ = vstep(params, batch)
+            losses.append(loss)
+            return loss
+
+        with converter.make_device_loader(batch_size=VIT_BATCH, num_epochs=None, device="cuda",
+                                          workers_count=VIT_WORKERS, shuffle_row_groups=True,
+                                          seed=0, **arm_kwargs[name]) as loader:
+            reader = loader._reader
+            it = iter(loader)
+            warm = None
+            for _ in range(VIT_WARMUP):
+                warm = run_step(next_batch(it))
+            stall0 = loader.stall_report()
+            _, _, wait_s, wall_s, _ = pipelined_window(run_step, lambda: next_batch(it),
+                                                       VIT_PIPELINED, 0, warm)
+            stall = _stall_delta(stall0, loader.stall_report())
+            critical = loader.critical_path_report()
+            snap = reader.telemetry.snapshot()
+            report = reader.readahead_report()
+            tuned = reader.autotune_report()
+            it.close()
+        fetch_edge = snap["histograms"].get("trace.self.fetch_s", {}).get("sum", 0.0)
+        verdicts = {k.split("verdict_")[1]: int(v) for k, v in snap["counters"].items()
+                    if k.startswith("autotune.verdict_") and v}
+        fps = torch.cat(fps).tolist()
+        arms[name] = {"epochs": [sorted(fps[:CONV_ROWS]), sorted(fps[CONV_ROWS:])],
+                      "step_ms": 1e3 * wall_s / VIT_PIPELINED,
+                      "stall": 100 * wait_s / wall_s, "gauge_stall": stall[2]}
+        bad = [int(m.item()) for m in mismatches]
+        log(f"[io] (b) ({smi}) converter -> K1 -> ViT-B/16, batch {VIT_BATCH}, {name}: "
+            f"pipelined step {arms[name]['step_ms']:.2f} ms, input stall "
+            f"{arms[name]['stall']:.1f} % (stall_report {stall[2]:.1f} %); readahead_report "
+            f"{ {k: report[k] for k in ('depth', 'hits', 'misses', 'fetch_errors', 'fetched_total')} if report else {} }; "
+            f"critical path {critical['counts']}, fetch edge {fetch_edge:.4f} s; autotune "
+            f"verdicts {verdicts}, history {tuned.get('adjustments', [])}, actuators "
+            f"{tuned.get('actuators', {})}; losses {[round(v.item(), 4) for v in losses]}")
+        if any(bad):
+            failures.append(f"(b) {name}: K1 not bit-equal: {bad}")
+        if len(fps) != (VIT_WARMUP + VIT_PIPELINED) * VIT_BATCH \
+                or len(set(fps[:CONV_ROWS])) != CONV_ROWS:
+            failures.append(f"(b) {name}: {len(fps)} rows, {len(set(fps[:CONV_ROWS]))} distinct "
+                            f"in the first epoch of {per_epoch} batches")
+        if name != "plain" and not (report.get("hits", 0) > 0 and fetch_edge > 0):
+            failures.append(f"(b) {name}: readahead hits {report.get('hits')}, fetch edge "
+                            f"{fetch_edge}")
+        if name == "readahead + autotune" and not tuned.get("ticks"):
+            failures.append(f"(b) the controller did not tick: {tuned}")
+        if not all(np.isfinite([v.item() for v in losses])):
+            failures.append(f"(b) {name}: non-finite loss")
+    if any(arms[n]["epochs"] != arms["plain"]["epochs"] for n in PH23_ARMS):
+        failures.append("(b) the arms' id multisets differ")
+    log(f"[io] (b) id multisets of each epoch equal across the arms: "
+        f"{all(arms[n]['epochs'] == arms['plain']['epochs'] for n in PH23_ARMS)}")
+    del params
+    free_cuda()
+
+    # (c) Readahead under phase 22 (c)'s latency faults.
+    runs = {}
+    for depth in (None, PH23_FAULT_DEPTH):
+        reader = make_reader(
+            slice_url, reader_pool_type="thread", workers_count=WORKERS, seed=0,
+            readahead_depth=depth,
+            fault_plan=res.FaultPlan([res.FaultSpec("rowgroup.read", "latency",
+                                                    rate=PH22_LATENCY_RATE,
+                                                    latency_s=PH22_LATENCY_S,
+                                                    latency_jitter_s=PH22_JITTER_S)], seed=22),
+            stage_deadline_s=res.StageDeadline(soft_s=PH22_SOFT_S, hard_s=PH22_HARD_S),
+            hedge_policy=res.HedgePolicy(fallback_delay_s=PH22_HEDGE_S, min_delay_s=0.005,
+                                         min_samples=10 ** 9))
+        runs[depth] = _resilient_epoch(reader, f"(c) readahead {depth}", failures)
+        runs[depth]["readahead"] = reader.readahead_report()
+        if sorted(runs[depth]["ids"]) != list(range(ROWS)):
+            failures.append(f"(c) readahead {depth}: not every id once")
+    off, on = runs[None], runs[PH23_FAULT_DEPTH]
+    log(f"[io] (c) ({smi}) {WORKERS} threads -> DataLoader({BATCH}) -> K1, latency faults (rate "
+        f"{PH22_LATENCY_RATE}, {PH22_LATENCY_S} s + up to {PH22_JITTER_S} s), hedges after "
+        f"{PH22_HEDGE_S} s: without readahead {off['rows_per_s']:.1f} samples/s "
+        f"({off['seconds']:.3f} s, counters {off['counters']}); readahead_depth="
+        f"{PH23_FAULT_DEPTH} {on['rows_per_s']:.1f} samples/s ({on['seconds']:.3f} s, "
+        f"{on['rows_per_s'] / off['rows_per_s']:.2f}x; counters {on['counters']}; "
+        f"readahead_report { {k: on['readahead'][k] for k in ('hits', 'misses', 'fetch_errors', 'fetched_total')} })")
+
+    launches = dict(kernels.launch_counts)
+    expect = 2 * (ROWS // BATCH) + len(PH23_ARMS) * (VIT_WARMUP + VIT_PIPELINED) \
+        + 2 * (ROWS // BATCH)
+    if launches != {KERNEL_NAME: expect}:
+        failures.append(f"launches {launches}, expected {KERNEL_NAME}: {expect}")
+    log(f"[io] launches {launches}")
+    if failures:
+        raise AssertionError("IO and tuning phase: " + "; ".join(failures))
+    return {KERNEL_NAME: launches.get(KERNEL_NAME, 0)}
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """``t`` seen as integers of its width, so that equality is bit equality."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -6104,10 +6380,14 @@ def main() -> int:
             tele = timed("21 telemetry", phase_telemetry, smi,
                          f"file://{slice_tmp}/imagenet_like", f"file://{tmp}/converter_cache",
                          tmp)
-        free_cuda()
-        # Phase 22 reads phase 4's store again.
-        resil = timed("22 resilience", phase_resilience, smi,
-                      f"file://{slice_tmp}/imagenet_like")
+            free_cuda()
+            # Phase 22 reads phase 4's store again, phase 23 it and phase 20's.
+            resil = timed("22 resilience", phase_resilience, smi,
+                          f"file://{slice_tmp}/imagenet_like")
+            free_cuda()
+            io_plane = timed("23 io + tuning", phase_io_tuning, smi,
+                             f"file://{slice_tmp}/imagenet_like",
+                             f"file://{tmp}/converter_cache", thread_bench)
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
@@ -6124,7 +6404,7 @@ def main() -> int:
         "launches": (launches + proc["normalize"] + resume.get(KERNEL_NAME, 0)
                      + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]
                      + lazy[KERNEL_NAME] + conv[KERNEL_NAME] + tele[KERNEL_NAME]
-                     + resil[KERNEL_NAME]),
+                     + resil[KERNEL_NAME] + io_plane[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

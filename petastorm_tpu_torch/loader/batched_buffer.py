@@ -98,6 +98,7 @@ class BatchedRandomShufflingBuffer:
                  seed: Optional[int] = None):
         if min_after_retrieve >= shuffling_queue_capacity:
             raise ValueError("min_after_retrieve must be < shuffling_queue_capacity")
+        self._configured_capacity = shuffling_queue_capacity
         self._capacity = shuffling_queue_capacity
         self._min_after = min_after_retrieve
         self._extra = extra_capacity
@@ -111,10 +112,12 @@ class BatchedRandomShufflingBuffer:
         if self._done:
             raise RuntimeError("Cannot add to a finished buffer")
         n = len(next(iter(batch.values())))
-        if self._size + n > self._capacity + self._extra:
+        if self._size + n > self._configured_capacity + self._extra:
             raise RuntimeError("Buffer overfill: check can_add before adding")
         if self._store is None:
-            self._store = {k: np.empty((self._capacity + self._extra,) + v.shape[1:],
+            # Sized by the configured capacity, not the live target: a target
+            # shrunk before the first add may grow back later.
+            self._store = {k: np.empty((self._configured_capacity + self._extra,) + v.shape[1:],
                                        dtype=v.dtype)
                            for k, v in batch.items()}
         for k, v in batch.items():
@@ -156,3 +159,20 @@ class BatchedRandomShufflingBuffer:
     @property
     def capacity(self) -> int:
         return self._capacity
+
+    @property
+    def min_target(self) -> int:
+        """The least target :meth:`set_target_capacity` takes: the mixing
+        floor plus one retrievable batch."""
+        return self._min_after + self._batch_size
+
+    def set_target_capacity(self, n: int) -> None:
+        """The target buffered rows as a live knob (the autotune
+        controller's ``shuffle_target``; ``tools/check_knobs.py`` checks
+        that only :mod:`petastorm_tpu_torch.autotune` calls it), clamped to
+        [``min_target``, the configured capacity]. The store holds the
+        configured capacity plus the slack, so the configured bound wins
+        where the floor would pass it. A shrink below the fill pauses adds
+        until retrieval drains the excess."""
+        floor = min(self.min_target, self._configured_capacity)
+        self._capacity = max(floor, min(int(n), self._configured_capacity))

@@ -23,7 +23,8 @@ Staging to a CUDA device:
 
 * every column of a batch is copied into one **pinned** host buffer, each
   at a 64-byte aligned offset; the buffers are reused per (names, shapes,
-  dtypes) signature from a ring of ``prefetch + 1``;
+  dtypes) signature from a ring of ``prefetch + 1``, which grows (at the
+  staging thread's next batch) when the prefetch depth is raised;
 * the columns under 1 MiB (``_OWN_COPY_BYTES``) lie together in the
   buffer and go to the card in one host-to-device copy, and each larger
   column in one of its own (:class:`BatchLayout`); the copies are issued
@@ -57,6 +58,13 @@ travels with that batch through the queue. It is whatever the reader's
 its ``seed`` and ``step``. Loaders with a host-side shuffling buffer
 refuse: no reader cursor describes the rows such a buffer holds (a
 deterministic reader's ``shuffle_window`` mixes with an exact resume).
+
+Tuning: :attr:`LoaderBase.prefetch_depth` is a live knob
+(:meth:`LoaderBase.set_prefetch_depth`): the staging thread puts a batch
+only while fewer than the depth wait, and a change wakes it. When the
+reader runs an autotune controller (``make_reader(autotune=True)``), the
+loader registers its prefetch depth on it while a staging pipeline runs,
+and its shuffling buffer's target while a pass runs.
 
 Telemetry: a loader over a reader adopts the reader's registry
 (``loader.telemetry``, :mod:`petastorm_tpu_torch.telemetry`), so one
@@ -211,7 +219,7 @@ class _PinnedStager:
 
     def __init__(self, device: torch.device, ring_size: int):
         self._device = device
-        self._ring_size = ring_size
+        self.ring_size = ring_size
         self._stream = torch.cuda.Stream(device)
         self._layouts: Dict[tuple, BatchLayout] = {}
         # signature -> [[buffer, {name: (tensor view, numpy view)}, event]]
@@ -227,7 +235,9 @@ class _PinnedStager:
             layout = self._layouts[sig] = BatchLayout(cols)
         ring = self._rings.setdefault(sig, [])
         pos = self._next.get(sig, 0)
-        self._next[sig] = (pos + 1) % self._ring_size
+        # A ring that grew since (a raised prefetch depth) adds its new slots
+        # as ``pos`` reaches them.
+        self._next[sig] = (pos + 1) % max(self.ring_size, len(ring))
         if pos == len(ring):
             buffer = torch.empty(layout.total, dtype=torch.uint8, pin_memory=True)
             ring.append([buffer, {k: (t, _numpy_view(t)) for k, t in layout.views(buffer).items()},
@@ -303,6 +313,8 @@ class LoaderBase:
         self._pad_last = pad_last
         self._drop_last = drop_last and not pad_last
         self._prefetch = max(1, prefetch)
+        # The running pipeline's put condition, notified by a depth change.
+        self._space: Optional[threading.Condition] = None
         self._echo = echo
         self._dtype_policy = dtype_policy
         self._steps_per_epoch = steps_per_epoch
@@ -461,16 +473,61 @@ class LoaderBase:
             return out
         return cols
 
+    # ---------------------------------------------------------------- knobs
+    @property
+    def prefetch_depth(self) -> int:
+        """Staged batches kept ready ahead of the consumer."""
+        return self._prefetch
+
+    def set_prefetch_depth(self, n: int) -> None:
+        """The prefetch depth as a live knob (the autotune controller's
+        ``prefetch_depth``; ``tools/check_knobs.py`` checks that only
+        :mod:`petastorm_tpu_torch.autotune` calls it), at least 1. It takes
+        effect at the staging thread's next put: a lower depth stages
+        nothing new until the consumer drains below it (staged batches stay
+        valid); a higher one grows the pinned ring at the next batch."""
+        self._prefetch = max(1, int(n))
+        self.telemetry.gauge("loader.prefetch_queue_capacity").set(self._prefetch)
+        space = self._space
+        if space is not None:
+            with space:
+                space.notify_all()
+
+    def _autotune_controller(self):
+        """The reader's autotune controller, or None: a loader registers its
+        knobs on the reader's, so one loop sees the whole pipeline."""
+        return getattr(getattr(self, "_reader", None), "autotune", None)
+
+    def _register_shuffle_actuator(self, buf):
+        """The buffer's target as the controller's ``shuffle_target`` (when
+        there is a controller and the buffer has the knob); returns the
+        actuator, which the pass unregisters at its end, or None."""
+        controller = self._autotune_controller()
+        if controller is None or not hasattr(buf, "set_target_capacity"):
+            return None
+        from petastorm_tpu_torch.autotune import ShuffleTargetActuator
+        return controller.register(ShuffleTargetActuator(buf))
+
+    def _unregister_actuator(self, actuator) -> None:
+        if actuator is not None:
+            self._autotune_controller().unregister(actuator.name)
+
     # -------------------------------------------------------------- staging
     def _prefetched(self, host_batches):
-        """Collate and stage on a background thread, ``prefetch`` batches
-        ahead; deliver on the consumer's thread and stream. Each delivered
-        batch but the first (the pipeline's spin-up) feeds the stall
-        attributor: the wait in the queue against the time the consumer
-        spent away from it; each feeds the critical-path attributor."""
-        q: queue.Queue = queue.Queue(maxsize=self._prefetch)
+        """Collate and stage on a background thread, ``prefetch_depth``
+        batches ahead (read at every put); deliver on the consumer's thread
+        and stream. Each delivered batch but the first (the pipeline's
+        spin-up) feeds the stall attributor: the wait in the queue against
+        the time the consumer spent away from it; each feeds the
+        critical-path attributor."""
+        # Unbounded: puts are gated on the live depth, which a fixed maxsize
+        # could not follow.
+        q: queue.Queue = queue.Queue()
         stop = threading.Event()
         self._stage_stop = stop
+        # The consumer notifies after every get, so a put waits no longer
+        # than the slot takes to free; a depth change notifies too.
+        space = self._space = threading.Condition()
         end, err = object(), object()
         cuda = self._device.type == "cuda"
         telemetry = self.telemetry
@@ -479,13 +536,13 @@ class LoaderBase:
         telemetry.gauge("loader.prefetch_queue_depth", depth_fn)
         telemetry.gauge("loader.prefetch_queue_capacity").set(self._prefetch)
 
-        def put(item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.05)
-                    return True
-                except queue.Full:
-                    continue
+        def put(item, force=False) -> bool:
+            with space:
+                while not stop.is_set():
+                    if force or q.qsize() < self._prefetch:
+                        q.put(item)
+                        return True
+                    space.wait(0.05)
             return False
 
         def produce():
@@ -512,6 +569,7 @@ class LoaderBase:
                         cols, host_cols = self._split_batch(hb)
                         _check_sharded_columns(self._sharding, cols)
                         if cuda:
+                            stager.ring_size = max(stager.ring_size, self._prefetch + 1)
                             staged, event = stager.stage(cols)
                         else:
                             staged = {k: v.contiguous() if isinstance(v, torch.Tensor)
@@ -529,13 +587,18 @@ class LoaderBase:
                     if not put((None, staged, event, snap)):
                         return
             except BaseException as e:  # noqa: BLE001 - re-raised on the consumer
-                put((err, e, None, None))
+                put((err, e, None, None), force=True)
             finally:
-                put((end, None, None, None))
+                put((end, None, None, None), force=True)
                 host_batches.close()
 
         thread = threading.Thread(target=produce, daemon=True, name="petastorm-torch-stage")
         thread.start()
+        controller = self._autotune_controller()
+        prefetch_actuator = None
+        if controller is not None:
+            from petastorm_tpu_torch.autotune import PrefetchDepthActuator
+            prefetch_actuator = controller.register(PrefetchDepthActuator(self))
         try:
             last_resume = None
             while True:
@@ -549,6 +612,8 @@ class LoaderBase:
                             continue
                         raise RuntimeError("Loader staging thread died without delivering "
                                            "a batch, an error or end-of-stream") from None
+                with space:
+                    space.notify()
                 t1 = time.perf_counter()
                 if kind is end:
                     return
@@ -573,7 +638,11 @@ class LoaderBase:
                            for k, v in item.items()}
         finally:
             stop.set()
+            with space:
+                space.notify_all()   # a producer waiting for room exits now
             self._stage_stop = None
+            self._space = None
+            self._unregister_actuator(prefetch_actuator)
             # The registry outlives this pass: a gauge left on the queue's
             # bound method would keep its staged batches alive.
             telemetry.gauge("loader.prefetch_queue_depth").clear_function(depth_fn)
@@ -812,6 +881,7 @@ class DataLoader(LoaderBase):
             extra_capacity=max(1000, self._shuffling_capacity),
             seed=self._seed)
         gauge_fns = self._register_shuffle_gauges(buf)
+        shuffle_actuator = self._register_shuffle_actuator(buf)
         shuffle_time = self._shuffle_time
         pending_s, rows_out = 0.0, 0
         it = iter(self._reader)
@@ -841,6 +911,7 @@ class DataLoader(LoaderBase):
                     return
         finally:
             shuffle_time.add(pending_s)
+            self._unregister_actuator(shuffle_actuator)
             self._clear_shuffle_gauges(gauge_fns)
 
     def _collate(self, rows) -> Dict[str, np.ndarray]:
@@ -939,6 +1010,7 @@ class DataLoader(LoaderBase):
         else:
             buf = BatchedNoopShufflingBuffer(self._batch_size)
         gauge_fns = self._register_shuffle_gauges(buf)
+        shuffle_actuator = self._register_shuffle_actuator(buf)
         shuffle_time = self._shuffle_time
         exhausted = False
         buffered_rows = 0
@@ -983,6 +1055,7 @@ class DataLoader(LoaderBase):
                 if tail is not None:
                     yield tail
         finally:
+            self._unregister_actuator(shuffle_actuator)
             self._clear_shuffle_gauges(gauge_fns)
 
     def _host_batches(self):
@@ -1053,6 +1126,7 @@ class BatchedDataLoader(LoaderBase):
         else:
             buf = BatchedNoopShufflingBuffer(self._batch_size)
         gauge_fns = self._register_shuffle_gauges(buf)
+        shuffle_actuator = self._register_shuffle_actuator(buf)
         shuffle_time = self._shuffle_time
         telemetry = self.telemetry
         exhausted = False
@@ -1104,6 +1178,7 @@ class BatchedDataLoader(LoaderBase):
                 if tail is not None:
                     yield tail
         finally:
+            self._unregister_actuator(shuffle_actuator)
             self._clear_shuffle_gauges(gauge_fns)
 
 

@@ -51,6 +51,16 @@ budgets and hedged reads in the workers), ``hang_timeout_s`` (a
 :class:`~petastorm_tpu_torch.resilience.PipelineWatchdog`:
 :meth:`Reader.watchdog_report`) and, on processes, ``worker_crash_budget``
 (a dead worker's row groups go to the survivors).
+
+The IO and tuning plane (the JAX package's arguments): ``readahead_depth``
+starts a :class:`~petastorm_tpu_torch.reader_impl.readahead.ReadaheadFetcher`
+that reads row groups ahead of the decode workers (in-process pools:
+:meth:`Reader.readahead_report`); ``memory_cache_size_bytes`` keeps decoded
+row groups in an :class:`~petastorm_tpu_torch.autotune.InMemoryRowGroupCache`,
+so later epochs skip the read and the decode; ``autotune`` starts an
+:class:`~petastorm_tpu_torch.autotune.AutotuneController` over the pool's
+concurrency, the ventilation and readahead depths and a loader's prefetch
+depth and shuffle target (:meth:`Reader.autotune_report`).
 """
 from __future__ import annotations
 
@@ -93,11 +103,17 @@ _VENTILATE_EXTRA_ROWGROUPS = 3
 #: are dropped from the reader's record.
 _DELIVERED_PRUNE_AT = 256
 
-#: Per-worker shm ring bytes of the process pool, and the least it shrinks
-#: to where ``/dev/shm`` is small (reference petastorm_tpu/reader.py:251-265).
+#: Per-worker shm ring bytes of the process pool, the least it shrinks to
+#: where ``/dev/shm`` is small, and the most an autotune budget sizes it to
+#: (reference petastorm_tpu/reader.py:251-265).
 DEFAULT_RING_CAPACITY = 128 << 20
 MIN_RING_CAPACITY = 16 << 20
+MAX_RING_CAPACITY = 512 << 20
 SHM_DIR = "/dev/shm"
+
+#: Bytes of fetched tables the readahead stage may hold without a shared
+#: budget.
+DEFAULT_READAHEAD_BYTES = 256 << 20
 
 
 def shm_free_bytes(path: str = SHM_DIR) -> int:
@@ -106,19 +122,51 @@ def shm_free_bytes(path: str = SHM_DIR) -> int:
     return st.f_bavail * st.f_frsize
 
 
-def ring_capacity_for(workers_count: int, free_bytes: Optional[int] = None) -> int:
-    """Each process worker's ring: :data:`DEFAULT_RING_CAPACITY`, or the
-    even share of the free ``/dev/shm`` when that is smaller, but no less
-    than :data:`MIN_RING_CAPACITY`. Raises ``RuntimeError`` when the rings
-    do not fit even so: the reader never turns to threads by itself."""
+def ring_capacity_for(workers_count: int, free_bytes: Optional[int] = None,
+                      want: int = DEFAULT_RING_CAPACITY) -> int:
+    """Each process worker's ring: ``want`` bytes
+    (:data:`DEFAULT_RING_CAPACITY`), or the even share of the free
+    ``/dev/shm`` when that is smaller, but no less than
+    :data:`MIN_RING_CAPACITY`. Raises ``RuntimeError`` when the rings do not
+    fit even so: the reader never turns to threads by itself."""
     free = shm_free_bytes() if free_bytes is None else free_bytes
-    capacity = max(MIN_RING_CAPACITY, min(DEFAULT_RING_CAPACITY, free // max(1, workers_count)))
+    capacity = max(MIN_RING_CAPACITY, min(want, free // max(1, workers_count)))
     if capacity * workers_count > free:
         raise RuntimeError(
             f"reader_pool_type='process' needs {workers_count} shared-memory rings of at "
             f"least {MIN_RING_CAPACITY >> 20} MiB, but {SHM_DIR} has {free} bytes free: "
             f"enlarge {SHM_DIR}, use fewer workers or reader_pool_type='thread'")
     return capacity
+
+
+def _ring_capacity_from_budget(autotune_config, workers_count: int) -> Optional[int]:
+    """The ring bytes an autotune ``memory_budget_bytes`` asks for: its even
+    share a worker, within [:data:`MIN_RING_CAPACITY`,
+    :data:`MAX_RING_CAPACITY`]; None without a budget (the default)."""
+    budget = getattr(autotune_config, "memory_budget_bytes", None)
+    if not budget:
+        return None
+    return max(MIN_RING_CAPACITY, min(MAX_RING_CAPACITY, int(budget) // max(1, workers_count)))
+
+
+def _warn_predicate_bypasses_cache(predicate, memory_cache_size_bytes) -> None:
+    """Both workers read a predicate's groups fresh and never consult the
+    cache on that path (a cached group cannot be masked without freezing
+    its rows), so say that the cache will see no hits."""
+    if predicate is not None and memory_cache_size_bytes:
+        warnings.warn(
+            "predicate= bypasses row-group caching: every epoch re-reads and re-decodes the "
+            f"predicate's row groups, and the {memory_cache_size_bytes}-byte memory cache will "
+            "record no hits. Drop the predicate (filter after read) to cache, or drop "
+            "memory_cache_size_bytes to silence this.")
+
+
+def _make_cache(memory_cache_size_bytes, fault_plan=None):
+    """The decoded row-group cache of ``memory_cache_size_bytes``, or None."""
+    if not memory_cache_size_bytes:
+        return None
+    from petastorm_tpu_torch.autotune import InMemoryRowGroupCache
+    return InMemoryRowGroupCache(memory_cache_size_bytes, fault_plan=fault_plan)
 
 
 def decode_threads_for(workers_count: int) -> int:
@@ -362,7 +410,12 @@ def make_reader(dataset_url: str,
                 worker_crash_budget: int = 0,
                 stage_deadline_s=None,
                 hedge_policy=None,
-                hang_timeout_s: Optional[float] = None) -> "Reader":
+                hang_timeout_s: Optional[float] = None,
+                autotune: bool = False,
+                autotune_config=None,
+                memory_cache_size_bytes: Optional[int] = None,
+                readahead_depth: Optional[int] = None,
+                readahead_max_bytes: Optional[int] = None) -> "Reader":
     """Reader over a store written by ``materialize_dataset_local`` (either
     package's).
 
@@ -470,6 +523,29 @@ def make_reader(dataset_url: str,
         the thread stacks go to the registry's events and the watchdog
         escalates nudge -> cancel (kill the stuck workers, on processes
         with a crash budget) -> ``PipelineHungError``
+    :param autotune: start an
+        :class:`~petastorm_tpu_torch.autotune.AutotuneController` that
+        samples this pipeline's telemetry and moves, within clamped ranges
+        and with hysteresis, the thread pool's decode concurrency, the
+        ventilation and readahead depths, and a loader's prefetch depth and
+        shuffle target (:meth:`Reader.autotune_report`)
+    :param autotune_config: an :class:`~petastorm_tpu_torch.autotune.AutotuneConfig`
+        (interval, hysteresis, cooldown, watermarks, ``memory_budget_bytes``:
+        one ledger the cache and the readahead stage charge, which also
+        sizes the process pool's rings)
+    :param memory_cache_size_bytes: keep up to this many bytes of decoded
+        row groups in memory (least recently used out first, cost-aware
+        admission), so later epochs skip the read and the decode; hits copy
+        the cells they hand out. A ``predicate``'s groups bypass it (a
+        warning says so); on processes each worker keeps a private cache of
+        this size (a warning says so)
+    :param readahead_depth: read up to this many row groups ahead of the
+        decode workers on fetcher threads, every needed column in one read
+        (:meth:`Reader.readahead_report`); a failed fetch is discarded and
+        read again inline under the retry policy; a hedge policy hedges the
+        fetches. In-process pools only: ignored with a warning on processes
+    :param readahead_max_bytes: the bytes of fetched tables the stage may
+        hold (default 256 MiB); the autotune budget when it has one
 
     On ``reader_pool_type="process"`` the predicate, the transform and the
     retry policy must pickle into a spawned worker: a ``ValueError`` says so
@@ -477,8 +553,10 @@ def make_reader(dataset_url: str,
     """
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
     cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
+    _warn_predicate_bypasses_cache(predicate, memory_cache_size_bytes)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
-                      PickleSerializer(), pool_profiling_enabled)
+                      PickleSerializer(), pool_profiling_enabled,
+                      _ring_capacity_from_budget(autotune_config, workers_count))
     return Reader(dataset_url, pool, schema_fields=schema_fields,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
@@ -491,7 +569,10 @@ def make_reader(dataset_url: str,
                   filesystem=filesystem, retry_policy=retry_policy, degraded_mode=degraded_mode,
                   fault_plan=fault_plan, worker_crash_budget=worker_crash_budget,
                   stage_deadline_s=stage_deadline_s, hedge_policy=hedge_policy,
-                  hang_timeout_s=hang_timeout_s)
+                  hang_timeout_s=hang_timeout_s, autotune=autotune,
+                  autotune_config=autotune_config,
+                  memory_cache_size_bytes=memory_cache_size_bytes,
+                  readahead_depth=readahead_depth, readahead_max_bytes=readahead_max_bytes)
 
 
 def make_batch_reader(dataset_url: str,
@@ -525,7 +606,12 @@ def make_batch_reader(dataset_url: str,
                       worker_crash_budget: int = 0,
                       stage_deadline_s=None,
                       hedge_policy=None,
-                      hang_timeout_s: Optional[float] = None) -> "Reader":
+                      hang_timeout_s: Optional[float] = None,
+                      autotune: bool = False,
+                      autotune_config=None,
+                      memory_cache_size_bytes: Optional[int] = None,
+                      readahead_depth: Optional[int] = None,
+                      readahead_max_bytes: Optional[int] = None) -> "Reader":
     """Columnar reader of any Parquet store (several files, with or without
     petastorm metadata; a store without it gets a schema inferred from its
     Arrow schema): one batch of ``{column: ndarray}`` per row group,
@@ -561,13 +647,16 @@ def make_batch_reader(dataset_url: str,
         epoch, planned row groups)``, and on processes the columns still
         view the rings (the unit's ordinal rides as Arrow schema metadata)
 
-    The other arguments are :func:`make_reader`'s.
+    The other arguments are :func:`make_reader`'s; its memory cache keeps
+    each group's Arrow table (the read, not a decode, is what it saves).
     """
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
     cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
+    _warn_predicate_bypasses_cache(predicate, memory_cache_size_bytes)
     serializer = PickleSerializer() if convert_early_to_numpy else ArrowTableSerializer()
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
-                      serializer, pool_profiling_enabled)
+                      serializer, pool_profiling_enabled,
+                      _ring_capacity_from_budget(autotune_config, workers_count))
     return Reader(dataset_url, pool, schema_fields=schema_fields,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
@@ -580,7 +669,10 @@ def make_batch_reader(dataset_url: str,
                   storage_options=storage_options, filesystem=filesystem,
                   retry_policy=retry_policy, degraded_mode=degraded_mode, fault_plan=fault_plan,
                   worker_crash_budget=worker_crash_budget, stage_deadline_s=stage_deadline_s,
-                  hedge_policy=hedge_policy, hang_timeout_s=hang_timeout_s)
+                  hedge_policy=hedge_policy, hang_timeout_s=hang_timeout_s, autotune=autotune,
+                  autotune_config=autotune_config,
+                  memory_cache_size_bytes=memory_cache_size_bytes,
+                  readahead_depth=readahead_depth, readahead_max_bytes=readahead_max_bytes)
 
 
 def _check_sample_order(sample_order: str, shuffle_window: int) -> None:
@@ -688,7 +780,7 @@ def _resume_position(resume_state: dict, seed, shuffle_row_groups: bool, shuffle
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
-               serializer, pool_profiling_enabled=False):
+               serializer, pool_profiling_enabled=False, ring_bytes=None):
     if reader_pool_type == "thread":
         return ThreadPool(workers_count, results_queue_size, shuffle_rows=shuffle_rows, seed=seed,
                           profiling_enabled=pool_profiling_enabled)
@@ -698,8 +790,9 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows
         warnings.warn(f"pool_profiling_enabled only applies to reader_pool_type='thread'; "
                       f"ignored for {reader_pool_type!r}")
     if reader_pool_type == "process":
-        return ProcessPool(workers_count, ring_capacity=ring_capacity_for(workers_count),
-                           serializer=serializer)
+        ring_capacity = (ring_capacity_for(workers_count) if ring_bytes is None
+                         else ring_capacity_for(workers_count, want=ring_bytes))
+        return ProcessPool(workers_count, ring_capacity=ring_capacity, serializer=serializer)
     if reader_pool_type == "dummy":
         return DummyPool()
     raise ValueError(f"Unknown reader_pool_type {reader_pool_type!r} "
@@ -732,7 +825,8 @@ class Reader:
                  sample_order="free", shuffle_window=0, row_materialization="eager",
                  storage_options=None, filesystem=None, retry_policy=None, degraded_mode=False,
                  fault_plan=None, worker_crash_budget=0, stage_deadline_s=None,
-                 hedge_policy=None, hang_timeout_s=None):
+                 hedge_policy=None, hang_timeout_s=None, autotune=False, autotune_config=None,
+                 memory_cache_size_bytes=None, readahead_depth=None, readahead_max_bytes=None):
         if rowgroup_subset is not None and cur_shard is not None:
             raise ValueError("rowgroup_subset and cur_shard/shard_count are mutually exclusive: "
                              "an explicit ordinal subset is a shard assignment")
@@ -749,6 +843,12 @@ class Reader:
             raise ValueError(f"shuffle_row_drop_partitions must be >= 1, "
                              f"got {shuffle_row_drop_partitions}")
         _check_sample_order(sample_order, shuffle_window)
+        if getattr(autotune_config, "placement", False):
+            raise NotImplementedError(
+                "autotune_config.placement=True: the readers cannot migrate their pool between "
+                "threads and processes yet (ROADMAP item 9, placement migration with plan/*)")
+        if readahead_depth is not None and readahead_depth < 0:
+            raise ValueError(f"readahead_depth must be >= 1, got {readahead_depth}")
         shuffle_window = int(shuffle_window or 0)
         #: ``'free'`` or ``'deterministic'``: the reader's order contract.
         self.sample_order = sample_order
@@ -828,6 +928,15 @@ class Reader:
         ordinal_of = ({(rg.path, rg.row_group): i for i, rg in enumerate(all_row_groups)}
                       if rowgroup_subset is not None else
                       {(rg.path, rg.row_group): i for i, rg in enumerate(row_groups)})
+        resilience_args = self._attach_resilience(pool, worker_crash_budget, stage_deadline_s,
+                                                  hedge_policy, hang_timeout_s)
+        self._cache = self._attach_cache(pool, memory_cache_size_bytes, fault_plan)
+        #: The :class:`~petastorm_tpu_torch.reader_impl.readahead.ReadaheadFetcher`
+        #: when ``readahead_depth`` is set on an in-process pool, else None
+        #: (made before the ventilator, whose wrapper announces items to it).
+        self.readahead = self._make_readahead(
+            pool, ctx, view_schema, predicate, readahead_depth, readahead_max_bytes, fault_plan,
+            hedge_policy)
         self._ventilator = ConcurrentVentilator(
             self._make_ventilate_fn(pool, ordinal_of), items,
             iterations=num_epochs,
@@ -865,8 +974,10 @@ class Reader:
                                * max(1, pool.workers_count))
         # Before start(): the workers time their items into it.
         pool.telemetry = self.telemetry
-        resilience_args = self._attach_resilience(pool, worker_crash_budget, stage_deadline_s,
-                                                  hedge_policy, hang_timeout_s)
+        #: The :class:`~petastorm_tpu_torch.autotune.AutotuneController` when
+        #: ``autotune``, else None; a loader over this reader registers its
+        #: own knobs on it.
+        self.autotune = (self._make_autotune(pool, autotune_config) if autotune else None)
         spawned = isinstance(pool, ProcessPool)
         worker_args = {"dataset_url": dataset_url, "view_schema": view_schema,
                        "output_schema": self.schema, "predicate": predicate,
@@ -878,7 +989,13 @@ class Reader:
                        "filesystem": None if spawned else filesystem,
                        "retry_policy": retry_policy, "degraded_mode": degraded_mode,
                        "fault_plan": fault_plan, **resilience_args,
-                       "resilience_telemetry": None if spawned else self.telemetry}
+                       "resilience_telemetry": None if spawned else self.telemetry,
+                       # A spawned worker unpickles an empty private cache.
+                       "cache": self._cache, "readahead": self.readahead}
+        if self.autotune is not None:
+            self.autotune.start()
+        if self.readahead is not None:
+            self.readahead.start()
         if is_batched_reader:
             if isinstance(pool, ProcessPool) and not convert_early_to_numpy:
                 # Columns as views over the Arrow buffers in the ring.
@@ -950,14 +1067,89 @@ class Reader:
         return {"stage_deadline": stage_deadline, "hedge_policy": hedge_policy,
                 "cancel_token": cancel_token}
 
+    def _attach_cache(self, pool, memory_cache_size_bytes, fault_plan):
+        """The decoded row-group cache (or None): counting into this
+        reader's registry on an in-process pool, whose workers share it; a
+        warning on processes, where each worker keeps a private one."""
+        cache = _make_cache(memory_cache_size_bytes, fault_plan)
+        if cache is None:
+            return None
+        if isinstance(pool, ProcessPool):
+            warnings.warn(
+                f"memory_cache_size_bytes with reader_pool_type='process' keeps a PRIVATE cache "
+                f"of that size in every spawned worker: up to {pool.workers_count}x the "
+                f"configured bytes host-wide. Size accordingly, or use the thread pool to share "
+                f"one cache.")
+        else:
+            cache.attach_telemetry(self.telemetry)
+        return cache
+
+    def _make_readahead(self, pool, ctx, view_schema, predicate, depth, max_bytes, fault_plan,
+                        hedge_policy):
+        """The readahead stage of ``depth`` groups over every column a
+        worker reads (the view's, every NGram timestep's, the predicate's),
+        charged to a private budget of ``max_bytes``; None without a depth,
+        and on processes (with a warning: a spawned worker cannot pop from
+        this process)."""
+        if not depth:
+            return None
+        if isinstance(pool, ProcessPool):
+            warnings.warn("readahead_depth only applies to in-process pools "
+                          "(reader_pool_type='thread'/'dummy'); ignored for the process pool")
+            return None
+        from petastorm_tpu_torch.autotune import MemoryBudget
+        from petastorm_tpu_torch.reader_impl.readahead import ReadaheadFetcher
+        columns = set(self.ngram.get_field_names_at_all_timesteps() if self.ngram is not None
+                      else view_schema.fields)
+        if predicate is not None:
+            columns |= set(predicate.get_fields())
+        # The submissions' cap is sized for the ventilator's autotuned
+        # ceiling: a consumer that stops popping (epochs served by the
+        # cache) cannot pile them up.
+        return ReadaheadFetcher(ctx.filesystem, columns, depth=int(depth),
+                                budget=MemoryBudget(max_bytes or DEFAULT_READAHEAD_BYTES),
+                                fault_plan=fault_plan, hedge_policy=hedge_policy,
+                                telemetry=self.telemetry,
+                                max_queue=4 * pool.workers_count * (1 + _VENTILATE_EXTRA_ROWGROUPS))
+
+    def _make_autotune(self, pool, autotune_config):
+        """The controller over this pipeline's knobs: the thread pool's
+        gate, the ventilator's cap and the readahead depth. With
+        ``memory_budget_bytes`` the cache and the readahead stage charge one
+        shared ledger, which the controller watches; the cache's own budget
+        is never the pressure signal (a full cache is a healthy one)."""
+        from petastorm_tpu_torch.autotune import (AutotuneController, MemoryBudget,
+                                                  ReadaheadDepthActuator,
+                                                  VentilatorDepthActuator,
+                                                  WorkerConcurrencyActuator)
+        budget = None
+        budget_bytes = getattr(autotune_config, "memory_budget_bytes", None)
+        if budget_bytes:
+            budget = MemoryBudget(budget_bytes, telemetry=self.telemetry)
+            if self._cache is not None:
+                self._cache.budget = budget
+            if self.readahead is not None:
+                self.readahead.budget = budget
+        controller = AutotuneController(self.telemetry, autotune_config, budget=budget)
+        gate = getattr(pool, "concurrency_gate", None)
+        if gate is not None:
+            controller.register(WorkerConcurrencyActuator(gate, pool.workers_count))
+        controller.register(VentilatorDepthActuator(self._ventilator))
+        if self.readahead is not None:
+            controller.register(ReadaheadDepthActuator(self.readahead))
+        return controller
+
     def _make_ventilate_fn(self, pool, ordinal_of):
         """``pool.ventilate``, adding in trace mode the item's lineage id
         (``e{epoch}:g{ordinal}``, the kwarg ``trace_context`` the pools pop)
-        and a ``petastorm_tpu.ventilate`` event."""
+        and a ``petastorm_tpu.ventilate`` event, and announcing the item to
+        the readahead stage."""
         recorder = self.telemetry.recorder
         pool_ventilate = pool.ventilate
+        readahead = self.readahead
 
         def ventilate_fn(**kwargs):
+            trace = None
             if recorder.trace_enabled:
                 ctx = kwargs.get(ITEM_CONTEXT_KWARG)
                 if ctx is not None:
@@ -967,6 +1159,8 @@ class Reader:
                     kwargs["trace_context"] = trace
                     recorder.record_event("petastorm_tpu.ventilate", trace=trace,
                                           stage="ventilate", track="ventilator")
+            if readahead is not None:
+                readahead.submit(kwargs["rowgroup"], trace=trace)
             pool_ventilate(**kwargs)
         return ventilate_fn
 
@@ -1195,6 +1389,18 @@ class Reader:
         ``hang_timeout_s``."""
         return {} if self.watchdog is None else self.watchdog.report()
 
+    def readahead_report(self) -> dict:
+        """The fetch stage: depth, fetchers, tables ahead, bytes held, and
+        its hits, misses, fetch errors, fetches and dropped submissions.
+        Empty without ``readahead_depth``."""
+        return {} if self.readahead is None else self.readahead.stats()
+
+    def autotune_report(self) -> dict:
+        """The controller: ticks, each actuator's value and range, and
+        every move (tick, actuator, old, new, verdict). Empty without
+        ``autotune``."""
+        return {} if self.autotune is None else self.autotune.report()
+
     def reset(self):
         """Start another pass; only legal once the current one is consumed."""
         if not self.last_row_consumed:
@@ -1208,15 +1414,23 @@ class Reader:
         self.last_row_consumed = False
 
     def stop(self):
+        if self.autotune is not None:
+            self.autotune.stop()
         if self._telemetry_exporter is not None:
             self._telemetry_exporter.stop()
             self._telemetry_exporter = None
         self._pool.stop()
+        if self.readahead is not None:
+            # After the pool: a worker waiting in a pop sees the stop and
+            # reads inline; the held tables and their charge go.
+            self.readahead.close()
 
     def join(self):
         if self.watchdog is not None:
             self.watchdog.stop()
         self._pool.join()
+        if self._cache is not None:
+            self._cache.cleanup()
 
     def __enter__(self):
         return self

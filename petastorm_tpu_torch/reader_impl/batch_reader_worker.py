@@ -14,11 +14,15 @@ columns and publishes the table. The consumer turns it into
 process pool that happens over the Arrow buffers in the shared-memory
 ring, without a copy. With ``convert_early_to_numpy`` the worker converts
 instead and publishes the dict. Retries, quarantine, fault sites, stage
-deadlines and hedged reads are the row worker's
+deadlines, hedged reads and the readahead stage are the row worker's
 (:func:`~petastorm_tpu_torch.reader_impl.row_reader_worker.init_resilience`).
+With the reader's memory cache a group without a predicate is read once
+and its Arrow table kept (:meth:`BatchReaderWorker._maybe_cached_table`);
+the drop partition and the shuffle are taken from it each time.
 """
 from __future__ import annotations
 
+import hashlib
 from decimal import Decimal
 from typing import Optional
 
@@ -44,7 +48,8 @@ class BatchReaderWorker(WorkerBase):
     :class:`~petastorm_tpu_torch.reader_impl.epoch_plan.OrderedUnit` an item
     with ``"deterministic"``, as the row worker publishes), and
     ``storage_options`` and ``filesystem`` (or None), how the store's files
-    are reached, and the row worker's resilience keys."""
+    are reached, ``cache`` (the reader's memory cache, or None), and the
+    row worker's resilience keys."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
@@ -89,6 +94,16 @@ class BatchReaderWorker(WorkerBase):
             return arrow_table_to_numpy_dict(table, out_schema)
         return table
 
+    def _maybe_cached_table(self, rowgroup, columns) -> pa.Table:
+        """The group's table from the reader's cache (read and stored on a
+        miss), or read when there is none."""
+        cache = self.args.get("cache")
+        if cache is None:
+            return self._read_table(rowgroup, columns)
+        h = hashlib.md5(self.args["dataset_url"].encode()).hexdigest()
+        key = f"{h}:{rowgroup.path}:{rowgroup.row_group}:{','.join(sorted(columns))}"
+        return cache.get(key, lambda: self._read_table(rowgroup, columns))
+
     def _read_table(self, rowgroup, columns) -> pa.Table:
         table = read_row_group_maybe_hedged(self, rowgroup, columns)
         # Hive partition keys are path components, not file columns.
@@ -101,7 +116,7 @@ class BatchReaderWorker(WorkerBase):
         """The group's ``needed`` columns, masked by ``predicate`` (None
         when no row passes), then its drop partition, shuffled when asked."""
         if predicate is None:
-            table = self._read_table(rowgroup, needed)
+            table = self._maybe_cached_table(rowgroup, needed)
         else:
             # One read of every column, as the JAX package's default plan
             # reads (its columns in the same order).

@@ -32,9 +32,19 @@ and cancel token, and the row-group read through a
 has a ``hedge_policy``. A ``fault_plan`` fires at ``worker.item`` (once an
 item) and ``rowgroup.read`` (once a read attempt), as in the JAX package's
 workers.
+
+The IO plane: with the reader's ``readahead_depth`` the read first pops the
+group's table from the shared
+:class:`~petastorm_tpu_torch.reader_impl.readahead.ReadaheadFetcher` (held
+for the item, dropped on a retry); inline reads count ``io.bytes_read`` and
+``io.rowgroups_read``. With a decoded cache (the reader's
+``memory_cache_size_bytes``) a group without a predicate is read and
+decoded whole once and kept decoded; the rows handed out copy its cells.
 """
 from __future__ import annotations
 
+import copy
+import hashlib
 import threading
 
 import numpy as np
@@ -134,28 +144,59 @@ def _read_row_group(files: _ParquetFileLRU, rowgroup, columns, fault_plan=None,
 
 
 def read_row_group_maybe_hedged(worker, rowgroup, columns):
-    """The row-group read both workers share: inline through the worker's
-    handle LRU, or, with a ``hedge_policy``, raced against a duplicate
-    read once it straggles (:class:`~petastorm_tpu_torch.resilience.HedgedReadExecutor`).
-    Both racing attempts use private handle caches from the worker's
-    :class:`_HedgeHandlePool`; they read the same immutable row group, so
-    the winner's bytes are the same either way. The fault plan fires per
-    attempt, as real storage misbehaves per request."""
+    """The row-group read both workers share: the readahead stage's table
+    when it has one, else inline through the worker's handle LRU, or,
+    with a ``hedge_policy``, raced against a duplicate read once it
+    straggles (:class:`~petastorm_tpu_torch.resilience.HedgedReadExecutor`).
+
+    A popped table is held for the item: a predicate's two reads (its
+    columns, then the rest) slice the same table, and a miss is popped
+    (and counted) once. Both racing attempts use private handle caches
+    from the worker's :class:`_HedgeHandlePool`; they read the same
+    immutable row group, so the winner's bytes are the same either way.
+    The fault plan fires per attempt, as real storage misbehaves per
+    request."""
+    ra = worker._readahead
+    if ra is not None:
+        key = (rowgroup.path, rowgroup.row_group)
+        if worker._ra_key != key and worker._ra_miss_key != key:
+            table = ra.pop(rowgroup, checkpoint=lambda: deadline_checkpoint(worker))
+            if table is not None:
+                worker._ra_key, worker._ra_table = key, table
+            else:
+                worker._ra_miss_key = key
+        if worker._ra_key == key and worker._ra_table is not None:
+            names = set(worker._ra_table.column_names)
+            return worker._ra_table.select([c for c in sorted(columns) if c in names])
     if worker._hedger is None:
-        return _read_row_group(worker._files, rowgroup, columns,
-                               fault_plan=worker._fault_plan, worker_id=worker.worker_id)
-    if worker._hedge_files is None:
-        worker._hedge_files = _HedgeHandlePool(worker._fs)
+        table = _read_row_group(worker._files, rowgroup, columns,
+                                fault_plan=worker._fault_plan, worker_id=worker.worker_id)
+    else:
+        if worker._hedge_files is None:
+            worker._hedge_files = _HedgeHandlePool(worker._fs)
 
-    def attempt(_cancel):
-        private = worker._hedge_files.acquire()
-        try:
-            return _read_row_group(private, rowgroup, columns, fault_plan=worker._fault_plan,
-                                   worker_id=worker.worker_id)
-        finally:
-            worker._hedge_files.release(private)
+        def attempt(_cancel):
+            private = worker._hedge_files.acquire()
+            try:
+                return _read_row_group(private, rowgroup, columns,
+                                       fault_plan=worker._fault_plan,
+                                       worker_id=worker.worker_id)
+            finally:
+                worker._hedge_files.release(private)
 
-    return worker._hedger.read(attempt, attempt, key=str(rowgroup.path))
+        table = worker._hedger.read(attempt, attempt, key=str(rowgroup.path))
+    if worker._io_bytes is not None:
+        worker._io_bytes.add(int(table.nbytes))
+        worker._io_rowgroups.add(1)
+    return table
+
+
+def readahead_clear(worker) -> None:
+    """Drop the worker's hold on a popped readahead table (the item ended,
+    or an attempt is retried: a retry reads fresh bytes)."""
+    worker._ra_key = None
+    worker._ra_table = None
+    worker._ra_miss_key = None
 
 
 def init_resilience(worker, args) -> None:
@@ -163,9 +204,10 @@ def init_resilience(worker, args) -> None:
     :class:`~petastorm_tpu_torch.resilience.RowGroupGuard`, the fault plan,
     the per-attempt stage deadline (soft overruns are straggler telemetry,
     hard ones cancel the attempt into the guard), the cancel token the
-    watchdog requests, and the hedged-read executor. In-process pools pass
-    the reader's registry as ``resilience_telemetry``; spawned workers get
-    None and count locally."""
+    watchdog requests, and the hedged-read executor; and the IO plane: the
+    reader's ``readahead`` stage and the ``io.*`` read counters. In-process
+    pools pass the reader's registry as ``resilience_telemetry``; spawned
+    workers get None and count locally."""
     from petastorm_tpu_torch.resilience import (HedgedReadExecutor, RowGroupGuard,
                                                 StragglerMonitor)
     telemetry = args.get("resilience_telemetry")
@@ -183,6 +225,13 @@ def init_resilience(worker, args) -> None:
     worker._hedger = (HedgedReadExecutor(policy, telemetry=telemetry, worker_id=worker.worker_id)
                       if policy is not None else None)
     worker._hedge_files = None   # a _HedgeHandlePool, made on the first hedged read
+    # The IO plane: the reader's readahead stage (None on spawned workers),
+    # the table popped for the current item, and the inline reads' counters.
+    worker._readahead = args.get("readahead")
+    readahead_clear(worker)
+    worker._io_bytes = telemetry.counter("io.bytes_read") if telemetry is not None else None
+    worker._io_rowgroups = (telemetry.counter("io.rowgroups_read") if telemetry is not None
+                            else None)
 
 
 def open_files(worker) -> None:
@@ -214,6 +263,7 @@ def run_guarded_item(worker, rowgroup, shuffle_context, build):
 
     def on_retry(_attempt, _exc, _delay):
         worker._files.evict(rowgroup.path)
+        readahead_clear(worker)
 
     attempt = build
     if worker._deadline is not None or worker._cancel_token is not None:
@@ -236,6 +286,8 @@ def run_guarded_item(worker, rowgroup, shuffle_context, build):
     except RowGroupSkipped:
         publish_ordered_skip(worker, shuffle_context)
         raise
+    finally:
+        readahead_clear(worker)
 
 
 def deadline_checkpoint(worker) -> None:
@@ -372,9 +424,10 @@ class RowReaderWorker(WorkerBase):
     ``empty`` when no row was kept (``skip`` when the row group was
     quarantined); ``storage_options`` and ``filesystem`` (or None), how the
     store's files are reached; ``retry_policy``, ``degraded_mode``,
-    ``fault_plan``, ``stage_deadline``, ``hedge_policy``, ``cancel_token``
-    and ``resilience_telemetry`` (all optional), read by
-    :func:`init_resilience`.
+    ``fault_plan``, ``stage_deadline``, ``hedge_policy``, ``cancel_token``,
+    ``readahead`` and ``resilience_telemetry`` (all optional), read by
+    :func:`init_resilience`; ``cache``, the reader's decoded cache (or
+    None).
 
     Its counters (:meth:`take_counters`): ``images_native``, the image
     cells the native batch call decoded, and ``images_codec``, those that
@@ -431,11 +484,11 @@ class RowReaderWorker(WorkerBase):
         spec = self.args.get("transform_spec")
         func = spec.func if spec is not None else None
         rng = item_shuffle_rng(self.args["seed"], shuffle_context, self._rng)
+        decoded = False
         if predicate is not None:
             data, indices = self._load_columns_with_predicate(rowgroup, predicate, drop_part, rng)
         else:
-            data, num_rows = self._read_columns(rowgroup, self._needed)
-            indices = select_drop_partition(num_rows, *drop_part, self.args["shuffle_rows"], rng)
+            data, indices, decoded = self._maybe_cached(rowgroup, drop_part, rng)
         # Stage boundary (read done, decode ahead): a hard-overrun or
         # watchdog-cancelled attempt stops here instead of paying the decode.
         deadline_checkpoint(self)
@@ -444,18 +497,24 @@ class RowReaderWorker(WorkerBase):
         if ngram is None and (self._lazy or batched):
             # Columns stay columns through the decode and the batched
             # transform: a lazy reader gets them whole, an eager one as rows.
-            cols = self._decode_columns(data, indices)
+            cols = (self._cols_from_decoded(data, indices) if decoded
+                    else self._decode_columns(data, indices))
             if batched:
                 cols = apply_batched_transform(spec, cols)
             n = len(next(iter(cols.values()))) if cols else 0
             if self._lazy:
                 return ColumnarBatch(cols, n)
             return [{k: c[j] for k, c in cols.items()} for j in range(n)]
-        if ngram is not None and ngram.dense and func is None \
+        if decoded:
+            # The cache paid for the decode: rows are cells copied out of it
+            # (dense NGram windows form from these rows).
+            rows = self._rows_from_decoded(data, indices)
+        elif ngram is not None and ngram.dense and func is None \
                 and self._dense_vectorizable(data, indices):
             return self._dense_windows(ngram, data, indices)
-        cols = self._decode_columns(data, indices)
-        rows = [{n: c[j] for n, c in cols.items()} for j in range(len(indices))]
+        else:
+            cols = self._decode_columns(data, indices)
+            rows = [{n: c[j] for n, c in cols.items()} for j in range(len(indices))]
         if func is not None:
             rows = [func(r) for r in rows]
         if ngram is not None:
@@ -465,6 +524,62 @@ class RowReaderWorker(WorkerBase):
             if ngram.dense:
                 rows = ngram.densify_windows(rows)
         return rows
+
+    def _cache_key(self, rowgroup, columns) -> str:
+        """The JAX package's key: the store URL's md5, the file, the row
+        group and the columns."""
+        h = hashlib.md5(self.args["dataset_url"].encode()).hexdigest()
+        return f"{h}:{rowgroup.path}:{rowgroup.row_group}:{','.join(sorted(columns))}"
+
+    def _maybe_cached(self, rowgroup, drop_part, rng):
+        """``(columns, indices, decoded)`` of a group without a predicate:
+        its raw columns read, or with a decoded cache (``caches_decoded``)
+        its post-codec columns, whole, from the cache or read, decoded and
+        stored (``decoded`` True). The drop partition and the shuffle are
+        taken after, so a hit never freezes an epoch's order."""
+        cache = self.args.get("cache")
+        decoded = getattr(cache, "caches_decoded", False)
+        if decoded:
+            data = cache.get(self._cache_key(rowgroup, self._needed) + ":decoded",
+                             lambda: self._decode_all_columns(rowgroup))
+        else:
+            data, _ = self._read_columns(rowgroup, self._needed)
+        num_rows = len(next(iter(data.values()))) if data else 0
+        indices = select_drop_partition(num_rows, *drop_part, self.args["shuffle_rows"], rng)
+        return data, indices, decoded
+
+    def _decode_all_columns(self, rowgroup) -> dict:
+        """A decoded cache's fill: every row of the group read and decoded
+        in stored order (only the decode plan's columns)."""
+        data, num_rows = self._read_columns(rowgroup, self._needed)
+        return self._decode_columns(data, np.arange(num_rows))
+
+    def _cols_from_decoded(self, cols: dict, indices) -> dict:
+        """The ``indices`` rows of cached decoded columns, copied out of the
+        cache: fancy indexing copies an array column, and each cell of a
+        list column is copied (:meth:`_copy_cell`)."""
+        idx = np.asarray(indices, dtype=np.intp)
+        return {name: col[idx] if isinstance(col, np.ndarray)
+                else [self._copy_cell(col[i]) for i in idx]
+                for name, col in cols.items()}
+
+    def _rows_from_decoded(self, cols: dict, indices) -> list:
+        """Row dicts of the ``indices`` rows of cached decoded columns, each
+        cell copied: a consumer or a transform that writes into a row must
+        not write into the cache (a later epoch would read it), and a row
+        must not pin its group's decode."""
+        names = list(cols)
+        return [{n: self._copy_cell(cols[n][i]) for n in names} for i in indices]
+
+    @staticmethod
+    def _copy_cell(v):
+        """An array or a mutable container cell copied; anything else (an
+        immutable value) as it is."""
+        if isinstance(v, np.ndarray):
+            return v.copy()
+        if isinstance(v, (list, dict, set, bytearray)):
+            return copy.deepcopy(v)
+        return v
 
     def _read_columns(self, rowgroup, columns):
         """``({column: per-row values}, rows)`` of the row group's

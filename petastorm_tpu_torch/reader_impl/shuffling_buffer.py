@@ -35,6 +35,7 @@ class RandomShufflingBuffer:
         if min_after_retrieve >= shuffling_buffer_capacity:
             raise ValueError("min_after_retrieve must be smaller than "
                              "shuffling_buffer_capacity")
+        self._configured_capacity = shuffling_buffer_capacity
         self._capacity = shuffling_buffer_capacity
         self._min_after_retrieve = min_after_retrieve
         self._extra_capacity = extra_capacity
@@ -48,11 +49,13 @@ class RandomShufflingBuffer:
         if self._done_adding:
             raise RuntimeError("Cannot add to a finished shuffling buffer")
         items = list(items)
-        if len(self._items) + len(items) > self._capacity + self._extra_capacity:
+        # Held to the configured capacity, not the live target: the
+        # controller may shrink the target between a can_add and this add.
+        if len(self._items) + len(items) > self._configured_capacity + self._extra_capacity:
             raise RuntimeError(
                 f"Attempt to overfill shuffling buffer: {len(self._items)} buffered + "
-                f"{len(items)} new > {self._capacity} + {self._extra_capacity} slack. "
-                f"Check can_add before adding.")
+                f"{len(items)} new > {self._configured_capacity} + {self._extra_capacity} "
+                f"slack. Check can_add before adding.")
         self._items.extend(items)
 
     def retrieve(self):
@@ -88,6 +91,20 @@ class RandomShufflingBuffer:
     @property
     def capacity(self):
         return self._capacity
+
+    @property
+    def min_target(self) -> int:
+        """The least target :meth:`set_target_capacity` takes: the mixing
+        floor plus one retrievable row."""
+        return self._min_after_retrieve + 1
+
+    def set_target_capacity(self, n: int) -> None:
+        """The target resident rows as a live knob (the autotune
+        controller's ``shuffle_target``; ``tools/check_knobs.py`` checks
+        that only :mod:`petastorm_tpu_torch.autotune` calls it), clamped to
+        [``min_target``, the configured capacity]. A shrink below the fill
+        pauses adds until retrieval drains the excess; no row is dropped."""
+        self._capacity = max(self.min_target, min(int(n), self._configured_capacity))
 
 
 class BatchShufflingBuffer:
@@ -206,8 +223,8 @@ class BatchShufflingBuffer:
         return self._min_after + 1
 
     def set_target_capacity(self, n: int) -> None:
-        """Set the target resident rows, clamped to [``min_target``, the
+        """The target resident rows as a live knob (the autotune
+        controller's ``shuffle_target``), clamped to [``min_target``, the
         configured capacity]. A shrink below the fill pauses adds until
-        retrieval drains the excess; no buffered row is dropped. (The JAX
-        package's autotune drives it; the port has no autotune yet.)"""
+        retrieval drains the excess; no buffered row is dropped."""
         self._capacity = max(self.min_target, min(int(n), self._configured_capacity))

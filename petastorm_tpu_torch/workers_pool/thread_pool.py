@@ -22,7 +22,12 @@ becomes a skip record on its queue, ahead of the item's processed marker,
 and ``get_results`` adds it to ``pool.quarantine``; with a
 ``stage_deadline`` each worker counts whole items past the soft budget
 (``resilience.item_stragglers_total``); ``heartbeats`` holds each worker's
-last item boundary for the watchdog, which may ``abort()`` the pool.
+last item boundary for the watchdog, which may ``nudge()`` or ``abort()``
+the pool.
+
+Each worker takes a slot of the pool's :class:`ConcurrencyGate` before an
+item and frees it after: the autotune controller's live decode-concurrency
+knob. The readout order does not change with the limit.
 """
 from __future__ import annotations
 
@@ -56,15 +61,88 @@ class WorkerTerminationRequested(Exception):
     """Raised inside a worker thread to unwind when the pool is stopping."""
 
 
+class ConcurrencyGate:
+    """Admission gate over live worker concurrency (the JAX package's).
+
+    Every worker thread stays alive, but only ``limit`` of them process an
+    item at once; the others park before their next item. ``set_limit`` is
+    the knob (``tools/check_knobs.py`` checks that only
+    :mod:`petastorm_tpu_torch.autotune` calls it): a change takes effect at
+    the next item boundary, with no thread started or stopped and no item
+    lost or reordered.
+
+    Under the strict round-robin readout, a limit below the worker count
+    could wedge: the consumer waits on a parked worker while every slot
+    holder waits on the consumer to drain its full queue. So a slot holder
+    blocked publishing into a full queue yields its slot
+    (:meth:`yield_if_held`) and takes one again before it goes on.
+    """
+
+    def __init__(self, limit: int):
+        self._limit = max(1, int(limit))
+        self._active = 0
+        self._holders: set = set()   # idents of the threads holding a slot
+        self._cv = threading.Condition()
+
+    @property
+    def limit(self) -> int:
+        with self._cv:
+            return self._limit
+
+    @property
+    def active(self) -> int:
+        with self._cv:
+            return self._active
+
+    def set_limit(self, limit: int) -> None:
+        with self._cv:
+            self._limit = max(1, int(limit))
+            self._cv.notify_all()
+
+    def acquire(self, stop_event) -> bool:
+        """Block until a slot frees (True), or the pool stops (False)."""
+        with self._cv:
+            while self._active >= self._limit:
+                if stop_event.is_set():
+                    return False
+                self._cv.wait(_END_OF_VENTILATION_POLL_S)
+            self._active += 1
+            self._holders.add(threading.get_ident())
+            return True
+
+    def release(self) -> None:
+        """Free the calling thread's slot; no-op when it holds none."""
+        self.yield_if_held()
+
+    def yield_if_held(self) -> bool:
+        """Free the calling thread's slot if it holds one; returns whether
+        it did (the caller acquires again later)."""
+        with self._cv:
+            ident = threading.get_ident()
+            if ident not in self._holders:
+                return False
+            self._holders.discard(ident)
+            self._active = max(0, self._active - 1)
+            self._cv.notify_all()
+            return True
+
+    def nudge(self) -> None:
+        """Wake every parked waiter, in case a stall is a lost wakeup (they
+        check again and park when it is not)."""
+        with self._cv:
+            self._cv.notify_all()
+
+
 class _WorkerThread(threading.Thread):
-    def __init__(self, worker_impl, input_queue, stop_event, put_fn, heartbeats, prof=None,
-                 telemetry=None, straggler=None):
+    def __init__(self, worker_impl, input_queue, stop_event, put_fn, heartbeats, gate,
+                 prof=None, telemetry=None, straggler=None):
         super().__init__(name=f"pt-worker-{worker_impl.worker_id}", daemon=True)
         self._worker_impl = worker_impl
         self._input_queue = input_queue
         self._stop_event = stop_event
         self._put = put_fn
         self._heartbeats = heartbeats
+        self._gate = gate
         self._straggler = straggler
         self.prof = prof   # this worker's cProfile (before Python 3.12 only)
         self._telemetry = telemetry
@@ -90,18 +168,25 @@ class _WorkerThread(threading.Thread):
                 # The lineage id the reader adds in trace mode; the worker's
                 # signature never sees it.
                 trace = kwargs.pop("trace_context", None)
+                # The item stays this worker's while it parks (the assignment
+                # is fixed), so the readout order holds.
+                if not self._gate.acquire(self._stop_event):
+                    return
                 self._heartbeats[wid] = time.monotonic()
                 t0 = time.perf_counter()
-                if self._decode_hist is not None:
-                    with self._telemetry.span("petastorm_tpu.worker_decode", trace=trace,
-                                              stage="decode", track=f"worker:{wid}"):
+                try:
+                    if self._decode_hist is not None:
+                        with self._telemetry.span("petastorm_tpu.worker_decode", trace=trace,
+                                                  stage="decode", track=f"worker:{wid}"):
+                            self._process_item(args, kwargs)
+                        busy = time.perf_counter() - t0
+                        self._decode_hist.observe(busy)
+                        self._c_busy.add(busy)
+                        self._c_items.add(1)
+                    else:
                         self._process_item(args, kwargs)
-                    busy = time.perf_counter() - t0
-                    self._decode_hist.observe(busy)
-                    self._c_busy.add(busy)
-                    self._c_items.add(1)
-                else:
-                    self._process_item(args, kwargs)
+                finally:
+                    self._gate.release()
                 self._put(VentilatedItemProcessedMessage(
                     wid, self._worker_impl.take_counters(), kwargs.get(ITEM_CONTEXT_KWARG)))
                 self._heartbeats[wid] = time.monotonic()
@@ -178,6 +263,9 @@ class ThreadPool:
         self.stage_deadline = None
         #: Per worker, the monotonic time of its last item boundary.
         self.heartbeats = [0.0] * workers_count
+        #: The live decode-concurrency knob (the autotune controller's
+        #: ``worker_concurrency``); all workers by default.
+        self.concurrency_gate = ConcurrencyGate(workers_count)
         self._abort_exc = None
 
     def start(self, worker_class, worker_args=None, ventilator=None):
@@ -194,7 +282,8 @@ class ThreadPool:
             prof = (cProfile.Profile() if self._profiling_enabled
                     and sys.version_info < (3, 12) else None)
             self._workers.append(_WorkerThread(worker, in_q, self._stop_event,
-                                               self._make_put(i), self.heartbeats, prof=prof,
+                                               self._make_put(i), self.heartbeats,
+                                               self.concurrency_gate, prof=prof,
                                                telemetry=self.telemetry, straggler=straggler))
         if self._profiling_enabled and sys.version_info >= (3, 12):
             self._prof = cProfile.Profile()
@@ -211,16 +300,28 @@ class ThreadPool:
             self._ventilator.start()
 
     def _make_put(self, worker_id):
+        gate = self.concurrency_gate
+
         def _put(data):
             # Bounded put that unwinds when the pool stops, so a worker never
-            # deadlocks against a full queue nobody drains.
-            while True:
-                try:
-                    self._result_queues[worker_id].put(data, block=True, timeout=_IO_TIMEOUT_S)
-                    return
-                except queue.Full:
-                    if self._stop_event.is_set():
-                        raise WorkerTerminationRequested()
+            # deadlocks against a full queue nobody drains. Blocked on a full
+            # queue, a slot holder yields its slot (see ConcurrencyGate) and
+            # takes one again before it goes on.
+            yielded = False
+            try:
+                while True:
+                    try:
+                        self._result_queues[worker_id].put(data, block=True,
+                                                           timeout=_IO_TIMEOUT_S)
+                        return
+                    except queue.Full:
+                        if self._stop_event.is_set():
+                            raise WorkerTerminationRequested()
+                        if not yielded:
+                            yielded = gate.yield_if_held()
+            finally:
+                if yielded and not gate.acquire(self._stop_event):
+                    raise WorkerTerminationRequested()
         return _put
 
     def ventilate(self, *args, **kwargs):
@@ -299,6 +400,11 @@ class ThreadPool:
         as a stop."""
         self._abort_exc = exc
         self.stop()
+
+    def nudge(self):
+        """The watchdog's first rung: wake the workers parked at the
+        admission gate, in case a stall is a lost wakeup."""
+        self.concurrency_gate.nudge()
 
     def join(self):
         for w in self._workers:

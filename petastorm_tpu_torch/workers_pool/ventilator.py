@@ -144,6 +144,16 @@ class ConcurrentVentilator:
     def max_inflight(self) -> int:
         return self._max_inflight
 
+    def set_max_inflight(self, n: int) -> None:
+        """The in-flight cap as a live knob (the autotune controller's
+        ``ventilate_ahead``; ``tools/check_knobs.py`` checks that only
+        :mod:`petastorm_tpu_torch.autotune` calls it), at least 1. A raised
+        cap wakes the ventilation thread at once; a lowered one admits no
+        item until the backlog drains below it (no item is recalled)."""
+        with self._inflight_cv:
+            self._max_inflight = max(1, int(n))
+            self._inflight_cv.notify_all()
+
     def nudge(self) -> None:
         """The watchdog's hook: wake the ventilation thread in case its stall
         is a lost backpressure wakeup (harmless otherwise: it re-checks the

@@ -1386,3 +1386,36 @@ def test_long_context_example_on_two_ranks_on_card(cuda_device, tmp_path):
     for r in results:
         assert {flash_attn.STATS_KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
                 flash_attn.BWD_DKV_KERNEL_NAME} <= set(r["launches"]), r["launches"]
+
+
+@pytest.mark.parametrize("cache", [None, 64 << 20])
+def test_prefetch_raised_to_its_ceiling_mid_epoch_keeps_the_batches(cuda_device, tmp_path,
+                                                                     cache):
+    """A loader on the card whose prefetch depth is raised to the
+    actuator's ceiling (4x) after its third batch, over a reader with
+    readahead and autotune (and the memory cache), gives batches bit-equal
+    to an untuned loader's, and K1 of each bit-equal to its plain version:
+    the grown pinned ring never overwrites a buffer a copy still reads."""
+    from petastorm_tpu_torch.autotune import AutotuneConfig, PrefetchDepthActuator
+    url = _image_store(tmp_path, rows=192)
+
+    def batches(tuned):
+        kw = dict(workers_count=3, shuffle_row_groups=True, seed=4, num_epochs=2)
+        if tuned:
+            kw.update(readahead_depth=2, autotune=True, memory_cache_size_bytes=cache,
+                      autotune_config=AutotuneConfig(interval_s=60))
+        out = []
+        with make_reader(url, **kw) as reader:
+            loader = DataLoader(reader, batch_size=16, device=cuda_device, prefetch=2)
+            for i, batch in enumerate(loader):
+                if tuned and i == 3:
+                    act = reader.autotune.actuator("prefetch_depth")
+                    assert act.set(act.hi) == 8 and loader.prefetch_depth == 8
+                normalised = normalize_images(batch["image"])
+                assert torch.equal(normalised.view(torch.int16),
+                                   normalize_images_plain(batch["image"]).view(torch.int16))
+                out.append((batch["id"].cpu().numpy().tobytes(),
+                            batch["image"].cpu().numpy().tobytes()))
+        return out
+    tuned, plain = batches(True), batches(False)
+    assert len(tuned) == len(plain) == 24 and tuned == plain

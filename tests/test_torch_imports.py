@@ -114,7 +114,12 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.telemetry.registry", "petastorm_tpu_torch.telemetry.recorder",
             "petastorm_tpu_torch.telemetry.stall", "petastorm_tpu_torch.telemetry.trace",
             "petastorm_tpu_torch.telemetry.exporters", "examples.torch_imagenet.main",
-            "examples.torch_llm_tokens.main", "examples.torch_long_context.main"} <= set(modules)
+            "examples.torch_llm_tokens.main", "examples.torch_long_context.main",
+            "petastorm_tpu_torch.cache", "petastorm_tpu_torch.autotune",
+            "petastorm_tpu_torch.autotune.budget", "petastorm_tpu_torch.autotune.actuators",
+            "petastorm_tpu_torch.autotune.placement", "petastorm_tpu_torch.autotune.controller",
+            "petastorm_tpu_torch.autotune.mem_cache",
+            "petastorm_tpu_torch.reader_impl.readahead"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -191,7 +196,12 @@ WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
                   "petastorm_tpu_torch.resilience.recovery",
                   "petastorm_tpu_torch.resilience.deadline",
                   "petastorm_tpu_torch.resilience.hedging",
-                  "petastorm_tpu_torch.resilience.watchdog")
+                  "petastorm_tpu_torch.resilience.watchdog",
+                  # A spawned worker unpickles the reader's memory cache.
+                  "petastorm_tpu_torch.cache", "petastorm_tpu_torch.autotune",
+                  "petastorm_tpu_torch.autotune.mem_cache",
+                  "petastorm_tpu_torch.autotune.budget",
+                  "petastorm_tpu_torch.reader_impl.readahead")
 
 #: The telemetry core: workers record spans and ship them to the parent, so
 #: it imports without torch (and without the JAX package's telemetry).

@@ -33,15 +33,9 @@ from petastorm_tpu_torch.loader import (BatchedDataLoader, DataLoader, InMemBatc
 from petastorm_tpu_torch.loader.mesh_loader import MeshDataLoader
 from petastorm_tpu_torch.reader import make_batch_reader, make_reader
 
-#: Names the JAX pipeline produces and this package does not, and why.
-JAX_ONLY = {
-    "io.bytes_read": "the JAX workers' I/O accounting rides its resilience plane (retry "
-                     "policy, hedged reads), which is not ported (ROADMAP item 9)",
-    "io.rowgroups_read": "as io.bytes_read",
-    "resilience.retries_total": "the retry policy is not ported (item 9, resilience)",
-    "resilience.giveups_total": "the retry policy is not ported (item 9, resilience)",
-    "resilience.quarantined_rowgroups": "degraded mode's quarantine is not ported (item 9)",
-}
+#: Names the JAX pipeline produces and this package does not, and why: none
+#: since the resilience plane and the readers' IO counters are ported.
+JAX_ONLY = {}
 #: Made on first use by the stage that wins (or accrues time in) a batch.
 TIMING_FAMILIES = ("trace.critical_path.", "trace.self.")
 
