@@ -426,6 +426,30 @@ result line):
    and history logged. (c) Phase 22 (c)'s latency faults and hedges on 8
    threads -> K1, without and with ``readahead_depth=8``: every id once in
    both, both samples/s logged.
+24. the planning plane and placement migration. (a) Phase 4's store on 8
+   threads, two epochs -> ``DataLoader(256)`` -> K1, the reader's pool
+   migrated to 8 processes after batch 2 and back to threads after batch 5
+   (8 threads hold all 32 groups in flight, so a one-epoch run would leave
+   the process pool nothing to read): every id once an epoch, K1 bit-equal
+   on every batch, 2 migrations, the process pool processed items,
+   ``pool.backend`` the live pool's at each step, ``diagnostics()``
+   monotonic, each migration's seconds logged; then two epochs with ``AutotuneConfig(placement=True,
+   interval_s=0.1)`` and the plan cache in a temporary directory: the
+   controller's verdict and its migration's seconds logged, not checked.
+   (b) Phase 8's token store (12 windows of 8,192, ``ts = i``) through an
+   NGram reader with ``predicate=in_range("ts", 0, 6 * 8192)``, pruning on
+   and off: equal windows in equal order (``shuffle_row_groups=False``),
+   ``pruning_report()`` 6 pruned and 6 kept, the reads
+   (``io.rowgroups_read``: two a kept group, one a group the workers mask
+   out) 12 against 18; then 2 AdamW steps of phase 8's Llama on the pruned
+   windows: K2 "lse", K3 and K4 ``n_layers`` times a step, no plain-version
+   call, finite losses. (c) ``rowgroup_coalescing=4`` on phase 4's store ->
+   K1: 8 work items, every id once, K1 bit-equal; a batch reader with a
+   worker predicate, fused and with ``PETASTORM_TPU_PLAN_FUSION=0``:
+   byte-equal columns. (d) A reader built after a resolved trial was
+   recorded in that cache directory (recorded here when (a)'s trial did not
+   resolve) starts on the persisted backend: ``plan_report()["source"] ==
+   "persisted"``, the placement knob pinned, every id once through K1.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -869,6 +893,13 @@ PH22_HANG_S = 3.0
 PH23_CACHE_BYTES, PH23_SMALL_CACHE_BYTES = 512 << 20, 64 << 20
 PH23_READAHEAD, PH23_FAULT_DEPTH, PH23_TUNE_INTERVAL_S = 4, 8, 0.1
 PH23_ARMS = ("plain", "readahead", "readahead + autotune")
+# The planning plane (phase 24): (a)'s migrations after these batches, the
+# placement trial's tick; (b)'s pruned windows and Llama steps; (c)'s
+# coalescing.
+PH24_MIGRATE_AT = (2, 5)
+PH24_TUNE_INTERVAL_S = 0.1
+PH24_KEPT_WINDOWS, PH24_STEPS = 6, 2
+PH24_COALESCING = 4
 #: The JAX loaders' stage_breakdown() keys (petastorm_tpu/jax/loader.py:880-887).
 JAX_STAGE_KEYS = {"decode_s", "pool_queue_s", "shuffle_s", "host_wait_s", "stage_s",
                   "device_put_wait_s"}
@@ -6302,6 +6333,266 @@ def phase_io_tuning(smi: str, slice_url: str, converter_url: str, thread_bench: 
     return {KERNEL_NAME: launches.get(KERNEL_NAME, 0)}
 
 
+def _timed_migrations(reader) -> list:
+    """``reader``'s migrations from now on, as ``(from, to, seconds, items
+    the retired pool processed)``: ``_perform_pool_migration`` wrapped where
+    the reader calls it."""
+    done = []
+    perform = reader._perform_pool_migration
+
+    def timed():
+        old = reader._pool
+        t0 = time.perf_counter()
+        perform()
+        if reader._pool is not old:
+            done.append((type(old).__name__, type(reader._pool).__name__,
+                         time.perf_counter() - t0, old.diagnostics["items_processed"]))
+    reader._perform_pool_migration = timed
+    return done
+
+
+def _plain_counting():
+    """A context in which the flash plain versions count their calls (the
+    kernels' wrappers reach them through the module's globals)."""
+    calls = collections.Counter()
+    names = ("flash_attention_plain", "flash_attention_bwd_plain", "_stats_plain")
+    saved = {n: getattr(flash_attn, n) for n in names}
+
+    @contextlib.contextmanager
+    def counting():
+        for n, fn in saved.items():
+            def wrapper(*args, _fn=fn, _n=n, **kwargs):
+                calls[_n] += 1
+                return _fn(*args, **kwargs)
+            setattr(flash_attn, n, wrapper)
+        try:
+            yield calls
+        finally:
+            for n, fn in saved.items():
+                setattr(flash_attn, n, fn)
+    return counting()
+
+
+def phase_planning(smi: str, slice_url: str, token_url: str) -> dict:
+    """Phase 24: the planning plane and placement migration (see the module
+    docstring)."""
+    from petastorm_tpu_torch.autotune import AutotuneConfig
+    from petastorm_tpu_torch.plan import (PLAN_CACHE_ENV, PLAN_FUSION_ENV, PlanCache,
+                                          record_trial_outcome)
+    failures = []
+    kernels.reset_launch_counts()
+
+    def k1_epochs(reader, what, epochs=1, on_batch=None) -> list:
+        """``epochs`` of ``reader`` through ``DataLoader(BATCH)`` -> K1:
+        every id once an epoch, K1 bit-equal on every batch."""
+        ids, bad = [], []
+        for i, batch in enumerate(DataLoader(reader, batch_size=BATCH, device="cuda"), start=1):
+            pixels = batch["image"]
+            bad.append((normalize_images(pixels).view(torch.int16)
+                        != normalize_images_plain(pixels).view(torch.int16)).sum())
+            ids.append(batch["id"])
+            if on_batch is not None:
+                on_batch(i)
+        torch.cuda.synchronize()
+        ids = torch.cat(ids).tolist()
+        bad = [int(b.item()) for b in bad]
+        if sorted(ids) != sorted(list(range(ROWS)) * epochs):
+            failures.append(f"{what}: {len(ids)} rows, {len(set(ids))} distinct, not every id "
+                            f"once an epoch")
+        if any(bad):
+            failures.append(f"{what}: K1 not bit-equal: {bad}")
+        return ids
+
+    # (a) Forced migrations on the image path.
+    trail = []
+    with make_reader(slice_url, reader_pool_type="thread", workers_count=WORKERS, seed=0,
+                     num_epochs=2) as reader:
+        migrations = _timed_migrations(reader)
+
+        def on_batch(i):
+            d = reader.diagnostics
+            pool = type(reader._pool).__name__
+            backend = reader.telemetry.gauge("pool.backend").value
+            if type(reader._pool).__name__ == pool:   # no swap between the two reads
+                trail.append((i, pool, backend, d["pool_type"], d["items_ventilated"],
+                              d["items_processed"]))
+            if i == PH24_MIGRATE_AT[0]:
+                reader._request_pool_migration("process")
+            elif i == PH24_MIGRATE_AT[1]:
+                reader._request_pool_migration("thread")
+        t0 = time.perf_counter()
+        k1_epochs(reader, "(a)", epochs=2, on_batch=on_batch)
+        seconds = time.perf_counter() - t0
+        count = reader.telemetry.snapshot()["counters"].get("autotune.placement_migrations")
+    log(f"[plan] (a) ({smi}) phase 4's store, {WORKERS} threads -> processes after batch "
+        f"{PH24_MIGRATE_AT[0]} -> threads after batch {PH24_MIGRATE_AT[1]} -> "
+        f"DataLoader({BATCH}) -> K1, two epochs: {seconds:.3f} s; migrations (from, to, "
+        f"seconds, items the retired pool processed) "
+        f"{[(a, b, round(t, 3), n) for a, b, t, n in migrations]}; (batch, pool, "
+        f"pool.backend, pool_type, ventilated, processed) {trail}")
+    if count != 2 or [m[1] for m in migrations] != ["ProcessPool", "ThreadPool"] \
+            or not migrations[1][3] > 0:
+        failures.append(f"(a) {count} migrations counted, {migrations}")
+    for i, pool, backend, pool_type, _, _ in trail:
+        if backend != (1.0 if pool == "ProcessPool" else 0.0) \
+                or pool_type != ("process" if pool == "ProcessPool" else "thread"):
+            failures.append(f"(a) batch {i}: pool {pool}, pool.backend {backend}, "
+                            f"pool_type {pool_type}")
+    if "ProcessPool" not in {t[1] for t in trail} or any(
+            b[4] < a[4] or b[5] < a[5] for a, b in zip(trail, trail[1:])):
+        failures.append(f"(a) no process pool seen, or diagnostics went back: {trail}")
+
+    # (a) The controller's own trial, its verdict persisted in a temporary
+    # plan cache; (d) a reader built after it starts on the persisted backend.
+    saved_env = os.environ.get(PLAN_CACHE_ENV)
+    with tempfile.TemporaryDirectory() as plans:
+        os.environ[PLAN_CACHE_ENV] = plans
+        try:
+            kw = dict(reader_pool_type="thread", workers_count=WORKERS, seed=0, autotune=True,
+                      autotune_config=AutotuneConfig(placement=True,
+                                                     interval_s=PH24_TUNE_INTERVAL_S))
+            with make_reader(slice_url, num_epochs=2, **kw) as reader:
+                trial_migrations = _timed_migrations(reader)
+                t0 = time.perf_counter()
+                k1_epochs(reader, "(a) trial", epochs=2)
+                seconds = time.perf_counter() - t0
+                plan = reader._plan
+                report = reader.autotune_report()
+                outcome = reader.autotune.placement_outcome
+            recorded = PlanCache().load(plan.key)
+            log(f"[plan] (a) ({smi}) 2 epochs with AutotuneConfig(placement=True, interval_s="
+                f"{PH24_TUNE_INTERVAL_S}): {seconds:.3f} s, {report.get('ticks')} ticks, "
+                f"placement outcome {outcome}, migrations "
+                f"{[(a, b, round(t, 3), n) for a, b, t, n in trial_migrations]}, adjustments "
+                f"{report.get('adjustments', [])}; plan_report {plan.describe()}; persisted "
+                f"{None if recorded is None else recorded['backend']}")
+            if recorded is None:
+                record_trial_outcome(plan, {"verdict": "kept", "backend": "process",
+                                            "recorded": "the trial did not resolve"})
+                recorded = PlanCache().load(plan.key)
+            with make_reader(slice_url, num_epochs=1, **kw) as reader:
+                warm = reader.plan_report()
+                live = "process" if isinstance(reader._pool, ProcessPool) else "thread"
+                pinned = (reader.autotune.placement_outcome or {}).get("verdict")
+                has_actuator = reader.autotune.actuator("placement") is not None
+                k1_epochs(reader, "(d) warm start")
+        finally:
+            if saved_env is None:
+                os.environ.pop(PLAN_CACHE_ENV, None)
+            else:
+                os.environ[PLAN_CACHE_ENV] = saved_env
+    log(f"[plan] (d) warm start from the record {recorded}: plan_report source "
+        f"{warm['source']}, cache {warm['cache']}, placement {warm['placement']}, live pool "
+        f"{live}, placement outcome {pinned}, placement actuator {has_actuator}")
+    if warm["source"] != "persisted" or live != recorded["backend"] or pinned != "persisted" \
+            or has_actuator:
+        failures.append(f"(d) warm start: {warm}, live {live}, pinned {pinned}, actuator "
+                        f"{has_actuator}")
+
+    # (b) Statistics pruning on the token path, then Llama steps on K2-K4.
+    def ngram():
+        return NGram({o: ["ts", "token"] for o in range(WINDOW)}, delta_threshold=1,
+                     timestamp_field="ts", timestamp_overlap=False, dense=True)
+
+    predicate = in_range("ts", 0, PH24_KEPT_WINDOWS * WINDOW)
+    reads = {}
+    for pruning in (True, False):
+        with make_reader(token_url, schema_fields=ngram(), workers_count=TOKEN_WORKERS,
+                         shuffle_row_groups=False, predicate=predicate,
+                         rowgroup_pruning=pruning) as reader:
+            windows = [(int(w["ts"][0]), hashlib.sha1(np.ascontiguousarray(
+                w["token"]).tobytes()).hexdigest()) for w in reader]
+            reads[pruning] = (windows, reader.pruning_report(),
+                              reader.telemetry.snapshot()["counters"].get("io.rowgroups_read"))
+    (on, report, reads_on), (off, report_off, reads_off) = reads[True], reads[False]
+    log(f"[plan] (b) ({smi}) phase 8's token store, NGram({WINDOW}) with in_range('ts', 0, "
+        f"{PH24_KEPT_WINDOWS * WINDOW}): window starts {[w[0] for w in on]}; pruning_report "
+        f"{ {k: report.get(k) for k in ('enabled', 'row_groups_planned', 'row_groups_pruned', 'row_groups_kept', 'column_stats')} }; "
+        f"io.rowgroups_read {reads_on} pruned against {reads_off} unpruned")
+    if on != off or [w[0] for w in on] != [i * WINDOW for i in range(PH24_KEPT_WINDOWS)]:
+        failures.append(f"(b) pruned windows {[w[0] for w in on]} against {[w[0] for w in off]}")
+    if (report.get("row_groups_pruned"), report.get("row_groups_kept")) != \
+            (TOKEN_WINDOWS - PH24_KEPT_WINDOWS, PH24_KEPT_WINDOWS) or report_off["enabled"]:
+        failures.append(f"(b) pruning_report {report}, off {report_off}")
+    if reads_on != 2 * PH24_KEPT_WINDOWS or reads_off != reads_on + TOKEN_WINDOWS \
+            - PH24_KEPT_WINDOWS:
+        failures.append(f"(b) io.rowgroups_read {reads_on} pruned, {reads_off} unpruned")
+    params = llama.init_params(torch.Generator(device="cuda").manual_seed(0), LLAMA, device="cuda")
+    init_opt, step = llama.make_train_step(LLAMA, shift="roll",
+                                           attn_fn=make_flash_attention(causal=True))
+    opt = init_opt(params)
+    before = _flash_counts()
+    losses = []
+    with _plain_counting() as plain_calls, \
+            make_reader(token_url, schema_fields=ngram(), workers_count=TOKEN_WORKERS, seed=0,
+                        predicate=predicate) as reader:
+        for batch in DataLoader(reader, batch_size=TOKEN_BATCH, device="cuda"):
+            if len(losses) < PH24_STEPS:
+                params, opt, loss = step(params, opt, {"tokens": batch["token"]})
+                losses.append(loss.item())
+        torch.cuda.synchronize()
+    after = _flash_counts()
+    steps = {n: after[n] - before[n] for n in after}
+    log(f"[plan] (b) {PH24_STEPS} AdamW steps of LlamaConfig(n_layers={LLAMA.n_layers}) at "
+        f"({TOKEN_BATCH}, {WINDOW}) on the pruned windows: losses "
+        f"{[round(x, 4) for x in losses]}; launches {steps}; plain calls {dict(plain_calls)}")
+    if not _flash_exact(steps, LLAMA.n_layers * PH24_STEPS) or sum(plain_calls.values()) \
+            or len(losses) != PH24_STEPS or not np.all(np.isfinite(losses)):
+        failures.append(f"(b) steps: launches {steps}, plain calls {dict(plain_calls)}, "
+                        f"losses {losses}")
+    del params, opt, init_opt, step
+    free_cuda()
+
+    # (c) Coalescing into K1, and the batch worker's fusions.
+    with make_reader(slice_url, reader_pool_type="thread", workers_count=WORKERS, seed=0,
+                     rowgroup_coalescing=PH24_COALESCING) as reader:
+        items = reader._num_items
+        t0 = time.perf_counter()
+        k1_epochs(reader, "(c) coalesced")
+        seconds = time.perf_counter() - t0
+    if items != ROWS // ROWS_PER_GROUP // PH24_COALESCING:
+        failures.append(f"(c) rowgroup_coalescing={PH24_COALESCING}: {items} work items")
+    columns, fusions = {}, {}
+    saved_fusion = os.environ.get(PLAN_FUSION_ENV)
+    try:
+        for fused in (True, False):
+            os.environ[PLAN_FUSION_ENV] = "1" if fused else "0"
+            with make_batch_reader(slice_url, reader_pool_type="thread", workers_count=WORKERS,
+                                   shuffle_row_groups=False, rowgroup_pruning=False,
+                                   predicate=in_range("id", ROWS // 8, ROWS - ROWS // 8)) as r:
+                fusions[fused] = sorted(r._plan.fusion_names())
+                batches = []
+                try:
+                    while True:
+                        batches.append(r.next_batch())
+                except StopIteration:
+                    pass
+            columns[fused] = [{k: hashlib.sha1(b"".join(
+                bytes(x) if isinstance(x, (bytes, bytearray, memoryview))
+                else np.ascontiguousarray(x).tobytes() for x in v)).hexdigest()
+                for k, v in b.items()} for b in batches]
+    finally:
+        if saved_fusion is None:
+            os.environ.pop(PLAN_FUSION_ENV, None)
+        else:
+            os.environ[PLAN_FUSION_ENV] = saved_fusion
+    log(f"[plan] (c) ({smi}) rowgroup_coalescing={PH24_COALESCING}: {items} work items, "
+        f"{seconds:.3f} s through K1; batch reader with a worker predicate, fusions "
+        f"{fusions[True]} against {fusions[False]}: {len(columns[True])} groups, columns "
+        f"byte-equal {columns[True] == columns[False]}")
+    if columns[True] != columns[False] or not columns[True] or fusions[False] \
+            or "mask_decode_transform" not in fusions[True]:
+        failures.append(f"(c) fused {fusions[True]} against unfused {fusions[False]}: columns "
+                        f"equal {columns[True] == columns[False]}")
+
+    launches = dict(kernels.launch_counts)
+    log(f"[plan] launches {launches}")
+    if failures:
+        raise AssertionError("planning phase: " + "; ".join(failures))
+    return {KERNEL_NAME: launches.get(KERNEL_NAME, 0), **{n: steps[n] for n in (
+        flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME)}}
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """``t`` seen as integers of its width, so that equality is bit equality."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -6388,12 +6679,16 @@ def main() -> int:
             io_plane = timed("23 io + tuning", phase_io_tuning, smi,
                              f"file://{slice_tmp}/imagenet_like",
                              f"file://{tmp}/converter_cache", thread_bench)
+            free_cuda()
+        # Phase 24 reads the stores of phases 4 and 8.
+        planning = timed("24 planning + placement", phase_planning, smi,
+                         f"file://{slice_tmp}/imagenet_like", f"file://{train_tmp}/tokens")
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     for name in (flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME,
                  flash_attn.BWD_DKV_KERNEL_NAME):
-        counts[name] += proc[name] + epoch[name] + mesh[name]
+        counts[name] += proc[name] + epoch[name] + mesh[name] + planning[name]
     for name in TP_KERNELS:
         counts[name] = counts.get(name, 0) + tp[name] + fsdp[name]
     source = "petastorm_tpu_torch/csrc/flash_attn_bwd.cu"
@@ -6404,7 +6699,7 @@ def main() -> int:
         "launches": (launches + proc["normalize"] + resume.get(KERNEL_NAME, 0)
                      + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]
                      + lazy[KERNEL_NAME] + conv[KERNEL_NAME] + tele[KERNEL_NAME]
-                     + resil[KERNEL_NAME] + io_plane[KERNEL_NAME]),
+                     + resil[KERNEL_NAME] + io_plane[KERNEL_NAME] + planning[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

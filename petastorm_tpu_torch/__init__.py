@@ -37,10 +37,15 @@ _EXPORTS = {
     "flash_attention": "petastorm_tpu_torch.ops.flash_attn",
     "make_flash_attention": "petastorm_tpu_torch.ops.flash_attn",
     "make_reader": "petastorm_tpu_torch.reader",
+    "MetadataError": "petastorm_tpu_torch.errors",
+    "MetadataGenerationError": "petastorm_tpu_torch.errors",
     "MeshDataLoader": "petastorm_tpu_torch.loader",
     "MeshHostLostError": "petastorm_tpu_torch.loader",
     "MeshReaderFactory": "petastorm_tpu_torch.loader",
+    "NoDataAvailableError": "petastorm_tpu_torch.errors",
     "normalize_images": "petastorm_tpu_torch.ops.image_ops",
+    "PetastormTpuError": "petastorm_tpu_torch.errors",
+    "SchemaError": "petastorm_tpu_torch.errors",
     "TransformSpec": "petastorm_tpu_torch.transform",
     "Unischema": "petastorm_tpu_torch.unischema",
     "UnischemaField": "petastorm_tpu_torch.unischema",

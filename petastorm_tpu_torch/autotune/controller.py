@@ -63,7 +63,9 @@ class AutotuneConfig:
     :param queue_empty_frac/queue_full_frac: results-queue fill fractions
         read as producer- and consumer-bound where no loader reports stalls
     :param placement: tune the decode stage's placement (thread against
-        process pool). Not ported: ``True`` raises ``NotImplementedError``
+        process pool): the reader registers a placement actuator, and a
+        resolved trial persists in the plan cache
+        (:mod:`petastorm_tpu_torch.plan`)
     :param placement_settle_ticks: ticks after a completed migration
         before it is judged
     :param placement_tolerance: the rows-a-tick loss that reverts a trial
@@ -95,10 +97,6 @@ class AutotuneConfig:
         if not 0.0 < self.placement_tolerance < 1.0:
             raise ValueError(f"placement_tolerance must be in (0, 1), "
                              f"got {self.placement_tolerance}")
-        if self.placement:
-            raise NotImplementedError(
-                "AutotuneConfig(placement=True): the readers cannot migrate their pool between "
-                "threads and processes yet (ROADMAP item 9, placement migration with plan/*)")
 
 
 class AutotuneController:

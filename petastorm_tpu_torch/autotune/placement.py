@@ -6,8 +6,8 @@ winner and pins the knob (one trial a reader).
 
 ``_apply`` only requests the migration through ``migrate_fn``; the owner
 calls :meth:`PlacementActuator.mark_applied` when the swap is done, or
-:meth:`~PlacementActuator.mark_failed` when it aborted. The port's readers
-do not migrate pools yet, so only the controller drives this class.
+:meth:`~PlacementActuator.mark_failed` when it aborted: the reader's
+``_perform_pool_migration`` does both.
 """
 from __future__ import annotations
 

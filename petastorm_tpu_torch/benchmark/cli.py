@@ -46,6 +46,8 @@ def build_parser():
     parser.add_argument("--spawn-new-process", action="store_true",
                         help="Re-run the measurement in a fresh interpreter so RSS is not "
                              "polluted by this process's history")
+    parser.add_argument("--rowgroup-coalescing", type=int, default=1,
+                        help="Read up to N same-file row groups per IO call")
     parser.add_argument("--json", action="store_true", help="Emit one JSON line")
     parser.add_argument("-v", action="store_true", help="INFO logging")
     parser.add_argument("-vv", action="store_true", help="DEBUG logging")
@@ -76,7 +78,9 @@ def main(argv=None):
         shuffling_queue_size=args.shuffling_queue_size,
         min_after_dequeue=args.min_after_dequeue, read_method=args.read_method,
         device_step_ms=args.device_step_ms, profile_threads=args.profile_threads,
-        device=args.device)
+        device=args.device,
+        reader_extra_kwargs=({"rowgroup_coalescing": args.rowgroup_coalescing}
+                             if args.rowgroup_coalescing > 1 else None))
     print(json.dumps(result.as_dict()) if args.json else result)
     return 0
 

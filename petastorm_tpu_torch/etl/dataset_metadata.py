@@ -10,6 +10,11 @@ writes:
 
 Reference petastorm stores, whose schema is a pickle under
 ``dataset-toolkit.unischema.v1``, are not read by this package yet.
+
+:func:`load_row_group_stats` reads the footers' per-row-group column
+statistics (:class:`ColumnStats`) for the reader's plan-time pruning: from
+the summary ``_metadata`` sidecar when the store has one, else from the
+footers of the files concerned.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.errors import MetadataError, MetadataGenerationError
 from petastorm_tpu_torch.fs_utils import get_filesystem_and_path_or_paths
+from petastorm_tpu_torch.predicates import _is_nan
 from petastorm_tpu_torch.unischema import Unischema
 
 logger = logging.getLogger(__name__)
@@ -47,6 +53,126 @@ class RowGroupRef:
     @property
     def partition_dict(self) -> dict:
         return dict(self.partition_values)
+
+
+@dataclass(frozen=True)
+class ColumnStats:
+    """One column's statistics in one row group, as the Parquet footer
+    records them (pyarrow's logical values). ``has_min_max=False``: the
+    bounds are absent or unusable (statistics off at write time, or a NaN
+    bound), and the pruner lets the group through. A None count means not
+    recorded, never zero."""
+    min: object = None
+    max: object = None
+    null_count: Optional[int] = None
+    num_rows: Optional[int] = None
+    has_min_max: bool = False
+
+
+def _column_stats_for_row_group(rg_meta, columns: set) -> Dict[str, ColumnStats]:
+    """``{column: ColumnStats}`` of one footer row group, for the top-level
+    ``columns`` (a nested path such as ``col.list.element`` bounds the
+    elements, not the rows, and is skipped). A NaN bound drops the pair,
+    by the predicates' own NaN rule."""
+    out: Dict[str, ColumnStats] = {}
+    num_rows = rg_meta.num_rows
+    for j in range(rg_meta.num_columns):
+        cc = rg_meta.column(j)
+        name = cc.path_in_schema
+        if "." in name or name not in columns or name in out:
+            continue
+        if not cc.is_stats_set or cc.statistics is None:
+            out[name] = ColumnStats(num_rows=num_rows)
+            continue
+        st = cc.statistics
+        has_min_max = bool(st.has_min_max) and not _is_nan(st.min) and not _is_nan(st.max)
+        out[name] = ColumnStats(min=st.min if has_min_max else None,
+                                max=st.max if has_min_max else None,
+                                null_count=st.null_count if st.has_null_count else None,
+                                num_rows=num_rows, has_min_max=has_min_max)
+    return out
+
+
+def _read_summary_metadata(ctx: "DatasetContext"):
+    """The summary ``_metadata`` sidecar's ``pq.FileMetaData``, or None when
+    it is absent, unreadable or holds no row group (a schema-only
+    sidecar)."""
+    p = posixpath.join(ctx.root_path, "_metadata")
+    try:
+        if not ctx.filesystem.exists(p):
+            return None
+        with ctx.filesystem.open(p, "rb") as f:
+            md = pq.read_metadata(f)
+    except (OSError, ValueError):
+        # ValueError covers pyarrow's ArrowInvalid: a corrupt summary falls
+        # back to the footers.
+        return None
+    return md if md.num_row_groups else None
+
+
+def load_row_group_stats(ctx: "DatasetContext", row_groups, columns, telemetry=None,
+                         retry_policy=None) -> Dict[tuple, Dict[str, ColumnStats]]:
+    """``{(path, ordinal): {column: ColumnStats}}`` of the given
+    :class:`RowGroupRef` s, for ``columns``: from the summary ``_metadata``
+    when the store has one (one read for every file), else from a threaded
+    scan of the footers of the files the groups lie in.
+
+    A footer that cannot be read gives no statistics (its groups are never
+    pruned: planning does not fail on an optimization), after the retries
+    of ``retry_policy`` (default the workers' read policy); each such file
+    adds one to ``io.stats_footer_errors_total`` and logs a warning with the
+    classifier's verdict."""
+    columns = set(columns)
+    wanted_paths = {rg.path for rg in row_groups}
+    out: Dict[tuple, Dict[str, ColumnStats]] = {}
+
+    md = _read_summary_metadata(ctx)
+    if md is not None:
+        seen_per_file: Dict[str, int] = {}
+        for i in range(md.num_row_groups):
+            rg = md.row_group(i)
+            rel = rg.column(0).file_path
+            if not rel:
+                out.clear()
+                break   # a malformed summary: the footers instead
+            path = posixpath.join(ctx.root_path, rel)
+            ordinal = seen_per_file.get(path, 0)
+            seen_per_file[path] = ordinal + 1
+            if path in wanted_paths:
+                out[(path, ordinal)] = _column_stats_for_row_group(rg, columns)
+
+    missing_paths = sorted({rg.path for rg in row_groups if (rg.path, rg.row_group) not in out})
+    if missing_paths:
+        from petastorm_tpu_torch.resilience import (DEFAULT_READ_POLICY, PERMANENT,
+                                                    default_io_classifier)
+        policy = retry_policy if retry_policy is not None else DEFAULT_READ_POLICY
+        errors = (telemetry.counter("io.stats_footer_errors_total")
+                  if telemetry is not None else None)
+
+        def _read_footer(path):
+            with ctx.filesystem.open(path, "rb") as f:
+                return pq.ParquetFile(f).metadata
+
+        def _scan(path):
+            try:
+                footer = policy.call(_read_footer, path)
+            except (OSError, ValueError) as e:
+                verdict = default_io_classifier(e)
+                if errors is not None:
+                    errors.add(1)
+                logger.warning("statistics footer scan failed for %s (%s, %s%s); its row "
+                               "groups will not be pruned", path, type(e).__name__, verdict,
+                               "" if verdict == PERMANENT
+                               else f" after {policy.max_attempts} attempt(s)")
+                return path, None
+            return path, [_column_stats_for_row_group(footer.row_group(i), columns)
+                          for i in range(footer.num_row_groups)]
+
+        with ThreadPoolExecutor(max_workers=10) as pool:
+            for path, per_group in pool.map(_scan, missing_paths):
+                for ordinal, stats in enumerate(per_group or ()):
+                    out[(path, ordinal)] = stats
+    return out
 
 
 def is_data_file(path: str) -> bool:

@@ -13,8 +13,7 @@ as the JAX package seeds it, and yields what the workers publish, after
 their ``predicate`` and ``transform_spec``. Given the same store, seed and
 settings, it yields the same rows as the JAX package's reader, in the same
 order on the thread and dummy pools (the process pool delivers in the
-order its workers finish; the JAX reader's statistics pruning, which the
-port leaves out, reorders a shuffled epoch under some predicates). With
+order its workers finish). With
 ``sample_order="deterministic"`` the order is the plan's on every pool
 (:mod:`.reader_impl.epoch_plan`), optionally shuffled inside windows of
 ``shuffle_window`` row groups. With ``schema_fields=NGram(...)`` a row
@@ -61,14 +60,29 @@ so later epochs skip the read and the decode; ``autotune`` starts an
 :class:`~petastorm_tpu_torch.autotune.AutotuneController` over the pool's
 concurrency, the ventilation and readahead depths and a loader's prefetch
 depth and shuffle target (:meth:`Reader.autotune_report`).
+
+The planning plane (the JAX package's ``plan/``): the entry points lower
+their kwargs into a :class:`~petastorm_tpu_torch.plan.PipelinePlan` (one
+validation pass, the workers' fusions, the persisted placement of a warm
+start; :meth:`Reader.plan_report`). With a predicate that declares
+``intervals()``, the planned row groups that the footers' statistics prove
+empty are dropped after sharding (``rowgroup_pruning``, on by default:
+:meth:`Reader.pruning_report`); ``rowgroup_coalescing=N`` reads up to N
+same-file groups in one work item. With ``autotune_config.placement`` the
+controller may migrate the decode stage between the thread and the process
+pool mid-epoch (:meth:`Reader._perform_pool_migration`: no row lost or
+repeated), and a resolved trial persists for the next reader of the store.
 """
 from __future__ import annotations
 
+import dataclasses
 import io
+import logging
 import os
 import pickle
 import random
 import sys
+import threading
 import time
 import types
 import warnings
@@ -77,9 +91,10 @@ from functools import partial
 from typing import Optional, Sequence
 
 from petastorm_tpu_torch.codecs import CompressedImageCodec, decode_verdict
-from petastorm_tpu_torch.errors import NoDataAvailableError
-from petastorm_tpu_torch.etl.dataset_metadata import (DatasetContext, get_schema,
-                                                      infer_or_load_unischema, load_row_groups)
+from petastorm_tpu_torch.errors import MetadataError, NoDataAvailableError
+from petastorm_tpu_torch.etl.dataset_metadata import (ColumnStats, DatasetContext, get_schema,
+                                                      infer_or_load_unischema, load_row_group_stats,
+                                                      load_row_groups)
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.reader_impl.arrow_table_serializer import ArrowTableSerializer
 from petastorm_tpu_torch.reader_impl.batch_plane import ColumnarBatch
@@ -90,14 +105,22 @@ from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
 from petastorm_tpu_torch.reader_impl.row_reader_worker import RowReaderWorker
 from petastorm_tpu_torch.telemetry import PeriodicExporter, TELEMETRY_EXPORT_ENV, make_registry
 from petastorm_tpu_torch.transform import transform_schema
-from petastorm_tpu_torch.workers_pool import EmptyResultError, ITEM_CONTEXT_KWARG
+from petastorm_tpu_torch.workers_pool import (EmptyResultError, ITEM_CONTEXT_KWARG,
+                                              TimeoutWaitingForResultError, add_counters)
 from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
 from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
 
+logger = logging.getLogger(__name__)
+
 #: In-flight row groups per worker beyond the one it is decoding.
 _VENTILATE_EXTRA_ROWGROUPS = 3
+
+#: Seconds a placement migration waits for the old pool to drain before it
+#: gives up and stays on it (a migratable reader has no watchdog: this
+#: bound keeps a wedged worker from hanging the swap).
+_MIGRATION_DRAIN_TIMEOUT_S = 120.0
 
 #: Handed-out items remembered before those the ventilator has confirmed
 #: are dropped from the reader's record.
@@ -280,9 +303,10 @@ def _apply_partition_predicate(row_groups, predicate):
             or predicate.do_include(rg.partition_dict)]
 
 
-def _apply_selector(ctx, all_row_groups, row_groups, selector):
+def _apply_selector(ctx, all_row_groups, row_groups, selector, report=None):
     """The groups ``selector`` selects through the store's indexes; its
-    ordinals index the unfiltered order."""
+    ordinals index the unfiltered order. ``report`` (the pruning report)
+    gets the selector and the groups it dropped."""
     from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
     indexes = get_row_group_indexes(ctx)
     for name in selector.get_index_names():
@@ -291,7 +315,12 @@ def _apply_selector(ctx, all_row_groups, row_groups, selector):
                              f"(available: {sorted(indexes)})")
     selected = {id(all_row_groups[i]) for i in selector.select_row_groups(indexes)
                 if i < len(all_row_groups)}
-    return [rg for rg in row_groups if id(rg) in selected]
+    kept = [rg for rg in row_groups if id(rg) in selected]
+    if report is not None:
+        report["selector"] = (selector.describe() if hasattr(selector, "describe")
+                              else type(selector).__name__)
+        report["selector_pruned"] = len(row_groups) - len(kept)
+    return kept
 
 
 def _shard_row_groups(row_groups, cur_shard, shard_count, shard_seed):
@@ -325,20 +354,100 @@ def _apply_rowgroup_subset(all_row_groups, row_groups, rowgroup_subset):
 
 
 def _plan_row_groups(ctx, all_row_groups, filters, predicate, rowgroup_selector,
-                     cur_shard, shard_count, shard_seed, rowgroup_subset):
-    """The JAX reader's planning steps, in its order."""
+                     cur_shard, shard_count, shard_seed, rowgroup_subset, report=None):
+    """The JAX reader's planning steps, in its order (statistics pruning
+    and coalescing come after, in the reader)."""
     planned = list(all_row_groups)
     if filters:
         planned = _apply_filters(planned, filters)
     if predicate is not None:
         planned = _apply_partition_predicate(planned, predicate)
     if rowgroup_selector is not None:
-        planned = _apply_selector(ctx, all_row_groups, planned, rowgroup_selector)
+        planned = _apply_selector(ctx, all_row_groups, planned, rowgroup_selector, report)
     if cur_shard is not None:
         planned = _shard_row_groups(planned, cur_shard, shard_count, shard_seed)
     if rowgroup_subset is not None:
         planned = _apply_rowgroup_subset(all_row_groups, planned, rowgroup_subset)
     return planned
+
+
+def _prune_with_stats(row_groups, constraints, stats):
+    """``(kept, pruned_per_file)``: the groups whose statistics admit every
+    constraint (``[(field, FieldDomain)]``), given ``{(path, ordinal):
+    {column: ColumnStats}}``. A hive partition key is a ``min == max``
+    statistic; a field without statistics admits anything."""
+    fields = {f for f, _ in constraints}
+    kept, pruned_per_file = [], {}
+    for rg in row_groups:
+        group_stats = dict(stats.get((rg.path, rg.row_group), {}))
+        for key, value in rg.partition_values:
+            if key in fields and key not in group_stats:
+                group_stats[key] = ColumnStats(min=value, max=value, null_count=0,
+                                               has_min_max=True)
+        if all(domain.admits_stats(group_stats[field])
+               for field, domain in constraints if field in group_stats):
+            kept.append(rg)
+        else:
+            pruned_per_file[rg.path] = pruned_per_file.get(rg.path, 0) + 1
+    return kept, pruned_per_file
+
+
+def _fold_plan_column_stats(agg: dict, per_group_stats) -> None:
+    """Fold per-group ``{column: ColumnStats}`` dicts into ``agg``'s
+    per-column min of mins, max of maxes (numeric bounds only), summed null
+    and row counts and group count."""
+    for group in per_group_stats:
+        for name, st in group.items():
+            rec = agg.get(name)
+            if rec is None:
+                rec = agg[name] = {"min": None, "max": None, "null_count": 0,
+                                   "num_rows": 0, "groups": 0}
+            rec["groups"] += 1
+            if st.num_rows is not None:
+                rec["num_rows"] += int(st.num_rows)
+            if st.null_count is not None:
+                rec["null_count"] += int(st.null_count)
+            if st.has_min_max:
+                try:
+                    lo, hi = float(st.min), float(st.max)
+                except (TypeError, ValueError):
+                    continue
+                rec["min"] = lo if rec["min"] is None else min(rec["min"], lo)
+                rec["max"] = hi if rec["max"] is None else max(rec["max"], hi)
+
+
+def _coalesce_row_groups(refs, max_per_item: int):
+    """Runs of up to ``max_per_item`` same-file groups (after sharding and
+    pruning, before the shuffle) as one work item each, whose ``row_group``
+    is the tuple of their ordinals: the workers read it in one
+    ``read_row_groups`` call. Partition values are per file, so a run
+    shares them."""
+    out, run = [], []
+
+    def flush():
+        if run:
+            out.append(run[0] if len(run) == 1 else dataclasses.replace(
+                run[0], row_group=tuple(r.row_group for r in run)))
+            run.clear()
+
+    for ref in refs:
+        if run and (ref.path != run[0].path or len(run) >= max_per_item):
+            flush()
+        run.append(ref)
+    flush()
+    return out
+
+
+def _fingerprint_fields(schema, schema_fields) -> list:
+    """The plan cache's field ingredient: the output view's names (two
+    readers of different columns are different workloads), the whole
+    schema's for an NGram or a view that does not resolve."""
+    if schema_fields is not None and not isinstance(schema_fields, NGram):
+        try:
+            return sorted(schema.create_schema_view(schema_fields).fields)
+        except Exception:  # noqa: BLE001 - the reader raises the real error later
+            pass
+    return sorted(schema.fields)
 
 
 class _SpawnPickler(pickle.Pickler):
@@ -349,6 +458,15 @@ class _SpawnPickler(pickle.Pickler):
         if isinstance(obj, (type, types.FunctionType)) and obj.__module__ == "__main__":
             raise pickle.PicklingError(f"{obj.__qualname__} is defined in __main__")
         return None
+
+
+def _spawnable(obj) -> bool:
+    """True when ``obj`` can be sent to a spawned worker (None can)."""
+    try:
+        _SpawnPickler(io.BytesIO()).dump(obj)
+        return True
+    except Exception:  # noqa: BLE001 - any pickling failure reads alike
+        return False
 
 
 def _check_spawnable(what: str, obj) -> None:
@@ -415,7 +533,9 @@ def make_reader(dataset_url: str,
                 autotune_config=None,
                 memory_cache_size_bytes: Optional[int] = None,
                 readahead_depth: Optional[int] = None,
-                readahead_max_bytes: Optional[int] = None) -> "Reader":
+                readahead_max_bytes: Optional[int] = None,
+                rowgroup_pruning: bool = True,
+                rowgroup_coalescing: int = 1) -> "Reader":
     """Reader over a store written by ``materialize_dataset_local`` (either
     package's).
 
@@ -546,18 +666,50 @@ def make_reader(dataset_url: str,
         fetches. In-process pools only: ignored with a warning on processes
     :param readahead_max_bytes: the bytes of fetched tables the stage may
         hold (default 256 MiB); the autotune budget when it has one
+    :param rowgroup_pruning: with a ``predicate`` that declares
+        ``intervals()`` (the built-in equality, set and range predicates
+        do), drop at plan time, after sharding, the row groups whose footer
+        statistics (min, max, null count; hive keys as constants) prove that
+        no row can match: they are never read (``io.rowgroups_pruned``,
+        :meth:`Reader.pruning_report`). A plan that pruning empties is an
+        empty epoch. Any unusable statistic keeps the group
+    :param rowgroup_coalescing: read up to N same-file row groups as one
+        work item, in one read: shuffling, sharding granularity and resume
+        go by the coalesced item, and NGram windows may span the groups of
+        one item
 
     On ``reader_pool_type="process"`` the predicate, the transform and the
     retry policy must pickle into a spawned worker: a ``ValueError`` says so
-    at construction.
+    at construction. With ``autotune_config.placement`` a thread reader
+    whose predicate, transform or retry policy does not pickle warns and
+    does not tune its placement.
     """
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
     cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
+    ctx = DatasetContext(dataset_url, storage_options=storage_options, filesystem=filesystem)
+    try:
+        stored_schema = get_schema(ctx)
+    except MetadataError as e:
+        raise MetadataError(f"Dataset at {dataset_url} is missing petastorm metadata "
+                            f"(underlying error: {e}). If this is a plain Parquet store, use "
+                            f"make_batch_reader() instead.") from e
+    from petastorm_tpu_torch.plan import lower_reader_kwargs
+    plan = lower_reader_kwargs(
+        "row", _lowering_kwargs(locals()),
+        schema_field_names=_fingerprint_fields(stored_schema, schema_fields),
+        ngram=isinstance(schema_fields, NGram))
     _warn_predicate_bypasses_cache(predicate, memory_cache_size_bytes)
-    pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
-                      PickleSerializer(), pool_profiling_enabled,
-                      _ring_capacity_from_budget(autotune_config, workers_count))
-    return Reader(dataset_url, pool, schema_fields=schema_fields,
+    # One construction path: the first pool and any pool a placement
+    # migration builds later.
+    pool_factory = partial(_make_pool, workers_count=workers_count,
+                           results_queue_size=results_queue_size, shuffle_rows=shuffle_rows,
+                           seed=seed, serializer=PickleSerializer(),
+                           pool_profiling_enabled=pool_profiling_enabled,
+                           ring_bytes=_ring_capacity_from_budget(autotune_config, workers_count))
+    return Reader(dataset_url, pool_factory(plan.pool_type), ctx=ctx,
+                  stored_schema=stored_schema, plan=plan, pool_factory=pool_factory,
+                  rowgroup_pruning=rowgroup_pruning, rowgroup_coalescing=rowgroup_coalescing,
+                  schema_fields=schema_fields,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, resume_state=resume_state,
@@ -611,7 +763,9 @@ def make_batch_reader(dataset_url: str,
                       autotune_config=None,
                       memory_cache_size_bytes: Optional[int] = None,
                       readahead_depth: Optional[int] = None,
-                      readahead_max_bytes: Optional[int] = None) -> "Reader":
+                      readahead_max_bytes: Optional[int] = None,
+                      rowgroup_pruning: bool = True,
+                      rowgroup_coalescing: int = 1) -> "Reader":
     """Columnar reader of any Parquet store (several files, with or without
     petastorm metadata; a store without it gets a schema inferred from its
     Arrow schema): one batch of ``{column: ndarray}`` per row group,
@@ -649,15 +803,31 @@ def make_batch_reader(dataset_url: str,
 
     The other arguments are :func:`make_reader`'s; its memory cache keeps
     each group's Arrow table (the read, not a decode, is what it saves).
+    On an in-process pool the workers convert each group to numpy (the
+    plan's ``decode_transport`` fusion; ``PETASTORM_TPU_PLAN_FUSION=0``
+    leaves it to the consumer).
     """
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
     cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
+    if isinstance(schema_fields, NGram):
+        raise ValueError("NGram is not supported by make_batch_reader; use make_reader")
+    ctx = DatasetContext(dataset_url, storage_options=storage_options, filesystem=filesystem)
+    stored_schema = infer_or_load_unischema(ctx)
+    from petastorm_tpu_torch.plan import lower_reader_kwargs
+    plan = lower_reader_kwargs("batch", _lowering_kwargs(locals()),
+                               schema_field_names=_fingerprint_fields(stored_schema,
+                                                                      schema_fields))
     _warn_predicate_bypasses_cache(predicate, memory_cache_size_bytes)
     serializer = PickleSerializer() if convert_early_to_numpy else ArrowTableSerializer()
-    pool = _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
-                      serializer, pool_profiling_enabled,
-                      _ring_capacity_from_budget(autotune_config, workers_count))
-    return Reader(dataset_url, pool, schema_fields=schema_fields,
+    pool_factory = partial(_make_pool, workers_count=workers_count,
+                           results_queue_size=results_queue_size, shuffle_rows=shuffle_rows,
+                           seed=seed, serializer=serializer,
+                           pool_profiling_enabled=pool_profiling_enabled,
+                           ring_bytes=_ring_capacity_from_budget(autotune_config, workers_count))
+    return Reader(dataset_url, pool_factory(plan.pool_type), ctx=ctx,
+                  stored_schema=stored_schema, plan=plan, pool_factory=pool_factory,
+                  rowgroup_pruning=rowgroup_pruning, rowgroup_coalescing=rowgroup_coalescing,
+                  schema_fields=schema_fields,
                   shuffle_row_groups=shuffle_row_groups, shuffle_rows=shuffle_rows,
                   seed=seed, num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, is_batched_reader=True,
@@ -675,24 +845,27 @@ def make_batch_reader(dataset_url: str,
                   readahead_depth=readahead_depth, readahead_max_bytes=readahead_max_bytes)
 
 
-def _check_sample_order(sample_order: str, shuffle_window: int) -> None:
-    """The JAX package's plan-time checks of the two arguments."""
-    if sample_order not in ("free", "deterministic"):
-        raise ValueError(f"sample_order must be 'free' or 'deterministic', got {sample_order!r}")
-    if shuffle_window is not None and int(shuffle_window) < 0:
-        raise ValueError(f"shuffle_window must be >= 0, got {shuffle_window}")
-    if shuffle_window and sample_order != "deterministic":
-        raise ValueError("shuffle_window is the deterministic plane's window-shuffle mode; "
-                         "pass sample_order='deterministic' with it")
+#: The entry points' kwargs that lowering reads (the JAX package's set,
+#: less the kwargs the port does not take yet).
+_LOWERED_KWARGS = (
+    "dataset_url", "reader_pool_type", "workers_count", "results_queue_size",
+    "shuffle_row_groups", "shuffle_rows", "shuffle_row_drop_partitions", "predicate",
+    "transform_spec", "num_epochs", "cur_shard", "shard_seed", "seed",
+    "memory_cache_size_bytes", "rowgroup_coalescing", "readahead_depth", "readahead_max_bytes",
+    "rowgroup_subset", "row_materialization", "convert_early_to_numpy", "sample_order",
+    "shuffle_window", "autotune", "autotune_config")
+
+
+def _lowering_kwargs(entry_locals: dict) -> dict:
+    """The lowering dict of an entry point's ``locals()``."""
+    return {k: entry_locals[k] for k in _LOWERED_KWARGS if k in entry_locals}
 
 
 def _resolve_materialization(row_materialization: str, ngram, transform_spec) -> str:
-    """The JAX package's checks of ``row_materialization``: any value but
-    ``'eager'`` or ``'lazy'`` raises; an NGram or a per-row transform func
-    falls back to eager with a warning."""
-    if row_materialization not in ("eager", "lazy"):
-        raise ValueError(f"row_materialization must be 'eager' or 'lazy', "
-                         f"got {row_materialization!r}")
+    """The JAX package's fallback of ``row_materialization`` (its values
+    are checked by :func:`~petastorm_tpu_torch.plan.validate_reader_config`):
+    an NGram or a per-row transform func falls back to eager with a
+    warning."""
     if row_materialization == "eager":
         return "eager"
     if ngram is not None:
@@ -762,8 +935,9 @@ def _resume_position(resume_state: dict, seed, shuffle_row_groups: bool, shuffle
     if saved_items is not None and int(saved_items) != num_items:
         raise ValueError(f"resume_state was saved over {saved_items} work items but this reader "
                          f"plans {num_items}: the offset would point at different data. Resume "
-                         f"with the same dataset, filters, sharding and "
-                         f"shuffle_row_drop_partitions as the saved run.")
+                         f"with the same dataset, filters, sharding, "
+                         f"shuffle_row_drop_partitions and rowgroup_coalescing as the saved "
+                         f"run.")
     epoch = int(resume_state.get("epoch", 0))
     offset = int(resume_state.get("offset", 0))
     if not 0 <= offset < num_items:
@@ -781,6 +955,8 @@ def _resume_position(resume_state: dict, seed, shuffle_row_groups: bool, shuffle
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size, shuffle_rows, seed,
                serializer, pool_profiling_enabled=False, ring_bytes=None):
+    """The reader's pool of ``reader_pool_type``; the entry points bind the
+    other arguments into the reader's pool factory."""
     if reader_pool_type == "thread":
         return ThreadPool(workers_count, results_queue_size, shuffle_rows=shuffle_rows, seed=seed,
                           profiling_enabled=pool_profiling_enabled)
@@ -826,13 +1002,18 @@ class Reader:
                  storage_options=None, filesystem=None, retry_policy=None, degraded_mode=False,
                  fault_plan=None, worker_crash_budget=0, stage_deadline_s=None,
                  hedge_policy=None, hang_timeout_s=None, autotune=False, autotune_config=None,
-                 memory_cache_size_bytes=None, readahead_depth=None, readahead_max_bytes=None):
-        if rowgroup_subset is not None and cur_shard is not None:
-            raise ValueError("rowgroup_subset and cur_shard/shard_count are mutually exclusive: "
-                             "an explicit ordinal subset is a shard assignment")
-        if rowgroup_subset is not None and shuffle_row_groups:
-            raise ValueError("rowgroup_subset delivers row groups in exactly the given order; "
-                             "pass shuffle_row_groups=False and shuffle the ordinal list itself")
+                 memory_cache_size_bytes=None, readahead_depth=None, readahead_max_bytes=None,
+                 rowgroup_pruning=True, rowgroup_coalescing=1, plan=None, pool_factory=None,
+                 ctx=None, stored_schema=None):
+        # The plan-time validation pass: the entry points ran it while
+        # lowering; a direct Reader(...) gets the same rules and messages.
+        from petastorm_tpu_torch.plan import validate_reader_config
+        validation_cfg = {"rowgroup_subset": rowgroup_subset, "cur_shard": cur_shard,
+                          "shuffle_row_groups": shuffle_row_groups, "shard_seed": shard_seed,
+                          "sample_order": sample_order, "shuffle_window": shuffle_window}
+        if not is_batched_reader:
+            validation_cfg["row_materialization"] = row_materialization
+        validate_reader_config(validation_cfg)
         if (cur_shard is None) != (shard_count is None):
             raise ValueError("cur_shard and shard_count must be used together")
         if cur_shard is not None and not (isinstance(cur_shard, int)
@@ -842,17 +1023,35 @@ class Reader:
         if shuffle_row_drop_partitions < 1:
             raise ValueError(f"shuffle_row_drop_partitions must be >= 1, "
                              f"got {shuffle_row_drop_partitions}")
-        _check_sample_order(sample_order, shuffle_window)
-        if getattr(autotune_config, "placement", False):
-            raise NotImplementedError(
-                "autotune_config.placement=True: the readers cannot migrate their pool between "
-                "threads and processes yet (ROADMAP item 9, placement migration with plan/*)")
         if readahead_depth is not None and readahead_depth < 0:
             raise ValueError(f"readahead_depth must be >= 1, got {readahead_depth}")
         shuffle_window = int(shuffle_window or 0)
         #: ``'free'`` or ``'deterministic'``: the reader's order contract.
         self.sample_order = sample_order
         self._shuffle_window = shuffle_window
+        #: The lowered plan this reader runs (None for a direct Reader(...)).
+        self._plan = plan
+        # Placement migration: the factory builds a pool of either flavor
+        # with this reader's construction arguments; the placement actuator
+        # sets the pending target from any thread, and the swap happens at
+        # the next safe point on the consumer's thread.
+        self._pool_factory = pool_factory
+        self._worker_crash_budget = worker_crash_budget
+        self._convert_early_to_numpy = convert_early_to_numpy
+        self._pending_pool_target = None
+        self._placement_actuator = None
+        # A failure mid-migration poisons the reader: every later pull
+        # raises it, never a stopped pool's end of data.
+        self._migration_error = None
+        # Results drained from a pool being migrated away from, with their
+        # contexts: delivered first, in drain order.
+        self._pending = deque()
+        self._result_context = None
+        # The retired pools' item tallies and counters, added to the live
+        # pool's, so diagnostics and counters stay monotonic.
+        self._pool_items_base = {"items_ventilated": 0, "items_processed": 0}
+        self._pool_counters_base = {}
+        self._diag_lock = threading.Lock()
         #: The pipeline's telemetry registry; a loader over this reader
         #: adopts it.
         self.telemetry = make_registry()
@@ -860,9 +1059,13 @@ class Reader:
         self._rows_counter = self.telemetry.counter("reader.rows")
         self._pool_wait_hist = self.telemetry.histogram("reader.pool_wait_s")
         self._rows_per_op = None   # batch.rows_per_op, made on the first batch
-        ctx = DatasetContext(dataset_url, storage_options=storage_options, filesystem=filesystem)
+        if ctx is None:
+            ctx = DatasetContext(dataset_url, storage_options=storage_options,
+                                 filesystem=filesystem)
+        self._ctx = ctx
         self._batched = is_batched_reader
-        stored_schema = infer_or_load_unischema(ctx) if is_batched_reader else get_schema(ctx)
+        if stored_schema is None:
+            stored_schema = infer_or_load_unischema(ctx) if is_batched_reader else get_schema(ctx)
         #: The NGram windows are formed by, or None for a row reader.
         self.ngram: Optional[NGram] = None
         if isinstance(schema_fields, NGram):
@@ -894,14 +1097,34 @@ class Reader:
             _check_spawnable("retry_policy", retry_policy)
 
         all_row_groups = load_row_groups(ctx)
+        #: What the plan-time pruning did (:meth:`pruning_report`).
+        self._pruning_report = {"enabled": False}
+        #: Per column, the footer statistics the pruning scan read, folded.
+        self._plan_column_stats: dict = {}
         row_groups = _plan_row_groups(ctx, all_row_groups, filters, predicate,
                                       rowgroup_selector, cur_shard, shard_count, shard_seed,
-                                      rowgroup_subset)
+                                      rowgroup_subset, report=self._pruning_report)
         if not row_groups:
             raise NoDataAvailableError(
                 f"No row groups left after predicate/selector/shard filtering "
                 f"(dataset has {len(all_row_groups)}; cur_shard={cur_shard}, "
                 f"shard_count={shard_count})")
+        # Lineage ordinals of trace mode: the group's position in the plan,
+        # or its ordinal in the store for an explicit subset (a coalesced
+        # item, keyed by a tuple, falls back to its epoch position).
+        self._ordinal_of = ({(rg.path, rg.row_group): i for i, rg in enumerate(all_row_groups)}
+                            if rowgroup_subset is not None else
+                            {(rg.path, rg.row_group): i for i, rg in enumerate(row_groups)})
+        # Statistics pruning after sharding, so shard membership is the same
+        # with pruning on or off. A plan it empties is an empty epoch (the
+        # predicate provably matches nothing), not a configuration error.
+        self._pruning_report.update({"row_groups_planned": len(row_groups),
+                                     "row_groups_pruned": 0,
+                                     "row_groups_kept": len(row_groups)})
+        if rowgroup_pruning and predicate is not None:
+            row_groups = self._prune_row_groups_with_statistics(row_groups, predicate)
+        if rowgroup_coalescing > 1:
+            row_groups = _coalesce_row_groups(row_groups, rowgroup_coalescing)
         items = [{"rowgroup": rg,
                   "shuffle_row_drop_partition": (part, shuffle_row_drop_partitions)}
                  for rg in row_groups for part in range(shuffle_row_drop_partitions)]
@@ -923,13 +1146,9 @@ class Reader:
             self._gate = OrderedDeliveryGate(self._epoch_plan, start_epoch=start_epoch,
                                              start_offset=start_offset,
                                              window_delivered=window_delivered, skipped=skipped)
-        # Lineage ordinals of trace mode: the group's position in the plan,
-        # or its ordinal in the store for an explicit subset.
-        ordinal_of = ({(rg.path, rg.row_group): i for i, rg in enumerate(all_row_groups)}
-                      if rowgroup_subset is not None else
-                      {(rg.path, rg.row_group): i for i, rg in enumerate(row_groups)})
         resilience_args = self._attach_resilience(pool, worker_crash_budget, stage_deadline_s,
                                                   hedge_policy, hang_timeout_s)
+        self._stage_deadline = resilience_args["stage_deadline"]
         self._cache = self._attach_cache(pool, memory_cache_size_bytes, fault_plan)
         #: The :class:`~petastorm_tpu_torch.reader_impl.readahead.ReadaheadFetcher`
         #: when ``readahead_depth`` is set on an in-process pool, else None
@@ -938,7 +1157,7 @@ class Reader:
             pool, ctx, view_schema, predicate, readahead_depth, readahead_max_bytes, fault_plan,
             hedge_policy)
         self._ventilator = ConcurrentVentilator(
-            self._make_ventilate_fn(pool, ordinal_of), items,
+            self._make_ventilate_fn(pool), items,
             iterations=num_epochs,
             randomize_item_order=shuffle_row_groups,
             random_seed=seed,
@@ -959,61 +1178,44 @@ class Reader:
         self.last_row_consumed = False
         self.telemetry.gauge("ventilator.backlog", lambda: self._ventilator.inflight)
         self.telemetry.gauge("ventilator.max_inflight", lambda: self._ventilator.max_inflight)
-        depth_gauge = self.telemetry.gauge("pool.results_queue_depth")
-        capacity_gauge = self.telemetry.gauge("pool.results_queue_capacity")
-        # 0 for threads and the dummy pool, 1 for processes, as in the JAX package.
-        self.telemetry.gauge("pool.backend").set(1.0 if isinstance(pool, ProcessPool) else 0.0)
-        if isinstance(pool, ProcessPool):
-            # Queued results lie in the rings, which the consumer does not count.
-            depth_gauge.set(0)
-            capacity_gauge.set(0)
-        else:
-            depth_gauge.set_function(pool.results_qsize)
-            # results_qsize() sums every worker's queue: so does the bound.
-            capacity_gauge.set(pool.diagnostics["results_queue_capacity"]
-                               * max(1, pool.workers_count))
-        # Before start(): the workers time their items into it.
-        pool.telemetry = self.telemetry
-        #: The :class:`~petastorm_tpu_torch.autotune.AutotuneController` when
-        #: ``autotune``, else None; a loader over this reader registers its
-        #: own knobs on it.
-        self.autotune = (self._make_autotune(pool, autotune_config) if autotune else None)
-        spawned = isinstance(pool, ProcessPool)
-        worker_args = {"dataset_url": dataset_url, "view_schema": view_schema,
-                       "output_schema": self.schema, "predicate": predicate,
-                       "transform_spec": transform_spec, "shuffle_rows": shuffle_rows,
-                       "seed": seed, "sample_order": sample_order,
-                       "storage_options": storage_options,
-                       # A spawned worker resolves the URL itself, and retries
-                       # without the registry (it counts locally).
-                       "filesystem": None if spawned else filesystem,
-                       "retry_policy": retry_policy, "degraded_mode": degraded_mode,
-                       "fault_plan": fault_plan, **resilience_args,
-                       "resilience_telemetry": None if spawned else self.telemetry,
-                       # A spawned worker unpickles an empty private cache.
-                       "cache": self._cache, "readahead": self.readahead}
-        if self.autotune is not None:
-            self.autotune.start()
-        if self.readahead is not None:
-            self.readahead.start()
+        self._sync_pool_gauges(pool)
+        # Built for an in-process pool; _worker_args_for derives the spawned
+        # workers' copy, so a migration can stand up either flavor.
+        self._worker_args_inproc = {
+            "dataset_url": dataset_url, "view_schema": view_schema,
+            "output_schema": self.schema, "predicate": predicate,
+            "transform_spec": transform_spec, "shuffle_rows": shuffle_rows, "seed": seed,
+            "sample_order": sample_order, "storage_options": storage_options,
+            "filesystem": filesystem, "retry_policy": retry_policy,
+            "degraded_mode": degraded_mode, "fault_plan": fault_plan, **resilience_args,
+            "resilience_telemetry": self.telemetry,
+            # A spawned worker unpickles an empty private cache.
+            "cache": self._cache, "readahead": self.readahead,
+            "plan_fusions": plan.fusion_names() if plan is not None else frozenset()}
         if is_batched_reader:
-            if isinstance(pool, ProcessPool) and not convert_early_to_numpy:
-                # Columns as views over the Arrow buffers in the ring.
-                pool.result_transform = partial(arrow_table_to_numpy_dict, schema=self.schema)
-            pool.start(BatchReaderWorker,
-                       {**worker_args, "convert_early_to_numpy": convert_early_to_numpy},
-                       ventilator=self._ventilator)
+            self._worker_class = BatchReaderWorker
+            self._worker_args_inproc["convert_early_to_numpy"] = convert_early_to_numpy
         else:
+            self._worker_class = RowReaderWorker
             # The image decode path is settled here, once (the native build
             # and the JPEG parity check), and the workers adopt the verdict.
             verdict = (decode_verdict() if any(isinstance(f.codec, CompressedImageCodec)
                                                for f in stored_schema.fields.values()) else None)
-            pool.start(RowReaderWorker,
-                       {**worker_args, "schema": stored_schema, "ngram": self.ngram,
-                        "decode_threads": decode_threads_for(pool.workers_count),
-                        "decode_verdict": verdict,
-                        "row_materialization": self.row_materialization},
-                       ventilator=self._ventilator)
+            self._worker_args_inproc.update({
+                "schema": stored_schema, "ngram": self.ngram,
+                "decode_threads": decode_threads_for(pool.workers_count),
+                "decode_verdict": verdict, "row_materialization": self.row_materialization})
+        self._prepare_pool(pool)
+        #: The :class:`~petastorm_tpu_torch.autotune.AutotuneController` when
+        #: ``autotune``, else None; a loader over this reader registers its
+        #: own knobs on it.
+        self.autotune = (self._make_autotune(pool, autotune_config, hang_timeout_s)
+                         if autotune else None)
+        if self.autotune is not None:
+            self.autotune.start()
+        if self.readahead is not None:
+            self.readahead.start()
+        pool.start(self._worker_class, self._worker_args_for(pool), ventilator=self._ventilator)
         #: The pipeline watchdog when ``hang_timeout_s`` is set, else None;
         #: the pool wait reports the consumer's starvation to it.
         self.watchdog = None
@@ -1029,28 +1231,52 @@ class Reader:
                 self.telemetry, export_path,
                 fmt="prometheus" if export_path.endswith(".prom") else "json").start()
 
+    def _prune_row_groups_with_statistics(self, row_groups, predicate):
+        """The groups the predicate's ``intervals()`` do not prove empty
+        against the footers' statistics (the JAX reader's
+        ``_prune_row_groups_with_statistics``). Any unusable signal (no
+        ``intervals()``, missing statistics, NaN bounds, types that do not
+        compare) keeps a group, and the workers decide as before. Fills
+        the pruning report and ``io.rowgroups_pruned``/``planned``."""
+        report = self._pruning_report
+        constraints = predicate.intervals()
+        if not constraints:
+            report["reason"] = "predicate declares no intervals()"
+            return row_groups
+        report["enabled"] = True
+        fields = sorted({f for f, _ in constraints})
+        report["fields"] = fields
+        stats = load_row_group_stats(self._ctx, row_groups, fields, telemetry=self.telemetry)
+        _fold_plan_column_stats(self._plan_column_stats, stats.values())
+        report["column_stats"] = dict(self._plan_column_stats)
+        kept, pruned_per_file = _prune_with_stats(row_groups, constraints, stats)
+        pruned = len(row_groups) - len(kept)
+        report.update({"row_groups_pruned": pruned, "row_groups_kept": len(kept),
+                       "pruned_per_file": pruned_per_file})
+        self.telemetry.counter("io.rowgroups_pruned").add(pruned)
+        self.telemetry.counter("io.rowgroups_planned").add(len(kept))
+        if pruned:
+            logger.debug("Statistics pruning dropped %d/%d row groups (fields: %s)", pruned,
+                         len(row_groups), fields)
+        return kept
+
     def _attach_resilience(self, pool, worker_crash_budget, stage_deadline_s, hedge_policy,
                            hang_timeout_s) -> dict:
         """The JAX reader's resilience wiring (``reader.py:1339-1386``): the
-        quarantine on every pool, crash recovery on processes, the checks of
-        the latency arguments, and the workers' ``stage_deadline``,
-        ``hedge_policy`` and ``cancel_token``. One cancel token serves the
-        in-process workers (their checkpoints read it, the watchdog requests
-        it); spawned workers get none, there being no flag to share across
-        processes: the watchdog kills them instead."""
+        quarantine (which :meth:`_prepare_pool` attaches to every pool, with
+        crash recovery on processes), the checks of the latency arguments,
+        and the workers' ``stage_deadline``, ``hedge_policy`` and
+        ``cancel_token``. One cancel token serves the in-process workers
+        (their checkpoints read it, the watchdog requests it); spawned
+        workers get none, there being no flag to share across processes:
+        the watchdog kills them instead."""
         from petastorm_tpu_torch.resilience import (CancellationToken, HedgePolicy,
-                                                    RowGroupQuarantine, StageDeadline,
-                                                    WorkerCrashRecovery)
+                                                    RowGroupQuarantine, StageDeadline)
         self.quarantine = RowGroupQuarantine(telemetry=self.telemetry)
-        pool.quarantine = self.quarantine
-        if worker_crash_budget:
-            if isinstance(pool, ProcessPool):
-                pool.recovery = WorkerCrashRecovery(worker_crash_budget,
-                                                    telemetry=self.telemetry)
-            else:
-                # In-process workers cannot die apart from the trainer.
-                warnings.warn("worker_crash_budget only applies to "
-                              "reader_pool_type='process'; ignored")
+        if worker_crash_budget and not isinstance(pool, ProcessPool):
+            # In-process workers cannot die apart from the trainer.
+            warnings.warn("worker_crash_budget only applies to "
+                          "reader_pool_type='process'; ignored")
         stage_deadline = StageDeadline.from_arg(stage_deadline_s)
         if hedge_policy is not None and not isinstance(hedge_policy, HedgePolicy):
             raise TypeError(f"hedge_policy must be a petastorm_tpu_torch.resilience.HedgePolicy "
@@ -1060,10 +1286,6 @@ class Reader:
         cancel_token = (CancellationToken()
                         if (stage_deadline is not None or hang_timeout_s is not None)
                         and not isinstance(pool, ProcessPool) else None)
-        if hasattr(pool, "stage_deadline"):
-            # In-process pools also hold whole items (decode and publish) to
-            # the soft budget.
-            pool.stage_deadline = stage_deadline
         return {"stage_deadline": stage_deadline, "hedge_policy": hedge_policy,
                 "cancel_token": cancel_token}
 
@@ -1112,12 +1334,70 @@ class Reader:
                                 telemetry=self.telemetry,
                                 max_queue=4 * pool.workers_count * (1 + _VENTILATE_EXTRA_ROWGROUPS))
 
-    def _make_autotune(self, pool, autotune_config):
+    def _prepare_pool(self, pool) -> None:
+        """What a pool takes from the reader before ``start()``, for the
+        first pool and a migrated one alike: the registry, the quarantine,
+        crash recovery (processes, under ``worker_crash_budget``), the stage
+        deadline (in-process pools hold whole items to its soft budget) and,
+        for a batch reader on processes, the conversion of each table to
+        numpy views over the ring."""
+        pool.telemetry = self.telemetry
+        pool.quarantine = self.quarantine
+        if isinstance(pool, ProcessPool) and self._worker_crash_budget:
+            from petastorm_tpu_torch.resilience import WorkerCrashRecovery
+            pool.recovery = WorkerCrashRecovery(self._worker_crash_budget,
+                                                telemetry=self.telemetry)
+        if hasattr(pool, "stage_deadline"):
+            pool.stage_deadline = self._stage_deadline
+        if self._batched and isinstance(pool, ProcessPool) and not self._convert_early_to_numpy:
+            pool.result_transform = partial(arrow_table_to_numpy_dict, schema=self.schema)
+
+    def _worker_args_for(self, pool) -> dict:
+        """The workers' args for ``pool``: a spawned worker gets no live
+        handle (it resolves the URL itself, counts locally, reads inline and
+        has no cross-process cancel flag), and no ``decode_transport``
+        fusion (the rings' Arrow stream is the transport)."""
+        if not isinstance(pool, ProcessPool):
+            return self._worker_args_inproc
+        from petastorm_tpu_torch.plan import FUSION_DECODE_TRANSPORT
+        return {**self._worker_args_inproc, "filesystem": None, "resilience_telemetry": None,
+                "cancel_token": None, "readahead": None,
+                "plan_fusions": frozenset(self._worker_args_inproc["plan_fusions"])
+                - {FUSION_DECODE_TRANSPORT}}
+
+    def _sync_pool_gauges(self, pool) -> None:
+        """Point the pool-derived gauges at ``pool`` (at construction and at
+        a migration): ``pool.backend`` 0 for threads and the dummy pool, 1
+        for processes, as in the JAX package; the results queue's depth and
+        bound (0 on processes, whose queued results lie in the rings)."""
+        depth_gauge = self.telemetry.gauge("pool.results_queue_depth")
+        capacity_gauge = self.telemetry.gauge("pool.results_queue_capacity")
+        is_process = isinstance(pool, ProcessPool)
+        self.telemetry.gauge("pool.backend").set(1.0 if is_process else 0.0)
+        if is_process:
+            depth_gauge.set_function(None)
+            depth_gauge.set(0)
+            capacity_gauge.set(0)
+        else:
+            depth_gauge.set_function(pool.results_qsize)
+            # results_qsize() sums every worker's queue: so does the bound.
+            capacity_gauge.set(pool.diagnostics["results_queue_capacity"]
+                               * max(1, pool.workers_count))
+
+    def _make_autotune(self, pool, autotune_config, hang_timeout_s):
         """The controller over this pipeline's knobs: the thread pool's
         gate, the ventilator's cap and the readahead depth. With
         ``memory_budget_bytes`` the cache and the readahead stage charge one
         shared ledger, which the controller watches; the cache's own budget
-        is never the pressure signal (a full cache is a healthy one)."""
+        is never the pressure signal (a full cache is a healthy one).
+
+        With ``placement``, a placement actuator whose trial migrates the
+        pool, where a migration can run: a thread or process pool, no
+        readahead stage and no watchdog (both bound to the pool they started
+        with), and a predicate, transform and retry policy that pickle into
+        a spawned worker; else a warning. A warm start from a persisted plan
+        pins the knob instead and seeds the actuators with the persisted
+        values."""
         from petastorm_tpu_torch.autotune import (AutotuneController, MemoryBudget,
                                                   ReadaheadDepthActuator,
                                                   VentilatorDepthActuator,
@@ -1137,16 +1417,46 @@ class Reader:
         controller.register(VentilatorDepthActuator(self._ventilator))
         if self.readahead is not None:
             controller.register(ReadaheadDepthActuator(self.readahead))
+        persisted = self._plan is not None and self._plan.source == "persisted"
+        if getattr(autotune_config, "placement", False) and not persisted:
+            args = self._worker_args_inproc
+            if (self._pool_factory is not None and isinstance(pool, (ThreadPool, ProcessPool))
+                    and self.readahead is None and hang_timeout_s is None
+                    and all(_spawnable(args[k]) for k in ("predicate", "transform_spec",
+                                                          "retry_policy"))):
+                from petastorm_tpu_torch.autotune import PlacementActuator
+                self._placement_actuator = controller.register(PlacementActuator(
+                    self._request_pool_migration,
+                    "process" if isinstance(pool, ProcessPool) else "thread"))
+                # A resolved trial persists, so the next reader skips it.
+                controller.on_placement_resolved = self._on_placement_resolved
+            else:
+                warnings.warn(
+                    "autotune_config.placement=True ignored: placement migration needs a "
+                    "thread/process pool without readahead_depth or hang_timeout_s, and a "
+                    "predicate, transform_spec and retry_policy that pickle into a spawned "
+                    "worker")
+        elif persisted:
+            # The pool was built on the persisted winner: no trial, and the
+            # actuators start at the persisted run's values (clamped).
+            controller.pin_placement({"verdict": "persisted", "backend": self._plan.pool_type,
+                                      "trial": self._plan.trial})
+            for name, value in (self._plan.capacity_seeds.get("actuators") or {}).items():
+                seeded = controller.actuator(name)
+                if seeded is not None:
+                    seeded.set(value)
         return controller
 
-    def _make_ventilate_fn(self, pool, ordinal_of):
+    def _make_ventilate_fn(self, pool):
         """``pool.ventilate``, adding in trace mode the item's lineage id
         (``e{epoch}:g{ordinal}``, the kwarg ``trace_context`` the pools pop)
         and a ``petastorm_tpu.ventilate`` event, and announcing the item to
-        the readahead stage."""
+        the readahead stage (not on processes: a spawned worker reads
+        inline). The first pool and a migrated one both go through here."""
         recorder = self.telemetry.recorder
         pool_ventilate = pool.ventilate
-        readahead = self.readahead
+        readahead = None if isinstance(pool, ProcessPool) else self.readahead
+        ordinal_of = self._ordinal_of
 
         def ventilate_fn(**kwargs):
             trace = None
@@ -1164,6 +1474,126 @@ class Reader:
             pool_ventilate(**kwargs)
         return ventilate_fn
 
+    def _request_pool_migration(self, backend: str) -> None:
+        """The placement actuator's endpoint (any thread): migrate the decode
+        stage to ``backend`` at the next safe point of the consumer."""
+        self._pending_pool_target = backend
+
+    def _perform_pool_migration(self) -> None:
+        """Swap the decode stage between threads and processes on the
+        consumer's thread (the JAX reader's ``_perform_pool_migration``):
+        park the ventilator before its next item, drain the old pool (its
+        results and their contexts go to the pending queue, delivered
+        first), stop it, stand up the new pool through the factory, point
+        the ventilator at it and let it go on. Every item ventilated into
+        the old pool is consumed from it, and the ventilator resumes into
+        the new one: no row is lost or repeated. A delivered batch that
+        views the old pool's ring keeps its record (``join()`` keeps a
+        viewed ring's mapping)."""
+        target, self._pending_pool_target = self._pending_pool_target, None
+        current = "process" if isinstance(self._pool, ProcessPool) else "thread"
+        if target == current or self._pool_factory is None:
+            if self._placement_actuator is not None:
+                self._placement_actuator.mark_applied()
+            return
+        logger.info("Migrating the decode stage: %s pool -> %s pool", current, target)
+        t0 = time.perf_counter()
+        old_pool = self._pool
+        if not self._ventilator.pause():
+            warnings.warn("placement migration skipped: ventilator did not quiesce in time")
+            self._ventilator.resume()
+            if self._placement_actuator is not None:
+                self._placement_actuator.mark_failed(current)
+            return
+        buffered = []
+        migrated = aborted = False
+        try:
+            drain_deadline = time.monotonic() + _MIGRATION_DRAIN_TIMEOUT_S
+            while True:
+                d = old_pool.diagnostics
+                if d["items_inprocess"] <= 0 and d["output_queue_size"] <= 0:
+                    break
+                if time.monotonic() > drain_deadline:
+                    warnings.warn(
+                        f"placement migration aborted: the {current} pool did not drain within "
+                        f"{_MIGRATION_DRAIN_TIMEOUT_S:.0f}s ({d['items_inprocess']} item(s) "
+                        f"still in flight); staying on the {current} pool")
+                    aborted = True
+                    return
+                try:
+                    # Bounded waits: processed markers are consumed inside
+                    # get_results without a result, so the counts are read
+                    # again between attempts.
+                    result = old_pool.get_results(timeout=0.25)
+                except TimeoutWaitingForResultError:
+                    continue
+                except EmptyResultError:
+                    break
+                buffered.append((result, old_pool.result_context))
+            # Detached before the stop, which would stop ventilation for good.
+            old_pool._ventilator = None
+            final = old_pool.diagnostics
+            old_pool.stop()
+            old_pool.join()
+
+            new_pool = self._pool_factory(target)
+            self._prepare_pool(new_pool)
+            new_pool.start(self._worker_class, self._worker_args_for(new_pool), ventilator=None)
+            # The running ventilator is the new pool's now: its processed
+            # credits flow there, and the parked thread ventilates into it.
+            new_pool._ventilator = self._ventilator
+            self._ventilator.set_ventilate_fn(self._make_ventilate_fn(new_pool))
+            self._sync_pool_gauges(new_pool)
+            if self.autotune is not None:
+                self.autotune.unregister("worker_concurrency")
+                gate = getattr(new_pool, "concurrency_gate", None)
+                if gate is not None:
+                    from petastorm_tpu_torch.autotune import WorkerConcurrencyActuator
+                    self.autotune.register(WorkerConcurrencyActuator(gate,
+                                                                     new_pool.workers_count))
+            # The old pool's tallies retire into the base as the live pool
+            # swaps, in one step under the lock diagnostics reads.
+            with self._diag_lock:
+                self._pool_items_base["items_ventilated"] += final["items_ventilated"]
+                self._pool_items_base["items_processed"] += final["items_processed"]
+                add_counters(self._pool_counters_base, old_pool.counters)
+                self._pool = new_pool
+            self._pending.extend(buffered)
+            buffered = []
+            migrated = True
+        except BaseException as exc:
+            # The old pool may be stopped already: the pipeline is broken,
+            # and every later pull raises this, after the drained results.
+            self._migration_error = exc
+            raise
+        finally:
+            if buffered:
+                self._pending.extend(buffered)
+            if self._placement_actuator is not None:
+                if migrated:
+                    self._placement_actuator.mark_applied()
+                else:
+                    self._placement_actuator.mark_failed(current)
+            if migrated or aborted:
+                # After a hard failure the ventilator stays parked: it would
+                # feed a stopped pool.
+                self._ventilator.resume()
+        self.telemetry.counter("autotune.placement_migrations").add(1)
+        logger.info("Decode stage on the %s pool (the migration took %.2f s)", target,
+                    time.perf_counter() - t0)
+
+    def _safe_point(self) -> None:
+        """Before each pull: a failed migration raises once the results it
+        drained are delivered, and a requested migration runs."""
+        if self._migration_error is not None and not self._has_buffered():
+            raise self._migration_error
+        if self._pending_pool_target is not None:
+            self._perform_pool_migration()
+
+    def _has_buffered(self) -> bool:
+        """Undelivered results that need no live pool."""
+        return bool(self._pending) or self._has_partial_unit()
+
     @property
     def diagnostics(self) -> dict:
         """The pool's counters (the same keys on every pool:
@@ -1172,17 +1602,24 @@ class Reader:
         ``pool_type``, ``ventilator_backlog`` and a ``telemetry`` snapshot:
         the JAX reader's keys. That reader's snapshot may also carry the
         ``timeline``, ``explain`` and ``quality`` payloads of planes this
-        package does not have."""
-        d = dict(self._pool.diagnostics)
-        d["pool_type"] = ("process" if isinstance(self._pool, ProcessPool)
-                          else "dummy" if isinstance(self._pool, DummyPool) else "thread")
+        package does not have. ``items_ventilated`` and ``items_processed``
+        include the pools a placement migration retired, and ``pool_type``
+        names the live pool."""
+        with self._diag_lock:
+            pool = self._pool
+            d = dict(pool.diagnostics)
+            d["items_ventilated"] += self._pool_items_base["items_ventilated"]
+            d["items_processed"] += self._pool_items_base["items_processed"]
+        d["pool_type"] = ("process" if isinstance(pool, ProcessPool)
+                          else "dummy" if isinstance(pool, DummyPool) else "thread")
         d["ventilator_backlog"] = self._ventilator.inflight
         d["telemetry"] = self.telemetry.snapshot()
         return d
 
     @property
     def pool(self):
-        """The worker pool (``ThreadPool``, ``ProcessPool`` or ``DummyPool``)."""
+        """The live worker pool (``ThreadPool``, ``ProcessPool`` or
+        ``DummyPool``)."""
         return self._pool
 
     @property
@@ -1194,8 +1631,10 @@ class Reader:
         ``zero_copy_bytes``, the batches whose columns view the ring and
         those columns' bytes; in deterministic mode also the gate's
         ``units_reordered``, ``skips_recorded``, ``duplicates_dropped`` and
-        ``buffer_depth``."""
-        counters = dict(self._pool.counters)
+        ``buffer_depth``. Pools a placement migration retired count too."""
+        with self._diag_lock:
+            counters = dict(self._pool_counters_base)
+            add_counters(counters, self._pool.counters)
         if self._gate is not None:
             counters.update(self._gate.counters())
         return counters
@@ -1218,10 +1657,12 @@ class Reader:
             if getattr(self, "row_materialization", "eager") != "lazy":
                 raise TypeError("next_batch() needs make_reader(row_materialization='lazy') or "
                                 "a make_batch_reader reader; this reader's workers publish rows")
+            self._safe_point()
             while self._batch is None:
                 if not self._pull():
                     raise StopIteration
             return self._batch_remainder()
+        self._safe_point()
         result = self._next_columns()
         if result:
             self._observe_rows_per_op(len(next(iter(result.values()))))
@@ -1240,7 +1681,7 @@ class Reader:
             self.last_row_consumed = True
             raise StopIteration from None
         if self._gate is None:
-            self._mark_delivered(self._pool.result_context)
+            self._mark_delivered(self._result_context)
         if not isinstance(result, dict):
             # An Arrow table from a thread or dummy pool worker.
             result = arrow_table_to_numpy_dict(result, self.schema)
@@ -1252,6 +1693,7 @@ class Reader:
         return self
 
     def __next__(self):
+        self._safe_point()
         if self._batched:
             return self.schema.make_namedtuple_from_dict(self._next_columns())
         while self._batch is None and not self._buffer:
@@ -1286,7 +1728,7 @@ class Reader:
             self.last_row_consumed = True
             return False
         if self._gate is None:
-            self._buffer_context = self._pool.result_context
+            self._buffer_context = self._result_context
         if isinstance(result, ColumnarBatch):
             if result.num_rows:
                 self._batch = result
@@ -1317,8 +1759,18 @@ class Reader:
         """The next work item's result: through the gate, in plan order, in
         deterministic mode; else as the pool delivers."""
         if self._gate is not None:
-            return self._gate.pull(self._timed_get_results)
-        return self._timed_get_results()
+            return self._gate.pull(self._fetch_once)
+        return self._fetch_once()
+
+    def _fetch_once(self):
+        """A result drained from a migrated-away pool, else the live pool's;
+        its item's context goes to ``_result_context``."""
+        if self._pending:
+            result, self._result_context = self._pending.popleft()
+            return result
+        result = self._timed_get_results()
+        self._result_context = self._pool.result_context
+        return result
 
     def _timed_get_results(self):
         """``pool.get_results()``, its wait in ``reader.pool_wait_s`` (and a
@@ -1401,6 +1853,44 @@ class Reader:
         ``autotune``."""
         return {} if self.autotune is None else self.autotune.report()
 
+    def pruning_report(self) -> dict:
+        """The plan-time pruning, the same for every epoch (the JAX
+        package's schema): whether statistics pruning engaged (or the
+        ``reason`` it did not), the constrained ``fields``, the groups
+        planned, pruned and kept, ``pruned_per_file``, the folded footer
+        ``column_stats``, and a selector's ``selector_pruned``."""
+        return dict(self._pruning_report)
+
+    def plan_report(self) -> dict:
+        """The executed plan's decisions (the JAX package's
+        ``PipelinePlan.describe()``): the placement and its ``source``
+        (``default``, ``persisted`` or ``trial``), the trial's verdict, the
+        fusions applied or declined, the plan-cache consult, the capacity
+        seeds. Empty for a direct ``Reader(...)``."""
+        return {} if self._plan is None else self._plan.describe()
+
+    def _on_placement_resolved(self, outcome: dict) -> None:
+        """The controller's callback when the placement trial resolves:
+        the verdict goes on the plan and, when measured, into the plan
+        cache with the tuned actuator values, so the next reader of this
+        store starts on the winner. The port has no operator profile yet:
+        the record's ``profile`` is None. A failure costs only the warm
+        start."""
+        if self._plan is None:
+            return
+        if outcome.get("verdict") not in ("kept", "reverted"):
+            self._plan.trial = dict(outcome)
+            return
+        try:
+            from petastorm_tpu_torch.plan import record_trial_outcome
+            record_trial_outcome(self._plan, outcome,
+                                 actuators=(self.autotune.actuator_values()
+                                            if self.autotune is not None else {}),
+                                 profile=None)
+        except Exception:  # noqa: BLE001 - persistence never stops the reader
+            logger.exception("plan-cache persist failed; the trial's verdict still applies "
+                             "to this run")
+
     def reset(self):
         """Start another pass; only legal once the current one is consumed."""
         if not self.last_row_consumed:
@@ -1414,6 +1904,17 @@ class Reader:
         self.last_row_consumed = False
 
     def stop(self):
+        if self._plan is not None and self._plan.source == "trial" \
+                and (self._plan.trial or {}).get("verdict") in ("kept", "reverted"):
+            # The record refreshed with the run's final knob values.
+            try:
+                from petastorm_tpu_torch.plan import record_trial_outcome
+                record_trial_outcome(self._plan, self._plan.trial,
+                                     actuators=(self.autotune.actuator_values()
+                                                if self.autotune is not None else {}),
+                                     profile=None)
+            except Exception:  # noqa: BLE001 - persistence never stops the reader
+                logger.exception("plan-cache refresh at close failed")
         if self.autotune is not None:
             self.autotune.stop()
         if self._telemetry_exporter is not None:

@@ -13,7 +13,12 @@ columns and publishes the table. The consumer turns it into
 ``{column: ndarray}`` with :func:`arrow_table_to_numpy_dict`; on the
 process pool that happens over the Arrow buffers in the shared-memory
 ring, without a copy. With ``convert_early_to_numpy`` the worker converts
-instead and publishes the dict. Retries, quarantine, fault sites, stage
+instead and publishes the dict, and so does an in-process worker under the
+plan's ``decode_transport`` fusion (the same conversion of the same table,
+so the consumer pops ready columns). Under the ``mask_decode_transform``
+fusion one read covers the predicate's columns and the output's; unfused,
+the predicate's columns are read first and the rest only when a row
+passes, as in the JAX package. Retries, quarantine, fault sites, stage
 deadlines, hedged reads and the readahead stage are the row worker's
 (:func:`~petastorm_tpu_torch.reader_impl.row_reader_worker.init_resilience`).
 With the reader's memory cache a group without a predicate is read once
@@ -48,8 +53,9 @@ class BatchReaderWorker(WorkerBase):
     :class:`~petastorm_tpu_torch.reader_impl.epoch_plan.OrderedUnit` an item
     with ``"deterministic"``, as the row worker publishes), and
     ``storage_options`` and ``filesystem`` (or None), how the store's files
-    are reached, ``cache`` (the reader's memory cache, or None), and the
-    row worker's resilience keys."""
+    are reached, ``cache`` (the reader's memory cache, or None),
+    ``plan_fusions`` (the plan's applied fusions: ``mask_decode_transform``,
+    ``decode_transport``), and the row worker's resilience keys."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
@@ -57,6 +63,7 @@ class BatchReaderWorker(WorkerBase):
         self._rng = np.random.default_rng(
             None if args["seed"] is None else args["seed"] + worker_id)
         self._ordered = args.get("sample_order", "free") == "deterministic"
+        self._fusions = frozenset(args.get("plan_fusions") or ())
         init_resilience(self, args)
 
     def process(self, rowgroup, shuffle_row_drop_partition=(0, 1), shuffle_context=None):
@@ -90,7 +97,7 @@ class BatchReaderWorker(WorkerBase):
                 table = _pandas_transform(spec.func, table)
         out_schema = self.args.get("output_schema", view_schema)
         table = table.select([n for n in table.column_names if n in out_schema.fields])
-        if self.args.get("convert_early_to_numpy"):
+        if self.args.get("convert_early_to_numpy") or "decode_transport" in self._fusions:
             return arrow_table_to_numpy_dict(table, out_schema)
         return table
 
@@ -117,15 +124,28 @@ class BatchReaderWorker(WorkerBase):
         when no row passes), then its drop partition, shuffled when asked."""
         if predicate is None:
             table = self._maybe_cached_table(rowgroup, needed)
-        else:
-            # One read of every column, as the JAX package's default plan
-            # reads (its columns in the same order).
+        elif "mask_decode_transform" in self._fusions:
+            # One read of every column, the mask over a selection of it.
             pred_fields = set(predicate.get_fields())
             table = self._read_table(rowgroup, needed | pred_fields)
             mask = _predicate_mask(
                 table.select([n for n in table.column_names if n in pred_fields]), predicate)
             if not mask.any():
                 return None
+            table = table.select([n for n in table.column_names if n in needed]).filter(
+                pa.array(mask))
+        else:
+            # The predicate's columns, then the rest once a row passes.
+            pred_fields = set(predicate.get_fields())
+            table = self._read_table(rowgroup, pred_fields)
+            mask = _predicate_mask(table, predicate)
+            if not mask.any():
+                return None
+            rest = needed - pred_fields
+            if rest:
+                rest_table = self._read_table(rowgroup, rest)
+                for name in rest_table.column_names:
+                    table = table.append_column(name, rest_table.column(name))
             table = table.select([n for n in table.column_names if n in needed]).filter(
                 pa.array(mask))
         part_index, num_parts = drop_part

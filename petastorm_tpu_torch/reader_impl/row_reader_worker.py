@@ -7,11 +7,16 @@ item's drop partition (``shuffle_row_drop_partitions``: one contiguous
 slice of the rows), shuffles the row order inside it when asked (with the
 same per-item generator as the JAX package, ``np.random.default_rng((seed,
 epoch, position))``), codec-decodes column by column and publishes the
-rows. With a predicate it reads and decodes the predicate's columns
-first, masks the group (one ``do_include_batch`` call, or ``do_include``
-row by row) and reads the other columns only when a row passes; the mask
-is taken over the drop partition's indices after the shuffle, so the rows
-come in the JAX package's order. A ``TransformSpec`` runs on each decoded
+rows. With a predicate it decodes the predicate's columns over the whole
+group and masks it (one ``do_include_batch`` call, or ``do_include`` row by
+row); the mask is taken over the drop partition's indices after the
+shuffle, so the rows come in the JAX package's order. Under the plan's
+``mask_decode_transform`` fusion (the default, not for an NGram) one read
+covers every needed column and the predicate's decoded columns are reused
+for the output by index selection; unfused, the other columns are read
+only when a row passes and decoded again. A coalesced work item (its
+``row_group`` a tuple of ordinals, the reader's ``rowgroup_coalescing``)
+is read with one ``read_row_groups`` call. A ``TransformSpec`` runs on each decoded
 row, or once on the group's columns when ``batched``. An
 image column goes through the native batch decoder in one call where the
 field and the host allow it (``utils.decode.batch_decode_images``), else
@@ -136,11 +141,13 @@ def _read_row_group(files: _ParquetFileLRU, rowgroup, columns, fault_plan=None,
         fault_plan.fire("rowgroup.read", key=str(rowgroup.path), worker_id=worker_id)
     pf = files.get(rowgroup.path)
     names = set(pf.schema_arrow.names)
+    file_columns = [c for c in sorted(columns) if c in names]
     # Workers are the parallelism unit: arrow's own threads would only
     # oversubscribe the cores.
-    return pf.read_row_group(rowgroup.row_group,
-                             columns=[c for c in sorted(columns) if c in names],
-                             use_threads=False)
+    ids = rowgroup.row_group
+    if isinstance(ids, tuple):   # a coalesced work item: one read
+        return pf.read_row_groups(list(ids), columns=file_columns, use_threads=False)
+    return pf.read_row_group(ids, columns=file_columns, use_threads=False)
 
 
 def read_row_group_maybe_hedged(worker, rowgroup, columns):
@@ -427,7 +434,8 @@ class RowReaderWorker(WorkerBase):
     ``fault_plan``, ``stage_deadline``, ``hedge_policy``, ``cancel_token``,
     ``readahead`` and ``resilience_telemetry`` (all optional), read by
     :func:`init_resilience`; ``cache``, the reader's decoded cache (or
-    None).
+    None); ``plan_fusions``, the plan's applied fusions
+    (``mask_decode_transform``).
 
     Its counters (:meth:`take_counters`): ``images_native``, the image
     cells the native batch call decoded, and ``images_codec``, those that
@@ -443,6 +451,7 @@ class RowReaderWorker(WorkerBase):
         self._rng = np.random.default_rng(
             None if args["seed"] is None else args["seed"] + worker_id)
         self._ordered = args.get("sample_order", "free") == "deterministic"
+        self._fusions = frozenset(args.get("plan_fusions") or ())
         # The reader checked that a lazy worker has no NGram and no per-row
         # transform.
         self._lazy = args.get("row_materialization", "eager") == "lazy"
@@ -485,8 +494,13 @@ class RowReaderWorker(WorkerBase):
         func = spec.func if spec is not None else None
         rng = item_shuffle_rng(self.args["seed"], shuffle_context, self._rng)
         decoded = False
+        predecoded = None
         if predicate is not None:
-            data, indices = self._load_columns_with_predicate(rowgroup, predicate, drop_part, rng)
+            # The fusion never applies to an NGram (its windows sort rows
+            # across the mask).
+            fused = "mask_decode_transform" in self._fusions and ngram is None
+            data, indices, predecoded = self._load_columns_with_predicate(
+                rowgroup, predicate, drop_part, rng, fused)
         else:
             data, indices, decoded = self._maybe_cached(rowgroup, drop_part, rng)
         # Stage boundary (read done, decode ahead): a hard-overrun or
@@ -498,7 +512,7 @@ class RowReaderWorker(WorkerBase):
             # Columns stay columns through the decode and the batched
             # transform: a lazy reader gets them whole, an eager one as rows.
             cols = (self._cols_from_decoded(data, indices) if decoded
-                    else self._decode_columns(data, indices))
+                    else self._decode_columns(data, indices, reuse=predecoded))
             if batched:
                 cols = apply_batched_transform(spec, cols)
             n = len(next(iter(cols.values()))) if cols else 0
@@ -513,7 +527,7 @@ class RowReaderWorker(WorkerBase):
                 and self._dense_vectorizable(data, indices):
             return self._dense_windows(ngram, data, indices)
         else:
-            cols = self._decode_columns(data, indices)
+            cols = self._decode_columns(data, indices, reuse=predecoded)
             rows = [{n: c[j] for n, c in cols.items()} for j in range(len(indices))]
         if func is not None:
             rows = [func(r) for r in rows]
@@ -592,18 +606,21 @@ class RowReaderWorker(WorkerBase):
                 data[key] = [value] * table.num_rows
         return data, table.num_rows
 
-    def _load_columns_with_predicate(self, rowgroup, predicate, drop_part, rng):
-        """``(columns, surviving indices)``: the predicate's columns read and
-        decoded whole, one mask, the drop partition's indices (shuffled)
-        kept where the mask is set; the other columns are read only when
-        a row passes."""
+    def _load_columns_with_predicate(self, rowgroup, predicate, drop_part, rng, fused=False):
+        """``(columns, surviving indices, predecoded)``: the predicate's
+        columns decoded whole, one mask, the drop partition's indices
+        (shuffled) kept where the mask is set. Unfused, the other columns
+        are read only when a row passes and ``predecoded`` is None; fused,
+        one read covers every needed column and ``predecoded`` is the
+        predicate's decoded columns, for the output to reuse."""
         from petastorm_tpu_torch.predicates import evaluate_predicate_mask
         schema = self.args["schema"]
         predicate_fields = set(predicate.get_fields())
         unknown = predicate_fields - set(schema.fields) - {k for k, _ in rowgroup.partition_values}
         if unknown:
             raise ValueError(f"Predicate references unknown fields: {sorted(unknown)}")
-        pred_data, num_rows = self._read_columns(rowgroup, predicate_fields)
+        pred_data, num_rows = self._read_columns(
+            rowgroup, (self._needed | predicate_fields) if fused else predicate_fields)
         # The predicate sees decoded values; partition keys pass through raw.
         pred_schema = schema.create_schema_view(
             [n for n in sorted(predicate_fields) if n in schema.fields])
@@ -611,22 +628,33 @@ class RowReaderWorker(WorkerBase):
         passthrough = {k: pred_data[k] for k in predicate_fields
                        if k in pred_data and k not in pred_schema.fields}
         mask = evaluate_predicate_mask(predicate, {**passthrough, **decoded}, num_rows)
+        predecoded = decoded if fused else None
         if not mask.any():
-            return pred_data, np.empty(0, np.intp)
+            return pred_data, np.empty(0, np.intp), predecoded
         indices = select_drop_partition(num_rows, *drop_part, self.args["shuffle_rows"], rng)
         indices = indices[mask[indices]]
         other = self._needed - predicate_fields
-        if other:
+        if other and not fused:
             other_data, _ = self._read_columns(rowgroup, other)
-            return {**pred_data, **other_data}, indices
-        return pred_data, indices
+            return {**pred_data, **other_data}, indices, None
+        return pred_data, indices, predecoded
 
-    def _decode_columns(self, data: dict, indices, schema=None) -> dict:
+    def _decode_columns(self, data: dict, indices, schema=None, reuse=None) -> dict:
         """``{name: decoded values}`` of the selected rows of every column
-        of ``schema`` (the needed fields by default) that ``data`` holds."""
+        of ``schema`` (the needed fields by default) that ``data`` holds. A
+        column of ``reuse`` (whole-group decoded columns, the fused
+        predicate's) is selected from it instead of decoded again: every
+        decode is cell-independent, so the values are the same."""
         plan = (self._decode_schema if schema is None else schema).decode_plan
-        return {name: self._decode(field, codec, data[name], indices)
-                for name, field, codec in plan if name in data}
+        idx = None if reuse is None else np.asarray(indices, dtype=np.intp)
+        cols = {}
+        for name, field, codec in plan:
+            if reuse is not None and name in reuse:
+                full = reuse[name]
+                cols[name] = full[idx] if isinstance(full, np.ndarray) else [full[i] for i in idx]
+            elif name in data:
+                cols[name] = self._decode(field, codec, data[name], indices)
+        return cols
 
     def _decode(self, field, codec, src, indices):
         """Decode the selected rows of one column: an image column in one

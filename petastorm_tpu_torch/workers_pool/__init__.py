@@ -13,6 +13,10 @@ class EmptyResultError(RuntimeError):
     ``ventilate`` call."""
 
 
+class TimeoutWaitingForResultError(RuntimeError):
+    """``get_results(timeout=)`` waited that long without a result."""
+
+
 #: Work-item kwarg under which the ventilator attaches its (epoch, position)
 #: context (workers key their row-shuffle RNG off it).
 ITEM_CONTEXT_KWARG = "shuffle_context"

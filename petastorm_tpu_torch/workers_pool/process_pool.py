@@ -87,6 +87,7 @@ from petastorm_tpu_torch.reader_impl.epoch_plan import OrderedUnit
 from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
 from petastorm_tpu_torch.resilience.quarantine import RowGroupSkipped, RowGroupSkippedMessage
 from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
+                                              TimeoutWaitingForResultError,
                                               VentilatedItemProcessedMessage,
                                               WorkerFailure, add_counters, route_skip)
 from petastorm_tpu_torch.workers_pool.exec_in_new_process import exec_in_new_process
@@ -282,13 +283,15 @@ class ProcessPool:
             # recovery re-sends its items, this one included.
             pass
 
-    def get_results(self):
+    def get_results(self, timeout=None):
         """The next published result. Raises :class:`EmptyResultError` once
         every ventilated item is processed and drained, or after ``stop()``;
         re-raises a worker's exception; raises ``RuntimeError`` when a worker
         died, or when the consumer's views have held every busy worker's
         ring full for ``_PINNED_STALL_S`` (dropping them lets a later call
-        go on)."""
+        go on). With ``timeout``, raises :class:`TimeoutWaitingForResultError`
+        after that many seconds without a result."""
+        deadline = None if timeout is None else time.monotonic() + timeout
         while True:
             # The watchdog's abort outranks the stop: the consumer sees the
             # hang's diagnosis, not an end of data.
@@ -313,6 +316,8 @@ class ProcessPool:
             msg = self._poll_result(_POLL_MS)
             if msg is None:
                 self._check_pinned_stall()
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TimeoutWaitingForResultError()
                 continue
             self._stall_since = None
             if isinstance(msg, VentilatedItemProcessedMessage):

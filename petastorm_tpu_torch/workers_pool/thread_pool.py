@@ -44,6 +44,7 @@ from typing import Optional
 
 from petastorm_tpu_torch.resilience.quarantine import RowGroupSkipped, RowGroupSkippedMessage
 from petastorm_tpu_torch.workers_pool import (ITEM_CONTEXT_KWARG, EmptyResultError,
+                                              TimeoutWaitingForResultError,
                                               VentilatedItemProcessedMessage,
                                               WorkerFailure, add_counters,
                                               item_straggler_monitor, route_skip)
@@ -335,13 +336,18 @@ class ThreadPool:
         return (self._processed[wid] == self._assigned[wid]
                 and self._result_queues[wid].empty())
 
-    def get_results(self):
+    def get_results(self, timeout: Optional[float] = None):
         """Next published result, in round-robin order. Raises
         :class:`EmptyResultError` once all ventilated work is done and
         drained, or after ``stop()``; re-raises worker exceptions, and the
-        watchdog's error after :meth:`abort`."""
+        watchdog's error after :meth:`abort`. With ``timeout``, raises
+        :class:`TimeoutWaitingForResultError` after that many seconds
+        without a result (the migration drain's bounded wait)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
         empty_sweeps = 0
         while True:
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutWaitingForResultError()
             if self._abort_exc is not None:
                 raise self._abort_exc
             if self._stop_event.is_set():

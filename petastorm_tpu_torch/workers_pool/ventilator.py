@@ -13,11 +13,18 @@ order, and :attr:`ConcurrentVentilator.state` is the resume point, a
 watermark over the ``(epoch, position)`` pairs the pool confirms, advanced
 only over a contiguous prefix so that items completed out of order never
 skip one still in flight.
+
+A placement migration (the reader's pool swap) parks the ventilation
+thread with :meth:`ConcurrentVentilator.pause` before its next item,
+repoints it with :meth:`~ConcurrentVentilator.set_ventilate_fn` and lets it
+go on with :meth:`~ConcurrentVentilator.resume` (the JAX package's
+``ventilator.py:262-293``).
 """
 from __future__ import annotations
 
 import random
 import threading
+import time
 from typing import Any, Dict, List, Optional
 
 _VENTILATION_INTERVAL_S = 0.01
@@ -72,6 +79,8 @@ class ConcurrentVentilator:
         self._completed_positions = set()
         self._context_tracking = False
         self._processed_total = 0
+        self._paused = False
+        self._pause_parked = threading.Event()
 
     def start(self):
         if self._thread is not None:
@@ -161,6 +170,35 @@ class ConcurrentVentilator:
         with self._inflight_cv:
             self._inflight_cv.notify_all()
 
+    def pause(self, timeout: float = 30.0) -> bool:
+        """Park the ventilation thread before its next ``ventilate_fn`` call
+        (the pool migration's quiesce point). Returns once the thread is
+        parked, or has finished, so no call can land on a pool being torn
+        down; False when the park was not confirmed within ``timeout``."""
+        with self._inflight_cv:
+            self._paused = True
+            self._pause_parked.clear()
+            self._inflight_cv.notify_all()
+        thread = self._thread
+        if thread is None or not thread.is_alive() or self.completed():
+            return True
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self._pause_parked.is_set() or self.completed() or not thread.is_alive():
+                return True
+            time.sleep(0.005)
+        return False
+
+    def resume(self) -> None:
+        with self._inflight_cv:
+            self._paused = False
+            self._inflight_cv.notify_all()
+
+    def set_ventilate_fn(self, fn) -> None:
+        """Ventilate into another pool from the next item on (the placement
+        migration's swap); only while :meth:`pause` holds the thread."""
+        self._ventilate_fn = fn
+
     def completed(self) -> bool:
         """True when every item of every pass was ventilated, or the
         ventilator was stopped (it will never ventilate again)."""
@@ -205,15 +243,21 @@ class ConcurrentVentilator:
             order = self._epoch_order(epoch)
             for pos, item in enumerate(order[skip:], start=skip):
                 with self._inflight_cv:
-                    while (self._inflight >= self._max_inflight
+                    while ((self._inflight >= self._max_inflight or self._paused)
                            and not self._stop_event.is_set()):
+                        if self._paused:
+                            # Parked: pause() may swap the ventilate target
+                            # now, no call being in flight.
+                            self._pause_parked.set()
                         self._inflight_cv.wait(_VENTILATION_INTERVAL_S)
                     if self._stop_event.is_set():
                         return
                     self._inflight += 1
+                # Read again each item: a migration repoints it mid-epoch.
+                ventilate_fn = self._ventilate_fn
                 if self._context_key is not None:
-                    self._ventilate_fn(**item, **{self._context_key: (epoch, pos)})
+                    ventilate_fn(**item, **{self._context_key: (epoch, pos)})
                 else:
-                    self._ventilate_fn(**item)
+                    ventilate_fn(**item)
             epoch, skip = epoch + 1, 0
         self._completed_event.set()

@@ -579,7 +579,7 @@ def test_cur_shard_auto_in_one_process_equals_jax(synthetic_dataset, factory, ja
                   **kwargs, **extra, **READ) as r:
             return sorted(int(i) for row in r for i in np.atleast_1d(row.id))
     got = ids(factory)
-    assert got == ids(jax_factory, rowgroup_pruning=False)
+    assert got == ids(jax_factory)
     assert len(got) == (100 if shard_count is None else 50)
 
 

@@ -334,8 +334,13 @@ def test_config_validation_as_jax():
 
 
 def test_placement_config_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tauto.AutotuneConfig(placement=True)
+    """The name is kept from when the port refused placement (ROADMAP item
+    9, placement migration): ``AutotuneConfig(placement=True)`` now builds
+    as in the JAX package, and a reader's placement actuator migrates its
+    pool mid-epoch with every id once, as the JAX reader's does."""
+    port, jax = tauto.AutotuneConfig(placement=True), jauto.AutotuneConfig(placement=True)
+    assert (port.placement, port.placement_settle_ticks, port.placement_tolerance) == \
+        (jax.placement, jax.placement_settle_ticks, jax.placement_tolerance)
 
 
 def test_controller_thread_ticks_and_stops():
@@ -511,7 +516,7 @@ def test_memory_cache_readers_equal_jax(synthetic_dataset, scalar_dataset, kind,
     url = synthetic_dataset.url if kind == "row" else scalar_dataset.url
     kw = dict(reader_pool_type=pool, workers_count=3, shuffle_row_groups=True, seed=5,
               memory_cache_size_bytes=1 << 30, readahead_depth=readahead)
-    jax_run = _two_passes(STORES[kind][0], url, kind == "batch", rowgroup_pruning=False, **kw)
+    jax_run = _two_passes(STORES[kind][0], url, kind == "batch", **kw)
     port_run = _two_passes(STORES[kind][1], url, kind == "batch", **kw)
     plain = _two_passes(STORES[kind][1], url, kind == "batch",
                         **{**kw, "memory_cache_size_bytes": None, "readahead_depth": None})
@@ -526,7 +531,7 @@ def test_memory_cache_readers_equal_jax(synthetic_dataset, scalar_dataset, kind,
 def test_two_epoch_streams_with_a_cache_equal_jax(synthetic_dataset):
     kw = dict(num_epochs=2, reader_pool_type="thread", workers_count=2, shuffle_row_groups=True,
               seed=3, memory_cache_size_bytes=1 << 30)
-    with jax_make_reader(synthetic_dataset.url, rowgroup_pruning=False, **kw) as r:
+    with jax_make_reader(synthetic_dataset.url, **kw) as r:
         jax_ids = _ids(r, False)
     with make_reader(synthetic_dataset.url, **kw) as r:
         port_ids = _ids(r, False)
@@ -576,7 +581,7 @@ def test_lazy_and_ngram_readers_through_the_cache_equal_jax(synthetic_dataset):
         lazy = [int(row.id) for row in r]
     assert lazy == list(range(100)) * 2
     windows = []
-    for factory, ngram_class, extra in ((jax_make_reader, JaxNGram, {"rowgroup_pruning": False}),
+    for factory, ngram_class, extra in ((jax_make_reader, JaxNGram, {}),
                                         (make_reader, NGram, {})):
         ngram = ngram_class({0: ["id", "matrix"], 1: ["id", "matrix"]}, delta_threshold=1,
                             timestamp_field="id", dense=True)
@@ -606,7 +611,7 @@ def test_cache_fill_fault_in_degraded_mode_as_jax(synthetic_dataset):
     import petastorm_tpu.resilience as jres
     import petastorm_tpu_torch.resilience as tres
     runs = []
-    for factory, r, extra in ((jax_make_reader, jres, {"rowgroup_pruning": False}),
+    for factory, r, extra in ((jax_make_reader, jres, {}),
                               (make_reader, tres, {})):
         plan = r.FaultPlan([r.FaultSpec(site="cache.fill", at=1)])
         with factory(synthetic_dataset.url, shuffle_row_groups=False, reader_pool_type="dummy",
@@ -653,11 +658,36 @@ def test_autotune_reader_registers_its_knobs(synthetic_dataset):
         sum(1 for _ in r)
 
 
-def test_placement_refused_by_the_reader(synthetic_dataset):
-    cfg = tauto.AutotuneConfig()
-    cfg.placement = True
-    with pytest.raises(NotImplementedError, match="plan/"):
-        make_reader(synthetic_dataset.url, autotune=True, autotune_config=cfg)
+def test_placement_refused_by_the_reader(synthetic_dataset, scalar_dataset, monkeypatch,
+                                         tmp_path):
+    """The name is kept from when the readers refused placement: both
+    packages' readers now register a placement actuator, and its request
+    migrates the pool thread -> process -> thread mid-epoch with every id
+    delivered once, the same multiset in both packages."""
+    monkeypatch.setenv("PETASTORM_TPU_PLAN_CACHE", str(tmp_path))
+    for kind in ("row", "batch"):
+        _placement_parity(synthetic_dataset.url if kind == "row" else scalar_dataset.url, kind)
+
+
+def _placement_parity(url, kind):
+    runs = []
+    for factory, cfg in (((make_reader, tauto.AutotuneConfig), (jax_make_reader,
+                                                               jauto.AutotuneConfig))
+                         if kind == "row" else
+                         ((make_batch_reader, tauto.AutotuneConfig),
+                          (jax_make_batch_reader, jauto.AutotuneConfig))):
+        with factory(url, workers_count=2, seed=6, autotune=True,
+                     autotune_config=cfg(placement=True, interval_s=60)) as r:
+            act = r.autotune.actuator("placement")
+            ids, backends = [], []
+            for n, item in enumerate(r, start=1):
+                ids += [int(i) for i in np.atleast_1d(item.id)]
+                backends.append(r.diagnostics["pool_type"])
+                if n in ((20, 60) if kind == "row" else (2, 6)):
+                    act.set(1 - act.value)   # knob-ok: the test drives the actuator
+            runs.append((sorted(ids), act.applied, r.telemetry.snapshot()["counters"]
+                         ["autotune.placement_migrations"], "process" in backends))
+    assert runs[0] == runs[1] == (list(range(100)), True, 2, True)
 
 
 def test_private_cache_budget_is_not_the_pressure_signal(synthetic_dataset):

@@ -56,10 +56,8 @@ def _rows_equal(got, want) -> bool:
         for g, w in zip(got, want))
 
 
-def _read(factory, url, jax=False, **kw):
+def _read(factory, url, **kw):
     kw = {"schema_fields": FIELDS, **kw}
-    if jax:
-        kw["rowgroup_pruning"] = False
     with factory(url, **kw) as reader:
         return list(reader)
 
@@ -178,7 +176,7 @@ def test_a_row_group_of_64_images_crosses_the_ring_as_its_rows_did():
 def test_lazy_rows_equal_the_jax_lazy_readers(synthetic_dataset, kw):
     kw = dict(kw, reader_pool_type="dummy", row_materialization="lazy")
     got = _read(make_reader, synthetic_dataset.url, **kw)
-    want = _read(jax_make_reader, synthetic_dataset.url, jax=True, **kw)
+    want = _read(jax_make_reader, synthetic_dataset.url, **kw)
     assert len(got) == ROWS and _rows_equal(got, want)
     eager = _read(make_reader, synthetic_dataset.url, **dict(kw, row_materialization="eager"))
     assert _rows_equal(got, eager)   # one pool, one order: the same stream
@@ -189,7 +187,7 @@ def test_lazy_rows_with_a_predicate_equal_the_jax_readers(synthetic_dataset):
     kw = dict(reader_pool_type="dummy", row_materialization="lazy", seed=1, shuffle_rows=True)
     got = _read(make_reader, synthetic_dataset.url,
                 predicate=in_lambda(["id2"], lambda v: v["id2"] % 3 == 0), **kw)
-    want = _read(jax_make_reader, synthetic_dataset.url, jax=True,
+    want = _read(jax_make_reader, synthetic_dataset.url,
                  predicate=jax_in_lambda(["id2"], lambda v: v["id2"] % 3 == 0), **kw)
     assert 0 < len(got) < ROWS and _rows_equal(got, want)
 
@@ -262,7 +260,7 @@ def test_deterministic_lazy_cursors_are_the_jax_cursors(synthetic_dataset, cut):
     with make_reader(synthetic_dataset.url, **kw) as reader:
         head = [int(next(reader).id) for _ in range(cut)]
         state = reader.state_dict()
-    with jax_make_reader(synthetic_dataset.url, rowgroup_pruning=False, **kw) as reader:
+    with jax_make_reader(synthetic_dataset.url, **kw) as reader:
         want_head = [int(next(reader).id) for _ in range(cut)]
         want = reader.state_dict()
     assert head == want_head
@@ -285,7 +283,7 @@ def test_free_lazy_cursors_are_the_jax_cursors(synthetic_dataset, n):
         with factory(synthetic_dataset.url, **kw, **extra) as reader:
             return [int(next(reader).id) for _ in range(n)], reader.state_dict()
     ids, port = pull(make_reader)
-    jax_ids, jax = pull(jax_make_reader, rowgroup_pruning=False)
+    jax_ids, jax = pull(jax_make_reader)
     assert ids == jax_ids
     linear = [c["epoch"] * 10 + c["offset"] for c in (port, jax)]
     assert port["items"] == jax["items"] == 10 and port["seed"] == jax["seed"]

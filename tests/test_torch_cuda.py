@@ -1419,3 +1419,31 @@ def test_prefetch_raised_to_its_ceiling_mid_epoch_keeps_the_batches(cuda_device,
         return out
     tuned, plain = batches(True), batches(False)
     assert len(tuned) == len(plain) == 24 and tuned == plain
+
+
+def test_a_mid_epoch_migration_to_processes_feeds_k1_bit_equal(cuda_device, tmp_path):
+    """A thread reader migrated to the process pool after its first batch
+    (and back after its eighth) feeds the DataLoader onto the card: every id
+    once, the process pool's workers read groups, and K1 of every batch is
+    bit-equal to its plain version."""
+    url = _image_store(tmp_path, rows=192)
+    ids, batches = [], 0
+    kernels.reset_launch_counts()
+    with make_reader(url, reader_pool_type="thread", workers_count=1, seed=1) as reader:
+        for i, batch in enumerate(DataLoader(reader, batch_size=16, device=cuda_device)):
+            out = normalize_images(batch["image"])
+            assert torch.equal(out.view(torch.int16),
+                               normalize_images_plain(batch["image"]).view(torch.int16))
+            ids += batch["id"].cpu().tolist()
+            batches += 1
+            if i == 0:
+                reader._request_pool_migration("process")
+            elif i == 7:
+                reader._request_pool_migration("thread")
+        counters = reader.telemetry.snapshot()["counters"]
+    torch.cuda.synchronize()
+    assert sorted(ids) == list(range(192)) and batches == 12
+    assert counters["autotune.placement_migrations"] == 2
+    # Results crossed the process pool's rings.
+    assert counters.get("transport.deserialize_s", 0) > 0
+    assert kernels.launch_counts[KERNEL_NAME] == batches

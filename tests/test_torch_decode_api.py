@@ -210,8 +210,7 @@ def test_a_registered_user_codec_reads_in_both_packages(tmp_path):
     url = f"file://{tmp_path}/ds"
     with jax_materialize(url, schema, rows_per_row_group=5) as w:
         w.write_rows([{"id": i, "blob": bytes([i, i])} for i in range(20)])
-    with jax_make_reader(url, shuffle_row_groups=False, reader_pool_type="dummy",
-                         rowgroup_pruning=False) as j:
+    with jax_make_reader(url, shuffle_row_groups=False, reader_pool_type="dummy") as j:
         want = [(r.id, r.blob) for r in j]
     for pool in ("dummy", "thread"):
         with make_reader(url, shuffle_row_groups=False, reader_pool_type=pool,
@@ -225,7 +224,7 @@ def test_a_registered_user_codec_reads_in_both_packages(tmp_path):
 def test_reader_next_and_ngram_make_namedtuple_behave_as_the_jax_ones(synthetic_dataset):
     kw = dict(schema_fields=["id", "id2"], reader_pool_type="dummy", shuffle_row_groups=False)
     with make_reader(synthetic_dataset.url, **kw) as r, \
-            jax_make_reader(synthetic_dataset.url, rowgroup_pruning=False, **kw) as j:
+            jax_make_reader(synthetic_dataset.url, **kw) as j:
         for _ in range(100):
             a, b = r.next(), j.next()
             assert (a.id, a.id2) == (b.id, b.id2)
@@ -237,8 +236,7 @@ def test_reader_next_and_ngram_make_namedtuple_behave_as_the_jax_ones(synthetic_
     jngram = JaxNGram(fields, delta_threshold=1, timestamp_field="id")
     kw = dict(schema_fields=ngram, reader_pool_type="dummy", shuffle_row_groups=False)
     with make_reader(synthetic_dataset.url, **kw) as r, \
-            jax_make_reader(synthetic_dataset.url, rowgroup_pruning=False,
-                            **{**kw, "schema_fields": jngram}) as j:
+            jax_make_reader(synthetic_dataset.url, **{**kw, "schema_fields": jngram}) as j:
         window, jwindow = r.next(), j.next()
         assert ngram.make_namedtuple(r.schema, window) is window
         assert jngram.make_namedtuple(j.schema, jwindow) is jwindow
@@ -294,9 +292,9 @@ def test_storage_options_and_filesystem_reach_the_store(guarded_store, pool, how
         rows = _ids(r)
     with make_batch_reader(guarded_store, **kw) as r:
         batch_rows = _ids(r)
-    with jax_make_reader(guarded_store, rowgroup_pruning=False, **kw) as j:
+    with jax_make_reader(guarded_store, **kw) as j:
         want = _ids(j)
-    with jax_make_batch_reader(guarded_store, rowgroup_pruning=False, **kw) as j:
+    with jax_make_batch_reader(guarded_store, **kw) as j:
         batch_want = _ids(j)
     assert rows == want == batch_rows == batch_want == list(range(20))
     assert aligned_steps_per_epoch(guarded_store, 3, shard_count=2, **arg) == 3
@@ -321,7 +319,7 @@ def test_a_memory_store_reads_as_the_jax_readers_read_it():
         for arg in ({"filesystem": MemoryFileSystem()}, {"storage_options": {}}):
             kw = dict(shuffle_row_groups=False, reader_pool_type="dummy", **arg)
             with make_reader(url, **kw) as r, \
-                    jax_make_reader(url, rowgroup_pruning=False, **kw) as j:
+                    jax_make_reader(url, **kw) as j:
                 got, want = list(r), list(j)
             assert [int(x.id) for x in got] == [int(x.id) for x in want] == list(range(12))
             assert all(np.array_equal(a.m, b.m) for a, b in zip(got, want))

@@ -44,7 +44,7 @@ def _batch_rows(factory, url, **kw):
 
 
 def _jax(kw, **more):
-    return {**kw, "rowgroup_pruning": False, **more}
+    return {**kw, **more}
 
 
 # ------------------------------------------------------------------- streams
@@ -180,7 +180,7 @@ REFUSALS = {
 def test_port_refuses_where_jax_refuses(synthetic_dataset, case):
     saved, resume_kw, match = case
     state = saved if "offset" in saved else _saved_state(synthetic_dataset.url, **saved)
-    for factory, extra in ((make_reader, {}), (jax_make_reader, {"rowgroup_pruning": False})):
+    for factory, extra in ((make_reader, {}), (jax_make_reader, {})):
         with pytest.raises(ValueError, match=match):
             factory(synthetic_dataset.url, reader_pool_type="dummy", resume_state=state,
                     **resume_kw, **extra)

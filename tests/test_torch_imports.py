@@ -119,7 +119,11 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.autotune.budget", "petastorm_tpu_torch.autotune.actuators",
             "petastorm_tpu_torch.autotune.placement", "petastorm_tpu_torch.autotune.controller",
             "petastorm_tpu_torch.autotune.mem_cache",
-            "petastorm_tpu_torch.reader_impl.readahead"} <= set(modules)
+            "petastorm_tpu_torch.reader_impl.readahead", "petastorm_tpu_torch.plan",
+            "petastorm_tpu_torch.plan.plan", "petastorm_tpu_torch.plan.validate",
+            "petastorm_tpu_torch.plan.lowering", "petastorm_tpu_torch.plan.fusion",
+            "petastorm_tpu_torch.plan.cache", "petastorm_tpu_torch.plan.optimizer",
+            "petastorm_tpu_torch.explain", "petastorm_tpu_torch.explain.spec"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})

@@ -42,7 +42,7 @@ def _port_batches(url, loader_kw, **reader_kw):
 
 def _jax_batches(url, loader_kw, **reader_kw):
     reader_kw = {"schema_fields": FIELDS, "reader_pool_type": "dummy",
-                 "row_materialization": "lazy", "rowgroup_pruning": False, **reader_kw}
+                 "row_materialization": "lazy", **reader_kw}
     with jax_make_reader(url, **reader_kw) as reader:
         return [{k: np.asarray(v) for k, v in b.items()}
                 for b in JaxDataLoader(reader, **loader_kw)]
@@ -123,7 +123,7 @@ def test_lazy_mesh_loader_against_the_jax_lazy_mesh_loader(synthetic_dataset, ho
                              num_hosts=hosts, seed=3, num_epochs=2, device="cpu",
                              pad_last=True))
     want = run(JaxMeshDataLoader(JaxMeshReaderFactory(synthetic_dataset.url,
-                                                      rowgroup_pruning=False, **kw),
+                                                      **kw),
                                  batch_size=8, num_hosts=hosts, seed=3, num_epochs=2,
                                  pad_last=True))
     if hosts == 1:
@@ -151,7 +151,7 @@ def test_lazy_mixture_passes_batches_through_and_equals_jax(synthetic_dataset):
     port = [make_reader(url, schema_fields=["id", "matrix"], reader_pool_type="dummy", seed=s,
                         row_materialization="lazy") for s in (1, 2)]
     jax = [jax_make_reader(url, schema_fields=["id", "matrix"], reader_pool_type="dummy",
-                           seed=s, row_materialization="lazy", rowgroup_pruning=False)
+                           seed=s, row_materialization="lazy")
            for s in (1, 2)]
     with WeightedSamplingReader(port, [0.7, 0.3], seed=9) as mix, \
             JaxMixer(jax, [0.7, 0.3], seed=9) as jax_mix:
@@ -179,6 +179,6 @@ def test_a_loader_over_a_lazy_mixture_equals_jax(synthetic_dataset):
                         row_materialization="lazy", **extra) for s in (1, 2)]
     with WeightedSamplingReader(members(make_reader), [0.6, 0.4], seed=2) as mix:
         got = [{k: v.numpy() for k, v in b.items()} for b in DataLoader(mix, device="cpu", **kw)]
-    with JaxMixer(members(jax_make_reader, rowgroup_pruning=False), [0.6, 0.4], seed=2) as mix:
+    with JaxMixer(members(jax_make_reader), [0.6, 0.4], seed=2) as mix:
         want = [{k: np.asarray(v) for k, v in b.items()} for b in JaxDataLoader(mix, **kw)]
     _assert_batches_equal(got, want)

@@ -223,7 +223,7 @@ def test_fetch_telemetry_and_spans(store):
 def test_batch_reader_with_readahead_equal_jax(store, pool, cache):
     kw = dict(shuffle_row_groups=True, seed=3, reader_pool_type=pool, workers_count=2,
               num_epochs=2, memory_cache_size_bytes=cache)
-    with jax_make_batch_reader(store, readahead_depth=4, rowgroup_pruning=False, **kw) as r:
+    with jax_make_batch_reader(store, readahead_depth=4, **kw) as r:
         jax_ids = _batch_ids(r)
     with make_batch_reader(store, readahead_depth=4, **kw) as r:
         port_ids = _batch_ids(r)
@@ -242,8 +242,7 @@ def test_batch_reader_with_readahead_equal_jax(store, pool, cache):
 @pytest.mark.parametrize("pool", ["dummy", "thread"])
 def test_row_reader_with_readahead_equal_jax(synthetic_dataset, pool):
     kw = dict(shuffle_row_groups=True, seed=5, reader_pool_type=pool, workers_count=2)
-    with jax_make_reader(synthetic_dataset.url, readahead_depth=3, rowgroup_pruning=False,
-                         **kw) as r:
+    with jax_make_reader(synthetic_dataset.url, readahead_depth=3, **kw) as r:
         jax_ids = [int(row.id) for row in r]
     with make_reader(synthetic_dataset.url, readahead_depth=3, **kw) as r:
         port_ids = [int(row.id) for row in r]
@@ -265,7 +264,7 @@ def test_a_predicate_reads_one_fetch_for_both_requests(store):
 
 def test_a_failing_file_is_quarantined_once_with_readahead(store):
     runs = []
-    for factory, r, extra in ((jax_make_batch_reader, jres, {"rowgroup_pruning": False}),
+    for factory, r, extra in ((jax_make_batch_reader, jres, {}),
                               (make_batch_reader, tres, {})):
         plan = r.FaultPlan([r.FaultSpec(site="rowgroup.read", kind="ioerror", rate=1.0,
                                         key_substring="a.parquet")], seed=0)

@@ -7,10 +7,9 @@ per-row, batched and pandas ``TransformSpec``s, and their combinations, on
 rows must be equal in the same order; on the process pool equal as a
 multiset. Each error case must raise the same exception type.
 
-The JAX reader prunes row groups by Parquet statistics by default
-(``rowgroup_pruning``), which the port leaves out: a predicate with
-``intervals()`` plans fewer groups there, which reorders a shuffled epoch.
-The cases that compare order under such a predicate turn it off.
+Both packages prune row groups by Parquet statistics by default
+(``rowgroup_pruning``): a predicate with ``intervals()`` plans the same
+fewer groups in each, so the shuffled epochs stay equal in order.
 """
 import functools
 import os
@@ -194,10 +193,7 @@ ROW_CASES = ["filters in", "filters dnf", "predicate range", "predicate split",
 
 def _pair(case, kwargs_of, **common):
     port, jax = kwargs_of("port", case), kwargs_of("jax", case)
-    port.pop("rowgroup_pruning", None)
-    # The port leaves statistics pruning out; the JAX reader must not
-    # reorder the shuffled epoch by pruning.
-    jax["rowgroup_pruning"] = False
+    # Both packages prune by statistics unless the case says otherwise.
     return {**port, **common}, {**jax, **common}
 
 
@@ -223,13 +219,18 @@ def test_row_reader_process_pool_gives_the_jax_multiset(row_store, case):
 
 
 def test_pruning_reorders_only_the_jax_shuffled_epoch(row_store):
-    """With statistics pruning on (the JAX default) the rows are the port's
-    as a multiset: the pruned groups held no passing row."""
+    """With statistics pruning on in both packages (their default) the
+    shuffled epochs are equal in order: both plan the same fewer groups. The
+    name is kept from when only the JAX reader pruned."""
     port_rows, _ = _read_rows(make_reader, row_store, reader_pool_type="dummy", seed=4,
                               predicate=tp.in_range("label", 8))
     jax_rows, _ = _read_rows(jax_make_reader, row_store, reader_pool_type="dummy", seed=4,
                              predicate=jp.in_range("label", 8))
-    assert_same_rows(port_rows, jax_rows, ordered=False)
+    assert_same_rows(port_rows, jax_rows, ordered=True)
+    with make_reader(row_store, reader_pool_type="dummy", seed=4,
+                     predicate=tp.in_range("label", 8)) as reader:
+        report = reader.pruning_report()
+    assert report["enabled"] and report["row_groups_pruned"] > 0
 
 
 def test_drop_partitions_cover_every_row_once(row_store):

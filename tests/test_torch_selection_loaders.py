@@ -41,8 +41,7 @@ def _cast_spec(spec):
 def _jax_rows(url, **kwargs):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        with jax_make_reader(url, reader_pool_type="dummy", rowgroup_pruning=False,
-                             **kwargs) as reader:
+        with jax_make_reader(url, reader_pool_type="dummy", **kwargs) as reader:
             return list(reader)
 
 

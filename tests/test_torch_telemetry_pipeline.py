@@ -66,7 +66,7 @@ def _row_pair(url, pool, **extra):
         loader = DataLoader(r, batch_size=16, shuffling_queue_capacity=40, seed=1, device="cpu")
         assert loader.telemetry is r.telemetry
         ours = _run(r, loader)
-    with jax_make_reader(url, rowgroup_pruning=False, **kw) as j:
+    with jax_make_reader(url, **kw) as j:
         theirs = _run(j, JaxDataLoader(j, batch_size=16, shuffling_queue_capacity=40, seed=1))
     return ours, theirs
 
@@ -76,7 +76,7 @@ def _batch_pair(url, pool):
               shuffle_row_groups=False)
     with make_batch_reader(url, **kw) as r:
         ours = _run(r, BatchedDataLoader(r, batch_size=16, device="cpu"))
-    with jax_make_batch_reader(url, rowgroup_pruning=False, **kw) as j:
+    with jax_make_batch_reader(url, **kw) as j:
         theirs = _run(j, JaxBatchedDataLoader(j, batch_size=16))
     return ours, theirs
 
@@ -154,7 +154,7 @@ def test_process_workers_spans_reach_the_parent_and_export(synthetic_dataset, tm
         spans = [s.as_dict() for s in r.telemetry.recorder.spans()]
         n = loader.export_trace(str(tmp_path / "trace.json"))
         snap = r.telemetry.snapshot()
-    with jax_make_reader(synthetic_dataset.url, rowgroup_pruning=False, **kw) as j:
+    with jax_make_reader(synthetic_dataset.url, **kw) as j:
         jloader = JaxDataLoader(j, batch_size=20)
         assert sum(1 for _ in jloader) == 5
         jspans = [s.as_dict() for s in j.telemetry.recorder.spans()]

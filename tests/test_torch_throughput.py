@@ -64,9 +64,9 @@ def _decoded(factory, url, **extra):
 @pytest.mark.parametrize("reader", ["port", "jax"])
 def test_hello_world_store_decodes_to_the_jax_writers_rows(hello_stores, reader):
     factory, extra = ((make_reader, {}) if reader == "port"
-                      else (jax_make_reader, {"rowgroup_pruning": False}))
+                      else (jax_make_reader, {}))
     got = _decoded(factory, hello_stores[0], **extra)
-    want = _decoded(jax_make_reader, hello_stores[1], rowgroup_pruning=False)
+    want = _decoded(jax_make_reader, hello_stores[1])
     assert [r[0] for r in got] == list(range(ROWS))
     for (i, img, arr), (j, want_img, want_arr) in zip(got, want):
         assert i == j
@@ -115,9 +115,11 @@ def test_cli_json_keys_equal_the_jax_clis(hello_stores):
 
 
 def test_cli_flags_are_the_jax_ones_less_tf_and_coalescing():
+    """The name is kept from before the port took ``--rowgroup-coalescing``:
+    the flags are now the JAX CLI's, and ``--device``."""
     ours = {a.dest for a in cli.build_parser()._actions}
     theirs = {a.dest for a in jax_cli.build_parser()._actions}
-    assert ours == (theirs - {"rowgroup_coalescing"}) | {"device"}
+    assert ours == theirs | {"device"}
     read_method = next(a for a in cli.build_parser()._actions if a.dest == "read_method")
     # The JAX CLI's "jax" is the port's "torch"; "tf" is the same in both.
     assert read_method.choices == ["python", "tf", "torch"]

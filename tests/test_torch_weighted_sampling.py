@@ -86,8 +86,7 @@ def _take_batches(mix, n):
 
 def test_batch_mixture_equals_jax_and_resumes(scalar_dataset):
     url = scalar_dataset.url
-    with JaxWeightedSamplingReader([_batch_member(jax_make_batch_reader, url,
-                                                  rowgroup_pruning=False)
+    with JaxWeightedSamplingReader([_batch_member(jax_make_batch_reader, url)
                                     for _ in range(2)], [0.6, 0.4], seed=21) as mix:
         want = _take_batches(mix, 16)
     with WeightedSamplingReader([_batch_member(make_batch_reader, url) for _ in range(2)],
@@ -121,7 +120,7 @@ def test_row_mixture_of_one_row_groups_equals_jax_and_resumes(synthetic_dataset)
         return [factory(synthetic_dataset.url, schema_fields=["id"], reader_pool_type="dummy",
                         num_epochs=1, sample_order="deterministic", seed=s, shuffle_window=3,
                         **extra) for s in (1, 2)]
-    with JaxWeightedSamplingReader(members(jax_make_reader, rowgroup_pruning=False),
+    with JaxWeightedSamplingReader(members(jax_make_reader),
                                    [0.5, 0.5], seed=4) as mix:
         want = [int(next(mix).id) for _ in range(120)]
     with WeightedSamplingReader(members(make_reader), [0.5, 0.5], seed=4) as mix:
