@@ -450,6 +450,41 @@ result line):
    recorded in that cache directory (recorded here when (a)'s trial did not
    resolve) starts on the persisted backend: ``plan_report()["source"] ==
    "persisted"``, the placement knob pinned, every id once through K1.
+25. the ops plane (``petastorm_tpu_torch.telemetry``'s timeline, anomaly
+   bank, SLO watch, black box, accounting and fabric, and its CLI) on phase
+   4's store, 8 threads -> ``DataLoader(256)`` -> K1 (bit-equal to its plain
+   version on every batch) -> phase 9's ResNet-50 step. (a) One epoch with
+   ``timeline_interval_s=0.1``, ``tenant="imagenet"`` and
+   ``telemetry_publish=`` a ``tcp://127.0.0.1`` port on which a
+   ``TelemetryAggregator`` of this process listens (beat 1 s, the
+   publisher's heartbeat): Σ ``rows_per_s × dt_s`` over the windows equals
+   ``reader.rows`` within the bar the windows' rounding allows, and the
+   control that drops the busiest window fails it; ``samples_per_s`` and
+   ``pool.utilization`` among the series; no ``throughput_collapse`` up to
+   the window that delivered the last row (one after it is the epoch's end,
+   logged); ``accounting_report()`` 2,048 rows; after the ``bye`` the
+   aggregator's ledger for the tenant equals the reader's totals, with no
+   ``fabric.send_errors`` or ``fabric.bad_messages``; ``python -m
+   petastorm_tpu_torch.telemetry timeline`` reads its flush (rc 0). (b)
+   The same with ``PETASTORM_TPU_BLACKBOX`` set: after 4 windows at >= 50
+   rows/s the loop stops pulling for 15 windows, then ends the epoch: the
+   anomaly report holds ``throughput_collapse``, an
+   ``anomaly_throughput_collapse`` bundle is written and ``telemetry
+   postmortem`` renders it (rc 0). (c) ``PETASTORM_TPU_SLO_WATCH=
+   "quarantined<=0"``, ``degraded_mode`` and an ``ioerror`` on every try of
+   worker 1's second group: one group quarantined, every other id once
+   through K1, an ``slo_quarantined`` bundle (the watcher's 5 s tick is
+   driven once when the epoch outran it); then 2 processes with worker 0
+   killed at its 8th item and no budget: the ``RuntimeError``, a bundle
+   whose snapshot holds ``pool.w*.items`` and whose rendering names the
+   ``dominant edge:``. (d) The loader alone over the store, the ops plane
+   off against on (timeline, anomaly bank, publisher), 2 turns each in
+   turns, samples/s logged. Then the anomaly gate, ``telemetry check
+   --anomaly --slo counter:anomaly.detections_total<=0``, exits 2 on (b)'s
+   snapshot, 0 on the last plane-on reader of (d) (the loader drains the
+   reader with no training behind it), and on (a)'s flush 2 exactly when
+   (a)'s monitor flagged the epoch's end (the fleet folds the member's
+   anomaly counters), 0 otherwise.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -900,6 +935,11 @@ PH24_MIGRATE_AT = (2, 5)
 PH24_TUNE_INTERVAL_S = 0.1
 PH24_KEPT_WINDOWS, PH24_STEPS = 6, 2
 PH24_COALESCING = 4
+# The ops plane (phase 25): the timeline's interval, the aggregator's beat
+# (the publisher's default heartbeat), (b)'s pause in windows, the kill's
+# item and (d)'s turns.
+PH25_INTERVAL_S, PH25_AGG_BEAT_S = 0.1, 1.0
+PH25_PAUSE_WINDOWS, PH25_KILL_AT, PH25_COST_TURNS = 15, 8, 2
 #: The JAX loaders' stage_breakdown() keys (petastorm_tpu/jax/loader.py:880-887).
 JAX_STAGE_KEYS = {"decode_s", "pool_queue_s", "shuffle_s", "host_wait_s", "stage_s",
                   "device_put_wait_s"}
@@ -6593,6 +6633,352 @@ def phase_planning(smi: str, slice_url: str, token_url: str) -> dict:
         flash_attn.KERNEL_NAME, flash_attn.BWD_DQ_KERNEL_NAME, flash_attn.BWD_DKV_KERNEL_NAME)}}
 
 
+def _k1_loader_epoch(reader, what: str, failures: list, step=None, on_batch=None,
+                     drop_last=True) -> dict:
+    """One epoch of ``reader`` through ``DataLoader(BATCH, device="cuda")`` and
+    K1, bit-equal to its plain version on every batch, then ``step`` (a
+    training step) when given; ``on_batch(i)`` after batch i. The ids in
+    delivery order, the batches, the seconds and samples/s."""
+    ids, bad = [], []
+    t0 = time.perf_counter()
+    with DataLoader(reader, batch_size=BATCH, device="cuda", drop_last=drop_last) as loader:
+        for i, batch in enumerate(loader, start=1):
+            pixels = batch["image"]
+            images = normalize_images(pixels)
+            bad.append((images.view(torch.int16)
+                        != normalize_images_plain(pixels).view(torch.int16)).sum())
+            ids.append(batch["id"])
+            if step is not None:
+                step(images, batch["id"])
+            if on_batch is not None:
+                on_batch(i)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ids = torch.cat(ids).tolist() if ids else []
+    bad = [int(b.item()) for b in bad]
+    if any(bad):
+        failures.append(f"{what}: K1 differs from its plain version on batches "
+                        f"{[i for i, b in enumerate(bad) if b]}")
+    return {"ids": ids, "batches": len(bad), "seconds": seconds,
+            "samples_per_s": len(ids) / seconds if seconds else 0.0}
+
+
+def _telemetry_cli(args: list, timeout: float = 120) -> tuple:
+    """``python -m petastorm_tpu_torch.telemetry ...`` in a new interpreter:
+    its exit code and its standard output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    out = subprocess.run([sys.executable, "-m", "petastorm_tpu_torch.telemetry", *args],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
+    return out.returncode, out.stdout + out.stderr
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """The environment variables ``values`` set (None: unset) inside the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _integrated_rows(windows: list) -> tuple:
+    """Σ rows_per_s × dt_s over timeline windows, and the bar its rounding
+    allows: each window rounds rows_per_s and dt_s to 6 decimals, so the
+    product is off by at most 5e-7 × (rows_per_s + dt_s) + 2.5e-13."""
+    total = bar = 0.0
+    for w in windows:
+        rate = w["series"].get("rows_per_s") or 0.0
+        total += rate * w["dt_s"]
+        bar += 5e-7 * (rate + w["dt_s"]) + 2.5e-13
+    return total, bar
+
+
+def phase_ops_plane(smi: str, slice_url: str, tmp: str) -> dict:
+    """Phase 25: the ops plane on phase 4's store (see the module docstring)."""
+    from petastorm_tpu_torch import resilience as res
+    from petastorm_tpu_torch.telemetry import (ACCOUNTING_FIELDS, TelemetryAggregator,
+                                               write_snapshot)
+    from petastorm_tpu_torch.telemetry.postmortem import load_bundle, render_report
+    failures = []
+    all_ids = list(range(ROWS))
+    normalised = 0
+    kernels.reset_launch_counts()
+    params = resnet.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                IMAGENET_CLASSES, device="cuda")
+    init_opt, raw_step = resnet.make_train_step(learning_rate=0.05)
+    opt = init_opt(params)
+
+    def step(images, ids):
+        nonlocal params, opt
+        params, opt, loss, _ = raw_step(params, opt, {"image": images,
+                                                      "label": ids % IMAGENET_CLASSES})
+        return loss
+
+    # One step on a zero batch first: no timed window pays the first call.
+    step(torch.zeros((BATCH,) + IMAGE_SHAPE, dtype=torch.bfloat16, device="cuda"),
+         torch.zeros(BATCH, dtype=torch.int64, device="cuda")).item()
+    # (a) Timeline, accounting and the fabric over one epoch.
+    agg = TelemetryAggregator("tcp://127.0.0.1:0", interval_s=PH25_AGG_BEAT_S).start()
+    with _env(PETASTORM_TPU_BLACKBOX=None, PETASTORM_TPU_SLO_WATCH=None,
+              PETASTORM_TPU_TIMELINE=None, PETASTORM_TPU_TELEMETRY_PUBLISH=None):
+        reader = make_reader(slice_url, reader_pool_type="thread", workers_count=WORKERS,
+                             seed=0, timeline_interval_s=PH25_INTERVAL_S, tenant="imagenet",
+                             telemetry_publish=agg.addr)
+        with reader:
+            run_a = _k1_loader_epoch(reader, "(a)", failures, step)
+    normalised += run_a["batches"]
+    rows = reader.telemetry.metrics_view()["counters"].get("reader.rows")
+    tl = reader.timeline_report()
+    windows = tl["windows"]
+    integral, bar = _integrated_rows(windows)
+    err = abs(integral - rows)
+    dropped = max(range(len(windows)), key=lambda i: windows[i]["series"].get("rows_per_s") or 0.0)
+    control, control_bar = _integrated_rows(windows[:dropped] + windows[dropped + 1:])
+    control_err = abs(control - rows)
+    names = set().union(*(w["series"] for w in windows)) if windows else set()
+    # The window where the last row was delivered; a collapse detected
+    # after it is the epoch's end, where the loader's prefetched batches
+    # keep the training busy while the reader delivers no more.
+    cum, last_row_window = 0.0, None
+    for w in windows:
+        cum += (w["series"].get("rows_per_s") or 0.0) * w["dt_s"]
+        if last_row_window is None and cum >= rows - bar:
+            last_row_window = w["index"]
+    detections_a = reader.anomaly_report()["detections"]
+    early = [d for d in detections_a if d["rule"] == "throughput_collapse"
+             and last_row_window is not None and d["window"] <= last_row_window]
+    acct = reader.accounting_report()
+    deadline = time.perf_counter() + 10.0
+    while time.perf_counter() < deadline and not agg.members_report().get(
+            reader.telemetry.pipeline_id, {}).get("left"):
+        time.sleep(0.01)   # the aggregator's thread folds the bye
+    member = agg.members_report().get(reader.telemetry.pipeline_id, {})
+    ledger = agg.ledger.report()["tenants"].get("imagenet", {})
+    fleet = agg.registry.metrics_view()["counters"]
+    send_errors = reader.telemetry.metrics_view()["counters"].get("fabric.send_errors", 0)
+    agg.stop()
+    agg.tick()   # the final beat: the fleet window that holds the bye
+    flush_a = os.path.join(tmp, "fleet_a.json")
+    agg.flush(flush_a)
+    rc_tl, out_tl = _telemetry_cli(["timeline", flush_a])
+    log(f"[ops] (a) ({smi}) phase 4's store on {WORKERS} threads, timeline_interval_s="
+        f"{PH25_INTERVAL_S}, tenant 'imagenet', published to {agg.addr} -> "
+        f"DataLoader({BATCH}) -> K1 -> ResNet-50, one epoch in {run_a['seconds']:.3f} s "
+        f"({run_a['samples_per_s']:.1f} samples/s): {len(windows)} windows "
+        f"({tl['windows_total']} taken), Σ rows_per_s × dt_s {integral:.6f} against "
+        f"reader.rows {rows} (error {err:.3g}, rounding bar {bar:.3g}); dropping window "
+        f"{dropped}: error {control_err:.3g}; rows delivered by window {last_row_window}; "
+        f"anomaly detections {[(d['rule'], d['window']) for d in detections_a]}; "
+        f"accounting totals {acct['totals']}; aggregator: member {member}, tenant ledger "
+        f"{ledger}, fabric.bad_messages {fleet.get('fabric.bad_messages', 0)}, "
+        f"fabric.send_errors {send_errors}; `telemetry timeline` on its flush: rc {rc_tl}")
+    if sorted(run_a["ids"]) != all_ids:
+        failures.append(f"(a) {len(run_a['ids'])} rows, not every id once")
+    if tl["windows_total"] != len(windows) or err > bar:
+        failures.append(f"(a) Σ rows_per_s × dt_s {integral} against reader.rows {rows}: "
+                        f"error {err} over the bar {bar} ({len(windows)} of "
+                        f"{tl['windows_total']} windows kept)")
+    if control_err <= control_bar:
+        failures.append(f"(a) the control that drops window {dropped} passes: error "
+                        f"{control_err}, bar {control_bar}")
+    if not {"samples_per_s", "pool.utilization"} <= names:
+        failures.append(f"(a) series {sorted(names)} lack samples_per_s or pool.utilization")
+    if early:
+        failures.append(f"(a) throughput_collapse while the epoch ran: {early}")
+    if acct["totals"]["rows"] != ROWS or acct["tenant"] != "imagenet":
+        failures.append(f"(a) accounting_report {acct}")
+    if not member.get("left") or any(
+            abs(ledger.get(f, -1.0) - acct["totals"][f]) > 1e-6 * max(1.0, acct["totals"][f])
+            for f in ACCOUNTING_FIELDS):
+        failures.append(f"(a) the aggregator's ledger {ledger} is not the reader's "
+                        f"totals {acct['totals']} (member {member})")
+    if send_errors or fleet.get("fabric.bad_messages", 0):
+        failures.append(f"(a) fabric.send_errors {send_errors}, fabric.bad_messages "
+                        f"{fleet.get('fabric.bad_messages', 0)}")
+    if rc_tl != 0:
+        failures.append(f"(a) `telemetry timeline {flush_a}`: rc {rc_tl}: {out_tl[-500:]}")
+
+    # (b) A forced throughput collapse, with the black box armed.
+    box_b = os.path.join(tmp, "blackbox_b")
+    with _env(PETASTORM_TPU_BLACKBOX=box_b, PETASTORM_TPU_SLO_WATCH=None,
+              PETASTORM_TPU_TIMELINE=None, PETASTORM_TPU_TELEMETRY_PUBLISH=None):
+        reader = make_reader(slice_url, reader_pool_type="thread", workers_count=WORKERS,
+                             seed=0, timeline_interval_s=PH25_INTERVAL_S)
+    paused = {}
+
+    def pause(i):
+        """After the warm-up, stop pulling for PH25_PAUSE_WINDOWS windows."""
+        if paused:
+            return
+        warm = [w for w in reader.telemetry.timeline.windows()
+                if (w["series"].get("rows_per_s") or 0.0) >= 50.0]
+        if len(warm) < 4:
+            return
+        start = reader.telemetry.timeline.windows()[-1]["index"]
+        t0 = time.perf_counter()
+        while reader.telemetry.timeline.windows()[-1]["index"] < start + PH25_PAUSE_WINDOWS \
+                and time.perf_counter() - t0 < 30.0:
+            time.sleep(PH25_INTERVAL_S / 10)   # the training loop stalls
+        paused.update(batch=i, windows=(start, reader.telemetry.timeline.windows()[-1]["index"]),
+                      seconds=time.perf_counter() - t0)
+
+    with reader:
+        run_b = _k1_loader_epoch(reader, "(b)", failures, step, on_batch=pause)
+    normalised += run_b["batches"]
+    report_b = reader.anomaly_report()
+    bundles_b = reader.blackbox.bundles()
+    flush_b = os.path.join(tmp, "reader_b.json")
+    write_snapshot(flush_b, reader.telemetry.snapshot())
+    bundle = bundles_b.get("anomaly_throughput_collapse")
+    rc_pm, out_pm = _telemetry_cli(["postmortem", bundle]) if bundle else (None, "")
+    log(f"[ops] (b) ({smi}) the same read with PETASTORM_TPU_BLACKBOX set, the loop "
+        f"paused after batch {paused.get('batch')} for windows {paused.get('windows')} "
+        f"({paused.get('seconds', 0.0):.3f} s): {run_b['batches']} batches in "
+        f"{run_b['seconds']:.3f} s; detections "
+        f"{[(d['rule'], d['window']) for d in report_b['detections']]}; bundles "
+        f"{sorted(bundles_b)}; `telemetry postmortem` rc {rc_pm}, "
+        f"{len(out_pm.splitlines())} lines")
+    if sorted(run_b["ids"]) != all_ids or not paused:
+        failures.append(f"(b) {len(run_b['ids'])} rows, paused {paused}")
+    if not any(d["rule"] == "throughput_collapse" for d in report_b["detections"]):
+        failures.append(f"(b) no throughput_collapse in {report_b['detections']}")
+    if bundle is None or rc_pm != 0 or "POSTMORTEM" not in out_pm:
+        failures.append(f"(b) bundle {bundle}, postmortem rc {rc_pm}: {out_pm[-500:]}")
+
+    # (c) SLO watch on a quarantined group, then a fatal's bundle.
+    box_c = os.path.join(tmp, "blackbox_c")
+    # The three tries of worker 1's second group: a raising spec ends
+    # the walk, so each spec counts the accesses the earlier ones let by.
+    plan = res.FaultPlan([res.FaultSpec("rowgroup.read", "ioerror", at=2, worker=1)
+                          for _ in range(3)])
+    policy = res.RetryPolicy(max_attempts=3,
+                             backoff=res.ExponentialBackoff(base=0.01, multiplier=2.0,
+                                                            cap=0.05), seed=0)
+    with _env(PETASTORM_TPU_BLACKBOX=box_c, PETASTORM_TPU_SLO_WATCH="quarantined<=0",
+              PETASTORM_TPU_TIMELINE=None, PETASTORM_TPU_TELEMETRY_PUBLISH=None):
+        reader = make_reader(slice_url, reader_pool_type="thread", workers_count=WORKERS,
+                             seed=0, fault_plan=plan, retry_policy=policy,
+                             degraded_mode=True)
+    with reader:
+        run_c = _k1_loader_epoch(reader, "(c) slo", failures, drop_last=False)
+        ticked = "slo_quarantined" not in reader.blackbox.bundles()
+        if ticked:
+            # The watcher ticks every 5 s: drive one tick of it here.
+            reader.slo_watcher.check_once()
+    normalised += run_c["batches"]
+    quarantine = reader.quarantine_report()
+    slo = reader.slo_report()
+    bundles_c = reader.blackbox.bundles()
+    group_ids = set(all_ids) - set(run_c["ids"])
+    log(f"[ops] (c) ({smi}) PETASTORM_TPU_SLO_WATCH='quarantined<=0', degraded_mode, an "
+        f"ioerror on every try of worker 1's second group: {len(run_c['ids'])} rows "
+        f"({len(set(run_c['ids']))} distinct) in {run_c['batches']} batches; quarantined "
+        f"{quarantine['quarantined']}; slo_report violations {slo.get('violations_by_rule')} "
+        f"after {slo.get('ticks')} tick(s){' (one driven here)' if ticked else ''}; bundles "
+        f"{sorted(bundles_c)}")
+    if quarantine["quarantined"] != 1 or len(group_ids) != ROWS_PER_GROUP \
+            or sorted(run_c["ids"]) != sorted(set(all_ids) - group_ids):
+        failures.append(f"(c) quarantined {quarantine['quarantined']}, "
+                        f"{len(run_c['ids'])} rows for {len(group_ids)} missing")
+    if "slo_quarantined" not in bundles_c:
+        failures.append(f"(c) no slo_quarantined bundle: {sorted(bundles_c)}, {slo}")
+
+    kill = res.FaultPlan([res.FaultSpec("worker.item", "worker_kill", at=PH25_KILL_AT,
+                                        worker=0)])
+    with _env(PETASTORM_TPU_BLACKBOX=box_c, PETASTORM_TPU_SLO_WATCH=None,
+              PETASTORM_TPU_TIMELINE=None, PETASTORM_TPU_TELEMETRY_PUBLISH=None):
+        reader = make_reader(slice_url, reader_pool_type="process", workers_count=2, seed=0,
+                             num_epochs=2, fault_plan=kill,
+                             timeline_interval_s=PH25_INTERVAL_S, timeline_anomaly=False)
+    delivered = []
+    raised = None
+    try:
+        with reader:
+            _k1_loader_epoch(reader, "(c) kill", failures,
+                             on_batch=lambda i: delivered.append(i))
+    except RuntimeError as e:
+        raised = str(e)
+    normalised += len(delivered)
+    fatal = reader.blackbox.bundles().get("RuntimeError")
+    counters = load_bundle(fatal)["snapshot"]["counters"] if fatal else {}
+    items = sorted(k for k in counters if k.startswith("pool.w") and k.endswith(".items"))
+    text = render_report(load_bundle(fatal)) if fatal else ""
+    rc_kill, _ = _telemetry_cli(["postmortem", fatal]) if fatal else (None, "")
+    edge = [ln.strip() for ln in text.splitlines() if "dominant edge:" in ln]
+    log(f"[ops] (c) 2 processes, worker 0 killed at item {PH25_KILL_AT} with no budget: "
+        f"{len(delivered)} batches through K1, then {raised!r}; bundle {fatal} with "
+        f"{items}; {edge}; `telemetry postmortem` rc {rc_kill}")
+    if raised is None or "died unexpectedly" not in raised:
+        failures.append(f"(c) the killed pool raised {raised!r}")
+    if not fatal or not items or not edge or rc_kill != 0:
+        failures.append(f"(c) fatal bundle {fatal}: items {items}, edge {edge}, "
+                        f"postmortem rc {rc_kill}")
+    del params, opt, init_opt, raw_step
+    free_cuda()
+
+    # (d) What the plane costs: the loader alone, the plane off and on.
+    agg = TelemetryAggregator("tcp://127.0.0.1:0", interval_s=PH25_AGG_BEAT_S).start()
+    rates = {"off": [], "on": []}
+    with _env(PETASTORM_TPU_BLACKBOX=None, PETASTORM_TPU_SLO_WATCH=None,
+              PETASTORM_TPU_TIMELINE=None, PETASTORM_TPU_TELEMETRY_PUBLISH=None):
+        for turn in range(PH25_COST_TURNS):
+            for arm in ("off", "on"):
+                kw = (dict(timeline_interval_s=PH25_INTERVAL_S, telemetry_publish=agg.addr)
+                      if arm == "on" else {})
+                with make_reader(slice_url, reader_pool_type="thread",
+                                 workers_count=WORKERS, seed=0, **kw) as reader:
+                    run = _k1_loader_epoch(reader, f"(d) {arm} turn {turn}", failures)
+                normalised += run["batches"]
+                rates[arm].append(run["samples_per_s"])
+                if sorted(run["ids"]) != all_ids:
+                    failures.append(f"(d) {arm} turn {turn}: not every id once")
+        flush_d = os.path.join(tmp, "reader_d.json")
+        write_snapshot(flush_d, reader.telemetry.snapshot())
+    agg.stop()
+    # The anomaly gate over the three runs' files: the offline replay
+    # (--anomaly) and the live monitor's counter (the rule the anomaly
+    # module documents), without the default stall rules, which the loader
+    # alone breaks by design. (b)'s forced collapse fails it; (a)'s flush
+    # fails it exactly when its monitor flagged the epoch's end (the fleet
+    # folds the member's anomaly counters; the JAX reader flags the end
+    # alike, tests/torch_epoch_end_probe.py); the loader alone, which drains
+    # the reader with no training behind it, passes.
+    gate = ["--anomaly", "--slo", "counter:anomaly.detections_total<=0"]
+    rc_check_b, out_check_b = _telemetry_cli(["check", flush_b, *gate])
+    rc_check_a, out_check_a = _telemetry_cli(["check", flush_a, *gate])
+    rc_check_d, out_check_d = _telemetry_cli(["check", flush_d, *gate])
+    log(f"[ops] `telemetry check {' '.join(gate)}`: (b)'s snapshot rc {rc_check_b}, (a)'s flush rc "
+        f"{rc_check_a} (epoch-end detections {[(d['rule'], d['window']) for d in detections_a]}), "
+        f"(d)'s last plane-on reader rc {rc_check_d}")
+    if rc_check_b != 2 or rc_check_a != (2 if detections_a else 0) or rc_check_d != 0:
+        failures.append(f"check --anomaly: (b) rc {rc_check_b} ({out_check_b[-300:]}), "
+                        f"(a) rc {rc_check_a} ({out_check_a[-300:]}), (d) rc {rc_check_d} "
+                        f"({out_check_d[-300:]})")
+    log(f"[ops] (d) ({smi}) the loader alone ({WORKERS} threads -> DataLoader({BATCH}) -> "
+        f"K1), {PH25_COST_TURNS} turns each in turns, samples/s: ops plane off "
+        f"{[round(r, 1) for r in rates['off']]}, on (timeline {PH25_INTERVAL_S} s, anomaly "
+        f"bank, publisher) {[round(r, 1) for r in rates['on']]}")
+    launches = dict(kernels.launch_counts)
+    if launches != {KERNEL_NAME: normalised}:
+        failures.append(f"launches {launches}, expected {KERNEL_NAME}: {normalised}")
+    log(f"[ops] launches {launches}")
+    if failures:
+        raise AssertionError("ops plane phase: " + "; ".join(failures))
+    return {KERNEL_NAME: launches.get(KERNEL_NAME, 0)}
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """``t`` seen as integers of its width, so that equality is bit equality."""
     return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -6683,6 +7069,10 @@ def main() -> int:
         # Phase 24 reads the stores of phases 4 and 8.
         planning = timed("24 planning + placement", phase_planning, smi,
                          f"file://{slice_tmp}/imagenet_like", f"file://{train_tmp}/tokens")
+        free_cuda()
+        with tempfile.TemporaryDirectory() as tmp:
+            ops = timed("25 ops plane", phase_ops_plane, smi,
+                        f"file://{slice_tmp}/imagenet_like", tmp)
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
@@ -6699,7 +7089,8 @@ def main() -> int:
         "launches": (launches + proc["normalize"] + resume.get(KERNEL_NAME, 0)
                      + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]
                      + lazy[KERNEL_NAME] + conv[KERNEL_NAME] + tele[KERNEL_NAME]
-                     + resil[KERNEL_NAME] + io_plane[KERNEL_NAME] + planning[KERNEL_NAME]),
+                     + resil[KERNEL_NAME] + io_plane[KERNEL_NAME] + planning[KERNEL_NAME]
+                     + ops[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

@@ -741,6 +741,13 @@ class LoaderBase:
         batches' self-times."""
         return self.critical_path.report()
 
+    def timeline_report(self) -> dict:
+        """The pipeline's rolling timeline ring. A loader over a Reader
+        shares its registry, so this is the reader's timeline: one ring
+        covering decode through staging. Empty when the ops plane is off."""
+        timeline = getattr(self.telemetry, "timeline", None)
+        return {} if timeline is None else timeline.as_dict()
+
     def export_trace(self, path: str) -> int:
         """Write the registry's retained spans to ``path`` as a Chrome trace
         (``ui.perfetto.dev``, ``chrome://tracing``); returns the count of

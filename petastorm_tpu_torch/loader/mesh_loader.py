@@ -52,6 +52,24 @@ sources, and ``"resharded"`` after a reshard), the JAX loader's cursor key
 for key: each crosses to the other package's loader. A cursor resumes only
 under the same host and row-group counts; a cursor with a ``"growth"``
 table (live data) raises ``NotImplementedError``.
+
+Telemetry and the ops plane
+---------------------------
+The ``mesh.*`` metrics are the JAX loader's, counters and gauges in the
+loader's registry: ``mesh.hosts``, ``mesh.host_skew_s``,
+``mesh.reshard_events``, ``mesh.hosts_lost``, ``mesh.ingest_wall_s``,
+``mesh.assemble_stall_s``, ``mesh.assemble_s`` and per host
+``mesh.host{h}.rows``, ``.rowgroups`` and ``.input_stall_s``; each host
+reader's decode, fetch and transport self-times are mirrored into
+``mesh.host_decode_s``, ``io.readahead.fetch_s`` and
+``transport.deserialize_s`` once a row group, so the critical path weighs
+the host plane against staging and assembly. With ``timeline_interval_s``
+the loader keeps its own timeline (whose ``mesh.host{h}.rows`` family gives
+per-host rows/s) with the anomaly bank on it, captures each host reader's
+ring at source teardown, and :meth:`MeshDataLoader.mesh_report` federates
+them; ``telemetry_publish`` streams the loader's registry as one fabric
+member, and ``PETASTORM_TPU_BLACKBOX`` arms a black box for mesh-level
+fatals.
 """
 from __future__ import annotations
 
@@ -67,6 +85,12 @@ import torch.distributed as dist
 from petastorm_tpu_torch.errors import NoDataAvailableError
 from petastorm_tpu_torch.loader.loader import LoaderBase
 from petastorm_tpu_torch.reader_impl.batch_plane import ColumnarBatch
+from petastorm_tpu_torch.telemetry import (AnomalyMonitor, BlackBox, MetricsTimeline,
+                                           TelemetryPublisher, TimelineSampler,
+                                           blackbox_dir_from_env, publish_addr_from_env,
+                                           timeline_interval_from_env)
+from petastorm_tpu_torch.telemetry.federation import federate_timelines
+from petastorm_tpu_torch.telemetry.timeseries import concat_timeline_dicts
 
 logger = logging.getLogger(__name__)
 
@@ -117,6 +141,11 @@ class MeshReaderFactory:
         self.batched = bool(batched)
         self.reader_kwargs = dict(reader_kwargs)
         self.reader_kwargs.setdefault("workers_count", 1)
+        # Host readers keep their timeline rings (the federation members)
+        # without the anomaly bank: a host parked on the assembler's
+        # backpressure reads as a local throughput collapse, and the
+        # fleet's health is the mesh monitor's (host_skew_divergence).
+        self.reader_kwargs.setdefault("timeline_anomaly", False)
         pool = self.reader_kwargs.get("reader_pool_type", "thread")
         #: True when a host's groups arrive in plan order (a batched reader,
         #: one item a group, on one thread or the inline pool): the reshard
@@ -249,6 +278,13 @@ class MeshDataLoader(LoaderBase):
         package's: the epoch and each host's plan position
     :param num_rowgroups: the store's row groups, instead of asking the factory
     :param host_queue_depth: decoded parts a host keeps ready (backpressure)
+    :param timeline_interval_s: the loader's own rolling timeline and
+        anomaly bank, and the per-host rollup in :meth:`mesh_report`
+        (``None`` defers to ``PETASTORM_TPU_TIMELINE``)
+    :param telemetry_publish: stream the loader's registry to a telemetry
+        aggregator at this address (``None`` defers to
+        ``PETASTORM_TPU_TELEMETRY_PUBLISH``)
+    :param tenant: the label of the published windows
 
     The other arguments are :class:`~petastorm_tpu_torch.loader.loader.LoaderBase`'s
     (``device``, ``prefetch``, ``pad_last``, ``echo``, ...). The short last
@@ -259,7 +295,9 @@ class MeshDataLoader(LoaderBase):
                  num_hosts: Optional[int] = None, num_epochs: Optional[int] = 1,
                  seed: Optional[int] = None, strict: bool = False,
                  resume_state: Optional[dict] = None, num_rowgroups: Optional[int] = None,
-                 host_queue_depth: int = 2, **kwargs):
+                 host_queue_depth: int = 2, timeline_interval_s: Optional[float] = None,
+                 telemetry_publish: Optional[str] = None, tenant: Optional[str] = None,
+                 **kwargs):
         from petastorm_tpu_torch.parallel.mesh import make_mesh, mesh_feed_topology
         super().__init__(batch_size, **kwargs)
         if not self._drop_last and not self._pad_last:
@@ -322,15 +360,30 @@ class MeshDataLoader(LoaderBase):
         self._lost_hosts: List[dict] = []
         self._epoch_t0: Optional[float] = None
 
-        # mesh_report's counters (the JAX loader keeps them as ``mesh.*``
-        # counters in its registry; this loader's registry, LoaderBase's,
-        # holds the staging, stall and critical-path metrics only).
-        self._reshard_events = 0
-        self._wall_s = 0.0
+        # The mesh.* metrics, in the JAX loader's names and kinds.
+        self.telemetry.gauge("mesh.hosts").set(self._H)
+        self.telemetry.gauge("mesh.host_skew_s").set(0.0)
+        self._c_reshard = self.telemetry.counter("mesh.reshard_events")
+        self._c_lost = self.telemetry.counter("mesh.hosts_lost")
+        self._c_wall = self.telemetry.counter("mesh.ingest_wall_s")
+        self._c_assemble_stall = self.telemetry.counter("mesh.assemble_stall_s")
+        #: Batch assembly self-time: the critical path's "assemble" edge.
+        self._c_assemble = self.telemetry.counter("mesh.assemble_s")
+        # Each host reader's stage self-times live in its own registry; the
+        # pullers mirror them here once a row group (decode lands on
+        # mesh.host_decode_s: this registry's worker.decode_s stays an
+        # in-process distribution).
+        self._c_stage_sync = {
+            "decode": self.telemetry.counter("mesh.host_decode_s"),
+            "fetch": self.telemetry.counter("io.readahead.fetch_s"),
+            "transport": self.telemetry.counter("transport.deserialize_s")}
         self._host_ids = [self._local_host] if self._multiprocess else list(range(self._H))
-        self._host_stall_s = {h: 0.0 for h in self._host_ids}
-        self._host_rows = {h: 0 for h in self._host_ids}
-        self._host_groups = {h: 0 for h in self._host_ids}
+        self._c_host_stall = {h: self.telemetry.counter(f"mesh.host{h}.input_stall_s")
+                              for h in self._host_ids}
+        self._c_host_rows = {h: self.telemetry.counter(f"mesh.host{h}.rows")
+                             for h in self._host_ids}
+        self._c_host_groups = {h: self.telemetry.counter(f"mesh.host{h}.rowgroups")
+                               for h in self._host_ids}
 
         # Checkpointable from step 0: the (resumed) epoch's start.
         hosts0 = {str(h): 0 for h in range(self._H)}
@@ -338,6 +391,48 @@ class MeshDataLoader(LoaderBase):
             hosts0 = {str(h): o for h, o in enumerate(self._resume_offsets)}
         self._last_input_state = {"mesh": True, "epoch": self._resume_epoch, "hosts": hosts0,
                                   "num_rowgroups": self._G, "num_hosts": self._H}
+        self._start_ops_plane(batch_size, seed, timeline_interval_s, telemetry_publish, tenant)
+
+    def _start_ops_plane(self, batch_size, seed, timeline_interval_s, telemetry_publish,
+                         tenant) -> None:
+        """The loader's timeline (its ``mesh.host{h}.rows`` family gives
+        per-host rows/s) with the anomaly bank, the per-host timeline
+        rollup, the fabric publisher and the black box, as the JAX loader
+        builds them."""
+        #: ``h{idx}`` -> the rings of that host's readers, captured at
+        #: source teardown (a host with a recovery source has several).
+        self._host_timelines: Dict[str, list] = {}
+        self._timeline = None
+        self._timeline_sampler = None
+        self.anomaly_monitor = None
+        self.blackbox = None
+        interval = (timeline_interval_s if timeline_interval_s is not None
+                    else timeline_interval_from_env())
+        if interval:
+            self._timeline = MetricsTimeline(interval_s=interval)
+            self.telemetry.timeline = self._timeline
+            self.anomaly_monitor = AnomalyMonitor(self.telemetry, on_detection=self._on_anomaly)
+            self._timeline.add_listener(self.anomaly_monitor.observe_window)
+            self._timeline_sampler = TimelineSampler(self.telemetry, self._timeline,
+                                                     interval).start()
+        self._telemetry_publisher = None
+        self._tenant = tenant
+        publish_addr = (telemetry_publish if telemetry_publish is not None
+                        else publish_addr_from_env())
+        if publish_addr:
+            self._telemetry_publisher = TelemetryPublisher(self.telemetry, publish_addr,
+                                                           tenant=tenant).start()
+        bb_dir = blackbox_dir_from_env()
+        if bb_dir:
+            self.blackbox = BlackBox(
+                bb_dir, self.telemetry, label="mesh",
+                config={"hosts": self._H, "batch_size": batch_size, "num_rowgroups": self._G,
+                        "seed": seed, "multiprocess": self._multiprocess,
+                        "strict": self._strict})
+            self.blackbox.add_collector("mesh", self.mesh_report)
+            self.blackbox.add_collector(
+                "anomaly", lambda: self.anomaly_monitor.report() if self.anomaly_monitor else {})
+            self.blackbox.add_collector("cursor", lambda: self._last_input_state)
 
     # ------------------------------------------------------------- planning
     def epoch_plan(self, epoch: int) -> List[List[int]]:
@@ -449,6 +544,7 @@ class MeshDataLoader(LoaderBase):
         reader = self._factory(src.ordinals)
         src.reader = reader
         src.fifo = self._fifo and bool(reader.batched_output)
+        stage_base = {"decode": 0.0, "fetch": 0.0, "transport": 0.0, "groups": 0}
         try:
             it = self._items(reader)
             while True:
@@ -457,6 +553,11 @@ class MeshDataLoader(LoaderBase):
                 item = next(it, None)
                 if item is None:
                     break
+                # Once a delivered row group: a row reader's many items a
+                # group do not pay the registry peeks a row.
+                if src.counted != stage_base["groups"]:
+                    stage_base["groups"] = src.counted
+                    self._sync_host_stage_times(reader, stage_base)
                 part = self._part_from_item(feed, src, item)
                 del item
                 if part is None:
@@ -474,24 +575,69 @@ class MeshDataLoader(LoaderBase):
                     part.delivered_after = src.delivered_groups()
                     src.safe_delivered = part.delivered_after
                     feed.queue.append(part)
-                    self._host_rows[feed.idx] += part.rows
+                    self._c_host_rows[feed.idx].add(part.rows)
                     if part.delivered_after > src.counted:
-                        self._host_groups[feed.idx] += part.delivered_after - src.counted
+                        self._c_host_groups[feed.idx].add(part.delivered_after - src.counted)
                         src.counted = part.delivered_after
                     self._cond.notify_all()
+            # The last group's decode lands after the loop's last check.
+            self._sync_host_stage_times(reader, stage_base)
             with self._cond:
                 # A clean end delivered every group (a row reader confirms
                 # its last group only after its last row).
                 if src.counted < len(src.ordinals):
-                    self._host_groups[feed.idx] += len(src.ordinals) - src.counted
+                    self._c_host_groups[feed.idx].add(len(src.ordinals) - src.counted)
                     src.counted = len(src.ordinals)
                 self._source_done(1)
         finally:
+            self._rollup_host_timeline(feed.idx, reader)
             try:
                 reader.stop()
                 reader.join()
             except Exception as e:  # noqa: BLE001 - teardown is best effort
                 logger.warning("mesh host %d reader teardown failed: %s", feed.idx, e)
+
+    def _sync_host_stage_times(self, reader, base: Dict[str, float]) -> None:
+        """Mirror the host reader's decode, fetch and transport self-times
+        since ``base`` into this registry (decode: the larger of the
+        in-process histogram and the process workers' decode spans, which
+        observe the same work). A factory's reader without a registry
+        contributes nothing."""
+        rt = getattr(reader, "telemetry", None)
+        if rt is None:
+            return
+        cur = {"decode": max(rt.peek_histogram_sum("worker.decode_s"),
+                             rt.peek_counter("trace.span.decode_s")),
+               "fetch": rt.peek_counter("io.readahead.fetch_s"),
+               "transport": rt.peek_counter("transport.deserialize_s")}
+        for key, value in cur.items():
+            delta = value - base[key]
+            if delta > 0:
+                self._c_stage_sync[key].add(delta)
+            base[key] = value
+
+    def _rollup_host_timeline(self, host: int, reader) -> None:
+        """Capture the host reader's timeline ring under ``h{host}`` before
+        the reader stops, with its terminal window taken."""
+        timeline = getattr(getattr(reader, "telemetry", None), "timeline", None)
+        if timeline is None:
+            return
+        sampler = getattr(reader, "_timeline_sampler", None)
+        if sampler is not None:
+            try:
+                sampler.sample_once()
+            except Exception:  # noqa: BLE001 - the rollup is best effort
+                pass
+        with self._cond:
+            self._host_timelines.setdefault(f"h{host}", []).append(timeline.as_dict())
+
+    def _record_fatal(self, exc: BaseException) -> None:
+        if self.blackbox is not None:
+            self.blackbox.write_bundle(type(exc).__name__, exc=exc)
+
+    def _on_anomaly(self, detection: dict) -> None:
+        if self.blackbox is not None:
+            self.blackbox.write_bundle(f"anomaly_{detection.get('rule', '?')}")
 
     def _source_done(self, n: int) -> None:
         """Caller holds ``self._cond``."""
@@ -506,6 +652,7 @@ class MeshDataLoader(LoaderBase):
                 return
             feed.lost = exc
             self._lost_hosts.append({"host": feed.idx, "error": repr(exc)})
+            self._c_lost.add(1)
             # The undelivered range: the in-flight source past its safe
             # watermark and every source not started. Parts already queued
             # were handed over: the assembler still drains them.
@@ -541,7 +688,7 @@ class MeshDataLoader(LoaderBase):
                 if bucket:
                     f.sources.append(_Source(bucket, recovery=True))
                     added += 1
-            self._reshard_events += 1
+            self._c_reshard.add(1)
             logger.warning("mesh host %d lost (%r); resharded %d row group(s) to %d survivor(s)",
                            feed.idx, exc, len(undelivered), len(survivors))
             self._outstanding += added
@@ -701,6 +848,7 @@ class MeshDataLoader(LoaderBase):
             while True:
                 with self._cond:
                     if self._fatal is not None:
+                        self._record_fatal(self._fatal)
                         raise self._fatal
                     if stop.is_set():
                         return   # close() mid-iteration
@@ -716,16 +864,20 @@ class MeshDataLoader(LoaderBase):
                         t0 = time.perf_counter()
                         self._cond.wait(0.05)
                         waited = time.perf_counter() - t0
+                        self._c_assemble_stall.add(waited)
                         for feed in active:
                             # Starved: live, nothing ready, and owed work (a
                             # parked host with no plan is not late).
                             if (not feed.queue and feed.lost is None and not feed.exhausted
                                     and (feed.current is not None or feed.sources)):
-                                self._host_stall_s[feed.idx] += waited
+                                self._c_host_stall[feed.idx].add(waited)
+                        self._update_skew()
                         continue
                 while pool_rows >= self._step_rows:
+                    t0 = time.perf_counter()
                     cols, consumed = self._take(pool, self._step_rows)
                     self._mark_consumed(consumed, epoch)
+                    self._c_assemble.add(time.perf_counter() - t0)
                     pool_rows -= self._step_rows
                     yield cols
             if pool_rows:
@@ -737,7 +889,7 @@ class MeshDataLoader(LoaderBase):
             # The epoch is complete: the next epoch's start is the cursor.
             self._pending_safe_state = self._cursor(epoch + 1, fresh=True)
         finally:
-            self._wall_s += time.perf_counter() - self._epoch_t0
+            self._c_wall.add(time.perf_counter() - self._epoch_t0)
             self._epoch_t0 = None
             self._live_stop = None
             self._teardown_feeds(feeds, stop)
@@ -785,6 +937,11 @@ class MeshDataLoader(LoaderBase):
             state["resharded"] = True
         return state
 
+    def _update_skew(self) -> None:
+        stalls = [c.value for c in self._c_host_stall.values()]
+        if stalls:
+            self.telemetry.gauge("mesh.host_skew_s").set(round(max(stalls) - min(stalls), 6))
+
     def _teardown_feeds(self, feeds, stop: threading.Event) -> None:
         # The flag stays set: a puller that outlives the join below still
         # exits at its next check.
@@ -814,27 +971,57 @@ class MeshDataLoader(LoaderBase):
         for feed in feeds:
             if feed.thread is not None:
                 feed.thread.join(15.0)
+        if self._timeline_sampler is not None:
+            # After the hosts joined: the terminal window covers their last
+            # counter syncs.
+            self._timeline_sampler.stop()
+        if self._telemetry_publisher is not None:
+            # Last: the final (``bye``) window ships the joined state.
+            self._telemetry_publisher.stop()
+            self._telemetry_publisher = None
 
     # ------------------------------------------------------------ reporting
     def mesh_report(self) -> dict:
         """Ingestion health: each host's rows, row groups and input stall (the
         seconds the assembler waited on it while it owed work, also as a
-        share of the ingest wall time), the reshards, the lost hosts and the
-        skew between the most and least stalled host."""
+        share of the ingest wall time), the reshards, the lost hosts, the
+        skew between the most and least stalled host, the critical path
+        over the whole mesh pipeline and, with the ops plane on, the
+        federated timeline (``"timeline"``)."""
+        wall = self._c_wall.value
+        epoch_t0 = self._epoch_t0
+        if epoch_t0 is not None:
+            wall += time.perf_counter() - epoch_t0
+        per_host = {}
+        for h in self._host_ids:
+            stall = self._c_host_stall[h].value
+            per_host[h] = {"rows": int(self._c_host_rows[h].value),
+                           "rowgroups": int(self._c_host_groups[h].value),
+                           "input_stall_s": round(stall, 6),
+                           "input_stall_pct": round(100.0 * stall / wall, 2) if wall else 0.0}
+        stalls = [v["input_stall_s"] for v in per_host.values()]
         with self._cond:
-            wall = self._wall_s
-            if self._epoch_t0 is not None:
-                wall += time.perf_counter() - self._epoch_t0
-            per_host = {}
-            for h in self._host_ids:
-                stall = self._host_stall_s[h]
-                per_host[h] = {"rows": int(self._host_rows[h]),
-                               "rowgroups": int(self._host_groups[h]),
-                               "input_stall_s": round(stall, 6),
-                               "input_stall_pct": round(100.0 * stall / wall, 2) if wall else 0.0}
-            stalls = [v["input_stall_s"] for v in per_host.values()]
-            return {"hosts": self._H, "multiprocess": self._multiprocess,
-                    "ingest_wall_s": round(wall, 6), "reshard_events": self._reshard_events,
-                    "hosts_lost": list(self._lost_hosts),
-                    "host_skew_s": round(max(stalls) - min(stalls), 6) if stalls else 0.0,
-                    "per_host": per_host}
+            lost = list(self._lost_hosts)
+        report = {"hosts": self._H, "multiprocess": self._multiprocess,
+                  "ingest_wall_s": round(wall, 6), "reshard_events": int(self._c_reshard.value),
+                  "hosts_lost": lost,
+                  "host_skew_s": round(max(stalls) - min(stalls), 6) if stalls else 0.0,
+                  "per_host": per_host, "critical_path": self.critical_path.report()}
+        timeline = self._federated_timeline()
+        if timeline is not None:
+            report["timeline"] = timeline
+        return report
+
+    def _federated_timeline(self) -> Optional[dict]:
+        """One fleet timeline: the loader's own ring (key ``mesh``) federated
+        with every captured host ring (``h{idx}``, a host's sources
+        concatenated), fleet-sum and skew series included. None when the
+        ops plane is off."""
+        with self._cond:
+            members = {key: concat_timeline_dicts(parts)
+                       for key, parts in self._host_timelines.items()}
+        if self._timeline is not None:
+            members["mesh"] = self._timeline.as_dict()
+        if not members:
+            return None
+        return federate_timelines(members, key_label="host")

@@ -22,7 +22,8 @@ __all__ = ["LOWERING_TABLE", "lower_reader_kwargs"]
 
 #: kwarg -> the operator ids it induces or configures. Pseudo-targets:
 #: ``plan`` (plan-time row-group selection: filters, sharding, pruning run
-#: once, before any operator), ``optimizer`` (the autotune loop). The JAX
+#: once, before any operator), ``optimizer`` (the autotune loop),
+#: ``telemetry`` (the ops plane's registry sidecars). The JAX
 #: package's rows for kwargs the port does not take yet come with them.
 LOWERING_TABLE = {
     # store identity and planning inputs
@@ -71,6 +72,11 @@ LOWERING_TABLE = {
     # the control loop
     "autotune": ("optimizer",),
     "autotune_config": ("optimizer",),
+    # the ops plane (registry sidecars, no data-path operator)
+    "timeline_interval_s": ("telemetry",),
+    "timeline_anomaly": ("telemetry",),
+    "telemetry_publish": ("telemetry",),
+    "tenant": ("telemetry",),
 }
 
 

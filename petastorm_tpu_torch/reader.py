@@ -103,7 +103,13 @@ from petastorm_tpu_torch.reader_impl.batch_reader_worker import (BatchReaderWork
 from petastorm_tpu_torch.reader_impl.epoch_plan import EpochPlan, OrderedDeliveryGate, mint_seed
 from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
 from petastorm_tpu_torch.reader_impl.row_reader_worker import RowReaderWorker
-from petastorm_tpu_torch.telemetry import PeriodicExporter, TELEMETRY_EXPORT_ENV, make_registry
+from petastorm_tpu_torch.telemetry import (SLO_WATCH_ENV, TELEMETRY_EXPORT_ENV, AnomalyMonitor,
+                                           BlackBox, MetricsTimeline, PeriodicExporter,
+                                           SloWatcher, TelemetryPublisher, TimelineSampler,
+                                           blackbox_dir_from_env, make_registry, parse_rules,
+                                           publish_addr_from_env, timeline_interval_from_env)
+from petastorm_tpu_torch.telemetry.accounting import ACCOUNTING_SCHEMA_VERSION, accounting_totals
+from petastorm_tpu_torch.telemetry.slo import default_rules
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.workers_pool import (EmptyResultError, ITEM_CONTEXT_KWARG,
                                               TimeoutWaitingForResultError, add_counters)
@@ -535,7 +541,11 @@ def make_reader(dataset_url: str,
                 readahead_depth: Optional[int] = None,
                 readahead_max_bytes: Optional[int] = None,
                 rowgroup_pruning: bool = True,
-                rowgroup_coalescing: int = 1) -> "Reader":
+                rowgroup_coalescing: int = 1,
+                timeline_interval_s: Optional[float] = None,
+                timeline_anomaly: bool = True,
+                telemetry_publish: Optional[str] = None,
+                tenant: Optional[str] = None) -> "Reader":
     """Reader over a store written by ``materialize_dataset_local`` (either
     package's).
 
@@ -677,6 +687,34 @@ def make_reader(dataset_url: str,
         work item, in one read: shuffling, sharding granularity and resume
         go by the coalesced item, and NGram windows may span the groups of
         one item
+    :param timeline_interval_s: the ops plane: sample this pipeline's
+        registry into a rolling
+        :class:`~petastorm_tpu_torch.telemetry.MetricsTimeline` every
+        ``timeline_interval_s`` seconds on a background thread (windowed
+        rows/s, bytes/s, stall fraction, pool utilization, rolling
+        quantiles), exported under ``snapshot()["timeline"]`` and
+        :meth:`Reader.timeline_report`. ``None`` defers to
+        ``PETASTORM_TPU_TIMELINE``; unset is off
+    :param timeline_anomaly: run the default anomaly-detector bank over
+        every timeline window (``anomaly.*`` events and counters,
+        :meth:`Reader.anomaly_report`), writing a postmortem bundle on a
+        detection's entry edge when ``PETASTORM_TPU_BLACKBOX`` names a
+        directory. ``False`` keeps the ring without the detectors
+    :param telemetry_publish: stream this registry's delta-encoded metric
+        windows and accounting totals to a
+        :class:`~petastorm_tpu_torch.telemetry.TelemetryAggregator` at this
+        ``tcp://host:port`` or ``ipc:///path``; ``None`` defers to
+        ``PETASTORM_TPU_TELEMETRY_PUBLISH``. A missing aggregator costs
+        dropped windows (``fabric.send_errors``), never a stall
+    :param tenant: the label that every published window and
+        :meth:`Reader.accounting_report` carry
+
+    ``PETASTORM_TPU_SLO_WATCH`` (``1`` for the default rules, or a
+    ``parse_rules`` spec) starts an SLO watcher on the registry
+    (:meth:`Reader.slo_report`), and ``PETASTORM_TPU_BLACKBOX=/dir`` arms
+    the postmortem black box: a fatal escaping the reader, a watchdog
+    abort, an SLO violation or an anomaly writes one bundle a reason
+    (``python -m petastorm_tpu_torch.telemetry postmortem BUNDLE``).
 
     On ``reader_pool_type="process"`` the predicate, the transform and the
     retry policy must pickle into a spawned worker: a ``ValueError`` says so
@@ -724,7 +762,9 @@ def make_reader(dataset_url: str,
                   hang_timeout_s=hang_timeout_s, autotune=autotune,
                   autotune_config=autotune_config,
                   memory_cache_size_bytes=memory_cache_size_bytes,
-                  readahead_depth=readahead_depth, readahead_max_bytes=readahead_max_bytes)
+                  readahead_depth=readahead_depth, readahead_max_bytes=readahead_max_bytes,
+                  timeline_interval_s=timeline_interval_s, timeline_anomaly=timeline_anomaly,
+                  telemetry_publish=telemetry_publish, tenant=tenant)
 
 
 def make_batch_reader(dataset_url: str,
@@ -765,7 +805,11 @@ def make_batch_reader(dataset_url: str,
                       readahead_depth: Optional[int] = None,
                       readahead_max_bytes: Optional[int] = None,
                       rowgroup_pruning: bool = True,
-                      rowgroup_coalescing: int = 1) -> "Reader":
+                      rowgroup_coalescing: int = 1,
+                      timeline_interval_s: Optional[float] = None,
+                      timeline_anomaly: bool = True,
+                      telemetry_publish: Optional[str] = None,
+                      tenant: Optional[str] = None) -> "Reader":
     """Columnar reader of any Parquet store (several files, with or without
     petastorm metadata; a store without it gets a schema inferred from its
     Arrow schema): one batch of ``{column: ndarray}`` per row group,
@@ -842,7 +886,9 @@ def make_batch_reader(dataset_url: str,
                   hedge_policy=hedge_policy, hang_timeout_s=hang_timeout_s, autotune=autotune,
                   autotune_config=autotune_config,
                   memory_cache_size_bytes=memory_cache_size_bytes,
-                  readahead_depth=readahead_depth, readahead_max_bytes=readahead_max_bytes)
+                  readahead_depth=readahead_depth, readahead_max_bytes=readahead_max_bytes,
+                  timeline_interval_s=timeline_interval_s, timeline_anomaly=timeline_anomaly,
+                  telemetry_publish=telemetry_publish, tenant=tenant)
 
 
 #: The entry points' kwargs that lowering reads (the JAX package's set,
@@ -1004,7 +1050,8 @@ class Reader:
                  hedge_policy=None, hang_timeout_s=None, autotune=False, autotune_config=None,
                  memory_cache_size_bytes=None, readahead_depth=None, readahead_max_bytes=None,
                  rowgroup_pruning=True, rowgroup_coalescing=1, plan=None, pool_factory=None,
-                 ctx=None, stored_schema=None):
+                 ctx=None, stored_schema=None, timeline_interval_s=None, timeline_anomaly=True,
+                 telemetry_publish=None, tenant=None):
         # The plan-time validation pass: the entry points ran it while
         # lowering; a direct Reader(...) gets the same rules and messages.
         from petastorm_tpu_torch.plan import validate_reader_config
@@ -1230,6 +1277,94 @@ class Reader:
             self._telemetry_exporter = PeriodicExporter(
                 self.telemetry, export_path,
                 fmt="prometheus" if export_path.endswith(".prom") else "json").start()
+        self._start_ops_plane(timeline_interval_s, timeline_anomaly, telemetry_publish, tenant)
+
+    def _start_ops_plane(self, timeline_interval_s, timeline_anomaly, telemetry_publish,
+                         tenant) -> None:
+        """The ops plane, built in the JAX reader's order: the black box
+        (``PETASTORM_TPU_BLACKBOX``) with every report surface as a
+        collector, the SLO watcher (``PETASTORM_TPU_SLO_WATCH``), the
+        rolling timeline and its sampler with the anomaly bank on every
+        window, and the fabric publisher. Each is None when off."""
+        self.blackbox = None
+        bb_dir = blackbox_dir_from_env()
+        if bb_dir:
+            self.blackbox = BlackBox(bb_dir, self.telemetry, label="reader",
+                                     config=self._config_summary())
+            for name, fn in (("cursor", self.state_dict), ("plan", self.plan_report),
+                             ("quarantine", self.quarantine_report),
+                             ("pruning", self.pruning_report),
+                             ("readahead", self.readahead_report),
+                             ("autotune", self.autotune_report), ("slo", self.slo_report),
+                             ("anomaly", self.anomaly_report),
+                             ("watchdog", self.watchdog_report)):
+                self.blackbox.add_collector(name, fn)
+            if self.watchdog is not None:
+                self.watchdog.on_abort = (
+                    lambda err: self.blackbox.write_bundle("watchdog_abort", exc=err))
+        #: The :class:`~petastorm_tpu_torch.telemetry.SloWatcher` when
+        #: ``PETASTORM_TPU_SLO_WATCH`` is set (``1``: the default rules),
+        #: violations recorded as ``slo.violation`` events.
+        self.slo_watcher = None
+        slo_spec = os.environ.get(SLO_WATCH_ENV, "").strip()
+        if slo_spec:
+            rules = default_rules() if slo_spec in ("1", "default") else parse_rules(slo_spec)
+            self.slo_watcher = SloWatcher(self.telemetry, rules,
+                                          on_violation=self._on_slo_violation).start()
+        self._timeline = None
+        self._timeline_sampler = None
+        #: The anomaly bank over the timeline's windows, or None.
+        self.anomaly_monitor = None
+        interval = (timeline_interval_s if timeline_interval_s is not None
+                    else timeline_interval_from_env())
+        if interval:
+            self._timeline = MetricsTimeline(interval_s=interval)
+            self.telemetry.timeline = self._timeline
+            if timeline_anomaly:
+                self.anomaly_monitor = AnomalyMonitor(self.telemetry,
+                                                      on_detection=self._on_anomaly)
+                self._timeline.add_listener(self.anomaly_monitor.observe_window)
+            self._timeline_sampler = TimelineSampler(self.telemetry, self._timeline,
+                                                     interval).start()
+        self._telemetry_publisher = None
+        self._tenant = tenant
+        publish_addr = (telemetry_publish if telemetry_publish is not None
+                        else publish_addr_from_env())
+        if publish_addr:
+            self._telemetry_publisher = TelemetryPublisher(self.telemetry, publish_addr,
+                                                           tenant=tenant).start()
+
+    def _config_summary(self) -> dict:
+        """JSON-safe construction summary for the black box's
+        ``config.json`` (the JAX reader's keys)."""
+        return {
+            "dataset_url": str(self._ctx.root_path),
+            "pool_type": ("process" if isinstance(self._pool, ProcessPool)
+                          else "dummy" if isinstance(self._pool, DummyPool) else "thread"),
+            "workers_count": getattr(self._pool, "workers_count", None),
+            "is_batched_reader": self._batched,
+            "row_materialization": self.row_materialization,
+            "sample_order": self.sample_order,
+            "shuffle_window": self._shuffle_window,
+            "seed": self._seed,
+            "num_items": getattr(self, "_num_items", None),
+            "plan_source": self._plan.source if self._plan is not None else None,
+        }
+
+    def _record_fatal(self, exc: BaseException) -> None:
+        """Black-box trigger for any fatal escaping the consumer API; the
+        exception class names the bundle, so distinct failure modes latch
+        distinct bundles."""
+        if self.blackbox is not None:
+            self.blackbox.write_bundle(type(exc).__name__, exc=exc)
+
+    def _on_slo_violation(self, violation: dict) -> None:
+        if self.blackbox is not None:
+            self.blackbox.write_bundle(f"slo_{violation.get('rule', '?')}")
+
+    def _on_anomaly(self, detection: dict) -> None:
+        if self.blackbox is not None:
+            self.blackbox.write_bundle(f"anomaly_{detection.get('rule', '?')}")
 
     def _prune_row_groups_with_statistics(self, row_groups, predicate):
         """The groups the predicate's ``intervals()`` do not prove empty
@@ -1652,11 +1787,21 @@ class Reader:
         or the rest of one that ``next()`` served in part, so that mixing
         the two never repeats a row. An eager row reader raises
         ``TypeError``: it has no batch to hand out. Each batch's rows go to
-        the ``batch.rows_per_op`` histogram."""
+        the ``batch.rows_per_op`` histogram. A fatal escaping it writes the
+        black box's bundle before it unwinds."""
+        if not self._batched and getattr(self, "row_materialization", "eager") != "lazy":
+            raise TypeError("next_batch() needs make_reader(row_materialization='lazy') or "
+                            "a make_batch_reader reader; this reader's workers publish rows")
+        try:
+            return self._next_batch()
+        except StopIteration:
+            raise
+        except Exception as e:
+            self._record_fatal(e)
+            raise
+
+    def _next_batch(self):
         if not self._batched:
-            if getattr(self, "row_materialization", "eager") != "lazy":
-                raise TypeError("next_batch() needs make_reader(row_materialization='lazy') or "
-                                "a make_batch_reader reader; this reader's workers publish rows")
             self._safe_point()
             while self._batch is None:
                 if not self._pull():
@@ -1693,6 +1838,19 @@ class Reader:
         return self
 
     def __next__(self):
+        try:
+            return self._next_row()
+        except StopIteration:
+            raise
+        except Exception as e:
+            # A fatal escaping the pipeline (a hang, a pool abort, the crash
+            # budget, a worker's exception): the black box writes its bundle
+            # before the consumer unwinds, while the registry still
+            # describes the death.
+            self._record_fatal(e)
+            raise
+
+    def _next_row(self):
         self._safe_point()
         if self._batched:
             return self.schema.make_namedtuple_from_dict(self._next_columns())
@@ -1869,6 +2027,30 @@ class Reader:
         seeds. Empty for a direct ``Reader(...)``."""
         return {} if self._plan is None else self._plan.describe()
 
+    def slo_report(self) -> dict:
+        """The SLO watcher's rules, violation totals and active violations;
+        empty when ``PETASTORM_TPU_SLO_WATCH`` is unset."""
+        return {} if self.slo_watcher is None else self.slo_watcher.report()
+
+    def timeline_report(self) -> dict:
+        """The rolling timeline ring (``MetricsTimeline.as_dict()``); empty
+        when ``timeline_interval_s``/``PETASTORM_TPU_TIMELINE`` is off."""
+        return {} if self._timeline is None else self._timeline.as_dict()
+
+    def anomaly_report(self) -> dict:
+        """The anomaly bank's rules, detections so far and what is active;
+        empty when the timeline or ``timeline_anomaly`` is off."""
+        return {} if self.anomaly_monitor is None else self.anomaly_monitor.report()
+
+    def accounting_report(self) -> dict:
+        """This pipeline's resource-accounting totals, stamped with its
+        pipeline id and ``tenant=``: the record a running publisher streams
+        to the aggregator's ledger."""
+        return {"schema_version": ACCOUNTING_SCHEMA_VERSION,
+                "pipeline_id": self.telemetry.pipeline_id,
+                "tenant": self._tenant,
+                "totals": accounting_totals(self.telemetry.metrics_view())}
+
     def _on_placement_resolved(self, outcome: dict) -> None:
         """The controller's callback when the placement trial resolves:
         the verdict goes on the plan and, when measured, into the plan
@@ -1915,8 +2097,18 @@ class Reader:
                                      profile=None)
             except Exception:  # noqa: BLE001 - persistence never stops the reader
                 logger.exception("plan-cache refresh at close failed")
+        if self.slo_watcher is not None:
+            self.slo_watcher.stop()
+        if self._timeline_sampler is not None:
+            # Before the exporter's and the publisher's final flushes: the
+            # sampler's stop takes the terminal window.
+            self._timeline_sampler.stop()
         if self.autotune is not None:
             self.autotune.stop()
+        if self._telemetry_publisher is not None:
+            # The final (``bye``) window ships the terminal state.
+            self._telemetry_publisher.stop()
+            self._telemetry_publisher = None
         if self._telemetry_exporter is not None:
             self._telemetry_exporter.stop()
             self._telemetry_exporter = None

@@ -21,6 +21,15 @@ Exports: Prometheus text format and JSON snapshots
 (:mod:`petastorm_tpu_torch.telemetry.trace`). Names, buckets and formats
 are the JAX package's, so either package's exports read alike.
 
+The ops plane rides the same registry: a rolling timeline
+(:mod:`~petastorm_tpu_torch.telemetry.timeseries`), the anomaly bank
+(:mod:`~petastorm_tpu_torch.telemetry.anomaly`), SLO watch
+(:mod:`~petastorm_tpu_torch.telemetry.slo`), the postmortem black box
+(:mod:`~petastorm_tpu_torch.telemetry.postmortem`), per-tenant accounting
+(:mod:`~petastorm_tpu_torch.telemetry.accounting`), federation and the live
+telemetry fabric (:mod:`~petastorm_tpu_torch.telemetry.fabric`), and the
+``python -m petastorm_tpu_torch.telemetry`` CLI over their files.
+
 Stage metric names (the keys behind a loader's ``stage_breakdown()``):
 
 ==============================  =================================================
@@ -70,6 +79,12 @@ TELEMETRY_SPANS_ENV = "PETASTORM_TPU_TELEMETRY_SPANS"
 #: Implies TELEMETRY_SPANS_ENV.
 TELEMETRY_TRACE_ENV = "PETASTORM_TPU_TELEMETRY_TRACE"
 
+#: Environment variable: start an :class:`~petastorm_tpu_torch.telemetry.slo.
+#: SloWatcher` on every Reader's pipeline registry. ``1`` = the default
+#: rule set; any other value is a ``parse_rules`` spec, e.g.
+#: ``input_stall_pct<=1,batch_p99_s<=0.5``.
+SLO_WATCH_ENV = "PETASTORM_TPU_SLO_WATCH"
+
 
 def make_registry() -> TelemetryRegistry:
     """A registry honoring :data:`TELEMETRY_SPANS_ENV` and
@@ -81,11 +96,40 @@ def make_registry() -> TelemetryRegistry:
     return registry
 
 
+from petastorm_tpu_torch.telemetry.slo import (DEFAULT_RULES, SloRule,  # noqa: E402
+                                               SloWatcher, evaluate_rules, parse_rules)
+from petastorm_tpu_torch.telemetry.timeseries import (DEFAULT_SERIES,  # noqa: E402
+                                                      TIMELINE_ENV, MetricsTimeline,
+                                                      SeriesSpec, TimelineSampler,
+                                                      timeline_interval_from_env)
+from petastorm_tpu_torch.telemetry.federation import (federate_snapshots,  # noqa: E402
+                                                      federate_timelines)
+from petastorm_tpu_torch.telemetry.anomaly import (AnomalyMonitor, AnomalyRule,  # noqa: E402
+                                                   default_anomaly_rules,
+                                                   detect_over_timeline)
+from petastorm_tpu_torch.telemetry.postmortem import (BLACKBOX_ENV, BlackBox,  # noqa: E402
+                                                      blackbox_dir_from_env)
+from petastorm_tpu_torch.telemetry.fabric import (FABRIC_SCHEMA_VERSION,  # noqa: E402
+                                                  TELEMETRY_PUBLISH_ENV, TelemetryAggregator,
+                                                  TelemetryPublisher, fabric_available,
+                                                  publish_addr_from_env)
+from petastorm_tpu_torch.telemetry.accounting import (  # noqa: E402
+    ACCOUNTING_FIELDS, ACCOUNTING_SCHEMA_VERSION, AccountingLedger, accounting_totals,
+    merge_accounting_reports)
+
 __all__ = [
-    "Counter", "CriticalPathAttributor", "Gauge", "LATENCY_BOUNDS_S", "PeriodicExporter",
-    "SIZE_BOUNDS", "SNAPSHOT_SCHEMA_VERSION", "Span", "SpanRecorder", "StallAttributor",
-    "StreamingHistogram", "TELEMETRY_EXPORT_ENV", "TELEMETRY_SPANS_ENV", "TELEMETRY_TRACE_ENV",
-    "TelemetryRegistry", "TraceContext", "complete_lineages", "from_json", "lineage_index",
-    "make_registry", "parse_prometheus_text", "to_chrome_trace", "to_json",
+    "ACCOUNTING_FIELDS", "ACCOUNTING_SCHEMA_VERSION", "AccountingLedger", "AnomalyMonitor",
+    "AnomalyRule", "BLACKBOX_ENV", "BlackBox", "Counter", "CriticalPathAttributor",
+    "DEFAULT_RULES", "DEFAULT_SERIES", "FABRIC_SCHEMA_VERSION", "Gauge", "LATENCY_BOUNDS_S",
+    "MetricsTimeline", "PeriodicExporter", "SIZE_BOUNDS", "SLO_WATCH_ENV",
+    "SNAPSHOT_SCHEMA_VERSION", "SeriesSpec", "SloRule", "SloWatcher", "Span", "SpanRecorder",
+    "StallAttributor", "StreamingHistogram", "TELEMETRY_EXPORT_ENV", "TELEMETRY_PUBLISH_ENV",
+    "TELEMETRY_SPANS_ENV", "TELEMETRY_TRACE_ENV", "TIMELINE_ENV", "TelemetryAggregator",
+    "TelemetryPublisher", "TelemetryRegistry", "TimelineSampler", "TraceContext",
+    "accounting_totals", "blackbox_dir_from_env", "complete_lineages", "default_anomaly_rules",
+    "detect_over_timeline", "evaluate_rules", "fabric_available", "federate_snapshots",
+    "federate_timelines", "from_json", "lineage_index", "make_registry",
+    "merge_accounting_reports", "parse_prometheus_text", "parse_rules",
+    "publish_addr_from_env", "timeline_interval_from_env", "to_chrome_trace", "to_json",
     "to_prometheus_text", "write_chrome_trace", "write_snapshot",
 ]

@@ -6,8 +6,10 @@ consuming that reader adopts the same instance, so a single ``snapshot()``
 shows decode, queueing, shuffling, and staging side by side. The snapshot
 schema is the JAX package's (``SNAPSHOT_SCHEMA_VERSION`` 1), with its
 ``events`` (structured records such as the watchdog's stack dumps and the
-straggler monitor's records) and without its ``timeline``, ``explain`` and
-``quality`` attachments, which this package does not produce.
+straggler monitor's records) and its ``timeline`` attachment (the rolling
+ring of :mod:`petastorm_tpu_torch.telemetry.timeseries`), and without its
+``explain`` and ``quality`` attachments, which this package does not
+produce yet.
 
 Metric names are dotted (``reader.pool_wait_s``); exporters sanitize them
 for their format (Prometheus rewrites ``.`` to ``_``).
@@ -130,6 +132,13 @@ class TelemetryRegistry:
         #: every snapshot together with the wall-clock creation time.
         self.pipeline_id = f"p{os.getpid()}-{uuid.uuid4().hex[:8]}"
         self.created_at = time.time()  # wall-clock-ok: one-shot provenance stamp at construction, not a hot-path read
+        #: Optional attached :class:`~petastorm_tpu_torch.telemetry.timeseries.
+        #: MetricsTimeline` — when set (the reader/mesh loader's sampler
+        #: owns it), :meth:`snapshot` embeds its ring under
+        #: ``"timeline"`` so exported files feed ``telemetry top`` /
+        #: ``timeline`` and the anomaly CI gate. ``metrics_view()`` does
+        #: NOT include it (the sampler itself reads that view).
+        self.timeline = None
 
     def _observe_stage(self, stage: str, duration_s: float) -> None:
         c = self._stage_counters.get(stage)
@@ -193,6 +202,22 @@ class TelemetryRegistry:
         with self._lock:
             return self._histograms.get(name)
 
+    def peek_histogram_sum(self, name: str) -> float:
+        """A histogram's cumulative sum without creating it (0.0 when
+        absent); see :meth:`peek_counter`."""
+        with self._lock:
+            h = self._histograms.get(name)
+        return 0.0 if h is None else h.sum
+
+    def peek_gauge(self, name: str) -> Optional[float]:
+        """A gauge's current value without creating it (``None`` when
+        absent, and — like :attr:`Gauge.value` — ``None`` when a
+        callable-backed gauge's subject was torn down). The lazy callable
+        runs outside the registry lock."""
+        with self._lock:
+            g = self._gauges.get(name)
+        return None if g is None else g.value
+
     def record_event(self, name: str, payload: dict) -> None:
         """Append one JSON-safe structured event under ``name`` (cold-path
         provenance that fits neither a counter nor a histogram: watchdog
@@ -213,6 +238,25 @@ class TelemetryRegistry:
             if name is not None:
                 return list(self._events.get(name, ()))
             return {k: list(v) for k, v in sorted(self._events.items())}
+
+    # ------------------------------------------------------------ readout
+    def metrics_view(self) -> dict:
+        """Counters/gauges/histograms only — no span aggregation, no raw
+        trace events, no event rings. The cheap periodic read for pollers
+        (the SLO watcher, the timeline sampler, the fabric publisher) that
+        must not pay trace mode's span-ring serialization per tick."""
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            histograms = dict(self._histograms)
+        return {
+            "schema_version": SNAPSHOT_SCHEMA_VERSION,
+            "counters": {k: round(c.value, 6)
+                         for k, c in sorted(counters.items())},
+            "gauges": {k: g.value for k, g in sorted(gauges.items())},
+            "histograms": {k: h.as_dict()
+                           for k, h in sorted(histograms.items())},
+        }
 
     def snapshot(self, include_trace: bool = True) -> dict:
         """JSON-safe point-in-time view of every registered metric. The
@@ -238,6 +282,9 @@ class TelemetryRegistry:
         events = self.events()
         if events:
             snap["events"] = events
+        timeline = self.timeline
+        if timeline is not None:
+            snap["timeline"] = timeline.as_dict()
         if include_trace and self.recorder.trace_enabled:
             # Trace mode: raw lineage spans ride the snapshot so exported
             # files carry what `to_chrome_trace` renders.

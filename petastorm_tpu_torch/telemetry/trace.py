@@ -38,8 +38,8 @@ longest blocking edge (``fetch`` vs ``decode`` vs ``transport`` vs
 ``shuffle`` vs ``stage`` vs ``assemble``). Winners land on
 ``trace.critical_path.{stage}`` counters, per-batch self-times on
 ``trace.self.{stage}_s`` histograms. The stages and their counters are the
-JAX package's; ``fetch`` (its readahead) and ``assemble`` (its mesh
-loader's) are never fed here and stay at zero.
+JAX package's: ``fetch`` is the readahead stage's, ``assemble`` and the
+host plane's share of ``decode`` the mesh loader's.
 """
 from __future__ import annotations
 
@@ -190,8 +190,8 @@ CRITICAL_STAGES: Tuple[str, ...] = ("fetch", "decode", "transport",
 _STAGE_COUNTERS = {
     "fetch": "io.readahead.fetch_s",
     # decode: histogram worker.decode_s (sum), or the process workers'
-    # decode spans (trace.span.decode_s), + mesh.host_decode_s (the JAX
-    # package's mesh loader; absent here).
+    # decode spans (trace.span.decode_s), + mesh.host_decode_s (the mesh
+    # loader's host readers).
     "decode": None,
     "transport": "transport.deserialize_s",
     "shuffle": "loader.shuffle_s",

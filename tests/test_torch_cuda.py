@@ -1447,3 +1447,38 @@ def test_a_mid_epoch_migration_to_processes_feeds_k1_bit_equal(cuda_device, tmp_
     # Results crossed the process pool's rings.
     assert counters.get("transport.deserialize_s", 0) > 0
     assert kernels.launch_counts[KERNEL_NAME] == batches
+
+
+def test_ops_plane_on_card_publishes_what_k1_consumed(cuda_device, tmp_path):
+    """A reader with a 0.05 s timeline, a tenant and a publisher to an
+    aggregator of this process feeds K1 on the card: K1 bit-equal on every
+    batch, the windows' Σ rows_per_s × dt_s equal to the rows within their
+    rounding, and after the ``bye`` the aggregator's ledger for the tenant
+    equal to the reader's accounting totals, with no send error."""
+    from petastorm_tpu_torch.telemetry import ACCOUNTING_FIELDS, TelemetryAggregator
+    url = _image_store(tmp_path, rows=192)
+    agg = TelemetryAggregator("tcp://127.0.0.1:0", interval_s=1.0).start()
+    try:
+        with make_reader(url, workers_count=3, seed=2, timeline_interval_s=0.05, tenant="card",
+                         telemetry_publish=agg.addr) as reader:
+            for batch in DataLoader(reader, batch_size=16, device=cuda_device):
+                assert torch.equal(normalize_images(batch["image"]).view(torch.int16),
+                                   normalize_images_plain(batch["image"]).view(torch.int16))
+        windows = reader.timeline_report()["windows"]
+        integral = sum((w["series"].get("rows_per_s") or 0.0) * w["dt_s"] for w in windows)
+        bar = sum(5e-7 * ((w["series"].get("rows_per_s") or 0.0) + w["dt_s"]) + 2.5e-13
+                  for w in windows)
+        assert abs(integral - 192) <= bar
+        totals = reader.accounting_report()["totals"]
+        member = reader.telemetry.pipeline_id
+        for _ in range(1000):
+            if agg.members_report().get(member, {}).get("left"):
+                break
+            agg.poll_once(timeout_s=0.01)
+        ledger = agg.ledger.report()["tenants"]["card"]
+        assert totals["rows"] == 192
+        for field in ACCOUNTING_FIELDS:
+            assert ledger[field] == pytest.approx(totals[field], rel=1e-6, abs=1e-6)
+        assert reader.telemetry.metrics_view()["counters"].get("fabric.send_errors", 0) == 0
+    finally:
+        agg.stop()

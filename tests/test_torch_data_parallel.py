@@ -174,8 +174,7 @@ def test_bench_on_ranks_gives_the_jax_keys_and_the_global_batch(ranks, stores):
         assert got["devices"] == P and got["mesh_ingest"] is True and got["mesh_hosts"] == P
         assert got["tokens_per_step"] == want["tokens_per_step"] == 8 * 16
         assert got["mesh_report"]["multiprocess"] is True
-        assert set(got["mesh_report"]) == set(want["mesh_report"]) - {"critical_path",
-                                                                       "timeline", "quality"}
+        assert set(got["mesh_report"]) == set(want["mesh_report"]) - {"quality"}
     # Both ranks take the same update and report the global batch's loss.
     assert r0["loss_first"] == r1["loss_first"] and r0["loss_last"] == r1["loss_last"]
     assert np.isfinite(r0["loss_first"]) and np.isfinite(r0["loss_last"])

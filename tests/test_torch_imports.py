@@ -20,6 +20,16 @@ RANK_MODULES = sorted((REPO / "tests").glob("torch_*_ranks.py"))
 #: The port's examples (run as scripts; importing one does no work).
 EXAMPLES = sorted((REPO / "examples").glob("torch_*/main.py"))
 
+#: The ops plane: timeline, anomaly bank, SLO watch, black box, accounting,
+#: federation, the fabric (the standard library's sockets, no zmq) and the CLI.
+OPS_PLANE_MODULES = ("petastorm_tpu_torch.telemetry.timeseries",
+                     "petastorm_tpu_torch.telemetry.anomaly", "petastorm_tpu_torch.telemetry.slo",
+                     "petastorm_tpu_torch.telemetry.postmortem",
+                     "petastorm_tpu_torch.telemetry.accounting",
+                     "petastorm_tpu_torch.telemetry.federation",
+                     "petastorm_tpu_torch.telemetry.fabric",
+                     "petastorm_tpu_torch.telemetry.__main__")
+
 _BLOCKER = r'''
 import importlib.abc, os, sys
 
@@ -123,7 +133,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.plan.plan", "petastorm_tpu_torch.plan.validate",
             "petastorm_tpu_torch.plan.lowering", "petastorm_tpu_torch.plan.fusion",
             "petastorm_tpu_torch.plan.cache", "petastorm_tpu_torch.plan.optimizer",
-            "petastorm_tpu_torch.explain", "petastorm_tpu_torch.explain.spec"} <= set(modules)
+            "petastorm_tpu_torch.explain", "petastorm_tpu_torch.explain.spec",
+            *OPS_PLANE_MODULES} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -208,12 +219,13 @@ WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
                   "petastorm_tpu_torch.reader_impl.readahead")
 
 #: The telemetry core: workers record spans and ship them to the parent, so
-#: it imports without torch (and without the JAX package's telemetry).
+#: it imports without torch (and without the JAX package's telemetry), and so
+#: does the ops plane and its CLI.
 TELEMETRY_MODULES = ("petastorm_tpu_torch.telemetry", "petastorm_tpu_torch.telemetry.histogram",
                      "petastorm_tpu_torch.telemetry.registry",
                      "petastorm_tpu_torch.telemetry.recorder",
                      "petastorm_tpu_torch.telemetry.stall", "petastorm_tpu_torch.telemetry.trace",
-                     "petastorm_tpu_torch.telemetry.exporters")
+                     "petastorm_tpu_torch.telemetry.exporters", *OPS_PLANE_MODULES)
 
 
 def test_worker_modules_import_without_torch():
