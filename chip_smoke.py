@@ -100,8 +100,9 @@ result line):
    reading the same windows of 8192 tokens from a ``write_token_store``
    store through the NGram reader and a ``DataLoader`` and training
    ``LlamaConfig()`` at full width (2 of its 32 layers, bf16, AdamW) on its
-   4096-token block, 2 steps with ring attention (``local_attn="flash"``:
-   K2 "stats", K3, K4), then 2 with Ulysses (K2 "lse", K3, K4); launch
+   4096-token block, ``SEQ_STEPS`` steps with ring attention
+   (``local_attn="flash"``: K2 "stats", K3, K4), then as many with Ulysses
+   (K2 "lse", K3, K4); launch
    counts are reset just before and read just after, on every rank. The
    first step's loss and summed gradients are held against one process
    training on the whole window with ``make_flash_attention``, and the two
@@ -247,7 +248,7 @@ result line):
    host 2's plan, finite losses, K2-K4 once a layer a step. (c) 2 ranks on
    ``cuda:0`` (gloo), each ``run_llm_bench(mesh_ingest=True)`` at phase
    10's width (2 layers), one window of 8192 a rank, 3 steps (launches
-   counted); then a data-parallel loop of 2 steps: each rank's windows its
+   counted); then a data-parallel loop of ``DP_STEPS`` steps: each rank's windows its
    plan's groups in order, the ranks' losses and parameters bit-equal, the
    first step held against one process on both windows (loss within
    ``DP_LOSS_REL_BAR``, each parameter's update within
@@ -479,12 +480,13 @@ result line):
    whose snapshot holds ``pool.w*.items`` and whose rendering names the
    ``dominant edge:``. (d) The loader alone over the store, the ops plane
    off against on (timeline, anomaly bank, publisher), 2 turns each in
-   turns, samples/s logged. Then the anomaly gate, ``telemetry check
+   turns, samples/s logged, no ``throughput_collapse`` up to the window
+   that delivered the last row. Then the anomaly gate, ``telemetry check
    --anomaly --slo counter:anomaly.detections_total<=0``, exits 2 on (b)'s
-   snapshot, 0 on the last plane-on reader of (d) (the loader drains the
-   reader with no training behind it), and on (a)'s flush 2 exactly when
-   (a)'s monitor flagged the epoch's end (the fleet folds the member's
-   anomaly counters), 0 otherwise.
+   snapshot; on (a)'s flush and on the last plane-on reader of (d) it
+   exits 2 exactly when a live monitor (the reader's, or for (a) the
+   aggregator's; the fleet folds the member's anomaly counters) flagged
+   the epoch's end, 0 otherwise.
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -676,9 +678,9 @@ IMAGENET_KEYS = {"samples_per_sec", "samples_per_sec_per_chip", "input_stall_pct
 ENTRY_F32_BAR = 0.01
 
 # Sequence parallelism (phase 10): LlamaConfig() at full width, 2 of its 32
-# layers, the token path's window over 2 ranks on one card; 2 steps a
-# strategy (cut from 3 for the whole run's time).
-SEQ_RANKS, SEQ_STEPS = 2, 2
+# layers, the token path's window over 2 ranks on one card; 1 step a
+# strategy (cut from 3, then 2, for the whole run's time).
+SEQ_RANKS, SEQ_STEPS = 2, 1
 SEQ_LLAMA = llama.LlamaConfig(n_layers=2)
 SEQ_BLOCK = WINDOW // SEQ_RANKS
 SEQ_WATCH = ("layers.0.wq", "layers.0.wk", "layers.0.wo", "embed")
@@ -762,7 +764,8 @@ DEVICE_STEP_MS = 50
 # data-parallel ranks on cuda:0 at phase 10's width; phase 4's image store.
 MESH_HOSTS, MESH_TOKEN_KILL = 4, 2
 MESH_SCALAR_BATCH, MESH_SCALAR_HOSTS, MESH_SCALAR_KILL = 1000, 8, 5
-DP_RANKS, DP_STEPS, DP_BENCH_STEPS = 2, 2, 2
+# The data-parallel loop: one step (cut from 2 for the whole run's time).
+DP_RANKS, DP_STEPS, DP_BENCH_STEPS = 2, 1, 2
 DP_LLAMA = llama.LlamaConfig(n_layers=2)
 #: The data-parallel step (each rank its own window, gradients summed over
 #: gloo) against one process stepping on both windows, bf16 compute: the loss
@@ -849,11 +852,12 @@ TP_KERNELS = (flash_attn.KERNEL_NAME, flash_attn.STATS_KERNEL_NAME,
 # stage, 4 microbatches of one window a data rank (the first 8 windows).
 # The float32 checks run on the first 4 windows: the pipeline's with 2
 # microbatches a data rank (a float32 step at this width takes 4-6 s a rank
-# on the card's float32 units, shared by the 4 ranks).
+# on the card's float32 units, shared by the 4 ranks). One bf16 step a run
+# (cut from 2 for the whole run's time).
 FSDP_LLAMA = llama.LlamaConfig(n_layers=2)
 FSDP_MESHES = ((4, 1, 1), (2, 1, 2))
 FSDP_WINDOWS, PIPE_WINDOWS, PIPE_MESH, PIPE_MICROBATCHES = 4, 8, (2, 2), 4
-FSDP_STEPS, PHASE19_XENT_CHUNK = 2, 4096
+FSDP_STEPS, PHASE19_XENT_CHUNK = 1, 4096
 #: The float32 first step against one process on the same windows and
 #: weights (its gradient accumulated window by window, then one AdamW
 #: step): each leaf's update within FSDP_UPDATE_REL_BAR, |p_ranks - p_one| /
@@ -6705,6 +6709,24 @@ def _integrated_rows(windows: list) -> tuple:
     return total, bar
 
 
+def _collapse_while_reading(windows: list, detections: list, rows: float) -> tuple:
+    """The index of the timeline window in which the reader delivered its
+    last row, and the ``throughput_collapse`` detections at or before it:
+    a collapse while the epoch still had rows to deliver. A collapse after
+    that window is the epoch's end: the loader's prefetched batches keep
+    the consumer busy while the reader delivers no more, and the JAX
+    reader reads its epoch's end so too (tests/torch_epoch_end_probe.py)."""
+    _, bar = _integrated_rows(windows)
+    cum, last_row_window = 0.0, None
+    for w in windows:
+        cum += (w["series"].get("rows_per_s") or 0.0) * w["dt_s"]
+        if last_row_window is None and cum >= rows - bar:
+            last_row_window = w["index"]
+    early = [d for d in detections if d["rule"] == "throughput_collapse"
+             and (last_row_window is None or d["window"] <= last_row_window)]
+    return last_row_window, early
+
+
 def phase_ops_plane(smi: str, slice_url: str, tmp: str) -> dict:
     """Phase 25: the ops plane on phase 4's store (see the module docstring)."""
     from petastorm_tpu_torch import resilience as res
@@ -6748,17 +6770,8 @@ def phase_ops_plane(smi: str, slice_url: str, tmp: str) -> dict:
     control, control_bar = _integrated_rows(windows[:dropped] + windows[dropped + 1:])
     control_err = abs(control - rows)
     names = set().union(*(w["series"] for w in windows)) if windows else set()
-    # The window where the last row was delivered; a collapse detected
-    # after it is the epoch's end, where the loader's prefetched batches
-    # keep the training busy while the reader delivers no more.
-    cum, last_row_window = 0.0, None
-    for w in windows:
-        cum += (w["series"].get("rows_per_s") or 0.0) * w["dt_s"]
-        if last_row_window is None and cum >= rows - bar:
-            last_row_window = w["index"]
     detections_a = reader.anomaly_report()["detections"]
-    early = [d for d in detections_a if d["rule"] == "throughput_collapse"
-             and last_row_window is not None and d["window"] <= last_row_window]
+    last_row_window, early = _collapse_while_reading(windows, detections_a, rows)
     acct = reader.accounting_report()
     deadline = time.perf_counter() + 10.0
     while time.perf_counter() < deadline and not agg.members_report().get(
@@ -6770,6 +6783,7 @@ def phase_ops_plane(smi: str, slice_url: str, tmp: str) -> dict:
     send_errors = reader.telemetry.metrics_view()["counters"].get("fabric.send_errors", 0)
     agg.stop()
     agg.tick()   # the final beat: the fleet window that holds the bye
+    fleet_detections_a = agg.anomaly.report()["detections"]
     flush_a = os.path.join(tmp, "fleet_a.json")
     agg.flush(flush_a)
     rc_tl, out_tl = _telemetry_cli(["timeline", flush_a])
@@ -6944,28 +6958,40 @@ def phase_ops_plane(smi: str, slice_url: str, tmp: str) -> dict:
                 rates[arm].append(run["samples_per_s"])
                 if sorted(run["ids"]) != all_ids:
                     failures.append(f"(d) {arm} turn {turn}: not every id once")
+                if arm == "on":
+                    detections_d = reader.anomaly_report()["detections"]
+                    _, early_d = _collapse_while_reading(
+                        reader.timeline_report()["windows"], detections_d, ROWS)
+                    if early_d:
+                        failures.append(f"(d) turn {turn}: throughput_collapse while the "
+                                        f"epoch ran: {early_d}")
         flush_d = os.path.join(tmp, "reader_d.json")
         write_snapshot(flush_d, reader.telemetry.snapshot())
     agg.stop()
     # The anomaly gate over the three runs' files: the offline replay
     # (--anomaly) and the live monitor's counter (the rule the anomaly
     # module documents), without the default stall rules, which the loader
-    # alone breaks by design. (b)'s forced collapse fails it; (a)'s flush
-    # fails it exactly when its monitor flagged the epoch's end (the fleet
-    # folds the member's anomaly counters; the JAX reader flags the end
-    # alike, tests/torch_epoch_end_probe.py); the loader alone, which drains
-    # the reader with no training behind it, passes.
+    # alone breaks by design. (b)'s forced collapse fails it. (a)'s flush
+    # and (d)'s snapshot fail it exactly when a live monitor flagged the
+    # epoch's end, whose timing no run controls (the fleet folds the
+    # member's anomaly counters; a collapse while the epoch ran failed the
+    # phase above).
     gate = ["--anomaly", "--slo", "counter:anomaly.detections_total<=0"]
     rc_check_b, out_check_b = _telemetry_cli(["check", flush_b, *gate])
     rc_check_a, out_check_a = _telemetry_cli(["check", flush_a, *gate])
     rc_check_d, out_check_d = _telemetry_cli(["check", flush_d, *gate])
+    want_a = 2 if detections_a or fleet_detections_a else 0
+    want_d = 2 if detections_d else 0
     log(f"[ops] `telemetry check {' '.join(gate)}`: (b)'s snapshot rc {rc_check_b}, (a)'s flush rc "
-        f"{rc_check_a} (epoch-end detections {[(d['rule'], d['window']) for d in detections_a]}), "
-        f"(d)'s last plane-on reader rc {rc_check_d}")
-    if rc_check_b != 2 or rc_check_a != (2 if detections_a else 0) or rc_check_d != 0:
+        f"{rc_check_a} (epoch-end detections: reader "
+        f"{[(d['rule'], d['window']) for d in detections_a]}, fleet "
+        f"{[(d['rule'], d['window']) for d in fleet_detections_a]}), (d)'s last plane-on "
+        f"reader rc {rc_check_d} (epoch-end detections "
+        f"{[(d['rule'], d['window']) for d in detections_d]})")
+    if rc_check_b != 2 or rc_check_a != want_a or rc_check_d != want_d:
         failures.append(f"check --anomaly: (b) rc {rc_check_b} ({out_check_b[-300:]}), "
-                        f"(a) rc {rc_check_a} ({out_check_a[-300:]}), (d) rc {rc_check_d} "
-                        f"({out_check_d[-300:]})")
+                        f"(a) rc {rc_check_a} for {want_a} ({out_check_a[-300:]}), (d) rc "
+                        f"{rc_check_d} for {want_d} ({out_check_d[-300:]})")
     log(f"[ops] (d) ({smi}) the loader alone ({WORKERS} threads -> DataLoader({BATCH}) -> "
         f"K1), {PH25_COST_TURNS} turns each in turns, samples/s: ops plane off "
         f"{[round(r, 1) for r in rates['off']]}, on (timeline {PH25_INTERVAL_S} s, anomaly "
