@@ -139,15 +139,15 @@ result line):
    for byte the batches of the same loader on the CPU. Then the tensor
    bench's schema (``id``, 8 float32 and 2 float32 ``FixedSizeList(64)``
    columns, 552 bytes a row) written as the Spark converter writes it: 4
-   files of 262,144 rows, groups of 65,536 rows (36.2 MB), 579 MB in all;
+   files of 131,072 rows, groups of 65,536 rows (36.2 MB), 289 MB in all;
    ``make_batch_reader`` on 8 threads and on 8 processes, alone and under
    ``BatchedDataLoader(batch_size=1024, device="cuda")``, plain and with
    ``shuffling_queue_capacity=8192, seed=0``, one epoch each, and an
-   ``InMemBatchedDataLoader`` load on 4 processes (whose rings hold less
+   ``InMemBatchedDataLoader`` load on 2 processes (whose rings hold less
    than the store) served one seeded epoch onto the card. Every staged
    batch is held on the card against a ``pyarrow.parquet`` read of the
    store gathered by ``id``, bit for bit, and each epoch's ids, sorted,
-   must be ``arange(1,048,576)``. On processes every row group must cross
+   must be ``arange(524,288)``. On processes every row group must cross
    the ring zero-copy (the claim counters), and no ring record may stay
    pinned once the loader's batches are gone (none is kept past ``join()``);
 13. resume, the device cache and the augmentations, on phase 9's store and
@@ -205,9 +205,9 @@ result line):
    9's store read with ``sample_order="deterministic"``,
    ``shuffle_row_groups=True``, ``shuffle_window=4`` and seed 5 ->
    ``DataLoader(batch_size=256, device="cuda")`` -> K1 (bf16) -> ResNet-50's
-   SGD step (cuDNN deterministic), 4 steps on 8 processes and 4 on 8
+   SGD step (cuDNN deterministic), 2 steps on 8 processes and 2 on 8
    threads: the rows (named by fingerprint) and labels equal, the losses
-   bit-equal; then a run on processes cut at step 2 through
+   bit-equal; then a run on processes cut at step 1 through
    ``CheckpointManager`` and resumed on threads from the restored cursor
    and state: the uninterrupted run's rows and losses, bit for bit. K1's
    output of every batch is bit-equal to ``normalize_images_plain`` of the
@@ -227,11 +227,11 @@ result line):
    (d) ``python -m petastorm_tpu_torch.benchmark.cli --json`` on the
    reference's 10-row hello-world store at the reference's defaults (printed
    beside BASELINE.md's 709.84 samples/s, unspecified hardware), then on a
-   steady-state store of 1,200 rows at 100 a group (its write projected from
-   a 200-row probe and logged) with ``-d python`` on threads and on
-   processes and with ``-d torch --device-step-ms 50``;
-   ``loader_throughput_sweep`` onto the card; the transport sweep from 1 KB
-   to 1 MB. Every number is printed beside the card's name and power limit.
+   steady-state store of 300 rows at 100 a group, 50 warm-up and 250
+   measured rows, with ``-d python`` on threads and on processes and with
+   ``-d torch --device-step-ms 50``; ``loader_throughput_sweep`` of 20,000
+   rows onto the card; the transport sweep at 1 KB, 64 KB and 1 MB.
+   Every number is printed beside the card's name and power limit.
 16. data-parallel ingestion. (a) ``run_llm_bench(mesh_ingest=True,
    mesh_hosts=4, flash=True)`` on phase 8's token store with phase 8's
    model, batch and steps: every step takes its windows from 4 simulated
@@ -263,13 +263,13 @@ result line):
    ``DataLoader(batch_size=256, shuffling_queue_capacity=1024, seed=0)``
    -> K1 (bf16, bit-equal to ``normalize_images_plain`` on every batch, one
    launch a batch) -> phase 9's ResNet-50 SGD step (labels ``id % 100``):
-   one warm-up step, 10 pipelined; rows/s from the first batch, samples/s
+   one warm-up step, 5 pipelined; rows/s from the first batch, samples/s
    and input stall of the pipelined window; both epochs' ids must be every
    row twice; then the host ms a batch of the shuffle and the collate alone,
    eager and lazy, on one epoch replayed from memory. (b) On 2 ranks
    sharing ``cuda:0`` (gloo): ``run_imagenet_bench`` on phase 9's store at
-   128 rows a rank (global 256), 4 pipelined and 2 resident steps, with
-   the cross-rank batch norm; a 2-step data-parallel loop whose losses,
+   128 rows a rank (global 256), 2 pipelined and 1 resident steps, with
+   the cross-rank batch norm; a 1-step data-parallel loop whose losses,
    parameters and moving statistics must be bit-equal on the ranks, with
    step ms and the gloo seconds of the batch norms and of the gradient sum;
    the loop's first batch stepped in float32 (TF32 off, remat) against one
@@ -315,7 +315,7 @@ result line):
    their plain versions at the dry run's per-rank block (2, 32, 4 over 2
    heads, d = 8: the tensor-core route, its tiles' columns 8-63 TMA's zero
    fill), with ``BWD_CONTROLS``; then one process: the bf16 losses over the
-   first 8 windows, one bf16 AdamW step's peak memory on one window, and
+   first 4 windows, one bf16 AdamW step's peak memory on one window, and
    the float32 gradient accumulated over the first 4 windows, followed by
    one AdamW step. Then one spawn of 4 ranks: (a) FSDP
    (``param_shardings_fsdp``, ``fsdp_group=``) on mesh (4, 1, 1), one window
@@ -327,7 +327,7 @@ result line):
    float32 step, each leaf's update within ``FSDP_UPDATE_REL_BAR``, and a
    gather whose backward does not sum that must miss it. (b) the GPipe
    pipeline (``make_pipeline``, ``stack_stage_params``, ``layers_fn``) on
-   (2, 2) of ("pipe", "data"), one layer a stage, 4 microbatches of one
+   (2, 2) of ("pipe", "data"), one layer a stage, 2 microbatches of one
    window a data rank, ``xent_chunk``: the same figures, then the float32
    step on the first 4 windows (2 microbatches a data rank): its gradient
    (every leaf within ``PIPE_GRAD_REL_BAR``) and update, and an output op
@@ -383,8 +383,8 @@ result line):
    and ``stage`` spans that reads back as JSON; then phase 20's store on
    processes through ``BatchedDataLoader``: ``transport.zero_copy_batches``
    equal to the ring records delivered. (c) The converter loader alone with
-   spans off, on and in trace mode, in turns: samples/s, no bar. (d) A
-   50,000-row store of the ``tensor_50k`` schema with its embeddings as
+   spans off, on and in trace mode, one turn each: samples/s, no bar. (d) A
+   12,288-row store of the ``tensor_50k`` schema with its embeddings as
    ``NdarrayCodec`` cells read by ``make_reader`` with the batch decode
    and with one ``np.load`` a cell, in turns: rows/s, and the two decodes
    bit-equal.
@@ -479,14 +479,42 @@ result line):
    killed at its 8th item and no budget: the ``RuntimeError``, a bundle
    whose snapshot holds ``pool.w*.items`` and whose rendering names the
    ``dominant edge:``. (d) The loader alone over the store, the ops plane
-   off against on (timeline, anomaly bank, publisher), 2 turns each in
-   turns, samples/s logged, no ``throughput_collapse`` up to the window
+   off then on (timeline, anomaly bank, publisher), one turn each,
+   samples/s logged, no ``throughput_collapse`` up to the window
    that delivered the last row. Then the anomaly gate, ``telemetry check
    --anomaly --slo counter:anomaly.detections_total<=0``, exits 2 on (b)'s
    snapshot; on (a)'s flush and on the last plane-on reader of (d) it
    exits 2 exactly when a live monitor (the reader's, or for (a) the
    aggregator's; the fleet folds the member's anomaly counters) flagged
    the epoch's end, 0 otherwise.
+26. the disk cache and the random-access plane on phase 4's store, at most
+   ``PH26_BUDGET_S`` seconds, each part under a timeout of its own
+   (``PH26_PART_TIMEOUT_S``: a hang fails by the part's name). (a) 8
+   threads with ``cache_type="local-disk"`` in the phase's own directory
+   -> ``DataLoader(256)`` -> K1 (bit-equal to its plain version on every
+   batch), two passes with ``reset()``: the first fills 32 groups, the
+   second fills none and hits 32 and runs phase 9's ResNet-50 step on every
+   batch; each pass delivers every id once and each id's K1 output equals
+   an uncached reader's (per-id fingerprints of the bf16 bits). Then a
+   ``FaultPlan`` that fails ``cache.fill`` once is retried by the worker's
+   guard (one retry, every id once), and a limit below the capacity check
+   raises ``ValueError``. (b) 2 processes reopen the directory (the cache
+   pickles as its path): no store (every group a hit), every id once, K1
+   equal to (a)'s; ``cleanup_cache()`` on a reader with
+   ``cache_extra_settings={"cleanup": True}`` leaves no entry. (c)
+   ``build_rowgroup_index(emit_field_index=True)``'s group-granular
+   sidecar names the groups ``build_field_index(url, ["id"])`` does; a
+   reader with a 512 MiB decoded cache reads one warm-up epoch, then 4
+   rounds of ``Reader.lookup`` on 256 seeded ids -> ``gather_rows`` onto
+   ``cuda:0`` -> K1 -> the ResNet-50 step: the gathered cells equal the
+   warm-up's rows bit for bit, every touched group is a cache hit and none
+   a miss, ``dataset_view()[i:j]`` and ``[[...]]`` equal ``lookup`` of the
+   same ids, a missing key raises (``on_missing="error"``) or is dropped
+   (``"skip"``); ``index.lookup_s``'s p99 is logged beside the SLO's 0.010 s.
+   Launches are reset before the phase and read after it: K1 once a batch.
+
+A run that reaches ``RUN_LIMIT_S`` prints every thread's stack and exits
+non-zero (``faulthandler``).
 
 The line before the last is a JSON object listing every kernel with its
 launches, error, times and bound; the last line is
@@ -495,6 +523,7 @@ launches, error, times and bound; the last line is
 import collections
 import contextlib
 import dataclasses
+import faulthandler
 import functools
 import gc
 import hashlib
@@ -508,6 +537,8 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -549,6 +580,7 @@ from petastorm_tpu_torch.loader import (BatchedDataLoader, CheckpointManager, De
                                         InMemBatchedDataLoader, MeshDataLoader, MeshReaderFactory)
 from petastorm_tpu_torch.benchmark.seq_parallel_bench import token_windows
 from petastorm_tpu_torch.parallel import comm, moe
+from petastorm_tpu_torch.parallel import launch as rank_launch
 from petastorm_tpu_torch.parallel.launch import run_ranks
 from petastorm_tpu_torch.parallel.mesh import make_mesh
 from petastorm_tpu_torch.parallel.pipeline import make_pipeline, stack_stage_params
@@ -701,25 +733,26 @@ SEQ_LOSS_REL_BAR = 2e-3
 # pipelined steps.
 PROCESS_WORKERS = (8, 4)
 PROCESS_LLAMA = llama.LlamaConfig(n_layers=2)
-PROCESS_TRAIN_STEPS = 2
+PROCESS_TRAIN_STEPS = 1
 PARITY_ROWS = 64
 KILL_BAR_S = 10.0
 
 # The columnar path (phase 12): the JAX bench's scalar store and
 # batched_loader_throughput settings (bench.py:291-361), and its tensor_50k
 # schema (bench.py:343-352) at the Spark converter's layout: files above its
-# 50 MB median, groups near its 32 MB default, one epoch shard of 2^20 rows.
-SCALAR_BENCH = dict(batch_size=1024, warmup_batches=10, measure_batches=300)
+# 50 MB median, groups near its 32 MB default, 2^19 rows (one epoch shard of
+# 2^20 once, cut for the whole run's time).
+SCALAR_BENCH = dict(batch_size=1024, warmup_batches=10, measure_batches=100)
 SCALAR_WORKERS = {"thread": 3, "process": 2}
 SCALAR_ROW_BYTES = 16 * 4 + 4 * 8
 INMEM_EPOCHS, INMEM_SEED = 3, 0
-TENSOR_ROWS, TENSOR_FILES, TENSOR_GROUP, TENSOR_LIST = 1 << 20, 4, 1 << 16, 64
+TENSOR_ROWS, TENSOR_FILES, TENSOR_GROUP, TENSOR_LIST = 1 << 19, 4, 1 << 16, 64
 COLUMNAR_WORKERS, COLUMNAR_BATCH = 8, 1024
 COLUMNAR_SHUFFLE = dict(shuffling_queue_capacity=8192, seed=0)
-# The in-memory load of the tensor store runs on 4 processes: the store
-# (579 MB) is larger than their rings (4 x 128 MiB), so a load that kept its
+# The in-memory load of the tensor store runs on 2 processes: the store
+# (289 MB) is larger than their rings (2 x 128 MiB), so a load that kept its
 # groups pinned in the rings would stall.
-INMEM_WORKERS = 4
+INMEM_WORKERS = 2
 
 # Resume, device cache, augmentation (phase 13): phase 9's store, model and
 # batch (ResNet-50, bf16, SGD at lr 0.05, 256 rows: one epoch is 8 steps and
@@ -742,18 +775,24 @@ MIXUP_BAR = 1e-6
 SELECT_FRACTIONS, SELECT_CROP, SELECT_STEPS, SELECT_WORKERS = [0.75, 0.25], 192, 4, 8
 SELECT_LABELS, SELECT_SHARD_SEED = [3, 7, 11], 7
 SELECT_PARTS, SELECT_KEEP_PARTS, SELECT_I0 = 4, {1, 3}, (0, 500)
-SELECT_SCALAR_ROWS = 25_000
+SELECT_SCALAR_ROWS = 12_500
 
 # The deterministic epoch plane and the throughput harness (phase 15): phase
 # 9's store and ResNet-50 read in plan order with a window of 4 groups;
 # phase 12's tensor store; phase 8's token store and a second one mixed 70/30
 # under Llama training at the token path's width; the reference's
 # hello-world store at the CLI's defaults and at a steady-state size (the
-# JAX docstring's 10,000 rows cut to 1,200 to keep the whole run inside its
-# time: the CLI measures 1,000 rows after 200 of warm-up either way).
-DET_SEED, DET_WINDOW, DET_STEPS, DET_CUT = 5, 4, 4, 2
+# JAX docstring's 10,000 rows cut to 300, the steady arms' 200 warm-up and
+# 1,000 measured rows to HELLO_CYCLES, to keep the whole run inside its time;
+# the reference store's arm keeps the CLI's defaults).
+DET_SEED, DET_WINDOW, DET_STEPS, DET_CUT = 5, 4, 2, 1
 MIX_PROBS, MIX_SEED, MIX_STEPS, MIX_CUT = (0.7, 0.3), 21, 4, 2
-HELLO_ROWS, HELLO_GROUP = 1_200, 100
+HELLO_ROWS, HELLO_GROUP, HELLO_CYCLES = 300, 100, ("-m", "50", "-n", "250")
+#: Rows of the loader sweep's dummy reader (50,000 once), and the transport
+#: sweep's payload sizes (six once, 1 KB to 1 MB by 4x: each cell starts a
+#: process).
+SWEEP_ROWS = 20_000
+TRANSPORT_SIZES = (1 << 10, 64 << 10, 1 << 20)
 #: BASELINE.md's hello-world rate of the reference (unspecified hardware),
 #: printed beside the port's and not compared with it.
 BASELINE_HELLO_RATE = 709.84
@@ -765,7 +804,7 @@ DEVICE_STEP_MS = 50
 MESH_HOSTS, MESH_TOKEN_KILL = 4, 2
 MESH_SCALAR_BATCH, MESH_SCALAR_HOSTS, MESH_SCALAR_KILL = 1000, 8, 5
 # The data-parallel loop: one step (cut from 2 for the whole run's time).
-DP_RANKS, DP_STEPS, DP_BENCH_STEPS = 2, 1, 2
+DP_RANKS, DP_STEPS, DP_BENCH_STEPS = 2, 1, 1
 DP_LLAMA = llama.LlamaConfig(n_layers=2)
 #: The data-parallel step (each rank its own window, gradients summed over
 #: gloo) against one process stepping on both windows, bf16 compute: the loss
@@ -781,9 +820,9 @@ DP_LOSS_REL_BAR, DP_UPDATE_REL_BAR = 2e-3, 0.3
 # and batch through lazy and eager readers on both pools, in turns; phase 9's
 # model and store on 2 ranks sharing cuda:0, 128 rows a rank (global batch
 # 256); the sharded device cache of phase 4's store on the same ranks.
-LAZY_SHUFFLE, LAZY_TURNS, LAZY_STEPS = 1024, 1, 10
+LAZY_SHUFFLE, LAZY_TURNS, LAZY_STEPS = 1024, 1, 5
 LAZY_POOLS = ("thread", "process")
-DPR_RANKS, DPR_STEPS, DPR_RESIDENT, DPR_LOOP = 2, 4, 2, 2
+DPR_RANKS, DPR_STEPS, DPR_RESIDENT, DPR_LOOP = 2, 2, 1, 1
 CACHE_DP_EPOCHS = 2
 #: The data-parallel step's first update against one process on the same
 #: 256 rows and weights, in float32 with TF32 off (bf16 roundings would be
@@ -849,14 +888,15 @@ TP_KERNELS = (flash_attn.KERNEL_NAME, flash_attn.STATS_KERNEL_NAME,
 # cuda:0. FSDP on (4, 1, 1) and with Megatron's axis on (2, 1, 2) of
 # ("data", "seq", "model"), both on the store's first 4 windows (one a data
 # rank, or two); the pipeline on (2, 2) of ("pipe", "data"), one layer a
-# stage, 4 microbatches of one window a data rank (the first 8 windows).
+# stage, 2 microbatches of one window a data rank (the first 4 windows; 4
+# microbatches of 8 windows once, cut for the whole run's time).
 # The float32 checks run on the first 4 windows: the pipeline's with 2
 # microbatches a data rank (a float32 step at this width takes 4-6 s a rank
 # on the card's float32 units, shared by the 4 ranks). One bf16 step a run
 # (cut from 2 for the whole run's time).
 FSDP_LLAMA = llama.LlamaConfig(n_layers=2)
 FSDP_MESHES = ((4, 1, 1), (2, 1, 2))
-FSDP_WINDOWS, PIPE_WINDOWS, PIPE_MESH, PIPE_MICROBATCHES = 4, 8, (2, 2), 4
+FSDP_WINDOWS, PIPE_WINDOWS, PIPE_MESH, PIPE_MICROBATCHES = 4, 4, (2, 2), 2
 FSDP_STEPS, PHASE19_XENT_CHUNK = 1, 4096
 #: The float32 first step against one process on the same windows and
 #: weights (its gradient accumulated window by window, then one AdamW
@@ -910,9 +950,9 @@ MNIST_ROWS, MNIST_BATCH, MNIST_EPOCHS, MNIST_ACC_BAR = 10_000, 128, 2, 0.9
 # per-cell np.load, PH21_DECODE_TURNS turns each.
 PH21_STEPS = 8
 PH21_BATCH_WORKERS = 4
-PH21_OVH_TURNS, PH21_OVH_BATCHES = 2, 16
+PH21_OVH_TURNS, PH21_OVH_BATCHES = 1, 16
 PH21_DECODE_ROWS, PH21_DECODE_GROUP, PH21_DECODE_WORKERS, PH21_DECODE_TURNS = \
-    50_000, 2048, 8, 2
+    12_288, 2048, 8, 2
 # The resilience plane (phase 22), on phase 4's store: (b)'s transient
 # fault rate and retry attempts (PH22_IO_RATE ** PH22_ATTEMPTS makes an
 # extra give-up vanishingly rare), (c)'s latency faults (rate, base and
@@ -941,9 +981,23 @@ PH24_KEPT_WINDOWS, PH24_STEPS = 6, 2
 PH24_COALESCING = 4
 # The ops plane (phase 25): the timeline's interval, the aggregator's beat
 # (the publisher's default heartbeat), (b)'s pause in windows, the kill's
-# item and (d)'s turns.
+# item and (d)'s turns (2 once, cut for the whole run's time).
 PH25_INTERVAL_S, PH25_AGG_BEAT_S = 0.1, 1.0
-PH25_PAUSE_WINDOWS, PH25_KILL_AT, PH25_COST_TURNS = 15, 8, 2
+PH25_PAUSE_WINDOWS, PH25_KILL_AT, PH25_COST_TURNS = 15, 8, 1
+# The disk cache and the random-access plane (phase 26): the disk cache's
+# limit (phase 4's store pickles to about 40 MB of raw columns), the
+# decoded cache of (c) (the store decodes to 308.3 MB), (b)'s processes,
+# (c)'s lookup rounds of PH26_KEYS seeded ids, the phase's budget and each
+# part's timeout (a hang fails by the part's name, not at the run's limit).
+PH26_DISK_BYTES = 1 << 30
+PH26_MEMORY_BYTES = 512 << 20
+PH26_PROCESS_WORKERS = 2
+PH26_ROUNDS, PH26_KEYS = 4, 256
+PH26_BUDGET_S = 60.0
+PH26_PART_TIMEOUT_S = 150.0
+#: The global overrun guard: past this, every thread's stack is printed and
+#: the script exits non-zero (a run of this script is given 1,200 s).
+RUN_LIMIT_S = 1170
 #: The JAX loaders' stage_breakdown() keys (petastorm_tpu/jax/loader.py:880-887).
 JAX_STAGE_KEYS = {"decode_s", "pool_queue_s", "shuffle_s", "host_wait_s", "stage_s",
                   "device_put_wait_s"}
@@ -1179,11 +1233,17 @@ def phase_slice(tmp: str) -> int:
     schema = Unischema("ImageNetLike", [
         UnischemaField("id", np.int64, (), ScalarCodec(np.int64), False),
         UnischemaField("image", np.uint8, IMAGE_SHAPE, CompressedImageCodec("jpeg", 90), False)])
-    rng = np.random.default_rng(1234)
     t0 = time.perf_counter()
-    with materialize_dataset_local(url, schema, rows_per_row_group=ROWS_PER_GROUP) as w:
-        for i in range(ROWS):
-            w.write_row({"id": i, "image": smooth_image(rng)})
+    # Row i's image is drawn from its own seed, so the rows of a group are
+    # made on WORKERS threads (numpy's generators release the GIL) and
+    # written in order.
+    with materialize_dataset_local(url, schema, rows_per_row_group=ROWS_PER_GROUP) as w, \
+            ThreadPoolExecutor(WORKERS) as pool:
+        for start in range(0, ROWS, ROWS_PER_GROUP):
+            ids = range(start, min(ROWS, start + ROWS_PER_GROUP))
+            for i, image in zip(ids, pool.map(
+                    lambda i: smooth_image(np.random.default_rng((1234, i))), ids)):
+                w.write_row({"id": i, "image": image})
     log(f"[slice] wrote {ROWS} rows in {time.perf_counter() - t0:.2f} s")
 
     # The main path, counted.
@@ -3174,7 +3234,6 @@ def _plain_selected_images(url: str) -> list:
     sorted."""
     import cv2
     import pyarrow.parquet as pq
-    from concurrent.futures import ThreadPoolExecutor
     top = (IMAGE_SHAPE[0] - SELECT_CROP) // 2
 
     def one(cell):
@@ -3753,7 +3812,7 @@ def phase_epoch_plane(smi: str, image_url: str, token_url: str, tensor_url: str,
     for label, args in (("python thread", ["-p", "thread"]), ("python process", ["-p", "process"]),
                         (f"torch thread, {DEVICE_STEP_MS} ms step",
                          ["-d", "torch", "--device-step-ms", str(DEVICE_STEP_MS)])):
-        got = _cli([steady, *args])
+        got = _cli([steady, *args, *HELLO_CYCLES])
         cli_rates[label] = got
         log(f"[cli] {card} steady-state store, -d {label}: {json.dumps(got)}")
     for label, got in cli_rates.items():
@@ -3762,10 +3821,10 @@ def phase_epoch_plane(smi: str, image_url: str, token_url: str, tensor_url: str,
     step_ms = cli_rates[f"torch thread, {DEVICE_STEP_MS} ms step"]["device_step_ms_actual"]
     if step_ms is None or not 0.75 * DEVICE_STEP_MS <= step_ms <= 1.25 * DEVICE_STEP_MS:
         failures.append(f"(d) the {DEVICE_STEP_MS} ms step measured {step_ms} ms")
-    sweep = loader_throughput_sweep(device="cuda")
-    log(f"[bench] {card} loader_throughput_sweep -> cuda (50,000 rows of 128 float32): "
+    sweep = loader_throughput_sweep(rows=SWEEP_ROWS, device="cuda")
+    log(f"[bench] {card} loader_throughput_sweep -> cuda ({SWEEP_ROWS:,} rows of 128 float32): "
         f"{ {bs: round(r, 1) for bs, r in sweep.items()} } samples/s")
-    transport = run_sweep()
+    transport = run_sweep(sizes=TRANSPORT_SIZES)
     for row in transport:
         log(f"[bench] {card} transport {json.dumps(row)}")
     log("[bench] transport sweep\n" + to_markdown(transport))
@@ -6993,7 +7052,7 @@ def phase_ops_plane(smi: str, slice_url: str, tmp: str) -> dict:
                         f"(a) rc {rc_check_a} for {want_a} ({out_check_a[-300:]}), (d) rc "
                         f"{rc_check_d} for {want_d} ({out_check_d[-300:]})")
     log(f"[ops] (d) ({smi}) the loader alone ({WORKERS} threads -> DataLoader({BATCH}) -> "
-        f"K1), {PH25_COST_TURNS} turns each in turns, samples/s: ops plane off "
+        f"K1), {PH25_COST_TURNS} turn(s) each in turns, samples/s: ops plane off "
         f"{[round(r, 1) for r in rates['off']]}, on (timeline {PH25_INTERVAL_S} s, anomaly "
         f"bank, publisher) {[round(r, 1) for r in rates['on']]}")
     launches = dict(kernels.launch_counts)
@@ -7014,6 +7073,286 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 PHASE_SECONDS: dict = {}
 
 
+def _bounded(part: str, seconds: float, fn, *args):
+    """``fn(*args)`` on a thread of its own, waited for at most ``seconds``:
+    a part that has not ended by then prints every thread's stack and
+    raises ``TimeoutError`` naming the part (its thread is left behind and
+    the script fails). Every blocking call of the part (the pools'
+    ``get_results`` and ``join``, the sqlite calls) waits under this bound."""
+    out, err = [], []
+
+    def run():
+        try:
+            out.append(fn(*args))
+        except BaseException as e:  # noqa: BLE001 - re-raised in the caller
+            err.append(e)
+    thread = threading.Thread(target=run, name=f"phase 26 {part}", daemon=True)
+    thread.start()
+    thread.join(seconds)
+    if thread.is_alive():
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        raise TimeoutError(f"phase 26 {part}: not done after {seconds:.0f} s")
+    if err:
+        raise err[0]
+    return out[0]
+
+
+def _ph26_pass(loader, weights, failures: list, what: str, step=None) -> dict:
+    """One pass of ``loader`` (over a ``num_epochs=1`` reader): K1 on every
+    batch, bit-equal to its plain version, ``step`` when given; every id
+    once. Returns the pass's seconds and each id's K1 fingerprint."""
+    ids, fps, mismatches = [], [], []
+    t0 = time.perf_counter()
+    for batch in loader:
+        pixels = batch["image"]
+        images = normalize_images(pixels)
+        mismatches.append((images.view(torch.int16)
+                           != normalize_images_plain(pixels).view(torch.int16)).sum())
+        fps.append(fingerprint(images.view(torch.int16), weights))
+        if step is not None:
+            step(images, batch["id"])
+        ids.append(batch["id"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ids = torch.cat(ids).tolist()
+    bad = [int(m.item()) for m in mismatches]
+    if sorted(ids) != list(range(ROWS)):
+        failures.append(f"{what}: {len(ids)} rows, {len(set(ids))} distinct, not every id once")
+    if any(bad):
+        failures.append(f"{what}: K1 not bit-equal: {bad}")
+    return {"seconds": seconds, "fp": dict(zip(ids, torch.cat(fps).tolist()))}
+
+
+def _ph26_disk_threads(smi: str, url: str, path: str, step, weights, failures: list) -> dict:
+    """Phase 26 (a): the disk cache on 8 threads (see the module docstring)."""
+    from petastorm_tpu_torch.local_disk_cache import LocalDiskCache
+    from petastorm_tpu_torch.resilience import ExponentialBackoff, FaultPlan, FaultSpec, RetryPolicy
+    groups = ROWS // ROWS_PER_GROUP
+    disk = dict(cache_type="local-disk", cache_location=path, cache_size_limit=PH26_DISK_BYTES)
+
+    def reader(**kw):
+        return make_reader(url, reader_pool_type="thread", workers_count=WORKERS, seed=0,
+                           num_epochs=1, **kw)
+
+    with reader() as r:
+        plain = _ph26_pass(DataLoader(r, batch_size=BATCH, device="cuda"), weights, failures,
+                           "(a) uncached")
+    with reader(**disk) as r:
+        cache = r._cache
+        loader = DataLoader(r, batch_size=BATCH, device="cuda")
+        passes, counts = [], []
+        for i, train in enumerate((None, step)):
+            before = (cache.fills, cache.hits)
+            passes.append(_ph26_pass(loader, weights, failures, f"(a) pass {i + 1}", train))
+            counts.append((cache.fills - before[0], cache.hits - before[1]))
+    entries = LocalDiskCache(path, PH26_DISK_BYTES)
+    stored, nbytes = len(entries), entries.size_bytes()
+    entries.cleanup()
+    log(f"[disk] (a) ({smi}) phase 4's store, {WORKERS} threads, cache_type='local-disk' -> "
+        f"DataLoader({BATCH}) -> K1: uncached pass {plain['seconds']:.3f} s; pass 1 "
+        f"{passes[0]['seconds']:.3f} s (fills, hits) {counts[0]}; pass 2 with ResNet-50 "
+        f"{passes[1]['seconds']:.3f} s {counts[1]}; {stored} entries, {nbytes / 1e6:.1f} MB")
+    if counts != [(groups, 0), (0, groups)] or stored != groups:
+        failures.append(f"(a) (fills, hits) by pass {counts}, {stored} entries; expected "
+                        f"{[(groups, 0), (0, groups)]}, {groups}")
+    for i, run in enumerate(passes):
+        if run["fp"] != plain["fp"]:
+            failures.append(f"(a) pass {i + 1}: K1 differs from the uncached reader on "
+                            f"{sum(run['fp'].get(k) != v for k, v in plain['fp'].items())} ids")
+
+    # A fill that fails once is retried by the worker's guard.
+    policy = RetryPolicy(max_attempts=3, backoff=ExponentialBackoff(base=0.0, multiplier=1.0,
+                                                                    cap=0.0),
+                         jitter="none", seed=0)
+    plan = FaultPlan([FaultSpec(site="cache.fill", kind="ioerror", at=1)], seed=0)
+    with reader(cache_type="local-disk", cache_location=path + "_faulted",
+                cache_size_limit=PH26_DISK_BYTES, fault_plan=plan, retry_policy=policy) as r:
+        faulted = _ph26_pass(DataLoader(r, batch_size=BATCH, device="cuda"), weights, failures,
+                             "(a) cache.fill fault")
+        retries = r.telemetry.snapshot()["counters"].get("resilience.retries_total", 0)
+    log(f"[disk] (a) cache.fill failed once: {retries:.0f} retry, every id once, "
+        f"{faulted['seconds']:.3f} s")
+    if retries != 1 or faulted["fp"] != plain["fp"]:
+        failures.append(f"(a) the cache.fill fault: {retries} retries, K1 equal "
+                        f"{faulted['fp'] == plain['fp']}")
+    # The capacity check: room for 50 decoded rows, where it asks for 100.
+    row_bytes = int(np.prod(IMAGE_SHAPE))
+    try:
+        reader(cache_type="local-disk", cache_location=path + "_small",
+               cache_size_limit=50 * row_bytes, cache_row_size_estimate=row_bytes).stop()
+        failures.append("(a) a cache below the capacity check did not raise")
+    except ValueError as e:
+        log(f"[disk] (a) a limit of 50 rows of {row_bytes} bytes: {e}")
+    return plain["fp"]
+
+
+def _ph26_disk_processes(smi: str, url: str, path: str, weights, want: dict,
+                         failures: list) -> None:
+    """Phase 26 (b): the same cache on 2 processes, then ``cleanup_cache``."""
+    from petastorm_tpu_torch.local_disk_cache import LocalDiskCache
+    disk = dict(cache_type="local-disk", cache_location=path, cache_size_limit=PH26_DISK_BYTES)
+    entries = LocalDiskCache(path, PH26_DISK_BYTES)
+    stored = entries.stored_at()
+    entries.cleanup()
+    with make_reader(url, reader_pool_type="process", workers_count=PH26_PROCESS_WORKERS, seed=0,
+                     num_epochs=1, **disk) as r:
+        run = _ph26_pass(DataLoader(r, batch_size=BATCH, device="cuda"), weights, failures,
+                         "(b)")
+    entries = LocalDiskCache(path, PH26_DISK_BYTES)
+    after = entries.stored_at()
+    entries.cleanup()
+    log(f"[disk] (b) ({smi}) {PH26_PROCESS_WORKERS} processes reopening the directory: "
+        f"{run['seconds']:.3f} s, {len(after)} entries, stores since (a) "
+        f"{sum(after.get(k) != v for k, v in stored.items()) + len(set(after) - set(stored))}")
+    if after != stored or len(after) != ROWS // ROWS_PER_GROUP:
+        failures.append(f"(b) the processes stored {len(after)} entries against (a)'s "
+                        f"{len(stored)}: not every group was a hit")
+    if run["fp"] != want:
+        failures.append("(b) K1 differs from (a)'s")
+    with make_reader(url, reader_pool_type="thread", workers_count=1, num_epochs=1,
+                     cache_extra_settings={"cleanup": True}, **disk) as r:
+        r.cleanup_cache()
+    left = LocalDiskCache(path, PH26_DISK_BYTES)
+    n_left = len(left)
+    left.cleanup()
+    log(f"[disk] (b) after cleanup_cache(): {n_left} entries")
+    if n_left:
+        failures.append(f"(b) cleanup_cache() left {n_left} entries")
+
+
+def _ph26_random_access(smi: str, url: str, step, failures: list) -> dict:
+    """Phase 26 (c): the field index, ``Reader.lookup``, ``DatasetView`` and
+    ``gather_rows`` onto the card (see the module docstring)."""
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext
+    from petastorm_tpu_torch.index import FieldIndex, build_field_index, gather_rows
+    t0 = time.perf_counter()
+    # The legacy bridge first: it saves a group-granular sidecar, which the
+    # exact build then replaces.
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        build_rowgroup_index(url, [SingleFieldIndexer("id_ix", "id")], emit_field_index=True)
+    bridged = FieldIndex.load(DatasetContext(url))
+    index = build_field_index(url, ["id"])
+    built_s = time.perf_counter() - t0
+
+    def groups_of(ix):
+        return {k: sorted((f, g) for f, g, _ in v) for k, v in ix.fields["id"].items()}
+    same = (bridged.files == index.files and bridged.row_counts == index.row_counts
+            and groups_of(bridged) == groups_of(index))
+    if not same or index.num_rows != ROWS:
+        failures.append(f"(c) the legacy bridge's sidecar differs from build_field_index's "
+                        f"({len(bridged.files)} files, {bridged.num_rows} rows)")
+    rng = np.random.default_rng(26)
+    rounds = []
+    with make_reader(url, reader_pool_type="thread", workers_count=WORKERS, seed=0,
+                     num_epochs=1, memory_cache_size_bytes=PH26_MEMORY_BYTES) as r:
+        t0 = time.perf_counter()
+        warm = {int(row.id): row.image for row in r}
+        warm_s = time.perf_counter() - t0
+        before = dict(r.telemetry.snapshot()["counters"])
+        for _ in range(PH26_ROUNDS):
+            keys = [int(k) for k in rng.choice(ROWS, PH26_KEYS, replace=False)]
+            t0 = time.perf_counter()
+            rows = r.lookup(keys)
+            t1 = time.perf_counter()
+            batch = gather_rows(rows, fields=["id", "image"])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            pixels = batch["image"]
+            images = normalize_images(pixels)
+            bad = int((images.view(torch.int16)
+                       != normalize_images_plain(pixels).view(torch.int16)).sum().item())
+            step(images, batch["id"])
+            torch.cuda.synchronize()
+            want = torch.from_numpy(np.stack([warm[k] for k in keys]))
+            rounds.append({"lookup_s": t1 - t0, "gather_s": t2 - t1,
+                           "step_s": time.perf_counter() - t2, "k1_bad": bad,
+                           "devices": {str(t.device) for t in batch.values()},
+                           "equal": batch["id"].tolist() == keys
+                           and torch.equal(pixels.cpu(), want)})
+        after = r.telemetry.snapshot()
+        counts = {k.split(".", 1)[1]: after["counters"].get(k, 0) - before.get(k, 0)
+                  for k in ("index.rowgroups_touched_total", "index.cache_hits_total",
+                            "index.cache_misses_total", "index.rows_served_total")}
+        p99 = after["histograms"]["index.lookup_s"]["p99"]
+        view = r.dataset_view()
+        sliced, picked = view[100:104], view[[5, ROWS - 1, 64]]
+        by_view = [int(row["id"]) for row in sliced + picked]
+        view_equal = all(
+            set(a) == set(b) and all(np.array_equal(np.asarray(a[n]), np.asarray(b[n])) for n in a)
+            for a, b in zip(sliced + picked, r.lookup(by_view)))
+        try:
+            r.lookup([ROWS + 7])
+            missing_raised = False
+        except KeyError:
+            missing_raised = True
+        skipped = [int(row["id"]) for row in r.lookup([3, ROWS + 7], on_missing="skip")]
+    log(f"[index] (c) ({smi}) the legacy bridge and build_field_index(['id']) "
+        f"{built_s:.2f} s, {len(index.files)} files, {index.num_rows} rows, same groups {same}; "
+        f"warm-up epoch {warm_s:.2f} s; rounds of {PH26_KEYS} ids: lookup s "
+        f"{[round(x['lookup_s'], 4) for x in rounds]}, gather onto the card s "
+        f"{[round(x['gather_s'], 4) for x in rounds]}, K1 + ResNet-50 step s "
+        f"{[round(x['step_s'], 4) for x in rounds]}; counters {counts}; index.lookup_s p99 "
+        f"{p99:.4f} s (the SLO's index_lookup_p99_s: 0.010 s)")
+    for i, x in enumerate(rounds):
+        if not x["equal"] or x["k1_bad"] or x["devices"] != {"cuda:0"}:
+            failures.append(f"(c) round {i}: cells equal the warm-up's {x['equal']}, K1 "
+                            f"mismatches {x['k1_bad']}, devices {x['devices']}")
+    if counts["cache_misses_total"] or             counts["cache_hits_total"] != counts["rowgroups_touched_total"] or             counts["rows_served_total"] != PH26_ROUNDS * PH26_KEYS:
+        failures.append(f"(c) after the warm-up epoch: {counts}")
+    if not view_equal or by_view[:4] != [100, 101, 102, 103] or             not missing_raised or skipped != [3]:
+        failures.append(f"(c) DatasetView equal to lookup {view_equal} ({by_view}); a missing "
+                        f"key raised {missing_raised}; skip gave {skipped}")
+    return {"lookup_p99_s": p99, "rounds": rounds}
+
+
+def phase_disk_cache_random_access(smi: str, slice_url: str, tmp: str) -> dict:
+    """Phase 26: the disk cache on threads and processes and the
+    random-access plane, on phase 4's store into K1 and ResNet-50 (see the
+    module docstring). Returns the launches by kernel name."""
+    failures = []
+    kernels.reset_launch_counts()
+    t_phase = time.perf_counter()
+    params = resnet.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                IMAGENET_CLASSES, device="cuda")
+    init_opt, raw_step = resnet.make_train_step(learning_rate=0.05)
+    opt = init_opt(params)
+
+    def step(images, ids):
+        nonlocal params, opt
+        params, opt, _, _ = raw_step(params, opt, {"image": images,
+                                                   "label": ids % IMAGENET_CLASSES})
+    weights = torch.randint(1, 2 ** 16, (int(np.prod(IMAGE_SHAPE)),), dtype=torch.int64,
+                            generator=torch.Generator().manual_seed(26)).to("cuda")
+    path = f"{tmp}/disk_cache"
+    seconds = {"set-up": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    want = _bounded("(a)", PH26_PART_TIMEOUT_S, _ph26_disk_threads, smi, slice_url, path, step,
+                    weights, failures)
+    seconds["(a)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _bounded("(b)", PH26_PART_TIMEOUT_S, _ph26_disk_processes, smi, slice_url, path, weights,
+             want, failures)
+    seconds["(b)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _bounded("(c)", PH26_PART_TIMEOUT_S, _ph26_random_access, smi, slice_url, step, failures)
+    seconds["(c)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    del params, opt
+    free_cuda()
+    seconds["tear-down"] = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    expect = 5 * (ROWS // BATCH) + PH26_ROUNDS
+    total = time.perf_counter() - t_phase
+    log(f"[disk] ({smi}) phase 26: {total:.1f} s (budget {PH26_BUDGET_S:.0f} s), by part "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }; launches {launches}")
+    if launches != {KERNEL_NAME: expect}:
+        failures.append(f"launches {launches}, expected {KERNEL_NAME}: {expect}")
+    if failures:
+        raise AssertionError("disk cache and random-access phase: " + "; ".join(failures))
+    return {KERNEL_NAME: launches.get(KERNEL_NAME, 0)}
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its seconds kept under ``name`` in
     ``PHASE_SECONDS``."""
@@ -7028,6 +7367,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # A run that would pass its 1,200 s prints every thread's stack and
+    # exits non-zero instead of running silently into the limit.
+    faulthandler.dump_traceback_later(RUN_LIMIT_S, exit=True)
+    # The ranks of phases 10 and 16-19 fork from one server that imports
+    # torch and this script once (about 10 s a spawn on the card otherwise).
+    rank_launch.START_METHOD = "forkserver"
     t_run = time.perf_counter()
     smi = timed("1 probe", phase_probe)
     timed("2 build", phase_build)
@@ -7099,6 +7444,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             ops = timed("25 ops plane", phase_ops_plane, smi,
                         f"file://{slice_tmp}/imagenet_like", tmp)
+        free_cuda()
+        # Phase 26 builds a field index into phase 4's store: it runs last.
+        with tempfile.TemporaryDirectory() as tmp:
+            disk = timed("26 disk cache + random access", phase_disk_cache_random_access, smi,
+                         f"file://{slice_tmp}/imagenet_like", tmp)
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
@@ -7116,7 +7466,7 @@ def main() -> int:
                      + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]
                      + lazy[KERNEL_NAME] + conv[KERNEL_NAME] + tele[KERNEL_NAME]
                      + resil[KERNEL_NAME] + io_plane[KERNEL_NAME] + planning[KERNEL_NAME]
-                     + ops[KERNEL_NAME]),
+                     + ops[KERNEL_NAME] + disk[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
@@ -7174,6 +7524,7 @@ def main() -> int:
         "launches": (counts[flash_attn.BWD_DKV_FMA_KERNEL_NAME]
                      + seq[flash_attn.BWD_DKV_FMA_KERNEL_NAME]),
         **bwd["K4 fma"]}]}))
+    faulthandler.cancel_dump_traceback_later()
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,15 +12,22 @@ index the other built. Loading goes through :class:`IndexUnpickler`, which
 maps the indexer names of the JAX package, of petastorm and of this
 package onto this package's classes, allows a few plain types, and
 refuses everything else: it never imports the module a pickle names.
+
+Deprecated, as in the JAX package: the random-access plane
+(:func:`petastorm_tpu_torch.index.build_field_index`, ``Reader.lookup()``)
+indexes exact rows. ``build_rowgroup_index(emit_field_index=True)`` also
+writes its keyed indexers into that plane's sidecar, group-granular.
 """
 from __future__ import annotations
 
 import io
+import logging
 import pickle
 import pickletools
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from decimal import Decimal
+import warnings
 from typing import Dict, Sequence
 
 import numpy as np
@@ -31,6 +38,8 @@ from petastorm_tpu_torch.etl import rowgroup_indexers
 from petastorm_tpu_torch.etl.dataset_metadata import (DatasetContext, load_row_groups,
                                                       write_dataset_metadata)
 from petastorm_tpu_torch.etl.rowgroup_indexers import RowGroupIndexerBase
+
+logger = logging.getLogger(__name__)
 
 TPU_ROWGROUPS_INDEX_KEY = b"petastorm-tpu.rowgroups_index.v1"
 LEGACY_ROWGROUPS_INDEX_KEY = b"dataset-toolkit.rowgroups_index.v1"
@@ -97,11 +106,26 @@ def dumps_index(index_dict: Dict[str, RowGroupIndexerBase]) -> bytes:
     return b"".join(out)
 
 
+_DEPRECATION = (
+    "petastorm_tpu_torch.etl.rowgroup_indexing is deprecated: the random-access "
+    "plane (petastorm_tpu_torch.index.build_field_index + Reader.lookup()) indexes "
+    "exact rows and serves point reads through the decoded cache. The legacy "
+    "group-granular index keeps working for rowgroup_selector=.")
+
+
 def build_rowgroup_index(dataset_url_or_ctx, indexers: Sequence[RowGroupIndexerBase],
-                         num_workers: int = 10) -> Dict[str, RowGroupIndexerBase]:
+                         num_workers: int = 10,
+                         emit_field_index: bool = True) -> Dict[str, RowGroupIndexerBase]:
     """Feed every row group of the store, by its ordinal in the store's
     deterministic order, to ``indexers``, store them in the dataset
-    metadata and return ``{index_name: indexer}``."""
+    metadata and return ``{index_name: indexer}``.
+
+    .. deprecated:: use :func:`petastorm_tpu_torch.index.build_field_index`.
+       ``emit_field_index=True`` (the default) also saves every keyed
+       single-field indexer as a group-granular field-index sidecar, so
+       ``Reader.lookup()`` works on the store (a lookup decodes the group
+       and filters it by value); a failure there is logged, never raised."""
+    warnings.warn(_DEPRECATION, DeprecationWarning, stacklevel=2)
     ctx = (dataset_url_or_ctx if isinstance(dataset_url_or_ctx, DatasetContext)
            else DatasetContext(dataset_url_or_ctx))
     row_groups = load_row_groups(ctx)
@@ -120,6 +144,15 @@ def build_rowgroup_index(dataset_url_or_ctx, indexers: Sequence[RowGroupIndexerB
 
     index_dict = {ix.index_name: ix for ix in indexers}
     write_dataset_metadata(ctx, None, extra_kv={TPU_ROWGROUPS_INDEX_KEY: dumps_index(index_dict)})
+    if emit_field_index:
+        try:
+            from petastorm_tpu_torch.index.build import index_from_legacy_indexers
+            bridged = index_from_legacy_indexers(ctx, indexers, num_workers=num_workers)
+            if bridged.fields_indexed:
+                bridged.save(ctx)
+        except Exception:  # noqa: BLE001 - the legacy index is stored either way
+            logger.exception("could not bridge the legacy indexers to the field-index "
+                             "sidecar; Reader.lookup() needs build_field_index()")
     return index_dict
 
 

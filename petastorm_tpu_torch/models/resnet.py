@@ -30,7 +30,6 @@ follows the reference:
 from __future__ import annotations
 
 import math
-from functools import partial
 from typing import Any, Dict, List
 
 import numpy as np
@@ -124,9 +123,37 @@ def _pad_same(x: torch.Tensor, k: int, stride: int, value: float = 0.0):
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), (0, 0)
 
 
+class _ConvToFloat32(torch.autograd.Function):
+    """A convolution of low-precision ``x`` and ``w`` whose output stays
+    float32: a float32 convolution of the rounded values (exact products,
+    float32 sums). XLA hands a bf16 convolution's float32 result to the
+    batch norm that follows it without rounding it first (excess precision
+    is on by default); rounding there instead puts the port's training
+    logits 1.8x further from float32 than the reference's. The backward is
+    the low-precision convolution's, as for ``F.conv2d`` in that dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.padding = stride, padding
+        return F.conv2d(x.float(), w.float(), stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            dy.to(x.dtype), x, w, None, [ctx.stride] * 2, list(ctx.padding), [1, 1], False,
+            [0, 0], 1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None, None
+
+
 def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """A ``"SAME"`` convolution in ``x``'s dtype -> float32 (every
+    convolution here feeds a batch norm, which rounds once)."""
     x, padding = _pad_same(x, w.shape[2], stride)
-    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding)
+    if x.dtype == torch.float32:
+        return F.conv2d(x, w, stride=stride, padding=padding)
+    return _ConvToFloat32.apply(x, w.to(x.dtype), stride, padding)
 
 
 def _max_pool(x: torch.Tensor) -> torch.Tensor:
@@ -166,8 +193,9 @@ class CrossRankBatchNorm(torch.autograd.Function):
     from ``torch.var_mean``: no float32 sum of squares, which would lose the
     variance of millions of values a channel) are gathered and folded in
     rank order (:func:`_combine_moments`); then ``y = (x - mean) *
-    (rsqrt(var + eps) * scale) + bias`` in float32, rounded to ``x``'s
-    dtype, as the reference computes it.
+    (rsqrt(var + eps) * scale) + bias`` in float32, as the reference
+    computes it (``x`` is a float32 convolution output; :func:`_norm`
+    rounds ``y`` once).
 
     Backward: with ``x^ = (x - mean) * rsqrt(var + eps)`` and the global
     count M, ``dx = (dy - sum(dy) / M - x^ * sum(dy x^) / M) * rsqrt(var +
@@ -220,11 +248,12 @@ def _global_batch_norm(x: torch.Tensor, bn: dict, train: bool, data_group,
 
 
 def _batch_norm(x: torch.Tensor, bn: dict, train: bool, momentum=_BN_MOMENTUM, eps=_BN_EPS):
-    """-> (batch norm of ``x`` in ``x``'s dtype, new moving statistics).
-    Statistics and the affine map are float32. In training the batch's
-    mean and population variance (over N, H, W) normalise, and the new
-    moving statistics (detached) blend them in; the variance comes back
-    from the kernel's saved ``1 / sqrt(var + eps)``."""
+    """-> (batch norm of float32 ``x``, new moving statistics).
+    Statistics and the affine map are float32 (:func:`_norm` rounds the
+    result once to the compute dtype). In training the batch's mean and
+    population variance (over N, H, W) normalise, and the new moving
+    statistics (detached) blend them in; the variance comes back from the
+    kernel's saved ``1 / sqrt(var + eps)``."""
     if train:
         out, mean, invstd = torch.native_batch_norm(x, bn["scale"], bn["bias"], None, None,
                                                     True, 0.0, eps)
@@ -237,17 +266,22 @@ def _batch_norm(x: torch.Tensor, bn: dict, train: bool, momentum=_BN_MOMENTUM, e
     return out, {"mean": bn["mean"], "var": bn["var"]}
 
 
-def _norm(train: bool, data_group):
-    """A layer's batch norm ``(x, bn) -> (y, stats)``: one process's, or
-    the global batch's of ``data_group``."""
-    if data_group is None:
-        return partial(_batch_norm, train=train)
-    return partial(_global_batch_norm, train=train, data_group=data_group)
+def _norm(train: bool, data_group, dtype: torch.dtype):
+    """A layer's batch norm ``(x, bn) -> (y, stats)`` of a float32
+    convolution output, rounded once to ``dtype``: one process's, or the
+    global batch's of ``data_group``."""
+    def norm(x, bn):
+        if data_group is None:
+            out, stats = _batch_norm(x, bn, train)
+        else:
+            out, stats = _global_batch_norm(x, bn, train, data_group)
+        return out.to(dtype), stats
+    return norm
 
 
 def _bottleneck(x: torch.Tensor, block: dict, stride: int, train: bool, data_group=None):
     stats = {}
-    bn = _norm(train, data_group)
+    bn = _norm(train, data_group, x.dtype)
     h, stats["bn1"] = bn(_conv(x, block["conv1"]), block["bn1"])
     h = F.relu(h)
     h, stats["bn2"] = bn(_conv(h, block["conv2"], stride), block["bn2"])
@@ -278,8 +312,8 @@ def apply(params: Params, images: torch.Tensor, train: bool = False,
     x = images.to(compute_dtype).permute(0, 3, 1, 2).contiguous(
         memory_format=torch.channels_last)
     new_stats: Params = {"stem": {}}
-    x, new_stats["stem"]["bn"] = _norm(train, data_group)(_conv(x, params["stem"]["conv"], 2),
-                                                          params["stem"]["bn"])
+    x, new_stats["stem"]["bn"] = _norm(train, data_group, compute_dtype)(
+        _conv(x, params["stem"]["conv"], 2), params["stem"]["bn"])
     x = _max_pool(F.relu(x))
     for stage_idx, (blocks, _) in enumerate(_RESNET50_STAGES):
         stage_stats = []

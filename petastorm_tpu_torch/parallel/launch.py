@@ -7,16 +7,31 @@ share ``cuda:0``: NCCL refuses two ranks on one GPU, so the default group is
 gloo, and :mod:`~petastorm_tpu_torch.parallel.comm` stages CUDA tensors
 through pinned host memory. The rendezvous is a file in a fresh temporary
 directory (no port to collide with another run's).
+
+Each rank starts as :data:`START_METHOD` says: ``"spawn"`` (the default: a
+fresh interpreter imports torch and the main module for every rank), or
+``"forkserver"``: one server process imports them once, on the first call,
+and every rank of every later call forks from it. A script that starts
+ranks many times sets ``launch.START_METHOD = "forkserver"``; its main
+module must be safe to import (no work outside ``if __name__ ==
+"__main__":``), and its ranks see the environment variables the server
+started with, not later changes.
 """
 from __future__ import annotations
 
 import datetime
+import multiprocessing
 import os
 import tempfile
 from typing import Callable, List, Sequence
 
 import torch
 import torch.distributed as dist
+
+
+#: How :func:`run_ranks` starts its processes: ``"spawn"`` or
+#: ``"forkserver"`` (see the module docstring).
+START_METHOD = "spawn"
 
 
 def _rank_main(rank: int, fn: Callable, world_size: int, args: Sequence, workdir: str,
@@ -45,9 +60,15 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (), device: str = 
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_ranks(device='cuda') needs a CUDA device")
+    if START_METHOD not in ("spawn", "forkserver"):
+        raise ValueError(f"START_METHOD must be 'spawn' or 'forkserver', got {START_METHOD!r}")
+    if START_METHOD == "forkserver":
+        # Taken when the server starts (the first call): the ranks fork with
+        # torch and the main module imported.
+        multiprocessing.set_forkserver_preload(["__main__", "torch"])
     with tempfile.TemporaryDirectory() as workdir:
         torch.multiprocessing.start_processes(
             _rank_main, args=(fn, world_size, tuple(args), workdir, device, timeout_s),
-            nprocs=world_size, join=True, start_method="spawn")
+            nprocs=world_size, join=True, start_method=START_METHOD)
         return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
                 for r in range(world_size)]

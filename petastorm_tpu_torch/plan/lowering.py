@@ -68,6 +68,11 @@ LOWERING_TABLE = {
     "readahead_depth": ("fetch",),
     "readahead_max_bytes": ("fetch",),
     # caches
+    "cache_type": ("cache",),
+    "cache_location": ("cache",),
+    "cache_size_limit": ("cache",),
+    "cache_row_size_estimate": ("cache",),
+    "cache_extra_settings": ("cache",),
     "memory_cache_size_bytes": ("cache",),
     # the control loop
     "autotune": ("optimizer",),
@@ -136,6 +141,13 @@ def lower_reader_kwargs(flavor: str, kwargs: dict, *,
             placement=pool_placement, kind="sidecar",
             capacity={"size_limit_bytes": kwargs.get("memory_cache_size_bytes")},
             induced_by=_induced(kwargs, "memory_cache_size_bytes"), downstream=("decode",)))
+    elif kwargs.get("cache_type") not in (None, "null"):
+        ops.append(OperatorNode(
+            op_id="cache", name="row-group cache (LocalDiskCache)", layer="L3",
+            placement=pool_placement, kind="sidecar",
+            capacity={"size_limit_bytes": kwargs.get("cache_size_limit")},
+            induced_by=_induced(kwargs, "cache_type", "cache_location", "cache_size_limit"),
+            downstream=("decode",)))
 
     if pool_type == "process":
         ops.append(transport_node(_induced(kwargs, "reader_pool_type")))

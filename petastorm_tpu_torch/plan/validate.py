@@ -3,8 +3,7 @@ pass, with the JAX package's messages (its ``plan/validate.py``).
 
 Each rule of :data:`CONFLICT_RULES` names the kwargs in conflict and the
 operators they induce. The JAX package's rules over kwargs the port does
-not take yet (the disk cache, live discovery, ``serializer=``) come with
-those kwargs. ``Reader.__init__`` runs the same pass, so a direct
+not take yet (live discovery, ``serializer=``) come with those kwargs. ``Reader.__init__`` runs the same pass, so a direct
 ``Reader(...)`` gets the same messages.
 """
 from __future__ import annotations
@@ -51,6 +50,15 @@ def _subset_x_shuffle(cfg):
     return None
 
 
+def _memcache_x_diskcache(cfg):
+    if cfg.get("memory_cache_size_bytes") and cfg.get("cache_type") not in (None, "null"):
+        return (f"mutually exclusive with cache_type="
+                f"{cfg.get('cache_type')!r}: the memory tier caches "
+                f"decoded payloads, the disk tier raw ones — pick the "
+                f"tier matching where the time goes (docs/autotune.md)")
+    return None
+
+
 def _window_x_order(cfg):
     window = int(cfg.get("shuffle_window") or 0)
     if window and cfg.get("sample_order", "free") != "deterministic":
@@ -69,6 +77,9 @@ CONFLICT_RULES = (
     ValidationRule("rowgroup_subset_x_shuffle_row_groups",
                    ("rowgroup_subset", "shuffle_row_groups"),
                    ("ventilate",), _subset_x_shuffle),
+    ValidationRule("memory_cache_x_disk_cache",
+                   ("memory_cache_size_bytes", "cache_type"),
+                   ("cache", "decode"), _memcache_x_diskcache),
     ValidationRule("shuffle_window_x_sample_order",
                    ("shuffle_window", "sample_order"),
                    ("ordered_gate",), _window_x_order),

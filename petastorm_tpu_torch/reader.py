@@ -56,7 +56,8 @@ starts a :class:`~petastorm_tpu_torch.reader_impl.readahead.ReadaheadFetcher`
 that reads row groups ahead of the decode workers (in-process pools:
 :meth:`Reader.readahead_report`); ``memory_cache_size_bytes`` keeps decoded
 row groups in an :class:`~petastorm_tpu_torch.autotune.InMemoryRowGroupCache`,
-so later epochs skip the read and the decode; ``autotune`` starts an
+so later epochs skip the read and the decode (``cache_type="local-disk"``
+keeps raw ones on the disk instead: :mod:`.local_disk_cache`); ``autotune`` starts an
 :class:`~petastorm_tpu_torch.autotune.AutotuneController` over the pool's
 concurrency, the ventilation and readahead depths and a loader's prefetch
 depth and shuffle target (:meth:`Reader.autotune_report`).
@@ -72,6 +73,10 @@ same-file groups in one work item. With ``autotune_config.placement`` the
 controller may migrate the decode stage between the thread and the process
 pool mid-epoch (:meth:`Reader._perform_pool_migration`: no row lost or
 repeated), and a resolved trial persists for the next reader of the store.
+
+The random-access plane (:mod:`petastorm_tpu_torch.index`):
+:meth:`Reader.lookup` and :meth:`Reader.dataset_view` read rows by key or
+by ordinal through the store's field index, sharing the reader's cache.
 """
 from __future__ import annotations
 
@@ -190,12 +195,25 @@ def _warn_predicate_bypasses_cache(predicate, memory_cache_size_bytes) -> None:
             "memory_cache_size_bytes to silence this.")
 
 
-def _make_cache(memory_cache_size_bytes, fault_plan=None):
-    """The decoded row-group cache of ``memory_cache_size_bytes``, or None."""
-    if not memory_cache_size_bytes:
+def _make_cache(cache_type=None, cache_location=None, cache_size_limit=None,
+                cache_row_size_estimate=None, cache_extra_settings=None, retry_policy=None,
+                fault_plan=None, memory_cache_size_bytes=None):
+    """The reader's row-group cache, or None: the decoded cache of
+    ``memory_cache_size_bytes``, else a ``"local-disk"``
+    :class:`~petastorm_tpu_torch.local_disk_cache.LocalDiskCache` at
+    ``cache_location`` (the JAX package's factory; the plan's validation
+    refuses both at once)."""
+    if memory_cache_size_bytes:
+        from petastorm_tpu_torch.autotune import InMemoryRowGroupCache
+        return InMemoryRowGroupCache(memory_cache_size_bytes, fault_plan=fault_plan)
+    if cache_type in (None, "null"):
         return None
-    from petastorm_tpu_torch.autotune import InMemoryRowGroupCache
-    return InMemoryRowGroupCache(memory_cache_size_bytes, fault_plan=fault_plan)
+    if cache_type == "local-disk":
+        from petastorm_tpu_torch.local_disk_cache import LocalDiskCache
+        return LocalDiskCache(cache_location, cache_size_limit, cache_row_size_estimate or 0,
+                              retry_policy=retry_policy, fault_plan=fault_plan,
+                              **(cache_extra_settings or {}))
+    raise ValueError(f"Unknown cache_type {cache_type!r}")
 
 
 def decode_threads_for(workers_count: int) -> int:
@@ -537,6 +555,11 @@ def make_reader(dataset_url: str,
                 hang_timeout_s: Optional[float] = None,
                 autotune: bool = False,
                 autotune_config=None,
+                cache_type: str = "null",
+                cache_location: Optional[str] = None,
+                cache_size_limit: Optional[int] = None,
+                cache_row_size_estimate: Optional[int] = None,
+                cache_extra_settings: Optional[dict] = None,
                 memory_cache_size_bytes: Optional[int] = None,
                 readahead_depth: Optional[int] = None,
                 readahead_max_bytes: Optional[int] = None,
@@ -663,6 +686,14 @@ def make_reader(dataset_url: str,
         (interval, hysteresis, cooldown, watermarks, ``memory_budget_bytes``:
         one ledger the cache and the readahead stage charge, which also
         sizes the process pool's rings)
+    :param cache_type: ``"null"`` (no cache) or ``"local-disk"``: a
+        :class:`~petastorm_tpu_torch.local_disk_cache.LocalDiskCache` of raw
+        row groups in ``cache_location``, up to ``cache_size_limit`` bytes
+        (``cache_row_size_estimate`` feeds its capacity check,
+        ``cache_extra_settings`` its other arguments, e.g. ``cleanup``); the
+        threads share it and spawned workers reopen its directory; the row
+        worker decodes on every retrieval, the batch worker keeps the Arrow
+        table. Exclusive with ``memory_cache_size_bytes``
     :param memory_cache_size_bytes: keep up to this many bytes of decoded
         row groups in memory (least recently used out first, cost-aware
         admission), so later epochs skip the read and the decode; hits copy
@@ -761,6 +792,10 @@ def make_reader(dataset_url: str,
                   stage_deadline_s=stage_deadline_s, hedge_policy=hedge_policy,
                   hang_timeout_s=hang_timeout_s, autotune=autotune,
                   autotune_config=autotune_config,
+                  cache_type=cache_type, cache_location=cache_location,
+                  cache_size_limit=cache_size_limit,
+                  cache_row_size_estimate=cache_row_size_estimate,
+                  cache_extra_settings=cache_extra_settings,
                   memory_cache_size_bytes=memory_cache_size_bytes,
                   readahead_depth=readahead_depth, readahead_max_bytes=readahead_max_bytes,
                   timeline_interval_s=timeline_interval_s, timeline_anomaly=timeline_anomaly,
@@ -801,6 +836,11 @@ def make_batch_reader(dataset_url: str,
                       hang_timeout_s: Optional[float] = None,
                       autotune: bool = False,
                       autotune_config=None,
+                      cache_type: str = "null",
+                      cache_location: Optional[str] = None,
+                      cache_size_limit: Optional[int] = None,
+                      cache_row_size_estimate: Optional[int] = None,
+                      cache_extra_settings: Optional[dict] = None,
                       memory_cache_size_bytes: Optional[int] = None,
                       readahead_depth: Optional[int] = None,
                       readahead_max_bytes: Optional[int] = None,
@@ -885,6 +925,10 @@ def make_batch_reader(dataset_url: str,
                   worker_crash_budget=worker_crash_budget, stage_deadline_s=stage_deadline_s,
                   hedge_policy=hedge_policy, hang_timeout_s=hang_timeout_s, autotune=autotune,
                   autotune_config=autotune_config,
+                  cache_type=cache_type, cache_location=cache_location,
+                  cache_size_limit=cache_size_limit,
+                  cache_row_size_estimate=cache_row_size_estimate,
+                  cache_extra_settings=cache_extra_settings,
                   memory_cache_size_bytes=memory_cache_size_bytes,
                   readahead_depth=readahead_depth, readahead_max_bytes=readahead_max_bytes,
                   timeline_interval_s=timeline_interval_s, timeline_anomaly=timeline_anomaly,
@@ -897,7 +941,8 @@ _LOWERED_KWARGS = (
     "dataset_url", "reader_pool_type", "workers_count", "results_queue_size",
     "shuffle_row_groups", "shuffle_rows", "shuffle_row_drop_partitions", "predicate",
     "transform_spec", "num_epochs", "cur_shard", "shard_seed", "seed",
-    "memory_cache_size_bytes", "rowgroup_coalescing", "readahead_depth", "readahead_max_bytes",
+    "cache_type", "cache_location", "cache_size_limit", "memory_cache_size_bytes",
+    "rowgroup_coalescing", "readahead_depth", "readahead_max_bytes",
     "rowgroup_subset", "row_materialization", "convert_early_to_numpy", "sample_order",
     "shuffle_window", "autotune", "autotune_config")
 
@@ -1048,6 +1093,8 @@ class Reader:
                  storage_options=None, filesystem=None, retry_policy=None, degraded_mode=False,
                  fault_plan=None, worker_crash_budget=0, stage_deadline_s=None,
                  hedge_policy=None, hang_timeout_s=None, autotune=False, autotune_config=None,
+                 cache_type="null", cache_location=None, cache_size_limit=None,
+                 cache_row_size_estimate=None, cache_extra_settings=None,
                  memory_cache_size_bytes=None, readahead_depth=None, readahead_max_bytes=None,
                  rowgroup_pruning=True, rowgroup_coalescing=1, plan=None, pool_factory=None,
                  ctx=None, stored_schema=None, timeline_interval_s=None, timeline_anomaly=True,
@@ -1057,7 +1104,9 @@ class Reader:
         from petastorm_tpu_torch.plan import validate_reader_config
         validation_cfg = {"rowgroup_subset": rowgroup_subset, "cur_shard": cur_shard,
                           "shuffle_row_groups": shuffle_row_groups, "shard_seed": shard_seed,
-                          "sample_order": sample_order, "shuffle_window": shuffle_window}
+                          "sample_order": sample_order, "shuffle_window": shuffle_window,
+                          "memory_cache_size_bytes": memory_cache_size_bytes,
+                          "cache_type": cache_type}
         if not is_batched_reader:
             validation_cfg["row_materialization"] = row_materialization
         validate_reader_config(validation_cfg)
@@ -1113,6 +1162,7 @@ class Reader:
         self._batched = is_batched_reader
         if stored_schema is None:
             stored_schema = infer_or_load_unischema(ctx) if is_batched_reader else get_schema(ctx)
+        self._stored_schema = stored_schema
         #: The NGram windows are formed by, or None for a row reader.
         self.ngram: Optional[NGram] = None
         if isinstance(schema_fields, NGram):
@@ -1196,7 +1246,13 @@ class Reader:
         resilience_args = self._attach_resilience(pool, worker_crash_budget, stage_deadline_s,
                                                   hedge_policy, hang_timeout_s)
         self._stage_deadline = resilience_args["stage_deadline"]
-        self._cache = self._attach_cache(pool, memory_cache_size_bytes, fault_plan)
+        self._cache = self._attach_cache(
+            pool, fault_plan, cache_type=cache_type, cache_location=cache_location,
+            cache_size_limit=cache_size_limit, cache_row_size_estimate=cache_row_size_estimate,
+            cache_extra_settings=cache_extra_settings, retry_policy=retry_policy,
+            memory_cache_size_bytes=memory_cache_size_bytes)
+        #: The random-access plane (:meth:`lookup`), made on first use.
+        self._lookup_plane = None
         #: The :class:`~petastorm_tpu_torch.reader_impl.readahead.ReadaheadFetcher`
         #: when ``readahead_depth`` is set on an in-process pool, else None
         #: (made before the ventilator, whose wrapper announces items to it).
@@ -1424,13 +1480,15 @@ class Reader:
         return {"stage_deadline": stage_deadline, "hedge_policy": hedge_policy,
                 "cancel_token": cancel_token}
 
-    def _attach_cache(self, pool, memory_cache_size_bytes, fault_plan):
-        """The decoded row-group cache (or None): counting into this
-        reader's registry on an in-process pool, whose workers share it; a
-        warning on processes, where each worker keeps a private one."""
-        cache = _make_cache(memory_cache_size_bytes, fault_plan)
-        if cache is None:
-            return None
+    def _attach_cache(self, pool, fault_plan, memory_cache_size_bytes=None, **disk):
+        """The row-group cache (or None). The decoded cache counts into
+        this reader's registry on an in-process pool, whose workers share
+        it, and warns on processes, where each worker keeps a private one;
+        the disk cache is one directory that every worker opens."""
+        cache = _make_cache(fault_plan=fault_plan,
+                            memory_cache_size_bytes=memory_cache_size_bytes, **disk)
+        if cache is None or not getattr(cache, "caches_decoded", False):
+            return cache
         if isinstance(pool, ProcessPool):
             warnings.warn(
                 f"memory_cache_size_bytes with reader_pool_type='process' keeps a PRIVATE cache "
@@ -1541,7 +1599,7 @@ class Reader:
         budget_bytes = getattr(autotune_config, "memory_budget_bytes", None)
         if budget_bytes:
             budget = MemoryBudget(budget_bytes, telemetry=self.telemetry)
-            if self._cache is not None:
+            if getattr(self._cache, "caches_decoded", False):
                 self._cache.budget = budget
             if self.readahead is not None:
                 self.readahead.budget = budget
@@ -1993,6 +2051,58 @@ class Reader:
         row group, exception, attempts, worker). The JAX package's schema."""
         return self.quarantine.report()
 
+    def _ensure_lookup_plane(self):
+        """The random-access plane, made on first use from the store's
+        field-index sidecar: it shares this reader's cache (a lookup and
+        the epoch stream warm each other and hand out the same cells), its
+        quarantine, its retry and degraded settings and its registry. The
+        JAX package's growth reconciliation is not ported (the port has no
+        growth)."""
+        if self._lookup_plane is None:
+            from petastorm_tpu_torch.index import FieldIndex, IndexLookupPlane
+            args = self._worker_args_inproc
+            self._lookup_plane = IndexLookupPlane(
+                self._ctx, FieldIndex.load(self._ctx), self._stored_schema,
+                dataset_url=args["dataset_url"], storage_options=args.get("storage_options"),
+                filesystem=args.get("filesystem"), cache=self._cache,
+                retry_policy=args.get("retry_policy"),
+                degraded_mode=args.get("degraded_mode", False),
+                fault_plan=args.get("fault_plan"), hedge_policy=args.get("hedge_policy"),
+                telemetry=self.telemetry, quarantine=self.quarantine,
+                default_columns=sorted(n for n in self.schema.fields
+                                       if n in self._stored_schema.fields),
+                decode_verdict=args.get("decode_verdict"),
+                decode_threads=args.get("decode_threads"))
+        return self._lookup_plane
+
+    def lookup(self, keys, field=None, columns=None, on_missing="error"):
+        """Keyed point reads: the decoded rows holding each value of
+        ``field``, in key order, co-resident keys served by one row-group
+        read and warm groups from the decoded cache. The cells equal an
+        epoch read's of the same rows. Needs the store's field index
+        (:func:`petastorm_tpu_torch.index.build_field_index`); predicates,
+        transforms and shuffles do not apply."""
+        return self._ensure_lookup_plane().lookup(keys, field=field, columns=columns,
+                                                  on_missing=on_missing)
+
+    def dataset_view(self, columns=None):
+        """A :class:`~petastorm_tpu_torch.index.DatasetView` over this
+        reader's lookup plane: rows by global ordinal (the index's file
+        order, then group, then row), stable across a resume."""
+        from petastorm_tpu_torch.index import DatasetView
+        return DatasetView(self._ensure_lookup_plane(), columns=columns)
+
+    def cleanup_cache(self):
+        """Remove this reader's cache contents (a disk cache made with
+        ``cache_extra_settings={"cleanup": True}`` deletes its directory);
+        a no-op without a cache."""
+        if self._cache is None:
+            return
+        try:
+            self._cache.cleanup()
+        except OSError as e:
+            logger.warning("Error cleaning cache: %s", e)
+
     def watchdog_report(self) -> dict:
         """The watchdog's state: hangs detected and recovered, the ladder's
         stage, whether it aborted, the latest stack dump. Empty without
@@ -2112,6 +2222,8 @@ class Reader:
         if self._telemetry_exporter is not None:
             self._telemetry_exporter.stop()
             self._telemetry_exporter = None
+        if self._lookup_plane is not None:
+            self._lookup_plane.close()
         self._pool.stop()
         if self.readahead is not None:
             # After the pool: a worker waiting in a pop sees the stop and

@@ -45,6 +45,8 @@ for the item, dropped on a retry); inline reads count ``io.bytes_read`` and
 ``io.rowgroups_read``. With a decoded cache (the reader's
 ``memory_cache_size_bytes``) a group without a predicate is read and
 decoded whole once and kept decoded; the rows handed out copy its cells.
+With the disk cache (``cache_type="local-disk"``) its raw columns are kept
+and decoded on every retrieval.
 """
 from __future__ import annotations
 
@@ -322,18 +324,19 @@ def _numeric_values(col) -> np.ndarray:
     return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
 
-def _column_values(col):
+def _column_values(col, zero_copy: bool = True):
     """One pyarrow ChunkedArray as per-row values: null-free numeric columns
     as one numpy array, null-free binary columns as zero-copy memoryviews
     over the Arrow buffers (codecs copy on decode), anything else through
-    ``to_pylist``."""
+    ``to_pylist``. ``zero_copy=False`` gives binary cells as ``bytes``, so
+    the columns pickle (the disk cache)."""
     t = col.type
     if col.null_count == 0:
         if pa.types.is_integer(t) or pa.types.is_floating(t):
             return _numeric_values(col)
         if pa.types.is_boolean(t):
             return col.to_numpy()
-        if pa.types.is_binary(t) or pa.types.is_large_binary(t):
+        if zero_copy and (pa.types.is_binary(t) or pa.types.is_large_binary(t)):
             off_dtype = np.int64 if pa.types.is_large_binary(t) else np.int32
             itemsize = np.dtype(off_dtype).itemsize
             out = []
@@ -433,8 +436,8 @@ class RowReaderWorker(WorkerBase):
     store's files are reached; ``retry_policy``, ``degraded_mode``,
     ``fault_plan``, ``stage_deadline``, ``hedge_policy``, ``cancel_token``,
     ``readahead`` and ``resilience_telemetry`` (all optional), read by
-    :func:`init_resilience`; ``cache``, the reader's decoded cache (or
-    None); ``plan_fusions``, the plan's applied fusions
+    :func:`init_resilience`; ``cache``, the reader's decoded or disk
+    cache (or None); ``plan_fusions``, the plan's applied fusions
     (``mask_decode_transform``).
 
     Its counters (:meth:`take_counters`): ``images_native``, the image
@@ -549,23 +552,30 @@ class RowReaderWorker(WorkerBase):
         """``(columns, indices, decoded)`` of a group without a predicate:
         its raw columns read, or with a decoded cache (``caches_decoded``)
         its post-codec columns, whole, from the cache or read, decoded and
-        stored (``decoded`` True). The drop partition and the shuffle are
-        taken after, so a hit never freezes an epoch's order."""
+        stored (``decoded`` True), or with the disk cache its raw columns
+        from the cache or read and stored (decoded again on every
+        retrieval). The drop partition and the shuffle are taken after, so
+        a hit never freezes an epoch's order."""
         cache = self.args.get("cache")
         decoded = getattr(cache, "caches_decoded", False)
         if decoded:
             data = cache.get(self._cache_key(rowgroup, self._needed) + ":decoded",
                              lambda: self._decode_all_columns(rowgroup))
+        elif cache is not None:
+            data = cache.get(self._cache_key(rowgroup, self._needed),
+                             lambda: self._read_columns(rowgroup, self._needed,
+                                                        zero_copy=False)[0])
         else:
             data, _ = self._read_columns(rowgroup, self._needed)
         num_rows = len(next(iter(data.values()))) if data else 0
         indices = select_drop_partition(num_rows, *drop_part, self.args["shuffle_rows"], rng)
         return data, indices, decoded
 
-    def _decode_all_columns(self, rowgroup) -> dict:
+    def _decode_all_columns(self, rowgroup, needed=None) -> dict:
         """A decoded cache's fill: every row of the group read and decoded
-        in stored order (only the decode plan's columns)."""
-        data, num_rows = self._read_columns(rowgroup, self._needed)
+        in stored order (the decode plan's columns, or ``needed``'s)."""
+        data, num_rows = self._read_columns(rowgroup, self._needed if needed is None
+                                            else needed)
         return self._decode_columns(data, np.arange(num_rows))
 
     def _cols_from_decoded(self, cols: dict, indices) -> dict:
@@ -595,11 +605,13 @@ class RowReaderWorker(WorkerBase):
             return copy.deepcopy(v)
         return v
 
-    def _read_columns(self, rowgroup, columns):
+    def _read_columns(self, rowgroup, columns, zero_copy: bool = True):
         """``({column: per-row values}, rows)`` of the row group's
-        ``columns``, hive partition keys included."""
+        ``columns``, hive partition keys included (``zero_copy=False``:
+        values that pickle, :func:`_column_values`)."""
         table = read_row_group_maybe_hedged(self, rowgroup, columns)
-        data = {name: _column_values(table.column(name)) for name in table.column_names}
+        data = {name: _column_values(table.column(name), zero_copy)
+                for name in table.column_names}
         # Hive partition keys are path components, not file columns.
         for key, value in rowgroup.partition_values:
             if key in columns and key not in data:

@@ -1482,3 +1482,26 @@ def test_ops_plane_on_card_publishes_what_k1_consumed(cuda_device, tmp_path):
         assert reader.telemetry.metrics_view()["counters"].get("fabric.send_errors", 0) == 0
     finally:
         agg.stop()
+
+
+def test_gathered_lookup_on_card_feeds_k1_bit_equal_to_the_cpu(cuda_device, tmp_path):
+    """Rows looked up through the field index and gathered onto ``cuda:0``
+    in one transfer: the cells equal the rows', and K1 of the gathered
+    batch is bit-equal to the plain version on the CPU."""
+    from petastorm_tpu_torch.index import build_field_index, gather_rows
+    url = _image_store(tmp_path, rows=64)
+    build_field_index(url, ["id"])
+    keys = [int(k) for k in np.random.default_rng(3).choice(64, 24, replace=False)]
+    kernels.reset_launch_counts()
+    with make_reader(url, reader_pool_type="thread", workers_count=2) as reader:
+        rows = reader.lookup(keys)
+        batch = gather_rows(rows, fields=["id", "image"])
+        host = gather_rows(rows, fields=["id", "image"], device="cpu")
+    assert {t.device for t in batch.values()} == {torch.device("cuda", 0)}
+    assert batch["id"].tolist() == keys
+    assert torch.equal(batch["image"].cpu(), torch.from_numpy(np.stack([r["image"] for r in rows])))
+    out = normalize_images(batch["image"])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts[KERNEL_NAME] == 1
+    assert torch.equal(out.cpu().view(torch.int16),
+                       normalize_images_plain(host["image"]).view(torch.int16))

@@ -134,7 +134,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.plan.lowering", "petastorm_tpu_torch.plan.fusion",
             "petastorm_tpu_torch.plan.cache", "petastorm_tpu_torch.plan.optimizer",
             "petastorm_tpu_torch.explain", "petastorm_tpu_torch.explain.spec",
-            *OPS_PLANE_MODULES} <= set(modules)
+            *OPS_PLANE_MODULES, *INDEX_MODULES} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -216,7 +216,16 @@ WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
                   "petastorm_tpu_torch.cache", "petastorm_tpu_torch.autotune",
                   "petastorm_tpu_torch.autotune.mem_cache",
                   "petastorm_tpu_torch.autotune.budget",
-                  "petastorm_tpu_torch.reader_impl.readahead")
+                  "petastorm_tpu_torch.reader_impl.readahead",
+                  # ... or reopens its disk cache.
+                  "petastorm_tpu_torch.local_disk_cache")
+
+#: The disk cache and the random-access plane (its gather imports torch
+#: only where it stages tensors).
+INDEX_MODULES = ("petastorm_tpu_torch.local_disk_cache", "petastorm_tpu_torch.index",
+                 "petastorm_tpu_torch.index.sidecar", "petastorm_tpu_torch.index.build",
+                 "petastorm_tpu_torch.index.lookup", "petastorm_tpu_torch.index.view",
+                 "petastorm_tpu_torch.index.gather")
 
 #: The telemetry core: workers record spans and ship them to the parent, so
 #: it imports without torch (and without the JAX package's telemetry), and so
@@ -242,6 +251,15 @@ def test_worker_modules_import_without_torch():
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr[-3000:]
+
+
+def test_index_plane_imports_with_torch_blocked():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKER, *INDEX_MODULES], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO),
+                               "BLOCK_ALSO": "torch"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"imported {len(INDEX_MODULES)}" in proc.stdout
 
 
 def test_telemetry_imports_with_torch_blocked():

@@ -126,3 +126,31 @@ def _leaf_names(params):
             names.append(key)
     assert all(leaf(params, n) is t for n, t in zip(names, llama.param_leaves(params)))
     return names
+
+
+def test_forkserver_ranks_give_the_spawned_ranks_results(monkeypatch):
+    """``launch.START_METHOD = "forkserver"`` (ranks forked from one server
+    that imported torch once) runs the same rank function to the same
+    results as the default spawn, twice over one server."""
+    from petastorm_tpu_torch.parallel import launch
+    cfg = dict(CFG)
+    jax_params = jax.tree.map(np.asarray, jax_llama.init_params(jax.random.PRNGKey(0),
+                                                                jax_llama.LlamaConfig(**cfg)))
+    tokens = np.random.default_rng(4).integers(0, cfg["vocab"], (2, 32)).astype(np.int32)
+    args = (jax_params, cfg, tokens, STRATEGIES[:1])
+    spawned = run_ranks(torch_seq_ranks.train_step_cases, P, args=args, device="cpu",
+                        timeout_s=300)
+    monkeypatch.setattr(launch, "START_METHOD", "forkserver")
+    for _ in range(2):
+        forked = run_ranks(torch_seq_ranks.train_step_cases, P, args=args, device="cpu",
+                           timeout_s=300)
+        for a, b in zip(spawned, forked):
+            for name in a:
+                loss_a, grads_a, params_a = a[name]
+                loss_b, grads_b, params_b = b[name]
+                assert loss_a == loss_b
+                assert all(torch.equal(x, y) for x, y in zip(grads_a + params_a,
+                                                             grads_b + params_b))
+    monkeypatch.setattr(launch, "START_METHOD", "fork")
+    with pytest.raises(ValueError, match="START_METHOD"):
+        run_ranks(torch_seq_ranks.train_step_cases, P, args=args, device="cpu")
