@@ -1,13 +1,13 @@
 """Batched gather: looked-up rows -> one tensor a field on the device (the
 JAX package's ``petastorm_tpu/index/gather.py``).
 
-Each field's cells are stacked once into a host array; the arrays are
-copied into one pinned host buffer, each at a 64-byte aligned offset, and
-the buffer goes to the device in one transfer; each field is a typed view
-of the device copy. The device is the one
+Each field's cells are stacked once, straight into its typed view of one
+pinned host buffer (each field at a 64-byte aligned offset), and the buffer
+goes to the device in one transfer; each field is a typed view of the
+device copy. The device is the one
 :func:`~petastorm_tpu_torch.loader.loader.resolve_device` picks: the card by
 default, the CPU only when ``device="cpu"`` is asked (then the stacked
-arrays are the tensors' memory, no pinned copy).
+arrays are the tensors' memory, no pinned buffer).
 
 Lifetime: the tensors alias no cache entry, no Arrow buffer and no looked-up
 row (the stack copies), so a gathered batch pins nothing upstream: the
@@ -45,47 +45,52 @@ def gather_rows(rows: Sequence[dict], fields: Optional[Sequence[str]] = None,
         return {}
     explicit = fields is not None
     names = list(fields) if explicit else list(rows[0].keys())
-    cols: Dict[str, np.ndarray] = {}
+    cols: Dict[str, tuple] = {}
     for name in names:
         try:
-            arr = np.stack([np.asarray(r[name]) for r in rows])
+            cells = [np.asarray(r[name]) for r in rows]
+            shape = cells[0].shape
+            if any(c.shape != shape for c in cells):
+                raise ValueError("all input arrays must have the same shape")
+            dtype = np.result_type(*cells)
         except (ValueError, TypeError, KeyError) as e:
             if explicit:
                 raise TypeError(f"field {name!r} does not stack into a uniform array ({e}); "
                                 f"gather needs fixed-shape numeric fields") from e
             continue
-        if arr.dtype == object or arr.dtype.kind in "USmM":
+        if dtype == object or dtype.kind in "USmM":
             if explicit:
-                raise TypeError(f"field {name!r} stacks to dtype {arr.dtype}, which no "
+                raise TypeError(f"field {name!r} stacks to dtype {dtype}, which no "
                                 f"tensor holds; drop it from fields=")
-            logger.debug("gather: skipping the field %r (%s)", name, arr.dtype)
+            logger.debug("gather: skipping the field %r (%s)", name, dtype)
             continue
-        cols[name] = arr
+        cols[name] = (cells, dtype, (len(cells),) + shape)
     if telemetry is not None:
         telemetry.counter("index.gather_rows_total").add(len(rows))
-    if not to_device:
-        return cols
-    return _to_device(cols, device)
+    if to_device:
+        return _to_device(cols, device)
+    return {k: np.stack(cells) for k, (cells, _, _) in cols.items()}
 
 
-def _to_device(cols: Dict[str, np.ndarray], device) -> dict:
-    """The columns as tensors on ``device``: one pinned host buffer, one
+def _to_device(cols: Dict[str, tuple], device) -> dict:
+    """The columns ``{name: (cells, dtype, shape)}`` as tensors on
+    ``device``: each stacked into its view of one pinned host buffer, one
     transfer, a typed view a field."""
     import torch
 
     from petastorm_tpu_torch.loader.loader import resolve_device
     dev = resolve_device(device)
     if dev.type == "cpu":
-        return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in cols.items()}
+        return {k: torch.from_numpy(np.stack(cells)) for k, (cells, _, _) in cols.items()}
     layout, pos = [], 0
-    for k, v in cols.items():
-        dtype = torch.from_numpy(np.empty(0, v.dtype)).dtype
-        layout.append((k, v, dtype, pos))
-        pos += -(-v.nbytes // GATHER_ALIGN) * GATHER_ALIGN
+    for k, (cells, dtype, shape) in cols.items():
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        layout.append((k, cells, dtype, shape, pos, nbytes))
+        pos += -(-nbytes // GATHER_ALIGN) * GATHER_ALIGN
     host = torch.empty(max(pos, 1), dtype=torch.uint8, pin_memory=True)
     host_np = host.numpy()
-    for k, v, dtype, off in layout:
-        host_np[off:off + v.nbytes] = np.ascontiguousarray(v).reshape(-1).view(np.uint8)
+    for k, cells, dtype, shape, off, nbytes in layout:
+        np.stack(cells, out=host_np[off:off + nbytes].view(dtype).reshape(shape))
     on_device = host.to(dev)
-    return {k: on_device[off:off + v.nbytes].view(dtype).view(v.shape)
-            for k, v, dtype, off in layout}
+    return {k: on_device[off:off + nbytes].view(torch.from_numpy(np.empty(0, dtype)).dtype)
+            .view(shape) for k, cells, dtype, shape, off, nbytes in layout}

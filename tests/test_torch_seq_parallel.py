@@ -128,29 +128,34 @@ def _leaf_names(params):
     return names
 
 
-def test_forkserver_ranks_give_the_spawned_ranks_results(monkeypatch):
-    """``launch.START_METHOD = "forkserver"`` (ranks forked from one server
-    that imported torch once) runs the same rank function to the same
-    results as the default spawn, twice over one server."""
+def test_forkserver_ranks_give_the_spawned_ranks_results():
+    """Ranks fork from one server (started ahead by ``start_fork_server``,
+    then reused by every call): two calls give bit-equal results, the
+    single-process step's within the module's bars."""
+    import multiprocessing.forkserver
+
     from petastorm_tpu_torch.parallel import launch
+    launch.start_fork_server()
+    server = multiprocessing.forkserver._forkserver._forkserver_pid
     cfg = dict(CFG)
     jax_params = jax.tree.map(np.asarray, jax_llama.init_params(jax.random.PRNGKey(0),
                                                                 jax_llama.LlamaConfig(**cfg)))
     tokens = np.random.default_rng(4).integers(0, cfg["vocab"], (2, 32)).astype(np.int32)
     args = (jax_params, cfg, tokens, STRATEGIES[:1])
-    spawned = run_ranks(torch_seq_ranks.train_step_cases, P, args=args, device="cpu",
-                        timeout_s=300)
-    monkeypatch.setattr(launch, "START_METHOD", "forkserver")
-    for _ in range(2):
-        forked = run_ranks(torch_seq_ranks.train_step_cases, P, args=args, device="cpu",
-                           timeout_s=300)
-        for a, b in zip(spawned, forked):
-            for name in a:
-                loss_a, grads_a, params_a = a[name]
-                loss_b, grads_b, params_b = b[name]
-                assert loss_a == loss_b
-                assert all(torch.equal(x, y) for x, y in zip(grads_a + params_a,
-                                                             grads_b + params_b))
-    monkeypatch.setattr(launch, "START_METHOD", "fork")
-    with pytest.raises(ValueError, match="START_METHOD"):
-        run_ranks(torch_seq_ranks.train_step_cases, P, args=args, device="cpu")
+    first, second = (run_ranks(torch_seq_ranks.train_step_cases, P, args=args, device="cpu",
+                               timeout_s=300) for _ in range(2))
+    assert multiprocessing.forkserver._forkserver._forkserver_pid == server
+    want_loss, want_grads, want_params = _single_step(
+        llama.params_from_jax(jax_params, device="cpu"), llama.LlamaConfig(**cfg),
+        torch.from_numpy(tokens), torch.float32)
+    for a, b in zip(first, second):
+        for name in a:
+            loss_a, grads_a, params_a = a[name]
+            loss_b, grads_b, params_b = b[name]
+            assert loss_a == loss_b
+            assert all(torch.equal(x, y) for x, y in zip(grads_a + params_a, grads_b + params_b))
+            np.testing.assert_allclose(loss_a, want_loss, rtol=1e-4, err_msg=name)
+            for got, want in zip(grads_a, want_grads):
+                assert (got - want).abs().max() <= 1e-4 * want.abs().max(), name
+            for got, want in zip(params_a, want_params):
+                torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

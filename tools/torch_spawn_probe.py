@@ -1,8 +1,8 @@
 """What a ``chip_smoke.py`` rank pays before its work, on the card's host:
 the import of ``chip_smoke`` (and so of torch) in a fresh interpreter, then
-ranks started by ``parallel.launch.run_ranks`` with ``START_METHOD`` spawn
-and forkserver (each rank: CUDA's start and gloo's rendezvous), and a spawn
-whose argument is 7 GB of host tensors (moved into shared memory).
+ranks started by ``parallel.launch.run_ranks`` (forked from its fork
+server; each rank: CUDA's start and gloo's rendezvous), and ranks whose
+argument is 7 GB of host tensors (moved into shared memory).
 
     python tools/torch_spawn_probe.py        # needs the card
 """
@@ -48,13 +48,10 @@ if __name__ == "__main__":
     print("import chip_smoke in a fresh interpreter, largest cumulative us:\n"
           + "\n".join(rows[:6]))
     print(f"this process's import of chip_smoke: {T_IMPORT1 - T_IMPORT0:.2f} s")
-    for method in ("spawn", "forkserver"):
-        launch.START_METHOD = method
-        for world in (2, 4, 2):
-            seconds, res = _timed(_noop_rank, world)
-            print(f"{method}, {world} ranks: {seconds} s; {res}")
-    launch.START_METHOD = "spawn"
+    for world in (2, 4, 2):
+        seconds, res = _timed(_noop_rank, world)
+        print(f"{world} ranks: {seconds} s; {res}")
     blob = torch.ones(int(7e9) // 4)
     for label in ("7 GB host argument", "the same argument, already shared"):
         seconds, res = _timed(_arg_rank, 2, blob)
-        print(f"spawn, 2 ranks, {label}: {seconds} s; {res}")
+        print(f"2 ranks, {label}: {seconds} s; {res}")
