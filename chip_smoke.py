@@ -513,6 +513,38 @@ result line):
    same ids, a missing key raises (``on_missing="error"``) or is dropped
    (``"skip"``); ``index.lookup_s``'s p99 is logged beside the SLO's 0.010 s.
    Launches are reset before the phase and read after it: K1 once a batch.
+27. live appending datasets, failed past ``PH27_BUDGET_S`` seconds, each
+   part under ``PH27_PART_TIMEOUT_S``. The store (written on the host
+   thread after phases 4's and 9's): 8 files of one 64-row group of
+   224x224x3 JPEG q90 rows (ids 0-511, phase 4's row maker), 4 growth files
+   with ids 512-767 and a file whose ``id`` is float32; each part reads a
+   copy of the base store and appends to it. The readers read in drop
+   partitions of 8 rows (``PH27_DROP``), so 8 threads' ventilation stays
+   within an epoch of the consumer and growth staged before the first pull
+   joins at epoch 1. (a) ``make_reader(refresh_interval_s=0.25,
+   sample_order="deterministic", num_epochs=3)`` on 8 threads while a
+   producer thread appends the 4 files (the second torn, completed once a
+   poll has seen it torn) and the drifted one; once the watcher has settled,
+   ``DataLoader(256)`` -> K1 (bit-equal on every batch) -> phase 9's
+   ResNet-50 step on every batch: epoch 0 equals the base store's stream,
+   every later epoch the base ids and those of the growth effective by then,
+   each once; the torn file ends ``admitted_after_retry``, the drifted one is
+   refused, ``max_admission_lag_s`` is at most 2 polls (logged with
+   ``discovery.ingest_lag_s`` and the samples/s). (b) ``refresh_interval_s=0``:
+   the appends, then ``refresh_dataset()`` reports 4 admissions effective at
+   epoch 1; two epochs into K1, cut by the loader's ``state_dict()`` after 3
+   batches (mid-epoch, after the growth); ``reset()`` rebases (its epoch 0
+   holds all 768 ids); the cut resumed on 2 processes gives the uncut run's
+   rest, per-id K1 fingerprints of the bf16 bits. (c) ``MeshDataLoader`` on 4
+   simulated hosts (batch 128, 3 epochs) with a standalone ``DatasetWatcher``:
+   ``admit_growth(snapshot.total_row_groups)`` after batch 1 (the next
+   planned epoch shards the grown range), then after epoch 0's batches
+   ``admit_growth(..., fold_into_live_epoch=True)``; every id comes once an
+   epoch through K1, ``mesh.growth_admitted`` counts 4. (d)
+   ``WeightedSamplingReader`` (0.25, 0.75) over a static member and a growing
+   one -> K1: each appended id once, the growing member starved once, the
+   mixer's registry holds ``mixer.m0.*`` and ``mixer.m1.*``. Launches are
+   reset before the phase and read after it: K1 once a batch.
 
 A run that reaches ``RUN_LIMIT_S`` prints every thread's stack and exits
 non-zero (``faulthandler``).
@@ -531,6 +563,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -996,6 +1029,23 @@ PH26_PROCESS_WORKERS = 2
 PH26_ROUNDS, PH26_KEYS = 4, 256
 PH26_BUDGET_S = 60.0
 PH26_PART_TIMEOUT_S = 150.0
+# Live data (phase 27): the store's base and growth files (one group of
+# ROWS_PER_GROUP rows a file), the background poll's period, the drop
+# partitions that keep ventilation within an epoch of the consumer (8
+# threads run up to 32 items ahead; an epoch of 8-row items is 64 of them,
+# so growth staged before the first pull joins at epoch 1), the epochs of
+# (a) and (c), (b)'s cut (in batches) and processes, (c)'s hosts and batch,
+# (d)'s weights (static, growing), the phase's budget and each part's
+# timeout.
+PH27_BASE_FILES, PH27_GROWTH_FILES = 8, 4
+PH27_POLL_S = 0.25
+PH27_DROP = 8
+PH27_EPOCHS = 3
+PH27_CUT, PH27_PROCESS_WORKERS = 3, 2
+PH27_MESH_HOSTS, PH27_MESH_BATCH = 4, 128
+PH27_MIX = (0.25, 0.75)
+PH27_BUDGET_S = 45.0
+PH27_PART_TIMEOUT_S = 60.0
 #: The global overrun guard: past this, every thread's stack is printed and
 #: the script exits non-zero (a run of this script is given 1,200 s).
 RUN_LIMIT_S = 1170
@@ -1233,22 +1283,28 @@ def smooth_image(rng) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def write_slice_store(tmp: str) -> float:
-    """Phase 4's store under ``tmp``; -> its seconds. Row i's image is
-    drawn from its own seed, so the rows of a group are made on WORKERS
-    threads (numpy's generators release the GIL) and written in order."""
-    url = f"file://{tmp}/imagenet_like"
+def write_image_rows(url: str, ids: range, rows_per_file=None) -> None:
+    """Rows ``ids`` of phase 4's schema into a store at ``url``. Row i's
+    image is drawn from its own seed, so the rows of a group are made on
+    WORKERS threads (numpy's generators release the GIL) and written in
+    order."""
     schema = Unischema("ImageNetLike", [
         UnischemaField("id", np.int64, (), ScalarCodec(np.int64), False),
         UnischemaField("image", np.uint8, IMAGE_SHAPE, CompressedImageCodec("jpeg", 90), False)])
-    t0 = time.perf_counter()
-    with materialize_dataset_local(url, schema, rows_per_row_group=ROWS_PER_GROUP) as w, \
+    with materialize_dataset_local(url, schema, rows_per_row_group=ROWS_PER_GROUP,
+                                   rows_per_file=rows_per_file) as w, \
             ThreadPoolExecutor(WORKERS) as pool:
-        for start in range(0, ROWS, ROWS_PER_GROUP):
-            ids = range(start, min(ROWS, start + ROWS_PER_GROUP))
-            for i, image in zip(ids, pool.map(
-                    lambda i: smooth_image(np.random.default_rng((1234, i))), ids)):
+        for start in range(ids.start, ids.stop, ROWS_PER_GROUP):
+            group = range(start, min(ids.stop, start + ROWS_PER_GROUP))
+            for i, image in zip(group, pool.map(
+                    lambda i: smooth_image(np.random.default_rng((1234, i))), group)):
                 w.write_row({"id": i, "image": image})
+
+
+def write_slice_store(tmp: str) -> float:
+    """Phase 4's store under ``tmp``; -> its seconds."""
+    t0 = time.perf_counter()
+    write_image_rows(f"file://{tmp}/imagenet_like", range(ROWS))
     return time.perf_counter() - t0
 
 
@@ -7106,12 +7162,12 @@ def _bounded(part: str, seconds: float, fn, *args):
             out.append(fn(*args))
         except BaseException as e:  # noqa: BLE001 - re-raised in the caller
             err.append(e)
-    thread = threading.Thread(target=run, name=f"phase 26 {part}", daemon=True)
+    thread = threading.Thread(target=run, name=f"phase {part}", daemon=True)
     thread.start()
     thread.join(seconds)
     if thread.is_alive():
         faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
-        raise TimeoutError(f"phase 26 {part}: not done after {seconds:.0f} s")
+        raise TimeoutError(f"phase {part}: not done after {seconds:.0f} s")
     if err:
         raise err[0]
     return out[0]
@@ -7350,15 +7406,15 @@ def phase_disk_cache_random_access(smi: str, slice_url: str, tmp: str) -> dict:
     path = f"{tmp}/disk_cache"
     seconds = {"set-up": time.perf_counter() - t_phase}
     t0 = time.perf_counter()
-    want = _bounded("(a)", PH26_PART_TIMEOUT_S, _ph26_disk_threads, smi, slice_url, path, step,
+    want = _bounded("26 (a)", PH26_PART_TIMEOUT_S, _ph26_disk_threads, smi, slice_url, path, step,
                     weights, failures)
     seconds["(a)"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _bounded("(b)", PH26_PART_TIMEOUT_S, _ph26_disk_processes, smi, slice_url, path, weights,
+    _bounded("26 (b)", PH26_PART_TIMEOUT_S, _ph26_disk_processes, smi, slice_url, path, weights,
              want, failures)
     seconds["(b)"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _bounded("(c)", PH26_PART_TIMEOUT_S, _ph26_random_access, smi, slice_url, step, failures)
+    _bounded("26 (c)", PH26_PART_TIMEOUT_S, _ph26_random_access, smi, slice_url, step, failures)
     seconds["(c)"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     del params, opt
@@ -7376,6 +7432,438 @@ def phase_disk_cache_random_access(smi: str, slice_url: str, tmp: str) -> dict:
     if failures:
         raise AssertionError("disk cache and random-access phase: " + "; ".join(failures))
     return {KERNEL_NAME: launches.get(KERNEL_NAME, 0)}
+
+
+def write_live_store(tmp: str) -> float:
+    """Phase 27's files under ``tmp``: ``base``, a store of PH27_BASE_FILES
+    files of one ROWS_PER_GROUP-row group (ids from 0); ``growth``, one of
+    PH27_GROWTH_FILES such files with the next ids, whose part files the
+    phase appends; and ``drift.parquet``, the first growth file with its id
+    column cast to float32. Rows as phase 4's. -> seconds."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    t0 = time.perf_counter()
+    n_base = PH27_BASE_FILES * ROWS_PER_GROUP
+    write_image_rows(f"file://{tmp}/base", range(n_base), rows_per_file=ROWS_PER_GROUP)
+    write_image_rows(f"file://{tmp}/growth",
+                     range(n_base, n_base + PH27_GROWTH_FILES * ROWS_PER_GROUP),
+                     rows_per_file=ROWS_PER_GROUP)
+    table = pq.read_table(f"{tmp}/growth/part-00000.parquet")
+    column = table.schema.get_field_index("id")
+    pq.write_table(table.set_column(column, "id", table["id"].cast(pa.float32())),
+                   f"{tmp}/drift.parquet")
+    return time.perf_counter() - t0
+
+
+def _ph27_put(data: bytes, path: str) -> None:
+    """``data`` at ``path`` in one step: a hidden file (not a data file to
+    the listing), then a rename."""
+    hidden = os.path.join(os.path.dirname(path), "." + os.path.basename(path))
+    with open(hidden, "wb") as f:
+        f.write(data)
+    os.replace(hidden, path)
+
+
+def _ph27_append(src: str, dst: str, k: int, torn: bool = False) -> str:
+    """Growth file ``k`` into the store ``dst`` as ``part-1000k`` (after the
+    base's files in the sorted listing), whole, or torn: its first half
+    written in place. -> its path."""
+    with open(f"{src}/growth/part-{k:05d}.parquet", "rb") as f:
+        data = f.read()
+    path = f"{dst}/part-{10000 + k:05d}.parquet"
+    if torn:
+        with open(path, "wb") as f:
+            f.write(data[:len(data) // 2])
+    else:
+        _ph27_put(data, path)
+    return path
+
+
+def _ph27_store(src: str, tmp: str, name: str) -> str:
+    """A copy of the base store under ``tmp``: its path."""
+    path = f"{tmp}/{name}"
+    shutil.copytree(f"{src}/base", path)
+    return path
+
+
+def _ph27_wait(what: str, done, seconds: float = 10.0):
+    """Poll ``done()`` until it returns a true value (returned) or
+    ``seconds`` pass (``TimeoutError`` naming ``what``)."""
+    deadline = time.monotonic() + seconds
+    while True:
+        value = done()
+        if value:
+            return value
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"phase 27: {what} not seen after {seconds:.0f} s")
+        time.sleep(0.02)
+
+
+def _ph27_k1(batch, weights):
+    """K1 on a batch's images: ``(images, mismatches against the plain
+    version, one fingerprint a row)``."""
+    pixels = batch["image"]
+    images = normalize_images(pixels)
+    bad = (images.view(torch.int16) != normalize_images_plain(pixels).view(torch.int16)).sum()
+    return images, bad, fingerprint(images.view(torch.int16), weights)
+
+
+def _ph27_background(smi: str, src: str, tmp: str, step, weights, failures: list) -> dict:
+    """Phase 27 (a): the background watcher (see the module docstring)."""
+    root = _ph27_store(src, tmp, "live_a")
+    url = f"file://{root}"
+    kw = dict(reader_pool_type="thread", workers_count=WORKERS, seed=27,
+              sample_order="deterministic", shuffle_row_drop_partitions=PH27_DROP)
+    n_base = PH27_BASE_FILES * ROWS_PER_GROUP
+    with make_reader(url, schema_fields=["id"], num_epochs=1, **kw) as r:
+        control = [int(row.id) for row in r]
+    t0 = time.perf_counter()
+    with make_reader(url, refresh_interval_s=PH27_POLL_S, num_epochs=PH27_EPOCHS, **kw) as r:
+        torn = f"{root}/part-{10001:05d}.parquet"
+
+        def pending():
+            return [a["path"] for a in r.dataset_growth_report()["discovery"]["pending"]]
+
+        def produce():
+            # Four files with new ids (the second torn, completed once a
+            # poll has seen it torn), then a file whose id changed type.
+            for k in range(PH27_GROWTH_FILES):
+                _ph27_append(src, root, k, torn=k == 1)
+            _ph27_wait("the torn file pending", lambda: torn in pending())
+            _ph27_append(src, root, 1)
+            with open(f"{src}/drift.parquet", "rb") as f:
+                _ph27_put(f.read(), f"{root}/part-20000.parquet")
+        producer = threading.Thread(target=produce, name="phase 27 producer", daemon=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)   # the refusal's warning
+            producer.start()
+
+            def settled():
+                disc = r.dataset_growth_report()["discovery"]
+                return len(disc["admissions"]) == PH27_GROWTH_FILES and disc["refused"]
+            _ph27_wait("the admissions", settled)
+            producer.join(10)
+        waited = time.perf_counter() - t0
+        ids, bad = [], []
+        t1 = time.perf_counter()
+        for batch in DataLoader(r, batch_size=BATCH, device="cuda"):
+            images, mismatches, _ = _ph27_k1(batch, weights)
+            step(images, batch["id"])
+            bad.append(mismatches)
+            ids.append(batch["id"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        report = r.dataset_growth_report()
+        by_state = dict(r.quarantine_report()["by_state"])
+        gauges = r.telemetry.snapshot()["gauges"]
+    ids = torch.cat(ids).tolist()
+    bad = [int(m.item()) for m in bad]
+    disc = report["discovery"]
+    lag = disc["max_admission_lag_s"]
+    # Rows an epoch: the base's and the files whose growth took effect.
+    sizes = [n_base + sum(ROWS_PER_GROUP * len(b["files"]) for b in report["applied"]
+                          if b["epoch"] <= e) for e in range(PH27_EPOCHS)]
+    epochs, at = [], 0
+    for size in sizes:
+        epochs.append(ids[at:at + size])
+        at += size
+    log(f"[live] (a) ({smi}) {WORKERS} threads, refresh_interval_s={PH27_POLL_S}, "
+        f"{PH27_EPOCHS} epochs, drop partitions {PH27_DROP} -> DataLoader({BATCH}) -> K1 -> "
+        f"ResNet-50: admissions settled after {waited:.2f} s; applied "
+        f"{[(b['epoch'], len(b['files']), b['items']) for b in report['applied']]}; refused "
+        f"{[os.path.basename(a['path']) for a in disc['refused']]}; quarantine {by_state}; "
+        f"max_admission_lag_s {lag} (bar {2 * PH27_POLL_S}), discovery.ingest_lag_s "
+        f"{gauges.get('discovery.ingest_lag_s', float('nan')):.3f}; {len(ids)} rows in "
+        f"{seconds:.3f} s ({len(ids) / seconds:.1f} samples/s), epochs of {sizes} rows")
+    grown_ids = set(range(n_base, n_base + PH27_GROWTH_FILES * ROWS_PER_GROUP))
+    if len(ids) != sum(sizes) or epochs[0] != control:
+        failures.append(f"(a) {len(ids)} rows against epochs of {sizes}; epoch 0 equal to the "
+                        f"base store's stream {epochs[0] == control}")
+    for e in range(1, PH27_EPOCHS):
+        files = {int(os.path.basename(f)[5:10]) - 10000 for b in report["applied"]
+                 if b["epoch"] <= e for f, _ in b["files"]}
+        want = sorted(list(range(n_base)) + [i for k in files
+                                             for i in range(n_base + k * ROWS_PER_GROUP,
+                                                            n_base + (k + 1) * ROWS_PER_GROUP)])
+        if sorted(epochs[e]) != want:
+            failures.append(f"(a) epoch {e}: {len(epochs[e])} rows, not the base and the "
+                            f"admitted files' ids once each")
+    if not set(ids) >= grown_ids:
+        failures.append("(a) the appended ids never reached K1")
+    if any(bad):
+        failures.append(f"(a) K1 not bit-equal: {bad}")
+    if by_state != {"admitted_after_retry": 1}:
+        failures.append(f"(a) the torn file's quarantine record: {by_state}")
+    if len(disc["refused"]) != 1 or not disc["refused"][0]["path"].endswith("part-20000.parquet"):
+        failures.append(f"(a) refused {disc['refused']}")
+    if lag > 2 * PH27_POLL_S:
+        failures.append(f"(a) max_admission_lag_s {lag} > {2 * PH27_POLL_S}")
+    return {"samples_per_s": len(ids) / seconds, "lag_s": lag, "applied": report["applied"]}
+
+
+def _ph27_between_epochs(smi: str, src: str, tmp: str, weights, failures: list) -> None:
+    """Phase 27 (b): ``refresh_dataset()``, ``reset()`` and a resume on 2
+    processes (see the module docstring)."""
+    root = _ph27_store(src, tmp, "live_b")
+    url = f"file://{root}"
+    n_base = PH27_BASE_FILES * ROWS_PER_GROUP
+    n_all = n_base + PH27_GROWTH_FILES * ROWS_PER_GROUP
+    kw = dict(workers_count=WORKERS, seed=27, sample_order="deterministic", num_epochs=2,
+              shuffle_row_drop_partitions=PH27_DROP, refresh_interval_s=0)
+
+    def stream(it, count=None):
+        """``(id, fingerprint)`` pairs of ``it``'s batches (``count`` of them,
+        or all) and K1's mismatches; the iterator is closed."""
+        out, bad = [], []
+        for batch in it:
+            _, mismatches, fps = _ph27_k1(batch, weights)
+            bad.append(mismatches)
+            out.append((batch["id"], fps))
+            if len(out) == count:
+                break
+        it.close()
+        pairs = [(i, f) for ids, fp in out for i, f in zip(ids.tolist(), fp.tolist())]
+        return pairs, [int(m.item()) for m in bad]
+
+    t0 = time.perf_counter()
+    with make_reader(url, reader_pool_type="thread", **kw) as r:
+        for k in range(PH27_GROWTH_FILES):
+            _ph27_append(src, root, k)
+        report = r.refresh_dataset()
+        loader = DataLoader(r, batch_size=BATCH, device="cuda")
+        it = iter(loader)
+        head, bad = [], []
+        for _ in range(PH27_CUT):
+            batch = next(it)
+            _, mismatches, fps = _ph27_k1(batch, weights)
+            bad.append(mismatches)
+            head += list(zip(batch["id"].tolist(), fps.tolist()))
+        cut = loader.state_dict()
+        tail, tail_bad = stream(it)
+        uncut_s = time.perf_counter() - t0
+        r.reset()
+        rebased = r.dataset_growth_report()
+        t1 = time.perf_counter()
+        again, again_bad = stream(iter(loader), n_all // BATCH)
+        reset_s = time.perf_counter() - t1
+    bad = [int(m.item()) for m in bad] + tail_bad + again_bad
+    t1 = time.perf_counter()
+    with make_reader(url, reader_pool_type="process", resume_state=cut,
+                     **{**kw, "workers_count": PH27_PROCESS_WORKERS}) as r:
+        resumed, resumed_bad = stream(iter(DataLoader(r, batch_size=BATCH, device="cuda")))
+    resume_s = time.perf_counter() - t1
+    disc = report["discovery"]
+    log(f"[live] (b) ({smi}) refresh_interval_s=0: refresh_dataset() admitted "
+        f"{len(disc['admissions'])} files, applied "
+        f"{[(b['epoch'], len(b['files']), b['items']) for b in report['applied']]}; "
+        f"{len(head) + len(tail)} rows in {uncut_s:.3f} s; cut after {PH27_CUT} batches "
+        f"(epoch {cut['epoch']}, offset {cut['offset']}, manifest of "
+        f"{len(cut['manifest']['base'])} + {len(cut['manifest']['growth'])} batch); reset() "
+        f"rebased to {rebased['items']} items, its epoch 0 {len(again)} rows in "
+        f"{reset_s:.3f} s; {PH27_PROCESS_WORKERS} processes resumed {len(resumed)} rows in "
+        f"{resume_s:.3f} s, equal to the uncut run {resumed == tail}")
+    if len(disc["admissions"]) != PH27_GROWTH_FILES or \
+            [b["epoch"] for b in report["applied"]] != [1]:
+        failures.append(f"(b) refresh_dataset(): {len(disc['admissions'])} admissions, applied "
+                        f"{report['applied']}")
+    ids = [i for i, _ in head + tail]
+    if sorted(ids) != sorted(list(range(n_base)) + list(range(n_all))):
+        failures.append(f"(b) the uncut run: {len(ids)} rows, not epoch 0's base and epoch 1's "
+                        f"grown ids once each")
+    if resumed != tail:
+        failures.append(f"(b) the resumed stream ({len(resumed)} rows) differs from the uncut "
+                        f"run's rest ({len(tail)} rows)")
+    if not cut["manifest"]["growth"]:
+        failures.append("(b) the cut cursor carries no growth")
+    if sorted(i for i, _ in again) != list(range(n_all)) or rebased["applied"] \
+            or len(rebased.get("discovery", {}).get("admissions", ())) != PH27_GROWTH_FILES:
+        failures.append(f"(b) after reset(): {len(again)} rows of epoch 0, applied "
+                        f"{rebased['applied']}")
+    if any(bad + resumed_bad):
+        failures.append(f"(b) K1 not bit-equal: {bad + resumed_bad}")
+
+
+def _ph27_mesh(smi: str, src: str, tmp: str, weights, failures: list) -> int:
+    """Phase 27 (c): ``MeshDataLoader.admit_growth`` fed by a standalone
+    watcher (see the module docstring). -> the batches."""
+    from petastorm_tpu_torch.discovery import DatasetSnapshot, DatasetWatcher
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext, load_row_groups
+    root = _ph27_store(src, tmp, "live_c")
+    url = f"file://{root}"
+    n_base = PH27_BASE_FILES * ROWS_PER_GROUP
+    ctx = DatasetContext(url)
+    watcher = DatasetWatcher(ctx, base_snapshot=DatasetSnapshot.from_row_groups(
+        load_row_groups(ctx)), reference_schema=ctx.arrow_schema())
+    half = PH27_GROWTH_FILES // 2
+    first_epoch_batches = n_base // PH27_MESH_BATCH
+
+    def admit(files, fold):
+        for k in files:
+            _ph27_append(src, root, k)
+        summary = watcher.poll_once()
+        watcher.drain_staged()
+        result = loader.admit_growth(watcher.snapshot.total_row_groups,
+                                     fold_into_live_epoch=fold)
+        return summary["admitted"], result
+
+    t0 = time.perf_counter()
+    ids, bad, results, plans = [], [], [], {}
+    loader = MeshDataLoader(MeshReaderFactory(url, workers_count=1), batch_size=PH27_MESH_BATCH,
+                            num_hosts=PH27_MESH_HOSTS, num_epochs=PH27_EPOCHS, seed=27,
+                            device="cuda")
+    with loader:
+        for i, batch in enumerate(loader):
+            _, mismatches, _ = _ph27_k1(batch, weights)
+            bad.append(mismatches)
+            ids.append(batch["id"])
+            if i == 0:
+                results.append(admit(range(half), False))
+                plans["after"] = loader.epoch_plan(results[0][1]["effective_epoch"])
+            elif i == first_epoch_batches:
+                results.append(admit(range(half, PH27_GROWTH_FILES), True))
+        counters = loader.telemetry.snapshot()["counters"]
+        events = loader.telemetry.events("mesh.growth")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ids = torch.cat(ids).tolist()
+    bad = [int(m.item()) for m in bad]
+    (admitted1, r1), (admitted2, r2) = results
+    want = collections.Counter({i: PH27_EPOCHS for i in range(n_base)})
+    for k in range(PH27_GROWTH_FILES):
+        r = r1 if k < half else r2
+        times = max(0, PH27_EPOCHS - r["effective_epoch"]) + (1 if r["folded"] else 0)
+        for i in range(n_base + k * ROWS_PER_GROUP, n_base + (k + 1) * ROWS_PER_GROUP):
+            want[i] = times
+    got = collections.Counter(ids)
+    grown_plan = sorted(o for host in plans["after"] for o in host)
+    log(f"[live] (c) ({smi}) MeshDataLoader on {PH27_MESH_HOSTS} hosts, batch "
+        f"{PH27_MESH_BATCH}, {PH27_EPOCHS} epochs -> K1, a standalone DatasetWatcher: "
+        f"admit_growth after batch 1 {r1}, after batch {first_epoch_batches + 1} with "
+        f"fold_into_live_epoch {r2}; mesh.growth_admitted "
+        f"{counters.get('mesh.growth_admitted', 0):.0f}, {len(events)} mesh.growth events; "
+        f"{len(ids)} rows in {seconds:.3f} s")
+    if (admitted1, admitted2) != (half, PH27_GROWTH_FILES - half) or r2["folded"] != half \
+            or r1["folded"]:
+        failures.append(f"(c) admissions {admitted1}, {admitted2}; admit_growth {r1}, {r2}")
+    if grown_plan != list(range(PH27_BASE_FILES + half)):
+        failures.append(f"(c) epoch {r1['effective_epoch']}'s plan covers {grown_plan}")
+    if got != want:
+        failures.append(f"(c) ids not once an epoch: {sum(got.values())} rows against "
+                        f"{sum(want.values())}, {sum(got[i] != want[i] for i in want)} ids off")
+    if counters.get("mesh.growth_admitted") != PH27_GROWTH_FILES or len(events) != 2:
+        failures.append(f"(c) mesh.growth_admitted {counters.get('mesh.growth_admitted')}, "
+                        f"{len(events)} events")
+    if any(bad):
+        failures.append(f"(c) K1 not bit-equal: {bad}")
+    return len(bad)
+
+
+def _ph27_mixer(smi: str, src: str, tmp: str, weights, failures: list) -> int:
+    """Phase 27 (d): a static and a growing member mixed into K1 (see the
+    module docstring). -> the batches."""
+    root = _ph27_store(src, tmp, "live_d")
+    n_base = PH27_BASE_FILES * ROWS_PER_GROUP
+    n_all = n_base + PH27_GROWTH_FILES * ROWS_PER_GROUP
+    kw = dict(workers_count=WORKERS, sample_order="deterministic",
+              shuffle_row_drop_partitions=PH27_DROP)
+    t0 = time.perf_counter()
+    static = make_reader(f"file://{src}/base", num_epochs=1, seed=1, **kw)
+    growing = make_reader(f"file://{root}", num_epochs=2, seed=2, refresh_interval_s=0, **kw)
+    for k in range(PH27_GROWTH_FILES):
+        _ph27_append(src, root, k)
+    applied = growing.refresh_dataset()["applied"]
+    mixer = WeightedSamplingReader([static, growing], PH27_MIX, seed=27)
+    ids, bad = [], []
+    with mixer:
+        for batch in DataLoader(mixer, batch_size=BATCH, drop_last=False, device="cuda"):
+            _, mismatches, _ = _ph27_k1(batch, weights)
+            bad.append(mismatches)
+            ids.append(batch["id"])
+        report = mixer.report()
+        snap = mixer.telemetry.snapshot()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ids = torch.cat(ids).tolist()
+    bad = [int(m.item()) for m in bad]
+    draws = [m["draws"] for m in report["members"]]
+    names = sorted(n for n in set(snap["counters"]) | set(snap["gauges"])
+                   if n.startswith("mixer."))
+    log(f"[live] (d) ({smi}) WeightedSamplingReader {PH27_MIX} over a static member and a "
+        f"growing one (applied {[(b['epoch'], b['items']) for b in applied]}) -> K1: "
+        f"{len(ids)} rows in {seconds:.3f} s, draws {draws}, starved "
+        f"{[m['starved'] for m in report['members']]}; registry {names}")
+    want_names = {f"mixer.m{i}.{n}" for i in (0, 1)
+                  for n in ("draws_total", "starved_total", "lag_s")}
+    if not want_names <= set(names) or snap["counters"]["mixer.m1.draws_total"] != draws[1]:
+        failures.append(f"(d) the mixer's registry: {names}")
+    grown = [i for i in ids if i >= n_base]
+    if sorted(grown) != list(range(n_base, n_all)) or report["members"][1]["starved"] != 1:
+        failures.append(f"(d) {len(grown)} appended rows through the mixer (want each of "
+                        f"{n_all - n_base} once), starved {report['members']}")
+    if any(bad):
+        failures.append(f"(d) K1 not bit-equal: {bad}")
+    return len(bad)
+
+
+def phase_live_data(smi: str, live_src: str, written, tmp: str) -> dict:
+    """Phase 27: live appending datasets on the store that ``written`` (a
+    future of :func:`write_live_store` under ``live_src``) holds, into K1
+    and ResNet-50 (see the module docstring). Returns the launches by
+    kernel name and (a)'s figures."""
+    failures = []
+    log(f"[live] wrote phase 27's store in {written.result():.2f} s, beside earlier phases")
+    kernels.reset_launch_counts()
+    t_phase = time.perf_counter()
+    params = resnet.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                IMAGENET_CLASSES, device="cuda")
+    init_opt, raw_step = resnet.make_train_step(learning_rate=0.05)
+    opt = init_opt(params)
+
+    def step(images, ids):
+        nonlocal params, opt
+        params, opt, _, _ = raw_step(params, opt, {"image": images,
+                                                   "label": ids % IMAGENET_CLASSES})
+    weights = torch.randint(1, 2 ** 16, (int(np.prod(IMAGE_SHAPE)),), dtype=torch.int64,
+                            generator=torch.Generator().manual_seed(27)).to("cuda")
+    seconds = {"set-up": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    background = _bounded("27 (a)", PH27_PART_TIMEOUT_S, _ph27_background, smi, live_src, tmp, step,
+                          weights, failures)
+    seconds["(a)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _bounded("27 (b)", PH27_PART_TIMEOUT_S, _ph27_between_epochs, smi, live_src, tmp, weights,
+             failures)
+    seconds["(b)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_batches = _bounded("27 (c)", PH27_PART_TIMEOUT_S, _ph27_mesh, smi, live_src, tmp, weights,
+                            failures)
+    seconds["(c)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mix_batches = _bounded("27 (d)", PH27_PART_TIMEOUT_S, _ph27_mixer, smi, live_src, tmp, weights,
+                           failures)
+    seconds["(d)"] = time.perf_counter() - t0
+    del params, opt
+    free_cuda()
+    launches = dict(kernels.launch_counts)
+    n_base = PH27_BASE_FILES * ROWS_PER_GROUP
+    n_all = n_base + PH27_GROWTH_FILES * ROWS_PER_GROUP
+    rows_a = sum(n_base + sum(ROWS_PER_GROUP * len(b["files"]) for b in background["applied"]
+                              if b["epoch"] <= e) for e in range(PH27_EPOCHS))
+    # (b): the uncut run (an epoch of the base, one grown), the rebased
+    # pass's epoch 0, the resumed rest.
+    batches_b = 2 * ((n_base + n_all) // BATCH) + n_all // BATCH - PH27_CUT
+    expect = rows_a // BATCH + batches_b + mesh_batches + mix_batches
+    total = time.perf_counter() - t_phase
+    log(f"[live] ({smi}) phase 27: {total:.1f} s (budget {PH27_BUDGET_S:.0f} s), by part "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }; launches {launches}")
+    if launches != {KERNEL_NAME: expect}:
+        failures.append(f"launches {launches}, expected {KERNEL_NAME}: {expect}")
+    if total > PH27_BUDGET_S:
+        failures.append(f"{total:.1f} s, over the phase's budget of {PH27_BUDGET_S:.0f} s")
+    if failures:
+        raise AssertionError("live data phase: " + "; ".join(failures))
+    return {KERNEL_NAME: launches.get(KERNEL_NAME, 0),
+            "samples_per_s": background["samples_per_s"], "lag_s": background["lag_s"]}
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -7407,11 +7895,13 @@ def main() -> int:
             tempfile.TemporaryDirectory() as train_tmp, \
             tempfile.TemporaryDirectory() as image_tmp, \
             tempfile.TemporaryDirectory() as columnar_tmp, \
+            tempfile.TemporaryDirectory() as live_tmp, \
             ThreadPoolExecutor(1) as writer:
         # Phases 4's and 9's stores are written on the host while nvcc builds
-        # the kernels.
+        # the kernels, phase 27's after them.
         written = writer.submit(write_slice_store, slice_tmp)
         imagenet_written = writer.submit(write_imagenet_store, image_tmp)
+        live_written = writer.submit(write_live_store, live_tmp)
         timed("2 build", phase_build)
         k1, k1_strided = timed("3 kernels", phase_kernels)
         launches = timed("4 slice", phase_slice, slice_tmp, written)
@@ -7480,6 +7970,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             disk = timed("26 disk cache + random access", phase_disk_cache_random_access, smi,
                          f"file://{slice_tmp}/imagenet_like", tmp)
+        free_cuda()
+        with tempfile.TemporaryDirectory() as tmp:
+            live = timed("27 live data", phase_live_data, smi, live_tmp, live_written, tmp)
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
@@ -7497,7 +7990,7 @@ def main() -> int:
                      + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]
                      + lazy[KERNEL_NAME] + conv[KERNEL_NAME] + tele[KERNEL_NAME]
                      + resil[KERNEL_NAME] + io_plane[KERNEL_NAME] + planning[KERNEL_NAME]
-                     + ops[KERNEL_NAME] + disk[KERNEL_NAME]),
+                     + ops[KERNEL_NAME] + disk[KERNEL_NAME] + live[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

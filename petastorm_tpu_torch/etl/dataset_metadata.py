@@ -30,6 +30,7 @@ from typing import Dict, List, Optional
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.errors import MetadataError, MetadataGenerationError
+from petastorm_tpu_torch.discovery.listing import list_data_files
 from petastorm_tpu_torch.fs_utils import get_filesystem_and_path_or_paths
 from petastorm_tpu_torch.predicates import _is_nan
 from petastorm_tpu_torch.unischema import Unischema
@@ -175,16 +176,6 @@ def load_row_group_stats(ctx: "DatasetContext", row_groups, columns, telemetry=N
     return out
 
 
-def is_data_file(path: str) -> bool:
-    """Hidden files and sidecars (``_metadata``, ``_common_metadata``,
-    dotfiles) are never data; ``*.parquet``/``*.parq`` or extension-less
-    files are."""
-    base = posixpath.basename(path)
-    if base.startswith(("_", ".")):
-        return False
-    return base.endswith((".parquet", ".parq")) or "." not in base
-
-
 class DatasetContext:
     """Resolved handle on one dataset root: filesystem, root path, and
     lazily read metadata key-values. ``storage_options`` and ``filesystem``
@@ -199,10 +190,12 @@ class DatasetContext:
         self._arrow_schema = None
 
     def file_paths(self) -> List[str]:
-        """Every data file under the root, sorted for deterministic plans."""
+        """Every data file under the root, sorted for deterministic plans,
+        listed through the discovery plane's one listing path under its
+        default retry policy (a plan-time context predates the reader's
+        fault plan, registry and deadline; the watcher's polls carry them)."""
         if self._file_paths is None:
-            self._file_paths = sorted(
-                f for f in self.filesystem.find(self.root_path) if is_data_file(f))
+            self._file_paths = list_data_files(self.filesystem, self.root_path)
         return self._file_paths
 
     def arrow_schema(self):

@@ -157,10 +157,10 @@ class CheckpointManager:
     def all_steps(self) -> List[int]:
         """The saved steps, ascending (steps still being written excluded)."""
         if self._fs is None:
-            names = os.listdir(self._dir)
+            names = os.listdir(self._dir)  # listing-ok: checkpoint steps, not dataset files
         elif self._fs.exists(self._dir):
             names = [p.rstrip("/").rsplit("/", 1)[-1]
-                     for p in self._fs.ls(self._dir, detail=False)]
+                     for p in self._fs.ls(self._dir, detail=False)]  # listing-ok: as above
         else:
             names = []
         return sorted(int(name) for name in names

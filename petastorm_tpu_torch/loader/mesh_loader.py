@@ -50,8 +50,20 @@ Cursor
 "num_hosts"}`` (plus ``"recovered"``, the ordinals delivered by recovery
 sources, and ``"resharded"`` after a reshard), the JAX loader's cursor key
 for key: each crosses to the other package's loader. A cursor resumes only
-under the same host and row-group counts; a cursor with a ``"growth"``
-table (live data) raises ``NotImplementedError``.
+under the same host count, over the same row groups or more (a grown store).
+
+Live data
+---------
+:meth:`MeshDataLoader.admit_growth` takes a grown row-group count (a
+:class:`~petastorm_tpu_torch.discovery.DatasetWatcher`'s snapshot, say): the
+new ordinals join from the first epoch not planned yet, over a
+:class:`~petastorm_tpu_torch.utils.growth.GrowthSchedule`, so a planned
+epoch keeps its shard plans; with ``fold_into_live_epoch=True`` they also
+join the live epoch, dealt to the live hosts as recovery sources (the
+reshard's path), and the cursor's ``recovered`` set covers them. The
+cursor then carries ``"growth"``, the schedule's segments, and a resumed
+loader replans the cursor's epoch over the range its offsets index; groups
+that appeared while the job was down join from the next epoch.
 
 Telemetry and the ops plane
 ---------------------------
@@ -328,6 +340,13 @@ class MeshDataLoader(LoaderBase):
         if num_rowgroups < 1:
             raise ValueError(f"dataset has no row groups ({num_rowgroups})")
         self._G = num_rowgroups
+        from petastorm_tpu_torch.utils.growth import GrowthSchedule
+        #: Epoch e plans over ``_g_at(e)`` ordinals: growth extends epochs
+        #: not planned yet, and a planned epoch keeps its shard plans.
+        self._g_schedule = GrowthSchedule.base(self._G)
+        #: The latest epoch whose plans were made (None before the first):
+        #: growth lands after it.
+        self._planned_through: Optional[int] = None
         self._fifo = bool(getattr(reader_factory, "fifo_delivery", False))
         self._seed = seed
         if num_epochs is not None and num_epochs < 1:
@@ -435,12 +454,82 @@ class MeshDataLoader(LoaderBase):
             self.blackbox.add_collector("cursor", lambda: self._last_input_state)
 
     # ------------------------------------------------------------- planning
+    def _g_at(self, epoch: int) -> int:
+        """The row groups of ``epoch`` under the growth schedule."""
+        return self._g_schedule.size_at(epoch)
+
+    def admit_growth(self, num_rowgroups: int, fold_into_live_epoch: bool = False) -> dict:
+        """The store now has ``num_rowgroups`` row groups: ordinals ``[old,
+        num_rowgroups)`` are new (a live store only appends). They join from
+        the first epoch not planned yet, sharded with the same seeded
+        arithmetic, so cursors and determinism hold. With
+        ``fold_into_live_epoch`` they also join the live epoch, dealt
+        round-robin to the live hosts as recovery sources (the reshard's
+        path), their deliveries in the cursor's ``recovered`` set. Counts
+        ``mesh.growth_admitted`` and records a ``mesh.growth`` event.
+        Returns ``{"admitted", "effective_epoch", "folded"}``."""
+        with self._cond:
+            new_g = int(num_rowgroups)
+            if new_g < self._G:
+                raise ValueError(f"mesh growth is monotonic: {new_g} row groups < current "
+                                 f"{self._G} (a live dataset only appends)")
+            if new_g == self._G:
+                return {"admitted": 0, "effective_epoch": None, "folded": 0}
+            new_ordinals = list(range(self._G, new_g))
+            self._G = new_g
+            if self._planned_through is not None:
+                proposed = self._planned_through + 1
+            elif self._resume_offsets is not None:
+                # Resumed, not running yet: the cursor's epoch was planned
+                # by the previous run (its offsets index that plan).
+                proposed = self._resume_epoch + 1
+            else:
+                proposed = self._resume_epoch
+            effective = self._g_schedule.extend(proposed, new_g)
+            folded = 0
+            if fold_into_live_epoch and self._feeds and not self._epoch_done \
+                    and self._fatal is None:
+                if self._multiprocess:
+                    # Every rank runs this: each folds its own shard of the
+                    # new range (epoch_plan's i % H rule), or every new
+                    # group would come H times.
+                    fold_ordinals = [o for i, o in enumerate(new_ordinals)
+                                     if i % self._H == self._local_host]
+                    active = [self._feeds[self._local_host]]
+                else:
+                    fold_ordinals = new_ordinals
+                    active = self._feeds
+                live = [f for f in active
+                        if f.lost is None and not f.exhausted and not f.killed.is_set()]
+                if live and fold_ordinals:
+                    buckets: List[List[int]] = [[] for _ in live]
+                    for i, o in enumerate(fold_ordinals):
+                        buckets[i % len(live)].append(o)
+                    added = 0
+                    for f, bucket in zip(live, buckets):
+                        if bucket:
+                            f.sources.append(_Source(bucket, recovery=True))
+                            added += 1
+                    self._outstanding += added
+                    folded = len(fold_ordinals)
+            self.telemetry.counter("mesh.growth_admitted").add(len(new_ordinals))
+            self.telemetry.record_event("mesh.growth", {"new_rowgroups": len(new_ordinals),
+                                                        "effective_epoch": effective,
+                                                        "folded": folded})
+            self._cond.notify_all()
+        logger.info("mesh growth admitted: %d new row group(s), effective from epoch %d%s",
+                    len(new_ordinals), effective,
+                    f" ({folded} folded into the live epoch)" if folded else "")
+        return {"admitted": len(new_ordinals), "effective_epoch": effective, "folded": folded}
+
     def epoch_plan(self, epoch: int) -> List[List[int]]:
         """Each host's row-group ordinals for ``epoch``: host h's list is what
         a ``cur_shard=h, shard_count=H, shard_seed=seed + epoch`` reader
-        plans, in its order; a host may get none."""
+        plans, in its order; a host may get none. The ordinals are
+        ``range(_g_at(epoch))``, the count in force when the epoch was (or
+        will be) planned."""
         from petastorm_tpu_torch.reader import _shard_row_groups
-        ordinals = list(range(self._G))
+        ordinals = list(range(self._g_at(epoch)))
         shard_seed = None if self._seed is None else int(self._seed) + int(epoch)
         plan: List[List[int]] = []
         for h in range(self._H):
@@ -457,16 +546,40 @@ class MeshDataLoader(LoaderBase):
             raise ValueError(f"resume_state was saved over {state.get('num_hosts')} hosts but "
                              f"this loader plans {self._H}; the per-host shard cursors do not "
                              f"transfer")
-        if state.get("growth"):
-            raise NotImplementedError(
-                "resume_state carries a live-data growth table; growing datasets are not "
-                "ported yet (ROADMAP Queue A item 9, live data)")
-        recorded = int(state.get("num_rowgroups", -1))
-        if recorded != self._G:
-            raise ValueError(f"resume_state was saved over {recorded} row groups but this "
-                             f"loader plans {self._G}; the shard plans do not transfer (a grown "
-                             f"dataset is live data, not ported yet)")
         self._resume_epoch = int(state.get("epoch", 0))
+        recorded = int(state.get("num_rowgroups", -1))
+        growth = [(int(e), int(g)) for e, g in state.get("growth", [])]
+        from petastorm_tpu_torch.utils.growth import GrowthSchedule
+        if growth:
+            # The recorded schedule: the cursor's epoch replans over the
+            # range its offsets index; groups that appeared while the job
+            # was down join from the next epoch.
+            if growth[0][0] != 0 or growth[-1][1] != recorded:
+                raise ValueError(f"malformed growth table in resume_state: {growth} (final size "
+                                 f"must equal num_rowgroups={recorded})")
+            if self._G < recorded:
+                raise ValueError(f"resume_state records {recorded} row groups but the dataset "
+                                 f"now has {self._G}: live datasets only append — is this the "
+                                 f"right dataset?")
+            probed = self._G
+            self._g_schedule = GrowthSchedule(growth)
+            self._G = recorded
+            if probed > recorded:
+                self._g_schedule.extend(self._resume_epoch + 1, probed)
+                self._G = probed
+        elif recorded >= 0 and self._G > recorded:
+            # A cursor saved before the first admission, on a store that
+            # grew while the job was down: as above.
+            probed = self._G
+            self._g_schedule = GrowthSchedule.base(recorded)
+            self._g_schedule.extend(self._resume_epoch + 1, probed)
+            logger.info("mesh resume: dataset grew %d -> %d row groups while the job was down; "
+                        "the new ordinals join from epoch %d", recorded, probed,
+                        self._resume_epoch + 1)
+        elif recorded != self._G:
+            raise ValueError(f"resume_state was saved over {recorded} row groups but this "
+                             f"loader plans {self._G}; live datasets only append — is this the "
+                             f"right dataset? (docs/live_data.md)")
         hosts = state["hosts"]
         if isinstance(hosts, dict):
             offsets = [int(hosts.get(str(h), hosts.get(h, 0))) for h in range(self._H)]
@@ -803,6 +916,10 @@ class MeshDataLoader(LoaderBase):
             epoch += 1
 
     def _epoch_batches(self, epoch: int, offsets: Optional[List[int]], recovered=()):
+        with self._cond:
+            # Growth admitted from now on lands at epoch + 1: this epoch's
+            # plans are made now.
+            self._planned_through = epoch
         plan = self.epoch_plan(epoch)
         stop = threading.Event()
         self._epoch_resharded = bool(recovered)
@@ -931,6 +1048,10 @@ class MeshDataLoader(LoaderBase):
         hosts = {str(f.idx): (0 if fresh else f.primary_consumed) for f in feeds}
         state = {"mesh": True, "epoch": epoch, "hosts": hosts, "num_rowgroups": self._G,
                  "num_hosts": self._H}
+        if self._g_schedule.grown:
+            # Which range each epoch's plans covered: a resumed loader
+            # replans the cursor's epoch over the same one.
+            state["growth"] = [[e, g] for e, g in self._g_schedule.segments]
         if not fresh and self._recovered_live:
             state["recovered"] = sorted(int(o) for o in self._recovered_live)
         if self._epoch_resharded and not fresh:

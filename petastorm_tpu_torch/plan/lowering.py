@@ -24,7 +24,7 @@ __all__ = ["LOWERING_TABLE", "lower_reader_kwargs"]
 #: ``plan`` (plan-time row-group selection: filters, sharding, pruning run
 #: once, before any operator), ``optimizer`` (the autotune loop),
 #: ``telemetry`` (the ops plane's registry sidecars). The JAX
-#: package's rows for kwargs the port does not take yet come with them.
+#: package's rows for kwargs the port does not take are left out.
 LOWERING_TABLE = {
     # store identity and planning inputs
     "dataset_url": ("plan",),
@@ -74,6 +74,8 @@ LOWERING_TABLE = {
     "cache_row_size_estimate": ("cache",),
     "cache_extra_settings": ("cache",),
     "memory_cache_size_bytes": ("cache",),
+    # live data
+    "refresh_interval_s": ("discovery",),
     # the control loop
     "autotune": ("optimizer",),
     "autotune_config": ("optimizer",),
@@ -105,10 +107,18 @@ def lower_reader_kwargs(flavor: str, kwargs: dict, *,
     """
     validated = validate_reader_config(kwargs)
     pool_type = kwargs.get("reader_pool_type", "thread")
-    ops: List[OperatorNode] = [OperatorNode(
+    ops: List[OperatorNode] = []
+    refresh = kwargs.get("refresh_interval_s")
+    if refresh is not None:
+        ops.append(OperatorNode(
+            op_id="discovery", name="dataset discovery watcher", layer="L5",
+            placement="background" if refresh > 0 else "consumer", kind="sidecar",
+            capacity={"poll_interval_s": refresh},
+            induced_by=_induced(kwargs, "refresh_interval_s"), downstream=("ventilate",)))
+    ops.append(OperatorNode(
         op_id="ventilate", name="row-group ventilation", layer="L3", placement="ventilator",
         induced_by=_induced(kwargs, "shuffle_row_groups", "seed", "num_epochs",
-                            "rowgroup_coalescing", "shuffle_row_drop_partitions"))]
+                            "rowgroup_coalescing", "shuffle_row_drop_partitions")))
 
     readahead_depth = kwargs.get("readahead_depth")
     if readahead_depth and pool_type != "process":

@@ -2,9 +2,9 @@
 pass, with the JAX package's messages (its ``plan/validate.py``).
 
 Each rule of :data:`CONFLICT_RULES` names the kwargs in conflict and the
-operators they induce. The JAX package's rules over kwargs the port does
-not take yet (live discovery, ``serializer=``) come with those kwargs. ``Reader.__init__`` runs the same pass, so a direct
-``Reader(...)`` gets the same messages.
+operators they induce. The JAX package's rule over a kwarg the port does
+not take (``serializer=``) is left out. ``Reader.__init__`` runs the same
+pass, so a direct ``Reader(...)`` gets the same messages.
 """
 from __future__ import annotations
 
@@ -50,6 +50,22 @@ def _subset_x_shuffle(cfg):
     return None
 
 
+def _refresh_x_subset(cfg):
+    if cfg.get("refresh_interval_s") is not None and cfg.get("rowgroup_subset") is not None:
+        return ("mutually exclusive — an explicit ordinal plan is frozen "
+                "by construction; the mesh layer folds growth into its own "
+                "shard plans (MeshDataLoader.admit_growth, docs/mesh.md)")
+    return None
+
+
+def _refresh_x_shard_seed(cfg):
+    if cfg.get("refresh_interval_s") is not None and cfg.get("shard_seed") is not None:
+        return ("cannot compose — a shard_seed pre-shuffled shard "
+                "partition reorders on every new file, so growth could "
+                "not extend monotonically (docs/live_data.md)")
+    return None
+
+
 def _memcache_x_diskcache(cfg):
     if cfg.get("memory_cache_size_bytes") and cfg.get("cache_type") not in (None, "null"):
         return (f"mutually exclusive with cache_type="
@@ -77,6 +93,12 @@ CONFLICT_RULES = (
     ValidationRule("rowgroup_subset_x_shuffle_row_groups",
                    ("rowgroup_subset", "shuffle_row_groups"),
                    ("ventilate",), _subset_x_shuffle),
+    ValidationRule("refresh_x_rowgroup_subset",
+                   ("refresh_interval_s", "rowgroup_subset"),
+                   ("discovery", "ventilate"), _refresh_x_subset),
+    ValidationRule("refresh_x_shard_seed",
+                   ("refresh_interval_s", "shard_seed"),
+                   ("discovery", "ventilate"), _refresh_x_shard_seed),
     ValidationRule("memory_cache_x_disk_cache",
                    ("memory_cache_size_bytes", "cache_type"),
                    ("cache", "decode"), _memcache_x_diskcache),

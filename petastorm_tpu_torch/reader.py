@@ -77,6 +77,12 @@ repeated), and a resolved trial persists for the next reader of the store.
 The random-access plane (:mod:`petastorm_tpu_torch.index`):
 :meth:`Reader.lookup` and :meth:`Reader.dataset_view` read rows by key or
 by ordinal through the store's field index, sharing the reader's cache.
+
+Live data (:mod:`petastorm_tpu_torch.discovery`): with
+``refresh_interval_s`` a watcher admits the files a producer appends and
+the reader folds them into its plan from the first epoch not planned yet
+(:meth:`Reader.refresh_dataset`, :meth:`Reader.dataset_growth_report`); the
+cursor then carries a file manifest, and ``reset()`` rebases the plan.
 """
 from __future__ import annotations
 
@@ -97,9 +103,9 @@ from typing import Optional, Sequence
 
 from petastorm_tpu_torch.codecs import CompressedImageCodec, decode_verdict
 from petastorm_tpu_torch.errors import MetadataError, NoDataAvailableError
-from petastorm_tpu_torch.etl.dataset_metadata import (ColumnStats, DatasetContext, get_schema,
-                                                      infer_or_load_unischema, load_row_group_stats,
-                                                      load_row_groups)
+from petastorm_tpu_torch.etl.dataset_metadata import (ColumnStats, DatasetContext, RowGroupRef,
+                                                      get_schema, infer_or_load_unischema,
+                                                      load_row_group_stats, load_row_groups)
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.reader_impl.arrow_table_serializer import ArrowTableSerializer
 from petastorm_tpu_torch.reader_impl.batch_plane import ColumnarBatch
@@ -378,9 +384,12 @@ def _apply_rowgroup_subset(all_row_groups, row_groups, rowgroup_subset):
 
 
 def _plan_row_groups(ctx, all_row_groups, filters, predicate, rowgroup_selector,
-                     cur_shard, shard_count, shard_seed, rowgroup_subset, report=None):
+                     cur_shard, shard_count, shard_seed, rowgroup_subset, report=None,
+                     stream=None):
     """The JAX reader's planning steps, in its order (statistics pruning
-    and coalescing come after, in the reader)."""
+    and coalescing come after, in the reader). ``stream`` (a dict) gets
+    ``"shard_index"``: the groups the shard walk went over, where a live
+    dataset's growth continues it."""
     planned = list(all_row_groups)
     if filters:
         planned = _apply_filters(planned, filters)
@@ -388,6 +397,8 @@ def _plan_row_groups(ctx, all_row_groups, filters, predicate, rowgroup_selector,
         planned = _apply_partition_predicate(planned, predicate)
     if rowgroup_selector is not None:
         planned = _apply_selector(ctx, all_row_groups, planned, rowgroup_selector, report)
+    if stream is not None:
+        stream["shard_index"] = len(planned)
     if cur_shard is not None:
         planned = _shard_row_groups(planned, cur_shard, shard_count, shard_seed)
     if rowgroup_subset is not None:
@@ -460,6 +471,30 @@ def _coalesce_row_groups(refs, max_per_item: int):
         run.append(ref)
     flush()
     return out
+
+
+#: The one-time warnings already given in this process.
+_ONE_SHOT_WARNED: set = set()
+
+
+def _warn_once(key: str, message: str) -> None:
+    """``message`` at most once a process for ``key``: the caveat depends
+    on the configuration only, so the first reader speaks for the rest."""
+    if key not in _ONE_SHOT_WARNED:
+        _ONE_SHOT_WARNED.add(key)
+        warnings.warn(message, stacklevel=3)
+
+
+def _check_refresh(refresh_interval_s, ctx) -> None:
+    """The JAX reader's checks of ``refresh_interval_s`` (its conflicts
+    with ``rowgroup_subset`` and ``shard_seed`` are validation rules)."""
+    if refresh_interval_s is None:
+        return
+    if refresh_interval_s < 0:
+        raise ValueError(f"refresh_interval_s must be >= 0, got {refresh_interval_s}")
+    if isinstance(ctx.root_path, list):
+        raise ValueError("refresh_interval_s needs a single dataset root to watch; multi-URL "
+                         "views enumerate a fixed file list")
 
 
 def _fingerprint_fields(schema, schema_fields) -> list:
@@ -542,6 +577,7 @@ def make_reader(dataset_url: str,
                 rowgroup_subset: Optional[Sequence[int]] = None,
                 sample_order: str = "free",
                 shuffle_window: int = 0,
+                refresh_interval_s: Optional[float] = None,
                 row_materialization: str = "eager",
                 storage_options: Optional[dict] = None,
                 filesystem=None,
@@ -632,6 +668,21 @@ def make_reader(dataset_url: str,
         items by a seeded permutation indexed by plan position (not by
         arrival), so it resumes exactly and a row group is delivered within
         ``shuffle_window`` plan positions of its slot. ``0``: plan order
+    :param refresh_interval_s: read a live, appending dataset: a
+        :class:`~petastorm_tpu_torch.discovery.DatasetWatcher` lists the
+        store every ``refresh_interval_s`` seconds on a background thread
+        (``0``: only at :meth:`Reader.refresh_dataset` and
+        :meth:`Reader.reset`), checks each new file (a torn footer waits
+        ``pending_retry`` in :meth:`Reader.quarantine_report`; a file that
+        changed a planned column's type is refused with a warning, and the
+        reader serves on) and folds the admitted files into the plan at the
+        consumer's next pull, from the first epoch the ventilator has not
+        planned: an epoch planned before the growth is delivered as it would
+        have been without it. ``state_dict()`` then carries a file manifest,
+        so a resumed reader rebuilds the grown plan. Not with
+        ``rowgroup_subset``, ``shard_seed`` or several URLs; a
+        ``rowgroup_selector`` admits the growth unpruned (with a warning).
+        :meth:`Reader.dataset_growth_report` reads the admissions
     :param row_materialization: ``'eager'`` (the default: the workers build
         one dict a row) or ``'lazy'``: the workers publish one
         :class:`~petastorm_tpu_torch.reader_impl.batch_plane.ColumnarBatch`
@@ -756,6 +807,7 @@ def make_reader(dataset_url: str,
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
     cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
     ctx = DatasetContext(dataset_url, storage_options=storage_options, filesystem=filesystem)
+    _check_refresh(refresh_interval_s, ctx)
     try:
         stored_schema = get_schema(ctx)
     except MetadataError as e:
@@ -786,6 +838,7 @@ def make_reader(dataset_url: str,
                   rowgroup_selector=rowgroup_selector, filters=filters, shard_seed=shard_seed,
                   transform_spec=transform_spec, rowgroup_subset=rowgroup_subset,
                   sample_order=sample_order, shuffle_window=shuffle_window,
+                  refresh_interval_s=refresh_interval_s,
                   row_materialization=row_materialization, storage_options=storage_options,
                   filesystem=filesystem, retry_policy=retry_policy, degraded_mode=degraded_mode,
                   fault_plan=fault_plan, worker_crash_budget=worker_crash_budget,
@@ -824,6 +877,7 @@ def make_batch_reader(dataset_url: str,
                       rowgroup_subset: Optional[Sequence[int]] = None,
                       sample_order: str = "free",
                       shuffle_window: int = 0,
+                      refresh_interval_s: Optional[float] = None,
                       storage_options: Optional[dict] = None,
                       filesystem=None,
                       pool_profiling_enabled: bool = False,
@@ -884,6 +938,8 @@ def make_batch_reader(dataset_url: str,
         ``'deterministic'`` the batch stream is a function of ``(seed,
         epoch, planned row groups)``, and on processes the columns still
         view the rings (the unit's ordinal rides as Arrow schema metadata)
+    :param refresh_interval_s: a live, appending dataset, as
+        :func:`make_reader`
 
     The other arguments are :func:`make_reader`'s; its memory cache keeps
     each group's Arrow table (the read, not a decode, is what it saves).
@@ -896,6 +952,7 @@ def make_batch_reader(dataset_url: str,
     if isinstance(schema_fields, NGram):
         raise ValueError("NGram is not supported by make_batch_reader; use make_reader")
     ctx = DatasetContext(dataset_url, storage_options=storage_options, filesystem=filesystem)
+    _check_refresh(refresh_interval_s, ctx)
     stored_schema = infer_or_load_unischema(ctx)
     from petastorm_tpu_torch.plan import lower_reader_kwargs
     plan = lower_reader_kwargs("batch", _lowering_kwargs(locals()),
@@ -920,6 +977,7 @@ def make_batch_reader(dataset_url: str,
                   rowgroup_selector=rowgroup_selector, filters=filters, shard_seed=shard_seed,
                   transform_spec=transform_spec, rowgroup_subset=rowgroup_subset,
                   sample_order=sample_order, shuffle_window=shuffle_window,
+                  refresh_interval_s=refresh_interval_s,
                   storage_options=storage_options, filesystem=filesystem,
                   retry_policy=retry_policy, degraded_mode=degraded_mode, fault_plan=fault_plan,
                   worker_crash_budget=worker_crash_budget, stage_deadline_s=stage_deadline_s,
@@ -944,7 +1002,7 @@ _LOWERED_KWARGS = (
     "cache_type", "cache_location", "cache_size_limit", "memory_cache_size_bytes",
     "rowgroup_coalescing", "readahead_depth", "readahead_max_bytes",
     "rowgroup_subset", "row_materialization", "convert_early_to_numpy", "sample_order",
-    "shuffle_window", "autotune", "autotune_config")
+    "shuffle_window", "refresh_interval_s", "autotune", "autotune_config")
 
 
 def _lowering_kwargs(entry_locals: dict) -> dict:
@@ -993,11 +1051,9 @@ def _resume_position(resume_state: dict, seed, shuffle_row_groups: bool, shuffle
                      num_items: int, sample_order: str = "free", shuffle_window: int = 0):
     """``(start_epoch, start_offset, window_delivered, skipped_ordinals)``
     of a resume state, after the JAX package's checks
-    (``reader.py:1536-1604``). A live-data cursor is refused."""
+    (``reader.py:1536-1604``). ``num_items`` counts a live-data cursor's
+    growth too (its manifest was replayed into the plan)."""
     plan = resume_state.get("plan") or {}
-    if "manifest" in resume_state or "growth" in plan:
-        raise ValueError("resume_state is a live-data cursor (it records a file manifest or a "
-                         "grown plan); this package does not read live data")
     if shuffle_row_groups and seed is None:
         raise ValueError("Exact resume requires a seed when shuffle_row_groups is on (the "
                          "epoch permutation must be reproducible); this resume_state records "
@@ -1098,7 +1154,7 @@ class Reader:
                  memory_cache_size_bytes=None, readahead_depth=None, readahead_max_bytes=None,
                  rowgroup_pruning=True, rowgroup_coalescing=1, plan=None, pool_factory=None,
                  ctx=None, stored_schema=None, timeline_interval_s=None, timeline_anomaly=True,
-                 telemetry_publish=None, tenant=None):
+                 telemetry_publish=None, tenant=None, refresh_interval_s=None):
         # The plan-time validation pass: the entry points ran it while
         # lowering; a direct Reader(...) gets the same rules and messages.
         from petastorm_tpu_torch.plan import validate_reader_config
@@ -1106,7 +1162,7 @@ class Reader:
                           "shuffle_row_groups": shuffle_row_groups, "shard_seed": shard_seed,
                           "sample_order": sample_order, "shuffle_window": shuffle_window,
                           "memory_cache_size_bytes": memory_cache_size_bytes,
-                          "cache_type": cache_type}
+                          "cache_type": cache_type, "refresh_interval_s": refresh_interval_s}
         if not is_batched_reader:
             validation_cfg["row_materialization"] = row_materialization
         validate_reader_config(validation_cfg)
@@ -1158,6 +1214,7 @@ class Reader:
         if ctx is None:
             ctx = DatasetContext(dataset_url, storage_options=storage_options,
                                  filesystem=filesystem)
+        _check_refresh(refresh_interval_s, ctx)
         self._ctx = ctx
         self._batched = is_batched_reader
         if stored_schema is None:
@@ -1193,14 +1250,46 @@ class Reader:
             # A policy's classifier crosses too: a module-level function.
             _check_spawnable("retry_policy", retry_policy)
 
-        all_row_groups = load_row_groups(ctx)
+        # Live data: the watcher (made after the resilience wiring, whose
+        # quarantine it shares), the applied growth batches, and the base
+        # files' manifest, which a cursor carries.
+        self._refresh_interval_s = refresh_interval_s
+        self._discovery = None
+        # One fold at a time: a loader's thread pulls (a safe point) while
+        # the caller may run refresh_dataset().
+        self._growth_lock = threading.Lock()
+        self._growth_batches: list = []
+        self._base_manifest = None
+        self._live_plan = None
+        resume_manifest = (resume_state.get("manifest")
+                           if isinstance(resume_state, dict) else None)
+        if resume_manifest:
+            # A live-data cursor: its manifest, not the sorted listing (an
+            # appended file may sort into the middle), gives the base
+            # ordinals; the growth batches are replayed below at their
+            # epochs, so the plan is the one the cursor indexed.
+            if shard_seed is not None:
+                raise ValueError("a live-data manifest cursor cannot resume with shard_seed "
+                                 "(the shard stream must extend monotonically; "
+                                 "docs/live_data.md)")
+            from petastorm_tpu_torch.discovery import DatasetSnapshot
+            base_snapshot = DatasetSnapshot.from_manifest(resume_manifest["base"],
+                                                          ctx.root_path)
+            all_row_groups = base_snapshot.row_group_refs(ctx)
+        else:
+            base_snapshot = None
+            all_row_groups = load_row_groups(ctx)
         #: What the plan-time pruning did (:meth:`pruning_report`).
         self._pruning_report = {"enabled": False}
         #: Per column, the footer statistics the pruning scan read, folded.
         self._plan_column_stats: dict = {}
+        stream = {}
         row_groups = _plan_row_groups(ctx, all_row_groups, filters, predicate,
                                       rowgroup_selector, cur_shard, shard_count, shard_seed,
-                                      rowgroup_subset, report=self._pruning_report)
+                                      rowgroup_subset, report=self._pruning_report,
+                                      stream=stream)
+        #: Where a growth batch's groups continue the shard walk.
+        self._shard_stream_index = stream["shard_index"]
         if not row_groups:
             raise NoDataAvailableError(
                 f"No row groups left after predicate/selector/shard filtering "
@@ -1212,6 +1301,8 @@ class Reader:
         self._ordinal_of = ({(rg.path, rg.row_group): i for i, rg in enumerate(all_row_groups)}
                             if rowgroup_subset is not None else
                             {(rg.path, rg.row_group): i for i, rg in enumerate(row_groups)})
+        #: The lineage ordinal a growth batch's first group takes.
+        self._next_ordinal = len(row_groups)
         # Statistics pruning after sharding, so shard membership is the same
         # with pruning on or off. A plan it empties is an empty epoch (the
         # predicate provably matches nothing), not a configuration error.
@@ -1226,6 +1317,50 @@ class Reader:
                   "shuffle_row_drop_partition": (part, shuffle_row_drop_partitions)}
                  for rg in row_groups for part in range(shuffle_row_drop_partitions)]
 
+        # The live growth plan: a growth batch goes through the filters,
+        # the shard walk (continued), the pruning and the coalescing the
+        # base went through.
+        base_items_count = len(items)
+        growth_segments = None
+        if refresh_interval_s is not None or resume_manifest:
+            from petastorm_tpu_torch.discovery import DatasetSnapshot
+            if base_snapshot is None:
+                base_snapshot = DatasetSnapshot.from_row_groups(all_row_groups)
+            self._base_snapshot = base_snapshot
+            self._base_manifest = base_snapshot.manifest(ctx.root_path)
+            self._live_plan = {"filters": filters, "predicate": predicate,
+                               "cur_shard": cur_shard, "shard_count": shard_count,
+                               "pruning": rowgroup_pruning, "coalescing": rowgroup_coalescing,
+                               "drop_partitions": shuffle_row_drop_partitions}
+            if rowgroup_selector is not None:
+                _warn_once("refresh_selector",
+                           "rowgroup_selector indexes are stored at write time and cannot "
+                           "cover appended files; discovery admits new files WITHOUT selector "
+                           "pruning")
+            if resume_manifest and resume_manifest.get("growth"):
+                segments = [(0, base_items_count)]
+                for batch in resume_manifest["growth"]:
+                    files = [(os.path.join(ctx.root_path, rel), int(n), None)
+                             for rel, n in batch["files"]]
+                    new_items, info = self._plan_growth_batch(files)
+                    if len(new_items) != int(batch["items"]):
+                        raise ValueError(
+                            f"live-data resume planned {len(new_items)} work item(s) for the "
+                            f"growth batch at epoch {batch['epoch']} but the cursor recorded "
+                            f"{batch['items']} — the appended files (or predicate/filters) "
+                            f"changed since the checkpoint")
+                    items.extend(new_items)
+                    epoch_from = int(batch["epoch"])
+                    if segments[-1][0] == epoch_from:
+                        segments[-1] = (epoch_from, len(items))
+                    else:
+                        segments.append((epoch_from, len(items)))
+                    self._growth_batches.append(
+                        {"epoch": epoch_from, "files": [[r, int(n)] for r, n in batch["files"]],
+                         "items": len(new_items), **info})
+                if len(segments) > 1:
+                    growth_segments = segments
+
         start_epoch, start_offset, window_delivered, skipped = (
             (0, 0, 0, ()) if resume_state is None else _resume_position(
                 resume_state, seed, shuffle_row_groups, shuffle_rows, len(items), sample_order,
@@ -1238,14 +1373,18 @@ class Reader:
         #: its cursor, not the ventilator's watermark, is the checkpoint.
         self._epoch_plan = self._gate = None
         if sample_order == "deterministic":
-            self._epoch_plan = EpochPlan(seed=seed, num_items=len(items),
-                                         shuffled=shuffle_row_groups, window=shuffle_window)
+            self._epoch_plan = EpochPlan(seed=seed, num_items=base_items_count,
+                                         shuffled=shuffle_row_groups, window=shuffle_window,
+                                         growth=growth_segments[1:] if growth_segments else ())
             self._gate = OrderedDeliveryGate(self._epoch_plan, start_epoch=start_epoch,
                                              start_offset=start_offset,
                                              window_delivered=window_delivered, skipped=skipped)
         resilience_args = self._attach_resilience(pool, worker_crash_budget, stage_deadline_s,
                                                   hedge_policy, hang_timeout_s)
         self._stage_deadline = resilience_args["stage_deadline"]
+        if refresh_interval_s is not None:
+            self._discovery = self._make_watcher(ctx, refresh_interval_s, predicate,
+                                                 rowgroup_pruning, retry_policy, fault_plan)
         self._cache = self._attach_cache(
             pool, fault_plan, cache_type=cache_type, cache_location=cache_location,
             cache_size_limit=cache_size_limit, cache_row_size_estimate=cache_row_size_estimate,
@@ -1266,7 +1405,7 @@ class Reader:
             random_seed=seed,
             max_ventilation_queue_size=pool.workers_count * (1 + _VENTILATE_EXTRA_ROWGROUPS),
             item_context_key=ITEM_CONTEXT_KWARG,
-            start_epoch=start_epoch, start_offset=start_offset)
+            start_epoch=start_epoch, start_offset=start_offset, growth_segments=growth_segments)
         self._buffer = deque()
         # The lazy cursor: the batch being served, its columns in the
         # namedtuple's field order (None where the batch lacks a field) and
@@ -1351,7 +1490,8 @@ class Reader:
                              ("quarantine", self.quarantine_report),
                              ("pruning", self.pruning_report),
                              ("readahead", self.readahead_report),
-                             ("autotune", self.autotune_report), ("slo", self.slo_report),
+                             ("autotune", self.autotune_report),
+                             ("growth", self.dataset_growth_report), ("slo", self.slo_report),
                              ("anomaly", self.anomaly_report),
                              ("watchdog", self.watchdog_report)):
                 self.blackbox.add_collector(name, fn)
@@ -1450,6 +1590,43 @@ class Reader:
             logger.debug("Statistics pruning dropped %d/%d row groups (fields: %s)", pruned,
                          len(row_groups), fields)
         return kept
+
+    def _make_watcher(self, ctx, refresh_interval_s, predicate, rowgroup_pruning, retry_policy,
+                      fault_plan):
+        """The live data's :class:`~petastorm_tpu_torch.discovery.DatasetWatcher`
+        (the JAX reader's wiring, ``reader.py:1418-1467``): its snapshot
+        covers the plan (the base and the growth a manifest replayed), new
+        files are classified against the store's Arrow schema, footers
+        harvest the pruner's columns, torn files go to this reader's
+        quarantine, listings run under the stage deadline (or the listing's
+        default). Started here when ``refresh_interval_s > 0``."""
+        from petastorm_tpu_torch.discovery import DatasetWatcher
+        from petastorm_tpu_torch.discovery.listing import DEFAULT_LIST_DEADLINE
+        snapshot = self._base_snapshot
+        for batch in self._growth_batches:
+            snapshot = snapshot.extended([(os.path.join(ctx.root_path, rel), n, 0.0, -1)
+                                          for rel, n in batch["files"]])
+        try:
+            reference_schema = ctx.arrow_schema()
+        except Exception as e:  # noqa: BLE001 - the drift check is best effort
+            reference_schema = None
+            warnings.warn(f"live discovery could not resolve the dataset's Arrow schema "
+                          f"({e!r}); appended files will be admitted without schema-drift "
+                          f"classification")
+        stats_cols = set()
+        if rowgroup_pruning and predicate is not None and hasattr(predicate, "intervals"):
+            stats_cols = {f for f, _ in predicate.intervals() or ()}
+        watcher = DatasetWatcher(
+            ctx, base_snapshot=snapshot, reference_schema=reference_schema,
+            poll_interval_s=refresh_interval_s if refresh_interval_s > 0 else None,
+            retry_policy=retry_policy,
+            deadline=(self._stage_deadline if self._stage_deadline is not None
+                      else DEFAULT_LIST_DEADLINE),
+            fault_plan=fault_plan, telemetry=self.telemetry, quarantine=self.quarantine,
+            stats_columns=sorted(stats_cols))
+        if refresh_interval_s > 0:
+            watcher.start()
+        return watcher
 
     def _attach_resilience(self, pool, worker_crash_budget, stage_deadline_s, hedge_policy,
                            hang_timeout_s) -> dict:
@@ -1777,11 +1954,153 @@ class Reader:
 
     def _safe_point(self) -> None:
         """Before each pull: a failed migration raises once the results it
-        drained are delivered, and a requested migration runs."""
+        drained are delivered, a requested migration runs, then admitted
+        growth folds into the plan (it changes only epochs not planned yet,
+        so the epoch being read does not see it)."""
         if self._migration_error is not None and not self._has_buffered():
             raise self._migration_error
         if self._pending_pool_target is not None:
             self._perform_pool_migration()
+        if self._discovery is not None and self._discovery.has_growth:
+            self._apply_dataset_growth()
+
+    # ------------------------------------------------------------ live data
+    def _plan_growth_batch(self, files):
+        """One admitted growth batch through the base plan's steps (the JAX
+        reader's ``_plan_growth_batch``): filters, partition predicate, the
+        shard walk continued, statistics pruning, coalescing; lineage
+        ordinals continue after the plan's. ``files``: ``[(path,
+        num_row_groups, per_group_stats or None)]`` in admission order; the
+        statistics come from the watcher's footer reads, or (a manifest
+        resume records names only) from a footer scan of those files.
+        Returns ``(new_items, {"row_groups", "pruned"})``."""
+        plan = self._live_plan
+        refs, stats_by_key, have_stats = [], {}, True
+        for path, n_groups, stats in files:
+            pv = self._ctx.partition_values_for(path)
+            for i in range(n_groups):
+                refs.append(RowGroupRef(path, i, pv))
+                if stats is not None and i < len(stats):
+                    stats_by_key[(path, i)] = stats[i]
+            if stats is None:
+                have_stats = False
+        kept = refs
+        if plan["filters"]:
+            kept = _apply_filters(kept, plan["filters"])
+        if plan["predicate"] is not None:
+            kept = _apply_partition_predicate(kept, plan["predicate"])
+        if plan["cur_shard"] is not None:
+            start = self._shard_stream_index
+            self._shard_stream_index = start + len(kept)
+            kept = [rg for i, rg in enumerate(kept, start=start)
+                    if i % plan["shard_count"] == plan["cur_shard"]]
+        for rg in kept:
+            self._ordinal_of[(rg.path, rg.row_group)] = self._next_ordinal
+            self._next_ordinal += 1
+        pruned = 0
+        predicate = plan["predicate"]
+        constraints = (predicate.intervals() if plan["pruning"] and predicate is not None
+                       and hasattr(predicate, "intervals") else None)
+        if constraints:
+            fields = sorted({f for f, _ in constraints})
+            stats = (stats_by_key if have_stats
+                     else load_row_group_stats(self._ctx, kept, fields, telemetry=self.telemetry))
+            _fold_plan_column_stats(self._plan_column_stats, stats.values())
+            report = self._pruning_report
+            if report.get("enabled"):
+                report["column_stats"] = dict(self._plan_column_stats)
+            kept2, _ = _prune_with_stats(kept, constraints, stats)
+            pruned = len(kept) - len(kept2)
+            kept = kept2
+            if report.get("enabled"):
+                report["row_groups_pruned"] = report.get("row_groups_pruned", 0) + pruned
+                report["row_groups_kept"] = report.get("row_groups_kept", 0) + len(kept)
+            self.telemetry.counter("io.rowgroups_pruned").add(pruned)
+            self.telemetry.counter("io.rowgroups_planned").add(len(kept))
+        if plan["coalescing"] > 1:
+            kept = _coalesce_row_groups(kept, plan["coalescing"])
+        parts = plan["drop_partitions"]
+        new_items = [{"rowgroup": rg, "shuffle_row_drop_partition": (part, parts)}
+                     for rg in kept for part in range(parts)]
+        return new_items, {"row_groups": len(refs), "pruned": pruned}
+
+    def _apply_dataset_growth(self) -> None:
+        """Fold the watcher's staged files into the plan, on the consumer's
+        thread (the JAX reader's ``_apply_dataset_growth``): the new items
+        follow the existing ones from the first epoch the ventilator has not
+        planned, so a planned epoch (the one being read too) is delivered as
+        without the growth, cursors stay valid, and the next epoch is a
+        function of ``(seed, epoch, grown plan)``. The lookup plane, when
+        made, indexes the new files too."""
+        with self._growth_lock:
+            self._fold_staged_growth()
+
+    def _fold_staged_growth(self) -> None:
+        staged = self._discovery.drain_staged()
+        if not staged:
+            return
+        new_items, info = self._plan_growth_batch(
+            [(a.path, a.num_row_groups, a.stats) for a in staged])
+        effective = self._ventilator.extend_items(new_items)
+        if self._epoch_plan is not None and new_items:
+            self._epoch_plan.extend(effective, self._num_items + len(new_items))
+        self._num_items += len(new_items)
+        batch = {"epoch": effective,
+                 "files": [[os.path.relpath(a.path, self._ctx.root_path), a.num_row_groups]
+                           for a in staged],
+                 "items": len(new_items), **info}
+        self._growth_batches.append(batch)
+        if self._lookup_plane is not None:
+            # Best effort: a failed index extension must not stop the
+            # stream the growth is for.
+            try:
+                self._lookup_plane.extend_files([(a.path, a.num_row_groups) for a in staged])
+            except Exception:  # noqa: BLE001
+                logger.exception("field-index growth extension failed; lookups will not see "
+                                 "the appended files")
+        self.telemetry.counter("discovery.items_extended").add(len(new_items))
+        self.telemetry.record_event("discovery.growth_applied",
+                                    {"epoch": effective, "files": len(staged),
+                                     "row_groups": info["row_groups"], "items": len(new_items),
+                                     "pruned": info["pruned"]})
+        logger.info("live growth applied: %d file(s), %d row group(s) -> %d work item(s) "
+                    "(%d pruned), effective from epoch %d", len(staged), info["row_groups"],
+                    len(new_items), info["pruned"], effective)
+
+    def refresh_dataset(self) -> dict:
+        """Poll the store once, fold the admitted growth into the plan and
+        return :meth:`dataset_growth_report`: the explicit poll beside the
+        background one (with ``refresh_interval_s=0``, this and
+        :meth:`reset` are the only polls)."""
+        if self._discovery is None:
+            raise RuntimeError("refresh_dataset() needs make_reader(refresh_interval_s=...)")
+        self._discovery.poll_once()
+        self._apply_dataset_growth()
+        return self.dataset_growth_report()
+
+    def dataset_growth_report(self) -> dict:
+        """The live data (the JAX reader's keys): ``enabled``,
+        ``refresh_interval_s``, ``items`` (work items planned now),
+        ``applied`` (each growth batch: its effective ``epoch``, ``files``,
+        ``items``, ``row_groups``, ``pruned``) and ``discovery`` (the
+        watcher's :meth:`~petastorm_tpu_torch.discovery.DatasetWatcher.report`).
+        ``{"enabled": False}`` without ``refresh_interval_s`` or growth."""
+        if self._discovery is None and not self._growth_batches:
+            return {"enabled": False}
+        report = {"enabled": self._discovery is not None,
+                  "refresh_interval_s": self._refresh_interval_s,
+                  "items": self._num_items,
+                  "applied": [dict(b) for b in self._growth_batches]}
+        if self._discovery is not None:
+            report["discovery"] = self._discovery.report()
+        return report
+
+    def _current_manifest(self) -> dict:
+        """The cursor's manifest: the base files and the growth batches, in
+        admission order."""
+        return {"base": [list(entry) for entry in self._base_manifest],
+                "growth": [{"epoch": b["epoch"], "files": [list(f) for f in b["files"]],
+                            "items": b["items"]} for b in self._growth_batches]}
 
     def _has_buffered(self) -> bool:
         """Undelivered results that need no live pool."""
@@ -2032,18 +2351,28 @@ class Reader:
         ``{"epoch", "offset", "window_delivered", "skipped_ordinals",
         "items", "seed", "sample_order", "window", "plan"}``; the resumed
         stream is the rest of the uninterrupted one. A row group handed out
-        in part backs the cursor up one unit: it is read again whole."""
+        in part backs the cursor up one unit: it is read again whole.
+
+        Live data (``refresh_interval_s``, or a resumed live cursor): also
+        ``"manifest"``, the base files and the growth batches in admission
+        order, from which a resumed reader rebuilds the grown plan."""
         if self._gate is not None:
             cur = self._gate.cursor(back_up=self._has_partial_unit())
             cur.update({"items": self._num_items, "seed": self._seed,
                         "sample_order": "deterministic", "window": self._shuffle_window,
                         "plan": self._epoch_plan.describe()})
-            return cur
-        delivered = set(self._delivered)
-        if not self._has_partial_unit() and self._buffer_context is not None:
-            delivered.add(self._buffer_context)
-        epoch, offset = self._ventilator.watermark(delivered)
-        return {"epoch": epoch, "offset": offset, "items": self._num_items, "seed": self._seed}
+        else:
+            delivered = set(self._delivered)
+            if not self._has_partial_unit() and self._buffer_context is not None:
+                delivered.add(self._buffer_context)
+            epoch, offset = self._ventilator.watermark(delivered)
+            cur = {"epoch": epoch, "offset": offset, "items": self._num_items,
+                   "seed": self._seed}
+        if self._base_manifest is not None:
+            # The admission-ordered files pin the ordinals: the sorted
+            # listing would put appended files in the middle.
+            cur["manifest"] = self._current_manifest()
+        return cur
 
     def quarantine_report(self) -> dict:
         """The row groups given up on so far in degraded mode: their count,
@@ -2055,9 +2384,11 @@ class Reader:
         """The random-access plane, made on first use from the store's
         field-index sidecar: it shares this reader's cache (a lookup and
         the epoch stream warm each other and hand out the same cells), its
-        quarantine, its retry and degraded settings and its registry. The
-        JAX package's growth reconciliation is not ported (the port has no
-        growth)."""
+        quarantine, its retry and degraded settings and its registry. It is
+        reconciled with every file of this reader's plan: growth applied
+        before it was made, and base files newer than the saved sidecar (a
+        fresh reader over a grown store plans appended files as its base);
+        ``extend_files`` indexes each file once."""
         if self._lookup_plane is None:
             from petastorm_tpu_torch.index import FieldIndex, IndexLookupPlane
             args = self._worker_args_inproc
@@ -2073,6 +2404,14 @@ class Reader:
                                        if n in self._stored_schema.fields),
                 decode_verdict=args.get("decode_verdict"),
                 decode_threads=args.get("decode_threads"))
+            root = self._ctx.root_path
+            newer = [(os.path.join(root, rel), n) for rel, n in (self._base_manifest or [])]
+            newer += [(os.path.join(root, rel), n)
+                      for b in self._growth_batches for rel, n in b["files"]]
+            newer = [(path, n) for path, n in newer
+                     if not self._lookup_plane.index.has_file(os.path.relpath(path, root))]
+            if newer:
+                self._lookup_plane.extend_files(newer)
         return self._lookup_plane
 
     def lookup(self, keys, field=None, columns=None, on_missing="error"):
@@ -2184,10 +2523,27 @@ class Reader:
                              "to this run")
 
     def reset(self):
-        """Start another pass; only legal once the current one is consumed."""
+        """Start another pass; only legal once the current one is consumed.
+
+        With live data the reset rebases the plan: the store is polled
+        (with ``refresh_interval_s=0``), staged growth folds in, and the new
+        pass plans every admitted item from its epoch 0 (also on a reader
+        resumed from a live cursor without discovery)."""
         if not self.last_row_consumed:
             raise RuntimeError(
                 "reset() is only supported after the previous pass was fully consumed")
+        if self._discovery is not None:
+            if not self._refresh_interval_s:
+                self._discovery.poll_once()
+            if self._discovery.has_growth:
+                self._apply_dataset_growth()
+        if self._growth_batches:
+            self._ventilator.rebase_growth()
+            if self._epoch_plan is not None:
+                self._epoch_plan.rebase()
+            for batch in self._growth_batches:
+                self._base_manifest.extend([list(f) for f in batch["files"]])
+            self._growth_batches = []
         self._ventilator.reset()
         if self._gate is not None:
             self._gate.reset()   # another pass replays the same order
@@ -2222,6 +2578,8 @@ class Reader:
         if self._telemetry_exporter is not None:
             self._telemetry_exporter.stop()
             self._telemetry_exporter = None
+        if self._discovery is not None:
+            self._discovery.stop()
         if self._lookup_plane is not None:
             self._lookup_plane.close()
         self._pool.stop()

@@ -22,15 +22,17 @@ and a resume. Three pieces:
   watermark. Units that arrive out of order wait, duplicates are dropped,
   skips advance the watermark and are recorded in the cursor.
 
-Growing plans (live data) are not ported: a cursor that records one is
-refused by the reader. The module imports no torch: the workers load it.
+A live appending dataset grows the plan monotonically
+(:meth:`EpochPlan.extend`): the item count becomes a step function of the
+epoch, and an epoch planned before the growth keeps its order. The module
+imports no torch: the workers load it.
 """
 from __future__ import annotations
 
 import logging
 import os
 import random
-from typing import Iterable, Tuple
+from typing import Iterable, List, Tuple
 
 from petastorm_tpu_torch.workers_pool import EmptyResultError
 
@@ -69,13 +71,20 @@ class OrderedUnit:
 
 
 class EpochPlan:
-    """The canonical order over ``num_items`` work items per epoch.
+    """The canonical order over ``num_items`` work items at epoch 0.
     ``shuffled``: the ventilator permutes each epoch; ``window``: the block
-    size of the window shuffle (``<= 1``: plan order). Positions are
-    linearized as ``epoch * num_items + position``, so one integer orders
-    the whole multi-epoch stream."""
+    size of the window shuffle (``<= 1``: plan order).
 
-    def __init__(self, seed: int, num_items: int, shuffled: bool = False, window: int = 0):
+    Growth (live data): :meth:`extend` makes the item count a step function
+    of the epoch, ``(first_epoch, num_items)`` segments (``growth``: the
+    segments after the first). New items take positions after the existing
+    ones from an epoch not planned yet, so an epoch planned before the
+    growth keeps its permutation. Positions are linearized as
+    ``cum_items(epoch) + position``, so one integer orders the whole
+    multi-epoch stream (``epoch * num_items + position`` without growth)."""
+
+    def __init__(self, seed: int, num_items: int, shuffled: bool = False, window: int = 0,
+                 growth: Iterable[Tuple[int, int]] = ()):
         if seed is None:
             raise ValueError("EpochPlan needs a concrete seed (deterministic mode mints one "
                              "at plan time)")
@@ -83,27 +92,65 @@ class EpochPlan:
         self.num_items = int(num_items)
         self.shuffled = bool(shuffled)
         self.window = int(window)
+        from petastorm_tpu_torch.utils.growth import GrowthSchedule
+        self._schedule = GrowthSchedule.base(int(num_items))
         self._block_cache = {}
+        for first_epoch, n in sorted(growth):
+            self.extend(int(first_epoch), int(n))
 
     def describe(self) -> dict:
-        """The plan's JSON record for ``state_dict`` (the JAX package's)."""
-        return {"version": 1, "seed": self.seed, "items": self.num_items,
-                "shuffled": self.shuffled, "window": self.window}
+        """The plan's JSON record for ``state_dict`` (the JAX package's):
+        ``growth``, only when the plan grew, lists the ``[first_epoch,
+        num_items]`` segments a resumed plan replays."""
+        d = {"version": 1, "seed": self.seed, "items": self.num_items,
+             "shuffled": self.shuffled, "window": self.window}
+        if self._schedule.grown:
+            d["growth"] = [[e, n] for e, n in self._schedule.segments[1:]]
+        return d
+
+    def extend(self, first_epoch: int, num_items: int) -> None:
+        """Epochs from ``first_epoch`` on plan over ``num_items`` items, the
+        new positions after the existing ones. ``first_epoch`` must not
+        precede the last segment (the reader passes the ventilator's
+        normalised effective epoch): a minted permutation never changes."""
+        if num_items == self._schedule.final_size:
+            return
+        self._schedule.extend(first_epoch, num_items, strict=True)
+        # A tail block's length depends on its epoch's item count.
+        self._block_cache.clear()
+
+    @property
+    def growth_segments(self) -> List[Tuple[int, int]]:
+        """The whole segment table ``[(0, base), (e1, n1), ...]``."""
+        return self._schedule.segments
+
+    def rebase(self) -> None:
+        """One epoch-0 segment over the whole item count: the reader's
+        ``reset()`` rebase (with a gate and ventilator reset: the cursor's
+        origin moves)."""
+        self._schedule.rebase()
+        self.num_items = self._schedule.final_size
+        self._block_cache.clear()
+
+    def num_items_at(self, epoch: int) -> int:
+        """The item count of ``epoch``."""
+        return self._schedule.size_at(epoch)
 
     def cum_items(self, epoch: int) -> int:
         """Items in epochs ``[0, epoch)``: the linear ordinal of ``epoch``'s
         first position."""
-        return epoch * self.num_items
+        return self._schedule.cum_items(epoch)
 
     def slot_epoch(self, consumed: int) -> Tuple[int, int]:
         """``(epoch, position)`` of consumption slot ``consumed``."""
-        return divmod(consumed, max(1, self.num_items))
+        return self._schedule.slot(consumed)
 
     def permutation(self, epoch: int) -> list:
         """Item order of ``epoch``: position ``p`` holds item
         ``permutation(epoch)[p]``, the ventilator's
-        ``random.Random(seed + epoch).shuffle`` (identity unshuffled)."""
-        order = list(range(self.num_items))
+        ``random.Random(seed + epoch).shuffle`` over the items live at
+        ``epoch`` (identity unshuffled)."""
+        order = list(range(self.num_items_at(epoch)))
         if self.shuffled:
             random.Random(self.seed + epoch).shuffle(order)
         return order
@@ -116,7 +163,7 @@ class EpochPlan:
         key = (epoch, block_start)
         perm = self._block_cache.get(key)
         if perm is None:
-            length = min(self.window, self.num_items - block_start)
+            length = min(self.window, self.num_items_at(epoch) - block_start)
             rng = np.random.default_rng([self.seed & _SEED_MASK, epoch & _SEED_MASK,
                                          block_start & _SEED_MASK, 0x0EDE])
             perm = tuple(int(i) for i in rng.permutation(length))
@@ -260,8 +307,9 @@ class OrderedDeliveryGate:
         self._c += 1
         if plan.window > 1:
             _epoch, r = plan.slot_epoch(self._c)
-            if r % plan.window == 0:
-                # A block (or an epoch) is finished: the watermark covers it.
+            if r % plan.window == 0 or r == 0:
+                # A block (or an epoch, whose size may not be a multiple of
+                # the window) is finished: the watermark covers it.
                 self._consumed_in_block.clear()
 
     def _already_consumed(self, linear: int) -> bool:

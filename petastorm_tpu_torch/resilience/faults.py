@@ -11,10 +11,21 @@ site                fired
                     (``key`` = parquet file path)
 ``worker.item``     at the start of each ventilated item in a reader worker
                     (the site for ``worker_kill``; ``key`` = file path)
+``cache.fill``      per LocalDiskCache miss, before the fill runs
+                    (``key`` = cache key)
+``discovery.list``  per :class:`~petastorm_tpu_torch.discovery.DatasetWatcher`
+                    listing attempt (``key`` = the dataset root):
+                    ``ioerror`` retries under the listing's RetryPolicy,
+                    ``latency`` models a crawling store. Plan-time
+                    ``file_paths()`` listings take the same retried path
+                    but predate the reader's fault plan, so they never fire
+``discovery.footer`` per new-file footer read of the watcher (``key`` =
+                    file path): ``ioerror``/``corruption`` leave the file
+                    ``pending_retry``, ``latency`` models a slow footer
 ==================  ========================================================
 
-The JAX package has more sites (its disk cache, HDFS, discovery and
-service planes), which this package does not have.
+The JAX package has more sites (its HDFS and service planes), which this
+package does not have.
 
 Determinism: ``at=N`` fires on exactly the Nth matching access *in this
 process* (each spawned worker counts its own accesses); ``rate=p`` draws

@@ -53,7 +53,7 @@ def copy_dataset(source_url: str, target_url: str, field_regex=None, not_null_fi
                      workers_count=workers_count) as reader:
         # The target goes only once the source has opened: a mistyped source
         # must not cost an existing target.
-        if fs.exists(target_path) and fs.ls(target_path):
+        if fs.exists(target_path) and fs.ls(target_path):  # listing-ok: the target's emptiness
             if not overwrite_output:
                 raise ValueError(f"Target {target_url} already exists; pass "
                                  f"overwrite_output=True (--overwrite-output) to replace it")

@@ -8,11 +8,13 @@ of 256 from ``default_rng([seed, step // 256, _MIX_STREAM])``, bit for bit
 the JAX package's, so both packages pick the same members. With no seed one
 is minted and recorded in ``state_dict``.
 
-Starvation counters, per member ``i``, in :meth:`WeightedSamplingReader.report`
-under the JAX names: ``mixer.m{i}.draws_total`` (picks),
-``mixer.m{i}.starved_total`` (picks that met an exhausted member: the draw
-that ended the mixture) and ``mixer.m{i}.lag_s`` (seconds since the member
-last delivered).
+Starvation telemetry, per member ``i``, on the mixer's own registry
+(``mixer.telemetry``; the members keep theirs) under the JAX names: the
+counters ``mixer.m{i}.draws_total`` (picks) and ``mixer.m{i}.starved_total``
+(picks that met an exhausted member: the draw that ended the mixture) and
+the gauge ``mixer.m{i}.lag_s`` (seconds since the member last delivered),
+rolled up by :meth:`WeightedSamplingReader.report`: a growing member that
+lags shows before it stalls the mixture.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from petastorm_tpu_torch.reader_impl.epoch_plan import mint_seed
+from petastorm_tpu_torch.telemetry import make_registry
 
 #: Extra entropy word: the mixer's (seed, step) streams never collide with
 #: the readers' (seed, epoch, position) shuffle streams.
@@ -94,12 +97,16 @@ class WeightedSamplingReader:
 
         n = len(self._readers)
         self._weights = [float(p) / total for p in probabilities]
-        self._draws_total = [0] * n
-        self._starved_total = [0] * n
+        #: The mixer's registry (the members keep theirs).
+        self.telemetry = make_registry()
+        self._c_draws = [self.telemetry.counter(f"mixer.m{i}.draws_total") for i in range(n)]
+        self._c_starved = [self.telemetry.counter(f"mixer.m{i}.starved_total") for i in range(n)]
         self._t0 = time.monotonic()
         #: Monotonic time of each member's last delivery (None: never; its
         #: lag counts from the mixer's creation).
         self._last_served: List[Optional[float]] = [None] * n
+        for i in range(n):
+            self.telemetry.gauge(f"mixer.m{i}.lag_s", lambda i=i: self._lag_s(i))
 
     def _lag_s(self, idx: int) -> float:
         last = self._last_served[idx]
@@ -107,11 +114,11 @@ class WeightedSamplingReader:
 
     @property
     def counters(self) -> dict:
-        """The starvation counters under the JAX names."""
+        """The starvation counters and lags under the JAX names."""
         out = {}
         for i in range(len(self._readers)):
-            out[f"mixer.m{i}.draws_total"] = self._draws_total[i]
-            out[f"mixer.m{i}.starved_total"] = self._starved_total[i]
+            out[f"mixer.m{i}.draws_total"] = int(self._c_draws[i].value)
+            out[f"mixer.m{i}.starved_total"] = int(self._c_starved[i].value)
             out[f"mixer.m{i}.lag_s"] = self._lag_s(i)
         return out
 
@@ -119,7 +126,8 @@ class WeightedSamplingReader:
         """Each member's draws, starved picks, seconds since it last
         delivered and normalized weight, with the mix's step and seed."""
         members = [{"index": i, "weight": round(self._weights[i], 6),
-                    "draws": self._draws_total[i], "starved": self._starved_total[i],
+                    "draws": int(self._c_draws[i].value),
+                    "starved": int(self._c_starved[i].value),
                     "lag_s": round(self._lag_s(i), 3),
                     "exhausted": bool(getattr(r, "last_row_consumed", False))}
                    for i, r in enumerate(self._readers)]
@@ -142,11 +150,11 @@ class WeightedSamplingReader:
 
     def _serve(self, take):
         idx = self._pick()
-        self._draws_total[idx] += 1
+        self._c_draws[idx].add(1)
         try:
             sample = take(self._readers[idx])
         except StopIteration:
-            self._starved_total[idx] += 1
+            self._c_starved[idx].add(1)
             self.last_row_consumed = True
             raise
         self._last_served[idx] = time.monotonic()

@@ -19,6 +19,12 @@ thread with :meth:`ConcurrentVentilator.pause` before its next item,
 repoints it with :meth:`~ConcurrentVentilator.set_ventilate_fn` and lets it
 go on with :meth:`~ConcurrentVentilator.resume` (the JAX package's
 ``ventilator.py:262-293``).
+
+Growth (a live appending dataset, the JAX package's ``ventilator.py:61-233,
+331-357``): :meth:`ConcurrentVentilator.extend_items` appends items from the
+first epoch whose order is not minted yet, over a
+:class:`~petastorm_tpu_torch.utils.growth.GrowthSchedule`; the watermark
+walks epochs of their own sizes.
 """
 from __future__ import annotations
 
@@ -45,6 +51,11 @@ class ConcurrentVentilator:
     :param start_epoch/start_offset: resume: epoch ``start_epoch`` begins at
         position ``start_offset`` of its order (exact given the same items,
         seed and shuffle flag)
+    :param growth_segments: a live dataset's ``[(first_epoch, num_items),
+        ...]`` table (a resumed grown plan): epoch ``e`` ventilates, and
+        shuffles, only the first ``num_items``-at-``e`` items. It starts at
+        epoch 0 and ends at the whole item count; ``None``: one segment.
+        :meth:`extend_items` appends segments
     """
 
     def __init__(self, ventilate_fn, items_to_ventilate: List[Dict[str, Any]],
@@ -53,7 +64,7 @@ class ConcurrentVentilator:
                  random_seed: Optional[int] = None,
                  max_ventilation_queue_size: Optional[int] = None,
                  item_context_key: Optional[str] = None,
-                 start_epoch: int = 0, start_offset: int = 0):
+                 start_epoch: int = 0, start_offset: int = 0, growth_segments=None):
         if iterations is not None and iterations <= 0:
             raise ValueError(f"iterations must be positive or None, got {iterations}")
         self._ventilate_fn = ventilate_fn
@@ -81,6 +92,20 @@ class ConcurrentVentilator:
         self._processed_total = 0
         self._paused = False
         self._pause_parked = threading.Event()
+        # Epoch e ventilates the first _size_at(e) items; the schedule, the
+        # item list and the minted-epoch mark are guarded by _state_lock.
+        from petastorm_tpu_torch.utils.growth import GrowthSchedule
+        if growth_segments:
+            growth_segments = list(growth_segments)
+            if growth_segments[0][0] != 0 or growth_segments[-1][1] != len(self._items):
+                raise ValueError(f"growth_segments must start at epoch 0 and end at the full "
+                                 f"item count {len(self._items)}, got {growth_segments}")
+            self._growth = GrowthSchedule(growth_segments)
+        else:
+            self._growth = GrowthSchedule.base(len(self._items))
+        #: The latest epoch whose order was (or is being) minted: growth
+        #: lands after it, so a planned epoch never changes.
+        self._order_minted_epoch = start_epoch - 1
 
     def start(self):
         if self._thread is not None:
@@ -107,14 +132,19 @@ class ConcurrentVentilator:
 
     def _advance(self, mark, done: set, consume: bool = False):
         """``mark`` moved past every position of ``done`` that continues
-        it (removing those from ``done`` when ``consume``)."""
-        n = max(1, len(self._items))
+        it (removing those from ``done`` when ``consume``). Caller holds
+        ``_state_lock``."""
         while mark in done:
             if consume:
                 done.remove(mark)
             epoch, pos = mark
-            mark = (epoch + 1, 0) if pos + 1 >= n else (epoch, pos + 1)
+            mark = (epoch + 1, 0) if pos + 1 >= self._size_at(epoch) else (epoch, pos + 1)
         return mark
+
+    def _size_at(self, epoch: int) -> int:
+        """The item count of ``epoch`` (caller holds ``_state_lock``, or the
+        thread has not started)."""
+        return max(1, self._growth.size_at(epoch))
 
     def watermark(self, delivered=()) -> tuple:
         """The resume point ``(epoch, offset)``: the earliest item whose
@@ -127,8 +157,10 @@ class ConcurrentVentilator:
             else:
                 epoch, offset = self._start
                 offset += self._processed_total
-                n = max(1, len(self._items))
-                mark, done = (epoch + offset // n, offset % n), set(delivered)
+                while offset >= self._size_at(epoch):
+                    offset -= self._size_at(epoch)
+                    epoch += 1
+                mark, done = (epoch, offset), set(delivered)
             return self._advance(mark, done)
 
     @property
@@ -141,6 +173,40 @@ class ConcurrentVentilator:
         epoch, offset = self.watermark()
         return {"epoch": epoch, "offset": offset, "seed": self._seed,
                 "randomized": self._randomize}
+
+    @property
+    def growth_segments(self) -> list:
+        """The live ``[(first_epoch, num_items), ...]`` table."""
+        with self._state_lock:
+            return self._growth.segments
+
+    def extend_items(self, new_items) -> int:
+        """Append ``new_items`` from the first epoch whose order is not
+        minted yet (a planned epoch keeps its items and its seeded order).
+        Returns the effective epoch, which the schedule may move later than
+        that: a resumed run can carry a segment ahead of its cursor, and a
+        step never lands before one recorded. From any thread; with no
+        items it returns where growth would land."""
+        with self._state_lock:
+            proposed = self._order_minted_epoch + 1
+            if not new_items:
+                return max(proposed, self._growth.last_epoch)
+            self._items.extend(new_items)
+            effective = self._growth.extend(proposed, len(self._items))
+        with self._inflight_cv:
+            self._inflight_cv.notify_all()
+        return effective
+
+    def rebase_growth(self) -> None:
+        """One epoch-0 segment over every item: the reader's ``reset()``
+        rebase, where a new pass plans every admitted item from its first
+        epoch. Only once ventilation completed, as ``reset()``."""
+        if not self.completed():
+            raise RuntimeError("rebase_growth() requires completed ventilation (call it "
+                               "alongside reset())")
+        from petastorm_tpu_torch.utils.growth import GrowthSchedule
+        with self._state_lock:
+            self._growth = GrowthSchedule.base(len(self._items))
 
     @property
     def inflight(self) -> int:
@@ -227,10 +293,15 @@ class ConcurrentVentilator:
             self._start = self._watermark = (0, 0)
             self._completed_positions.clear()
             self._processed_total = 0
+            self._order_minted_epoch = -1
         self.start()
 
     def _epoch_order(self, epoch: int) -> List[Dict[str, Any]]:
-        items = list(self._items)
+        with self._state_lock:
+            # The items live at the epoch: an item appended mid-epoch never
+            # joins an order already minted.
+            self._order_minted_epoch = max(self._order_minted_epoch, epoch)
+            items = self._items[:self._size_at(epoch)]
         if self._randomize:
             rng = random.Random(None if self._seed is None else self._seed + epoch)
             rng.shuffle(items)

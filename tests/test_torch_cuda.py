@@ -1505,3 +1505,40 @@ def test_gathered_lookup_on_card_feeds_k1_bit_equal_to_the_cpu(cuda_device, tmp_
     assert kernels.launch_counts[KERNEL_NAME] == 1
     assert torch.equal(out.cpu().view(torch.int16),
                        normalize_images_plain(host["image"]).view(torch.int16))
+
+
+def test_refreshed_growth_epoch_feeds_k1_bit_equal_to_the_cpu(cuda_device, tmp_path):
+    """A live reader's growth epoch on the card: a file appended before the
+    first pull and admitted by ``refresh_dataset()`` joins from epoch 1;
+    every batch of the stream, staged onto ``cuda:0`` and normalised by K1,
+    is bit-equal to the plain version on the CPU, and epochs 1 and 2 deliver
+    the base ids and the appended ones, each once."""
+    import os
+    import shutil
+    url = _image_store(tmp_path, rows=64)
+    schema = Unischema("Img", [UnischemaField("id", np.int64, (), ScalarCodec(np.int64), False),
+                               UnischemaField("image", np.uint8, (32, 40, 3),
+                                              CompressedImageCodec("jpeg", 90), False)])
+    donor = f"{tmp_path}/donor"
+    rng = np.random.default_rng(13)
+    with materialize_dataset_local(f"file://{donor}", schema, rows_per_row_group=16) as w:
+        for i in range(64, 96):
+            w.write_row({"id": i, "image": rng.integers(0, 255, (32, 40, 3), dtype=np.uint8)})
+    part = sorted(f for f in os.listdir(donor) if f.endswith(".parquet"))[0]  # listing-ok: test
+    kernels.reset_launch_counts()
+    with make_reader(url, reader_pool_type="thread", workers_count=2, num_epochs=3, seed=1,
+                     sample_order="deterministic", shuffle_row_drop_partitions=4,
+                     refresh_interval_s=0) as reader:
+        shutil.copy(f"{donor}/{part}", f"{tmp_path}/img/zz-appended.parquet")
+        applied = reader.refresh_dataset()["applied"]
+        ids, bad = [], 0
+        for batch in DataLoader(reader, batch_size=64, device=cuda_device):
+            out = normalize_images(batch["image"])
+            want = normalize_images_plain(batch["image"].cpu())
+            bad += int((out.cpu().view(torch.int16) != want.view(torch.int16)).sum())
+            ids += batch["id"].tolist()
+    torch.cuda.synchronize()
+    assert [(b["epoch"], b["items"]) for b in applied] == [(1, 8)]
+    assert kernels.launch_counts[KERNEL_NAME] == 4 and bad == 0
+    assert sorted(ids[:64]) == list(range(64))
+    assert sorted(ids[64:160]) == sorted(ids[160:]) == list(range(96))

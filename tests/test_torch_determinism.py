@@ -198,12 +198,29 @@ def test_arguments_are_checked_as_jax_checks_them(synthetic_dataset, kw, match):
 
 
 def test_live_data_cursors_are_refused(synthetic_dataset):
-    state = _saved_state(synthetic_dataset.url, sample_order="deterministic", seed=3)
-    for bad in ({**state, "manifest": []}, {**state, "plan": {**state["plan"],
-                                                               "growth": [[1, 12]]}}):
-        with pytest.raises(ValueError, match="live-data"):
-            make_reader(synthetic_dataset.url, reader_pool_type="dummy",
-                        sample_order="deterministic", resume_state=bad)
+    """Live-data cursors, refused before the port read live data, now
+    resume as in the JAX reader: a JAX cursor with a file manifest, and one
+    whose plan grew by the store's last file from epoch 1, give the port
+    the JAX reader's rows."""
+    url = synthetic_dataset.url
+    kw = _kw(seed=3, reader_pool_type="dummy", refresh_interval_s=0)
+    with jax_make_reader(url, **kw) as r:
+        it = iter(r)
+        for _ in range(25):
+            next(it)
+        state = r.state_dict()
+    files = state["manifest"]["base"]
+    assert state["manifest"]["growth"] == [] and len(files) > 1
+    last = int(files[-1][1])
+    grown = {**state, "epoch": 0, "offset": 0, "window_delivered": 0, "skipped_ordinals": [],
+             "manifest": {"base": files[:-1],
+                          "growth": [{"epoch": 1, "files": files[-1:], "items": last}]},
+             "plan": {**state["plan"], "items": state["items"] - last,
+                      "growth": [[1, state["items"]]]}}
+    for cursor, rows in ((state, 200 - 20), (grown, 200 - GROUP * last)):
+        want = _rows(jax_make_reader, url, resume_state=cursor, **kw)
+        got = _rows(make_reader, url, resume_state=cursor, **kw)
+        assert got == want and len(got) == rows
 
 
 def test_state_dict_records_the_plan_and_a_minted_seed(synthetic_dataset):

@@ -134,7 +134,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.plan.lowering", "petastorm_tpu_torch.plan.fusion",
             "petastorm_tpu_torch.plan.cache", "petastorm_tpu_torch.plan.optimizer",
             "petastorm_tpu_torch.explain", "petastorm_tpu_torch.explain.spec",
-            *OPS_PLANE_MODULES, *INDEX_MODULES} <= set(modules)
+            *OPS_PLANE_MODULES, *INDEX_MODULES, *LIVE_DATA_MODULES} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -218,7 +218,24 @@ WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
                   "petastorm_tpu_torch.autotune.budget",
                   "petastorm_tpu_torch.reader_impl.readahead",
                   # ... or reopens its disk cache.
-                  "petastorm_tpu_torch.local_disk_cache")
+                  "petastorm_tpu_torch.local_disk_cache",
+                  # The live data's plan pieces and the discovery plane.
+                  "petastorm_tpu_torch.utils.growth",
+                  "petastorm_tpu_torch.workers_pool.ventilator",
+                  "petastorm_tpu_torch.discovery", "petastorm_tpu_torch.discovery.listing",
+                  "petastorm_tpu_torch.discovery.snapshot",
+                  "petastorm_tpu_torch.discovery.admission",
+                  "petastorm_tpu_torch.discovery.watcher")
+
+#: Live appending datasets: the growth schedule, the ventilator, the epoch
+#: plan and the discovery plane import without torch.
+LIVE_DATA_MODULES = ("petastorm_tpu_torch.utils.growth",
+                     "petastorm_tpu_torch.workers_pool.ventilator",
+                     "petastorm_tpu_torch.reader_impl.epoch_plan", "petastorm_tpu_torch.discovery",
+                     "petastorm_tpu_torch.discovery.listing",
+                     "petastorm_tpu_torch.discovery.snapshot",
+                     "petastorm_tpu_torch.discovery.admission",
+                     "petastorm_tpu_torch.discovery.watcher")
 
 #: The disk cache and the random-access plane (its gather imports torch
 #: only where it stages tensors).
@@ -251,6 +268,15 @@ def test_worker_modules_import_without_torch():
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr[-3000:]
+
+
+def test_live_data_modules_import_with_torch_blocked():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKER, *LIVE_DATA_MODULES], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO),
+                               "BLOCK_ALSO": "torch"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"imported {len(LIVE_DATA_MODULES)}" in proc.stdout
 
 
 def test_index_plane_imports_with_torch_blocked():

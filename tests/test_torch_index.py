@@ -9,8 +9,9 @@ telemetry counts, the quarantine's skip-and-record and fail-fast paths,
 the legacy bridge and the SLO rule are the JAX package's. Exact
 comparisons. Controls: a sidecar with a wrong row offset, and a lookup
 plane whose disk tier stores decoded values, must fail the comparisons.
-The growth reconciliation of ``Reader.lookup`` is not ported (the port
-has no growth): the appended-file case runs the planes' ``extend_files``."""
+The appended-file case runs the planes' ``extend_files``; the readers'
+growth reconciliation after ``refresh_dataset()`` is held to the JAX
+package's in ``tests/test_torch_live_data.py``."""
 import json
 import os
 

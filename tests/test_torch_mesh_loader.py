@@ -367,12 +367,18 @@ def test_a_changed_plan_is_refused(scalar_store):
         state = loader.state_dict()
     with pytest.raises(ValueError, match="do not transfer"):
         _port(scalar_store, batch_size=80, seed=4, num_hosts=8, resume_state=state)
+    # Fewer row groups than saved: a live store only appends (more is growth
+    # that happened while the job was down, which the loader adopts).
     with pytest.raises(ValueError, match="row groups"):
-        _port(scalar_store, batch_size=80, seed=4, num_hosts=4, num_rowgroups=41,
+        _port(scalar_store, batch_size=80, seed=4, num_hosts=4, num_rowgroups=39,
               resume_state=state)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _port(scalar_store, batch_size=80, seed=4, num_hosts=4,
-              resume_state=dict(state, growth=[[0, 40]]))
+    # A live-data cursor (a growth table) resumes with the JAX loader's rows.
+    grown = dict(state, growth=[[0, 32], [1, 40]])
+    got = _epoch_ids(_port(scalar_store, batch_size=80, seed=4, num_hosts=4, num_epochs=2,
+                           resume_state=grown))
+    want = _epoch_ids(_jax(scalar_store, batch_size=80, seed=4, num_hosts=4, num_epochs=2,
+                           resume_state=grown))
+    assert sorted(got) == sorted(want) and len(got) > 800
     with pytest.raises(ValueError, match="not a MeshDataLoader state_dict"):
         _port(scalar_store, batch_size=80, num_hosts=4, resume_state={"epoch": 0})
 
