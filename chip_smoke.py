@@ -545,6 +545,35 @@ result line):
    one -> K1: each appended id once, the growing member starved once, the
    mixer's registry holds ``mixer.m0.*`` and ``mixer.m1.*``. Launches are
    reset before the phase and read after it: K1 once a batch.
+28. stores in petastorm's own format, failed past ``PH28_BUDGET_S`` seconds,
+   each part under ``PH28_PART_TIMEOUT_S``. (a) The committed
+   ``tests/data/legacy_ref/`` (bytes written by petastorm 0.13.1's own code,
+   its schema a pickle read through the restricted unpickler) on 2 threads:
+   every field of the 20 rows equals petastorm's codecs' decode
+   (``expected_values.npz``, ``expected_scalars.json``);
+   ``DataLoader(10)`` stages ``image_png`` (uint8 32x16x3) and
+   ``image_jpeg`` (uint8 24x24x3) onto the card, each equal to that decode,
+   and K1 normalises both, bit-equal to its plain version;
+   ``make_batch_reader`` over the list of the two part-file URLs gives the
+   root's raw columns. (b) Phase 4's data files (2048 rows of 224x224x3
+   JPEG q90, groups of 64) hard-linked under a ``_common_metadata`` that
+   holds only petastorm's pickled schema (``petastorm.unischema`` and
+   ``petastorm.codecs`` globals, ``ScalarCodec(LongType())``,
+   ``CompressedImageCodec('jpeg', 90)``, made by
+   ``tests/torch_legacy_store.py``) and its row-group map, no
+   ``petastorm-tpu.*`` key: ``make_reader`` on 8 threads,
+   ``sample_order="deterministic"``, one epoch -> ``DataLoader(256)`` -> K1
+   (bit-equal on every batch) -> phase 9's ResNet-50 bf16 step on every
+   batch; the ids equal phase 4's store read the same way; samples/s
+   logged. (c) Through a filesystem that counts data-file opens: a copy
+   with a summary ``_metadata`` and no row-group map plans the 32 groups
+   with 0 opens and feeds ``make_reader`` -> K1 (fingerprints equal (b)'s);
+   ``make_batch_reader`` over (b)'s file URLs plans from their parent's
+   map with 0 opens and gives (b)'s ids. (d) (b)'s store on 2 processes,
+   one epoch into K1: the schema the workers unpickle holds no shim type,
+   the fingerprints equal (b)'s. HDFS is held in tier-1 only (no cluster,
+   no libhdfs here). Launches are reset before the phase and read after it:
+   K1 once a batch and image field.
 
 A run that reaches ``RUN_LIMIT_S`` prints every thread's stack and exits
 non-zero (``faulthandler``).
@@ -559,9 +588,11 @@ import dataclasses
 import faulthandler
 import functools
 import gc
+import glob
 import hashlib
 import json
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -1045,7 +1076,17 @@ PH27_CUT, PH27_PROCESS_WORKERS = 3, 2
 PH27_MESH_HOSTS, PH27_MESH_BATCH = 4, 128
 PH27_MIX = (0.25, 0.75)
 PH27_BUDGET_S = 45.0
-PH27_PART_TIMEOUT_S = 60.0
+PH27_PART_TIMEOUT_S = 45.0
+# Stores in petastorm's own format (phase 28): the committed store written by
+# petastorm 0.13.1 (read on PH28_FIXTURE_THREADS threads, batches of
+# PH28_FIXTURE_BATCH), (d)'s processes, the phase's budget and each part's
+# timeout.
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+PH28_FIXTURE = os.path.join(REPO_ROOT, "tests", "data", "legacy_ref")
+PH28_FIXTURE_THREADS, PH28_FIXTURE_BATCH = 2, 10
+PH28_PROCESS_WORKERS = 2
+PH28_BUDGET_S = 30.0
+PH28_PART_TIMEOUT_S = 30.0
 #: The global overrun guard: past this, every thread's stack is printed and
 #: the script exits non-zero (a run of this script is given 1,200 s).
 RUN_LIMIT_S = 1170
@@ -7866,6 +7907,264 @@ def phase_live_data(smi: str, live_src: str, written, tmp: str) -> dict:
             "samples_per_s": background["samples_per_s"], "lag_s": background["lag_s"]}
 
 
+def _ph28_module():
+    """``tests/torch_legacy_store.py`` (no JAX, no torch), loaded from this
+    checkout: it writes petastorm's metadata format."""
+    import importlib.util
+    path = os.path.join(REPO_ROOT, "tests", "torch_legacy_store.py")
+    spec = importlib.util.spec_from_file_location("torch_legacy_store", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _ph28_plan(tls, url_or_urls) -> tuple:
+    """``load_row_groups`` behind ``tls.DataFileOpenCounter``: (refs, opens)."""
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext, load_row_groups
+    ctx = DatasetContext(url_or_urls)
+    ctx.filesystem = tls.DataFileOpenCounter(ctx.filesystem)
+    refs = load_row_groups(ctx)
+    return refs, ctx.filesystem.data_file_opens
+
+
+def _ph28_fixture(smi: str, failures: list) -> int:
+    """Phase 28 (a): petastorm 0.13.1's bytes (see the module docstring).
+    -> K1 launches."""
+    from decimal import Decimal
+    with open(os.path.join(PH28_FIXTURE, "expected_scalars.json")) as f:
+        scalars = {r["id"]: r for r in json.load(f)}
+    arrays = np.load(os.path.join(PH28_FIXTURE, "expected_values.npz"))
+    url = f"file://{PH28_FIXTURE}"
+    kw = dict(reader_pool_type="thread", workers_count=PH28_FIXTURE_THREADS,
+              shuffle_row_groups=False)
+    with make_reader(url, **kw) as r:
+        rows = list(r)
+    bad = []
+    for s in rows:
+        i = int(s.id)
+        exp = scalars[i]
+        if s.name != exp["name"] or abs(float(s.weight) - exp["weight"]) >= 1e-12 \
+                or Decimal(str(s.dec)) != Decimal(exp["dec"]):
+            bad.append((i, "scalars"))
+        for name in ("image_png", "image_jpeg", "matrix", "packed"):
+            got = np.asarray(getattr(s, name))
+            if not np.array_equal(got, arrays[f"{name}_{i}"]):
+                bad.append((i, name))
+    if sorted(int(s.id) for s in rows) != sorted(scalars) or bad:
+        failures.append(f"(a) {len(rows)} rows, values unlike petastorm's decode: {bad[:6]}")
+    images = ("image_png", "image_jpeg")
+    launches, mismatches, staged_bad = 0, [], []
+    with make_reader(url, schema_fields=["id", *images], **kw) as r:
+        for batch in DataLoader(r, batch_size=PH28_FIXTURE_BATCH, device="cuda"):
+            for name in images:
+                pixels = batch[name]
+                out = normalize_images(pixels)
+                launches += 1
+                mismatches.append((out.view(torch.int16)
+                                   != normalize_images_plain(pixels).view(torch.int16)).sum())
+                want = np.stack([arrays[f"{name}_{int(i)}"] for i in batch["id"].tolist()])
+                if not np.array_equal(pixels.cpu().numpy(), want):
+                    staged_bad.append(name)
+    torch.cuda.synchronize()
+    if any(int(m.item()) for m in mismatches) or staged_bad:
+        failures.append(f"(a) K1 not bit-equal {[int(m.item()) for m in mismatches]} or staged "
+                        f"pixels unlike petastorm's decode: {staged_bad}")
+    parts = sorted(f"file://{p}" for p in glob.glob(f"{PH28_FIXTURE}/part-*.parquet"))
+
+    def columns(url_or_urls):
+        with make_batch_reader(url_or_urls, shuffle_row_groups=False,
+                               reader_pool_type="thread", workers_count=PH28_FIXTURE_THREADS) as r:
+            batches = list(r)
+        out = {name: [v for b in batches for v in getattr(b, name)]
+               for name in batches[0]._fields}
+        order = np.argsort(out["id"], kind="stable")
+        return {name: [values[i] for i in order] for name, values in out.items()}
+    by_root, by_parts = columns(url), columns(parts)
+    if len(parts) != 2 or by_root.keys() != by_parts.keys() or any(
+            [bytes(v) if isinstance(v, (bytes, bytearray)) else v for v in by_root[k]]
+            != [bytes(v) if isinstance(v, (bytes, bytearray)) else v for v in by_parts[k]]
+            for k in by_root) or len(by_root["id"]) != 20:
+        failures.append(f"(a) the batch reader over the {len(parts)} part URLs differs from "
+                        f"the root's raw columns")
+    log(f"[reference] (a) ({smi}) petastorm 0.13.1's store: {len(rows)} rows equal to its codecs' "
+        f"decode on {PH28_FIXTURE_THREADS} threads; K1 on image_png "
+        f"{tuple(arrays['image_png_0'].shape)} and image_jpeg "
+        f"{tuple(arrays['image_jpeg_0'].shape)}, {launches} launches, bit-equal; the batch "
+        f"reader over {len(parts)} part URLs gives the root's raw columns")
+    return launches
+
+
+def _ph28_store(tls, slice_url: str, root: str, row_map: bool = True) -> str:
+    """Phase 4's data files linked under ``root`` with petastorm's
+    ``_common_metadata`` (without the row-group map unless ``row_map``)."""
+    files = sorted(glob.glob(f"{slice_url[len('file://'):]}/*.parquet"))
+    pickled = tls.reference_unischema_pickle("ImageNetLike", tls.image_store_fields(IMAGE_SHAPE, 90))
+    tls.link_reference_store(files, root, pickled)
+    if not row_map:
+        import pyarrow.parquet as pq
+        schema = pq.read_schema(f"{root}/_common_metadata")
+        pq.write_metadata(schema.with_metadata({tls.LEGACY_UNISCHEMA_KEY: pickled}),
+                          f"{root}/_common_metadata")
+    return f"file://{root}"
+
+
+def _ph28_k1_epoch(reader, weights, failures: list, what: str, step=None) -> dict:
+    """One epoch of ``reader`` -> ``DataLoader(BATCH)`` onto the card -> K1,
+    bit-equal on every batch, ``step`` on each when given: ids in order,
+    each id's fingerprint, batches, seconds."""
+    ids, fps, mismatches = [], [], []
+    t0 = time.perf_counter()
+    for batch in DataLoader(reader, batch_size=BATCH, device="cuda"):
+        images, bad, fp = _ph27_k1(batch, weights)
+        mismatches.append(bad)
+        fps.append(fp)
+        if step is not None:
+            step(images, batch["id"])
+        ids.append(batch["id"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ids = torch.cat(ids).tolist()
+    if sorted(ids) != list(range(ROWS)):
+        failures.append(f"{what}: {len(ids)} rows, {len(set(ids))} distinct, not every id once")
+    if any(int(m.item()) for m in mismatches):
+        failures.append(f"{what}: K1 not bit-equal: {[int(m.item()) for m in mismatches]}")
+    return {"ids": ids, "fp": dict(zip(ids, torch.cat(fps).tolist())), "seconds": seconds,
+            "batches": len(mismatches)}
+
+
+def _ph28_full_width(smi: str, tls, slice_url: str, tmp: str, step, weights,
+                     failures: list) -> dict:
+    """Phase 28 (b): phase 4's files as petastorm's store, into K1 and
+    ResNet-50 (see the module docstring)."""
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext
+    url = _ph28_store(tls, slice_url, f"{tmp}/reference")
+    keys = sorted(DatasetContext(url).key_value_metadata())
+    if keys != sorted([tls.LEGACY_UNISCHEMA_KEY, tls.LEGACY_ROW_GROUPS_PER_FILE_KEY]):
+        failures.append(f"(b) the store's metadata keys are {keys}")
+    kw = dict(reader_pool_type="thread", workers_count=WORKERS, seed=28,
+              sample_order="deterministic", num_epochs=1)
+    with make_reader(slice_url, schema_fields=["id"], **kw) as r:
+        control = [int(row.id) for row in r]
+    with make_reader(url, **kw) as r:
+        epoch = _ph28_k1_epoch(r, weights, failures, "(b)", step=step)
+    if epoch["ids"] != control:
+        failures.append("(b) the id stream differs from phase 4's store read the same way")
+    rate = ROWS / epoch["seconds"]
+    log(f"[reference] (b) ({smi}) phase 4's {ROWS} rows as petastorm's store (keys "
+        f"{[k.decode() for k in keys]}): {WORKERS} threads -> DataLoader({BATCH}) -> K1 -> "
+        f"ResNet-50, {epoch['batches']} batches in {epoch['seconds']:.3f} s, {rate:.1f} "
+        f"samples/s; ids equal phase 4's deterministic stream")
+    return {"url": url, "epoch": epoch, "samples_per_s": rate}
+
+
+def _ph28_planning(smi: str, tls, slice_url: str, tmp: str, b: dict, weights,
+                   failures: list) -> int:
+    """Phase 28 (c): the summary split and the multi-URL parent index at
+    full width (see the module docstring). -> K1 launches."""
+    from petastorm_tpu_torch.etl.dataset_metadata import write_summary_metadata
+    url = _ph28_store(tls, slice_url, f"{tmp}/summary", row_map=False)
+    write_summary_metadata(url)
+    refs, opens = _ph28_plan(tls, url)
+    groups = ROWS // ROWS_PER_GROUP
+    if len(refs) != groups or opens:
+        failures.append(f"(c) the summary planned {len(refs)} groups with {opens} data-file opens")
+    kw = dict(reader_pool_type="thread", workers_count=WORKERS, seed=28,
+              sample_order="deterministic", num_epochs=1)
+    with make_reader(url, **kw) as r:
+        epoch = _ph28_k1_epoch(r, weights, failures, "(c) summary")
+    if epoch["fp"] != b["epoch"]["fp"]:
+        failures.append("(c) the summary-planned store's K1 fingerprints differ from (b)'s")
+    files = sorted(f"file://{p}" for p in glob.glob(f"{b['url'][len('file://'):]}/*.parquet"))
+    view_refs, view_opens = _ph28_plan(tls, files)
+    if len(view_refs) != groups or view_opens:
+        failures.append(f"(c) the {len(files)} URLs planned {len(view_refs)} groups with "
+                        f"{view_opens} data-file opens")
+    with make_batch_reader(files, schema_fields=["id"], **kw) as r:
+        view_ids = [int(i) for batch in r for i in batch.id]
+    if view_ids != b["epoch"]["ids"]:
+        failures.append("(c) the batch reader over the file URLs gives other ids than (b)")
+    log(f"[reference] (c) ({smi}) the summary _metadata alone planned {len(refs)} groups with "
+        f"{opens} data-file opens, then {epoch['batches']} batches into K1 in "
+        f"{epoch['seconds']:.3f} s, fingerprints equal (b)'s; make_batch_reader over "
+        f"{len(files)} file URLs planned {len(view_refs)} groups from the parent's map with "
+        f"{view_opens} opens, ids equal (b)'s")
+    return epoch["batches"]
+
+
+def _ph28_processes(smi: str, b: dict, weights, failures: list) -> int:
+    """Phase 28 (d): (b)'s store on processes (see the module docstring).
+    -> K1 launches."""
+    t0 = time.perf_counter()
+    with make_reader(b["url"], reader_pool_type="process", workers_count=PH28_PROCESS_WORKERS,
+                     seed=28, num_epochs=1) as r:
+        shims = [type(f.codec).__name__ for f in r.schema.fields.values()
+                 if type(f.codec).__module__ != "petastorm_tpu_torch.codecs"]
+        # What the spawned workers unpickle of the schema.
+        sent = pickle.dumps({k: v for k, v in r._worker_args_for(r._pool).items()
+                             if "schema" in k})
+        if shims or b"_Legacy" in sent or b"etl.legacy" in sent:
+            failures.append(f"(d) the schema reaches the workers with shim types: {shims}")
+        epoch = _ph28_k1_epoch(r, weights, failures, "(d)")
+    if epoch["fp"] != b["epoch"]["fp"]:
+        failures.append("(d) K1 fingerprints on processes differ from (b)'s")
+    log(f"[reference] (d) ({smi}) {PH28_PROCESS_WORKERS} processes: the depickled schema "
+        f"pickles to the workers with plain classes only; {epoch['batches']} batches into K1 "
+        f"in {epoch['seconds']:.3f} s ({time.perf_counter() - t0:.2f} s with the spawn), "
+        f"fingerprints equal (b)'s")
+    return epoch["batches"]
+
+
+def phase_reference_stores(smi: str, slice_url: str, tmp: str) -> dict:
+    """Phase 28: stores written in petastorm's own format, into K1 and
+    ResNet-50 (see the module docstring). Returns the launches by kernel
+    name and (b)'s samples/s."""
+    failures = []
+    kernels.reset_launch_counts()
+    t_phase = time.perf_counter()
+    tls = _ph28_module()
+    params = resnet.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                IMAGENET_CLASSES, device="cuda")
+    init_opt, raw_step = resnet.make_train_step(learning_rate=0.05)
+    opt = init_opt(params)
+
+    def step(images, ids):
+        nonlocal params, opt
+        params, opt, _, _ = raw_step(params, opt, {"image": images,
+                                                   "label": ids % IMAGENET_CLASSES})
+    weights = torch.randint(1, 2 ** 16, (int(np.prod(IMAGE_SHAPE)),), dtype=torch.int64,
+                            generator=torch.Generator().manual_seed(28)).to("cuda")
+    seconds = {"set-up": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    expect = _bounded("28 (a)", PH28_PART_TIMEOUT_S, _ph28_fixture, smi, failures)
+    seconds["(a)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = _bounded("28 (b)", PH28_PART_TIMEOUT_S, _ph28_full_width, smi, tls, slice_url, tmp, step,
+                 weights, failures)
+    expect += b["epoch"]["batches"]
+    seconds["(b)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    expect += _bounded("28 (c)", PH28_PART_TIMEOUT_S, _ph28_planning, smi, tls, slice_url, tmp, b,
+                       weights, failures)
+    seconds["(c)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    expect += _bounded("28 (d)", PH28_PART_TIMEOUT_S, _ph28_processes, smi, b, weights, failures)
+    seconds["(d)"] = time.perf_counter() - t0
+    del params, opt
+    free_cuda()
+    launches = dict(kernels.launch_counts)
+    total = time.perf_counter() - t_phase
+    log(f"[reference] ({smi}) phase 28: {total:.1f} s (budget {PH28_BUDGET_S:.0f} s), by part "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }; launches {launches}")
+    if launches != {KERNEL_NAME: expect}:
+        failures.append(f"launches {launches}, expected {KERNEL_NAME}: {expect}")
+    if total > PH28_BUDGET_S:
+        failures.append(f"{total:.1f} s, over the phase's budget of {PH28_BUDGET_S:.0f} s")
+    if failures:
+        raise AssertionError("reference stores phase: " + "; ".join(failures))
+    return {KERNEL_NAME: launches.get(KERNEL_NAME, 0), "samples_per_s": b["samples_per_s"],
+            "seconds": seconds}
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its seconds kept under ``name`` in
     ``PHASE_SECONDS``."""
@@ -7973,6 +8272,11 @@ def main() -> int:
         free_cuda()
         with tempfile.TemporaryDirectory() as tmp:
             live = timed("27 live data", phase_live_data, smi, live_tmp, live_written, tmp)
+        free_cuda()
+        # Phase 28 links phase 4's data files into stores of petastorm's format.
+        with tempfile.TemporaryDirectory() as tmp:
+            reference = timed("28 reference stores", phase_reference_stores, smi,
+                              f"file://{slice_tmp}/imagenet_like", tmp)
     log(f"[smoke] ({smi}) seconds by phase "
         f"{ {n: round(t, 1) for n, t in PHASE_SECONDS.items()} }; the whole run "
         f"{time.perf_counter() - t_run:.1f} s")
@@ -7990,7 +8294,8 @@ def main() -> int:
                      + select[KERNEL_NAME] + epoch[KERNEL_NAME] + mesh[KERNEL_NAME]
                      + lazy[KERNEL_NAME] + conv[KERNEL_NAME] + tele[KERNEL_NAME]
                      + resil[KERNEL_NAME] + io_plane[KERNEL_NAME] + planning[KERNEL_NAME]
-                     + ops[KERNEL_NAME] + disk[KERNEL_NAME] + live[KERNEL_NAME]),
+                     + ops[KERNEL_NAME] + disk[KERNEL_NAME] + live[KERNEL_NAME]
+                     + reference[KERNEL_NAME]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

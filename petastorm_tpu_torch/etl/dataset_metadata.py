@@ -8,8 +8,17 @@ writes:
 * ``petastorm-tpu.num_row_groups_per_file.v1`` — JSON map of relative file
   path -> row-group count, so planning never scans footers.
 
-Reference petastorm stores, whose schema is a pickle under
-``dataset-toolkit.unischema.v1``, are not read by this package yet.
+Stores written by petastorm itself keep their schema as a pickle under
+``dataset-toolkit.unischema.v1``, read through the restricted unpickler of
+:mod:`petastorm_tpu_torch.etl.legacy`, and their row-groups-per-file map
+under ``dataset-toolkit.num_row_groups_per_file.v1``.
+
+A dataset is one root URL or a list of data-file URLs in one filesystem (a
+multi-URL view, :attr:`DatasetContext.is_multi_path`), whose metadata cannot
+be written. :func:`load_row_groups` plans from, in this order, the stored
+row-groups-per-file map, the parent directory's map of a multi-URL view, the
+summary ``_metadata`` sidecar's row groups, and a scan of the footers; the
+first three read no data file.
 
 :func:`load_row_group_stats` reads the footers' per-row-group column
 statistics (:class:`ColumnStats`) for the reader's plan-time pruning: from
@@ -25,7 +34,7 @@ import posixpath
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Union
 
 import pyarrow.parquet as pq
 
@@ -40,6 +49,7 @@ logger = logging.getLogger(__name__)
 UNISCHEMA_KEY = b"petastorm-tpu.unischema.v1"
 ROW_GROUPS_PER_FILE_KEY = b"petastorm-tpu.num_row_groups_per_file.v1"
 LEGACY_UNISCHEMA_KEY = b"dataset-toolkit.unischema.v1"
+LEGACY_ROW_GROUPS_PER_FILE_KEY = b"dataset-toolkit.num_row_groups_per_file.v1"
 
 _METADATA_FILENAMES = ("_metadata", "_common_metadata")
 
@@ -96,8 +106,10 @@ def _column_stats_for_row_group(rg_meta, columns: set) -> Dict[str, ColumnStats]
 
 def _read_summary_metadata(ctx: "DatasetContext"):
     """The summary ``_metadata`` sidecar's ``pq.FileMetaData``, or None when
-    it is absent, unreadable or holds no row group (a schema-only
-    sidecar)."""
+    it is absent, unreadable or holds no row group (a schema-only sidecar),
+    or for a multi-URL view."""
+    if ctx.is_multi_path:
+        return None
     p = posixpath.join(ctx.root_path, "_metadata")
     try:
         if not ctx.filesystem.exists(p):
@@ -177,17 +189,30 @@ def load_row_group_stats(ctx: "DatasetContext", row_groups, columns, telemetry=N
 
 
 class DatasetContext:
-    """Resolved handle on one dataset root: filesystem, root path, and
-    lazily read metadata key-values. ``storage_options`` and ``filesystem``
-    go to :class:`~petastorm_tpu_torch.fs_utils.FilesystemResolver`."""
+    """Resolved handle on a dataset, one root or a multi-URL view:
+    filesystem, path or paths, and lazily read metadata key-values.
+    ``hadoop_configuration``, ``storage_options`` and ``filesystem`` go to
+    :class:`~petastorm_tpu_torch.fs_utils.FilesystemResolver`."""
 
-    def __init__(self, dataset_url: str, storage_options: Optional[dict] = None,
-                 filesystem=None):
-        self.filesystem, self.root_path = get_filesystem_and_path_or_paths(
-            dataset_url, storage_options=storage_options, filesystem=filesystem)
+    def __init__(self, dataset_url_or_urls: Union[str, Sequence[str]],
+                 storage_options: Optional[dict] = None, filesystem=None,
+                 hadoop_configuration=None):
+        self.filesystem, self.path_or_paths = get_filesystem_and_path_or_paths(
+            dataset_url_or_urls, hadoop_configuration=hadoop_configuration,
+            storage_options=storage_options, filesystem=filesystem)
         self._file_paths: Optional[List[str]] = None
         self._kv_metadata: Optional[Dict[bytes, bytes]] = None
         self._arrow_schema = None
+
+    @property
+    def is_multi_path(self) -> bool:
+        """A list of URLs (a view of data files), not one root."""
+        return isinstance(self.path_or_paths, list)
+
+    @property
+    def root_path(self) -> str:
+        """The root, or a multi-URL view's first path."""
+        return self.path_or_paths[0] if self.is_multi_path else self.path_or_paths
 
     def file_paths(self) -> List[str]:
         """Every data file under the root, sorted for deterministic plans,
@@ -195,7 +220,7 @@ class DatasetContext:
         default retry policy (a plan-time context predates the reader's
         fault plan, registry and deadline; the watcher's polls carry them)."""
         if self._file_paths is None:
-            self._file_paths = list_data_files(self.filesystem, self.root_path)
+            self._file_paths = list_data_files(self.filesystem, self.path_or_paths)
         return self._file_paths
 
     def arrow_schema(self):
@@ -207,13 +232,15 @@ class DatasetContext:
             if schema is None:
                 files = self.file_paths()
                 if not files:
-                    raise MetadataError(f"No parquet files found under {self.root_path}")
+                    raise MetadataError(f"No parquet files found under {self.path_or_paths}")
                 with self.filesystem.open(files[0], "rb") as f:
                     schema = pq.ParquetFile(f).schema_arrow
             self._arrow_schema = schema
         return self._arrow_schema
 
     def _read_sidecar_schema(self, name):
+        if self.is_multi_path:
+            return None
         p = posixpath.join(self.root_path, name)
         try:
             if not self.filesystem.exists(p):
@@ -248,45 +275,140 @@ class DatasetContext:
         return tuple(parts)
 
 
+def _expand_row_groups(ctx: DatasetContext, path_counts) -> List[RowGroupRef]:
+    """``[(file path, row-group count)]``, in order, as one ref a group."""
+    return [RowGroupRef(path, i, ctx.partition_values_for(path))
+            for path, count in path_counts for i in range(count)]
+
+
+def summary_row_group_row_counts(ctx: DatasetContext) -> Optional[Dict[str, List[int]]]:
+    """``{file path: [rows of each group]}`` from the summary ``_metadata``
+    sidecar, in its order, or None without a usable summary: one read in
+    place of every footer."""
+    md = _read_summary_metadata(ctx)
+    if md is None:
+        return None
+    out: Dict[str, List[int]] = {}
+    for i in range(md.num_row_groups):
+        rg = md.row_group(i)
+        rel = rg.column(0).file_path
+        if not rel:
+            return None   # a malformed summary: a group without its file
+        out.setdefault(posixpath.join(ctx.root_path, rel), []).append(rg.num_rows)
+    return out
+
+
+def _row_groups_from_summary_metadata(ctx: DatasetContext,
+                                      files: List[str]) -> Optional[List[RowGroupRef]]:
+    """The row groups the summary ``_metadata`` sidecar lists, with no
+    footer read; None without a usable summary (absent, schema-only,
+    malformed, or stale: its files are not those on disk)."""
+    md = _read_summary_metadata(ctx)
+    if md is None:
+        return None
+    per_file: Dict[str, int] = {}
+    for i in range(md.num_row_groups):
+        file_path = md.row_group(i).column(0).file_path
+        if not file_path:
+            return None
+        per_file[file_path] = per_file.get(file_path, 0) + 1
+    by_rel = {os.path.relpath(f, ctx.root_path): f for f in files}
+    if set(per_file) != set(by_rel):
+        logger.warning("Summary _metadata is stale (%d summarized files, %d on disk); "
+                       "falling back", len(per_file), len(by_rel))
+        return None
+    return _expand_row_groups(ctx, [(by_rel[rel], per_file[rel]) for rel in sorted(per_file)])
+
+
+def _multi_path_parent_index(ctx: DatasetContext, files: List[str]) -> Optional[Dict[str, int]]:
+    """``{file: row groups}`` of a multi-URL view whose files share one
+    directory, from that directory's ``_common_metadata`` map (this
+    package's key, else petastorm's); None when they do not, or when a file
+    is not in the map."""
+    parents = {posixpath.dirname(f) for f in files}
+    if len(parents) != 1:
+        return None
+    sidecar = posixpath.join(parents.pop(), "_common_metadata")
+    try:
+        if not ctx.filesystem.exists(sidecar):
+            return None
+        with ctx.filesystem.open(sidecar, "rb") as f:
+            kv = pq.read_schema(f).metadata or {}
+    except (OSError, ValueError):
+        return None
+    for key in (ROW_GROUPS_PER_FILE_KEY, LEGACY_ROW_GROUPS_PER_FILE_KEY):
+        if key in kv:
+            index = json.loads(kv[key].decode("utf-8"))
+            break
+    else:
+        return None
+    per_file = {}
+    for f in files:
+        rel = posixpath.basename(f)
+        if rel not in index:
+            return None   # a listed file the map lacks: the footers instead
+        per_file[f] = index[rel]
+    return per_file
+
+
 def load_row_groups(ctx: DatasetContext) -> List[RowGroupRef]:
-    """Every row group of the dataset, in deterministic order: from the
-    metadata's row-groups-per-file index when it matches the files on disk,
-    else from a footer scan of every data file."""
+    """Every row group of the dataset, in deterministic order, from the
+    first of:
+
+    1. the metadata's row-groups-per-file map (this package's key, then
+       petastorm's), when it names exactly the files on disk;
+    2. for a multi-URL view, its files' parent directory's map;
+    3. the summary ``_metadata`` sidecar's row groups;
+    4. a threaded scan of every data file's footer.
+    """
     kv = ctx.key_value_metadata()
     per_file: Optional[Dict[str, int]] = None
-    if ROW_GROUPS_PER_FILE_KEY in kv:
-        per_file = json.loads(kv[ROW_GROUPS_PER_FILE_KEY].decode("utf-8"))
+    for key in (ROW_GROUPS_PER_FILE_KEY, LEGACY_ROW_GROUPS_PER_FILE_KEY):
+        if key in kv:
+            per_file = json.loads(kv[key].decode("utf-8"))
+            break
 
     files = ctx.file_paths()
-    by_rel = {os.path.relpath(f, ctx.root_path): f for f in files}
-    if per_file is not None and set(per_file) == set(by_rel):
-        counts = [(by_rel[rel], per_file[rel]) for rel in sorted(per_file)]
-    else:
-        if per_file is not None:
-            logger.warning("Metadata row-group index does not match the files "
-                           "on disk; scanning footers")
+    if per_file is not None and not ctx.is_multi_path:
+        by_rel = {os.path.relpath(f, ctx.root_path): f for f in files}
+        missing = [rel for rel in per_file if rel not in by_rel]
+        unindexed = [rel for rel in by_rel if rel not in per_file]
+        if not (missing or unindexed):
+            return _expand_row_groups(ctx, [(by_rel[rel], per_file[rel])
+                                            for rel in sorted(per_file)])
+        logger.warning("Metadata row-group index is stale (%d indexed files absent on disk, "
+                       "%d on-disk files not indexed: appended without regenerating "
+                       "metadata?); falling back to footer scan", len(missing), len(unindexed))
 
-        def _count(path):
-            with ctx.filesystem.open(path, "rb") as f:
-                return path, pq.ParquetFile(f).metadata.num_row_groups
+    if ctx.is_multi_path:
+        by_file = _multi_path_parent_index(ctx, files)
+        if by_file is not None:
+            return _expand_row_groups(ctx, [(f, by_file[f]) for f in files])
 
-        with ThreadPoolExecutor(max_workers=10) as pool:
-            counts = list(pool.map(_count, files))
-    return [RowGroupRef(path, i, ctx.partition_values_for(path))
-            for path, count in counts for i in range(count)]
+    summary = _row_groups_from_summary_metadata(ctx, files)
+    if summary is not None:
+        return summary
+
+    def _count(path):
+        with ctx.filesystem.open(path, "rb") as f:
+            return path, pq.ParquetFile(f).metadata.num_row_groups
+
+    with ThreadPoolExecutor(max_workers=10) as pool:
+        counts = dict(pool.map(_count, files))
+    return _expand_row_groups(ctx, [(f, counts[f]) for f in files])
 
 
 def get_schema(ctx: DatasetContext) -> Unischema:
-    """The Unischema stored in the dataset metadata."""
+    """The Unischema stored in the dataset metadata: this package's JSON
+    document, else petastorm's pickle through the restricted unpickler."""
     kv = ctx.key_value_metadata()
     if UNISCHEMA_KEY in kv:
         return Unischema.from_dict(json.loads(kv[UNISCHEMA_KEY].decode("utf-8")))
     if LEGACY_UNISCHEMA_KEY in kv:
-        raise MetadataError(
-            f"{ctx.root_path} carries a pickled reference-petastorm schema, which "
-            f"petastorm_tpu_torch cannot read yet")
+        from petastorm_tpu_torch.etl.legacy import depickle_legacy_unischema
+        return depickle_legacy_unischema(kv[LEGACY_UNISCHEMA_KEY])
     raise MetadataError(
-        f"Could not find a Unischema in dataset metadata at {ctx.root_path}. "
+        f"Could not find a Unischema in dataset metadata at {ctx.path_or_paths}. "
         "Was the dataset written with materialize_dataset_local()?")
 
 
@@ -300,10 +422,11 @@ def infer_or_load_unischema(ctx: DatasetContext) -> Unischema:
         return Unischema.from_arrow_schema(ctx.arrow_schema(), omit_unsupported_fields=True)
 
 
-def get_schema_from_dataset_url(dataset_url: str, storage_options: Optional[dict] = None,
+def get_schema_from_dataset_url(dataset_url_or_urls, storage_options: Optional[dict] = None,
                                 filesystem=None) -> Unischema:
-    """The Unischema stored in the metadata of the store at ``dataset_url``."""
-    return get_schema(DatasetContext(dataset_url, storage_options=storage_options,
+    """The Unischema stored in the metadata of the store at
+    ``dataset_url_or_urls`` (one URL or a list)."""
+    return get_schema(DatasetContext(dataset_url_or_urls, storage_options=storage_options,
                                      filesystem=filesystem))
 
 
@@ -317,7 +440,8 @@ def write_dataset_metadata(ctx_or_url, schema: Optional[Unischema],
     """(Re)write ``_common_metadata`` of a store (a :class:`DatasetContext`
     or a URL) with the row-groups-per-file map, built from a footer scan of
     every data file, the schema (kept as stored when None) and
-    ``extra_kv``.
+    ``extra_kv``. A multi-URL view has no root to write it to:
+    ``MetadataGenerationError``.
 
     Returns the statistics of the same footer pass, ``{"total_rows",
     "file_sizes", "num_files"}``, so a caller that needs them (the Spark
@@ -325,6 +449,8 @@ def write_dataset_metadata(ctx_or_url, schema: Optional[Unischema],
     (``[(path, num_row_groups, num_rows, size)]``, as
     :func:`write_summary_metadata` returns) replaces the footer pass."""
     ctx = _context(ctx_or_url)
+    if ctx.is_multi_path:
+        raise MetadataGenerationError("Cannot write metadata for a multi-URL dataset view")
     files = ctx.file_paths()
     if not files:
         raise MetadataGenerationError(f"No parquet data files under {ctx.root_path}")
@@ -367,6 +493,8 @@ def write_summary_metadata(ctx_or_url) -> list:
     ``[(path, num_row_groups, num_rows, size)]`` for
     :func:`write_dataset_metadata`'s ``file_stats``."""
     ctx = _context(ctx_or_url)
+    if ctx.is_multi_path:
+        raise MetadataGenerationError("Cannot write summary metadata for a multi-URL view")
     files = ctx.file_paths()
     if not files:
         raise MetadataGenerationError(f"No parquet data files under {ctx.root_path}")
@@ -378,7 +506,8 @@ def write_summary_metadata(ctx_or_url) -> list:
             with ctx.filesystem.open(sidecar_path, "rb") as f:
                 old_kv = pq.read_schema(f).metadata or {}
         kept = {k: v for k, v in old_kv.items()
-                if k in (UNISCHEMA_KEY, ROW_GROUPS_PER_FILE_KEY, LEGACY_UNISCHEMA_KEY)}
+                if k in (UNISCHEMA_KEY, ROW_GROUPS_PER_FILE_KEY, LEGACY_UNISCHEMA_KEY,
+                         LEGACY_ROW_GROUPS_PER_FILE_KEY)}
         if kept:
             if ctx.filesystem.exists(common_path):
                 with ctx.filesystem.open(common_path, "rb") as f:
@@ -419,7 +548,7 @@ def write_summary_metadata(ctx_or_url) -> list:
 @contextmanager
 def materialize_dataset(spark, dataset_url: str, schema: Unischema,
                         row_group_size_mb: Optional[int] = None,
-                        use_summary_metadata: bool = False):
+                        use_summary_metadata: bool = False, filesystem_factory=None):
     """Context manager around a **Spark** Parquet write of ``dataset_url``
     (requires pyspark): sets the Parquet block size (and whether the
     committer writes summary metadata) in the session's Hadoop
@@ -427,6 +556,8 @@ def materialize_dataset(spark, dataset_url: str, schema: Unischema,
     the row-group index after it, and restores the configuration. With
     ``use_summary_metadata`` the summary ``_metadata`` is built from the
     footers (:func:`write_summary_metadata`), whatever the committer does.
+    ``filesystem_factory()``, when given, makes the filesystem the metadata
+    is written through.
     For a write without Spark use
     :func:`petastorm_tpu_torch.etl.writer.materialize_dataset_local`."""
     try:
@@ -442,7 +573,8 @@ def materialize_dataset(spark, dataset_url: str, schema: Unischema,
     hadoop_conf.setBoolean("parquet.enable.summary-metadata", bool(use_summary_metadata))
     try:
         yield
-        ctx = DatasetContext(dataset_url)
+        ctx = DatasetContext(dataset_url,
+                             filesystem=filesystem_factory() if filesystem_factory else None)
         stats = write_summary_metadata(ctx) if use_summary_metadata else None
         write_dataset_metadata(ctx, schema, file_stats=stats)
     finally:

@@ -8,9 +8,10 @@ petastorm's own.
 
 The stored pickle names the indexer classes as the JAX package does
 (``petastorm_tpu.etl.rowgroup_indexers``), so either package reads an
-index the other built. Loading goes through :class:`IndexUnpickler`, which
-maps the indexer names of the JAX package, of petastorm and of this
-package onto this package's classes, allows a few plain types, and
+index the other built. Loading goes through
+:class:`~petastorm_tpu_torch.etl.legacy.RestrictedUnpickler`, whose one
+allowlist maps the indexer names of the JAX package, of petastorm and of
+this package onto this package's classes, allows a few plain types, and
 refuses everything else: it never imports the module a pickle names.
 
 Deprecated, as in the JAX package: the random-access plane
@@ -20,23 +21,20 @@ writes its keyed indexers into that plane's sidecar, group-granular.
 """
 from __future__ import annotations
 
-import io
 import logging
 import pickle
 import pickletools
-from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
-from decimal import Decimal
 import warnings
 from typing import Dict, Sequence
 
-import numpy as np
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.errors import MetadataError
 from petastorm_tpu_torch.etl import rowgroup_indexers
 from petastorm_tpu_torch.etl.dataset_metadata import (DatasetContext, load_row_groups,
                                                       write_dataset_metadata)
+from petastorm_tpu_torch.etl.legacy import restricted_loads
 from petastorm_tpu_torch.etl.rowgroup_indexers import RowGroupIndexerBase
 
 logger = logging.getLogger(__name__)
@@ -46,47 +44,13 @@ LEGACY_ROWGROUPS_INDEX_KEY = b"dataset-toolkit.rowgroups_index.v1"
 
 #: The module name the stored pickle gives the indexer classes.
 STORED_INDEXER_MODULE = "petastorm_tpu.etl.rowgroup_indexers"
-_INDEXER_MODULES = (STORED_INDEXER_MODULE, "petastorm.etl.rowgroup_indexers",
-                    "dataset_toolkit.etl.rowgroup_indexers", rowgroup_indexers.__name__)
-_INDEXER_CLASSES = ("SingleFieldIndexer", "FieldNotNullIndexer")
 
-_ALLOWED = {
-    ("collections", "defaultdict"): defaultdict,
-    ("decimal", "Decimal"): Decimal,
-    **{("builtins", t.__name__): t
-       for t in (str, bytes, int, float, bool, set, frozenset, list, tuple, dict)},
-    **{(module, name): getattr(rowgroup_indexers, name)
-       for module in _INDEXER_MODULES for name in _INDEXER_CLASSES},
-}
-_ALLOWED_NUMPY = {"dtype", "ndarray", "int8", "int16", "int32", "int64", "uint8", "uint16",
-                  "uint32", "uint64", "float16", "float32", "float64", "bool_", "str_",
-                  "bytes_", "_reconstruct", "scalar"}
-
-
-class IndexUnpickler(pickle.Unpickler):
-    """Resolves only the indexer classes, plain builtins and numpy scalars;
-    any other global raises ``pickle.UnpicklingError``."""
-
-    def find_class(self, module, name):
-        if module == "__builtin__":   # Python 2 era pickles
-            module = "builtins"
-        if (module, name) in _ALLOWED:
-            return _ALLOWED[(module, name)]
-        if module in ("numpy", "numpy.core.multiarray", "numpy._core.multiarray") \
-                and name in _ALLOWED_NUMPY:
-            if name in ("_reconstruct", "scalar"):
-                try:
-                    from numpy._core import multiarray
-                except ImportError:   # numpy < 2
-                    from numpy.core import multiarray
-                return getattr(multiarray, name)
-            return getattr(np, name)
-        raise pickle.UnpicklingError(
-            f"row-group index pickle references disallowed class {module}.{name}")
 
 
 def loads_index(data: bytes) -> Dict[str, RowGroupIndexerBase]:
-    return IndexUnpickler(io.BytesIO(data)).load()
+    """The pickled index, through the reference-store unpickler's one
+    allowlist (:func:`~petastorm_tpu_torch.etl.legacy.restricted_loads`)."""
+    return restricted_loads(data)
 
 
 def dumps_index(index_dict: Dict[str, RowGroupIndexerBase]) -> bytes:

@@ -190,6 +190,9 @@ class FieldIndex:
     # ------------------------------------------------------- persistence
     @staticmethod
     def sidecar_path(ctx) -> str:
+        if ctx.is_multi_path:
+            raise MetadataError("a field index needs a single dataset root (multi-URL views "
+                                "enumerate a fixed file list with no sidecar home)")
         return posixpath.join(ctx.root_path, INDEX_SIDECAR_NAME)
 
     def to_dict(self) -> dict:

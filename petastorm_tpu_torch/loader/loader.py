@@ -79,6 +79,8 @@ read them, as the JAX package's loaders do.
 """
 from __future__ import annotations
 
+import collections
+import os
 import queue
 import threading
 import time
@@ -283,6 +285,14 @@ class LoaderBase:
         batches from one pipeline that lives across passes (no staged batch
         is lost between them), and raises ``RuntimeError`` when the stream
         ends sooner; see :func:`aligned_steps_per_epoch`
+    :param pad_variable_length_to: a variable-length field (a ``None`` in
+        its shape) is zero-padded (or cut) along its first axis to this
+        length, an int or ``{field: length}``, and gets an int32
+        ``<name>__len`` column of the true lengths; without it such a field
+        stays a host column of per-row arrays (an NGram window raises)
+    :param keep_host_fields: hand out the columns the dtype policy keeps
+        on the host (strings, objects) beside the staged ones; ``False``
+        drops them
     :param sharding: a :class:`~petastorm_tpu_torch.parallel.mesh.BatchSharding`
         describing how the global batch lies over the ranks. A rank's batch
         already is its slice, so it is staged as it is: the argument only
@@ -299,7 +309,8 @@ class LoaderBase:
     def __init__(self, batch_size: int, drop_last: bool = True, pad_last: bool = False,
                  prefetch: int = 2, device="cuda", echo: int = 1,
                  dtype_policy: DTypePolicy = DEFAULT_POLICY,
-                 steps_per_epoch: Optional[int] = None, sharding=None, telemetry=None):
+                 steps_per_epoch: Optional[int] = None, sharding=None, telemetry=None,
+                 pad_variable_length_to=None, keep_host_fields: bool = True):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if echo < 1:
@@ -317,6 +328,8 @@ class LoaderBase:
         self._space: Optional[threading.Condition] = None
         self._echo = echo
         self._dtype_policy = dtype_policy
+        self._pad_varlen = pad_variable_length_to
+        self._keep_host = keep_host_fields
         self._steps_per_epoch = steps_per_epoch
         self._persistent_it = None
         self._in_iter = False
@@ -580,7 +593,8 @@ class LoaderBase:
                     rows = len(next(iter(hb.values()))) if hb else 0
                     self.metrics.record_batch(rows, sum(v.nbytes for v in cols.values()),
                                               t1 - t0, t2 - t1)
-                    staged.update(host_cols)
+                    if self._keep_host:
+                        staged.update(host_cols)
                     # Not kept while the queue is full: on a process reader
                     # the host batch's columns may pin ring records.
                     del hb, cols, host_cols
@@ -834,6 +848,19 @@ class LoaderBase:
         return False
 
 
+def _pad_to(arrays, target_len: int):
+    """Arrays of one or more dimensions zero-padded (or cut) along the
+    first to ``target_len`` and stacked -> ``(stacked, int32 lengths)``,
+    the lengths before the cut."""
+    lengths = np.asarray([len(a) for a in arrays], np.int32)
+    first = arrays[0]
+    out = np.zeros((len(arrays), target_len) + first.shape[1:], dtype=first.dtype)
+    for i, a in enumerate(arrays):
+        n = min(len(a), target_len)
+        out[i, :n] = a[:n]
+    return out, lengths
+
+
 class DataLoader(LoaderBase):
     """Batches of a row reader, staged onto ``device``.
 
@@ -843,6 +870,9 @@ class DataLoader(LoaderBase):
     :param min_after_retrieve: shuffle-quality floor of the buffer (default
         half its capacity)
     :param seed: buffer RNG seed
+    :param shuffle_fast_rng: the buffer draws its indices in blocks of 63-bit
+        words (the default); ``False`` draws one bounded index a pop, the
+        stream the JAX package gives with ``shuffle_fast_rng=False``
 
     The other arguments are :class:`LoaderBase`'s (``telemetry`` defaults to
     the reader's registry). On the card a batch's fields under 1 MiB are
@@ -861,17 +891,22 @@ class DataLoader(LoaderBase):
                  drop_last: bool = True, pad_last: bool = False,
                  prefetch: int = 2, device="cuda", echo: int = 1,
                  dtype_policy: DTypePolicy = DEFAULT_POLICY,
-                 steps_per_epoch: Optional[int] = None, sharding=None, telemetry=None):
+                 steps_per_epoch: Optional[int] = None, sharding=None, telemetry=None,
+                 pad_variable_length_to=None, keep_host_fields: bool = True,
+                 shuffle_fast_rng: bool = True):
         super().__init__(batch_size, drop_last=drop_last, pad_last=pad_last, prefetch=prefetch,
                          device=device, echo=echo, dtype_policy=dtype_policy,
                          steps_per_epoch=steps_per_epoch, sharding=sharding,
                          telemetry=(telemetry if telemetry is not None
-                                    else getattr(reader, "telemetry", None)))
+                                    else getattr(reader, "telemetry", None)),
+                         pad_variable_length_to=pad_variable_length_to,
+                         keep_host_fields=keep_host_fields)
         self._reader = reader
         self._ngram = getattr(reader, "ngram", None)
         self._shuffling_capacity = shuffling_queue_capacity
         self._min_after = min_after_retrieve
         self._seed = seed
+        self._shuffle_fast_rng = bool(shuffle_fast_rng)
         if shuffling_queue_capacity and shuffling_queue_capacity > 1:
             self._ckpt_hazard = _SHUFFLE_HAZARD
 
@@ -886,7 +921,7 @@ class DataLoader(LoaderBase):
             min_after_retrieve=(self._min_after if self._min_after is not None
                                 else self._shuffling_capacity // 2),
             extra_capacity=max(1000, self._shuffling_capacity),
-            seed=self._seed)
+            seed=self._seed, batched_rng=self._shuffle_fast_rng)
         gauge_fns = self._register_shuffle_gauges(buf)
         shuffle_actuator = self._register_shuffle_actuator(buf)
         shuffle_time = self._shuffle_time
@@ -924,26 +959,36 @@ class DataLoader(LoaderBase):
     def _collate(self, rows) -> Dict[str, np.ndarray]:
         if self._ngram is not None:
             return self._collate_ngram(rows)
-        return {name: self._column(name, [getattr(r, name) for r in rows])
-                for name in rows[0]._fields}
+        out = {}
+        for name in rows[0]._fields:
+            out.update(self._columns(name, [getattr(r, name) for r in rows]))
+        return out
 
     def _varlen(self, name: str) -> bool:
         field = self._reader.schema.fields.get(name)
         return field is not None and any(d is None for d in field.shape)
 
-    def _column(self, name: str, values: list) -> np.ndarray:
-        """One field's values as a batch column: an object array for a
-        variable-length field (it stays on the host), else one stack; nulls
-        raise."""
+    def _pad_target(self, name: str):
+        return (self._pad_varlen.get(name) if isinstance(self._pad_varlen, dict)
+                else self._pad_varlen)
+
+    def _columns(self, name: str, values: list) -> Dict[str, np.ndarray]:
+        """One field's values as batch columns: for a variable-length field
+        padded to ``pad_variable_length_to`` with its ``<name>__len``, or
+        without it an object array (a host column); else one stack, nulls
+        raising."""
         if self._varlen(name):
+            if self._pad_varlen is not None:
+                padded, lengths = _pad_to(values, self._pad_target(name))
+                return {name: padded, name + "__len": lengths}
             arr = np.empty(len(values), object)
             for i, v in enumerate(values):
                 arr[i] = v
-            return arr
+            return {name: arr}
         if any(v is None for v in values):
             raise ValueError(f"Field {name!r} contains nulls; exclude the field "
                              f"or fill the nulls before batching")
-        return np.stack([np.asarray(v) for v in values])
+        return {name: np.stack([np.asarray(v) for v in values])}
 
     def _collate_ngram(self, windows) -> Dict[str, np.ndarray]:
         """NGram windows -> one array per field with the window offsets as
@@ -951,7 +996,9 @@ class DataLoader(LoaderBase):
         (``{name: (length, *shape)}``) stack once per field. Row windows
         (``{offset: namedtuple}``) stack per offset when every offset has
         the same fields, and otherwise flatten to ``"{name}/{offset}"`` keys
-        of ``(batch, *shape)``."""
+        of ``(batch, *shape)``. A variable-length field needs
+        ``pad_variable_length_to``; its ``__len`` column has the same
+        layout."""
         if self._ngram.dense:
             out = {}
             for name in windows[0]:
@@ -963,37 +1010,48 @@ class DataLoader(LoaderBase):
             return out
         offsets = sorted(windows[0].keys())
         fieldsets = [tuple(windows[0][o]._fields) for o in offsets]
-        fields = self._reader.schema.fields
 
         def column(name, values):
-            field = fields.get(name)
+            """(the batch-stacked array, its lengths or None) of one offset."""
             if any(v is None for v in values):
                 raise ValueError(f"Field {name!r} contains nulls; exclude the field "
                                  f"or fill the nulls before batching")
-            if field is not None and any(d is None for d in field.shape):
-                raise ValueError(f"Field {name!r} is variable-length; NGram windows "
-                                 f"stack into dense arrays: exclude the field or pad "
-                                 f"it at write time")
-            return np.stack([np.asarray(v) for v in values])
+            if self._varlen(name):
+                if self._pad_varlen is None:
+                    raise ValueError(f"Field {name!r} is variable-length; NGram windows "
+                                     f"stack into dense arrays: pass pad_variable_length_to, "
+                                     f"exclude the field or pad it at write time")
+                return _pad_to(values, self._pad_target(name))
+            return np.stack([np.asarray(v) for v in values]), None
 
         out = {}
         if all(fs == fieldsets[0] for fs in fieldsets):
             for name in fieldsets[0]:
-                out[name] = np.stack([column(name, [getattr(w[o], name) for w in windows])
-                                      for o in offsets], axis=1)
+                per_offset = [column(name, [getattr(w[o], name) for w in windows])
+                              for o in offsets]
+                out[name] = np.stack([arr for arr, _ in per_offset], axis=1)
+                if per_offset[0][1] is not None:
+                    out[name + "__len"] = np.stack([ln for _, ln in per_offset], axis=1)
         else:
             for o in offsets:
                 for name in windows[0][o]._fields:
-                    out[f"{name}/{o}"] = column(name, [getattr(w[o], name) for w in windows])
+                    arr, lengths = column(name, [getattr(w[o], name) for w in windows])
+                    out[f"{name}/{o}"] = arr
+                    if lengths is not None:
+                        out[f"{name}/{o}__len"] = lengths
         return out
 
     def _lazy_columns(self, batch) -> Dict[str, np.ndarray]:
         """One ColumnarBatch's columns as arrays, by :meth:`_collate`'s rule
-        (:meth:`_column`), applied once a column instead of once a row; an
+        (:meth:`_columns`), applied once a column instead of once a row; an
         array column of a fixed-shape field passes through."""
-        return {name: col if (isinstance(col, np.ndarray) and col.dtype != object
-                              and not self._varlen(name)) else self._column(name, list(col))
-                for name, col in batch.columns.items()}
+        out = {}
+        for name, col in batch.columns.items():
+            if isinstance(col, np.ndarray) and col.dtype != object and not self._varlen(name):
+                out[name] = col
+            else:
+                out.update(self._columns(name, list(col)))
+        return out
 
     def _lazy_host_batches(self):
         """The lazy row plane (the JAX package's ``_batch_native_host_batches``):
@@ -1250,7 +1308,7 @@ class InMemBatchedDataLoader(LoaderBase):
                     yield batch
 
 
-def aligned_steps_per_epoch(dataset_url: str, batch_size: int,
+def aligned_steps_per_epoch(dataset_url_or_urls, batch_size: int,
                             shard_count: Optional[int] = None,
                             drop_last: bool = True, shard_seed: Optional[int] = None,
                             filters=None, storage_options: Optional[dict] = None,
@@ -1267,14 +1325,16 @@ def aligned_steps_per_epoch(dataset_url: str, batch_size: int,
     initialised, else 1.
 
     The bound holds for readers that deliver every row of their shard (a
-    row reader, or a batched reader; not an NGram's windows).
-    ``storage_options`` and ``filesystem`` reach the store as the readers'
-    do."""
+    row reader, or a batched reader; not an NGram's windows). The row
+    counts come from the summary ``_metadata`` when it lists every planned
+    group (one read), else from the footers. ``storage_options`` and
+    ``filesystem`` reach the store as the readers' do."""
     from concurrent.futures import ThreadPoolExecutor
 
     import pyarrow.parquet as pq
 
-    from petastorm_tpu_torch.etl.dataset_metadata import DatasetContext, load_row_groups
+    from petastorm_tpu_torch.etl.dataset_metadata import (DatasetContext, load_row_groups,
+                                                          summary_row_group_row_counts)
     from petastorm_tpu_torch.reader import _apply_filters, _shard_row_groups
 
     if shard_count is None:
@@ -1283,18 +1343,25 @@ def aligned_steps_per_epoch(dataset_url: str, batch_size: int,
                        else 1)
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-    ctx = DatasetContext(dataset_url, storage_options=storage_options, filesystem=filesystem)
+    ctx = DatasetContext(dataset_url_or_urls, storage_options=storage_options,
+                         filesystem=filesystem)
     groups = load_row_groups(ctx)
     if filters:
         groups = _apply_filters(groups, filters)
+    paths = sorted({rg.path for rg in groups})
+    planned = collections.Counter(rg.path for rg in groups)
+    summary = summary_row_group_row_counts(ctx) or {}
+    summary = {os.path.normpath(p): rows for p, rows in summary.items()}
+    rows_by_path = {p: summary.get(os.path.normpath(p)) for p in paths}
+    if any(rows is None or len(rows) != planned[p] for p, rows in rows_by_path.items()):
+        # No summary, or a stale one: the footers.
+        def footer_rows(path):
+            with ctx.filesystem.open(path, "rb") as f:
+                md = pq.ParquetFile(f).metadata
+                return path, [md.row_group(i).num_rows for i in range(md.num_row_groups)]
 
-    def footer_rows(path):
-        with ctx.filesystem.open(path, "rb") as f:
-            md = pq.ParquetFile(f).metadata
-            return path, [md.row_group(i).num_rows for i in range(md.num_row_groups)]
-
-    with ThreadPoolExecutor(max_workers=10) as pool:
-        rows_by_path = dict(pool.map(footer_rows, sorted({rg.path for rg in groups})))
+        with ThreadPoolExecutor(max_workers=10) as pool:
+            rows_by_path = dict(pool.map(footer_rows, paths))
     steps = []
     for shard in range(shard_count):
         refs = _shard_row_groups(groups, shard, shard_count, shard_seed)

@@ -23,11 +23,13 @@ __all__ = ["LOWERING_TABLE", "lower_reader_kwargs"]
 #: kwarg -> the operator ids it induces or configures. Pseudo-targets:
 #: ``plan`` (plan-time row-group selection: filters, sharding, pruning run
 #: once, before any operator), ``optimizer`` (the autotune loop),
-#: ``telemetry`` (the ops plane's registry sidecars). The JAX
-#: package's rows for kwargs the port does not take are left out.
+#: ``telemetry`` (the ops plane's registry sidecars), ``compat``
+#: (petastorm's arguments, ignored). The JAX package's rows for kwargs the
+#: port does not take are left out.
 LOWERING_TABLE = {
     # store identity and planning inputs
     "dataset_url": ("plan",),
+    "dataset_url_or_urls": ("plan",),
     "schema_fields": ("decode", "materialize"),
     "storage_options": ("plan", "decode"),
     "filesystem": ("plan", "decode"),
@@ -67,6 +69,8 @@ LOWERING_TABLE = {
     # the fetch stage
     "readahead_depth": ("fetch",),
     "readahead_max_bytes": ("fetch",),
+    # transport
+    "serializer": ("transport",),
     # caches
     "cache_type": ("cache",),
     "cache_location": ("cache",),
@@ -84,6 +88,9 @@ LOWERING_TABLE = {
     "timeline_anomaly": ("telemetry",),
     "telemetry_publish": ("telemetry",),
     "tenant": ("telemetry",),
+    # petastorm's arguments, accepted for compatibility, warned about, ignored
+    "hdfs_driver": ("compat",),
+    "pyarrow_serialize": ("compat",),
 }
 
 
@@ -160,7 +167,10 @@ def lower_reader_kwargs(flavor: str, kwargs: dict, *,
             downstream=("decode",)))
 
     if pool_type == "process":
-        ops.append(transport_node(_induced(kwargs, "reader_pool_type")))
+        ops.append(transport_node(dict(
+            _induced(kwargs, "reader_pool_type"),
+            **({"serializer": type(kwargs["serializer"]).__name__}
+               if kwargs.get("serializer") is not None else {}))))
 
     if kwargs.get("sample_order", "free") == "deterministic":
         ops.append(OperatorNode(

@@ -68,7 +68,8 @@ def consult_plan_cache(plan: PipelinePlan, kwargs: dict, *, schema_field_names=N
         # A dummy pool is an explicit inline choice the optimizer keeps.
         plan.cache = "ineligible"
         return
-    plan.key = PlanKey.for_dataset(kwargs.get("dataset_url"), schema_field_names)
+    plan.key = PlanKey.for_dataset(kwargs.get("dataset_url") or kwargs.get("dataset_url_or_urls"),
+                                   schema_field_names)
     cache = cache or PlanCache()
     if not cache.enabled:
         plan.cache = "disabled"

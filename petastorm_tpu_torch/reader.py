@@ -473,6 +473,17 @@ def _coalesce_row_groups(refs, max_per_item: int):
     return out
 
 
+def _warn_compat_kwargs(hdfs_driver, pyarrow_serialize) -> None:
+    """petastorm's arguments that mean nothing here are accepted, so its
+    call sites run unchanged, and warned about."""
+    if hdfs_driver is not None:
+        warnings.warn("hdfs_driver is ignored: hdfs access goes through fsspec/pyarrow (HA "
+                      "failover via petastorm_tpu_torch.hdfs)", stacklevel=3)
+    if pyarrow_serialize:
+        warnings.warn("pyarrow_serialize was deprecated in petastorm and is a no-op here",
+                      DeprecationWarning, stacklevel=3)
+
+
 #: The one-time warnings already given in this process.
 _ONE_SHOT_WARNED: set = set()
 
@@ -492,7 +503,7 @@ def _check_refresh(refresh_interval_s, ctx) -> None:
         return
     if refresh_interval_s < 0:
         raise ValueError(f"refresh_interval_s must be >= 0, got {refresh_interval_s}")
-    if isinstance(ctx.root_path, list):
+    if ctx.is_multi_path:
         raise ValueError("refresh_interval_s needs a single dataset root to watch; multi-URL "
                          "views enumerate a fixed file list")
 
@@ -556,7 +567,7 @@ def _resolve_shard(cur_shard, shard_count):
     return 0, shard_count or 1
 
 
-def make_reader(dataset_url: str,
+def make_reader(dataset_url,
                 schema_fields=None,
                 reader_pool_type: str = "thread",
                 workers_count: int = 4,
@@ -604,9 +615,16 @@ def make_reader(dataset_url: str,
                 timeline_interval_s: Optional[float] = None,
                 timeline_anomaly: bool = True,
                 telemetry_publish: Optional[str] = None,
-                tenant: Optional[str] = None) -> "Reader":
+                tenant: Optional[str] = None,
+                hdfs_driver: Optional[str] = None,
+                pyarrow_serialize: bool = False,
+                convert_early_to_numpy: Optional[bool] = None) -> "Reader":
     """Reader over a store written by ``materialize_dataset_local`` (either
-    package's).
+    package's) or by petastorm itself (its pickled schema is read through
+    :mod:`petastorm_tpu_torch.etl.legacy`'s restricted unpickler).
+
+    :param dataset_url: the store's URL (``file://``, ``hdfs://``, any
+        fsspec scheme), or a list of data-file URLs in one filesystem
 
     :param schema_fields: UnischemaFields or name regexes narrowing the output,
         or an :class:`~petastorm_tpu_torch.ngram.NGram`: the reader then
@@ -798,12 +816,19 @@ def make_reader(dataset_url: str,
     abort, an SLO violation or an anomaly writes one bundle a reason
     (``python -m petastorm_tpu_torch.telemetry postmortem BUNDLE``).
 
+    ``hdfs_driver``, ``pyarrow_serialize`` and ``convert_early_to_numpy``
+    are petastorm's, accepted and ignored (the first two with a warning):
+    hdfs goes through fsspec and pyarrow, and the row workers always decode
+    to numpy.
+
     On ``reader_pool_type="process"`` the predicate, the transform and the
     retry policy must pickle into a spawned worker: a ``ValueError`` says so
     at construction. With ``autotune_config.placement`` a thread reader
     whose predicate, transform or retry policy does not pickle warns and
     does not tune its placement.
     """
+    _warn_compat_kwargs(hdfs_driver, pyarrow_serialize)
+    del convert_early_to_numpy   # the row workers always decode early
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
     cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
     ctx = DatasetContext(dataset_url, storage_options=storage_options, filesystem=filesystem)
@@ -855,7 +880,7 @@ def make_reader(dataset_url: str,
                   telemetry_publish=telemetry_publish, tenant=tenant)
 
 
-def make_batch_reader(dataset_url: str,
+def make_batch_reader(dataset_url_or_urls,
                       schema_fields=None,
                       reader_pool_type: str = "thread",
                       workers_count: int = 4,
@@ -903,12 +928,19 @@ def make_batch_reader(dataset_url: str,
                       timeline_interval_s: Optional[float] = None,
                       timeline_anomaly: bool = True,
                       telemetry_publish: Optional[str] = None,
-                      tenant: Optional[str] = None) -> "Reader":
+                      tenant: Optional[str] = None,
+                      hdfs_driver: Optional[str] = None,
+                      serializer=None) -> "Reader":
     """Columnar reader of any Parquet store (several files, with or without
     petastorm metadata; a store without it gets a schema inferred from its
     Arrow schema): one batch of ``{column: ndarray}`` per row group,
     through :meth:`Reader.next_batch`, or a namedtuple of those columns
     per ``next()``.
+
+    :param dataset_url_or_urls: the store's URL, or a list of data-file URLs
+        in one filesystem (a multi-URL view: planned from the files' parent
+        directory's row-group map when they share one, else their footers;
+        no live refresh)
 
     Fixed-size list columns come as ``(rows, size)`` blocks, lists with a
     declared shape as ``(rows, *shape)`` blocks (null rows NaN or 0), other
@@ -940,6 +972,12 @@ def make_batch_reader(dataset_url: str,
         view the rings (the unit's ordinal rides as Arrow schema metadata)
     :param refresh_interval_s: a live, appending dataset, as
         :func:`make_reader`
+    :param serializer: what a process worker publishes through its ring:
+        an :class:`~petastorm_tpu_torch.reader_impl.arrow_table_serializer.ArrowTableSerializer`
+        (the default; the columns view the ring) or a
+        :class:`~petastorm_tpu_torch.reader_impl.pickle_serializer.PickleSerializer`
+        (the default with ``convert_early_to_numpy``, which needs it)
+    :param hdfs_driver: petastorm's, accepted, warned about and ignored
 
     The other arguments are :func:`make_reader`'s; its memory cache keeps
     each group's Arrow table (the read, not a decode, is what it saves).
@@ -947,11 +985,13 @@ def make_batch_reader(dataset_url: str,
     plan's ``decode_transport`` fusion; ``PETASTORM_TPU_PLAN_FUSION=0``
     leaves it to the consumer).
     """
+    _warn_compat_kwargs(hdfs_driver, False)
     seed = _resolve_seed(seed, resume_state, shuffle_row_groups, shuffle_rows, sample_order)
     cur_shard, shard_count = _resolve_shard(cur_shard, shard_count)
     if isinstance(schema_fields, NGram):
         raise ValueError("NGram is not supported by make_batch_reader; use make_reader")
-    ctx = DatasetContext(dataset_url, storage_options=storage_options, filesystem=filesystem)
+    ctx = DatasetContext(dataset_url_or_urls, storage_options=storage_options,
+                         filesystem=filesystem)
     _check_refresh(refresh_interval_s, ctx)
     stored_schema = infer_or_load_unischema(ctx)
     from petastorm_tpu_torch.plan import lower_reader_kwargs
@@ -959,13 +999,19 @@ def make_batch_reader(dataset_url: str,
                                schema_field_names=_fingerprint_fields(stored_schema,
                                                                       schema_fields))
     _warn_predicate_bypasses_cache(predicate, memory_cache_size_bytes)
-    serializer = PickleSerializer() if convert_early_to_numpy else ArrowTableSerializer()
+    if serializer is None:
+        # Numpy dicts cannot travel as Arrow IPC.
+        serializer = PickleSerializer() if convert_early_to_numpy else ArrowTableSerializer()
+    elif convert_early_to_numpy and not isinstance(serializer, PickleSerializer):
+        raise ValueError("convert_early_to_numpy publishes numpy dicts, which only the "
+                         "PickleSerializer can carry; drop serializer= or "
+                         "convert_early_to_numpy")
     pool_factory = partial(_make_pool, workers_count=workers_count,
                            results_queue_size=results_queue_size, shuffle_rows=shuffle_rows,
                            seed=seed, serializer=serializer,
                            pool_profiling_enabled=pool_profiling_enabled,
                            ring_bytes=_ring_capacity_from_budget(autotune_config, workers_count))
-    return Reader(dataset_url, pool_factory(plan.pool_type), ctx=ctx,
+    return Reader(dataset_url_or_urls, pool_factory(plan.pool_type), ctx=ctx,
                   stored_schema=stored_schema, plan=plan, pool_factory=pool_factory,
                   rowgroup_pruning=rowgroup_pruning, rowgroup_coalescing=rowgroup_coalescing,
                   schema_fields=schema_fields,
@@ -996,13 +1042,13 @@ def make_batch_reader(dataset_url: str,
 #: The entry points' kwargs that lowering reads (the JAX package's set,
 #: less the kwargs the port does not take yet).
 _LOWERED_KWARGS = (
-    "dataset_url", "reader_pool_type", "workers_count", "results_queue_size",
+    "dataset_url", "dataset_url_or_urls", "reader_pool_type", "workers_count", "results_queue_size",
     "shuffle_row_groups", "shuffle_rows", "shuffle_row_drop_partitions", "predicate",
     "transform_spec", "num_epochs", "cur_shard", "shard_seed", "seed",
     "cache_type", "cache_location", "cache_size_limit", "memory_cache_size_bytes",
     "rowgroup_coalescing", "readahead_depth", "readahead_max_bytes",
     "rowgroup_subset", "row_materialization", "convert_early_to_numpy", "sample_order",
-    "shuffle_window", "refresh_interval_s", "autotune", "autotune_config")
+    "shuffle_window", "refresh_interval_s", "autotune", "autotune_config", "serializer")
 
 
 def _lowering_kwargs(entry_locals: dict) -> dict:

@@ -46,7 +46,7 @@ from petastorm_tpu_torch.workers_pool.worker_base import WorkerBase
 
 
 class BatchReaderWorker(WorkerBase):
-    """``args`` dict keys: ``dataset_url``, ``view_schema`` (the columns
+    """``args`` dict keys: ``dataset_url`` (a URL or a list), ``view_schema`` (the columns
     to read, as a Unischema), ``output_schema`` (after the transform),
     ``predicate`` and ``transform_spec`` (or None), ``shuffle_rows``,
     ``seed``, ``convert_early_to_numpy``, ``sample_order`` (one
@@ -107,7 +107,8 @@ class BatchReaderWorker(WorkerBase):
         cache = self.args.get("cache")
         if cache is None:
             return self._read_table(rowgroup, columns)
-        h = hashlib.md5(self.args["dataset_url"].encode()).hexdigest()
+        url = self.args["dataset_url"]
+        h = hashlib.md5((url if isinstance(url, str) else "|".join(url)).encode()).hexdigest()
         key = f"{h}:{rowgroup.path}:{rowgroup.row_group}:{','.join(sorted(columns))}"
         return cache.get(key, lambda: self._read_table(rowgroup, columns))
 

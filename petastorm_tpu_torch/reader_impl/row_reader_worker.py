@@ -421,7 +421,7 @@ def apply_batched_transform(transform_spec, cols: dict) -> dict:
 
 
 class RowReaderWorker(WorkerBase):
-    """``args`` dict keys: ``dataset_url``, ``schema``
+    """``args`` dict keys: ``dataset_url`` (a URL or a list), ``schema``
     (the stored Unischema), ``view_schema`` (the narrowed output),
     ``ngram`` (an NGram or None), ``predicate`` and ``transform_spec``
     (or None), ``shuffle_rows``, ``seed`` and
@@ -545,7 +545,8 @@ class RowReaderWorker(WorkerBase):
     def _cache_key(self, rowgroup, columns) -> str:
         """The JAX package's key: the store URL's md5, the file, the row
         group and the columns."""
-        h = hashlib.md5(self.args["dataset_url"].encode()).hexdigest()
+        url = self.args["dataset_url"]
+        h = hashlib.md5((url if isinstance(url, str) else "|".join(url)).encode()).hexdigest()
         return f"{h}:{rowgroup.path}:{rowgroup.row_group}:{','.join(sorted(columns))}"
 
     def _maybe_cached(self, rowgroup, drop_part, rng):

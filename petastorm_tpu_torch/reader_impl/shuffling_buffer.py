@@ -5,8 +5,9 @@ across groups before batching. ``RandomShufflingBuffer`` keeps up to
 ``shuffling_buffer_capacity`` rows and pops uniformly at random with the
 swap-with-last trick. Its index draws are the JAX package's: 63-bit words
 drawn in blocks of 1024 from ``np.random.default_rng(seed)``, each reduced
-modulo the live buffer size, so a seed gives the same stream in both
-packages. ``BatchShufflingBuffer`` is the lazy row plane's: it holds whole
+modulo the live buffer size, or with ``batched_rng=False`` one bounded
+``rng.integers`` draw a pop, so a seed gives the same stream in both
+packages either way. ``BatchShufflingBuffer`` is the lazy row plane's: it holds whole
 column batches and permutes each refill's pool at once, with the JAX
 package's ``default_rng(seed).permutation`` draws.
 """
@@ -26,12 +27,16 @@ class RandomShufflingBuffer:
     :param extra_capacity: allowance above capacity for one bulk
         ``add_many`` (a whole row group may arrive at once)
     :param seed: RNG seed for reproducible shuffles
+    :param batched_rng: draw the indices in blocks of ``_RNG_BLOCK_SIZE``
+        63-bit words, each reduced modulo the live size (the default); else
+        one bounded draw a pop, another seeded stream
     """
 
     def __init__(self, shuffling_buffer_capacity: int,
                  min_after_retrieve: int = 0,
                  extra_capacity: int = 1000,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None,
+                 batched_rng: bool = True):
         if min_after_retrieve >= shuffling_buffer_capacity:
             raise ValueError("min_after_retrieve must be smaller than "
                              "shuffling_buffer_capacity")
@@ -40,6 +45,7 @@ class RandomShufflingBuffer:
         self._min_after_retrieve = min_after_retrieve
         self._extra_capacity = extra_capacity
         self._rng = np.random.default_rng(seed)
+        self._batched_rng = bool(batched_rng)
         self._rand_block = None
         self._rand_pos = 0
         self._items = []
@@ -62,14 +68,23 @@ class RandomShufflingBuffer:
         if not self.can_retrieve:
             raise RuntimeError("Cannot retrieve: buffer below min_after_retrieve "
                                "and not finished, or empty")
+        if self._batched_rng:
+            idx = self._next_batched_index(len(self._items))
+        else:
+            idx = int(self._rng.integers(0, len(self._items)))
+        self._items[idx], self._items[-1] = self._items[-1], self._items[idx]
+        return self._items.pop()
+
+    def _next_batched_index(self, n: int) -> int:
+        """One index off the block of raw 63-bit words (drawn without a
+        bound, so one block serves every live size), modulo ``n``."""
         if self._rand_block is None or self._rand_pos >= len(self._rand_block):
             self._rand_block = self._rng.integers(0, 1 << 63, size=_RNG_BLOCK_SIZE,
                                                   dtype=np.uint64)
             self._rand_pos = 0
-        idx = int(self._rand_block[self._rand_pos]) % len(self._items)
+        v = int(self._rand_block[self._rand_pos])
         self._rand_pos += 1
-        self._items[idx], self._items[-1] = self._items[-1], self._items[idx]
-        return self._items.pop()
+        return v % n
 
     def finish(self):
         self._done_adding = True

@@ -22,10 +22,13 @@ site                fired
 ``discovery.footer`` per new-file footer read of the watcher (``key`` =
                     file path): ``ioerror``/``corruption`` leave the file
                     ``pending_retry``, ``latency`` models a slow footer
+``hdfs.call``       per proxied call of the HA HDFS client
+                    (:class:`~petastorm_tpu_torch.hdfs.namenode.HAHdfsClient`;
+                    ``key`` = the method's name)
 ==================  ========================================================
 
-The JAX package has more sites (its HDFS and service planes), which this
-package does not have.
+The JAX package has more sites (its service plane), which this package does
+not have.
 
 Determinism: ``at=N`` fires on exactly the Nth matching access *in this
 process* (each spawned worker counts its own accesses); ``rate=p`` draws

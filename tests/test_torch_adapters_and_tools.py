@@ -528,12 +528,20 @@ def test_filesystem_resolver_equals_jax(url):
     assert got.parsed_dataset_url == want.parsed_dataset_url
 
 
-def test_mixed_urls_and_hdfs_are_refused():
+def test_mixed_urls_and_hdfs_are_refused(monkeypatch):
+    """Mixed URLs are refused; an hdfs:// store whose namenode does not
+    answer is refused by the HA connector (its connection is mocked: no
+    namenode is contacted)."""
     from petastorm_tpu_torch.fs_utils import FilesystemResolver, get_filesystem_and_path_or_paths
+    from petastorm_tpu_torch.hdfs.namenode import HdfsConnectError, HdfsConnector
+
+    def refuse(cls, netloc, user=None, **kwargs):
+        raise IOError(f"no route to {netloc}")
+    monkeypatch.setattr(HdfsConnector, "hdfs_connect_namenode", classmethod(refuse))
     with pytest.raises(ValueError, match="share scheme"):
         get_filesystem_and_path_or_paths(["file:///a", "memory://b"])
-    with pytest.raises(ValueError, match="hdfs"):
-        FilesystemResolver("hdfs://namenode/ds")
+    with pytest.raises(HdfsConnectError, match="namenode:8020"):
+        FilesystemResolver("hdfs://namenode:8020/ds", hadoop_configuration={})
     with pytest.raises(ValueError, match="empty"):
         get_filesystem_and_path_or_paths([])
 

@@ -1542,3 +1542,67 @@ def test_refreshed_growth_epoch_feeds_k1_bit_equal_to_the_cpu(cuda_device, tmp_p
     assert kernels.launch_counts[KERNEL_NAME] == 4 and bad == 0
     assert sorted(ids[:64]) == list(range(64))
     assert sorted(ids[64:160]) == sorted(ids[160:]) == list(range(96))
+
+
+def test_petastorm_fixture_images_feed_k1_on_card_bit_equal_to_the_cpu(cuda_device):
+    """The committed store written by petastorm 0.13.1: its PNG and JPEG
+    images, read through the pickled schema and staged onto the card by
+    ``DataLoader``, equal petastorm's own decode, and K1 of each batch is
+    bit-equal to the plain version of that decode on the CPU."""
+    import os
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "legacy_ref")
+    arrays = np.load(os.path.join(fixture, "expected_values.npz"))
+    images = ("image_png", "image_jpeg")
+    kernels.reset_launch_counts()
+    bad, ids = 0, []
+    with make_reader(f"file://{fixture}", schema_fields=["id", *images],
+                     reader_pool_type="thread", workers_count=2,
+                     shuffle_row_groups=False) as reader:
+        for batch in DataLoader(reader, batch_size=10, device=cuda_device):
+            ids += batch["id"].tolist()
+            for name in images:
+                want = np.stack([arrays[f"{name}_{i}"] for i in batch["id"].tolist()])
+                assert batch[name].device.type == "cuda"
+                assert np.array_equal(batch[name].cpu().numpy(), want), name
+                out = normalize_images(batch[name])
+                plain = normalize_images_plain(torch.from_numpy(want))
+                bad += int((out.cpu().view(torch.int16) != plain.view(torch.int16)).sum())
+    torch.cuda.synchronize()
+    assert sorted(ids) == list(range(20))
+    assert kernels.launch_counts[KERNEL_NAME] == 4 and bad == 0
+
+
+def test_summary_planned_petastorm_store_delivers_the_cpu_ids_on_card(cuda_device, tmp_path):
+    """A store in petastorm's format whose row groups only a summary
+    ``_metadata`` lists: the deterministic stream staged onto the card
+    holds the CPU loader's ids in the CPU's order, and K1 of each batch
+    equals the plain version on the CPU's batch."""
+    import glob
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch.etl.dataset_metadata import write_summary_metadata
+    from torch_legacy_store import (LEGACY_UNISCHEMA_KEY, link_reference_store,
+                                    reference_unischema_pickle)
+    url = _image_store(tmp_path, rows=64)
+    pickled = reference_unischema_pickle("Img", [
+        ("id", np.int64, (), ("scalar", "LongType"), False),
+        ("image", np.uint8, (32, 40, 3), ("image", "jpeg", 90), False)])
+    root = f"{tmp_path}/ref"
+    link_reference_store(sorted(glob.glob(f"{tmp_path}/img/*.parquet")), root, pickled)
+    schema = pq.read_schema(f"{root}/_common_metadata")
+    pq.write_metadata(schema.with_metadata({LEGACY_UNISCHEMA_KEY: pickled}),
+                      f"{root}/_common_metadata")
+    write_summary_metadata(f"file://{root}")
+    kw = dict(reader_pool_type="thread", workers_count=2, seed=5, sample_order="deterministic")
+    runs = {}
+    for device in ("cpu", cuda_device):
+        kernels.reset_launch_counts()
+        ids, outs = [], []
+        with make_reader(f"file://{root}", **kw) as reader:
+            for batch in DataLoader(reader, batch_size=16, device=device):
+                ids += batch["id"].tolist()
+                outs.append(normalize_images(batch["image"]).cpu())
+        torch.cuda.synchronize()
+        runs[str(device)] = (ids, torch.cat(outs), kernels.launch_counts.get(KERNEL_NAME, 0))
+    (cpu_ids, cpu_out, _), (ids, out, launches) = runs["cpu"], runs[str(cuda_device)]
+    assert ids == cpu_ids and sorted(ids) == list(range(64))
+    assert launches == 4 and torch.equal(out.view(torch.int16), cpu_out.view(torch.int16))

@@ -15,8 +15,10 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "petastorm_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-#: The rank functions spawned ranks import by name (no JAX either).
-RANK_MODULES = sorted((REPO / "tests").glob("torch_*_ranks.py"))
+#: The rank functions spawned ranks import by name (no JAX either), and the
+#: writer of petastorm-format stores that chip_smoke.py imports.
+RANK_MODULES = sorted((REPO / "tests").glob("torch_*_ranks.py")) + [
+    REPO / "tests" / "torch_legacy_store.py"]
 #: The port's examples (run as scripts; importing one does no work).
 EXAMPLES = sorted((REPO / "examples").glob("torch_*/main.py"))
 
@@ -134,7 +136,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "petastorm_tpu_torch.plan.lowering", "petastorm_tpu_torch.plan.fusion",
             "petastorm_tpu_torch.plan.cache", "petastorm_tpu_torch.plan.optimizer",
             "petastorm_tpu_torch.explain", "petastorm_tpu_torch.explain.spec",
-            *OPS_PLANE_MODULES, *INDEX_MODULES, *LIVE_DATA_MODULES} <= set(modules)
+            *OPS_PLANE_MODULES, *INDEX_MODULES, *LIVE_DATA_MODULES,
+            *REFERENCE_STORE_MODULES} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO), "PYTHONPATH": str(REPO)})
@@ -145,7 +148,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 def test_rank_modules_import_without_jax_or_the_jax_package():
     names = [p.stem for p in RANK_MODULES]
     assert {"torch_seq_ranks", "torch_mesh_ranks", "torch_tp_ranks",
-            "torch_fsdp_ranks"} <= set(names)
+            "torch_fsdp_ranks", "torch_legacy_store"} <= set(names)
     proc = subprocess.run([sys.executable, "-c", _BLOCKER, *names], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={"PATH": "", "HOME": str(REPO),
@@ -225,7 +228,20 @@ WORKER_MODULES = ("petastorm_tpu_torch.workers_pool.process_pool",
                   "petastorm_tpu_torch.discovery", "petastorm_tpu_torch.discovery.listing",
                   "petastorm_tpu_torch.discovery.snapshot",
                   "petastorm_tpu_torch.discovery.admission",
-                  "petastorm_tpu_torch.discovery.watcher")
+                  "petastorm_tpu_torch.discovery.watcher",
+                  # A spawned worker unpickles a depickled petastorm schema
+                  # and opens hdfs:// stores.
+                  "petastorm_tpu_torch.etl.legacy", "petastorm_tpu_torch.hdfs",
+                  "petastorm_tpu_torch.hdfs.namenode")
+
+#: Stores written by petastorm and the rest of the reader's surface: the
+#: restricted unpickler, the HDFS HA resolver and the Arrow helpers import
+#: without torch.
+REFERENCE_STORE_MODULES = ("petastorm_tpu_torch.etl.legacy", "petastorm_tpu_torch.hdfs",
+                           "petastorm_tpu_torch.hdfs.namenode",
+                           "petastorm_tpu_torch.pyarrow_helpers",
+                           "petastorm_tpu_torch.pyarrow_helpers.batching_table_queue",
+                           "petastorm_tpu_torch.test_util.shuffling_analysis")
 
 #: Live appending datasets: the growth schedule, the ventilator, the epoch
 #: plan and the discovery plane import without torch.
@@ -277,6 +293,17 @@ def test_live_data_modules_import_with_torch_blocked():
                                "BLOCK_ALSO": "torch"})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert f"imported {len(LIVE_DATA_MODULES)}" in proc.stdout
+
+
+def test_reference_store_modules_import_with_torch_blocked():
+    modules = [*REFERENCE_STORE_MODULES, "torch_legacy_store"]
+    proc = subprocess.run([sys.executable, "-c", _BLOCKER, *modules], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={"PATH": "", "HOME": str(REPO),
+                               "PYTHONPATH": f"{REPO}:{REPO / 'tests'}",
+                               "BLOCK_ALSO": "torch"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"imported {len(modules)}" in proc.stdout
 
 
 def test_index_plane_imports_with_torch_blocked():
